@@ -32,12 +32,15 @@
 //   packed column per lane at an odd word stride (no bank conflicts on
 //   the reads), from coalesced 32-bit loads transposed with __byte_perm;
 //   the query rows sit beside it and are read as 16-byte broadcasts.
-// - dot products are __dp4a on packed int8 words, exact in int32.
+// - dot products are __dp4a on packed int8 words, exact in int32.  The
+//   staging and the dot loop are shared with K4 (ivf_stage.cuh).
 // - keys are built on the unsigned bit pattern: (u32)dots << 8 is defined
 //   for negative dots and gives the same bits as JAX's shift_left and
 //   torch's int32 arithmetic.  The wrapper bounds D so that it never wraps.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ivf_stage.cuh"
 
 namespace {
 
@@ -47,32 +50,6 @@ constexpr int GROUPS = 2;                    // row groups per CTA (share one st
 constexpr int THREADS = LANES * GROUPS;
 constexpr int CODE_MAX = 16;                 // block codes (4 bits)
 constexpr int32_t KMIN = -2147483647;        // -(2**31) + 1: invalid entry
-
-// Stage one block's [d, 128] chunk as one packed column per lane: word j of
-// column l holds d-rows 4j..4j+3.  Each task loads a 4x4 byte tile as four
-// coalesced 32-bit words (4 d-rows x 4 columns) and transposes it in
-// registers; all tasks of a thread are independent, so their loads overlap.
-__device__ __forceinline__ void stage_chunk(const int8_t* __restrict__ vsrc, int d, int blk,
-                                            int qstride, int32_t* col_s, int cstride) {
-  const int ntasks = (LANES / 4) * qstride;
-#pragma unroll 4
-  for (int task = threadIdx.x; task < ntasks; task += THREADS) {
-    const int m = task % (LANES / 4), j = task / (LANES / 4);
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = 4 * j + i;
-      w[i] = e < d ? *reinterpret_cast<const uint32_t*>(vsrc + (size_t)e * blk + 4 * m) : 0u;
-    }
-    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
-    int32_t* dst = col_s + (4 * m) * cstride + j;
-    dst[0] = (int32_t)__byte_perm(lo01, lo23, 0x5410);
-    dst[cstride] = (int32_t)__byte_perm(lo01, lo23, 0x7632);
-    dst[2 * cstride] = (int32_t)__byte_perm(hi01, hi23, 0x5410);
-    dst[3 * cstride] = (int32_t)__byte_perm(hi01, hi23, 0x7632);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 accum_planes_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap, d]
@@ -113,33 +90,16 @@ accum_planes_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap
     for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
 
     for (int b = tb; b <= t; ++b) {
-      stage_chunk(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
+      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
       // The routed rows change only with the block: load them once for a
       // one-block cluster, per block otherwise.
-      if (c == 0 || nb > 1) {
-        const int8_t* qsrc = qg + (size_t)b * qcap * d;
-        for (int i = threadIdx.x; i < GROUPS * ROWS * qstride * 4; i += THREADS) {
-          const int r = i / (qstride * 4), e = i % (qstride * 4);
-          q_b[i] = (cta_r0 + r < qcap && e < d) ? qsrc[(size_t)(cta_r0 + r) * d + e] : 0;
-        }
-      }
+      if (c == 0 || nb > 1)
+        stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
+                               qstride, q_b);
       __syncthreads();
 
       int32_t acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = 0;
-      const int32_t* mycol = col_s + lane * cstride;
-      for (int j = 0; j < qstride; j += 4) {
-        const int32_t v0 = mycol[j], v1 = mycol[j + 1], v2 = mycol[j + 2], v3 = mycol[j + 3];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int4 q4 = *reinterpret_cast<const int4*>(my_q + r * qstride + j);
-          acc[r] = __dp4a(v0, q4.x, acc[r]);
-          acc[r] = __dp4a(v1, q4.y, acc[r]);
-          acc[r] = __dp4a(v2, q4.z, acc[r]);
-          acc[r] = __dp4a(v3, q4.w, acc[r]);
-        }
-      }
+      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
 
       const bool valid = col < rows_valid[b];
       const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);

@@ -1,0 +1,295 @@
+// Kernel K4 of the IVF search path: the grouped cluster-major fine scan with
+// a per-row running top-k over binned survivors.
+//
+// Replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf.py,
+// cluster_major_scan_grouped (its _grouped_kernel, with binned_top2 and
+// _extract_topk from pallas_bruteforce.py).
+//
+// What it computes, for each run of blocks that ends at a block t with
+// block_last[t] = 1 (the run starts at the latest block_first at or before
+// t), and each routed query row r of block t:
+//   score(b, r, col) = float(int32 dot(qg[b, r], vec[b, :, col])) - bias[b, col]
+//                      (no subtraction without bias), -inf for col >= rows_valid[b];
+//   per block b and bin (col % 128), the DEPTH best (score, id) with
+//   id = row_base[b] + col, ties to the lowest id;
+//   those 128*DEPTH survivors of each block merged into a running top-k
+//   ordered by (score desc, id asc), written to out_v/out_i[t, r, :k].
+// Only block_last rows are written.  Entries past the last finite score
+// hold -inf and an unspecified id.
+//
+// What bounds it on the H100: on the dense walk, integer multiply-adds, as
+// for K1 (with dp4a and no tensor cores the instruction rate is the limit,
+// not memory).  On the recovery pass the kernel walks only the few runs
+// whose last block made the compacted list; most CTAs exit at once.
+//
+// Design (simple first; wgmma and TMA are later work):
+// - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
+//   DEPTH > 2): two row groups x 128 lanes, thread = (group, bin).  It
+//   walks back from t to the run's first block and then forward, one block
+//   at a time, so each block is binned and merged on its own, as on the TPU
+//   (a top-DEPTH per bin folded across blocks would keep fewer candidates).
+// - per block: 16 chunks of 128 columns, each staged transposed in shared
+//   memory and scored with __dp4a (ivf_stage.cuh, shared with K1); each
+//   thread keeps its bin's DEPTH best (score, chunk) per row in registers,
+//   inserted with strict > so an equal score keeps the earlier, lower id.
+//   The DEPTH survivors of a bin may be equal in value (K1's plane 2 is the
+//   opposite: the largest key DIFFERENT from plane 1).
+// - then the survivors go to shared memory (reusing the staging area) and
+//   one warp per row merges them into the row's running top-k (k <= 32, in
+//   shared memory): k passes of a warp argmax by (score desc, id asc) with
+//   shuffles.  A row is skipped when no survivor beats its k-th entry, the
+//   per-row form of the TPU kernel's `improves` skip.  Finite ids are unique
+//   (row_base differs between blocks), so the winner is removed by id.
+// - score = __int2float_rn(dot) then one __fsub_rn, the JAX kernel's order:
+//   the dot is exact in f32 (|dot| <= D*127^2 < 2^24), so scores are
+//   bit-equal to the plain version.
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "ivf_stage.cuh"
+
+namespace {
+
+constexpr int LANES = 128;               // bins: one per lane of a row group
+constexpr int GROUPS = 2;                // row groups per CTA (share one staged chunk)
+constexpr int THREADS = LANES * GROUPS;
+constexpr int WARPS = THREADS / 32;
+constexpr int K_MAX = 32;                // running top-k width in shared memory
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int DEPTH>
+struct Tile {
+  static constexpr int ROWS = DEPTH <= 2 ? 16 : 8;   // rows per group (registers)
+  static constexpr int CTA_ROWS = GROUPS * ROWS;
+  static constexpr int NCAND = DEPTH * LANES;        // survivors per row and block
+};
+
+// (v, i) ranks before (bv, bi): larger score, then lower id.
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+template <int DEPTH>
+__global__ void __launch_bounds__(THREADS)
+grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // [nblocks, qcap, d]
+                       const int8_t* __restrict__ vec,          // [nblocks, d, blk]
+                       const int32_t* __restrict__ block_first,   // [nblocks]
+                       const int32_t* __restrict__ block_last,    // [nblocks]
+                       const int32_t* __restrict__ rows_valid,    // [nblocks]
+                       const float* __restrict__ bias,          // [nblocks, blk] or null
+                       const int32_t* __restrict__ row_base,      // [nblocks]
+                       float* __restrict__ out_v,               // [nblocks, qcap, k]
+                       int32_t* __restrict__ out_i,             // [nblocks, qcap, k]
+                       int qcap, int d, int blk, int k, int qstride) {
+  constexpr int ROWS = Tile<DEPTH>::ROWS;
+  constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
+  constexpr int NCAND = Tile<DEPTH>::NCAND;
+  constexpr int PER_LANE = NCAND / 32;
+  const float NEG_INF = -INFINITY;
+
+  const int t = blockIdx.x;
+  if (block_last[t] == 0) return;
+  const int lane = threadIdx.x % LANES;
+  const int group = threadIdx.x / LANES;
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const int cta_r0 = blockIdx.y * CTA_ROWS;
+  const int cstride = qstride + 1;  // odd word stride: conflict-free column reads
+
+  // Shared memory: the running top-k, then a scan area (staged query rows
+  // and slab chunk) that the block's survivors reuse once the scan is done.
+  extern __shared__ int4 smem4[];
+  float* run_v = reinterpret_cast<float*>(smem4);                      // [CTA_ROWS][K_MAX]
+  int32_t* run_i = reinterpret_cast<int32_t*>(run_v + CTA_ROWS * K_MAX);
+  int32_t* q_s = run_i + CTA_ROWS * K_MAX;                             // [CTA_ROWS][qstride]
+  int32_t* col_s = q_s + CTA_ROWS * qstride;                           // [LANES][cstride]
+  float* cand_v = reinterpret_cast<float*>(q_s);                       // [CTA_ROWS][NCAND]
+  int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + CTA_ROWS * NCAND);
+  const int32_t* my_q = q_s + group * ROWS * qstride;
+
+  for (int i = threadIdx.x; i < CTA_ROWS * K_MAX; i += THREADS) {
+    run_v[i] = NEG_INF;
+    run_i[i] = 0;
+  }
+
+  int tb = t;  // the run's first block
+  while (tb > 0 && block_first[tb] == 0) --tb;
+  const int nchunks = blk / LANES;
+
+  for (int b = tb; b <= t; ++b) {
+    const int nvalid = rows_valid[b];
+    if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
+    stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
+                           reinterpret_cast<int8_t*>(q_s));
+    const float* brow = bias != nullptr ? bias + (size_t)b * blk : nullptr;
+
+    float tv[ROWS][DEPTH];
+    int tc[ROWS][DEPTH];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        tv[r][j] = NEG_INF;
+        tc[r][j] = 0;
+      }
+
+    for (int c = 0; c < nchunks; ++c) {
+      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
+      __syncthreads();
+      int32_t acc[ROWS];
+      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+      const int col = c * LANES + lane;
+      const bool valid = col < nvalid;
+      const float sub = brow != nullptr ? brow[col] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float x = __int2float_rn(acc[r]);
+        if (brow != nullptr) x = __fsub_rn(x, sub);
+        if (!valid) x = NEG_INF;
+        // Insert into the bin's sorted top-DEPTH; strict > keeps an equal,
+        // earlier (lower-id) entry ahead.  Descending j reads tv[j-1]
+        // before it is rewritten.
+#pragma unroll
+        for (int j = DEPTH - 1; j > 0; --j) {
+          if (x > tv[r][j - 1]) {
+            tv[r][j] = tv[r][j - 1];
+            tc[r][j] = tc[r][j - 1];
+          } else if (x > tv[r][j]) {
+            tv[r][j] = x;
+            tc[r][j] = c;
+          }
+        }
+        if (x > tv[r][0]) {
+          tv[r][0] = x;
+          tc[r][0] = c;
+        }
+      }
+      __syncthreads();  // col_s is restaged next
+    }
+
+    // Survivors to shared memory (over the scan area, now free).
+    const int rb = row_base[b];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        const int o = (group * ROWS + r) * NCAND + j * LANES + lane;
+        cand_v[o] = tv[r][j];
+        cand_i[o] = rb + tc[r][j] * LANES + lane;
+      }
+    __syncthreads();
+
+    // Merge: one warp per row.
+    for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
+      if (cta_r0 + rr >= qcap) continue;
+      float* sv = run_v + rr * K_MAX;
+      int32_t* si = run_i + rr * K_MAX;
+      const float kv = sv[k - 1];
+      const int ki = si[k - 1];
+      float cv[PER_LANE];
+      int ci[PER_LANE];
+      bool beats = false;
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) {
+        cv[i] = cand_v[rr * NCAND + i * 32 + wl];
+        ci[i] = cand_i[rr * NCAND + i * 32 + wl];
+        beats |= cv[i] > NEG_INF && better(cv[i], ci[i], kv, ki);
+      }
+      if (!__any_sync(FULL, beats)) continue;
+      float ov = wl < k ? sv[wl] : NEG_INF;
+      int oi = wl < k ? si[wl] : 0;
+      __syncwarp();
+      for (int p = 0; p < k; ++p) {
+        float bv = ov;
+        int bi = oi;
+#pragma unroll
+        for (int i = 0; i < PER_LANE; ++i)
+          if (better(cv[i], ci[i], bv, bi)) {
+            bv = cv[i];
+            bi = ci[i];
+          }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float v2 = __shfl_xor_sync(FULL, bv, off);
+          const int i2 = __shfl_xor_sync(FULL, bi, off);
+          if (better(v2, i2, bv, bi)) {
+            bv = v2;
+            bi = i2;
+          }
+        }
+        // Only -inf left: slots p.. of the old state held -inf already
+        // (any finite one would have won).  bv is the same in every lane.
+        if (bv == NEG_INF) break;
+        if (wl == 0) {
+          sv[p] = bv;
+          si[p] = bi;
+        }
+        if (ov == bv && oi == bi) ov = NEG_INF;
+#pragma unroll
+        for (int i = 0; i < PER_LANE; ++i)
+          if (cv[i] == bv && ci[i] == bi) cv[i] = NEG_INF;
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the survivors' area is restaged by the next block
+  }
+
+  __syncthreads();
+  for (int i = threadIdx.x; i < CTA_ROWS * k; i += THREADS) {
+    const int r = i / k, p = i % k;
+    if (cta_r0 + r >= qcap) continue;
+    const size_t o = ((size_t)t * qcap + cta_r0 + r) * k + p;
+    out_v[o] = run_v[r * K_MAX + p];
+    out_i[o] = run_i[r * K_MAX + p];
+  }
+}
+
+template <int DEPTH>
+int launch(const void* qg, const void* vec, const void* block_first, const void* block_last,
+           const void* rows_valid, const void* bias, const void* row_base, void* out_v,
+           void* out_i, int nblocks, int qcap, int d, int blk, int k, cudaStream_t stream) {
+  constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
+  const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
+  const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
+  const size_t scan = (size_t)(CTA_ROWS * qstride + LANES * (qstride + 1)) * sizeof(int32_t);
+  const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
+  const size_t smem = run + (scan > cand ? scan : cand);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        grouped_scan_i8_kernel<DEPTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
+  grouped_scan_i8_kernel<DEPTH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
+      static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() (0 = launched).  `bias` may be null (no-bias mode).
+// The wrapper guarantees blk % 128 == 0, 1 <= k <= 32 and 1 <= depth <= 4.
+extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
+                                   const void* block_last, const void* rows_valid,
+                                   const void* bias, const void* row_base, void* out_v,
+                                   void* out_i, int nblocks, int qcap, int d, int blk, int k,
+                                   int depth, void* stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (depth) {
+    case 1: return launch<1>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
+                             out_v, out_i, nblocks, qcap, d, blk, k, s);
+    case 2: return launch<2>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
+                             out_v, out_i, nblocks, qcap, d, blk, k, s);
+    case 3: return launch<3>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
+                             out_v, out_i, nblocks, qcap, d, blk, k, s);
+    case 4: return launch<4>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
+                             out_v, out_i, nblocks, qcap, d, blk, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,27 +1,33 @@
 """IVF (inverted-file) approximate k-NN index, cluster-major, in PyTorch
 (counterpart: ``rag_on_edge_tpu/models/ivf.py``).
 
-The search path ported here is the JAX package's headline configuration:
-``mode="cluster"`` with ``engine="auto"``, which resolves to the accum
-engine with the planes emit (``pallas_accum``), and the fp32 rescore.  It
-runs in six stages:
+The search path ported here is the JAX package's cluster-major mode with
+its defaults: ``engine="auto"``, which resolves to the accum engine with
+the planes emit (``pallas_accum``) where the index allows it and to the
+grouped engine (``pallas``) otherwise, the spilled-pair recovery pass
+where the auto policy turns it on, and the fp32 rescore.  It runs in six
+stages:
 
 1. coarse probe: a GEMM against the centroids (fp32, or bf16 inputs for
    the mid nlist tier) and a top-nprobe (:func:`coarse_probes_tiered`);
 2. probe inversion into a fixed-capacity cluster→query table
    (:func:`invert_probes`);
 3. query prep: int8 query quantization, the per-block routed query
-   gather, and the pre-shifted L2 bias rows (:meth:`IVFIndex._scan_inputs`);
-4. fine scan: kernel K1 (``ops/ivf_accum.py``);
-5. join: each (query, probe) pair's planes are gathered, kernel K2
-   (``ops/fused_topk.py``) selects the top-kk of the pool once B·pool
-   reaches ``8 << 20``, and rows are decoded from the keys;
+   gather, and the L2 bias (:meth:`IVFIndex._scan_inputs`);
+4. fine scan: kernel K1 (``ops/ivf_accum.py``), or kernel K4
+   (``ops/ivf_scan.py``) for the grouped engine; then, where pairs were
+   dropped past the routing capacity, the recovery pass rescans only
+   their clusters with K4 (:meth:`IVFIndex._recover`);
+5. join: each (query, probe) pair's planes (K1) or top-k (K4) are
+   gathered; for the planes, kernel K2 (``ops/fused_topk.py``) selects the
+   top-kk of the pool once B·pool reaches ``8 << 20``, and rows are
+   decoded from the keys;
 6. rescore: exact fp32 re-ranking, and padded rows back to original ids.
 
 The device is explicit (``device=``, default ``"cuda"``), never detected.
-The query-major mode, the XLA and grouped engines and the spilled-pair
-recovery pass are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+The query-major mode and the ``xla`` and ``pallas_routed`` engines are not
+ported yet; asking for them raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from rag_on_edge_tpu_torch.models import kmeans as kmeans_mod
-from rag_on_edge_tpu_torch.ops import distances, fused_topk, ivf_accum, quantize, topk
+from rag_on_edge_tpu_torch.ops import distances, fused_topk, ivf_accum, ivf_scan, quantize, topk
 from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
 
 __all__ = ["IVFIndex", "invert_probes", "coarse_tier", "coarse_arrays_host",
@@ -136,6 +142,7 @@ class IVFIndex:
     """
 
     PAD_BLOCK_DEFAULT = 512  # cluster slabs padded to this row multiple
+    CM_GROUP = 4  # blocks per group of kernel K4; recovery block lists round up to it
     COARSE_BF16_MIN_NLIST = COARSE_BF16_MIN_NLIST
     COARSE_FUSED_MIN_NLIST = COARSE_FUSED_MIN_NLIST
 
@@ -406,27 +413,31 @@ class IVFIndex:
 
     def _route(self, q: torch.Tensor, nprobe: int, qcap: int):
         """STAGES 1-2 → (probes [B, P], cq [nlist, qcap], slot [B, P],
-        spill, n_candidates [B]).  Spill counts dropped pairs whose
-        cluster holds rows (an empty cluster loses nothing)."""
+        lossy [B, P] bool, n_candidates [B]).  A lossy pair was dropped
+        past ``qcap`` and its cluster holds rows (an empty cluster loses
+        nothing); their count is the spill."""
         sizes = self._arrays["sizes"]
         probes = self._coarse_probes(q, nprobe)
         p_sizes = sizes[probes.long()]
         cq, slot, _ = invert_probes(probes, self.nlist, qcap)
-        spill = ((slot < 0) & (p_sizes > 0)).sum().to(torch.int32)
-        return probes, cq, slot, spill, p_sizes.sum(dim=1).to(torch.int32)
+        lossy = (slot < 0) & (p_sizes > 0)
+        return probes, cq, slot, lossy, p_sizes.sum(dim=1).to(torch.int32)
 
     def _scan_inputs(self, q: torch.Tensor, cq: torch.Tensor):
-        """STAGE 3 → (qb [nblocks, qcap, D'] routed queries per block,
+        """STAGE 3 → (qi [B, D'] the kernel-ready batch, qb [nblocks, qcap,
+        D'] routed queries per block, bias [nblocks, 1, blk] f32 or None,
         bias_rows [nblocks, 1, blk] int32 or None, alpha or None).
 
         int8: per-batch symmetric query scale ``sq``; for L2,
-        ``alpha = 2·sq·sb`` and the bias rows are
-        ``(round(norms/alpha) clipped to ±2**21) << 8`` minus the block and
-        chunk pack, each step one fp32 op in the JAX package's order."""
+        ``alpha = 2·sq·sb``, ``bias = norms/alpha`` (kernel K4 subtracts it
+        from the scores) and the bias rows of kernel K1 are
+        ``(round(bias) clipped to ±2**21) << 8`` minus the block and chunk
+        pack, each step one fp32 op in the JAX package's order.  fp32/bf16:
+        ``qi`` is the batch (with a ones column for L2) in the slab dtype."""
         a = self._arrays
         nblocks = a["vectors_t"].shape[0]
         blk = self.PAD_BLOCK
-        alpha = bias_rows = None
+        alpha = bias = bias_rows = None
         if self.dtype == "int8":
             qi, sq = quantize.quantize_int8(q)
             alpha = sq * torch.tensor(self._base_scale, dtype=torch.float32, device=q.device)
@@ -449,11 +460,18 @@ class IVFIndex:
                 qi = torch.cat([qi, torch.ones((q.shape[0], 1), dtype=qi.dtype,
                                                device=q.device)], dim=1)
             qi = qi.to(a["vectors_t"].dtype)
+        qb = self._routed_blocks(qi, cq, a["block_cluster"])
+        return qi, qb, bias, bias_rows, alpha
+
+    @staticmethod
+    def _routed_blocks(qi: torch.Tensor, cq: torch.Tensor,
+                       block_cluster: torch.Tensor) -> torch.Tensor:
+        """Each block's cluster's routed queries [len(block_cluster), qcap,
+        D'], zero rows for empty slots."""
         routed = (cq >= 0)[..., None]
-        qk = torch.where(routed, qi[cq.clamp_min(0).long()], torch.zeros((), dtype=qi.dtype,
-                                                                        device=q.device))
-        qb = qk[a["block_cluster"].long()].contiguous()
-        return qb, bias_rows, alpha
+        qk = torch.where(routed, qi[cq.clamp_min(0).long()],
+                         torch.zeros((), dtype=qi.dtype, device=qi.device))
+        return qk[block_cluster.long()].contiguous()
 
     def _scan(self, qb: torch.Tensor, bias_rows: torch.Tensor | None,
               bin_depth: int = 2) -> torch.Tensor:
@@ -462,6 +480,90 @@ class IVFIndex:
         return ivf_accum.cluster_major_accum_planes(
             qb, a["vectors_t"], a["block_first"], a["block_last"], a["rows_valid"],
             blk=self.PAD_BLOCK, bin2=bin_depth >= 2, bias_rows=bias_rows)
+
+    def _score_units(self, pv: torch.Tensor, alpha) -> torch.Tensor:
+        """K4 scores back to true-score units: ``alpha·pv`` for int8, ``2·pv``
+        for augmented L2 (its scores are l2_score / 2); -inf stays -inf."""
+        if alpha is not None:
+            return alpha * pv
+        return 2.0 * pv if self.metric == "l2" else pv
+
+    def _scan_grouped(self, qb: torch.Tensor, bias: torch.Tensor | None, kk: int,
+                      alpha, bin_depth: int = 2):
+        """STAGE 4, grouped engine: kernel K4 over the dense block walk →
+        (pv, pr) [nblocks, qcap, kk] in true-score units."""
+        a = self._arrays
+        pv, pr = ivf_scan.cluster_major_scan_grouped(
+            qb, a["vectors_t"], a["block_first"], a["block_last"], a["rows_valid"],
+            k=kk, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=bias, bin_depth=bin_depth)
+        return self._score_units(pv, alpha), pr
+
+    def _recover_tables(self, qi, probes, todo, bias, qcap2: int, cap_blocks: int):
+        """The inputs of one recovery pass: a second, sparse K4 walk over
+        only the clusters that still have ``todo`` pairs (the JAX package's
+        ``_cm_recover``).
+
+        The todo pairs are re-inverted into a fresh routed table (the rest
+        go to a sentinel cluster whose row is discarded), and the active
+        clusters' blocks are compacted, in storage order, into a list of
+        ``cap_blocks`` blocks that K4 walks with ``row_base = block·blk``.
+        A cluster is covered iff its last block made the list; blocks past
+        the list's active prefix get zero tables and are no-ops.
+        Returns ((qg, vectors_t, block_first, block_last, rows_valid, bias,
+        row_base) for K4, slot2 [B, P], cluster_inc [nlist] bool,
+        cluster_pos [nlist] — the row of each cluster's result)."""
+        a = self._arrays
+        bc_t = a["block_cluster"].long()
+        lb = a["last_block"].long()
+        probes2 = torch.where(todo, probes, torch.full_like(probes, self.nlist))
+        cq2, slot2, _ = invert_probes(probes2, self.nlist + 1, qcap2)
+        cq2 = cq2[: self.nlist]
+        active_c = cq2[:, 0] >= 0
+        active_b = active_c[bc_t] & (a["rows_valid"] > 0)
+        rank = torch.cumsum(active_b.to(torch.int32), 0) - 1
+        order = torch.argsort((~active_b).to(torch.int32), stable=True)
+        blocks_list = order[:cap_blocks]
+        inc_b = active_b & (rank < cap_blocks)
+        inc_list = inc_b[blocks_list]
+        cluster_pos = rank[lb].clamp(0, cap_blocks - 1)
+        cluster_inc = active_c & inc_b[lb]
+
+        def listed(name):
+            tab = a[name][blocks_list]
+            return torch.where(inc_list, tab, torch.zeros_like(tab))
+
+        scan = (self._routed_blocks(qi, cq2, bc_t[blocks_list]), a["vectors_t"][blocks_list],
+                listed("block_first"), listed("block_last"), listed("rows_valid"),
+                None if bias is None else bias[blocks_list],
+                (blocks_list * self.PAD_BLOCK).to(torch.int32))
+        return scan, slot2, cluster_inc, cluster_pos
+
+    def _recover(self, qi, probes, lossy, bias, alpha, k: int, qcap2: int,
+                 cap_blocks: int, passes: int, bin_depth: int = 2):
+        """STAGE 4b: ``passes`` recovery passes, each placing the pairs the
+        ones before left → (extra (vals [B, E], rows [B, E]) to join, in
+        true-score units, -inf where not placed; the residual todo
+        [B, P])."""
+        b = probes.shape[0]
+        ev, er = [], []
+        todo = lossy
+        for _ in range(passes):
+            scan, slot2, cluster_inc, cluster_pos = self._recover_tables(
+                qi, probes, todo, bias, qcap2, cap_blocks)
+            pv2, pr2 = ivf_scan.cluster_major_scan_grouped(
+                *scan[:5], k=k, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=scan[5],
+                row_base=scan[6], bin_depth=bin_depth)
+            pv2 = self._score_units(pv2, alpha)
+            placed = (slot2 >= 0) & cluster_inc[probes.long()]
+            ok2 = todo & placed  # todo already implies a non-empty cluster
+            flat2 = (cluster_pos[probes.long()] * qcap2 + slot2.clamp_min(0)).reshape(-1)
+            gv2 = pv2.reshape(-1, k)[flat2].reshape(b, -1, k)
+            gr2 = pr2.reshape(-1, k)[flat2].reshape(b, -1, k)
+            ev.append(torch.where(ok2[..., None], gv2, torch.full_like(gv2, _NEG_INF))
+                      .reshape(b, -1))
+            er.append(gr2.reshape(b, -1))
+            todo = todo & ~placed
+        return (torch.cat(ev, dim=1), torch.cat(er, dim=1)), todo
 
     def _join_pool(self, probes: torch.Tensor, slot: torch.Tensor,
                    pp: torch.Tensor) -> torch.Tensor:
@@ -478,10 +580,46 @@ class IVFIndex:
         gp = torch.where(ok[..., None], gp, torch.full_like(gp, ivf_accum.KMIN))
         return gp.reshape(b, -1)
 
-    def _cm_finish_planes(self, queries, probes, slot, pp, k, kk, rescore, alpha):
+    def _cm_finish(self, queries, probes, slot, pv, pr, k, kk, rescore, extra=None):
+        """STAGES 5-6 of the grouped engine: gather each (query, probe)
+        pair's K4 top-k from its cluster's last block, join the recovery
+        pass's ``extra`` candidates, top-kk, then rescore and map back to
+        original ids → (scores [B, k], ids [B, k])."""
+        a = self._arrays
+        b = probes.shape[0]
+        pl = probes.long()
+        ok = (slot >= 0) & (a["sizes"][pl] > 0)
+        qcap, ck = pv.shape[1], pv.shape[2]
+        flat = (a["last_block"][pl].long() * qcap + slot.clamp_min(0).long()).reshape(-1)
+        gv = pv.reshape(-1, ck)[flat].reshape(b, -1, ck)
+        gr = pr.reshape(-1, ck)[flat].reshape(b, -1)
+        gv = torch.where(ok[..., None], gv, torch.full_like(gv, _NEG_INF)).reshape(b, -1)
+        if extra is not None:
+            gv = torch.cat([gv, extra[0]], dim=1)
+            gr = torch.cat([gr, extra[1]], dim=1)
+        best_v, sel = topk.small_topk(gv, min(kk, gv.shape[1]))
+        return self._finish_rows(queries, best_v, torch.gather(gr, 1, sel.long()), k, rescore)
+
+    def _finish_rows(self, queries, best_v, best_r, k, rescore):
+        """STAGE 6: the rescore (or the top k as they are) and the map of
+        padded rows to original ids; -inf entries get id -1.  Rows under
+        -inf may be unwritten kernel output and are zeroed before any
+        lookup."""
+        best_r = torch.where(best_v > _NEG_INF, best_r, torch.zeros_like(best_r))
+        if rescore:
+            best_v, best_r = self._rescore_rows(queries, best_v, best_r, k)
+        else:
+            best_v, best_r = best_v[:, :k], best_r[:, :k]
+        ids = torch.where(best_v > _NEG_INF, self._arrays["reorder"][best_r.long()],
+                          torch.full_like(best_r, -1))
+        return best_v, ids.to(torch.int32)
+
+    def _cm_finish_planes(self, queries, probes, slot, pp, k, kk, rescore, alpha,
+                          extra=None):
         """STAGES 5-6: join, top-kk of the pool (K2 once B·pool >=
-        ``JOIN_FUSED_MIN``), row decode from the keys, then the rescore
-        and the map back to original ids → (scores [B, k], ids [B, k])."""
+        ``JOIN_FUSED_MIN``), row decode from the keys, the recovery pass's
+        ``extra`` candidates joined and top-kk again, then the rescore and
+        the map back to original ids → (scores [B, k], ids [B, k])."""
         a = self._arrays
         blk = self.PAD_BLOCK
         cmax = ivf_accum.CODE_MAX
@@ -510,14 +648,12 @@ class IVFIndex:
             if self.metric == "l2":
                 best_v = 2.0 * best_v  # augmented scores are l2_score / 2
         best_v = torch.where(valid, best_v, torch.full_like(best_v, _NEG_INF))
-        best_r = torch.where(valid, best_r, torch.zeros_like(best_r))
-        if rescore:
-            best_v, best_r = self._rescore_rows(queries, best_v, best_r, k)
-        else:
-            best_v, best_r = best_v[:, :k], best_r[:, :k]
-        ids = torch.where(best_v > _NEG_INF, a["reorder"][best_r.long()],
-                          torch.full_like(best_r, -1))
-        return best_v, ids.to(torch.int32)
+        if extra is not None:
+            gv = torch.cat([best_v, extra[0]], dim=1)
+            gr = torch.cat([best_r, extra[1]], dim=1)
+            best_v, sel2 = topk.small_topk(gv, kk)
+            best_r = torch.gather(gr, 1, sel2.long())
+        return self._finish_rows(queries, best_v, best_r, k, rescore)
 
     def _rescore_rows(self, queries, vals, rows, k):
         """Exact fp32 re-ranking of candidate padded rows → (scores [B, k],
@@ -617,6 +753,13 @@ class IVFIndex:
         overflow = self._est_max_load(batch, nprobe) - qcap
         return qcap < batch and overflow > max(batch / 256.0, 8.0)
 
+    def _auto_recover_passes(self, batch: int, nprobe: int, recover_qcap: int,
+                             max_passes: int = 8) -> int:
+        """Recovery passes sized so that qcap + passes·recover_qcap reaches
+        the estimated hottest-cell load, clipped to [1, max_passes]."""
+        need = self._est_max_load(batch, nprobe) - self._auto_qcap(batch, nprobe)
+        return int(np.clip(-(-need // max(recover_qcap, 1)), 1, max_passes))
+
     def _pick_mode(self, batch: int, nprobe: int) -> str:
         qm_rows = batch * min(nprobe, self.nlist) * (self.n_padded / self.nlist)
         return "cluster" if qm_rows >= self.n_padded else "query"
@@ -633,6 +776,9 @@ class IVFIndex:
         engine: str = "auto",
         rescore: bool | None = None,
         recover: bool | None = None,
+        recover_qcap: int | None = None,
+        recover_blocks: int | None = None,
+        recover_passes: int | None = None,
         bin_depth: int = 2,
         rescore_k: int | None = None,
     ):
@@ -640,15 +786,22 @@ class IVFIndex:
         ids [B, k] int32, n_candidates [B] int32).
 
         mode: "auto" | "cluster" ("query" is not ported yet).
-        engine: "auto" | "pallas_accum" — the accum fine scan (kernel K1)
-            with the planes join (kernel K2); the name is the JAX
-            package's.
+        engine: "auto" (pallas_accum where the index's layout allows it,
+            else pallas) | "pallas_accum" — the accum fine scan (kernel K1)
+            with the planes join (kernel K2); clusters of at most 16
+            blocks | "pallas" — the grouped fine scan (kernel K4).  The
+            names are the JAX package's.
         rescore: fp32 re-ranking of ``rescore_k`` (default 2k) candidates;
-            on by default for this engine.
-        recover: the spilled-pair recovery pass is not ported yet (it needs
-            kernel K4): ``True`` raises, and so does ``None`` where the JAX
-            package would turn it on.  Pass ``False`` to accept the spill,
-            which is counted in ``last_spill``.
+            on by default (both engines' selection is binned).
+        recover: the spilled-pair recovery pass (kernel K4 over only the
+            clusters that dropped routing pairs, :meth:`_recover`).
+            Default: on where the estimated hottest-cell overflow past qcap
+            is large (:meth:`_auto_recover`).  ``last_spill`` holds the
+            pairs still dropped after it.
+        recover_qcap / recover_blocks: capacity of each recovery pass
+            (default qcap, and nblocks/4 rounded up to ``CM_GROUP``).
+        recover_passes: recovery passes, each placing the pairs the ones
+            before left (default :meth:`_auto_recover_passes`).
         """
         b = queries.shape[0]
         if self.store == "compact" and mode == "auto":
@@ -661,43 +814,56 @@ class IVFIndex:
                 "ROADMAP Queue 1 item 9")
         if mode != "cluster":
             raise ValueError(f"unknown mode {mode!r}")
-        if engine in ("xla", "pallas", "pallas_routed"):
+        if engine in ("xla", "pallas_routed"):
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet — ROADMAP Queue 1 item 9 "
-                "(xla) / Queue 2 items 4 and 7 (pallas, pallas_routed)")
-        if engine not in ("auto", "pallas_accum"):
+                "(xla) / Queue 2 item 7 (pallas_routed)")
+        if engine not in ("auto", "pallas", "pallas_accum"):
             raise ValueError(f"unknown engine {engine!r}")
         self._ensure_kernel_state()
+        # The accum engine's packed key holds a 4-bit block code, a 4-bit
+        # chunk id and dots << 8.
         eligible = (self._cm_max_nb <= ivf_accum.CODE_MAX
                     and self.PAD_BLOCK <= 128 * ivf_accum.CODE_MAX
                     and self.dim <= self._accum_dim_cap())
-        if not eligible:
-            raise NotImplementedError(
-                f"this index needs the grouped engine (clusters up to "
-                f"{self._cm_max_nb} blocks, pad_block {self.PAD_BLOCK}, dim "
-                f"{self.dim}); it needs kernel K4, not ported yet — ROADMAP "
-                "Queue 2 item 4")
-        engine = "pallas_accum"
+        if engine == "auto":
+            engine = "pallas_accum" if eligible else "pallas"
+        elif engine == "pallas_accum" and not eligible:
+            raise ValueError(
+                f"engine='pallas_accum' needs clusters of at most {ivf_accum.CODE_MAX} "
+                f"blocks, pad_block <= {128 * ivf_accum.CODE_MAX} and dim <= "
+                f"{self._accum_dim_cap()}; this index has {self._cm_max_nb}-block "
+                f"clusters, pad_block {self.PAD_BLOCK} and dim {self.dim} — use "
+                "engine='pallas'")
         if rescore is None:
-            rescore = True  # the planes selection is binned, so always rescore
-        if recover:
-            raise NotImplementedError(
-                "recover=True needs kernel K4 (cluster_major_scan_grouped), "
-                "not ported yet — ROADMAP Queue 1 item 5")
-        if recover is None and self._auto_recover(b, nprobe):
-            raise NotImplementedError(
-                "the JAX package would run its recovery pass here "
-                "(_auto_recover); it is not ported yet — pass recover=False "
-                "to accept the counted spill (ROADMAP Queue 1 item 5)")
+            rescore = True  # both engines' selection is binned
+        if recover is None:
+            recover = self._auto_recover(b, nprobe)
         kk = self._auto_cluster_k(k, rescore, rescore_k)
         q = queries.to(self.device, torch.float32)
         nprobe = min(nprobe, self.nlist)
         qcap = qcap or self._auto_qcap(b, nprobe)
-        probes, cq, slot, spill, ncand = self._route(q, nprobe, qcap)
-        qb, bias_rows, alpha = self._scan_inputs(q, cq)
-        pp = self._scan(qb, bias_rows, bin_depth)
-        vals, ids = self._cm_finish_planes(q, probes, slot, pp, k, kk, rescore, alpha)
-        self.last_spill = spill
+        probes, cq, slot, lossy, ncand = self._route(q, nprobe, qcap)
+        qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq)
+        if engine == "pallas_accum":
+            pp = self._scan(qb, bias_rows, bin_depth)
+        else:
+            pv, pr = self._scan_grouped(qb, bias, kk, alpha, bin_depth)
+        extra, todo = None, lossy
+        if recover:
+            nblocks = self._arrays["vectors_t"].shape[0]
+            rq = recover_qcap or qcap
+            rb = min(recover_blocks or max(1, nblocks // 4), nblocks)
+            rb = -(-rb // self.CM_GROUP) * self.CM_GROUP
+            rp = recover_passes or self._auto_recover_passes(b, nprobe, rq)
+            extra, todo = self._recover(qi, probes, lossy, bias, alpha, kk, rq, rb, rp,
+                                        bin_depth)
+        if engine == "pallas_accum":
+            vals, ids = self._cm_finish_planes(q, probes, slot, pp, k, kk, rescore, alpha,
+                                               extra=extra)
+        else:
+            vals, ids = self._cm_finish(q, probes, slot, pv, pr, k, kk, rescore, extra=extra)
+        self.last_spill = todo.sum().to(torch.int32)
         self.last_engine = engine
         self.last_mode = mode
         return vals, ids, ncand

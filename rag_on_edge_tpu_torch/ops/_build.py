@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone into ``build/rag_on_edge_tpu_torch/lib<name>-<hash>.so`` under the
 repository root, then loaded with ``ctypes``.  The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  No PyTorch headers are included: a build
-takes seconds, not minutes.
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded.  No PyTorch headers are included: a build takes seconds, not
+minutes.
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # The shared headers are part of every build's input.
+    inputs = [src, *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in inputs)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,222 @@
+"""Kernel K4: the grouped cluster-major fine scan with a per-row running
+top-k (counterpart: ``rag_on_edge_tpu/ops/pallas_ivf.py::cluster_major_scan_grouped``).
+
+For every block ``j`` the routed queries ``qg_blocks[j]`` [qcap, D] are
+scored against the block's slab ``vectors_t[j]`` [D, blk]::
+
+    scores = float(dots) - bias[j]      int8 (dots exact in int32; bias optional)
+    scores = dots                       fp32 / bf16 (L2 rides an augmented column)
+
+and set to ``-inf`` past ``rows_valid[j]``.  Per row, each strided bin
+``col % nbins`` keeps its ``bin_depth`` best (value, id) with id
+``row_base[j] + col`` (:func:`topk.binned_top2`), and those survivors are
+merged into a running top-k (:func:`topk.extract_topk_ids`) that resets at
+``block_first`` and is written at ``block_last``: ``pv`` f32 and ``pr``
+int32, each ``[nblocks, qcap, k]``.  Only ``block_last`` rows are defined,
+and ids are compared only where ``pv > -inf``.
+
+:func:`cluster_major_scan_grouped` dispatches on the device of its inputs:
+CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
+launch ``csrc/ivf_grouped_scan.cu`` (int8 ± bias) or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rag_on_edge_tpu_torch.ops import _build, topk
+
+__all__ = ["LAUNCHES", "cluster_major_scan_grouped",
+           "cluster_major_scan_grouped_reference"]
+
+#: Launches of the CUDA kernel in this process; the plain version does not
+#: count.  A run that must show it went through the kernel sets it to 0
+#: before and reads it after.
+LAUNCHES = 0
+
+_NEG_INF = float("-inf")
+# What the CUDA kernel takes: 128 bins (one per lane of a row group), at
+# most 32 survivors per row (one per lane of the merging warp), bin depths
+# 1-4 (register arrays sized at compile time), and |dots| <= D·127² below
+# 2**24 so the fp32 plain version on the card is exact too.
+_CUDA_NBINS = 128
+_CUDA_K_MAX = 32
+_CUDA_DEPTH_MAX = 4
+_CUDA_DIM_MAX = 1024
+
+_FN = None
+
+
+def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
+           group, nbins, bin_depth, bias, row_base):
+    if blk % nbins:
+        raise ValueError(f"blk={blk} must be a multiple of nbins={nbins}")
+    if qg_blocks.dim() != 3:
+        raise ValueError(f"qg_blocks must be [nblocks, qcap, D], got {tuple(qg_blocks.shape)}")
+    nblocks, qcap, d = qg_blocks.shape
+    if nblocks % group:
+        raise ValueError(f"nblocks={nblocks} must be a multiple of group={group}")
+    if tuple(vectors_t.shape) != (nblocks, d, blk):
+        raise ValueError(f"vectors_t must be [nblocks, {d}, {blk}], got "
+                         f"{tuple(vectors_t.shape)}")
+    int_path = vectors_t.dtype == torch.int8
+    if int_path != (qg_blocks.dtype == torch.int8):
+        raise ValueError("int8 path requires BOTH qg_blocks and vectors_t int8")
+    if not int_path and vectors_t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {vectors_t.dtype}")
+    tabs = [("block_first", block_first), ("block_last", block_last),
+            ("rows_valid", rows_valid)]
+    if row_base is not None:
+        tabs.append(("row_base", row_base))
+    for name, tab in tabs:
+        if tuple(tab.shape) != (nblocks,) or tab.dtype != torch.int32:
+            raise ValueError(f"{name} must be [nblocks] int32, got "
+                             f"{tuple(tab.shape)} {tab.dtype}")
+    if bias is not None and (tuple(bias.shape) != (nblocks, 1, blk)
+                             or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be [nblocks, 1, {blk}] float32, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    if k < 1 or bin_depth < 1:
+        raise ValueError(f"k={k} and bin_depth={bin_depth} must be >= 1")
+    return nblocks, qcap, d, int_path
+
+
+def _run_walk(block_first: torch.Tensor, rows_valid: torch.Tensor):
+    """The walk over each run of blocks (a ``block_first`` up to the next
+    one), through its blocks that hold rows ("live"; the others merge
+    nothing) → (pos, prev, last, empty), per block: its position among the
+    live blocks of its run, the live block before it in the run (valid
+    where pos >= 1), the latest live block of its run at or before it, and
+    whether there is none."""
+    t = torch.arange(block_first.shape[0], dtype=torch.int64, device=block_first.device)
+    start = torch.cummax(torch.where(block_first > 0, t, torch.zeros_like(t)), 0).values
+    live = rows_valid > 0
+    last = torch.cummax(torch.where(live, t, torch.full_like(t, -1)), 0).values
+    prev = torch.cat([t.new_full((1,), -1), last[:-1]])
+    n_live = torch.cumsum(live.to(torch.int64), 0)
+    pos = (n_live - live.to(torch.int64)) - (n_live[start] - live[start].to(torch.int64))
+    return pos, prev, last, last < start
+
+
+def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
+                                         block_last, rows_valid, k, blk=2048,
+                                         group=4, nbins=128, bin_depth=2,
+                                         bias=None, row_base=None):
+    """Plain PyTorch K4, for every mode the JAX function takes → (pv, pr).
+
+    The TPU kernel walks the blocks in order; here the walk is batched by
+    position: every block merges its survivors into an empty state, then
+    each block at position s among the live blocks of its run merges into
+    the state left by the live block before it, s = 1, 2, ...  Blocks
+    without rows merge nothing and take the state of the latest live block
+    of their run.  The TPU kernel's ``improves`` skip is left out: it never
+    changes a value above ``-inf`` (block ids rise along a run and ties go
+    to the lowest id), only the ids of ``-inf`` fill."""
+    nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first, block_last,
+                                        rows_valid, k, blk, group, nbins, bin_depth,
+                                        bias, row_base)
+    dev = qg_blocks.device
+    if row_base is None:
+        row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    if int_path and dev.type == "cpu":
+        # torch.bmm on int8 returns int8 and wraps: upcast, exact in int32.
+        scores = torch.bmm(qg_blocks.to(torch.int32),
+                           vectors_t.to(torch.int32)).to(torch.float32)
+    else:
+        # int8 on CUDA: fp32 with TF32 off is exact (|dots| < 2**24).  bf16
+        # products are exact in fp32, as the JAX kernel's f32 accumulation.
+        scores = torch.bmm(qg_blocks.to(torch.float32), vectors_t.to(torch.float32))
+    if bias is not None:
+        scores = scores - bias
+    cols = torch.arange(blk, device=dev)
+    scores = torch.where((cols[None, :] < rows_valid[:, None])[:, None, :], scores,
+                         torch.full_like(scores, _NEG_INF))
+    tv, ti = topk.binned_top2(scores, row_base[:, None], blk, nbins, _NEG_INF,
+                              depth=bin_depth)
+    del scores
+    # The state a block_first resets to: k fill entries with id 0.
+    sv = torch.full((nblocks, qcap, k), _NEG_INF, dtype=torch.float32, device=dev)
+    si = torch.zeros((nblocks, qcap, k), dtype=torch.int32, device=dev)
+    sv, si = topk.extract_topk_ids(torch.cat([sv, tv], -1), torch.cat([si, ti], -1),
+                                   k, _NEG_INF)
+    pos, prev, last, empty = _run_walk(block_first, rows_valid)
+    pos = torch.where(rows_valid > 0, pos, torch.zeros_like(pos))
+    span = int(pos.max()) + 1 if nblocks else 1
+    for s in range(1, span):
+        at = torch.nonzero(pos == s).flatten()
+        mv, mi = topk.extract_topk_ids(torch.cat([sv[prev[at]], tv[at]], -1),
+                                       torch.cat([si[prev[at]], ti[at]], -1), k, _NEG_INF)
+        sv[at], si[at] = mv, mi
+    sv, si = sv[last.clamp_min(0)], si[last.clamp_min(0)]
+    sv[empty] = _NEG_INF
+    si[empty] = 0
+    return sv, si
+
+
+def _kernel():
+    """Build/load the CUDA library once and declare the C entry's types."""
+    global _FN
+    if _FN is None:
+        fn = _build.load_library("ivf_grouped_scan").ivf_grouped_scan_i8
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
+                               rows_valid, k, blk=2048, group=4, nbins=128,
+                               bin_depth=2, bias=None, row_base=None):
+    """K4 with the JAX signature → (pv [nblocks, qcap, k] f32,
+    pr [nblocks, qcap, k] int32); see the module docstring.
+
+    ``row_base`` [nblocks] int32 is each block's first row id (default
+    ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024) or raise."""
+    global LAUNCHES
+    dev = qg_blocks.device
+    if dev.type == "cpu":
+        return cluster_major_scan_grouped_reference(
+            qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk=blk,
+            group=group, nbins=nbins, bin_depth=bin_depth, bias=bias, row_base=row_base)
+    nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first, block_last,
+                                        rows_valid, k, blk, group, nbins, bin_depth,
+                                        bias, row_base)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not int_path:
+        raise NotImplementedError(
+            "the CUDA K4 covers the int8 modes; fp32/bf16 slabs on CUDA are "
+            "ROADMAP Queue 1 item 14 (use the plain version)")
+    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
+            or d > _CUDA_DIM_MAX):
+        raise ValueError(
+            f"the CUDA K4 takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
+            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
+            f"bin_depth={bin_depth}, D={d}")
+    if row_base is None:
+        row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    tensors = [qg_blocks, vectors_t, block_first, block_last, rows_valid, row_base]
+    if bias is not None:
+        tensors.append(bias)
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError("all K4 inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError("K4 inputs must be contiguous")
+    pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
+    pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
+                 block_last.data_ptr(), rows_valid.data_ptr(),
+                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+                 pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k, bin_depth, stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_grouped_scan_i8 launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return pv, pr

@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fill_value", "extract_topk", "iterative_topk", "small_topk",
-           "dedup_rows_by_id"]
+__all__ = ["fill_value", "extract_topk", "extract_topk_ids", "binned_top2",
+           "iterative_topk", "small_topk", "dedup_rows_by_id"]
+
+_BIG_ID = 2**30  # larger than any row id: the "no candidate" id of a min
 
 
 def fill_value(dtype: torch.dtype):
@@ -42,6 +44,49 @@ def extract_topk(scores: torch.Tensor, k: int):
         ids.append(idx)
         s.scatter_(1, idx.long(), fill)
     return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
+
+
+def extract_topk_ids(scores: torch.Tensor, col_ids: torch.Tensor, k: int, fill):
+    """``pallas_bruteforce._extract_topk``: k max-and-mask passes over the
+    last axis of ``scores`` [..., T] with ids ``col_ids`` [..., T] →
+    (vals [..., k], ids [..., k]).  Each pass takes the max, the LOWEST id
+    holding it, and masks every position with that id to ``fill``.  Ids
+    must be unique where a value is above ``fill``; once only fill values
+    are left, the passes return the lowest remaining id again and again."""
+    big = torch.tensor(_BIG_ID, dtype=col_ids.dtype, device=col_ids.device)
+    s = scores
+    vals, ids = [], []
+    for _ in range(k):
+        m = s.amax(dim=-1, keepdim=True)
+        idx = torch.where(s == m, col_ids, big).amin(dim=-1, keepdim=True)
+        vals.append(m)
+        ids.append(idx)
+        s = torch.where(col_ids == idx, torch.full_like(s, fill), s)
+    return torch.cat(vals, dim=-1), torch.cat(ids, dim=-1)
+
+
+def binned_top2(sc: torch.Tensor, row0, tile_w: int, nbins: int, fill, depth: int = 2):
+    """``pallas_bruteforce.binned_top2``: the top-``depth`` of every strided
+    bin ``col % nbins`` of ``sc[..., :tile_w]`` → (vals [..., depth·nbins],
+    ids [..., depth·nbins] int32), pass-major (all bins' best, then all
+    bins' second, ...).  A column's id is ``row0 + col``; ``row0`` is an
+    int or an int32 tensor that broadcasts against ``sc.shape[:-1]``.  Ties
+    go to the lowest id, and each later pass masks the winner by id."""
+    lead = sc.shape[:-1]
+    w = tile_w // nbins
+    s = sc[..., :tile_w].reshape(*lead, w, nbins)
+    r0 = torch.as_tensor(row0, dtype=torch.int32, device=sc.device)
+    rc = torch.arange(tile_w, dtype=torch.int32, device=sc.device).reshape(w, nbins)
+    rc = rc + r0[..., None, None]
+    big = torch.tensor(_BIG_ID, dtype=torch.int32, device=sc.device)
+    vals, ids = [], []
+    for _ in range(depth):
+        bmax = s.amax(dim=-2)
+        bid = torch.where(s == bmax[..., None, :], rc, big).amin(dim=-2)
+        vals.append(bmax)
+        ids.append(bid)
+        s = torch.where(rc == bid[..., None, :], torch.full_like(s, fill), s)
+    return torch.cat(vals, dim=-1), torch.cat(ids, dim=-1)
 
 
 def iterative_topk(scores: torch.Tensor, k: int):

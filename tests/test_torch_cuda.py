@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum
+from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -23,15 +23,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _k1_inputs(rng, sizes, blk, qcap, d):
+def _k1_inputs(rng, sizes, blk, qcap, d, lo=-127, hi=128):
     sizes = np.asarray(sizes)
     offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
     _, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
     pad = (-len(bf)) % 8
     bf, bl, rv = (np.pad(x, (0, pad)).astype(np.int32) for x in (bf, bl, rv))
     nb = len(bf)
-    qg = rng.integers(-127, 128, (nb, qcap, d), dtype=np.int8)
-    vt = rng.integers(-127, 128, (nb, d, blk), dtype=np.int8)
+    qg = rng.integers(lo, hi, (nb, qcap, d), dtype=np.int8)
+    vt = rng.integers(lo, hi, (nb, d, blk), dtype=np.int8)
     return qg, vt, bf, bl, rv
 
 
@@ -100,3 +100,60 @@ def test_k2_kernel_equal_to_plain(dev, make, k):
     torch.cuda.synchronize()
     assert fused_topk.LAUNCHES == before + 1
     assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias):
+    """K4 inputs; ``compact`` lays them out as the recovery pass does: the
+    blocks of every other cluster in storage order, then the rest with
+    zeroed tables, and row_base = block·blk."""
+    qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d, *((0, 2) if ties else ()))
+    nb = len(bf)
+    rb = np.arange(nb, dtype=np.int32) * blk
+    br = rng.uniform(0, 3000, (nb, 1, blk)).astype(np.float32) if bias else None
+    if compact:
+        active = ((np.cumsum(bf) - 1) % 2 == 0) & (rv > 0)
+        blocks = np.concatenate([np.nonzero(active)[0], np.nonzero(~active)[0]])
+        inc = active[blocks]
+        qg, vt, rb = qg[blocks], vt[blocks], rb[blocks]
+        bf, bl, rv = (np.where(inc, x[blocks], 0).astype(np.int32) for x in (bf, bl, rv))
+        br = None if br is None else br[blocks]
+    return qg, vt, bf, bl, rv, br, rb
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
+    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
+    ([700, 300, 129, 2000], 256, 100, 37, 32, False),      # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40], 2048, 24, 128, 20, True),            # scores 0..128: heavy ties
+], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_k4_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias, compact):
+    rng = np.random.default_rng(19)
+    qg, vt, bf, bl, rv, br, rb = (None if x is None else torch.from_numpy(x).to(dev)
+                                  for x in _k4_inputs(rng, sizes, blk, qcap, d, ties,
+                                                      compact, bias))
+    kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
+    before = ivf_scan.LAUNCHES
+    pv, pr = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES == before + 1
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(pv[rows], rv_[rows])
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
+def test_k4_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(20)
+    qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                for x in _k4_inputs(rng, [100], 128, 8, 16, False, False,
+                                                    False))
+    with pytest.raises(NotImplementedError):
+        ivf_scan.cluster_major_scan_grouped(qg.float(), vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError):  # more than 32 per row
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError):  # bins other than 128
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)

@@ -5,7 +5,8 @@ is searched by both packages at two block sizes: pad_block=512 (one block
 per cluster) and pad_block=128 (clusters span 1-3 blocks, exercising the
 block-code decode).  Every stage is compared: kernel state, probe
 inversion, query prep and bias rows, kernel K1's planes, the join and the
-rescore.  The synthetic corpus is integer-valued, so every fp32 score is
+rescore; then the recovery pass (kernel K4) and the grouped engine end to
+end.  The synthetic corpus is integer-valued, so every fp32 score is
 an exact integer and the comparisons are exact unless stated otherwise.
 """
 
@@ -66,8 +67,8 @@ def pair(jax_base):
 
 @jax.jit
 def _jax_prep(arrays, q, cq, base_scale):
-    """The JAX package's inline int8 query prep and planes bias rows
-    (models/ivf.py, cluster-major STAGE 3), as one jitted function."""
+    """The JAX package's inline int8 query prep, L2 bias and planes bias
+    rows (models/ivf.py, cluster-major STAGE 3), as one jitted function."""
     nblocks, _, blk = arrays["vectors_t"].shape
     sq = jquant.calibrate_scale(q)
     qi = jnp.clip(jnp.round(q / sq), -127, 127).astype(jnp.int8)
@@ -82,7 +83,7 @@ def _jax_prep(arrays, q, cq, base_scale):
     bias_rows = jax.lax.shift_left(br, 8) - pack[:, None, :]
     routed = (cq >= 0)[..., None]
     qk = jnp.where(routed, qi[jnp.clip(cq, 0)], jnp.zeros((), qi.dtype))
-    return qk[arrays["block_cluster"]], bias_rows, alpha
+    return qi, qk[arrays["block_cluster"]], bias, bias_rows, alpha
 
 
 @pytest.fixture(scope="session")
@@ -95,7 +96,8 @@ def jax_stages(pair, small_data):
         probes = j._coarse_probes(j._arrays, q, NPROBE)
         qcap = j._auto_qcap(q.shape[0], NPROBE)
         cq, slot, spill = jivf.invert_probes(probes, j.nlist, qcap)
-        qb, bias_rows, alpha = _jax_prep(j._arrays, q, cq, jnp.float32(j._base_scale))
+        qi, qb, bias, bias_rows, alpha = _jax_prep(j._arrays, q, cq,
+                                                   jnp.float32(j._base_scale))
         pp = pallas_ivf_dma.cluster_major_accum_planes(
             qb, j._arrays["vectors_t"], j._arrays["block_first"],
             j._arrays["block_last"], j._arrays["rows_valid"], blk=pb,
@@ -108,9 +110,9 @@ def jax_stages(pair, small_data):
                                                rescore, ncand, spill, alpha)
             fin[rescore] = (np.asarray(v), np.asarray(ids))
         out[pb] = dict(q=queries, probes=np.asarray(probes), qcap=qcap, cq=np.asarray(cq),
-                       slot=np.asarray(slot), qb=np.asarray(qb),
-                       bias_rows=np.asarray(bias_rows), alpha=np.asarray(alpha),
-                       pp=np.asarray(pp), fin=fin)
+                       slot=np.asarray(slot), qi=np.asarray(qi), qb=np.asarray(qb),
+                       bias=np.asarray(bias), bias_rows=np.asarray(bias_rows),
+                       alpha=np.asarray(alpha), pp=np.asarray(pp), fin=fin)
     return out
 
 
@@ -162,7 +164,9 @@ def test_invert_probes_equal(qcap):
 def test_query_prep_and_bias_rows_bit_equal(pair, jax_stages, pb):
     _, t = pair[pb]
     s = jax_stages[pb]
-    qb, bias_rows, alpha = t._scan_inputs(_t(s["q"]), _t(s["cq"]))
+    qi, qb, bias, bias_rows, alpha = t._scan_inputs(_t(s["q"]), _t(s["cq"]))
+    assert qi.numpy().tobytes() == s["qi"].tobytes()
+    assert bias.numpy().tobytes() == s["bias"].tobytes()
     assert qb.numpy().tobytes() == s["qb"].tobytes()
     assert bias_rows.numpy().tobytes() == s["bias_rows"].tobytes()
     assert alpha.numpy().tobytes() == s["alpha"].tobytes()
@@ -189,7 +193,7 @@ def test_slice_stage_by_stage_equal(pair, jax_stages, pb):
     np.testing.assert_array_equal(cq.numpy(), s["cq"])
     np.testing.assert_array_equal(slot.numpy(), s["slot"])
     q = _t(s["q"])
-    qb, bias_rows, alpha = t._scan_inputs(q, cq)
+    _, qb, _, bias_rows, alpha = t._scan_inputs(q, cq)
     pp = t._scan(qb, bias_rows)
     # Joined pool, against the JAX gather of the same planes.
     tl = np.asarray(j._arrays["last_block"])[s["probes"]]
@@ -252,9 +256,12 @@ def test_search_host_api_pads_tail_cyclically(pair, small_data):
     assert avg > 0
 
 
+POLICY_GRID = ((32, 4), (8192, 4), (8192, 16), (100, 1))
+
+
 def test_auto_policy_matches_jax(pair):
     j, t = pair[512]
-    for b, np_ in ((32, 4), (8192, 4), (8192, 16), (100, 1)):
+    for b, np_ in POLICY_GRID:
         assert t._auto_qcap(b, np_) == j._auto_qcap(b, np_)
         assert t._est_max_load(b, np_) == j._est_max_load(b, np_)
         assert t._auto_recover(b, np_) == j._auto_recover(b, np_)
@@ -262,16 +269,75 @@ def test_auto_policy_matches_jax(pair):
     assert t._auto_cluster_k(10, True, None) == j._auto_cluster_k(10, True, None)
 
 
+def test_auto_recover_passes_matches_jax(pair):
+    j, t = pair[512]
+    got = [t._auto_recover_passes(b, np_, rq) for b, np_ in POLICY_GRID for rq in (1, 8, 256)]
+    assert got == [j._auto_recover_passes(b, np_, rq)
+                   for b, np_ in POLICY_GRID for rq in (1, 8, 256)]
+    assert len(set(got)) > 1
+
+
+# Three recovery passes of 9 pairs each behind a main pass of qcap=4: a
+# capacity of 31 pairs per cluster.  The test batch's hottest cluster holds
+# 30 pairs, so recovery places every dropped pair; a batch of one query
+# repeated 32 times loads its 4 clusters with 32 each and leaves a residual.
+# Both runs share one compilation of the JAX search.  The third run is the
+# grouped engine (kernel K4) on the dense walk.
+RECOVER = dict(qcap=4, recover=True, recover_qcap=9, recover_blocks=16, recover_passes=3)
+RECOVERY_RUNS = {"recover": RECOVER, "residual": RECOVER, "grouped": dict(engine="pallas")}
+
+
+@pytest.mark.parametrize("run", list(RECOVERY_RUNS))
+def test_search_device_recovery_and_grouped_equal_jax(pair, small_data, run):
+    j, t = pair[512]
+    kw = RECOVERY_RUNS[run]
+    q = np.ascontiguousarray(small_data[1])
+    if run == "residual":
+        q = np.repeat(q[:1], len(q), axis=0)
+    jv, jids, jc = j.search_device(jnp.asarray(q), K, NPROBE, mode="cluster", **kw)
+    tv, tids, tc = t.search_device(_t(q), K, NPROBE, mode="cluster", **kw)
+    assert t.last_engine == j.last_engine
+    assert int(t.last_spill) == int(j.last_spill)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    if run == "recover":
+        assert int(t.last_spill) == 0
+        t.search_device(_t(q), K, NPROBE, mode="cluster", qcap=4, recover=False)
+        assert int(t.last_spill) > 0  # the pairs the recovery pass placed
+    elif run == "residual":
+        assert int(t.last_spill) == 4
+    else:
+        assert t.last_engine == "pallas"
+
+
+def test_auto_engine_falls_back_to_grouped(small_data):
+    """400-dim int8 L2 vectors are past the accum engine's 384 (its packed
+    key has no headroom for wider dots): ``engine="auto"`` takes the
+    grouped engine (K4), and asking for ``pallas_accum`` is refused."""
+    base, queries = small_data
+    vecs = np.tile(base, (1, 4))[:, :400]
+    qs = np.ascontiguousarray(np.tile(queries, (1, 4))[:, :400])
+    t = tivf.IVFIndex.from_arrays(vecs.mean(0, keepdims=True), vecs,
+                                  np.array([0, len(vecs)], np.int32),
+                                  np.arange(len(vecs), dtype=np.int32), metric="l2",
+                                  dtype="int8", pad_block=2048, device="cpu")
+    _, ids, _ = t.search_device(_t(qs), K, 1, mode="cluster")
+    assert t.last_engine == "pallas" and t.dim == 400 > t._accum_dim_cap()
+    assert recall_at_k(ids.numpy(), ground_truth(vecs, qs, K, metric="l2",
+                                                 device="cpu"), K) >= 0.99
+    with pytest.raises(ValueError, match="pallas_accum"):
+        t.search_device(_t(qs), K, 1, mode="cluster", engine="pallas_accum")
+
+
 def test_unported_paths_raise(pair, small_data):
     _, t = pair[512]
     q = _t(small_data[1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.search_device(q, K, NPROBE, mode="query")
-    for engine in ("xla", "pallas", "pallas_routed"):
+    for engine in ("xla", "pallas_routed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t.search_device(q, K, NPROBE, mode="cluster", engine=engine)
-    with pytest.raises(NotImplementedError, match="K4"):
-        t.search_device(q, K, NPROBE, mode="cluster", recover=True)
     with pytest.raises(NotImplementedError, match="K3"):
         tivf.coarse_probes_tiered(q, q, None, 2, tier="fused", coarse_metric="l2")
 
@@ -340,6 +406,14 @@ def test_port_runs_without_jax():
         ids, _, _ = idx.search(q, 5, nprobe=4, mode="cluster")
         r = recall_at_k(ids, ground_truth(base, q, 5, "l2", device="cpu"), 5)
         assert idx.last_engine == "pallas_accum" and r > 0.5, r
+        qt = torch.from_numpy(q)
+        idx.search_device(qt, 5, 4, mode="cluster", qcap=2, recover=False)
+        assert int(idx.last_spill) > 0
+        _, rids, _ = idx.search_device(qt, 5, 4, mode="cluster", qcap=2, recover=True,
+                                       recover_qcap=32,
+                                       recover_blocks=idx._arrays["vectors_t"].shape[0])
+        assert int(idx.last_spill) == 0
+        assert recall_at_k(rids.numpy(), ids, 5) >= 0.9
         new = [m for m, v in sys.modules.items() if v is not None and m not in before]
         assert not any(m == "jax" or m.startswith(("jax.", "rag_on_edge_tpu."))
                        for m in new), new

@@ -10,13 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from rag_on_edge_tpu.ops import pallas_ivf, pallas_ivf_dma, pallas_topk
+from rag_on_edge_tpu.ops import pallas_bruteforce, pallas_ivf, pallas_ivf_dma, pallas_topk
 from rag_on_edge_tpu.ops import quantize as jquant
 from rag_on_edge_tpu.ops import topk as jtopk
 from rag_on_edge_tpu.utils import datasets as jdatasets
 from rag_on_edge_tpu.utils import metrics as jmetrics
 from rag_on_edge_tpu_torch.ops import block_tables, distances, fused_topk, ivf_accum
-from rag_on_edge_tpu_torch.ops import quantize, topk
+from rag_on_edge_tpu_torch.ops import ivf_scan, quantize, topk
 from rag_on_edge_tpu_torch.utils import datasets, metrics
 
 
@@ -186,15 +186,15 @@ def test_monotone_key_roundtrip_matches_jax():
                                   x.view(np.int32))
 
 
-def _k1_inputs(rng, sizes, blk, qcap, d):
+def _k1_inputs(rng, sizes, blk, qcap, d, lo=-127, hi=128):
     sizes = np.asarray(sizes)
     offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
     _, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
     pad = (-len(bf)) % 8
     bf, bl, rv = (np.pad(x, (0, pad)).astype(np.int32) for x in (bf, bl, rv))
     nb = len(bf)
-    qg = rng.integers(-127, 128, (nb, qcap, d), dtype=np.int8)
-    vt = rng.integers(-127, 128, (nb, d, blk), dtype=np.int8)
+    qg = rng.integers(lo, hi, (nb, qcap, d), dtype=np.int8)
+    vt = rng.integers(lo, hi, (nb, d, blk), dtype=np.int8)
     return qg, vt, bf, bl, rv
 
 
@@ -240,3 +240,109 @@ def test_k1_rejects_bad_inputs():
         ivf_accum.cluster_major_accum_planes(
             wide, torch.zeros((8, 400, 128), dtype=torch.int8), bf, bl, rv, blk=128,
             bias_rows=torch.zeros((8, 1, 128), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_binned_top2_matches_jax(depth):
+    # Few distinct values, so bins hold equal values; one row is all -inf
+    # and one holds a single finite value.
+    sc = np.random.default_rng(16).integers(0, 4, (6, 512)).astype(np.float32)
+    sc[2] = -np.inf
+    sc[4, 1:] = -np.inf
+    jv, ji = pallas_bruteforce.binned_top2(jnp.asarray(sc), 1000, 512, 128, -np.inf, depth=depth)
+    tv, ti = topk.binned_top2(torch.from_numpy(sc), 1000, 512, 128, float("-inf"), depth=depth)
+    np.testing.assert_array_equal(tv.numpy(), _np(jv))
+    np.testing.assert_array_equal(ti.numpy(), _np(ji))
+
+
+def test_extract_topk_ids_matches_jax():
+    # K4's merge: a fill state (-inf, id 0) beside binned survivors whose
+    # values tie; ids of fill entries repeat.
+    rng = np.random.default_rng(17)
+    vals = np.concatenate([np.full((5, 8), -np.inf), rng.integers(0, 3, (5, 24))], 1)
+    ids = np.concatenate([np.zeros((5, 8)), rng.permutation(100)[:24][None].repeat(5, 0)], 1)
+    vals[3, 8:] = -np.inf
+    vals, ids = vals.astype(np.float32), ids.astype(np.int32)
+    jv, ji = pallas_bruteforce._extract_topk(jnp.asarray(vals), jnp.asarray(ids), 12, -np.inf)
+    tv, ti = topk.extract_topk_ids(torch.from_numpy(vals), torch.from_numpy(ids), 12,
+                                   float("-inf"))
+    np.testing.assert_array_equal(tv.numpy(), _np(jv))
+    np.testing.assert_array_equal(ti.numpy(), _np(ji))
+
+
+K4_BLK, K4_K = 512, 20
+# Clusters of 2, 0, 3, 1 and 1 blocks (the last too small to fill k, so its
+# rows end in -inf), padded to 8 blocks.
+K4_SIZES = [700, 0, 1300, 129, 10]
+
+
+def _k4_case(case):
+    """Inputs of one K4 case → (qg, vt, bf, bl, rv, bias, row_base, depth).
+    Shapes repeat across cases where they can, so the JAX kernel compiles
+    once for several of them."""
+    rng = np.random.default_rng(18)
+    ties = case == "i8-ties-d3"
+    qg, vt, bf, bl, rv = _k1_inputs(rng, K4_SIZES, K4_BLK, 12, 16,
+                                    *((0, 2) if ties else (-127, 128)))
+    nb = len(bf)
+    rb = np.arange(nb, dtype=np.int32) * K4_BLK
+    bias = None
+    if case.startswith("i8-bias"):
+        bias = rng.uniform(0, 3000, (nb, 1, K4_BLK)).astype(np.float32)
+    if ties:
+        # The 3-block cluster's later blocks score 0 everywhere, below every
+        # row's k-th value: the TPU kernel skips them (`improves` is false).
+        vt[3:5] = 0
+    if case == "f32-aug-d2":
+        qg = np.concatenate([qg.astype(np.float32) // 16, np.ones((nb, 12, 1), np.float32)], 2)
+        v = vt.astype(np.float32) // 16
+        vt = np.concatenate([v, -0.5 * np.sum(v * v, axis=1, keepdims=True)], 1)
+    if "compact" in case:
+        # The recovery pass's list: the blocks of clusters 2 and 4 in storage
+        # order, then the other blocks with zeroed tables, row_base = block·blk.
+        seg = np.cumsum(bf) - 1
+        active = np.isin(seg, [1, 3]) & (rv > 0)
+        blocks = np.concatenate([np.nonzero(active)[0], np.nonzero(~active)[0]])
+        inc = active[blocks]
+        qg, vt, rb = qg[blocks], vt[blocks], rb[blocks]
+        bf, bl, rv = (np.where(inc, x[blocks], 0).astype(np.int32) for x in (bf, bl, rv))
+        bias = None if bias is None else bias[blocks]
+    return qg, vt, bf, bl, rv, bias, rb, 3 if case.endswith("d3") else 2
+
+
+@pytest.mark.parametrize("case", ["i8-bias-dense-d2", "i8-bias-compact-d2", "i8-compact-d3",
+                                  "i8-ties-d3", "f32-aug-d2"])
+def test_k4_plain_equals_jax(case):
+    qg, vt, bf, bl, rv, bias, rb, depth = _k4_case(case)
+    jv, ji = pallas_ivf.cluster_major_scan_grouped(
+        *map(jnp.asarray, (qg, vt, bf, bl, rv)), k=K4_K, blk=K4_BLK, bin_depth=depth,
+        bias=None if bias is None else jnp.asarray(bias), row_base=jnp.asarray(rb))
+    tv, ti = ivf_scan.cluster_major_scan_grouped(
+        *map(torch.from_numpy, (qg, vt, bf, bl, rv)), k=K4_K, blk=K4_BLK, bin_depth=depth,
+        bias=None if bias is None else torch.from_numpy(bias), row_base=torch.from_numpy(rb))
+    rows = np.nonzero(bl)[0]
+    jv, ji, tv, ti = _np(jv)[rows], _np(ji)[rows], tv.numpy()[rows], ti.numpy()[rows]
+    np.testing.assert_array_equal(tv, jv)
+    fin = jv > -np.inf
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    assert fin.any()
+    if case == "i8-ties-d3":
+        assert not fin.all()  # the 10-row cluster cannot fill k=20
+        assert (jv[rows == 4][..., K4_K - 1] > 0).all()  # blocks 3-4 (all 0) were skipped
+        chunks = np.sort((qg[2].astype(np.int32) @ vt[2].astype(np.int32))
+                         .reshape(12, 4, 128), axis=1)
+        assert (chunks[:, -1] == chunks[:, -2]).any()  # a bin's two best are equal
+
+
+def test_k4_rejects_bad_inputs():
+    qg, vt, bf, bl, rv, _, _, _ = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                                   for x in _k4_case("i8-compact-d3"))
+    with pytest.raises(ValueError):  # blk not a multiple of nbins
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 5, blk=K4_BLK, nbins=96)
+    with pytest.raises(ValueError):  # nblocks not a multiple of group
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 5, blk=K4_BLK, group=3)
+    with pytest.raises(ValueError):  # mixed dtypes
+        ivf_scan.cluster_major_scan_grouped(qg.float(), vt, bf, bl, rv, 5, blk=K4_BLK)
+    with pytest.raises(ValueError):  # int32 bias
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 5, blk=K4_BLK,
+                                            bias=torch.zeros((8, 1, K4_BLK), dtype=torch.int32))
