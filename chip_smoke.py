@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SIFT-1M IVF search path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
+the IVF index and the brute-force index.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,12 @@ Phases, each printed with its wall time; any failure raises and the
 script exits non-zero without a result line:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile kernels K1 and K4 (CUDA C++, nvcc, in parallel) and
-             K2 (Triton) from the sources in this checkout.
+2. build   — compile kernels K1, K4, K3 and K5 (CUDA C++, one nvcc each,
+             all at once) and K2 (Triton) from the sources in this checkout.
+   setup   — the corpus, the IVF index, and the exact ground truth two
+             ways: the plain branch (the recall reference below) and
+             kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
+             two must be equal on all 10,000 queries.
 3. kernels — build the SIFT-1M index the slice searches, route one real
              B=8192 batch, and hold each kernel against its plain PyTorch
              version on the card at the slice's shapes (bit-equal planes,
@@ -25,6 +30,19 @@ script exits non-zero without a result line:
              and its stages.
 5. grouped — the same queries through ``engine="pallas"`` (kernel K4 over
              the dense block walk): recall and one B=8192 call's time.
+6. brute   — ``BruteForceIndex(base, metric="l2", dtype="int8")`` two ways:
+             the defaults (``engine="auto"``: accum, kernel K5, rescored)
+             and ``engine="pallas", rescore=True`` (kernel K3 binned).
+             K3 (int8 L2 binned and int8 IP exact) and K5 are held against
+             their plain versions on a B=512 slice of real queries over the
+             full base (exactly equal) and timed at B=8192; then all
+             10,000 queries through each engine with the counters reset
+             just before and read just after; recall@10 >= 0.99 (accum)
+             and >= 0.999 (pallas) against the plain ground truth.
+7. coarse  — one B=8192 batch through the fused coarse tier (kernel K3 on
+             the augmented centroids) of a second IVF index over the same
+             arrays, its tier threshold lowered on a subclass: K3 launched,
+             probes equal to the fp32 tier's except at stated near-ties.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -104,8 +122,10 @@ def main() -> None:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from rag_on_edge_tpu_torch import IVFIndex
-    from rag_on_edge_tpu_torch.ops import _build, fused_topk, ivf_accum, ivf_scan
+    from rag_on_edge_tpu_torch import BruteForceIndex, IVFIndex
+    from rag_on_edge_tpu_torch.models import ivf as ivf_mod
+    from rag_on_edge_tpu_torch.ops import (_build, bruteforce_accum, bruteforce_fused,
+                                           fused_topk, ivf_accum, ivf_scan, quantize)
     from rag_on_edge_tpu_torch.utils.datasets import ground_truth, make_synthetic
     from rag_on_edge_tpu_torch.utils.metrics import recall_at_k
 
@@ -116,13 +136,23 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t = time.time()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, side by side
-        list(ex.map(_build.load_library, ["ivf_accum_planes", "ivf_grouped_scan"]))
+    sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum"]
+    with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, all at once
+        list(ex.map(_build.load_library, sources))
     nvcc_s = time.time() - t
     t = time.time()
     fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
     torch.cuda.synchronize()
-    phase("build", t0, f"K1 + K4 nvcc {nvcc_s:.1f}s, K2 triton {time.time() - t:.1f}s")
+    phase("build", t0, f"K1 + K4 + K3 + K5 nvcc {nvcc_s:.1f}s, K2 triton "
+          f"{time.time() - t:.1f}s")
+
+    def reset_launches():
+        for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum):
+            mod.LAUNCHES = 0
+
+    def read_launches():
+        return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
+                "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
     t = time.time()
@@ -136,9 +166,25 @@ def main() -> None:
     nblocks = idx._arrays["vectors_t"].shape[0]
     phase("setup", t0, f"IVFIndex.build {time.time() - t:.1f}s nblocks={nblocks} "
           f"n_padded={idx.n_padded} max_cluster={idx.max_cluster_size}")
+    # The plain branch (a [512, N] fp32 score matrix is 2.05e9 bytes, under
+    # the 2 GiB rule) is the recall reference; the default chunk of 1024
+    # rows passes the rule and takes kernel K3 (exact fp32, k=10).
     t = time.time()
-    gt = ground_truth(base, queries, K, metric="l2", device=dev)
-    phase("setup", t0, f"ground truth {time.time() - t:.1f}s")
+    gt = ground_truth(base, queries, K, metric="l2", device=dev, query_chunk=512)
+    torch.cuda.synchronize()
+    gt_plain_s = time.time() - t
+    reset_launches()
+    t = time.time()
+    gt_fused = ground_truth(base, queries, K, metric="l2", device=dev)
+    torch.cuda.synchronize()
+    gt_launches = read_launches()["K3"]
+    phase("setup", t0, f"ground truth: plain branch {gt_plain_s:.1f}s, K3 branch "
+          f"{time.time() - t:.1f}s ({gt_launches} K3 launches); ids equal on "
+          f"{int((gt_fused == gt).all(axis=1).sum())} of {N_QUERIES} queries")
+    if gt_launches < 1:
+        raise AssertionError("the fused ground truth did not launch K3")
+    if not np.array_equal(gt_fused, gt):
+        raise AssertionError("the K3 ground truth differs from the plain branch")
 
     # ---- phase 3: each kernel against its plain version on one routed batch.
     qcap = idx._auto_qcap(BATCH, NPROBE)
@@ -247,9 +293,9 @@ def main() -> None:
         return recall_at_k(ids, gt, K), recall_at_k(ids[:, :1], gt[:, :1], 1)
 
     # ---- phase 4: the slice through the public entry point, with its defaults.
-    ivf_accum.LAUNCHES = fused_topk.LAUNCHES = ivf_scan.LAUNCHES = 0
+    reset_launches()
     ids, residual, wall = search_all()
-    launches = {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K4": ivf_scan.LAUNCHES}
+    launches = {name: n for name, n in read_launches().items() if name in ("K1", "K2", "K4")}
     engine = idx.last_engine
     spilled = [int(idx._route(torch.from_numpy(np.resize(queries[s:s + BATCH], (BATCH, DIM)))
                               .to(dev), NPROBE, qcap)[3].sum()) for s in range(0, N_QUERIES, BATCH)]
@@ -302,6 +348,181 @@ def main() -> None:
     if r10_g < 0.99:
         raise AssertionError(f"engine='pallas' recall@10 {r10_g} below 0.99")
 
+    # ---- phase 6: the brute-force index, its kernels K3 and K5, two engines.
+    t = time.time()
+    bf_auto = BruteForceIndex(base, metric="l2", dtype="int8", device=dev)
+    bf_pallas = BruteForceIndex(base, metric="l2", dtype="int8", engine="pallas",
+                                rescore=True, device=dev)
+    torch.cuda.synchronize()
+    ba, bp = bf_auto._arrays, bf_pallas._arrays
+    phase("brute", t0, f"two BruteForceIndex builds {time.time() - t:.1f}s: auto -> "
+          f"engine={bf_auto.engine} rescore={bf_auto.rescore} tiles "
+          f"{tuple(ba['base_tiles'].shape)} group={bf_auto._acc_group}; pallas base_t "
+          f"{tuple(bp['base_t'].shape)}; memory {bf_auto.memory_report()['TOTAL']:,} + "
+          f"{bf_pallas.memory_report()['TOTAL']:,} bytes")
+    if bf_auto.engine != "accum":
+        raise AssertionError(f"engine='auto' resolved to {bf_auto.engine}, not accum")
+
+    kq = 2 * K  # the rescore pool, rescore_depth·k
+    n_live = -(-N_BASE // bf_auto._acc_tile_n) * bf_auto._acc_tile_n  # columns K5 scores
+
+    def k3_args(qf, l2):
+        """K3's inputs as the pallas engine makes them (per-row int8
+        queries; alpha and the norms bias in L2 mode)."""
+        qv, qs = quantize.quantize_int8(qf, per_row=True)
+        if not l2:
+            return (qv, bp["base_t"], kq), {}
+        alpha = 2.0 * qs.reshape(-1) * bp["base_scale"]
+        return (qv, bp["base_t"], kq), dict(nbins=128, alpha=alpha, bias=bp["base_norms"])
+
+    def k5_args(qf):
+        """K5's inputs as the accum engine makes them (one global query
+        scale, the pre-shifted bias rows)."""
+        qv, qs = quantize.quantize_int8(qf, per_row=False)
+        alpha = 2.0 * qs * ba["base_scale"]
+        rows = bruteforce_accum.l2_bias_rows(ba["norms_tiled"], alpha, bf_auto._acc_group)
+        return (qv, ba["base_tiles"], N_BASE, kq), dict(group=bf_auto._acc_group,
+                                                         depth=bf_auto._acc_depth,
+                                                         bias_rows=rows)
+
+    SLICE = 512  # the plain versions score the whole [B, N] matrix: a B=512 slice
+    q_slice = torch.from_numpy(np.ascontiguousarray(queries[:SLICE])).to(dev)
+    q_full = torch.from_numpy(np.ascontiguousarray(queries[:BATCH])).to(dev)
+    brute = {}
+    for name, fn, plain, make in (
+            ("K3 int8-L2 bin128", bruteforce_fused.fused_topk_matmul,
+             bruteforce_fused.fused_topk_matmul_reference, lambda qf: k3_args(qf, True)),
+            ("K3 int8-IP exact", bruteforce_fused.fused_topk_matmul,
+             bruteforce_fused.fused_topk_matmul_reference, lambda qf: k3_args(qf, False)),
+            ("K5 int8-L2", bruteforce_accum.fused_topk_accum,
+             bruteforce_accum.fused_topk_accum_reference, k5_args)):
+        args, kw = make(q_slice)
+        v, i = fn(*args, **kw)
+        rv, ri = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(v, rv) or not torch.equal(i, ri):
+            raise AssertionError(f"{name} differs from its plain version on the B={SLICE} "
+                                 "slice")
+        err = float((v.double() - rv.double()).abs().max())
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3)
+        args, kw = make(q_full)
+        ms = cuda_ms(torch, lambda: fn(*args, **kw), reps=5)
+        cols = n_live if name.startswith("K5") else N_BASE
+        extra = (ba["base_tiles"].numel() + ba["norms_tiled"].numel() * 4
+                 if name.startswith("K5")
+                 else bp["base_t"].numel() + (BATCH + N_BASE) * 4 * ("L2" in name))
+        brute[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound(
+            BATCH * DIM + extra + BATCH * kq * 8, 2.0 * BATCH * cols * DIM, INT8_OPS_S))
+        phase("kernels", t0, f"{name} k={kq}: exactly equal to the plain version on "
+              f"[{SLICE},{DIM}] x [{DIM},{N_BASE}]; {ms} ms at B={BATCH} (bound "
+              f"{brute[name]['bound'][0]} ms by {brute[name]['bound'][1]}); plain {plain_ms} "
+              f"ms at B={SLICE}")
+        del v, i, rv, ri
+
+    # K3 in its fp32 exact mode at the ground truth's shapes (one 1024-row chunk).
+    bt_aug = torch.cat([torch.from_numpy(base.T.copy()),
+                        torch.from_numpy(-0.5 * np.sum(base ** 2, axis=1))[None, :]]).to(dev)
+    q_aug = torch.cat([torch.from_numpy(queries[:1024]),
+                       torch.ones((1024, 1))], dim=1).to(dev)
+    gt_ms = cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(q_aug, bt_aug, K), reps=3)
+    gt_bound = bound(bt_aug.numel() * 4 + q_aug.numel() * 4 + 1024 * K * 8,
+                     2.0 * 1024 * (DIM + 1) * N_BASE, OPS32_S)
+    phase("kernels", t0, f"K3 fp32 exact k={K} [1024,{DIM + 1}] x [{DIM + 1},{N_BASE}] "
+          f"(one ground-truth chunk): {gt_ms} ms (bound {gt_bound[0]} ms by {gt_bound[1]})")
+    del bt_aug, q_aug
+
+    # The GEMM floor for later work: torch._int_mm of the same int8 product,
+    # [8192,128] x [128,1M] -> int32, in 8 column blocks of 4.3 GB each.
+    qv8 = quantize.quantize_int8(q_full, per_row=True)[0]
+    step = N_BASE // 8
+    try:
+        int_mm_ms = sum(cuda_ms(torch, lambda s=s: torch._int_mm(
+            qv8, bp["base_t"][:, s:s + step]), reps=3) for s in range(0, N_BASE, step))
+        print(f"[gemm floor] torch._int_mm [{BATCH},{DIM}] x [{DIM},{N_BASE}] int8 -> int32 in "
+              f"8 column blocks: {int_mm_ms} ms on {card} (a library yardstick; the port "
+              "never calls it)", flush=True)
+    except RuntimeError as exc:
+        print(f"[gemm floor] torch._int_mm not measured: {exc}", flush=True)
+
+    def brute_all(idx):
+        """All queries in B=BATCH batches (the tail padded cyclically) →
+        (ids, launches, wall s)."""
+        reset_launches()
+        t = time.time()
+        parts = []
+        for s_ in range(0, N_QUERIES, BATCH):
+            chunk = queries[s_:s_ + BATCH]
+            vals, ids_ = idx.search_device(
+                torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev), K)
+            if not torch.isfinite(vals).all():
+                raise AssertionError("brute-force scores are not finite")
+            parts.append(ids_.cpu().numpy()[:chunk.shape[0]])
+        got = read_launches()
+        ids_ = np.concatenate(parts)
+        if ids_.shape != (N_QUERIES, K) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
+            raise AssertionError("brute-force ids out of shape or range")
+        return ids_, got, time.time() - t
+
+    ids_a, launch_a, wall_a = brute_all(bf_auto)
+    r10_a = recall_at_k(ids_a, gt, K)
+    auto_ms = cuda_ms(torch, lambda: bf_auto.search_device(q_full, K), reps=5)
+    phase("brute", t0, f"engine=auto ({bf_auto.engine}, rescore {bf_auto.rescore}) "
+          f"{N_QUERIES} queries {wall_a:.1f}s: launches={launch_a} recall@10={r10_a:.4f}; "
+          f"one B={BATCH} search_device {auto_ms} ms (information, not a claim)")
+    if launch_a["K5"] < 1:
+        raise AssertionError(f"engine='auto' did not launch K5: {launch_a}")
+    if r10_a < 0.99:
+        raise AssertionError(f"engine='auto' recall@10 {r10_a} below 0.99")
+    ids_p, launch_p, wall_p = brute_all(bf_pallas)
+    r10_p = recall_at_k(ids_p, gt, K)
+    pallas_ms = cuda_ms(torch, lambda: bf_pallas.search_device(q_full, K), reps=5)
+    phase("brute", t0, f"engine=pallas rescore=True {N_QUERIES} queries {wall_p:.1f}s: "
+          f"launches={launch_p} recall@10={r10_p:.4f}; one B={BATCH} search_device "
+          f"{pallas_ms} ms (information, not a claim)")
+    if launch_p["K3"] < 1:
+        raise AssertionError(f"engine='pallas' did not launch K3: {launch_p}")
+    if r10_p < 0.999:
+        raise AssertionError(f"engine='pallas' rescore=True recall@10 {r10_p} below 0.999")
+    del bf_auto, bf_pallas, ba, bp
+
+    # ---- phase 7: the fused coarse tier (K3) on a second index over the same arrays.
+    class FusedTierIVF(IVFIndex):
+        COARSE_FUSED_MIN_NLIST = NLIST
+
+    t = time.time()
+    fidx = FusedTierIVF.from_arrays(idx._centroids_np, idx._vectors_np, idx._offsets_np,
+                                    idx._reorder_np, metric="l2", dtype="int8",
+                                    pad_block=PAD_BLOCK, config=dict(idx.config), device=dev)
+    if fidx._coarse_tier != "fused":
+        raise AssertionError(f"the second index took the {fidx._coarse_tier} tier")
+    reset_launches()
+    vals_f, ids_f, _ = fidx.search_device(q_full, K, NPROBE)
+    torch.cuda.synchronize()
+    launch_f = read_launches()
+    probes_f = fidx._coarse_probes(q_full, NPROBE)
+    a = idx._arrays
+    probes_32 = ivf_mod.coarse_probes_tiered(q_full, a["centroids"], a["centroid_norms"], NPROBE,
+                                             tier="fp32", coarse_metric="l2")
+    # Where the two probe lists differ, position by position, the two probes
+    # must score within NEAR of each other in fp64: a near-tie that the two
+    # fp32 sum orders broke differently.
+    cents = a["centroids"].double()
+    s64 = 2.0 * q_full.double() @ cents.T - (cents * cents).sum(1)[None, :]
+    differ = (probes_f != probes_32).any(dim=1)
+    NEAR = 1.0  # score units of 2q·c − ‖c‖² (~1e6 here): ~1e-6 relative, fp32 rounding
+    far = ((torch.gather(s64, 1, probes_f.long()) - torch.gather(s64, 1, probes_32.long()))
+           .abs() > NEAR).any(dim=1)
+    r10_f = recall_at_k(ids_f.cpu().numpy(), gt[:BATCH], K)
+    phase("coarse", t0, f"fused tier on nlist={NLIST} ({time.time() - t:.1f}s with the "
+          f"build): launches={launch_f}; probe lists differ from the fp32 tier's on "
+          f"{int(differ.sum())} of {BATCH} rows, {int(far.sum())} of them not near-ties "
+          f"(fp64 scores of the two probes more than {NEAR} apart); recall@10 of the batch "
+          f"{r10_f:.4f}")
+    if launch_f["K3"] < 1:
+        raise AssertionError(f"the fused coarse tier did not launch K3: {launch_f}")
+    if int(far.sum()):
+        raise AssertionError("fused-tier probes differ from the fp32 tier's beyond near-ties")
+
     kernels = [
         {"name": "cluster_major_accum_planes", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
@@ -321,6 +542,21 @@ def main() -> None:
          "launches": launches["K4"], "max_abs_err": max(k4[n]["err"] for n in k4),
          "ms": k4["recovery"]["ms"], "plain_ms": k4["recovery"]["plain_ms"],
          "bound_ms": k4["recovery"]["bound"][0], "bound_by": k4["recovery"]["bound"][1],
+         "library_ms": None},
+        {"name": "fused_topk_matmul", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/bruteforce_fused.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce.py:193",
+         "launches": launch_p["K3"],
+         "max_abs_err": max(brute["K3 int8-L2 bin128"]["err"], brute["K3 int8-IP exact"]["err"]),
+         "ms": brute["K3 int8-L2 bin128"]["ms"], "plain_ms": brute["K3 int8-L2 bin128"]["plain_ms"],
+         "bound_ms": brute["K3 int8-L2 bin128"]["bound"][0],
+         "bound_by": brute["K3 int8-L2 bin128"]["bound"][1], "library_ms": None},
+        {"name": "fused_topk_accum", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/bruteforce_accum.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce_dma.py:212",
+         "launches": launch_a["K5"], "max_abs_err": brute["K5 int8-L2"]["err"],
+         "ms": brute["K5 int8-L2"]["ms"], "plain_ms": brute["K5 int8-L2"]["plain_ms"],
+         "bound_ms": brute["K5 int8-L2"]["bound"][0], "bound_by": brute["K5 int8-L2"]["bound"][1],
          "library_ms": None},
     ]
     print(card_line(), flush=True)

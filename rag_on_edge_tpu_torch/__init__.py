@@ -4,10 +4,13 @@ Same layout as the JAX package, so each module's counterpart is easy to
 find:
 
 - ``utils``  — synthetic SIFT corpora, exact ground truth, recall.
-- ``ops``    — quantization, distances, top-k, block tables, and the two
-  hand-written Hopper kernels of the IVF search path (``ivf_accum``:
-  CUDA C++, ``fused_topk``: Triton) with their plain PyTorch versions.
-- ``models`` — k-means and the cluster-major ``IVFIndex``.
+- ``ops``    — quantization, distances, top-k, block tables, and the
+  hand-written Hopper kernels with their plain PyTorch versions: the IVF
+  scan kernels (``ivf_accum``, ``ivf_scan``: CUDA C++; ``fused_topk``:
+  Triton) and the brute-force kernels (``bruteforce_fused``,
+  ``bruteforce_accum``: CUDA C++).
+- ``models`` — k-means, the cluster-major ``IVFIndex`` and the
+  ``BruteForceIndex``.
 - ``csrc``   — the kernel sources, built on first use by ``ops._build``.
 
 The port imports torch and numpy, never jax.
@@ -24,6 +27,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex  # noqa: E402
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex  # noqa: E402
 
-__all__ = ["IVFIndex", "__version__"]
+__all__ = ["BruteForceIndex", "IVFIndex", "__version__"]

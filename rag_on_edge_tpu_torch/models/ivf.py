@@ -9,7 +9,8 @@ where the auto policy turns it on, and the fp32 rescore.  It runs in six
 stages:
 
 1. coarse probe: a GEMM against the centroids (fp32, or bf16 inputs for
-   the mid nlist tier) and a top-nprobe (:func:`coarse_probes_tiered`);
+   the mid nlist tier) and a top-nprobe, or kernel K3
+   (``ops/bruteforce_fused.py``) from nlist 8192 (:func:`coarse_probes_tiered`);
 2. probe inversion into a fixed-capacity cluster→query table
    (:func:`invert_probes`);
 3. query prep: int8 query quantization, the per-block routed query
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 
 from rag_on_edge_tpu_torch.models import kmeans as kmeans_mod
-from rag_on_edge_tpu_torch.ops import distances, fused_topk, ivf_accum, ivf_scan, quantize, topk
+from rag_on_edge_tpu_torch.ops import (bruteforce_fused, distances, fused_topk, ivf_accum,
+                                       ivf_scan, quantize, topk)
 from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
 
 __all__ = ["IVFIndex", "invert_probes", "coarse_tier", "coarse_arrays_host",
@@ -68,14 +70,19 @@ def coarse_tier(nlist: int, *, bf16_min: int | None = None,
 
 def coarse_arrays_host(centroids: np.ndarray, coarse_metric: str,
                        tier: str) -> tuple[torch.Tensor, np.ndarray | None]:
-    """Tier-appropriate host centroid arrays ``(cents, c_norms)``: bf16 or
-    fp32 centroids (a CPU tensor) and fp32 norms for L2."""
-    if tier == "fused":
-        raise NotImplementedError(
-            "the fused coarse tier (nlist >= 8192) needs kernel K3 "
-            "(pallas_bruteforce.fused_topk_matmul), not ported yet — "
-            "ROADMAP Queue 2 item 3")
+    """Tier-appropriate host centroid arrays ``(cents, c_norms)`` (cents a
+    CPU tensor):
+
+    - "fused": centroids transposed [D(+1), nlist], L2 folded in by an
+      augmented ``-0.5·‖c‖²`` row (ranking-equivalent); no norms.
+    - "bf16": bf16 centroids and fp32 norms (L2 only).
+    - "fp32": fp32 centroids and norms (L2 only)."""
     c = np.asarray(centroids, dtype=np.float32)
+    if tier == "fused":
+        ct = c.T
+        if coarse_metric == "l2":
+            ct = np.concatenate([ct, -0.5 * np.sum(ct * ct, axis=0, keepdims=True)], axis=0)
+        return torch.from_numpy(np.ascontiguousarray(ct)), None
     norms = np.sum(c * c, axis=1) if coarse_metric == "l2" else None
     ct = torch.from_numpy(c.copy())
     return (ct.to(torch.bfloat16) if tier == "bf16" else ct), norms
@@ -85,12 +92,17 @@ def coarse_probes_tiered(q: torch.Tensor, cents: torch.Tensor,
                          c_norms: torch.Tensor | None, nprobe: int, *,
                          tier: str, coarse_metric: str) -> torch.Tensor:
     """STAGE 1: coarse centroid scores and top-nprobe → probes [B, P] int32.
-    The bf16 tier rounds the GEMM inputs to bf16 and sums in fp32, as the
-    JAX package's ``preferred_element_type=f32`` does."""
+    The fused tier is kernel K3 (exact fp32) over the transposed, augmented
+    centroids of :func:`coarse_arrays_host`, with a ones column on the
+    queries for L2; only its ids are used.  The bf16 tier rounds the GEMM
+    inputs to bf16 and sums in fp32, as the JAX package's
+    ``preferred_element_type=f32`` does."""
     if tier == "fused":
-        raise NotImplementedError(
-            "the fused coarse tier (nlist >= 8192) needs kernel K3, not "
-            "ported yet — ROADMAP Queue 2 item 3")
+        qx = q
+        if coarse_metric == "l2":
+            qx = torch.cat([q, torch.ones((q.shape[0], 1), dtype=q.dtype, device=q.device)],
+                           dim=1)
+        return bruteforce_fused.fused_topk_matmul(qx.contiguous(), cents, nprobe)[1]
     if tier == "bf16":
         s = q.to(torch.bfloat16).to(torch.float32) @ cents.to(torch.float32).T
         if coarse_metric == "l2":
@@ -244,9 +256,10 @@ class IVFIndex:
         self._coarse_tier = coarse_tier(
             self.nlist, bf16_min=self.COARSE_BF16_MIN_NLIST,
             fused_min=self.COARSE_FUSED_MIN_NLIST)
-        if self._coarse_tier == "bf16":
-            tc, _ = coarse_arrays_host(self._centroids_np, coarse_metric, "bf16")
-            arrays["centroids_bf16"] = tc.to(dev)
+        if self._coarse_tier != "fp32":
+            tc, _ = coarse_arrays_host(self._centroids_np, coarse_metric, self._coarse_tier)
+            key = "centroids_t" if self._coarse_tier == "fused" else "centroids_bf16"
+            arrays[key] = tc.to(dev)
         self._arrays = arrays
         if store == "compact":
             self._build_kernel_state(vec_padded)
@@ -404,6 +417,9 @@ class IVFIndex:
     def _coarse_probes(self, q: torch.Tensor, nprobe: int) -> torch.Tensor:
         """STAGE 1 over whichever tier layout the index holds."""
         a = self._arrays
+        if "centroids_t" in a:
+            return coarse_probes_tiered(q, a["centroids_t"], None, nprobe, tier="fused",
+                                        coarse_metric=self.coarse_metric)
         if "centroids_bf16" in a:
             return coarse_probes_tiered(q, a["centroids_bf16"], a.get("centroid_norms"),
                                         nprobe, tier="bf16", coarse_metric=self.coarse_metric)

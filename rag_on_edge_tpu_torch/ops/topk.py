@@ -6,6 +6,9 @@ takes the row max, the LOWEST position holding it, and masks that position
 to the fill value.  ``torch.topk`` does not promise that tie order, and a
 stable sort differs once a row holds only fill values: the passes then
 return position 0 again and again, where a sort would walk 0, 1, 2, ...
+Where the JAX package calls ``lax.top_k`` (``topk``, ``two_stage_topk``,
+``approx_topk``, ``merge_topk``) the port takes a stable descending sort,
+which is what ``lax.top_k`` returns, fill rows included.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["fill_value", "extract_topk", "extract_topk_ids", "binned_top2",
-           "iterative_topk", "small_topk", "dedup_rows_by_id"]
+           "iterative_topk", "small_topk", "dedup_rows_by_id", "topk",
+           "two_stage_topk", "approx_topk", "merge_topk"]
 
 _BIG_ID = 2**30  # larger than any row id: the "no candidate" id of a min
 
@@ -109,6 +113,58 @@ def small_topk(scores: torch.Tensor, k: int):
         return iterative_topk(scores, k)
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
+def topk(scores: torch.Tensor, k: int, ids: torch.Tensor | None = None):
+    """Exact top-k along the last axis (``topk.topk``, i.e. ``lax.top_k``)
+    → (vals, idx int32), best first, ties to the lowest index: a stable
+    descending sort.  ``idx`` is mapped through ``ids`` if given (the same
+    shape as ``scores``, or 1-D of length N)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    if ids is not None:
+        return vals, ids[idx] if ids.dim() == 1 else torch.gather(ids, -1, idx)
+    return vals, idx.to(torch.int32)
+
+
+def two_stage_topk(scores: torch.Tensor, k: int, block: int = 4096):
+    """Exact top-k by per-block top-k then a top-k of the block winners
+    (``topk.two_stage_topk``); the global top-k lies in the union of the
+    blocks' top-k sets, and both stages keep ties to the lowest index."""
+    *lead, n = scores.shape
+    if n <= max(block, 2 * k):
+        return topk(scores, k)
+    pad = (-n) % block
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=fill_value(scores.dtype))
+    nb = (n + pad) // block
+    kb = min(k, block)
+    b_vals, b_idx = topk(scores.reshape(*lead, nb, block), kb)
+    offs = (torch.arange(nb, dtype=torch.int32, device=scores.device) * block)[:, None]
+    b_gids = (b_idx + offs).reshape(*lead, nb * kb)
+    vals, sel = topk(b_vals.reshape(*lead, nb * kb), k)
+    return vals, torch.gather(b_gids, -1, sel.long())
+
+
+def approx_topk(scores: torch.Tensor, k: int, recall_target: float = 0.95):
+    """``topk.approx_topk`` (``lax.approx_max_k``), integer scores cast to
+    fp32 first (exact below 2**24).  On the CPU, where the JAX package's
+    tests run, ``approx_max_k`` returns exactly what ``lax.top_k`` returns,
+    ties included, so this is the exact selection with ties to the lowest
+    index; ``recall_target`` is accepted and has no effect."""
+    if not scores.dtype.is_floating_point:
+        scores = scores.to(torch.float32)
+    return topk(scores, k)
+
+
+def merge_topk(vals_a: torch.Tensor, ids_a: torch.Tensor, vals_b: torch.Tensor,
+               ids_b: torch.Tensor, k: int | None = None):
+    """The best k (default: as many as ``vals_a`` holds) of the union of two
+    per-row top-k sets (``topk.merge_topk``); ties go to the earlier
+    position, ``a`` before ``b``."""
+    k = k or vals_a.shape[-1]
+    out_vals, sel = topk(torch.cat([vals_a, vals_b], dim=-1), k)
+    return out_vals, torch.gather(torch.cat([ids_a, ids_b], dim=-1), -1, sel.long())
 
 
 def dedup_rows_by_id(vals: torch.Tensor, ids: torch.Tensor,

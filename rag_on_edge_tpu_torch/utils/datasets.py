@@ -5,7 +5,9 @@
 (seeded numpy), so both packages search the same corpus without a
 download.  ``ground_truth`` is the brute-force reference in torch: fp32
 GEMMs (TF32 is off, see the package ``__init__``) and ties broken by the
-lower id, as the JAX package's ``ground_truth`` does.
+lower id, as the JAX package's ``ground_truth`` does.  Once a chunk's
+[query_chunk, N] score matrix would pass 2 GiB it takes kernel K3 in its
+exact fp32 mode instead (``_ground_truth_fused``), the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from rag_on_edge_tpu_torch.ops import topk
+from rag_on_edge_tpu_torch.ops.bruteforce_fused import fused_topk_matmul
 
 __all__ = ["DATASET_SPECS", "make_synthetic", "ground_truth"]
 
@@ -61,9 +64,13 @@ def ground_truth(
     ``metric="l2"`` by ascending squared distance (scored as
     ``2·q·b − ‖b‖²``; the row-constant ‖q‖² is dropped).  The base stays on
     ``device``; queries go through in chunks of ``query_chunk`` rows, each
-    scoring the whole base at once."""
+    scoring the whole base at once, or through kernel K3 once that score
+    matrix would pass 2 GiB (``N·query_chunk·4 > 2 << 30``)."""
     if metric not in ("ip", "l2"):
         raise ValueError(f"unknown metric {metric!r}")
+    if base.shape[0] * query_chunk * 4 > (2 << 30):
+        return _ground_truth_fused(np.asarray(base), np.asarray(queries), k, metric,
+                                   query_chunk, device)
     b = torch.as_tensor(base, dtype=torch.float32).to(device)
     q_all = torch.as_tensor(queries, dtype=torch.float32)
     k = min(k, b.shape[0])
@@ -76,4 +83,27 @@ def ground_truth(
             scores = 2.0 * scores - norms[None, :]
         _, ids = topk.iterative_topk(scores, k)
         out[s:s + q.shape[0]] = ids.cpu().numpy()
+    return out
+
+
+def _ground_truth_fused(base: np.ndarray, queries: np.ndarray, k: int, metric: str,
+                        query_chunk: int, device: str | torch.device = "cuda") -> np.ndarray:
+    """Exact ground truth through kernel K3 (``fused_topk_matmul``) in fp32
+    exact mode, ties to the lowest id; the [B, N] score matrix never
+    exists.  L2 ranks by augmentation: q' = [q, 1], b' = [b, -‖b‖²/2], so
+    q'·b' is a monotone per-row map of the L2 score (on integer-valued data
+    every such score is exact in fp32)."""
+    bt = np.ascontiguousarray(base.astype(np.float32).T)  # [D, N]
+    if metric == "l2":
+        bt = np.concatenate(
+            [bt, -0.5 * np.sum(base.astype(np.float32) ** 2, axis=1)[None, :]], axis=0)
+    bt_dev = torch.from_numpy(bt).to(device)
+    del bt
+    out = np.empty((len(queries), k), dtype=np.int32)
+    for qs in range(0, len(queries), query_chunk):
+        q = queries[qs : qs + query_chunk].astype(np.float32)
+        if metric == "l2":
+            q = np.concatenate([q, np.ones((len(q), 1), np.float32)], axis=1)
+        _, ids = fused_topk_matmul(torch.from_numpy(q).to(device), bt_dev, k)
+        out[qs : qs + len(q)] = ids.cpu().numpy()[: len(q)]
     return out

@@ -1,14 +1,15 @@
-"""Recall (counterpart: ``rag_on_edge_tpu/utils/metrics.py``).
+"""Recall and index memory (counterpart: ``rag_on_edge_tpu/utils/metrics.py``).
 
-A copy of the numpy original: importing it from the JAX package would
-pull in jax through that package's ``__init__``.
+``recall_at_k`` is a copy of the numpy original: importing it from the JAX
+package would pull in jax through that package's ``__init__``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["recall_at_k"]
+__all__ = ["recall_at_k", "memory_report"]
 
 
 def recall_at_k(predicted: np.ndarray, ground_truth: np.ndarray, k: int) -> float:
@@ -31,3 +32,10 @@ def recall_at_k(predicted: np.ndarray, ground_truth: np.ndarray, k: int) -> floa
     for p_row, g_row in zip(pred, gt):
         hits += len(np.intersect1d(p_row, g_row, assume_unique=False))
     return hits / (pred.shape[0] * k)
+
+
+def memory_report(arrays: dict[str, torch.Tensor]) -> dict[str, int]:
+    """Bytes per named index array plus a ``"TOTAL"`` entry."""
+    sizes = {name: a.numel() * a.element_size() for name, a in arrays.items()}
+    sizes["TOTAL"] = sum(sizes.values())
+    return sizes

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
+from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
 from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
+from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +160,110 @@ def test_k4_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 33, blk=128)
     with pytest.raises(ValueError):  # bins other than 128
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)
+
+
+# K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
+# of 4 (byte staging) nor of 128 (a ragged last chunk); D = 37 pads a word.
+K3_SHAPES = {
+    "base": (40, 64, 2048, 20, 512, None, (-127, 128)),
+    "ragged": (70, 37, 3001, 32, None, 2900, (-127, 128)),
+    "ties": (33, 128, 5000, 10, None, None, (0, 3)),
+}
+
+
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32"])
+def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
+    b, d, n, k, tile_n, n_valid, (lo, hi) = K3_SHAPES[shape]
+    rng = np.random.default_rng(30)
+    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
+    bt = torch.from_numpy(rng.integers(lo, hi, (d, n), dtype=np.int8)).to(dev)
+    kw = dict(nbins=nbins, tile_n=tile_n)
+    if mode == "i8_l2":
+        kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+        kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
+    if mode == "f32":  # integer values: every fp32 sum is exact
+        q, bt = q.float(), bt.float()
+    if n_valid is not None:
+        kw["n_valid"] = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+    before = bruteforce_fused.LAUNCHES
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_fused.LAUNCHES == before + 1
+    assert torch.equal(v, rv)
+    assert torch.equal(i, ri)
+    assert int(i.max()) < (n_valid or n)
+
+
+def test_k3_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((4, 16), dtype=torch.int8, device=dev)
+    bt = torch.zeros((16, 600), dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        bruteforce_fused.fused_topk_matmul(q.bfloat16(), bt.bfloat16(), 4)
+    with pytest.raises(ValueError):  # more than 32 per row
+        bruteforce_fused.fused_topk_matmul(q, bt, 33)
+    with pytest.raises(ValueError):  # bins other than 128
+        bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
+
+
+# K5: (B, D, N, tile_n, group, k, bias rows, value range); N = 1300 leaves a
+# partial tile and padded tiles.
+K5_SHAPES = {
+    "ip": (40, 64, 4096, 256, 4, 20, False, (-127, 128)),
+    "l2": (40, 64, 4096, 256, 4, 20, True, (-127, 128)),
+    "ties": (33, 128, 4096, 128, 8, 10, False, (0, 3)),
+    "ragged-l2": (70, 37, 1300, 128, 4, 32, True, (-127, 128)),
+}
+
+
+@pytest.mark.parametrize("shape", list(K5_SHAPES))
+def test_k5_kernel_equal_to_plain(dev, shape):
+    b, d, n, tile_n, group, k, l2, (lo, hi) = K5_SHAPES[shape]
+    rng = np.random.default_rng(31)
+    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
+    tiles, _ = bruteforce_accum.tile_base(rng.integers(lo, hi, (d, n), dtype=np.int8),
+                                          tile_n, group)
+    tiles = tiles.to(dev)
+    br = None
+    if l2:
+        norms = bruteforce_accum.tile_norms(rng.uniform(0, 1e5, n).astype(np.float32),
+                                            tile_n, group)
+        br = bruteforce_accum.l2_bias_rows(torch.from_numpy(norms).to(dev),
+                                           torch.tensor(7.0, device=dev), group)
+    kw = dict(group=group, depth=group, bias_rows=br)
+    before = bruteforce_accum.LAUNCHES
+    v, i = bruteforce_accum.fused_topk_accum(q, tiles, n, k, **kw)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q, tiles, n, k, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_accum.LAUNCHES == before + 1
+    assert torch.equal(v, rv)
+    assert torch.equal(i, ri)
+    assert int(i.max()) < n
+
+
+def test_k5_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((4, 16), dtype=torch.int8, device=dev)
+    tiles = torch.zeros((8, 16, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        bruteforce_accum.fused_topk_accum(q.float(), tiles.float(), 900, 4, group=4, depth=4)
+    with pytest.raises(ValueError):  # bins past 2048
+        bruteforce_accum.fused_topk_accum(q, torch.zeros((8, 16, 4096), dtype=torch.int8,
+                                                         device=dev), 900, 4, group=4,
+                                          depth=4)
+
+
+@pytest.mark.parametrize("engine,dtype,rescore", [
+    ("accum", "int8", None), ("pallas", "int8", True), ("pallas", "int8", False),
+    ("pallas", "fp32", False), ("xla", "int8", False)])
+def test_brute_force_index_card_equals_cpu(dev, engine, dtype, rescore):
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
+    kw = dict(metric="l2", dtype=dtype, engine=engine, rescore=rescore)
+    got = BruteForceIndex(base, device=dev, **kw).search_device(
+        torch.from_numpy(queries).to(dev), 10)
+    want = BruteForceIndex(base, device="cpu", **kw).search_device(
+        torch.from_numpy(queries), 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])

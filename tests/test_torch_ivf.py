@@ -241,6 +241,33 @@ def test_search_device_slice_bf16_tier(jax_base, small_data, monkeypatch):
     assert abs(rj - rt) <= 0.01
 
 
+def test_search_device_slice_fused_tier(jax_base, small_data, monkeypatch):
+    """The whole slice with the fused coarse tier (kernel K3 over the
+    transposed, augmented centroids; the 10M configuration's tier, forced
+    here by lowering the tier threshold on both classes)."""
+    _, queries = small_data
+    monkeypatch.setattr(jivf.IVFIndex, "COARSE_FUSED_MIN_NLIST", 16)
+    monkeypatch.setattr(tivf.IVFIndex, "COARSE_FUSED_MIN_NLIST", 16)
+    j = jivf.IVFIndex(jax_base._centroids_np, jax_base._vectors_np,
+                      jax_base._offsets_np, jax_base._reorder_np, metric="l2",
+                      dtype="int8", pad_block=512, config=dict(jax_base.config))
+    t = _port_of(j)
+    assert j._coarse_tier == t._coarse_tier == "fused"
+    assert (np.asarray(j._arrays["centroids_t"]).tobytes()
+            == t._arrays["centroids_t"].numpy().tobytes())
+    q = np.ascontiguousarray(queries)
+    jp = np.asarray(j._coarse_probes(j._arrays, jnp.asarray(q), NPROBE))
+    tp = t._coarse_probes(_t(q), NPROBE).numpy()
+    # The centroids are not integers, so the two fp32 sums round in
+    # another order; on this data no probe lands on a near-tie.
+    np.testing.assert_array_equal(tp, jp)
+    jv, jids, jc = j.search_device(jnp.asarray(q), K, NPROBE, mode="cluster")
+    tv, tids, tc = t.search_device(_t(q), K, NPROBE, mode="cluster")
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
 def test_search_host_api_pads_tail_cyclically(pair, small_data):
     _, t = pair[512]
     base, queries = small_data
@@ -338,8 +365,6 @@ def test_unported_paths_raise(pair, small_data):
     for engine in ("xla", "pallas_routed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t.search_device(q, K, NPROBE, mode="cluster", engine=engine)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tivf.coarse_probes_tiered(q, q, None, 2, tier="fused", coarse_metric="l2")
 
 
 def test_assign_clusters_matches_jax(jax_base, small_data):
@@ -414,6 +439,10 @@ def test_port_runs_without_jax():
                                        recover_blocks=idx._arrays["vectors_t"].shape[0])
         assert int(idx.last_spill) == 0
         assert recall_at_k(rids.numpy(), ids, 5) >= 0.9
+        bf = rt.BruteForceIndex(base, metric="l2", dtype="int8", engine="accum",
+                                device="cpu")
+        bids, _ = bf.search(q, 5, batch_size=8)
+        assert recall_at_k(bids, ground_truth(base, q, 5, "l2", device="cpu"), 5) >= 0.99
         new = [m for m, v in sys.modules.items() if v is not None and m not in before]
         assert not any(m == "jax" or m.startswith(("jax.", "rag_on_edge_tpu."))
                        for m in new), new
