@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
-the IVF index and the brute-force index.
+the IVF index, the brute-force index, and both sharded over 4 logical
+shards on the card.
 
     python3 chip_smoke.py
 
@@ -43,6 +44,18 @@ script exits non-zero without a result line:
              the augmented centroids) of a second IVF index over the same
              arrays, its tier threshold lowered on a subclass: K3 launched,
              probes equal to the fp32 tier's except at stated near-ties.
+8. sharded — the same IVF index as ``ShardedIVFIndex`` over 4 logical
+             shards on this card: kernel K6 held against its plain version
+             at one shard's dense-walk shapes and at the recovery pass's;
+             then all 10,000 queries through ``search_device(q, 10, 4,
+             mode="cluster")`` with its defaults (K1, the recovery pass
+             through K6, K2; counters reset just before and read just after;
+             recall@10 and @1 >= 0.99, residual spill 0), through
+             ``engine="pallas"`` (K6 over every shard's walk, recall@10 >=
+             0.99), and through ``mode="query"`` at B=128 (recall@10 >=
+             0.99); and ``ShardedBruteForceIndex(base, metric="l2",
+             dtype="int8", rescore=True)`` (K3 per shard, recall@10 >=
+             0.999).  One call of each timed with CUDA events.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -149,10 +162,12 @@ def main() -> None:
     def reset_launches():
         for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum):
             mod.LAUNCHES = 0
+        ivf_scan.CLUSTER_LAUNCHES = 0
 
     def read_launches():
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
-                "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES}
+                "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES,
+                "K6": ivf_scan.CLUSTER_LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
     t = time.time()
@@ -522,6 +537,165 @@ def main() -> None:
         raise AssertionError(f"the fused coarse tier did not launch K3: {launch_f}")
     if int(far.sum()):
         raise AssertionError("fused-tier probes differ from the fp32 tier's beyond near-ties")
+    del fidx, vals_f, ids_f
+
+    # ---- phase 8: sharded search, 4 logical shards on this card.
+    from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
+    from rag_on_edge_tpu_torch.parallel import sharded as sharded_mod
+
+    shards = [torch.device("cuda", torch.cuda.current_device())] * 4
+    t = time.time()
+    sh = ShardedIVFIndex(idx, shards)
+    sh._ensure_cluster_state()
+    torch.cuda.synchronize()
+    sa = sh._cm_arrays
+    nb_local = sa[0]["vectors_t"].shape[0]
+    per_shard = np.bincount(sa[0]["cluster_shard"].cpu().numpy(), minlength=len(shards))
+    phase("sharded", t0, f"ShardedIVFIndex over {len(shards)} shards on {shards[0]}: cluster "
+          f"state {time.time() - t:.1f}s, {nb_local} blocks per shard, clusters per shard "
+          f"{per_shard.tolist()}, accum engine eligible {sh._cm_accum_ok}")
+
+    # K6 against its plain version: shard 0's dense walk (engine="pallas"),
+    # and the recovery pass of the shard with the most dropped pairs of
+    # this batch (its first pass, the default recover_blocks).
+    r = sh._cm_route(q, NPROBE, qcap)
+    owned_lossy = [int((r["lossy"] & (a["cluster_shard"][r["probes"].long()] == s_)).sum())
+                   for s_, a in enumerate(sa)]
+    s_rec = int(np.argmax(owned_lossy))
+    rb_sh = max(1, nb_local // 4)
+
+    def shard_bias_of(route, s_):
+        """The int8-L2 kernel bias of shard s_, as its search makes it."""
+        return (sa[s_]["norms_pad"] / route["alpha"])[None, :]
+
+    rec_scan, _, _ = sh._cm_recover_tables(s_rec, r, r["lossy"], shard_bias_of(r, s_rec), qcap,
+                                           rb_sh)
+    a0 = sa[0]
+    k6_inputs = {
+        "dense": ((r["qg"], a0["vectors_t"], a0["bc"], a0["bf"], a0["bl"], a0["rv"]),
+                  dict(bias=shard_bias_of(r, 0), row_base=None)),
+        "recovery": (rec_scan[:6], dict(bias=rec_scan[6], row_base=rec_scan[7])),
+    }
+    k6 = {}
+    for name, (args, extra_kw) in k6_inputs.items():
+        kw = dict(k=kk, blk=PAD_BLOCK, **extra_kw)
+        pv, pr = ivf_scan.cluster_major_scan(*args, **kw)
+        rpv, rpr = ivf_scan.cluster_major_scan_reference(*args, **kw)
+        torch.cuda.synchronize()
+        bc_, bf_, bl_, rv_ = args[2:6]
+        r6 = bc_[torch.nonzero(bl_).flatten()].long()
+        fin = rpv[r6] > float("-inf")
+        if not torch.equal(pv[r6], rpv[r6]) or not torch.equal(pr[r6][fin], rpr[r6][fin]):
+            raise AssertionError(f"K6 differs from the plain version at the {name} shapes")
+        err = float((pv[r6][fin] - rpv[r6][fin]).abs().max()) if fin.any() else 0.0
+        del rpv, rpr
+        walked = walked_blocks(np, bf_, bl_, rv_)
+        k6[name] = dict(
+            err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw)),
+            plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(*args, **kw)),
+            bound=bound(walked * (DIM * PAD_BLOCK + PAD_BLOCK * 4)
+                        + r6.numel() * qcap * (DIM + kk * 8),
+                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+        phase("kernels", t0, f"K6 {name} (shard {0 if name == 'dense' else s_rec}): qg "
+              f"{tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv bit-equal, "
+              f"pr equal where finite, on {r6.numel()} emitted clusters ({int(fin.sum())} "
+              f"finite entries, {walked} blocks walked); {k6[name]['ms']} ms vs plain "
+              f"{k6[name]['plain_ms']} ms; bound {k6[name]['bound'][0]} ms by "
+              f"{k6[name]['bound'][1]}")
+    del r, rec_scan, k6_inputs
+
+    def sharded_all(bs, **kw):
+        """All queries through the sharded index in B=bs batches (the tail
+        padded cyclically) → (ids, per-batch residual spill, wall s)."""
+        t = time.time()
+        parts, residual = [], []
+        for s_ in range(0, N_QUERIES, bs):
+            chunk = queries[s_:s_ + bs]
+            vals, ids_, _ = sh.search_device(
+                torch.from_numpy(np.resize(chunk, (bs, DIM))).to(dev), K, NPROBE, **kw)
+            if not torch.isfinite(vals).all():
+                raise AssertionError(f"sharded search {kw} scores are not finite")
+            parts.append(ids_.cpu().numpy()[:chunk.shape[0]])
+            if kw.get("mode") == "cluster":
+                residual.append(int(sh.last_spill))
+        ids_ = np.concatenate(parts)
+        if ids_.shape != (N_QUERIES, K) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
+            raise AssertionError(f"sharded search {kw} ids out of shape or range")
+        return ids_, residual, time.time() - t
+
+    reset_launches()
+    ids_s, residual_s, wall_s = sharded_all(BATCH, mode="cluster")
+    launch_s = read_launches()
+    r10_s, r1_s = recalls(ids_s)
+    engine_s = sh.last_engine
+    sh_ms = cuda_ms(torch, lambda: sh.search_device(qs, K, NPROBE, mode="cluster"))
+    phase("sharded", t0, f"search_device(q, {K}, {NPROBE}, mode='cluster') defaults, {N_QUERIES} "
+          f"queries in B={BATCH} batches {wall_s:.1f}s: engine={engine_s} auto_recover="
+          f"{idx._auto_recover(BATCH, NPROBE)} recover_blocks={rb_sh} residual last_spill="
+          f"{residual_s} launches={launch_s} recall@10={r10_s:.4f} recall@1={r1_s:.4f}; one "
+          f"B={BATCH} call {sh_ms} ms (single index {search_ms} ms)")
+    # Where the sharded call's time goes: the replicated route, one shard's
+    # whole body (K1, the recovery pass, the join, the rescore) and its
+    # recovery pass alone, and the merge of the four shards' top-k.
+    r8 = sh._cm_route(qs, NPROBE, qcap)
+    rp8 = idx._auto_recover_passes(BATCH, NPROBE, qcap)
+    outs8 = [sh._cm_shard(s_, r8, K, qcap, rb_sh, rp8, engine_s) for s_ in range(len(shards))]
+    owned0 = sa[0]["cluster_shard"][r8["probes"].long()] == 0
+    sh_stage_ms = {name: cuda_ms(torch, fn) for name, fn in {
+        "route": lambda: sh._cm_route(qs, NPROBE, qcap),
+        "shard 0": lambda: sh._cm_shard(0, r8, K, qcap, rb_sh, rp8, engine_s),
+        "shard 0 recovery": lambda: sh._cm_recover(0, r8, owned0, shard_bias_of(r8, 0), kk,
+                                                   qcap, rb_sh, rp8),
+        "merge": lambda: sharded_mod._gather_merge([o[0] for o in outs8],
+                                                   [o[1] for o in outs8], K),
+    }.items()}
+    phase("sharded", t0, f"one B={BATCH} sharded call, stages ms {sh_stage_ms}")
+    del r8, outs8
+    if min(launch_s["K1"], launch_s["K2"], launch_s["K6"]) < 1:
+        raise AssertionError(f"the sharded default path did not launch K1, K2 and K6: {launch_s}")
+    if any(residual_s):
+        raise AssertionError(f"sharded: pairs still dropped after recovery: {residual_s}")
+    if r10_s < 0.99 or r1_s < 0.99:
+        raise AssertionError(f"sharded recall below 0.99: recall@10 {r10_s}, recall@1 {r1_s}")
+
+    reset_launches()
+    ids_sp, residual_sp, wall_sp = sharded_all(BATCH, mode="cluster", engine="pallas")
+    launch_sp = read_launches()
+    r10_sp, _ = recalls(ids_sp)
+    sp_ms = cuda_ms(torch, lambda: sh.search_device(qs, K, NPROBE, mode="cluster",
+                                                    engine="pallas"))
+    phase("sharded", t0, f"engine=pallas {N_QUERIES} queries {wall_sp:.1f}s: residual "
+          f"last_spill={residual_sp} launches={launch_sp} recall@10={r10_sp:.4f}; one "
+          f"B={BATCH} call {sp_ms} ms")
+    if launch_sp["K6"] < 1 or r10_sp < 0.99:
+        raise AssertionError(f"sharded engine='pallas': launches {launch_sp}, recall@10 {r10_sp}")
+
+    QBATCH = 128  # query mode, below _pick_mode's crossover
+    ids_q, _, wall_q = sharded_all(QBATCH, mode="query")
+    r10_q, r1_q = recalls(ids_q)
+    q128 = torch.from_numpy(np.ascontiguousarray(queries[:QBATCH])).to(dev)
+    q_ms = cuda_ms(torch, lambda: sh.search_device(q128, K, NPROBE, mode="query"))
+    phase("sharded", t0, f"mode=query B={QBATCH} ({idx._pick_mode(QBATCH, NPROBE)} by the "
+          f"single index's rule; probe_chunk {sh._auto_probe_chunk(QBATCH)}) {N_QUERIES} "
+          f"queries {wall_q:.1f}s: recall@10={r10_q:.4f} recall@1={r1_q:.4f}; one B={QBATCH} "
+          f"call {q_ms} ms")
+    if r10_q < 0.99:
+        raise AssertionError(f"sharded mode='query' recall@10 {r10_q} below 0.99")
+    del sh
+
+    t = time.time()
+    sbf = ShardedBruteForceIndex(base, shards, metric="l2", dtype="int8", rescore=True)
+    torch.cuda.synchronize()
+    build_sbf = time.time() - t
+    ids_b, launch_b, wall_b = brute_all(sbf)
+    r10_b = recall_at_k(ids_b, gt, K)
+    sbf_ms = cuda_ms(torch, lambda: sbf.search_device(q_full, K), reps=5)
+    phase("sharded", t0, f"ShardedBruteForceIndex(l2, int8, rescore) build {build_sbf:.1f}s, "
+          f"{N_QUERIES} queries {wall_b:.1f}s: launches={launch_b} recall@10={r10_b:.4f}; one "
+          f"B={BATCH} call {sbf_ms} ms")
+    if launch_b["K3"] < 1 or r10_b < 0.999:
+        raise AssertionError(f"sharded brute force: launches {launch_b}, recall@10 {r10_b}")
+    del sbf
 
     kernels = [
         {"name": "cluster_major_accum_planes", "route": "cuda",
@@ -557,6 +731,13 @@ def main() -> None:
          "launches": launch_a["K5"], "max_abs_err": brute["K5 int8-L2"]["err"],
          "ms": brute["K5 int8-L2"]["ms"], "plain_ms": brute["K5 int8-L2"]["plain_ms"],
          "bound_ms": brute["K5 int8-L2"]["bound"][0], "bound_by": brute["K5 int8-L2"]["bound"][1],
+         "library_ms": None},
+        {"name": "cluster_major_scan", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:485",
+         "launches": launch_s["K6"], "max_abs_err": max(k6[n]["err"] for n in k6),
+         "ms": k6["recovery"]["ms"], "plain_ms": k6["recovery"]["plain_ms"],
+         "bound_ms": k6["recovery"]["bound"][0], "bound_by": k6["recovery"]["bound"][1],
          "library_ms": None},
     ]
     print(card_line(), flush=True)

@@ -11,6 +11,9 @@ find:
   ``bruteforce_accum``: CUDA C++).
 - ``models`` — k-means, the cluster-major ``IVFIndex`` and the
   ``BruteForceIndex``.
+- ``parallel`` — ``make_mesh`` and the sharded indexes
+  (``ShardedBruteForceIndex``, ``ShardedIVFIndex``): one process drives a
+  list of devices, one shard each.
 - ``csrc``   — the kernel sources, built on first use by ``ops._build``.
 
 The port imports torch and numpy, never jax.
@@ -29,5 +32,8 @@ __version__ = "0.1.0"
 
 from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex  # noqa: E402
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex  # noqa: E402
+from rag_on_edge_tpu_torch.parallel import (ShardedBruteForceIndex,  # noqa: E402
+                                            ShardedIVFIndex, make_mesh)
 
-__all__ = ["BruteForceIndex", "IVFIndex", "__version__"]
+__all__ = ["BruteForceIndex", "IVFIndex", "ShardedBruteForceIndex", "ShardedIVFIndex",
+           "make_mesh", "__version__"]

@@ -1,21 +1,32 @@
-// Kernel K4 of the IVF search path: the grouped cluster-major fine scan with
-// a per-row running top-k over binned survivors.
+// Kernels K4 and K6 of the IVF search path: the cluster-major fine scan with
+// a per-row running top-k over binned survivors, in its two output layouts.
 //
-// Replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf.py,
-// cluster_major_scan_grouped (its _grouped_kernel, with binned_top2 and
-// _extract_topk from pallas_bruteforce.py).
+// K4 (entry ivf_grouped_scan_i8) replaces the TPU kernel
+// rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
+// _grouped_kernel, with binned_top2 and _extract_topk from
+// pallas_bruteforce.py): the routed queries come per block and the output
+// is per block.
+// K6 (entry ivf_cluster_scan_i8) replaces cluster_major_scan in the same
+// file (its _kernel): the routed queries come per cluster, qg[bc[b]], and
+// the output is per cluster, out[bc[t]].  The sharded index runs it over
+// each shard's block walk and over the recovery pass's compacted list.
 //
 // What it computes, for each run of blocks that ends at a block t with
 // block_last[t] = 1 (the run starts at the latest block_first at or before
-// t), and each routed query row r of block t:
-//   score(b, r, col) = float(int32 dot(qg[b, r], vec[b, :, col])) - bias[b, col]
+// t), and each routed query row r:
+//   score(b, r, col) = float(int32 dot(Q(b)[r], vec[b, :, col])) - bias[b, col]
 //                      (no subtraction without bias), -inf for col >= rows_valid[b];
+//   Q(b) = qg[b] for K4, qg[bc[b]] for K6;
 //   per block b and bin (col % 128), the DEPTH best (score, id) with
 //   id = row_base[b] + col, ties to the lowest id;
 //   those 128*DEPTH survivors of each block merged into a running top-k
-//   ordered by (score desc, id asc), written to out_v/out_i[t, r, :k].
-// Only block_last rows are written.  Entries past the last finite score
-// hold -inf and an unspecified id.
+//   ordered by (score desc, id asc), written to out_v/out_i[O(t), r, :k]
+//   with O(t) = t for K4 and bc[t] for K6.
+// Only those rows are written.  Entries past the last finite score hold
+// -inf and an unspecified id.  For K6, bc must be constant along a run and
+// each cluster must end at most one run (the TPU kernel's output-window
+// rule, pallas_ivf.py:524-531); a run whose bc[t] is outside [0, nlist)
+// writes nothing.
 //
 // What bounds it on the H100: on the dense walk, integer multiply-adds, as
 // for K1 (with dp4a and no tensor cores the instruction rate is the limit,
@@ -70,18 +81,21 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <int DEPTH>
+// BY_CLUSTER = false: K4 (qg [nblocks, qcap, d], out [nblocks, qcap, k]);
+// true: K6 (qg [nlist, qcap, d], out [nlist, qcap, k], through bc).
+template <int DEPTH, bool BY_CLUSTER>
 __global__ void __launch_bounds__(THREADS)
-grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // [nblocks, qcap, d]
+grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
                        const int8_t* __restrict__ vec,          // [nblocks, d, blk]
+                       const int32_t* __restrict__ block_cluster, // [nblocks] (K6 only)
                        const int32_t* __restrict__ block_first,   // [nblocks]
                        const int32_t* __restrict__ block_last,    // [nblocks]
                        const int32_t* __restrict__ rows_valid,    // [nblocks]
                        const float* __restrict__ bias,          // [nblocks, blk] or null
                        const int32_t* __restrict__ row_base,      // [nblocks]
-                       float* __restrict__ out_v,               // [nblocks, qcap, k]
-                       int32_t* __restrict__ out_i,             // [nblocks, qcap, k]
-                       int qcap, int d, int blk, int k, int qstride) {
+                       float* __restrict__ out_v,               // see above
+                       int32_t* __restrict__ out_i,             // see above
+                       int qcap, int d, int blk, int k, int qstride, int nlist) {
   constexpr int ROWS = Tile<DEPTH>::ROWS;
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   constexpr int NCAND = Tile<DEPTH>::NCAND;
@@ -90,6 +104,8 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // [nblocks, qca
 
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
+  const int orow = BY_CLUSTER ? block_cluster[t] : t;  // the output row
+  if (BY_CLUSTER && (orow < 0 || orow >= nlist)) return;
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
@@ -119,7 +135,8 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // [nblocks, qca
   for (int b = tb; b <= t; ++b) {
     const int nvalid = rows_valid[b];
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
+    const int qrow = BY_CLUSTER ? block_cluster[b] : b;
+    stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
                            reinterpret_cast<int8_t*>(q_s));
     const float* brow = bias != nullptr ? bias + (size_t)b * blk : nullptr;
 
@@ -238,16 +255,17 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // [nblocks, qca
   for (int i = threadIdx.x; i < CTA_ROWS * k; i += THREADS) {
     const int r = i / k, p = i % k;
     if (cta_r0 + r >= qcap) continue;
-    const size_t o = ((size_t)t * qcap + cta_r0 + r) * k + p;
+    const size_t o = ((size_t)orow * qcap + cta_r0 + r) * k + p;
     out_v[o] = run_v[r * K_MAX + p];
     out_i[o] = run_i[r * K_MAX + p];
   }
 }
 
-template <int DEPTH>
-int launch(const void* qg, const void* vec, const void* block_first, const void* block_last,
-           const void* rows_valid, const void* bias, const void* row_base, void* out_v,
-           void* out_i, int nblocks, int qcap, int d, int blk, int k, cudaStream_t stream) {
+template <int DEPTH, bool BY_CLUSTER>
+int launch(const void* qg, const void* vec, const void* block_cluster, const void* block_first,
+           const void* block_last, const void* rows_valid, const void* bias,
+           const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
+           int blk, int k, int nlist, cudaStream_t stream) {
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
   const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
@@ -255,41 +273,70 @@ int launch(const void* qg, const void* vec, const void* block_first, const void*
   const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
   const size_t smem = run + (scan > cand ? scan : cand);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        grouped_scan_i8_kernel<DEPTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, BY_CLUSTER>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
-  grouped_scan_i8_kernel<DEPTH><<<grid, THREADS, smem, stream>>>(
+  grouped_scan_i8_kernel<DEPTH, BY_CLUSTER><<<grid, THREADS, smem, stream>>>(
       static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
-      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride);
+      static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
+      static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
+      static_cast<const float*>(bias), static_cast<const int32_t*>(row_base),
+      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride,
+      nlist);
   return (int)cudaGetLastError();
+}
+
+template <bool BY_CLUSTER>
+int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* block_first,
+             const void* block_last, const void* rows_valid, const void* bias,
+             const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
+             int blk, int k, int depth, int nlist, void* stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (depth) {
+    case 1: return launch<1, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
+                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
+                                         qcap, d, blk, k, nlist, s);
+    case 2: return launch<2, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
+                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
+                                         qcap, d, blk, k, nlist, s);
+    case 3: return launch<3, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
+                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
+                                         qcap, d, blk, k, nlist, s);
+    case 4: return launch<4, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
+                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
+                                         qcap, d, blk, k, nlist, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).  `bias` may be null (no-bias mode).
-// The wrapper guarantees blk % 128 == 0, 1 <= k <= 32 and 1 <= depth <= 4.
+// C entries for ctypes.  Each launches on `stream`, allocates nothing, and
+// returns cudaGetLastError() (0 = launched).  `bias` may be null (no-bias
+// mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 and
+// 1 <= depth <= 4.
+//
+// K4: qg [nblocks, qcap, d], out [nblocks, qcap, k].
 extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
                                    const void* bias, const void* row_base, void* out_v,
                                    void* out_i, int nblocks, int qcap, int d, int blk, int k,
                                    int depth, void* stream) {
-  if (nblocks == 0 || qcap == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (depth) {
-    case 1: return launch<1>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
-                             out_v, out_i, nblocks, qcap, d, blk, k, s);
-    case 2: return launch<2>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
-                             out_v, out_i, nblocks, qcap, d, blk, k, s);
-    case 3: return launch<3>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
-                             out_v, out_i, nblocks, qcap, d, blk, k, s);
-    case 4: return launch<4>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
-                             out_v, out_i, nblocks, qcap, d, blk, k, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(qg, vec, nullptr, block_first, block_last, rows_valid, bias, row_base,
+                         out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream);
+}
+
+// K6: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k].
+extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* block_cluster,
+                                   const void* block_first, const void* block_last,
+                                   const void* rows_valid, const void* bias,
+                                   const void* row_base, void* out_v, void* out_i, int nlist,
+                                   int nblocks, int qcap, int d, int blk, int k, int depth,
+                                   void* stream) {
+  return dispatch<true>(qg, vec, block_cluster, block_first, block_last, rows_valid, bias,
+                        row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
 }

@@ -28,7 +28,8 @@ stages:
 The device is explicit (``device=``, default ``"cuda"``), never detected.
 The query-major mode and the ``xla`` and ``pallas_routed`` engines are not
 ported yet; asking for them raises ``NotImplementedError`` naming the
-ROADMAP item.
+ROADMAP item.  :func:`fine_scan`, the query-major scan, is here for the
+sharded index's query mode (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from rag_on_edge_tpu_torch.ops import (bruteforce_fused, distances, fused_topk, 
                                        ivf_scan, quantize, topk)
 from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
 
-__all__ = ["IVFIndex", "invert_probes", "coarse_tier", "coarse_arrays_host",
+__all__ = ["IVFIndex", "invert_probes", "fine_scan", "coarse_tier", "coarse_arrays_host",
            "coarse_probes_tiered"]
 
 _NEG_INF = float("-inf")
@@ -142,6 +143,58 @@ def invert_probes(probes: torch.Tensor, nlist: int, qcap: int):
     slot = torch.empty(b * p, dtype=torch.int32, device=dev)
     slot[order] = slot_sorted
     return cluster_queries, slot.reshape(b, p), (~kept).sum().to(torch.int32)
+
+
+def fine_scan(q: torch.Tensor, vectors: torch.Tensor, vector_norms: torch.Tensor | None,
+              p_offs: torch.Tensor, p_sizes: torch.Tensor, k: int, probe_chunk: int,
+              metric: str, max_cluster_size: int):
+    """Scan the probed cluster slabs with a running top-k, query-major (the
+    JAX package's ``fine_scan``; plain torch, as there it is XLA).
+
+    q: [B, D] f32.  vectors: [N, D] cluster-contiguous rows (fp32, or bf16,
+    whose products are exact in fp32).  p_offs / p_sizes: [B, P] int32
+    start row and size of each probed cluster (size 0 masks the probe).
+    Each chunk of ``probe_chunk`` probes gathers ``max_cluster_size`` rows
+    per probe, scores them in fp32, keeps its top k (a stable descending
+    sort, as ``lax.top_k``) and merges it into the running top k
+    (:func:`topk.merge_topk`).  Returns (vals [B, k] f32, rows [B, k] int32;
+    rows of -inf entries are meaningless).  The JAX function's
+    ``compute_dtype`` and ``row_map`` serve its single-device query mode,
+    not ported yet (ROADMAP Queue 1 item 9)."""
+    b = q.shape[0]
+    dev = q.device
+    n_rows = vectors.shape[0]
+    nprobe = p_offs.shape[1]
+    arange_s = torch.arange(max_cluster_size, dtype=torch.int32, device=dev)
+    qf = q.to(torch.float32)
+
+    def chunk(best_v, best_i, offs_c, sizes_c):
+        rows = (offs_c[..., None] + arange_s).clamp(0, n_rows - 1)  # [B, pc, S]
+        valid = arange_s[None, None, :] < sizes_c[..., None]
+        cand = vectors[rows.long()].to(torch.float32)  # [B, pc, S, D] slab gather
+        scores = torch.einsum("bpsd,bd->bps", cand, qf)
+        if metric == "l2":
+            scores = 2.0 * scores - vector_norms[rows.long()]
+        scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+        flat_scores = scores.reshape(b, -1)
+        kk = min(k, flat_scores.shape[1])
+        v, idx = topk.topk(flat_scores, kk)
+        i = torch.gather(rows.reshape(b, -1), 1, idx.long())
+        if kk < k:
+            v = torch.nn.functional.pad(v, (0, k - kk), value=_NEG_INF)
+            i = torch.nn.functional.pad(i, (0, k - kk))
+        return topk.merge_topk(best_v, best_i, v, i, k=k)
+
+    pc = min(probe_chunk, nprobe)
+    pad = (-nprobe) % pc
+    if pad:
+        p_offs = torch.nn.functional.pad(p_offs, (0, pad))
+        p_sizes = torch.nn.functional.pad(p_sizes, (0, pad))
+    best_v = torch.full((b, k), _NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    for c in range(0, nprobe + pad, pc):
+        best_v, best_i = chunk(best_v, best_i, p_offs[:, c:c + pc], p_sizes[:, c:c + pc])
+    return best_v, best_i
 
 
 class IVFIndex:
@@ -689,6 +742,13 @@ class IVFIndex:
         return best_v, torch.gather(rows, 1, sel.long())
 
     # ------------------------------------------------------------ policy
+
+    def _auto_probe_chunk(self, batch: int, budget_bytes: int = 256 << 20) -> int:
+        """Probes per query-major chunk: the slab gather of one chunk,
+        ``B × max_cluster_size × D`` values, stays within the budget."""
+        bytes_per_probe = batch * self.max_cluster_size * self.dim * (
+            2 if self.dtype == "bf16" else 4)
+        return max(1, budget_bytes // max(bytes_per_probe, 1))
 
     def _auto_qcap(self, batch: int, nprobe: int, capacity_factor: float = 8.0) -> int:
         """MoE-style capacity: ~capacity_factor x the mean cluster load,

@@ -1,5 +1,6 @@
-"""Kernel K4: the grouped cluster-major fine scan with a per-row running
-top-k (counterpart: ``rag_on_edge_tpu/ops/pallas_ivf.py::cluster_major_scan_grouped``).
+"""Kernels K4 and K6: the cluster-major fine scan with a per-row running
+top-k (counterparts: ``rag_on_edge_tpu/ops/pallas_ivf.py::cluster_major_scan_grouped``
+and ``::cluster_major_scan``).
 
 For every block ``j`` the routed queries ``qg_blocks[j]`` [qcap, D] are
 scored against the block's slab ``vectors_t[j]`` [D, blk]::
@@ -18,6 +19,15 @@ and ids are compared only where ``pv > -inf``.
 :func:`cluster_major_scan_grouped` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8 ± bias) or raise.
+
+K6, :func:`cluster_major_scan`, computes the same walk with the routed
+queries and the output indexed by cluster: block ``j`` is scored against
+``qg[block_cluster[j]]`` (``qg`` [nlist, qcap, D]) and each run's top-k
+goes to row ``block_cluster[t]`` of ``[nlist, qcap, k]``.  Rows of clusters
+that end no run are unwritten.  The sharded index runs it over a shard's
+block walk and the recovery pass's compacted block list.  Its CUDA entry
+shares K4's kernel (``ivf_cluster_scan_i8`` in the same source) and counts
+its launches in ``CLUSTER_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -28,13 +38,15 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, topk
 
-__all__ = ["LAUNCHES", "cluster_major_scan_grouped",
-           "cluster_major_scan_grouped_reference"]
+__all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "cluster_major_scan_grouped",
+           "cluster_major_scan_grouped_reference", "cluster_major_scan",
+           "cluster_major_scan_reference"]
 
-#: Launches of the CUDA kernel in this process; the plain version does not
-#: count.  A run that must show it went through the kernel sets it to 0
-#: before and reads it after.
+#: Launches of the CUDA kernel K4 (``LAUNCHES``) and K6 (``CLUSTER_LAUNCHES``)
+#: in this process; the plain versions do not count.  A run that must show
+#: it went through a kernel sets its count to 0 before and reads it after.
 LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
 # What the CUDA kernel takes: 128 bins (one per lane of a row group), at
@@ -47,6 +59,7 @@ _CUDA_DEPTH_MAX = 4
 _CUDA_DIM_MAX = 1024
 
 _FN = None
+_CLUSTER_FN = None
 
 
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
@@ -219,4 +232,123 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     if err != 0:
         raise RuntimeError(f"ivf_grouped_scan_i8 launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return pv, pr
+
+
+def _check_cluster(qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k,
+                   blk, nbins, bin_depth, bias, row_base):
+    """K6's checks → (nlist, nblocks, qcap, d, int_path)."""
+    if qg.dim() != 3:
+        raise ValueError(f"qg must be [nlist, qcap, D], got {tuple(qg.shape)}")
+    nlist, qcap, d = qg.shape
+    if vectors_t.dim() != 3:
+        raise ValueError(f"vectors_t must be [nblocks, {d}, {blk}], got "
+                         f"{tuple(vectors_t.shape)}")
+    nblocks = vectors_t.shape[0]
+    if tuple(block_cluster.shape) != (nblocks,) or block_cluster.dtype != torch.int32:
+        raise ValueError(f"block_cluster must be [nblocks] int32, got "
+                         f"{tuple(block_cluster.shape)} {block_cluster.dtype}")
+    if bias is not None and (bias.numel() != nblocks * blk or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be [1, {nblocks * blk}] float32, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    # The rest as K4 checks them (on a shape-only stand-in for the per-block
+    # queries), with one block per group.
+    per_block = torch.empty((nblocks, qcap, d), dtype=qg.dtype, device="meta")
+    _check(per_block, vectors_t, block_first, block_last, rows_valid, k, blk, 1, nbins,
+           bin_depth, None, row_base)
+    return nlist, nblocks, qcap, d, vectors_t.dtype == torch.int8
+
+
+def cluster_major_scan_reference(qg, vectors_t, block_cluster, block_first, block_last,
+                                 rows_valid, k, blk=512, nbins=128, bin_depth=2, bias=None,
+                                 row_base=None):
+    """Plain PyTorch K6, for every mode the JAX function takes → (pv, pr).
+
+    K4's plain walk over the per-block queries ``qg[block_cluster]``, its
+    ``block_last`` rows then re-indexed by cluster.  The other rows of the
+    ``[nlist, qcap, k]`` outputs are left unwritten (``torch.empty``), as
+    the JAX kernel leaves them undefined."""
+    nlist, nblocks, qcap, d, _ = _check_cluster(qg, vectors_t, block_cluster, block_first,
+                                                block_last, rows_valid, k, blk, nbins,
+                                                bin_depth, bias, row_base)
+    bc = block_cluster.long()
+    pv, pr = cluster_major_scan_grouped_reference(
+        qg[bc], vectors_t, block_first, block_last, rows_valid, k, blk=blk, group=1,
+        nbins=nbins, bin_depth=bin_depth,
+        bias=None if bias is None else bias.reshape(nblocks, 1, blk), row_base=row_base)
+    out_v = torch.empty((nlist, qcap, k), dtype=torch.float32, device=qg.device)
+    out_i = torch.empty((nlist, qcap, k), dtype=torch.int32, device=qg.device)
+    t = torch.nonzero(block_last).flatten()
+    out_v[bc[t]] = pv[t]
+    out_i[bc[t]] = pr[t]
+    return out_v, out_i
+
+
+def _cluster_kernel():
+    """Build/load the CUDA library once and declare K6's C entry's types."""
+    global _CLUSTER_FN
+    if _CLUSTER_FN is None:
+        fn = _build.load_library("ivf_grouped_scan").ivf_cluster_scan_i8
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _CLUSTER_FN = fn
+    return _CLUSTER_FN
+
+
+def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k,
+                       blk=512, nbins=128, bin_depth=2, bias=None, row_base=None):
+    """K6 with the JAX signature → (pv [nlist, qcap, k] f32, pr [nlist,
+    qcap, k] int32); see the module docstring.
+
+    ``qg`` [nlist, qcap, D] routed queries per cluster; ``vectors_t``
+    [nblocks, D, blk]; the four tables [nblocks] int32; ``bias`` [1,
+    nblocks·blk] f32 or None; ``row_base`` [nblocks] int32 (default
+    ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
+    constant along a run and a cluster must end at most one run.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (int8 ±
+    bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024) or raise."""
+    global CLUSTER_LAUNCHES
+    dev = qg.device
+    if dev.type == "cpu":
+        return cluster_major_scan_reference(
+            qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k, blk=blk,
+            nbins=nbins, bin_depth=bin_depth, bias=bias, row_base=row_base)
+    nlist, nblocks, qcap, d, int_path = _check_cluster(
+        qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k, blk, nbins,
+        bin_depth, bias, row_base)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not int_path:
+        raise NotImplementedError(
+            "the CUDA K6 covers the int8 modes; fp32/bf16 slabs on CUDA are "
+            "ROADMAP Queue 1 item 14 (use the plain version)")
+    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
+            or d > _CUDA_DIM_MAX):
+        raise ValueError(
+            f"the CUDA K6 takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
+            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
+            f"bin_depth={bin_depth}, D={d}")
+    if row_base is None:
+        row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    tensors = [qg, vectors_t, block_cluster, block_first, block_last, rows_valid, row_base]
+    if bias is not None:
+        tensors.append(bias)
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError("all K6 inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError("K6 inputs must be contiguous")
+    pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
+    pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
+    fn = _cluster_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
+                 block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+                 pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, d, blk, k, bin_depth,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_cluster_scan_i8 launch failed: CUDA error {err}")
+    CLUSTER_LAUNCHES += 1
     return pv, pr

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
+from rag_on_edge_tpu_torch.models.ivf import IVFIndex
 from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
 from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
+from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
 from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
 pytestmark = pytest.mark.cuda
@@ -162,6 +164,84 @@ def test_k4_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)
 
 
+def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias):
+    """K6 inputs laid out as one shard of ShardedIVFIndex: clusters 2.. of
+    nlist = len(sizes) + 4 (global ids), padded to 8 blocks with dummies on
+    the last one.  ``walk`` "cut" and "parked" lay them out as the recovery
+    pass does: every other cluster's blocks in storage order, cut one block
+    short of them all (that cluster emits nothing) or followed by two more
+    blocks with zeroed tables, parked on the last listed block's cluster;
+    row_base = block·blk."""
+    lo = 2
+    sizes = np.asarray(sizes)
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
+    pad = (-len(bc)) % 8
+    bc = np.pad(bc + lo, (0, pad), constant_values=lo + len(sizes) - 1).astype(np.int32)
+    bf, bl, rv = (np.pad(x, (0, pad)).astype(np.int32) for x in (bf, bl, rv))
+    nb, nlist = len(bc), len(sizes) + 4
+    lo_v, hi_v = (0, 2) if ties else (-127, 128)
+    qg = rng.integers(lo_v, hi_v, (nlist, qcap, d), dtype=np.int8)
+    vt = rng.integers(lo_v, hi_v, (nb, d, blk), dtype=np.int8)
+    rb = np.arange(nb, dtype=np.int32) * blk
+    br = rng.uniform(0, 3000, (1, nb * blk)).astype(np.float32) if bias else None
+    if walk != "dense":
+        active = ((bc - lo) % 2 == 0) & (rv > 0)
+        n_act = int(active.sum())
+        cap = n_act - 1 if walk == "cut" else n_act + 2
+        order = np.concatenate([np.nonzero(active)[0], np.nonzero(~active)[0]])
+        blocks = order[:cap]
+        inc = ((np.cumsum(active) - 1) < cap)[blocks] & active[blocks]
+        n_inc = int(inc.sum())
+        bc = np.where(inc, bc[blocks], bc[blocks][max(n_inc - 1, 0)]).astype(np.int32)
+        bf, bl, rv = (np.where(inc, x[blocks], 0).astype(np.int32) for x in (bf, bl, rv))
+        vt, rb = vt[blocks], rb[blocks]
+        br = None if br is None else br.reshape(nb, blk)[blocks].reshape(1, -1)
+    return qg, vt, bc, bf, bl, rv, br, rb
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
+    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
+    ([700, 300, 129, 2000, 90], 256, 100, 37, 32, False),  # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40, 2500], 2048, 24, 128, 20, True),     # scores 0..128: heavy ties
+], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
+@pytest.mark.parametrize("walk", ["dense", "cut", "parked"])
+def test_k6_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias, walk):
+    rng = np.random.default_rng(21)
+    qg, vt, bc, bf, bl, rv, br, rb = (None if x is None else torch.from_numpy(x).to(dev)
+                                      for x in _k6_inputs(rng, sizes, blk, qcap, d, ties,
+                                                          walk, bias))
+    kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
+    before, k4_before = ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES
+    pv, pr = ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_reference(qg, vt, bc, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.CLUSTER_LAUNCHES == before + 1 and ivf_scan.LAUNCHES == k4_before
+    rows = bc[torch.nonzero(bl).flatten()].long()
+    assert rows.numel() > 0
+    assert torch.equal(pv[rows], rv_[rows])
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
+def test_k6_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(22)
+    qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                    for x in _k6_inputs(rng, [100], 128, 8, 16, False, "dense",
+                                                        False))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ivf_scan.cluster_major_scan(qg.float(), vt.float(), bc, bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError):  # more than 32 per row
+        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError):  # bins other than 128
+        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, nbins=64)
+    with pytest.raises(ValueError):  # depth past 4
+        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, bin_depth=5)
+
+
 # K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
 # of 4 (byte staging) nor of 128 (a ragged last chunk); D = 37 pads a word.
 K3_SHAPES = {
@@ -267,3 +347,54 @@ def test_brute_force_index_card_equals_cpu(dev, engine, dtype, rescore):
     torch.cuda.synchronize()
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[0].cpu(), want[0])
+
+
+SHARDED_IVF_RUNS = {
+    "auto": dict(mode="cluster"),  # K1, the planes join
+    "pallas": dict(mode="cluster", engine="pallas"),  # K6 over each shard's walk
+    "recover": dict(mode="cluster", qcap=4, recover=True, recover_qcap=16,
+                    recover_passes=2),  # K1, then K6 over the compacted lists
+    "query": dict(mode="query"),  # fine_scan, plain torch
+}
+
+
+@pytest.mark.parametrize("run", list(SHARDED_IVF_RUNS))
+def test_sharded_ivf_card_equals_cpu(dev, run):
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
+    src = IVFIndex.build(base, nlist=12, metric="l2", dtype="int8", pad_block=256,
+                         max_iter=5, device="cpu")
+    kw = SHARDED_IVF_RUNS[run]
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype="int8", pad_block=256,
+                                   config=src.config, device=device)
+        sh = ShardedIVFIndex(idx, [torch.device(device)] * 3)
+        out = sh.search_device(torch.from_numpy(queries).to(device), 10, 4, **kw)
+        return [x.cpu() for x in out], sh.last_spill
+
+    launches = (ivf_accum.LAUNCHES, ivf_scan.CLUSTER_LAUNCHES)
+    got, spill = search(dev)
+    torch.cuda.synchronize()
+    k1, k6 = ivf_accum.LAUNCHES - launches[0], ivf_scan.CLUSTER_LAUNCHES - launches[1]
+    want, want_spill = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if run != "query":
+        assert int(spill) == int(want_spill)
+    assert (k1 == 3) == (run in ("auto", "recover")) and (k6 > 0) == (run in ("pallas",
+                                                                              "recover"))
+
+
+@pytest.mark.parametrize("rescore", [False, True])
+def test_sharded_brute_card_equals_cpu(dev, rescore):
+    base, queries = make_synthetic(3001, 40, 64, 8, seed=6)
+    kw = dict(metric="l2", dtype="int8", rescore=rescore)
+    before = bruteforce_fused.LAUNCHES
+    got = ShardedBruteForceIndex(base, [dev] * 3, **kw).search_device(
+        torch.from_numpy(queries).to(dev), 10)
+    torch.cuda.synchronize()
+    assert bruteforce_fused.LAUNCHES == before + 3
+    want = ShardedBruteForceIndex(base, ["cpu"] * 3, **kw).search_device(
+        torch.from_numpy(queries), 10)
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])

@@ -415,7 +415,8 @@ def test_build_spilled_matches_jax_layout(small_data):
 
 def test_port_runs_without_jax():
     """The port never imports jax or the JAX package: both are blocked in a
-    fresh interpreter that runs the CPU slice."""
+    fresh interpreter that runs the CPU slice, the brute-force index and
+    both sharded indexes."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
@@ -443,6 +444,15 @@ def test_port_runs_without_jax():
                                 device="cpu")
         bids, _ = bf.search(q, 5, batch_size=8)
         assert recall_at_k(bids, ground_truth(base, q, 5, "l2", device="cpu"), 5) >= 0.99
+        shards = [torch.device("cpu")] * 3
+        sh = rt.ShardedIVFIndex(idx, shards)
+        _, sids, _ = sh.search_device(qt, 5, 4, mode="cluster", engine="pallas", qcap=2,
+                                      recover=True, recover_qcap=32, recover_blocks=8)
+        assert sh.last_engine == "pallas" and int(sh.last_spill) == 0
+        assert recall_at_k(sids.numpy(), ids, 5) >= 0.9
+        sb = rt.ShardedBruteForceIndex(base, shards, metric="l2", dtype="int8", rescore=True)
+        sbids, _ = sb.search(q, 5)
+        assert recall_at_k(sbids, ground_truth(base, q, 5, "l2", device="cpu"), 5) >= 0.99
         new = [m for m, v in sys.modules.items() if v is not None and m not in before]
         assert not any(m == "jax" or m.startswith(("jax.", "rag_on_edge_tpu."))
                        for m in new), new
