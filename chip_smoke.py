@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
-the IVF index, the brute-force index, and both sharded over 4 logical
-shards on the card.
+the IVF index (its default engine, the grouped engine and the routed
+engine), the brute-force index, and both sharded over 4 logical shards on
+the card.
 
     python3 chip_smoke.py
 
@@ -9,8 +10,9 @@ Phases, each printed with its wall time; any failure raises and the
 script exits non-zero without a result line:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile kernels K1, K4, K3 and K5 (CUDA C++, one nvcc each,
-             all at once) and K2 (Triton) from the sources in this checkout.
+2. build   — compile kernels K1 + K9, K4 + K6 + K7, K3 and K5 (CUDA C++,
+             one nvcc per source, all at once) and K2 (Triton) from the
+             sources in this checkout.
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -19,8 +21,12 @@ script exits non-zero without a result line:
              B=8192 batch, and hold each kernel against its plain PyTorch
              version on the card at the slice's shapes (bit-equal planes,
              exactly equal top-k; K4 at the recovery pass's shapes from
-             this batch's dropped pairs and at the dense grouped walk's),
-             with median times of both and each kernel's bound.
+             this batch's dropped pairs and at the dense grouped walk's;
+             K7 at the same two walks, also against K4 on the gathered
+             table; K9, which no search calls, at the batch's routed table
+             twice, int8 IP and int8 L2 with its 4-bit bias rows, with its
+             launches counted over those two calls), with median times of
+             both and each kernel's bound.
 4. slice   — search all 10,000 queries through ``IVFIndex.search_device``
              with its defaults (nlist=1024, nprobe=4, k=10, B=8192, int8,
              pad_block=2048; the recovery pass where the auto policy turns
@@ -31,7 +37,13 @@ script exits non-zero without a result line:
              and its stages.
 5. grouped — the same queries through ``engine="pallas"`` (kernel K4 over
              the dense block walk): recall and one B=8192 call's time.
-6. brute   — ``BruteForceIndex(base, metric="l2", dtype="int8")`` two ways:
+6. routed  — the same queries through ``engine="pallas_routed"`` (kernel
+             K7, the routing inside the kernel, in the main walk and in
+             every recovery pass), counters reset just before and read just
+             after: ids and scores equal to ``engine="pallas"``, K7 launched
+             and K4 not, residual spill 0, recall@10 >= 0.99; one B=8192
+             call and its stages.
+7. brute   — ``BruteForceIndex(base, metric="l2", dtype="int8")`` two ways:
              the defaults (``engine="auto"``: accum, kernel K5, rescored)
              and ``engine="pallas", rescore=True`` (kernel K3 binned).
              K3 (int8 L2 binned and int8 IP exact) and K5 are held against
@@ -40,11 +52,11 @@ script exits non-zero without a result line:
              10,000 queries through each engine with the counters reset
              just before and read just after; recall@10 >= 0.99 (accum)
              and >= 0.999 (pallas) against the plain ground truth.
-7. coarse  — one B=8192 batch through the fused coarse tier (kernel K3 on
+8. coarse  — one B=8192 batch through the fused coarse tier (kernel K3 on
              the augmented centroids) of a second IVF index over the same
              arrays, its tier threshold lowered on a subclass: K3 launched,
              probes equal to the fp32 tier's except at stated near-ties.
-8. sharded — the same IVF index as ``ShardedIVFIndex`` over 4 logical
+9. sharded — the same IVF index as ``ShardedIVFIndex`` over 4 logical
              shards on this card: kernel K6 held against its plain version
              at one shard's dense-walk shapes and at the recovery pass's;
              then all 10,000 queries through ``search_device(q, 10, 4,
@@ -156,18 +168,19 @@ def main() -> None:
     t = time.time()
     fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
     torch.cuda.synchronize()
-    phase("build", t0, f"K1 + K4 + K3 + K5 nvcc {nvcc_s:.1f}s, K2 triton "
+    phase("build", t0, f"K1 + K9, K4 + K6 + K7, K3, K5 nvcc {nvcc_s:.1f}s, K2 triton "
           f"{time.time() - t:.1f}s")
 
     def reset_launches():
         for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum):
             mod.LAUNCHES = 0
-        ivf_scan.CLUSTER_LAUNCHES = 0
+        ivf_scan.CLUSTER_LAUNCHES = ivf_scan.ROUTED_LAUNCHES = ivf_accum.ACCUM_LAUNCHES = 0
 
     def read_launches():
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
                 "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES,
-                "K6": ivf_scan.CLUSTER_LAUNCHES}
+                "K6": ivf_scan.CLUSTER_LAUNCHES, "K7": ivf_scan.ROUTED_LAUNCHES,
+                "K9": ivf_accum.ACCUM_LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
     t = time.time()
@@ -286,6 +299,85 @@ def main() -> None:
               f"walked); {k4[name]['ms']} ms vs plain {k4[name]['plain_ms']} ms; bound "
               f"{k4[name]['bound'][0]} ms by {k4[name]['bound'][1]}")
 
+    # K7 at the same two walks: the routed table never exists, the kernel
+    # gathers from the batch qi through cq_blocks.  Held against its plain
+    # version and against K4 on the gathered table (the inputs above).
+    k7_rec, _, _, _ = idx._recover_tables(qi, probes, lossy, bias, rq, rb, routed=True)
+    k7_dense = (cq[a["block_cluster"].long()].unsqueeze(-1).contiguous(), *k1_args[1:], bias,
+                None)
+    k7 = {}
+    for name, (cqb_, vt_, bf_, bl_, rv_, bias_, rb_), k4_in in (
+            ("recovery", k7_rec, k4_rec), ("dense", k7_dense, k4_dense)):
+        kw = dict(k=kk, blk=PAD_BLOCK, group=idx.CM_GROUP, bias=bias_, row_base=rb_)
+        args = (qi, cqb_, vt_, bf_, bl_, rv_)
+        pv, pr = ivf_scan.cluster_major_scan_routed(*args, **kw)
+        rpv, rpr = ivf_scan.cluster_major_scan_routed_reference(*args, **kw)
+        gpv, gpr = ivf_scan.cluster_major_scan_grouped(*k4_in[:5], **kw)
+        torch.cuda.synchronize()
+        r7 = torch.nonzero(bl_).flatten()
+        fin = rpv[r7] > float("-inf")
+        if not torch.equal(pv[r7], rpv[r7]) or not torch.equal(pr[r7][fin], rpr[r7][fin]):
+            raise AssertionError(f"K7 differs from the plain version at the {name} shapes")
+        if not torch.equal(pv[r7], gpv[r7]) or not torch.equal(pr[r7][fin], gpr[r7][fin]):
+            raise AssertionError(f"K7 differs from K4 on the gathered table at the {name} shapes")
+        err = float((pv[r7][fin] - rpv[r7][fin]).abs().max()) if fin.any() else 0.0
+        del rpv, rpr, gpv, gpr
+        walked = walked_blocks(np, bf_, bl_, rv_)
+        k7[name] = dict(
+            err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed(*args, **kw)),
+            plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed_reference(
+                *args, **kw)),
+            # K4's convention with the batch read once instead of a table,
+            # and the walked blocks' rows of cq_blocks.
+            bound=bound(walked * (qcap * 4 + DIM * PAD_BLOCK + PAD_BLOCK * 4) + qi.numel()
+                        + r7.numel() * qcap * kk * 8,
+                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+        phase("kernels", t0, f"K7 {name}: qi {tuple(qi.shape)} cq_blocks {tuple(cqb_.shape)} "
+              f"vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal to the plain version and to "
+              f"K4 on the gathered table, pr equal where finite, on {r7.numel()} last blocks "
+              f"({int(fin.sum())} finite entries, {walked} blocks walked); {k7[name]['ms']} ms "
+              f"vs plain {k7[name]['plain_ms']} ms; bound {k7[name]['bound'][0]} ms by "
+              f"{k7[name]['bound'][1]}")
+    del k7_rec, k7_dense
+
+    # K9, the extract emit of K1's scan: no search of either package calls
+    # it, so its counted run is these two calls at the batch's routed table
+    # (int8 IP, and int8 L2 with the 4-bit bias rows of its JAX docstring).
+    k9_inputs = {"int8-IP": None,
+                 "int8-L2": ivf_accum.accum_bias_rows(bias, a["rows_valid"])}
+    reset_launches()
+    k9_out = {name: ivf_accum.cluster_major_accum(*k1_args, kk, blk=PAD_BLOCK, bias_rows=br_)
+              for name, br_ in k9_inputs.items()}
+    torch.cuda.synchronize()
+    k9_launches = read_launches()["K9"]
+    if k9_launches != 2:
+        raise AssertionError(f"K9 launched {k9_launches} times in its two calls")
+    k9 = {}
+    for name, br_ in k9_inputs.items():
+        pv, pr = k9_out.pop(name)
+        rpv, rpr = ivf_accum.cluster_major_accum_reference(*k1_args, kk, blk=PAD_BLOCK,
+                                                           bias_rows=br_)
+        torch.cuda.synchronize()
+        fin = rpv[rows] > float("-inf")
+        if not torch.equal(pv[rows], rpv[rows]) or not torch.equal(pr[rows], rpr[rows]):
+            raise AssertionError(f"K9 differs from the plain version ({name})")
+        err = float((pv[rows][fin] - rpv[rows][fin]).abs().max()) if fin.any() else 0.0
+        del pv, pr, rpv, rpr
+        walked = walked_blocks(np, *k1_args[2:])
+        k9[name] = dict(
+            err=err, ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum(
+                *k1_args, kk, blk=PAD_BLOCK, bias_rows=br_)),
+            plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_reference(
+                *k1_args, kk, blk=PAD_BLOCK, bias_rows=br_), reps=3),
+            bound=bound(walked * (qcap * DIM + DIM * PAD_BLOCK + PAD_BLOCK * 4 * (br_ is not None))
+                        + rows.numel() * qcap * kk * 8,
+                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+        phase("kernels", t0, f"K9 {name} qg {tuple(qb.shape)} k={kk} bin2: pv bit-equal and pr "
+              f"equal to the plain version on {rows.numel()} last blocks ({int(fin.sum())} "
+              f"finite entries); {k9[name]['ms']} ms vs plain {k9[name]['plain_ms']} ms; bound "
+              f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}")
+    del k9_inputs
+
     def search_all(**kw):
         """All queries in B=BATCH batches (the tail padded cyclically) →
         (ids, scores, per-batch residual spill, wall s)."""
@@ -302,21 +394,21 @@ def main() -> None:
         if ids.shape != (N_QUERIES, K) or not np.isfinite(scores).all() or (ids < 0).any():
             raise AssertionError(f"search {kw} output has the wrong shape, -1 ids or "
                                  "non-finite scores")
-        return ids, residual, time.time() - t
+        return ids, scores, residual, time.time() - t
 
     def recalls(ids):
         return recall_at_k(ids, gt, K), recall_at_k(ids[:, :1], gt[:, :1], 1)
 
     # ---- phase 4: the slice through the public entry point, with its defaults.
     reset_launches()
-    ids, residual, wall = search_all()
+    ids, _, residual, wall = search_all()
     launches = {name: n for name, n in read_launches().items() if name in ("K1", "K2", "K4")}
     engine = idx.last_engine
     spilled = [int(idx._route(torch.from_numpy(np.resize(queries[s:s + BATCH], (BATCH, DIM)))
                               .to(dev), NPROBE, qcap)[3].sum()) for s in range(0, N_QUERIES, BATCH)]
     passes = idx._auto_recover_passes(BATCH, NPROBE, rq)
     r10, r1 = recalls(ids)
-    ids_norec, _, _ = search_all(recover=False)
+    ids_norec, _, _, _ = search_all(recover=False)
     r10_norec, r1_norec = recalls(ids_norec)
     phase("slice", t0, f"{N_QUERIES} queries in B={BATCH} batches {wall:.1f}s: engine={engine} "
           f"auto_recover={idx._auto_recover(BATCH, NPROBE)} spilled before recovery="
@@ -354,7 +446,7 @@ def main() -> None:
           f"with recover=False {norec_ms} ms; stages ms {stage_ms}")
 
     # ---- phase 5: the grouped engine (K4 over the dense block walk).
-    ids_g, residual_g, wall_g = search_all(engine="pallas")
+    ids_g, scores_g, residual_g, wall_g = search_all(engine="pallas")
     r10_g, r1_g = recalls(ids_g)
     grouped_ms = cuda_ms(torch, lambda: idx.search_device(qs, K, NPROBE, engine="pallas"))
     phase("grouped", t0, f"engine=pallas {N_QUERIES} queries {wall_g:.1f}s: residual "
@@ -363,7 +455,51 @@ def main() -> None:
     if r10_g < 0.99:
         raise AssertionError(f"engine='pallas' recall@10 {r10_g} below 0.99")
 
-    # ---- phase 6: the brute-force index, its kernels K3 and K5, two engines.
+    # ---- phase 6: the routed engine (K7 in the main walk and the recovery pass).
+    reset_launches()
+    ids_r, scores_r, residual_r, wall_r = search_all(engine="pallas_routed")
+    launch_r = read_launches()
+    engine_r = idx.last_engine
+    r10_r, r1_r = recalls(ids_r)
+    n_batches = -(-N_QUERIES // BATCH)
+    k7_expected = n_batches * (1 + (passes if idx._auto_recover(BATCH, NPROBE) else 0))
+    phase("routed", t0, f"engine={engine_r} {N_QUERIES} queries in B={BATCH} batches "
+          f"{wall_r:.1f}s: residual last_spill={residual_r} launches={launch_r} (K7 expected "
+          f"{k7_expected}: main walks and recovery passes) recall@10={r10_r:.4f} "
+          f"recall@1={r1_r:.4f}; ids equal to engine=pallas: {np.array_equal(ids_r, ids_g)}, "
+          f"scores bit-equal: {scores_r.tobytes() == scores_g.tobytes()}")
+    if engine_r != "pallas_routed":
+        raise AssertionError(f"engine='pallas_routed' ran as {engine_r}")
+    if launch_r["K7"] != k7_expected or launch_r["K4"] or launch_r["K1"]:
+        raise AssertionError(f"the routed engine's launches are not K7's alone: {launch_r}")
+    if not np.array_equal(ids_r, ids_g) or scores_r.tobytes() != scores_g.tobytes():
+        raise AssertionError("engine='pallas_routed' differs from engine='pallas'")
+    if any(residual_r):
+        raise AssertionError(f"routed: pairs still dropped after recovery: {residual_r}")
+    if r10_r < 0.99:
+        raise AssertionError(f"engine='pallas_routed' recall@10 {r10_r} below 0.99")
+    routed_ms = cuda_ms(torch, lambda: idx.search_device(qs, K, NPROBE, engine="pallas_routed"))
+    pv_r, pr_r = idx._scan_routed(qi, cq, bias, kk, alpha)
+    extra_r, _ = idx._recover(qi, probes, lossy, bias, alpha, kk, rq, rb, passes, routed=True)
+    routed_stages = {
+        "route": lambda: idx._route(qs, NPROBE, qcap),
+        "prep": lambda: idx._query_prep(qs),
+        "K7": lambda: idx._scan_routed(qi, cq, bias, kk, alpha),
+        "recover": lambda: idx._recover(qi, probes, lossy, bias, alpha, kk, rq, rb, passes,
+                                        routed=True),
+        "finish": lambda: idx._cm_finish(qs, probes, slot, pv_r, pr_r, K, kk, True,
+                                         extra=extra_r),
+        # Not stages of the routed call: the grouped engine's prep, which
+        # gathers the routed table (and K1's bias rows), and its K4 walk.
+        "grouped prep": lambda: idx._scan_inputs(qs, cq),
+        "grouped K4": lambda: idx._scan_grouped(qb, bias, kk, alpha),
+    }
+    routed_stage_ms = {name: cuda_ms(torch, fn) for name, fn in routed_stages.items()}
+    del pv_r, pr_r, extra_r
+    phase("routed", t0, f"one B={BATCH} search_device(engine='pallas_routed'): {routed_ms} ms "
+          f"(engine='pallas' {grouped_ms} ms); stages ms {routed_stage_ms}")
+
+    # ---- phase 7: the brute-force index, its kernels K3 and K5, two engines.
     t = time.time()
     bf_auto = BruteForceIndex(base, metric="l2", dtype="int8", device=dev)
     bf_pallas = BruteForceIndex(base, metric="l2", dtype="int8", engine="pallas",
@@ -500,7 +636,7 @@ def main() -> None:
         raise AssertionError(f"engine='pallas' rescore=True recall@10 {r10_p} below 0.999")
     del bf_auto, bf_pallas, ba, bp
 
-    # ---- phase 7: the fused coarse tier (K3) on a second index over the same arrays.
+    # ---- phase 8: the fused coarse tier (K3) on a second index over the same arrays.
     class FusedTierIVF(IVFIndex):
         COARSE_FUSED_MIN_NLIST = NLIST
 
@@ -539,7 +675,7 @@ def main() -> None:
         raise AssertionError("fused-tier probes differ from the fp32 tier's beyond near-ties")
     del fidx, vals_f, ids_f
 
-    # ---- phase 8: sharded search, 4 logical shards on this card.
+    # ---- phase 9: sharded search, 4 logical shards on this card.
     from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
     from rag_on_edge_tpu_torch.parallel import sharded as sharded_mod
 
@@ -738,6 +874,20 @@ def main() -> None:
          "launches": launch_s["K6"], "max_abs_err": max(k6[n]["err"] for n in k6),
          "ms": k6["recovery"]["ms"], "plain_ms": k6["recovery"]["plain_ms"],
          "bound_ms": k6["recovery"]["bound"][0], "bound_by": k6["recovery"]["bound"][1],
+         "library_ms": None},
+        {"name": "cluster_major_scan_routed", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:320",
+         "launches": launch_r["K7"], "max_abs_err": max(k7[n]["err"] for n in k7),
+         "ms": k7["dense"]["ms"], "plain_ms": k7["dense"]["plain_ms"],
+         "bound_ms": k7["dense"]["bound"][0], "bound_by": k7["dense"]["bound"][1],
+         "library_ms": None},
+        {"name": "cluster_major_accum", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_ivf_dma.py:253",
+         "launches": k9_launches, "max_abs_err": max(k9[n]["err"] for n in k9),
+         "ms": k9["int8-L2"]["ms"], "plain_ms": k9["int8-L2"]["plain_ms"],
+         "bound_ms": k9["int8-L2"]["bound"][0], "bound_by": k9["int8-L2"]["bound"][1],
          "library_ms": None},
     ]
     print(card_line(), flush=True)

@@ -1,7 +1,9 @@
-// Kernel K1 of the IVF search path: the cluster-major fine scan with packed
-// accumulation, emitting per-lane-bin top-2 "planes" of packed int32 keys.
+// Kernels K1 and K9 of the IVF search path: the cluster-major fine scan with
+// packed accumulation.  K1 (entry ivf_accum_planes_i8) emits per-lane-bin
+// top-2 "planes" of packed int32 keys; K9 (entry ivf_accum_extract_i8, at the
+// end of this file) emits an exact top-k per routed row.
 //
-// Replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
+// K1 replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
 // cluster_major_accum_planes (its _kernel with planes=True, and _plane_max).
 //
 // What it computes, for each cluster's LAST block t and each routed query
@@ -37,6 +39,7 @@
 // - keys are built on the unsigned bit pattern: (u32)dots << 8 is defined
 //   for negative dots and gives the same bits as JAX's shift_left and
 //   torch's int32 arithmetic.  The wrapper bounds D so that it never wraps.
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -161,4 +164,249 @@ extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* 
       static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
       static_cast<int32_t*>(out), qcap, d, blk, nplanes, qstride);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel K9: the same scan with the extract emit.
+//
+// Replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
+// cluster_major_accum (its _kernel with planes=False, _binned_packed_top and
+// pallas_bruteforce._extract_topk).  It has no production caller in the JAX
+// package; its tests and chip_smoke.py drive it.
+//
+// What it computes, for each cluster's LAST block t and routed row r:
+//   key(b, r, col) = dots(b, r, col) * 16 - bias[b, col]             (int8 L2:
+//                    the bias rows carry round(norms/alpha) << 4 minus the code)
+//                  | dots(b, r, col) * 16 + (15 - b % 16)             (no bias)
+//   masked to KMIN where col >= rows_valid[b] when mask_rows is set,
+//   folded by max over the cluster's blocks b (first block .. t);
+//   per bin (lane = col % 128) the largest key m1 with the LOWEST chunk
+//   holding it, and (two planes) the largest key m2 different from m1 with
+//   the lowest chunk holding it;
+//   each decoded to (value m >> 4, row (t - dd)·blk + chunk·128 + lane), dd the
+//   block offset behind t that the key's code names, or (KMIN, 0) where m is
+//   KMIN;
+//   the exact top-k of those planes·128 candidates by (value desc, row asc),
+//   every candidate with the winner's row masked after each pass:
+//   out_v[t, r, p] = float(value) (-inf for KMIN), out_i[t, r, p] = row.
+// Keys of different chunks can be equal here (K1's keys carry the chunk),
+// which is why the chunk ids are tracked.
+//
+// What bounds it on the H100: the scan is K1's, integer multiply-adds; the
+// emit adds k warp passes over 256 candidates per routed row of a last block.
+//
+// Design: K1's CTA (256 threads = 2 row groups x 128 lanes, 16 rows each),
+// chunk loop outside the block loop, the fold in registers.  Each lane folds
+// its chunks, in increasing order, into (m1, c1, m2, c2): a key above m1
+// shifts plane 1 down; a key equal to m1 changes nothing (the lower chunk
+// wins, and plane 2 excludes every key equal to m1); a key between m2 and m1
+// replaces plane 2.  The decoded candidates go to shared memory (over the
+// staging area) and one warp per row takes the top-k with shuffles; once
+// only KMIN is left, the argmax by (value, row) is the JAX fill id, so the
+// rest of the row repeats it.
+namespace {
+
+template <int NPLANES>
+__global__ void __launch_bounds__(THREADS)
+accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap, d]
+                        const int8_t* __restrict__ vec,         // [nblocks, d, blk]
+                        const int32_t* __restrict__ block_first,  // [nblocks]
+                        const int32_t* __restrict__ block_last,   // [nblocks]
+                        const int32_t* __restrict__ rows_valid,   // [nblocks]
+                        const int32_t* __restrict__ bias,       // [nblocks, blk] or null
+                        float* __restrict__ out_v,              // [nblocks, qcap, k]
+                        int32_t* __restrict__ out_i,            // [nblocks, qcap, k]
+                        int qcap, int d, int blk, int k, int mask_rows, int qstride) {
+  constexpr int NCAND = NPLANES * LANES;  // candidates per row
+  constexpr int PER_LANE = NCAND / 32;
+  constexpr int WARPS = THREADS / 32;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int t = blockIdx.x;
+  if (block_last[t] == 0) return;
+  const int lane = threadIdx.x % LANES;
+  const int group = threadIdx.x / LANES;
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const int cstride = qstride + 1;
+
+  extern __shared__ int4 smem4[];
+  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);   // [GROUPS*ROWS][qstride] words
+  int8_t* q_b = reinterpret_cast<int8_t*>(smem4);
+  int32_t* col_s = q_s + GROUPS * ROWS * qstride;     // [LANES][cstride] words
+  int32_t* cand_v = q_s;                              // [GROUPS*ROWS][NCAND], after the scan
+  int32_t* cand_i = q_s + GROUPS * ROWS * NCAND;
+  const int32_t* my_q = q_s + group * ROWS * qstride;
+
+  int tb = t;  // the cluster's first block
+  while (tb > 0 && block_first[tb] == 0) --tb;
+  const int nb = t - tb + 1;
+  const int nchunks = blk / LANES;
+  const int cta_r0 = blockIdx.y * GROUPS * ROWS;
+
+  int32_t m1[ROWS], m2[ROWS];
+  int c1[ROWS], c2[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m1[r] = m2[r] = KMIN;
+    c1[r] = c2[r] = 0;
+  }
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int col = c * LANES + lane;
+    int32_t m[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
+
+    for (int b = tb; b <= t; ++b) {
+      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
+      if (c == 0 || nb > 1)
+        stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
+                               qstride, q_b);
+      __syncthreads();
+
+      int32_t acc[ROWS];
+      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+
+      const bool masked = mask_rows != 0 && col >= rows_valid[b];
+      const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
+      const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const uint32_t shifted = (uint32_t)acc[r] << 4;
+        const int32_t key = masked ? KMIN
+                                   : (int32_t)(bias != nullptr ? shifted - sub : shifted | code);
+        m[r] = max(m[r], key);
+      }
+      __syncthreads();  // col_s / q_s are rewritten next
+    }
+
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int32_t x = m[r];
+      if (x > m1[r]) {
+        m2[r] = m1[r];
+        c2[r] = c1[r];
+        m1[r] = x;
+        c1[r] = c;
+      } else if (NPLANES == 2 && x != m1[r] && x > m2[r]) {
+        m2[r] = x;
+        c2[r] = c;
+      }
+    }
+  }
+
+  // Decode each plane entry to (value, row); the scan area is free (the
+  // block loop ended on a barrier).
+  const int tl = t & (CODE_MAX - 1);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int p = 0; p < NPLANES; ++p) {
+      const int32_t mk = p == 0 ? m1[r] : m2[r];
+      const int cid = p == 0 ? c1[r] : c2[r];
+      const int dd = (tl - ((CODE_MAX - 1) - (mk & (CODE_MAX - 1)))) & (CODE_MAX - 1);
+      const int o = (group * ROWS + r) * NCAND + p * LANES + lane;
+      cand_v[o] = mk == KMIN ? KMIN : (mk >> 4);
+      cand_i[o] = mk == KMIN ? 0 : (t - dd) * blk + cid * LANES + lane;
+    }
+  __syncthreads();
+
+  // Exact top-k: one warp per row, k passes of a warp argmax by (value desc,
+  // row asc); lane p keeps pass p's result.
+  for (int rr = warp; rr < GROUPS * ROWS; rr += WARPS) {
+    if (cta_r0 + rr >= qcap) continue;
+    int32_t cv[PER_LANE];
+    int ci[PER_LANE];
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      cv[i] = cand_v[rr * NCAND + i * 32 + wl];
+      ci[i] = cand_i[rr * NCAND + i * 32 + wl];
+    }
+    float ov = -INFINITY;
+    int oi = 0;
+    for (int p = 0; p < k; ++p) {
+      int32_t bv = cv[0];
+      int bi = ci[0];
+#pragma unroll
+      for (int i = 1; i < PER_LANE; ++i)
+        if (cv[i] > bv || (cv[i] == bv && ci[i] < bi)) {
+          bv = cv[i];
+          bi = ci[i];
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const int32_t v2 = __shfl_xor_sync(FULL, bv, off);
+        const int i2 = __shfl_xor_sync(FULL, bi, off);
+        if (v2 > bv || (v2 == bv && i2 < bi)) {
+          bv = v2;
+          bi = i2;
+        }
+      }
+      if (bv == KMIN) {
+        // Only KMIN left: every later pass returns the same (KMIN, bi).
+        if (wl >= p) {
+          ov = -INFINITY;
+          oi = bi;
+        }
+        break;
+      }
+      if (wl == p) {
+        ov = __int2float_rn(bv);
+        oi = bi;
+      }
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i)
+        if (ci[i] == bi) cv[i] = KMIN;
+    }
+    if (wl < k) {
+      const size_t o = ((size_t)t * qcap + cta_r0 + rr) * k + wl;
+      out_v[o] = ov;
+      out_i[o] = oi;
+    }
+  }
+}
+
+template <int NPLANES>
+int launch_extract(const void* qg, const void* vec, const void* block_first,
+                   const void* block_last, const void* rows_valid, const void* bias, void* out_v,
+                   void* out_i, int nblocks, int qcap, int d, int blk, int k, int mask_rows,
+                   cudaStream_t stream) {
+  const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
+  const size_t scan = (size_t)(GROUPS * ROWS * qstride + LANES * (qstride + 1)) * sizeof(int32_t);
+  const size_t cand = (size_t)GROUPS * ROWS * NPLANES * LANES * 2 * sizeof(int32_t);
+  const size_t smem = scan > cand ? scan : cand;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(accum_extract_i8_kernel<NPLANES>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
+  accum_extract_i8_kernel<NPLANES><<<grid, THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
+      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), qcap, d, blk, k, mask_rows,
+      qstride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() (0 = launched).  `bias` may be null (no-bias mode).  The
+// wrapper guarantees blk % 128 == 0, 1 <= k <= 32 and nplanes in {1, 2}.
+extern "C" int ivf_accum_extract_i8(const void* qg, const void* vec, const void* block_first,
+                                    const void* block_last, const void* rows_valid,
+                                    const void* bias, void* out_v, void* out_i, int nblocks,
+                                    int qcap, int d, int blk, int k, int nplanes, int mask_rows,
+                                    void* stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nplanes == 2)
+    return launch_extract<2>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
+                             nblocks, qcap, d, blk, k, mask_rows, s);
+  if (nplanes == 1)
+    return launch_extract<1>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
+                             nblocks, qcap, d, blk, k, mask_rows, s);
+  return (int)cudaErrorInvalidValue;
 }

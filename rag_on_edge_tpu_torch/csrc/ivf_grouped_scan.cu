@@ -1,5 +1,6 @@
-// Kernels K4 and K6 of the IVF search path: the cluster-major fine scan with
-// a per-row running top-k over binned survivors, in its two output layouts.
+// Kernels K4, K6 and K7 of the IVF search path: the cluster-major fine scan
+// with a per-row running top-k over binned survivors, with three sources of
+// the routed queries.
 //
 // K4 (entry ivf_grouped_scan_i8) replaces the TPU kernel
 // rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
@@ -10,18 +11,24 @@
 // file (its _kernel): the routed queries come per cluster, qg[bc[b]], and
 // the output is per cluster, out[bc[t]].  The sharded index runs it over
 // each shard's block walk and over the recovery pass's compacted list.
+// K7 (entry ivf_routed_scan_i8) replaces cluster_major_scan_routed in the
+// same file (its _routed_grouped_kernel): the routed queries are gathered
+// from the whole batch inside the kernel, row r of block b being
+// qi[cq_blocks[b, r]] (zeros where that index is outside [0, B)), which is
+// what the TPU kernel's onehot(cq) @ qi gives; the output is per block, as
+// K4's.  No [nblocks, qcap, d] routed table exists.
 //
 // What it computes, for each run of blocks that ends at a block t with
 // block_last[t] = 1 (the run starts at the latest block_first at or before
 // t), and each routed query row r:
 //   score(b, r, col) = float(int32 dot(Q(b)[r], vec[b, :, col])) - bias[b, col]
 //                      (no subtraction without bias), -inf for col >= rows_valid[b];
-//   Q(b) = qg[b] for K4, qg[bc[b]] for K6;
+//   Q(b) = qg[b] for K4, qg[bc[b]] for K6, qi[cq_blocks[b]] for K7;
 //   per block b and bin (col % 128), the DEPTH best (score, id) with
 //   id = row_base[b] + col, ties to the lowest id;
 //   those 128*DEPTH survivors of each block merged into a running top-k
 //   ordered by (score desc, id asc), written to out_v/out_i[O(t), r, :k]
-//   with O(t) = t for K4 and bc[t] for K6.
+//   with O(t) = t for K4 and K7 and bc[t] for K6.
 // Only those rows are written.  Entries past the last finite score hold
 // -inf and an unspecified id.  For K6, bc must be constant along a run and
 // each cluster must end at most one run (the TPU kernel's output-window
@@ -31,7 +38,8 @@
 // What bounds it on the H100: on the dense walk, integer multiply-adds, as
 // for K1 (with dp4a and no tensor cores the instruction rate is the limit,
 // not memory).  On the recovery pass the kernel walks only the few runs
-// whose last block made the compacted list; most CTAs exit at once.
+// whose last block made the compacted list; most CTAs exit at once.  K7's
+// gather reads the batch (1 MB at B = 8192, d = 128) through L2.
 //
 // Design (simple first; wgmma and TMA are later work):
 // - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
@@ -81,13 +89,18 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// BY_CLUSTER = false: K4 (qg [nblocks, qcap, d], out [nblocks, qcap, k]);
-// true: K6 (qg [nlist, qcap, d], out [nlist, qcap, k], through bc).
-template <int DEPTH, bool BY_CLUSTER>
+// Where the routed queries come from, and where the output goes:
+// kBlock: K4 (qg [nblocks, qcap, d], out [nblocks, qcap, k]);
+// kCluster: K6 (qg [nlist, qcap, d], out [nlist, qcap, k], through bc);
+// kRouted: K7 (qg = qi [B, d] gathered through cq_blocks, out [nblocks, qcap, k]).
+enum class QSrc { kBlock, kCluster, kRouted };
+
+template <int DEPTH, QSrc SRC>
 __global__ void __launch_bounds__(THREADS)
 grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
                        const int8_t* __restrict__ vec,          // [nblocks, d, blk]
                        const int32_t* __restrict__ block_cluster, // [nblocks] (K6 only)
+                       const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7 only)
                        const int32_t* __restrict__ block_first,   // [nblocks]
                        const int32_t* __restrict__ block_last,    // [nblocks]
                        const int32_t* __restrict__ rows_valid,    // [nblocks]
@@ -95,7 +108,8 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
                        const int32_t* __restrict__ row_base,      // [nblocks]
                        float* __restrict__ out_v,               // see above
                        int32_t* __restrict__ out_i,             // see above
-                       int qcap, int d, int blk, int k, int qstride, int nlist) {
+                       int qcap, int d, int blk, int k, int qstride,
+                       int nsrc) {  // rows of qg: nlist for K6, B for K7
   constexpr int ROWS = Tile<DEPTH>::ROWS;
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   constexpr int NCAND = Tile<DEPTH>::NCAND;
@@ -104,8 +118,9 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
 
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
+  constexpr bool BY_CLUSTER = SRC == QSrc::kCluster;
   const int orow = BY_CLUSTER ? block_cluster[t] : t;  // the output row
-  if (BY_CLUSTER && (orow < 0 || orow >= nlist)) return;
+  if (BY_CLUSTER && (orow < 0 || orow >= nsrc)) return;
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
@@ -135,9 +150,14 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   for (int b = tb; b <= t; ++b) {
     const int nvalid = rows_valid[b];
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    const int qrow = BY_CLUSTER ? block_cluster[b] : b;
-    stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
-                           reinterpret_cast<int8_t*>(q_s));
+    if constexpr (SRC == QSrc::kRouted) {
+      stage_queries_gather<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
+                                    CTA_ROWS, qstride, reinterpret_cast<int8_t*>(q_s));
+    } else {
+      const int qrow = BY_CLUSTER ? block_cluster[b] : b;
+      stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
+                             reinterpret_cast<int8_t*>(q_s));
+    }
     const float* brow = bias != nullptr ? bias + (size_t)b * blk : nullptr;
 
     float tv[ROWS][DEPTH];
@@ -261,11 +281,11 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   }
 }
 
-template <int DEPTH, bool BY_CLUSTER>
-int launch(const void* qg, const void* vec, const void* block_cluster, const void* block_first,
-           const void* block_last, const void* rows_valid, const void* bias,
-           const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
-           int blk, int k, int nlist, cudaStream_t stream) {
+template <int DEPTH, QSrc SRC>
+int launch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
+           const void* block_first, const void* block_last, const void* rows_valid,
+           const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
+           int qcap, int d, int blk, int k, int nsrc, cudaStream_t stream) {
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
   const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
@@ -273,44 +293,40 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
   const size_t smem = run + (scan > cand ? scan : cand);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, BY_CLUSTER>,
+    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, SRC>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
-  grouped_scan_i8_kernel<DEPTH, BY_CLUSTER><<<grid, THREADS, smem, stream>>>(
+  grouped_scan_i8_kernel<DEPTH, SRC><<<grid, THREADS, smem, stream>>>(
       static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
-      static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
-      static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
-      static_cast<const float*>(bias), static_cast<const int32_t*>(row_base),
-      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride,
-      nlist);
+      static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(cq_blocks),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
+      static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride, nsrc);
   return (int)cudaGetLastError();
 }
 
-template <bool BY_CLUSTER>
-int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* block_first,
-             const void* block_last, const void* rows_valid, const void* bias,
-             const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
-             int blk, int k, int depth, int nlist, void* stream) {
+template <QSrc SRC>
+int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
+             const void* block_first, const void* block_last, const void* rows_valid,
+             const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
+             int qcap, int d, int blk, int k, int depth, int nsrc, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RAG_LAUNCH(D)                                                                        \
+  launch<D, SRC>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, bias, \
+                 row_base, out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
   switch (depth) {
-    case 1: return launch<1, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
-                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
-                                         qcap, d, blk, k, nlist, s);
-    case 2: return launch<2, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
-                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
-                                         qcap, d, blk, k, nlist, s);
-    case 3: return launch<3, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
-                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
-                                         qcap, d, blk, k, nlist, s);
-    case 4: return launch<4, BY_CLUSTER>(qg, vec, block_cluster, block_first, block_last,
-                                         rows_valid, bias, row_base, out_v, out_i, nblocks,
-                                         qcap, d, blk, k, nlist, s);
+    case 1: return RAG_LAUNCH(1);
+    case 2: return RAG_LAUNCH(2);
+    case 3: return RAG_LAUNCH(3);
+    case 4: return RAG_LAUNCH(4);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef RAG_LAUNCH
 }
 
 }  // namespace
@@ -326,8 +342,9 @@ extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* bias, const void* row_base, void* out_v,
                                    void* out_i, int nblocks, int qcap, int d, int blk, int k,
                                    int depth, void* stream) {
-  return dispatch<false>(qg, vec, nullptr, block_first, block_last, rows_valid, bias, row_base,
-                         out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream);
+  return dispatch<QSrc::kBlock>(qg, vec, nullptr, nullptr, block_first, block_last, rows_valid,
+                                bias, row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                                nblocks, stream);
 }
 
 // K6: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k].
@@ -337,6 +354,19 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* row_base, void* out_v, void* out_i, int nlist,
                                    int nblocks, int qcap, int d, int blk, int k, int depth,
                                    void* stream) {
-  return dispatch<true>(qg, vec, block_cluster, block_first, block_last, rows_valid, bias,
-                        row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
+  return dispatch<QSrc::kCluster>(qg, vec, block_cluster, nullptr, block_first, block_last,
+                                  rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
+                                  blk, k, depth, nlist, stream);
+}
+
+// K7: qi [nbatch, d], cq_blocks [nblocks, qcap] (-1 = empty slot),
+// out [nblocks, qcap, k].
+extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const void* vec,
+                                  const void* block_first, const void* block_last,
+                                  const void* rows_valid, const void* bias, const void* row_base,
+                                  void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
+                                  int d, int blk, int k, int depth, void* stream) {
+  return dispatch<QSrc::kRouted>(qi, vec, nullptr, cq_blocks, block_first, block_last,
+                                 rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d, blk,
+                                 k, depth, nbatch, stream);
 }

@@ -1,5 +1,5 @@
-// Slab staging shared by the cluster-major scan kernels (K1 ivf_accum_planes.cu,
-// K4 ivf_grouped_scan.cu).
+// Slab staging shared by the cluster-major scan kernels (K1 and K9
+// ivf_accum_planes.cu; K4, K6 and K7 ivf_grouped_scan.cu).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,6 +44,25 @@ __device__ __forceinline__ void stage_queries(const int8_t* __restrict__ qsrc, i
   for (int i = threadIdx.x; i < nrows * qstride * 4; i += NTHREADS) {
     const int r = i / (qstride * 4), e = i % (qstride * 4);
     q_b[i] = (row0 + r < qcap && e < d) ? qsrc[(size_t)(row0 + r) * d + e] : 0;
+  }
+}
+
+// The gathering form: routed row i (< qcap) is row idx[i] of a query batch
+// [nsrc, d], or zeros where idx[i] lies outside [0, nsrc) (an empty slot is
+// -1).  Same layout of `q_b` as stage_queries.
+template <int NTHREADS>
+__device__ __forceinline__ void stage_queries_gather(const int8_t* __restrict__ qsrc,
+                                                     const int32_t* __restrict__ idx, int nsrc,
+                                                     int qcap, int d, int row0, int nrows,
+                                                     int qstride, int8_t* q_b) {
+  for (int i = threadIdx.x; i < nrows * qstride * 4; i += NTHREADS) {
+    const int r = i / (qstride * 4), e = i % (qstride * 4);
+    int8_t v = 0;
+    if (row0 + r < qcap && e < d) {
+      const int s = idx[row0 + r];
+      if (s >= 0 && s < nsrc) v = qsrc[(size_t)s * d + e];
+    }
+    q_b[i] = v;
   }
 }
 

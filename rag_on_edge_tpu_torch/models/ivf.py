@@ -13,12 +13,15 @@ stages:
    (``ops/bruteforce_fused.py``) from nlist 8192 (:func:`coarse_probes_tiered`);
 2. probe inversion into a fixed-capacity cluster→query table
    (:func:`invert_probes`);
-3. query prep: int8 query quantization, the per-block routed query
-   gather, and the L2 bias (:meth:`IVFIndex._scan_inputs`);
+3. query prep: int8 query quantization and the L2 bias
+   (:meth:`IVFIndex._query_prep`), and the per-block routed query gather
+   (:meth:`IVFIndex._scan_inputs`) for every engine but ``pallas_routed``;
 4. fine scan: kernel K1 (``ops/ivf_accum.py``), or kernel K4
-   (``ops/ivf_scan.py``) for the grouped engine; then, where pairs were
-   dropped past the routing capacity, the recovery pass rescans only
-   their clusters with K4 (:meth:`IVFIndex._recover`);
+   (``ops/ivf_scan.py``) for the grouped engine, or kernel K7 (same
+   module), which gathers the routed queries inside the kernel, for the
+   routed engine; then, where pairs were dropped past the routing
+   capacity, the recovery pass rescans only their clusters with K4 (K7
+   under the routed engine) (:meth:`IVFIndex._recover`);
 5. join: each (query, probe) pair's planes (K1) or top-k (K4) are
    gathered; for the planes, kernel K2 (``ops/fused_topk.py``) selects the
    top-kk of the pool once B·pool reaches ``8 << 20``, and rows are
@@ -26,10 +29,10 @@ stages:
 6. rescore: exact fp32 re-ranking, and padded rows back to original ids.
 
 The device is explicit (``device=``, default ``"cuda"``), never detected.
-The query-major mode and the ``xla`` and ``pallas_routed`` engines are not
-ported yet; asking for them raises ``NotImplementedError`` naming the
-ROADMAP item.  :func:`fine_scan`, the query-major scan, is here for the
-sharded index's query mode (``parallel/sharded.py``).
+The query-major mode and the ``xla`` engine are not ported yet; asking for
+them raises ``NotImplementedError`` naming the ROADMAP item.
+:func:`fine_scan`, the query-major scan, is here for the sharded index's
+query mode (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -492,21 +495,19 @@ class IVFIndex:
         lossy = (slot < 0) & (p_sizes > 0)
         return probes, cq, slot, lossy, p_sizes.sum(dim=1).to(torch.int32)
 
-    def _scan_inputs(self, q: torch.Tensor, cq: torch.Tensor):
-        """STAGE 3 → (qi [B, D'] the kernel-ready batch, qb [nblocks, qcap,
-        D'] routed queries per block, bias [nblocks, 1, blk] f32 or None,
-        bias_rows [nblocks, 1, blk] int32 or None, alpha or None).
+    def _query_prep(self, q: torch.Tensor):
+        """STAGE 3 without the routed table → (qi [B, D'] the kernel-ready
+        batch, bias [nblocks, 1, blk] f32 or None, alpha or None).
 
         int8: per-batch symmetric query scale ``sq``; for L2,
-        ``alpha = 2·sq·sb``, ``bias = norms/alpha`` (kernel K4 subtracts it
-        from the scores) and the bias rows of kernel K1 are
-        ``(round(bias) clipped to ±2**21) << 8`` minus the block and chunk
-        pack, each step one fp32 op in the JAX package's order.  fp32/bf16:
-        ``qi`` is the batch (with a ones column for L2) in the slab dtype."""
+        ``alpha = 2·sq·sb`` and ``bias = norms/alpha`` (kernels K4 and K7
+        subtract it from the scores), each step one fp32 op in the JAX
+        package's order.  fp32/bf16: ``qi`` is the batch (with a ones column
+        for L2) in the slab dtype."""
         a = self._arrays
         nblocks = a["vectors_t"].shape[0]
         blk = self.PAD_BLOCK
-        alpha = bias = bias_rows = None
+        alpha = bias = None
         if self.dtype == "int8":
             qi, sq = quantize.quantize_int8(q)
             alpha = sq * torch.tensor(self._base_scale, dtype=torch.float32, device=q.device)
@@ -517,19 +518,31 @@ class IVFIndex:
                 if pad:
                     norms = torch.nn.functional.pad(norms, (0, pad))
                 bias = (norms / alpha).reshape(nblocks, 1, blk)
-                t = torch.arange(nblocks, dtype=torch.int32, device=q.device)
-                code = (ivf_accum.CODE_MAX - 1) - (t % ivf_accum.CODE_MAX)
-                cidc = torch.arange(blk, dtype=torch.int32, device=q.device) >> 7
-                pack = (code << 4)[:, None] | cidc[None, :]
-                br = torch.clamp(torch.round(bias), -(2.0**21), 2.0**21).to(torch.int32)
-                bias_rows = (br * 256 - pack[:, None, :]).contiguous()
         else:
             qi = q
             if self.metric == "l2":
                 qi = torch.cat([qi, torch.ones((q.shape[0], 1), dtype=qi.dtype,
                                                device=q.device)], dim=1)
             qi = qi.to(a["vectors_t"].dtype)
-        qb = self._routed_blocks(qi, cq, a["block_cluster"])
+        return qi, bias, alpha
+
+    def _scan_inputs(self, q: torch.Tensor, cq: torch.Tensor):
+        """STAGE 3 → (qi, qb [nblocks, qcap, D'] routed queries per block,
+        bias, bias_rows [nblocks, 1, blk] int32 or None, alpha); ``qi``,
+        ``bias`` and ``alpha`` as :meth:`_query_prep`.  The bias rows of
+        kernel K1 are ``(round(bias) clipped to ±2**21) << 8`` minus the
+        block and chunk pack, as the JAX package makes them."""
+        qi, bias, alpha = self._query_prep(q)
+        bias_rows = None
+        if bias is not None:
+            nblocks, _, blk = bias.shape
+            t = torch.arange(nblocks, dtype=torch.int32, device=q.device)
+            code = (ivf_accum.CODE_MAX - 1) - (t % ivf_accum.CODE_MAX)
+            cidc = torch.arange(blk, dtype=torch.int32, device=q.device) >> 7
+            pack = (code << 4)[:, None] | cidc[None, :]
+            br = torch.clamp(torch.round(bias), -(2.0**21), 2.0**21).to(torch.int32)
+            bias_rows = (br * 256 - pack[:, None, :]).contiguous()
+        qb = self._routed_blocks(qi, cq, self._arrays["block_cluster"])
         return qi, qb, bias, bias_rows, alpha
 
     @staticmethod
@@ -567,10 +580,26 @@ class IVFIndex:
             k=kk, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=bias, bin_depth=bin_depth)
         return self._score_units(pv, alpha), pr
 
-    def _recover_tables(self, qi, probes, todo, bias, qcap2: int, cap_blocks: int):
-        """The inputs of one recovery pass: a second, sparse K4 walk over
-        only the clusters that still have ``todo`` pairs (the JAX package's
-        ``_cm_recover``).
+    def _scan_routed(self, qi: torch.Tensor, cq: torch.Tensor, bias: torch.Tensor | None,
+                     kk: int, alpha, bin_depth: int = 2):
+        """STAGE 4, routed engine: kernel K7 over the dense block walk, the
+        routed queries gathered inside the kernel from ``qi`` through
+        ``cq[block_cluster]`` → (pv, pr) [nblocks, qcap, kk] in true-score
+        units.  The JAX package pads ``qi`` to a multiple of 128 rows for
+        the TPU's tiling; no index in ``cq`` points at a pad row, so the
+        port passes the batch as it is."""
+        a = self._arrays
+        cq_blocks = cq[a["block_cluster"].long()].unsqueeze(-1).contiguous()
+        pv, pr = ivf_scan.cluster_major_scan_routed(
+            qi, cq_blocks, a["vectors_t"], a["block_first"], a["block_last"], a["rows_valid"],
+            k=kk, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=bias, bin_depth=bin_depth)
+        return self._score_units(pv, alpha), pr
+
+    def _recover_tables(self, qi, probes, todo, bias, qcap2: int, cap_blocks: int,
+                        routed: bool = False):
+        """The inputs of one recovery pass: a second, sparse K4 walk (K7
+        with ``routed``) over only the clusters that still have ``todo``
+        pairs (the JAX package's ``_cm_recover``).
 
         The todo pairs are re-inverted into a fresh routed table (the rest
         go to a sentinel cluster whose row is discarded), and the active
@@ -580,7 +609,10 @@ class IVFIndex:
         the list's active prefix get zero tables and are no-ops.
         Returns ((qg, vectors_t, block_first, block_last, rows_valid, bias,
         row_base) for K4, slot2 [B, P], cluster_inc [nlist] bool,
-        cluster_pos [nlist] — the row of each cluster's result)."""
+        cluster_pos [nlist] — the row of each cluster's result).  With
+        ``routed`` the first input is K7's ``cq_blocks`` [cap_blocks, qcap2,
+        1], the listed blocks' rows of the fresh table, and no routed query
+        table is gathered."""
         a = self._arrays
         bc_t = a["block_cluster"].long()
         lb = a["last_block"].long()
@@ -601,27 +633,34 @@ class IVFIndex:
             tab = a[name][blocks_list]
             return torch.where(inc_list, tab, torch.zeros_like(tab))
 
-        scan = (self._routed_blocks(qi, cq2, bc_t[blocks_list]), a["vectors_t"][blocks_list],
+        if routed:
+            first = cq2[bc_t[blocks_list]].unsqueeze(-1).contiguous()
+        else:
+            first = self._routed_blocks(qi, cq2, bc_t[blocks_list])
+        scan = (first, a["vectors_t"][blocks_list],
                 listed("block_first"), listed("block_last"), listed("rows_valid"),
                 None if bias is None else bias[blocks_list],
                 (blocks_list * self.PAD_BLOCK).to(torch.int32))
         return scan, slot2, cluster_inc, cluster_pos
 
     def _recover(self, qi, probes, lossy, bias, alpha, k: int, qcap2: int,
-                 cap_blocks: int, passes: int, bin_depth: int = 2):
+                 cap_blocks: int, passes: int, bin_depth: int = 2, routed: bool = False):
         """STAGE 4b: ``passes`` recovery passes, each placing the pairs the
-        ones before left → (extra (vals [B, E], rows [B, E]) to join, in
-        true-score units, -inf where not placed; the residual todo
-        [B, P])."""
+        ones before left, through K4 (K7 with ``routed``) → (extra (vals
+        [B, E], rows [B, E]) to join, in true-score units, -inf where not
+        placed; the residual todo [B, P])."""
         b = probes.shape[0]
         ev, er = [], []
         todo = lossy
         for _ in range(passes):
             scan, slot2, cluster_inc, cluster_pos = self._recover_tables(
-                qi, probes, todo, bias, qcap2, cap_blocks)
-            pv2, pr2 = ivf_scan.cluster_major_scan_grouped(
-                *scan[:5], k=k, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=scan[5],
-                row_base=scan[6], bin_depth=bin_depth)
+                qi, probes, todo, bias, qcap2, cap_blocks, routed)
+            kw = dict(k=k, blk=self.PAD_BLOCK, group=self.CM_GROUP, bias=scan[5],
+                      row_base=scan[6], bin_depth=bin_depth)
+            if routed:
+                pv2, pr2 = ivf_scan.cluster_major_scan_routed(qi, *scan[:5], **kw)
+            else:
+                pv2, pr2 = ivf_scan.cluster_major_scan_grouped(*scan[:5], **kw)
             pv2 = self._score_units(pv2, alpha)
             placed = (slot2 >= 0) & cluster_inc[probes.long()]
             ok2 = todo & placed  # todo already implies a non-empty cluster
@@ -865,12 +904,16 @@ class IVFIndex:
         engine: "auto" (pallas_accum where the index's layout allows it,
             else pallas) | "pallas_accum" — the accum fine scan (kernel K1)
             with the planes join (kernel K2); clusters of at most 16
-            blocks | "pallas" — the grouped fine scan (kernel K4).  The
-            names are the JAX package's.
+            blocks | "pallas" — the grouped fine scan (kernel K4) over a
+            gathered routed table | "pallas_routed" — the same scan with
+            the routing inside the kernel (kernel K7), so no routed table
+            is built; never picked by "auto".  The names are the JAX
+            package's ("xla" is not ported yet).
         rescore: fp32 re-ranking of ``rescore_k`` (default 2k) candidates;
-            on by default (both engines' selection is binned).
-        recover: the spilled-pair recovery pass (kernel K4 over only the
-            clusters that dropped routing pairs, :meth:`_recover`).
+            on by default (every engine's selection is binned).
+        recover: the spilled-pair recovery pass (kernel K4, K7 under the
+            routed engine, over only the clusters that dropped routing
+            pairs, :meth:`_recover`).
             Default: on where the estimated hottest-cell overflow past qcap
             is large (:meth:`_auto_recover`).  ``last_spill`` holds the
             pairs still dropped after it.
@@ -890,11 +933,10 @@ class IVFIndex:
                 "ROADMAP Queue 1 item 9")
         if mode != "cluster":
             raise ValueError(f"unknown mode {mode!r}")
-        if engine in ("xla", "pallas_routed"):
+        if engine == "xla":
             raise NotImplementedError(
-                f"engine={engine!r} is not ported yet — ROADMAP Queue 1 item 9 "
-                "(xla) / Queue 2 item 7 (pallas_routed)")
-        if engine not in ("auto", "pallas", "pallas_accum"):
+                "engine='xla' is not ported yet — ROADMAP Queue 1 item 9")
+        if engine not in ("auto", "pallas", "pallas_accum", "pallas_routed"):
             raise ValueError(f"unknown engine {engine!r}")
         self._ensure_kernel_state()
         # The accum engine's packed key holds a 4-bit block code, a 4-bit
@@ -912,7 +954,7 @@ class IVFIndex:
                 f"clusters, pad_block {self.PAD_BLOCK} and dim {self.dim} — use "
                 "engine='pallas'")
         if rescore is None:
-            rescore = True  # both engines' selection is binned
+            rescore = True  # every engine's selection is binned
         if recover is None:
             recover = self._auto_recover(b, nprobe)
         kk = self._auto_cluster_k(k, rescore, rescore_k)
@@ -920,11 +962,16 @@ class IVFIndex:
         nprobe = min(nprobe, self.nlist)
         qcap = qcap or self._auto_qcap(b, nprobe)
         probes, cq, slot, lossy, ncand = self._route(q, nprobe, qcap)
-        qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq)
-        if engine == "pallas_accum":
-            pp = self._scan(qb, bias_rows, bin_depth)
+        routed = engine == "pallas_routed"
+        if routed:
+            qi, bias, alpha = self._query_prep(q)
+            pv, pr = self._scan_routed(qi, cq, bias, kk, alpha, bin_depth)
         else:
-            pv, pr = self._scan_grouped(qb, bias, kk, alpha, bin_depth)
+            qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq)
+            if engine == "pallas_accum":
+                pp = self._scan(qb, bias_rows, bin_depth)
+            else:
+                pv, pr = self._scan_grouped(qb, bias, kk, alpha, bin_depth)
         extra, todo = None, lossy
         if recover:
             nblocks = self._arrays["vectors_t"].shape[0]
@@ -933,7 +980,7 @@ class IVFIndex:
             rb = -(-rb // self.CM_GROUP) * self.CM_GROUP
             rp = recover_passes or self._auto_recover_passes(b, nprobe, rq)
             extra, todo = self._recover(qi, probes, lossy, bias, alpha, kk, rq, rb, rp,
-                                        bin_depth)
+                                        bin_depth, routed)
         if engine == "pallas_accum":
             vals, ids = self._cm_finish_planes(q, probes, slot, pp, k, kk, rescore, alpha,
                                                extra=extra)

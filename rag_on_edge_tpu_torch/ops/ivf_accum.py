@@ -1,5 +1,7 @@
-"""Kernel K1: the cluster-major accum fine scan with the planes emit
-(counterpart: ``rag_on_edge_tpu/ops/pallas_ivf_dma.py::cluster_major_accum_planes``).
+"""Kernels K1 and K9: the cluster-major accum fine scan with the planes emit
+and with the extract emit (counterparts:
+``rag_on_edge_tpu/ops/pallas_ivf_dma.py::cluster_major_accum_planes`` and
+``::cluster_major_accum``).
 
 For every block ``t`` the routed queries ``qg_blocks[t]`` [qcap, D] are
 scored against the block's slab ``vectors_t[t]`` [D, blk].  Each score is
@@ -21,6 +23,24 @@ rows are defined.
 :func:`cluster_major_accum_planes` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_accum_planes_reference`, CUDA
 tensors launch ``csrc/ivf_accum_planes.cu`` (int8 modes) or raise.
+
+K9, :func:`cluster_major_accum`, is the older extract emit of the same
+scan.  Its key has a 4-bit pack, the block code alone::
+
+    key = (dots << 4) - bias_rows[t]                     int8, L2 (bias rows
+                                                          carry the code)
+    key = (dots << 4) | code(t)                          int8, no bias
+    key = (monotone_f32(dots) & ~15) | code(t)           fp32 / bf16
+
+masked to ``KMIN`` past ``rows_valid[t]`` when ``mask_rows`` (default:
+without bias rows, whose fill buries padding).  At a cluster's last block,
+per bin, the largest key (and, with ``bin2``, the largest key different
+from it) with the lowest 128-column chunk holding it is decoded to a value
+(``key >> 4``; the float key itself) and a row, and the exact top-k of those
+candidates by (value, lowest row) is written as ``pv`` f32 (-inf where
+invalid) and ``pr`` int32 rows, each ``[nblocks, qcap, k]``.  The JAX
+package has no production caller; its CUDA entry is
+``ivf_accum_extract_i8`` of the same source, counted in ``ACCUM_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -29,10 +49,12 @@ import ctypes
 
 import torch
 
-from rag_on_edge_tpu_torch.ops import _build
+from rag_on_edge_tpu_torch.ops import _build, topk
 
 __all__ = ["CODE_MAX", "INT8_DIM_MAX", "INT8_DIM_MAX_BIAS", "KMIN", "LAUNCHES",
-           "cluster_major_accum_planes", "cluster_major_accum_planes_reference"]
+           "ACCUM_LAUNCHES", "cluster_major_accum_planes",
+           "cluster_major_accum_planes_reference", "cluster_major_accum",
+           "cluster_major_accum_reference", "accum_bias_rows"]
 
 CODE_MAX = 16  # blocks-per-cluster cap (4-bit block code)
 # int8 dimension caps: |q·b| <= d·127² must stay below 2**23 after the
@@ -41,12 +63,19 @@ INT8_DIM_MAX = 512
 INT8_DIM_MAX_BIAS = 384
 KMIN = -(2**31) + 1  # invalid-entry sentinel of the planes
 
-#: Launches of the CUDA kernel in this process; the plain version does not
-#: count.  A run that must show it went through the kernel sets it to 0
-#: before and reads it after.
+#: Launches of the CUDA kernels K1 (``LAUNCHES``) and K9 (``ACCUM_LAUNCHES``)
+#: in this process; the plain versions do not count.  A run that must show
+#: it went through a kernel sets its count to 0 before and reads it after.
 LAUNCHES = 0
+ACCUM_LAUNCHES = 0
 
 _FN = None
+_EXTRACT_FN = None
+# What the CUDA K9 takes: at most 32 per row (one per lane of the merging
+# warp), and |dots| <= D·127² below 2**24 so the fp32 plain version on the
+# card is exact.
+_CUDA_K_MAX = 32
+_CUDA_DIM_MAX = 1024
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -60,11 +89,25 @@ def _key_to_f32(kk: torch.Tensor) -> torch.Tensor:
     return m.contiguous().view(torch.float32)
 
 
+def _dots(qg_blocks, vectors_t, int_path):
+    """The per-block products [nblocks, qcap, blk]: exact int32 on the int8
+    path, fp32 otherwise."""
+    if int_path and qg_blocks.device.type == "cpu":
+        # torch.bmm on int8 returns int8 and wraps: upcast, exact in int32.
+        return torch.bmm(qg_blocks.to(torch.int32), vectors_t.to(torch.int32))
+    # No int32 GEMM on CUDA: fp32 with TF32 off is exact for int8 data
+    # (|dots| <= 1024·127² < 2**24).
+    dots = torch.bmm(qg_blocks.to(torch.float32), vectors_t.to(torch.float32))
+    return dots.to(torch.int32) if int_path else dots
+
+
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, blk,
-           bias_rows):
-    if blk % 128 or blk > 128 * CODE_MAX or blk <= 0:
-        raise ValueError(f"blk={blk} must be a positive multiple of 128 and <= "
-                         f"{128 * CODE_MAX} (4-bit chunk id)")
+           bias_rows, planes=True):
+    """K1's checks, or with ``planes=False`` K9's (no chunk id and no
+    shift by 8 in its key, so neither the blk cap nor the dim caps)."""
+    if blk % 128 or blk <= 0 or (planes and blk > 128 * CODE_MAX):
+        raise ValueError(f"blk={blk} must be a positive multiple of 128"
+                         + (f" and <= {128 * CODE_MAX} (4-bit chunk id)" if planes else ""))
     if qg_blocks.dim() != 3:
         raise ValueError(f"qg_blocks must be [nblocks, qcap, D], got {tuple(qg_blocks.shape)}")
     nblocks, qcap, d = qg_blocks.shape
@@ -87,7 +130,7 @@ def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, blk,
         if tuple(bias_rows.shape) != (nblocks, 1, blk) or bias_rows.dtype != torch.int32:
             raise ValueError(f"bias_rows must be [nblocks, 1, {blk}] int32, got "
                              f"{tuple(bias_rows.shape)} {bias_rows.dtype}")
-    if int_path:
+    if int_path and planes:
         d_cap = INT8_DIM_MAX_BIAS if bias_rows is not None else INT8_DIM_MAX
         if d > d_cap:
             raise ValueError(
@@ -105,15 +148,7 @@ def cluster_major_accum_planes_reference(qg_blocks, vectors_t, block_first,
     nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first,
                                         block_last, rows_valid, blk, bias_rows)
     dev = qg_blocks.device
-    if int_path and dev.type == "cpu":
-        # torch.bmm on int8 returns int8 and wraps: upcast, exact in int32.
-        dots = torch.bmm(qg_blocks.to(torch.int32), vectors_t.to(torch.int32))
-    else:
-        # No int32 GEMM on CUDA: fp32 with TF32 off is exact for int8 data
-        # (|dots| <= 384·127² < 2**24).
-        dots = torch.bmm(qg_blocks.to(torch.float32), vectors_t.to(torch.float32))
-        if int_path:
-            dots = dots.to(torch.int32)
+    dots = _dots(qg_blocks, vectors_t, int_path)
     t = torch.arange(nblocks, device=dev, dtype=torch.int32)
     code = (CODE_MAX - 1) - (t & (CODE_MAX - 1))
     cid = torch.arange(blk, device=dev, dtype=torch.int32) >> 7
@@ -142,6 +177,25 @@ def cluster_major_accum_planes_reference(qg_blocks, vectors_t, block_first,
     return torch.cat([p1, rest.amax(dim=2)], dim=2)
 
 
+def _cuda_inputs(name, dev, int_path, tensors):
+    """What the CUDA kernels K1 and K9 refuse: another device type, the
+    float modes, and inputs (``None`` skipped) that are not contiguous on
+    ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not int_path:
+        raise NotImplementedError(
+            f"the CUDA {name} covers the int8 modes; fp32/bf16 monotone keys on "
+            "CUDA are ROADMAP Queue 1 item 14 (use the plain version)")
+    for x in tensors:
+        if x is None:
+            continue
+        if x.device != dev:
+            raise ValueError(f"all {name} inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} inputs must be contiguous")
+
+
 def _kernel():
     """Build/load the CUDA library once and declare the C entry's types."""
     global _FN
@@ -166,20 +220,8 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
             blk=blk, bin2=bin2, bias_rows=bias_rows)
     nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first,
                                         block_last, rows_valid, blk, bias_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            "the CUDA K1 covers the int8 modes; fp32/bf16 monotone keys on "
-            "CUDA are ROADMAP Queue 1 item 14 (use the plain version)")
-    tensors = [qg_blocks, vectors_t, block_first, block_last, rows_valid]
-    if bias_rows is not None:
-        tensors.append(bias_rows)
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError("all K1 inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("K1 inputs must be contiguous")
+    _cuda_inputs("K1", dev, int_path,
+                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, bias_rows])
     nplanes = 2 if bin2 else 1
     out = torch.empty((nblocks, qcap, nplanes * 128), dtype=torch.int32, device=dev)
     fn = _kernel()
@@ -193,3 +235,151 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
         raise RuntimeError(f"ivf_accum_planes_i8 launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+def _check_extract(qg_blocks, vectors_t, block_first, block_last, rows_valid, blk, group,
+                   depth, bias_rows, mask_rows):
+    """K9's checks, in the JAX function's order → (nblocks, qcap, d,
+    int_path, mask_rows).  ``group`` and ``depth`` are the TPU's DMA ring
+    shapes: they change no result, but the JAX checks on them stay."""
+    if group % depth:
+        raise ValueError(f"group={group} must be a multiple of depth={depth}")
+    if blk % 128:
+        raise ValueError(f"blk={blk} must be a multiple of 128")
+    if qg_blocks.dim() != 3:
+        raise ValueError(f"qg_blocks must be [nblocks, qcap, D], got {tuple(qg_blocks.shape)}")
+    nblocks = qg_blocks.shape[0]
+    if nblocks % group or nblocks < depth:
+        raise ValueError(f"nblocks={nblocks} must be a multiple of group={group} and >= depth")
+    nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first, block_last,
+                                        rows_valid, blk, bias_rows, planes=False)
+    if mask_rows is None:
+        mask_rows = bias_rows is None
+    return nblocks, qcap, d, int_path, bool(mask_rows)
+
+
+def cluster_major_accum_reference(qg_blocks, vectors_t, block_first, block_last, rows_valid,
+                                  k, blk=2048, group=8, depth=8, bin2=True, bias_rows=None,
+                                  mask_rows=None):
+    """Plain PyTorch K9, for every mode the JAX function takes (int8 ± bias
+    rows, fp32 and bf16 monotone keys) → (pv, pr).  Rows of blocks that are
+    not a cluster's last block hold -inf and 0 (the kernel leaves them
+    unwritten)."""
+    nblocks, qcap, _, int_path, mask_rows = _check_extract(
+        qg_blocks, vectors_t, block_first, block_last, rows_valid, blk, group, depth,
+        bias_rows, mask_rows)
+    dev = qg_blocks.device
+    dots = _dots(qg_blocks, vectors_t, int_path)
+    t = torch.arange(nblocks, device=dev, dtype=torch.int32)
+    code = ((CODE_MAX - 1) - (t & (CODE_MAX - 1)))[:, None, None]
+    if int_path:
+        key = dots * 16
+        key = key - bias_rows if bias_rows is not None else key | code
+    else:
+        key = (_monotone_key(dots) & ~(CODE_MAX - 1)) | code
+    del dots
+    if mask_rows:
+        lane_ok = torch.arange(blk, device=dev)[None, :] < rows_valid[:, None]
+        key = torch.where(lane_ok[:, None, :], key, torch.full_like(key, KMIN))
+    # Max-fold over each cluster's blocks, as K1's plain version, but only
+    # for the last blocks, the rows the emit reads.
+    start = torch.cummax(torch.where(block_first > 0, t, torch.zeros_like(t)), 0).values
+    last = torch.nonzero(block_last).flatten()
+    acc = key[last]
+    span = int((t - start)[last].max()) + 1 if last.numel() else 1
+    for s in range(1, span):
+        src = (last - s).clamp_min(0)
+        use = (last - s) >= start[last]
+        acc = torch.where(use[:, None, None], torch.maximum(acc, key[src]), acc)
+    del key
+    # Per bin, the top-1 or top-2 with the lowest chunk holding it
+    # (_binned_packed_top), decoded to (value, row).
+    w = blk // 128
+    chunks = acc.reshape(-1, qcap, w, 128)
+    chunk_id = torch.arange(w, device=dev, dtype=torch.int32)[:, None]
+    lane = torch.arange(128, device=dev, dtype=torch.int32)
+    tl = last.to(torch.int32)[:, None, None]
+    vals, rows = [], []
+    for _ in range(2 if bin2 else 1):
+        m = chunks.amax(dim=2)
+        cid = torch.where(chunks == m[:, :, None, :], chunk_id, 2**30).amin(dim=2)
+        chunks = torch.where(chunks == m[:, :, None, :], torch.full_like(chunks, KMIN), chunks)
+        dd = ((tl & (CODE_MAX - 1)) - ((CODE_MAX - 1) - (m & (CODE_MAX - 1)))) & (CODE_MAX - 1)
+        invalid = m == KMIN
+        vals.append(torch.where(invalid, KMIN, m >> 4 if int_path else m))
+        rows.append(torch.where(invalid, 0, (tl - dd) * blk + cid * 128 + lane))
+    mv, mi = topk.extract_topk_ids(torch.cat(vals, -1), torch.cat(rows, -1), k, KMIN)
+    fv = mv.to(torch.float32) if int_path else _key_to_f32(mv)
+    pv = torch.full((nblocks, qcap, k), float("-inf"), dtype=torch.float32, device=dev)
+    pr = torch.zeros((nblocks, qcap, k), dtype=torch.int32, device=dev)
+    pv[last] = torch.where(mv == KMIN, torch.full_like(fv, float("-inf")), fv)
+    pr[last] = mi
+    return pv, pr
+
+
+def accum_bias_rows(bias: torch.Tensor, rows_valid: torch.Tensor,
+                    fill: int = 2**30) -> torch.Tensor:
+    """K9's int8-L2 bias rows, the 4-bit layout its JAX docstring gives:
+    ``round(bias) << 4`` minus the block code ``15 - t % 16``, and ``fill``
+    at the padded columns ``col >= rows_valid[t]``, which buries them with
+    no row mask.  ``bias`` [nblocks, 1, blk] f32 (``norms / alpha``) →
+    [nblocks, 1, blk] int32.  ``round(bias)`` is clipped to ±2**25, so a key
+    ``(dots << 4) - row`` stays inside int32 for D <= 1024.  (The planes
+    rows of K1 are another layout: shifted by 8, minus code and chunk.)"""
+    nblocks, _, blk = bias.shape
+    dev = bias.device
+    t = torch.arange(nblocks, dtype=torch.int32, device=dev)
+    code = (CODE_MAX - 1) - (t & (CODE_MAX - 1))
+    br = torch.clamp(torch.round(bias), -(2.0**25), 2.0**25).to(torch.int32)
+    rows = br * 16 - code[:, None, None]
+    pad = torch.arange(blk, device=dev)[None, None, :] >= rows_valid[:, None, None]
+    return torch.where(pad, torch.full_like(rows, fill), rows).contiguous()
+
+
+def _extract_kernel():
+    """Build/load the CUDA library once and declare K9's C entry's types."""
+    global _EXTRACT_FN
+    if _EXTRACT_FN is None:
+        fn = _build.load_library("ivf_accum_planes").ivf_accum_extract_i8
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _EXTRACT_FN = fn
+    return _EXTRACT_FN
+
+
+def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_valid, k,
+                        blk=2048, group=8, depth=8, bin2=True, bias_rows=None,
+                        mask_rows=None):
+    """K9 with the JAX signature → (pv [nblocks, qcap, k] f32, pr [nblocks,
+    qcap, k] int32 padded row ids); only each cluster's ``last_block`` rows
+    are defined.  See the module docstring.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (int8 ± bias rows, k <= 32,
+    D <= 1024) or raise."""
+    global ACCUM_LAUNCHES
+    dev = qg_blocks.device
+    if dev.type == "cpu":
+        return cluster_major_accum_reference(
+            qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk=blk,
+            group=group, depth=depth, bin2=bin2, bias_rows=bias_rows, mask_rows=mask_rows)
+    nblocks, qcap, d, int_path, mask_rows = _check_extract(
+        qg_blocks, vectors_t, block_first, block_last, rows_valid, blk, group, depth,
+        bias_rows, mask_rows)
+    _cuda_inputs("K9", dev, int_path,
+                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, bias_rows])
+    if not 1 <= k <= _CUDA_K_MAX or d > _CUDA_DIM_MAX:
+        raise ValueError(f"the CUDA K9 takes 1 <= k <= {_CUDA_K_MAX} and D <= "
+                         f"{_CUDA_DIM_MAX}; got k={k}, D={d}")
+    pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
+    pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
+    fn = _extract_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
+                 block_last.data_ptr(), rows_valid.data_ptr(),
+                 bias_rows.data_ptr() if bias_rows is not None else None,
+                 pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k,
+                 2 if bin2 else 1, int(mask_rows), stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_accum_extract_i8 launch failed: CUDA error {err}")
+    ACCUM_LAUNCHES += 1
+    return pv, pr

@@ -1,6 +1,6 @@
-"""Kernels K4 and K6: the cluster-major fine scan with a per-row running
-top-k (counterparts: ``rag_on_edge_tpu/ops/pallas_ivf.py::cluster_major_scan_grouped``
-and ``::cluster_major_scan``).
+"""Kernels K4, K6 and K7: the cluster-major fine scan with a per-row running
+top-k (counterparts: ``rag_on_edge_tpu/ops/pallas_ivf.py::cluster_major_scan_grouped``,
+``::cluster_major_scan`` and ``::cluster_major_scan_routed``).
 
 For every block ``j`` the routed queries ``qg_blocks[j]`` [qcap, D] are
 scored against the block's slab ``vectors_t[j]`` [D, blk]::
@@ -28,6 +28,15 @@ that end no run are unwritten.  The sharded index runs it over a shard's
 block walk and the recovery pass's compacted block list.  Its CUDA entry
 shares K4's kernel (``ivf_cluster_scan_i8`` in the same source) and counts
 its launches in ``CLUSTER_LAUNCHES``.
+
+K7, :func:`cluster_major_scan_routed`, is K4 with the routing done inside
+the kernel: it takes the whole batch ``qi`` [B, D] and, per block, the
+routed query indices ``cq_blocks`` [nblocks, qcap, 1] (-1 = empty slot), and
+row ``r`` of block ``j`` is ``qi[cq_blocks[j, r]]``, a zero row where that
+index lies outside ``[0, B)`` (the TPU kernel's ``onehot(cq) @ qi``).  No
+``[nblocks, qcap, D]`` table is built.  Its CUDA entry is
+``ivf_routed_scan_i8`` of the same source; its launches count in
+``ROUTED_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,15 +47,18 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, topk
 
-__all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "cluster_major_scan_grouped",
+__all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "ROUTED_LAUNCHES", "cluster_major_scan_grouped",
            "cluster_major_scan_grouped_reference", "cluster_major_scan",
-           "cluster_major_scan_reference"]
+           "cluster_major_scan_reference", "cluster_major_scan_routed",
+           "cluster_major_scan_routed_reference"]
 
-#: Launches of the CUDA kernel K4 (``LAUNCHES``) and K6 (``CLUSTER_LAUNCHES``)
-#: in this process; the plain versions do not count.  A run that must show
-#: it went through a kernel sets its count to 0 before and reads it after.
+#: Launches of the CUDA kernel K4 (``LAUNCHES``), K6 (``CLUSTER_LAUNCHES``)
+#: and K7 (``ROUTED_LAUNCHES``) in this process; the plain versions do not
+#: count.  A run that must show it went through a kernel sets its count to 0
+#: before and reads it after.
 LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
+ROUTED_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
 # What the CUDA kernel takes: 128 bins (one per lane of a row group), at
@@ -60,6 +72,7 @@ _CUDA_DIM_MAX = 1024
 
 _FN = None
 _CLUSTER_FN = None
+_ROUTED_FN = None
 
 
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
@@ -168,6 +181,31 @@ def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
     return sv, si
 
 
+def _cuda_inputs(name, dev, int_path, nbins, k, bin_depth, d, tensors):
+    """What the CUDA kernels K4, K6 and K7 refuse: another device type, the
+    float modes, nbins other than 128, k > 32, bin_depth > 4, D > 1024, and
+    inputs (``None`` skipped) that are not contiguous on ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not int_path:
+        raise NotImplementedError(
+            f"the CUDA {name} covers the int8 modes; fp32/bf16 slabs on CUDA are "
+            "ROADMAP Queue 1 item 14 (use the plain version)")
+    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
+            or d > _CUDA_DIM_MAX):
+        raise ValueError(
+            f"the CUDA {name} takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
+            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
+            f"bin_depth={bin_depth}, D={d}")
+    for x in tensors:
+        if x is None:
+            continue
+        if x.device != dev:
+            raise ValueError(f"all {name} inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} inputs must be contiguous")
+
+
 def _kernel():
     """Build/load the CUDA library once and declare the C entry's types."""
     global _FN
@@ -198,28 +236,10 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first, block_last,
                                         rows_valid, k, blk, group, nbins, bin_depth,
                                         bias, row_base)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            "the CUDA K4 covers the int8 modes; fp32/bf16 slabs on CUDA are "
-            "ROADMAP Queue 1 item 14 (use the plain version)")
-    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
-            or d > _CUDA_DIM_MAX):
-        raise ValueError(
-            f"the CUDA K4 takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
-            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
-            f"bin_depth={bin_depth}, D={d}")
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    tensors = [qg_blocks, vectors_t, block_first, block_last, rows_valid, row_base]
-    if bias is not None:
-        tensors.append(bias)
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError("all K4 inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("K4 inputs must be contiguous")
+    _cuda_inputs("K4", dev, int_path, nbins, k, bin_depth, d,
+                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, row_base, bias])
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     fn = _kernel()
@@ -316,28 +336,11 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     nlist, nblocks, qcap, d, int_path = _check_cluster(
         qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k, blk, nbins,
         bin_depth, bias, row_base)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            "the CUDA K6 covers the int8 modes; fp32/bf16 slabs on CUDA are "
-            "ROADMAP Queue 1 item 14 (use the plain version)")
-    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
-            or d > _CUDA_DIM_MAX):
-        raise ValueError(
-            f"the CUDA K6 takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
-            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
-            f"bin_depth={bin_depth}, D={d}")
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    tensors = [qg, vectors_t, block_cluster, block_first, block_last, rows_valid, row_base]
-    if bias is not None:
-        tensors.append(bias)
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError("all K6 inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("K6 inputs must be contiguous")
+    _cuda_inputs("K6", dev, int_path, nbins, k, bin_depth, d,
+                 [qg, vectors_t, block_cluster, block_first, block_last, rows_valid, row_base,
+                  bias])
     pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
     fn = _cluster_kernel()
@@ -351,4 +354,96 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     if err != 0:
         raise RuntimeError(f"ivf_cluster_scan_i8 launch failed: CUDA error {err}")
     CLUSTER_LAUNCHES += 1
+    return pv, pr
+
+
+def _check_routed(qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
+                  group, nbins, bin_depth, bias, row_base):
+    """K7's checks (the JAX function's, then K4's on a shape-only stand-in
+    for the routed table) → (nbatch, nblocks, qcap, d, int_path)."""
+    if blk % nbins:
+        raise ValueError(f"blk={blk} must be a multiple of nbins={nbins}")
+    if cq_blocks.dim() != 3 or cq_blocks.shape[2] != 1 or cq_blocks.dtype != torch.int32:
+        raise ValueError(f"cq_blocks must be [nblocks, qcap, 1] int32, got "
+                         f"{tuple(cq_blocks.shape)} {cq_blocks.dtype}")
+    nblocks, qcap, _ = cq_blocks.shape
+    if qi.dim() != 2:
+        raise ValueError(f"qi must be [B, D], got {tuple(qi.shape)}")
+    nbatch, d = qi.shape
+    if (qi.dtype == torch.int8) != (vectors_t.dtype == torch.int8):
+        raise ValueError("int8 path requires BOTH qi and vectors_t int8")
+    per_block = torch.empty((nblocks, qcap, d), dtype=qi.dtype, device="meta")
+    _, _, _, int_path = _check(per_block, vectors_t, block_first, block_last, rows_valid, k,
+                               blk, group, nbins, bin_depth, bias, row_base)
+    return nbatch, nblocks, qcap, d, int_path
+
+
+def cluster_major_scan_routed_reference(qi, cq_blocks, vectors_t, block_first, block_last,
+                                        rows_valid, k, blk=2048, group=4, nbins=128,
+                                        bin_depth=2, bias=None, row_base=None):
+    """Plain PyTorch K7, for every mode the JAX function takes → (pv, pr).
+
+    The routed table ``qi[cq_blocks]`` (zero rows where an index lies
+    outside ``[0, B)``), then K4's plain walk over it.  The TPU kernel's
+    one-hot product reproduces ``qi`` bit for bit, so this is the same
+    function."""
+    nbatch = _check_routed(qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, k,
+                           blk, group, nbins, bin_depth, bias, row_base)[0]
+    cq = cq_blocks[..., 0]
+    hit = (cq >= 0) & (cq < nbatch)
+    qg = qi[torch.where(hit, cq, torch.zeros_like(cq)).long()]
+    qg = torch.where(hit[..., None], qg, torch.zeros((), dtype=qi.dtype, device=qi.device))
+    return cluster_major_scan_grouped_reference(
+        qg, vectors_t, block_first, block_last, rows_valid, k, blk=blk, group=group,
+        nbins=nbins, bin_depth=bin_depth, bias=bias, row_base=row_base)
+
+
+def _routed_kernel():
+    """Build/load the CUDA library once and declare K7's C entry's types."""
+    global _ROUTED_FN
+    if _ROUTED_FN is None:
+        fn = _build.load_library("ivf_grouped_scan").ivf_routed_scan_i8
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ROUTED_FN = fn
+    return _ROUTED_FN
+
+
+def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last, rows_valid,
+                              k, blk=2048, group=4, nbins=128, bin_depth=2, bias=None,
+                              row_base=None):
+    """K7 with the JAX signature → (pv [nblocks, qcap, k] f32, pr [nblocks,
+    qcap, k] int32); see the module docstring.
+
+    ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
+    the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
+    are defined.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024)
+    or raise."""
+    global ROUTED_LAUNCHES
+    dev = qi.device
+    if dev.type == "cpu":
+        return cluster_major_scan_routed_reference(
+            qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, k, blk=blk,
+            group=group, nbins=nbins, bin_depth=bin_depth, bias=bias, row_base=row_base)
+    nbatch, nblocks, qcap, d, int_path = _check_routed(
+        qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, k, blk, group, nbins,
+        bin_depth, bias, row_base)
+    if row_base is None:
+        row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    _cuda_inputs("K7", dev, int_path, nbins, k, bin_depth, d,
+                 [qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, row_base, bias])
+    pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
+    pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
+    fn = _routed_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
+                 block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+                 pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, d, blk, k, bin_depth,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_routed_scan_i8 launch failed: CUDA error {err}")
+    ROUTED_LAUNCHES += 1
     return pv, pr

@@ -242,6 +242,167 @@ def test_k6_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, bin_depth=5)
 
 
+def _k7_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, nbatch=300):
+    """K7 inputs → (qi [nbatch, d], cq_blocks [nb, qcap, 1], vt, bc, bf, bl, rv,
+    bias, row_base, cq [nlist, qcap]).  Each cluster routes 1..qcap queries
+    (-1 after them); one slot of cluster 0 holds ``nbatch``, past the batch,
+    which routes a zero row as -1 does.  ``compact`` as :func:`_k4_inputs`."""
+    lo, hi = (0, 2) if ties else (-127, 128)
+    sizes = np.asarray(sizes)
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
+    pad = (-len(bc)) % 8
+    bc = np.pad(bc, (0, pad), constant_values=len(sizes) - 1).astype(np.int32)
+    bf, bl, rv = (np.pad(x, (0, pad)).astype(np.int32) for x in (bf, bl, rv))
+    nb, nlist = len(bc), len(sizes)
+    qi = rng.integers(lo, hi, (nbatch, d), dtype=np.int8)
+    vt = rng.integers(lo, hi, (nb, d, blk), dtype=np.int8)
+    cq = np.full((nlist, qcap), -1, np.int32)
+    for c in range(nlist):
+        n = int(rng.integers(1, qcap + 1))
+        cq[c, :n] = rng.choice(nbatch, n, replace=False)
+    cq[0, 0] = nbatch
+    rb = np.arange(nb, dtype=np.int32) * blk
+    br = rng.uniform(0, 3000, (nb, 1, blk)).astype(np.float32) if bias else None
+    if compact:
+        active = ((np.cumsum(bf) - 1) % 2 == 0) & (rv > 0)
+        blocks = np.concatenate([np.nonzero(active)[0], np.nonzero(~active)[0]])
+        inc = active[blocks]
+        bc, vt, rb = bc[blocks], vt[blocks], rb[blocks]
+        bf, bl, rv = (np.where(inc, x[blocks], 0).astype(np.int32) for x in (bf, bl, rv))
+        br = None if br is None else br[blocks]
+    return (qi, np.ascontiguousarray(cq[bc][..., None]), vt, bc, bf, bl, rv, br, rb, cq)
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
+    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
+    ([700, 300, 129, 2000], 256, 100, 37, 32, False),      # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40], 2048, 24, 128, 20, True),            # scores 0..128: heavy ties
+], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_k7_kernel_equal_to_plain_and_to_k4_k6(dev, sizes, blk, qcap, d, k, ties, depth,
+                                               bias, compact):
+    """K7 against its plain version, then the shared template's other two
+    modes on the gathered tables: K4 on ``qi[cq_blocks]`` and K6 on the
+    per-cluster ``qi[cq]`` give the same rows, bit for bit."""
+    rng = np.random.default_rng(23)
+    qi, cqb, vt, bc, bf, bl, rv, br, rb, cq = (
+        None if x is None else torch.from_numpy(x).to(dev)
+        for x in _k7_inputs(rng, sizes, blk, qcap, d, ties, compact, bias))
+    kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES, ivf_scan.CLUSTER_LAUNCHES)
+    pv, pr = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES, ivf_scan.CLUSTER_LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    rv_, rr = ivf_scan.cluster_major_scan_routed_reference(qi, cqb, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(pv[rows], rv_[rows])
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+    def gathered(idx):
+        hit = (idx >= 0) & (idx < qi.shape[0])
+        g = qi[torch.where(hit, idx, torch.zeros_like(idx)).long()]
+        return torch.where(hit[..., None], g, torch.zeros_like(g)).contiguous()
+
+    gv, gr = ivf_scan.cluster_major_scan_grouped(gathered(cqb[..., 0]), vt, bf, bl, rv, **kw)
+    cv, ci = ivf_scan.cluster_major_scan(
+        gathered(cq), vt, bc, bf, bl, rv, k=k, blk=blk, bin_depth=depth, row_base=rb,
+        bias=None if br is None else br.reshape(1, -1))
+    torch.cuda.synchronize()
+    out = bc[rows].long()
+    assert torch.equal(gv[rows], pv[rows]) and torch.equal(cv[out], pv[rows])
+    assert torch.equal(gr[rows][fin], pr[rows][fin]) and torch.equal(ci[out][fin], pr[rows][fin])
+
+
+def test_k7_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(24)
+    qi, cqb, vt, _, bf, bl, rv, _, _, _ = (
+        None if x is None else torch.from_numpy(x).to(dev)
+        for x in _k7_inputs(rng, [100], 128, 8, 16, False, False, False))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ivf_scan.cluster_major_scan_routed(qi.float(), cqb, vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError):  # more than 32 per row
+        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError):  # depth past 4
+        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,lo_hi", [
+    ([2000, 0, 5000, 129], 2048, 40, 128, (-127, 128)),  # multi-block and empty clusters
+    ([700, 300, 129, 2000], 256, 100, 37, (-127, 128)),  # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40], 2048, 24, 128, (0, 2)),            # equal keys across chunks
+], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("bias", ["ip", "l2bias", "raw"])
+@pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
+@pytest.mark.parametrize("k", [20, 32])
+def test_k9_kernel_equal_to_plain(dev, sizes, blk, qcap, d, lo_hi, bias, bin2, k):
+    """``l2bias``: the 4-bit rows of ``accum_bias_rows`` (padding buried by
+    the fill, no row mask); ``raw``: random int32 rows with the row mask,
+    whose low bits name blocks outside the cluster."""
+    rng = np.random.default_rng(25)
+    qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
+                          for x in _k1_inputs(rng, sizes, blk, qcap, d, *lo_hi))
+    kw = dict(k=k, blk=blk, group=8, depth=8, bin2=bin2)
+    if bias == "l2bias":
+        norms = torch.from_numpy(rng.uniform(0, 4e4, (vt.shape[0], 1, blk)).astype(np.float32))
+        kw["bias_rows"] = ivf_accum.accum_bias_rows(norms.to(dev), rv)
+    elif bias == "raw":
+        kw["bias_rows"] = torch.from_numpy(rng.integers(-2**29, 2**29, (vt.shape[0], 1, blk),
+                                                        dtype=np.int32)).to(dev)
+        kw["mask_rows"] = True
+    before = (ivf_accum.ACCUM_LAUNCHES, ivf_accum.LAUNCHES)
+    pv, pr = ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert (ivf_accum.ACCUM_LAUNCHES, ivf_accum.LAUNCHES) == (before[0] + 1, before[1])
+    rv_, rr = ivf_accum.cluster_major_accum_reference(qg, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(pv[rows], rv_[rows])
+    assert torch.equal(pr[rows], rr[rows])
+    assert (rv_[rows] > float("-inf")).any()
+
+
+def test_k9_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(26)
+    qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
+                          for x in _k1_inputs(rng, [100], 128, 8, 16))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ivf_accum.cluster_major_accum(qg.float(), vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError):  # more than 32 per row
+        ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, 33, blk=128)
+
+
+@pytest.mark.parametrize("recover", [False, True])
+def test_routed_engine_card_equals_cpu(dev, recover):
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
+    src = IVFIndex.build(base, nlist=12, metric="l2", dtype="int8", pad_block=256,
+                         max_iter=5, device="cpu")
+    kw = dict(mode="cluster", engine="pallas_routed", qcap=4, recover=recover,
+              recover_qcap=16, recover_blocks=24, recover_passes=2)  # every block
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype="int8", pad_block=256,
+                                   config=src.config, device=device)
+        out = idx.search_device(torch.from_numpy(queries).to(device), 10, 4, **kw)
+        return [x.cpu() for x in out], int(idx.last_spill), idx.last_engine
+
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES)
+    got, spill, engine = search(dev)
+    torch.cuda.synchronize()
+    launches = (ivf_scan.ROUTED_LAUNCHES - before[0], ivf_scan.LAUNCHES - before[1])
+    want, want_spill, _ = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert engine == "pallas_routed" and spill == want_spill
+    assert launches == ((3, 0) if recover else (1, 0))  # main walk + 2 recovery passes
+    assert (spill == 0) == recover
+
+
 # K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
 # of 4 (byte staging) nor of 128 (a ragged last chunk); D = 37 pads a word.
 K3_SHAPES = {

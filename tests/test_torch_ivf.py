@@ -309,9 +309,13 @@ def test_auto_recover_passes_matches_jax(pair):
 # 30 pairs, so recovery places every dropped pair; a batch of one query
 # repeated 32 times loads its 4 clusters with 32 each and leaves a residual.
 # Both runs share one compilation of the JAX search.  The third run is the
-# grouped engine (kernel K4) on the dense walk.
+# grouped engine (kernel K4) on the dense walk; the last two are the routed
+# engine (kernel K7, the routing inside the kernel) without and with the
+# recovery pass, which then runs through K7 too.
 RECOVER = dict(qcap=4, recover=True, recover_qcap=9, recover_blocks=16, recover_passes=3)
-RECOVERY_RUNS = {"recover": RECOVER, "residual": RECOVER, "grouped": dict(engine="pallas")}
+RECOVERY_RUNS = {"recover": RECOVER, "residual": RECOVER, "grouped": dict(engine="pallas"),
+                 "routed": dict(engine="pallas_routed"),
+                 "routed_recover": dict(RECOVER, engine="pallas_routed")}
 
 
 @pytest.mark.parametrize("run", list(RECOVERY_RUNS))
@@ -328,14 +332,14 @@ def test_search_device_recovery_and_grouped_equal_jax(pair, small_data, run):
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    if run == "recover":
+    if run in ("recover", "routed_recover"):
         assert int(t.last_spill) == 0
         t.search_device(_t(q), K, NPROBE, mode="cluster", qcap=4, recover=False)
         assert int(t.last_spill) > 0  # the pairs the recovery pass placed
     elif run == "residual":
         assert int(t.last_spill) == 4
     else:
-        assert t.last_engine == "pallas"
+        assert t.last_engine == kw["engine"]
 
 
 def test_auto_engine_falls_back_to_grouped(small_data):
@@ -362,9 +366,8 @@ def test_unported_paths_raise(pair, small_data):
     q = _t(small_data[1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.search_device(q, K, NPROBE, mode="query")
-    for engine in ("xla", "pallas_routed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.search_device(q, K, NPROBE, mode="cluster", engine=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.search_device(q, K, NPROBE, mode="cluster", engine="xla")
 
 
 def test_assign_clusters_matches_jax(jax_base, small_data):
@@ -415,8 +418,8 @@ def test_build_spilled_matches_jax_layout(small_data):
 
 def test_port_runs_without_jax():
     """The port never imports jax or the JAX package: both are blocked in a
-    fresh interpreter that runs the CPU slice, the brute-force index and
-    both sharded indexes."""
+    fresh interpreter that runs the CPU slice (its default, recovered and
+    routed searches), the brute-force index and both sharded indexes."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
@@ -440,6 +443,11 @@ def test_port_runs_without_jax():
                                        recover_blocks=idx._arrays["vectors_t"].shape[0])
         assert int(idx.last_spill) == 0
         assert recall_at_k(rids.numpy(), ids, 5) >= 0.9
+        _, tids, _ = idx.search_device(qt, 5, 4, mode="cluster", engine="pallas_routed", qcap=2,
+                                       recover=True, recover_qcap=32,
+                                       recover_blocks=idx._arrays["vectors_t"].shape[0])
+        assert idx.last_engine == "pallas_routed" and int(idx.last_spill) == 0
+        assert recall_at_k(tids.numpy(), ids, 5) >= 0.9
         bf = rt.BruteForceIndex(base, metric="l2", dtype="int8", engine="accum",
                                 device="cpu")
         bids, _ = bf.search(q, 5, batch_size=8)
