@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels on first use.
+"""Build and load the CUDA kernels on first use, and check what their
+wrappers hand them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone into ``build/rag_on_edge_tpu_torch/lib<name>-<hash>.so`` under the
@@ -7,6 +8,10 @@ hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
 an edited source or header is rebuilt and a stale library is never
 loaded.  No PyTorch headers are included: a build takes seconds, not
 minutes.
+
+:func:`check_inputs` is the one rule for which inputs a kernel wrapper
+refuses before it launches; each wrapper checks its kernel's own shape
+limits beside the call.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library", "check_inputs"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
@@ -70,3 +75,23 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib
     return lib
+
+
+def check_inputs(name: str, dev, tensors, refuse_float: bool = False) -> None:
+    """What every kernel wrapper refuses on the card: a device that is not
+    CUDA, with ``refuse_float`` the fp32/bf16 modes (ROADMAP Queue 1 item
+    14), and inputs (``None`` skipped) that are not contiguous on ``dev``.
+    There is no fallback to the plain version: the wrapper raises."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if refuse_float:
+        raise NotImplementedError(
+            f"the CUDA {name} covers the int8 modes; its fp32/bf16 modes on CUDA are "
+            "ROADMAP Queue 1 item 14 (use the plain version)")
+    for x in tensors:
+        if x is None:
+            continue
+        if x.device != dev:
+            raise ValueError(f"all {name} inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} inputs must be contiguous")

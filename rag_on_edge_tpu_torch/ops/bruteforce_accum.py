@@ -204,21 +204,11 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
                                           group=group, depth=depth, bias_rows=bias_rows)
     n_tiles, d, tile_n, int_path, l2 = _check(queries, base_tiles, n, k, group, depth,
                                               bias_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            "the CUDA K5 covers the int8 modes; the float path (fp32/bf16 "
-            "monotone keys) on CUDA is ROADMAP Queue 1 item 14 (use the plain version)")
+    _build.check_inputs("K5", dev, [queries, base_tiles, bias_rows if l2 else None],
+                        refuse_float=not int_path)
     if tile_n % 128 or tile_n > _CUDA_TILE_MAX or d > _CUDA_DIM_MAX:
         raise ValueError(f"the CUDA K5 takes tile_n a multiple of 128 up to {_CUDA_TILE_MAX} "
                          f"and D <= {_CUDA_DIM_MAX}; got tile_n={tile_n}, D={d}")
-    tensors = [queries, base_tiles] + ([bias_rows] if l2 else [])
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError("all K5 inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("K5 inputs must be contiguous")
     b = queries.shape[0]
     # The per-bin running keys and columns between the two passes.
     rv = torch.empty((b, tile_n), dtype=torch.int32, device=dev)

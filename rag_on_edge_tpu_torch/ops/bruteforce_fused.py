@@ -163,8 +163,14 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                                            bias=bias)
     b, d, n, int_path, l2, tile_n = _resolve(queries, base_t, k, tile_n, tile_b, nbins,
                                              alpha, bias)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    if l2:
+        alpha = alpha.to(torch.float32).reshape(-1).contiguous()
+        bias = bias.to(torch.float32).reshape(-1).contiguous()
+    if n_valid is not None:
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
+    # K3 takes fp32 as well as int8: only bf16 is refused.
+    _build.check_inputs("K3", dev, [queries, base_t, alpha if l2 else None,
+                                    bias if l2 else None, n_valid])
     if not int_path and torch.bfloat16 in (queries.dtype, base_t.dtype):
         raise NotImplementedError(
             "the CUDA K3 covers int8, int8 L2 and fp32; bf16 inputs on CUDA are "
@@ -173,19 +179,6 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         raise ValueError(
             f"the CUDA K3 takes nbins 0 or {_CUDA_NBINS}, k <= {_CUDA_K_MAX} and D <= "
             f"{_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, D={d}")
-    tensors = [queries, base_t]
-    if l2:
-        alpha = alpha.to(torch.float32).reshape(-1).contiguous()
-        bias = bias.to(torch.float32).reshape(-1).contiguous()
-        tensors += [alpha, bias]
-    if n_valid is not None:
-        n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
-        tensors.append(n_valid)
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError("all K3 inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("K3 inputs must be contiguous")
     mode = "f32" if not int_path else ("i8_l2" if l2 else "i8")
     vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
                        device=dev)

@@ -66,10 +66,7 @@ def fused_topk(x: torch.Tensor, k: int):
     if x.device.type == "cpu":
         return fused_topk_reference(x, k)
     _check(x, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("fused_topk needs a contiguous x")
+    _build.check_inputs("K2", x.device, [x])
     b, w = x.shape
     vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)

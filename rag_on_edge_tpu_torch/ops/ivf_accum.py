@@ -51,7 +51,7 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, topk
 
-__all__ = ["CODE_MAX", "INT8_DIM_MAX", "INT8_DIM_MAX_BIAS", "KMIN", "LAUNCHES",
+__all__ = ["CODE_MAX", "INT8_DIM_MAX", "INT8_DIM_MAX_BIAS", "KMIN", "BIAS_FILL", "LAUNCHES",
            "ACCUM_LAUNCHES", "cluster_major_accum_planes",
            "cluster_major_accum_planes_reference", "cluster_major_accum",
            "cluster_major_accum_reference", "accum_bias_rows"]
@@ -62,6 +62,7 @@ CODE_MAX = 16  # blocks-per-cluster cap (4-bit block code)
 INT8_DIM_MAX = 512
 INT8_DIM_MAX_BIAS = 384
 KMIN = -(2**31) + 1  # invalid-entry sentinel of the planes
+BIAS_FILL = 2**30  # K9's bias row at a padded column: its key sinks below every real one
 
 #: Launches of the CUDA kernels K1 (``LAUNCHES``) and K9 (``ACCUM_LAUNCHES``)
 #: in this process; the plain versions do not count.  A run that must show
@@ -177,25 +178,6 @@ def cluster_major_accum_planes_reference(qg_blocks, vectors_t, block_first,
     return torch.cat([p1, rest.amax(dim=2)], dim=2)
 
 
-def _cuda_inputs(name, dev, int_path, tensors):
-    """What the CUDA kernels K1 and K9 refuse: another device type, the
-    float modes, and inputs (``None`` skipped) that are not contiguous on
-    ``dev``."""
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            f"the CUDA {name} covers the int8 modes; fp32/bf16 monotone keys on "
-            "CUDA are ROADMAP Queue 1 item 14 (use the plain version)")
-    for x in tensors:
-        if x is None:
-            continue
-        if x.device != dev:
-            raise ValueError(f"all {name} inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} inputs must be contiguous")
-
-
 def _kernel():
     """Build/load the CUDA library once and declare the C entry's types."""
     global _FN
@@ -220,8 +202,8 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
             blk=blk, bin2=bin2, bias_rows=bias_rows)
     nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first,
                                         block_last, rows_valid, blk, bias_rows)
-    _cuda_inputs("K1", dev, int_path,
-                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, bias_rows])
+    _build.check_inputs("K1", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
+                                    bias_rows], refuse_float=not int_path)
     nplanes = 2 if bin2 else 1
     out = torch.empty((nblocks, qcap, nplanes * 128), dtype=torch.int32, device=dev)
     fn = _kernel()
@@ -317,12 +299,11 @@ def cluster_major_accum_reference(qg_blocks, vectors_t, block_first, block_last,
     return pv, pr
 
 
-def accum_bias_rows(bias: torch.Tensor, rows_valid: torch.Tensor,
-                    fill: int = 2**30) -> torch.Tensor:
+def accum_bias_rows(bias: torch.Tensor, rows_valid: torch.Tensor) -> torch.Tensor:
     """K9's int8-L2 bias rows, the 4-bit layout its JAX docstring gives:
-    ``round(bias) << 4`` minus the block code ``15 - t % 16``, and ``fill``
-    at the padded columns ``col >= rows_valid[t]``, which buries them with
-    no row mask.  ``bias`` [nblocks, 1, blk] f32 (``norms / alpha``) →
+    ``round(bias) << 4`` minus the block code ``15 - t % 16``, and
+    ``BIAS_FILL`` at the padded columns ``col >= rows_valid[t]``, which
+    buries them with no row mask.  ``bias`` [nblocks, 1, blk] f32 (``norms / alpha``) →
     [nblocks, 1, blk] int32.  ``round(bias)`` is clipped to ±2**25, so a key
     ``(dots << 4) - row`` stays inside int32 for D <= 1024.  (The planes
     rows of K1 are another layout: shifted by 8, minus code and chunk.)"""
@@ -333,7 +314,7 @@ def accum_bias_rows(bias: torch.Tensor, rows_valid: torch.Tensor,
     br = torch.clamp(torch.round(bias), -(2.0**25), 2.0**25).to(torch.int32)
     rows = br * 16 - code[:, None, None]
     pad = torch.arange(blk, device=dev)[None, None, :] >= rows_valid[:, None, None]
-    return torch.where(pad, torch.full_like(rows, fill), rows).contiguous()
+    return torch.where(pad, torch.full_like(rows, BIAS_FILL), rows).contiguous()
 
 
 def _extract_kernel():
@@ -364,8 +345,8 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
     nblocks, qcap, d, int_path, mask_rows = _check_extract(
         qg_blocks, vectors_t, block_first, block_last, rows_valid, blk, group, depth,
         bias_rows, mask_rows)
-    _cuda_inputs("K9", dev, int_path,
-                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, bias_rows])
+    _build.check_inputs("K9", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
+                                    bias_rows], refuse_float=not int_path)
     if not 1 <= k <= _CUDA_K_MAX or d > _CUDA_DIM_MAX:
         raise ValueError(f"the CUDA K9 takes 1 <= k <= {_CUDA_K_MAX} and D <= "
                          f"{_CUDA_DIM_MAX}; got k={k}, D={d}")

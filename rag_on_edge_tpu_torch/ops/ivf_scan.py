@@ -181,29 +181,15 @@ def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
     return sv, si
 
 
-def _cuda_inputs(name, dev, int_path, nbins, k, bin_depth, d, tensors):
-    """What the CUDA kernels K4, K6 and K7 refuse: another device type, the
-    float modes, nbins other than 128, k > 32, bin_depth > 4, D > 1024, and
-    inputs (``None`` skipped) that are not contiguous on ``dev``."""
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not int_path:
-        raise NotImplementedError(
-            f"the CUDA {name} covers the int8 modes; fp32/bf16 slabs on CUDA are "
-            "ROADMAP Queue 1 item 14 (use the plain version)")
+def _check_cuda_limits(name, nbins, k, bin_depth, d):
+    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128, k <= 32,
+    bin_depth <= 4, D <= 1024."""
     if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
             or d > _CUDA_DIM_MAX):
         raise ValueError(
             f"the CUDA {name} takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
             f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
             f"bin_depth={bin_depth}, D={d}")
-    for x in tensors:
-        if x is None:
-            continue
-        if x.device != dev:
-            raise ValueError(f"all {name} inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} inputs must be contiguous")
 
 
 def _kernel():
@@ -238,8 +224,9 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
                                         bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    _cuda_inputs("K4", dev, int_path, nbins, k, bin_depth, d,
-                 [qg_blocks, vectors_t, block_first, block_last, rows_valid, row_base, bias])
+    _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
+                                    row_base, bias], refuse_float=not int_path)
+    _check_cuda_limits("K4", nbins, k, bin_depth, d)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     fn = _kernel()
@@ -338,9 +325,9 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    _cuda_inputs("K6", dev, int_path, nbins, k, bin_depth, d,
-                 [qg, vectors_t, block_cluster, block_first, block_last, rows_valid, row_base,
-                  bias])
+    _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
+                                    rows_valid, row_base, bias], refuse_float=not int_path)
+    _check_cuda_limits("K6", nbins, k, bin_depth, d)
     pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
     fn = _cluster_kernel()
@@ -431,8 +418,9 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    _cuda_inputs("K7", dev, int_path, nbins, k, bin_depth, d,
-                 [qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, row_base, bias])
+    _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
+                                    rows_valid, row_base, bias], refuse_float=not int_path)
+    _check_cuda_limits("K7", nbins, k, bin_depth, d)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     fn = _routed_kernel()

@@ -15,7 +15,7 @@ from rag_on_edge_tpu.ops import quantize as jquant
 from rag_on_edge_tpu.ops import topk as jtopk
 from rag_on_edge_tpu.utils import datasets as jdatasets
 from rag_on_edge_tpu.utils import metrics as jmetrics
-from rag_on_edge_tpu_torch.ops import block_tables, distances, fused_topk, ivf_accum
+from rag_on_edge_tpu_torch.ops import _build, block_tables, distances, fused_topk, ivf_accum
 from rag_on_edge_tpu_torch.ops import ivf_scan, quantize, topk
 from rag_on_edge_tpu_torch.utils import datasets, metrics
 
@@ -142,6 +142,23 @@ def test_fused_topk_rejects_bad_inputs():
         fused_topk.fused_topk(torch.zeros((4, 128), dtype=torch.int64), 3)
     with pytest.raises(ValueError):
         fused_topk.fused_topk(torch.zeros((4, 128), dtype=torch.int32), 129)
+
+
+@pytest.mark.parametrize("case", ["device", "float", "mixed"])
+def test_check_inputs_refuses(case):
+    """The one rule every kernel wrapper applies before a launch, held with
+    device objects alone (no CUDA tensor is made)."""
+    x = torch.zeros(4, dtype=torch.int8)
+    cuda = torch.device("cuda")
+    if case == "device":
+        with pytest.raises(ValueError, match="unsupported device"):
+            _build.check_inputs("K1", torch.device("meta"), [x])
+    elif case == "float":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            _build.check_inputs("K1", cuda, [x.float()], refuse_float=True)
+    else:  # an input off the named device; None entries are skipped
+        with pytest.raises(ValueError, match="one device"):
+            _build.check_inputs("K1", cuda, [None, x])
 
 
 def test_dedup_rows_by_id_matches_jax():

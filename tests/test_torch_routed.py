@@ -200,11 +200,12 @@ def test_k9_plain_equals_jax(case):
 def test_k9_bias_rows_layout():
     bias = torch.tensor([[[0.4, 2.6, 1e9, 7.0]]] * 17, dtype=torch.float32)
     rv = torch.full((17,), 2, dtype=torch.int32)
-    rows = ivf_accum.accum_bias_rows(bias, rv, fill=123)
+    rows = ivf_accum.accum_bias_rows(bias, rv)
     code = 15 - torch.arange(17, dtype=torch.int32) % 16
     assert rows.dtype == torch.int32 and rows.shape == (17, 1, 4)
     assert torch.equal(rows[:, 0, 0], -code) and torch.equal(rows[:, 0, 1], 3 * 16 - code)
-    assert (rows[:, 0, 2:] == 123).all()  # padded columns take the fill
+    assert ivf_accum.BIAS_FILL == 2**30
+    assert (rows[:, 0, 2:] == ivf_accum.BIAS_FILL).all()  # padded columns take the fill
 
 
 def test_k9_rejects_bad_inputs():
