@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
 the IVF index (its default engine, the grouped engine and the routed
-engine), the brute-force index, and both sharded over 4 logical shards on
-the card.
+engine), the brute-force index, both sharded over 4 logical shards on
+the card, the kernel lab on the same index, and the spatial GEMM.
 
     python3 chip_smoke.py
 
@@ -10,9 +10,9 @@ Phases, each printed with its wall time; any failure raises and the
 script exits non-zero without a result line:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile kernels K1 + K9, K4 + K6 + K7, K3 and K5 (CUDA C++,
-             one nvcc per source, all at once) and K2 (Triton) from the
-             sources in this checkout.
+2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5 and K8
+             (CUDA C++, one nvcc per source, all at once) and K2 (Triton)
+             from the sources in this checkout.
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -68,6 +68,25 @@ script exits non-zero without a result line:
              0.99); and ``ShardedBruteForceIndex(base, metric="l2",
              dtype="int8", rescore=True)`` (K3 per shard, recall@10 >=
              0.999).  One call of each timed with CUDA events.
+10. lab    — the kernel lab (``harness/kernel_lab.py``) on the same index at
+             its defaults (qcap 128, k 20, 128 bins, B=2048, nprobe 4, one
+             fixed routing): kernel K10 in its four variants held against
+             its plain version on each variant's defined windows, ``full``
+             also against K6 on the same table; then the lab itself with
+             the counters reset just before and read just after, printing
+             its ms/call and µs/block for each variant.
+11. gemm   — the index is freed first.  Kernel K8 against its plain version
+             at a ragged shape in int8 (exact), bf16 and fp32 (within the
+             worst-case fp32 summation bound); the full-width int8 product
+             [8192,128] x [128,1M] (the SIFT-1M scoring GEMM, 33.5 GB of
+             int32 out) held exactly against the plain version in column
+             chunks and timed beside ``torch._int_mm``; bf16 and fp32 at
+             4096^3 beside ``torch.mm``/``torch.matmul``; then, counters
+             reset just before and read just after, ``spatial_matmul`` on a
+             1x1 and a logical 2x2 grid of this card through K8 and the plain
+             product (``verify_matmul`` must pass) and
+             ``bench_gemm.run(128, 128, 10240, "int8")``, the AIE reference
+             workload, whose result dict is printed.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -148,9 +167,11 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from rag_on_edge_tpu_torch import BruteForceIndex, IVFIndex
+    from rag_on_edge_tpu_torch.harness import bench_gemm, kernel_lab
     from rag_on_edge_tpu_torch.models import ivf as ivf_mod
     from rag_on_edge_tpu_torch.ops import (_build, bruteforce_accum, bruteforce_fused,
-                                           fused_topk, ivf_accum, ivf_scan, quantize)
+                                           fused_topk, ivf_accum, ivf_scan, quantize,
+                                           tiled_matmul)
     from rag_on_edge_tpu_torch.utils.datasets import ground_truth, make_synthetic
     from rag_on_edge_tpu_torch.utils.metrics import recall_at_k
 
@@ -161,18 +182,20 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t = time.time()
-    sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum"]
+    sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
+               "tiled_matmul"]
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, all at once
         list(ex.map(_build.load_library, sources))
     nvcc_s = time.time() - t
     t = time.time()
     fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
     torch.cuda.synchronize()
-    phase("build", t0, f"K1 + K9, K4 + K6 + K7, K3, K5 nvcc {nvcc_s:.1f}s, K2 triton "
+    phase("build", t0, f"K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 nvcc {nvcc_s:.1f}s, K2 triton "
           f"{time.time() - t:.1f}s")
 
     def reset_launches():
-        for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum):
+        for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum,
+                    tiled_matmul, kernel_lab):
             mod.LAUNCHES = 0
         ivf_scan.CLUSTER_LAUNCHES = ivf_scan.ROUTED_LAUNCHES = ivf_accum.ACCUM_LAUNCHES = 0
 
@@ -180,7 +203,8 @@ def main() -> None:
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
                 "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES,
                 "K6": ivf_scan.CLUSTER_LAUNCHES, "K7": ivf_scan.ROUTED_LAUNCHES,
-                "K9": ivf_accum.ACCUM_LAUNCHES}
+                "K8": tiled_matmul.LAUNCHES, "K9": ivf_accum.ACCUM_LAUNCHES,
+                "K10": kernel_lab.LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
     t = time.time()
@@ -833,6 +857,185 @@ def main() -> None:
         raise AssertionError(f"sharded brute force: launches {launch_b}, recall@10 {r10_b}")
     del sbf
 
+    # ---- phase 10: the kernel lab (K10) on the same index, at the lab's
+    # defaults (qcap 128, k 20, 128 bins, B=2048, nprobe 4), one fixed routing.
+    LAB_QCAP, LAB_K, LAB_BATCH = 128, 20, 2048
+    a = idx._arrays
+    qg_lab = kernel_lab.routed_table(idx, queries, LAB_BATCH, NPROBE, LAB_QCAP)
+    lab_tabs = (a["vectors_t"], a["block_cluster"], a["block_first"], a["block_last"],
+                a["rows_valid"])
+    bc_lab, bl_lab = a["block_cluster"].long(), a["block_last"]
+    lab_windows = {"full": torch.unique(bc_lab[bl_lab > 0]), "nogate": torch.unique(bc_lab[bl_lab > 0]),
+                   "maxonly": torch.unique(bc_lab), "fixedout": torch.zeros(1, dtype=torch.long,
+                                                                            device=dev)}
+    k10 = {}
+    for variant in kernel_lab.VARIANTS:
+        args = (qg_lab, *lab_tabs, LAB_K, PAD_BLOCK, 128, variant)
+        pv, pr = kernel_lab._variant_scan(*args)
+        rpv, rpr = kernel_lab._variant_scan_reference(*args)
+        torch.cuda.synchronize()
+        win = lab_windows[variant]
+        fin = rpv[win] > float("-inf")
+        if not torch.equal(pv[win], rpv[win]) or not torch.equal(pr[win][fin], rpr[win][fin]):
+            raise AssertionError(f"K10 {variant} differs from the plain version")
+        if variant == "full":
+            kv, ki = ivf_scan.cluster_major_scan(qg_lab, *lab_tabs, LAB_K, blk=PAD_BLOCK,
+                                                 bin_depth=2)
+            if not torch.equal(pv[win], kv[win]) or not torch.equal(pr[win][fin], ki[win][fin]):
+                raise AssertionError("K10 full differs from K6 on the same table")
+            del kv, ki
+        err = float((pv[win][fin] - rpv[win][fin]).abs().max()) if fin.any() else 0.0
+        del pv, pr, rpv, rpr
+        k10[variant] = dict(err=err, windows=win.numel(), finite=int(fin.sum()),
+                            plain_ms=cuda_ms(torch, lambda: kernel_lab._variant_scan_reference(
+                                *args), reps=3))
+    walked = walked_blocks(np, *lab_tabs[2:])
+    n_win = lab_windows["full"].numel()
+    k10_bound = bound(walked * DIM * PAD_BLOCK + n_win * LAB_QCAP * (DIM + LAB_K * 8),
+                      2.0 * walked * LAB_QCAP * PAD_BLOCK * DIM, INT8_OPS_S)
+    phase("lab", t0, f"K10 qg {tuple(qg_lab.shape)} vectors_t {tuple(a['vectors_t'].shape)} "
+          f"k={LAB_K}: every variant equal to its plain version on its defined windows "
+          f"({ {v: (k10[v]['windows'], k10[v]['finite']) for v in k10} } windows, finite "
+          f"entries), full equal to K6; plain ms { {v: k10[v]['plain_ms'] for v in k10} }; "
+          f"bound of full {k10_bound[0]} ms by {k10_bound[1]} ({walked} blocks walked)")
+    # The lab itself, counted: its four variants, timed as the lab times them.
+    print(f"[lab] sift: nblocks={nblocks} blk={PAD_BLOCK} qcap={LAB_QCAP} k={LAB_K} "
+          f"nbins=128 on {card}", flush=True)
+    reset_launches()
+    lab_out = kernel_lab.lab(idx, qg_lab, LAB_K, 128, kernel_lab.VARIANTS, repeats=REPS)
+    torch.cuda.synchronize()
+    k10_launches = read_launches()["K10"]
+    if k10_launches != len(kernel_lab.VARIANTS) * (REPS + 2):
+        raise AssertionError(f"the lab launched K10 {k10_launches} times")
+    del qg_lab, lab_tabs
+
+    # ---- phase 11: the spatial GEMM (K8).  The index and its state go first:
+    # the full-width product's output alone is 33.5 GB.
+    from rag_on_edge_tpu_torch.parallel import spatial_matmul, verify_matmul
+
+    del a, idx, k1_args, k4_rec, k4_dense, qb, qi, bias, bias_rows, pp, pool, probes, cq, slot
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def k8_err(c, ref, a_, b_):
+        """int8: max |err| (must be 0); floats: max |err|, which must lie
+        within the worst-case bound of an fp32 sum of K products in any
+        order, 2·K·2**-24·(|A| @ |B|), for the two sums."""
+        err = (c.double() - ref.double()).abs()
+        if c.dtype == torch.int32:
+            return float(err.max()), bool(torch.equal(c, ref))
+        lim = 2.0 * a_.shape[1] * 2.0**-24 * (a_.double().abs() @ b_.double().abs())
+        return float(err.max()), bool((err <= lim).all())
+
+    k8_checks = {}
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        a_, b_ = rand((999, 197), dtype), rand((197, 3001), dtype)
+        c = tiled_matmul.tiled_matmul(a_, b_)
+        ref = tiled_matmul.tiled_matmul_reference(a_, b_)
+        torch.cuda.synchronize()
+        k8_checks[str(dtype).split(".")[1]] = k8_err(c, ref, a_, b_)
+        del a_, b_, c, ref
+    phase("gemm", t0, f"K8 [999,197] x [197,3001] (ragged: K padded to 16 bytes, N odd) "
+          f"(max |err|, within tolerance): {k8_checks}")
+    if not all(ok for _, ok in k8_checks.values()):
+        raise AssertionError(f"K8 differs from the plain version: {k8_checks}")
+
+    # The SIFT-1M scoring product: 8192 queries against the 1M base, both
+    # L2-normalized and scaled to int8 (utils/preprocess), -> int32.
+    from rag_on_edge_tpu_torch.utils.preprocess import prepare_int8_operands
+
+    a8_np, b8_np, _ = prepare_int8_operands(queries[:BATCH], base, query_row_multiple=1,
+                                            base_row_multiple=1)
+    a8 = torch.from_numpy(a8_np).to(dev)
+    b8 = torch.from_numpy(np.ascontiguousarray(b8_np.T)).to(dev)
+    del a8_np, b8_np
+    mem0 = torch.cuda.memory_allocated()
+    c8 = tiled_matmul.tiled_matmul(a8, b8)
+    torch.cuda.synchronize()
+    chunk = 1 << 16
+    k8_full_err, k8_plain_ms = 0, 0.0
+    for c0 in range(0, N_BASE, chunk):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = tiled_matmul.tiled_matmul_reference(a8, b8[:, c0:c0 + chunk])
+        end.record()
+        end.synchronize()
+        k8_plain_ms += start.elapsed_time(end)
+        k8_full_err = max(k8_full_err, int((c8[:, c0:c0 + chunk] - ref).abs().max()))
+        del ref
+    del c8
+    torch.cuda.empty_cache()
+    if k8_full_err:
+        raise AssertionError(f"K8 full-width int8 product differs: max |err| {k8_full_err}")
+    k8_ms = cuda_ms(torch, lambda: tiled_matmul.tiled_matmul(a8, b8))
+    k8_lib_ms = cuda_ms(torch, lambda: torch._int_mm(a8, b8))
+    k8_bound = bound(a8.numel() + b8.numel() + BATCH * N_BASE * 4,
+                     2.0 * BATCH * DIM * N_BASE, INT8_OPS_S)
+    phase("gemm", t0, f"K8 int8 [{BATCH},{DIM}] x [{DIM},{N_BASE}] -> int32 "
+          f"({BATCH * N_BASE * 4 / 1e9:.1f} GB out; {mem0 / 1e9:.1f} GB held before it): "
+          f"exactly equal to the plain version in {N_BASE // chunk + 1} column chunks; "
+          f"{k8_ms} ms vs plain {k8_plain_ms} ms (the chunks), torch._int_mm {k8_lib_ms} ms; "
+          f"bound {k8_bound[0]} ms by {k8_bound[1]}")
+    del a8, b8
+    torch.cuda.empty_cache()
+
+    # bf16 and f32 at the hardware probe's square shape, beside torch.matmul.
+    SQ = 4096
+    k8_sq = {}
+    for name, dtype, rate in (("bf16", torch.bfloat16, 989e12), ("fp32", torch.float32,
+                                                                 OPS32_S)):
+        a_, b_ = rand((SQ, SQ), dtype), rand((SQ, SQ), dtype)
+        err = k8_err(tiled_matmul.tiled_matmul(a_, b_),
+                     tiled_matmul.tiled_matmul_reference(a_, b_), a_, b_)
+        if not err[1]:
+            raise AssertionError(f"K8 {name} {SQ}^3 outside the tolerance: max |err| {err[0]}")
+        try:  # bf16 -> f32 in one call where this torch has out_dtype
+            lib = lambda: torch.mm(a_, b_, out_dtype=torch.float32)  # noqa: E731
+            lib()
+            lib_name = "torch.mm(out_dtype=float32)"
+        except TypeError:
+            lib = lambda: torch.matmul(a_, b_)  # noqa: E731
+            lib_name = "torch.matmul"
+        k8_sq[name] = dict(
+            err=err[0], ms=cuda_ms(torch, lambda: tiled_matmul.tiled_matmul(a_, b_)),
+            plain_ms=cuda_ms(torch, lambda: tiled_matmul.tiled_matmul_reference(a_, b_), reps=3),
+            lib=lib_name, lib_ms=cuda_ms(torch, lib),
+            bound=bound(2 * SQ * SQ * a_.element_size() + SQ * SQ * 4, 2.0 * SQ**3, rate))
+        del a_, b_
+    phase("gemm", t0, f"K8 {SQ}^3 (max |err| within tolerance, ms, plain ms, library call "
+          f"ms, bound): { {n: (v['err'], v['ms'], v['plain_ms'], v['lib'], v['lib_ms'], v['bound']) for n, v in k8_sq.items()} }")
+
+    # The path itself, counted: spatial_matmul on a 1x1 grid and on a logical
+    # 2x2 grid of this card, both local products, and the AIE reference
+    # workload through bench_gemm (its default kernel, K8).
+    here = torch.device("cuda", torch.cuda.current_device())
+    ga, gb = bench_gemm._make_inputs(128, 128, 10240, "int8", 0)
+    fa, fb = bench_gemm._make_inputs(256, 64, 128, "fp32", 0)
+    reset_launches()
+    grids = {}
+    for grid_name, mesh in (("1x1", [[here]]), ("2x2", [[here] * 2] * 2)):
+        for use_k8 in (True, False):
+            for name, (x, y) in (("int8", (ga, gb)), ("fp32", (fa, fb))):
+                c = spatial_matmul(x.to(dev), y.to(dev), mesh, use_pallas_kernel=use_k8)
+                grids[f"{grid_name} {'K8' if use_k8 else 'plain'} {name}"] = verify_matmul(
+                    x.numpy(), y.numpy(), c.cpu().numpy())
+    res = bench_gemm.run(128, 128, 10240, "int8", quiet=True)
+    torch.cuda.synchronize()
+    k8_launches = read_launches()["K8"]
+    phase("gemm", t0, f"spatial_matmul verify_matmul: {grids}; launches {k8_launches}")
+    print(f"[gemm] bench_gemm.run(128, 128, 10240, 'int8') on {card}: {json.dumps(res)}",
+          flush=True)
+    if not all(grids.values()) or not res["verified"]:
+        raise AssertionError(f"the spatial GEMM failed verify_matmul: {grids}, {res}")
+    if k8_launches < 1:
+        raise AssertionError("the spatial GEMM did not launch K8")
+
     kernels = [
         {"name": "cluster_major_accum_planes", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
@@ -889,6 +1092,18 @@ def main() -> None:
          "ms": k9["int8-L2"]["ms"], "plain_ms": k9["int8-L2"]["plain_ms"],
          "bound_ms": k9["int8-L2"]["bound"][0], "bound_by": k9["int8-L2"]["bound"][1],
          "library_ms": None},
+        {"name": "tiled_matmul", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/tiled_matmul.cu",
+         "replaces": "rag_on_edge_tpu/ops/pallas_matmul.py:50",
+         "launches": k8_launches, "max_abs_err": k8_full_err, "ms": k8_ms,
+         "plain_ms": k8_plain_ms, "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
+         "library_ms": k8_lib_ms},
+        {"name": "_variant_scan", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
+         "replaces": "rag_on_edge_tpu/harness/kernel_lab.py:93",
+         "launches": k10_launches, "max_abs_err": max(k10[v]["err"] for v in k10),
+         "ms": lab_out["full"][0], "plain_ms": k10["full"]["plain_ms"],
+         "bound_ms": k10_bound[0], "bound_by": k10_bound[1], "library_ms": None},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

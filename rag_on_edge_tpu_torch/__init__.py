@@ -3,17 +3,23 @@
 Same layout as the JAX package, so each module's counterpart is easy to
 find:
 
-- ``utils``  — synthetic SIFT corpora, exact ground truth, recall.
+- ``utils``  — synthetic SIFT corpora, the dataset cache shared with the
+  JAX package (``load_dataset``, ``io``), exact ground truth, recall, and
+  the int8 GEMM operands (``preprocess``).
 - ``ops``    — quantization, distances, top-k, block tables, and the
   hand-written Hopper kernels with their plain PyTorch versions: the IVF
   scan kernels (``ivf_accum``, ``ivf_scan``: CUDA C++; ``fused_topk``:
-  Triton) and the brute-force kernels (``bruteforce_fused``,
-  ``bruteforce_accum``: CUDA C++).
+  Triton), the brute-force kernels (``bruteforce_fused``,
+  ``bruteforce_accum``: CUDA C++) and the spatial GEMM's tiled GEMM
+  (``tiled_matmul``: CUDA C++).
 - ``models`` — k-means, the cluster-major ``IVFIndex`` and the
   ``BruteForceIndex``.
 - ``parallel`` — ``make_mesh`` and the sharded indexes
   (``ShardedBruteForceIndex``, ``ShardedIVFIndex``): one process drives a
-  list of devices, one shard each.
+  list of devices, one shard each; ``make_mesh_2d`` and
+  ``spatial_matmul``, the GEMM over a grid of devices.
+- ``harness`` — the spatial-GEMM benchmark (``bench_gemm``) and the
+  kernel-variant lab (``kernel_lab``, its kernel K10 in CUDA C++).
 - ``csrc``   — the kernel sources, built on first use by ``ops._build``.
 
 The port imports torch and numpy, never jax.

@@ -1,6 +1,6 @@
 // Kernels K4, K6 and K7 of the IVF search path: the cluster-major fine scan
 // with a per-row running top-k over binned survivors, with three sources of
-// the routed queries.
+// the routed queries; and K10, the kernel lab's four variants of K6.
 //
 // K4 (entry ivf_grouped_scan_i8) replaces the TPU kernel
 // rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
@@ -17,6 +17,23 @@
 // qi[cq_blocks[b, r]] (zeros where that index is outside [0, B)), which is
 // what the TPU kernel's onehot(cq) @ qi gives; the output is per block, as
 // K4's.  No [nblocks, qcap, d] routed table exists.
+// K10 (entry ivf_variant_scan_i8) replaces the kernel lab's
+// rag_on_edge_tpu/harness/kernel_lab.py, _variant_scan (its
+// _variant_kernel): K6 at bin depth 2 with no bias, in four compile-time
+// variants (the Variant parameter; K4, K6 and K7 are kFull, and every
+// variant branch is an `if constexpr`, so their code is unchanged):
+//   kFull     - K6 itself: binned top-2 and the running merge, whose
+//               per-row skip is the TPU kernel's `improves` gate;
+//   kNoGate   - the merge on every block, with no skip (the same values);
+//   kMaxOnly  - the scores and a row max per block, no selection: a CTA per
+//               block (the TPU grid), and the last block of each cluster in
+//               the walk writes its row max over all k slots of out[bc[t]],
+//               ids 0 (a cluster's blocks must be contiguous in the walk, as
+//               in every index's block tables);
+//   kFixedOut - kMaxOnly into one constant window: out[0] holds the row max
+//               of the walk's last block.  The other blocks compute and
+//               write nothing, which is what the TPU's constant output index
+//               gives too: its one window is written back once, at the end.
 //
 // What it computes, for each run of blocks that ends at a block t with
 // block_last[t] = 1 (the run starts at the latest block_first at or before
@@ -95,7 +112,10 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 // kRouted: K7 (qg = qi [B, d] gathered through cq_blocks, out [nblocks, qcap, k]).
 enum class QSrc { kBlock, kCluster, kRouted };
 
-template <int DEPTH, QSrc SRC>
+// K10's variants; every other kernel is kFull.
+enum class Variant { kFull, kNoGate, kMaxOnly, kFixedOut };
+
+template <int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(THREADS)
 grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
                        const int8_t* __restrict__ vec,          // [nblocks, d, blk]
@@ -117,10 +137,21 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   const float NEG_INF = -INFINITY;
 
   const int t = blockIdx.x;
-  if (block_last[t] == 0) return;
+  // K10's kMaxOnly and kFixedOut: one block per CTA, a row max, no selection.
+  constexpr bool MAX_ONLY = V == Variant::kMaxOnly || V == Variant::kFixedOut;
+  if constexpr (!MAX_ONLY) {
+    if (block_last[t] == 0) return;
+  }
   constexpr bool BY_CLUSTER = SRC == QSrc::kCluster;
-  const int orow = BY_CLUSTER ? block_cluster[t] : t;  // the output row
+  int orow = BY_CLUSTER ? block_cluster[t] : t;  // the output row
   if (BY_CLUSTER && (orow < 0 || orow >= nsrc)) return;
+  bool writes = true;
+  if constexpr (V == Variant::kMaxOnly) {
+    writes = t + 1 == (int)gridDim.x || block_cluster[t + 1] != orow;
+  } else if constexpr (V == Variant::kFixedOut) {
+    writes = t + 1 == (int)gridDim.x;
+    orow = 0;
+  }
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
@@ -144,7 +175,9 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   }
 
   int tb = t;  // the run's first block
-  while (tb > 0 && block_first[tb] == 0) --tb;
+  if constexpr (!MAX_ONLY) {
+    while (tb > 0 && block_first[tb] == 0) --tb;
+  }
   const int nchunks = blk / LANES;
 
   for (int b = tb; b <= t; ++b) {
@@ -183,25 +216,47 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
         float x = __int2float_rn(acc[r]);
         if (brow != nullptr) x = __fsub_rn(x, sub);
         if (!valid) x = NEG_INF;
-        // Insert into the bin's sorted top-DEPTH; strict > keeps an equal,
-        // earlier (lower-id) entry ahead.  Descending j reads tv[j-1]
-        // before it is rewritten.
+        if constexpr (MAX_ONLY) {
+          if (x > tv[r][0]) tv[r][0] = x;
+        } else {
+          // Insert into the bin's sorted top-DEPTH; strict > keeps an
+          // equal, earlier (lower-id) entry ahead.  Descending j reads
+          // tv[j-1] before it is rewritten.
 #pragma unroll
-        for (int j = DEPTH - 1; j > 0; --j) {
-          if (x > tv[r][j - 1]) {
-            tv[r][j] = tv[r][j - 1];
-            tc[r][j] = tc[r][j - 1];
-          } else if (x > tv[r][j]) {
-            tv[r][j] = x;
-            tc[r][j] = c;
+          for (int j = DEPTH - 1; j > 0; --j) {
+            if (x > tv[r][j - 1]) {
+              tv[r][j] = tv[r][j - 1];
+              tc[r][j] = tc[r][j - 1];
+            } else if (x > tv[r][j]) {
+              tv[r][j] = x;
+              tc[r][j] = c;
+            }
           }
-        }
-        if (x > tv[r][0]) {
-          tv[r][0] = x;
-          tc[r][0] = c;
+          if (x > tv[r][0]) {
+            tv[r][0] = x;
+            tc[r][0] = c;
+          }
         }
       }
       __syncthreads();  // col_s is restaged next
+    }
+
+    if constexpr (MAX_ONLY) {
+      // The row max: each lane's column max to shared memory, then a warp
+      // per row reduces its 128 lanes into slot 0 of the row's state.
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) cand_v[(group * ROWS + r) * LANES + lane] = tv[r][0];
+      __syncthreads();
+      for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int i = 0; i < LANES / 32; ++i) mx = fmaxf(mx, cand_v[rr * LANES + i * 32 + wl]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        if (wl == 0) run_v[rr * K_MAX] = mx;
+      }
+      __syncthreads();
+      continue;
     }
 
     // Survivors to shared memory (over the scan area, now free).
@@ -232,7 +287,9 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
         ci[i] = cand_i[rr * NCAND + i * 32 + wl];
         beats |= cv[i] > NEG_INF && better(cv[i], ci[i], kv, ki);
       }
-      if (!__any_sync(FULL, beats)) continue;
+      if constexpr (V != Variant::kNoGate) {
+        if (!__any_sync(FULL, beats)) continue;
+      }
       float ov = wl < k ? sv[wl] : NEG_INF;
       int oi = wl < k ? si[wl] : 0;
       __syncwarp();
@@ -272,16 +329,17 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   }
 
   __syncthreads();
+  if (!writes) return;
   for (int i = threadIdx.x; i < CTA_ROWS * k; i += THREADS) {
     const int r = i / k, p = i % k;
     if (cta_r0 + r >= qcap) continue;
     const size_t o = ((size_t)orow * qcap + cta_r0 + r) * k + p;
-    out_v[o] = run_v[r * K_MAX + p];
-    out_i[o] = run_i[r * K_MAX + p];
+    out_v[o] = run_v[r * K_MAX + (MAX_ONLY ? 0 : p)];
+    out_i[o] = MAX_ONLY ? 0 : run_i[r * K_MAX + p];
   }
 }
 
-template <int DEPTH, QSrc SRC>
+template <int DEPTH, QSrc SRC, Variant V>
 int launch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
            const void* block_first, const void* block_last, const void* rows_valid,
            const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
@@ -293,13 +351,13 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
   const size_t smem = run + (scan > cand ? scan : cand);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, SRC>,
+    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, SRC, V>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
-  grouped_scan_i8_kernel<DEPTH, SRC><<<grid, THREADS, smem, stream>>>(
+  grouped_scan_i8_kernel<DEPTH, SRC, V><<<grid, THREADS, smem, stream>>>(
       static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
@@ -309,7 +367,7 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   return (int)cudaGetLastError();
 }
 
-template <QSrc SRC>
+template <QSrc SRC, Variant V = Variant::kFull>
 int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
              const void* block_first, const void* block_last, const void* rows_valid,
              const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
@@ -317,7 +375,7 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                        \
-  launch<D, SRC>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, bias, \
+  launch<D, SRC, V>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, bias, \
                  row_base, out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
@@ -369,4 +427,25 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
   return dispatch<QSrc::kRouted>(qi, vec, nullptr, cq_blocks, block_first, block_last,
                                  rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d, blk,
                                  k, depth, nbatch, stream);
+}
+
+// K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
+// bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.
+extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* block_cluster,
+                                   const void* block_first, const void* block_last,
+                                   const void* rows_valid, const void* row_base, void* out_v,
+                                   void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
+                                   int k, int variant, void* stream) {
+#define RAG_VARIANT(V)                                                                      \
+  dispatch<QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,      \
+                              rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, d, \
+                              blk, k, 2, nlist, stream)
+  switch (variant) {
+    case 0: return RAG_VARIANT(Variant::kFull);
+    case 1: return RAG_VARIANT(Variant::kNoGate);
+    case 2: return RAG_VARIANT(Variant::kMaxOnly);
+    case 3: return RAG_VARIANT(Variant::kFixedOut);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RAG_VARIANT
 }

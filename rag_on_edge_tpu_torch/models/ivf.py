@@ -358,13 +358,20 @@ class IVFIndex:
         seed: int = 42,
         max_iter: int = 100,
         kmeans_init: str = "kmeans++",
+        kmeans_checkpoint: str | None = None,
         spill_eps: float = 0.0,
         centroids: np.ndarray | None = None,
         device: str | torch.device = "cuda",
     ) -> "IVFIndex":
         """Train the coarse quantizer on ``device`` and lay out clusters
         contiguously.  ``spill_eps > 0`` stores a second copy of each vector
-        whose second-nearest centroid is within ``(1+spill_eps)·d1²``."""
+        whose second-nearest centroid is within ``(1+spill_eps)·d1²``.
+        ``kmeans_checkpoint`` sits where the JAX package takes it; the
+        k-means resume behind it is not ported yet (it raises)."""
+        if kmeans_checkpoint is not None:
+            raise NotImplementedError(
+                "IVFIndex.build(kmeans_checkpoint=) is not ported yet — ROADMAP Queue 1 "
+                "item 6")
         base = np.asarray(base, dtype=np.float32)
         n = base.shape[0]
         nlist = kmeans_mod.default_nlist(n, nlist)
@@ -886,6 +893,7 @@ class IVFIndex:
         queries: torch.Tensor,
         k: int,
         nprobe: int,
+        probe_chunk: int | None = None,
         mode: str = "auto",
         qcap: int | None = None,
         engine: str = "auto",
@@ -896,10 +904,14 @@ class IVFIndex:
         recover_passes: int | None = None,
         bin_depth: int = 2,
         rescore_k: int | None = None,
+        cluster_k: int | None = None,
     ):
         """Search a batch on the index's device → (scores [B, k] f32,
-        ids [B, k] int32, n_candidates [B] int32).
+        ids [B, k] int32, n_candidates [B] int32).  The parameters take the
+        JAX package's positions.
 
+        probe_chunk: probes per query-major chunk; it has no effect until
+            the query mode is ported (ROADMAP Queue 1 item 9).
         mode: "auto" | "cluster" ("query" is not ported yet).
         engine: "auto" (pallas_accum where the index's layout allows it,
             else pallas) | "pallas_accum" — the accum fine scan (kernel K1)
@@ -921,6 +933,10 @@ class IVFIndex:
             (default qcap, and nblocks/4 rounded up to ``CM_GROUP``).
         recover_passes: recovery passes, each placing the pairs the ones
             before left (default :meth:`_auto_recover_passes`).
+        cluster_k: per-cluster emit depth of the scan kernels (default:
+            the rescore pool, :meth:`_auto_cluster_k`).  As in the JAX
+            package it is raised to ``ceil(pool / nprobe)``, so the join
+            pool still holds ``pool`` candidates, and capped at the pool.
         """
         b = queries.shape[0]
         if self.store == "compact" and mode == "auto":
@@ -958,6 +974,10 @@ class IVFIndex:
         if recover is None:
             recover = self._auto_recover(b, nprobe)
         kk = self._auto_cluster_k(k, rescore, rescore_k)
+        # The per-cluster emit depth (JAX: ck); the pool after the join is kk.
+        ck = kk
+        if cluster_k is not None:
+            ck = min(max(cluster_k, -(-kk // min(nprobe, self.nlist))), kk)
         q = queries.to(self.device, torch.float32)
         nprobe = min(nprobe, self.nlist)
         qcap = qcap or self._auto_qcap(b, nprobe)
@@ -965,13 +985,13 @@ class IVFIndex:
         routed = engine == "pallas_routed"
         if routed:
             qi, bias, alpha = self._query_prep(q)
-            pv, pr = self._scan_routed(qi, cq, bias, kk, alpha, bin_depth)
+            pv, pr = self._scan_routed(qi, cq, bias, ck, alpha, bin_depth)
         else:
             qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq)
             if engine == "pallas_accum":
                 pp = self._scan(qb, bias_rows, bin_depth)
             else:
-                pv, pr = self._scan_grouped(qb, bias, kk, alpha, bin_depth)
+                pv, pr = self._scan_grouped(qb, bias, ck, alpha, bin_depth)
         extra, todo = None, lossy
         if recover:
             nblocks = self._arrays["vectors_t"].shape[0]
@@ -979,7 +999,7 @@ class IVFIndex:
             rb = min(recover_blocks or max(1, nblocks // 4), nblocks)
             rb = -(-rb // self.CM_GROUP) * self.CM_GROUP
             rp = recover_passes or self._auto_recover_passes(b, nprobe, rq)
-            extra, todo = self._recover(qi, probes, lossy, bias, alpha, kk, rq, rb, rp,
+            extra, todo = self._recover(qi, probes, lossy, bias, alpha, ck, rq, rb, rp,
                                         bin_depth, routed)
         if engine == "pallas_accum":
             vals, ids = self._cm_finish_planes(q, probes, slot, pp, k, kk, rescore, alpha,

@@ -80,11 +80,16 @@ def _kmeanspp_select(xs: torch.Tensor, first_idx: int, gen: torch.Generator,
 def kmeans(x: np.ndarray | torch.Tensor, nlist: int, seed: int = 42,
            max_iter: int = 100, tol: float = 1e-4, chunk: int = 131_072,
            init: str = "kmeans++", init_sample: int = 262_144,
+           checkpoint: str | None = None,
            device: str | torch.device = "cuda") -> tuple[np.ndarray, np.ndarray]:
     """Train k-means on ``device`` → (centroids [nlist, D] f32, assignment
     [N] i32) as numpy.  The assignment is against the centroids before the
     last update, as in the JAX package.  Stops early once the largest
-    squared centroid shift falls below ``tol``."""
+    squared centroid shift falls below ``tol``.  ``checkpoint`` sits where
+    the JAX package takes it; resuming from one is not ported yet."""
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "kmeans(checkpoint=) resume is not ported yet — ROADMAP Queue 1 item 6")
     x = torch.as_tensor(np.asarray(x, dtype=np.float32)).to(device)
     n = x.shape[0]
     if nlist > n:

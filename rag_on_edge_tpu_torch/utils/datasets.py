@@ -1,4 +1,4 @@
-"""Synthetic SIFT corpora and exact ground truth
+"""Synthetic SIFT corpora, their on-disk cache, and exact ground truth
 (counterpart: ``rag_on_edge_tpu/utils/datasets.py``).
 
 ``make_synthetic`` is a byte-for-byte copy of the JAX package's generator
@@ -8,17 +8,33 @@ GEMMs (TF32 is off, see the package ``__init__``) and ties broken by the
 lower id, as the JAX package's ``ground_truth`` does.  Once a chunk's
 [query_chunk, N] score matrix would pass 2 GiB it takes kernel K3 in its
 exact fp32 mode instead (``_ground_truth_fused``), the JAX package's rule.
+
+:func:`load_dataset` reads and writes the JAX package's cache: the same
+root (``RAG_EDGE_TPU_DATA``, else ``data/`` at the repository root), the
+same file names and formats (``utils/io.py``) and the same synthesis
+manifest, so both packages share ``data/<name>``.  Ground truth it has to
+compute goes through :func:`ground_truth` on ``device``.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from rag_on_edge_tpu_torch.ops import topk
 from rag_on_edge_tpu_torch.ops.bruteforce_fused import fused_topk_matmul
+from rag_on_edge_tpu_torch.utils import io
 
-__all__ = ["DATASET_SPECS", "make_synthetic", "ground_truth"]
+__all__ = ["Dataset", "DATASET_SPECS", "DEFAULT_DATA_ROOT", "load_dataset", "make_synthetic",
+           "ground_truth"]
+
+DEFAULT_DATA_ROOT = os.environ.get(
+    "RAG_EDGE_TPU_DATA", os.path.join(os.path.dirname(__file__), "..", "..", "data")
+)
 
 # name -> (n_base, n_queries, dim, n_clusters_for_synthesis)
 DATASET_SPECS: dict[str, tuple[int, int, int, int]] = {
@@ -27,6 +43,24 @@ DATASET_SPECS: dict[str, tuple[int, int, int, int]] = {
     "sift10m": (10_000_000, 10_000, 128, 16384),
     "unit": (2_048, 32, 128, 16),
 }
+
+
+@dataclass
+class Dataset:
+    name: str
+    base: np.ndarray  # [N, dim] float32
+    queries: np.ndarray  # [Q, dim] float32
+    ground_truth_ip: np.ndarray | None = None  # [Q, K] int32, inner-product ranking
+    ground_truth_l2: np.ndarray | None = None  # [Q, K] int32, L2 ranking
+    gt_k: int = 100
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def dim(self) -> int:
+        return int(self.base.shape[1])
+
+    def gt(self, metric: str) -> np.ndarray | None:
+        return self.ground_truth_l2 if metric == "l2" else self.ground_truth_ip
 
 
 def make_synthetic(
@@ -107,3 +141,99 @@ def _ground_truth_fused(base: np.ndarray, queries: np.ndarray, k: int, metric: s
         _, ids = fused_topk_matmul(torch.from_numpy(q).to(device), bt_dev, k)
         out[qs : qs + len(q)] = ids.cpu().numpy()[: len(q)]
     return out
+
+
+def _paths(root: str, name: str) -> dict[str, str]:
+    d = os.path.join(root, name)
+    return {
+        "dir": d,
+        "base": os.path.join(d, f"{name}_base.fvecs"),
+        "query": os.path.join(d, f"{name}_query.fvecs"),
+        "gt_ip": os.path.join(d, f"{name}_groundtruth_ip.ivecs"),
+        "gt_l2": os.path.join(d, f"{name}_groundtruth_l2.ivecs"),
+        # Standard TEXMEX name (L2 ranking), used if a real dataset is dropped in.
+        "gt_texmex": os.path.join(d, f"{name}_groundtruth.ivecs"),
+    }
+
+
+def load_dataset(
+    name: str,
+    root: str | None = None,
+    gt_k: int = 100,
+    compute_gt: bool = True,
+    device: str | torch.device = "cuda",
+) -> Dataset:
+    """Load a dataset by name, synthesizing and caching it as fvecs/ivecs
+    if absent; missing or too-narrow ground truth is computed on ``device``
+    and cached."""
+    if name not in DATASET_SPECS:
+        raise KeyError(f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)}")
+    root = root or DEFAULT_DATA_ROOT
+    n_base, n_queries, dim, n_clusters = DATASET_SPECS[name]
+    p = _paths(root, name)
+
+    synth_marker = os.path.join(p["dir"], f"{name}_synth.json")
+    if not (os.path.exists(p["base"]) and os.path.exists(p["query"])):
+        os.makedirs(p["dir"], exist_ok=True)
+        base, queries = make_synthetic(n_base, n_queries, dim, n_clusters)
+        io.write_fvecs(p["base"], base)
+        io.write_fvecs(p["query"], queries)
+        with open(synth_marker, "w") as f:
+            json.dump({"n_base": n_base, "n_queries": n_queries,
+                       "dim": dim, "synthetic": True}, f)
+    else:
+        base = io.read_fvecs(p["base"])
+        queries = io.read_fvecs(p["query"])
+        # Files synthesized here (the manifest is present) are checked
+        # against it: a write cut short can leave a truncated file that
+        # still parses on a record boundary.  Files without it are real
+        # datasets dropped in: any self-consistent shape is accepted.
+        if os.path.exists(synth_marker):
+            with open(synth_marker) as f:
+                expect = json.load(f)
+            if (base.shape != (expect["n_base"], expect["dim"])
+                    or queries.shape != (expect["n_queries"], expect["dim"])):
+                raise ValueError(
+                    f"cached synthetic {name} files do not match their "
+                    f"manifest (base {base.shape} vs "
+                    f"({expect['n_base']}, {expect['dim']}), queries "
+                    f"{queries.shape}) — a truncated write; delete "
+                    f"{p['dir']} to re-synthesize"
+                )
+        elif base.shape[1] != queries.shape[1]:
+            raise ValueError(
+                f"{name}: base dim {base.shape[1]} != query dim "
+                f"{queries.shape[1]}"
+            )
+
+    gt_ip = gt_l2 = None
+    if compute_gt:
+        if os.path.exists(p["gt_ip"]):
+            gt_ip = io.read_ivecs(p["gt_ip"])
+            if gt_ip.shape[1] < gt_k:
+                gt_ip = None  # a narrower cache: recompute at the asked depth
+        if os.path.exists(p["gt_l2"]):
+            gt_l2 = io.read_ivecs(p["gt_l2"])
+            if gt_l2.shape[1] < gt_k:
+                gt_l2 = None
+        elif os.path.exists(p["gt_texmex"]):
+            # A real TEXMEX ground truth (L2) holds even when narrower than
+            # gt_k; gt_k is clamped to it below.
+            gt_l2 = io.read_ivecs(p["gt_texmex"])
+        if gt_ip is None:
+            gt_ip = ground_truth(base, queries, gt_k, metric="ip", device=device)
+            io.write_ivecs(p["gt_ip"], gt_ip)
+        if gt_l2 is None:
+            gt_l2 = ground_truth(base, queries, gt_k, metric="l2", device=device)
+            io.write_ivecs(p["gt_l2"], gt_l2)
+        gt_k = min(gt_k, gt_ip.shape[1], gt_l2.shape[1])
+
+    return Dataset(
+        name=name,
+        base=base,
+        queries=queries,
+        ground_truth_ip=gt_ip,
+        ground_truth_l2=gt_l2,
+        gt_k=gt_k,
+        meta={"n_base": n_base, "n_queries": n_queries, "dim": dim},
+    )

@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from rag_on_edge_tpu_torch.harness import bench_gemm, kernel_lab
 from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex
 from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
 from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
+from rag_on_edge_tpu_torch.ops import tiled_matmul
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
+from rag_on_edge_tpu_torch.parallel import spatial_matmul
 from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
 pytestmark = pytest.mark.cuda
@@ -559,3 +562,143 @@ def test_sharded_brute_card_equals_cpu(dev, rescore):
     want = ShardedBruteForceIndex(base, ["cpu"] * 3, **kw).search_device(
         torch.from_numpy(queries), 10)
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+# K8 shapes (M, K, N): M < 16, K not a multiple of 32 (nor of 16 for int8),
+# N not a multiple of 8 (nor even), several C tiles and K tiles, one row.
+K8_SHAPES = {"m8": (8, 40, 30), "k96": (130, 96, 257), "k50": (257, 50, 1000),
+             "row": (1, 3, 5), "tiles": (300, 517, 129), "wide": (64, 128, 4099)}
+
+
+def _k8_inputs(rng, dtype, m, k, n):
+    if dtype == "int8":
+        return (torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)),
+                torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)))
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
+    return (a.to(torch.bfloat16), b.to(torch.bfloat16)) if dtype == "bf16" else (a, b)
+
+
+def _assert_k8(got, want, a, b):
+    """int8 exact; floats within the worst-case bound of an fp32 sum of K
+    products in any order, 2·K·2**-24·(|A| @ |B|), for the two sums."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.int32:
+        assert torch.equal(got, want)
+        return
+    bound = 2.0 * a.shape[1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("shape", list(K8_SHAPES))
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_k8_kernel_equal_to_plain(dev, shape, dtype):
+    a, b = _k8_inputs(np.random.default_rng(41), dtype, *K8_SHAPES[shape])
+    a, b = a.to(dev), b.to(dev)
+    before = tiled_matmul.LAUNCHES
+    got = tiled_matmul.tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    assert tiled_matmul.LAUNCHES == before + 1
+    _assert_k8(got, tiled_matmul.tiled_matmul_reference(a, b), a, b)
+
+
+def test_k8_kernel_unaligned_views(dev):
+    """Contiguous views that start off the kernel's alignment are copied,
+    not misread."""
+    a, b = _k8_inputs(np.random.default_rng(42), "int8", 65, 128, 77)
+
+    def shifted(x, off):
+        out = torch.empty(x.numel() + off, dtype=x.dtype, device=dev)[off:].view(x.shape)
+        return out.copy_(x)
+
+    a, b = shifted(a, 3), shifted(b, 1)
+    assert a.data_ptr() % 16 and b.data_ptr() % 4
+    _assert_k8(tiled_matmul.tiled_matmul(a, b), tiled_matmul.tiled_matmul_reference(a, b), a, b)
+
+
+def test_k8_kernel_refuses_what_it_does_not_take(dev):
+    a = torch.zeros((16, 32), dtype=torch.int8, device=dev)
+    b = torch.zeros((32, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_matmul.tiled_matmul(a, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="one device"):
+        tiled_matmul.tiled_matmul(a, b.cpu())
+    with pytest.raises(ValueError, match="dtype mismatch"):
+        tiled_matmul.tiled_matmul(a, b.float())
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        tiled_matmul.tiled_matmul(a.to(torch.int16), b.to(torch.int16))
+
+
+def _k10_defined(variant, bc, bl):
+    if variant == "fixedout":
+        return torch.zeros(1, dtype=torch.long, device=bc.device)
+    if variant == "maxonly":
+        return torch.unique(bc.long())
+    return torch.unique(bc[bl > 0].long())
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
+    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, dummy tail
+    ([700, 300, 129, 2000, 90], 256, 100, 37, 32, False),  # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40, 2500], 2048, 24, 128, 20, True),     # heavy ties
+], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_kernel_equal_to_plain_and_full_to_k6(dev, sizes, blk, qcap, d, k, ties, variant):
+    rng = np.random.default_rng(43)
+    qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                    for x in _k6_inputs(rng, sizes, blk, qcap, d, ties,
+                                                        "dense", False))
+    for cut in (len(bc), int(torch.nonzero(rv).max()) + 1):
+        # The whole walk (its last blocks are dummies without rows, so
+        # fixedout's window holds -inf), and the walk cut after its last
+        # block with rows.
+        tabs = (x[:cut] for x in (vt, bc, bf, bl, rv))
+        args = (qg, *tabs, k, blk, 128, variant)
+        before = kernel_lab.LAUNCHES
+        pv, pr = kernel_lab._variant_scan(*args)
+        rv_, rr = kernel_lab._variant_scan_reference(*args)
+        torch.cuda.synchronize()
+        assert kernel_lab.LAUNCHES == before + 1
+        win = _k10_defined(variant, bc[:cut], bl[:cut])
+        assert torch.equal(pv[win], rv_[win])
+        fin = rv_[win] > float("-inf")
+        assert fin.any() or (variant == "fixedout" and cut == len(bc))
+        assert torch.equal(pr[win][fin], rr[win][fin])
+        if variant == "full":
+            kv, ki = ivf_scan.cluster_major_scan(*args[:6], k, blk=blk, bin_depth=2)
+            assert torch.equal(pv[win], kv[win]) and torch.equal(pr[win][fin], ki[win][fin])
+
+
+def test_k10_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(44)
+    qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                    for x in _k6_inputs(rng, [100], 128, 8, 16, False, "dense",
+                                                        False))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        kernel_lab._variant_scan(qg.float(), vt.float(), bc, bf, bl, rv, 4, 128, 128, "full")
+    with pytest.raises(ValueError, match="one device"):
+        kernel_lab._variant_scan(qg, vt, bc.cpu(), bf, bl, rv, 4, 128, 128, "maxonly")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_lab._variant_scan(qg, vt.transpose(1, 2).contiguous().transpose(1, 2), bc, bf,
+                                 bl, rv, 4, 128, 128, "full")
+    with pytest.raises(ValueError):  # more than 32 per row
+        kernel_lab._variant_scan(qg, vt, bc, bf, bl, rv, 33, 128, 128, "nogate")
+
+
+@pytest.mark.parametrize("pallas", [True, False], ids=["k8", "plain"])
+@pytest.mark.parametrize("dtype", ["int8", "fp32"])
+def test_spatial_matmul_card_grid_equals_cpu(dev, dtype, pallas):
+    """A logical 2x2 grid on one card against the CPU grid."""
+    a, b = _k8_inputs(np.random.default_rng(45), dtype, 128, 128, 2560)
+    before = tiled_matmul.LAUNCHES
+    got = spatial_matmul(a.to(dev), b.to(dev), [[dev] * 2] * 2, use_pallas_kernel=pallas)
+    torch.cuda.synchronize()
+    assert tiled_matmul.LAUNCHES == before + (4 if pallas else 0)
+    want = spatial_matmul(a, b, [[torch.device("cpu")] * 2] * 2, use_pallas_kernel=pallas)
+    _assert_k8(got.cpu(), want, a, b)
+
+
+def test_bench_gemm_reference_workload(dev):
+    res = bench_gemm.run(128, 128, 10240, "int8", iters=10, stack=4, quiet=True)
+    assert res["verified"] and res["mesh"] == "1x1" and res["kernel"] == "pallas"
+    assert res["device"] == torch.cuda.get_device_name(0) and res["gflops_sustained"] > 0

@@ -342,6 +342,56 @@ def test_search_device_recovery_and_grouped_equal_jax(pair, small_data, run):
         assert t.last_engine == kw["engine"]
 
 
+def test_signatures_take_jax_positions():
+    """``search_device``, ``build`` and ``kmeans`` take the JAX package's
+    parameters in its order; the port only appends ``device``."""
+    import inspect
+
+    def names(fn):
+        return list(inspect.signature(fn).parameters)
+
+    assert names(tivf.IVFIndex.search_device) == names(jivf.IVFIndex.search_device)
+    assert names(tivf.IVFIndex.build) == names(jivf.IVFIndex.build) + ["device"]
+    assert names(tkmeans.kmeans) == names(jkmeans.kmeans) + ["device"]
+
+
+def test_search_device_positional_equals_keyword(pair, small_data):
+    """``search_device(q, k, nprobe, probe_chunk, mode)`` binds as in JAX:
+    the 4th argument is ``probe_chunk`` (no effect in cluster mode), the
+    5th ``mode``."""
+    _, t = pair[512]
+    q = _t(small_data[1])
+    pos = t.search_device(q, K, NPROBE, None, "cluster")
+    kw = t.search_device(q, K, NPROBE, mode="cluster")
+    chunked = t.search_device(q, K, NPROBE, 8, "cluster")
+    for a, b, c in zip(pos, kw, chunked):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_checkpoints_raise_naming_item_6(small_data):
+    base, _ = small_data
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tivf.IVFIndex.build(base, 16, "l2", "int8", "l2", 512, "padded", 42, 5, "kmeans++",
+                            "ckpt", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tkmeans.kmeans(base, 16, 42, 5, 1e-4, 131_072, "sample", 1024, "ckpt", device="cpu")
+
+
+# cluster_k below JAX's clamp (ceil(2k / nprobe) = 5) and above it, through
+# the grouped engine, whose kernel (K4) emits cluster_k entries per cluster.
+@pytest.mark.parametrize("cluster_k", [2, 8])
+def test_search_device_cluster_k_equals_jax(pair, small_data, cluster_k):
+    j, t = pair[512]
+    q = np.ascontiguousarray(small_data[1])
+    kw = dict(engine="pallas", cluster_k=cluster_k)
+    jv, jids, jc = j.search_device(jnp.asarray(q), K, NPROBE, None, "cluster", **kw)
+    tv, tids, tc = t.search_device(_t(q), K, NPROBE, None, "cluster", **kw)
+    assert int(t.last_spill) == int(j.last_spill) == 0
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
 def test_auto_engine_falls_back_to_grouped(small_data):
     """400-dim int8 L2 vectors are past the accum engine's 384 (its packed
     key has no headroom for wider dots): ``engine="auto"`` takes the
@@ -416,10 +466,12 @@ def test_build_spilled_matches_jax_layout(small_data):
         assert len(set(row.tolist())) == K
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """The port never imports jax or the JAX package: both are blocked in a
     fresh interpreter that runs the CPU slice (its default, recovered and
-    routed searches), the brute-force index and both sharded indexes."""
+    routed searches), the brute-force index, both sharded indexes, the
+    spatial GEMM and its benchmark, the kernel lab's four variants and the
+    dataset loader."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
@@ -461,11 +513,29 @@ def test_port_runs_without_jax():
         sb = rt.ShardedBruteForceIndex(base, shards, metric="l2", dtype="int8", rescore=True)
         sbids, _ = sb.search(q, 5)
         assert recall_at_k(sbids, ground_truth(base, q, 5, "l2", device="cpu"), 5) >= 0.99
+        from rag_on_edge_tpu_torch.harness import bench_gemm, kernel_lab
+        from rag_on_edge_tpu_torch.parallel import spatial_matmul, verify_matmul
+        from rag_on_edge_tpu_torch.utils.datasets import load_dataset
+        cpu = torch.device("cpu")
+        ga = torch.from_numpy(np.random.default_rng(0).integers(-127, 128, (64, 32), np.int8))
+        gb = torch.from_numpy(np.random.default_rng(1).integers(-127, 128, (32, 48), np.int8))
+        gc = spatial_matmul(ga, gb, [[cpu] * 2] * 2, use_pallas_kernel=True)
+        assert gc.dtype == torch.int32 and verify_matmul(ga.numpy(), gb.numpy(), gc.numpy())
+        assert bench_gemm.run(m=16, k=32, n=64, iters=2, stack=2, quiet=True,
+                              mesh=[[cpu] * 2] * 2)["verified"]
+        qg = kernel_lab.routed_table(idx, q, 64, 4, 8)
+        a = idx._arrays
+        for v in kernel_lab.VARIANTS:
+            kernel_lab._variant_scan(qg, a["vectors_t"], a["block_cluster"], a["block_first"],
+                                     a["block_last"], a["rows_valid"], 4, 256, 128, v)
+        ds = load_dataset("unit", root=TMP, gt_k=5, device="cpu")
+        assert ds.ground_truth_l2.shape == (32, 5)
         new = [m for m, v in sys.modules.items() if v is not None and m not in before]
         assert not any(m == "jax" or m.startswith(("jax.", "rag_on_edge_tpu."))
                        for m in new), new
         print("ok", r)
     """)
+    code = code.replace("TMP", repr(str(tmp_path)))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
