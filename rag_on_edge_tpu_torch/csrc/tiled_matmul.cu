@@ -8,8 +8,8 @@
 //
 // What bounds it on the H100: at the spatial GEMM's shapes K is small (128),
 // so the int32 / f32 output is most of the bytes; the SIFT-1M scoring product
-// [8192, 128] x [128, 1M] writes 33.5 GB against 129 MB of inputs, and is
-// bound by HBM writes (about 10 ms at 3.35 TB/s).  At a square 4096^3 the
+// [8192, 128] x [128, 1M] writes 32.8 GB against 129 MB of inputs, and is
+// bound by HBM writes (9.8 ms at 3.35 TB/s).  At a square 4096^3 the
 // bf16 and f32 products are bound by the tensor-core and FFMA rates.
 //
 // Design (simple first; wgmma, TMA and a persistent grid are later work):
@@ -24,7 +24,8 @@
 //   __byte_perm), because the mma B operand wants K-contiguous words per
 //   column and ldmatrix cannot transpose 8-bit data.  Both tiles are stored
 //   as [128 rows][16 words] with the 4-word group XOR-swizzled by row bits,
-//   so fragment reads are free of bank conflicts.
+//   and the fragments come out of them with ldmatrix.x4, free of bank
+//   conflicts.
 // - double-buffered: the next K tile is loaded into registers while the
 //   current one is multiplied, then stored into the other buffer.
 // - ragged edges: rows of A past M and columns of B past N load as zeros,
@@ -33,8 +34,10 @@
 // - f32: FFMA, no TF32 (the reference is full fp32): 128 x 128 tiles, K 16
 //   at a time, an 8 x 8 block of C a thread, both tiles in shared memory,
 //   double-buffered the same way.
-// - C is written once, with streaming stores (st.global.cs), so the 33.5 GB
-//   output does not evict B's next tile from L2.
+// - C is written once: each warp stages its 64 x 32 block through shared
+//   memory, 32 rows at a time, and writes whole 128-byte rows of C with
+//   16-byte streaming stores (st.global.cs), so the 32.8 GB output moves
+//   in full lines and does not evict B's next tile from L2.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -87,28 +90,32 @@ struct Mma<Elem::kBF16> {
   }
 };
 
-__device__ __forceinline__ void store2(int32_t* p, int32_t x, int32_t y) {
-  __stcs(reinterpret_cast<int2*>(p), make_int2(x, y));
+// Four 8x8 matrices of 16-bit elements (here 16-byte rows of any type) from
+// shared memory; lane i gives the address of row i % 8 of matrix i / 8, and
+// register j of lane t holds word t % 4 of row t / 4 of matrix j: exactly
+// an mma.sync A or B fragment when the rows are its rows.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint32_t* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
+
+__device__ __forceinline__ void store4(int32_t* p, const int4& v) {
+  __stcs(reinterpret_cast<int4*>(p), v);
 }
+__device__ __forceinline__ void store4(float* p, const int4& v) {
+  __stcs(reinterpret_cast<float4*>(p), *reinterpret_cast<const float4*>(&v));
+}
+
 __device__ __forceinline__ void store1(int32_t* p, int32_t x) { __stcs(p, x); }
 __device__ __forceinline__ void store1(float* p, float x) { __stcs(p, x); }
 
-// C[row, col..col+1] = (x, y) under the mask; an 8-byte store where both
-// columns exist and the pair is 8-byte aligned (N even, col even).
-template <typename T>
-__device__ __forceinline__ void store_pair(T* c, int m, int n, int row, int col, T x, T y) {
-  if (row >= m) return;
-  T* p = c + (size_t)row * n + col;
-  if (col + 1 < n && (n & 1) == 0) {
-    store2(p, x, y);
-  } else {
-    if (col < n) store1(p, x);
-    if (col + 1 < n) store1(p + 1, y);
-  }
-}
+// The epilogue stages each warp's C block through shared memory, 32 rows
+// at a time, at a pitch of 40 words (the fragment pairs' 8-byte writes are
+// then free of bank conflicts), and writes whole 128-byte rows of C.
+constexpr int C_PITCH = 40;
+constexpr int SMEM_WORDS = 8 * 32 * C_PITCH;  // >= the 2 x 2 operand tiles
 
 // B tile transposition: P rows of K in one 32-bit word per column.
 template <int P>
@@ -145,7 +152,10 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   constexpr int P = 4 / ES;                // K values per 32-bit word
   constexpr int NCG = BN * ES / 4;         // column words of B per tile row
   constexpr int NBLK = KW * NCG / THREADS; // B word-blocks per thread
-  __shared__ __align__(16) uint32_t smem[2][2][TILE_WORDS];  // [buffer][A, B^T][tile]
+  // [buffer][A, B^T][tile] in the main loop; the epilogue's staging after it.
+  static_assert(SMEM_WORDS >= 2 * 2 * TILE_WORDS, "staging must cover the operand tiles");
+  __shared__ __align__(16) uint32_t smem_raw[SMEM_WORDS];
+  auto tile = [&](int buf, int which) { return smem_raw + (buf * 2 + which) * TILE_WORDS; };
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -184,8 +194,8 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
   };
   auto store_tile = [&](int buf) {
-    uint32_t* as = smem[buf][0];
-    uint32_t* bs = smem[buf][1];
+    uint32_t* as = tile(buf, 0);
+    uint32_t* bs = tile(buf, 1);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int ci = tid + THREADS * j, row = ci >> 2, q = ci & 3;
@@ -219,24 +229,26 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int cur = kt & 1;
     const bool more = kt + 1 < nk;
     if (more) load_tile(kt + 1);
-    const uint32_t* as = smem[cur][0];
-    const uint32_t* bs = smem[cur][1];
+    const uint32_t* as = tile(cur, 0);
+    const uint32_t* bs = tile(cur, 1);
 #pragma unroll
     for (int s = 0; s < KW / 8; ++s) {  // 32 bytes of K per mma
+      // ldmatrix.x4: A rows (lane & 15) of the m16 tile, 16-byte group
+      // 2s + lane / 16 (a0..a3); B rows (lane & 7) + 8 (lane / 16) of two n8
+      // tiles, group 2s + (lane / 8) % 2 (b0, b1 of each).
       uint32_t af[4][4], bf[4][2];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        af[mt][0] = as[swz(r, 8 * s + tg)];
-        af[mt][1] = as[swz(r + 8, 8 * s + tg)];
-        af[mt][2] = as[swz(r, 8 * s + 4 + tg)];
-        af[mt][3] = as[swz(r + 8, 8 * s + 4 + tg)];
-      }
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(af[mt], as + swz(wm * 64 + mt * 16 + (lane & 15), 4 * (2 * s + (lane >> 4))));
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn * 32 + nt * 8 + g;
-        bf[nt][0] = bs[swz(col, 8 * s + tg)];
-        bf[nt][1] = bs[swz(col, 8 * s + 4 + tg)];
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, bs + swz(wn * 32 + np * 16 + (lane & 7) + 8 * (lane >> 4),
+                            4 * (2 * s + ((lane >> 3) & 1))));
+        bf[2 * np][0] = r[0];
+        bf[2 * np][1] = r[1];
+        bf[2 * np + 1][0] = r[2];
+        bf[2 * np + 1][1] = r[3];
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
@@ -247,15 +259,45 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     __syncthreads();
   }
 
+  // Epilogue: the operand tiles are free (the loop ended on a barrier).
+  // Each warp stages 32 of its 64 rows at a time and writes each row of its
+  // 32 columns as 128 contiguous bytes (16 bytes a lane, 4 rows a pass).
+  Acc* stage = reinterpret_cast<Acc*>(smem_raw) + warp * 32 * C_PITCH;
+  const bool vec = (n & 3) == 0;  // rows of C 16-byte aligned
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm * 64 + mt * 16 + g;
-      const int col = n0 + wn * 32 + nt * 8 + 2 * tg;
-      store_pair(c, m, n, row, col, acc[mt][nt][0], acc[mt][nt][1]);
-      store_pair(c, m, n, row + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
+    for (int ml = 0; ml < 2; ++ml)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const Acc* v = acc[2 * half + ml][nt];
+        Acc* p = stage + (ml * 16 + g) * C_PITCH + nt * 8 + 2 * tg;
+        *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&v[0]),
+                                                  *reinterpret_cast<const uint32_t*>(&v[1]));
+        *reinterpret_cast<uint2*>(p + 8 * C_PITCH) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&v[2]),
+                       *reinterpret_cast<const uint32_t*>(&v[3]));
+      }
+    __syncwarp();
+    const int col = n0 + wn * 32 + (lane & 7) * 4;
+#pragma unroll
+    for (int pass = 0; pass < 8; ++pass) {
+      const int sr = pass * 4 + (lane >> 3);
+      const int row = m0 + wm * 64 + half * 32 + sr;
+      if (row >= m) continue;
+      const int4 w = *reinterpret_cast<const int4*>(stage + sr * C_PITCH + (lane & 7) * 4);
+      Acc* p = c + (size_t)row * n + col;
+      if (vec && col + 3 < n) {
+        store4(p, w);
+      } else {
+        const Acc* x = reinterpret_cast<const Acc*>(&w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < n) store1(p + j, x[j]);
+      }
     }
+    __syncwarp();
+  }
 }
 
 constexpr int FBK = 16;  // K values per tile (f32 path)
