@@ -78,7 +78,7 @@ script exits non-zero without a result line:
 11. gemm   — the index is freed first.  Kernel K8 against its plain version
              at a ragged shape in int8 (exact), bf16 and fp32 (within the
              worst-case fp32 summation bound); the full-width int8 product
-             [8192,128] x [128,1M] (the SIFT-1M scoring GEMM, 33.5 GB of
+             [8192,128] x [128,1M] (the SIFT-1M scoring GEMM, 32.8 GB of
              int32 out) held exactly against the plain version in column
              chunks and timed beside ``torch._int_mm``; bf16 and fp32 at
              4096^3 beside ``torch.mm``/``torch.matmul``; then, counters
@@ -864,10 +864,12 @@ def main() -> None:
     qg_lab = kernel_lab.routed_table(idx, queries, LAB_BATCH, NPROBE, LAB_QCAP)
     lab_tabs = (a["vectors_t"], a["block_cluster"], a["block_first"], a["block_last"],
                 a["rows_valid"])
-    bc_lab, bl_lab = a["block_cluster"].long(), a["block_last"]
-    lab_windows = {"full": torch.unique(bc_lab[bl_lab > 0]), "nogate": torch.unique(bc_lab[bl_lab > 0]),
-                   "maxonly": torch.unique(bc_lab), "fixedout": torch.zeros(1, dtype=torch.long,
-                                                                            device=dev)}
+    # The windows each variant defines: the clusters that end a run, every
+    # cluster with blocks, and window 0.
+    bc_lab = a["block_cluster"].long()
+    run_ends = torch.unique(bc_lab[a["block_last"] > 0])
+    lab_windows = {"full": run_ends, "nogate": run_ends, "maxonly": torch.unique(bc_lab),
+                   "fixedout": torch.zeros(1, dtype=torch.long, device=dev)}
     k10 = {}
     for variant in kernel_lab.VARIANTS:
         args = (qg_lab, *lab_tabs, LAB_K, PAD_BLOCK, 128, variant)
@@ -910,7 +912,7 @@ def main() -> None:
     del qg_lab, lab_tabs
 
     # ---- phase 11: the spatial GEMM (K8).  The index and its state go first:
-    # the full-width product's output alone is 33.5 GB.
+    # the full-width product's output alone is 32.8 GB.
     from rag_on_edge_tpu_torch.parallel import spatial_matmul, verify_matmul
 
     del a, idx, k1_args, k4_rec, k4_dense, qb, qi, bias, bias_rows, pp, pool, probes, cq, slot
@@ -1008,8 +1010,10 @@ def main() -> None:
             lib=lib_name, lib_ms=cuda_ms(torch, lib),
             bound=bound(2 * SQ * SQ * a_.element_size() + SQ * SQ * 4, 2.0 * SQ**3, rate))
         del a_, b_
+    sq_lines = {n: (v["err"], v["ms"], v["plain_ms"], v["lib"], v["lib_ms"], v["bound"])
+                for n, v in k8_sq.items()}
     phase("gemm", t0, f"K8 {SQ}^3 (max |err| within tolerance, ms, plain ms, library call "
-          f"ms, bound): { {n: (v['err'], v['ms'], v['plain_ms'], v['lib'], v['lib_ms'], v['bound']) for n, v in k8_sq.items()} }")
+          f"ms, bound): {sq_lines}")
 
     # The path itself, counted: spatial_matmul on a 1x1 grid and on a logical
     # 2x2 grid of this card, both local products, and the AIE reference

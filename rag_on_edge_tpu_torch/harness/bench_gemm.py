@@ -1,6 +1,6 @@
 """Spatial-GEMM benchmark (counterpart: ``rag_on_edge_tpu/harness/bench_gemm.py``).
 
-The reference's AIE host driver's workload: fixed-seed inputs, an
+The reference's AIE host program's workload: fixed-seed inputs, an
 iteration loop with warm-up calls left out, full or sampled verification,
 and the time per pass with GFLOPs = 2·M·K·N / time.  The published
 workload is GEMM 128×128×N, N = 2048 → 10240, on SIFT-like rows

@@ -21,7 +21,7 @@ fp64 product, exact for any K (every int8 dot is an integer below 2**53;
 ``torch.mm`` on int8 wraps, and on int32 is not implemented on CUDA),
 floats in fp32 with TF32 off, as ``Precision.HIGHEST``.
 
-:func:`verify_matmul` is the reference host driver's check (full, or 1000
+:func:`verify_matmul` is the reference host program's check (full, or 1000
 sampled entries past 2**30 multiply-adds), copied because importing the
 JAX module would import jax.
 """
@@ -32,26 +32,21 @@ import numpy as np
 import torch
 
 from rag_on_edge_tpu_torch.ops.tiled_matmul import tiled_matmul
+from rag_on_edge_tpu_torch.parallel.mesh import make_mesh
 
 __all__ = ["make_mesh_2d", "spatial_matmul", "verify_matmul"]
 
-_FULL_VERIFY_MAX_ELEMS = 2**30  # M*N*K threshold of the reference's driver
+_FULL_VERIFY_MAX_ELEMS = 2**30  # M*N*K threshold of the reference's host program
 
 
 def make_mesh_2d(rows: int, cols: int, device_type: str = "cuda") -> list[list[torch.device]]:
     """The first ``rows·cols`` devices of ``device_type`` as a rows × cols
-    grid.  Raises past the device count, and where there is none: there is
-    no fall-back to another device type (pass an explicit grid such as
-    ``[[torch.device("cpu")] * cols] * rows`` for the CPU)."""
-    if device_type != "cuda":
-        raise ValueError(f"make_mesh_2d gives CUDA devices; pass an explicit grid of "
-                         f"{device_type!r} devices")
-    count = torch.cuda.device_count()
-    if count == 0:
-        raise RuntimeError("no cuda devices")
-    if rows * cols > count:
-        raise ValueError(f"need {rows * cols} devices, have {count}")
-    return [[torch.device("cuda", r * cols + c) for c in range(cols)] for r in range(rows)]
+    grid (:func:`make_mesh`'s devices, row by row).  Raises past the device
+    count, and where there is none: there is no fall-back to another
+    device type.  Positions may also share a device: pass a grid such as
+    ``[[torch.device("cuda:0")] * 2] * 2``."""
+    devs = make_mesh(rows * cols, device_type)
+    return [devs[r * cols:(r + 1) * cols] for r in range(rows)]
 
 
 def _shape(mesh) -> tuple[int, int]:

@@ -141,8 +141,9 @@ def test_spatial_matmul_refusals():
         tspatial.spatial_matmul(a, b, [[CPU] * 3])
     with pytest.raises(ValueError, match="contraction"):
         tspatial.spatial_matmul(a, torch.zeros((5, 8)), [[CPU]])
-    with pytest.raises(ValueError, match="explicit grid"):
+    with pytest.raises(ValueError, match="requested 4 devices"):
         tspatial.make_mesh_2d(2, 2, device_type="cpu")
+    assert tspatial.make_mesh_2d(1, 1, device_type="cpu") == [[CPU]]
 
 
 def test_verify_matmul_catches_errors():
