@@ -2,7 +2,8 @@
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
 the IVF index (its default engine, the grouped engine and the routed
 engine), the brute-force index, both sharded over 4 logical shards on
-the card, the kernel lab on the same index, and the spatial GEMM.
+the card, the kernel lab on the same index, the spatial GEMM, and the
+hardware probes.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,9 @@ Phases, each printed with its wall time; any failure raises and the
 script exits non-zero without a result line:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5 and K8
-             (CUDA C++, one nvcc per source, all at once) and K2 (Triton)
+2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 and
+             K11-K14 (CUDA C++, one nvcc per source, all at once) and K2
+             (Triton)
              from the sources in this checkout.
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
@@ -87,6 +89,16 @@ script exits non-zero without a result line:
              product (``verify_matmul`` must pass) and
              ``bench_gemm.run(128, 128, 10240, "int8")``, the AIE reference
              workload, whose result dict is printed.
+12. probe  — the hardware probes (``harness/hw_probe.py``): kernels K11-K14
+             against their plain versions at ragged shapes and at one JAX
+             size each (K11 g=4096 moving; K12 the int8 512 MB walk at
+             blk=2048 with and without the product; K13 the int8 2 GiB walk
+             at depth 8; K14 (256, 2048) at g=2048 in int8 on mma.sync and
+             on __dp4a, and in bf16), each timed beside its plain version
+             and, for K12 and K13, ``data.amax()``; then, counters reset
+             just before and read just after, the five probes at the JAX
+             sizes through ``hw_probe.main([])``, and the ceilings they
+             measure, one a line.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -167,7 +179,7 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from rag_on_edge_tpu_torch import BruteForceIndex, IVFIndex
-    from rag_on_edge_tpu_torch.harness import bench_gemm, kernel_lab
+    from rag_on_edge_tpu_torch.harness import bench_gemm, hw_probe, kernel_lab, timing
     from rag_on_edge_tpu_torch.models import ivf as ivf_mod
     from rag_on_edge_tpu_torch.ops import (_build, bruteforce_accum, bruteforce_fused,
                                            fused_topk, ivf_accum, ivf_scan, quantize,
@@ -183,28 +195,30 @@ def main() -> None:
 
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
-               "tiled_matmul"]
+               "tiled_matmul", "hw_probe"]
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, all at once
         list(ex.map(_build.load_library, sources))
     nvcc_s = time.time() - t
     t = time.time()
     fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
     torch.cuda.synchronize()
-    phase("build", t0, f"K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 nvcc {nvcc_s:.1f}s, K2 triton "
-          f"{time.time() - t:.1f}s")
+    phase("build", t0, f"K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8, K11-K14 nvcc {nvcc_s:.1f}s, "
+          f"K2 triton {time.time() - t:.1f}s")
 
     def reset_launches():
         for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum,
                     tiled_matmul, kernel_lab):
             mod.LAUNCHES = 0
         ivf_scan.CLUSTER_LAUNCHES = ivf_scan.ROUTED_LAUNCHES = ivf_accum.ACCUM_LAUNCHES = 0
+        for key in hw_probe.LAUNCHES:
+            hw_probe.LAUNCHES[key] = 0
 
     def read_launches():
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
                 "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES,
                 "K6": ivf_scan.CLUSTER_LAUNCHES, "K7": ivf_scan.ROUTED_LAUNCHES,
                 "K8": tiled_matmul.LAUNCHES, "K9": ivf_accum.ACCUM_LAUNCHES,
-                "K10": kernel_lab.LAUNCHES}
+                "K10": kernel_lab.LAUNCHES, **hw_probe.LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
     t = time.time()
@@ -1040,6 +1054,171 @@ def main() -> None:
     if k8_launches < 1:
         raise AssertionError("the spatial GEMM did not launch K8")
 
+    # ---- phase 12: the hardware probes (K11-K14), each kernel against its
+    # plain version at a ragged shape and at one JAX size, then the probes.
+    del ga, gb, fa, fb
+    torch.cuda.empty_cache()
+    pgen = torch.Generator(device=dev).manual_seed(12)
+
+    def prand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 127, shape, generator=pgen, device=dev, dtype=dtype)
+        return torch.randn(shape, generator=pgen, device=dev, dtype=dtype)
+
+    def bf16_bound(a_, b_):
+        """2·K·2**-24·max(|A| @ |B|): two fp32 sums of K products, in any
+        order, differ by at most this at the maximum entry."""
+        return 2.0 * a_.shape[-1] * 2.0**-24 * float(
+            torch.matmul(a_.double().abs(), b_.double().abs()).max())
+
+    probe_err = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
+
+    def probe_check(key, name, got, want, tol=0.0):
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{key} {name} differs from its plain version: |err| {err} > "
+                                 f"{tol}")
+        probe_err[key] = max(probe_err[key], err)
+
+    t = time.time()
+    xs = prand((8, 128), torch.float32)
+    for g_ in (3, 300):
+        for moving in (False, True):
+            for sem in hw_probe.SEMANTICS:
+                probe_check("K11", f"g={g_} moving={moving} {sem}",
+                            hw_probe._step_probe(xs, g_, moving, sem),
+                            hw_probe._step_probe_reference(xs, g_, moving, sem))
+    for dtype in (torch.int8, torch.bfloat16):
+        xr = prand((100, 36), dtype)
+        for gemm, blk_ in ((False, 301), (True, 300)):
+            data_ = prand((9, 36, blk_), dtype)
+            tol = bf16_bound(xr, data_[-3:]) if gemm and dtype == torch.bfloat16 else 0.0
+            for sem in hw_probe.SEMANTICS:
+                probe_check("K12", f"{dtype} [9,36,{blk_}] fat=3 gemm={gemm} {sem}",
+                            hw_probe._stream_probe(xr, data_, blk_, 3, gemm, sem),
+                            hw_probe._stream_probe_reference(xr, data_, blk_, 3, gemm, sem), tol)
+        data_ = prand((11, 24, 40), dtype)
+        for depth in (3, 8):
+            probe_check("K13", f"{dtype} [11,24,40] depth={depth}",
+                        hw_probe._dma_probe(xs, data_, depth),
+                        hw_probe._dma_probe_reference(xs, data_, depth))
+    for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
+        q_, v_ = prand((200, 96), dtype), prand((96, 300), dtype)
+        qx = hw_probe._twisted_q(q_, torch.tensor([36], device=dev), torch.float64)[0]
+        probe_check("K14", f"{dtype} {unit} [200,96]x[96,300] g=37",
+                    hw_probe._gemm_rate_probe(xs, q_, v_, 37, 200, 300, True, unit),
+                    hw_probe._gemm_rate_probe_reference(xs, q_, v_, 37, 200, 300, True, unit),
+                    bf16_bound(qx, v_) if dtype == torch.bfloat16 else 0.0)
+    del data_, q_, v_, qx, xr
+    phase("probe", t0, f"K11-K14 equal to their plain versions at ragged shapes (K11 g 3 and "
+          f"300; K12 [9,36,301] and [9,36,300] x [100,36], fat 3; K13 [11,24,40] at depth 3 "
+          f"and 8; K14 [200,96] x [96,300] g=37, sel), max |err| {probe_err} "
+          f"({time.time() - t:.1f}s)")
+
+    # One JAX size each, timed beside the plain version (and data.amax()):
+    # device time of REPS calls captured in one CUDA graph, since the
+    # Python wrapper's host time exceeds K11's device time.
+    t = time.time()
+
+    def gms(fn):
+        return timing.graph_ms(fn, dev, calls=REPS)
+
+    x1 = torch.ones((8, 128), dtype=torch.float32, device=dev)
+    probe_check("K11", "g=4096 moving", hw_probe._step_probe(x1, 4096, True, None),
+                hw_probe._step_probe_reference(x1, 4096, True, None))
+    k11 = dict(ms=gms(lambda: hw_probe._step_probe(x1, 4096, True, None)),
+               plain_ms=gms(lambda: hw_probe._step_probe_reference(
+                   x1, 4096, True, None)),
+               bound=bound(4096 * 4096 + 4096, 0, INT8_OPS_S))
+    D128, BLK2 = 128, 2048
+    walk = prand(((512 << 20) // (D128 * BLK2), D128, BLK2), torch.int8)
+    xw = prand((128, D128), torch.int8)
+    k12 = {}
+    for gemm in (False, True):
+        probe_check("K12", f"int8 512 MB blk={BLK2} gemm={gemm}",
+                    hw_probe._stream_probe(xw, walk, BLK2, 1, gemm, None),
+                    hw_probe._stream_probe_reference(xw, walk, BLK2, 1, gemm, None))
+        k12[gemm] = dict(
+            ms=gms(lambda: hw_probe._stream_probe(xw, walk, BLK2, 1, gemm, None)),
+            plain_ms=gms(lambda: hw_probe._stream_probe_reference(
+                xw, walk, BLK2, 1, gemm, None)),
+            bound=bound(walk.numel() + walk.shape[0] * 4,
+                        2.0 * 128 * walk.numel() if gemm else 0, INT8_OPS_S))
+    k12[False]["lib_ms"] = gms(lambda: walk.amax())
+    del walk
+    torch.cuda.empty_cache()
+    walk = prand(((2 << 30) // (D128 * BLK2), D128, BLK2), torch.int8)
+    probe_check("K13", "int8 2 GiB depth=8", hw_probe._dma_probe(x1, walk, 8),
+                hw_probe._dma_probe_reference(x1, walk, 8))
+    k13 = dict(ms=gms(lambda: hw_probe._dma_probe(x1, walk, 8)),
+               plain_ms=gms(lambda: hw_probe._dma_probe_reference(x1, walk, 8)),
+               lib_ms=gms(lambda: walk.amax()),
+               bound=bound(walk.numel() + 4, 0, INT8_OPS_S))
+    del walk
+    torch.cuda.empty_cache()
+    TB, TN, G = 256, 2048, 2048
+    k14 = {}
+    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
+                              (torch.bfloat16, "mma", 989e12)):
+        q_, v_ = prand((TB, D128), dtype), prand((D128, TN), dtype)
+        qx = hw_probe._twisted_q(q_, torch.tensor([G - 1], device=dev), torch.float64)[0]
+        probe_check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G}",
+                    hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False, unit),
+                    hw_probe._gemm_rate_probe_reference(x1, q_, v_, G, TB, TN, False, unit),
+                    bf16_bound(qx, v_) if dtype == torch.bfloat16 else 0.0)
+        k14[f"{str(dtype).split('.')[1]} {unit}"] = dict(
+            ms=gms(lambda: hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False,
+                                                                unit)),
+            plain_ms=gms(lambda: hw_probe._gemm_rate_probe_reference(
+                x1, q_, v_, G, TB, TN, False, unit)),
+            bound=bound(q_.numel() * q_.element_size() + v_.numel() * v_.element_size() + 4,
+                        2.0 * TB * D128 * TN * G, rate))
+    del q_, v_, qx
+    phase("probe", t0, f"JAX sizes, equal to the plain versions ({time.time() - t:.1f}s); ms, "
+          f"plain ms, library ms, bound: K11 g=4096 moving {k11}; K12 int8 512 MB blk={BLK2} "
+          f"{k12[False]}, with the product {k12[True]}; K13 int8 2 GiB depth 8 {k13}; K14 "
+          f"({TB}, {TN}) g={G} {k14}")
+
+    # The probes themselves, counted, at the JAX sizes.
+    t = time.time()
+    reset_launches()
+    ceil = hw_probe.main([])
+    torch.cuda.synchronize()
+    probe_launches = {k: read_launches()[k] for k in hw_probe.LAUNCHES}
+    phase("probe", t0, f"hw_probe.main([]) {time.time() - t:.1f}s on {card}: launches "
+          f"{probe_launches}")
+    if min(probe_launches.values()) < 1:
+        raise AssertionError(f"the probes did not launch every kernel: {probe_launches}")
+    step, stream, dma, rate = (ceil[p] for p in ("pallas_step", "pallas_stream", "pallas_dma",
+                                                 "pallas_gemm"))
+    for name, value in (
+            ("per-step us, a CTA per step (None, pinned)", step["slope_us"][None, False]),
+            ("per-step us, a CTA per step (parallel, moving)", step["slope_us"]["parallel", True]),
+            ("per-step us, one CTA looping (arbitrary, pinned)",
+             step["slope_us"]["arbitrary", False]),
+            ("per-step us, one CTA looping (arbitrary, moving)",
+             step["slope_us"]["arbitrary", True]),
+            ("launch us, eager", step["launch_us"]["eager"]),
+            ("launch us, CUDA graph", step["launch_us"]["graph"]),
+            ("streaming GB/s, int8 blk=2048 fat=1 (K12, a CTA per step)",
+             stream["int8", 2048, 1, False, None]),
+            ("streaming GB/s, best K12 walk", max(v for k, v in stream.items() if not k[3])),
+            ("marginal DMA GB/s, int8 blk=2048 depth 8 (K13)", dma["int8", 2048, 8]),
+            ("marginal DMA GB/s, best K13 walk", max(dma.values())),
+            ("mma int8 TOPS at (256, 2048) (K14)", rate["int8", 256, 2048, "mma"]),
+            ("dp4a int8 TOPS at (256, 2048) (K14)", rate["int8", 256, 2048, "dp4a"]),
+            ("mma bf16 TFLOP/s at (256, 2048) (K14)", rate["bfloat16", 256, 2048, "mma"]),
+            ("best mma int8 / dp4a int8 / mma bf16 TOPS (K14)",
+             tuple(max(v for k, v in rate.items() if k[0] == dt and k[3] == u)
+                   for dt, u in (("int8", "mma"), ("int8", "dp4a"), ("bfloat16", "mma")))),
+            ("torch._int_mm 4096^3 TOPS / torch.mm bf16 4096^3 TFLOP/s",
+             (ceil["xla"]["gemm"][4096, 4096, 4096, "int8"],
+              ceil["xla"]["gemm"][4096, 4096, 4096, "bfloat16"])),
+            ("1 GiB reduce GB/s int8 / copy GB/s r+w int8",
+             (ceil["xla"]["reduce"]["int8"], ceil["xla"]["copy"]["int8"]))):
+        print(f"[ceiling] {name}: {value}", flush=True)
+
     kernels = [
         {"name": "cluster_major_accum_planes", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
@@ -1108,6 +1287,32 @@ def main() -> None:
          "launches": k10_launches, "max_abs_err": max(k10[v]["err"] for v in k10),
          "ms": lab_out["full"][0], "plain_ms": k10["full"]["plain_ms"],
          "bound_ms": k10_bound[0], "bound_by": k10_bound[1], "library_ms": None},
+        {"name": "_step_probe", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
+         "replaces": "rag_on_edge_tpu/harness/hw_probe.py:111",
+         "launches": probe_launches["K11"], "max_abs_err": probe_err["K11"], "ms": k11["ms"],
+         "plain_ms": k11["plain_ms"], "bound_ms": k11["bound"][0], "bound_by": k11["bound"][1],
+         "library_ms": None},
+        {"name": "_stream_probe", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
+         "replaces": "rag_on_edge_tpu/harness/hw_probe.py:177",
+         "launches": probe_launches["K12"], "max_abs_err": probe_err["K12"],
+         "ms": k12[False]["ms"], "plain_ms": k12[False]["plain_ms"],
+         "bound_ms": k12[False]["bound"][0], "bound_by": k12[False]["bound"][1],
+         "library_ms": k12[False]["lib_ms"]},
+        {"name": "_dma_probe", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
+         "replaces": "rag_on_edge_tpu/harness/hw_probe.py:273",
+         "launches": probe_launches["K13"], "max_abs_err": probe_err["K13"], "ms": k13["ms"],
+         "plain_ms": k13["plain_ms"], "bound_ms": k13["bound"][0], "bound_by": k13["bound"][1],
+         "library_ms": k13["lib_ms"]},
+        {"name": "_gemm_rate_probe", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
+         "replaces": "rag_on_edge_tpu/harness/hw_probe.py:351",
+         "launches": probe_launches["K14"], "max_abs_err": probe_err["K14"],
+         "ms": k14["int8 mma"]["ms"], "plain_ms": k14["int8 mma"]["plain_ms"],
+         "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
+         "library_ms": None},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,8 +18,11 @@ find:
   (``ShardedBruteForceIndex``, ``ShardedIVFIndex``): one process drives a
   list of devices, one shard each; ``make_mesh_2d`` and
   ``spatial_matmul``, the GEMM over a grid of devices.
-- ``harness`` — the spatial-GEMM benchmark (``bench_gemm``) and the
-  kernel-variant lab (``kernel_lab``, its kernel K10 in CUDA C++).
+- ``harness`` — the spatial-GEMM benchmark (``bench_gemm``), the
+  kernel-variant lab (``kernel_lab``, its kernel K10 in CUDA C++) and the
+  hardware probes (``hw_probe``, kernels K11-K14 in CUDA C++: the card's
+  per-step and launch costs, streaming and async-copy GB/s, and the
+  mma.sync and __dp4a matrix rates).
 - ``csrc``   — the kernel sources, built on first use by ``ops._build``.
 
 The port imports torch and numpy, never jax.

@@ -11,7 +11,11 @@ So this module keeps only what the harnesses measure:
   events where every device is one card, otherwise (several cards, or the
   CPU) the host clock around the calls and a synchronize of each device;
 - :func:`sync_latency_ms` — the host-timed round trip of one call and a
-  synchronize, per call.
+  synchronize, per call;
+- :func:`graph_ms` — device time per call of calls captured in one CUDA
+  graph: no host time between them, which :func:`per_call_ms` counts
+  wherever the host issues calls slower than the card runs them (small
+  kernels behind a Python wrapper).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["per_call_ms", "sync_latency_ms"]
+__all__ = ["per_call_ms", "sync_latency_ms", "graph_ms"]
 
 
 def _unique(devices) -> list[torch.device]:
@@ -77,3 +81,26 @@ def sync_latency_ms(fn, devices, samples: int, warmup: int = 2) -> np.ndarray:
         _sync(devices)
         out[i] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+def graph_ms(fn, device, calls: int, replays: int = 3) -> float:
+    """Mean device time per call, in ms, of ``calls`` ``fn()`` calls
+    captured in one CUDA graph, over ``replays`` replays after one.  Two
+    warm-up calls run first on a side stream, outside the capture (builds,
+    kernel attributes, library workspaces).  CUDA devices only."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"graph_ms times a CUDA device, not {dev}")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = per_call_ms(graph.replay, [dev], calls=replays, warmup=1) / calls
+    del graph
+    return ms

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from rag_on_edge_tpu_torch.harness import bench_gemm, kernel_lab
+from rag_on_edge_tpu_torch.harness import bench_gemm, hw_probe, kernel_lab
 from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex
 from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
@@ -702,3 +702,137 @@ def test_bench_gemm_reference_workload(dev):
     res = bench_gemm.run(128, 128, 10240, "int8", iters=10, stack=4, quiet=True)
     assert res["verified"] and res["mesh"] == "1x1" and res["kernel"] == "pallas"
     assert res["device"] == torch.cuda.get_device_name(0) and res["gflops_sustained"] > 0
+
+
+def _probe_gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _launched(key, before):
+    torch.cuda.synchronize()
+    assert hw_probe.LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize("semantics", hw_probe.SEMANTICS)
+@pytest.mark.parametrize("moving", [False, True], ids=["pinned", "moving"])
+@pytest.mark.parametrize("g", [1, 7, 300])
+def test_k11_kernel_equal_to_plain(dev, g, moving, semantics):
+    x = torch.randn((8, 128), generator=_probe_gen(dev, 51), device=dev)
+    before = hw_probe.LAUNCHES["K11"]
+    got = hw_probe._step_probe(x, g, moving, semantics)
+    _launched("K11", before)
+    assert torch.equal(got, hw_probe._step_probe_reference(x, g, moving, semantics))
+
+
+@pytest.mark.parametrize("semantics", hw_probe.SEMANTICS)
+@pytest.mark.parametrize("fat", [1, 3])
+@pytest.mark.parametrize("gemm", [False, True], ids=["max", "gemm"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_k12_kernel_equal_to_plain(dev, dtype, gemm, fat, semantics):
+    # Ragged: 9 blocks of [36, 301] (steps start off 16-byte boundaries) or,
+    # with the product, [36, 300] (column slices end mid-tile), x [100, 36].
+    blk = 300 if gemm else 301
+    gen = _probe_gen(dev, 52)
+    if dtype == torch.int8:
+        data = torch.randint(-127, 127, (9, 36, blk), generator=gen, device=dev, dtype=dtype)
+        x = torch.randint(-127, 127, (100, 36), generator=gen, device=dev, dtype=dtype)
+    else:
+        data = torch.randn((9, 36, blk), generator=gen, device=dev, dtype=dtype)
+        x = torch.randn((100, 36), generator=gen, device=dev, dtype=dtype)
+    before = hw_probe.LAUNCHES["K12"]
+    got = hw_probe._stream_probe(x, data, blk, fat, gemm, semantics)
+    _launched("K12", before)
+    want = hw_probe._stream_probe_reference(x, data, blk, fat, gemm, semantics)
+    if dtype == torch.bfloat16 and gemm:
+        last = data[-fat:].double().abs()
+        bound = 2.0 * 36 * 2.0**-24 * float(torch.matmul(x.double().abs(), last).max())
+        assert abs(float(got[0]) - float(want[0])) <= bound
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("semantics", [None, "arbitrary"])
+@pytest.mark.parametrize("gemm", [False, True], ids=["max", "gemm"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_k12_kernel_equal_to_plain_at_jax_width(dev, dtype, gemm, semantics):
+    # d = 128, blk = 2048, x [128, 128]: the probe's shapes over 8 blocks.
+    gen = _probe_gen(dev, 55)
+    if dtype == torch.int8:
+        data = torch.randint(-127, 127, (8, 128, 2048), generator=gen, device=dev, dtype=dtype)
+        x = torch.randint(-127, 127, (128, 128), generator=gen, device=dev, dtype=dtype)
+    else:
+        data = torch.randn((8, 128, 2048), generator=gen, device=dev, dtype=dtype)
+        x = torch.randn((128, 128), generator=gen, device=dev, dtype=dtype)
+    got = hw_probe._stream_probe(x, data, 2048, 4, gemm, semantics)
+    want = hw_probe._stream_probe_reference(x, data, 2048, 4, gemm, semantics)
+    if dtype == torch.bfloat16 and gemm:
+        bound = 2.0 * 128 * 2.0**-24 * float(
+            torch.matmul(x.double().abs(), data[-4:].double().abs()).max())
+        assert abs(float(got[0]) - float(want[0])) <= bound
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(11, 24, 40), (70, 128, 2048)], ids=["ragged", "18MB"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_k13_kernel_equal_to_plain(dev, dtype, shape, depth):
+    gen = _probe_gen(dev, 53)
+    data = (torch.randint(-127, 127, shape, generator=gen, device=dev, dtype=dtype)
+            if dtype == torch.int8 else torch.randn(shape, generator=gen, device=dev, dtype=dtype))
+    x = torch.zeros((8, 128), device=dev)
+    before = hw_probe.LAUNCHES["K13"]
+    got = hw_probe._dma_probe(x, data, depth)
+    _launched("K13", before)
+    assert torch.equal(got, hw_probe._dma_probe_reference(x, data, depth))
+
+
+@pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
+@pytest.mark.parametrize("g", [1, 37])
+@pytest.mark.parametrize("tb,tn,d", [(200, 300, 96), (256, 2048, 128)])
+@pytest.mark.parametrize("dtype,unit", [(torch.int8, "mma"), (torch.int8, "dp4a"),
+                                        (torch.bfloat16, "mma")])
+def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
+    gen = _probe_gen(dev, 54)
+    if dtype == torch.int8:
+        q = torch.randint(-127, 127, (tb, d), generator=gen, device=dev, dtype=dtype)
+        v = torch.randint(-127, 127, (d, tn), generator=gen, device=dev, dtype=dtype)
+    else:
+        q = torch.randn((tb, d), generator=gen, device=dev, dtype=dtype)
+        v = torch.randn((d, tn), generator=gen, device=dev, dtype=dtype)
+    x = torch.zeros((8, 128), device=dev)
+    before = hw_probe.LAUNCHES["K14"]
+    got = hw_probe._gemm_rate_probe(x, q, v, g, tb, tn, sel, unit)
+    _launched("K14", before)
+    want = hw_probe._gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        qx = hw_probe._twisted_q(q, torch.tensor([g - 1], device=dev), torch.float64)[0]
+        bound = 2.0 * d * 2.0**-24 * float((qx.abs() @ v.double().abs()).max())
+        assert abs(float(got[0]) - float(want[0])) <= bound
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((8, 128), device=dev)
+    data = torch.zeros((8, 3, 5), dtype=torch.int8, device=dev)  # 15-byte blocks
+    with pytest.raises(ValueError):
+        hw_probe._dma_probe(x, data, 1)
+    with pytest.raises(ValueError):
+        hw_probe._dma_probe(x, torch.zeros((9, 4, 4), dtype=torch.int8, device=dev), 9)
+    with pytest.raises(ValueError):  # the product wants d·elem a multiple of 4
+        hw_probe._stream_probe(torch.zeros((4, 3), dtype=torch.int8, device=dev), data, 5, 1,
+                               True, None)
+    with pytest.raises(ValueError):
+        hw_probe._gemm_rate_probe(x, torch.zeros((4, 1024), dtype=torch.int8, device=dev),
+                                  torch.zeros((1024, 8), dtype=torch.int8, device=dev), 2, 4, 8,
+                                  False)
+    with pytest.raises(ValueError):
+        hw_probe._step_probe(x[:, :64], 4, True, None)
+
+
+def test_probe_cli_runs_at_toy_sizes_on_the_card(dev, capsys):
+    res = hw_probe.probe_pallas_gemm(repeats=1, device=dev, shapes=((128, 256),), gs=(4, 8))
+    assert len(res) == 3 and all(v > 0 for v in res.values())
+    res = hw_probe.probe_pallas_step(repeats=1, device=dev, grids=(4, 16))
+    assert res["launch_us"]["graph"] > 0 and res["launch_us"]["eager"] > 0
