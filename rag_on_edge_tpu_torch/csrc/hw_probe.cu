@@ -479,26 +479,28 @@ gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
 }
 
 // K14 int8 on __dp4a: the same units and steps; thread (ty, tx) of 16 x 16
-// holds rows ty + 16 i and columns tx + 16 j (i, j < 8) of the unit, K four
-// int8 at a time from K-contiguous words (A as stored, B^T transposed
-// once), each 32-bit row padded by one word against bank conflicts.
+// holds rows ty + 16 i and columns tx + 16 j (i, j < 8) of the unit, K 16
+// int8 at a time: one 16-byte shared-memory load per row of A and per
+// column of B^T (K-contiguous words, A as stored, B transposed once) feeds
+// 4 __dp4a each.  Rows sit at a pitch of 4 words past a multiple of 4, so
+// the 16-byte loads stay aligned and free of bank conflicts.
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
                       float* __restrict__ partial, float* __restrict__ sink, int tb, int tn, int d,
                       int g, int units, int reps, int sel) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const int kw = (d + 3) / 4, pitch = kw + 1;
+  const int kw = (d + 3) / 4, kw4 = (kw + 3) & ~3, pitch = kw4 + 4;
   const int unit = blockIdx.x % units, r = blockIdx.x / units;
   const int mtiles = (tb + BM - 1) / BM;
   const int m0 = (unit % mtiles) * BM, n0 = (unit / mtiles) * BN;
-  uint32_t* as = smem;              // [128][pitch]: q rows
+  uint32_t* as = smem;               // [128][pitch]: q rows
   uint32_t* bs = smem + BM * pitch;  // [128][pitch]: v columns
-  for (int e = threadIdx.x; e < BM * kw; e += THREADS) {
-    const int w = e % kw, row = e / kw;
+  for (int e = threadIdx.x; e < BM * kw4; e += THREADS) {
+    const int w = e % kw4, row = e / kw4;
     const uint8_t* src = q + (size_t)(m0 + row) * d + 4 * w;
-    as[row * pitch + w] = m0 + row < tb ? *reinterpret_cast<const uint32_t*>(src) : 0u;
+    as[row * pitch + w] = m0 + row < tb && w < kw ? *reinterpret_cast<const uint32_t*>(src) : 0u;
   }
-  for (int e = threadIdx.x; e < BN * kw; e += THREADS) {
+  for (int e = threadIdx.x; e < BN * kw4; e += THREADS) {
     const int col = e % BN, w = e / BN;
     uint32_t x = 0;
 #pragma unroll
@@ -511,27 +513,33 @@ gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
   __syncthreads();
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
   float run = NEG_INF;
   for (int i = r; i < g; i += reps) {
-    const int trow = i % tb;
+    const int trow = i % tb - m0 - ty;  // this thread's twisted row: 16 a == trow
     int acc[8][8];
 #pragma unroll
     for (int a = 0; a < 8; ++a)
 #pragma unroll
       for (int b = 0; b < 8; ++b) acc[a][b] = 0;
-    for (int w = 0; w < kw; ++w) {
-      int av[8], bv[8];
+    for (int w = 0; w < kw4; w += 4) {
+      uint4 bv[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        bv[b] = *reinterpret_cast<const uint4*>(bs + (tx + 16 * b) * pitch + w);
 #pragma unroll
       for (int a = 0; a < 8; ++a) {
-        const int row = ty + 16 * a;
-        av[a] = m0 + row == trow ? 0x01010101 : (int)as[row * pitch + w];
+        const uint4 x = 16 * a == trow ? ones
+                                       : *reinterpret_cast<const uint4*>(
+                                             as + (ty + 16 * a) * pitch + w);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          int c = __dp4a((int)x.x, (int)bv[b].x, acc[a][b]);
+          c = __dp4a((int)x.y, (int)bv[b].y, c);
+          c = __dp4a((int)x.z, (int)bv[b].z, c);
+          acc[a][b] = __dp4a((int)x.w, (int)bv[b].w, c);
+        }
       }
-#pragma unroll
-      for (int b = 0; b < 8; ++b) bv[b] = (int)bs[(tx + 16 * b) * pitch + w];
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = __dp4a(av[a], bv[b], acc[a][b]);
     }
     float mx = NEG_INF;
 #pragma unroll
@@ -785,7 +793,7 @@ extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* partial, v
   if (smem_err) return smem_err;
   if (dp4a) {
     if (bf16) return (int)cudaErrorInvalidValue;
-    const int smem = 2 * BM * ((d + 3) / 4 + 1) * 4;
+    const int smem = 2 * BM * ((((d + 3) / 4 + 3) & ~3) + 4) * 4;
     return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, partial, sink, out, tb, tn, d, g,
                        reps, sel, st);
   }

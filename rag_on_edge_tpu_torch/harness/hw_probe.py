@@ -316,7 +316,8 @@ def _twisted_q(q, steps, acc):
     tb = q.shape[0]
     if q.dtype == torch.int8:
         qx = q.to(acc).expand(len(steps), *q.shape).clone()
-        qx[torch.arange(len(steps), device=q.device), steps % tb] = 1
+        one = torch.ones((), dtype=acc, device=q.device)  # on the device: graph-capturable
+        qx[torch.arange(len(steps), device=q.device), steps % tb] = one
         return qx
     scale = (1 + steps).to(torch.float32).to(torch.bfloat16)
     return (q[None] * scale[:, None, None]).to(acc)
