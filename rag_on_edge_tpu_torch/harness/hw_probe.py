@@ -29,7 +29,7 @@ size keywords); their defaults are the JAX sizes.  On the card a time is
 device time from :func:`timing.graph_ms` (the calls captured in one CUDA
 graph, so that the wrapper's host time between calls does not hide the
 small probes' device time), not the JAX version's chained throughput:
-``timing``'s docstring says why the JAX drivers' per-call input
+``timing``'s docstring says why the JAX probes' per-call input
 perturbation is not needed; on the CPU it is the host clock.
 
 Usage (on the card)::
@@ -88,20 +88,14 @@ def _kernel(name: str, nptr: int, nint: int, longlong: bool = False):
 
 
 def _launch(key: str, name: str, dev: torch.device, fn, *args) -> None:
+    """Call C entry ``fn`` on ``dev``'s current stream (tensors pass as
+    their data pointers), raise on a refused launch, count it."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[key] += 1
-
-
-def _ptr(x: torch.Tensor) -> int:
-    return x.data_ptr()
-
-
-def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``x``, or a copy of it whose storage starts on an ``nbytes`` boundary."""
-    return x if x.data_ptr() % nbytes == 0 else x.clone()
 
 
 def _check_semantics(semantics) -> None:
@@ -151,10 +145,10 @@ def _step_probe(x, g, moving, semantics):
     if dev.type == "cpu":
         return _step_probe_reference(x, g, moving, semantics)
     _build.check_inputs("K11", dev, [inp])
-    inp = _aligned(inp, 16)
+    inp = _build.aligned(inp, 16)
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
     fn = _kernel("hw_step_probe", 2, 3)
-    _launch("K11", "hw_step_probe", dev, fn, _ptr(inp), _ptr(out), g, int(moving),
+    _launch("K11", "hw_step_probe", dev, fn, inp, out, g, int(moving),
             int(semantics == "arbitrary"))
     return out.reshape(-1)[:1]
 
@@ -229,10 +223,10 @@ def _stream_probe(x, data, blk, fat, gemm, semantics):
             raise ValueError(f"the CUDA K12 product takes x rows <= 128, d·{es} and "
                              f"blk·{es} multiples of 4 and d·{es} <= {_MAX_KBYTES}; got "
                              f"m={m}, d={d}, blk={blk}")
-        x, data = _aligned(x, 4), _aligned(data, 4)
+        x, data = _build.aligned(x, 4), _build.aligned(data, 4)
     steps = torch.empty(g, dtype=torch.float32, device=dev)
     fn = _kernel("hw_stream_probe", 3, 8)
-    _launch("K12", "hw_stream_probe", dev, fn, _ptr(x), _ptr(data), _ptr(steps), m, d, blk,
+    _launch("K12", "hw_stream_probe", dev, fn, x, data, steps, m, d, blk,
             fat, g, int(gemm), int(semantics == "arbitrary"), int(data.dtype == torch.bfloat16))
     return steps[g - 1:]
 
@@ -280,11 +274,11 @@ def _dma_probe(x, data, depth):
     if depth > _MAX_DEPTH or block_bytes % 16:
         raise ValueError(f"the CUDA K13 takes depth <= {_MAX_DEPTH} and blocks of a multiple "
                          f"of 16 bytes; got depth={depth}, {block_bytes} bytes")
-    data = _aligned(data, 16)
+    data = _build.aligned(data, 16)
     partial = torch.empty(_sms(dev), dtype=torch.float32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fn = _kernel("hw_dma_probe", 3, 3, longlong=True)
-    _launch("K13", "hw_dma_probe", dev, fn, _ptr(data), _ptr(partial), _ptr(out),
+    _launch("K13", "hw_dma_probe", dev, fn, data, partial, out,
             n * block_bytes, depth, int(data.dtype == torch.bfloat16))
     return out + x.sum() * 0
 
@@ -360,15 +354,15 @@ def _gemm_rate_probe(x, q, v, g, tb, tn, sel, unit="mma"):
     if (d * es) % 4 or d * es > _MAX_KBYTES:
         raise ValueError(f"the CUDA K14 takes d·{es} a multiple of 4 and <= {_MAX_KBYTES}; "
                          f"got d={d}")
-    q, v = _aligned(q, 4), _aligned(v, 4)
+    q, v = _build.aligned(q, 4), _build.aligned(v, 4)
     units = -(-tb // 128) * -(-tn // 128)
     reps = max(1, 2 * _sms(dev) // units)
     partial = torch.empty(units, dtype=torch.float32, device=dev)
     sink = torch.empty(units * reps, dtype=torch.float32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fn = _kernel("hw_gemm_rate_probe", 5, 8)
-    _launch("K14", "hw_gemm_rate_probe", dev, fn, _ptr(q), _ptr(v), _ptr(partial), _ptr(sink),
-            _ptr(out), tb, tn, d, g, reps, int(bool(sel)), int(q.dtype == torch.bfloat16),
+    _launch("K14", "hw_gemm_rate_probe", dev, fn, q, v, partial, sink,
+            out, tb, tn, d, g, reps, int(bool(sel)), int(q.dtype == torch.bfloat16),
             int(unit == "dp4a"))
     return out + x.sum() * 0
 

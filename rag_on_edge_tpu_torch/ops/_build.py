@@ -11,7 +11,8 @@ minutes.
 
 :func:`check_inputs` is the one rule for which inputs a kernel wrapper
 refuses before it launches; each wrapper checks its kernel's own shape
-limits beside the call.
+limits beside the call, and :func:`aligned` gives a kernel that loads
+wide words a base pointer it can take.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library", "check_inputs"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library", "check_inputs", "aligned"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
@@ -95,3 +96,9 @@ def check_inputs(name: str, dev, tensors, refuse_float: bool = False) -> None:
             raise ValueError(f"all {name} inputs must be on one device")
         if not x.is_contiguous():
             raise ValueError(f"{name} inputs must be contiguous")
+
+
+def aligned(x, nbytes: int):
+    """``x``, or a copy of it whose storage starts on an ``nbytes`` boundary
+    (a view into a larger tensor may start anywhere)."""
+    return x if x.data_ptr() % nbytes == 0 else x.clone()

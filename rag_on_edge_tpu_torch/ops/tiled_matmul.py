@@ -81,12 +81,6 @@ def _kernel(name: str):
     return _FNS[name]
 
 
-def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``x``, or a copy of it whose storage starts on an ``nbytes`` boundary
-    (a view into a larger tensor may start anywhere)."""
-    return x if x.data_ptr() % nbytes == 0 else x.clone()
-
-
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
                  bk: int = 512) -> torch.Tensor:
     """K8 with the JAX signature → C [M, N] int32 (int8 inputs) or f32.
@@ -119,7 +113,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
             b = F.pad(b, (0, 0, 0, kpad))
         if npad:
             b = F.pad(b, (0, npad))
-        a, b = _aligned(a, 16), _aligned(b, 4)
+        a, b = _build.aligned(a, 16), _build.aligned(b, 4)
         fn = _kernel("i8" if a.dtype == torch.int8 else "bf16")
         args = (a, b, m, n, k + kpad, n + npad)
     with torch.cuda.device(dev):

@@ -9,7 +9,7 @@ exact (int8 products are integers below 2**24, maxima of bf16 values are
 bf16 values) except the bf16 products of K12 and K14, which differ by the
 order of two fp32 sums of K terms: within 2·K·2**-24·max(|A| @ |B|) (the
 max of two matrices moves by at most their largest entry difference).
-The bf16 twist of K14 is bit-equal.  Then each ``probe_*`` driver runs
+The bf16 twist of K14 is bit-equal.  Then each ``probe_*`` function runs
 once at toy size on ``device="cpu"`` and must print its rows.
 """
 
@@ -152,7 +152,7 @@ def _rows(out, head):
     return lines[1:]
 
 
-def test_probe_drivers_print_their_rows_on_cpu(capsys):
+def test_probe_functions_print_their_rows_on_cpu(capsys):
     res = thp.probe_xla(repeats=1, device="cpu", nbytes=1 << 16,
                         gemms=((32, 64, 64, torch.int8), (32, 64, 64, torch.bfloat16)))
     rows = _rows(capsys.readouterr().out, "ceilings")
