@@ -94,7 +94,11 @@ script exits non-zero without a result line:
              size each (K11 g=4096 moving; K12 the int8 512 MB walk at
              blk=2048 with and without the product; K13 the int8 2 GiB walk
              at depth 8; K14 (256, 2048) at g=2048 in int8 on mma.sync and
-             on __dp4a, and in bf16), each timed beside its plain version
+             on __dp4a, and in bf16), K12 and K14 in their value and in
+             every step's max (K12 over walks with a planted max in every
+             step), K13 with one value planted at a time across the walk
+             (also in bf16 where its ring wraps, and past the walk), each
+             timed beside its plain version
              and, for K12 and K13, ``data.amax()``; then, counters reset
              just before and read just after, the five probes at the JAX
              sizes through ``hw_probe.main([])``, and the ceilings they
@@ -1071,49 +1075,120 @@ def main() -> None:
         return 2.0 * a_.shape[-1] * 2.0**-24 * float(
             torch.matmul(a_.double().abs(), b_.double().abs()).max())
 
+    def k12_bf16_tol(x_, data_, fat_):
+        """Each step's bf16 bound: 2·d·2**-24·max(|x| @ |tile|) over its
+        fat tiles."""
+        nb, d_, blk_ = data_.shape
+        prod = torch.matmul(x_.double().abs(),
+                            data_.double().abs().reshape(nb // fat_, fat_, d_, blk_))
+        return 2.0 * d_ * 2.0**-24 * prod.amax(dim=(1, 2, 3))
+
+    def k14_bf16_tol(q_, v_, g_):
+        """Each step's bf16 bound: 2·d·2**-24·max(|twisted q| @ |v|)."""
+        va, out = v_.double().abs(), []
+        for s0 in range(0, g_, 64):
+            ids = torch.arange(s0, min(g_, s0 + 64), device=dev)
+            qx_ = hw_probe._twisted_q(q_, ids, torch.float64)
+            out.append(torch.matmul(qx_.abs(), va).amax(dim=(1, 2)))
+        return 2.0 * q_.shape[1] * 2.0**-24 * torch.cat(out)
+
     probe_err = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
 
     def probe_check(key, name, got, want, tol=0.0):
+        """``got`` against ``want`` within ``tol`` (a number, or one per
+        element); NaN, which the per-step views leave where no CTA wrote,
+        fails."""
         torch.cuda.synchronize()
-        err = float((got.double() - want.double()).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"{key} {name} differs from its plain version: |err| {err} > "
-                                 f"{tol}")
-        probe_err[key] = max(probe_err[key], err)
+        diff = (got.double() - want.double()).abs()
+        if got.shape != want.shape or not bool((diff <= tol).all()):
+            raise AssertionError(f"{key} {name} differs from its plain version: |err| "
+                                 f"{float(diff.max())}, tolerance "
+                                 f"{float(torch.as_tensor(tol).max())}")
+        probe_err[key] = max(probe_err[key], float(diff.max()))
+
+    def k12_checks(name, x_, data_, blk_, fat_, gemm, tops, sems):
+        """K12's value and its whole per-step buffer against the plain
+        version; without the product, also against the planted maxima."""
+        want = hw_probe._stream_steps_reference(x_, data_, fat_, gemm)
+        if not gemm and not torch.equal(want, tops):
+            raise AssertionError(f"K12 {name}: the plain version missed the planted maxima")
+        tol = (k12_bf16_tol(x_, data_, fat_) if gemm and data_.dtype == torch.bfloat16
+               else torch.zeros_like(want, dtype=torch.float64))
+        for sem in sems:
+            probe_check("K12", f"{name} gemm={gemm} {sem} steps",
+                        hw_probe._stream_steps(x_, data_, blk_, fat_, gemm, sem), want, tol)
+            probe_check("K12", f"{name} gemm={gemm} {sem}",
+                        hw_probe._stream_probe(x_, data_, blk_, fat_, gemm, sem),
+                        hw_probe._stream_probe_reference(x_, data_, blk_, fat_, gemm, sem),
+                        tol[-1:])
+
+    def k13_trials(name, data_, depth, plant, decoy, n):
+        """K13 against its plain version with one value planted at a time
+        above the bulk: ``plant`` at the first and the last walked element
+        and at ``n`` seeded random walked ones, so that a walk or a ring
+        that skips, drops or reuses a stage misses it; first, where blocks
+        lie past the walk, ``decoy`` there alone, which a walk that reads
+        past its end would return."""
+        flat = data_.view(-1)
+        walked = hw_probe._dma_blocks(data_, depth) * data_[0].numel()
+        trials = [(0, plant), (walked - 1, plant)] + [
+            (p_, plant) for p_ in torch.randint(walked, (n,), generator=pgen,
+                                                device=dev).tolist()]
+        if walked < flat.numel():
+            trials.insert(0, (walked + int(torch.randint(flat.numel() - walked, (1,),
+                                                         generator=pgen, device=dev)), decoy))
+        for pos, val in trials:
+            old = flat[pos].clone()
+            flat[pos] = val
+            want = hw_probe._dma_probe_reference(x1, data_, depth)
+            if (float(want) == val) != (pos < walked):
+                raise AssertionError(f"K13 {name}: the bulk reaches the planted {val}")
+            probe_check("K13", f"{name} depth={depth} {val} at {pos}",
+                        hw_probe._dma_probe(x1, data_, depth), want)
+            flat[pos] = old
+        return len(trials)
 
     t = time.time()
     xs = prand((8, 128), torch.float32)
+    x1 = torch.ones((8, 128), dtype=torch.float32, device=dev)
     for g_ in (3, 300):
         for moving in (False, True):
             for sem in hw_probe.SEMANTICS:
                 probe_check("K11", f"g={g_} moving={moving} {sem}",
                             hw_probe._step_probe(xs, g_, moving, sem),
                             hw_probe._step_probe_reference(xs, g_, moving, sem))
-    for dtype in (torch.int8, torch.bfloat16):
+    ntrials = 0
+    for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
         xr = prand((100, 36), dtype)
         for gemm, blk_ in ((False, 301), (True, 300)):
-            data_ = prand((9, 36, blk_), dtype)
-            tol = bf16_bound(xr, data_[-3:]) if gemm and dtype == torch.bfloat16 else 0.0
-            for sem in hw_probe.SEMANTICS:
-                probe_check("K12", f"{dtype} [9,36,{blk_}] fat=3 gemm={gemm} {sem}",
-                            hw_probe._stream_probe(xr, data_, blk_, 3, gemm, sem),
-                            hw_probe._stream_probe_reference(xr, data_, blk_, 3, gemm, sem), tol)
+            data_, tops = hw_probe._planted_walk(9, 36, blk_, 3, dtype, pgen)
+            k12_checks(f"{dtype} [9,36,{blk_}] fat=3", xr, data_, blk_, 3, gemm, tops,
+                       hw_probe.SEMANTICS)
         data_ = prand((11, 24, 40), dtype)
         for depth in (3, 8):
-            probe_check("K13", f"{dtype} [11,24,40] depth={depth}",
-                        hw_probe._dma_probe(xs, data_, depth),
-                        hw_probe._dma_probe_reference(xs, data_, depth))
+            ntrials += k13_trials(f"{dtype} [11,24,40]", data_, depth, plant, decoy, 4)
+    # bf16 over 36 MB: ~17 stages a CTA, so the ring wraps at depth 3 and 8,
+    # and 70 blocks leave blocks past the walk at both.
+    data_ = prand((70, 128, 2048), torch.bfloat16)
+    for depth in (3, 8):
+        ntrials += k13_trials("bf16 [70,128,2048]", data_, depth, 64.0, 128.0, 16)
     for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
         q_, v_ = prand((200, 96), dtype), prand((96, 300), dtype)
-        qx = hw_probe._twisted_q(q_, torch.tensor([36], device=dev), torch.float64)[0]
+        tol = (k14_bf16_tol(q_, v_, 37) if dtype == torch.bfloat16
+               else torch.zeros(37, dtype=torch.float64, device=dev))
+        probe_check("K14", f"{dtype} {unit} [200,96]x[96,300] g=37 steps",
+                    hw_probe._gemm_rate_steps(q_, v_, 37, 200, 300, True, unit),
+                    hw_probe._gemm_rate_steps_reference(q_, v_, 37, 200, 300, True, unit), tol)
         probe_check("K14", f"{dtype} {unit} [200,96]x[96,300] g=37",
                     hw_probe._gemm_rate_probe(xs, q_, v_, 37, 200, 300, True, unit),
                     hw_probe._gemm_rate_probe_reference(xs, q_, v_, 37, 200, 300, True, unit),
-                    bf16_bound(qx, v_) if dtype == torch.bfloat16 else 0.0)
-    del data_, q_, v_, qx, xr
+                    tol[-1:])
+    del data_, q_, v_, xr
     phase("probe", t0, f"K11-K14 equal to their plain versions at ragged shapes (K11 g 3 and "
-          f"300; K12 [9,36,301] and [9,36,300] x [100,36], fat 3; K13 [11,24,40] at depth 3 "
-          f"and 8; K14 [200,96] x [96,300] g=37, sel), max |err| {probe_err} "
+          f"300; K12 [9,36,301] and [9,36,300] x [100,36], fat 3, planted step maxima, "
+          f"value and every step; K13 [11,24,40] at depth 3 and 8 and bf16 [70,128,2048] "
+          f"(the ring wraps) at depth 3 and 8, {ntrials} planted trials; K14 [200,96] x "
+          f"[96,300] g=37, sel, value and every step), max |err| {probe_err} "
           f"({time.time() - t:.1f}s)")
 
     # One JAX size each, timed beside the plain version (and data.amax()):
@@ -1124,7 +1199,6 @@ def main() -> None:
     def gms(fn):
         return timing.graph_ms(fn, dev, calls=REPS)
 
-    x1 = torch.ones((8, 128), dtype=torch.float32, device=dev)
     probe_check("K11", "g=4096 moving", hw_probe._step_probe(x1, 4096, True, None),
                 hw_probe._step_probe_reference(x1, 4096, True, None))
     k11 = dict(ms=gms(lambda: hw_probe._step_probe(x1, 4096, True, None)),
@@ -1132,13 +1206,13 @@ def main() -> None:
                    x1, 4096, True, None)),
                bound=bound(4096 * 4096 + 4096, 0, INT8_OPS_S))
     D128, BLK2 = 128, 2048
-    walk = prand(((512 << 20) // (D128 * BLK2), D128, BLK2), torch.int8)
+    walk, tops = hw_probe._planted_walk((512 << 20) // (D128 * BLK2), D128, BLK2, 1, torch.int8,
+                                        pgen)
     xw = prand((128, D128), torch.int8)
     k12 = {}
     for gemm in (False, True):
-        probe_check("K12", f"int8 512 MB blk={BLK2} gemm={gemm}",
-                    hw_probe._stream_probe(xw, walk, BLK2, 1, gemm, None),
-                    hw_probe._stream_probe_reference(xw, walk, BLK2, 1, gemm, None))
+        k12_checks(f"int8 512 MB blk={BLK2}", xw, walk, BLK2, 1, gemm, tops,
+                   (None, "arbitrary"))
         k12[gemm] = dict(
             ms=gms(lambda: hw_probe._stream_probe(xw, walk, BLK2, 1, gemm, None)),
             plain_ms=gms(lambda: hw_probe._stream_probe_reference(
@@ -1146,11 +1220,10 @@ def main() -> None:
             bound=bound(walk.numel() + walk.shape[0] * 4,
                         2.0 * 128 * walk.numel() if gemm else 0, INT8_OPS_S))
     k12[False]["lib_ms"] = gms(lambda: walk.amax())
-    del walk
+    del walk, tops
     torch.cuda.empty_cache()
     walk = prand(((2 << 30) // (D128 * BLK2), D128, BLK2), torch.int8)
-    probe_check("K13", "int8 2 GiB depth=8", hw_probe._dma_probe(x1, walk, 8),
-                hw_probe._dma_probe_reference(x1, walk, 8))
+    k13_n = k13_trials("int8 2 GiB", walk, 8, 127, 127, 16)
     k13 = dict(ms=gms(lambda: hw_probe._dma_probe(x1, walk, 8)),
                plain_ms=gms(lambda: hw_probe._dma_probe_reference(x1, walk, 8)),
                lib_ms=gms(lambda: walk.amax()),
@@ -1162,20 +1235,26 @@ def main() -> None:
     for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
                               (torch.bfloat16, "mma", 989e12)):
         q_, v_ = prand((TB, D128), dtype), prand((D128, TN), dtype)
-        qx = hw_probe._twisted_q(q_, torch.tensor([G - 1], device=dev), torch.float64)[0]
+        tol = (k14_bf16_tol(q_, v_, G) if dtype == torch.bfloat16
+               else torch.zeros(G, dtype=torch.float64, device=dev))
+        probe_check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G} steps",
+                    hw_probe._gemm_rate_steps(q_, v_, G, TB, TN, False, unit),
+                    hw_probe._gemm_rate_steps_reference(q_, v_, G, TB, TN, False, unit), tol)
         probe_check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G}",
                     hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False, unit),
                     hw_probe._gemm_rate_probe_reference(x1, q_, v_, G, TB, TN, False, unit),
-                    bf16_bound(qx, v_) if dtype == torch.bfloat16 else 0.0)
+                    tol[-1:])
+        units = (TB // 128) * (TN // 128)
         k14[f"{str(dtype).split('.')[1]} {unit}"] = dict(
             ms=gms(lambda: hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False,
                                                                 unit)),
             plain_ms=gms(lambda: hw_probe._gemm_rate_probe_reference(
                 x1, q_, v_, G, TB, TN, False, unit)),
-            bound=bound(q_.numel() * q_.element_size() + v_.numel() * v_.element_size() + 4,
-                        2.0 * TB * D128 * TN * G, rate))
-    del q_, v_, qx
-    phase("probe", t0, f"JAX sizes, equal to the plain versions ({time.time() - t:.1f}s); ms, "
+            bound=bound(q_.numel() * q_.element_size() + v_.numel() * v_.element_size()
+                        + G * units * 8 * 4 + 4, 2.0 * TB * D128 * TN * G, rate))
+    del q_, v_
+    phase("probe", t0, f"JAX sizes, equal to the plain versions, value and every step (K12 "
+          f"planted step maxima; K13 {k13_n} planted trials) ({time.time() - t:.1f}s); ms, "
           f"plain ms, library ms, bound: K11 g=4096 moving {k11}; K12 int8 512 MB blk={BLK2} "
           f"{k12[False]}, with the product {k12[True]}; K13 int8 2 GiB depth 8 {k13}; K14 "
           f"({TB}, {TN}) g={G} {k14}")

@@ -17,7 +17,8 @@
 // last step's write is what lands); K13 the max over the walked blocks;
 // K14 the max of the last step's product.  Every step's work is consumed
 // all the same: K11's loads are volatile, K12 writes every step's max into
-// `steps`, K14 folds every step into a per-CTA sink.
+// `steps`, K14 every step's max per unit and warp into `sink`; the checks
+// hold those buffers whole against the plain versions.
 //
 // What bounds each on the H100: K11 nothing but its fixed costs (it moves
 // 4 KB a step); K12 without the product and K13 device memory (3.35 TB/s);
@@ -43,6 +44,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int BM = 128, BN = 128;    // product unit per CTA (K12, K14)
 constexpr int TILE_WORDS = BM * KW;  // one swizzled [128][16]-word operand tile
 constexpr int STAGE = 16384;         // bytes of one K13 ring stage
@@ -53,17 +55,23 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// Max over the warp; every lane gets the result.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Max over the CTA; every thread gets the result.  Ends on a barrier, so
 // it can be called again at once.
 __device__ __forceinline__ float block_max(float v) {
-  __shared__ float red[THREADS / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __shared__ float red[WARPS];
+  v = warp_max(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float m = red[0];
 #pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, red[w]);
+  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
   __syncthreads();
   return m;
 }
@@ -421,13 +429,13 @@ stream_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ da
 // tile of q, a 128-column tile of v, whole K) in shared memory and takes
 // steps c / U, c / U + R, ...  Each step twists A (int8: row (i % tb) set to
 // 1; bf16: every element times bf16(1 + i), rounded to bf16), runs the
-// unit's product and folds its max into the CTA's sink; the CTAs of step
-// g-1 write their unit's max into partial[unit].
+// unit's product, and each warp writes its max of it to
+// sink[i][unit][warp]: every step, unit and warp once across the grid.
 template <Elem E>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
-                     float* __restrict__ partial, float* __restrict__ sink, int tb, int tn, int d,
-                     int g, int units, int reps, int sel) {
+                     float* __restrict__ sink, int tb, int tn, int d, int g, int units, int reps,
+                     int sel) {
   extern __shared__ __align__(16) uint32_t smem[];
   constexpr int ES = Mma<E>::kEs;
   const int kbytes = d * ES, nkt = (kbytes + KB - 1) / KB;
@@ -442,7 +450,6 @@ gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = m0 + (warp >> 2) * 64 + (lane >> 2);  // + mt * 16 (+ 8)
-  float run = NEG_INF;
   Acc<E> acc[4][4][4];
   for (int i = r; i < g; i += reps) {
     zero<E>(acc);
@@ -467,15 +474,9 @@ gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
       for (int kt = 0; kt < nkt; ++kt)
         mma_tile<E>(acc, as + kt * TILE_WORDS, bs + kt * TILE_WORDS, twist);
     }
-    const float mx = fold_max<E>(acc, m0, tb, n0, tn, sel != 0);
-    run = fmaxf(run, mx);
-    if (i == g - 1) {
-      const float last = block_max(mx);
-      if (threadIdx.x == 0) partial[unit] = last;
-    }
+    const float mx = warp_max(fold_max<E>(acc, m0, tb, n0, tn, sel != 0));
+    if (lane == 0) sink[((size_t)i * units + unit) * WARPS + warp] = mx;
   }
-  run = block_max(run);
-  if (threadIdx.x == 0) sink[blockIdx.x] = run;
 }
 
 // K14 int8 on __dp4a: the same units and steps; thread (ty, tx) of 16 x 16
@@ -483,11 +484,12 @@ gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
 // int8 at a time: one 16-byte shared-memory load per row of A and per
 // column of B^T (K-contiguous words, A as stored, B transposed once) feeds
 // 4 __dp4a each.  Rows sit at a pitch of 4 words past a multiple of 4, so
-// the 16-byte loads stay aligned and free of bank conflicts.
+// the 16-byte loads stay aligned and free of bank conflicts.  Each warp
+// writes its max of each step's unit to sink[i][unit][warp], as above.
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
-                      float* __restrict__ partial, float* __restrict__ sink, int tb, int tn, int d,
-                      int g, int units, int reps, int sel) {
+                      float* __restrict__ sink, int tb, int tn, int d, int g, int units, int reps,
+                      int sel) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int kw = (d + 3) / 4, kw4 = (kw + 3) & ~3, pitch = kw4 + 4;
   const int unit = blockIdx.x % units, r = blockIdx.x / units;
@@ -514,7 +516,6 @@ gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
-  float run = NEG_INF;
   for (int i = r; i < g; i += reps) {
     const int trow = i % tb - m0 - ty;  // this thread's twisted row: 16 a == trow
     int acc[8][8];
@@ -554,14 +555,10 @@ gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
       }
       mx = fmaxf(mx, rm);
     }
-    run = fmaxf(run, mx);
-    if (i == g - 1) {
-      const float last = block_max(mx);
-      if (threadIdx.x == 0) partial[unit] = last;
-    }
+    mx = warp_max(mx);
+    if ((threadIdx.x & 31) == 0)
+      sink[((size_t)i * units + unit) * WARPS + (threadIdx.x >> 5)] = mx;
   }
-  run = block_max(run);
-  if (threadIdx.x == 0) sink[blockIdx.x] = run;
 }
 
 // ------------------------------------------------------------------ K13
@@ -722,14 +719,15 @@ int launch_dma(const void* data, void* partial, void* out, long long nbytes, int
 }
 
 template <typename K>
-int launch_rate(K kernel, int smem, const void* q, const void* v, void* partial, void* sink,
-                void* out, int tb, int tn, int d, int g, int reps, int sel, cudaStream_t st) {
+int launch_rate(K kernel, int smem, const void* q, const void* v, void* sink, void* out, int tb,
+                int tn, int d, int g, int reps, int sel, cudaStream_t st) {
   const int units = ((tb + BM - 1) / BM) * ((tn + BN - 1) / BN);
-  kernel<<<units * reps, THREADS, smem, st>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(v),
-      static_cast<float*>(partial), static_cast<float*>(sink), tb, tn, d, g, units, reps, sel);
+  auto* sp = static_cast<float*>(sink);
+  kernel<<<units * reps, THREADS, smem, st>>>(static_cast<const uint8_t*>(q),
+                                              static_cast<const uint8_t*>(v), sp, tb, tn, d, g,
+                                              units, reps, sel);
   if (const cudaError_t e = cudaGetLastError()) return (int)e;
-  max_kernel<<<1, THREADS, 0, st>>>(static_cast<const float*>(partial), units,
+  max_kernel<<<1, THREADS, 0, st>>>(sp + (size_t)(g - 1) * units * WARPS, units * WARPS,
                                     static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -756,7 +754,7 @@ extern "C" int hw_step_probe(const void* in, void* out, int g, int moving, int l
 }
 
 // K12: data [g * fat, d, blk], x [m, d] (m <= 128; gemm: d * es and
-// blk * es multiples of 4, d * es <= 1024, 4-byte aligned bases);
+// blk * es multiples of 4, d * es <= 512, 4-byte aligned bases);
 // steps [g] f32.
 extern "C" int hw_stream_probe(const void* x, const void* data, void* steps, int m, int d,
                                int blk, int fat, int g, int gemm, int persistent, int bf16,
@@ -777,12 +775,14 @@ extern "C" int hw_dma_probe(const void* data, void* partial, void* out, long lon
               : launch_dma<Elem::kI8>(data, partial, out, nbytes, depth, st);
 }
 
-// K14: q [tb, d], v [d, tn] (d * es a multiple of 4, <= 1024 bytes), g >= 1
-// steps over units * reps CTAs; partial [units] and sink [units * reps]
-// f32 scratch, out [1] f32.  dp4a = 1 takes the __dp4a unit (int8 only).
-extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* partial, void* sink,
-                                  void* out, int tb, int tn, int d, int g, int reps, int sel,
-                                  int bf16, int dp4a, void* stream) {
+// K14: q [tb, d], v [d, tn] (d * es a multiple of 4, <= 512 bytes), g >= 1
+// steps over units * reps CTAs; sink [g, units, 8] f32 (each step's max per
+// unit and warp), out [1] f32 (the last step's max).  dp4a = 1 takes the
+// __dp4a unit (int8 only).
+extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* sink, void* out, int tb,
+                                  int tn, int d, int g, int reps, int sel, int bf16, int dp4a,
+                                  void* stream) {
+  if (g <= 0) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   static const int smem_err = [] {
     int e = allow_smem(gemm_rate_dp4a_kernel);
@@ -794,13 +794,13 @@ extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* partial, v
   if (dp4a) {
     if (bf16) return (int)cudaErrorInvalidValue;
     const int smem = 2 * BM * ((((d + 3) / 4 + 3) & ~3) + 4) * 4;
-    return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, partial, sink, out, tb, tn, d, g,
-                       reps, sel, st);
+    return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, sink, out, tb, tn, d, g, reps, sel,
+                       st);
   }
   const int es = bf16 ? 2 : 1;
   const int smem = 2 * ((d * es + KB - 1) / KB) * TILE_WORDS * 4;
-  return bf16 ? launch_rate(gemm_rate_mma_kernel<Elem::kBF16>, smem, q, v, partial, sink, out,
-                            tb, tn, d, g, reps, sel, st)
-              : launch_rate(gemm_rate_mma_kernel<Elem::kI8>, smem, q, v, partial, sink, out, tb,
-                            tn, d, g, reps, sel, st);
+  return bf16 ? launch_rate(gemm_rate_mma_kernel<Elem::kBF16>, smem, q, v, sink, out, tb, tn, d,
+                            g, reps, sel, st)
+              : launch_rate(gemm_rate_mma_kernel<Elem::kI8>, smem, q, v, sink, out, tb, tn, d, g,
+                            reps, sel, st);
 }

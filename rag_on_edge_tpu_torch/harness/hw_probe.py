@@ -22,8 +22,11 @@ The probes measure what the port's kernels are judged against:
 
 Each kernel function keeps the JAX name and arguments.  CPU tensors take
 its plain version (``*_reference``); CUDA tensors launch
-``csrc/hw_probe.cu`` or raise; there is no fallback.  Launches count in
-``LAUNCHES``, keyed K11-K14.  The probes run on ``device="cuda"`` unless
+``csrc/hw_probe.cu`` or raise; there is no fallback.  ``_stream_steps``
+and ``_gemm_rate_steps`` return K12's and K14's per-step maxima, which the
+checks hold whole against the plain versions.  Launches on the device
+count in ``LAUNCHES``, keyed K11-K14: each kernel a call runs, and each
+replay of a CUDA graph the probes time.  The probes run on ``device="cuda"`` unless
 the caller passes ``device="cpu"`` (the tests, at toy sizes through the
 size keywords); their defaults are the JAX sizes.  On the card a time is
 device time from :func:`timing.graph_ms` (the calls captured in one CUDA
@@ -51,10 +54,14 @@ from rag_on_edge_tpu_torch.ops import _build
 __all__ = ["LAUNCHES", "PROBES", "SEMANTICS", "UNITS", "probe_xla", "probe_pallas_step",
            "probe_pallas_stream", "probe_pallas_dma", "probe_pallas_gemm", "main"]
 
-#: Launches of the CUDA kernels K11-K14 in this process; the plain versions
-#: do not count.  A run that must show it went through a kernel sets its
-#: entry to 0 before and reads it after.
+#: Kernel launches on the device of K11-K14 in this process (K13 and K14
+#: run two kernels a call, the walk and a final max); the plain versions do
+#: not count.  A call under CUDA graph capture records its kernels in
+#: ``_CAPTURED`` instead, and :func:`_graph_ms` adds them once for each
+#: replay.  A run that must show it went through a kernel sets its entry to
+#: 0 before and reads it after.
 LAUNCHES = {"K11": 0, "K12": 0, "K13": 0, "K14": 0}
+_CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 SEMANTICS = (None, "arbitrary", "parallel")
 UNITS = ("mma", "dp4a")
@@ -62,12 +69,17 @@ UNITS = ("mma", "dp4a")
 _DTYPES = (torch.int8, torch.bfloat16)
 _NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16", torch.float32: "float32"}
 # K12's product and K14 hold 64-byte K tiles of both operands in shared
-# memory: at most 512 bytes of K (8 tiles).
+# memory: at most 512 bytes of K (8 tiles).  The plain versions take the
+# same limit, under which an int8 product is exact in float32
+# (|sum| <= 512·128·128 = 2**23).
 _MAX_KBYTES = 512
 # K13's ring: at most 8 stages of 16 KB per CTA.
 _MAX_DEPTH = 8
 # Elements of one chunk of a plain version's score tensor.
 _CHUNK = 1 << 26
+
+# graph_ms replays its graph this many times, plus one warm-up replay.
+_REPLAYS = 3
 
 _FNS: dict[str, object] = {}
 
@@ -87,15 +99,27 @@ def _kernel(name: str, nptr: int, nint: int, longlong: bool = False):
     return _FNS[name]
 
 
-def _launch(key: str, name: str, dev: torch.device, fn, *args) -> None:
+def _launch(key: str, name: str, dev: torch.device, fn, *args, kernels: int = 1) -> None:
     """Call C entry ``fn`` on ``dev``'s current stream (tensors pass as
-    their data pointers), raise on a refused launch, count it."""
+    their data pointers), raise on a refused launch, count its ``kernels``
+    (as captured, under CUDA graph capture)."""
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[key] += 1
+    (_CAPTURED if capturing else LAUNCHES)[key] += kernels
+
+
+def _graph_ms(fn, dev, calls: int) -> float:
+    """:func:`timing.graph_ms`, with the kernels its graph launches counted:
+    those ``calls`` recorded under capture, once for each replay."""
+    before = dict(_CAPTURED)
+    ms = timing.graph_ms(fn, dev, calls=calls, replays=_REPLAYS)
+    for key in LAUNCHES:
+        LAUNCHES[key] += (_CAPTURED[key] - before[key]) * (_REPLAYS + 1)
+    return ms
 
 
 def _check_semantics(semantics) -> None:
@@ -103,14 +127,16 @@ def _check_semantics(semantics) -> None:
         raise ValueError(f"unknown semantics {semantics!r}; one of {SEMANTICS}")
 
 
-def _exact_dtype(d: int) -> torch.dtype:
-    """The float type in which an int8 product over d terms is exact:
-    |sum| <= d·128·128 fits fp32's 24 bits for d <= 1024."""
-    return torch.float32 if d <= 1024 else torch.float64
-
-
 def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _empty(n, device):
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def _nans(n, device):
+    return torch.full((n,), float("nan"), dtype=torch.float32, device=device)
 
 
 # --------------------------------------------------------- K11: step probe
@@ -169,6 +195,8 @@ def _stream_check(x, data, blk, fat, gemm):
         raise ValueError("the walk has no step")
     if gemm and (x.dim() != 2 or x.shape[1] != d or x.dtype != data.dtype):
         raise ValueError(f"expected x [m, {d}] {data.dtype}, got {tuple(x.shape)} {x.dtype}")
+    if gemm and d * data.element_size() > _MAX_KBYTES:
+        raise ValueError(f"the product takes d·{data.element_size()} <= {_MAX_KBYTES}; got d={d}")
     return nblocks // fat
 
 
@@ -180,13 +208,12 @@ def _stream_steps_reference(x, data, fat, gemm):
     steps = data.reshape(g, fat * d * blk) if not gemm else data.reshape(g, fat, d, blk)
     if not gemm:
         return steps.amax(dim=1).to(torch.float32)
-    acc = _exact_dtype(d) if data.dtype == torch.int8 else torch.float32
-    xa = x.to(acc)
+    xa = x.to(torch.float32)
     out = []
     chunk = max(1, _CHUNK // (fat * x.shape[0] * blk))
     for s in range(0, g, chunk):
-        out.append(torch.matmul(xa, steps[s:s + chunk].to(acc)).amax(dim=(1, 2, 3)))
-    return torch.cat(out).to(torch.float32)
+        out.append(torch.matmul(xa, steps[s:s + chunk].to(torch.float32)).amax(dim=(1, 2, 3)))
+    return torch.cat(out)
 
 
 def _stream_probe_reference(x, data, blk, fat, gemm, semantics):
@@ -199,6 +226,29 @@ def _stream_probe_reference(x, data, blk, fat, gemm, semantics):
     return _stream_steps_reference(x, data, fat, gemm)[-1:]
 
 
+def _stream_launch(x, data, blk, fat, gemm, semantics, fill):
+    """K12's kernel on the card → [g] f32, each step's max, written into a
+    buffer made by ``fill`` (``torch.empty``, or a NaN fill where a check
+    must see a step the kernel skipped)."""
+    g = _stream_check(x, data, blk, fat, gemm)
+    dev = data.device
+    _build.check_inputs("K12", dev, [x, data])
+    _, d, _ = data.shape
+    es = data.element_size()
+    m = 0
+    if gemm:
+        m = x.shape[0]
+        if m > 128 or (d * es) % 4 or (blk * es) % 4:
+            raise ValueError(f"the CUDA K12 product takes x rows <= 128 and d·{es} and "
+                             f"blk·{es} multiples of 4; got m={m}, d={d}, blk={blk}")
+        x, data = _build.aligned(x, 4), _build.aligned(data, 4)
+    steps = fill(g, device=dev)
+    fn = _kernel("hw_stream_probe", 3, 8)
+    _launch("K12", "hw_stream_probe", dev, fn, x, data, steps, m, d, blk,
+            fat, g, int(gemm), int(semantics == "arbitrary"), int(data.dtype == torch.bfloat16))
+    return steps
+
+
 def _stream_probe(x, data, blk, fat, gemm, semantics):
     """K12 with the JAX signature → [1] f32; see
     :func:`_stream_probe_reference`.  ``data`` [nblocks, d, blk] int8 or
@@ -207,28 +257,21 @@ def _stream_probe(x, data, blk, fat, gemm, semantics):
     CTA per step, "arbitrary" one CTA per SM walking a contiguous run of
     steps; each step's max is written, and the last one returned."""
     _check_semantics(semantics)
-    g = _stream_check(x, data, blk, fat, gemm)
-    dev = data.device
-    if dev.type == "cpu":
-        if x.device != dev:
+    if data.device.type == "cpu":
+        if x.device != data.device:
             raise ValueError("all K12 inputs must be on one device")
         return _stream_probe_reference(x, data, blk, fat, gemm, semantics)
-    _build.check_inputs("K12", dev, [x, data])
-    _, d, _ = data.shape
-    es = data.element_size()
-    m = 0
-    if gemm:
-        m = x.shape[0]
-        if m > 128 or (d * es) % 4 or (blk * es) % 4 or d * es > _MAX_KBYTES:
-            raise ValueError(f"the CUDA K12 product takes x rows <= 128, d·{es} and "
-                             f"blk·{es} multiples of 4 and d·{es} <= {_MAX_KBYTES}; got "
-                             f"m={m}, d={d}, blk={blk}")
-        x, data = _build.aligned(x, 4), _build.aligned(data, 4)
-    steps = torch.empty(g, dtype=torch.float32, device=dev)
-    fn = _kernel("hw_stream_probe", 3, 8)
-    _launch("K12", "hw_stream_probe", dev, fn, x, data, steps, m, d, blk,
-            fat, g, int(gemm), int(semantics == "arbitrary"), int(data.dtype == torch.bfloat16))
-    return steps[g - 1:]
+    return _stream_launch(x, data, blk, fat, gemm, semantics, _empty)[-1:]
+
+
+def _stream_steps(x, data, blk, fat, gemm, semantics):
+    """Every step's max → [g] f32: on the card the kernel's whole ``steps``
+    buffer, NaN where no CTA wrote; on the CPU the plain version."""
+    _check_semantics(semantics)
+    if data.device.type == "cpu":
+        _stream_check(x, data, blk, fat, gemm)
+        return _stream_steps_reference(x, data, fat, gemm)
+    return _stream_launch(x, data, blk, fat, gemm, semantics, _nans)
 
 
 # ---------------------------------------------------------- K13: DMA probe
@@ -279,7 +322,7 @@ def _dma_probe(x, data, depth):
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fn = _kernel("hw_dma_probe", 3, 3, longlong=True)
     _launch("K13", "hw_dma_probe", dev, fn, data, partial, out,
-            n * block_bytes, depth, int(data.dtype == torch.bfloat16))
+            n * block_bytes, depth, int(data.dtype == torch.bfloat16), kernels=2 if n else 1)
     return out + x.sum() * 0
 
 
@@ -299,6 +342,8 @@ def _gemm_rate_check(q, v, g, tb, tn, unit):
         raise ValueError("the dp4a unit takes int8")
     if q.shape[0] < tb or v.shape[1] < tn or g < 1:
         raise ValueError(f"need q rows >= tb={tb}, v columns >= tn={tn} and g >= 1")
+    if q.shape[1] * q.element_size() > _MAX_KBYTES:
+        raise ValueError(f"K14 takes d·{q.element_size()} <= {_MAX_KBYTES}; got d={q.shape[1]}")
     # The JAX BlockSpecs take the first [tb, d] of q and [d, tn] of v.
     return q[:tb], v[:, :tn].contiguous()
 
@@ -317,22 +362,49 @@ def _twisted_q(q, steps, acc):
     return (q[None] * scale[:, None, None]).to(acc)
 
 
-def _gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit="mma"):
-    """Plain K14 → [1] f32: the max of the last step's product (twisted
-    q @ v, int8 → int32 exactly, bf16 → f32; ``sel`` takes the row maxima
-    first, as the JAX kernel does, and changes no value), plus
-    ``sum(x) · 0``.  Every step's product is computed, as the kernel does;
-    ``unit`` picks the card's unit and changes no value."""
+def _gemm_rate_steps_reference(q, v, g, tb, tn, sel, unit="mma"):
+    """Plain K14's every step → [g] f32: the max of each step's product
+    (twisted q @ v, int8 → int32 exactly, bf16 → f32; ``sel`` takes the row
+    maxima first, as the JAX kernel does, and changes no value; ``unit``
+    picks the card's unit and changes no value)."""
     q, v = _gemm_rate_check(q, v, g, tb, tn, unit)
-    acc = _exact_dtype(q.shape[1]) if q.dtype == torch.int8 else torch.float32
-    va = v.to(acc)
+    va = v.to(torch.float32)
     per = max(1, _CHUNK // (tb * tn))
     maxes = []
     for s in range(0, g, per):
         steps = torch.arange(s, min(g, s + per), device=q.device)
-        scores = torch.matmul(_twisted_q(q, steps, acc), va)
+        scores = torch.matmul(_twisted_q(q, steps, torch.float32), va)
         maxes.append(scores.amax(dim=2).amax(dim=1) if sel else scores.amax(dim=(1, 2)))
-    return torch.cat(maxes)[-1:].to(torch.float32) + x.sum() * 0
+    return torch.cat(maxes)
+
+
+def _gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit="mma"):
+    """Plain K14 → [1] f32: the max of the last step's product, plus
+    ``sum(x) · 0``.  Every step's product is computed, as the kernel does
+    (:func:`_gemm_rate_steps_reference`)."""
+    return _gemm_rate_steps_reference(q, v, g, tb, tn, sel, unit)[-1:] + x.sum() * 0
+
+
+def _gemm_rate_launch(q, v, g, tb, tn, sel, unit, fill):
+    """K14's kernels on the card → (out [1], the last step's max; sink [g,
+    units·8], each step's max per 128 x 128 unit and warp, in a buffer made
+    by ``fill``)."""
+    q, v = _gemm_rate_check(q, v, g, tb, tn, unit)
+    dev = q.device
+    _build.check_inputs("K14", dev, [q, v])
+    d = q.shape[1]
+    es = q.element_size()
+    if (d * es) % 4:
+        raise ValueError(f"the CUDA K14 takes d·{es} a multiple of 4; got d={d}")
+    q, v = _build.aligned(q, 4), _build.aligned(v, 4)
+    units = -(-tb // 128) * -(-tn // 128)
+    reps = max(1, 2 * _sms(dev) // units)
+    sink = fill(g * units * 8, device=dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    fn = _kernel("hw_gemm_rate_probe", 4, 8)
+    _launch("K14", "hw_gemm_rate_probe", dev, fn, q, v, sink, out, tb, tn, d, g, reps,
+            int(bool(sel)), int(q.dtype == torch.bfloat16), int(unit == "dp4a"), kernels=2)
+    return out, sink.view(g, units * 8)
 
 
 def _gemm_rate_probe(x, q, v, g, tb, tn, sel, unit="mma"):
@@ -341,30 +413,22 @@ def _gemm_rate_probe(x, q, v, g, tb, tn, sel, unit="mma"):
     holds one 128 x 128 unit of the product (a row tile of q, a column tile
     of v, whole K) in shared memory and takes every R-th step, R = the CTAs
     per unit that fill the card twice over; every step's product is
-    computed once across the card and folded into a per-CTA sink."""
-    q, v = _gemm_rate_check(q, v, g, tb, tn, unit)
-    dev = q.device
-    if dev.type == "cpu":
-        if v.device != dev or x.device != dev:
+    computed once across the card, and each warp writes its max of it."""
+    if q.device.type == "cpu":
+        if v.device != q.device or x.device != q.device:
             raise ValueError("all K14 inputs must be on one device")
         return _gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit)
-    _build.check_inputs("K14", dev, [x, q, v])
-    d = q.shape[1]
-    es = q.element_size()
-    if (d * es) % 4 or d * es > _MAX_KBYTES:
-        raise ValueError(f"the CUDA K14 takes d·{es} a multiple of 4 and <= {_MAX_KBYTES}; "
-                         f"got d={d}")
-    q, v = _build.aligned(q, 4), _build.aligned(v, 4)
-    units = -(-tb // 128) * -(-tn // 128)
-    reps = max(1, 2 * _sms(dev) // units)
-    partial = torch.empty(units, dtype=torch.float32, device=dev)
-    sink = torch.empty(units * reps, dtype=torch.float32, device=dev)
-    out = torch.empty(1, dtype=torch.float32, device=dev)
-    fn = _kernel("hw_gemm_rate_probe", 5, 8)
-    _launch("K14", "hw_gemm_rate_probe", dev, fn, q, v, partial, sink,
-            out, tb, tn, d, g, reps, int(bool(sel)), int(q.dtype == torch.bfloat16),
-            int(unit == "dp4a"))
-    return out + x.sum() * 0
+    _build.check_inputs("K14", q.device, [x])
+    return _gemm_rate_launch(q, v, g, tb, tn, sel, unit, _empty)[0] + x.sum() * 0
+
+
+def _gemm_rate_steps(q, v, g, tb, tn, sel, unit="mma"):
+    """Every step's max → [g] f32: on the card the kernel's whole sink
+    reduced over units and warps, NaN where no CTA wrote; on the CPU the
+    plain version."""
+    if q.device.type == "cpu":
+        return _gemm_rate_steps_reference(q, v, g, tb, tn, sel, unit)
+    return _gemm_rate_launch(q, v, g, tb, tn, sel, unit, _nans)[1].amax(dim=1)
 
 
 # -------------------------------------------------------------- the probes
@@ -378,13 +442,46 @@ def _rand(shape, dtype, gen, dev):
     return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
 
+def _planted_walk(nblocks, d, blk, fat, dtype, gen):
+    """Check data for K12 → (data [nblocks, d, blk], each step's max [g]
+    f32): every step of ``fat`` blocks holds one planted value, at a seeded
+    position, above a bulk that stays below all of them (int8: -100 +
+    (37·s mod 226) over a bulk in [-127, -101], so neighbouring steps
+    differ and any 226 in a row are distinct; bf16: distinct values from 8
+    up in a seeded order over a normal bulk clamped to [-7.5, 7.5]); one
+    earlier step also holds a decoy, the walk's largest value, so that the
+    last step's max is not the walk's."""
+    g = nblocks // fat
+    per = fat * d * blk
+    dev = gen.device
+    steps = torch.arange(g, device=dev)
+    if dtype == torch.int8:
+        data = torch.randint(-127, -100, (g, per), generator=gen, device=dev, dtype=dtype)
+        top = (-100 + (37 * steps) % 226).to(dtype)
+        decoy = torch.tensor(127, dtype=dtype, device=dev)
+    else:
+        if 0x4100 + g >= 0x7F80:
+            raise ValueError(f"too many steps for distinct finite bf16 maxima: {g}")
+        data = torch.randn((g, per), generator=gen, device=dev, dtype=dtype).clamp_(-7.5, 7.5)
+        order = torch.randperm(g, generator=gen, device=dev)
+        top = (0x4100 + order).to(torch.int16).view(dtype)
+        decoy = torch.tensor(0x4100 + g, dtype=torch.int16, device=dev).view(dtype)
+    pos = torch.randint(per, (g,), generator=gen, device=dev)
+    data[steps, pos] = top
+    if g > 1:
+        s = int(torch.randint(g - 1, (1,), generator=gen, device=dev))
+        data[s, (pos[s] + 1) % per] = decoy
+        top[s] = decoy
+    return data.view(nblocks, d, blk), top.to(torch.float32)
+
+
 def _sec(fn, dev, repeats) -> float:
     """Seconds per call: on the card, device time of ``repeats`` calls
     captured in one CUDA graph (the wrapper's ~30 µs of Python a call
     would otherwise hide the small probes' device time); on the CPU, the
     host clock."""
     if dev.type == "cuda":
-        return timing.graph_ms(fn, dev, calls=repeats) / 1e3
+        return _graph_ms(fn, dev, repeats) / 1e3
     return timing.per_call_ms(fn, [dev], calls=repeats) / 1e3
 
 
@@ -462,7 +559,7 @@ def probe_pallas_step(repeats=8, device="cuda", grids=(256, 1024, 4096)):
     line = (f"  launch: {hi} launches of the one-step kernel,"
             f" eager {out['launch_us']['eager']:7.3f} us")
     if dev.type == "cuda":
-        out["launch_us"]["graph"] = timing.graph_ms(one, dev, calls=hi) * 1e3
+        out["launch_us"]["graph"] = _graph_ms(one, dev, hi) * 1e3
         line += f", graphed {out['launch_us']['graph']:7.3f} us a launch"
     else:
         out["launch_us"]["graph"] = None

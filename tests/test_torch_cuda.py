@@ -708,9 +708,15 @@ def _probe_gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-def _launched(key, before):
+def _launched(key, before, kernels=1):
     torch.cuda.synchronize()
-    assert hw_probe.LAUNCHES[key] == before + 1
+    assert hw_probe.LAUNCHES[key] == before + kernels
+
+
+def _rand_op(shape, dtype, gen, dev):
+    if dtype == torch.int8:
+        return torch.randint(-127, 127, shape, generator=gen, device=dev, dtype=dtype)
+    return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
 
 @pytest.mark.parametrize("semantics", hw_probe.SEMANTICS)
@@ -724,67 +730,86 @@ def test_k11_kernel_equal_to_plain(dev, g, moving, semantics):
     assert torch.equal(got, hw_probe._step_probe_reference(x, g, moving, semantics))
 
 
+def _k12_against_plain(x, data, blk, fat, gemm, semantics, tops):
+    """K12's value and whole per-step buffer (NaN where no CTA wrote)
+    against the plain version; without the product the plain version must
+    find the planted maxima.  bf16 products: each step within
+    2·d·2**-24·max(|x| @ |tile|) over its tiles."""
+    want = hw_probe._stream_steps_reference(x, data, fat, gemm)
+    if not gemm:
+        assert torch.equal(want, tops)
+    before = hw_probe.LAUNCHES["K12"]
+    steps = hw_probe._stream_steps(x, data, blk, fat, gemm, semantics)
+    got = hw_probe._stream_probe(x, data, blk, fat, gemm, semantics)
+    _launched("K12", before, 2)
+    if data.dtype == torch.bfloat16 and gemm:
+        nb, d, _ = data.shape
+        prod = torch.matmul(x.double().abs(),
+                            data.double().abs().reshape(nb // fat, fat, d, blk))
+        tol = 2.0 * d * 2.0**-24 * prod.amax(dim=(1, 2, 3))
+        assert bool(((steps.double() - want.double()).abs() <= tol).all())
+        assert abs(float(got[0]) - float(want[-1])) <= float(tol[-1])
+    else:
+        assert torch.equal(steps, want) and torch.equal(got, want[-1:])
+    assert torch.equal(hw_probe._stream_probe_reference(x, data, blk, fat, gemm, semantics),
+                       want[-1:])
+
+
 @pytest.mark.parametrize("semantics", hw_probe.SEMANTICS)
 @pytest.mark.parametrize("fat", [1, 3])
 @pytest.mark.parametrize("gemm", [False, True], ids=["max", "gemm"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 def test_k12_kernel_equal_to_plain(dev, dtype, gemm, fat, semantics):
     # Ragged: 9 blocks of [36, 301] (steps start off 16-byte boundaries) or,
-    # with the product, [36, 300] (column slices end mid-tile), x [100, 36].
+    # with the product, [36, 300] (column slices end mid-tile), x [100, 36];
+    # every step holds a planted max, an earlier step the walk's.
     blk = 300 if gemm else 301
     gen = _probe_gen(dev, 52)
-    if dtype == torch.int8:
-        data = torch.randint(-127, 127, (9, 36, blk), generator=gen, device=dev, dtype=dtype)
-        x = torch.randint(-127, 127, (100, 36), generator=gen, device=dev, dtype=dtype)
-    else:
-        data = torch.randn((9, 36, blk), generator=gen, device=dev, dtype=dtype)
-        x = torch.randn((100, 36), generator=gen, device=dev, dtype=dtype)
-    before = hw_probe.LAUNCHES["K12"]
-    got = hw_probe._stream_probe(x, data, blk, fat, gemm, semantics)
-    _launched("K12", before)
-    want = hw_probe._stream_probe_reference(x, data, blk, fat, gemm, semantics)
-    if dtype == torch.bfloat16 and gemm:
-        last = data[-fat:].double().abs()
-        bound = 2.0 * 36 * 2.0**-24 * float(torch.matmul(x.double().abs(), last).max())
-        assert abs(float(got[0]) - float(want[0])) <= bound
-    else:
-        assert torch.equal(got, want)
+    data, tops = hw_probe._planted_walk(9, 36, blk, fat, dtype, gen)
+    x = _rand_op((100, 36), dtype, gen, dev)
+    _k12_against_plain(x, data, blk, fat, gemm, semantics, tops)
 
 
 @pytest.mark.parametrize("semantics", [None, "arbitrary"])
 @pytest.mark.parametrize("gemm", [False, True], ids=["max", "gemm"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 def test_k12_kernel_equal_to_plain_at_jax_width(dev, dtype, gemm, semantics):
-    # d = 128, blk = 2048, x [128, 128]: the probe's shapes over 8 blocks.
+    # d = 128, blk = 2048, x [128, 128]: the probe's shapes over 64 blocks,
+    # fat 4, planted step maxima.
     gen = _probe_gen(dev, 55)
-    if dtype == torch.int8:
-        data = torch.randint(-127, 127, (8, 128, 2048), generator=gen, device=dev, dtype=dtype)
-        x = torch.randint(-127, 127, (128, 128), generator=gen, device=dev, dtype=dtype)
-    else:
-        data = torch.randn((8, 128, 2048), generator=gen, device=dev, dtype=dtype)
-        x = torch.randn((128, 128), generator=gen, device=dev, dtype=dtype)
-    got = hw_probe._stream_probe(x, data, 2048, 4, gemm, semantics)
-    want = hw_probe._stream_probe_reference(x, data, 2048, 4, gemm, semantics)
-    if dtype == torch.bfloat16 and gemm:
-        bound = 2.0 * 128 * 2.0**-24 * float(
-            torch.matmul(x.double().abs(), data[-4:].double().abs()).max())
-        assert abs(float(got[0]) - float(want[0])) <= bound
-    else:
-        assert torch.equal(got, want)
+    data, tops = hw_probe._planted_walk(64, 128, 2048, 4, dtype, gen)
+    x = _rand_op((128, 128), dtype, gen, dev)
+    _k12_against_plain(x, data, 2048, 4, gemm, semantics, tops)
 
 
 @pytest.mark.parametrize("depth", [1, 3, 8])
 @pytest.mark.parametrize("shape", [(11, 24, 40), (70, 128, 2048)], ids=["ragged", "18MB"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 def test_k13_kernel_equal_to_plain(dev, dtype, shape, depth):
+    # One value planted at a time above the bulk: past the walk (where
+    # blocks lie past it) a decoy the walk must not return, then in the
+    # walk at its first and last element and at 8 seeded random ones; at
+    # 18 MB each CTA's ring wraps.
     gen = _probe_gen(dev, 53)
-    data = (torch.randint(-127, 127, shape, generator=gen, device=dev, dtype=dtype)
-            if dtype == torch.int8 else torch.randn(shape, generator=gen, device=dev, dtype=dtype))
+    data = _rand_op(shape, dtype, gen, dev)
+    plant, decoy = (127, 127) if dtype == torch.int8 else (64.0, 128.0)
     x = torch.zeros((8, 128), device=dev)
-    before = hw_probe.LAUNCHES["K13"]
-    got = hw_probe._dma_probe(x, data, depth)
-    _launched("K13", before)
-    assert torch.equal(got, hw_probe._dma_probe_reference(x, data, depth))
+    flat = data.view(-1)
+    walked = hw_probe._dma_blocks(data, depth) * data[0].numel()
+    trials = [(p, plant) for p in [0, walked - 1]
+              + torch.randint(walked, (8,), generator=gen, device=dev).tolist()]
+    if walked < flat.numel():
+        trials.insert(0, (flat.numel() - 1, decoy))
+    for pos, val in trials:
+        old = flat[pos].clone()
+        flat[pos] = val
+        want = hw_probe._dma_probe_reference(x, data, depth)
+        assert (float(want[0]) == val) == (pos < walked)
+        before = hw_probe.LAUNCHES["K13"]
+        got = hw_probe._dma_probe(x, data, depth)
+        _launched("K13", before, 2)
+        assert torch.equal(got, want), (pos, val)
+        flat[pos] = old
 
 
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
@@ -793,24 +818,25 @@ def test_k13_kernel_equal_to_plain(dev, dtype, shape, depth):
 @pytest.mark.parametrize("dtype,unit", [(torch.int8, "mma"), (torch.int8, "dp4a"),
                                         (torch.bfloat16, "mma")])
 def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
+    # The value and every step's max (NaN where no CTA wrote); bf16 each
+    # step within 2·d·2**-24·max(|twisted q| @ |v|).
     gen = _probe_gen(dev, 54)
-    if dtype == torch.int8:
-        q = torch.randint(-127, 127, (tb, d), generator=gen, device=dev, dtype=dtype)
-        v = torch.randint(-127, 127, (d, tn), generator=gen, device=dev, dtype=dtype)
-    else:
-        q = torch.randn((tb, d), generator=gen, device=dev, dtype=dtype)
-        v = torch.randn((d, tn), generator=gen, device=dev, dtype=dtype)
+    q, v = _rand_op((tb, d), dtype, gen, dev), _rand_op((d, tn), dtype, gen, dev)
     x = torch.zeros((8, 128), device=dev)
     before = hw_probe.LAUNCHES["K14"]
     got = hw_probe._gemm_rate_probe(x, q, v, g, tb, tn, sel, unit)
-    _launched("K14", before)
-    want = hw_probe._gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit)
+    steps = hw_probe._gemm_rate_steps(q, v, g, tb, tn, sel, unit)
+    _launched("K14", before, 4)
+    want = hw_probe._gemm_rate_steps_reference(q, v, g, tb, tn, sel, unit)
+    assert torch.equal(hw_probe._gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit),
+                       want[-1:])
     if dtype == torch.int8:
-        assert torch.equal(got, want)
+        assert torch.equal(got, want[-1:]) and torch.equal(steps, want)
     else:
-        qx = hw_probe._twisted_q(q, torch.tensor([g - 1], device=dev), torch.float64)[0]
-        bound = 2.0 * d * 2.0**-24 * float((qx.abs() @ v.double().abs()).max())
-        assert abs(float(got[0]) - float(want[0])) <= bound
+        qx = hw_probe._twisted_q(q, torch.arange(g, device=dev), torch.float64)
+        tol = 2.0 * d * 2.0**-24 * (qx.abs() @ v.double().abs()).amax(dim=(1, 2))
+        assert bool(((steps.double() - want.double()).abs() <= tol).all())
+        assert abs(float(got[0]) - float(want[-1])) <= float(tol[-1])
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(dev):
@@ -832,7 +858,11 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_probe_cli_runs_at_toy_sizes_on_the_card(dev, capsys):
+    before = hw_probe.LAUNCHES["K14"]
     res = hw_probe.probe_pallas_gemm(repeats=1, device=dev, shapes=((128, 256),), gs=(4, 8))
     assert len(res) == 3 and all(v > 0 for v in res.values())
+    # Six timings of one call, each 2 warm-up calls and 4 replays of the
+    # captured one, 2 kernels a call: the count is of launches on the card.
+    assert hw_probe.LAUNCHES["K14"] - before == 6 * (2 + 4) * 2
     res = hw_probe.probe_pallas_step(repeats=1, device=dev, grids=(4, 16))
     assert res["launch_us"]["graph"] > 0 and res["launch_us"]["eager"] > 0

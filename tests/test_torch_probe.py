@@ -65,10 +65,20 @@ def test_k11_step_probe_equals_jax(moving, semantics):
 @pytest.mark.parametrize("fat,gemm", [(1, False), (2, True)], ids=["fat1", "fat2-gemm"])
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
 def test_k12_stream_probe_equals_jax(dtype, fat, gemm):
+    # Every step holds a planted max above the bulk, distinct from its
+    # neighbours'; the first step also holds the walk's max, which is not
+    # what lands.
     rng = np.random.default_rng(12)
-    raw = (rng.integers(-127, 127, (4, D, BLK)).astype(np.float32) if dtype == "int8"
-           else rng.standard_normal((4, D, BLK)).astype(np.float32))
-    raw[0, 0, 0] = 127  # the walk's max, in the first step: not what lands
+    g = 4 // fat
+    if dtype == "int8":
+        raw = rng.integers(-127, -100, (g, fat * D * BLK)).astype(np.float32)
+        tops, decoy = -100.0 + (37 * np.arange(g)) % 226, 127
+    else:
+        raw = rng.standard_normal((g, fat * D * BLK)).clip(-7.5, 7.5).astype(np.float32)
+        tops, decoy = 8.0 + 0.25 * rng.permutation(g), 64.0
+    raw[np.arange(g), rng.integers(0, raw.shape[1], g)] = tops
+    raw[0, 0] = decoy
+    raw = raw.reshape(4, D, BLK)
     dj, dt = _pair(raw.astype(np.int8) if dtype == "int8" else raw, dtype)
     xj, xt = _operand(rng, (M, D), dtype)
     want = _jax(jhp._stream_probe, xj, dj, BLK, fat, gemm, None)
@@ -80,7 +90,8 @@ def test_k12_stream_probe_equals_jax(dtype, fat, gemm):
     else:
         np.testing.assert_array_equal(got.numpy(), want)
     if not gemm:
-        assert float(got[0]) == float(dt[-1].float().max()) < 127
+        assert float(got[0]) == tops[-1] < decoy
+        assert thp._stream_steps(xt, dt, BLK, fat, gemm, None).tolist() == [decoy, *tops[1:]]
 
 
 @pytest.mark.parametrize("depth", [1, 4])
@@ -89,13 +100,14 @@ def test_k13_dma_probe_equals_jax(dtype, depth):
     rng = np.random.default_rng(13)
     raw = (rng.integers(-100, 100, (6, 16, 128)).astype(np.float32) if dtype == "int8"
            else rng.standard_normal((6, 16, 128)).astype(np.float32))
-    raw[5, 3, 7] = 120  # in a block past the last whole group of 4
+    raw[3, 5, 9] = 110  # in the last whole group of 4
+    raw[5, 3, 7] = 120  # in a block past it
     dj, dt = _pair(raw.astype(np.int8) if dtype == "int8" else raw, dtype)
     xj, xt = _pair(np.zeros((8, 128), np.float32), "f32")
     want = _jax(jhp._dma_probe, xj, dj, depth)
     got = thp._dma_probe(xt, dt, depth)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (float(got[0]) == 120) == (depth == 1)
+    assert float(got[0]) == (120 if depth == 1 else 110)
 
 
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
@@ -114,6 +126,8 @@ def test_k14_gemm_rate_probe_equals_jax(dtype, unit, sel):
     else:
         qx = thp._twisted_q(qt, torch.tensor([g - 1]), torch.float32)[0]
         assert abs(float(got[0]) - float(want[0])) <= _bf16_bound(qx, vt.float())
+    steps = thp._gemm_rate_steps(qt, vt, g, M, BLK, sel, unit)
+    assert steps.shape == (g,) and torch.equal(steps[-1:], got)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
@@ -144,6 +158,12 @@ def test_probes_refuse_bad_arguments():
     with pytest.raises(ValueError):
         thp._gemm_rate_probe(x, torch.zeros((4, 8), dtype=torch.bfloat16),
                              torch.zeros((8, 16), dtype=torch.bfloat16), 2, 4, 16, False, "dp4a")
+    with pytest.raises(ValueError):  # the products take d·elem <= 512, as the kernels do
+        thp._gemm_rate_probe(x, torch.zeros((4, 513), dtype=torch.int8),
+                             torch.zeros((513, 16), dtype=torch.int8), 2, 4, 16, False)
+    with pytest.raises(ValueError):
+        thp._stream_probe(torch.zeros((4, 257), dtype=torch.bfloat16),
+                          torch.zeros((2, 257, 8), dtype=torch.bfloat16), 8, 1, True, None)
 
 
 def _rows(out, head):
