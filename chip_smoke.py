@@ -2,8 +2,9 @@
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
 the IVF index (its default engine, the grouped engine and the routed
 engine), the brute-force index, both sharded over 4 logical shards on
-the card, the kernel lab on the same index, the spatial GEMM, and the
-hardware probes.
+the card, the kernel lab on the same index, the spatial GEMM, the
+hardware probes, and the float (fp32 and bf16) IVF and brute-force
+indexes with the library's defaults.
 
     python3 chip_smoke.py
 
@@ -103,6 +104,28 @@ script exits non-zero without a result line:
              just before and read just after, the five probes at the JAX
              sizes through ``hw_probe.main([])``, and the ceilings they
              measure, one a line.
+13. float  — the float modes of K1, K4, K5 and K3, held bit-equal to their
+             plain versions at ragged sizes (D' odd, N and B off the
+             tiles) on integer data; then an fp32 ``IVFIndex`` (the default
+             dtype; nlist=1024, L2, pad_block=2048, the int8 index's
+             centroids) and the same index in bf16: K1 on one routed B=8192
+             batch and K4 at its recovery list held bit-equal to their
+             plain versions, then all 10,000 queries through
+             ``search_device(q, 10, 4)`` with its defaults, counters reset
+             just before and read just after (engine pallas_accum, K1 and
+             the recovery pass's K4 launched, residual spill 0; fp32
+             recall@10 >= 0.99 and recall@1 >= the int8 index's), one call
+             and its stages timed; ``BruteForceIndex(base)`` with every
+             default (ip, bf16, accum = K5, rescored; recall@10 >= 0.99
+             against the plain IP ground truth) and an fp32 L2 accum index
+             (K5 fp32 on the augmented dimension; >= 0.99), K5 held
+             bit-equal at B=8192 and timed beside the GEMM alone
+             (``torch.mm``); ``BruteForceIndex(base, metric="l2",
+             dtype="bf16", engine="pallas", rescore=True)`` (K3 bf16, held
+             bit-equal at B=1024 with nbins 0 and 128; ids equal to the
+             plain path's, K3's plain version and the same rescore, on all
+             10,000 queries; recall@10 >= 0.99: the bf16 rounding of the
+             augmented column costs it the int8 path's 0.999).
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -123,6 +146,7 @@ REPS = 10
 # H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
 # dense int8 tensor-core ops/s, and 32-bit non-tensor ops/s.
 HBM_BYTES_S, INT8_OPS_S, OPS32_S = 3.35e12, 1979e12, 67e12
+BF16_OPS_S = 989e12  # dense bf16 tensor-core FLOP/s: the bound of the bf16 modes
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -420,18 +444,18 @@ def main() -> None:
               f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}")
     del k9_inputs
 
-    def search_all(**kw):
-        """All queries in B=BATCH batches (the tail padded cyclically) →
-        (ids, scores, per-batch residual spill, wall s)."""
+    def search_all(index, **kw):
+        """All queries through ``index`` in B=BATCH batches (the tail padded
+        cyclically) → (ids, scores, per-batch residual spill, wall s)."""
         t = time.time()
         ids_parts, score_parts, residual = [], [], []
         for s in range(0, N_QUERIES, BATCH):
             chunk = queries[s:s + BATCH]
             qs = torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev)
-            vals, ids, _ = idx.search_device(qs, K, NPROBE, **kw)
+            vals, ids, _ = index.search_device(qs, K, NPROBE, **kw)
             ids_parts.append(ids.cpu().numpy()[:chunk.shape[0]])
             score_parts.append(vals.cpu().numpy()[:chunk.shape[0]])
-            residual.append(int(idx.last_spill))
+            residual.append(int(index.last_spill))
         ids, scores = np.concatenate(ids_parts), np.concatenate(score_parts)
         if ids.shape != (N_QUERIES, K) or not np.isfinite(scores).all() or (ids < 0).any():
             raise AssertionError(f"search {kw} output has the wrong shape, -1 ids or "
@@ -443,14 +467,14 @@ def main() -> None:
 
     # ---- phase 4: the slice through the public entry point, with its defaults.
     reset_launches()
-    ids, _, residual, wall = search_all()
+    ids, _, residual, wall = search_all(idx)
     launches = {name: n for name, n in read_launches().items() if name in ("K1", "K2", "K4")}
     engine = idx.last_engine
     spilled = [int(idx._route(torch.from_numpy(np.resize(queries[s:s + BATCH], (BATCH, DIM)))
                               .to(dev), NPROBE, qcap)[3].sum()) for s in range(0, N_QUERIES, BATCH)]
     passes = idx._auto_recover_passes(BATCH, NPROBE, rq)
     r10, r1 = recalls(ids)
-    ids_norec, _, _, _ = search_all(recover=False)
+    ids_norec, _, _, _ = search_all(idx, recover=False)
     r10_norec, r1_norec = recalls(ids_norec)
     phase("slice", t0, f"{N_QUERIES} queries in B={BATCH} batches {wall:.1f}s: engine={engine} "
           f"auto_recover={idx._auto_recover(BATCH, NPROBE)} spilled before recovery="
@@ -488,7 +512,7 @@ def main() -> None:
           f"with recover=False {norec_ms} ms; stages ms {stage_ms}")
 
     # ---- phase 5: the grouped engine (K4 over the dense block walk).
-    ids_g, scores_g, residual_g, wall_g = search_all(engine="pallas")
+    ids_g, scores_g, residual_g, wall_g = search_all(idx, engine="pallas")
     r10_g, r1_g = recalls(ids_g)
     grouped_ms = cuda_ms(torch, lambda: idx.search_device(qs, K, NPROBE, engine="pallas"))
     phase("grouped", t0, f"engine=pallas {N_QUERIES} queries {wall_g:.1f}s: residual "
@@ -499,7 +523,7 @@ def main() -> None:
 
     # ---- phase 6: the routed engine (K7 in the main walk and the recovery pass).
     reset_launches()
-    ids_r, scores_r, residual_r, wall_r = search_all(engine="pallas_routed")
+    ids_r, scores_r, residual_r, wall_r = search_all(idx, engine="pallas_routed")
     launch_r = read_launches()
     engine_r = idx.last_engine
     r10_r, r1_r = recalls(ids_r)
@@ -933,6 +957,7 @@ def main() -> None:
     # the full-width product's output alone is 32.8 GB.
     from rag_on_edge_tpu_torch.parallel import spatial_matmul, verify_matmul
 
+    int8_centroids = idx._centroids_np  # phase 13 builds its float indexes from them
     del a, idx, k1_args, k4_rec, k4_dense, qb, qi, bias, bias_rows, pp, pool, probes, cq, slot
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1008,8 +1033,8 @@ def main() -> None:
     # bf16 and f32 at the hardware probe's square shape, beside torch.matmul.
     SQ = 4096
     k8_sq = {}
-    for name, dtype, rate in (("bf16", torch.bfloat16, 989e12), ("fp32", torch.float32,
-                                                                 OPS32_S)):
+    for name, dtype, rate in (("bf16", torch.bfloat16, BF16_OPS_S),
+                              ("fp32", torch.float32, OPS32_S)):
         a_, b_ = rand((SQ, SQ), dtype), rand((SQ, SQ), dtype)
         err = k8_err(tiled_matmul.tiled_matmul(a_, b_),
                      tiled_matmul.tiled_matmul_reference(a_, b_), a_, b_)
@@ -1298,8 +1323,303 @@ def main() -> None:
              (ceil["xla"]["reduce"]["int8"], ceil["xla"]["copy"]["int8"]))):
         print(f"[ceiling] {name}: {value}", flush=True)
 
+    # ---- phase 13: the float modes (fp32, bf16) of K1, K4, K5 and K3 on the
+    # corpus and queries loaded above.  Every check holds integer-valued data
+    # (SIFT is 0..141, bf16 holds it exactly and every fp32 sum is exact), so
+    # each kernel is bit-equal to its plain version.
+    from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions and torch.mm in full fp32
+    torch.cuda.empty_cache()
+    fgen = torch.Generator(device=dev).manual_seed(13)
+    floats = {"fp32": (torch.float32, OPS32_S), "bf16": (torch.bfloat16, BF16_OPS_S)}
+
+    def fint(shape, dtype):
+        """Integers in [-127, 127] as ``dtype``: exact in bf16, exact sums."""
+        return torch.randint(-127, 128, shape, generator=fgen, device=dev).to(dtype)
+
+    def bits_equal(x, y):
+        """Equal bit for bit (fp32 as int32: -0 is not +0, NaN is its pattern)."""
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        return torch.equal(x, y)
+
+    # Ragged sizes first (uncounted): D' = 129 and 37 (odd), 40 routed rows
+    # (not a multiple of the 32-row tile), B = 70, N = 1300 and 3001 (not
+    # multiples of the tile), 2900 valid columns of 3001.
+    rsizes = np.array([2000, 0, 5000, 129, 700])
+    roffs = np.concatenate([[0], np.cumsum(-(-rsizes // PAD_BLOCK) * PAD_BLOCK)[:-1]])
+    rtabs = [torch.from_numpy(np.pad(x, (0, (-len(x)) % 8)).astype(np.int32)).to(dev)
+             for x in build_block_tables(roffs, rsizes, PAD_BLOCK)[1:4]]
+    rrows = torch.nonzero(rtabs[1]).flatten()
+    ragged = {}
+    for mode, (dt, _) in floats.items():
+        qg_r, vt_r = fint((len(rtabs[0]), 40, 129), dt), fint((len(rtabs[0]), 129, PAD_BLOCK), dt)
+        got = ivf_accum.cluster_major_accum_planes(qg_r, vt_r, *rtabs, blk=PAD_BLOCK)
+        want = ivf_accum.cluster_major_accum_planes_reference(qg_r, vt_r, *rtabs, blk=PAD_BLOCK)
+        ragged[f"K1 {mode}"] = torch.equal(got[rrows], want[rrows])
+        pv, pr = ivf_scan.cluster_major_scan_grouped(qg_r, vt_r, *rtabs, kk, blk=PAD_BLOCK)
+        rpv, rpr = ivf_scan.cluster_major_scan_grouped_reference(qg_r, vt_r, *rtabs, kk,
+                                                                 blk=PAD_BLOCK)
+        fin = rpv[rrows] > float("-inf")
+        ragged[f"K4 {mode}"] = bool(fin.any()) and torch.equal(pv[rrows], rpv[rrows]) \
+            and torch.equal(pr[rrows][fin], rpr[rrows][fin])
+        tiles_r, _ = bruteforce_accum.tile_base(fint((37, 1300), dt), 128, 4)
+        q_r = fint((70, 37), dt)
+        v, i = bruteforce_accum.fused_topk_accum(q_r, tiles_r, 1300, 32, group=4, depth=4)
+        rv, ri = bruteforce_accum.fused_topk_accum_reference(q_r, tiles_r, 1300, 32, group=4,
+                                                             depth=4)
+        ragged[f"K5 {mode}"] = bits_equal(v, rv) and torch.equal(i, ri)
+    q_r, b_r = fint((70, 37), torch.bfloat16), fint((37, 3001), torch.bfloat16)
+    nv_r = torch.tensor([2900], dtype=torch.int32, device=dev)
+    for nbins in (0, 128):
+        v, i = bruteforce_fused.fused_topk_matmul(q_r, b_r, 32, nbins=nbins, n_valid=nv_r)
+        rv, ri = bruteforce_fused.fused_topk_matmul_reference(q_r, b_r, 32, nbins=nbins,
+                                                              n_valid=nv_r)
+        ragged[f"K3 bf16 nbins={nbins}"] = bits_equal(v, rv) and torch.equal(i, ri)
+    torch.cuda.synchronize()
+    phase("float", t0, f"ragged sizes, bit-equal to the plain versions: {ragged}")
+    if not all(ragged.values()):
+        raise AssertionError(f"a float mode differs from its plain version: {ragged}")
+    del qg_r, vt_r, got, want, pv, pr, rpv, rpr, tiles_r, q_r, b_r
+
+    fl = {}  # "K1 fp32" ... → err, ms, plain_ms, bound, launches, lib_ms
+
+    def float_ivf(index, mode):
+        """K1 and K4 of a float index against their plain versions on the
+        first routed B=8192 batch (K4 at the batch's recovery list), then
+        the default call over all queries, counted; its recall and stages."""
+        rate = floats[mode][1]
+        fa = index._arrays
+        vt = fa["vectors_t"]
+        es, dp = vt.element_size(), vt.shape[1]
+        qcap_f = index._auto_qcap(BATCH, NPROBE)
+        probes_f, cq_f, slot_f, lossy_f, _ = index._route(q, NPROBE, qcap_f)
+        qi_f, qb_f, _, _, _ = index._scan_inputs(q, cq_f)
+        args = (qb_f, vt, fa["block_first"], fa["block_last"], fa["rows_valid"])
+        pp_f = ivf_accum.cluster_major_accum_planes(*args, blk=PAD_BLOCK)
+        pp_ref = ivf_accum.cluster_major_accum_planes_reference(*args, blk=PAD_BLOCK)
+        torch.cuda.synchronize()
+        rows_f = torch.nonzero(fa["block_last"]).flatten()
+        err = int((pp_f[rows_f].long() - pp_ref[rows_f].long()).abs().max())
+        if err:
+            raise AssertionError(f"K1 {mode} planes differ from the plain version: {err}")
+        del pp_ref
+        walked_f = walked_blocks(np, *args[2:])
+        fl[f"K1 {mode}"] = dict(
+            err=err, ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_planes(
+                *args, blk=PAD_BLOCK)),
+            plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_planes_reference(
+                *args, blk=PAD_BLOCK), reps=3),
+            bound=bound(walked_f * (qcap_f + PAD_BLOCK) * dp * es + rows_f.numel()
+                        * pp_f[0].numel() * 4, 2.0 * walked_f * qcap_f * PAD_BLOCK * dp, rate),
+            lib_ms=None)
+        phase("float", t0, f"K1 {mode} qg {tuple(qb_f.shape)} vectors_t {tuple(vt.shape)}: "
+              f"bit-equal on {rows_f.numel()} last blocks ({walked_f} walked); "
+              f"{fl[f'K1 {mode}']}")
+        nb_f = vt.shape[0]
+        rb_f = -(-(nb_f // 4) // index.CM_GROUP) * index.CM_GROUP
+        rec, _, _, _ = index._recover_tables(qi_f, probes_f, lossy_f, None, qcap_f, rb_f)
+        kw = dict(k=kk, blk=PAD_BLOCK, group=index.CM_GROUP, row_base=rec[6])
+        pv, pr = ivf_scan.cluster_major_scan_grouped(*rec[:5], **kw)
+        rpv, rpr = ivf_scan.cluster_major_scan_grouped_reference(*rec[:5], **kw)
+        torch.cuda.synchronize()
+        r4 = torch.nonzero(rec[3]).flatten()
+        fin = rpv[r4] > float("-inf")
+        if not torch.equal(pv[r4], rpv[r4]) or not torch.equal(pr[r4][fin], rpr[r4][fin]):
+            raise AssertionError(f"K4 {mode} differs from the plain version at the recovery "
+                                 "list")
+        walked4 = walked_blocks(np, *rec[2:5])
+        fl[f"K4 {mode}"] = dict(
+            err=float((pv[r4][fin] - rpv[r4][fin]).abs().max()) if fin.any() else 0.0,
+            ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(*rec[:5], **kw)),
+            plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
+                *rec[:5], **kw), reps=3),
+            bound=bound(walked4 * (qcap_f + PAD_BLOCK) * dp * es + r4.numel() * qcap_f * kk * 8,
+                        2.0 * walked4 * qcap_f * PAD_BLOCK * dp, rate),
+            lib_ms=None)
+        phase("float", t0, f"K4 {mode} recovery list qg {tuple(rec[0].shape)} ({int(lossy_f.sum())} "
+              f"lossy pairs, {walked4} blocks walked): pv bit-equal, pr equal where finite "
+              f"({int(fin.sum())} finite entries); {fl[f'K4 {mode}']}")
+        del pv, pr, rpv, rpr, rec
+        # The default call, counted.
+        reset_launches()
+        ids_f, _, residual_f, wall_f = search_all(index)
+        launch_f = read_launches()
+        r10_f, r1_f = recalls(ids_f)
+        fl[f"K1 {mode}"]["launches"] = launch_f["K1"]
+        fl[f"K4 {mode}"]["launches"] = launch_f["K4"]
+        call_ms = cuda_ms(torch, lambda: index.search_device(qs, K, NPROBE))
+        rp = index._auto_recover_passes(BATCH, NPROBE, qcap_f)
+        pp_f = index._scan(qb_f, None)
+        extra_f, _ = index._recover(qi_f, probes_f, lossy_f, None, None, kk, qcap_f, rb_f, rp)
+        stage_f = {name: cuda_ms(torch, fn) for name, fn in {
+            "route": lambda: index._route(qs, NPROBE, qcap_f),
+            "prep": lambda: index._scan_inputs(qs, cq_f),
+            "K1": lambda: index._scan(qb_f, None),
+            "recover": lambda: index._recover(qi_f, probes_f, lossy_f, None, None, kk, qcap_f,
+                                              rb_f, rp),
+            "finish": lambda: index._cm_finish_planes(qs, probes_f, slot_f, pp_f, K, kk, True,
+                                                      None, extra=extra_f)}.items()}
+        phase("float", t0, f"{mode} IVFIndex search_device(q, {K}, {NPROBE}) defaults, "
+              f"{N_QUERIES} queries {wall_f:.1f}s: engine={index.last_engine} auto_recover="
+              f"{index._auto_recover(BATCH, NPROBE)} residual last_spill={residual_f} "
+              f"launches={launch_f} recall@10={r10_f:.4f} recall@1={r1_f:.4f} (int8 index "
+              f"{r10:.4f}, {r1:.4f}); one B={BATCH} call {call_ms} ms on {card}; stages ms "
+              f"{stage_f}")
+        if index.last_engine != "pallas_accum" or min(launch_f["K1"], launch_f["K4"]) < 1:
+            raise AssertionError(f"{mode} default call: engine {index.last_engine}, launches "
+                                 f"{launch_f} (K1 and the recovery pass's K4 expected)")
+        if any(residual_f):
+            raise AssertionError(f"{mode}: pairs still dropped after recovery: {residual_f}")
+        return r10_f, r1_f
+
+    t = time.time()
+    fidx = IVFIndex.build(base, nlist=NLIST, metric="l2", pad_block=PAD_BLOCK,
+                          centroids=int8_centroids, device=dev)
+    fidx._ensure_kernel_state()
+    torch.cuda.synchronize()
+    phase("float", t0, f"IVFIndex.build(nlist={NLIST}, metric='l2', pad_block={PAD_BLOCK}, "
+          f"centroids=the int8 index's) {time.time() - t:.1f}s: dtype={fidx.dtype} vectors_t "
+          f"{tuple(fidx._arrays['vectors_t'].shape)} {fidx._arrays['vectors_t'].dtype}")
+    if fidx.dtype != "fp32":
+        raise AssertionError(f"IVFIndex.build defaulted to {fidx.dtype}, not fp32")
+    r10_f32, r1_f32 = float_ivf(fidx, "fp32")
+    if r10_f32 < 0.99 or r1_f32 < r1:
+        raise AssertionError(f"fp32 IVF recall@10 {r10_f32} below 0.99 or recall@1 {r1_f32} "
+                             f"below the int8 index's {r1}")
+    arrays_f = (fidx._centroids_np, fidx._vectors_np, fidx._offsets_np, fidx._reorder_np)
+    config_f = dict(fidx.config)
+    del fidx
+    torch.cuda.empty_cache()
+    bidx = IVFIndex.from_arrays(*arrays_f, metric="l2", dtype="bf16", pad_block=PAD_BLOCK,
+                                config=config_f, device=dev)
+    bidx._ensure_kernel_state()
+    float_ivf(bidx, "bf16")
+    del bidx, arrays_f
+    torch.cuda.empty_cache()
+
+    # Brute force: the defaults (ip, bf16, accum = K5, rescored), K5 fp32 on
+    # an L2 accum index (the augmented dimension), and K3 bf16 (engine="pallas").
+    gt_ip = ground_truth(base, queries, K, metric="ip", device=dev, query_chunk=512)
+
+    def gemm_ms(qx, bt):
+        """The product alone, one PyTorch call per column block of 1/8 (the
+        whole [8192, 1M] fp32 output would be 34 GB): fp32 with TF32 off,
+        bf16 through torch.mm(out_dtype=float32)."""
+        step = -(-bt.shape[1] // 8)
+        if qx.dtype == torch.bfloat16:
+            return sum(cuda_ms(torch, lambda s=s: torch.mm(qx, bt[:, s:s + step],
+                                                           out_dtype=torch.float32), reps=3)
+                       for s in range(0, bt.shape[1], step))
+        return sum(cuda_ms(torch, lambda s=s: torch.mm(qx, bt[:, s:s + step]), reps=3)
+                   for s in range(0, bt.shape[1], step))
+
+    def brute_float(index, mode, gt_, floor):
+        """K5 of an accum index against its plain version on one B=8192
+        batch, timed beside the GEMM alone; then all queries, counted."""
+        ba_ = index._arrays
+        tiles = ba_["base_tiles"]
+        qx = index._augment(q_full)
+        kw = dict(group=index._acc_group, depth=index._acc_depth)
+        v, i = bruteforce_accum.fused_topk_accum(qx, tiles, N_BASE, kq, **kw)
+        rv, ri = bruteforce_accum.fused_topk_accum_reference(qx, tiles, N_BASE, kq, **kw)
+        torch.cuda.synchronize()
+        if not bits_equal(v, rv) or not torch.equal(i, ri):
+            raise AssertionError(f"K5 {mode} differs from its plain version at B={BATCH}")
+        dp = tiles.shape[1]
+        bt = tiles.permute(1, 0, 2).reshape(dp, -1)[:, :N_BASE].contiguous()
+        name = f"K5 {mode}"
+        fl[name] = dict(
+            err=float((v.double() - rv.double()).abs().max()), ms=cuda_ms(torch, lambda: bruteforce_accum.fused_topk_accum(
+                qx, tiles, N_BASE, kq, **kw), reps=5),
+            plain_ms=cuda_ms(torch, lambda: bruteforce_accum.fused_topk_accum_reference(
+                qx, tiles, N_BASE, kq, **kw), reps=3),
+            lib_ms=gemm_ms(qx, bt),
+            bound=bound(qx.numel() * qx.element_size() + tiles.numel() * tiles.element_size()
+                        + BATCH * kq * 8, 2.0 * BATCH * n_live * dp, floats[mode][1]))
+        del v, i, rv, ri, bt
+        ids_, launch_, wall_ = brute_all(index)
+        r10_ = recall_at_k(ids_, gt_, K)
+        fl[name]["launches"] = launch_["K5"]
+        call_ms = cuda_ms(torch, lambda: index.search_device(q_full, K), reps=5)
+        phase("float", t0, f"BruteForceIndex(metric={index.metric!r}, dtype={index.dtype!r}) "
+              f"engine={index.engine} rescore={index.rescore} tiles {tuple(tiles.shape)}: K5 "
+              f"bit-equal to the plain version at B={BATCH}; {fl[name]}; {N_QUERIES} queries "
+              f"{wall_:.1f}s: launches={launch_} recall@10={r10_:.4f}; one B={BATCH} call "
+              f"{call_ms} ms")
+        if launch_["K5"] < 1 or r10_ < floor:
+            raise AssertionError(f"{mode} accum: launches {launch_}, recall@10 {r10_} below "
+                                 f"{floor}")
+
+    bf_def = BruteForceIndex(base, device=dev)  # every default
+    if (bf_def.metric, bf_def.dtype, bf_def.engine, bf_def.rescore) != ("ip", "bf16", "accum",
+                                                                         True):
+        raise AssertionError(f"BruteForceIndex defaults: {bf_def.metric} {bf_def.dtype} "
+                             f"{bf_def.engine} rescore={bf_def.rescore}")
+    brute_float(bf_def, "bf16", gt_ip, 0.99)
+    del bf_def
+    torch.cuda.empty_cache()
+    bf_f32 = BruteForceIndex(base, metric="l2", dtype="fp32", device=dev)
+    brute_float(bf_f32, "fp32", gt, 0.99)
+    del bf_f32
+    torch.cuda.empty_cache()
+
+    bf_k3 = BruteForceIndex(base, metric="l2", dtype="bf16", engine="pallas", rescore=True,
+                            device=dev)
+    bt3 = bf_k3._arrays["base_t"]
+    q3 = bf_k3._augment(q_full)
+    k3_eq, k3_err = {}, 0.0
+    for nbins in (0, 128):  # the exact mode and the rescore's binned mode
+        v, i = bruteforce_fused.fused_topk_matmul(q3[:1024], bt3, kq, nbins=nbins)
+        rv, ri = bruteforce_fused.fused_topk_matmul_reference(q3[:1024], bt3, kq, nbins=nbins)
+        torch.cuda.synchronize()
+        k3_eq[nbins] = bits_equal(v, rv) and torch.equal(i, ri)
+        k3_err = max(k3_err, float((v.double() - rv.double()).abs().max()))
+    del v, i, rv, ri
+    if not all(k3_eq.values()):
+        raise AssertionError(f"K3 bf16 differs from its plain version: {k3_eq}")
+    fl["K3 bf16"] = dict(
+        err=k3_err, ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(
+            q3, bt3, kq, nbins=128), reps=3),
+        plain_ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul_reference(
+            q3[:1024], bt3, kq, nbins=128), reps=3),
+        lib_ms=gemm_ms(q3, bt3),
+        bound=bound((q3.numel() + bt3.numel()) * 2 + BATCH * kq * 8,
+                    2.0 * BATCH * N_BASE * bt3.shape[0], BF16_OPS_S))
+    ids_3, launch_3, wall_3 = brute_all(bf_k3)
+    r10_3 = recall_at_k(ids_3, gt, K)
+    fl["K3 bf16"]["launches"] = launch_3["K3"]
+    k3_call_ms = cuda_ms(torch, lambda: bf_k3.search_device(q_full, K), reps=3)
+    # The same search through K3's plain version and the same rescore, over
+    # all queries: the index must return its ids, so its recall is the bf16
+    # algorithm's (the augmented column -|b|^2/2 rounded to bf16), which the
+    # JAX package shares, and not the kernel's.  The exact selection
+    # (nbins=0) beside it tells the rounding from the bins.
+    plain_ids = {0: [], 128: []}
+    for s_ in range(0, N_QUERIES, 1024):
+        qf = torch.from_numpy(np.ascontiguousarray(queries[s_:s_ + 1024])).to(dev)
+        for nbins in plain_ids:
+            _, cand = bruteforce_fused.fused_topk_matmul_reference(bf_k3._augment(qf), bt3, kq,
+                                                                   nbins=nbins)
+            plain_ids[nbins].append(bf_k3._rescore_exact(qf, cand, K)[1].cpu().numpy())
+    plain_ids = {nbins: np.concatenate(v) for nbins, v in plain_ids.items()}
+    k3_same = np.array_equal(plain_ids[128], ids_3)
+    phase("float", t0, f"BruteForceIndex(metric='l2', dtype='bf16', engine='pallas', "
+          f"rescore=True): K3 bf16 bit-equal to the plain version at B=1024 (nbins 0 and "
+          f"128: {k3_eq}); {fl['K3 bf16']} (ms at B={BATCH}, plain at B=1024); {N_QUERIES} "
+          f"queries {wall_3:.1f}s: launches={launch_3} recall@10={r10_3:.4f} (int8 "
+          f"{r10_p:.4f}), ids equal to the plain path's on all queries: {k3_same}, the plain "
+          f"path with the exact selection recall@10={recall_at_k(plain_ids[0], gt, K):.4f}; "
+          f"one B={BATCH} call {k3_call_ms} ms")
+    if launch_3["K3"] < 1 or not k3_same or r10_3 < 0.99:
+        raise AssertionError(f"bf16 engine='pallas': launches {launch_3}, ids equal to the "
+                             f"plain path {k3_same}, recall@10 {r10_3}")
+    del bf_k3, bt3, q3
+    torch.cuda.empty_cache()
+
     kernels = [
-        {"name": "cluster_major_accum_planes", "route": "cuda",
+        {"name": "cluster_major_accum_planes", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf_dma.py:371",
          "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
@@ -1311,14 +1631,14 @@ def main() -> None:
          "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": k2_lib_ms},
-        {"name": "cluster_major_scan_grouped", "route": "cuda",
+        {"name": "cluster_major_scan_grouped", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:144",
          "launches": launches["K4"], "max_abs_err": max(k4[n]["err"] for n in k4),
          "ms": k4["recovery"]["ms"], "plain_ms": k4["recovery"]["plain_ms"],
          "bound_ms": k4["recovery"]["bound"][0], "bound_by": k4["recovery"]["bound"][1],
          "library_ms": None},
-        {"name": "fused_topk_matmul", "route": "cuda",
+        {"name": "fused_topk_matmul", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/bruteforce_fused.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce.py:193",
          "launches": launch_p["K3"],
@@ -1326,7 +1646,7 @@ def main() -> None:
          "ms": brute["K3 int8-L2 bin128"]["ms"], "plain_ms": brute["K3 int8-L2 bin128"]["plain_ms"],
          "bound_ms": brute["K3 int8-L2 bin128"]["bound"][0],
          "bound_by": brute["K3 int8-L2 bin128"]["bound"][1], "library_ms": None},
-        {"name": "fused_topk_accum", "route": "cuda",
+        {"name": "fused_topk_accum", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/bruteforce_accum.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce_dma.py:212",
          "launches": launch_a["K5"], "max_abs_err": brute["K5 int8-L2"]["err"],
@@ -1393,6 +1713,22 @@ def main() -> None:
          "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
          "library_ms": None},
     ]
+    # The float modes of this slice, one entry per (kernel, mode).
+    for key, name, src, tpu in (
+            ("K1", "cluster_major_accum_planes", "ivf_accum_planes.cu", "pallas_ivf_dma.py:371"),
+            ("K4", "cluster_major_scan_grouped", "ivf_grouped_scan.cu", "pallas_ivf.py:144"),
+            ("K5", "fused_topk_accum", "bruteforce_accum.cu", "pallas_bruteforce_dma.py:212"),
+            ("K3", "fused_topk_matmul", "bruteforce_fused.cu", "pallas_bruteforce.py:193")):
+        for mode in ("fp32", "bf16"):
+            if f"{key} {mode}" not in fl:
+                continue  # K3 fp32 is an int8-slice mode, timed in phase 7
+            r = fl[f"{key} {mode}"]
+            kernels.append({
+                "name": name, "mode": mode, "route": "cuda",
+                "source": f"rag_on_edge_tpu_torch/csrc/{src}",
+                "replaces": f"rag_on_edge_tpu/ops/{tpu}", "launches": r["launches"],
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"]})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

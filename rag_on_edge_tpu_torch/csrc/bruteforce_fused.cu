@@ -8,7 +8,8 @@
 // (n_bound = min(*n_valid, n), or n):
 //   score = int32 dot(q[r], base_t[:, col])                      (mode I8)
 //         = float(dot) * alpha[r] - bias[col], rounded once       (mode I8_L2)
-//         = fp32 dot, summed in d order with fused multiply-adds (mode F32)
+//         = fp32 dot, summed in d order with fused multiply-adds (mode F32;
+//           mode BF16 the same on bf16 operands widened to fp32, exact)
 //   and then the top-k of the row by (score desc, col asc):
 //   - nbins = 0: over all columns (exact);
 //   - nbins = 128: over the survivors of each tile of tile_n columns, the
@@ -21,15 +22,17 @@
 // 128 MB base: about 8,000 MACs per byte read.  With __dp4a (4 MACs per
 // instruction, no tensor cores) the instruction rate is the limit, far
 // above the 3.35 TB/s of device memory.  The fp32 mode (exact ground truth,
-// the fused coarse tier) is bound by fp32 FMAs the same way.
+// the fused coarse tier) and the bf16 mode (the brute-force index's bf16
+// pallas engine) are bound by fp32 FMAs the same way.
 //
 // Design (simple first; wgmma and TMA are later work):
 // - one CTA of 256 threads per 32 query rows: two row groups of 16 rows x
 //   128 lanes, thread = (group, lane), walking all N columns 128 at a time.
 //   The query rows stay in shared memory for the whole walk.
 // - int8: each [D, 128] chunk is staged transposed, one packed column per
-//   lane, and scored with __dp4a, as in K1 (ivf_stage.cuh); fp32: the chunk
-//   is staged in slices of 32 d-rows and scored with fmaf.
+//   lane, and scored with __dp4a, as in K1 (ivf_stage.cuh); fp32 and bf16:
+//   the chunk is staged as fp32 in slices of 32 d-rows (bf16 widened on
+//   load) and scored with fmaf.
 // - selection by threshold: each row's running top-k (k <= 32) sits in
 //   shared memory, and each thread keeps the row's k-th value in a
 //   register.  Only a score above it can enter (an equal one comes from a
@@ -50,6 +53,7 @@
 //   plain version rounds once too, so the scores are bit-equal to both.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "ivf_stage.cuh"
@@ -68,7 +72,7 @@ constexpr int PER_LANE = BUF / 32;
 constexpr int DS = 32;                   // fp32 d-rows staged per slice
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Mode { I8 = 0, I8_L2 = 1, F32 = 2 };
+enum Mode { I8 = 0, I8_L2 = 1, F32 = 2, BF16 = 3 };
 
 __device__ __forceinline__ int32_t fill_of(int32_t) { return INT32_MIN; }
 __device__ __forceinline__ float fill_of(float) { return -INFINITY; }
@@ -188,8 +192,8 @@ __device__ __forceinline__ void push_warp(bool push, T v, int id, int rr, T* buf
 // registers a thread and runs one CTA per SM, 1.5x slower at B = 8192.
 template <typename T, int MODE, bool BINNED>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8 or f32
-                  const void* __restrict__ basev,     // [d, n] int8 or f32
+fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8, f32 or bf16
+                  const void* __restrict__ basev,     // [d, n] int8, f32 or bf16
                   const float* __restrict__ alpha,    // [b] (I8_L2)
                   const float* __restrict__ bias,     // [n] (I8_L2)
                   const int32_t* __restrict__ n_valid,  // [1] or null
@@ -197,6 +201,8 @@ fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8 or f32
                   int32_t* __restrict__ out_i,        // [b, k]
                   int b, int d, int n, int k, int tile_n, int qstride) {
   const T FILL = fill_of(T());
+  constexpr bool FLOAT = MODE == F32 || MODE == BF16;
+  using TIn = std::conditional_t<MODE == BF16, __nv_bfloat16, float>;  // float modes' operands
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int cta_r0 = blockIdx.x * CTA_ROWS;
@@ -219,13 +225,9 @@ fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8 or f32
   }
   if (threadIdx.x < CTA_ROWS) cnt[threadIdx.x] = 0;
   if (threadIdx.x == 0) *flag = 0;
-  if constexpr (MODE == F32) {
-    const float* q = static_cast<const float*>(qv);
-    float* qf = reinterpret_cast<float*>(q_s);
-    for (int i = threadIdx.x; i < CTA_ROWS * qstride; i += THREADS) {
-      const int r = i / qstride, e = i % qstride;
-      qf[i] = (cta_r0 + r < b && e < d) ? q[(size_t)(cta_r0 + r) * d + e] : 0.0f;
-    }
+  if constexpr (FLOAT) {
+    stage_queries_f<THREADS>(static_cast<const TIn*>(qv), b, d, cta_r0, CTA_ROWS, qstride,
+                             reinterpret_cast<float*>(q_s));
   } else {
     stage_queries<THREADS>(static_cast<const int8_t*>(qv), b, d, cta_r0, CTA_ROWS, qstride,
                            reinterpret_cast<int8_t*>(q_s));
@@ -258,8 +260,8 @@ fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8 or f32
   for (int c = 0; c < nchunks; ++c) {
     const int col = c * LANES + lane;
     T x[ROWS];
-    if constexpr (MODE == F32) {
-      const float* base = static_cast<const float*>(basev);
+    if constexpr (FLOAT) {
+      const TIn* base = static_cast<const TIn*>(basev);
       const float* qf = reinterpret_cast<const float*>(q_s) + r0 * qstride;
       float* cf = reinterpret_cast<float*>(col_s);
       float acc[ROWS];
@@ -268,7 +270,7 @@ fused_topk_kernel(const void* __restrict__ qv,        // [b, d] int8 or f32
       for (int d0 = 0; d0 < qstride; d0 += DS) {
         for (int i = threadIdx.x; i < DS * LANES; i += THREADS) {
           const int e = d0 + i / LANES, cc = c * LANES + i % LANES;
-          cf[i] = (e < d && cc < n) ? base[(size_t)e * n + cc] : 0.0f;
+          cf[i] = (e < d && cc < n) ? widen(base[(size_t)e * n + cc]) : 0.0f;
         }
         __syncthreads();
         const int lim = min(DS, qstride - d0);
@@ -363,8 +365,9 @@ int launch(const void* q, const void* base, const void* alpha, const void* bias,
            const void* n_valid, void* out_v, void* out_i, int b, int d, int n, int k,
            int tile_n, cudaStream_t stream) {
   // Words (int8: 4 dims) or floats per staged query row, a multiple of 4.
-  const int qstride = MODE == F32 ? (d + 3) / 4 * 4 : ((d + 3) / 4 + 3) / 4 * 4;
-  const size_t col = MODE == F32 ? (size_t)DS * LANES : (size_t)LANES * (qstride + 1);
+  constexpr bool FLOAT = MODE == F32 || MODE == BF16;
+  const int qstride = FLOAT ? (d + 3) / 4 * 4 : ((d + 3) / 4 + 3) / 4 * 4;
+  const size_t col = FLOAT ? (size_t)DS * LANES : (size_t)LANES * (qstride + 1);
   const size_t smem = ((size_t)CTA_ROWS * (K_MAX + BUF) * 2 + CTA_ROWS + 4
                        + (size_t)CTA_ROWS * qstride + col) * 4;
   if (smem > 48 * 1024) {
@@ -395,7 +398,8 @@ int launch_binned(bool binned, const void* q, const void* base, const void* alph
 
 // C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).  mode: 0 int8 (int32 out), 1 int8 L2
-// (alpha [b], bias [n]; f32 out), 2 fp32 (f32 out).  `n_valid` may be null.
+// (alpha [b], bias [n]; f32 out), 2 fp32 and 3 bf16 (q and base_t both of
+// that type; f32 out).  `n_valid` may be null.
 // The wrapper guarantees 1 <= k <= 32, k <= n, nbins 0 or 128, tile_n a
 // multiple of 128, and d <= 512.
 extern "C" int bruteforce_fused_topk(const void* q, const void* base_t, const void* alpha,
@@ -412,6 +416,8 @@ extern "C" int bruteforce_fused_topk(const void* q, const void* base_t, const vo
                                                    out_v, out_i, b, d, n, k, tile_n, s);
     case F32: return launch_binned<float, F32>(binned, q, base_t, alpha, bias, n_valid, out_v,
                                                out_i, b, d, n, k, tile_n, s);
+    case BF16: return launch_binned<float, BF16>(binned, q, base_t, alpha, bias, n_valid,
+                                                 out_v, out_i, b, d, n, k, tile_n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,8 @@
 // Kernels K1 and K9 of the IVF search path: the cluster-major fine scan with
-// packed accumulation.  K1 (entry ivf_accum_planes_i8) emits per-lane-bin
-// top-2 "planes" of packed int32 keys; K9 (entry ivf_accum_extract_i8, at the
-// end of this file) emits an exact top-k per routed row.
+// packed accumulation.  K1 (entries ivf_accum_planes_i8 and, for fp32 and
+// bf16 slabs, ivf_accum_planes_f) emits per-lane-bin top-2 "planes" of
+// packed int32 keys; K9 (entry ivf_accum_extract_i8, at the end of this
+// file) emits an exact top-k per routed row.
 //
 // K1 replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
 // cluster_major_accum_planes (its _kernel with planes=True, and _plane_max).
@@ -10,17 +11,22 @@
 // row r of that block:
 //   key(b, r, col) = dots(b, r, col) * 256 - bias[b, col]          (int8 L2)
 //                  | dots(b, r, col) * 256 + ((15 - b % 16) << 4 | col / 128)
+//                  | (monotone(fp32 dots) & ~255) + the same pack   (fp32 / bf16)
 //   masked to KMIN where col >= rows_valid[b],
 //   folded by max over the cluster's blocks b (first block .. t),
 //   then per bin (lane = col % 128) the largest key (plane 1) and the
 //   largest key different from it (plane 2), written to out[t, r, :].
 // Rows of blocks that are not a cluster's last block are not written.
+// Float L2 has no bias rows: it rides an augmented dimension (b' = [b,
+// -|b|^2/2], q' = [q, 1]) that the index already holds in the slabs.
 //
-// What bounds it on the H100: integer multiply-adds.  At the SIFT-1M slice
-// (about 1.1K blocks of 2048 rows, 256 routed rows, D = 128) the scan is
-// 7.4e10 int8 MACs against 0.3 GB of slabs, about 250 MACs per byte read:
-// with dp4a (4 MACs per instruction, no tensor cores) the instruction rate
-// is the limit, not the 3.35 TB/s of device memory.
+// What bounds it on the H100: multiply-adds.  At the SIFT-1M slice (about
+// 1.1K blocks of 2048 rows, 256 routed rows, D = 128) the int8 scan is
+// 7.4e10 MACs against 0.3 GB of slabs, about 250 MACs per byte read: with
+// dp4a (4 MACs per instruction, no tensor cores) the instruction rate is
+// the limit, not the 3.35 TB/s of device memory.  The fp32 mode (D' = 129)
+// is 7.9e10 FFMAs against 1.24 GB: the 67 TFLOP/s of fp32 FMAs bound it
+// (2.4 ms), over six times the bytes' 0.37 ms.
 //
 // Design (simple first; wgmma and TMA are later work):
 // - one CTA of 256 threads per (last block, 32-row tile of the routed
@@ -30,17 +36,25 @@
 //   block loop inside it, so the running max over blocks and the two
 //   planes stay in registers (3 x 16 ints a thread); the TPU kernel's
 //   [qcap, blk] accumulator is never needed.
-// - each block's [D, 128] chunk is staged in shared memory transposed, one
-//   packed column per lane at an odd word stride (no bank conflicts on
-//   the reads), from coalesced 32-bit loads transposed with __byte_perm;
-//   the query rows sit beside it and are read as 16-byte broadcasts.
-// - dot products are __dp4a on packed int8 words, exact in int32.  The
-//   staging and the dot loop are shared with K4 (ivf_stage.cuh).
-// - keys are built on the unsigned bit pattern: (u32)dots << 8 is defined
-//   for negative dots and gives the same bits as JAX's shift_left and
-//   torch's int32 arithmetic.  The wrapper bounds D so that it never wraps.
+// - int8: each block's [D, 128] chunk is staged in shared memory
+//   transposed, one packed column per lane at an odd word stride (no bank
+//   conflicts on the reads), from coalesced 32-bit loads transposed with
+//   __byte_perm; the query rows sit beside it and are read as 16-byte
+//   broadcasts.  Dot products are __dp4a on packed int8 words, exact in
+//   int32.
+// - fp32 / bf16: the chunk is staged as fp32, d-row major (lane l reads
+//   word e*128 + l), bf16 widened on load, and the query rows as fp32
+//   rows of D' rounded up to 4; dot products are one fmaf a dimension in
+//   d order.  At D' = 129 a chunk and 32 query rows take 84.5 KB of
+//   dynamic shared memory.  The staging and the dot loops are shared with
+//   K4 and K5 (ivf_stage.cuh).
+// - int8 keys are built on the unsigned bit pattern: (u32)dots << 8 is
+//   defined for negative dots and gives the same bits as JAX's shift_left
+//   and torch's int32 arithmetic.  The wrapper bounds D so that it never
+//   wraps.  Float keys are built from the fp32 bit pattern (monotone_key).
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "ivf_stage.cuh"
@@ -54,26 +68,32 @@ constexpr int THREADS = LANES * GROUPS;
 constexpr int CODE_MAX = 16;                 // block codes (4 bits)
 constexpr int32_t KMIN = -2147483647;        // -(2**31) + 1: invalid entry
 
+// T: int8_t (the int8 modes) or float / __nv_bfloat16 (the float modes,
+// with no bias rows).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-accum_planes_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap, d]
-                       const int8_t* __restrict__ vec,         // [nblocks, d, blk]
-                       const int32_t* __restrict__ block_first,  // [nblocks]
-                       const int32_t* __restrict__ block_last,   // [nblocks]
-                       const int32_t* __restrict__ rows_valid,   // [nblocks]
-                       const int32_t* __restrict__ bias,       // [nblocks, blk] or null
-                       int32_t* __restrict__ out,              // [nblocks, qcap, nplanes*128]
-                       int qcap, int d, int blk, int nplanes, int qstride) {
+accum_planes_kernel(const T* __restrict__ qg,              // [nblocks, qcap, d]
+                    const T* __restrict__ vec,             // [nblocks, d, blk]
+                    const int32_t* __restrict__ block_first,  // [nblocks]
+                    const int32_t* __restrict__ block_last,   // [nblocks]
+                    const int32_t* __restrict__ rows_valid,   // [nblocks]
+                    const int32_t* __restrict__ bias,      // [nblocks, blk] or null (int8)
+                    int32_t* __restrict__ out,             // [nblocks, qcap, nplanes*128]
+                    int qcap, int d, int blk, int nplanes, int qstride) {
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int r0 = (blockIdx.y * GROUPS + group) * ROWS;  // this group's first row
-  const int cstride = qstride + 1;  // odd word stride: conflict-free column reads
+  const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
 
+  // Query rows [GROUPS*ROWS][qstride] words (int8: 4 dims a word; float:
+  // one fp32 a word), then the chunk (int8: [LANES][cstride] words; float:
+  // [qstride][LANES] fp32).
   extern __shared__ int4 smem4[];
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);   // [GROUPS*ROWS][qstride] words
-  int8_t* q_b = reinterpret_cast<int8_t*>(smem4);
-  int32_t* col_s = q_s + GROUPS * ROWS * qstride;     // [LANES][cstride] words
+  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
+  int32_t* col_s = q_s + GROUPS * ROWS * qstride;
   const int32_t* my_q = q_s + group * ROWS * qstride;
 
   int tb = t;  // the cluster's first block
@@ -93,26 +113,47 @@ accum_planes_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap
     for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
 
     for (int b = tb; b <= t; ++b) {
-      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
+      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
+      const T* qsrc = qg + (size_t)b * qcap * d;
       // The routed rows change only with the block: load them once for a
       // one-block cluster, per block otherwise.
-      if (c == 0 || nb > 1)
-        stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
-                               qstride, q_b);
+      const bool load_q = c == 0 || nb > 1;
+      if constexpr (INT8) {
+        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
+        if (load_q)
+          stage_queries<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
+                                 reinterpret_cast<int8_t*>(q_s));
+      } else {
+        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
+        if (load_q)
+          stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
+                                   reinterpret_cast<float*>(q_s));
+      }
       __syncthreads();
-
-      int32_t acc[ROWS];
-      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
 
       const bool valid = col < rows_valid[b];
       const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
-      const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
+      if constexpr (INT8) {
+        int32_t acc[ROWS];
+        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+        const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const uint32_t shifted = (uint32_t)acc[r] << 8;
-        const int32_t key = valid ? (int32_t)(bias != nullptr ? shifted - sub : shifted | pack)
-                                  : KMIN;
-        m[r] = max(m[r], key);
+        for (int r = 0; r < ROWS; ++r) {
+          const uint32_t shifted = (uint32_t)acc[r] << 8;
+          const int32_t key = valid ? (int32_t)(bias != nullptr ? shifted - sub : shifted | pack)
+                                    : KMIN;
+          m[r] = max(m[r], key);
+        }
+      } else {
+        float acc[ROWS];
+        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                         reinterpret_cast<const float*>(my_q), qstride, acc);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(acc[r]) & ~255u) | pack)
+                                    : KMIN;
+          m[r] = max(m[r], key);
+        }
       }
       __syncthreads();  // col_s / q_s are rewritten next
     }
@@ -140,30 +181,52 @@ accum_planes_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap
   }
 }
 
-}  // namespace
-
-// C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).  `bias` may be null (no-bias mode).
-extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* block_first,
-                                   const void* block_last, const void* rows_valid,
-                                   const void* bias, void* out, int nblocks, int qcap, int d,
-                                   int blk, int nplanes, void* stream) {
+template <typename T>
+int launch_planes(const void* qg, const void* vec, const void* block_first,
+                  const void* block_last, const void* rows_valid, const void* bias, void* out,
+                  int nblocks, int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
   if (nblocks == 0 || qcap == 0) return 0;
-  const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
+  const int qstride = stage_row_words<T>(d);
   const size_t smem =
-      (size_t)(GROUPS * ROWS * qstride + LANES * (qstride + 1)) * sizeof(int32_t);
+      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<T>(qstride)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(accum_planes_i8_kernel,
+    cudaError_t e = cudaFuncSetAttribute(accum_planes_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
-  accum_planes_i8_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
+  accum_planes_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(qg), static_cast<const T*>(vec),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
       static_cast<int32_t*>(out), qcap, d, blk, nplanes, qstride);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entries for ctypes.  Each launches on `stream`, allocates nothing, and
+// returns cudaGetLastError() (0 = launched).
+// int8: `bias` may be null (no-bias mode).
+extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* block_first,
+                                   const void* block_last, const void* rows_valid,
+                                   const void* bias, void* out, int nblocks, int qcap, int d,
+                                   int blk, int nplanes, void* stream) {
+  return launch_planes<int8_t>(qg, vec, block_first, block_last, rows_valid, bias, out,
+                               nblocks, qcap, d, blk, nplanes, static_cast<cudaStream_t>(stream));
+}
+
+// fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec, no bias rows; vec 16-byte
+// aligned.
+extern "C" int ivf_accum_planes_f(const void* qg, const void* vec, const void* block_first,
+                                  const void* block_last, const void* rows_valid, void* out,
+                                  int nblocks, int qcap, int d, int blk, int nplanes, int bf16,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_planes<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid,
+                                             nullptr, out, nblocks, qcap, d, blk, nplanes, s)
+              : launch_planes<float>(qg, vec, block_first, block_last, rows_valid, nullptr,
+                                     out, nblocks, qcap, d, blk, nplanes, s);
 }
 
 // ---------------------------------------------------------------------------

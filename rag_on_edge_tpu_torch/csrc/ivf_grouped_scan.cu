@@ -2,7 +2,8 @@
 // with a per-row running top-k over binned survivors, with three sources of
 // the routed queries; and K10, the kernel lab's four variants of K6.
 //
-// K4 (entry ivf_grouped_scan_i8) replaces the TPU kernel
+// K4 (entries ivf_grouped_scan_i8 and, for fp32 and bf16 slabs,
+// ivf_grouped_scan_f) replaces the TPU kernel
 // rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
 // _grouped_kernel, with binned_top2 and _extract_topk from
 // pallas_bruteforce.py): the routed queries come per block and the output
@@ -39,7 +40,10 @@
 // block_last[t] = 1 (the run starts at the latest block_first at or before
 // t), and each routed query row r:
 //   score(b, r, col) = float(int32 dot(Q(b)[r], vec[b, :, col])) - bias[b, col]
-//                      (no subtraction without bias), -inf for col >= rows_valid[b];
+//                      (int8; no subtraction without bias), or, in K4's float
+//                      modes, the fp32 dot of fp32 or bf16 operands minus the
+//                      bias where one is given (the index gives none: its L2
+//                      rides an augmented dimension), -inf for col >= rows_valid[b];
 //   Q(b) = qg[b] for K4, qg[bc[b]] for K6, qi[cq_blocks[b]] for K7;
 //   per block b and bin (col % 128), the DEPTH best (score, id) with
 //   id = row_base[b] + col, ties to the lowest id;
@@ -52,9 +56,9 @@
 // rule, pallas_ivf.py:524-531); a run whose bc[t] is outside [0, nlist)
 // writes nothing.
 //
-// What bounds it on the H100: on the dense walk, integer multiply-adds, as
-// for K1 (with dp4a and no tensor cores the instruction rate is the limit,
-// not memory).  On the recovery pass the kernel walks only the few runs
+// What bounds it on the H100: on the dense walk, multiply-adds, as for K1
+// (with dp4a or fp32 FMAs and no tensor cores the instruction rate is the
+// limit, not memory).  On the recovery pass the kernel walks only the few runs
 // whose last block made the compacted list; most CTAs exit at once.  K7's
 // gather reads the batch (1 MB at B = 8192, d = 128) through L2.
 //
@@ -64,10 +68,12 @@
 //   walks back from t to the run's first block and then forward, one block
 //   at a time, so each block is binned and merged on its own, as on the TPU
 //   (a top-DEPTH per bin folded across blocks would keep fewer candidates).
-// - per block: 16 chunks of 128 columns, each staged transposed in shared
-//   memory and scored with __dp4a (ivf_stage.cuh, shared with K1); each
-//   thread keeps its bin's DEPTH best (score, chunk) per row in registers,
-//   inserted with strict > so an equal score keeps the earlier, lower id.
+// - per block: 16 chunks of 128 columns, each staged in shared memory and
+//   scored with __dp4a (int8) or fmaf (fp32 and bf16, widened to fp32 as
+//   they are staged): the stages and dot loops of ivf_stage.cuh, shared
+//   with K1.  Each thread keeps its bin's DEPTH best (score, chunk) per row
+//   in registers, inserted with strict > so an equal score keeps the
+//   earlier, lower id.
 //   The DEPTH survivors of a bin may be equal in value (K1's plane 2 is the
 //   opposite: the largest key DIFFERENT from plane 1).
 // - then the survivors go to shared memory (reusing the staging area) and
@@ -78,9 +84,10 @@
 //   (row_base differs between blocks), so the winner is removed by id.
 // - score = __int2float_rn(dot) then one __fsub_rn, the JAX kernel's order:
 //   the dot is exact in f32 (|dot| <= D*127^2 < 2^24), so scores are
-//   bit-equal to the plain version.
+//   bit-equal to the plain version.  Only K4 is built for the float modes.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "ivf_stage.cuh"
@@ -115,25 +122,27 @@ enum class QSrc { kBlock, kCluster, kRouted };
 // K10's variants; every other kernel is kFull.
 enum class Variant { kFull, kNoGate, kMaxOnly, kFixedOut };
 
-template <int DEPTH, QSrc SRC, Variant V = Variant::kFull>
+// T: int8_t, or float / __nv_bfloat16 (K4's float modes).
+template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(THREADS)
-grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
-                       const int8_t* __restrict__ vec,          // [nblocks, d, blk]
-                       const int32_t* __restrict__ block_cluster, // [nblocks] (K6 only)
-                       const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7 only)
-                       const int32_t* __restrict__ block_first,   // [nblocks]
-                       const int32_t* __restrict__ block_last,    // [nblocks]
-                       const int32_t* __restrict__ rows_valid,    // [nblocks]
-                       const float* __restrict__ bias,          // [nblocks, blk] or null
-                       const int32_t* __restrict__ row_base,      // [nblocks]
-                       float* __restrict__ out_v,               // see above
-                       int32_t* __restrict__ out_i,             // see above
-                       int qcap, int d, int blk, int k, int qstride,
-                       int nsrc) {  // rows of qg: nlist for K6, B for K7
+grouped_scan_kernel(const T* __restrict__ qg,                // see above
+                    const T* __restrict__ vec,               // [nblocks, d, blk]
+                    const int32_t* __restrict__ block_cluster, // [nblocks] (K6 only)
+                    const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7 only)
+                    const int32_t* __restrict__ block_first,   // [nblocks]
+                    const int32_t* __restrict__ block_last,    // [nblocks]
+                    const int32_t* __restrict__ rows_valid,    // [nblocks]
+                    const float* __restrict__ bias,          // [nblocks, blk] or null
+                    const int32_t* __restrict__ row_base,      // [nblocks]
+                    float* __restrict__ out_v,               // see above
+                    int32_t* __restrict__ out_i,             // see above
+                    int qcap, int d, int blk, int k, int qstride,
+                    int nsrc) {  // rows of qg: nlist for K6, B for K7
   constexpr int ROWS = Tile<DEPTH>::ROWS;
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   constexpr int NCAND = Tile<DEPTH>::NCAND;
   constexpr int PER_LANE = NCAND / 32;
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
   const float NEG_INF = -INFINITY;
 
   const int t = blockIdx.x;
@@ -156,10 +165,13 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   const int group = threadIdx.x / LANES;
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
   const int cta_r0 = blockIdx.y * CTA_ROWS;
-  const int cstride = qstride + 1;  // odd word stride: conflict-free column reads
+  const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
 
   // Shared memory: the running top-k, then a scan area (staged query rows
   // and slab chunk) that the block's survivors reuse once the scan is done.
+  // int8: query rows of qstride words (4 dims a word) and the chunk
+  // [LANES][cstride] words; float: query rows of qstride fp32 and the chunk
+  // [qstride][LANES] fp32.
   extern __shared__ int4 smem4[];
   float* run_v = reinterpret_cast<float*>(smem4);                      // [CTA_ROWS][K_MAX]
   int32_t* run_i = reinterpret_cast<int32_t*>(run_v + CTA_ROWS * K_MAX);
@@ -183,7 +195,11 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   for (int b = tb; b <= t; ++b) {
     const int nvalid = rows_valid[b];
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    if constexpr (SRC == QSrc::kRouted) {
+    if constexpr (!INT8) {
+      static_assert(SRC == QSrc::kBlock, "the float modes are K4's alone");
+      stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
+                               reinterpret_cast<float*>(q_s));
+    } else if constexpr (SRC == QSrc::kRouted) {
       stage_queries_gather<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
                                     CTA_ROWS, qstride, reinterpret_cast<int8_t*>(q_s));
     } else {
@@ -204,16 +220,27 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
       }
 
     for (int c = 0; c < nchunks; ++c) {
-      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
-      __syncthreads();
-      int32_t acc[ROWS];
-      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
+      float sc[ROWS];  // the chunk's scores before the bias
+      if constexpr (INT8) {
+        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
+        __syncthreads();
+        int32_t acc[ROWS];
+        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) sc[r] = __int2float_rn(acc[r]);
+      } else {
+        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
+        __syncthreads();
+        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                         reinterpret_cast<const float*>(my_q), qstride, sc);
+      }
       const int col = c * LANES + lane;
       const bool valid = col < nvalid;
       const float sub = brow != nullptr ? brow[col] : 0.0f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        float x = __int2float_rn(acc[r]);
+        float x = sc[r];
         if (brow != nullptr) x = __fsub_rn(x, sub);
         if (!valid) x = NEG_INF;
         if constexpr (MAX_ONLY) {
@@ -339,26 +366,27 @@ grouped_scan_i8_kernel(const int8_t* __restrict__ qg,           // see above
   }
 }
 
-template <int DEPTH, QSrc SRC, Variant V>
+template <typename T, int DEPTH, QSrc SRC, Variant V>
 int launch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
            const void* block_first, const void* block_last, const void* rows_valid,
            const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
            int qcap, int d, int blk, int k, int nsrc, cudaStream_t stream) {
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
-  const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
+  const int qstride = stage_row_words<T>(d);
   const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
-  const size_t scan = (size_t)(CTA_ROWS * qstride + LANES * (qstride + 1)) * sizeof(int32_t);
+  const size_t scan = ((size_t)CTA_ROWS * qstride + stage_chunk_words<T>(qstride))
+                      * sizeof(int32_t);
   const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
   const size_t smem = run + (scan > cand ? scan : cand);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_i8_kernel<DEPTH, SRC, V>,
+    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_kernel<T, DEPTH, SRC, V>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
-  grouped_scan_i8_kernel<DEPTH, SRC, V><<<grid, THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
+  grouped_scan_kernel<T, DEPTH, SRC, V><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(qg), static_cast<const T*>(vec),
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
@@ -367,7 +395,7 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   return (int)cudaGetLastError();
 }
 
-template <QSrc SRC, Variant V = Variant::kFull>
+template <QSrc SRC, Variant V = Variant::kFull, typename T = int8_t>
 int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
              const void* block_first, const void* block_last, const void* rows_valid,
              const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
@@ -375,8 +403,8 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                        \
-  launch<D, SRC, V>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, bias, \
-                 row_base, out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
+  launch<T, D, SRC, V>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, \
+                       bias, row_base, out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -403,6 +431,21 @@ extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* 
   return dispatch<QSrc::kBlock>(qg, vec, nullptr, nullptr, block_first, block_last, rows_valid,
                                 bias, row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth,
                                 nblocks, stream);
+}
+
+// K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
+// 16-byte aligned.
+extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* block_first,
+                                  const void* block_last, const void* rows_valid,
+                                  const void* bias, const void* row_base, void* out_v,
+                                  void* out_i, int nblocks, int qcap, int d, int blk, int k,
+                                  int depth, int bf16, void* stream) {
+  return bf16 ? dispatch<QSrc::kBlock, Variant::kFull, __nv_bfloat16>(
+                    qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream)
+              : dispatch<QSrc::kBlock, Variant::kFull, float>(
+                    qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream);
 }
 
 // K6: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k].

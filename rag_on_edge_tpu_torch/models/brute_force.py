@@ -18,10 +18,9 @@ scores; it is on by default for the accum engine only.
 
 The index state is built from ``base`` deterministically, array for array
 as the JAX index builds its ``_arrays``, on ``device`` (default
-``"cuda"``).  On CUDA the pallas engine takes int8 and fp32 (bf16 raises)
-and the accum engine int8 only: the defaults (``dtype="bf16"``) reach the
-accum engine's float path once N >= 100,000 and raise there; both are
-ROADMAP Queue 1 item 14.  Return order is the JAX package's:
+``"cuda"``).  On CUDA both kernels run every dtype (int8, fp32 and bf16),
+so the defaults (``dtype="bf16"``, the accum engine once N >= 100,000)
+run on the card.  Return order is the JAX package's:
 :meth:`search_device` → (scores, ids), :meth:`search` → (ids, scores).
 """
 

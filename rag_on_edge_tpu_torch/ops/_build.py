@@ -25,12 +25,18 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library", "check_inputs", "aligned"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "FLOAT_DIM_MAX", "load_library",
+           "check_inputs", "check_float", "aligned"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+# The float stage of csrc/ivf_stage.cuh (K1, K4 and K5) holds a [D, 128]
+# chunk and 32 query rows as fp32 in the 227 KB of shared memory a CTA may
+# have.
+FLOAT_DIM_MAX = 320
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -80,9 +86,10 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def check_inputs(name: str, dev, tensors, refuse_float: bool = False) -> None:
     """What every kernel wrapper refuses on the card: a device that is not
-    CUDA, with ``refuse_float`` the fp32/bf16 modes (ROADMAP Queue 1 item
-    14), and inputs (``None`` skipped) that are not contiguous on ``dev``.
-    There is no fallback to the plain version: the wrapper raises."""
+    CUDA, with ``refuse_float`` the fp32/bf16 modes of the kernels ported
+    for int8 only (K6, K7, K9 and K10: ROADMAP Queue 1 item 14), and inputs
+    (``None`` skipped) that are not contiguous on ``dev``.  There is no
+    fallback to the plain version: the wrapper raises."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if refuse_float:
@@ -96,6 +103,15 @@ def check_inputs(name: str, dev, tensors, refuse_float: bool = False) -> None:
             raise ValueError(f"all {name} inputs must be on one device")
         if not x.is_contiguous():
             raise ValueError(f"{name} inputs must be contiguous")
+
+
+def check_float(name: str, queries, base, d: int, d_max: int = FLOAT_DIM_MAX) -> None:
+    """What a kernel's float modes take on the card: fp32 or bf16 queries
+    and base in one dtype (the kernel widens both the same way), and
+    ``D <= d_max``."""
+    if queries.dtype != base.dtype or d > d_max:
+        raise ValueError(f"the CUDA {name} takes fp32 or bf16 operands in one dtype and "
+                         f"D <= {d_max}; got {queries.dtype} x {base.dtype}, D={d}")
 
 
 def aligned(x, nbytes: int):

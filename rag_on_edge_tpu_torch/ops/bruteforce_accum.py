@@ -25,8 +25,8 @@ bin (column mod tile_n); callers rescore.
 
 :func:`fused_topk_accum` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_accum_reference`, CUDA tensors launch
-``csrc/bruteforce_accum.cu`` (int8 ± bias rows; the float path raises) or
-raise.
+``csrc/bruteforce_accum.cu`` (int8 ± bias rows, D <= 1024; fp32 or bf16
+with queries and tiles in one dtype, D <= 320) or raise.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ _CUDA_TILE_MAX = 2048
 _CUDA_DIM_MAX = 1024
 
 _FN = None
+_FLOAT_FN = None
 
 
 def tile_base(base_t, tile_n: int, depth: int):
@@ -190,13 +191,25 @@ def _kernel():
     return _FN
 
 
+def _float_kernel():
+    """Build/load the CUDA library once and declare the float entry's types."""
+    global _FLOAT_FN
+    if _FLOAT_FN is None:
+        fn = _build.load_library("bruteforce_accum").bruteforce_accum_topk_f
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FLOAT_FN = fn
+    return _FLOAT_FN
+
+
 def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
                      bias_rows=None):
     """K5 with the JAX signature → (vals [B, k], ids [B, k] int32), best
     first; see the module docstring.  ``tile_b`` and ``depth`` shape the TPU
     kernel's pipeline only and do not change the result.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (int8 ± bias rows,
-    tile_n a multiple of 128 up to 2048, D <= 1024) or raise."""
+    the plain version; CUDA tensors launch the kernel (tile_n a multiple of
+    128 up to 2048; int8 ± bias rows with D <= 1024, or fp32 or bf16 queries
+    and tiles in one dtype with D <= 320) or raise."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -204,24 +217,30 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
                                           group=group, depth=depth, bias_rows=bias_rows)
     n_tiles, d, tile_n, int_path, l2 = _check(queries, base_tiles, n, k, group, depth,
                                               bias_rows)
-    _build.check_inputs("K5", dev, [queries, base_tiles, bias_rows if l2 else None],
-                        refuse_float=not int_path)
+    _build.check_inputs("K5", dev, [queries, base_tiles, bias_rows if l2 else None])
     if tile_n % 128 or tile_n > _CUDA_TILE_MAX or d > _CUDA_DIM_MAX:
         raise ValueError(f"the CUDA K5 takes tile_n a multiple of 128 up to {_CUDA_TILE_MAX} "
                          f"and D <= {_CUDA_DIM_MAX}; got tile_n={tile_n}, D={d}")
+    if not int_path:
+        _build.check_float("K5", queries, base_tiles, d)
+        base_tiles = _build.aligned(base_tiles, 16)  # 16-byte loads along tile_n
     b = queries.shape[0]
     # The per-bin running keys and columns between the two passes.
     rv = torch.empty((b, tile_n), dtype=torch.int32, device=dev)
     ri = torch.empty((b, tile_n), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.int32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(queries.data_ptr(), base_tiles.data_ptr(),
-                 bias_rows.data_ptr() if l2 else None, rv.data_ptr(), ri.data_ptr(),
-                 vals.data_ptr(), ids.data_ptr(), b, d, tile_n, n, k, group, stream)
+        if int_path:
+            err = _kernel()(queries.data_ptr(), base_tiles.data_ptr(),
+                            bias_rows.data_ptr() if l2 else None, rv.data_ptr(), ri.data_ptr(),
+                            vals.data_ptr(), ids.data_ptr(), b, d, tile_n, n, k, group, stream)
+        else:
+            err = _float_kernel()(queries.data_ptr(), base_tiles.data_ptr(), rv.data_ptr(),
+                                  ri.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, d, tile_n,
+                                  n, k, group, int(base_tiles.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_accum_topk launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return vals, ids
+    return (vals if int_path else _key_to_f32(vals)), ids

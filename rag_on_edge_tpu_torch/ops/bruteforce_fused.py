@@ -25,8 +25,8 @@ Only entries above the fill value carry meaning; the ids of fill entries
 
 :func:`fused_topk_matmul` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_matmul_reference`, CUDA tensors launch
-``csrc/bruteforce_fused.cu`` (int8, int8 L2 and fp32; bf16 raises) or
-raise.
+``csrc/bruteforce_fused.cu`` (int8, int8 L2, and fp32 or bf16 with queries
+and base in one dtype) or raise.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ LAUNCHES = 0
 _CUDA_K_MAX = 32
 _CUDA_NBINS = 128
 _CUDA_DIM_MAX = 512
-_MODES = {"i8": 0, "i8_l2": 1, "f32": 2}
+_MODES = {"i8": 0, "i8_l2": 1, "f32": 2, "bf16": 3}
 
 _FN = None
 
@@ -153,8 +153,8 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     ``n_valid``: optional 1-element int32 tensor, the count of valid
     leading columns (at most N).  ``alpha`` [B] / ``bias`` [N]: the int8 L2
     mode (both or neither).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (int8 ± L2 and fp32, nbins 0 or 128,
-    k <= 32, D <= 512) or raise."""
+    tensors launch the kernel (int8 ± L2, and fp32 or bf16 with queries
+    and base_t in one dtype; nbins 0 or 128, k <= 32, D <= 512) or raise."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -168,18 +168,18 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         bias = bias.to(torch.float32).reshape(-1).contiguous()
     if n_valid is not None:
         n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
-    # K3 takes fp32 as well as int8: only bf16 is refused.
     _build.check_inputs("K3", dev, [queries, base_t, alpha if l2 else None,
                                     bias if l2 else None, n_valid])
-    if not int_path and torch.bfloat16 in (queries.dtype, base_t.dtype):
-        raise NotImplementedError(
-            "the CUDA K3 covers int8, int8 L2 and fp32; bf16 inputs on CUDA are "
-            "ROADMAP Queue 1 item 14 (use the plain version)")
+    if not int_path:
+        _build.check_float("K3", queries, base_t, d, _CUDA_DIM_MAX)
     if nbins not in (0, _CUDA_NBINS) or k > _CUDA_K_MAX or d > _CUDA_DIM_MAX:
         raise ValueError(
             f"the CUDA K3 takes nbins 0 or {_CUDA_NBINS}, k <= {_CUDA_K_MAX} and D <= "
             f"{_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, D={d}")
-    mode = "f32" if not int_path else ("i8_l2" if l2 else "i8")
+    if int_path:
+        mode = "i8_l2" if l2 else "i8"
+    else:
+        mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
     vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
                        device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)

@@ -22,7 +22,8 @@ rows are defined.
 
 :func:`cluster_major_accum_planes` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_accum_planes_reference`, CUDA
-tensors launch ``csrc/ivf_accum_planes.cu`` (int8 modes) or raise.
+tensors launch ``csrc/ivf_accum_planes.cu`` (int8 ± bias rows, and fp32
+or bf16, both operands in one dtype, D <= 320) or raise.
 
 K9, :func:`cluster_major_accum`, is the older extract emit of the same
 scan.  Its key has a 4-bit pack, the block code alone::
@@ -77,6 +78,7 @@ _EXTRACT_FN = None
 # card is exact.
 _CUDA_K_MAX = 32
 _CUDA_DIM_MAX = 1024
+_FLOAT_FN = None
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -189,11 +191,23 @@ def _kernel():
     return _FN
 
 
+def _float_kernel():
+    """Build/load the CUDA library once and declare the float entry's types."""
+    global _FLOAT_FN
+    if _FLOAT_FN is None:
+        fn = _build.load_library("ivf_accum_planes").ivf_accum_planes_f
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FLOAT_FN = fn
+    return _FLOAT_FN
+
+
 def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
                                rows_valid, blk=2048, bin2=True, bias_rows=None):
     """K1 with the JAX signature → planes ``[nblocks, qcap, planes·128]``
     int32; see the module docstring.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (int8 modes) or raise."""
+    CUDA tensors launch the kernel (int8 ± bias rows; fp32 or bf16 with
+    both operands in one dtype and D <= 320) or raise."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -203,18 +217,26 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
     nblocks, qcap, d, int_path = _check(qg_blocks, vectors_t, block_first,
                                         block_last, rows_valid, blk, bias_rows)
     _build.check_inputs("K1", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
-                                    bias_rows], refuse_float=not int_path)
+                                    bias_rows])
+    if not int_path:
+        _build.check_float("K1", qg_blocks, vectors_t, d)
+        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
     nplanes = 2 if bin2 else 1
     out = torch.empty((nblocks, qcap, nplanes * 128), dtype=torch.int32, device=dev)
-    fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
-                 block_last.data_ptr(), rows_valid.data_ptr(),
-                 bias_rows.data_ptr() if bias_rows is not None else None,
-                 out.data_ptr(), nblocks, qcap, d, blk, nplanes, stream)
+        if int_path:
+            err = _kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
+                            block_last.data_ptr(), rows_valid.data_ptr(),
+                            bias_rows.data_ptr() if bias_rows is not None else None,
+                            out.data_ptr(), nblocks, qcap, d, blk, nplanes, stream)
+        else:
+            err = _float_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(),
+                                  block_first.data_ptr(), block_last.data_ptr(),
+                                  rows_valid.data_ptr(), out.data_ptr(), nblocks, qcap, d, blk,
+                                  nplanes, int(vectors_t.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"ivf_accum_planes_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"ivf_accum_planes launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
 

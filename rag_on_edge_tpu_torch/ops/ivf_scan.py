@@ -18,7 +18,9 @@ and ids are compared only where ``pv > -inf``.
 
 :func:`cluster_major_scan_grouped` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
-launch ``csrc/ivf_grouped_scan.cu`` (int8 ± bias) or raise.
+launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
+operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 launch
+their kernels for int8 only.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -71,6 +73,7 @@ _CUDA_DEPTH_MAX = 4
 _CUDA_DIM_MAX = 1024
 
 _FN = None
+_FLOAT_FN = None
 _CLUSTER_FN = None
 _ROUTED_FN = None
 
@@ -203,6 +206,17 @@ def _kernel():
     return _FN
 
 
+def _float_kernel():
+    """Build/load the CUDA library once and declare K4's float entry's types."""
+    global _FLOAT_FN
+    if _FLOAT_FN is None:
+        fn = _build.load_library("ivf_grouped_scan").ivf_grouped_scan_f
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FLOAT_FN = fn
+    return _FLOAT_FN
+
+
 def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
                                rows_valid, k, blk=2048, group=4, nbins=128,
                                bin_depth=2, bias=None, row_base=None):
@@ -212,7 +226,8 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     ``row_base`` [nblocks] int32 is each block's first row id (default
     ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024) or raise."""
+    (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024; fp32 or
+    bf16 in one dtype, D <= 320) or raise."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -225,19 +240,25 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
-                                    row_base, bias], refuse_float=not int_path)
+                                    row_base, bias])
     _check_cuda_limits("K4", nbins, k, bin_depth, d)
+    if not int_path:
+        _build.check_float("K4", qg_blocks, vectors_t, d)
+        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
-    fn = _kernel()
+    args = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
+            block_last.data_ptr(), rows_valid.data_ptr(),
+            bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+            pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k, bin_depth)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
-                 block_last.data_ptr(), rows_valid.data_ptr(),
-                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                 pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k, bin_depth, stream)
+        if int_path:
+            err = _kernel()(*args, stream)
+        else:
+            err = _float_kernel()(*args, int(vectors_t.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"ivf_grouped_scan_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"ivf_grouped_scan launch failed: CUDA error {err}")
     LAUNCHES += 1
     return pv, pr
 

@@ -140,8 +140,7 @@ class ShardedBruteForceIndex:
     valid columns) or "xla" (the shard's score matrix, then a selection).
     rescore: the quantized paths select 2k per shard and re-rank them
     against the shard's fp32 rows before the merge.  On CUDA, K3 takes
-    int8 and fp32; bf16 with ``engine="pallas"`` raises there (ROADMAP
-    Queue 1 item 14).
+    every dtype (int8, fp32 and bf16).
     """
 
     def __init__(self, base: np.ndarray, devices, metric: str = "ip", dtype: str = "bf16",

@@ -68,12 +68,47 @@ def test_k1_kernel_bit_equal_to_plain(dev, sizes, blk, qcap, d, bias, bin2):
     assert torch.equal(got[rows], want[rows])
 
 
+FLOAT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", [
+    ([2000, 0, 5000, 129], 2048, 40, 129),   # multi-block and empty clusters, D' odd
+    ([700, 300, 129, 2000], 256, 100, 37),   # ragged qcap tile, d % 4 != 0
+    ([700, 300], 256, 40, 320),              # the widest D the float stage holds
+])
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
+def test_k1_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, bin2):
+    """Integer values in [-127, 127]: bf16 holds them exactly and every fp32
+    sum is exact, so the planes are bit-equal.  Every 7th routed row is
+    zero, as an empty slot of the routed table: its scores are exact zeros."""
+    rng = np.random.default_rng(16)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d)
+    qg[:, ::7] = 0
+    qg, vt = (torch.from_numpy(x).to(dev, FLOAT_DTYPES[dtype]) for x in (qg, vt))
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    before = ivf_accum.LAUNCHES
+    got = ivf_accum.cluster_major_accum_planes(qg, vt, bf, bl, rv, blk=blk, bin2=bin2)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg, vt, bf, bl, rv, blk=blk,
+                                                          bin2=bin2)
+    torch.cuda.synchronize()
+    assert ivf_accum.LAUNCHES == before + 1
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(got[rows], want[rows])
+
+
 def test_k1_kernel_refuses_float(dev):
+    """The float modes the CUDA K1 does not take: operands of two dtypes,
+    and D past what its shared memory stages."""
     rng = np.random.default_rng(15)
     qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
                           for x in _k1_inputs(rng, [100], 128, 8, 16))
-    with pytest.raises(NotImplementedError):
-        ivf_accum.cluster_major_accum_planes(qg.float(), vt.float(), bf, bl, rv, blk=128)
+    with pytest.raises(ValueError, match="one dtype"):
+        ivf_accum.cluster_major_accum_planes(qg.float(), vt.bfloat16(), bf, bl, rv, blk=128)
+    wide = torch.zeros((qg.shape[0], 8, 330), device=dev)
+    with pytest.raises(ValueError, match="D <= 320"):
+        ivf_accum.cluster_major_accum_planes(wide, torch.zeros((qg.shape[0], 330, 128),
+                                                               device=dev), bf, bl, rv, blk=128)
 
 
 def _ties():
@@ -154,13 +189,84 @@ def test_k4_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias
     assert torch.equal(pr[rows][fin], rr[rows][fin])
 
 
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
+    ([2000, 0, 5000, 129, 10], 2048, 40, 129, 20, False),  # 3-block cluster, D' odd
+    ([700, 300, 129, 2000], 256, 100, 37, 32, False),      # ragged qcap tile, d % 4 != 0
+    ([3000, 2100, 40], 2048, 24, 128, 20, True),            # scores 0..128: heavy ties
+    ([700, 300], 256, 40, 320, 20, False),                  # the widest D the float stage holds
+], ids=["blk2048", "blk256", "ties", "d320"])
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_k4_kernel_float_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, dtype, depth, bias,
+                                        compact):
+    """K4's float modes on integer values (exact sums): pv bit-equal, pr
+    equal where finite.  The index's float paths pass no bias (L2 rides
+    the augmented dimension); the JAX kernel subtracts one if given, and
+    so does this one."""
+    rng = np.random.default_rng(21)
+    qg, vt, bf, bl, rv, br, rb = _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias)
+    qg, vt = (torch.from_numpy(x).to(dev, FLOAT_DTYPES[dtype]) for x in (qg, vt))
+    bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv, rb))
+    br = None if br is None else torch.from_numpy(br).to(dev)
+    kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
+    before = ivf_scan.LAUNCHES
+    pv, pr = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES == before + 1
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(pv[rows], rv_[rows])
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
+def _assert_topk_close(v, i, rv, ri, bound):
+    """Non-integer float data, where the kernel and the plain version sum in
+    different orders: finite values within ``bound`` (2·D·2**-24·max|q|·|b|
+    of the row, the worst case of two fp32 sums in any order) of the plain
+    version's, -inf where it is, and ids equal wherever a value stands more
+    than twice the bound from both neighbours of its row (the row's last
+    entry is left out: its next is not known)."""
+    fin = rv > float("-inf")
+    assert torch.equal(v > float("-inf"), fin)
+    err = (v.double() - rv.double()).abs()
+    assert (err[fin] <= bound.expand_as(err)[fin]).all()
+    gap = rv.double().diff(dim=-1).abs() > 2.0 * bound
+    sep = fin.clone()
+    sep[..., :-1] &= gap
+    sep[..., 1:] &= gap
+    sep[..., -1] = False
+    assert sep.any()
+    assert torch.equal(i[sep], ri[sep])
+
+
+def test_k4_kernel_fp32_close_to_plain_on_noninteger_data(dev):
+    rng = np.random.default_rng(22)
+    _, _, bf, bl, rv, _, rb = _k4_inputs(rng, [700, 300, 129, 2000], 256, 100, 37, False,
+                                         False, False)
+    nb = len(bf)
+    qg = torch.from_numpy(rng.normal(size=(nb, 100, 37)).astype(np.float32)).to(dev)
+    vt = torch.from_numpy(rng.normal(size=(nb, 37, 256)).astype(np.float32)).to(dev)
+    bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv, rb))
+    kw = dict(k=20, blk=256, row_base=rb)
+    pv, pr = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    bound = 2.0 * 37 * 2.0**-24 * torch.bmm(qg.double().abs(), vt.double().abs()).amax(
+        dim=-1, keepdim=True)
+    _assert_topk_close(pv[rows], pr[rows], rv_[rows], rr[rows], bound[rows])
+
+
 def test_k4_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(20)
     qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
                                 for x in _k4_inputs(rng, [100], 128, 8, 16, False, False,
                                                     False))
-    with pytest.raises(NotImplementedError):
-        ivf_scan.cluster_major_scan_grouped(qg.float(), vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError, match="one dtype"):
+        ivf_scan.cluster_major_scan_grouped(qg.float(), vt.bfloat16(), bf, bl, rv, 4, blk=128)
     with pytest.raises(ValueError):  # more than 32 per row
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 33, blk=128)
     with pytest.raises(ValueError):  # bins other than 128
@@ -406,6 +512,38 @@ def test_routed_engine_card_equals_cpu(dev, recover):
     assert (spill == 0) == recover
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("run", ["auto", "recover", "grouped"])
+def test_float_ivf_card_equals_cpu(dev, dtype, run):
+    """A float index (L2 on the augmented dimension) through K1 and the
+    recovery pass's K4, or the grouped engine's K4, on the card and on the
+    CPU: the same ids, scores and spill (integer data, exact sums)."""
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
+    src = IVFIndex.build(base, nlist=12, metric="l2", dtype=dtype, pad_block=256,
+                         max_iter=5, device="cpu")
+    kw = {"auto": dict(), "grouped": dict(engine="pallas"),
+          "recover": dict(qcap=4, recover=True, recover_qcap=16, recover_passes=2)}[run]
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype=dtype, pad_block=256,
+                                   config=src.config, device=device)
+        out = idx.search_device(torch.from_numpy(queries).to(device), 10, 4, mode="cluster",
+                                **kw)
+        return [x.cpu() for x in out], int(idx.last_spill), idx.last_engine
+
+    before = (ivf_accum.LAUNCHES, ivf_scan.LAUNCHES)
+    got, spill, engine = search(dev)
+    torch.cuda.synchronize()
+    launches = (ivf_accum.LAUNCHES - before[0], ivf_scan.LAUNCHES - before[1])
+    want, want_spill, _ = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert spill == want_spill
+    assert launches == {"auto": (1, 0), "recover": (1, 2), "grouped": (0, 1)}[run]
+    assert engine == ("pallas" if run == "grouped" else "pallas_accum")
+
+
 # K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
 # of 4 (byte staging) nor of 128 (a ragged last chunk); D = 37 pads a word.
 K3_SHAPES = {
@@ -417,7 +555,7 @@ K3_SHAPES = {
 
 @pytest.mark.parametrize("shape", list(K3_SHAPES))
 @pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
-@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32"])
+@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32", "bf16"])
 def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
     b, d, n, k, tile_n, n_valid, (lo, hi) = K3_SHAPES[shape]
     rng = np.random.default_rng(30)
@@ -427,8 +565,8 @@ def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
     if mode == "i8_l2":
         kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
         kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
-    if mode == "f32":  # integer values: every fp32 sum is exact
-        q, bt = q.float(), bt.float()
+    if mode in ("f32", "bf16"):  # integer values: exact in bf16, every fp32 sum exact
+        q, bt = (x.to(torch.bfloat16 if mode == "bf16" else torch.float32) for x in (q, bt))
     if n_valid is not None:
         kw["n_valid"] = torch.tensor([n_valid], dtype=torch.int32, device=dev)
     before = bruteforce_fused.LAUNCHES
@@ -441,11 +579,26 @@ def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
     assert int(i.max()) < (n_valid or n)
 
 
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+def test_k3_kernel_bf16_close_to_plain_on_noninteger_data(dev, nbins):
+    b, d, n, k, tile_n, n_valid, _ = K3_SHAPES["ragged"]
+    rng = np.random.default_rng(32)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    bt = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32)).to(dev, torch.bfloat16)
+    kw = dict(nbins=nbins, tile_n=tile_n,
+              n_valid=torch.tensor([n_valid], dtype=torch.int32, device=dev))
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
+    bound = 2.0 * d * 2.0**-24 * (q.double().abs() @ bt.double().abs()).amax(dim=1,
+                                                                              keepdim=True)
+    _assert_topk_close(v, i, rv, ri, bound)
+
+
 def test_k3_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((4, 16), dtype=torch.int8, device=dev)
     bt = torch.zeros((16, 600), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bruteforce_fused.fused_topk_matmul(q.bfloat16(), bt.bfloat16(), 4)
+    with pytest.raises(ValueError, match="one dtype"):
+        bruteforce_fused.fused_topk_matmul(q.float(), bt.bfloat16(), 4)
     with pytest.raises(ValueError):  # more than 32 per row
         bruteforce_fused.fused_topk_matmul(q, bt, 33)
     with pytest.raises(ValueError):  # bins other than 128
@@ -459,6 +612,7 @@ K5_SHAPES = {
     "l2": (40, 64, 4096, 256, 4, 20, True, (-127, 128)),
     "ties": (33, 128, 4096, 128, 8, 10, False, (0, 3)),
     "ragged-l2": (70, 37, 1300, 128, 4, 32, True, (-127, 128)),
+    "d320": (40, 320, 1300, 128, 4, 20, False, (-127, 128)),
 }
 
 
@@ -487,11 +641,37 @@ def test_k5_kernel_equal_to_plain(dev, shape):
     assert int(i.max()) < n
 
 
+@pytest.mark.parametrize("shape", ["ip", "ties", "ragged-l2", "d320"])
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+def test_k5_kernel_float_equal_to_plain(dev, shape, dtype):
+    """K5's float modes on integer values (exact sums): the decoded values
+    bit for bit, and the ids.  Float L2 rides the data (an augmented
+    dimension), so no shape has bias rows; ragged-l2 keeps its D = 37 and
+    N = 1300 (a partial tile and padded tiles)."""
+    b, d, n, tile_n, group, k, _, (lo, hi) = K5_SHAPES[shape]
+    rng = np.random.default_rng(33)
+    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev,
+                                                                        FLOAT_DTYPES[dtype])
+    tiles, _ = bruteforce_accum.tile_base(rng.integers(lo, hi, (d, n), dtype=np.int8),
+                                          tile_n, group)
+    tiles = tiles.to(dev, FLOAT_DTYPES[dtype])
+    kw = dict(group=group, depth=group)
+    before = bruteforce_accum.LAUNCHES
+    v, i = bruteforce_accum.fused_topk_accum(q, tiles, n, k, **kw)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q, tiles, n, k, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_accum.LAUNCHES == before + 1
+    assert v.dtype == rv.dtype == torch.float32
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(i, ri)
+    assert int(i.max()) < n
+
+
 def test_k5_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((4, 16), dtype=torch.int8, device=dev)
     tiles = torch.zeros((8, 16, 128), dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bruteforce_accum.fused_topk_accum(q.float(), tiles.float(), 900, 4, group=4, depth=4)
+    with pytest.raises(ValueError, match="one dtype"):
+        bruteforce_accum.fused_topk_accum(q.float(), tiles.bfloat16(), 900, 4, group=4, depth=4)
     with pytest.raises(ValueError):  # bins past 2048
         bruteforce_accum.fused_topk_accum(q, torch.zeros((8, 16, 4096), dtype=torch.int8,
                                                          device=dev), 900, 4, group=4,
@@ -500,7 +680,8 @@ def test_k5_kernel_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("engine,dtype,rescore", [
     ("accum", "int8", None), ("pallas", "int8", True), ("pallas", "int8", False),
-    ("pallas", "fp32", False), ("xla", "int8", False)])
+    ("pallas", "fp32", False), ("xla", "int8", False), ("accum", "bf16", None),
+    ("accum", "fp32", None), ("pallas", "bf16", True), ("pallas", "bf16", False)])
 def test_brute_force_index_card_equals_cpu(dev, engine, dtype, rescore):
     base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
     kw = dict(metric="l2", dtype=dtype, engine=engine, rescore=rescore)
