@@ -3,8 +3,9 @@
 the IVF index (its default engine, the grouped engine and the routed
 engine), the brute-force index, both sharded over 4 logical shards on
 the card, the kernel lab on the same index, the spatial GEMM, the
-hardware probes, and the float (fp32 and bf16) IVF and brute-force
-indexes with the library's defaults.
+hardware probes, the float (fp32 and bf16) IVF and brute-force indexes
+with the library's defaults, the float sharded index, routed engine and
+kernel lab, and the query-major mode and xla engine of the IVF index.
 
     python3 chip_smoke.py
 
@@ -126,6 +127,28 @@ script exits non-zero without a result line:
              plain path's, K3's plain version and the same rescore, on all
              10,000 queries; recall@10 >= 0.99: the bf16 rounding of the
              augmented column costs it the int8 path's 0.999).
+14. floatscan, query — the float modes of K6, K7, K9 and K10, held
+             bit-equal to their plain versions at ragged sizes (D' 37, 129
+             and 320, 40 routed rows, a batch of 70) on integer data; then,
+             on phase 13's fp32 and bf16 indexes rebuilt from its arrays: K7
+             at the dense walk and a recovery list, and
+             ``search_device(q, 10, 4, engine="pallas_routed")`` over all
+             queries, counted (K7 alone; ids and scores equal to
+             ``engine="pallas"``); K9 at K1's shapes, counted; K10's four
+             variants on a float routed table at the lab's defaults, then the
+             lab, counted; ``ShardedIVFIndex(index, [cuda:0] * 4)``: K6 at
+             shard 0's dense walk and at a recovery list, then
+             ``search_device(q, 10, 4, mode="cluster")`` with its defaults
+             (K1, K6 in the recovery pass, K2; counted; spill 0, recall@10
+             >= 0.99, @1 >= the fp32 index's, both within 0.001 of the single
+             index of the same dtype) and with ``engine="pallas"``.  Then, on
+             the fp32, bf16 and int8 indexes, ``IVFIndex.search(q, 10)`` with
+             its defaults (nprobe 16, auto mode → query) over all queries at
+             B=32, recall@10 no lower than the cluster mode's at nprobe 16,
+             and the median of 100 one-query calls; and ``engine="xla"`` at
+             B=8192 (recall@10 >= 0.99; where its routing dropped none of a
+             query's pairs and its answer lies in the default engine's
+             rescore pool, ids equal to the default engine's, or a tie).
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -444,7 +467,7 @@ def main() -> None:
               f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}")
     del k9_inputs
 
-    def search_all(index, **kw):
+    def search_all(index, nprobe=NPROBE, **kw):
         """All queries through ``index`` in B=BATCH batches (the tail padded
         cyclically) → (ids, scores, per-batch residual spill, wall s)."""
         t = time.time()
@@ -452,7 +475,7 @@ def main() -> None:
         for s in range(0, N_QUERIES, BATCH):
             chunk = queries[s:s + BATCH]
             qs = torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev)
-            vals, ids, _ = index.search_device(qs, K, NPROBE, **kw)
+            vals, ids, _ = index.search_device(qs, K, nprobe, **kw)
             ids_parts.append(ids.cpu().numpy()[:chunk.shape[0]])
             score_parts.append(vals.cpu().numpy()[:chunk.shape[0]])
             residual.append(int(index.last_spill))
@@ -806,9 +829,9 @@ def main() -> None:
               f"{k6[name]['bound'][1]}")
     del r, rec_scan, k6_inputs
 
-    def sharded_all(bs, **kw):
-        """All queries through the sharded index in B=bs batches (the tail
-        padded cyclically) → (ids, per-batch residual spill, wall s)."""
+    def sharded_all(sh, bs, **kw):
+        """All queries through the sharded index ``sh`` in B=bs batches (the
+        tail padded cyclically) → (ids, per-batch residual spill, wall s)."""
         t = time.time()
         parts, residual = [], []
         for s_ in range(0, N_QUERIES, bs):
@@ -826,7 +849,7 @@ def main() -> None:
         return ids_, residual, time.time() - t
 
     reset_launches()
-    ids_s, residual_s, wall_s = sharded_all(BATCH, mode="cluster")
+    ids_s, residual_s, wall_s = sharded_all(sh, BATCH, mode="cluster")
     launch_s = read_launches()
     r10_s, r1_s = recalls(ids_s)
     engine_s = sh.last_engine
@@ -861,7 +884,7 @@ def main() -> None:
         raise AssertionError(f"sharded recall below 0.99: recall@10 {r10_s}, recall@1 {r1_s}")
 
     reset_launches()
-    ids_sp, residual_sp, wall_sp = sharded_all(BATCH, mode="cluster", engine="pallas")
+    ids_sp, residual_sp, wall_sp = sharded_all(sh, BATCH, mode="cluster", engine="pallas")
     launch_sp = read_launches()
     r10_sp, _ = recalls(ids_sp)
     sp_ms = cuda_ms(torch, lambda: sh.search_device(qs, K, NPROBE, mode="cluster",
@@ -873,7 +896,7 @@ def main() -> None:
         raise AssertionError(f"sharded engine='pallas': launches {launch_sp}, recall@10 {r10_sp}")
 
     QBATCH = 128  # query mode, below _pick_mode's crossover
-    ids_q, _, wall_q = sharded_all(QBATCH, mode="query")
+    ids_q, _, wall_q = sharded_all(sh, QBATCH, mode="query")
     r10_q, r1_q = recalls(ids_q)
     q128 = torch.from_numpy(np.ascontiguousarray(queries[:QBATCH])).to(dev)
     q_ms = cuda_ms(torch, lambda: sh.search_device(q128, K, NPROBE, mode="query"))
@@ -1495,8 +1518,8 @@ def main() -> None:
     bidx = IVFIndex.from_arrays(*arrays_f, metric="l2", dtype="bf16", pad_block=PAD_BLOCK,
                                 config=config_f, device=dev)
     bidx._ensure_kernel_state()
-    float_ivf(bidx, "bf16")
-    del bidx, arrays_f
+    r10_b16, r1_b16 = float_ivf(bidx, "bf16")
+    del bidx  # phase 14 builds its indexes from arrays_f again
     torch.cuda.empty_cache()
 
     # Brute force: the defaults (ip, bf16, accum = K5, rescored), K5 fp32 on
@@ -1618,6 +1641,419 @@ def main() -> None:
     del bf_k3, bt3, q3
     torch.cuda.empty_cache()
 
+    # ---- phase 14: the float modes (fp32, bf16) of K6, K7, K9 and K10 and the
+    # paths that reach them (the float sharded index, the float routed engine,
+    # the kernel lab on a float table), then the query-major mode and the xla
+    # engine of the int8, fp32 and bf16 indexes.  Integer-valued data again:
+    # every kernel is held bit-equal to its plain version.
+    from rag_on_edge_tpu_torch.ops import topk as topk_mod
+
+    def scan_equal(pv, pr, rpv, rpr, need_finite=True):
+        """pv bit-equal, pr equal where the value is finite, and (with
+        ``need_finite``) some value finite."""
+        fin = rpv > float("-inf")
+        return (bool(fin.any()) or not need_finite) and bits_equal(pv, rpv) \
+            and torch.equal(pr[fin], rpr[fin])
+
+    def k10_windows(variant, bc_, bl_):
+        """The windows a K10 variant defines (phase 10)."""
+        if variant == "fixedout":
+            return torch.zeros(1, dtype=torch.long, device=dev)
+        if variant == "maxonly":
+            return torch.unique(bc_.long())
+        return torch.unique(bc_[bl_ > 0].long())
+
+    # Ragged sizes first (uncounted): D' 37, 129 and 320; 40 routed rows; a
+    # batch of 70 with one slot past it; phase 13's clusters, with the block
+    # cluster table, and the walk cut after its last block with rows for K10.
+    bc_r, bf_r, bl_r, rv_r, _ = build_block_tables(roffs, rsizes, PAD_BLOCK)
+    pad_r = (-len(bc_r)) % 8
+    tabs_r = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+        np.pad(bc_r, (0, pad_r), constant_values=len(rsizes) - 1),
+        *(np.pad(x, (0, pad_r)) for x in (bf_r, bl_r, rv_r)))]
+    nb_r, last_r = tabs_r[0].numel(), torch.nonzero(tabs_r[2]).flatten()
+    cut_r = int(torch.nonzero(tabs_r[3]).max()) + 1
+    rng14 = np.random.default_rng(14)
+    cq_r = np.full((len(rsizes), 40), -1, np.int32)
+    for c_ in range(len(rsizes)):
+        n_ = int(rng14.integers(1, 41))
+        cq_r[c_, :n_] = rng14.choice(70, n_, replace=False)
+    cq_r[0, 0] = 70  # past the batch: a zero row, as -1 gives
+    cqb_r = torch.from_numpy(cq_r).to(dev)[tabs_r[0].long()].unsqueeze(-1).contiguous()
+    ragged14 = {}
+    for mode, (dt, _) in floats.items():
+        for dp in (37, 129, 320):
+            qg_r = fint((len(rsizes), 40, dp), dt)
+            qg_r[:, ::7] = 0  # empty routed slots: scores +0
+            vt_r = fint((nb_r, dp, PAD_BLOCK), dt)
+            qi_r = fint((70, dp), dt)
+            r6 = tabs_r[0][last_r].long()
+            out = ivf_scan.cluster_major_scan(qg_r, vt_r, *tabs_r, kk, blk=PAD_BLOCK)
+            ref = ivf_scan.cluster_major_scan_reference(qg_r, vt_r, *tabs_r, kk, blk=PAD_BLOCK)
+            ragged14[f"K6 {mode} D'{dp}"] = scan_equal(out[0][r6], out[1][r6], ref[0][r6],
+                                                       ref[1][r6])
+            args = (qi_r, cqb_r, vt_r, *tabs_r[1:], kk)
+            out = ivf_scan.cluster_major_scan_routed(*args, blk=PAD_BLOCK)
+            ref = ivf_scan.cluster_major_scan_routed_reference(*args, blk=PAD_BLOCK)
+            ragged14[f"K7 {mode} D'{dp}"] = scan_equal(out[0][last_r], out[1][last_r],
+                                                       ref[0][last_r], ref[1][last_r])
+            args = (qg_r[tabs_r[0].long()].contiguous(), vt_r, *tabs_r[1:], kk)
+            out = ivf_accum.cluster_major_accum(*args, blk=PAD_BLOCK)
+            ref = ivf_accum.cluster_major_accum_reference(*args, blk=PAD_BLOCK)
+            ragged14[f"K9 {mode} D'{dp}"] = bits_equal(out[0][last_r], ref[0][last_r]) \
+                and torch.equal(out[1][last_r], ref[1][last_r])
+            tabs_c = [x[:cut_r] for x in tabs_r]
+            for variant in kernel_lab.VARIANTS:
+                args = (qg_r, vt_r[:cut_r], *tabs_c, kk, PAD_BLOCK, 128, variant)
+                out = kernel_lab._variant_scan(*args)
+                ref = kernel_lab._variant_scan_reference(*args)
+                win = k10_windows(variant, tabs_c[0], tabs_c[2])
+                ragged14[f"K10 {variant} {mode} D'{dp}"] = scan_equal(out[0][win], out[1][win],
+                                                                      ref[0][win], ref[1][win])
+    torch.cuda.synchronize()
+    del qg_r, vt_r, qi_r, out, ref
+    phase("floatscan", t0, f"ragged sizes, bit-equal to the plain versions: "
+          f"{sum(ragged14.values())} of {len(ragged14)} {ragged14}")
+    if not all(ragged14.values()):
+        raise AssertionError(f"a float mode of K6, K7, K9 or K10 differs from its plain "
+                             f"version: {[n for n, ok in ragged14.items() if not ok]}")
+
+    fl14 = {}  # "K6 fp32", ... → err, ms, plain_ms, bound, launches, lib_ms
+    n_batches = -(-N_QUERIES // BATCH)
+
+    def max_err(pv, rpv):
+        fin = rpv > float("-inf")
+        return float((pv[fin] - rpv[fin]).abs().max()) if fin.any() else 0.0
+
+    def float_paths(index, mode, single_r10, single_r1):
+        """K7, K9, K10 and K6 of a float index at SIFT-1M size against their
+        plain versions, and the paths that launch them, counted."""
+        rate = floats[mode][1]
+        fa = index._arrays
+        vt = fa["vectors_t"]
+        es, dp = vt.element_size(), vt.shape[1]
+        tabs = (fa["block_first"], fa["block_last"], fa["rows_valid"])
+        qcap_f = index._auto_qcap(BATCH, NPROBE)
+        probes_f, cq_f, _, lossy_f, _ = index._route(q, NPROBE, qcap_f)
+        qi_f, _, _ = index._query_prep(q)
+        rb_f = -(-(vt.shape[0] // 4) // index.CM_GROUP) * index.CM_GROUP
+        passes_f = index._auto_recover_passes(BATCH, NPROBE, qcap_f)
+
+        # K7 at the dense walk and at this batch's recovery list.
+        k7_in = {"dense": (cq_f[fa["block_cluster"].long()].unsqueeze(-1).contiguous(), vt,
+                           *tabs, None, None),
+                 "recovery": index._recover_tables(qi_f, probes_f, lossy_f, None, qcap_f, rb_f,
+                                                   routed=True)[0]}
+        k7 = {}
+        for name, (cqb_, vt_, bf_, bl_, rv_, _, rb_) in k7_in.items():
+            kw = dict(k=kk, blk=PAD_BLOCK, group=index.CM_GROUP, row_base=rb_)
+            args = (qi_f, cqb_, vt_, bf_, bl_, rv_)
+            pv, pr = ivf_scan.cluster_major_scan_routed(*args, **kw)
+            rpv, rpr = ivf_scan.cluster_major_scan_routed_reference(*args, **kw)
+            torch.cuda.synchronize()
+            r7 = torch.nonzero(bl_).flatten()
+            if not scan_equal(pv[r7], pr[r7], rpv[r7], rpr[r7]):
+                raise AssertionError(f"K7 {mode} differs from the plain version at the {name} "
+                                     "walk")
+            err = max_err(pv[r7], rpv[r7])
+            del pv, pr, rpv, rpr
+            walked = walked_blocks(np, bf_, bl_, rv_)
+            k7[name] = dict(
+                err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed(*args, **kw)),
+                plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed_reference(
+                    *args, **kw), reps=3),
+                bound=bound(walked * (qcap_f * 4 + dp * PAD_BLOCK * es) + qi_f.numel() * es
+                            + r7.numel() * qcap_f * kk * 8,
+                            2.0 * walked * qcap_f * PAD_BLOCK * dp, rate), lib_ms=None)
+            phase("floatscan", t0, f"K7 {mode} {name}: qi {tuple(qi_f.shape)} cq_blocks "
+                  f"{tuple(cqb_.shape)} vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal, pr "
+                  f"equal where finite, on {r7.numel()} last blocks ({walked} walked); {k7[name]}")
+        del k7_in
+        fl14[f"K7 {mode}"] = k7["dense"]
+
+        # The routed engine over all queries, counted, against engine="pallas".
+        reset_launches()
+        ids_r, scores_r, residual_r, wall_r = search_all(index, engine="pallas_routed")
+        launch_r = read_launches()
+        engine_r = index.last_engine
+        ids_g, scores_g, residual_g, _ = search_all(index, engine="pallas")
+        r10_r, r1_r = recalls(ids_r)
+        k7_expected = n_batches * (1 + (passes_f if index._auto_recover(BATCH, NPROBE) else 0))
+        fl14[f"K7 {mode}"]["launches"] = launch_r["K7"]
+        routed_ms = cuda_ms(torch, lambda: index.search_device(qs, K, NPROBE,
+                                                               engine="pallas_routed"))
+        grouped_ms = cuda_ms(torch, lambda: index.search_device(qs, K, NPROBE, engine="pallas"))
+        same = np.array_equal(ids_r, ids_g) and scores_r.tobytes() == scores_g.tobytes()
+        phase("floatscan", t0, f"{mode} engine={engine_r} {N_QUERIES} queries {wall_r:.1f}s: "
+              f"residual last_spill={residual_r} launches={launch_r} (K7 expected "
+              f"{k7_expected}) recall@10={r10_r:.4f} recall@1={r1_r:.4f}; ids and scores equal "
+              f"to engine=pallas on every query: {same}; one B={BATCH} call {routed_ms} ms "
+              f"(engine=pallas {grouped_ms} ms) on {card}")
+        if engine_r != "pallas_routed" or launch_r["K7"] != k7_expected or launch_r["K4"] \
+                or launch_r["K1"]:
+            raise AssertionError(f"{mode} routed engine: {engine_r}, launches {launch_r}")
+        if not same or any(residual_r) or any(residual_g) or r10_r < 0.99:
+            raise AssertionError(f"{mode} routed engine: equal to pallas {same}, residual "
+                                 f"{residual_r} {residual_g}, recall@10 {r10_r}")
+        del ids_r, scores_r, ids_g, scores_g
+
+        # K9 at K1's shapes (the batch's routed table per block), counted.
+        _, qb_f, _, _, _ = index._scan_inputs(q, cq_f)
+        args9 = (qb_f, vt, *tabs, kk)
+        reset_launches()
+        pv, pr = ivf_accum.cluster_major_accum(*args9, blk=PAD_BLOCK)
+        torch.cuda.synchronize()
+        n9 = read_launches()["K9"]
+        rpv, rpr = ivf_accum.cluster_major_accum_reference(*args9, blk=PAD_BLOCK)
+        torch.cuda.synchronize()
+        rows9 = torch.nonzero(fa["block_last"]).flatten()
+        if n9 != 1 or not bits_equal(pv[rows9], rpv[rows9]) or not torch.equal(pr[rows9],
+                                                                                rpr[rows9]):
+            raise AssertionError(f"K9 {mode} differs from the plain version (launches {n9})")
+        walked9 = walked_blocks(np, *tabs)
+        fl14[f"K9 {mode}"] = dict(
+            err=max_err(pv[rows9], rpv[rows9]), launches=n9, lib_ms=None,
+            ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum(*args9, blk=PAD_BLOCK)),
+            plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_reference(
+                *args9, blk=PAD_BLOCK), reps=3),
+            bound=bound(walked9 * (qcap_f + PAD_BLOCK) * dp * es + rows9.numel() * qcap_f * kk * 8,
+                        2.0 * walked9 * qcap_f * PAD_BLOCK * dp, rate))
+        del pv, pr, rpv, rpr, qb_f, args9
+        phase("floatscan", t0, f"K9 {mode} (K1's shapes, k={kk}, bin2): pv (the masked key) "
+              f"bit-equal and pr equal on {rows9.numel()} last blocks; {fl14[f'K9 {mode}']}")
+
+        # K10: the lab's defaults on a float routed table, made as the lab's
+        # routed_table makes its int8 one (same shuffle, IP probes, qcap 128)
+        # with the index's own query prep (the ones column of L2).
+        rng = np.random.default_rng(0)
+        ql = torch.from_numpy(rng.permuted(np.resize(queries, (LAB_BATCH, DIM)), axis=0)
+                              .astype(np.float32)).to(dev)
+        _, probes_l = topk_mod.small_topk(ql @ fa["centroids"].T, NPROBE)
+        cq_l, _, _ = ivf_mod.invert_probes(probes_l, NLIST, LAB_QCAP)
+        ql_i = index._query_prep(ql)[0]
+        qg_l = torch.where((cq_l >= 0)[..., None], ql_i[cq_l.clamp_min(0).long()],
+                           torch.zeros((), dtype=ql_i.dtype, device=dev)).contiguous()
+        lab_tabs = (vt, fa["block_cluster"], *tabs)
+        err10, plain10 = 0.0, None
+        for variant in kernel_lab.VARIANTS:
+            args = (qg_l, *lab_tabs, LAB_K, PAD_BLOCK, 128, variant)
+            pv, pr = kernel_lab._variant_scan(*args)
+            rpv, rpr = kernel_lab._variant_scan_reference(*args)
+            torch.cuda.synchronize()
+            win = k10_windows(variant, fa["block_cluster"], fa["block_last"])
+            # fixedout's window is the walk's last block, a dummy without rows.
+            if not scan_equal(pv[win], pr[win], rpv[win], rpr[win],
+                              need_finite=variant != "fixedout"):
+                raise AssertionError(f"K10 {variant} {mode} differs from the plain version")
+            if variant == "full":
+                kv, ki = ivf_scan.cluster_major_scan(qg_l, *lab_tabs, LAB_K, blk=PAD_BLOCK)
+                if not scan_equal(pv[win], pr[win], kv[win], ki[win]):
+                    raise AssertionError(f"K10 full {mode} differs from K6 on the same table")
+                del kv, ki
+                plain10 = cuda_ms(torch, lambda: kernel_lab._variant_scan_reference(*args),
+                                  reps=3)
+            err10 = max(err10, max_err(pv[win], rpv[win]))
+            del pv, pr, rpv, rpr
+        reset_launches()
+        lab_f = kernel_lab.lab(index, qg_l, LAB_K, 128, kernel_lab.VARIANTS, repeats=REPS,
+                               quiet=True)
+        torch.cuda.synchronize()
+        n10 = read_launches()["K10"]
+        walked10 = walked_blocks(np, *tabs)
+        n_win = k10_windows("full", fa["block_cluster"], fa["block_last"]).numel()
+        fl14[f"K10 {mode}"] = dict(
+            err=err10, ms=lab_f["full"][0], plain_ms=plain10, launches=n10, lib_ms=None,
+            bound=bound(walked10 * dp * PAD_BLOCK * es + n_win * LAB_QCAP * (dp * es + LAB_K * 8),
+                        2.0 * walked10 * LAB_QCAP * PAD_BLOCK * dp, rate))
+        phase("floatscan", t0, f"K10 {mode} qg {tuple(qg_l.shape)}: the four variants equal "
+              f"to their plain versions on their windows, full equal to K6; lab ms/call and "
+              f"us/block {lab_f}; launches {n10}; {fl14[f'K10 {mode}']}")
+        if n10 != len(kernel_lab.VARIANTS) * (REPS + 2):
+            raise AssertionError(f"the {mode} lab launched K10 {n10} times")
+        del qg_l, ql, ql_i
+
+        # K6: the index as ShardedIVFIndex over 4 logical shards on this card.
+        sh = ShardedIVFIndex(index, shards)
+        sh._ensure_cluster_state()
+        sa = sh._cm_arrays
+        r = sh._cm_route(q, NPROBE, qcap_f)
+        owned_lossy = [int((r["lossy"] & (a_["cluster_shard"][r["probes"].long()] == s_)).sum())
+                       for s_, a_ in enumerate(sa)]
+        s_rec = int(np.argmax(owned_lossy))
+        rb_sh = max(1, sa[0]["vectors_t"].shape[0] // 4)
+        rec_scan, _, _ = sh._cm_recover_tables(s_rec, r, r["lossy"], None, qcap_f, rb_sh)
+        a0 = sa[0]
+        k6_in = {"dense": ((r["qg"], a0["vectors_t"], a0["bc"], a0["bf"], a0["bl"], a0["rv"]),
+                           None),
+                 "recovery": (rec_scan[:6], rec_scan[7])}
+        k6 = {}
+        for name, (args, rb_) in k6_in.items():
+            kw = dict(k=kk, blk=PAD_BLOCK, row_base=rb_)
+            pv, pr = ivf_scan.cluster_major_scan(*args, **kw)
+            rpv, rpr = ivf_scan.cluster_major_scan_reference(*args, **kw)
+            torch.cuda.synchronize()
+            r6 = args[2][torch.nonzero(args[4]).flatten()].long()
+            if not scan_equal(pv[r6], pr[r6], rpv[r6], rpr[r6]):
+                raise AssertionError(f"K6 {mode} differs from the plain version at the {name} "
+                                     "walk")
+            err = max_err(pv[r6], rpv[r6])
+            del pv, pr, rpv, rpr
+            walked = walked_blocks(np, *args[3:6])
+            k6[name] = dict(
+                err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw)),
+                plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(
+                    *args, **kw), reps=3), lib_ms=None,
+                bound=bound(walked * (qcap_f + PAD_BLOCK) * dp * es + r6.numel() * qcap_f * kk * 8,
+                            2.0 * walked * qcap_f * PAD_BLOCK * dp, rate))
+            phase("floatscan", t0, f"K6 {mode} {name} (shard {0 if name == 'dense' else s_rec}):"
+                  f" qg {tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv "
+                  f"bit-equal, pr equal where finite, on {r6.numel()} emitted clusters "
+                  f"({walked} blocks walked); {k6[name]}")
+        del r, rec_scan, k6_in
+        fl14[f"K6 {mode}"] = k6["recovery"]
+        reset_launches()
+        ids_s, residual_s, wall_s = sharded_all(sh, BATCH, mode="cluster")
+        launch_s = read_launches()
+        r10_s, r1_s = recalls(ids_s)
+        engine_s = sh.last_engine
+        fl14[f"K6 {mode}"]["launches"] = launch_s["K6"]
+        sh_ms = cuda_ms(torch, lambda: sh.search_device(qs, K, NPROBE, mode="cluster"))
+        r8 = sh._cm_route(qs, NPROBE, qcap_f)
+        outs8 = [sh._cm_shard(s_, r8, K, qcap_f, rb_sh, passes_f, engine_s)
+                 for s_ in range(len(shards))]
+        owned0 = sa[0]["cluster_shard"][r8["probes"].long()] == 0
+        stage_s = {name: cuda_ms(torch, fn) for name, fn in {
+            "route": lambda: sh._cm_route(qs, NPROBE, qcap_f),
+            "shard 0": lambda: sh._cm_shard(0, r8, K, qcap_f, rb_sh, passes_f, engine_s),
+            "shard 0 recovery": lambda: sh._cm_recover(0, r8, owned0, None, kk, qcap_f, rb_sh,
+                                                       passes_f),
+            "merge": lambda: sharded_mod._gather_merge([o[0] for o in outs8],
+                                                       [o[1] for o in outs8], K)}.items()}
+        del r8, outs8
+        phase("floatscan", t0, f"{mode} ShardedIVFIndex over {len(shards)} shards, "
+              f"search_device(q, {K}, {NPROBE}, mode='cluster') defaults, {N_QUERIES} queries "
+              f"{wall_s:.1f}s: engine={engine_s} residual last_spill={residual_s} launches="
+              f"{launch_s} recall@10={r10_s:.4f} recall@1={r1_s:.4f} (single {mode} index "
+              f"{single_r10:.4f}, {single_r1:.4f}); one B={BATCH} call {sh_ms} ms on {card}; "
+              f"stages ms {stage_s}")
+        if min(launch_s["K1"], launch_s["K2"], launch_s["K6"]) < 1 or any(residual_s):
+            raise AssertionError(f"{mode} sharded defaults: launches {launch_s}, residual "
+                                 f"{residual_s}")
+        if r10_s < 0.99 or r1_s < r1_f32 or abs(r10_s - single_r10) > 0.001 \
+                or abs(r1_s - single_r1) > 0.001:
+            raise AssertionError(f"{mode} sharded recall@10 {r10_s} @1 {r1_s}: below 0.99, @1 "
+                                 f"below the fp32 index's {r1_f32}, or more than 0.001 from the "
+                                 f"single {mode} index's {single_r10}, {single_r1}")
+        reset_launches()
+        ids_sp, residual_sp, wall_sp = sharded_all(sh, BATCH, mode="cluster", engine="pallas")
+        launch_sp = read_launches()
+        r10_sp, r1_sp = recalls(ids_sp)
+        sp_ms = cuda_ms(torch, lambda: sh.search_device(qs, K, NPROBE, mode="cluster",
+                                                        engine="pallas"))
+        phase("floatscan", t0, f"{mode} sharded engine=pallas {N_QUERIES} queries "
+              f"{wall_sp:.1f}s: residual last_spill={residual_sp} launches={launch_sp} "
+              f"recall@10={r10_sp:.4f} recall@1={r1_sp:.4f}; one B={BATCH} call {sp_ms} ms")
+        if launch_sp["K6"] < 1 or any(residual_sp) or r10_sp < 0.99:
+            raise AssertionError(f"{mode} sharded engine='pallas': launches {launch_sp}, "
+                                 f"residual {residual_sp}, recall@10 {r10_sp}")
+        del sh, sa, a0
+
+    qmode = {}  # dtype → recalls and times of the query mode and the xla engine
+
+    def query_paths(index, mode):
+        """The query-major mode through the host API at B=32 and at one query,
+        beside the same index's cluster mode at nprobe 16; then the cluster
+        mode's xla engine at B=8192, beside the kernel engines' pool."""
+        ids_c, _, _, wall_c = search_all(index, nprobe=16)
+        r10_c, r1_c = recalls(ids_c)
+        engine_c = index.last_engine
+        t = time.time()
+        ids_q, scores_q, avg_q = index.search(queries, K, batch_size=32)
+        wall_q = time.time() - t
+        mode_q = index.last_mode
+        r10_q, r1_q = recalls(ids_q)
+        if ids_q.shape != (N_QUERIES, K) or not np.isfinite(scores_q).all() or (ids_q < 0).any() \
+                or (ids_q >= N_BASE).any():
+            raise AssertionError(f"{mode} query mode output out of shape or range")
+        lat = []
+        for i in range(100):
+            t1 = time.perf_counter()
+            index.search(queries[i:i + 1], K)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        q1 = torch.from_numpy(np.ascontiguousarray(queries[:1])).to(dev)
+        q32 = torch.from_numpy(np.ascontiguousarray(queries[:32])).to(dev)
+        dev_ms = {b_: cuda_ms(torch, lambda x=x: index.search_device(x, K, 16))
+                  for b_, x in ((1, q1), (32, q32))}
+        phase("query", t0, f"{mode} IVFIndex.search(q, {K}) defaults (nprobe 16, mode "
+              f"{mode_q}, probe_chunk {index._auto_probe_chunk(32)} at B=32) over {N_QUERIES} "
+              f"queries at B=32 {wall_q:.1f}s: recall@10={r10_q:.4f} recall@1={r1_q:.4f} "
+              f"avg candidates {avg_q:.0f}; cluster mode at nprobe 16 (B={BATCH}, "
+              f"{wall_c:.1f}s, engine {engine_c}): recall@10={r10_c:.4f} "
+              f"recall@1={r1_c:.4f}; one-query search() median {statistics.median(lat)} ms of "
+              f"100 (host clock, copies included; min {min(lat)}, max {max(lat)}); "
+              f"search_device at nprobe 16 by CUDA events: B=1 {dev_ms[1]} ms, B=32 "
+              f"{dev_ms[32]} ms on {card}")
+        if mode_q != "query" or r10_q < r10_c:
+            raise AssertionError(f"{mode} query mode ({mode_q}) recall@10 {r10_q} below the "
+                                 f"cluster mode's {r10_c} at nprobe 16")
+        # The xla engine, beside the kernel engines' pool: the default call's
+        # rescore pool is its top-2k by the kernel's binned scores
+        # (rescore=False at k=2k gives it).  Where the xla engine's routing
+        # dropped none of a query's pairs and its answer lies in that pool,
+        # both rank the same candidates exactly: ids equal, or equal scores
+        # (a tie at the k-th place).
+        ids_x, scores_x, residual_x, wall_x = search_all(index, engine="xla")
+        r10_x, r1_x = recalls(ids_x)
+        ids_p, scores_p, _, _ = search_all(index)
+        qcap_x = index._auto_qcap(BATCH, NPROBE)
+        agree = ids_equal = ties = 0
+        for s_ in range(0, N_QUERIES, BATCH):
+            n_ = min(BATCH, N_QUERIES - s_)
+            qb_ = torch.from_numpy(np.resize(queries[s_:s_ + BATCH], (BATCH, DIM))).to(dev)
+            lossy_x = index._route(qb_, NPROBE, qcap_x)[3].any(dim=1).cpu().numpy()[:n_]
+            pool = index.search_device(qb_, 2 * K, NPROBE, rescore=False)[1].cpu().numpy()[:n_]
+            for i in range(n_):
+                g = s_ + i
+                if lossy_x[i] or not set(ids_x[g]) <= set(pool[i]):
+                    continue
+                agree += 1
+                if set(ids_x[g]) == set(ids_p[g]):
+                    ids_equal += 1
+                elif np.array_equal(np.sort(scores_x[g]), np.sort(scores_p[g])):
+                    ties += 1
+                else:
+                    raise AssertionError(f"{mode} engine='xla' differs from the default engine "
+                                         f"on query {g}, whose pools agree")
+        xla_ms = cuda_ms(torch, lambda: index.search_device(qs, K, NPROBE, engine="xla"),
+                         reps=3)
+        phase("query", t0, f"{mode} engine=xla {N_QUERIES} queries in B={BATCH} batches "
+              f"{wall_x:.1f}s: spill (no recovery pass) {residual_x} recall@10={r10_x:.4f} "
+              f"recall@1={r1_x:.4f}; pools agree on {agree} queries: ids equal on {ids_equal}, "
+              f"a tie at the k-th place on {ties}; one B={BATCH} call {xla_ms} ms")
+        if r10_x < 0.99 or agree < N_QUERIES // 2:
+            raise AssertionError(f"{mode} engine='xla' recall@10 {r10_x}, pools agree on "
+                                 f"{agree} queries")
+        qmode[mode] = dict(r10_q=r10_q, r1_q=r1_q, r10_c16=r10_c, one_query_ms=statistics.median(
+            lat), b1_ms=dev_ms[1], b32_ms=dev_ms[32], r10_xla=r10_x, xla_ms=xla_ms)
+
+    for mode, single in (("fp32", (r10_f32, r1_f32)), ("bf16", (r10_b16, r1_b16))):
+        t = time.time()
+        fidx = IVFIndex.from_arrays(*arrays_f, metric="l2", dtype=mode, pad_block=PAD_BLOCK,
+                                    config=dict(config_f), device=dev)
+        fidx._ensure_kernel_state()
+        torch.cuda.synchronize()
+        phase("floatscan", t0, f"{mode} IVFIndex.from_arrays (phase 13's arrays) "
+              f"{time.time() - t:.1f}s: vectors_t {tuple(fidx._arrays['vectors_t'].shape)}")
+        float_paths(fidx, mode, *single)
+        query_paths(fidx, mode)
+        del fidx
+        torch.cuda.empty_cache()
+    iidx = IVFIndex.from_arrays(*arrays_f, metric="l2", dtype="int8", pad_block=PAD_BLOCK,
+                                config=dict(config_f), device=dev)
+    query_paths(iidx, "int8")
+    del iidx, arrays_f
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "cluster_major_accum_planes", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
@@ -1653,21 +2089,21 @@ def main() -> None:
          "ms": brute["K5 int8-L2"]["ms"], "plain_ms": brute["K5 int8-L2"]["plain_ms"],
          "bound_ms": brute["K5 int8-L2"]["bound"][0], "bound_by": brute["K5 int8-L2"]["bound"][1],
          "library_ms": None},
-        {"name": "cluster_major_scan", "route": "cuda",
+        {"name": "cluster_major_scan", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:485",
          "launches": launch_s["K6"], "max_abs_err": max(k6[n]["err"] for n in k6),
          "ms": k6["recovery"]["ms"], "plain_ms": k6["recovery"]["plain_ms"],
          "bound_ms": k6["recovery"]["bound"][0], "bound_by": k6["recovery"]["bound"][1],
          "library_ms": None},
-        {"name": "cluster_major_scan_routed", "route": "cuda",
+        {"name": "cluster_major_scan_routed", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:320",
          "launches": launch_r["K7"], "max_abs_err": max(k7[n]["err"] for n in k7),
          "ms": k7["dense"]["ms"], "plain_ms": k7["dense"]["plain_ms"],
          "bound_ms": k7["dense"]["bound"][0], "bound_by": k7["dense"]["bound"][1],
          "library_ms": None},
-        {"name": "cluster_major_accum", "route": "cuda",
+        {"name": "cluster_major_accum", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf_dma.py:253",
          "launches": k9_launches, "max_abs_err": max(k9[n]["err"] for n in k9),
@@ -1680,7 +2116,7 @@ def main() -> None:
          "launches": k8_launches, "max_abs_err": k8_full_err, "ms": k8_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
          "library_ms": k8_lib_ms},
-        {"name": "_variant_scan", "route": "cuda",
+        {"name": "_variant_scan", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/harness/kernel_lab.py:93",
          "launches": k10_launches, "max_abs_err": max(k10[v]["err"] for v in k10),
@@ -1713,12 +2149,17 @@ def main() -> None:
          "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
          "library_ms": None},
     ]
-    # The float modes of this slice, one entry per (kernel, mode).
+    # The float modes, one entry per (kernel, mode): phase 13's and phase 14's.
+    fl.update(fl14)
     for key, name, src, tpu in (
-            ("K1", "cluster_major_accum_planes", "ivf_accum_planes.cu", "pallas_ivf_dma.py:371"),
-            ("K4", "cluster_major_scan_grouped", "ivf_grouped_scan.cu", "pallas_ivf.py:144"),
-            ("K5", "fused_topk_accum", "bruteforce_accum.cu", "pallas_bruteforce_dma.py:212"),
-            ("K3", "fused_topk_matmul", "bruteforce_fused.cu", "pallas_bruteforce.py:193")):
+            ("K1", "cluster_major_accum_planes", "ivf_accum_planes.cu", "ops/pallas_ivf_dma.py:371"),
+            ("K4", "cluster_major_scan_grouped", "ivf_grouped_scan.cu", "ops/pallas_ivf.py:144"),
+            ("K5", "fused_topk_accum", "bruteforce_accum.cu", "ops/pallas_bruteforce_dma.py:212"),
+            ("K3", "fused_topk_matmul", "bruteforce_fused.cu", "ops/pallas_bruteforce.py:193"),
+            ("K6", "cluster_major_scan", "ivf_grouped_scan.cu", "ops/pallas_ivf.py:485"),
+            ("K7", "cluster_major_scan_routed", "ivf_grouped_scan.cu", "ops/pallas_ivf.py:320"),
+            ("K9", "cluster_major_accum", "ivf_accum_planes.cu", "ops/pallas_ivf_dma.py:253"),
+            ("K10", "_variant_scan", "ivf_grouped_scan.cu", "harness/kernel_lab.py:93")):
         for mode in ("fp32", "bf16"):
             if f"{key} {mode}" not in fl:
                 continue  # K3 fp32 is an int8-slice mode, timed in phase 7
@@ -1726,7 +2167,7 @@ def main() -> None:
             kernels.append({
                 "name": name, "mode": mode, "route": "cuda",
                 "source": f"rag_on_edge_tpu_torch/csrc/{src}",
-                "replaces": f"rag_on_edge_tpu/ops/{tpu}", "launches": r["launches"],
+                "replaces": f"rag_on_edge_tpu/{tpu}", "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"]})
     print(card_line(), flush=True)

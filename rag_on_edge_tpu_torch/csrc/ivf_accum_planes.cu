@@ -1,8 +1,9 @@
 // Kernels K1 and K9 of the IVF search path: the cluster-major fine scan with
 // packed accumulation.  K1 (entries ivf_accum_planes_i8 and, for fp32 and
 // bf16 slabs, ivf_accum_planes_f) emits per-lane-bin top-2 "planes" of
-// packed int32 keys; K9 (entry ivf_accum_extract_i8, at the end of this
-// file) emits an exact top-k per routed row.
+// packed int32 keys; K9 (entries ivf_accum_extract_i8 and
+// ivf_accum_extract_f, at the end of this file) emits an exact top-k per
+// routed row.
 //
 // K1 replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
 // cluster_major_accum_planes (its _kernel with planes=True, and _plane_max).
@@ -240,26 +241,33 @@ extern "C" int ivf_accum_planes_f(const void* qg, const void* vec, const void* b
 // What it computes, for each cluster's LAST block t and routed row r:
 //   key(b, r, col) = dots(b, r, col) * 16 - bias[b, col]             (int8 L2:
 //                    the bias rows carry round(norms/alpha) << 4 minus the code)
-//                  | dots(b, r, col) * 16 + (15 - b % 16)             (no bias)
+//                  | dots(b, r, col) * 16 + (15 - b % 16)             (int8, no bias)
+//                  | (monotone(fp32 dots) & ~15) + (15 - b % 16)      (fp32 / bf16)
 //   masked to KMIN where col >= rows_valid[b] when mask_rows is set,
 //   folded by max over the cluster's blocks b (first block .. t);
 //   per bin (lane = col % 128) the largest key m1 with the LOWEST chunk
 //   holding it, and (two planes) the largest key m2 different from m1 with
 //   the lowest chunk holding it;
-//   each decoded to (value m >> 4, row (t - dd)·blk + chunk·128 + lane), dd the
+//   each decoded to (value, row (t - dd)·blk + chunk·128 + lane), dd the
 //   block offset behind t that the key's code names, or (KMIN, 0) where m is
-//   KMIN;
+//   KMIN; the value is m >> 4 (int8) or the key m itself (float);
 //   the exact top-k of those planes·128 candidates by (value desc, row asc),
 //   every candidate with the winner's row masked after each pass:
-//   out_v[t, r, p] = float(value) (-inf for KMIN), out_i[t, r, p] = row.
+//   out_v[t, r, p] = float(value) (int8) or key_to_f32(value) (float), -inf
+//   for KMIN; out_i[t, r, p] = row.
+// The float value is the score with its 4 low key bits replaced by the
+// block code (JAX pallas_ivf_dma.py:232-240), not the exact score.
 // Keys of different chunks can be equal here (K1's keys carry the chunk),
 // which is why the chunk ids are tracked.
 //
-// What bounds it on the H100: the scan is K1's, integer multiply-adds; the
-// emit adds k warp passes over 256 candidates per routed row of a last block.
+// What bounds it on the H100: the scan is K1's, integer multiply-adds or fp32
+// FMAs; the emit adds k warp passes over 256 candidates per routed row of a
+// last block.
 //
 // Design: K1's CTA (256 threads = 2 row groups x 128 lanes, 16 rows each),
-// chunk loop outside the block loop, the fold in registers.  Each lane folds
+// chunk loop outside the block loop, the fold in registers, and K1's int8
+// or float stage (the float one takes 84.5 KB of dynamic shared memory at
+// D' = 129).  Each lane folds
 // its chunks, in increasing order, into (m1, c1, m2, c2): a key above m1
 // shifts plane 1 down; a key equal to m1 changes nothing (the lower chunk
 // wins, and plane 2 excludes every key equal to m1); a key between m2 and m1
@@ -269,21 +277,22 @@ extern "C" int ivf_accum_planes_f(const void* qg, const void* vec, const void* b
 // rest of the row repeats it.
 namespace {
 
-template <int NPLANES>
+template <typename T, int NPLANES>
 __global__ void __launch_bounds__(THREADS)
-accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qcap, d]
-                        const int8_t* __restrict__ vec,         // [nblocks, d, blk]
-                        const int32_t* __restrict__ block_first,  // [nblocks]
-                        const int32_t* __restrict__ block_last,   // [nblocks]
-                        const int32_t* __restrict__ rows_valid,   // [nblocks]
-                        const int32_t* __restrict__ bias,       // [nblocks, blk] or null
-                        float* __restrict__ out_v,              // [nblocks, qcap, k]
-                        int32_t* __restrict__ out_i,            // [nblocks, qcap, k]
-                        int qcap, int d, int blk, int k, int mask_rows, int qstride) {
+accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, d]
+                     const T* __restrict__ vec,              // [nblocks, d, blk]
+                     const int32_t* __restrict__ block_first,  // [nblocks]
+                     const int32_t* __restrict__ block_last,   // [nblocks]
+                     const int32_t* __restrict__ rows_valid,   // [nblocks]
+                     const int32_t* __restrict__ bias,       // [nblocks, blk] or null (int8)
+                     float* __restrict__ out_v,              // [nblocks, qcap, k]
+                     int32_t* __restrict__ out_i,            // [nblocks, qcap, k]
+                     int qcap, int d, int blk, int k, int mask_rows, int qstride) {
   constexpr int NCAND = NPLANES * LANES;  // candidates per row
   constexpr int PER_LANE = NCAND / 32;
   constexpr int WARPS = THREADS / 32;
   constexpr unsigned FULL = 0xffffffffu;
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
   const int lane = threadIdx.x % LANES;
@@ -292,9 +301,10 @@ accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qca
   const int cstride = qstride + 1;
 
   extern __shared__ int4 smem4[];
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);   // [GROUPS*ROWS][qstride] words
-  int8_t* q_b = reinterpret_cast<int8_t*>(smem4);
-  int32_t* col_s = q_s + GROUPS * ROWS * qstride;     // [LANES][cstride] words
+  // Query rows [GROUPS*ROWS][qstride] words, then the chunk (int8:
+  // [LANES][cstride] words; float: [qstride][LANES] fp32), as K1's.
+  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
+  int32_t* col_s = q_s + GROUPS * ROWS * qstride;
   int32_t* cand_v = q_s;                              // [GROUPS*ROWS][NCAND], after the scan
   int32_t* cand_i = q_s + GROUPS * ROWS * NCAND;
   const int32_t* my_q = q_s + group * ROWS * qstride;
@@ -320,24 +330,46 @@ accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qca
     for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
 
     for (int b = tb; b <= t; ++b) {
-      stage_chunk<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s, cstride);
-      if (c == 0 || nb > 1)
-        stage_queries<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
-                               qstride, q_b);
+      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
+      const T* qsrc = qg + (size_t)b * qcap * d;
+      const bool load_q = c == 0 || nb > 1;
+      if constexpr (INT8) {
+        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
+        if (load_q)
+          stage_queries<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
+                                 reinterpret_cast<int8_t*>(q_s));
+      } else {
+        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
+        if (load_q)
+          stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
+                                   reinterpret_cast<float*>(q_s));
+      }
       __syncthreads();
-
-      int32_t acc[ROWS];
-      dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
 
       const bool masked = mask_rows != 0 && col >= rows_valid[b];
       const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
-      const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
+      if constexpr (INT8) {
+        int32_t acc[ROWS];
+        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
+        const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const uint32_t shifted = (uint32_t)acc[r] << 4;
-        const int32_t key = masked ? KMIN
-                                   : (int32_t)(bias != nullptr ? shifted - sub : shifted | code);
-        m[r] = max(m[r], key);
+        for (int r = 0; r < ROWS; ++r) {
+          const uint32_t shifted = (uint32_t)acc[r] << 4;
+          const int32_t key = masked ? KMIN
+                                     : (int32_t)(bias != nullptr ? shifted - sub : shifted | code);
+          m[r] = max(m[r], key);
+        }
+      } else {
+        float acc[ROWS];
+        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                         reinterpret_cast<const float*>(my_q), qstride, acc);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const int32_t key =
+              masked ? KMIN
+                     : (int32_t)(((uint32_t)monotone_key(acc[r]) & ~(uint32_t)(CODE_MAX - 1)) | code);
+          m[r] = max(m[r], key);
+        }
       }
       __syncthreads();  // col_s / q_s are rewritten next
     }
@@ -368,7 +400,7 @@ accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qca
       const int cid = p == 0 ? c1[r] : c2[r];
       const int dd = (tl - ((CODE_MAX - 1) - (mk & (CODE_MAX - 1)))) & (CODE_MAX - 1);
       const int o = (group * ROWS + r) * NCAND + p * LANES + lane;
-      cand_v[o] = mk == KMIN ? KMIN : (mk >> 4);
+      cand_v[o] = mk == KMIN ? KMIN : (INT8 ? mk >> 4 : mk);
       cand_i[o] = mk == KMIN ? 0 : (t - dd) * blk + cid * LANES + lane;
     }
   __syncthreads();
@@ -413,7 +445,7 @@ accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qca
         break;
       }
       if (wl == p) {
-        ov = __int2float_rn(bv);
+        ov = INT8 ? __int2float_rn(bv) : key_to_f32(bv);
         oi = bi;
       }
 #pragma unroll
@@ -428,24 +460,25 @@ accum_extract_i8_kernel(const int8_t* __restrict__ qg,          // [nblocks, qca
   }
 }
 
-template <int NPLANES>
+template <typename T, int NPLANES>
 int launch_extract(const void* qg, const void* vec, const void* block_first,
                    const void* block_last, const void* rows_valid, const void* bias, void* out_v,
                    void* out_i, int nblocks, int qcap, int d, int blk, int k, int mask_rows,
                    cudaStream_t stream) {
-  const int qstride = ((d + 3) / 4 + 3) / 4 * 4;  // words per row, multiple of 4
-  const size_t scan = (size_t)(GROUPS * ROWS * qstride + LANES * (qstride + 1)) * sizeof(int32_t);
+  const int qstride = stage_row_words<T>(d);
+  const size_t scan =
+      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<T>(qstride)) * sizeof(int32_t);
   const size_t cand = (size_t)GROUPS * ROWS * NPLANES * LANES * 2 * sizeof(int32_t);
   const size_t smem = scan > cand ? scan : cand;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(accum_extract_i8_kernel<NPLANES>,
+    const cudaError_t e = cudaFuncSetAttribute(accum_extract_kernel<T, NPLANES>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
-  accum_extract_i8_kernel<NPLANES><<<grid, THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(qg), static_cast<const int8_t*>(vec),
+  accum_extract_kernel<T, NPLANES><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(qg), static_cast<const T*>(vec),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
       static_cast<float*>(out_v), static_cast<int32_t*>(out_i), qcap, d, blk, k, mask_rows,
@@ -453,23 +486,45 @@ int launch_extract(const void* qg, const void* vec, const void* block_first,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int extract(const void* qg, const void* vec, const void* block_first, const void* block_last,
+            const void* rows_valid, const void* bias, void* out_v, void* out_i, int nblocks,
+            int qcap, int d, int blk, int k, int nplanes, int mask_rows, void* stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nplanes == 2)
+    return launch_extract<T, 2>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
+                                nblocks, qcap, d, blk, k, mask_rows, s);
+  if (nplanes == 1)
+    return launch_extract<T, 1>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
+                                nblocks, qcap, d, blk, k, mask_rows, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// C entry for ctypes.  Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).  `bias` may be null (no-bias mode).  The
-// wrapper guarantees blk % 128 == 0, 1 <= k <= 32 and nplanes in {1, 2}.
+// C entries for ctypes.  Each launches on `stream`, allocates nothing, and
+// returns cudaGetLastError() (0 = launched).  The wrapper guarantees
+// blk % 128 == 0, 1 <= k <= 32 and nplanes in {1, 2}.
+// int8: `bias` may be null (no-bias mode).
 extern "C" int ivf_accum_extract_i8(const void* qg, const void* vec, const void* block_first,
                                     const void* block_last, const void* rows_valid,
                                     const void* bias, void* out_v, void* out_i, int nblocks,
                                     int qcap, int d, int blk, int k, int nplanes, int mask_rows,
                                     void* stream) {
-  if (nblocks == 0 || qcap == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nplanes == 2)
-    return launch_extract<2>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
-                             nblocks, qcap, d, blk, k, mask_rows, s);
-  if (nplanes == 1)
-    return launch_extract<1>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
-                             nblocks, qcap, d, blk, k, mask_rows, s);
-  return (int)cudaErrorInvalidValue;
+  return extract<int8_t>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
+                         nblocks, qcap, d, blk, k, nplanes, mask_rows, stream);
+}
+
+// fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec, no bias rows (the JAX
+// function refuses them on float slabs); vec 16-byte aligned.
+extern "C" int ivf_accum_extract_f(const void* qg, const void* vec, const void* block_first,
+                                   const void* block_last, const void* rows_valid, void* out_v,
+                                   void* out_i, int nblocks, int qcap, int d, int blk, int k,
+                                   int nplanes, int mask_rows, int bf16, void* stream) {
+  return bf16 ? extract<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid, nullptr,
+                                       out_v, out_i, nblocks, qcap, d, blk, k, nplanes,
+                                       mask_rows, stream)
+              : extract<float>(qg, vec, block_first, block_last, rows_valid, nullptr, out_v,
+                               out_i, nblocks, qcap, d, blk, k, nplanes, mask_rows, stream);
 }

@@ -1,25 +1,28 @@
 // Kernels K4, K6 and K7 of the IVF search path: the cluster-major fine scan
 // with a per-row running top-k over binned survivors, with three sources of
-// the routed queries; and K10, the kernel lab's four variants of K6.
+// the routed queries; and K10, the kernel lab's four variants of K6.  Each
+// has an int8 entry (_i8) and a float entry (_f: fp32 or bf16 operands).
 //
-// K4 (entries ivf_grouped_scan_i8 and, for fp32 and bf16 slabs,
-// ivf_grouped_scan_f) replaces the TPU kernel
-// rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
+// K4 (entries ivf_grouped_scan_i8 and ivf_grouped_scan_f) replaces the TPU
+// kernel rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
 // _grouped_kernel, with binned_top2 and _extract_topk from
 // pallas_bruteforce.py): the routed queries come per block and the output
 // is per block.
-// K6 (entry ivf_cluster_scan_i8) replaces cluster_major_scan in the same
-// file (its _kernel): the routed queries come per cluster, qg[bc[b]], and
-// the output is per cluster, out[bc[t]].  The sharded index runs it over
-// each shard's block walk and over the recovery pass's compacted list.
-// K7 (entry ivf_routed_scan_i8) replaces cluster_major_scan_routed in the
-// same file (its _routed_grouped_kernel): the routed queries are gathered
-// from the whole batch inside the kernel, row r of block b being
-// qi[cq_blocks[b, r]] (zeros where that index is outside [0, B)), which is
-// what the TPU kernel's onehot(cq) @ qi gives; the output is per block, as
-// K4's.  No [nblocks, qcap, d] routed table exists.
-// K10 (entry ivf_variant_scan_i8) replaces the kernel lab's
-// rag_on_edge_tpu/harness/kernel_lab.py, _variant_scan (its
+// K6 (entries ivf_cluster_scan_i8 and ivf_cluster_scan_f) replaces
+// cluster_major_scan in the same file (its _kernel): the routed queries come
+// per cluster, qg[bc[b]], and the output is per cluster, out[bc[t]].  The
+// sharded index runs it over each shard's block walk and over the recovery
+// pass's compacted list.
+// K7 (entries ivf_routed_scan_i8 and ivf_routed_scan_f) replaces
+// cluster_major_scan_routed in the same file (its _routed_grouped_kernel):
+// the routed queries are gathered from the whole batch inside the kernel,
+// row r of block b being qi[cq_blocks[b, r]] (zeros where that index is
+// outside [0, B)), which is what the TPU kernel's onehot(cq) @ qi gives (at
+// HIGHEST precision in the float modes, so the one-hot product returns qi
+// bit for bit); the output is per block, as K4's.  No [nblocks, qcap, d]
+// routed table exists.
+// K10 (entries ivf_variant_scan_i8 and ivf_variant_scan_f) replaces the
+// kernel lab's rag_on_edge_tpu/harness/kernel_lab.py, _variant_scan (its
 // _variant_kernel): K6 at bin depth 2 with no bias, in four compile-time
 // variants (the Variant parameter; K4, K6 and K7 are kFull, and every
 // variant branch is an `if constexpr`, so their code is unchanged):
@@ -40,11 +43,11 @@
 // block_last[t] = 1 (the run starts at the latest block_first at or before
 // t), and each routed query row r:
 //   score(b, r, col) = float(int32 dot(Q(b)[r], vec[b, :, col])) - bias[b, col]
-//                      (int8; no subtraction without bias), or, in K4's float
+//                      (int8; no subtraction without bias), or, in the float
 //                      modes, the fp32 dot of fp32 or bf16 operands minus the
 //                      bias where one is given (the index gives none: its L2
 //                      rides an augmented dimension), -inf for col >= rows_valid[b];
-//   Q(b) = qg[b] for K4, qg[bc[b]] for K6, qi[cq_blocks[b]] for K7;
+//   Q(b) = qg[b] for K4, qg[bc[b]] for K6 and K10, qi[cq_blocks[b]] for K7;
 //   per block b and bin (col % 128), the DEPTH best (score, id) with
 //   id = row_base[b] + col, ties to the lowest id;
 //   those 128*DEPTH survivors of each block merged into a running top-k
@@ -71,9 +74,12 @@
 // - per block: 16 chunks of 128 columns, each staged in shared memory and
 //   scored with __dp4a (int8) or fmaf (fp32 and bf16, widened to fp32 as
 //   they are staged): the stages and dot loops of ivf_stage.cuh, shared
-//   with K1.  Each thread keeps its bin's DEPTH best (score, chunk) per row
-//   in registers, inserted with strict > so an equal score keeps the
-//   earlier, lower id.
+//   with K1.  The three sources differ only in the query stage: a block's
+//   rows, a cluster's rows, or a gather through cq_blocks (the float gather
+//   loads scalars into the zero-padded fp32 rows, since a row of D' = 129
+//   starts every 516 bytes).  Each thread keeps its bin's DEPTH best
+//   (score, chunk) per row in registers, inserted with strict > so an equal
+//   score keeps the earlier, lower id.
 //   The DEPTH survivors of a bin may be equal in value (K1's plane 2 is the
 //   opposite: the largest key DIFFERENT from plane 1).
 // - then the survivors go to shared memory (reusing the staging area) and
@@ -84,7 +90,8 @@
 //   (row_base differs between blocks), so the winner is removed by id.
 // - score = __int2float_rn(dot) then one __fsub_rn, the JAX kernel's order:
 //   the dot is exact in f32 (|dot| <= D*127^2 < 2^24), so scores are
-//   bit-equal to the plain version.  Only K4 is built for the float modes.
+//   bit-equal to the plain version.  The float modes sum from +0 with one
+//   fmaf a dimension in d order (an empty routed slot scores +0).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -122,7 +129,7 @@ enum class QSrc { kBlock, kCluster, kRouted };
 // K10's variants; every other kernel is kFull.
 enum class Variant { kFull, kNoGate, kMaxOnly, kFixedOut };
 
-// T: int8_t, or float / __nv_bfloat16 (K4's float modes).
+// T: int8_t, or float / __nv_bfloat16 (the float modes).
 template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(THREADS)
 grouped_scan_kernel(const T* __restrict__ qg,                // see above
@@ -195,9 +202,12 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
   for (int b = tb; b <= t; ++b) {
     const int nvalid = rows_valid[b];
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    if constexpr (!INT8) {
-      static_assert(SRC == QSrc::kBlock, "the float modes are K4's alone");
-      stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
+    if constexpr (!INT8 && SRC == QSrc::kRouted) {
+      stage_queries_gather_f<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
+                                      CTA_ROWS, qstride, reinterpret_cast<float*>(q_s));
+    } else if constexpr (!INT8) {
+      const int qrow = BY_CLUSTER ? block_cluster[b] : b;
+      stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
                                reinterpret_cast<float*>(q_s));
     } else if constexpr (SRC == QSrc::kRouted) {
       stage_queries_gather<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
@@ -460,6 +470,21 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
                                   blk, k, depth, nlist, stream);
 }
 
+// K6's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
+// 16-byte aligned.
+extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* block_cluster,
+                                  const void* block_first, const void* block_last,
+                                  const void* rows_valid, const void* bias, const void* row_base,
+                                  void* out_v, void* out_i, int nlist, int nblocks, int qcap,
+                                  int d, int blk, int k, int depth, int bf16, void* stream) {
+  return bf16 ? dispatch<QSrc::kCluster, Variant::kFull, __nv_bfloat16>(
+                    qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream)
+              : dispatch<QSrc::kCluster, Variant::kFull, float>(
+                    qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
+}
+
 // K7: qi [nbatch, d], cq_blocks [nblocks, qcap] (-1 = empty slot),
 // out [nblocks, qcap, k].
 extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const void* vec,
@@ -472,17 +497,33 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
                                  k, depth, nbatch, stream);
 }
 
+// K7's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qi and vec; vec
+// 16-byte aligned (qi is read a scalar at a time).
+extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const void* vec,
+                                 const void* block_first, const void* block_last,
+                                 const void* rows_valid, const void* bias, const void* row_base,
+                                 void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
+                                 int d, int blk, int k, int depth, int bf16, void* stream) {
+  return bf16 ? dispatch<QSrc::kRouted, Variant::kFull, __nv_bfloat16>(
+                    qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream)
+              : dispatch<QSrc::kRouted, Variant::kFull, float>(
+                    qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
+                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream);
+}
+
 // K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
 // bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.
-extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* block_cluster,
-                                   const void* block_first, const void* block_last,
-                                   const void* rows_valid, const void* row_base, void* out_v,
-                                   void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
-                                   int k, int variant, void* stream) {
-#define RAG_VARIANT(V)                                                                      \
-  dispatch<QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,      \
-                              rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, d, \
-                              blk, k, 2, nlist, stream)
+namespace {
+template <typename T>
+int variant_scan(const void* qg, const void* vec, const void* block_cluster,
+                 const void* block_first, const void* block_last, const void* rows_valid,
+                 const void* row_base, void* out_v, void* out_i, int nlist, int nblocks, int qcap,
+                 int d, int blk, int k, int variant, void* stream) {
+#define RAG_VARIANT(V)                                                                         \
+  dispatch<QSrc::kCluster, V, T>(qg, vec, block_cluster, nullptr, block_first, block_last,      \
+                                 rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, d, \
+                                 blk, k, 2, nlist, stream)
   switch (variant) {
     case 0: return RAG_VARIANT(Variant::kFull);
     case 1: return RAG_VARIANT(Variant::kNoGate);
@@ -491,4 +532,30 @@ extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RAG_VARIANT
+}
+}  // namespace
+
+extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* block_cluster,
+                                   const void* block_first, const void* block_last,
+                                   const void* rows_valid, const void* row_base, void* out_v,
+                                   void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
+                                   int k, int variant, void* stream) {
+  return variant_scan<int8_t>(qg, vec, block_cluster, block_first, block_last, rows_valid,
+                              row_base, out_v, out_i, nlist, nblocks, qcap, d, blk, k, variant,
+                              stream);
+}
+
+// K10's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
+// 16-byte aligned.
+extern "C" int ivf_variant_scan_f(const void* qg, const void* vec, const void* block_cluster,
+                                  const void* block_first, const void* block_last,
+                                  const void* rows_valid, const void* row_base, void* out_v,
+                                  void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
+                                  int k, int variant, int bf16, void* stream) {
+  return bf16 ? variant_scan<__nv_bfloat16>(qg, vec, block_cluster, block_first, block_last,
+                                            rows_valid, row_base, out_v, out_i, nlist, nblocks,
+                                            qcap, d, blk, k, variant, stream)
+              : variant_scan<float>(qg, vec, block_cluster, block_first, block_last, rows_valid,
+                                    row_base, out_v, out_i, nlist, nblocks, qcap, d, blk, k,
+                                    variant, stream);
 }

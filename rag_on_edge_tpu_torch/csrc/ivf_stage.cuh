@@ -1,5 +1,5 @@
 // Slab staging shared by the cluster-major scan kernels (K1 and K9
-// ivf_accum_planes.cu; K4, K6 and K7 ivf_grouped_scan.cu) and the accum
+// ivf_accum_planes.cu; K4, K6, K7 and K10 ivf_grouped_scan.cu) and the accum
 // brute-force scan (K5 bruteforce_accum.cu): the int8 stage (packed words,
 // __dp4a) and the float stage (fp32 or bf16 operands widened to fp32 as they
 // are staged, fmaf).
@@ -157,6 +157,26 @@ __device__ __forceinline__ void stage_queries_f(const T* __restrict__ qsrc, int 
   }
 }
 
+// The gathering form (K7's float modes): routed row i (< qcap) is row
+// idx[i] of a query batch [nsrc, d], or zeros where idx[i] lies outside
+// [0, nsrc) (an empty slot is -1).  Same layout of `q_f` as stage_queries_f;
+// scalar loads, so the batch needs only its element alignment.
+template <int NTHREADS, typename T>
+__device__ __forceinline__ void stage_queries_gather_f(const T* __restrict__ qsrc,
+                                                       const int32_t* __restrict__ idx, int nsrc,
+                                                       int qcap, int d, int row0, int nrows,
+                                                       int dstride, float* q_f) {
+  for (int i = threadIdx.x; i < nrows * dstride; i += NTHREADS) {
+    const int r = i / dstride, e = i % dstride;
+    float v = 0.0f;
+    if (row0 + r < qcap && e < d) {
+      const int s = idx[row0 + r];
+      if (s >= 0 && s < nsrc) v = widen(qsrc[(size_t)s * d + e]);
+    }
+    q_f[i] = v;
+  }
+}
+
 // acc[r] = the fp32 dot of lane `lane`'s staged column with staged query
 // row r: one fmaf per dimension in d order, from +0 (so an exact-zero sum
 // is +0, never -0); query words are read as 16-byte broadcasts.  The zero
@@ -185,6 +205,11 @@ __device__ __forceinline__ void dot_rows_f(const float* col_f, int lane, const f
 __device__ __forceinline__ int32_t monotone_key(float x) {
   const int32_t m = __float_as_int(x);
   return m >= 0 ? m : m ^ 0x7FFFFFFF;
+}
+
+// Its inverse, as the JAX kernels' _key_to_f32.
+__device__ __forceinline__ float key_to_f32(int32_t k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
 }
 
 }  // namespace

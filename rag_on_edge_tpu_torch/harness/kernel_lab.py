@@ -13,10 +13,13 @@ the same block walk:
                  cost of the per-cluster output writes.
 
 :func:`_variant_scan` is K10: CPU tensors take
-:func:`_variant_scan_reference`; CUDA tensors launch the fourth entry of
-``csrc/ivf_grouped_scan.cu`` (``ivf_variant_scan_i8``, K6's template with
-a compile-time variant; int8 only) or raise.  Its launches count in
-``LAUNCHES``.
+:func:`_variant_scan_reference`; CUDA tensors launch the fourth pair of
+entries of ``csrc/ivf_grouped_scan.cu`` (``ivf_variant_scan_i8`` and
+``ivf_variant_scan_f``, K6's template with a compile-time variant) or raise.
+Its launches count in ``LAUNCHES``.  The lab's own CLI builds an int8
+index, as the JAX lab does; the float modes are reached by calling
+:func:`_variant_scan` or :func:`lab` with an fp32 or bf16 routed table and
+slabs.
 
 Usage (on the card)::
 
@@ -27,7 +30,6 @@ Usage (on the card)::
 from __future__ import annotations
 
 import argparse
-import ctypes
 
 import numpy as np
 import torch
@@ -46,7 +48,6 @@ VARIANTS = ("full", "nogate", "maxonly", "fixedout")
 LAUNCHES = 0
 
 _NEG_INF = float("-inf")
-_FN = None
 
 
 def _check(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
@@ -104,17 +105,6 @@ def _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, varian
     return out_v, out_i
 
 
-def _kernel():
-    """Build/load the CUDA library once and declare K10's C entry's types."""
-    global _FN
-    if _FN is None:
-        fn = _build.load_library("ivf_grouped_scan").ivf_variant_scan_i8
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
 def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     """K10 with the JAX signature → (out_v [nlist, qcap, k] f32, out_i
     [nlist, qcap, k] int32); see :func:`_variant_scan_reference`.
@@ -123,27 +113,31 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     [nblocks, D, blk]; ``bc``/``bf``/``bl``/``rv`` the block tables
     [nblocks] int32.  Ids are ``block·blk + column``.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (int8, nbins 128, k <=
-    32, D <= 1024) or raise."""
+    32, D <= 1024; fp32 or bf16 in one dtype, D <= 320) or raise."""
     global LAUNCHES
     nlist, nblocks, qcap, d, int_path = _check(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins,
                                                variant)
     dev = qg.device
     if dev.type == "cpu":
         return _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant)
-    _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv], refuse_float=not int_path)
+    _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv])
     ivf_scan._check_cuda_limits("K10", nbins, k, 2, d)
+    flag = ()
+    if not int_path:
+        vectors_t, flag = ivf_scan.float_args("K10", qg, vectors_t, d)
     row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     out_v = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
-    fn = _kernel()
+    name = "ivf_variant_scan_i8" if int_path else "ivf_variant_scan_f"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qg.data_ptr(), vectors_t.data_ptr(), bc.data_ptr(), bf.data_ptr(),
-                 bl.data_ptr(), rv.data_ptr(), row_base.data_ptr(), out_v.data_ptr(),
-                 out_i.data_ptr(), nlist, nblocks, qcap, d, blk, k, VARIANTS.index(variant),
-                 stream)
+        err = ivf_scan.entry(name)(qg.data_ptr(), vectors_t.data_ptr(), bc.data_ptr(),
+                                   bf.data_ptr(), bl.data_ptr(), rv.data_ptr(),
+                                   row_base.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                                   nlist, nblocks, qcap, d, blk, k, VARIANTS.index(variant),
+                                   *flag, stream)
     if err != 0:
-        raise RuntimeError(f"ivf_variant_scan_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out_v, out_i
 

@@ -1,10 +1,11 @@
-"""IVF (inverted-file) approximate k-NN index, cluster-major, in PyTorch
-(counterpart: ``rag_on_edge_tpu/models/ivf.py``).
+"""IVF (inverted-file) approximate k-NN index in PyTorch (counterpart:
+``rag_on_edge_tpu/models/ivf.py``), with both of the JAX package's search
+modes.
 
-The search path ported here is the JAX package's cluster-major mode with
-its defaults: ``engine="auto"``, which resolves to the accum engine with
-the planes emit (``pallas_accum``) where the index allows it and to the
-grouped engine (``pallas``) otherwise, the spilled-pair recovery pass
+The batch-scale path is the cluster-major mode with its defaults:
+``engine="auto"``, which resolves to the accum engine with the planes emit
+(``pallas_accum``) where the index allows it and to the grouped engine
+(``pallas``) otherwise, the spilled-pair recovery pass
 where the auto policy turns it on, and the fp32 rescore.  It runs in six
 stages:
 
@@ -28,11 +29,15 @@ stages:
    decoded from the keys;
 6. rescore: exact fp32 re-ranking, and padded rows back to original ids.
 
+The cluster mode's ``engine="xla"`` replaces stages 4-5 with a plain
+per-cluster scan of the block-padded fp32 copy (:meth:`IVFIndex._scan_xla`).
+The query-major mode (small batches: ``mode="auto"`` picks it below one
+padded database of gathered rows, :meth:`IVFIndex._pick_mode`) probes the
+coarse quantizer and scans each query's probed clusters with
+:func:`fine_scan`, plain torch as in the JAX package, where it is XLA; the
+sharded index's query mode shares it (``parallel/sharded.py``).
+
 The device is explicit (``device=``, default ``"cuda"``), never detected.
-The query-major mode and the ``xla`` engine are not ported yet; asking for
-them raises ``NotImplementedError`` naming the ROADMAP item.
-:func:`fine_scan`, the query-major scan, is here for the sharded index's
-query mode (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from rag_on_edge_tpu_torch.models import kmeans as kmeans_mod
 from rag_on_edge_tpu_torch.ops import (bruteforce_fused, distances, fused_topk, ivf_accum,
                                        ivf_scan, quantize, topk)
 from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
+from rag_on_edge_tpu_torch.utils import metrics
 
 __all__ = ["IVFIndex", "invert_probes", "fine_scan", "coarse_tier", "coarse_arrays_host",
            "coarse_probes_tiered"]
@@ -150,32 +156,40 @@ def invert_probes(probes: torch.Tensor, nlist: int, qcap: int):
 
 def fine_scan(q: torch.Tensor, vectors: torch.Tensor, vector_norms: torch.Tensor | None,
               p_offs: torch.Tensor, p_sizes: torch.Tensor, k: int, probe_chunk: int,
-              metric: str, max_cluster_size: int):
+              metric: str, max_cluster_size: int, compute_dtype: torch.dtype | None = None,
+              row_map: torch.Tensor | None = None):
     """Scan the probed cluster slabs with a running top-k, query-major (the
     JAX package's ``fine_scan``; plain torch, as there it is XLA).
 
     q: [B, D] f32.  vectors: [N, D] cluster-contiguous rows (fp32, or bf16,
-    whose products are exact in fp32).  p_offs / p_sizes: [B, P] int32
-    start row and size of each probed cluster (size 0 masks the probe).
-    Each chunk of ``probe_chunk`` probes gathers ``max_cluster_size`` rows
-    per probe, scores them in fp32, keeps its top k (a stable descending
-    sort, as ``lax.top_k``) and merges it into the running top k
-    (:func:`topk.merge_topk`).  Returns (vals [B, k] f32, rows [B, k] int32;
-    rows of -inf entries are meaningless).  The JAX function's
-    ``compute_dtype`` and ``row_map`` serve its single-device query mode,
-    not ported yet (ROADMAP Queue 1 item 9)."""
+    whose products are exact in fp32), or, with ``row_map``, an unpadded
+    fp32 array reached through it: ``row_map`` maps padded rows to rows of
+    ``vectors`` (-1 for padding rows, clipped to 0; their scores are masked
+    by size anyway).  p_offs / p_sizes: [B, P] int32 start row and size of
+    each probed cluster (size 0 masks the probe).  Each chunk of
+    ``probe_chunk`` probes gathers ``max_cluster_size`` rows per probe,
+    scores them in fp32 (with ``compute_dtype`` bf16: both operands rounded
+    to bf16 first, the products summed in fp32), keeps its top k (a stable
+    descending sort, as ``lax.top_k``) and merges it into the running top k
+    (:func:`topk.merge_topk`).  Returns (vals [B, k] f32, rows [B, k] int32
+    padded rows in both forms; rows of -inf entries are meaningless)."""
     b = q.shape[0]
     dev = q.device
-    n_rows = vectors.shape[0]
+    n_rows = row_map.shape[0] if row_map is not None else vectors.shape[0]
     nprobe = p_offs.shape[1]
     arange_s = torch.arange(max_cluster_size, dtype=torch.int32, device=dev)
     qf = q.to(torch.float32)
+    if compute_dtype is not None:
+        qf = qf.to(compute_dtype).to(torch.float32)
 
     def chunk(best_v, best_i, offs_c, sizes_c):
         rows = (offs_c[..., None] + arange_s).clamp(0, n_rows - 1)  # [B, pc, S]
         valid = arange_s[None, None, :] < sizes_c[..., None]
-        cand = vectors[rows.long()].to(torch.float32)  # [B, pc, S, D] slab gather
-        scores = torch.einsum("bpsd,bd->bps", cand, qf)
+        src = rows.long() if row_map is None else row_map[rows.long()].clamp_min(0).long()
+        cand = vectors[src]  # [B, pc, S, D] slab gather
+        if compute_dtype is not None:
+            cand = cand.to(compute_dtype)
+        scores = torch.einsum("bpsd,bd->bps", cand.to(torch.float32), qf)
         if metric == "l2":
             scores = 2.0 * scores - vector_norms[rows.long()]
         scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
@@ -248,6 +262,8 @@ class IVFIndex:
         self.max_cluster_size = int(sizes.max())
         self.PAD_BLOCK = int(pad_block or (config or {}).get("pad_block")
                              or self.PAD_BLOCK_DEFAULT)
+        self.max_cluster_padded = int(-(-self.max_cluster_size // self.PAD_BLOCK)
+                                      * self.PAD_BLOCK)
         self.config = config or {}
         self.config.update({
             "n_vectors": self.n,
@@ -433,6 +449,13 @@ class IVFIndex:
             d0 = int(self._padded_offsets_np[c])
             vec[d0 : d0 + (s1 - s0)] = self._vectors_np[s0:s1]
         return vec
+
+    def _ensure_padded_f32(self) -> None:
+        """Add the block-padded fp32 copy [n_padded, D] on first use: only
+        the cluster mode's ``engine="xla"`` reads it (a contiguous window per
+        cluster), so no other path pays its padding."""
+        if "vectors" not in self._arrays:
+            self._arrays["vectors"] = torch.from_numpy(self._vec_padded_host()).to(self.device)
 
     def _ensure_kernel_state(self) -> None:
         """Add the block-tiled slabs and block tables on first use (the
@@ -695,9 +718,11 @@ class IVFIndex:
         gp = torch.where(ok[..., None], gp, torch.full_like(gp, ivf_accum.KMIN))
         return gp.reshape(b, -1)
 
-    def _cm_finish(self, queries, probes, slot, pv, pr, k, kk, rescore, extra=None):
+    def _cm_finish(self, queries, probes, slot, pv, pr, k, kk, rescore, extra=None,
+                   by_block=True):
         """STAGES 5-6 of the grouped engine: gather each (query, probe)
-        pair's K4 top-k from its cluster's last block, join the recovery
+        pair's K4 top-k from its cluster's last block (``by_block``; the
+        xla engine's ``pv`` is indexed by cluster), join the recovery
         pass's ``extra`` candidates, top-kk, then rescore and map back to
         original ids → (scores [B, k], ids [B, k])."""
         a = self._arrays
@@ -705,7 +730,8 @@ class IVFIndex:
         pl = probes.long()
         ok = (slot >= 0) & (a["sizes"][pl] > 0)
         qcap, ck = pv.shape[1], pv.shape[2]
-        flat = (a["last_block"][pl].long() * qcap + slot.clamp_min(0).long()).reshape(-1)
+        row = a["last_block"][pl].long() if by_block else pl
+        flat = (row * qcap + slot.clamp_min(0).long()).reshape(-1)
         gv = pv.reshape(-1, ck)[flat].reshape(b, -1, ck)
         gr = pr.reshape(-1, ck)[flat].reshape(b, -1)
         gv = torch.where(ok[..., None], gv, torch.full_like(gv, _NEG_INF)).reshape(b, -1)
@@ -787,6 +813,75 @@ class IVFIndex:
         best_v, sel = topk.small_topk(scores, k)
         return best_v, torch.gather(rows, 1, sel.long())
 
+    def _scan_xla(self, q: torch.Tensor, cq: torch.Tensor, ck: int,
+                  budget_bytes: int = 256 << 20):
+        """STAGE 4, the cluster mode's xla engine (the JAX package's
+        per-cluster scan): each cluster's routed fp32 queries against the
+        ``max_cluster_padded`` rows of the block-padded fp32 copy from its
+        start (clamped so the window stays inside the array; the rows and
+        their validity follow the clamped start), ``2·s − ‖b‖²`` for L2,
+        masked by offset and by ``cq >= 0``, and a top-``ck`` per cluster →
+        (pv, pr) [nlist, qcap, ck], true-score units, padded rows.  The JAX
+        package scans one cluster a step; here clusters go in batches whose
+        window gather and scores stay within ``budget_bytes``."""
+        a = self._arrays
+        vec = a["vectors"]
+        dev = q.device
+        n_pad, d = vec.shape
+        smax = self.max_cluster_padded
+        qcap = cq.shape[1]
+        kc = min(ck, smax)
+        offs, sizes = a["offsets"].long(), a["sizes"].long()
+        start = offs.clamp_max(max(n_pad - smax, 0))
+        arange_s = torch.arange(smax, device=dev)
+        routed = cq >= 0
+        qg = torch.where(routed[..., None], q[cq.clamp_min(0).long()],
+                         torch.zeros((), dtype=q.dtype, device=dev))
+        step = max(1, budget_bytes // ((smax * d + qcap * smax) * 4))
+        pv = torch.full((self.nlist, qcap, ck), _NEG_INF, dtype=torch.float32, device=dev)
+        pr = torch.zeros((self.nlist, qcap, ck), dtype=torch.int32, device=dev)
+        for c0 in range(0, self.nlist, step):
+            c1 = min(c0 + step, self.nlist)
+            rows = start[c0:c1, None] + arange_s  # [C, S]
+            scores = torch.bmm(qg[c0:c1], vec[rows].transpose(1, 2))  # [C, qcap, S]
+            if self.metric == "l2":
+                scores = 2.0 * scores - a["vector_norms"][rows][:, None, :]
+            off = rows - offs[c0:c1, None]
+            valid = ((off >= 0) & (off < sizes[c0:c1, None]))[:, None, :] \
+                & routed[c0:c1, :, None]
+            scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+            v, idx = topk.iterative_topk(scores.reshape(-1, smax), kc)
+            r = torch.gather(rows[:, None, :].expand(-1, qcap, -1), 2,
+                             idx.reshape(c1 - c0, qcap, kc).long())
+            pv[c0:c1, :, :kc] = v.reshape(c1 - c0, qcap, kc)
+            pr[c0:c1, :, :kc] = r.to(torch.int32)
+        return pv, pr
+
+    def _search_query(self, q: torch.Tensor, k: int, nprobe: int, probe_chunk: int,
+                      rescore: bool):
+        """The query-major search (the JAX package's ``_search_impl``) →
+        (scores [B, k] f32, ids [B, k] int32, n_candidates [B] int32): the
+        coarse probes, :func:`fine_scan` over the unpadded fp32 copy through
+        the padded-row map (bf16 products for a bf16 index), the optional
+        fp32 rescore of 2k, and the map back to original ids."""
+        a = self._arrays
+        kk = min(2 * k, self.n) if rescore else k
+        nprobe = min(nprobe, self.nlist)
+        probes = self._coarse_probes(q, nprobe).long()
+        p_offs, p_sizes = a["offsets"][probes], a["sizes"][probes]
+        n_candidates = p_sizes.sum(dim=1).to(torch.int32)
+        best_v, best_i = fine_scan(
+            q, a["vectors_f32"], a.get("vector_norms"), p_offs, p_sizes, k=kk,
+            probe_chunk=probe_chunk, metric=self.metric,
+            max_cluster_size=self.max_cluster_size,
+            compute_dtype=torch.bfloat16 if self.dtype == "bf16" else None,
+            row_map=a["reorder"])
+        if rescore:
+            best_v, best_i = self._rescore_rows(q, best_v, best_i, k)
+        ids = torch.where(best_v > _NEG_INF, a["reorder"][best_i.long()],
+                          torch.full_like(best_i, -1))
+        return best_v, ids.to(torch.int32), n_candidates
+
     # ------------------------------------------------------------ policy
 
     def _auto_probe_chunk(self, batch: int, budget_bytes: int = 256 << 20) -> int:
@@ -856,16 +951,24 @@ class IVFIndex:
 
     def _est_max_load(self, batch: int, nprobe: int) -> float:
         """Expected hottest-cluster load of a batch, from the measured skew
-        table with log-nprobe interpolation."""
+        table with log-nprobe interpolation; where no table can be read or
+        measured (a malformed or empty table, too few rows to sample), the
+        JAX package's fallback: the mean load times ``clip(nlist / 256, 8,
+        32)``."""
         nprobe = min(nprobe, self.nlist)
-        tab = self._probe_skew_table()
-        nps = np.array(sorted(int(p) for p in tab), dtype=np.float64)
-        fracs = np.array([tab[str(int(p))] for p in nps])
-        if nprobe <= nps[-1]:
-            frac = float(np.interp(np.log2(nprobe), np.log2(nps), fracs))
-        else:
-            frac = min(1.0, float(fracs[-1]) * nprobe / float(nps[-1]))
-        return min(float(batch), frac * batch)
+        try:
+            tab = self._probe_skew_table()
+            nps = np.array(sorted(int(p) for p in tab), dtype=np.float64)
+            fracs = np.array([tab[str(int(p))] for p in nps])
+            if nprobe <= nps[-1]:
+                frac = float(np.interp(np.log2(nprobe), np.log2(nps), fracs))
+            else:
+                frac = min(1.0, float(fracs[-1]) * nprobe / float(nps[-1]))
+            return min(float(batch), frac * batch)
+        except (ValueError, KeyError, IndexError, TypeError):
+            mean_load = batch * nprobe / self.nlist
+            skew = float(np.clip(self.nlist / 256.0, 8.0, 32.0))
+            return min(float(batch), skew * mean_load)
 
     def _auto_recover(self, batch: int, nprobe: int) -> bool:
         """Whether the JAX package would engage its spilled-pair recovery
@@ -882,9 +985,24 @@ class IVFIndex:
         need = self._est_max_load(batch, nprobe) - self._auto_qcap(batch, nprobe)
         return int(np.clip(-(-need // max(recover_qcap, 1)), 1, max_passes))
 
+    def required_qcap(self, queries, nprobe: int, multiple: int = 32) -> int:
+        """The smallest routing capacity that drops no pair of this batch:
+        its hottest cluster's probe load, rounded up to ``multiple`` (one
+        coarse pass and a host sync)."""
+        q = torch.as_tensor(np.asarray(queries, dtype=np.float32)).to(self.device)
+        probes = self._coarse_probes(q, min(nprobe, self.nlist))
+        loads = torch.bincount(probes.reshape(-1).long(), minlength=self.nlist)
+        need = int(loads.max())
+        return max(multiple, -(-need // multiple) * multiple)
+
     def _pick_mode(self, batch: int, nprobe: int) -> str:
         qm_rows = batch * min(nprobe, self.nlist) * (self.n_padded / self.nlist)
         return "cluster" if qm_rows >= self.n_padded else "query"
+
+    def memory_report(self) -> dict[str, int]:
+        """Device bytes per index array and their ``"TOTAL"``; the kernel
+        state and the xla engine's padded copy count once they exist."""
+        return metrics.memory_report(self._arrays)
 
     # ------------------------------------------------------------------ API
 
@@ -910,22 +1028,30 @@ class IVFIndex:
         ids [B, k] int32, n_candidates [B] int32).  The parameters take the
         JAX package's positions.
 
-        probe_chunk: probes per query-major chunk; it has no effect until
-            the query mode is ported (ROADMAP Queue 1 item 9).
-        mode: "auto" | "cluster" ("query" is not ported yet).
-        engine: "auto" (pallas_accum where the index's layout allows it,
-            else pallas) | "pallas_accum" — the accum fine scan (kernel K1)
-            with the planes join (kernel K2); clusters of at most 16
-            blocks | "pallas" — the grouped fine scan (kernel K4) over a
-            gathered routed table | "pallas_routed" — the same scan with
-            the routing inside the kernel (kernel K7), so no routed table
-            is built; never picked by "auto".  The names are the JAX
-            package's ("xla" is not ported yet).
-        rescore: fp32 re-ranking of ``rescore_k`` (default 2k) candidates;
-            on by default (every engine's selection is binned).
+        probe_chunk: probes per query-major chunk (default
+            :meth:`_auto_probe_chunk`: one chunk's slab gather within 256 MB).
+        mode: "auto" (:meth:`_pick_mode`: "query" below one padded database
+            of gathered rows, else "cluster"; "cluster" on a compact store)
+            | "query" — :func:`fine_scan` over each query's probed clusters,
+            exact fp32 (bf16 products for a bf16 index) | "cluster".
+        engine (cluster mode): "auto" (pallas_accum where the index's layout
+            allows it, else pallas) | "pallas_accum" — the accum fine scan
+            (kernel K1) with the planes join (kernel K2); clusters of at
+            most 16 blocks | "pallas" — the grouped fine scan (kernel K4)
+            over a gathered routed table | "pallas_routed" — the same scan
+            with the routing inside the kernel (kernel K7), so no routed
+            table is built; never picked by "auto" | "xla" — a plain
+            per-cluster scan of the block-padded fp32 copy
+            (:meth:`_scan_xla`), built on first use.  The names are the JAX
+            package's.
+        rescore: fp32 re-ranking of ``rescore_k`` (default 2k) candidates.
+            Default, as in the JAX package: on for bf16 and int8 indexes,
+            for spilled ones, and for the cluster mode's kernel engines
+            (their selection is binned); off for an fp32 index in query mode
+            or with ``engine="xla"`` (exact already).
         recover: the spilled-pair recovery pass (kernel K4, K7 under the
             routed engine, over only the clusters that dropped routing
-            pairs, :meth:`_recover`).
+            pairs, :meth:`_recover`); the kernel engines only.
             Default: on where the estimated hottest-cell overflow past qcap
             is large (:meth:`_auto_recover`).  ``last_spill`` holds the
             pairs still dropped after it.
@@ -933,9 +1059,9 @@ class IVFIndex:
             (default qcap, and nblocks/4 rounded up to ``CM_GROUP``).
         recover_passes: recovery passes, each placing the pairs the ones
             before left (default :meth:`_auto_recover_passes`).
-        cluster_k: per-cluster emit depth of the scan kernels (default:
-            the rescore pool, :meth:`_auto_cluster_k`).  As in the JAX
-            package it is raised to ``ceil(pool / nprobe)``, so the join
+        cluster_k: per-cluster emit depth of the cluster-mode scans
+            (default: the rescore pool, :meth:`_auto_cluster_k`).  As in the
+            JAX package it is raised to ``ceil(pool / nprobe)``, so the join
             pool still holds ``pool`` candidates, and capped at the pool.
         """
         b = queries.shape[0]
@@ -943,45 +1069,57 @@ class IVFIndex:
             mode = "cluster"
         if mode == "auto":
             mode = self._pick_mode(b, nprobe)
-        if mode == "query":
-            raise NotImplementedError(
-                "mode='query' (query-major fine_scan) is not ported yet — "
-                "ROADMAP Queue 1 item 9")
-        if mode != "cluster":
+        if mode not in ("query", "cluster"):
             raise ValueError(f"unknown mode {mode!r}")
-        if engine == "xla":
-            raise NotImplementedError(
-                "engine='xla' is not ported yet — ROADMAP Queue 1 item 9")
-        if engine not in ("auto", "pallas", "pallas_accum", "pallas_routed"):
+        if engine not in ("auto", "pallas", "pallas_accum", "pallas_routed", "xla"):
             raise ValueError(f"unknown engine {engine!r}")
-        self._ensure_kernel_state()
-        # The accum engine's packed key holds a 4-bit block code, a 4-bit
-        # chunk id and dots << 8.
-        eligible = (self._cm_max_nb <= ivf_accum.CODE_MAX
-                    and self.PAD_BLOCK <= 128 * ivf_accum.CODE_MAX
-                    and self.dim <= self._accum_dim_cap())
-        if engine == "auto":
-            engine = "pallas_accum" if eligible else "pallas"
-        elif engine == "pallas_accum" and not eligible:
-            raise ValueError(
-                f"engine='pallas_accum' needs clusters of at most {ivf_accum.CODE_MAX} "
-                f"blocks, pad_block <= {128 * ivf_accum.CODE_MAX} and dim <= "
-                f"{self._accum_dim_cap()}; this index has {self._cm_max_nb}-block "
-                f"clusters, pad_block {self.PAD_BLOCK} and dim {self.dim} — use "
-                "engine='pallas'")
         if rescore is None:
-            rescore = True  # every engine's selection is binned
-        if recover is None:
-            recover = self._auto_recover(b, nprobe)
+            rescore = (self.dtype in ("bf16", "int8") or (mode == "cluster" and engine != "xla")
+                       or self.spilled)  # spilled indexes dedup in the rescore stage
+        q = queries.to(self.device, torch.float32)
+        if mode == "query":
+            self.last_engine = "xla"
+            self.last_mode = mode
+            pc = probe_chunk or self._auto_probe_chunk(b)
+            return self._search_query(q, k, nprobe, pc, rescore)
+        if engine == "xla":
+            if recover:
+                raise ValueError("recover requires a pallas cluster engine")
+            self._ensure_padded_f32()
+            recover = False
+        else:
+            self._ensure_kernel_state()
+            # The accum engine's packed key holds a 4-bit block code, a 4-bit
+            # chunk id and dots << 8.
+            eligible = (self._cm_max_nb <= ivf_accum.CODE_MAX
+                        and self.PAD_BLOCK <= 128 * ivf_accum.CODE_MAX
+                        and self.dim <= self._accum_dim_cap())
+            if engine == "auto":
+                engine = "pallas_accum" if eligible else "pallas"
+            elif engine == "pallas_accum" and not eligible:
+                raise ValueError(
+                    f"engine='pallas_accum' needs clusters of at most {ivf_accum.CODE_MAX} "
+                    f"blocks, pad_block <= {128 * ivf_accum.CODE_MAX} and dim <= "
+                    f"{self._accum_dim_cap()}; this index has {self._cm_max_nb}-block "
+                    f"clusters, pad_block {self.PAD_BLOCK} and dim {self.dim} — use "
+                    "engine='pallas'")
+            if recover is None:
+                recover = self._auto_recover(b, nprobe)
         kk = self._auto_cluster_k(k, rescore, rescore_k)
         # The per-cluster emit depth (JAX: ck); the pool after the join is kk.
         ck = kk
         if cluster_k is not None:
             ck = min(max(cluster_k, -(-kk // min(nprobe, self.nlist))), kk)
-        q = queries.to(self.device, torch.float32)
         nprobe = min(nprobe, self.nlist)
         qcap = qcap or self._auto_qcap(b, nprobe)
         probes, cq, slot, lossy, ncand = self._route(q, nprobe, qcap)
+        if engine == "xla":
+            pv, pr = self._scan_xla(q, cq, ck)
+            vals, ids = self._cm_finish(q, probes, slot, pv, pr, k, kk, rescore, by_block=False)
+            self.last_spill = lossy.sum().to(torch.int32)
+            self.last_engine = engine
+            self.last_mode = mode
+            return vals, ids, ncand
         routed = engine == "pallas_routed"
         if routed:
             qi, bias, alpha = self._query_prep(q)
@@ -1011,6 +1149,23 @@ class IVFIndex:
         self.last_mode = mode
         return vals, ids, ncand
 
+    def search_stream_device(self, query_stream: torch.Tensor, k: int, nprobe: int,
+                             probe_chunk: int | None = None, mode: str = "query"):
+        """A stack of micro-batches [M, B, D] → (scores [M, B, k], ids [M,
+        B, k], n_candidates [M, B]).  Mode "query": M independent
+        query-major searches, rescored only on a spilled index (where the
+        rescore dedups), as the JAX package's stream does.  Mode "cluster":
+        the stream flattened into one cluster-mode batch of M·B queries."""
+        m, b2, d = query_stream.shape
+        if mode == "cluster":
+            v, i, c = self.search_device(query_stream.reshape(m * b2, d), k, nprobe,
+                                         mode="cluster")
+            return v.reshape(m, b2, k), i.reshape(m, b2, k), c.reshape(m, b2)
+        pc = probe_chunk or self._auto_probe_chunk(b2)
+        qs = query_stream.to(self.device, torch.float32)
+        outs = [self._search_query(qs[j], k, nprobe, pc, self.spilled) for j in range(m)]
+        return tuple(torch.stack(x) for x in zip(*outs))
+
     def search(self, queries: np.ndarray, k: int, nprobe: int = 16,
                batch_size: int | None = None, mode: str = "auto",
                engine: str = "auto", rescore: bool | None = None,
@@ -1038,6 +1193,18 @@ class IVFIndex:
             scores_out[start : start + got] = vals.cpu().numpy()[:got]
             total_cand += int(ncand.cpu().numpy()[:got].sum())
         return ids_out, scores_out, total_cand / nq
+
+    def compile(self, batch_size: int, k: int, nprobe: int, mode: str = "auto",
+                engine: str = "auto", recover: bool | None = None,
+                recover_passes: int | None = None) -> None:
+        """One warm call on a zero batch of ``batch_size`` queries: it builds
+        every kernel that shape reaches and the state it needs (PyTorch has
+        no program to compile ahead)."""
+        dummy = torch.zeros((batch_size, self.dim), dtype=torch.float32, device=self.device)
+        self.search_device(dummy, k, nprobe, mode=mode, engine=engine, recover=recover,
+                           recover_passes=recover_passes)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ persistence
 

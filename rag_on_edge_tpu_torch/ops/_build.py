@@ -33,9 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_ed
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# The float stage of csrc/ivf_stage.cuh (K1, K4 and K5) holds a [D, 128]
-# chunk and 32 query rows as fp32 in the 227 KB of shared memory a CTA may
-# have.
+# The float stage of csrc/ivf_stage.cuh (K1, K4-K7, K9, K10 and K5) holds a
+# [D, 128] chunk and 32 query rows as fp32 in the 227 KB of shared memory a
+# CTA may have.
 FLOAT_DIM_MAX = 320
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -84,18 +84,12 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(name: str, dev, tensors, refuse_float: bool = False) -> None:
+def check_inputs(name: str, dev, tensors) -> None:
     """What every kernel wrapper refuses on the card: a device that is not
-    CUDA, with ``refuse_float`` the fp32/bf16 modes of the kernels ported
-    for int8 only (K6, K7, K9 and K10: ROADMAP Queue 1 item 14), and inputs
-    (``None`` skipped) that are not contiguous on ``dev``.  There is no
-    fallback to the plain version: the wrapper raises."""
+    CUDA, and inputs (``None`` skipped) that are not contiguous on ``dev``.
+    There is no fallback to the plain version: the wrapper raises."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if refuse_float:
-        raise NotImplementedError(
-            f"the CUDA {name} covers the int8 modes; its fp32/bf16 modes on CUDA are "
-            "ROADMAP Queue 1 item 14 (use the plain version)")
     for x in tensors:
         if x is None:
             continue

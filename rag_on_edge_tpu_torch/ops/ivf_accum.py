@@ -39,9 +39,12 @@ per bin, the largest key (and, with ``bin2``, the largest key different
 from it) with the lowest 128-column chunk holding it is decoded to a value
 (``key >> 4``; the float key itself) and a row, and the exact top-k of those
 candidates by (value, lowest row) is written as ``pv`` f32 (-inf where
-invalid) and ``pr`` int32 rows, each ``[nblocks, qcap, k]``.  The JAX
-package has no production caller; its CUDA entry is
-``ivf_accum_extract_i8`` of the same source, counted in ``ACCUM_LAUNCHES``.
+invalid) and ``pr`` int32 rows, each ``[nblocks, qcap, k]``.  A float
+``pv`` is the key turned back into fp32, block code and all: the exact
+score with its 4 low key bits replaced, as in the JAX kernel.  The JAX
+package has no production caller; its CUDA entries are
+``ivf_accum_extract_i8`` and ``ivf_accum_extract_f`` of the same source,
+counted in ``ACCUM_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ ACCUM_LAUNCHES = 0
 
 _FN = None
 _EXTRACT_FN = None
+_EXTRACT_FLOAT_FN = None
 # What the CUDA K9 takes: at most 32 per row (one per lane of the merging
 # warp), and |dots| <= D·127² below 2**24 so the fp32 plain version on the
 # card is exact.
@@ -350,6 +354,17 @@ def _extract_kernel():
     return _EXTRACT_FN
 
 
+def _extract_float_kernel():
+    """Build/load the CUDA library once and declare K9's float entry's types."""
+    global _EXTRACT_FLOAT_FN
+    if _EXTRACT_FLOAT_FN is None:
+        fn = _build.load_library("ivf_accum_planes").ivf_accum_extract_f
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _EXTRACT_FLOAT_FN = fn
+    return _EXTRACT_FLOAT_FN
+
+
 def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_valid, k,
                         blk=2048, group=8, depth=8, bin2=True, bias_rows=None,
                         mask_rows=None):
@@ -357,7 +372,8 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
     qcap, k] int32 padded row ids); only each cluster's ``last_block`` rows
     are defined.  See the module docstring.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (int8 ± bias rows, k <= 32,
-    D <= 1024) or raise."""
+    D <= 1024; fp32 or bf16 in one dtype, no bias rows, D <= 320) or
+    raise."""
     global ACCUM_LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -368,21 +384,30 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
         qg_blocks, vectors_t, block_first, block_last, rows_valid, blk, group, depth,
         bias_rows, mask_rows)
     _build.check_inputs("K9", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
-                                    bias_rows], refuse_float=not int_path)
+                                    bias_rows])
     if not 1 <= k <= _CUDA_K_MAX or d > _CUDA_DIM_MAX:
         raise ValueError(f"the CUDA K9 takes 1 <= k <= {_CUDA_K_MAX} and D <= "
                          f"{_CUDA_DIM_MAX}; got k={k}, D={d}")
+    if not int_path:
+        _build.check_float("K9", qg_blocks, vectors_t, d)
+        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
-    fn = _extract_kernel()
+    tabs = (block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr())
+    shape = (nblocks, qcap, d, blk, k, 2 if bin2 else 1, int(mask_rows))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
-                 block_last.data_ptr(), rows_valid.data_ptr(),
-                 bias_rows.data_ptr() if bias_rows is not None else None,
-                 pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k,
-                 2 if bin2 else 1, int(mask_rows), stream)
+        if int_path:
+            name = "ivf_accum_extract_i8"
+            err = _extract_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
+                                    bias_rows.data_ptr() if bias_rows is not None else None,
+                                    pv.data_ptr(), pr.data_ptr(), *shape, stream)
+        else:
+            name = "ivf_accum_extract_f"
+            err = _extract_float_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
+                                          pv.data_ptr(), pr.data_ptr(), *shape,
+                                          int(vectors_t.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"ivf_accum_extract_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     ACCUM_LAUNCHES += 1
     return pv, pr

@@ -19,26 +19,27 @@ and ids are compared only where ``pv > -inf``.
 :func:`cluster_major_scan_grouped` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
-operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 launch
-their kernels for int8 only.
+operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 do the
+same, in the same modes.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
 ``qg[block_cluster[j]]`` (``qg`` [nlist, qcap, D]) and each run's top-k
 goes to row ``block_cluster[t]`` of ``[nlist, qcap, k]``.  Rows of clusters
 that end no run are unwritten.  The sharded index runs it over a shard's
-block walk and the recovery pass's compacted block list.  Its CUDA entry
-shares K4's kernel (``ivf_cluster_scan_i8`` in the same source) and counts
-its launches in ``CLUSTER_LAUNCHES``.
+block walk and the recovery pass's compacted block list.  Its CUDA entries
+(``ivf_cluster_scan_i8`` and ``ivf_cluster_scan_f`` in the same source)
+share K4's kernel; its launches count in ``CLUSTER_LAUNCHES``.
 
 K7, :func:`cluster_major_scan_routed`, is K4 with the routing done inside
 the kernel: it takes the whole batch ``qi`` [B, D] and, per block, the
 routed query indices ``cq_blocks`` [nblocks, qcap, 1] (-1 = empty slot), and
 row ``r`` of block ``j`` is ``qi[cq_blocks[j, r]]``, a zero row where that
-index lies outside ``[0, B)`` (the TPU kernel's ``onehot(cq) @ qi``).  No
-``[nblocks, qcap, D]`` table is built.  Its CUDA entry is
-``ivf_routed_scan_i8`` of the same source; its launches count in
-``ROUTED_LAUNCHES``.
+index lies outside ``[0, B)`` (the TPU kernel's ``onehot(cq) @ qi``, at
+HIGHEST precision in the float modes, which returns ``qi`` bit for bit).
+No ``[nblocks, qcap, D]`` table is built.  Its CUDA entries are
+``ivf_routed_scan_i8`` and ``ivf_routed_scan_f`` of the same source; its
+launches count in ``ROUTED_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -72,10 +73,16 @@ _CUDA_K_MAX = 32
 _CUDA_DEPTH_MAX = 4
 _CUDA_DIM_MAX = 1024
 
-_FN = None
-_FLOAT_FN = None
-_CLUSTER_FN = None
-_ROUTED_FN = None
+_FNS: dict = {}
+
+# The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
+# stream last.  The float entries take one more int, bf16 (0 or 1).
+_ENTRIES = {
+    "ivf_grouped_scan_i8": (9, 6), "ivf_grouped_scan_f": (9, 7),
+    "ivf_cluster_scan_i8": (10, 7), "ivf_cluster_scan_f": (10, 8),
+    "ivf_routed_scan_i8": (10, 7), "ivf_routed_scan_f": (10, 8),
+    "ivf_variant_scan_i8": (9, 7), "ivf_variant_scan_f": (9, 8),
+}
 
 
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
@@ -195,26 +202,25 @@ def _check_cuda_limits(name, nbins, k, bin_depth, d):
             f"bin_depth={bin_depth}, D={d}")
 
 
-def _kernel():
-    """Build/load the CUDA library once and declare the C entry's types."""
-    global _FN
-    if _FN is None:
-        fn = _build.load_library("ivf_grouped_scan").ivf_grouped_scan_i8
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def entry(name: str):
+    """Build/load the CUDA library once and declare one C entry's types
+    (K4, K6, K7, and K10 of ``harness/kernel_lab.py``)."""
+    if name not in _FNS:
+        n_ptr, n_int = _ENTRIES[name]
+        fn = getattr(_build.load_library("ivf_grouped_scan"), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return _FNS[name]
 
 
-def _float_kernel():
-    """Build/load the CUDA library once and declare K4's float entry's types."""
-    global _FLOAT_FN
-    if _FLOAT_FN is None:
-        fn = _build.load_library("ivf_grouped_scan").ivf_grouped_scan_f
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FLOAT_FN = fn
-    return _FLOAT_FN
+def float_args(name: str, queries, vectors_t, d: int):
+    """What a float mode of K4, K6, K7 or K10 adds before its launch: the
+    float checks, and the slabs on a 16-byte boundary (the chunk stage loads
+    16 bytes along blk) → (vectors_t, the float entry's extra arguments:
+    ``(bf16,)``)."""
+    _build.check_float(name, queries, vectors_t, d)
+    return _build.aligned(vectors_t, 16), (int(vectors_t.dtype == torch.bfloat16),)
 
 
 def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
@@ -242,23 +248,21 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
     _check_cuda_limits("K4", nbins, k, bin_depth, d)
+    flag = ()
     if not int_path:
-        _build.check_float("K4", qg_blocks, vectors_t, d)
-        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
+        vectors_t, flag = float_args("K4", qg_blocks, vectors_t, d)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     args = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
             block_last.data_ptr(), rows_valid.data_ptr(),
             bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
             pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k, bin_depth)
+    name = "ivf_grouped_scan_i8" if int_path else "ivf_grouped_scan_f"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if int_path:
-            err = _kernel()(*args, stream)
-        else:
-            err = _float_kernel()(*args, int(vectors_t.dtype == torch.bfloat16), stream)
+        err = entry(name)(*args, *flag, stream)
     if err != 0:
-        raise RuntimeError(f"ivf_grouped_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES += 1
     return pv, pr
 
@@ -312,17 +316,6 @@ def cluster_major_scan_reference(qg, vectors_t, block_cluster, block_first, bloc
     return out_v, out_i
 
 
-def _cluster_kernel():
-    """Build/load the CUDA library once and declare K6's C entry's types."""
-    global _CLUSTER_FN
-    if _CLUSTER_FN is None:
-        fn = _build.load_library("ivf_grouped_scan").ivf_cluster_scan_i8
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _CLUSTER_FN = fn
-    return _CLUSTER_FN
-
-
 def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k,
                        blk=512, nbins=128, bin_depth=2, bias=None, row_base=None):
     """K6 with the JAX signature → (pv [nlist, qcap, k] f32, pr [nlist,
@@ -334,7 +327,8 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
-    bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024) or raise."""
+    bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024; fp32 or bf16 in
+    one dtype, D <= 320) or raise."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":
@@ -347,20 +341,23 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
-                                    rows_valid, row_base, bias], refuse_float=not int_path)
+                                    rows_valid, row_base, bias])
     _check_cuda_limits("K6", nbins, k, bin_depth, d)
+    flag = ()
+    if not int_path:
+        vectors_t, flag = float_args("K6", qg, vectors_t, d)
     pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
-    fn = _cluster_kernel()
+    name = "ivf_cluster_scan_i8" if int_path else "ivf_cluster_scan_f"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
-                 block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
-                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                 pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, d, blk, k, bin_depth,
-                 stream)
+        err = entry(name)(qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
+                          block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+                          bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+                          pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, d, blk, k,
+                          bin_depth, *flag, stream)
     if err != 0:
-        raise RuntimeError(f"ivf_cluster_scan_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     CLUSTER_LAUNCHES += 1
     return pv, pr
 
@@ -406,17 +403,6 @@ def cluster_major_scan_routed_reference(qi, cq_blocks, vectors_t, block_first, b
         nbins=nbins, bin_depth=bin_depth, bias=bias, row_base=row_base)
 
 
-def _routed_kernel():
-    """Build/load the CUDA library once and declare K7's C entry's types."""
-    global _ROUTED_FN
-    if _ROUTED_FN is None:
-        fn = _build.load_library("ivf_grouped_scan").ivf_routed_scan_i8
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _ROUTED_FN = fn
-    return _ROUTED_FN
-
-
 def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last, rows_valid,
                               k, blk=2048, group=4, nbins=128, bin_depth=2, bias=None,
                               row_base=None):
@@ -426,8 +412,8 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
     the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
     are defined.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024)
-    or raise."""
+    the kernel (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024;
+    fp32 or bf16 in one dtype, D <= 320) or raise."""
     global ROUTED_LAUNCHES
     dev = qi.device
     if dev.type == "cpu":
@@ -440,19 +426,24 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
-                                    rows_valid, row_base, bias], refuse_float=not int_path)
+                                    rows_valid, row_base, bias])
     _check_cuda_limits("K7", nbins, k, bin_depth, d)
+    flag = ()
+    if not int_path:
+        # The routed rows are gathered from qi a scalar at a time: only the
+        # slabs need the 16-byte boundary.
+        vectors_t, flag = float_args("K7", qi, vectors_t, d)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
-    fn = _routed_kernel()
+    name = "ivf_routed_scan_i8" if int_path else "ivf_routed_scan_f"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
-                 block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
-                 bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                 pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, d, blk, k, bin_depth,
-                 stream)
+        err = entry(name)(qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
+                          block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+                          bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
+                          pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, d, blk, k,
+                          bin_depth, *flag, stream)
     if err != 0:
-        raise RuntimeError(f"ivf_routed_scan_i8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     ROUTED_LAUNCHES += 1
     return pv, pr

@@ -336,13 +336,56 @@ def test_k6_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias
     assert torch.equal(pr[rows][fin], rr[rows][fin])
 
 
+# Ragged float shapes: D' 129 (odd, the augmented L2 index), 37 (d % 4 != 0)
+# and 320 (the widest the float stage holds), qcap off the row tile.
+FLOAT_SHAPES = [([2000, 0, 5000, 129, 10], 2048, 40, 129),
+                ([700, 300, 129, 2000, 90], 256, 100, 37),
+                ([700, 300], 256, 24, 320)]
+FLOAT_SHAPE_IDS = ["d129", "d37", "d320"]
+
+
+def _as_float(dev, dtype, *arrays):
+    """int8 arrays (values in [-127, 127]: exact in bf16, exact fp32 sums
+    up to D=320) as ``dtype`` tensors on ``dev``."""
+    return tuple(torch.from_numpy(x).to(dev, FLOAT_DTYPES[dtype]) for x in arrays)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("walk", ["dense", "parked"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_k6_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, walk, depth):
+    """K6's float modes over a shard's walk and a recovery list; every 7th
+    routed row is zero, as an empty slot: it scores +0."""
+    rng = np.random.default_rng(27)
+    qg, vt, bc, bf, bl, rv, _, rb = _k6_inputs(rng, sizes, blk, qcap, d, False, walk, False)
+    qg[:, ::7] = 0
+    qg, vt = _as_float(dev, dtype, qg, vt)
+    bc, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bc, bf, bl, rv, rb))
+    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb)
+    before = ivf_scan.CLUSTER_LAUNCHES
+    pv, pr = ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.CLUSTER_LAUNCHES == before + 1
+    rv_, rr = ivf_scan.cluster_major_scan_reference(qg, vt, bc, bf, bl, rv, **kw)
+    rows = bc[torch.nonzero(bl).flatten()].long()
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
 def test_k6_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(22)
     qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
                                     for x in _k6_inputs(rng, [100], 128, 8, 16, False, "dense",
                                                         False))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ivf_scan.cluster_major_scan(qg.float(), vt.float(), bc, bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError, match="one dtype"):
+        ivf_scan.cluster_major_scan(qg.float(), vt.bfloat16(), bc, bf, bl, rv, 4, blk=128)
     with pytest.raises(ValueError):  # more than 32 per row
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 33, blk=128)
     with pytest.raises(ValueError):  # bins other than 128
@@ -428,13 +471,41 @@ def test_k7_kernel_equal_to_plain_and_to_k4_k6(dev, sizes, blk, qcap, d, k, ties
     assert torch.equal(gr[rows][fin], pr[rows][fin]) and torch.equal(ci[out][fin], pr[rows][fin])
 
 
+@pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("depth", [2, 4])
+def test_k7_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, compact, depth):
+    """K7's float modes: the routed rows gathered from the batch [B, D']
+    (rows start every 4·D' bytes, D' odd) through cq_blocks; a slot past the
+    batch and the -1 slots give zero rows."""
+    rng = np.random.default_rng(28)
+    qi, cqb, vt, _, bf, bl, rv, _, rb, _ = _k7_inputs(rng, sizes, blk, qcap, d, False,
+                                                      compact, False)
+    qi, vt = _as_float(dev, dtype, qi, vt)
+    cqb, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (cqb, bf, bl, rv, rb))
+    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb)
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES)
+    pv, pr = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES) == (before[0] + 1, before[1])
+    rv_, rr = ivf_scan.cluster_major_scan_routed_reference(qi, cqb, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
 def test_k7_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(24)
     qi, cqb, vt, _, bf, bl, rv, _, _, _ = (
         None if x is None else torch.from_numpy(x).to(dev)
         for x in _k7_inputs(rng, [100], 128, 8, 16, False, False, False))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ivf_scan.cluster_major_scan_routed(qi.float(), cqb, vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError, match="D <= 320"):
+        ivf_scan.cluster_major_scan_routed(
+            torch.zeros((qi.shape[0], 330), device=dev), cqb,
+            torch.zeros((vt.shape[0], 330, 128), device=dev), bf, bl, rv, 4, blk=128)
     with pytest.raises(ValueError):  # more than 32 per row
         ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 33, blk=128)
     with pytest.raises(ValueError):  # depth past 4
@@ -475,12 +546,45 @@ def test_k9_kernel_equal_to_plain(dev, sizes, blk, qcap, d, lo_hi, bias, bin2, k
     assert (rv_[rows] > float("-inf")).any()
 
 
+@pytest.mark.parametrize("sizes,blk,qcap,d", [
+    ([2000, 0, 5000, 129], 2048, 40, 129),  # multi-block and empty clusters, D' odd
+    ([700, 300, 129, 2000], 256, 100, 37),  # ragged qcap tile, d % 4 != 0
+    ([700, 300], 256, 24, 320),             # the widest D the float stage holds
+], ids=FLOAT_SHAPE_IDS)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
+@pytest.mark.parametrize("k", [20, 32])
+def test_k9_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, bin2, k):
+    """K9's float emit: ``pv`` is the masked key (monotone(score) & ~15 |
+    code) turned back into fp32, bit for bit; every 7th routed row is zero
+    (scores +0, whose key differs from -0's)."""
+    rng = np.random.default_rng(29)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d)
+    qg[:, ::7] = 0
+    qg, vt = _as_float(dev, dtype, qg, vt)
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    kw = dict(k=k, blk=blk, group=8, depth=8, bin2=bin2)
+    before = (ivf_accum.ACCUM_LAUNCHES, ivf_accum.LAUNCHES)
+    pv, pr = ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert (ivf_accum.ACCUM_LAUNCHES, ivf_accum.LAUNCHES) == (before[0] + 1, before[1])
+    rv_, rr = ivf_accum.cluster_major_accum_reference(qg, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    assert torch.equal(pr[rows], rr[rows])
+    assert (rv_[rows] > float("-inf")).any()
+
+
 def test_k9_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(26)
     qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
                           for x in _k1_inputs(rng, [100], 128, 8, 16))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ivf_accum.cluster_major_accum(qg.float(), vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError, match="one dtype"):
+        ivf_accum.cluster_major_accum(qg.bfloat16(), vt.float(), bf, bl, rv, 4, blk=128)
+    with pytest.raises(ValueError, match="bias_rows"):  # float slabs take no bias rows
+        ivf_accum.cluster_major_accum(qg.float(), vt.float(), bf, bl, rv, 4, blk=128,
+                                      bias_rows=torch.zeros((vt.shape[0], 1, 128),
+                                                            dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):  # more than 32 per row
         ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, 33, blk=128)
 
@@ -850,13 +954,39 @@ def test_k10_kernel_equal_to_plain_and_full_to_k6(dev, sizes, blk, qcap, d, k, t
             assert torch.equal(pv[win], kv[win]) and torch.equal(pr[win][fin], ki[win][fin])
 
 
+@pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_kernel_float_equal_to_plain(dev, sizes, blk, qcap, d, dtype, variant):
+    """K10's float modes on each variant's defined windows, the walk cut
+    after its last block with rows."""
+    rng = np.random.default_rng(30)
+    qg, vt, bc, bf, bl, rv, _, _ = _k6_inputs(rng, sizes, blk, qcap, d, False, "dense", False)
+    qg[:, ::7] = 0
+    cut = int(np.nonzero(rv)[0].max()) + 1
+    qg, vt = _as_float(dev, dtype, qg, vt[:cut])
+    tabs = [torch.from_numpy(x[:cut]).to(dev) for x in (bc, bf, bl, rv)]
+    args = (qg, vt, *tabs, 20, blk, 128, variant)
+    before = kernel_lab.LAUNCHES
+    pv, pr = kernel_lab._variant_scan(*args)
+    torch.cuda.synchronize()
+    assert kernel_lab.LAUNCHES == before + 1
+    rv_, rr = kernel_lab._variant_scan_reference(*args)
+    win = _k10_defined(variant, tabs[0], tabs[2])
+    assert torch.equal(_bits(pv[win]), _bits(rv_[win]))
+    fin = rv_[win] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[win][fin], rr[win][fin])
+
+
 def test_k10_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(44)
     qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
                                     for x in _k6_inputs(rng, [100], 128, 8, 16, False, "dense",
                                                         False))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        kernel_lab._variant_scan(qg.float(), vt.float(), bc, bf, bl, rv, 4, 128, 128, "full")
+    with pytest.raises(ValueError, match="one dtype"):
+        kernel_lab._variant_scan(qg.float(), vt.bfloat16(), bc, bf, bl, rv, 4, 128, 128,
+                                 "full")
     with pytest.raises(ValueError, match="one device"):
         kernel_lab._variant_scan(qg, vt, bc.cpu(), bf, bl, rv, 4, 128, 128, "maxonly")
     with pytest.raises(ValueError, match="contiguous"):

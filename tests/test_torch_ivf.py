@@ -411,15 +411,6 @@ def test_auto_engine_falls_back_to_grouped(small_data):
         t.search_device(_t(qs), K, 1, mode="cluster", engine="pallas_accum")
 
 
-def test_unported_paths_raise(pair, small_data):
-    _, t = pair[512]
-    q = _t(small_data[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.search_device(q, K, NPROBE, mode="query")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.search_device(q, K, NPROBE, mode="cluster", engine="xla")
-
-
 def test_assign_clusters_matches_jax(jax_base, small_data):
     base, _ = small_data
     c = jax_base._centroids_np
