@@ -79,16 +79,22 @@ script exits non-zero without a result line:
              also against K6 on the same table; then the lab itself with
              the counters reset just before and read just after, printing
              its ms/call and µs/block for each variant.
-11. gemm   — the index is freed first.  Kernel K8 against its plain version
-             at a ragged shape in int8 (exact), bf16 and fp32 (within the
-             worst-case fp32 summation bound); the full-width int8 product
+11. gemm   — the index is freed first.  Kernel K8 (int8 on ``mma.sync``,
+             bf16 on ``wgmma`` fed by TMA, fp32 on a ``cp.async`` FFMA tile)
+             against its plain version at a ragged shape in int8 (exact),
+             bf16 and fp32 (within the worst-case fp32 summation bound), and
+             in bf16 and fp32 at the float kernels' edges (M 1, 65, 1153; N
+             30, 257, 513; K 8, 72, 4096); the full-width int8 product
              [8192,128] x [128,1M] (the SIFT-1M scoring GEMM, 32.8 GB of
              int32 out) held exactly against the plain version in column
              chunks and timed beside ``torch._int_mm``; bf16 and fp32 at
-             4096^3 beside ``torch.mm``/``torch.matmul``; then, counters
-             reset just before and read just after, ``spatial_matmul`` on a
-             1x1 and a logical 2x2 grid of this card through K8 and the plain
-             product (``verify_matmul`` must pass) and
+             4096^3 beside ``torch.mm`` (TF32 off); the skinny bf16 product
+             [8192,128] x [128,131072] (4.3 GB of f32 out) held in column
+             chunks and timed beside ``torch.mm(out_dtype=float32)``; then,
+             counters reset just before and read just after,
+             ``spatial_matmul`` on a 1x1 and a logical 2x2 grid of this card
+             through K8 and the plain product in int8, bf16 and fp32
+             (``verify_matmul`` must pass; every K8 mode launched) and
              ``bench_gemm.run(128, 128, 10240, "int8")``, the AIE reference
              workload, whose result dict is printed.
 12. probe  — the hardware probes (``harness/hw_probe.py``): kernels K11-K14
@@ -261,8 +267,9 @@ def main() -> None:
                     tiled_matmul, kernel_lab):
             mod.LAUNCHES = 0
         ivf_scan.CLUSTER_LAUNCHES = ivf_scan.ROUTED_LAUNCHES = ivf_accum.ACCUM_LAUNCHES = 0
-        for key in hw_probe.LAUNCHES:
-            hw_probe.LAUNCHES[key] = 0
+        for counts in (hw_probe.LAUNCHES, tiled_matmul.MODE_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
 
     def read_launches():
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
@@ -1001,6 +1008,18 @@ def main() -> None:
         lim = 2.0 * a_.shape[1] * 2.0**-24 * (a_.double().abs() @ b_.double().abs())
         return float(err.max()), bool((err <= lim).all())
 
+    def library_mm(a_, b_):
+        """One PyTorch call that computes K8's function (f32 out), with its
+        name: the yardstick beside the kernel (TF32 off, the default)."""
+        try:  # bf16 -> f32 in one call where this torch has out_dtype
+            lib = lambda: torch.mm(a_, b_, out_dtype=torch.float32)  # noqa: E731
+            lib()
+            return lib, "torch.mm(out_dtype=float32)"
+        except TypeError:
+            return (lambda: torch.matmul(a_, b_)), "torch.matmul"
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 yardstick would not be an fp32 product")
     k8_checks = {}
     for dtype in (torch.int8, torch.bfloat16, torch.float32):
         a_, b_ = rand((999, 197), dtype), rand((197, 3001), dtype)
@@ -1013,6 +1032,22 @@ def main() -> None:
           f"(max |err|, within tolerance): {k8_checks}")
     if not all(ok for _, ok in k8_checks.values()):
         raise AssertionError(f"K8 differs from the plain version: {k8_checks}")
+    # The float kernels' edges: M 1, 65 and 9 * 128 + 1 (rows past M in a
+    # warpgroup's 64 and in a tile; a ragged run of the f32 kernel's tile
+    # order); N off a multiple of 8 (padded) and 2 * 256 + 1; K 8, 72 (a
+    # 64-K stage and a tail) and 4096.
+    k8_edges = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m_, k_, n_ in ((1, 72, 257), (65, 8, 30), (1153, 4096, 513)):
+            a_, b_ = rand((m_, k_), dtype), rand((k_, n_), dtype)
+            c = tiled_matmul.tiled_matmul(a_, b_)
+            ref = tiled_matmul.tiled_matmul_reference(a_, b_)
+            torch.cuda.synchronize()
+            k8_edges[f"{str(dtype).split('.')[1]} {m_}x{k_}x{n_}"] = k8_err(c, ref, a_, b_)
+            del a_, b_, c, ref
+    phase("gemm", t0, f"K8 edges (max |err|, within tolerance): {k8_edges}")
+    if not all(ok for _, ok in k8_edges.values()):
+        raise AssertionError(f"K8 differs from the plain version at an edge: {k8_edges}")
 
     # The SIFT-1M scoring product: 8192 queries against the 1M base, both
     # L2-normalized and scaled to int8 (utils/preprocess), -> int32.
@@ -1053,7 +1088,7 @@ def main() -> None:
     del a8, b8
     torch.cuda.empty_cache()
 
-    # bf16 and f32 at the hardware probe's square shape, beside torch.matmul.
+    # bf16 and f32 at the hardware probe's square shape, beside torch.mm.
     SQ = 4096
     k8_sq = {}
     for name, dtype, rate in (("bf16", torch.bfloat16, BF16_OPS_S),
@@ -1063,13 +1098,7 @@ def main() -> None:
                      tiled_matmul.tiled_matmul_reference(a_, b_), a_, b_)
         if not err[1]:
             raise AssertionError(f"K8 {name} {SQ}^3 outside the tolerance: max |err| {err[0]}")
-        try:  # bf16 -> f32 in one call where this torch has out_dtype
-            lib = lambda: torch.mm(a_, b_, out_dtype=torch.float32)  # noqa: E731
-            lib()
-            lib_name = "torch.mm(out_dtype=float32)"
-        except TypeError:
-            lib = lambda: torch.matmul(a_, b_)  # noqa: E731
-            lib_name = "torch.matmul"
+        lib, lib_name = library_mm(a_, b_)
         k8_sq[name] = dict(
             err=err[0], ms=cuda_ms(torch, lambda: tiled_matmul.tiled_matmul(a_, b_)),
             plain_ms=cuda_ms(torch, lambda: tiled_matmul.tiled_matmul_reference(a_, b_), reps=3),
@@ -1081,34 +1110,73 @@ def main() -> None:
     phase("gemm", t0, f"K8 {SQ}^3 (max |err| within tolerance, ms, plain ms, library call "
           f"ms, bound): {sq_lines}")
 
+    # One skinny bf16 product at the spatial GEMM's shape, K = 128: the f32
+    # output is the work, so it shows whether the epilogue keeps up.
+    SK_N, sk_chunk = 131072, 16384
+    a_, b_ = rand((BATCH, DIM), torch.bfloat16), rand((DIM, SK_N), torch.bfloat16)
+    c = tiled_matmul.tiled_matmul(a_, b_)
+    torch.cuda.synchronize()
+    sk_err, sk_plain_ms = 0.0, 0.0
+    for c0 in range(0, SK_N, sk_chunk):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = tiled_matmul.tiled_matmul_reference(a_, b_[:, c0:c0 + sk_chunk])
+        end.record()
+        end.synchronize()
+        sk_plain_ms += start.elapsed_time(end)
+        e_, ok_ = k8_err(c[:, c0:c0 + sk_chunk], ref, a_, b_[:, c0:c0 + sk_chunk])
+        if not ok_:
+            raise AssertionError(f"K8 bf16 [{BATCH},{DIM}] x [{DIM},{SK_N}] outside the "
+                                 f"tolerance: max |err| {e_}")
+        sk_err = max(sk_err, e_)
+        del ref
+    del c
+    lib, lib_name = library_mm(a_, b_)
+    k8_sk = dict(err=sk_err, ms=cuda_ms(torch, lambda: tiled_matmul.tiled_matmul(a_, b_)),
+                 plain_ms=sk_plain_ms, lib=lib_name, lib_ms=cuda_ms(torch, lib),
+                 bound=bound(2 * (a_.numel() + b_.numel()) + BATCH * SK_N * 4,
+                             2.0 * BATCH * DIM * SK_N, BF16_OPS_S))
+    phase("gemm", t0, f"K8 bf16 [{BATCH},{DIM}] x [{DIM},{SK_N}] -> f32 "
+          f"({BATCH * SK_N * 4 / 1e9:.1f} GB out): max |err| {sk_err} within tolerance in "
+          f"{SK_N // sk_chunk} column chunks; {k8_sk['ms']} ms vs plain {sk_plain_ms} ms (the "
+          f"chunks), {lib_name} {k8_sk['lib_ms']} ms; bound {k8_sk['bound'][0]} ms by "
+          f"{k8_sk['bound'][1]}")
+    del a_, b_
+    torch.cuda.empty_cache()
+
     # The path itself, counted: spatial_matmul on a 1x1 grid and on a logical
     # 2x2 grid of this card, both local products, and the AIE reference
     # workload through bench_gemm (its default kernel, K8).
     here = torch.device("cuda", torch.cuda.current_device())
-    ga, gb = bench_gemm._make_inputs(128, 128, 10240, "int8", 0)
-    fa, fb = bench_gemm._make_inputs(256, 64, 128, "fp32", 0)
+    operands = {"int8": bench_gemm._make_inputs(128, 128, 10240, "int8", 0),
+                "bf16": bench_gemm._make_inputs(256, 64, 128, "bf16", 0),
+                "fp32": bench_gemm._make_inputs(256, 64, 128, "fp32", 0)}
     reset_launches()
     grids = {}
     for grid_name, mesh in (("1x1", [[here]]), ("2x2", [[here] * 2] * 2)):
         for use_k8 in (True, False):
-            for name, (x, y) in (("int8", (ga, gb)), ("fp32", (fa, fb))):
+            for name, (x, y) in operands.items():
                 c = spatial_matmul(x.to(dev), y.to(dev), mesh, use_pallas_kernel=use_k8)
                 grids[f"{grid_name} {'K8' if use_k8 else 'plain'} {name}"] = verify_matmul(
-                    x.numpy(), y.numpy(), c.cpu().numpy())
+                    bench_gemm._host(x), bench_gemm._host(y), c.cpu().numpy())
     res = bench_gemm.run(128, 128, 10240, "int8", quiet=True)
     torch.cuda.synchronize()
-    k8_launches = read_launches()["K8"]
-    phase("gemm", t0, f"spatial_matmul verify_matmul: {grids}; launches {k8_launches}")
+    k8_launches = dict(tiled_matmul.MODE_LAUNCHES)
+    phase("gemm", t0, f"spatial_matmul verify_matmul: {grids}; launches by mode {k8_launches}")
     print(f"[gemm] bench_gemm.run(128, 128, 10240, 'int8') on {card}: {json.dumps(res)}",
           flush=True)
     if not all(grids.values()) or not res["verified"]:
         raise AssertionError(f"the spatial GEMM failed verify_matmul: {grids}, {res}")
-    if k8_launches < 1:
-        raise AssertionError("the spatial GEMM did not launch K8")
+    if min(k8_launches.values()) < 1:
+        raise AssertionError(f"the spatial GEMM did not launch every K8 mode: {k8_launches}")
+    k8_errs = {"bf16": max([k8_sq["bf16"]["err"], sk_err, k8_checks["bfloat16"][0]]
+                           + [v[0] for key, v in k8_edges.items() if key.startswith("bf")]),
+               "fp32": max([k8_sq["fp32"]["err"], k8_checks["float32"][0]]
+                           + [v[0] for key, v in k8_edges.items() if key.startswith("fl")])}
 
     # ---- phase 12: the hardware probes (K11-K14), each kernel against its
     # plain version at a ragged shape and at one JAX size, then the probes.
-    del ga, gb, fa, fb
+    del operands
     torch.cuda.empty_cache()
     pgen = torch.Generator(device=dev).manual_seed(12)
 
@@ -2110,12 +2178,19 @@ def main() -> None:
          "ms": k9["int8-L2"]["ms"], "plain_ms": k9["int8-L2"]["plain_ms"],
          "bound_ms": k9["int8-L2"]["bound"][0], "bound_by": k9["int8-L2"]["bound"][1],
          "library_ms": None},
-        {"name": "tiled_matmul", "route": "cuda",
+        {"name": "tiled_matmul", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/tiled_matmul.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_matmul.py:50",
-         "launches": k8_launches, "max_abs_err": k8_full_err, "ms": k8_ms,
+         "launches": k8_launches["int8"], "max_abs_err": k8_full_err, "ms": k8_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
          "library_ms": k8_lib_ms},
+        *({"name": "tiled_matmul", "mode": mode, "route": "cuda",
+           "source": "rag_on_edge_tpu_torch/csrc/tiled_matmul.cu",
+           "replaces": "rag_on_edge_tpu/ops/pallas_matmul.py:50",
+           "launches": k8_launches[mode], "max_abs_err": k8_errs[mode], "ms": k8_sq[mode]["ms"],
+           "plain_ms": k8_sq[mode]["plain_ms"], "bound_ms": k8_sq[mode]["bound"][0],
+           "bound_by": k8_sq[mode]["bound"][1], "library_ms": k8_sq[mode]["lib_ms"]}
+          for mode in ("bf16", "fp32")),
         {"name": "_variant_scan", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/harness/kernel_lab.py:93",

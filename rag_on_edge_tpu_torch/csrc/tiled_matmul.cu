@@ -4,60 +4,91 @@
 // It replaces the TPU kernel rag_on_edge_tpu/ops/pallas_matmul.py,
 // tiled_matmul (its _kernel): a (M/bm, N/bn, K/bk) grid whose K steps carry
 // an accumulator in VMEM and emit each C tile once.  Here each CTA owns one
-// 128 x 128 tile of C and walks K itself, the accumulator in registers.
+// tile of C and walks K itself, the accumulator in registers.  A is
+// row-major [M, K] and B row-major [K, N] (N-contiguous) in every mode.
 //
-// What bounds it on the H100: at the spatial GEMM's shapes K is small (128),
-// so the int32 / f32 output is most of the bytes; the SIFT-1M scoring product
-// [8192, 128] x [128, 1M] writes 32.8 GB against 129 MB of inputs, and is
-// bound by HBM writes (9.8 ms at 3.35 TB/s).  At a square 4096^3 the
-// bf16 and f32 products are bound by the tensor-core and FFMA rates.
+// What bounds each mode on the H100:
+// - int8 at the SIFT-1M scoring product [8192, 128] x [128, 1M]: K is small,
+//   so the int32 output is most of the bytes (32.8 GB against 129 MB in):
+//   HBM writes, 9.8 ms at 3.35 TB/s.
+// - bf16 at 4096^3: the tensor cores, 0.139 ms at 989 TFLOP/s, which only
+//   wgmma reaches (the legacy mma.sync path tops out near a third of it:
+//   K14 measured 320-341 T ops/s).  At the skinny [8192, 128] x
+//   [128, 131072] the 4.3 GB f32 output bounds it (1.29 ms).
+// - f32 at 4096^3: the FFMA rate, 2.05 ms at 67 TFLOP/s.  The product stays
+//   in fp32 on FFMA: TF32 (and 3xTF32) would break the 2K*2^-24 bound every
+//   check holds it to.
 //
-// Design (simple first; wgmma, TMA and a persistent grid are later work):
-// - int8 and bf16: mma.sync tensor-core tiles, m16n8k32 s8.s8 -> s32 and
-//   m16n8k16 bf16 -> f32.  Both consume 32 bytes of K per instruction with
-//   the same register layout (a fragment word holds 4 int8 or 2 bf16
-//   K-neighbours), so one template serves both.  8 warps as 2 (M) x 4 (N),
-//   each warp 64 x 32 of C: 4 x 4 mma tiles, 64 accumulators a thread.
-// - K advances 64 bytes a tile (64 int8 or 32 bf16 values).  A tile is
-//   copied as it lies (K-contiguous rows, 16-byte loads); B is transposed on
-//   the way to shared memory (4 K-rows x 4 bytes of columns per 32-bit word,
-//   __byte_perm), because the mma B operand wants K-contiguous words per
-//   column and ldmatrix cannot transpose 8-bit data.  Both tiles are stored
-//   as [128 rows][16 words] with the 4-word group XOR-swizzled by row bits,
-//   and the fragments come out of them with ldmatrix.x4, free of bank
-//   conflicts.
-// - double-buffered: the next K tile is loaded into registers while the
-//   current one is multiplied, then stored into the other buffer.
-// - ragged edges: rows of A past M and columns of B past N load as zeros,
-//   and C is stored under a mask.  The wrapper pads K to 16 bytes and the
-//   row pitch of B to 4 bytes (zeros), so every load is aligned.
-// - f32: FFMA, no TF32 (the reference is full fp32): 128 x 128 tiles, K 16
-//   at a time, an 8 x 8 block of C a thread, both tiles in shared memory,
-//   double-buffered the same way.
-// - C is written once: each warp stages its 64 x 32 block through shared
-//   memory, 32 rows at a time, and writes whole 128-byte rows of C with
-//   16-byte streaming stores (st.global.cs), so the 32.8 GB output moves
-//   in full lines and does not evict B's next tile from L2.
+// Designs:
+// - bf16 (wgmma_kernel): a 128 x 256 C tile per CTA, 64 bf16 of K (128
+//   bytes, one swizzle row) a stage, a ring of 4 stages (48 KB each) in
+//   dynamic shared memory.  One producer warp issues TMA copies
+//   (cp.async.bulk.tensor.2d, 128-byte swizzle): A's [128 rows, 64 K] box
+//   and B's [64 K, 256 N] tile as four [64 K, 64 N] boxes, taken as they
+//   lie; each stage has a full barrier (expect_tx) and an empty barrier.
+//   Two consumer warpgroups, 64 rows each, run
+//   wgmma.mma_async.m64n256k16.f32.bf16.bf16 from shared memory: A K-major,
+//   B MN-major through the transpose-B bit, so no thread touches an
+//   operand.  One wgmma group stays in flight; a stage is released once the
+//   group that read it has retired.  TMA fills rows past M, columns past N
+//   and the K tail with zeros, so ragged edges add 0.  The epilogue stages
+//   the accumulators in the drained ring and writes whole rows of C with
+//   16-byte streaming stores (direct 8-byte stores from the fragments were
+//   a fifth slower at the skinny product).
+// - f32 (f32_kernel): a 128 x 128 C tile per CTA, 8 warps as 2 (M) x 4 (N),
+//   each warp 64 x 32 and each lane 8 x 8 (rows 8 apart, two 4-column
+//   blocks).  Both operands go to shared memory as they lie, with 16-byte
+//   cp.async copies (zero-filled past the edges) through a ring of 3
+//   stages of 32 K and one barrier a stage.  A keeps its rows, at a pitch
+//   of 36 floats, so a lane reads 4 K-values of a row as one 16-byte
+//   broadcast, free of bank conflicts; 16 shared loads feed 256 __fmaf_rn.
+//   It takes 168 registers at one CTA an SM: capped at 128 for two, it
+//   spilled, or ran slower without spills.
+// - int8 (mma_kernel): mma.sync m16n8k32 s8.s8 -> s32 (wgmma takes 8-bit B
+//   only K-major, and B is N-contiguous).  8 warps as 2 (M) x 4 (N), each
+//   warp 64 x 32 of a 128 x 128 C tile; K advances 64 bytes a tile.  A is
+//   copied as it lies; B is transposed on the way to shared memory
+//   (__byte_perm), because the mma B operand wants K-contiguous words per
+//   column and ldmatrix cannot transpose 8-bit data.  Tiles are XOR-swizzled
+//   [128][16]-word arrays read with ldmatrix.x4 (csrc/mma_frag.cuh),
+//   double-buffered through registers.  Each warp stages its C block
+//   through shared memory and writes whole 128-byte rows with 16-byte
+//   streaming stores, so the 32.8 GB output moves in full lines.
+//
+// nvcc -Xptxas -v (CUDA 12.9, sm_90a):
+//   wgmma_kernel        154 registers, no spills; 64 B static + 197,632 B
+//                       dynamic shared memory (the ring and 1 KB of slack)
+//   f32_kernel          168 registers, no spills; 104,448 B dynamic
+//   mma_kernel<kI8>     128 registers, 4 B spilled; 40,960 B static
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "mma_frag.cuh"
 
 namespace {
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The f32 kernel's C tile for this CTA, of a grid of mtiles x ntiles: runs
+// of 8 M tiles, and the N tiles one after the other within a run, so the
+// CTAs in flight at once share their rows of A and columns of B in L2
+// (a few percent faster than M tiles fastest at 4096^3, where A and B are
+// 64 MB each).
+__device__ __forceinline__ void grouped_tile(int mtiles, int* mt, int* nt) {
+  const int ntiles = (int)gridDim.x / mtiles, run = (int)blockIdx.x / (8 * ntiles);
+  const int rows = min(8, mtiles - 8 * run), rem = (int)blockIdx.x - 8 * run * ntiles;
+  *mt = 8 * run + rem % rows;
+  *nt = rem / rows;
+}
+
+// ------------------------------------------------------------- int8: mma.sync
+
 constexpr int BM = 128, BN = 128;   // C tile per CTA
 constexpr int THREADS = 256;
 constexpr int TILE_WORDS = BM * KW; // one operand tile in shared memory (BM == BN)
-
-__device__ __forceinline__ void store4(int32_t* p, const int4& v) {
-  __stcs(reinterpret_cast<int4*>(p), v);
-}
-__device__ __forceinline__ void store4(float* p, const int4& v) {
-  __stcs(reinterpret_cast<float4*>(p), *reinterpret_cast<const float4*>(&v));
-}
-
-__device__ __forceinline__ void store1(int32_t* p, int32_t x) { __stcs(p, x); }
-__device__ __forceinline__ void store1(float* p, float x) { __stcs(p, x); }
 
 // The epilogue stages each warp's C block through shared memory, 32 rows
 // at a time, at a pitch of 40 words (the fragment pairs' 8-byte writes are
@@ -212,50 +243,296 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
       const int4 w = *reinterpret_cast<const int4*>(stage + sr * C_PITCH + (lane & 7) * 4);
       Acc* p = c + (size_t)row * n + col;
       if (vec && col + 3 < n) {
-        store4(p, w);
+        __stcs(reinterpret_cast<int4*>(p), w);
       } else {
         const Acc* x = reinterpret_cast<const Acc*>(&w);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (col + j < n) store1(p + j, x[j]);
+          if (col + j < n) __stcs(p + j, x[j]);
       }
     }
     __syncwarp();
   }
 }
 
-constexpr int FBK = 16;  // K values per tile (f32 path)
+// ------------------------------------------------- bf16: wgmma fed by TMA
 
-// a [m, k], b [k, n], c [m, n], f32, any shapes.  Thread (ty, tx) computes
-// rows {ty*4 + i, 64 + ty*4 + i} x columns {tx*4 + j, 64 + tx*4 + j}.
-__global__ void __launch_bounds__(THREADS, 2)
-f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-           int m, int n, int k, int mtiles) {
-  __shared__ __align__(16) float as[2][FBK][BM + 4];  // A^T
-  __shared__ __align__(16) float bs[2][FBK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = (int)(blockIdx.x % mtiles) * BM;
-  const int n0 = (int)(blockIdx.x / mtiles) * BN;
-  const int nk = (k + FBK - 1) / FBK;
-  float ra[8], rb[8];
+constexpr int WG_BM = 128, WG_BN = 256, WG_BK = 64;  // C tile; K a stage (128 bytes)
+constexpr int WG_STAGES = 4;
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;        // 16 KB: [128 rows][64 K]
+constexpr int WG_B_BOX = WG_BK * 64 * 2;             // 8 KB: [64 K][64 N]
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + 4 * WG_B_BOX;
+constexpr int WG_THREADS = 288;                      // 2 consumer warpgroups + 1 producer warp
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;  // + slack to align the ring to 1 KB
+constexpr int WG_CP = 264;  // the epilogue's row pitch in floats (8-byte writes conflict-free)
+static_assert(2 * 64 * WG_CP * 4 <= WG_STAGES * WG_STAGE_BYTES, "C staging must fit the ring");
 
-  auto load_tile = [&](int kt) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One TMA box at element coordinates (c0 innermost, c1) into shared memory
+// at `dst`; the copy completes its bytes on `bar`.  Out-of-bounds elements
+// arrive as zeros and count toward the bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand at
+// shared address `addr` (1 KB-aligned swizzle atoms): the leading and stride
+// byte offsets in 16-byte units, layout type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Keep the accumulators in place around the asynchronous wgmma (no copy
+// of them may be moved across it).
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = tid + THREADS * j;
-      const int ar = e >> 4, ak = kt * FBK + (e & 15);
-      ra[j] = (m0 + ar < m && ak < k) ? a[(size_t)(m0 + ar) * k + ak] : 0.0f;
-      const int bk = kt * FBK + (e >> 7), bc = n0 + (e & 127);
-      rb[j] = (bk < k && bc < n) ? b[(size_t)bk * n + bc] : 0.0f;
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 256] += A[64 x 16] (K-major) @ B[16 x 256] (MN-major: transpose-B 1).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// c [m, n] f32 from the bf16 tensor maps of a [m, k] and b [k, ldb] (see
+// launch_bf16); CTA i computes C tile i, M tiles fastest (the grouped
+// order of the f32 kernel was a fifth slower at the skinny product's
+// 64 x 512 tiles and no faster at 4096^3).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             float* __restrict__ c, int m, int n, int k, int mtiles) {
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  const uint32_t ring_off = ((smem_u32(wg_smem) + 1023u) & ~1023u) - smem_u32(wg_smem);
+  const uint32_t ring = smem_u32(wg_smem) + ring_off;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = (int)(blockIdx.x % mtiles) * WG_BM, n0 = (int)(blockIdx.x / mtiles) * WG_BN;
+  const int nk = (k + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx; the TMA bytes complete it
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-  };
-  auto store_tile = [&](int buf) {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG_STAGES;
+        if (kt >= WG_STAGES) mbar_wait(&empty[s], (unsigned)((kt / WG_STAGES - 1) & 1));
+        const uint32_t sa = ring + s * WG_STAGE_BYTES, sb = sa + WG_A_BYTES;
+        mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+        tma_load_2d(sa, &ta, kt * WG_BK, m0, &full[s]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = tid + THREADS * j;
-      as[buf][e & 15][e >> 4] = ra[j];
-      bs[buf][e >> 7][e & 127] = rb[j];
+        for (int j = 0; j < 4; ++j)
+          tma_load_2d(sb + j * WG_B_BOX, &tb, n0 + 64 * j, kt * WG_BK, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
+  const int wg = warp >> 2;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % WG_STAGES;
+    mbar_wait(&full[s], (unsigned)((kt / WG_STAGES) & 1));
+    const uint32_t sa = ring + s * WG_STAGE_BYTES + wg * 64 * 128;
+    const uint32_t sb = ring + s * WG_STAGE_BYTES + WG_A_BYTES;
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // A: 128-byte rows, 8-row groups 1 KB apart; a k16 step is 32 bytes
+    // along the row.  B: 128-byte K rows, 8-row groups 1 KB apart, the four
+    // 64-column boxes 8 KB apart; a k16 step is 16 rows, 2 KB.
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+      wgmma_m64n256k16(d, gmma_desc(sa + kk * 32, 16, 1024),
+                       gmma_desc(sb + kk * 2048, WG_B_BOX, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_acc(d);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(d);
+    // The previous stage's group has retired: release that stage.
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+
+  // Epilogue.  Once both warpgroups are done with the ring, each stages its
+  // 64 x 256 block there at a pitch of WG_CP floats: d[i] holds row
+  // 16 (warp % 4) + lane / 4 + 8 ((i / 2) % 2) and column
+  // 8 (i / 4) + 2 (lane % 4) + i % 2, written as 8-byte pairs free of bank
+  // conflicts.  Then each row of C goes out as 1 KB of 16-byte streaming
+  // stores, half a row a warp instruction.
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  float* st = reinterpret_cast<float*>(wg_smem + ring_off) + wg * 64 * WG_CP;
+  const int lr = (warp & 3) * 16 + (lane >> 2), lc = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(st + (lr + 8 * h) * WG_CP + 8 * j + lc) =
+          make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int t = threadIdx.x & 127;
+  const bool vec = (n & 3) == 0;  // rows of C 16-byte aligned
+#pragma unroll 4
+  for (int pass = 0; pass < 32; ++pass) {
+    const int r = pass * 2 + (t >> 6), cc = (t & 63) * 4;
+    const int row = m0 + wg * 64 + r, col = n0 + cc;
+    if (row >= m || col >= n) continue;
+    const float4 v = *reinterpret_cast<const float4*>(st + r * WG_CP + cc);
+    float* p = c + (size_t)row * n + col;
+    if (vec && col + 3 < n) {
+      __stcs(reinterpret_cast<float4*>(p), v);
+    } else {
+      const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < n) __stcs(p + e, x[e]);
+    }
+  }
+}
+
+// ------------------------------------------- f32: cp.async-pipelined FFMA
+
+constexpr int F_BM = 128, F_BN = 128, F_BK = 32, F_STAGES = 3;
+constexpr int F_THREADS = 256;
+constexpr int F_PA = F_BK + 4;  // A's row pitch in floats (see f32_kernel)
+constexpr int F_A_FLOATS = F_BM * F_PA, F_B_FLOATS = F_BK * F_BN;
+constexpr int F_STAGE_FLOATS = F_A_FLOATS + F_B_FLOATS;
+constexpr int F_SMEM = F_STAGES * F_STAGE_FLOATS * 4;
+constexpr int F_ACH = F_BK / 4, F_BCH = F_BN / 4;  // 16-byte chunks a row of A, of B
+constexpr int F_AR = F_THREADS / F_ACH, F_BR = F_THREADS / F_BCH;  // rows a pass
+
+// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// a [m, k], b [k, ldb], c [m, n] f32; k and ldb multiples of 4 and both
+// bases 16-byte aligned (columns n..ldb-1 of b ignored).  Warp (wm, wn) of
+// the 2 x 4 computes the 64 x 32 block at (64 wm, 32 wn) of the CTA's tile;
+// its lane (lm, ln) = (lane / 4, lane % 4) rows 8 i + lm (i < 8) and
+// columns 16 q + 4 ln + 0..3 (q < 2) of it.  Rows lm and lm + 1 lie 36
+// floats (4 banks) apart, so a warp's 16-byte read of A at one row slot
+// touches 32 distinct banks (8 rows, 4 lanes each, as broadcasts) and its
+// reads of B 16 banks.
+__global__ void __launch_bounds__(F_THREADS, 1)
+f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+           int m, int n, int k, int ldb, int mtiles) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int lm = lane >> 2, ln = lane & 3;
+  int mt, nt;
+  grouped_tile(mtiles, &mt, &nt);
+  const int m0 = mt * F_BM, n0 = nt * F_BN;
+  const int nk = (k + F_BK - 1) / F_BK;
+
+  // This thread's copies: A rows ar + F_AR j at K column aq, B K-rows
+  // br + F_BR j at column bq, a stage at a time.
+  const int ar = tid / F_ACH, aq = (tid % F_ACH) * 4;
+  const int br = tid / F_BCH, bq = (tid % F_BCH) * 4;
+  const float* ga = a + (size_t)(m0 + ar) * k + aq;
+  const float* gb = b + (size_t)br * ldb + n0 + bq;
+  const uint32_t sa0 = smem_u32(fsm) + (ar * F_PA + aq) * 4;
+  const uint32_t sb0 = smem_u32(fsm) + (F_A_FLOATS + br * F_BN + bq) * 4;
+  unsigned arows = 0;
+#pragma unroll
+  for (int j = 0; j < F_BM / F_AR; ++j) arows |= (unsigned)(m0 + ar + F_AR * j < m) << j;
+  const bool bcol = n0 + bq < ldb;
+
+  auto load = [&](int kt) {
+    const uint32_t so = (kt % F_STAGES) * F_STAGE_FLOATS * 4;
+    const int k0 = kt * F_BK;
+    const bool akok = k0 + aq < k;
+#pragma unroll
+    for (int j = 0; j < F_BM / F_AR; ++j) {
+      const bool ok = akok && ((arows >> j) & 1);
+      cp_async16(sa0 + so + j * F_AR * F_PA * 4, ok ? ga + (size_t)F_AR * j * k + k0 : a,
+                 ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < F_BK / F_BR; ++j) {
+      const bool ok = bcol && k0 + br + F_BR * j < k;
+      cp_async16(sb0 + so + j * F_BR * F_BN * 4, ok ? gb + (size_t)(k0 + F_BR * j) * ldb : b,
+                 ok ? 16 : 0);
     }
   };
 
@@ -265,99 +542,174 @@ f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __re
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  if (nk > 0) {
-    load_tile(0);
-    store_tile(0);
-    __syncthreads();
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) load_tile(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[cur][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    if (more) store_tile(cur ^ 1);
+    // Stage kt has landed for this thread; the barrier makes it whole and
+    // frees the stage read in step kt - 1, which the next copy refills.
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(F_STAGES - 2) : "memory");
     __syncthreads();
+    if (kt + F_STAGES - 1 < nk) load(kt + F_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* as = fsm + (kt % F_STAGES) * F_STAGE_FLOATS + (wm * 64 + lm) * F_PA;
+    const float* bs = fsm + (kt % F_STAGES) * F_STAGE_FLOATS + F_A_FLOATS + wn * 32 + ln * 4;
+#pragma unroll
+    for (int kq = 0; kq < F_BK; kq += 4) {
+      float av[8][4];  // 4 K values of each row: one 16-byte read a row
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + i * 8 * F_PA + kq);
+        av[i][0] = v.x;
+        av[i][1] = v.y;
+        av[i][2] = v.z;
+        av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN);
+        const float4 b1 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN + 16);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        // Rows in turn, the columns of odd rows backwards: this order ran a
+        // few percent faster on the H100 than a plain one.
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = (i & 1) ? 7 - jj : jj;
+            acc[i][j] = __fmaf_rn(av[i][kk], bv[j], acc[i][j]);
+          }
+      }
+    }
   }
 
+  const bool vec = (n & 3) == 0;  // rows of C 16-byte aligned
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int row = m0 + wm * 64 + i * 8 + lm;
     if (row >= m) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 64 + tx * 4;
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + wn * 32 + 16 * q + ln * 4;
       float* p = c + (size_t)row * n + col;
-      if (col + 3 < n && (n & 3) == 0) {
-        __stcs(reinterpret_cast<float4*>(p),
-               make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
+      if (vec && col + 3 < n) {
+        __stcs(reinterpret_cast<float4*>(p), make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                                                         acc[i][4 * q + 2], acc[i][4 * q + 3]));
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (col + j < n) __stcs(p + j, acc[i][4 * h + j]);
+          if (col + j < n) __stcs(p + j, acc[i][4 * q + j]);
       }
     }
   }
 }
 
-// The 1-D grid: M tiles fastest, so consecutive CTAs share one tile of B.
-int grid_of(int m, int n, int* mtiles, unsigned* blocks) {
-  const long long mt = (m + BM - 1) / BM, nt = (n + BN - 1) / BN;
+// ------------------------------------------------------------- launchers
+
+// The 1-D grid of (bm x bn) C tiles.  The int8 and bf16 kernels take M
+// tiles fastest, so consecutive CTAs share one tile of B; the f32 kernel
+// groups them (grouped_tile).
+int grid_of(int m, int n, int bm, int bn, int* mtiles, unsigned* blocks) {
+  const long long mt = (m + bm - 1) / bm, nt = (n + bn - 1) / bn;
   if (mt * nt > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   *mtiles = (int)mt;
   *blocks = (unsigned)(mt * nt);
   return 0;
 }
 
-template <Elem E>
-int launch_mma(const void* a, const void* b, void* c, int m, int n, int k, int ldb, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  int mtiles;
-  unsigned blocks;
-  if (const int e = grid_of(m, n, &mtiles, &blocks)) return e;
-  mma_kernel<E><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-      static_cast<typename Mma<E>::Acc*>(c), m, n, k, ldb, mtiles);
-  return (int)cudaGetLastError();
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point lookup: the library links libcudart only.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                       &found) != cudaSuccess)
+    return nullptr;
+#else
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+      cudaSuccess)
+    return nullptr;
+#endif
+  return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
+}
+
+// A row-major bf16 [rows, cols] matrix at a row pitch of `pitch` elements
+// as a 128-byte-swizzled tensor map of [box_rows, 64] boxes.
+int bf16_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
+             int pitch, int box_rows) {
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)pitch * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dim,
+                            stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
-// returns cudaGetLastError() (0 = launched).  Row-major, contiguous:
-// a [m, k], b [k, ldb] (n <= ldb), c [m, n].  For int8 and bf16 the wrapper
-// guarantees k * elem_size % 16 == 0, ldb * elem_size % 4 == 0 and aligned
-// base pointers (a: 16 bytes, b: 4 bytes).
-extern "C" int tiled_matmul_i8(const void* a, const void* b, void* c, int m, int n, int k,
-                               int ldb, void* stream) {
-  return launch_mma<Elem::kI8>(a, b, c, m, n, k, ldb, stream);
-}
-
+// returns a CUDA error code (0 = launched).  Row-major, contiguous: a [m, k],
+// b [k, ldb] (n <= ldb; columns n..ldb-1 ignored), c [m, n].  The wrapper
+// guarantees k * elem_size and ldb * elem_size multiples of 16 bytes and
+// 16-byte-aligned bases (TMA's and cp.async's rule; int8 needs only 4 bytes
+// of B's).  The float kernels take more than 48 KB of dynamic shared
+// memory, which a launch is refused without the function attribute; each
+// entry sets it once, on its first call, so that no later call (one under
+// CUDA graph capture, say) touches it.
 extern "C" int tiled_matmul_bf16(const void* a, const void* b, void* c, int m, int n, int k,
                                  int ldb, void* stream) {
-  return launch_mma<Elem::kBF16>(a, b, c, m, n, k, ldb, stream);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0) return (int)cudaMemsetAsync(c, 0, (size_t)m * n * sizeof(float), st);
+  static const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap ta, tb;
+  if (const int e = bf16_map(encode, &ta, a, m, k, k, WG_BM)) return e;
+  if (const int e = bf16_map(encode, &tb, b, k, n, ldb, WG_BK)) return e;
+  int mtiles;
+  unsigned blocks;
+  if (const int e = grid_of(m, n, WG_BM, WG_BN, &mtiles, &blocks)) return e;
+  static const int smem_err = (int)cudaFuncSetAttribute(
+      wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (smem_err) return smem_err;
+  wgmma_kernel<<<blocks, WG_THREADS, WG_SMEM, st>>>(ta, tb, static_cast<float*>(c), m, n, k,
+                                                    mtiles);
+  return (int)cudaGetLastError();
 }
 
-// f32: a [m, k], b [k, n], c [m, n]; no alignment needs.
-extern "C" int tiled_matmul_f32(const void* a, const void* b, void* c, int m, int n, int k,
-                                void* stream) {
+extern "C" int tiled_matmul_int8(const void* a, const void* b, void* c, int m, int n, int k,
+                                 int ldb, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   int mtiles;
   unsigned blocks;
-  if (const int e = grid_of(m, n, &mtiles, &blocks)) return e;
-  f32_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (const int e = grid_of(m, n, BM, BN, &mtiles, &blocks)) return e;
+  mma_kernel<Elem::kI8><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<int32_t*>(c),
+      m, n, k, ldb, mtiles);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tiled_matmul_fp32(const void* a, const void* b, void* c, int m, int n, int k,
+                                 int ldb, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  int mtiles;
+  unsigned blocks;
+  if (const int e = grid_of(m, n, F_BM, F_BN, &mtiles, &blocks)) return e;
+  static const int smem_err = (int)cudaFuncSetAttribute(
+      f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (smem_err) return smem_err;
+  f32_kernel<<<blocks, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), m, n,
-      k, mtiles);
+      k, ldb, mtiles);
   return (int)cudaGetLastError();
 }

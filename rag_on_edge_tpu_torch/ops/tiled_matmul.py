@@ -6,9 +6,10 @@
 The TPU kernel runs an (M/bm, N/bn, K/bk) grid and carries an accumulator
 over the K steps.  :func:`tiled_matmul` dispatches on the device of its
 inputs: CPU tensors take :func:`tiled_matmul_reference`, CUDA tensors
-launch ``csrc/tiled_matmul.cu`` (tensor-core ``mma.sync`` tiles for int8
-and bf16, FFMA for f32, no TF32) or raise; there is no fallback.  The
-launches count in ``LAUNCHES``.
+launch ``csrc/tiled_matmul.cu`` or raise; there is no fallback.  bf16
+runs on ``wgmma`` fed by a TMA ring, int8 on ``mma.sync`` tiles, f32 on a
+``cp.async``-pipelined FFMA tile (no TF32, no tensor cores).  The launches
+count in ``LAUNCHES``, and by mode in ``MODE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -20,14 +21,18 @@ import torch.nn.functional as F
 
 from rag_on_edge_tpu_torch.ops import _build
 
-__all__ = ["LAUNCHES", "tiled_matmul", "tiled_matmul_reference"]
+__all__ = ["LAUNCHES", "MODE_LAUNCHES", "kernel_operands", "tiled_matmul",
+           "tiled_matmul_reference"]
 
 #: Launches of the CUDA kernel K8 in this process; the plain version does
 #: not count.  A run that must show it went through the kernel sets it to 0
 #: before and reads it after.
 LAUNCHES = 0
+#: The same launches by mode (one kernel each).
+MODE_LAUNCHES = {"int8": 0, "bf16": 0, "fp32": 0}
 
 _DTYPES = (torch.int8, torch.bfloat16, torch.float32)
+_MODES = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "fp32"}
 # int8 products are at most 128² = 2**14 in magnitude, so an fp32 sum over
 # at most 2**10 of them is an integer below 2**24: exact in any order.
 _I8_EXACT_K = 1024
@@ -70,15 +75,31 @@ def tiled_matmul_reference(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: 
     return out
 
 
-def _kernel(name: str):
-    """Build/load the CUDA library once and declare one C entry's types."""
-    if name not in _FNS:
-        fn = getattr(_build.load_library("tiled_matmul"), f"tiled_matmul_{name}")
-        nint = 3 if name == "f32" else 4
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * nint + [ctypes.c_void_p]
+def _kernel(mode: str):
+    """Build/load the CUDA library once and declare one mode's C entry."""
+    if mode not in _FNS:
+        fn = getattr(_build.load_library("tiled_matmul"), f"tiled_matmul_{mode}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return _FNS[name]
+        _FNS[mode] = fn
+    return _FNS[mode]
+
+
+def kernel_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A and B as the CUDA kernels take them: K zero-padded so that A's row
+    pitch, and N zero-padded so that B's, is a multiple of 16 bytes, each
+    base 16-byte aligned (TMA's rule for bf16, ``cp.async``'s 16-byte copies
+    for f32; the int8 tiles load 16 bytes of A a row).  The zeros add
+    nothing to the product, so ``a' @ b'`` restricted to ``[:, :N]`` is
+    ``a @ b``.  Operands that already comply come back as they are."""
+    per = 16 // a.element_size()
+    kpad, npad = (-a.shape[1]) % per, (-b.shape[1]) % per
+    if kpad:
+        a = F.pad(a, (0, kpad))
+        b = F.pad(b, (0, 0, 0, kpad))
+    if npad:
+        b = F.pad(b, (0, npad))
+    return _build.aligned(a, 16), _build.aligned(b, 16)
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
@@ -86,11 +107,9 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
     """K8 with the JAX signature → C [M, N] int32 (int8 inputs) or f32.
 
     CPU tensors take the plain version.  CUDA tensors (contiguous, on one
-    device) launch the kernel, whose tiles are its own (128 x 128 of C, 64
-    bytes of K a step; ``bm``/``bn``/``bk`` are the TPU's and are not
-    used).  For int8 and bf16 the wrapper zero-pads K to a multiple of 16
-    bytes and B's rows to a multiple of 4 bytes where they are not, so the
-    kernel's loads are aligned; C is written at [M, N] directly."""
+    device) launch the kernel of their dtype, whose tiles are its own
+    (``bm``/``bn``/``bk`` are the TPU's and are not used), on the operands
+    :func:`kernel_operands` gives; C is written at [M, N] directly."""
     global LAUNCHES
     acc = _check(a, b)
     dev = a.device
@@ -99,27 +118,17 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
             raise ValueError("all K8 inputs must be on one device")
         return tiled_matmul_reference(a, b, bm, bn, bk)
     _build.check_inputs("K8", dev, [a, b])
-    m, k = a.shape
-    n = b.shape[1]
+    m, n = a.shape[0], b.shape[1]
     out = torch.empty((m, n), dtype=acc, device=dev)
-    if a.dtype == torch.float32:
-        fn, args = _kernel("f32"), (a, b, m, n, k)
-    else:
-        es = a.element_size()
-        kpad = (-k) % (16 // es)
-        npad = (-n) % (4 // es)
-        if kpad:
-            a = F.pad(a, (0, kpad))
-            b = F.pad(b, (0, 0, 0, kpad))
-        if npad:
-            b = F.pad(b, (0, npad))
-        a, b = _build.aligned(a, 16), _build.aligned(b, 4)
-        fn = _kernel("i8" if a.dtype == torch.int8 else "bf16")
-        args = (a, b, m, n, k + kpad, n + npad)
+    mode = _MODES[a.dtype]
+    a, b = kernel_operands(a, b)
+    fn = _kernel(mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(), *args[2:], stream)
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, a.shape[1], b.shape[1],
+                 stream)
     if err != 0:
-        raise RuntimeError(f"tiled_matmul launch failed: CUDA error {err}")
+        raise RuntimeError(f"tiled_matmul ({mode}) launch failed: CUDA error {err}")
     LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
     return out

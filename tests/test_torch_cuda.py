@@ -850,9 +850,14 @@ def test_sharded_brute_card_equals_cpu(dev, rescore):
 
 
 # K8 shapes (M, K, N): M < 16, K not a multiple of 32 (nor of 16 for int8),
-# N not a multiple of 8 (nor even), several C tiles and K tiles, one row.
+# N not a multiple of 8 (nor even), several C tiles and K tiles, one row;
+# and the float kernels' edges: M 1, 65 and 9 * 128 + 1 (a ragged run of
+# the f32 kernel's tile order), N off a multiple of 8 and 2 * 256 + 1, K 8,
+# 72 (a 64-K stage and a tail) and 4096.
 K8_SHAPES = {"m8": (8, 40, 30), "k96": (130, 96, 257), "k50": (257, 50, 1000),
-             "row": (1, 3, 5), "tiles": (300, 517, 129), "wide": (64, 128, 4099)}
+             "row": (1, 3, 5), "tiles": (300, 517, 129), "wide": (64, 128, 4099),
+             "m1k72": (1, 72, 257), "m65k8": (65, 8, 30),
+             "m1153k4096": (1153, 4096, 513)}
 
 
 def _k8_inputs(rng, dtype, m, k, n):
@@ -887,17 +892,18 @@ def test_k8_kernel_equal_to_plain(dev, shape, dtype):
     _assert_k8(got, tiled_matmul.tiled_matmul_reference(a, b), a, b)
 
 
-def test_k8_kernel_unaligned_views(dev):
-    """Contiguous views that start off the kernel's alignment are copied,
-    not misread."""
-    a, b = _k8_inputs(np.random.default_rng(42), "int8", 65, 128, 77)
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_k8_kernel_unaligned_views(dev, dtype):
+    """Contiguous views that start off the kernels' 16-byte alignment (TMA's
+    and cp.async's) are copied, not misread."""
+    a, b = _k8_inputs(np.random.default_rng(42), dtype, 65, 128, 77)
 
     def shifted(x, off):
         out = torch.empty(x.numel() + off, dtype=x.dtype, device=dev)[off:].view(x.shape)
         return out.copy_(x)
 
     a, b = shifted(a, 3), shifted(b, 1)
-    assert a.data_ptr() % 16 and b.data_ptr() % 4
+    assert a.data_ptr() % 16 and b.data_ptr() % (4 if dtype == "int8" else 16)
     _assert_k8(tiled_matmul.tiled_matmul(a, b), tiled_matmul.tiled_matmul_reference(a, b), a, b)
 
 
@@ -997,7 +1003,7 @@ def test_k10_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("pallas", [True, False], ids=["k8", "plain"])
-@pytest.mark.parametrize("dtype", ["int8", "fp32"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
 def test_spatial_matmul_card_grid_equals_cpu(dev, dtype, pallas):
     """A logical 2x2 grid on one card against the CPU grid."""
     a, b = _k8_inputs(np.random.default_rng(45), dtype, 128, 128, 2560)

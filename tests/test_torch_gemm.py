@@ -86,6 +86,40 @@ def test_k8_int8_exact_past_fp32_range():
     assert (got.numpy() == 3000 * 128 * 128).all()
 
 
+@pytest.mark.parametrize("k,n", [(21, 45), (21, 48), (48, 45)], ids=["kn", "k", "n"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_k8_kernel_operands_padded_and_aligned(dtype, k, n):
+    """The operands the CUDA branch hands its kernel: K and N zero-padded to
+    16-byte row pitches, each base 16-byte aligned; their plain product,
+    cut to [M, N], is the unpadded one.  Operands that comply pass as
+    they are."""
+    a, b = (_to_torch(x, dtype) for x in _inputs(dtype, 37, k, n))
+
+    def shifted(x):  # a contiguous view one element off its allocation's start
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+        return buf[1:].view(x.shape).copy_(x)
+
+    a, b = shifted(a), shifted(b)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    pa, pb = ttiled.kernel_operands(a, b)
+    es = a.element_size()
+    kp, np_ = pa.shape[1], pb.shape[1]
+    assert pa.shape == (37, kp) and pb.shape == (kp, np_)
+    assert kp * es % 16 == 0 and np_ * es % 16 == 0 and 0 <= kp - k < 16 // es
+    assert 0 <= np_ - n < 16 // es
+    assert pa.is_contiguous() and pb.is_contiguous()
+    assert pa.data_ptr() % 16 == 0 and pb.data_ptr() % 16 == 0
+    assert not pa[:, k:].any() and not pb[k:].any() and not pb[:, n:].any()
+    assert torch.equal(pa[:, :k], a) and torch.equal(pb[:k, :n], b)
+    got = ttiled.tiled_matmul_reference(pa, pb)[:, :n]
+    want = ttiled.tiled_matmul_reference(a, b)
+    af, bf = (x.float().numpy() if dtype == "bf16" else x.numpy() for x in (a, b))
+    _assert_product(got.numpy(), want.numpy(), af, bf, dtype)
+    x, y = (_to_torch(v, dtype) for v in _inputs(dtype, 5, 32, 64))
+    px, py = ttiled.kernel_operands(x, y)
+    assert px is x and py is y
+
+
 def test_k8_refusals_match_jax():
     for (ja, jb), (ta, tb), match in (
             ((jnp.zeros((4, 8)), jnp.zeros((9, 4))),
