@@ -264,10 +264,10 @@ def main() -> None:
 
     def reset_launches():
         for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum,
-                    tiled_matmul, kernel_lab):
+                    kernel_lab):
             mod.LAUNCHES = 0
         ivf_scan.CLUSTER_LAUNCHES = ivf_scan.ROUTED_LAUNCHES = ivf_accum.ACCUM_LAUNCHES = 0
-        for counts in (hw_probe.LAUNCHES, tiled_matmul.MODE_LAUNCHES):
+        for counts in (hw_probe.LAUNCHES, tiled_matmul.LAUNCHES):
             for key in counts:
                 counts[key] = 0
 
@@ -275,7 +275,7 @@ def main() -> None:
         return {"K1": ivf_accum.LAUNCHES, "K2": fused_topk.LAUNCHES, "K3": bruteforce_fused.LAUNCHES,
                 "K4": ivf_scan.LAUNCHES, "K5": bruteforce_accum.LAUNCHES,
                 "K6": ivf_scan.CLUSTER_LAUNCHES, "K7": ivf_scan.ROUTED_LAUNCHES,
-                "K8": tiled_matmul.LAUNCHES, "K9": ivf_accum.ACCUM_LAUNCHES,
+                "K8": sum(tiled_matmul.LAUNCHES.values()), "K9": ivf_accum.ACCUM_LAUNCHES,
                 "K10": kernel_lab.LAUNCHES, **hw_probe.LAUNCHES}
 
     # ---- set-up shared by phases 3 and 4: the SIFT-1M corpus and index.
@@ -1161,7 +1161,7 @@ def main() -> None:
                     bench_gemm._host(x), bench_gemm._host(y), c.cpu().numpy())
     res = bench_gemm.run(128, 128, 10240, "int8", quiet=True)
     torch.cuda.synchronize()
-    k8_launches = dict(tiled_matmul.MODE_LAUNCHES)
+    k8_launches = dict(tiled_matmul.LAUNCHES)
     phase("gemm", t0, f"spatial_matmul verify_matmul: {grids}; launches by mode {k8_launches}")
     print(f"[gemm] bench_gemm.run(128, 128, 10240, 'int8') on {card}: {json.dumps(res)}",
           flush=True)

@@ -59,7 +59,7 @@
 //   wgmma_kernel        154 registers, no spills; 64 B static + 197,632 B
 //                       dynamic shared memory (the ring and 1 KB of slack)
 //   f32_kernel          168 registers, no spills; 104,448 B dynamic
-//   mma_kernel<kI8>     128 registers, 4 B spilled; 40,960 B static
+//   mma_kernel          128 registers, 4 B spilled; 40,960 B static
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -96,16 +96,14 @@ constexpr int TILE_WORDS = BM * KW; // one operand tile in shared memory (BM == 
 constexpr int C_PITCH = 40;
 constexpr int SMEM_WORDS = 8 * 32 * C_PITCH;  // >= the 2 x 2 operand tiles
 
-// a [m, k] (k * es a multiple of 16 bytes), b [k, ldb] (ldb * es a multiple
-// of 4 bytes; columns n..ldb-1 ignored), c [m, n].
-template <Elem E>
+// a [m, k] int8 (k a multiple of 16), b [k, ldb] int8 (ldb a multiple of 4;
+// columns n..ldb-1 ignored), c [m, n] int32.
 __global__ void __launch_bounds__(THREADS, 2)
 mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-           typename Mma<E>::Acc* __restrict__ c, int m, int n, int k, int ldb, int mtiles) {
-  using Acc = typename Mma<E>::Acc;
-  constexpr int ES = Mma<E>::kEs;
-  constexpr int P = 4 / ES;                // K values per 32-bit word
-  constexpr int NCG = BN * ES / 4;         // column words of B per tile row
+           int32_t* __restrict__ c, int m, int n, int k, int ldb, int mtiles) {
+  using Acc = int32_t;
+  constexpr int P = 4;                     // K values per 32-bit word
+  constexpr int NCG = BN / 4;              // column words of B per tile row
   constexpr int NBLK = KW * NCG / THREADS; // B word-blocks per thread
   // [buffer][A, B^T][tile] in the main loop; the epilogue's staging after it.
   static_assert(SMEM_WORDS >= 2 * 2 * TILE_WORDS, "staging must cover the operand tiles");
@@ -118,9 +116,8 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = (int)(blockIdx.x % mtiles) * BM;
   const int n0 = (int)(blockIdx.x / mtiles) * BN;
-  const size_t a_pitch = (size_t)k * ES, b_pitch = (size_t)ldb * ES;
-  const int kbytes = k * ES;
-  const int nk = (kbytes + KB - 1) / KB;
+  const size_t a_pitch = (size_t)k, b_pitch = (size_t)ldb;
+  const int nk = (k + KB - 1) / KB;
 
   uint4 ra[2];
   uint32_t rb[NBLK][P];
@@ -130,7 +127,7 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     for (int j = 0; j < 2; ++j) {  // A: 128 rows x 4 chunks of 16 bytes
       const int ci = tid + THREADS * j, row = ci >> 2, q = ci & 3;
       const int kb = kt * KB + q * 16;
-      ra[j] = (m0 + row < m && kb < kbytes)
+      ra[j] = (m0 + row < m && kb < k)
                   ? *reinterpret_cast<const uint4*>(a + (size_t)(m0 + row) * a_pitch + kb)
                   : make_uint4(0, 0, 0, 0);
     }
@@ -138,10 +135,10 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     for (int j = 0; j < NBLK; ++j) {  // B: KW K-words x NCG column words
       const int bi = tid + THREADS * j, bl = bi & 31, bw = bi >> 5;
       const int kw = (bl & 3) + 4 * (bw & 3), cg = (bl >> 2) + 8 * (bw >> 2);
-      const int cb = n0 * ES + cg * 4;  // byte column
+      const int cb = n0 + cg * 4;  // byte column
 #pragma unroll
       for (int i = 0; i < P; ++i) {
-        const int kr = kt * (KB / ES) + kw * P + i;
+        const int kr = kt * KB + kw * P + i;
         rb[j][i] = (kr < k && (size_t)cb < b_pitch)
                        ? *reinterpret_cast<const uint32_t*>(b + (size_t)kr * b_pitch + cb)
                        : 0u;
@@ -208,7 +205,7 @@ mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) Mma<E>::run(acc[mt][nt], af[mt], bf[nt]);
+        for (int nt = 0; nt < 4; ++nt) Mma<Elem::kI8>::run(acc[mt][nt], af[mt], bf[nt]);
     }
     if (more) store_tile(cur ^ 1);
     __syncthreads();
@@ -661,11 +658,11 @@ int bf16_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, i
 // returns a CUDA error code (0 = launched).  Row-major, contiguous: a [m, k],
 // b [k, ldb] (n <= ldb; columns n..ldb-1 ignored), c [m, n].  The wrapper
 // guarantees k * elem_size and ldb * elem_size multiples of 16 bytes and
-// 16-byte-aligned bases (TMA's and cp.async's rule; int8 needs only 4 bytes
-// of B's).  The float kernels take more than 48 KB of dynamic shared
-// memory, which a launch is refused without the function attribute; each
-// entry sets it once, on its first call, so that no later call (one under
-// CUDA graph capture, say) touches it.
+// 16-byte-aligned bases (TMA's and cp.async's rule); for int8 only A's:
+// B's pitch and base need 4 bytes.  The float kernels take more than 48 KB
+// of dynamic shared memory, which a launch is refused without the function
+// attribute.  The attribute belongs to each device's copy of the kernel, so
+// each entry sets it on every call, on the current device.
 extern "C" int tiled_matmul_bf16(const void* a, const void* b, void* c, int m, int n, int k,
                                  int ldb, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
@@ -679,9 +676,9 @@ extern "C" int tiled_matmul_bf16(const void* a, const void* b, void* c, int m, i
   int mtiles;
   unsigned blocks;
   if (const int e = grid_of(m, n, WG_BM, WG_BN, &mtiles, &blocks)) return e;
-  static const int smem_err = (int)cudaFuncSetAttribute(
-      wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (smem_err) return smem_err;
+  if (const cudaError_t e =
+          cudaFuncSetAttribute(wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM))
+    return (int)e;
   wgmma_kernel<<<blocks, WG_THREADS, WG_SMEM, st>>>(ta, tb, static_cast<float*>(c), m, n, k,
                                                     mtiles);
   return (int)cudaGetLastError();
@@ -693,7 +690,7 @@ extern "C" int tiled_matmul_int8(const void* a, const void* b, void* c, int m, i
   int mtiles;
   unsigned blocks;
   if (const int e = grid_of(m, n, BM, BN, &mtiles, &blocks)) return e;
-  mma_kernel<Elem::kI8><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  mma_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<int32_t*>(c),
       m, n, k, ldb, mtiles);
   return (int)cudaGetLastError();
@@ -705,9 +702,9 @@ extern "C" int tiled_matmul_fp32(const void* a, const void* b, void* c, int m, i
   int mtiles;
   unsigned blocks;
   if (const int e = grid_of(m, n, F_BM, F_BN, &mtiles, &blocks)) return e;
-  static const int smem_err = (int)cudaFuncSetAttribute(
-      f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (smem_err) return smem_err;
+  if (const cudaError_t e =
+          cudaFuncSetAttribute(f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM))
+    return (int)e;
   f32_kernel<<<blocks, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), m, n,
       k, ldb, mtiles);

@@ -9,7 +9,7 @@ inputs: CPU tensors take :func:`tiled_matmul_reference`, CUDA tensors
 launch ``csrc/tiled_matmul.cu`` or raise; there is no fallback.  bf16
 runs on ``wgmma`` fed by a TMA ring, int8 on ``mma.sync`` tiles, f32 on a
 ``cp.async``-pipelined FFMA tile (no TF32, no tensor cores).  The launches
-count in ``LAUNCHES``, and by mode in ``MODE_LAUNCHES``.
+count by mode in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -21,15 +21,12 @@ import torch.nn.functional as F
 
 from rag_on_edge_tpu_torch.ops import _build
 
-__all__ = ["LAUNCHES", "MODE_LAUNCHES", "kernel_operands", "tiled_matmul",
-           "tiled_matmul_reference"]
+__all__ = ["LAUNCHES", "kernel_operands", "tiled_matmul", "tiled_matmul_reference"]
 
-#: Launches of the CUDA kernel K8 in this process; the plain version does
-#: not count.  A run that must show it went through the kernel sets it to 0
-#: before and reads it after.
-LAUNCHES = 0
-#: The same launches by mode (one kernel each).
-MODE_LAUNCHES = {"int8": 0, "bf16": 0, "fp32": 0}
+#: Launches of the CUDA kernel K8 in this process, by mode (one kernel
+#: each); the plain version does not count.  A run that must show it went
+#: through the kernel sets them to 0 before and reads them after.
+LAUNCHES = {"int8": 0, "bf16": 0, "fp32": 0}
 
 _DTYPES = (torch.int8, torch.bfloat16, torch.float32)
 _MODES = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "fp32"}
@@ -87,19 +84,22 @@ def _kernel(mode: str):
 
 def kernel_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A and B as the CUDA kernels take them: K zero-padded so that A's row
-    pitch, and N zero-padded so that B's, is a multiple of 16 bytes, each
-    base 16-byte aligned (TMA's rule for bf16, ``cp.async``'s 16-byte copies
-    for f32; the int8 tiles load 16 bytes of A a row).  The zeros add
-    nothing to the product, so ``a' @ b'`` restricted to ``[:, :N]`` is
-    ``a @ b``.  Operands that already comply come back as they are."""
-    per = 16 // a.element_size()
-    kpad, npad = (-a.shape[1]) % per, (-b.shape[1]) % per
+    pitch is a multiple of 16 bytes and N so that B's is one of ``b_bytes``,
+    A's base 16-byte aligned and B's ``b_bytes``-aligned.  ``b_bytes`` is 16
+    for the float modes (TMA's rule for bf16, ``cp.async``'s 16-byte copies
+    for f32) and 4 for int8, whose tiles load 16 bytes of A a row but B a
+    32-bit word at a time.  The zeros add nothing to the product, so
+    ``a' @ b'`` restricted to ``[:, :N]`` is ``a @ b``.  Operands that
+    already comply come back as they are."""
+    es = a.element_size()
+    b_bytes = 4 if a.dtype == torch.int8 else 16
+    kpad, npad = (-a.shape[1]) % (16 // es), (-b.shape[1]) % (b_bytes // es)
     if kpad:
         a = F.pad(a, (0, kpad))
         b = F.pad(b, (0, 0, 0, kpad))
     if npad:
         b = F.pad(b, (0, npad))
-    return _build.aligned(a, 16), _build.aligned(b, 16)
+    return _build.aligned(a, 16), _build.aligned(b, b_bytes)
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
@@ -110,7 +110,6 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
     device) launch the kernel of their dtype, whose tiles are its own
     (``bm``/``bn``/``bk`` are the TPU's and are not used), on the operands
     :func:`kernel_operands` gives; C is written at [M, N] directly."""
-    global LAUNCHES
     acc = _check(a, b)
     dev = a.device
     if dev.type == "cpu":
@@ -129,6 +128,5 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256, bn: int = 512,
                  stream)
     if err != 0:
         raise RuntimeError(f"tiled_matmul ({mode}) launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
+    LAUNCHES[mode] += 1
     return out

@@ -18,7 +18,7 @@ from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
 from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
 from rag_on_edge_tpu_torch.ops import tiled_matmul
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
-from rag_on_edge_tpu_torch.parallel import spatial_matmul
+from rag_on_edge_tpu_torch.parallel import make_mesh_2d, spatial_matmul
 from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
 pytestmark = pytest.mark.cuda
@@ -885,10 +885,10 @@ def _assert_k8(got, want, a, b):
 def test_k8_kernel_equal_to_plain(dev, shape, dtype):
     a, b = _k8_inputs(np.random.default_rng(41), dtype, *K8_SHAPES[shape])
     a, b = a.to(dev), b.to(dev)
-    before = tiled_matmul.LAUNCHES
+    before = dict(tiled_matmul.LAUNCHES)
     got = tiled_matmul.tiled_matmul(a, b)
     torch.cuda.synchronize()
-    assert tiled_matmul.LAUNCHES == before + 1
+    assert tiled_matmul.LAUNCHES == {**before, dtype: before[dtype] + 1}
     _assert_k8(got, tiled_matmul.tiled_matmul_reference(a, b), a, b)
 
 
@@ -905,6 +905,22 @@ def test_k8_kernel_unaligned_views(dev, dtype):
     a, b = shifted(a, 3), shifted(b, 1)
     assert a.data_ptr() % 16 and b.data_ptr() % (4 if dtype == "int8" else 16)
     _assert_k8(tiled_matmul.tiled_matmul(a, b), tiled_matmul.tiled_matmul_reference(a, b), a, b)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_k8_kernel_on_every_card(dev, dtype):
+    """K8 on each card in turn, each after another card has run it: a
+    kernel's launch attributes (the float kernels' dynamic shared memory)
+    belong to one device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    a, b = _k8_inputs(np.random.default_rng(46), dtype, 130, 96, 257)
+    want = tiled_matmul.tiled_matmul_reference(a, b)
+    for i in range(torch.cuda.device_count()):
+        card = torch.device("cuda", i)
+        got = tiled_matmul.tiled_matmul(a.to(card), b.to(card))
+        torch.cuda.synchronize(card)
+        _assert_k8(got.cpu(), want, a, b)
 
 
 def test_k8_kernel_refuses_what_it_does_not_take(dev):
@@ -1007,11 +1023,27 @@ def test_k10_kernel_refuses_what_it_does_not_take(dev):
 def test_spatial_matmul_card_grid_equals_cpu(dev, dtype, pallas):
     """A logical 2x2 grid on one card against the CPU grid."""
     a, b = _k8_inputs(np.random.default_rng(45), dtype, 128, 128, 2560)
-    before = tiled_matmul.LAUNCHES
+    before = sum(tiled_matmul.LAUNCHES.values())
     got = spatial_matmul(a.to(dev), b.to(dev), [[dev] * 2] * 2, use_pallas_kernel=pallas)
     torch.cuda.synchronize()
-    assert tiled_matmul.LAUNCHES == before + (4 if pallas else 0)
+    assert sum(tiled_matmul.LAUNCHES.values()) == before + (4 if pallas else 0)
     want = spatial_matmul(a, b, [[torch.device("cpu")] * 2] * 2, use_pallas_kernel=pallas)
+    _assert_k8(got.cpu(), want, a, b)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_spatial_matmul_distinct_cards_equals_cpu(dtype):
+    """The spatial GEMM over a grid of distinct cards (2x2 from four, else
+    1x2), each position through K8, against the CPU grid."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    rows, cols = (2, 2) if torch.cuda.device_count() >= 4 else (1, 2)
+    a, b = _k8_inputs(np.random.default_rng(47), dtype, 128, 128, 2560)
+    before = sum(tiled_matmul.LAUNCHES.values())
+    got = spatial_matmul(a, b, make_mesh_2d(rows, cols), use_pallas_kernel=True)
+    torch.cuda.synchronize()
+    assert sum(tiled_matmul.LAUNCHES.values()) == before + rows * cols
+    want = spatial_matmul(a, b, [[torch.device("cpu")] * cols] * rows, use_pallas_kernel=True)
     _assert_k8(got.cpu(), want, a, b)
 
 

@@ -90,9 +90,9 @@ def test_k8_int8_exact_past_fp32_range():
 @pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
 def test_k8_kernel_operands_padded_and_aligned(dtype, k, n):
     """The operands the CUDA branch hands its kernel: K and N zero-padded to
-    16-byte row pitches, each base 16-byte aligned; their plain product,
-    cut to [M, N], is the unpadded one.  Operands that comply pass as
-    they are."""
+    16-byte row pitches, each base 16-byte aligned (int8's B: 4 bytes of
+    pitch and base); their plain product, cut to [M, N], is the unpadded
+    one.  Operands that comply pass as they are."""
     a, b = (_to_torch(x, dtype) for x in _inputs(dtype, 37, k, n))
 
     def shifted(x):  # a contiguous view one element off its allocation's start
@@ -102,13 +102,13 @@ def test_k8_kernel_operands_padded_and_aligned(dtype, k, n):
     a, b = shifted(a), shifted(b)
     assert a.data_ptr() % 16 and b.data_ptr() % 16
     pa, pb = ttiled.kernel_operands(a, b)
-    es = a.element_size()
+    es, b_bytes = a.element_size(), 4 if dtype == "int8" else 16
     kp, np_ = pa.shape[1], pb.shape[1]
     assert pa.shape == (37, kp) and pb.shape == (kp, np_)
-    assert kp * es % 16 == 0 and np_ * es % 16 == 0 and 0 <= kp - k < 16 // es
-    assert 0 <= np_ - n < 16 // es
+    assert kp * es % 16 == 0 and np_ * es % b_bytes == 0 and 0 <= kp - k < 16 // es
+    assert 0 <= np_ - n < b_bytes // es
     assert pa.is_contiguous() and pb.is_contiguous()
-    assert pa.data_ptr() % 16 == 0 and pb.data_ptr() % 16 == 0
+    assert pa.data_ptr() % 16 == 0 and pb.data_ptr() % b_bytes == 0
     assert not pa[:, k:].any() and not pb[k:].any() and not pb[:, n:].any()
     assert torch.equal(pa[:, :k], a) and torch.equal(pb[:k, :n], b)
     got = ttiled.tiled_matmul_reference(pa, pb)[:, :n]
@@ -116,6 +116,9 @@ def test_k8_kernel_operands_padded_and_aligned(dtype, k, n):
     af, bf = (x.float().numpy() if dtype == "bf16" else x.numpy() for x in (a, b))
     _assert_product(got.numpy(), want.numpy(), af, bf, dtype)
     x, y = (_to_torch(v, dtype) for v in _inputs(dtype, 5, 32, 64))
+    if dtype == "int8":  # B 4 bytes off a 16-byte boundary, N = 44
+        y = torch.empty(32 * 44 + 4, dtype=torch.int8)[4:].view(32, 44).copy_(y[:, :44])
+        assert y.data_ptr() % 16
     px, py = ttiled.kernel_operands(x, y)
     assert px is x and py is y
 
