@@ -113,7 +113,9 @@ script exits non-zero without a result line:
              measure, one a line.
 13. float  — the float modes of K1, K4, K5 and K3, held bit-equal to their
              plain versions at ragged sizes (D' odd, N and B off the
-             tiles) on integer data; then an fp32 ``IVFIndex`` (the default
+             tiles) on integer data, and K5's and K3's bf16 modes (the
+             tensor cores) on non-integer data within the order bound
+             2·D·2^-24·(|q|@|b|) of the row; then an fp32 ``IVFIndex`` (the default
              dtype; nlist=1024, L2, pad_block=2048, the int8 index's
              centroids) and the same index in bf16: K1 on one routed B=8192
              batch and K4 at its recovery list held bit-equal to their
@@ -1473,6 +1475,48 @@ def main() -> None:
     if not all(ragged.values()):
         raise AssertionError(f"a float mode differs from its plain version: {ragged}")
     del qg_r, vt_r, got, want, pv, pr, rpv, rpr, tiles_r, q_r, b_r
+
+    # Non-integer data (uncounted): K5's and K3's bf16 modes sum on the
+    # tensor cores in another order than the plain fp32 product of the same
+    # bf16 values.  Values within the order bound 2·D·2^-24·(|q|@|b|) of the
+    # row (K5's keys cede log2(group) low bits on top), -inf where the plain
+    # version has it, ids equal where a value stands more than twice the
+    # bound from both neighbours.
+    def topk_close(v, i, rv, ri, bnd):
+        fin = rv > float("-inf")
+        err = (v.double() - rv.double()).abs()
+        ok = (torch.equal(v > float("-inf"), fin)
+              and bool((err[fin] <= bnd.expand_as(err)[fin]).all()))
+        gap = rv.double().diff(dim=-1).abs() > 2.0 * bnd
+        sep = fin.clone()
+        sep[..., :-1] &= gap
+        sep[..., 1:] &= gap
+        sep[..., -1] = False
+        return (ok and bool(sep.any()) and torch.equal(i[sep], ri[sep]),
+                float(err[fin].max()))
+
+    ngen = torch.Generator(device=dev).manual_seed(131)
+    q_n = torch.randn((200, 129), generator=ngen, device=dev).to(torch.bfloat16)
+    b_n = torch.randn((129, 9000), generator=ngen, device=dev).to(torch.bfloat16)
+    order = 2.0 * 129 * 2.0**-24 * (q_n.double().abs() @ b_n.double().abs()).amax(
+        dim=1, keepdim=True)
+    tiles_n, _ = bruteforce_accum.tile_base(b_n, 2048, 4)
+    v, i = bruteforce_accum.fused_topk_accum(q_n, tiles_n, 9000, 20, group=4, depth=4)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q_n, tiles_n, 9000, 20, group=4,
+                                                         depth=4)
+    nonint = {"K5 bf16": topk_close(v, i, rv, ri, order + rv.double().abs().amax(
+        dim=1, keepdim=True) * 2.0**-21)}
+    nv_n = torch.tensor([8500], dtype=torch.int32, device=dev)
+    for nbins in (0, 128):
+        v, i = bruteforce_fused.fused_topk_matmul(q_n, b_n, 32, nbins=nbins, n_valid=nv_n)
+        rv, ri = bruteforce_fused.fused_topk_matmul_reference(q_n, b_n, 32, nbins=nbins,
+                                                              n_valid=nv_n)
+        nonint[f"K3 bf16 nbins={nbins}"] = topk_close(v, i, rv, ri, order)
+    torch.cuda.synchronize()
+    phase("float", t0, f"non-integer data, within the order bound (ok, max |err|): {nonint}")
+    if not all(ok for ok, _ in nonint.values()):
+        raise AssertionError(f"a bf16 mode leaves the order bound: {nonint}")
+    del q_n, b_n, tiles_n, v, i, rv, ri
 
     fl = {}  # "K1 fp32" ... → err, ms, plain_ms, bound, launches, lib_ms
 

@@ -26,7 +26,8 @@ bin (column mod tile_n); callers rescore.
 :func:`fused_topk_accum` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_accum_reference`, CUDA tensors launch
 ``csrc/bruteforce_accum.cu`` (int8 ± bias rows, D <= 1024; fp32 or bf16
-with queries and tiles in one dtype, D <= 320) or raise.
+with queries and tiles in one dtype, D <= 320; bf16 on the tensor cores,
+``wgmma`` fed by TMA) or raise.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ _CUDA_DIM_MAX = 1024
 
 _FN = None
 _FLOAT_FN = None
+_BF16_FN = None
 
 
 def tile_base(base_t, tile_n: int, depth: int):
@@ -192,14 +194,25 @@ def _kernel():
 
 
 def _float_kernel():
-    """Build/load the CUDA library once and declare the float entry's types."""
+    """Build/load the CUDA library once and declare the fp32 entry's types."""
     global _FLOAT_FN
     if _FLOAT_FN is None:
         fn = _build.load_library("bruteforce_accum").bruteforce_accum_topk_f
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FLOAT_FN = fn
     return _FLOAT_FN
+
+
+def _bf16_kernel():
+    """Build/load the CUDA library once and declare the bf16 entry's types."""
+    global _BF16_FN
+    if _BF16_FN is None:
+        fn = _build.load_library("bruteforce_accum").bruteforce_accum_topk_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BF16_FN = fn
+    return _BF16_FN
 
 
 def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
@@ -236,10 +249,17 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
             err = _kernel()(queries.data_ptr(), base_tiles.data_ptr(),
                             bias_rows.data_ptr() if l2 else None, rv.data_ptr(), ri.data_ptr(),
                             vals.data_ptr(), ids.data_ptr(), b, d, tile_n, n, k, group, stream)
+        elif base_tiles.dtype == torch.bfloat16:
+            # The wgmma kernel takes query rows of whole k16 steps, the pad zero.
+            ldq = -(-d // 16) * 16
+            qp = torch.nn.functional.pad(queries, (0, ldq - d)).contiguous()
+            err = _bf16_kernel()(qp.data_ptr(), base_tiles.data_ptr(), rv.data_ptr(),
+                                 ri.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, d, ldq, tile_n,
+                                 n, k, group, stream)
         else:
             err = _float_kernel()(queries.data_ptr(), base_tiles.data_ptr(), rv.data_ptr(),
                                   ri.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, d, tile_n,
-                                  n, k, group, int(base_tiles.dtype == torch.bfloat16), stream)
+                                  n, k, group, stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_accum_topk launch failed: CUDA error {err}")
     LAUNCHES += 1

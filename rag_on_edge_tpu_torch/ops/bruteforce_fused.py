@@ -26,7 +26,8 @@ Only entries above the fill value carry meaning; the ids of fill entries
 :func:`fused_topk_matmul` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_matmul_reference`, CUDA tensors launch
 ``csrc/bruteforce_fused.cu`` (int8, int8 L2, and fp32 or bf16 with queries
-and base in one dtype) or raise.
+and base in one dtype; bf16 on the tensor cores, ``wgmma`` fed by TMA) or
+raise.
 """
 
 from __future__ import annotations
@@ -50,9 +51,13 @@ LAUNCHES = 0
 _CUDA_K_MAX = 32
 _CUDA_NBINS = 128
 _CUDA_DIM_MAX = 512
-_MODES = {"i8": 0, "i8_l2": 1, "f32": 2, "bf16": 3}
+# The bf16 kernel's binned table names a column's chunk within its tile in
+# one byte: at most 256 chunks of 128.
+_CUDA_BF16_TILE_MAX = 256 * 128
+_MODES = {"i8": 0, "i8_l2": 1, "f32": 2}  # bf16 has its own entry
 
 _FN = None
+_BF16_FN = None
 
 
 def auto_tile_n(b: int, n: int, acc_bytes: int = 4, base_bytes: int = 1) -> int:
@@ -144,6 +149,17 @@ def _kernel():
     return _FN
 
 
+def _bf16_kernel():
+    """Build/load the CUDA library once and declare the bf16 entry's types."""
+    global _BF16_FN
+    if _BF16_FN is None:
+        fn = _build.load_library("bruteforce_fused").bruteforce_fused_topk_bf16
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BF16_FN = fn
+    return _BF16_FN
+
+
 def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                       n_valid=None, alpha=None, bias=None):
     """K3 with the JAX signature → (vals [B, k], ids [B, k] int32), best
@@ -180,17 +196,30 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
+    if mode == "bf16" and nbins and tile_n > _CUDA_BF16_TILE_MAX:
+        raise ValueError(f"the CUDA K3 takes bf16 binned tiles up to {_CUDA_BF16_TILE_MAX} "
+                         f"columns; got tile_n={tile_n}")
     vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
                        device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fn = _kernel()
+    nv_ptr = n_valid.data_ptr() if n_valid is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(queries.data_ptr(), base_t.data_ptr(),
-                 alpha.data_ptr() if l2 else None, bias.data_ptr() if l2 else None,
-                 n_valid.data_ptr() if n_valid is not None else None,
-                 vals.data_ptr(), ids.data_ptr(), b, d, n, k, tile_n, nbins, _MODES[mode],
-                 stream)
+        if mode == "bf16":
+            # TMA takes rows of whole 16-byte units: the queries' rows are
+            # padded to whole k16 steps (the pad zero), and base_t is copied
+            # only where its row pitch is not a multiple of 8 elements.
+            ldq, ldb = -(-d // 16) * 16, -(-n // 8) * 8
+            qp = torch.nn.functional.pad(queries, (0, ldq - d)).contiguous()
+            bp = base_t if ldb == n else torch.nn.functional.pad(base_t, (0, ldb - n))
+            bp = _build.aligned(bp, 16)
+            err = _bf16_kernel()(qp.data_ptr(), bp.data_ptr(), nv_ptr, vals.data_ptr(),
+                                 ids.data_ptr(), b, d, ldq, n, ldb, k, tile_n, nbins, stream)
+        else:
+            err = _kernel()(queries.data_ptr(), base_t.data_ptr(),
+                            alpha.data_ptr() if l2 else None, bias.data_ptr() if l2 else None,
+                            nv_ptr, vals.data_ptr(), ids.data_ptr(), b, d, n, k, tile_n, nbins,
+                            _MODES[mode], stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
     LAUNCHES += 1

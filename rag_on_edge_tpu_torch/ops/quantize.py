@@ -8,9 +8,26 @@ operation in the JAX order, so the int8 values are bit-equal.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["calibrate_scale", "quantize_int8", "dequantize"]
+__all__ = ["QuantizedTensor", "calibrate_scale", "calibrate_scale_from_sample",
+           "quantize_int8", "dequantize"]
+
+# torch.quantile refuses inputs above this many elements.
+_QUANTILE_MAX = 1 << 24
+
+
+class QuantizedTensor(NamedTuple):
+    """``quantize_int8``'s result, as the JAX package's: it unpacks as
+    ``values, scale``."""
+    values: torch.Tensor  # int8
+    scale: torch.Tensor   # f32 scalar (per-tensor) or [rows, 1] (per-row)
+
+    @property
+    def shape(self):
+        return self.values.shape
 
 
 def calibrate_scale(x: torch.Tensor, per_row: bool = False) -> torch.Tensor:
@@ -22,14 +39,34 @@ def calibrate_scale(x: torch.Tensor, per_row: bool = False) -> torch.Tensor:
     return torch.clamp_min(amax.to(torch.float32), 1e-12) / 127.0
 
 
+def calibrate_scale_from_sample(sample: torch.Tensor, percentile: float = 100.0) -> torch.Tensor:
+    """Activation calibration from a representative sample: max|sample| at
+    ``percentile >= 100``, else its ``percentile``-th percentile with
+    linear interpolation (``jnp.percentile``'s default), over 127.  Inputs
+    too large for ``torch.quantile`` take the same two order statistics
+    from a sort."""
+    mag = sample.to(torch.float32).abs().reshape(-1)
+    if percentile >= 100.0:
+        amax = mag.amax()
+    elif mag.numel() <= _QUANTILE_MAX:
+        amax = torch.quantile(mag, percentile / 100.0)
+    else:
+        pos = (mag.numel() - 1) * (percentile / 100.0)
+        lo = int(pos)
+        srt = torch.sort(mag).values
+        hi = min(lo + 1, mag.numel() - 1)
+        amax = srt[lo] + (srt[hi] - srt[lo]) * (pos - lo)
+    return torch.clamp_min(amax, 1e-12) / 127.0
+
+
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor | None = None,
-                  per_row: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize to symmetric int8 → (values int8, scale); computes the
-    calibration scale if not given."""
+                  per_row: bool = False) -> QuantizedTensor:
+    """Quantize to symmetric int8 → ``QuantizedTensor(values, scale)``;
+    computes the calibration scale if not given."""
     if scale is None:
         scale = calibrate_scale(x, per_row=per_row)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
-    return q.to(torch.int8), scale
+    return QuantizedTensor(q.to(torch.int8), scale)
 
 
 def dequantize(scores_i32: torch.Tensor, query_scale: torch.Tensor,

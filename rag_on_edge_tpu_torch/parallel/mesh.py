@@ -19,10 +19,13 @@ __all__ = ["make_mesh", "SHARD_AXIS"]
 SHARD_AXIS = "shard"
 
 
-def make_mesh(n_devices: int | None = None, device_type: str = "cuda") -> list[torch.device]:
+def make_mesh(n_devices: int | None = None, axis_name: str = SHARD_AXIS,
+              device_type: str = "cuda") -> list[torch.device]:
     """The first ``n_devices`` devices of ``device_type`` (default: all of
-    them), one shard each.  Raises past the count, and where there are
-    none: there is no fall-back to another device type."""
+    them), one shard each.  ``axis_name`` takes the JAX signature's place
+    and names nothing: a device list has one axis, its position.  Raises
+    past the count, and where there are none: there is no fall-back to
+    another device type."""
     if device_type == "cuda":
         count = torch.cuda.device_count()
     elif device_type == "cpu":

@@ -140,10 +140,11 @@ class ShardedBruteForceIndex:
     valid columns) or "xla" (the shard's score matrix, then a selection).
     rescore: the quantized paths select 2k per shard and re-rank them
     against the shard's fp32 rows before the merge.  On CUDA, K3 takes
-    every dtype (int8, fp32 and bf16).
+    every dtype (int8, fp32 and bf16).  ``mesh`` is the list of devices,
+    one shard each (:func:`make_mesh`), under the JAX signature's name.
     """
 
-    def __init__(self, base: np.ndarray, devices, metric: str = "ip", dtype: str = "bf16",
+    def __init__(self, base: np.ndarray, mesh, metric: str = "ip", dtype: str = "bf16",
                  engine: str = "pallas", rescore: bool = False):
         if metric not in ("ip", "l2"):
             raise ValueError(f"unknown metric {metric!r}")
@@ -155,7 +156,7 @@ class ShardedBruteForceIndex:
         self.dtype = dtype
         self.engine = engine
         self.rescore = rescore and dtype != "fp32"
-        self.devices = _device_list(devices)
+        self.devices = _device_list(mesh)
         self.n_shards = len(self.devices)
         self.n, self.dim = base.shape
 
@@ -308,15 +309,16 @@ class ShardedIVFIndex:
     kernel slabs it reuses; the coarse quantizer is replicated, the cluster
     slabs are distributed.  ``search_device`` → (scores, ids, n_candidates)
     on the first device, ``search`` → (ids, scores, avg_candidates), as in
-    the JAX package.
+    the JAX package.  ``mesh`` is the list of devices, one shard each
+    (:func:`make_mesh`), under the JAX signature's name.
     """
 
-    def __init__(self, index: IVFIndex, devices):
+    def __init__(self, index: IVFIndex, mesh):
         # Spilled (spill_eps > 0) sources work sharded: duplicates are
         # removed in the in-shard candidate pools and at the cross-shard
         # merge (a vector's two clusters may land on different shards).
         self.spilled = bool(getattr(index, "spilled", False))
-        self.devices = _device_list(devices)
+        self.devices = _device_list(mesh)
         self.n_shards = len(self.devices)
         self.metric = index.metric
         self.coarse_metric = index.coarse_metric

@@ -45,7 +45,7 @@ def make_mesh_2d(rows: int, cols: int, device_type: str = "cuda") -> list[list[t
     count, and where there is none: there is no fall-back to another
     device type.  Positions may also share a device: pass a grid such as
     ``[[torch.device("cuda:0")] * 2] * 2``."""
-    devs = make_mesh(rows * cols, device_type)
+    devs = make_mesh(rows * cols, device_type=device_type)
     return [devs[r * cols:(r + 1) * cols] for r in range(rows)]
 
 

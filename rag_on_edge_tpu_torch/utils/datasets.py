@@ -90,33 +90,54 @@ def ground_truth(
     queries: np.ndarray | torch.Tensor,
     k: int,
     metric: str = "ip",
+    chunk: int = 262_144,
+    query_chunk: int = 1_024,
+    backend: str = "auto",
     device: str | torch.device = "cuda",
-    query_chunk: int = 1024,
 ) -> np.ndarray:
     """Exact top-k neighbour ids [Q, k] int32, best first, ties to the
-    lower id.  ``metric="ip"`` ranks by descending inner product,
-    ``metric="l2"`` by ascending squared distance (scored as
-    ``2·q·b − ‖b‖²``; the row-constant ‖q‖² is dropped).  The base stays on
-    ``device``; queries go through in chunks of ``query_chunk`` rows, each
-    scoring the whole base at once, or through kernel K3 once that score
-    matrix would pass 2 GiB (``N·query_chunk·4 > 2 << 30``)."""
+    lower id, with the JAX package's positions (``device`` last).
+    ``metric="ip"`` ranks by descending inner product, ``metric="l2"`` by
+    ascending squared distance (scored as ``2·q·b − ‖b‖²``; the row-constant
+    ‖q‖² is dropped).  The base stays on ``device``; queries go through in
+    chunks of ``query_chunk`` rows, each scored against ``chunk`` base
+    columns at a time with a top-k merge across them.
+
+    ``backend``: ``"numpy"`` always takes that chunked path; ``"auto"``
+    takes kernel K3 instead once a chunk's [query_chunk, N] score matrix
+    would pass 2 GiB (``N·query_chunk·4 > 2 << 30``), the JAX package's
+    rule.  The port has no JAX backend, so ``"jax"`` raises."""
     if metric not in ("ip", "l2"):
         raise ValueError(f"unknown metric {metric!r}")
-    if base.shape[0] * query_chunk * 4 > (2 << 30):
+    if backend == "jax":
+        raise ValueError("backend='jax': the PyTorch port has no JAX backend; "
+                         "use 'auto' or 'numpy'")
+    if backend not in ("auto", "numpy"):
+        raise ValueError(f"unknown backend {backend!r} ('auto' | 'numpy')")
+    if backend == "auto" and base.shape[0] * query_chunk * 4 > (2 << 30):
         return _ground_truth_fused(np.asarray(base), np.asarray(queries), k, metric,
                                    query_chunk, device)
     b = torch.as_tensor(base, dtype=torch.float32).to(device)
     q_all = torch.as_tensor(queries, dtype=torch.float32)
-    k = min(k, b.shape[0])
+    n = b.shape[0]
+    k = min(k, n)
     norms = (b * b).sum(dim=1) if metric == "l2" else None
     out = np.empty((q_all.shape[0], k), dtype=np.int32)
     for s in range(0, q_all.shape[0], query_chunk):
         q = q_all[s:s + query_chunk].to(device)
-        scores = q @ b.T
-        if metric == "l2":
-            scores = 2.0 * scores - norms[None, :]
-        _, ids = topk.iterative_topk(scores, k)
-        out[s:s + q.shape[0]] = ids.cpu().numpy()
+        best_v = best_i = None
+        for c0 in range(0, n, chunk):
+            scores = q @ b[c0:c0 + chunk].T
+            if metric == "l2":
+                scores = 2.0 * scores - norms[None, c0:c0 + chunk]
+            vals, ids = topk.iterative_topk(scores, min(k, scores.shape[1]))
+            ids = ids + c0
+            if best_v is None:
+                best_v, best_i = vals, ids
+            else:
+                # Earlier chunks hold lower ids and come first: ties stay low.
+                best_v, best_i = topk.merge_topk(best_v, best_i, vals, ids, k)
+        out[s:s + q.shape[0]] = best_i.cpu().numpy()
     return out
 
 

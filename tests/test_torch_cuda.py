@@ -649,11 +649,17 @@ def test_float_ivf_card_equals_cpu(dev, dtype, run):
 
 
 # K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
-# of 4 (byte staging) nor of 128 (a ragged last chunk); D = 37 pads a word.
+# of 4 (byte staging) nor of 128 (a ragged last chunk) nor of 8 (bf16 base_t
+# copied to a 16-byte row pitch); D = 37 pads a word.  The bf16 kernel's
+# edges: 64 rows a CTA (B = 70, 200), 128 columns a chunk (tile_n 128, 256,
+# 2048), 64 d a box (D = 129, 512).
 K3_SHAPES = {
     "base": (40, 64, 2048, 20, 512, None, (-127, 128)),
     "ragged": (70, 37, 3001, 32, None, 2900, (-127, 128)),
     "ties": (33, 128, 5000, 10, None, None, (0, 3)),
+    "t128-d129": (200, 129, 4100, 20, 128, None, (-127, 128)),
+    "t256-b200": (200, 128, 3001, 32, 256, 2950, (-127, 128)),
+    "t2048-d512": (70, 512, 5000, 20, 2048, 4500, (-127, 128)),
 }
 
 
@@ -709,14 +715,18 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
         bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
 
 
-# K5: (B, D, N, tile_n, group, k, bias rows, value range); N = 1300 leaves a
-# partial tile and padded tiles.
+# K5: (B, D, N, tile_n, group, k, bias rows, value range); N = 1300 and 9000
+# leave a partial tile and padded tiles.  The bf16 kernel's edges: 192 rows
+# a CTA (B = 70, 200), 64 bins a CTA (tile_n 128, 256, 2048), 64 d a box
+# (D = 37, 128, 129, 320).
 K5_SHAPES = {
     "ip": (40, 64, 4096, 256, 4, 20, False, (-127, 128)),
     "l2": (40, 64, 4096, 256, 4, 20, True, (-127, 128)),
     "ties": (33, 128, 4096, 128, 8, 10, False, (0, 3)),
     "ragged-l2": (70, 37, 1300, 128, 4, 32, True, (-127, 128)),
     "d320": (40, 320, 1300, 128, 4, 20, False, (-127, 128)),
+    "t2048-d129": (200, 129, 9000, 2048, 4, 20, False, (-127, 128)),
+    "t256-b200": (200, 128, 5000, 256, 8, 20, False, (-127, 128)),
 }
 
 
@@ -745,7 +755,8 @@ def test_k5_kernel_equal_to_plain(dev, shape):
     assert int(i.max()) < n
 
 
-@pytest.mark.parametrize("shape", ["ip", "ties", "ragged-l2", "d320"])
+@pytest.mark.parametrize("shape", ["ip", "ties", "ragged-l2", "d320", "t2048-d129",
+                                   "t256-b200"])
 @pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
 def test_k5_kernel_float_equal_to_plain(dev, shape, dtype):
     """K5's float modes on integer values (exact sums): the decoded values
@@ -769,6 +780,32 @@ def test_k5_kernel_float_equal_to_plain(dev, shape, dtype):
     assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
     assert torch.equal(i, ri)
     assert int(i.max()) < n
+
+
+@pytest.mark.parametrize("shape", ["ragged-l2", "t2048-d129"])
+def test_k5_kernel_bf16_close_to_plain_on_noninteger_data(dev, shape):
+    """bf16 on the tensor cores against the plain fp32 product of the same
+    bf16 values: the decoded values within the order bound of two fp32 sums
+    (plus the key's ceded low bits), ids equal where values stand apart."""
+    b, d, n, tile_n, group, k, _, _ = K5_SHAPES[shape]
+    rng = np.random.default_rng(34)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    base_t = rng.normal(size=(d, n)).astype(np.float32)
+    tiles, _ = bruteforce_accum.tile_base(base_t, tile_n, group)
+    tiles = tiles.to(dev, torch.bfloat16)
+    kw = dict(group=group, depth=group)
+    before = bruteforce_accum.LAUNCHES
+    v, i = bruteforce_accum.fused_topk_accum(q, tiles, n, k, **kw)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q, tiles, n, k, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_accum.LAUNCHES == before + 1
+    bt = torch.from_numpy(base_t).to(dev, torch.bfloat16)
+    mag = (q.double().abs() @ bt.double().abs()).amax(dim=1, keepdim=True)
+    # The key keeps the score's top bits: log2(group) low bits are ceded, a
+    # relative 2**(shift-23) of the value on each side.
+    bound = (2.0 * d * 2.0**-24 * mag
+             + rv.double().abs().amax(dim=1, keepdim=True) * 2.0**(group.bit_length() - 24))
+    _assert_topk_close(v, i, rv, ri, bound)
 
 
 def test_k5_kernel_refuses_what_it_does_not_take(dev):

@@ -343,9 +343,17 @@ def test_search_device_recovery_and_grouped_equal_jax(pair, small_data, run):
 
 
 def test_signatures_take_jax_positions():
-    """``search_device``, ``build`` and ``kmeans`` take the JAX package's
-    parameters in its order; the port only appends ``device``."""
+    """``search_device``, ``build``, ``kmeans``, ``ground_truth``,
+    ``make_mesh`` and the sharded indexes take the JAX package's parameters
+    in its order; the port only appends ``device`` (``device_type``)."""
     import inspect
+
+    from rag_on_edge_tpu.parallel import mesh as jmesh
+    from rag_on_edge_tpu.parallel import sharded as jsharded
+    from rag_on_edge_tpu.utils import datasets as jdatasets
+    from rag_on_edge_tpu_torch.parallel import mesh as tmesh
+    from rag_on_edge_tpu_torch.parallel import sharded as tsharded
+    from rag_on_edge_tpu_torch.utils import datasets as tdatasets
 
     def names(fn):
         return list(inspect.signature(fn).parameters)
@@ -353,6 +361,37 @@ def test_signatures_take_jax_positions():
     assert names(tivf.IVFIndex.search_device) == names(jivf.IVFIndex.search_device)
     assert names(tivf.IVFIndex.build) == names(jivf.IVFIndex.build) + ["device"]
     assert names(tkmeans.kmeans) == names(jkmeans.kmeans) + ["device"]
+    assert names(tdatasets.ground_truth) == names(jdatasets.ground_truth) + ["device"]
+    assert names(tmesh.make_mesh) == names(jmesh.make_mesh) + ["device_type"]
+    for cls in ("ShardedIVFIndex", "ShardedBruteForceIndex"):
+        assert (names(getattr(tsharded, cls).__init__)
+                == names(getattr(jsharded, cls).__init__))
+
+
+def test_mesh_arguments_bind_as_jax(jax_base, small_data):
+    """``make_mesh(1, "shard")`` and ``mesh=`` on both sharded indexes bind
+    as in JAX, and ``mesh=`` searches as the positional list does."""
+    from rag_on_edge_tpu_torch.parallel.mesh import make_mesh
+    from rag_on_edge_tpu_torch.parallel.sharded import (ShardedBruteForceIndex,
+                                                        ShardedIVFIndex)
+
+    mesh = make_mesh(1, "shard", device_type="cpu")
+    assert mesh == [torch.device("cpu")]
+    base, queries = small_data
+    q = _t(queries[:4])
+    two = [torch.device("cpu")] * 2
+    kw = ShardedBruteForceIndex(base[:512], mesh=two, metric="l2", dtype="fp32")
+    pos = ShardedBruteForceIndex(base[:512], two, "l2", "fp32")
+    assert kw.devices == two
+    for a, b in zip(kw.search_device(q, K), pos.search_device(q, K)):
+        assert torch.equal(a, b)
+    t = _port_of(jax_base)
+    kw = ShardedIVFIndex(t, mesh=two)
+    pos = ShardedIVFIndex(t, two)
+    assert kw.devices == two
+    for a, b in zip(kw.search_device(q, K, NPROBE, mode="cluster"),
+                    pos.search_device(q, K, NPROBE, mode="cluster")):
+        assert torch.equal(a, b)
 
 
 def test_search_device_positional_equals_keyword(pair, small_data):

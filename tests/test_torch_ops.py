@@ -62,6 +62,53 @@ def test_quantize_bit_equal():
     np.testing.assert_array_equal(_np(jr), tr.numpy())
 
 
+def test_quantize_int8_returns_jax_fields():
+    """``QuantizedTensor(values, scale)`` with ``.shape``, as JAX's, and it
+    still unpacks as ``values, scale``."""
+    x = np.random.default_rng(0).standard_normal((4, 8)).astype(np.float32)
+    jq = jquant.quantize_int8(jnp.asarray(x))
+    tq = quantize.quantize_int8(torch.from_numpy(x))
+    assert isinstance(tq, quantize.QuantizedTensor)
+    np.testing.assert_array_equal(tq.values.numpy(), _np(jq.values))
+    assert tq.scale.numpy().tobytes() == _np(jq.scale).tobytes()
+    assert float(tq.scale) == pytest.approx(0.01830733, rel=1e-6)
+    assert tuple(tq.shape) == tuple(jq.shape) == (4, 8)
+    qv, qs = tq
+    assert qv is tq.values and qs is tq.scale
+
+
+@pytest.mark.parametrize("percentile,sort", [(100.0, False), (95.0, False), (37.5, False),
+                                             (95.0, True), (0.0, True)])
+def test_calibrate_scale_from_sample_equals_jax(percentile, sort, monkeypatch):
+    """max|x| at 100, else ``jnp.percentile``'s linear interpolation;
+    ``sort`` lowers the ``torch.quantile`` size limit so the sort branch
+    of large inputs runs on this small one."""
+    if sort:
+        monkeypatch.setattr(quantize, "_QUANTILE_MAX", 8)
+    x = np.random.default_rng(0).standard_normal((4, 8)).astype(np.float32)
+    want = _np(jquant.calibrate_scale_from_sample(jnp.asarray(x), percentile))
+    got = quantize.calibrate_scale_from_sample(torch.from_numpy(x), percentile)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    if percentile == 95.0:
+        assert float(got) == pytest.approx(0.010489044, rel=1e-6)
+
+
+def test_ground_truth_takes_jax_positions():
+    """``ground_truth(base, q, k, metric, chunk)`` binds as JAX's, chunks
+    merged with ties to the lower id; ``backend="jax"`` is refused by name."""
+    base = np.random.default_rng(0).integers(-8, 8, (256, 16)).astype(np.float32)
+    q = base[:8] + 1
+    want = jdatasets.ground_truth(base, q, 5, "l2", 64)
+    got = datasets.ground_truth(base, q, 5, "l2", 64, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert got[0].tolist() == [0, 103, 84, 61, 10]
+    np.testing.assert_array_equal(
+        datasets.ground_truth(base, q, 5, "ip", 48, 3, "numpy", device="cpu"),
+        jdatasets.ground_truth(base, q, 5, "ip", 48, 3, "numpy"))
+    with pytest.raises(ValueError, match="no JAX backend"):
+        datasets.ground_truth(base, q, 5, "l2", 64, backend="jax", device="cpu")
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_score_matrix_matches_jax(small_data, metric):
     from rag_on_edge_tpu.ops import distances as jdist
