@@ -15,8 +15,11 @@ script exits non-zero without a result line:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 and
              K11-K14 (CUDA C++, one nvcc per source, all at once) and K2
-             (Triton)
-             from the sources in this checkout.
+             (Triton) from the sources in this checkout; beside them, K3's
+             and K5's sources once more to cubins with ``-Xptxas -v``: each
+             wgmma kernel's registers, spills and warpgroup MMA opcodes
+             (``cuobjdump -sass``; every int8 instantiation must hold the s8
+             MMA, and neither library any ``__dp4a``).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -50,12 +53,18 @@ script exits non-zero without a result line:
 7. brute   — ``BruteForceIndex(base, metric="l2", dtype="int8")`` two ways:
              the defaults (``engine="auto"``: accum, kernel K5, rescored)
              and ``engine="pallas", rescore=True`` (kernel K3 binned).
-             K3 (int8 L2 binned and int8 IP exact) and K5 are held against
-             their plain versions on a B=512 slice of real queries over the
-             full base (exactly equal) and timed at B=8192; then all
-             10,000 queries through each engine with the counters reset
-             just before and read just after; recall@10 >= 0.99 (accum)
-             and >= 0.999 (pallas) against the plain ground truth.
+             K3 (int8 L2 binned and int8 IP exact) and K5 (int8 L2 and
+             int8 IP, on ``wgmma``) are held against their plain versions
+             on a B=512 slice of real queries over the full base (exactly
+             equal) and timed at B=8192 beside the GEMM alone
+             (``torch._int_mm``, ``gemm_ms``) and the K-major copies their
+             wrappers make; one call of K3 int8 L2 and of K5 int8 L2 split
+             by kernel (``torch.profiler``); K3 int8 L2 also at ring depths
+             2, 4 and as many stages as fit; then all 10,000 queries through
+             each engine
+             with the counters reset just before and read just after;
+             recall@10 >= 0.99 (accum) and >= 0.999 (pallas) against the
+             plain ground truth.
 8. coarse  — one B=8192 batch through the fused coarse tier (kernel K3 on
              the augmented centroids) of a second IVF index over the same
              arrays, its tier threshold lowered on a subclass: K3 launched,
@@ -170,6 +179,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_BASE, N_QUERIES, DIM, N_CENTERS = 1_000_000, 10_000, 128, 4096  # DATASET_SPECS["sift"]
 NLIST, PAD_BLOCK, K, NPROBE, BATCH = 1024, 2048, 10, 4, 8192
@@ -205,11 +215,97 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def device_ms_by_kernel(torch, fn) -> dict | str:
+    """Device ms of one ``fn()`` call, summed by kernel name, from
+    ``torch.profiler`` (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out or "not measured (the profiler saw no device time)"
+
+
 def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes
     over the memory rate and the operations over their peak rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wgmma_report(_build, name: str) -> list[str]:
+    """Compile ``csrc/<name>.cu`` once more to a cubin with ``-Xptxas -v``
+    and read it back with ``cuobjdump -sass``: each wgmma kernel's registers,
+    stack frame, spills and warpgroup MMA opcodes, any ptxas warning that serializes the
+    wgmma groups (C7520), and the count of ``__dp4a`` (IDP) instructions in
+    the whole library.  Raises if an int8 instantiation holds no s8
+    warpgroup MMA or the library holds any IDP."""
+    import re
+
+    nvcc = _build._nvcc()
+    cubin = _build.BUILD_DIR / f"{name}-report.cubin"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([nvcc, "-arch=sm_90a", "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+                          "-o", str(cubin), str(_build.CSRC_DIR / f"{name}.cu")],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc -cubin failed for {name}:\n{res.stderr}")
+    props, entry = {}, None
+    warnings = [ln.strip() for ln in res.stderr.splitlines() if "C7520" in ln or "serializ" in ln]
+    for ln in res.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and entry:
+            props.setdefault(entry, {})["stack"] = int(m.group(1))
+            props.setdefault(entry, {})["spills"] = (int(m.group(2)), int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            props.setdefault(entry, {})["regs"] = int(m.group(1))
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, timeout=600, check=True).stdout
+    ops, fn, idp = {}, None, 0
+    for ln in sass.splitlines():
+        m = re.match(r"\s*Function : (\w+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)
+        if m and fn:
+            idp += m.group(1).startswith("IDP")
+            if "GMMA" in m.group(1):
+                ops.setdefault(fn, set()).add(m.group(1))
+    lines = []
+    for fn in sorted(set(ops) | {f for f in props if "wgmma_kernel" in f}):
+        if "wgmma_kernel" not in fn:
+            continue
+        short = re.search(r"((?:accum|fused)_wgmma_kernel)I(\w+?)EEv", fn)
+        tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
+        p_ = props.get(fn, {})
+        lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
+                     f"spill stores/loads {p_.get('spills')}, wgmma opcodes "
+                     f"{sorted(ops.get(fn, ()))}")
+        int8 = re.search(r"wgmma_kernelILi[12]E", fn)
+        if int8 and not any("S8" in o or o.startswith("IGMMA") for o in ops.get(fn, ())):
+            raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
+    if idp:
+        raise AssertionError(f"lib{name} still holds {idp} IDP (__dp4a) instructions")
+    lines.append(f"IDP (__dp4a) instructions in lib{name}: {idp}; ptxas serialization "
+                 f"warnings: {warnings or 'none'}")
+    return lines
 
 
 def walked_blocks(np, block_first, block_last, rows_valid) -> int:
@@ -255,8 +351,13 @@ def main() -> None:
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
                "tiled_matmul", "hw_probe"]
-    with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, all at once
+    reported = ["bruteforce_accum", "bruteforce_fused"]  # K5's and K3's wgmma kernels
+    with ThreadPoolExecutor(len(sources) + len(reported)) as ex:  # one nvcc each, all at once
+        reports = [ex.submit(wgmma_report, _build, name) for name in reported]
         list(ex.map(_build.load_library, sources))
+        for name, rep in zip(reported, reports):
+            for line in rep.result():
+                print(f"[build] {name} ptxas -v / SASS: {line}", flush=True)
     nvcc_s = time.time() - t
     t = time.time()
     fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
@@ -624,19 +725,44 @@ def main() -> None:
         alpha = 2.0 * qs.reshape(-1) * bp["base_scale"]
         return (qv, bp["base_t"], kq), dict(nbins=128, alpha=alpha, bias=bp["base_norms"])
 
-    def k5_args(qf):
-        """K5's inputs as the accum engine makes them (one global query
-        scale, the pre-shifted bias rows)."""
-        qv, qs = quantize.quantize_int8(qf, per_row=False)
-        alpha = 2.0 * qs * ba["base_scale"]
-        rows = bruteforce_accum.l2_bias_rows(ba["norms_tiled"], alpha, bf_auto._acc_group)
-        return (qv, ba["base_tiles"], N_BASE, kq), dict(group=bf_auto._acc_group,
-                                                         depth=bf_auto._acc_depth,
-                                                         bias_rows=rows)
+    def k5_args(qf, l2=True):
+        """K5's inputs as the accum engine makes them: L2, one global query
+        scale and the pre-shifted bias rows; IP, per-row query scales and no
+        bias rows (over the same tiles)."""
+        qv, qs = quantize.quantize_int8(qf, per_row=not l2)
+        kw = dict(group=bf_auto._acc_group, depth=bf_auto._acc_depth)
+        if l2:
+            alpha = 2.0 * qs * ba["base_scale"]
+            kw["bias_rows"] = bruteforce_accum.l2_bias_rows(ba["norms_tiled"], alpha,
+                                                            bf_auto._acc_group)
+        return (qv, ba["base_tiles"], N_BASE, kq), kw
 
     SLICE = 512  # the plain versions score the whole [B, N] matrix: a B=512 slice
     q_slice = torch.from_numpy(np.ascontiguousarray(queries[:SLICE])).to(dev)
     q_full = torch.from_numpy(np.ascontiguousarray(queries[:BATCH])).to(dev)
+
+    # The GEMM alone (`gemm_ms`), the yardstick of the int8 kernels: torch._int_mm
+    # of the same product, [8192,128] x [128,1M] -> int32, in 8 column blocks
+    # of 4.3 GB each.  And the K-major copies the int8 kernels' wrappers make.
+    qv8 = quantize.quantize_int8(q_full, per_row=True)[0]
+    step = N_BASE // 8
+    try:
+        int_mm_ms = sum(cuda_ms(torch, lambda s=s: torch._int_mm(
+            qv8, bp["base_t"][:, s:s + step]), reps=3) for s in range(0, N_BASE, step))
+    except RuntimeError as exc:
+        int_mm_ms = None
+        print(f"[gemm floor] torch._int_mm not measured: {exc}", flush=True)
+    print(f"[gemm floor] torch._int_mm [{BATCH},{DIM}] x [{DIM},{N_BASE}] int8 -> int32 in "
+          f"8 column blocks (gemm_ms): {int_mm_ms} ms on {card} (a library yardstick; the port "
+          "never calls it)", flush=True)
+    copy_ms = {"K3": cuda_ms(torch, lambda: bruteforce_fused.kmajor_operands(qv8, bp["base_t"])),
+               "K5": cuda_ms(torch, lambda: bruteforce_accum.kmajor_operands(
+                   qv8, ba["base_tiles"]))}
+    print(f"[brute] the int8 wrappers' K-major copies (queries padded, base transposed; in each "
+          f"call's time below): K3 base_t {tuple(bp['base_t'].shape)} -> [N, D] "
+          f"{copy_ms['K3']} ms, K5 tiles {tuple(ba['base_tiles'].shape)} -> [T, tile_n, D] "
+          f"{copy_ms['K5']} ms", flush=True)
+
     brute = {}
     for name, fn, plain, make in (
             ("K3 int8-L2 bin128", bruteforce_fused.fused_topk_matmul,
@@ -644,7 +770,9 @@ def main() -> None:
             ("K3 int8-IP exact", bruteforce_fused.fused_topk_matmul,
              bruteforce_fused.fused_topk_matmul_reference, lambda qf: k3_args(qf, False)),
             ("K5 int8-L2", bruteforce_accum.fused_topk_accum,
-             bruteforce_accum.fused_topk_accum_reference, k5_args)):
+             bruteforce_accum.fused_topk_accum_reference, k5_args),
+            ("K5 int8-IP", bruteforce_accum.fused_topk_accum,
+             bruteforce_accum.fused_topk_accum_reference, lambda qf: k5_args(qf, False))):
         args, kw = make(q_slice)
         v, i = fn(*args, **kw)
         rv, ri = plain(*args, **kw)
@@ -657,16 +785,35 @@ def main() -> None:
         args, kw = make(q_full)
         ms = cuda_ms(torch, lambda: fn(*args, **kw), reps=5)
         cols = n_live if name.startswith("K5") else N_BASE
-        extra = (ba["base_tiles"].numel() + ba["norms_tiled"].numel() * 4
+        extra = (ba["base_tiles"].numel() + ba["norms_tiled"].numel() * 4 * ("L2" in name)
                  if name.startswith("K5")
                  else bp["base_t"].numel() + (BATCH + N_BASE) * 4 * ("L2" in name))
         brute[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound(
             BATCH * DIM + extra + BATCH * kq * 8, 2.0 * BATCH * cols * DIM, INT8_OPS_S))
+        vs = (f"{ms / int_mm_ms:.3f}x gemm_ms {int_mm_ms}, faster than the GEMM alone: "
+              f"{ms < int_mm_ms}" if int_mm_ms else "gemm_ms not measured")
         phase("kernels", t0, f"{name} k={kq}: exactly equal to the plain version on "
-              f"[{SLICE},{DIM}] x [{DIM},{N_BASE}]; {ms} ms at B={BATCH} (bound "
+              f"[{SLICE},{DIM}] x [{DIM},{N_BASE}]; {ms} ms at B={BATCH} ({vs}; bound "
               f"{brute[name]['bound'][0]} ms by {brute[name]['bound'][1]}); plain {plain_ms} "
               f"ms at B={SLICE}")
         del v, i, rv, ri
+    # Where one B=8192 call's device time goes, kernel by kernel.
+    for name, make, fn in (("K3 int8-L2 bin128", lambda: k3_args(q_full, True),
+                            bruteforce_fused.fused_topk_matmul),
+                           ("K5 int8-L2", lambda: k5_args(q_full),
+                            bruteforce_accum.fused_topk_accum)):
+        args, kw = make()
+        phase("kernels", t0, f"{name} one B={BATCH} call by kernel (torch.profiler, device ms): "
+              f"{device_ms_by_kernel(torch, lambda: fn(*args, **kw))}")
+    # K3 int8's ring depth (16 KB stages; the default takes as many as fit).
+    args, kw = k3_args(q_full, True)
+    ring_ms = {}
+    for stages in (2, 4, 0):
+        bruteforce_fused.RING_STAGES = stages
+        ring_ms[stages or "default"] = cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(
+            *args, **kw), reps=5)
+    bruteforce_fused.RING_STAGES = 0
+    phase("kernels", t0, f"K3 int8-L2 bin128 at B={BATCH} by ring depth (stages: ms): {ring_ms}")
 
     # K3 in its fp32 exact mode at the ground truth's shapes (one 1024-row chunk).
     bt_aug = torch.cat([torch.from_numpy(base.T.copy()),
@@ -679,19 +826,6 @@ def main() -> None:
     phase("kernels", t0, f"K3 fp32 exact k={K} [1024,{DIM + 1}] x [{DIM + 1},{N_BASE}] "
           f"(one ground-truth chunk): {gt_ms} ms (bound {gt_bound[0]} ms by {gt_bound[1]})")
     del bt_aug, q_aug
-
-    # The GEMM floor for later work: torch._int_mm of the same int8 product,
-    # [8192,128] x [128,1M] -> int32, in 8 column blocks of 4.3 GB each.
-    qv8 = quantize.quantize_int8(q_full, per_row=True)[0]
-    step = N_BASE // 8
-    try:
-        int_mm_ms = sum(cuda_ms(torch, lambda s=s: torch._int_mm(
-            qv8, bp["base_t"][:, s:s + step]), reps=3) for s in range(0, N_BASE, step))
-        print(f"[gemm floor] torch._int_mm [{BATCH},{DIM}] x [{DIM},{N_BASE}] int8 -> int32 in "
-              f"8 column blocks: {int_mm_ms} ms on {card} (a library yardstick; the port "
-              "never calls it)", flush=True)
-    except RuntimeError as exc:
-        print(f"[gemm floor] torch._int_mm not measured: {exc}", flush=True)
 
     def brute_all(idx):
         """All queries in B=BATCH batches (the tail padded cyclically) →
@@ -2197,7 +2331,8 @@ def main() -> None:
         {"name": "fused_topk_accum", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/bruteforce_accum.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce_dma.py:212",
-         "launches": launch_a["K5"], "max_abs_err": brute["K5 int8-L2"]["err"],
+         "launches": launch_a["K5"],
+         "max_abs_err": max(brute["K5 int8-L2"]["err"], brute["K5 int8-IP"]["err"]),
          "ms": brute["K5 int8-L2"]["ms"], "plain_ms": brute["K5 int8-L2"]["plain_ms"],
          "bound_ms": brute["K5 int8-L2"]["bound"][0], "bound_by": brute["K5 int8-L2"]["bound"][1],
          "library_ms": None},

@@ -20,55 +20,72 @@
 // asc), each winner masked by its column, as _extract_topk does; the float
 // modes compare the keys as they are (no shift), and the wrapper decodes
 // them to fp32 scores with their low log2(group) bits ceded.  Float L2 has
-// no bias rows: it rides an augmented dimension held in the tiles.
+// no bias rows: it rides an augmented dimension held in the tiles.  The int8
+// L2 bias rows carry -code(t) in their low bits (l2_bias_rows builds them
+// so), which is what makes a key's low bits name its tile.
 //
 // What bounds it on the H100: multiply-adds.  B = 8192, D = 128, N = 1M is
-// 1.07e12 MACs against a 128 MB base (int8; 256 MB in bf16).  int8 runs
-// __dp4a (no tensor cores) and fp32 fp32 FMAs (32 ms at the 67 TFLOP/s
-// peak); bf16 runs the tensor cores (2.1 ms at 989 TFLOP/s) and streams the
-// base from L2 once per 192-row block (11 GB at B = 8192).  The fold and the
-// final top-k add a few instructions per score and a round trip of the
-// per-bin state.
+// 1.07e12 MACs against a 128 MB base (int8; 256 MB in bf16).  int8 and bf16
+// run the tensor cores (1.1 ms at 1,979 T int8 ops/s, 2.1 ms at 989 bf16
+// TFLOP/s) and stream the base from L2 once per 192-row block (5.6 GB int8,
+// 11 GB bf16 at B = 8192); fp32 runs fp32 FMAs (32 ms at the 67 TFLOP/s
+// peak).  The fold and the final top-k add a few instructions per score and
+// a round trip of the per-bin state; on the tensor-core modes the fold, not
+// the product, is most of each tile's time.
 //
-// Design of the int8 and fp32 modes (accum_bins_kernel):
+// Design of the fp32 mode (accum_bins_kernel):
 // - pass 1: one CTA of 256 threads per (32 query rows, 128 bins): two row
 //   groups of 16 rows x 128 lanes, thread = (group, bin).  It walks every
 //   tile holding a valid column, staging the tile's [D, 128] chunk at its
-//   bins transposed in shared memory and scoring it with __dp4a (K1's
-//   staging and dot loop, ivf_stage.cuh).  The group accumulator and the
-//   bin's running key and column live in registers (3 x 16 ints a thread),
-//   so no CTA needs another's state; it writes the running keys and
-//   columns, [B, tile_n] each.  Padded tiles are skipped (their keys would
-//   all be KMIN).  fp32: the same walk with K1's float stage (query rows
-//   and chunk as fp32, fmaf in d order).
-// Design of the bf16 mode (accum_wgmma_kernel, hopper_mma.cuh):
-// - pass 1: one CTA of 416 threads per (192 query rows, 64 bins): three
-//   consumer warpgroups of 64 rows and one producer warp.  The CTA's query
-//   rows (zero-padded to a multiple of 16 by the wrapper) are loaded once
-//   by TMA and stay in shared memory.  The producer streams each live
-//   tile's [D, 64] slab through a ring of [64 d, 64 bins] boxes with a 3-D
-//   tensor map over [T, D, tile_n], so the d tail past D arrives as zeros
-//   and never as the next tile's rows.  Each warpgroup runs four
-//   wgmma.m64n64k16 (bf16 -> f32) a box, one commit group a box, keeping
-//   one group in flight, then folds the tile.  CTAs take row blocks
-//   fastest, so those in flight walk the same bin slice and the base is
-//   read from device memory about once; three warpgroups (not two) cut the
-//   L2 traffic by a third and ran faster.
+//   bins in shared memory as fp32 and scoring it with fmaf in d order (K1's
+//   float stage, ivf_stage.cuh).  The group accumulator and the bin's
+//   running key and column live in registers (3 x 16 ints a thread), so no
+//   CTA needs another's state; it writes the running keys and columns,
+//   [B, tile_n] each.  Padded tiles are skipped (their keys would all be
+//   KMIN).
+// Design of the bf16 and int8 modes (accum_wgmma_kernel, hopper_mma.cuh):
+// - pass 1: one CTA of up to 416 threads per (64 wgs query rows, 64 bins):
+//   wgs consumer warpgroups of 64 rows (three; int8 takes fewer when the
+//   batch has fewer rows, or where D leaves the ring under four stages) and
+//   one producer warp.  The CTA's query rows (zero-padded to a multiple of
+//   16 by the wrapper) are loaded once by TMA and stay in shared memory.
+//   The producer streams each live tile's [D, 64] slab through a ring of
+//   128-byte-wide boxes: bf16 [64 d, 64 bins] boxes of a 3-D tensor map over
+//   [T, D, tile_n], so the d tail past D arrives as zeros and never as the
+//   next tile's rows; int8 [64 bins, 128 d] boxes of the wrapper's K-major
+//   copy [T, tile_n, ldq] (8-bit wgmma operands have no transpose bit, so B
+//   must be K-major in shared memory: the wrapper transposes the tiles with
+//   one torch copy a call, ~0.1 ms at SIFT-1M, and keeps no second copy).
+//   Each warpgroup runs four wgmma a box (bf16 m64n64k16 -> f32, int8
+//   m64n64k32 s8 -> s32), one commit group a box, keeping one group in
+//   flight, then folds the tile.  CTAs take row blocks fastest, so those in
+//   flight walk the same bin slice and the base is read from device memory
+//   about once; three warpgroups (not two) cut the L2 traffic by a third and
+//   ran faster.  int8 L2: the tile's 64 bias words ride in the stage of its
+//   last box (one more TMA box on the same barrier), and that stage is
+//   released after the fold has read them.
 // - what keeps the wgmma groups asynchronous (ptxas serializes them, C7520,
 //   on any of these): only wgmma writes the accumulators (a tile's first
 //   step has scale-d 0); the fold reads a copy made by explicit moves after
 //   the last group retired, never the fragment, and never beside the
-//   warpgroup's next product; every box takes four k16 steps (the tail
-//   past ldq is TMA's zeros), so no wgmma sits in a loop of varying count.
+//   warpgroup's next product; every box takes four k-steps (the tail past
+//   ldq is TMA's zeros), so no wgmma sits in a loop of varying count.
 // - the fold, one level instead of two: the group max followed by the
 //   strict merge keeps, for each bin, the first tile whose key with its low
-//   log2(group) bits cleared is largest; so does one running (key, tile)
-//   replaced only by a strictly larger cleared key, tiles in order.  Its
-//   test is one float compare a score: cleared(monotone(d)) > rv holds
-//   exactly when d > key_to_f32(rv | low), the state each thread keeps (and
-//   the tile), 2 x 32 registers for its 32 (row, bin) pairs, updated
-//   without a branch.  Scores are finite; an exact-zero dot is +0, as the
-//   plain fp32 product gives it.
+//   log2(group) bits cleared is largest (within a group the larger code, the
+//   earlier tile, wins a tie; across groups the strict merge keeps the
+//   earlier one); so does one running (cleared key, tile) replaced only by a
+//   strictly larger cleared key, tiles in order.  Each thread keeps it for
+//   its 32 (row, bin) pairs, 2 x 32 registers, updated without a branch;
+//   only the last tile tests the columns past n, and the ring's stage and
+//   parity are counters, so the fold, which bounds the kernel, stays a few
+//   instructions a score.
+//   bf16: cleared(monotone(d)) > rv holds exactly when d > key_to_f32(rv |
+//   low), one float compare a score (scores are finite; an exact-zero dot
+//   is +0, as the plain fp32 product gives it).  int8: the cleared key is
+//   (u32)dot << shift (IP) or ((u32)dot << shift - bias) & ~low (L2), one
+//   integer compare a score; a valid key never clears to KMIN's value, so
+//   KMIN as the start loses to every valid key as the two-level fold's does.
 // - pass 2: one CTA of 256 threads per row takes the exact top-k over the
 //   row's tile_n bins: 8 bins a thread in registers, k passes of a CTA
 //   argmax by (value desc, column asc) with warp shuffles and one shared-
@@ -95,33 +112,24 @@ constexpr int32_t KMIN = -2147483647;    // -(2**31) + 1: a masked column
 constexpr int EPT = 8;                   // bins per thread in pass 2 (tile_n <= 2048)
 constexpr unsigned FULL = 0xffffffffu;
 
-// E: the element type, int8_t, or float (the fp32 mode, with no bias rows).
-template <typename E>
+// Pass 1 of the fp32 mode: q [b, d] and tiles [T, d, tile_n] fp32.
 __global__ void __launch_bounds__(THREADS)
-accum_bins_kernel(const E* __restrict__ q,             // [b, d]
-                  const E* __restrict__ tiles,         // [T, d, tile_n]
-                  const int32_t* __restrict__ bias,    // [T, tile_n] or null
-                  int32_t* __restrict__ rv_out,        // [b, tile_n]
-                  int32_t* __restrict__ ri_out,        // [b, tile_n]
-                  int b, int d, int tile_n, int n, int group, int shift, int qstride) {
+accum_bins_kernel(const float* __restrict__ q,           // [b, d]
+                  const float* __restrict__ tiles,       // [T, d, tile_n]
+                  int32_t* __restrict__ rv_out,          // [b, tile_n]
+                  int32_t* __restrict__ ri_out,          // [b, tile_n]
+                  int b, int d, int tile_n, int n, int group, int qstride) {
   const int lane = threadIdx.x % LANES;
   const int grp = threadIdx.x / LANES;
   const int bin = blockIdx.x * LANES + lane;
   const int cta_r0 = blockIdx.y * CTA_ROWS;
-  const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
-  constexpr bool INT8 = std::is_same_v<E, int8_t>;
 
-  // Query rows [CTA_ROWS][qstride] words (int8: 4 dims a word; float: one
-  // fp32), then the chunk (int8: [LANES][cstride] words; float:
-  // [qstride][LANES] fp32).
+  // Query rows [CTA_ROWS][qstride] fp32, then the chunk [qstride][LANES] fp32.
   extern __shared__ int4 smem4[];
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
-  int32_t* col_s = q_s + CTA_ROWS * qstride;
-  const int32_t* my_q = q_s + grp * ROWS * qstride;
-  if constexpr (INT8)
-    stage_queries<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, reinterpret_cast<int8_t*>(q_s));
-  else
-    stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, reinterpret_cast<float*>(q_s));
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* col_s = q_s + CTA_ROWS * qstride;
+  const float* my_q = q_s + grp * ROWS * qstride;
+  stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, q_s);
 
   int32_t rv[ROWS], ri[ROWS];
 #pragma unroll
@@ -139,34 +147,18 @@ accum_bins_kernel(const E* __restrict__ q,             // [b, d]
     for (int j = 0; j < group && g0 + j < t_live; ++j) {
       const int t = g0 + j;
       __syncthreads();  // the previous chunk's reads are done
-      const E* vsrc = tiles + (size_t)t * d * tile_n + blockIdx.x * LANES;
+      const float* vsrc = tiles + (size_t)t * d * tile_n + blockIdx.x * LANES;
       const bool valid = t * tile_n + bin < n;
       const uint32_t code = low - (uint32_t)j;
-      if constexpr (INT8) {
-        stage_chunk<THREADS>(vsrc, d, tile_n, qstride, col_s, cstride);
-        __syncthreads();
-        int32_t dots[ROWS];
-        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, dots);
-        const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)t * tile_n + bin] : 0u;
+      stage_chunk_f<THREADS>(vsrc, d, tile_n, qstride, col_s);
+      __syncthreads();
+      float dots[ROWS];
+      dot_rows_f<ROWS>(col_s, lane, my_q, qstride, dots);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const uint32_t shifted = (uint32_t)dots[r] << shift;
-          const int32_t key = valid ? (int32_t)(bias != nullptr ? shifted - sub : shifted | code)
-                                    : KMIN;
-          acc[r] = max(acc[r], key);
-        }
-      } else {
-        stage_chunk_f<THREADS>(vsrc, d, tile_n, qstride, reinterpret_cast<float*>(col_s));
-        __syncthreads();
-        float dots[ROWS];
-        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                         reinterpret_cast<const float*>(my_q), qstride, dots);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(dots[r]) & ~low) | code)
-                                    : KMIN;
-          acc[r] = max(acc[r], key);
-        }
+      for (int r = 0; r < ROWS; ++r) {
+        const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(dots[r]) & ~low) | code)
+                                  : KMIN;
+        acc[r] = max(acc[r], key);
       }
     }
     // Unpack the group's best key and fold it into the bin's running best.
@@ -190,135 +182,204 @@ accum_bins_kernel(const E* __restrict__ q,             // [b, d]
   }
 }
 
-// ------------------------------------------------- bf16: wgmma fed by TMA
+// ---------------------------------------- bf16 and int8: wgmma fed by TMA
+
+enum WMode { W_BF16 = 0, W_I8 = 1, W_I8_L2 = 2 };
 
 constexpr int W_BN = 64;                  // bins per CTA (one m64n64 fragment)
-constexpr int W_WGS = 3;                  // consumer warpgroups, 64 query rows each
-constexpr int W_ROWS = 64 * W_WGS;        // query rows per CTA
+constexpr int W_WGS = 3;                  // consumer warpgroups at most, 64 query rows each
 constexpr int W_THREADS = 128 * W_WGS + 32;  // + one producer warp
-constexpr int W_BOX = 64 * 128;           // one [64 rows, 64 bf16] swizzled box, 8 KB
-constexpr int W_A_BOX = W_ROWS * 128;     // the CTA's rows x 64 d of the queries
+constexpr int W_BOX = 64 * 128;           // one [64 rows, 128 bytes] swizzled box, 8 KB
+constexpr int W_A_WG = 64 * 128;          // a warpgroup's 64 query rows x 128 bytes
+constexpr int W_BIAS = W_BN * 4;          // int8 L2: a tile's 64 bias words
 constexpr int W_STAGES_MAX = 16;
 constexpr int W_SMEM_MAX = 232448 - 1024; // the opt-in limit less the static barriers
 
-// Pass 1 of the bf16 mode.  q [b, ldq] bf16 (ldq = d rounded up to 16, the
-// pad zero) through `tq`; tiles [T, d, tile_n] through the 3-D map `tt`.
-// CTA i takes row block i % nrb and bins 64 (i / nrb) .. + 63.  Stage j of
-// the ring holds the [64 d, 64 bins] box j % kb of tile j / kb.
+// Pass 1 of the bf16 and int8 modes.  q [b, ldq] (ldq = d rounded up to
+// 16, the pad zero) through `tq`.  bf16: tiles [T, d, tile_n] through the
+// 3-D map `tt`; int8: the K-major tiles [T, tile_n, ldq] through the 2-D
+// map `tt` over [T tile_n, ldq], and (L2) the bias rows [T, tile_n] through
+// `tbias`.  CTA i takes row block i % nrb (64 wgs rows) and bins 64 (i /
+// nrb) .. + 63.  The ring holds the tiles' 128-byte boxes in turn (kb a
+// tile: 64 d in bf16, 128 in int8); producer and consumers keep its stage
+// and round parity in counters, so no step divides.
+template <int MODE>
 __global__ void __launch_bounds__(W_THREADS, 1)
 accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tt,
-                   int32_t* __restrict__ rv_out, int32_t* __restrict__ ri_out, int b, int ldq,
-                   int tile_n, int n, int low, int nrb, int stages) {
+                   const __grid_constant__ CUtensorMap tbias, int32_t* __restrict__ rv_out,
+                   int32_t* __restrict__ ri_out, int b, int ldq, int tile_n, int n, int low,
+                   int nrb, int stages, int wgs_arg) {
+  using Acc = std::conditional_t<MODE == W_BF16, float, int32_t>;
+  const int wgs = MODE == W_BF16 ? W_WGS : wgs_arg;  // bf16: always three
+  constexpr bool BIAS = MODE == W_I8_L2;
+  constexpr int KD = MODE == W_BF16 ? 64 : 128;  // d a box
   extern __shared__ uint8_t w_smem[];
   __shared__ __align__(8) uint64_t full[W_STAGES_MAX], empty[W_STAGES_MAX], abar;
   const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
-  const int kb = (ldq + 63) / 64;            // 64-d boxes a tile
-  const uint32_t a_s = base, ring = base + kb * W_A_BOX;
+  const int kb = (ldq + KD - 1) / KD;        // boxes a tile
+  const int a_box = wgs * W_A_WG;            // the CTA's rows x one box of d
+  const uint32_t a_s = base, ring = base + kb * a_box, bias_s = ring + stages * W_BOX;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rb = (int)(blockIdx.x % nrb), bin0 = (int)(blockIdx.x / nrb) * W_BN;
   const int t_live = (n + tile_n - 1) / tile_n;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);                // the producer's expect_tx; the TMA bytes
-      mbar_init(&empty[s], 128 * W_WGS);     // every consumer thread
+      mbar_init(&empty[s], 128 * wgs);       // every consumer thread
     }
     mbar_init(&abar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 4 * W_WGS) {  // producer
+  if (warp == 4 * wgs) {  // producer
     if (lane == 0) {
-      mbar_expect_tx(&abar, kb * W_A_BOX);
-      for (int j = 0; j < kb; ++j) tma_load_2d(a_s + j * W_A_BOX, &tq, 64 * j, rb * W_ROWS, &abar);
-      const int total = t_live * kb;
-      for (int j = 0; j < total; ++j) {
-        const int s = j % stages;
-        if (j >= stages) mbar_wait(&empty[s], (unsigned)((j / stages - 1) & 1));
-        mbar_expect_tx(&full[s], W_BOX);
-        tma_load_3d(ring + s * W_BOX, &tt, bin0, 64 * (j % kb), j / kb, &full[s]);
-      }
+      mbar_expect_tx(&abar, kb * a_box);
+      for (int j = 0; j < kb; ++j)
+        tma_load_2d(a_s + j * a_box, &tq, KD * j, rb * 64 * wgs, &abar);
+      int s = 0;          // the stage, and the parity of its round, of the next box
+      unsigned ph = 0;
+      bool wrapped = false;
+      for (int t = 0; t < t_live; ++t)
+        for (int j = 0; j < kb; ++j) {
+          if (wrapped) mbar_wait(&empty[s], ph ^ 1u);
+          const bool with_bias = BIAS && j == kb - 1;
+          mbar_expect_tx(&full[s], W_BOX + (with_bias ? W_BIAS : 0));
+          if constexpr (MODE == W_BF16)
+            tma_load_3d(ring + s * W_BOX, &tt, bin0, 64 * j, t, &full[s]);
+          else
+            tma_load_2d(ring + s * W_BOX, &tt, 128 * j, t * tile_n + bin0, &full[s]);
+          if (with_bias) tma_load_2d(bias_s + s * W_BIAS, &tbias, bin0, t, &full[s]);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1u;
+            wrapped = true;
+          }
+        }
     }
     return;
   }
 
   // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the block; this
   // thread's fragment entry i is (row rl + 8 ((i / 2) % 2), bin cl + 8 (i / 4)
-  // + i % 2).
+  // + i % 2).  st is the running state: bf16 the threshold, int8 the cleared key.
   const int wg = warp >> 2;
   const int rl = 16 * (warp & 3) + (lane >> 2), cl = 2 * (lane & 3);
-  float d[32], e[32], thr[32];
+  Acc d[32], e[32], st[32];
   int ti[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    d[i] = 0.0f;
-    thr[i] = -INFINITY;  // nothing yet: every finite score improves
+    d[i] = 0;
+    if constexpr (MODE == W_BF16)
+      st[i] = -INFINITY;  // nothing yet: every finite score improves
+    else
+      st[i] = KMIN;
     ti[i] = -1;
   }
   const uint32_t lowu = (uint32_t)low;
+  const int shift = __popc(low);
+  int rs = 0, last_s = 0;    // the ring: the next box's stage, the last box's
+  unsigned rph = 0;          // the parity of the next box's round
 
   // The product of tile t into d, asynchronously: the tile's first step
   // starts from zero (scale-d 0), one group a box, and each box released
   // once the next box's group is issued and its own has retired.
-  auto issue = [&](int t) {
+  auto issue = [&]() {
     for (int j = 0; j < kb; ++j) {
-      const int q = t * kb + j, s = q % stages;
-      mbar_wait_loop(&full[s], (unsigned)((q / stages) & 1));
-      const uint32_t sa = a_s + j * W_A_BOX + wg * 64 * 128, sb = ring + s * W_BOX;
+      const int s = rs;
+      mbar_wait_loop(&full[s], rph);
+      const uint32_t sa = a_s + j * a_box + wg * W_A_WG, sb = ring + s * W_BOX;
       fence_acc(d);
       wgmma_fence();
-      // A: 128-byte rows, 8-row groups 1 KB apart, a k16 step 32 bytes along
-      // the row.  B: 128-byte d rows, a k16 step 16 rows (2 KB).
+      // A: 128-byte rows, 8-row groups 1 KB apart, a k-step 32 bytes along
+      // the row.  B: bf16 128-byte d rows, a k16 step 16 rows (2 KB); int8
+      // K-major like A, 128-byte bin rows, a k32 step 32 bytes along them.
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16(d, gmma_desc(sa + kk * 32, 16, 1024),
-                        gmma_desc(sb + kk * 2048, W_BOX, 1024), j + kk);
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (MODE == W_BF16)
+          wgmma_m64n64k16(d, gmma_desc(sa + kk * 32, 16, 1024),
+                          gmma_desc(sb + kk * 2048, W_BOX, 1024), j + kk);
+        else
+          wgmma_m64n64k32_s8(d, gmma_desc(sa + kk * 32, 16, 1024),
+                             gmma_desc(sb + kk * 32, 16, 1024), j + kk);
+      }
       wgmma_commit();
       fence_acc(d);
       wgmma_wait<1>();
       fence_acc(d);
-      if (j > 0) mbar_arrive(&empty[(q - 1) % stages]);
+      if (j > 0) mbar_arrive(&empty[last_s]);
+      last_s = s;
+      if (++rs == stages) {
+        rs = 0;
+        rph ^= 1u;
+      }
     }
   };
-  // Tile t's product is done: release its last box and copy it to e.
-  auto retire = [&](int t) {
+  // The tile's product is done: release its last box (int8 L2: after the
+  // fold, which reads the bias words in its stage) and copy it to e.
+  auto retire = [&]() {
     wgmma_wait<0>();
     fence_acc(d);
-    mbar_arrive(&empty[(t * kb + kb - 1) % stages]);
+    if constexpr (!BIAS) mbar_arrive(&empty[last_s]);
     copy_acc(d, e);
   };
-  // The fold, branch-free: a score improves its bin when above thr; then
-  // thr = key_to_f32(monotone(s) | low), which is s's bits with the low
-  // bits set (s >= +0) or cleared (s < 0).  Bins at or past `lim` (the last
-  // tile's columns past n) never improve.
-  auto fold = [&](int t, int lim) {
+  // The fold, branch-free.  Only the last tile (`edge`) tests the bins at
+  // or past `lim`, its columns past n, which never improve.  bf16: a score
+  // improves its bin when above thr; then thr = key_to_f32(monotone(s) |
+  // low), which is s's bits with the low bits set (s >= +0) or cleared (s <
+  // 0).  int8: a cleared key improves its bin when above the bin's.
+  auto fold = [&](int t, auto edge, int lim) {
+    auto inside = [&](int c) { return !decltype(edge)::value || c < lim; };
+    if constexpr (MODE == W_BF16) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool up = e[i] > thr[i] && cl + 8 * (i / 4) + (i % 2) < lim;
-      const uint32_t bits = __float_as_uint(e[i]);
-      const uint32_t nt = (bits | lowu) ^ ((uint32_t)((int32_t)bits >> 31) & lowu);
-      thr[i] = up ? __uint_as_float(nt) : thr[i];
-      ti[i] = up ? t : ti[i];
+      for (int i = 0; i < 32; ++i) {
+        const bool up = e[i] > st[i] && inside(cl + 8 * (i / 4) + (i % 2));
+        const uint32_t bits = __float_as_uint(e[i]);
+        const uint32_t nt = (bits | lowu) ^ ((uint32_t)((int32_t)bits >> 31) & lowu);
+        st[i] = up ? __uint_as_float(nt) : st[i];
+        ti[i] = up ? t : ti[i];
+      }
+    } else {
+      const uint32_t* bw = reinterpret_cast<const uint32_t*>(
+          w_smem + (bias_s - smem_u32(w_smem)) + last_s * W_BIAS);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = cl + 8 * (i / 4) + (i % 2);
+        uint32_t key = (uint32_t)e[i] << shift;
+        if constexpr (BIAS) key = (key - bw[c]) & ~lowu;
+        const bool up = (int32_t)key > st[i] && inside(c);
+        st[i] = up ? (int32_t)key : st[i];
+        ti[i] = up ? t : ti[i];
+      }
+      if constexpr (BIAS) mbar_arrive(&empty[last_s]);
     }
   };
 
   // Per tile: the product, then the fold of its copy (a fold beside the
   // same warpgroup's next product has ptxas serialize the groups).
   mbar_wait_loop(&abar, 0);
-  for (int t = 0; t < t_live; ++t) {
-    issue(t);
-    retire(t);
-    fold(t, t < t_live - 1 ? W_BN : n - t * tile_n - bin0);
+  for (int t = 0; t < t_live - 1; ++t) {
+    issue();
+    retire();
+    fold(t, std::false_type{}, 0);
   }
+  issue();
+  retire();
+  fold(t_live - 1, std::true_type{}, n - (t_live - 1) * tile_n - bin0);
 
-  const int row0 = rb * W_ROWS + wg * 64 + rl;
+  const int row0 = rb * 64 * wgs + wg * 64 + rl;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int row = row0 + 8 * ((i / 2) % 2), bin = bin0 + cl + 8 * (i / 4);
     if (row >= b) continue;
     int2 v, c;
-    v.x = ti[i] >= 0 ? (int32_t)((uint32_t)monotone_key(thr[i]) & ~lowu) : KMIN;
-    v.y = ti[i + 1] >= 0 ? (int32_t)((uint32_t)monotone_key(thr[i + 1]) & ~lowu) : KMIN;
+    if constexpr (MODE == W_BF16) {
+      v.x = ti[i] >= 0 ? (int32_t)((uint32_t)monotone_key(st[i]) & ~lowu) : KMIN;
+      v.y = ti[i + 1] >= 0 ? (int32_t)((uint32_t)monotone_key(st[i + 1]) & ~lowu) : KMIN;
+    } else {
+      v.x = st[i];  // KMIN where no tile improved the bin
+      v.y = st[i + 1];
+    }
     c.x = ti[i] >= 0 ? ti[i] * tile_n + bin : 0;
     c.y = ti[i + 1] >= 0 ? ti[i + 1] * tile_n + bin + 1 : 0;
     *reinterpret_cast<int2*>(rv_out + (size_t)row * tile_n + bin) = v;
@@ -401,64 +462,81 @@ extract_kernel(const int32_t* __restrict__ rv, const int32_t* __restrict__ ri,
   }
 }
 
-template <typename E>
-int launch_accum(const void* q, const void* tiles, const void* bias, void* rv, void* ri,
-                 void* out_v, void* out_i, int b, int d, int tile_n, int n, int k, int group,
-                 cudaStream_t s) {
+int launch_accum_f32(const void* q, const void* tiles, void* rv, void* ri, void* out_v,
+                     void* out_i, int b, int d, int tile_n, int n, int k, int group,
+                     cudaStream_t s) {
   if (b == 0) return 0;
-  constexpr bool INT8 = std::is_same_v<E, int8_t>;
-  int shift = 0;
-  while ((1 << shift) < group) ++shift;
-  const int qstride = stage_row_words<E>(d);
-  const size_t smem = ((size_t)CTA_ROWS * qstride + stage_chunk_words<E>(qstride))
+  const int qstride = stage_row_words<float>(d);
+  const size_t smem = ((size_t)CTA_ROWS * qstride + stage_chunk_words<float>(qstride))
                       * sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        accum_bins_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        accum_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid1((unsigned)(tile_n / LANES), (unsigned)((b + CTA_ROWS - 1) / CTA_ROWS));
-  accum_bins_kernel<E><<<grid1, THREADS, smem, s>>>(
-      static_cast<const E*>(q), static_cast<const E*>(tiles),
-      static_cast<const int32_t*>(bias), static_cast<int32_t*>(rv), static_cast<int32_t*>(ri),
-      b, d, tile_n, n, group, shift, qstride);
+  accum_bins_kernel<<<grid1, THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(tiles), static_cast<int32_t*>(rv),
+      static_cast<int32_t*>(ri), b, d, tile_n, n, group, qstride);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // The float keys are compared as they are: their low bits are ceded.
   extract_kernel<<<(unsigned)b, THREADS, 0, s>>>(
       static_cast<const int32_t*>(rv), static_cast<const int32_t*>(ri),
-      static_cast<int32_t*>(out_v), static_cast<int32_t*>(out_i), tile_n, k, INT8 ? shift : 0);
+      static_cast<int32_t*>(out_v), static_cast<int32_t*>(out_i), tile_n, k, 0);
   return (int)cudaGetLastError();
 }
 
-
-int launch_accum_bf16(const void* q, const void* tiles, void* rv, void* ri, void* out_v,
-                      void* out_i, int b, int d, int ldq, int tile_n, int n, int k, int group,
-                      cudaStream_t s) {
+// bf16: tiles [T, d, tile_n]; int8: tiles [T, tile_n, ldq] (K-major), bias
+// [T, tile_n] (L2) or null.
+template <int MODE>
+int launch_accum_wgmma(const void* q, const void* tiles, const void* bias, void* rv, void* ri,
+                       void* out_v, void* out_i, int b, int d, int ldq, int tile_n, int n, int k,
+                       int group, cudaStream_t s) {
   if (b == 0) return 0;
   if (n <= 0) return (int)cudaErrorInvalidValue;
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  constexpr int KD = MODE == W_BF16 ? 64 : 128;
   const int t_live = (n + tile_n - 1) / tile_n;
-  CUtensorMap tq, tt;
-  if (const int e = bf16_map(encode, &tq, q, b, ldq, ldq, W_ROWS)) return e;
-  if (const int e = bf16_map_3d(encode, &tt, tiles, t_live, d, tile_n, 64)) return e;
-  const int kb = (ldq + 63) / 64;
-  const int stages = min(W_STAGES_MAX, (W_SMEM_MAX - 1024 - kb * W_A_BOX) / W_BOX);
+  const int kb = (ldq + KD - 1) / KD;
+  const int per_stage = W_BOX + (MODE == W_I8_L2 ? W_BIAS : 0);
+  // int8 takes no more warpgroups than the batch fills, and fewer where
+  // the resident query rows would leave the ring under four stages.
+  int wgs = MODE == W_BF16 ? W_WGS : min(W_WGS, (b + 63) / 64);
+  int stages = 0;
+  for (;; --wgs) {
+    stages = min(W_STAGES_MAX, (W_SMEM_MAX - 1024 - kb * wgs * W_A_WG) / per_stage);
+    if (MODE == W_BF16 || stages >= 4 || wgs == 1) break;
+  }
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  const int smem = 1024 + kb * W_A_BOX + stages * W_BOX;
+  CUtensorMap tq, tt, tb{};
+  if constexpr (MODE == W_BF16) {
+    if (const int e = bf16_map(encode, &tq, q, b, ldq, ldq, 64 * wgs)) return e;
+    if (const int e = bf16_map_3d(encode, &tt, tiles, t_live, d, tile_n, 64)) return e;
+  } else {
+    if (const int e = int8_map(encode, &tq, q, b, ldq, ldq, 64 * wgs)) return e;
+    if (const int e = int8_map(encode, &tt, tiles, (long long)t_live * tile_n, ldq, ldq, W_BN))
+      return e;
+    if (MODE == W_I8_L2)
+      if (const int e = word_map(encode, &tb, bias, t_live, tile_n, W_BN)) return e;
+  }
+  const int smem = 1024 + kb * wgs * W_A_WG + stages * per_stage;
   if (const cudaError_t e = cudaFuncSetAttribute(
-          accum_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+          accum_wgmma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return (int)e;
-  const int nrb = (b + W_ROWS - 1) / W_ROWS;
-  accum_wgmma_kernel<<<(unsigned)(nrb * (tile_n / W_BN)), W_THREADS, smem, s>>>(
-      tq, tt, static_cast<int32_t*>(rv), static_cast<int32_t*>(ri), b, ldq, tile_n, n, group - 1,
-      nrb, stages);
+  const int nrb = (b + 64 * wgs - 1) / (64 * wgs);
+  accum_wgmma_kernel<MODE><<<(unsigned)(nrb * (tile_n / W_BN)), 128 * wgs + 32, smem, s>>>(
+      tq, tt, tb, static_cast<int32_t*>(rv), static_cast<int32_t*>(ri), b, ldq, tile_n, n,
+      group - 1, nrb, stages, wgs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  int shift = 0;
+  while ((1 << shift) < group) ++shift;
   extract_kernel<<<(unsigned)b, THREADS, 0, s>>>(
       static_cast<const int32_t*>(rv), static_cast<const int32_t*>(ri),
-      static_cast<int32_t*>(out_v), static_cast<int32_t*>(out_i), tile_n, k, 0);
+      static_cast<int32_t*>(out_v), static_cast<int32_t*>(out_i), tile_n, k,
+      MODE == W_BF16 ? 0 : shift);
   return (int)cudaGetLastError();
 }
 }  // namespace
@@ -468,12 +546,18 @@ int launch_accum_bf16(const void* q, const void* tiles, void* rv, void* ri, void
 // [b, tile_n] int32 scratch.  The wrapper guarantees tile_n a multiple of
 // 128 up to 2048, group a power of two >= 2 dividing T = n_tiles, and d <=
 // 1024 (int8) or <= 320 (fp32, bf16).
-// int8: `bias` may be null (no-bias mode).
+// int8: q [b, ldq] and the K-major tiles [T, tile_n, ldq], ldq = d rounded
+// up to a multiple of 16 (the pad zero), both 16-byte aligned; `bias` [T,
+// tile_n] (16-byte aligned) or null (no-bias mode).
 extern "C" int bruteforce_accum_topk(const void* q, const void* tiles, const void* bias,
                                      void* rv, void* ri, void* out_v, void* out_i, int b,
-                                     int d, int tile_n, int n, int k, int group, void* stream) {
-  return launch_accum<int8_t>(q, tiles, bias, rv, ri, out_v, out_i, b, d, tile_n, n, k, group,
-                              static_cast<cudaStream_t>(stream));
+                                     int ldq, int tile_n, int n, int k, int group, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bias != nullptr
+             ? launch_accum_wgmma<W_I8_L2>(q, tiles, bias, rv, ri, out_v, out_i, b, ldq, ldq,
+                                           tile_n, n, k, group, s)
+             : launch_accum_wgmma<W_I8>(q, tiles, nullptr, rv, ri, out_v, out_i, b, ldq, ldq,
+                                        tile_n, n, k, group, s);
 }
 
 // fp32 q and tiles, no bias rows; tiles 16-byte aligned.  out_v holds the
@@ -481,8 +565,8 @@ extern "C" int bruteforce_accum_topk(const void* q, const void* tiles, const voi
 extern "C" int bruteforce_accum_topk_f(const void* q, const void* tiles, void* rv, void* ri,
                                        void* out_v, void* out_i, int b, int d, int tile_n,
                                        int n, int k, int group, void* stream) {
-  return launch_accum<float>(q, tiles, nullptr, rv, ri, out_v, out_i, b, d, tile_n, n, k, group,
-                             static_cast<cudaStream_t>(stream));
+  return launch_accum_f32(q, tiles, rv, ri, out_v, out_i, b, d, tile_n, n, k, group,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // bf16: q [b, ldq] with ldq = d rounded up to a multiple of 16 (the pad
@@ -490,6 +574,6 @@ extern "C" int bruteforce_accum_topk_f(const void* q, const void* tiles, void* r
 extern "C" int bruteforce_accum_topk_bf16(const void* q, const void* tiles, void* rv, void* ri,
                                           void* out_v, void* out_i, int b, int d, int ldq,
                                           int tile_n, int n, int k, int group, void* stream) {
-  return launch_accum_bf16(q, tiles, rv, ri, out_v, out_i, b, d, ldq, tile_n, n, k, group,
-                           static_cast<cudaStream_t>(stream));
+  return launch_accum_wgmma<W_BF16>(q, tiles, nullptr, rv, ri, out_v, out_i, b, d, ldq, tile_n,
+                                    n, k, group, static_cast<cudaStream_t>(stream));
 }

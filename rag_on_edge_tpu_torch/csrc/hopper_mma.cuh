@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the kernels that run wgmma fed by TMA:
-// K8's bf16 mode (tiled_matmul.cu), K5's bf16 mode (bruteforce_accum.cu)
-// and K3's bf16 mode (bruteforce_fused.cu).
+// K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
+// (bruteforce_accum.cu) and K3's bf16 and int8 modes (bruteforce_fused.cu).
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
@@ -11,13 +11,16 @@
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand and
 //   wgmma.mma_async m64nNk16 bf16 -> f32 for N = 64, 128 and 256, with A
 //   K-major and B MN-major (the transpose-B bit), so B is read as it lies
-//   N-contiguous in device memory; a copy of a fragment;
+//   N-contiguous in device memory; wgmma.mma_async m64nNk32 s8 -> s32 for
+//   N = 64 and 128, with A and B both K-major (8-bit operands have no
+//   transpose bit); a copy of a fragment;
 // - host: cuTensorMapEncodeTiled through the runtime's entry-point lookup
-//   (the libraries link libcudart only), and the bf16 tensor maps.
+//   (the libraries link libcudart only), the bf16 and 8-bit tensor maps
+//   (128-byte swizzle) and an unswizzled map of 32-bit words.
 //
-// The accumulator fragment of m64nNk16 (f32): thread t of the warpgroup
-// holds d[i] at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and column
-// 8 (i / 4) + 2 (t % 4) + i % 2, for i < N / 2.
+// The accumulator fragment of m64nNk16 (f32) and of m64nNk32 (s32): thread
+// t of the warpgroup holds d[i] at row 16 (t / 32) + (t % 32) / 4 + 8 ((i /
+// 2) % 2) and column 8 (i / 4) + 2 (t % 4) + i % 2, for i < N / 2.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -66,6 +69,11 @@ __device__ __forceinline__ void copy_acc(const float (&d)[R], float (&e)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("mov.b32 %0, %1;" : "=f"(e[i]) : "f"(d[i]));
 }
+template <int R>
+__device__ __forceinline__ void copy_acc(const int32_t (&d)[R], int32_t (&e)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("mov.b32 %0, %1;" : "=r"(e[i]) : "r"(d[i]));
+}
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
@@ -113,6 +121,11 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -216,6 +229,56 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x 64] (s32) = A[64 x 32] @ B[32 x 64], both s8 and K-major (8-bit
+// operands have no transpose bit), plus D where `accumulate` is not 0.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int32_t (&d)[32], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (s32) = A[64 x 32] @ B[32 x 128], both s8 and K-major, plus D
+// where `accumulate` is not 0.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // ------------------------------------------------------------------ host
 
 // cuTensorMapEncodeTiled, a driver function, through the runtime's entry
@@ -265,6 +328,37 @@ int bf16_map_3d(EncodeTiled encode, CUtensorMap* map, const void* base, int plan
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dim,
                             stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A row-major 8-bit [rows, cols] matrix at a row pitch of `pitch` bytes (a
+// multiple of 16) as a 128-byte-swizzled tensor map of [box_rows, 128]
+// boxes: a K-major operand of the s8 wgmma, 128 k a box.
+int int8_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long rows, int cols,
+             int pitch, int box_rows) {
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows}, step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dim,
+                            stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A row-major array of 32-bit words [rows, cols] (cols a multiple of 4
+// where rows > 1) as an unswizzled tensor map of [1, box_cols] boxes: the
+// bias words streamed beside K3's and K5's int8 tiles.  Words past cols
+// arrive as zeros.
+int word_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
+             int box_cols) {
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)(cols + 3) / 4 * 16};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 1}, step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base), dim,
+                            stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

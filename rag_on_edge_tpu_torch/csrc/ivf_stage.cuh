@@ -1,8 +1,9 @@
 // Slab staging shared by the cluster-major scan kernels (K1 and K9
-// ivf_accum_planes.cu; K4, K6, K7 and K10 ivf_grouped_scan.cu) and the accum
-// brute-force scan (K5 bruteforce_accum.cu): the int8 stage (packed words,
-// __dp4a) and the float stage (fp32 or bf16 operands widened to fp32 as they
-// are staged, fmaf).
+// ivf_accum_planes.cu; K4, K6, K7 and K10 ivf_grouped_scan.cu): the int8
+// stage (packed words, __dp4a) and the float stage (fp32 or bf16 operands
+// widened to fp32 as they are staged, fmaf), which the fp32 modes of the
+// brute-force kernels (K5 bruteforce_accum.cu, K3 bruteforce_fused.cu) use
+// too.
 #pragma once
 #include <cstddef>
 #include <cstdint>

@@ -11,8 +11,9 @@ minutes.
 
 :func:`check_inputs` is the one rule for which inputs a kernel wrapper
 refuses before it launches; each wrapper checks its kernel's own shape
-limits beside the call, and :func:`aligned` gives a kernel that loads
-wide words a base pointer it can take.
+limits beside the call, :func:`aligned` gives a kernel that loads wide
+words a base pointer it can take, and :func:`pad_rows` and :func:`kmajor`
+the row pitch and the K-major layout TMA and 8-bit ``wgmma`` take.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "FLOAT_DIM_MAX", "load_library",
-           "check_inputs", "check_float", "aligned"]
+           "check_inputs", "check_float", "aligned", "pad_rows", "kmajor"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
@@ -106,6 +109,33 @@ def check_float(name: str, queries, base, d: int, d_max: int = FLOAT_DIM_MAX) ->
     if queries.dtype != base.dtype or d > d_max:
         raise ValueError(f"the CUDA {name} takes fp32 or bf16 operands in one dtype and "
                          f"D <= {d_max}; got {queries.dtype} x {base.dtype}, D={d}")
+
+
+def pad_rows(x, multiple: int):
+    """``x`` contiguous with its last dimension zero-padded to a multiple of
+    ``multiple`` elements (one copy at most: none where ``x`` is contiguous
+    and needs no pad)."""
+    width = x.shape[-1]
+    pad = -width % multiple
+    if not pad:
+        return x.contiguous()
+    out = x.new_zeros((*x.shape[:-1], width + pad))
+    out[..., :width] = x
+    return out
+
+
+def kmajor(x, multiple: int):
+    """An int8 ``[..., D, N]`` array transposed to ``[..., N, D']``,
+    contiguous, with D' = D rounded up to ``multiple`` and the pad zero.
+    Where N is a multiple of 8 and the storage 8-byte aligned, the copy moves
+    8-byte words (8 columns each) first and then bytes within each 8 x D'
+    block: on the card that is faster than one strided byte copy."""
+    *lead, d, n = x.shape
+    if n % 8 or not x.is_contiguous() or x.data_ptr() % 8:
+        return pad_rows(x.transpose(-1, -2), multiple)
+    words = x.view(torch.int64).transpose(-1, -2).contiguous()  # [..., N/8, D]
+    blocks = words.view(torch.int8).view(*lead, n // 8, d, 8).transpose(-1, -2)
+    return pad_rows(blocks, multiple).view(*lead, n, -1)
 
 
 def aligned(x, nbytes: int):

@@ -26,8 +26,9 @@ bin (column mod tile_n); callers rescore.
 :func:`fused_topk_accum` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_accum_reference`, CUDA tensors launch
 ``csrc/bruteforce_accum.cu`` (int8 ± bias rows, D <= 1024; fp32 or bf16
-with queries and tiles in one dtype, D <= 320; bf16 on the tensor cores,
-``wgmma`` fed by TMA) or raise.
+with queries and tiles in one dtype, D <= 320; int8 and bf16 on the tensor
+cores, ``wgmma`` fed by TMA, int8 on the K-major copy of
+:func:`kmajor_operands`) or raise.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 from rag_on_edge_tpu_torch.ops import _build, distances, topk
 
 __all__ = ["KMIN", "LAUNCHES", "fused_topk_accum", "fused_topk_accum_reference",
-           "l2_bias_rows", "tile_base", "tile_norms"]
+           "kmajor_operands", "l2_bias_rows", "tile_base", "tile_norms"]
 
 KMIN = -(2**31) + 1  # the key of a masked column
 
@@ -51,7 +52,8 @@ LAUNCHES = 0
 
 # What the CUDA kernel takes: bins in 128-lane chunks, at most 2048 of them
 # (the final top-k holds 8 per thread of one 256-thread CTA), and the query
-# rows and one staged [D, 128] chunk in shared memory.
+# rows resident in shared memory beside the ring (int8: 192 rows of 1024 d
+# leave it four stages).
 _CUDA_TILE_MAX = 2048
 _CUDA_DIM_MAX = 1024
 
@@ -102,6 +104,15 @@ def l2_bias_rows(norms_tiled: torch.Tensor, alpha, group: int) -> torch.Tensor:
     cap = float((1 << 30) >> shift)
     bias = torch.clamp_max(torch.round(norms_tiled / alpha), cap).to(torch.int32)
     return bias * (1 << shift) - code[:, None, None]
+
+
+def kmajor_operands(queries, base_tiles):
+    """The int8 kernel's operands: the queries [B, ldq] and the tiles
+    transposed K-major, [T, tile_n, ldq], ``ldq`` = D rounded up to 16 with
+    the pad zero (TMA's 16-byte row pitch).  8-bit ``wgmma`` operands have no
+    transpose bit, so both sides must lie K-major; the copy is made on each
+    call, and the index keeps only the JAX layout."""
+    return _build.pad_rows(queries, 16), _build.kmajor(base_tiles, 16)
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -221,8 +232,9 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
     first; see the module docstring.  ``tile_b`` and ``depth`` shape the TPU
     kernel's pipeline only and do not change the result.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (tile_n a multiple of
-    128 up to 2048; int8 ± bias rows with D <= 1024, or fp32 or bf16 queries
-    and tiles in one dtype with D <= 320) or raise."""
+    128 up to 2048; int8 ± bias rows with D <= 1024, the rows as
+    :func:`l2_bias_rows` makes them, or fp32 or bf16 queries and tiles in one
+    dtype with D <= 320) or raise."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -246,9 +258,11 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if int_path:
-            err = _kernel()(queries.data_ptr(), base_tiles.data_ptr(),
-                            bias_rows.data_ptr() if l2 else None, rv.data_ptr(), ri.data_ptr(),
-                            vals.data_ptr(), ids.data_ptr(), b, d, tile_n, n, k, group, stream)
+            qk, tk = (_build.aligned(x, 16) for x in kmajor_operands(queries, base_tiles))
+            bias = _build.aligned(bias_rows, 16) if l2 else None
+            err = _kernel()(qk.data_ptr(), tk.data_ptr(), bias.data_ptr() if l2 else None,
+                            rv.data_ptr(), ri.data_ptr(), vals.data_ptr(), ids.data_ptr(), b,
+                            qk.shape[1], tile_n, n, k, group, stream)
         elif base_tiles.dtype == torch.bfloat16:
             # The wgmma kernel takes query rows of whole k16 steps, the pad zero.
             ldq = -(-d // 16) * 16

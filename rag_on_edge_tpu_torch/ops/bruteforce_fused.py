@@ -26,8 +26,8 @@ Only entries above the fill value carry meaning; the ids of fill entries
 :func:`fused_topk_matmul` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_matmul_reference`, CUDA tensors launch
 ``csrc/bruteforce_fused.cu`` (int8, int8 L2, and fp32 or bf16 with queries
-and base in one dtype; bf16 on the tensor cores, ``wgmma`` fed by TMA) or
-raise.
+and base in one dtype; int8 and bf16 on the tensor cores, ``wgmma`` fed by
+TMA, int8 on the K-major copy of :func:`kmajor_operands`) or raise.
 """
 
 from __future__ import annotations
@@ -38,12 +38,17 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, distances, topk
 
-__all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_reference"]
+__all__ = ["LAUNCHES", "RING_STAGES", "auto_tile_n", "fused_topk_matmul",
+           "fused_topk_matmul_reference", "kmajor_operands"]
 
 #: Launches of the CUDA kernel in this process; the plain version does not
 #: count.  A run that must show it went through the kernel sets it to 0
 #: before and reads it after.
 LAUNCHES = 0
+
+#: The int8 kernel's TMA ring depth in 16 KB stages; 0 takes as many as fit
+#: beside the rows, the top-k lists and the binned table (a timing knob).
+RING_STAGES = 0
 
 # What the CUDA kernel takes: a running top-k of at most 32 per row (one
 # per lane of the merging warp), bins of 128 (one per lane of a row group),
@@ -51,13 +56,11 @@ LAUNCHES = 0
 _CUDA_K_MAX = 32
 _CUDA_NBINS = 128
 _CUDA_DIM_MAX = 512
-# The bf16 kernel's binned table names a column's chunk within its tile in
-# one byte: at most 256 chunks of 128.
-_CUDA_BF16_TILE_MAX = 256 * 128
-_MODES = {"i8": 0, "i8_l2": 1, "f32": 2}  # bf16 has its own entry
+# The int8 and bf16 kernels' binned table names a column's chunk within
+# its tile in one byte: at most 256 chunks of 128.
+_CUDA_BINNED_TILE_MAX = 256 * 128
 
-_FN = None
-_BF16_FN = None
+_FNS = {}
 
 
 def auto_tile_n(b: int, n: int, acc_bytes: int = 4, base_bytes: int = 1) -> int:
@@ -138,26 +141,29 @@ def fused_topk_matmul_reference(queries, base_t, k, tile_n=None, tile_b=None, nb
     return topk.extract_topk_ids(tv.reshape(b, -1), ti.reshape(b, -1), k, fill)
 
 
-def _kernel():
-    """Build/load the CUDA library once and declare the C entry's types."""
-    global _FN
-    if _FN is None:
-        fn = _build.load_library("bruteforce_fused").bruteforce_fused_topk
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+# Each mode's C entry: (pointers, ints) before the stream.
+_ENTRIES = {"i8": (7, 7), "f32": (5, 6), "bf16": (5, 8)}
 
 
-def _bf16_kernel():
-    """Build/load the CUDA library once and declare the bf16 entry's types."""
-    global _BF16_FN
-    if _BF16_FN is None:
-        fn = _build.load_library("bruteforce_fused").bruteforce_fused_topk_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _kernel(mode):
+    """Build/load the CUDA library once and declare the entry's types
+    (``i8`` takes both int8 modes)."""
+    if mode not in _FNS:
+        ptrs, ints = _ENTRIES[mode]
+        fn = getattr(_build.load_library("bruteforce_fused"), f"bruteforce_fused_topk_{mode}")
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _BF16_FN = fn
-    return _BF16_FN
+        _FNS[mode] = fn
+    return _FNS[mode]
+
+
+def kmajor_operands(queries, base_t):
+    """The int8 kernel's operands: the queries [B, ldq] and base_t
+    transposed K-major, [N, ldq], ``ldq`` = D rounded up to 16 with the pad
+    zero (TMA's 16-byte row pitch).  8-bit ``wgmma`` operands have no
+    transpose bit, so both sides must lie K-major; the copy is made on each
+    call, and the index keeps only the JAX layout."""
+    return _build.pad_rows(queries, 16), _build.kmajor(base_t, 16)
 
 
 def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
@@ -196,9 +202,9 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
-    if mode == "bf16" and nbins and tile_n > _CUDA_BF16_TILE_MAX:
-        raise ValueError(f"the CUDA K3 takes bf16 binned tiles up to {_CUDA_BF16_TILE_MAX} "
-                         f"columns; got tile_n={tile_n}")
+    if mode != "f32" and nbins and tile_n > _CUDA_BINNED_TILE_MAX:
+        raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles up to "
+                         f"{_CUDA_BINNED_TILE_MAX} columns; got tile_n={tile_n}")
     vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
                        device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -213,13 +219,18 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
             qp = torch.nn.functional.pad(queries, (0, ldq - d)).contiguous()
             bp = base_t if ldb == n else torch.nn.functional.pad(base_t, (0, ldb - n))
             bp = _build.aligned(bp, 16)
-            err = _bf16_kernel()(qp.data_ptr(), bp.data_ptr(), nv_ptr, vals.data_ptr(),
-                                 ids.data_ptr(), b, d, ldq, n, ldb, k, tile_n, nbins, stream)
+            err = _kernel("bf16")(qp.data_ptr(), bp.data_ptr(), nv_ptr, vals.data_ptr(),
+                                  ids.data_ptr(), b, d, ldq, n, ldb, k, tile_n, nbins, stream)
+        elif mode == "f32":
+            err = _kernel("f32")(queries.data_ptr(), base_t.data_ptr(), nv_ptr, vals.data_ptr(),
+                                 ids.data_ptr(), b, d, n, k, tile_n, nbins, stream)
         else:
-            err = _kernel()(queries.data_ptr(), base_t.data_ptr(),
-                            alpha.data_ptr() if l2 else None, bias.data_ptr() if l2 else None,
-                            nv_ptr, vals.data_ptr(), ids.data_ptr(), b, d, n, k, tile_n, nbins,
-                            _MODES[mode], stream)
+            qk, bk = (_build.aligned(x, 16) for x in kmajor_operands(queries, base_t))
+            bias = _build.aligned(bias, 16) if l2 else None
+            err = _kernel("i8")(qk.data_ptr(), bk.data_ptr(), alpha.data_ptr() if l2 else None,
+                                bias.data_ptr() if l2 else None, nv_ptr, vals.data_ptr(),
+                                ids.data_ptr(), b, qk.shape[1], n, k, tile_n, nbins,
+                                RING_STAGES, stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -222,6 +222,66 @@ def test_k5_plain_equals_jax(case):
         assert (jv[:, :-1] == jv[:, 1:]).any()
 
 
+def _one_level_fold(q, tiles, n, k, group, bias_rows=None):
+    """The int8 CUDA K5's pass 1 as plain torch: one running (cleared key,
+    tile) a (row, bin), replaced only by a strictly larger cleared key,
+    tiles in order; then the same exact top-k over the bins."""
+    n_tiles, _, tile_n = tiles.shape
+    shift = group.bit_length() - 1
+    lane = torch.arange(tile_n)
+    rv = torch.full((q.shape[0], tile_n), bruteforce_accum.KMIN, dtype=torch.int32)
+    ti = torch.full_like(rv, -1)
+    for t in range(-(-n // tile_n)):  # the live tiles
+        key = (q.long() @ tiles[t].long()).to(torch.int32) * (1 << shift)
+        if bias_rows is not None:
+            key = (key - bias_rows[t]) & ~(group - 1)
+        up = (key > rv) & (t * tile_n + lane < n)
+        rv, ti = torch.where(up, key, rv), torch.where(up, t, ti)
+    ri = torch.where(ti >= 0, ti * tile_n + lane, 0).to(torch.int32)
+    return topk.extract_topk_ids(rv >> shift, ri, k, bruteforce_accum.KMIN)
+
+
+@pytest.mark.parametrize("case", ["i8-ties", "i8-l2", "i8-l2-ragged"])
+def test_k5_one_level_fold_equals_two_level(case):
+    """The fold the int8 CUDA K5 runs equals the JAX kernel's group max and
+    strict merge, ties within and across groups included."""
+    q, tiles, n, kw, k = _k5_case(case)
+    br = _t(kw["bias_rows"]) if "bias_rows" in kw else None
+    tv, ti = bruteforce_accum.fused_topk_accum_reference(_t(q), _t(tiles), n, k, **{
+        **kw, "bias_rows": br})
+    ov, oi = _one_level_fold(_t(q), _t(tiles), n, k, kw["group"], br)
+    assert torch.equal(ov, tv) and torch.equal(oi, ti)
+
+
+@pytest.mark.parametrize("n", [1300, 1304], ids=["n1300", "n1304"])
+@pytest.mark.parametrize("d", [37, 64])
+def test_kmajor_operands_give_the_jax_layouts_top_k(d, n):
+    """The int8 CUDA kernels' K-major operands: rows padded to 16 bytes with
+    zeros, and through the plain versions (base transposed back as a view)
+    the same top-k as the JAX-layout operands, for K3 (L2 binned) and K5.
+    N = 1304 (a multiple of 8) takes the copy by 8-byte words, 1300 not."""
+    rng = np.random.default_rng(28)
+    ldq = -(-d // 16) * 16
+    q = _t(rng.integers(-127, 128, (24, d), dtype=np.int8))
+    bt = _t(rng.integers(-127, 128, (d, n), dtype=np.int8))
+    qk, bk = bruteforce_fused.kmajor_operands(q, bt)
+    assert qk.shape == (24, ldq) and bk.shape == (n, ldq) and bk.is_contiguous()
+    assert not qk[:, d:].any() and not bk[:, d:].any() and torch.equal(bk[:, :d], bt.T)
+    kw = dict(nbins=128, tile_n=512, alpha=_t(rng.uniform(0.5, 2, 24).astype(np.float32)),
+              bias=_t(rng.uniform(0, 3e4, n).astype(np.float32)))
+    for got, want in zip(bruteforce_fused.fused_topk_matmul_reference(qk, bk.T, 20, **kw),
+                         bruteforce_fused.fused_topk_matmul_reference(q, bt, 20, **kw)):
+        assert torch.equal(got, want)
+    tiles, _ = bruteforce_accum.tile_base(bt, 128, 4)
+    qk, tk = bruteforce_accum.kmajor_operands(q, tiles)
+    assert tk.shape == (tiles.shape[0], 128, ldq) and not tk[..., d:].any()
+    for got, want in zip(
+            bruteforce_accum.fused_topk_accum_reference(qk, tk.transpose(1, 2), n, 20, group=4,
+                                                        depth=4),
+            bruteforce_accum.fused_topk_accum_reference(q, tiles, n, 20, group=4, depth=4)):
+        assert torch.equal(got, want)
+
+
 def test_k5_rejects_bad_inputs():
     q = torch.zeros((4, 8), dtype=torch.int8)
     tiles = torch.zeros((8, 8, 128), dtype=torch.int8)

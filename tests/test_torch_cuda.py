@@ -649,10 +649,11 @@ def test_float_ivf_card_equals_cpu(dev, dtype, run):
 
 
 # K3: (B, D, N, k, tile_n, n_valid, value range).  N = 3001 is not a multiple
-# of 4 (byte staging) nor of 128 (a ragged last chunk) nor of 8 (bf16 base_t
-# copied to a 16-byte row pitch); D = 37 pads a word.  The bf16 kernel's
-# edges: 64 rows a CTA (B = 70, 200), 128 columns a chunk (tile_n 128, 256,
-# 2048), 64 d a box (D = 129, 512).
+# of 4 nor of 128 (a ragged last chunk) nor of 8 (bf16 base_t copied to a
+# 16-byte row pitch; int8 K-major rows past N arrive as zeros); D = 37 pads
+# the int8 rows to 48 bytes.  The wgmma kernels' edges: 64 rows a CTA (B =
+# 70, 193, 200), 128 columns a chunk (tile_n 128, 256, 2048), 64 bf16 or 128
+# int8 d a box (D = 129, 320, 512).
 K3_SHAPES = {
     "base": (40, 64, 2048, 20, 512, None, (-127, 128)),
     "ragged": (70, 37, 3001, 32, None, 2900, (-127, 128)),
@@ -660,6 +661,8 @@ K3_SHAPES = {
     "t128-d129": (200, 129, 4100, 20, 128, None, (-127, 128)),
     "t256-b200": (200, 128, 3001, 32, 256, 2950, (-127, 128)),
     "t2048-d512": (70, 512, 5000, 20, 2048, 4500, (-127, 128)),
+    "b193-d320": (193, 320, 4100, 20, 256, 4000, (-127, 128)),
+    "b193-d37": (193, 37, 3001, 32, 128, None, (-127, 128)),
 }
 
 
@@ -689,6 +692,29 @@ def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
     assert int(i.max()) < (n_valid or n)
 
 
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("mode", ["i8", "i8_l2"])
+def test_k3_kernel_int8_ring_depth_equal_to_plain(dev, mode, stages, monkeypatch):
+    """K3's int8 ring cut to 2 and 3 stages, fewer than a chunk's three
+    boxes at D = 320: every stage wraps within a chunk, and the L2 bias
+    words ride in the stage held through the selection."""
+    b, d, n, k, tile_n, n_valid, (lo, hi) = K3_SHAPES["b193-d320"]
+    rng = np.random.default_rng(35)
+    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
+    bt = torch.from_numpy(rng.integers(lo, hi, (d, n), dtype=np.int8)).to(dev)
+    kw = dict(nbins=128, tile_n=tile_n,
+              n_valid=torch.tensor([n_valid], dtype=torch.int32, device=dev))
+    if mode == "i8_l2":
+        kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+        kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
+    monkeypatch.setattr(bruteforce_fused, "RING_STAGES", stages)
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, rv)
+    assert torch.equal(i, ri)
+
+
 @pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
 def test_k3_kernel_bf16_close_to_plain_on_noninteger_data(dev, nbins):
     b, d, n, k, tile_n, n_valid, _ = K3_SHAPES["ragged"]
@@ -715,35 +741,45 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
         bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
 
 
-# K5: (B, D, N, tile_n, group, k, bias rows, value range); N = 1300 and 9000
-# leave a partial tile and padded tiles.  The bf16 kernel's edges: 192 rows
-# a CTA (B = 70, 200), 64 bins a CTA (tile_n 128, 256, 2048), 64 d a box
-# (D = 37, 128, 129, 320).
+# K5: (B, D, N, tile_n, group, k, alpha of the L2 bias rows or None, value
+# range); N = 1300 and 9000 leave a partial tile and padded tiles.  The
+# wgmma kernels' edges: 192 rows a CTA (B = 193, 200; int8 takes 64 or 128
+# rows where B = 33, 40 or 70 fills no more), 64 bins a CTA (tile_n 128,
+# 256, 2048), 64 bf16 or 128 int8 d a box (D = 37, 128, 129, 320, 1024:
+# 192 resident int8 rows of 1024 d leave the ring four stages).  alpha
+# 3.5e-4 puts the quotients norms/alpha near the clamp 2**30 >> shift, and
+# the largest norms on it.
 K5_SHAPES = {
-    "ip": (40, 64, 4096, 256, 4, 20, False, (-127, 128)),
-    "l2": (40, 64, 4096, 256, 4, 20, True, (-127, 128)),
-    "ties": (33, 128, 4096, 128, 8, 10, False, (0, 3)),
-    "ragged-l2": (70, 37, 1300, 128, 4, 32, True, (-127, 128)),
-    "d320": (40, 320, 1300, 128, 4, 20, False, (-127, 128)),
-    "t2048-d129": (200, 129, 9000, 2048, 4, 20, False, (-127, 128)),
-    "t256-b200": (200, 128, 5000, 256, 8, 20, False, (-127, 128)),
+    "ip": (40, 64, 4096, 256, 4, 20, None, (-127, 128)),
+    "l2": (40, 64, 4096, 256, 4, 20, 7.0, (-127, 128)),
+    "ties": (33, 128, 4096, 128, 8, 10, None, (0, 3)),
+    "ragged-l2": (70, 37, 1300, 128, 4, 32, 7.0, (-127, 128)),
+    "d320": (40, 320, 1300, 128, 4, 20, None, (-127, 128)),
+    "t2048-d129": (200, 129, 9000, 2048, 4, 20, None, (-127, 128)),
+    "t256-b200": (200, 128, 5000, 256, 8, 20, None, (-127, 128)),
+    "b193-d37-l2": (193, 37, 1300, 128, 4, 32, 7.0, (-127, 128)),
+    "b193-d129": (193, 129, 9000, 2048, 4, 20, None, (-127, 128)),
+    "b193-d320-l2": (193, 320, 5000, 256, 8, 20, 7.0, (-127, 128)),
+    "d1024": (193, 1024, 1300, 128, 4, 20, None, (-127, 128)),
+    "d1024-l2": (193, 1024, 1300, 128, 4, 20, 7.0, (-127, 128)),
+    "l2-clamp": (193, 64, 4096, 256, 4, 20, 3.5e-4, (-127, 128)),
 }
 
 
 @pytest.mark.parametrize("shape", list(K5_SHAPES))
 def test_k5_kernel_equal_to_plain(dev, shape):
-    b, d, n, tile_n, group, k, l2, (lo, hi) = K5_SHAPES[shape]
+    b, d, n, tile_n, group, k, alpha, (lo, hi) = K5_SHAPES[shape]
     rng = np.random.default_rng(31)
     q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
     tiles, _ = bruteforce_accum.tile_base(rng.integers(lo, hi, (d, n), dtype=np.int8),
                                           tile_n, group)
     tiles = tiles.to(dev)
     br = None
-    if l2:
+    if alpha is not None:
         norms = bruteforce_accum.tile_norms(rng.uniform(0, 1e5, n).astype(np.float32),
                                             tile_n, group)
         br = bruteforce_accum.l2_bias_rows(torch.from_numpy(norms).to(dev),
-                                           torch.tensor(7.0, device=dev), group)
+                                           torch.tensor(alpha, device=dev), group)
     kw = dict(group=group, depth=group, bias_rows=br)
     before = bruteforce_accum.LAUNCHES
     v, i = bruteforce_accum.fused_topk_accum(q, tiles, n, k, **kw)
