@@ -59,9 +59,8 @@ script exits non-zero without a result line:
              equal) and timed at B=8192 beside the GEMM alone
              (``torch._int_mm``, ``gemm_ms``) and the K-major copies their
              wrappers make; one call of K3 int8 L2 and of K5 int8 L2 split
-             by kernel (``torch.profiler``); K3 int8 L2 also at ring depths
-             2, 4 and as many stages as fit; then all 10,000 queries through
-             each engine
+             by kernel (``torch.profiler``); then all 10,000 queries
+             through each engine
              with the counters reset just before and read just after;
              recall@10 >= 0.99 (accum) and >= 0.999 (pallas) against the
              plain ground truth.
@@ -755,9 +754,8 @@ def main() -> None:
     print(f"[gemm floor] torch._int_mm [{BATCH},{DIM}] x [{DIM},{N_BASE}] int8 -> int32 in "
           f"8 column blocks (gemm_ms): {int_mm_ms} ms on {card} (a library yardstick; the port "
           "never calls it)", flush=True)
-    copy_ms = {"K3": cuda_ms(torch, lambda: bruteforce_fused.kmajor_operands(qv8, bp["base_t"])),
-               "K5": cuda_ms(torch, lambda: bruteforce_accum.kmajor_operands(
-                   qv8, ba["base_tiles"]))}
+    copy_ms = {"K3": cuda_ms(torch, lambda: _build.kmajor_operands(qv8, bp["base_t"])),
+               "K5": cuda_ms(torch, lambda: _build.kmajor_operands(qv8, ba["base_tiles"]))}
     print(f"[brute] the int8 wrappers' K-major copies (queries padded, base transposed; in each "
           f"call's time below): K3 base_t {tuple(bp['base_t'].shape)} -> [N, D] "
           f"{copy_ms['K3']} ms, K5 tiles {tuple(ba['base_tiles'].shape)} -> [T, tile_n, D] "
@@ -805,15 +803,6 @@ def main() -> None:
         args, kw = make()
         phase("kernels", t0, f"{name} one B={BATCH} call by kernel (torch.profiler, device ms): "
               f"{device_ms_by_kernel(torch, lambda: fn(*args, **kw))}")
-    # K3 int8's ring depth (16 KB stages; the default takes as many as fit).
-    args, kw = k3_args(q_full, True)
-    ring_ms = {}
-    for stages in (2, 4, 0):
-        bruteforce_fused.RING_STAGES = stages
-        ring_ms[stages or "default"] = cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(
-            *args, **kw), reps=5)
-    bruteforce_fused.RING_STAGES = 0
-    phase("kernels", t0, f"K3 int8-L2 bin128 at B={BATCH} by ring depth (stages: ms): {ring_ms}")
 
     # K3 in its fp32 exact mode at the ground truth's shapes (one 1024-row chunk).
     bt_aug = torch.cat([torch.from_numpy(base.T.copy()),

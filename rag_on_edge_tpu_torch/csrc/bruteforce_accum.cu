@@ -55,7 +55,8 @@
 //   next tile's rows; int8 [64 bins, 128 d] boxes of the wrapper's K-major
 //   copy [T, tile_n, ldq] (8-bit wgmma operands have no transpose bit, so B
 //   must be K-major in shared memory: the wrapper transposes the tiles with
-//   one torch copy a call, ~0.1 ms at SIFT-1M, and keeps no second copy).
+//   one torch copy a call, ~0.4 ms at SIFT-1M on the H100 (_build.kmajor,
+//   PERF.md section 6), and keeps no second copy).
 //   Each warpgroup runs four wgmma a box (bf16 m64n64k16 -> f32, int8
 //   m64n64k32 s8 -> s32), one commit group a box, keeping one group in
 //   flight, then folds the tile.  CTAs take row blocks fastest, so those in

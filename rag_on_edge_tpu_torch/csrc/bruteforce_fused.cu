@@ -58,7 +58,8 @@
 //   lies, N-contiguous (wgmma's transpose bit); int8 one [128 columns, 128
 //   d] box of the wrapper's K-major copy [N, ldq] (8-bit wgmma operands
 //   have no transpose bit: the wrapper transposes base_t with one torch copy
-//   a call, ~0.1 ms at SIFT-1M, and keeps no second copy).  Each 128-column
+//   a call, ~0.4 ms at SIFT-1M on the H100 (_build.kmajor, PERF.md section
+//   6), and keeps no second copy).  Each 128-column
 //   chunk is four wgmma a stage into 64 registers a thread (bf16
 //   m64n128k16 -> f32, int8 m64n128k32 s8 -> s32), one commit group a stage,
 //   one group in flight.  Only wgmma writes the accumulators (scale-d 0
@@ -89,12 +90,14 @@
 //   test uses the thresholds of the chunk's start.  Binned mode: a thread
 //   owns the same 64 (row, bin) pairs in every chunk, and keeps each
 //   pair's two best passers (score, chunk) of the current tile in shared
-//   memory (strict >); at the tile's end the warp inserts them.  This is
+//   memory (strict >; the chunk in 16 bits, so a tile walks up to 65536
+//   chunks); at the tile's end the warp inserts them.  This is
 //   exact: the threshold only moves at tile ends, and a bin's top two among
 //   its passers are its top two wherever they pass.
-// - ring depth: an int8 stage holds a whole 128-d chunk, so at D = 128 the
-//   ring holds seven chunks beside the binned table (bf16: six stages, 1.5
-//   chunks at D = 129); two stages ran within a few percent of seven.
+// - ring depth: the ring takes as many 16 KB stages as fit beside the
+//   binned table.  An int8 stage holds a whole 128-d chunk, so at D = 128 the
+//   ring holds six chunks (bf16: five stages, 1.7 chunks at D = 129); two
+//   int8 stages ran within a few percent of seven (PERF.md section 7).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -382,6 +385,7 @@ constexpr int G_STAGES_MAX = 16;
 constexpr int G_SMEM_MAX = 232448 - 1024;  // the opt-in limit less the static barriers
 constexpr int G_TOPK = G_ROWS * K_MAX;     // entries of the rows' top-k lists
 constexpr int G_TABLE = 2 * 64 * 128;      // binned: [slot][entry][thread] of the tile
+constexpr int G_TABLE_BYTES = G_TABLE * 6; // a 4-byte score and a 2-byte chunk an entry
 
 // Insert (v, id) into one row's top-k list (lane l < k holds entry l, best
 // first; ids in it differ from id): the entries better than (v, id) are the
@@ -428,9 +432,9 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
                                stages * G_STAGE);  // [64 rows][K_MAX]
   int32_t* li = reinterpret_cast<int32_t*>(lv + G_TOPK);
   T* tv = reinterpret_cast<T*>(li + G_TOPK);               // binned: scores
-  uint8_t* tc = reinterpret_cast<uint8_t*>(tv + G_TABLE);  // binned: chunk in the tile
+  uint16_t* tc = reinterpret_cast<uint16_t*>(tv + G_TABLE);  // binned: chunk in the tile
   float* bias_w = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(li + G_TOPK) +
-                                           (BINNED ? G_TABLE * 5 : 0));  // L2: [stages][128]
+                                           (BINNED ? G_TABLE_BYTES : 0));  // L2: [stages][128]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (int)blockIdx.x * G_ROWS;
   const int nchunks = (n + G_BN - 1) / G_BN;
@@ -612,7 +616,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
           }
         } else {
           if (!pg) continue;
-          const uint8_t cidx = (uint8_t)cpos;
+          const uint16_t cidx = (uint16_t)cpos;
 #pragma unroll
           for (int i = g; i < g + 8; ++i)
             if (passes(i)) {
@@ -692,12 +696,12 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 // bf16: base_t [d, n] at a row pitch of ldb.  int8: the K-major base [n,
-// ldq], alpha [b] and bias [n] (I8_L2) or null.  max_stages 0: the ring
-// takes as many stages as fit.
+// ldq], alpha [b] and bias [n] (I8_L2) or null.  The ring takes as many
+// stages as fit.
 template <int MODE, bool BINNED>
 int launch_wgmma(const void* q, const void* base, const void* alpha, const void* bias,
                  const void* n_valid, void* out_v, void* out_i, int b, int d, int ldq, int n,
-                 int ldb, int k, int tile_n, int max_stages, cudaStream_t stream) {
+                 int ldb, int k, int tile_n, cudaStream_t stream) {
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   constexpr int KD = MODE == G_BF16 ? 64 : 128;
@@ -712,10 +716,9 @@ int launch_wgmma(const void* q, const void* base, const void* alpha, const void*
       if (const int e = word_map(encode, &tbias, bias, 1, n, G_BN)) return e;
   }
   const int kb = (ldq + KD - 1) / KD;
-  const int fixed = 1024 + kb * G_BOX + 2 * G_TOPK * 4 + (BINNED ? G_TABLE * 5 : 0);
+  const int fixed = 1024 + kb * G_BOX + 2 * G_TOPK * 4 + (BINNED ? G_TABLE_BYTES : 0);
   const int per_stage = G_STAGE + (MODE == G_I8_L2 ? G_BIAS : 0);
-  const int cap = MODE == G_BF16 ? G_STAGES_BF16
-                                 : (max_stages > 0 ? min(max_stages, G_STAGES_MAX) : G_STAGES_MAX);
+  const int cap = MODE == G_BF16 ? G_STAGES_BF16 : G_STAGES_MAX;
   const int stages = min(cap, (G_SMEM_MAX - fixed) / per_stage);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + stages * per_stage;
@@ -732,12 +735,11 @@ int launch_wgmma(const void* q, const void* base, const void* alpha, const void*
 template <int MODE>
 int launch_wgmma_binned(bool binned, const void* q, const void* base, const void* alpha,
                         const void* bias, const void* n_valid, void* out_v, void* out_i, int b,
-                        int d, int ldq, int n, int ldb, int k, int tile_n, int max_stages,
-                        cudaStream_t s) {
+                        int d, int ldq, int n, int ldb, int k, int tile_n, cudaStream_t s) {
   return binned ? launch_wgmma<MODE, true>(q, base, alpha, bias, n_valid, out_v, out_i, b, d, ldq,
-                                           n, ldb, k, tile_n, max_stages, s)
+                                           n, ldb, k, tile_n, s)
                 : launch_wgmma<MODE, false>(q, base, alpha, bias, n_valid, out_v, out_i, b, d,
-                                            ldq, n, ldb, k, tile_n, max_stages, s);
+                                            ldq, n, ldb, k, tile_n, s);
 }
 
 }  // namespace
@@ -745,7 +747,8 @@ int launch_wgmma_binned(bool binned, const void* q, const void* base, const void
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `n_valid` may be null.  The
 // wrapper guarantees 1 <= k <= 32, k <= n, nbins 0 or 128, tile_n a
-// multiple of 128 (binned int8 and bf16: at most 256 chunks of 128), and
+// multiple of 128 (binned int8 and bf16: a tile walks at most 65536 chunks
+// of 128), and
 // d <= 512.
 
 // fp32: q [b, d] and base_t [d, n] fp32; f32 out.
@@ -761,18 +764,17 @@ extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, cons
 // int8: q [b, ldq] and the K-major base [n, ldq] with ldq = d rounded up
 // to a multiple of 16 (the pad zero), both 16-byte aligned; alpha [b] and
 // bias [n] (16-byte aligned) for L2, f32 out, or both null, int32 out.
-// max_stages caps the ring (0: as many stages as fit).
 extern "C" int bruteforce_fused_topk_i8(const void* q, const void* base_k, const void* alpha,
                                         const void* bias, const void* n_valid, void* out_v,
                                         void* out_i, int b, int ldq, int n, int k, int tile_n,
-                                        int nbins, int max_stages, void* stream) {
+                                        int nbins, void* stream) {
   if (b == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bias != nullptr
              ? launch_wgmma_binned<G_I8_L2>(nbins != 0, q, base_k, alpha, bias, n_valid, out_v,
-                                            out_i, b, ldq, ldq, n, ldq, k, tile_n, max_stages, s)
+                                            out_i, b, ldq, ldq, n, ldq, k, tile_n, s)
              : launch_wgmma_binned<G_I8>(nbins != 0, q, base_k, nullptr, nullptr, n_valid, out_v,
-                                         out_i, b, ldq, ldq, n, ldq, k, tile_n, max_stages, s);
+                                         out_i, b, ldq, ldq, n, ldq, k, tile_n, s);
 }
 
 // The bf16 mode: q [b, ldq] bf16 with ldq = d rounded up to a multiple of
@@ -783,6 +785,6 @@ extern "C" int bruteforce_fused_topk_bf16(const void* q, const void* base_t, con
                                           int ldb, int k, int tile_n, int nbins, void* stream) {
   if (b == 0) return 0;
   return launch_wgmma_binned<G_BF16>(nbins != 0, q, base_t, nullptr, nullptr, n_valid, out_v,
-                                     out_i, b, d, ldq, n, ldb, k, tile_n, 0,
+                                     out_i, b, d, ldq, n, ldb, k, tile_n,
                                      static_cast<cudaStream_t>(stream));
 }

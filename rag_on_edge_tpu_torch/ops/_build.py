@@ -12,8 +12,9 @@ minutes.
 :func:`check_inputs` is the one rule for which inputs a kernel wrapper
 refuses before it launches; each wrapper checks its kernel's own shape
 limits beside the call, :func:`aligned` gives a kernel that loads wide
-words a base pointer it can take, and :func:`pad_rows` and :func:`kmajor`
-the row pitch and the K-major layout TMA and 8-bit ``wgmma`` take.
+words a base pointer it can take, and :func:`pad_rows`, :func:`kmajor` and
+:func:`kmajor_operands` the row pitch and the K-major layout TMA and 8-bit
+``wgmma`` take.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "FLOAT_DIM_MAX", "load_library",
-           "check_inputs", "check_float", "aligned", "pad_rows", "kmajor"]
+           "check_inputs", "check_float", "aligned", "pad_rows", "kmajor",
+           "kmajor_operands"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
@@ -136,6 +138,15 @@ def kmajor(x, multiple: int):
     words = x.view(torch.int64).transpose(-1, -2).contiguous()  # [..., N/8, D]
     blocks = words.view(torch.int8).view(*lead, n // 8, d, 8).transpose(-1, -2)
     return pad_rows(blocks, multiple).view(*lead, n, -1)
+
+
+def kmajor_operands(queries, base):
+    """The int8 ``wgmma`` kernels' operands (K3 and K5): the queries [B, ldq]
+    and ``base`` [..., D, N] transposed K-major, [..., N, ldq], ``ldq`` = D
+    rounded up to 16 with the pad zero (TMA's 16-byte row pitch).  8-bit
+    ``wgmma`` operands have no transpose bit, so both sides must lie K-major;
+    the copy is made on each call, and the indexes keep only the JAX layout."""
+    return pad_rows(queries, 16), kmajor(base, 16)
 
 
 def aligned(x, nbytes: int):

@@ -28,7 +28,7 @@ tensors take :func:`fused_topk_accum_reference`, CUDA tensors launch
 ``csrc/bruteforce_accum.cu`` (int8 ± bias rows, D <= 1024; fp32 or bf16
 with queries and tiles in one dtype, D <= 320; int8 and bf16 on the tensor
 cores, ``wgmma`` fed by TMA, int8 on the K-major copy of
-:func:`kmajor_operands`) or raise.
+:func:`_build.kmajor_operands`) or raise.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 from rag_on_edge_tpu_torch.ops import _build, distances, topk
 
 __all__ = ["KMIN", "LAUNCHES", "fused_topk_accum", "fused_topk_accum_reference",
-           "kmajor_operands", "l2_bias_rows", "tile_base", "tile_norms"]
+           "l2_bias_rows", "tile_base", "tile_norms"]
 
 KMIN = -(2**31) + 1  # the key of a masked column
 
@@ -105,14 +105,6 @@ def l2_bias_rows(norms_tiled: torch.Tensor, alpha, group: int) -> torch.Tensor:
     bias = torch.clamp_max(torch.round(norms_tiled / alpha), cap).to(torch.int32)
     return bias * (1 << shift) - code[:, None, None]
 
-
-def kmajor_operands(queries, base_tiles):
-    """The int8 kernel's operands: the queries [B, ldq] and the tiles
-    transposed K-major, [T, tile_n, ldq], ``ldq`` = D rounded up to 16 with
-    the pad zero (TMA's 16-byte row pitch).  8-bit ``wgmma`` operands have no
-    transpose bit, so both sides must lie K-major; the copy is made on each
-    call, and the index keeps only the JAX layout."""
-    return _build.pad_rows(queries, 16), _build.kmajor(base_tiles, 16)
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -258,7 +250,7 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if int_path:
-            qk, tk = (_build.aligned(x, 16) for x in kmajor_operands(queries, base_tiles))
+            qk, tk = (_build.aligned(x, 16) for x in _build.kmajor_operands(queries, base_tiles))
             bias = _build.aligned(bias_rows, 16) if l2 else None
             err = _kernel()(qk.data_ptr(), tk.data_ptr(), bias.data_ptr() if l2 else None,
                             rv.data_ptr(), ri.data_ptr(), vals.data_ptr(), ids.data_ptr(), b,

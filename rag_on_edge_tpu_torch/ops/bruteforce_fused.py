@@ -27,7 +27,8 @@ Only entries above the fill value carry meaning; the ids of fill entries
 tensors take :func:`fused_topk_matmul_reference`, CUDA tensors launch
 ``csrc/bruteforce_fused.cu`` (int8, int8 L2, and fp32 or bf16 with queries
 and base in one dtype; int8 and bf16 on the tensor cores, ``wgmma`` fed by
-TMA, int8 on the K-major copy of :func:`kmajor_operands`) or raise.
+TMA, int8 on the K-major copy of :func:`_build.kmajor_operands`) or
+raise.
 """
 
 from __future__ import annotations
@@ -38,17 +39,12 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, distances, topk
 
-__all__ = ["LAUNCHES", "RING_STAGES", "auto_tile_n", "fused_topk_matmul",
-           "fused_topk_matmul_reference", "kmajor_operands"]
+__all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_reference"]
 
 #: Launches of the CUDA kernel in this process; the plain version does not
 #: count.  A run that must show it went through the kernel sets it to 0
 #: before and reads it after.
 LAUNCHES = 0
-
-#: The int8 kernel's TMA ring depth in 16 KB stages; 0 takes as many as fit
-#: beside the rows, the top-k lists and the binned table (a timing knob).
-RING_STAGES = 0
 
 # What the CUDA kernel takes: a running top-k of at most 32 per row (one
 # per lane of the merging warp), bins of 128 (one per lane of a row group),
@@ -57,8 +53,8 @@ _CUDA_K_MAX = 32
 _CUDA_NBINS = 128
 _CUDA_DIM_MAX = 512
 # The int8 and bf16 kernels' binned table names a column's chunk within
-# its tile in one byte: at most 256 chunks of 128.
-_CUDA_BINNED_TILE_MAX = 256 * 128
+# its tile in 16 bits: a tile walks at most 65536 chunks of 128.
+_CUDA_BINNED_TILE_MAX = 65536 * 128
 
 _FNS = {}
 
@@ -142,7 +138,7 @@ def fused_topk_matmul_reference(queries, base_t, k, tile_n=None, tile_b=None, nb
 
 
 # Each mode's C entry: (pointers, ints) before the stream.
-_ENTRIES = {"i8": (7, 7), "f32": (5, 6), "bf16": (5, 8)}
+_ENTRIES = {"i8": (7, 6), "f32": (5, 6), "bf16": (5, 8)}
 
 
 def _kernel(mode):
@@ -156,14 +152,6 @@ def _kernel(mode):
         _FNS[mode] = fn
     return _FNS[mode]
 
-
-def kmajor_operands(queries, base_t):
-    """The int8 kernel's operands: the queries [B, ldq] and base_t
-    transposed K-major, [N, ldq], ``ldq`` = D rounded up to 16 with the pad
-    zero (TMA's 16-byte row pitch).  8-bit ``wgmma`` operands have no
-    transpose bit, so both sides must lie K-major; the copy is made on each
-    call, and the index keeps only the JAX layout."""
-    return _build.pad_rows(queries, 16), _build.kmajor(base_t, 16)
 
 
 def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
@@ -202,9 +190,10 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
-    if mode != "f32" and nbins and tile_n > _CUDA_BINNED_TILE_MAX:
-        raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles up to "
-                         f"{_CUDA_BINNED_TILE_MAX} columns; got tile_n={tile_n}")
+    if mode != "f32" and nbins and min(tile_n, n) > _CUDA_BINNED_TILE_MAX:
+        raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles of up to "
+                         f"{_CUDA_BINNED_TILE_MAX} columns of the base; got tile_n={tile_n}, "
+                         f"N={n}")
     vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
                        device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -225,12 +214,11 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
             err = _kernel("f32")(queries.data_ptr(), base_t.data_ptr(), nv_ptr, vals.data_ptr(),
                                  ids.data_ptr(), b, d, n, k, tile_n, nbins, stream)
         else:
-            qk, bk = (_build.aligned(x, 16) for x in kmajor_operands(queries, base_t))
+            qk, bk = (_build.aligned(x, 16) for x in _build.kmajor_operands(queries, base_t))
             bias = _build.aligned(bias, 16) if l2 else None
             err = _kernel("i8")(qk.data_ptr(), bk.data_ptr(), alpha.data_ptr() if l2 else None,
                                 bias.data_ptr() if l2 else None, nv_ptr, vals.data_ptr(),
-                                ids.data_ptr(), b, qk.shape[1], n, k, tile_n, nbins,
-                                RING_STAGES, stream)
+                                ids.data_ptr(), b, qk.shape[1], n, k, tile_n, nbins, stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
     LAUNCHES += 1

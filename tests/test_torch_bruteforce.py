@@ -21,7 +21,7 @@ from rag_on_edge_tpu.ops import topk as jtopk
 from rag_on_edge_tpu.utils import datasets as jdatasets
 from rag_on_edge_tpu.utils import metrics as jmetrics
 from rag_on_edge_tpu_torch.models import brute_force as tbf
-from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused, quantize, topk
+from rag_on_edge_tpu_torch.ops import _build, bruteforce_accum, bruteforce_fused, quantize, topk
 from rag_on_edge_tpu_torch.utils import datasets
 
 K = 10
@@ -264,7 +264,7 @@ def test_kmajor_operands_give_the_jax_layouts_top_k(d, n):
     ldq = -(-d // 16) * 16
     q = _t(rng.integers(-127, 128, (24, d), dtype=np.int8))
     bt = _t(rng.integers(-127, 128, (d, n), dtype=np.int8))
-    qk, bk = bruteforce_fused.kmajor_operands(q, bt)
+    qk, bk = _build.kmajor_operands(q, bt)
     assert qk.shape == (24, ldq) and bk.shape == (n, ldq) and bk.is_contiguous()
     assert not qk[:, d:].any() and not bk[:, d:].any() and torch.equal(bk[:, :d], bt.T)
     kw = dict(nbins=128, tile_n=512, alpha=_t(rng.uniform(0.5, 2, 24).astype(np.float32)),
@@ -273,7 +273,7 @@ def test_kmajor_operands_give_the_jax_layouts_top_k(d, n):
                          bruteforce_fused.fused_topk_matmul_reference(q, bt, 20, **kw)):
         assert torch.equal(got, want)
     tiles, _ = bruteforce_accum.tile_base(bt, 128, 4)
-    qk, tk = bruteforce_accum.kmajor_operands(q, tiles)
+    qk, tk = _build.kmajor_operands(q, tiles)
     assert tk.shape == (tiles.shape[0], 128, ldq) and not tk[..., d:].any()
     for got, want in zip(
             bruteforce_accum.fused_topk_accum_reference(qk, tk.transpose(1, 2), n, 20, group=4,

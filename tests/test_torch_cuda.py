@@ -653,7 +653,9 @@ def test_float_ivf_card_equals_cpu(dev, dtype, run):
 # 16-byte row pitch; int8 K-major rows past N arrive as zeros); D = 37 pads
 # the int8 rows to 48 bytes.  The wgmma kernels' edges: 64 rows a CTA (B =
 # 70, 193, 200), 128 columns a chunk (tile_n 128, 256, 2048), 64 bf16 or 128
-# int8 d a box (D = 129, 320, 512).
+# int8 d a box (D = 129, 320, 512), and the ring wrapping within a chunk at
+# the depth it takes (D = 320 binned, 512 exact).  tile_n 40064 walks 313
+# chunks in a tile: the binned table's chunk index passes one byte.
 K3_SHAPES = {
     "base": (40, 64, 2048, 20, 512, None, (-127, 128)),
     "ragged": (70, 37, 3001, 32, None, 2900, (-127, 128)),
@@ -663,6 +665,7 @@ K3_SHAPES = {
     "t2048-d512": (70, 512, 5000, 20, 2048, 4500, (-127, 128)),
     "b193-d320": (193, 320, 4100, 20, 256, 4000, (-127, 128)),
     "b193-d37": (193, 37, 3001, 32, 128, None, (-127, 128)),
+    "t40064-wide": (70, 64, 70001, 20, 40064, 69000, (-127, 128)),
 }
 
 
@@ -690,29 +693,6 @@ def test_k3_kernel_equal_to_plain(dev, shape, nbins, mode):
     assert torch.equal(v, rv)
     assert torch.equal(i, ri)
     assert int(i.max()) < (n_valid or n)
-
-
-@pytest.mark.parametrize("stages", [2, 3])
-@pytest.mark.parametrize("mode", ["i8", "i8_l2"])
-def test_k3_kernel_int8_ring_depth_equal_to_plain(dev, mode, stages, monkeypatch):
-    """K3's int8 ring cut to 2 and 3 stages, fewer than a chunk's three
-    boxes at D = 320: every stage wraps within a chunk, and the L2 bias
-    words ride in the stage held through the selection."""
-    b, d, n, k, tile_n, n_valid, (lo, hi) = K3_SHAPES["b193-d320"]
-    rng = np.random.default_rng(35)
-    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
-    bt = torch.from_numpy(rng.integers(lo, hi, (d, n), dtype=np.int8)).to(dev)
-    kw = dict(nbins=128, tile_n=tile_n,
-              n_valid=torch.tensor([n_valid], dtype=torch.int32, device=dev))
-    if mode == "i8_l2":
-        kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
-        kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
-    monkeypatch.setattr(bruteforce_fused, "RING_STAGES", stages)
-    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
-    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(v, rv)
-    assert torch.equal(i, ri)
 
 
 @pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
