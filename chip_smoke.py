@@ -15,11 +15,12 @@ script exits non-zero without a result line:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 and
              K11-K14 (CUDA C++, one nvcc per source, all at once) and K2
-             (Triton) from the sources in this checkout; beside them, K3's
-             and K5's sources once more to cubins with ``-Xptxas -v``: each
-             wgmma kernel's registers, spills and warpgroup MMA opcodes
+             (Triton) from the sources in this checkout; beside them, K3's,
+             K5's and K1's sources once more to cubins with ``-Xptxas -v``:
+             each wgmma kernel's registers, spills and warpgroup MMA opcodes
              (``cuobjdump -sass``; every int8 instantiation must hold the s8
-             MMA, and neither library any ``__dp4a``).
+             MMA, every bf16 one the bf16 MMA, and no kernel but K9's
+             ``__dp4a``).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -33,7 +34,10 @@ script exits non-zero without a result line:
              table; K9, which no search calls, at the batch's routed table
              twice, int8 IP and int8 L2 with its 4-bit bias rows, with its
              launches counted over those two calls), with median times of
-             both and each kernel's bound.
+             both and each kernel's bound; beside K1, the same per-block
+             product alone as ``torch.bmm`` of bf16 operands into fp32
+             (``prod_ms``, a yardstick), and K1 int8 L2 timed again with
+             its in-kernel transpose left out (what the transpose costs).
 4. slice   — search all 10,000 queries through ``IVFIndex.search_device``
              with its defaults (nlist=1024, nprobe=4, k=10, B=8192, int8,
              pad_block=2048; the recovery pass where the auto policy turns
@@ -41,7 +45,8 @@ script exits non-zero without a result line:
              just after; require K1, K4 and K2 launched and no residual
              spill; check recall@10 and recall@1 against exact ground truth
              beside the recall without recovery, and time one B=8192 call
-             and its stages.
+             and its stages, and split one call by kernel with
+             ``torch.profiler`` (the device's busy time and idle share).
 5. grouped — the same queries through ``engine="pallas"`` (kernel K4 over
              the dense block walk): recall and one B=8192 call's time.
 6. routed  — the same queries through ``engine="pallas_routed"`` (kernel
@@ -121,9 +126,11 @@ script exits non-zero without a result line:
              measure, one a line.
 13. float  — the float modes of K1, K4, K5 and K3, held bit-equal to their
              plain versions at ragged sizes (D' odd, N and B off the
-             tiles) on integer data, and K5's and K3's bf16 modes (the
-             tensor cores) on non-integer data within the order bound
-             2·D·2^-24·(|q|@|b|) of the row; then an fp32 ``IVFIndex`` (the default
+             tiles) on integer data, with K1's int8 (± bias rows) and bf16
+             modes also at 65 routed rows and D 33, and K1's, K5's and K3's
+             bf16 modes (the tensor cores) on non-integer data within the
+             order bound 2·D·2^-24·(|q|@|b|) (K1 and K5 plus the low key bits
+             they cede); then an fp32 ``IVFIndex`` (the default
              dtype; nlist=1024, L2, pad_block=2048, the int8 index's
              centroids) and the same index in bf16: K1 on one routed B=8192
              batch and K4 at its recovery list held bit-equal to their
@@ -172,6 +179,7 @@ The last two lines are the kernel table as JSON and the result line
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -243,13 +251,14 @@ def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def wgmma_report(_build, name: str) -> list[str]:
+def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
     """Compile ``csrc/<name>.cu`` once more to a cubin with ``-Xptxas -v``
     and read it back with ``cuobjdump -sass``: each wgmma kernel's registers,
     stack frame, spills and warpgroup MMA opcodes, any ptxas warning that serializes the
-    wgmma groups (C7520), and the count of ``__dp4a`` (IDP) instructions in
-    the whole library.  Raises if an int8 instantiation holds no s8
-    warpgroup MMA or the library holds any IDP."""
+    wgmma groups (C7520), and the count of ``__dp4a`` (IDP) instructions by
+    kernel.  Raises if an int8 instantiation holds no s8 warpgroup MMA, or
+    a kernel not named in ``idp_allowed`` (K9's ``accum_extract_kernel``,
+    beside K1) holds IDP."""
     import re
 
     nvcc = _build._nvcc()
@@ -276,7 +285,7 @@ def wgmma_report(_build, name: str) -> list[str]:
             props.setdefault(entry, {})["regs"] = int(m.group(1))
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, timeout=600, check=True).stdout
-    ops, fn, idp = {}, None, 0
+    ops, fn, idp = {}, None, {}
     for ln in sass.splitlines():
         m = re.match(r"\s*Function : (\w+)", ln)
         if m:
@@ -284,14 +293,15 @@ def wgmma_report(_build, name: str) -> list[str]:
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)
         if m and fn:
-            idp += m.group(1).startswith("IDP")
+            if m.group(1).startswith("IDP"):
+                idp[fn] = idp.get(fn, 0) + 1
             if "GMMA" in m.group(1):
                 ops.setdefault(fn, set()).add(m.group(1))
     lines = []
     for fn in sorted(set(ops) | {f for f in props if "wgmma_kernel" in f}):
         if "wgmma_kernel" not in fn:
             continue
-        short = re.search(r"((?:accum|fused)_wgmma_kernel)I(\w+?)EEv", fn)
+        short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
         p_ = props.get(fn, {})
         lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
@@ -300,11 +310,46 @@ def wgmma_report(_build, name: str) -> list[str]:
         int8 = re.search(r"wgmma_kernelILi[12]E", fn)
         if int8 and not any("S8" in o or o.startswith("IGMMA") for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
-    if idp:
-        raise AssertionError(f"lib{name} still holds {idp} IDP (__dp4a) instructions")
-    lines.append(f"IDP (__dp4a) instructions in lib{name}: {idp}; ptxas serialization "
-                 f"warnings: {warnings or 'none'}")
+        if re.search(r"wgmma_kernelILi0E", fn) and not any("BF16" in o for o in ops.get(fn, ())):
+            raise AssertionError(f"{tag} holds no bf16 warpgroup MMA: {sorted(ops.get(fn, ()))}")
+    by_kernel = {}
+    for f, n in idp.items():
+        short = re.search(r"[a-z][a-z_]*_kernel", f)
+        key = short.group(0) if short else f
+        by_kernel[key] = by_kernel.get(key, 0) + n
+    stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed}
+    if stray:
+        raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {stray}")
+    lines.append(f"IDP (__dp4a) instructions in lib{name}: {sum(idp.values())} "
+                 f"{by_kernel or ''}; ptxas serialization warnings: {warnings or 'none'}")
     return lines
+
+
+def prod_ms(torch, qg, vectors_t) -> float | str:
+    """Device ms of the per-block product ``qg @ vectors_t`` alone as one
+    ``torch.bmm`` of bf16 operands into fp32 (K1's yardstick; SIFT's
+    integers are exact in bf16).  The casts are made outside the timing."""
+    q16, v16 = qg.to(torch.bfloat16), vectors_t.to(torch.bfloat16)
+    try:
+        return cuda_ms(torch, lambda: torch.bmm(q16, v16, out_dtype=torch.float32))
+    except TypeError:
+        return "not measured (torch.bmm takes no out_dtype here)"
+    finally:
+        del q16, v16
+        torch.cuda.empty_cache()
+
+
+def planes_close(ivf_accum, got, want, order) -> tuple[bool, float]:
+    """K1 bf16 planes against the plain version's on non-integer data:
+    KMIN exactly where the plain version has it, every other value (the key
+    back in fp32, its 8 low bits ceded) within ``order`` plus those bits on
+    both sides → (ok, max |err|)."""
+    ok = want != ivf_accum.KMIN
+    gv = ivf_accum._key_to_f32(got[ok]).double()
+    wv = ivf_accum._key_to_f32(want[ok]).double()
+    err = (gv - wv).abs()
+    return (bool(((got == ivf_accum.KMIN) == ~ok).all())
+            and bool((err <= order + wv.abs() * 2.0**-14).all()), float(err.max()))
 
 
 def walked_blocks(np, block_first, block_last, rows_valid) -> int:
@@ -350,9 +395,12 @@ def main() -> None:
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
                "tiled_matmul", "hw_probe"]
-    reported = ["bruteforce_accum", "bruteforce_fused"]  # K5's and K3's wgmma kernels
+    # K5's, K3's and K1's wgmma kernels; K9 (beside K1) keeps its __dp4a.
+    reported = {"bruteforce_accum": (), "bruteforce_fused": (),
+                "ivf_accum_planes": ("accum_extract_kernel",)}
     with ThreadPoolExecutor(len(sources) + len(reported)) as ex:  # one nvcc each, all at once
-        reports = [ex.submit(wgmma_report, _build, name) for name in reported]
+        reports = [ex.submit(wgmma_report, _build, name, allowed)
+                   for name, allowed in reported.items()]
         list(ex.map(_build.load_library, sources))
         for name, rep in zip(reported, reports):
             for line in rep.result():
@@ -436,10 +484,32 @@ def main() -> None:
     k1_bound = bound(walked * (qcap * DIM + DIM * PAD_BLOCK + PAD_BLOCK * 4)
                      + rows.numel() * pp[0].numel() * 4,
                      2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S)
+    k1_prod_ms = prod_ms(torch, qb, a["vectors_t"])
+    # What K1's in-kernel int8 transpose costs: the same launch with the
+    # transpose left out (its planes meaningless), timed beside it.
+    untransposed = _build.load_library("ivf_accum_planes").ivf_accum_planes_i8_untransposed
+    untransposed.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    qk, junk = ivf_accum.kernel_operands(qb), torch.empty_like(pp)
+
+    def k1_untransposed():
+        err = untransposed(qk.data_ptr(), a["vectors_t"].data_ptr(), a["block_first"].data_ptr(),
+                           a["block_last"].data_ptr(), a["rows_valid"].data_ptr(),
+                           bias_rows.data_ptr(), junk.data_ptr(), nblocks, qcap, DIM,
+                           qk.shape[-1], PAD_BLOCK, 2, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ivf_accum_planes_i8_untransposed: CUDA error {err}")
+
+    k1_tr = {name: cuda_ms(torch, fn) for name, fn in (
+        ("with", lambda: ivf_accum.cluster_major_accum_planes(*k1_args, blk=PAD_BLOCK,
+                                                              bias_rows=bias_rows)),
+        ("without", k1_untransposed))}
+    del junk
     phase("kernels", t0, f"K1 qg {tuple(qb.shape)} vectors_t {tuple(a['vectors_t'].shape)} "
           f"bias {tuple(bias_rows.shape)} qcap={qcap} lossy pairs={int(lossy.sum())}: "
           f"bit-equal on {rows.numel()} last blocks; {k1_ms} ms vs plain {k1_plain_ms} ms; "
-          f"bound {k1_bound[0]} ms by {k1_bound[1]} ({walked} blocks walked)")
+          f"bound {k1_bound[0]} ms by {k1_bound[1]} ({walked} blocks walked); prod_ms "
+          f"{k1_prod_ms} (torch.bmm bf16 -> fp32 of the same per-block product, a yardstick); "
+          f"with and without the int8 transpose (ms, the same launch timed again) {k1_tr}")
 
     pool = idx._join_pool(probes, slot, pp)
     kk = 2 * K
@@ -642,6 +712,15 @@ def main() -> None:
     phase("slice", t0, f"one B={BATCH} search_device: {search_ms} ms median = "
           f"{BATCH / search_ms * 1e3:,.0f} QPS on {card} (information, not a claim); "
           f"with recover=False {norec_ms} ms; stages ms {stage_ms}")
+    by_kernel = device_ms_by_kernel(torch, lambda: idx.search_device(qs, K, NPROBE))
+    if isinstance(by_kernel, dict):
+        busy = sum(by_kernel.values())
+        top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        phase("slice", t0, f"one B={BATCH} search_device by kernel (torch.profiler): device "
+              f"busy {busy} ms of the {search_ms} ms call, idle share {1 - busy / search_ms:.3f}; "
+              f"largest {top}")
+    else:
+        phase("slice", t0, f"one B={BATCH} search_device by kernel: {by_kernel}")
 
     # ---- phase 5: the grouped engine (K4 over the dense block walk).
     ids_g, scores_g, residual_g, wall_g = search_all(idx, engine="pallas")
@@ -1569,6 +1648,18 @@ def main() -> None:
              for x in build_block_tables(roffs, rsizes, PAD_BLOCK)[1:4]]
     rrows = torch.nonzero(rtabs[1]).flatten()
     ragged = {}
+    # K1's wgmma modes at 65 routed rows (one into the second warpgroup)
+    # and D 33 (one past a k32 step), int8 also with its bias rows.
+    bias_r = torch.randint(-2**29, 2**29, (len(rtabs[0]), 1, PAD_BLOCK), generator=fgen,
+                           device=dev, dtype=torch.int32)
+    for mode, dt, br in (("int8", torch.int8, None), ("int8-L2", torch.int8, bias_r),
+                         ("bf16", torch.bfloat16, None)):
+        qg_r, vt_r = fint((len(rtabs[0]), 65, 33), dt), fint((len(rtabs[0]), 33, PAD_BLOCK), dt)
+        got = ivf_accum.cluster_major_accum_planes(qg_r, vt_r, *rtabs, blk=PAD_BLOCK,
+                                                   bias_rows=br)
+        want = ivf_accum.cluster_major_accum_planes_reference(qg_r, vt_r, *rtabs, blk=PAD_BLOCK,
+                                                              bias_rows=br)
+        ragged[f"K1 {mode} qcap 65 D 33"] = torch.equal(got[rrows], want[rrows])
     for mode, (dt, _) in floats.items():
         qg_r, vt_r = fint((len(rtabs[0]), 40, 129), dt), fint((len(rtabs[0]), 129, PAD_BLOCK), dt)
         got = ivf_accum.cluster_major_accum_planes(qg_r, vt_r, *rtabs, blk=PAD_BLOCK)
@@ -1635,6 +1726,16 @@ def main() -> None:
         rv, ri = bruteforce_fused.fused_topk_matmul_reference(q_n, b_n, 32, nbins=nbins,
                                                               n_valid=nv_n)
         nonint[f"K3 bf16 nbins={nbins}"] = topk_close(v, i, rv, ri, order)
+    # K1 bf16 on the ragged tables: 40 routed rows, D' 129.
+    qg_n = torch.randn((len(rtabs[0]), 40, 129), generator=ngen, device=dev).to(torch.bfloat16)
+    vt_n = torch.randn((len(rtabs[0]), 129, PAD_BLOCK), generator=ngen,
+                       device=dev).to(torch.bfloat16)
+    order1 = 2.0 * 129 * 2.0**-24 * float(torch.bmm(qg_n.double().abs(),
+                                                     vt_n.double().abs()).max())
+    got = ivf_accum.cluster_major_accum_planes(qg_n, vt_n, *rtabs, blk=PAD_BLOCK)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg_n, vt_n, *rtabs, blk=PAD_BLOCK)
+    nonint["K1 bf16"] = planes_close(ivf_accum, got[rrows], want[rrows], order1)
+    del qg_n, vt_n, got, want
     torch.cuda.synchronize()
     phase("float", t0, f"non-integer data, within the order bound (ok, max |err|): {nonint}")
     if not all(ok for ok, _ in nonint.values()):
@@ -1672,6 +1773,10 @@ def main() -> None:
             bound=bound(walked_f * (qcap_f + PAD_BLOCK) * dp * es + rows_f.numel()
                         * pp_f[0].numel() * 4, 2.0 * walked_f * qcap_f * PAD_BLOCK * dp, rate),
             lib_ms=None)
+        if mode == "bf16":
+            fl["K1 bf16"]["prod_ms"] = prod_ms(torch, qb_f, vt)
+            # The routed rows' pad to TMA's 16-byte pitch (D' 129 -> 136), inside ms.
+            fl["K1 bf16"]["pad_ms"] = cuda_ms(torch, lambda: ivf_accum.kernel_operands(qb_f))
         phase("float", t0, f"K1 {mode} qg {tuple(qb_f.shape)} vectors_t {tuple(vt.shape)}: "
               f"bit-equal on {rows_f.numel()} last blocks ({walked_f} walked); "
               f"{fl[f'K1 {mode}']}")
@@ -2295,7 +2400,7 @@ def main() -> None:
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf_dma.py:371",
          "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": None},
+         "library_ms": None, "prod_ms": k1_prod_ms},
         {"name": "fused_topk", "route": "triton",
          "source": "rag_on_edge_tpu_torch/csrc/fused_topk_triton.py",
          "replaces": "rag_on_edge_tpu/ops/pallas_topk.py:39",
@@ -2412,7 +2517,8 @@ def main() -> None:
                 "source": f"rag_on_edge_tpu_torch/csrc/{src}",
                 "replaces": f"rag_on_edge_tpu/{tpu}", "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"]})
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"],
+                **({"prod_ms": r["prod_ms"]} if "prod_ms" in r else {})})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

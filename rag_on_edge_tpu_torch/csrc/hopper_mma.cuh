@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the kernels that run wgmma fed by TMA:
 // K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
-// (bruteforce_accum.cu) and K3's bf16 and int8 modes (bruteforce_fused.cu).
+// (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu) and
+// K1's int8 and bf16 modes (ivf_accum_planes.cu).
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
-//   transaction byte count;
+//   transaction byte count; the proxy fence that makes threads' own
+//   shared-memory writes visible to wgmma;
 // - TMA: one 2-D or 3-D box from a tensor map into shared memory,
 //   completing its bytes on an mbarrier (out-of-bounds elements arrive as
 //   zeros and count toward the bytes);
@@ -16,7 +18,8 @@
 //   transpose bit); a copy of a fragment;
 // - host: cuTensorMapEncodeTiled through the runtime's entry-point lookup
 //   (the libraries link libcudart only), the bf16 and 8-bit tensor maps
-//   (128-byte swizzle) and an unswizzled map of 32-bit words.
+//   (128-byte swizzle; an 8-bit 3-D map swizzled or not) and an unswizzled
+//   map of 32-bit words.
 //
 // The accumulator fragment of m64nNk16 (f32) and of m64nNk32 (s32): thread
 // t of the warpgroup holds d[i] at row 16 (t / 32) + (t % 32) / 4 + 8 ((i /
@@ -73,6 +76,12 @@ template <int R>
 __device__ __forceinline__ void copy_acc(const int32_t (&d)[R], int32_t (&e)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("mov.b32 %0, %1;" : "=r"(e[i]) : "r"(d[i]));
+}
+
+// Order this thread's generic shared-memory writes before later reads by
+// the async proxy (wgmma operands it staged itself); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -347,9 +356,25 @@ int int8_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long r
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A contiguous 8-bit [planes, rows, cols] array (cols a multiple of 16) as
+// a 3-D tensor map of [1, box_rows, box_cols] boxes, 128-byte-swizzled
+// (box_cols 128: a K-major wgmma operand) or not: a box never crosses a
+// plane, so rows past `rows` and columns past `cols` arrive as zeros.
+int int8_map_3d(EncodeTiled encode, CUtensorMap* map, const void* base, int planes, int rows,
+                int cols, int box_cols, int box_rows, bool swizzle) {
+  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t stride[2] = {(cuuint64_t)cols, (cuuint64_t)rows * cols};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1}, step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dim,
+                            stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // A row-major array of 32-bit words [rows, cols] (cols a multiple of 4
 // where rows > 1) as an unswizzled tensor map of [1, box_cols] boxes: the
-// bias words streamed beside K3's and K5's int8 tiles.  Words past cols
+// bias words streamed beside K3's, K5's and K1's int8 tiles.  Words past cols
 // arrive as zeros.
 int word_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
              int box_cols) {

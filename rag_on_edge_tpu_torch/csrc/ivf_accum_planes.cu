@@ -1,9 +1,8 @@
 // Kernels K1 and K9 of the IVF search path: the cluster-major fine scan with
-// packed accumulation.  K1 (entries ivf_accum_planes_i8 and, for fp32 and
-// bf16 slabs, ivf_accum_planes_f) emits per-lane-bin top-2 "planes" of
-// packed int32 keys; K9 (entries ivf_accum_extract_i8 and
-// ivf_accum_extract_f, at the end of this file) emits an exact top-k per
-// routed row.
+// packed accumulation.  K1 (entries ivf_accum_planes_i8, ivf_accum_planes_bf16
+// and ivf_accum_planes_f32) emits per-lane-bin top-2 "planes" of packed int32
+// keys; K9 (entries ivf_accum_extract_i8 and ivf_accum_extract_f, at the end
+// of this file) emits an exact top-k per routed row.
 //
 // K1 replaces the TPU kernel rag_on_edge_tpu/ops/pallas_ivf_dma.py,
 // cluster_major_accum_planes (its _kernel with planes=True, and _plane_max).
@@ -21,43 +20,79 @@
 // Float L2 has no bias rows: it rides an augmented dimension (b' = [b,
 // -|b|^2/2], q' = [q, 1]) that the index already holds in the slabs.
 //
-// What bounds it on the H100: multiply-adds.  At the SIFT-1M slice (about
-// 1.1K blocks of 2048 rows, 256 routed rows, D = 128) the int8 scan is
-// 7.4e10 MACs against 0.3 GB of slabs, about 250 MACs per byte read: with
-// dp4a (4 MACs per instruction, no tensor cores) the instruction rate is
-// the limit, not the 3.35 TB/s of device memory.  The fp32 mode (D' = 129)
-// is 7.9e10 FFMAs against 1.24 GB: the 67 TFLOP/s of fp32 FMAs bound it
-// (2.4 ms), over six times the bytes' 0.37 ms.
+// What bounds it on the H100: at the SIFT-1M slice (1176 blocks of 2048
+// rows, 256 routed rows, D = 128) the int8 product is 1.6e11 operations
+// against 0.3 GB of slabs and 0.27 GB of planes written: on the tensor
+// cores (1,979 T int8 ops/s) the bytes bound it, 0.19 ms at 3.35 TB/s.  The
+// bf16 mode (D' = 129) is twice the bytes and, at 989 TFLOP/s, the same
+// share of tensor time.  The fp32 mode has no tensor-core path without TF32,
+// which would change the keys: its 7.9e10 FFMAs bound it (2.4 ms at 67
+// TFLOP/s), over six times the bytes' 0.37 ms.
 //
-// Design (simple first; wgmma and TMA are later work):
-// - one CTA of 256 threads per (last block, 32-row tile of the routed
-//   rows): two row groups of 16 rows x 128 lanes that share each staged
-//   chunk.  CTAs on other blocks exit at once.  Thread = (group, bin lane).
-// - the chunk loop (128 columns at a time) is outside, the cluster's
-//   block loop inside it, so the running max over blocks and the two
-//   planes stay in registers (3 x 16 ints a thread); the TPU kernel's
-//   [qcap, blk] accumulator is never needed.
-// - int8: each block's [D, 128] chunk is staged in shared memory
-//   transposed, one packed column per lane at an odd word stride (no bank
-//   conflicts on the reads), from coalesced 32-bit loads transposed with
-//   __byte_perm; the query rows sit beside it and are read as 16-byte
-//   broadcasts.  Dot products are __dp4a on packed int8 words, exact in
-//   int32.
-// - fp32 / bf16: the chunk is staged as fp32, d-row major (lane l reads
-//   word e*128 + l), bf16 widened on load, and the query rows as fp32
-//   rows of D' rounded up to 4; dot products are one fmaf a dimension in
-//   d order.  At D' = 129 a chunk and 32 query rows take 84.5 KB of
-//   dynamic shared memory.  The staging and the dot loops are shared with
-//   K4 and K5 (ivf_stage.cuh).
+// Design of the int8 and bf16 modes (planes_wgmma_kernel, hopper_mma.cuh):
+// - one CTA of two warpgroups per (last block t, 128 routed rows, one half
+//   of the 128 bins); CTAs on other blocks exit at once.  Warpgroup wg owns
+//   64 routed rows x the CTA's 64 bins across every chunk, so its running
+//   planes have the accumulator fragment's shape (32 registers each); the
+//   TPU kernel's [qcap, blk] accumulator is never needed.
+// - the work is a list of (chunk, block) half-chunks: chunk-major, the
+//   cluster's blocks inside, and only those holding a valid column (a
+//   half-chunk past rows_valid would only add KMIN keys, so skipping it is
+//   exact; the padded tails of SIFT-1M's blocks are over half of the slab).
+//   Each half-chunk is kb units of 128 bytes of d: 4 k-steps of wgmma
+//   m64n64k32 s8 -> s32 (int8) or m64n64k16 bf16 -> f32 (bf16) per unit.
+// - operands: the routed rows (A, K-major, the wrapper pads D to TMA's
+//   16-byte pitch: no copy at D = 128) stay in shared memory for a one-block
+//   cluster, and ride in the unit's stage for a longer one; the slab's unit
+//   (B) rides a TMA ring of `stages` stages, one mbarrier each.  Thread 0
+//   refills the stage the last unit released; d past D arrives as TMA's
+//   zeros, and the k-steps past D add zeros.
+// - bf16 B is read N-major through wgmma's transpose bit, straight from its
+//   TMA box.  8-bit operands have no transpose bit, and the slab is N-major
+//   ([D, blk], the JAX layout): the kernel transposes each int8 unit on its
+//   way into shared memory instead of copying the slab per call.  TMA lands
+//   the unit as four [128 d, 16 bin] boxes; every thread turns two 4 x 4
+//   byte tiles into K-major words with __byte_perm (lane-dependent selectors
+//   fold in a row rotation that spreads the reads over the banks) and
+//   stores them in the 128-byte-swizzled layout the descriptor reads (the
+//   stores free of bank conflicts, the reads two-way).  The transpose of
+//   unit u+1 runs while unit u's wgmma groups are in flight, on two B
+//   buffers; one barrier a unit orders it all.  Measured on the H100 at the
+//   SIFT-1M slice (chip_smoke.py, the same launch without it): 0.054 ms of
+//   the int8 L2 call's 0.52, where a per-call K-major copy of the slab
+//   would take about 1 ms.
+// - the epilogue on the fragment: after the unit's groups retire, a copy of
+//   the accumulators (copy_acc: reading the fragment itself has ptxas
+//   serialize the groups) is turned into keys, masked only in the
+//   half-chunk that holds rows_valid, max-folded into a running key only
+//   in a cluster of several blocks, and the chunk's key updates the two
+//   planes branch-free: keys of two chunks never tie (the pack names the
+//   chunk) except in L2 with arbitrary bias rows, which keeps the test for
+//   a key equal to plane 1.  int8 L2: the unit's 64 bias words ride in its
+//   last stage.  bf16: an exact-zero sum is taken as +0 before its key.
 // - int8 keys are built on the unsigned bit pattern: (u32)dots << 8 is
 //   defined for negative dots and gives the same bits as JAX's shift_left
 //   and torch's int32 arithmetic.  The wrapper bounds D so that it never
-//   wraps.  Float keys are built from the fp32 bit pattern (monotone_key).
+//   wraps.
+// - what bounds it as built: 0.52-0.57 ms int8 L2 and 0.77-0.78 bf16 at
+//   the SIFT-1M slice on the H100 (PERF.md section 6), 2.8x and 2.7x the
+//   byte bound.  213-218 registers (int8; bf16 178) leave one CTA of two
+//   warpgroups an SM, so each CTA's first TMA round trip is exposed, and
+//   the fold costs some six integer operations a score.
+//
+// Design of the fp32 mode (accum_planes_kernel, the float stage of
+// ivf_stage.cuh, shared with K4-K7, K9 and K10): one CTA of 256 threads per
+// (last block, 32-row tile): two row groups of 16 rows x 128 lanes sharing
+// each staged chunk, the chunk loop outside the block loop, the running max
+// and the two planes in registers (3 x 16 a thread); the chunk staged as
+// fp32 rows of 128 and the query rows as fp32 rows of D' rounded up to 4,
+// one fmaf a dimension in d order (84.5 KB of shared memory at D' = 129).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "ivf_stage.cuh"
 
 namespace {
@@ -69,33 +104,26 @@ constexpr int THREADS = LANES * GROUPS;
 constexpr int CODE_MAX = 16;                 // block codes (4 bits)
 constexpr int32_t KMIN = -2147483647;        // -(2**31) + 1: invalid entry
 
-// T: int8_t (the int8 modes) or float / __nv_bfloat16 (the float modes,
-// with no bias rows).
-template <typename T>
+// The fp32 mode: qg [nblocks, qcap, d] and vec [nblocks, d, blk] fp32.
 __global__ void __launch_bounds__(THREADS)
-accum_planes_kernel(const T* __restrict__ qg,              // [nblocks, qcap, d]
-                    const T* __restrict__ vec,             // [nblocks, d, blk]
-                    const int32_t* __restrict__ block_first,  // [nblocks]
-                    const int32_t* __restrict__ block_last,   // [nblocks]
-                    const int32_t* __restrict__ rows_valid,   // [nblocks]
-                    const int32_t* __restrict__ bias,      // [nblocks, blk] or null (int8)
-                    int32_t* __restrict__ out,             // [nblocks, qcap, nplanes*128]
+accum_planes_kernel(const float* __restrict__ qg,                // [nblocks, qcap, d]
+                    const float* __restrict__ vec,               // [nblocks, d, blk]
+                    const int32_t* __restrict__ block_first,     // [nblocks]
+                    const int32_t* __restrict__ block_last,      // [nblocks]
+                    const int32_t* __restrict__ rows_valid,      // [nblocks]
+                    int32_t* __restrict__ out,                   // [nblocks, qcap, nplanes*128]
                     int qcap, int d, int blk, int nplanes, int qstride) {
-  constexpr bool INT8 = std::is_same_v<T, int8_t>;
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
   const int lane = threadIdx.x % LANES;
   const int group = threadIdx.x / LANES;
   const int r0 = (blockIdx.y * GROUPS + group) * ROWS;  // this group's first row
-  const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
 
-  // Query rows [GROUPS*ROWS][qstride] words (int8: 4 dims a word; float:
-  // one fp32 a word), then the chunk (int8: [LANES][cstride] words; float:
-  // [qstride][LANES] fp32).
+  // Query rows [GROUPS*ROWS][qstride] fp32, then the chunk [qstride][LANES].
   extern __shared__ int4 smem4[];
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
-  int32_t* col_s = q_s + GROUPS * ROWS * qstride;
-  const int32_t* my_q = q_s + group * ROWS * qstride;
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* col_s = q_s + GROUPS * ROWS * qstride;
+  const float* my_q = q_s + group * ROWS * qstride;
 
   int tb = t;  // the cluster's first block
   while (tb > 0 && block_first[tb] == 0) --tb;
@@ -114,47 +142,23 @@ accum_planes_kernel(const T* __restrict__ qg,              // [nblocks, qcap, d]
     for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
 
     for (int b = tb; b <= t; ++b) {
-      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
-      const T* qsrc = qg + (size_t)b * qcap * d;
       // The routed rows change only with the block: load them once for a
       // one-block cluster, per block otherwise.
-      const bool load_q = c == 0 || nb > 1;
-      if constexpr (INT8) {
-        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
-        if (load_q)
-          stage_queries<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
-                                 reinterpret_cast<int8_t*>(q_s));
-      } else {
-        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
-        if (load_q)
-          stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
-                                   reinterpret_cast<float*>(q_s));
-      }
+      stage_chunk_f<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s);
+      if (c == 0 || nb > 1)
+        stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
+                                 qstride, q_s);
       __syncthreads();
 
       const bool valid = col < rows_valid[b];
       const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
-      if constexpr (INT8) {
-        int32_t acc[ROWS];
-        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
-        const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
+      float acc[ROWS];
+      dot_rows_f<ROWS>(col_s, lane, my_q, qstride, acc);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const uint32_t shifted = (uint32_t)acc[r] << 8;
-          const int32_t key = valid ? (int32_t)(bias != nullptr ? shifted - sub : shifted | pack)
-                                    : KMIN;
-          m[r] = max(m[r], key);
-        }
-      } else {
-        float acc[ROWS];
-        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                         reinterpret_cast<const float*>(my_q), qstride, acc);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(acc[r]) & ~255u) | pack)
-                                    : KMIN;
-          m[r] = max(m[r], key);
-        }
+      for (int r = 0; r < ROWS; ++r) {
+        const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(acc[r]) & ~255u) | pack)
+                                  : KMIN;
+        m[r] = max(m[r], key);
       }
       __syncthreads();  // col_s / q_s are rewritten next
     }
@@ -182,52 +186,401 @@ accum_planes_kernel(const T* __restrict__ qg,              // [nblocks, qcap, d]
   }
 }
 
-template <typename T>
-int launch_planes(const void* qg, const void* vec, const void* block_first,
-                  const void* block_last, const void* rows_valid, const void* bias, void* out,
-                  int nblocks, int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
+int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
+                      const void* block_last, const void* rows_valid, void* out, int nblocks,
+                      int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
   if (nblocks == 0 || qcap == 0) return 0;
-  const int qstride = stage_row_words<T>(d);
+  const int qstride = stage_row_words<float>(d);
   const size_t smem =
-      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<T>(qstride)) * sizeof(int32_t);
+      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<float>(qstride)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(accum_planes_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(accum_planes_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
-  accum_planes_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(vec),
+  accum_planes_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(qg), static_cast<const float*>(vec),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
-      static_cast<int32_t*>(out), qcap, d, blk, nplanes, qstride);
+      static_cast<const int32_t*>(rows_valid), static_cast<int32_t*>(out), qcap, d, blk,
+      nplanes, qstride);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------ int8 and bf16: wgmma fed by TMA
+
+enum PMode { P_BF16 = 0, P_I8 = 1, P_I8_L2 = 2 };
+
+constexpr int P_WGS = 2;                     // warpgroups: 64 routed rows each
+constexpr int P_THREADS = 128 * P_WGS;
+constexpr int P_ROWS = 64 * P_WGS;           // routed rows a CTA
+constexpr int P_BINS = 64;                   // bins a CTA: one half of the 128
+constexpr int P_BOX = P_BINS * 128;          // a unit of B: 64 bins x 128 bytes of d, 8 KB
+constexpr int P_A_BOX = P_ROWS * 128;        // a unit of A: the CTA's rows x 128 bytes, 16 KB
+constexpr int P_BIAS = P_BINS * 4;           // int8 L2: a half-chunk's 64 bias words
+constexpr int P_STAGES_MAX = 8;
+constexpr int P_SMEM_MAX = 232448 - 1024;    // the opt-in limit less the static part
+
+// The next (chunk c, block b) half-chunk after (c, b) that holds a valid
+// column, chunk-major over the cluster's blocks tb..t; false past the last.
+// Every thread walks the same list from the same global values.
+__device__ __forceinline__ bool next_half(int& c, int& b, int tb, int t, int nchunks, int col0,
+                                          const int32_t* __restrict__ rows_valid) {
+  for (;;) {
+    if (++b > t) {
+      b = tb;
+      if (++c >= nchunks) return false;
+    }
+    if (c * 128 + col0 < rows_valid[b]) return true;
+  }
+}
+
+// Transpose one int8 unit of B: `raw` holds four TMA boxes [128 d][16 bins]
+// (box g: bins 16g..16g+15), `bk` receives [64 bins][128 d] K-major in the
+// 128-byte swizzle (16-byte chunk j of bin row n at j ^ (n % 8)).  Thread
+// (warp, lane) takes bin quad m = 2 warp + lane % 2 and d quads q = lane / 2
+// and q + 16: four words, a 4 x 4 byte tile, per quad.  It loads row 4q + (k
+// ^ r) as word k, r = (q / 2) % 4, so a warp's loads spread over the banks
+// (two-way); the selectors undo the rotation.
+__device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw, uint8_t* bk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = (warp << 1) | (lane & 1);
+  const int g = m >> 2, w = m & 3;
+  const int r = (lane >> 2) & 3;
+  // Stage 1 pairs words {0, 1} and {2, 3}; r's low bit swaps each pair's
+  // operands, its high bit swaps the pairs (each a selector's nibble ^ 4).
+  const uint32_t s1lo = (r & 1) ? 0x1504u : 0x5140u, s1hi = (r & 1) ? 0x3726u : 0x7362u;
+  const uint32_t s2a = (r & 2) ? 0x1054u : 0x5410u, s2b = (r & 2) ? 0x3276u : 0x7632u;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int q = (lane >> 1) + 16 * a;
+    uint32_t x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = raw[g * 512 + (4 * q + (k ^ r)) * 4 + w];
+    const uint32_t lo0 = __byte_perm(x[0], x[1], s1lo), hi0 = __byte_perm(x[0], x[1], s1hi);
+    const uint32_t lo1 = __byte_perm(x[2], x[3], s1lo), hi1 = __byte_perm(x[2], x[3], s1hi);
+    const uint32_t out[4] = {__byte_perm(lo0, lo1, s2a), __byte_perm(lo0, lo1, s2b),
+                             __byte_perm(hi0, hi1, s2a), __byte_perm(hi0, hi1, s2b)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * m + i;  // bin row; word out[i] holds its d 4q .. 4q+3
+      *reinterpret_cast<uint32_t*>(bk + n * 128 + ((((q >> 2) ^ (n & 7)) << 4) | ((q & 3) << 2))) =
+          out[i];
+    }
+  }
+}
+
+// A routed row's plane update with the chunk's key x: plane 1 the largest,
+// plane 2 the largest different from plane 1.  Without `ties`, x never
+// equals plane 1 unless both are KMIN, where either form keeps plane 2.
+template <bool TIES>
+__device__ __forceinline__ void plane_update(int32_t x, int32_t& p1, int32_t& p2) {
+  const int32_t lo = min(x, p1);
+  p2 = (TIES && x == p1) ? p2 : max(p2, lo);
+  p1 = max(p1, x);
+}
+
+// qg [nblocks, qcap, ldq] through `tq` (int8: ldq = D rounded up to 16;
+// bf16: to 8, the pad zero), the slab [nblocks, d, blk] through `tv` (int8:
+// [1, 128, 16] boxes; bf16: [1, 64, 64], 128-byte swizzle), and (L2) the
+// bias rows [nblocks, blk] through `tb`.  CTA i: last block t = i / nsub
+// and, with x = i % nsub, routed rows 128 (x / 2) .. + 127 and bins 64 (x %
+// 2) .. + 63 (a block's CTAs run side by side and share its slab in L2).  kb
+// units of 128 bytes of d a half-chunk.  TRANSPOSE false leaves the int8
+// transpose out (the products are then meaningless): a measurement of what
+// the transpose costs, nothing else.
+template <int MODE, bool TRANSPOSE = true>
+__global__ void __launch_bounds__(P_THREADS, 1)
+planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tb,
+                    const int32_t* __restrict__ block_first,
+                    const int32_t* __restrict__ block_last,
+                    const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out, int qcap,
+                    int blk, int kb, int nplanes, int stages, int nsub) {
+  using Acc = std::conditional_t<MODE == P_BF16, float, int32_t>;
+  constexpr bool INT8 = MODE != P_BF16;
+  constexpr bool BIAS = MODE == P_I8_L2;
+  constexpr int KD = INT8 ? 128 : 64;  // d a unit
+  const int t = (int)(blockIdx.x / nsub), x = (int)(blockIdx.x % nsub);
+  if (block_last[t] == 0) return;
+  const int rt = x >> 1, col0 = (x & 1) * P_BINS;
+  extern __shared__ uint8_t p_smem[];
+  __shared__ __align__(8) uint64_t full[P_STAGES_MAX], abar;
+  const uint32_t base = (smem_u32(p_smem) + 1023u) & ~1023u;
+  uint8_t* const gbase = p_smem + (base - smem_u32(p_smem));
+  // Resident A (kb units), the stages' B and A, two transposed B buffers
+  // (int8), the stages' bias words (L2).
+  const uint32_t res_a = base, st_b = res_a + kb * P_A_BOX, st_a = st_b + stages * P_BOX;
+  const uint32_t bk = st_a + stages * P_A_BOX, st_bias = bk + (INT8 ? 2 * P_BOX : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+
+  int tb_ = t;  // the cluster's first block
+  while (tb_ > 0 && block_first[tb_] == 0) --tb_;
+  const int tb0 = tb_;
+  const bool multi = t > tb0;  // A changes with the block: it rides the stages
+  const int nchunks = blk / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init(&abar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The consumers' unit (cc, cb, cj) and the producer's (thread 0, `stages`
+  // units ahead).
+  int cc = 0, cb = tb0 - 1, cj = 0;
+  bool have = next_half(cc, cb, tb0, t, nchunks, col0, rows_valid);
+  int pc = cc, pb = cb, pj = 0;
+  bool phave = have;
+  auto load = [&](int s) {
+    const bool with_bias = BIAS && pj == kb - 1;
+    mbar_expect_tx(&full[s], P_BOX + (multi ? P_A_BOX : 0) + (with_bias ? P_BIAS : 0));
+    const int c0 = pc * 128 + col0;
+    if constexpr (INT8) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        tma_load_3d(st_b + s * P_BOX + g * 2048, &tv, c0 + 16 * g, 128 * pj, pb, &full[s]);
+    } else {
+      tma_load_3d(st_b + s * P_BOX, &tv, c0, 64 * pj, pb, &full[s]);
+    }
+    if (multi) tma_load_3d(st_a + s * P_A_BOX, &tq, KD * pj, rt * P_ROWS, pb, &full[s]);
+    if (with_bias) tma_load_2d(st_bias + s * P_BIAS, &tb, c0, pb, &full[s]);
+    if (++pj == kb) {
+      pj = 0;
+      phave = next_half(pc, pb, tb0, t, nchunks, col0, rows_valid);
+    }
+  };
+  if (threadIdx.x == 0 && have) {
+    if (!multi) {
+      mbar_expect_tx(&abar, kb * P_A_BOX);
+      for (int j = 0; j < kb; ++j)
+        tma_load_3d(res_a + j * P_A_BOX, &tq, KD * j, rt * P_ROWS, t, &abar);
+    }
+    for (int s = 0; s < stages && phave; ++s) load(s);
+  }
+
+  // Fragment entry i of this thread: routed row rl + 8 ((i / 2) % 2), bin
+  // cl + 8 (i / 4) + i % 2 of the CTA's 64.
+  const int rl = 16 * (warp & 3) + (lane >> 2), cl = 2 * (lane & 3);
+  Acc d[32], e[32];
+  int32_t run[32], p1[32], p2[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    d[i] = 0;
+    p1[i] = p2[i] = KMIN;
+  }
+  int rs = 0, kbuf = 0;  // the unit's stage and (int8) transposed buffer
+  unsigned rph = 0;      // the parity of the unit's stage round
+  int last_c = -1;       // the chunk of the previous half-chunk
+
+  // Make unit (stage s, parity ph) ready for wgmma: its bytes have landed;
+  // int8 transposes it into buffer kbuf.
+  auto prep = [&](int s, unsigned ph, int buf) {
+    mbar_wait_loop(&full[s], ph);
+    if constexpr (INT8 && TRANSPOSE)
+      transpose_unit(reinterpret_cast<const uint32_t*>(gbase + (st_b - base) + s * P_BOX),
+                     gbase + (bk - base) + buf * P_BOX);
+  };
+  // The half-chunk's keys from the copy e, folded into the planes.
+  // `lim` is rows_valid[b] less the half-chunk's first column: bins at or
+  // past it are KMIN (tested only where lim < 64).
+  auto epilogue = [&](int c, int b, bool first, bool last) {
+    const int lim = rows_valid[b] - (c * 128 + col0);
+    const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
+    const uint32_t* bw = reinterpret_cast<const uint32_t*>(gbase + (st_bias - base) + rs * P_BIAS);
+    int32_t key[32];
+    auto keys = [&](auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = cl + 8 * (i / 4) + (i % 2);
+        uint32_t k;
+        if constexpr (MODE == P_BF16)
+          k = ((uint32_t)monotone_key(__fadd_rn(e[i], 0.0f)) & ~255u) | pack;
+        else if constexpr (BIAS)
+          k = ((uint32_t)e[i] << 8) - bw[col];
+        else
+          k = ((uint32_t)e[i] << 8) | pack;
+        key[i] = (decltype(masked)::value && col >= lim) ? KMIN : (int32_t)k;
+      }
+    };
+    if (lim >= P_BINS)
+      keys(std::false_type{});
+    else
+      keys(std::true_type{});
+    if (first && last) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) plane_update<BIAS>(key[i], p1[i], p2[i]);
+    } else if (first) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) run[i] = key[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) run[i] = max(run[i], key[i]);
+      if (last) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) plane_update<BIAS>(run[i], p1[i], p2[i]);
+      }
+    }
+  };
+
+  if (have) {
+    prep(0, 0, 0);
+    if constexpr (INT8) fence_proxy_async();
+    __syncthreads();
+    if (!multi) mbar_wait_loop(&abar, 0);
+  }
+  while (have) {
+    // The unit's product: 4 k-steps, the half-chunk's first unit from zero.
+    {
+      const uint32_t sa = (multi ? st_a + rs * P_A_BOX : res_a + cj * P_A_BOX) + wg * (P_A_BOX / 2);
+      const uint32_t sb = INT8 ? bk + kbuf * P_BOX : st_b + rs * P_BOX;
+      fence_acc(d);
+      wgmma_fence();
+      // A: 128-byte rows, 8-row groups 1 KB apart, a k-step 32 bytes along
+      // the row.  B int8: K-major like A; bf16: 128-byte d rows, a k16 step
+      // 16 rows (2 KB).
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (INT8)
+          wgmma_m64n64k32_s8(d, gmma_desc(sa + kk * 32, 16, 1024),
+                             gmma_desc(sb + kk * 32, 16, 1024), cj + kk);
+        else
+          wgmma_m64n64k16(d, gmma_desc(sa + kk * 32, 16, 1024),
+                          gmma_desc(sb + kk * 2048, P_BOX, 1024), cj + kk);
+      }
+      wgmma_commit();
+      fence_acc(d);
+    }
+    // The next unit, and its preparation while the groups run.
+    int nc = cc, nb = cb, nj = cj + 1;
+    bool nhave = true;
+    if (nj == kb) {
+      nj = 0;
+      nhave = next_half(nc, nb, tb0, t, nchunks, col0, rows_valid);
+    }
+    const int ns = rs + 1 == stages ? 0 : rs + 1;
+    const unsigned nph = rs + 1 == stages ? rph ^ 1u : rph;
+    if (nhave) prep(ns, nph, kbuf ^ 1);
+    wgmma_wait<0>();
+    fence_acc(d);
+    if (cj == kb - 1) {
+      copy_acc(d, e);
+      epilogue(cc, cb, cc != last_c, !nhave || nc != cc);
+      last_c = cc;
+    }
+    if constexpr (INT8) fence_proxy_async();
+    __syncthreads();  // stage rs and buffer kbuf are free; the next unit is staged
+    if (threadIdx.x == 0 && phave) load(rs);
+    cc = nc;
+    cb = nb;
+    cj = nj;
+    rs = ns;
+    rph = nph;
+    kbuf ^= 1;
+    have = nhave;
+  }
+
+  const int row0 = rt * P_ROWS + wg * 64 + rl;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = row0 + 8 * ((i / 2) % 2);
+    if (row >= qcap) continue;
+    int32_t* o = out + ((size_t)t * qcap + row) * (size_t)(nplanes * 128) + col0 + cl + 8 * (i / 4);
+    *reinterpret_cast<int2*>(o) = make_int2(p1[i], p1[i + 1]);
+    if (nplanes == 2) *reinterpret_cast<int2*>(o + 128) = make_int2(p2[i], p2[i + 1]);
+  }
+}
+
+// qg [nblocks, qcap, ldq], vec [nblocks, d, blk] (int8 or bf16), bias
+// [nblocks, blk] (int8 L2) or null.
+template <int MODE, bool TRANSPOSE = true>
+int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first,
+                        const void* block_last, const void* rows_valid, const void* bias,
+                        void* out, int nblocks, int qcap, int d, int ldq, int blk, int nplanes,
+                        cudaStream_t s) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  static const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  constexpr int KD = MODE == P_BF16 ? 64 : 128;
+  const int kb = (d + KD - 1) / KD;
+  CUtensorMap tq, tv, tb{};
+  if constexpr (MODE == P_BF16) {
+    if (const int e = bf16_map_3d(encode, &tq, qg, nblocks, qcap, ldq, P_ROWS)) return e;
+    if (const int e = bf16_map_3d(encode, &tv, vec, nblocks, d, blk, 64)) return e;
+  } else {
+    if (const int e = int8_map_3d(encode, &tq, qg, nblocks, qcap, ldq, 128, P_ROWS, true))
+      return e;
+    if (const int e = int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false)) return e;
+    if (MODE == P_I8_L2)
+      if (const int e = word_map(encode, &tb, bias, nblocks, blk, P_BINS)) return e;
+  }
+  const int fixed = 1024 + kb * P_A_BOX + (MODE == P_BF16 ? 0 : 2 * P_BOX);
+  const int per_stage = P_BOX + P_A_BOX + (MODE == P_I8_L2 ? P_BIAS : 0);
+  const int stages = min(P_STAGES_MAX, (P_SMEM_MAX - fixed) / per_stage);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const int smem = fixed + stages * per_stage;
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          planes_wgmma_kernel<MODE, TRANSPOSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem))
+    return (int)e;
+  const int nsub = 2 * ((qcap + P_ROWS - 1) / P_ROWS);
+  planes_wgmma_kernel<MODE, TRANSPOSE><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
+      tq, tv, tb, static_cast<const int32_t*>(block_first),
+      static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
+      static_cast<int32_t*>(out), qcap, blk, kb, nplanes, stages, nsub);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
-// returns cudaGetLastError() (0 = launched).
-// int8: `bias` may be null (no-bias mode).
+// returns cudaGetLastError() (0 = launched).  The wrapper guarantees blk a
+// multiple of 128 up to 2048, nplanes in {1, 2} and 16-byte aligned inputs.
+// int8: qg [nblocks, qcap, ldq] with ldq = d rounded up to 16 (the pad
+// zero), vec [nblocks, d, blk]; `bias` [nblocks, blk] or null (no-bias mode).
 extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
                                    const void* bias, void* out, int nblocks, int qcap, int d,
-                                   int blk, int nplanes, void* stream) {
-  return launch_planes<int8_t>(qg, vec, block_first, block_last, rows_valid, bias, out,
-                               nblocks, qcap, d, blk, nplanes, static_cast<cudaStream_t>(stream));
+                                   int ldq, int blk, int nplanes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bias != nullptr
+             ? launch_planes_wgmma<P_I8_L2>(qg, vec, block_first, block_last, rows_valid, bias,
+                                            out, nblocks, qcap, d, ldq, blk, nplanes, s)
+             : launch_planes_wgmma<P_I8>(qg, vec, block_first, block_last, rows_valid, nullptr,
+                                         out, nblocks, qcap, d, ldq, blk, nplanes, s);
 }
 
-// fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec, no bias rows; vec 16-byte
-// aligned.
-extern "C" int ivf_accum_planes_f(const void* qg, const void* vec, const void* block_first,
-                                  const void* block_last, const void* rows_valid, void* out,
-                                  int nblocks, int qcap, int d, int blk, int nplanes, int bf16,
-                                  void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_planes<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid,
-                                             nullptr, out, nblocks, qcap, d, blk, nplanes, s)
-              : launch_planes<float>(qg, vec, block_first, block_last, rows_valid, nullptr,
-                                     out, nblocks, qcap, d, blk, nplanes, s);
+// The int8 L2 mode with the B transpose left out, its planes meaningless:
+// chip_smoke.py times it beside ivf_accum_planes_i8 for the transpose's cost.
+extern "C" int ivf_accum_planes_i8_untransposed(const void* qg, const void* vec,
+                                                const void* block_first, const void* block_last,
+                                                const void* rows_valid, const void* bias,
+                                                void* out, int nblocks, int qcap, int d, int ldq,
+                                                int blk, int nplanes, void* stream) {
+  return launch_planes_wgmma<P_I8_L2, false>(qg, vec, block_first, block_last, rows_valid, bias,
+                                             out, nblocks, qcap, d, ldq, blk, nplanes,
+                                             static_cast<cudaStream_t>(stream));
+}
+
+// bf16: qg [nblocks, qcap, ldq] with ldq = d rounded up to 8 (the pad zero),
+// vec [nblocks, d, blk]; no bias rows.
+extern "C" int ivf_accum_planes_bf16(const void* qg, const void* vec, const void* block_first,
+                                     const void* block_last, const void* rows_valid, void* out,
+                                     int nblocks, int qcap, int d, int ldq, int blk, int nplanes,
+                                     void* stream) {
+  return launch_planes_wgmma<P_BF16>(qg, vec, block_first, block_last, rows_valid, nullptr, out,
+                                     nblocks, qcap, d, ldq, blk, nplanes,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// fp32 qg [nblocks, qcap, d] and vec [nblocks, d, blk], no bias rows.
+extern "C" int ivf_accum_planes_f32(const void* qg, const void* vec, const void* block_first,
+                                    const void* block_last, const void* rows_valid, void* out,
+                                    int nblocks, int qcap, int d, int blk, int nplanes,
+                                    void* stream) {
+  return launch_planes_f32(qg, vec, block_first, block_last, rows_valid, out, nblocks, qcap, d,
+                           blk, nplanes, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -260,14 +613,14 @@ extern "C" int ivf_accum_planes_f(const void* qg, const void* vec, const void* b
 // Keys of different chunks can be equal here (K1's keys carry the chunk),
 // which is why the chunk ids are tracked.
 //
-// What bounds it on the H100: the scan is K1's, integer multiply-adds or fp32
-// FMAs; the emit adds k warp passes over 256 candidates per routed row of a
-// last block.
+// What bounds it on the H100: the scan is K1's, here on __dp4a (int8) or
+// fp32 FMAs (the float modes); the emit adds k warp passes over 256
+// candidates per routed row of a last block.
 //
-// Design: K1's CTA (256 threads = 2 row groups x 128 lanes, 16 rows each),
-// chunk loop outside the block loop, the fold in registers, and K1's int8
-// or float stage (the float one takes 84.5 KB of dynamic shared memory at
-// D' = 129).  Each lane folds
+// Design: the fp32 K1's CTA (256 threads = 2 row groups x 128 lanes, 16
+// rows each), chunk loop outside the block loop, the fold in registers,
+// and ivf_stage.cuh's int8 stage (packed columns, __dp4a) or float stage
+// (84.5 KB of dynamic shared memory at D' = 129).  Each lane folds
 // its chunks, in increasing order, into (m1, c1, m2, c2): a key above m1
 // shifts plane 1 down; a key equal to m1 changes nothing (the lower chunk
 // wins, and plane 2 excludes every key equal to m1); a key between m2 and m1
@@ -302,7 +655,7 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
 
   extern __shared__ int4 smem4[];
   // Query rows [GROUPS*ROWS][qstride] words, then the chunk (int8:
-  // [LANES][cstride] words; float: [qstride][LANES] fp32), as K1's.
+  // [LANES][cstride] words; float: [qstride][LANES] fp32), as the fp32 K1's.
   int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
   int32_t* col_s = q_s + GROUPS * ROWS * qstride;
   int32_t* cand_v = q_s;                              // [GROUPS*ROWS][NCAND], after the scan

@@ -1,7 +1,8 @@
-// Slab staging shared by the cluster-major scan kernels (K1 and K9
+// Slab staging shared by the cluster-major scan kernels (K9
 // ivf_accum_planes.cu; K4, K6, K7 and K10 ivf_grouped_scan.cu): the int8
 // stage (packed words, __dp4a) and the float stage (fp32 or bf16 operands
-// widened to fp32 as they are staged, fmaf), which the fp32 modes of the
+// widened to fp32 as they are staged, fmaf), which the fp32 modes of K1
+// (ivf_accum_planes.cu; its int8 and bf16 modes run on wgmma) and of the
 // brute-force kernels (K5 bruteforce_accum.cu, K3 bruteforce_fused.cu) use
 // too.
 #pragma once

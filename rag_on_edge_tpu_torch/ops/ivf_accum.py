@@ -23,7 +23,12 @@ rows are defined.
 :func:`cluster_major_accum_planes` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_accum_planes_reference`, CUDA
 tensors launch ``csrc/ivf_accum_planes.cu`` (int8 ± bias rows, and fp32
-or bf16, both operands in one dtype, D <= 320) or raise.
+or bf16, both operands in one dtype, D <= 320) or raise.  The int8 and
+bf16 modes run on ``wgmma`` fed by TMA; they read the routed rows through
+:func:`kernel_operands` (D zero-padded to a 16-byte row pitch, TMA's; no
+copy where D needs none) and the slab as the index holds it, its d past D
+read as zeros up to the kernel's unit of 128 bytes.  The fp32 mode runs on
+FFMA.
 
 K9, :func:`cluster_major_accum`, is the older extract emit of the same
 scan.  Its key has a 4-bit pack, the block code alone::
@@ -57,7 +62,7 @@ from rag_on_edge_tpu_torch.ops import _build, topk
 
 __all__ = ["CODE_MAX", "INT8_DIM_MAX", "INT8_DIM_MAX_BIAS", "KMIN", "BIAS_FILL", "LAUNCHES",
            "ACCUM_LAUNCHES", "cluster_major_accum_planes",
-           "cluster_major_accum_planes_reference", "cluster_major_accum",
+           "cluster_major_accum_planes_reference", "kernel_operands", "cluster_major_accum",
            "cluster_major_accum_reference", "accum_bias_rows"]
 
 CODE_MAX = 16  # blocks-per-cluster cap (4-bit block code)
@@ -74,15 +79,12 @@ BIAS_FILL = 2**30  # K9's bias row at a padded column: its key sinks below every
 LAUNCHES = 0
 ACCUM_LAUNCHES = 0
 
-_FN = None
-_EXTRACT_FN = None
-_EXTRACT_FLOAT_FN = None
+_ENTRIES: dict = {}
 # What the CUDA K9 takes: at most 32 per row (one per lane of the merging
 # warp), and |dots| <= D·127² below 2**24 so the fp32 plain version on the
 # card is exact.
 _CUDA_K_MAX = 32
 _CUDA_DIM_MAX = 1024
-_FLOAT_FN = None
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -184,26 +186,23 @@ def cluster_major_accum_planes_reference(qg_blocks, vectors_t, block_first,
     return torch.cat([p1, rest.amax(dim=2)], dim=2)
 
 
-def _kernel():
-    """Build/load the CUDA library once and declare the C entry's types."""
-    global _FN
-    if _FN is None:
-        fn = _build.load_library("ivf_accum_planes").ivf_accum_planes_i8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _entry(name, nptr, nint):
+    """A C entry of the CUDA library, built and loaded on first use, its
+    types declared once: ``nptr`` pointers, ``nint`` ints and the stream."""
+    if name not in _ENTRIES:
+        fn = getattr(_build.load_library("ivf_accum_planes"), name)
+        fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _ENTRIES[name] = fn
+    return _ENTRIES[name]
 
 
-def _float_kernel():
-    """Build/load the CUDA library once and declare the float entry's types."""
-    global _FLOAT_FN
-    if _FLOAT_FN is None:
-        fn = _build.load_library("ivf_accum_planes").ivf_accum_planes_f
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FLOAT_FN = fn
-    return _FLOAT_FN
+def kernel_operands(qg_blocks):
+    """The routed rows as the CUDA K1's int8 and bf16 modes read them: D
+    zero-padded to a 16-byte row pitch (TMA's), one copy where D needs it
+    and none otherwise (int8 D = 128).  The pad adds zero terms to every
+    dot, so no key moves."""
+    return _build.pad_rows(qg_blocks, 16 // qg_blocks.element_size())
 
 
 def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
@@ -224,21 +223,28 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
                                     bias_rows])
     if not int_path:
         _build.check_float("K1", qg_blocks, vectors_t, d)
-        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
+    # TMA (int8, bf16) and the fp32 stage's 16-byte loads need 16-byte bases.
+    vectors_t = _build.aligned(vectors_t, 16)
     nplanes = 2 if bin2 else 1
     out = torch.empty((nblocks, qcap, nplanes * 128), dtype=torch.int32, device=dev)
+    tabs = (block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if int_path:
-            err = _kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
-                            block_last.data_ptr(), rows_valid.data_ptr(),
-                            bias_rows.data_ptr() if bias_rows is not None else None,
-                            out.data_ptr(), nblocks, qcap, d, blk, nplanes, stream)
+        if vectors_t.dtype == torch.float32:
+            fn = _entry("ivf_accum_planes_f32", 6, 5)
+            err = fn(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs, out.data_ptr(), nblocks,
+                     qcap, d, blk, nplanes, stream)
         else:
-            err = _float_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(),
-                                  block_first.data_ptr(), block_last.data_ptr(),
-                                  rows_valid.data_ptr(), out.data_ptr(), nblocks, qcap, d, blk,
-                                  nplanes, int(vectors_t.dtype == torch.bfloat16), stream)
+            qk = _build.aligned(kernel_operands(qg_blocks), 16)
+            shape = (nblocks, qcap, d, qk.shape[-1], blk, nplanes, stream)
+            if int_path:
+                br = _build.aligned(bias_rows, 16) if bias_rows is not None else None
+                err = _entry("ivf_accum_planes_i8", 7, 6)(
+                    qk.data_ptr(), vectors_t.data_ptr(), *tabs,
+                    br.data_ptr() if br is not None else None, out.data_ptr(), *shape)
+            else:
+                err = _entry("ivf_accum_planes_bf16", 6, 6)(
+                    qk.data_ptr(), vectors_t.data_ptr(), *tabs, out.data_ptr(), *shape)
     if err != 0:
         raise RuntimeError(f"ivf_accum_planes launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -343,28 +349,6 @@ def accum_bias_rows(bias: torch.Tensor, rows_valid: torch.Tensor) -> torch.Tenso
     return torch.where(pad, torch.full_like(rows, BIAS_FILL), rows).contiguous()
 
 
-def _extract_kernel():
-    """Build/load the CUDA library once and declare K9's C entry's types."""
-    global _EXTRACT_FN
-    if _EXTRACT_FN is None:
-        fn = _build.load_library("ivf_accum_planes").ivf_accum_extract_i8
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _EXTRACT_FN = fn
-    return _EXTRACT_FN
-
-
-def _extract_float_kernel():
-    """Build/load the CUDA library once and declare K9's float entry's types."""
-    global _EXTRACT_FLOAT_FN
-    if _EXTRACT_FLOAT_FN is None:
-        fn = _build.load_library("ivf_accum_planes").ivf_accum_extract_f
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _EXTRACT_FLOAT_FN = fn
-    return _EXTRACT_FLOAT_FN
-
-
 def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_valid, k,
                         blk=2048, group=8, depth=8, bin2=True, bias_rows=None,
                         mask_rows=None):
@@ -399,14 +383,14 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
         stream = torch.cuda.current_stream(dev).cuda_stream
         if int_path:
             name = "ivf_accum_extract_i8"
-            err = _extract_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
-                                    bias_rows.data_ptr() if bias_rows is not None else None,
-                                    pv.data_ptr(), pr.data_ptr(), *shape, stream)
+            err = _entry(name, 8, 7)(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
+                                     bias_rows.data_ptr() if bias_rows is not None else None,
+                                     pv.data_ptr(), pr.data_ptr(), *shape, stream)
         else:
             name = "ivf_accum_extract_f"
-            err = _extract_float_kernel()(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
-                                          pv.data_ptr(), pr.data_ptr(), *shape,
-                                          int(vectors_t.dtype == torch.bfloat16), stream)
+            err = _entry(name, 7, 8)(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
+                                     pv.data_ptr(), pr.data_ptr(), *shape,
+                                     int(vectors_t.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     ACCUM_LAUNCHES += 1

@@ -43,11 +43,24 @@ def _k1_inputs(rng, sizes, blk, qcap, d, lo=-127, hi=128):
     return qg, vt, bf, bl, rv
 
 
-@pytest.mark.parametrize("sizes,blk,qcap,d", [
+# The int8 and bf16 modes' tiling: 128 routed rows (two warpgroups of 64) x
+# 64 bins a CTA, the d in units of 128 bytes, the half-chunks past
+# rows_valid skipped.
+K1_SHAPES = [
     ([2000, 0, 5000, 129], 2048, 40, 128),   # multi-block and empty clusters
     ([700, 300, 129, 2000], 256, 100, 37),   # ragged qcap tile, d % 4 != 0
-])
-@pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
+    ([300, 5, 900], 128, 1, 32),             # one routed row, blk 128, D one k32 step
+    ([1500, 0, 40], 512, 63, 33),            # one row short of a warpgroup, D one past
+    ([1500, 0, 40], 512, 65, 33),            # one row into the second warpgroup
+    ([300, 16 * 128 - 7], 128, 256, 384),    # a cluster of 16 blocks (the code wraps), 3 units
+    ([3000, 1000], 512, 256, 512),           # the widest int8 D without bias rows
+]
+K1_CASES = [pytest.param(*shape, bias, id=f"{'l2bias' if bias else 'ip'}-{i}")
+            for i, shape in enumerate(K1_SHAPES) for bias in (False, True)
+            if not (bias and shape[3] > ivf_accum.INT8_DIM_MAX_BIAS)]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,bias", K1_CASES)
 @pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
 def test_k1_kernel_bit_equal_to_plain(dev, sizes, blk, qcap, d, bias, bin2):
     rng = np.random.default_rng(14)
@@ -74,7 +87,11 @@ FLOAT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 @pytest.mark.parametrize("sizes,blk,qcap,d", [
     ([2000, 0, 5000, 129], 2048, 40, 129),   # multi-block and empty clusters, D' odd
     ([700, 300, 129, 2000], 256, 100, 37),   # ragged qcap tile, d % 4 != 0
-    ([700, 300], 256, 40, 320),              # the widest D the float stage holds
+    ([700, 300], 256, 40, 320),              # the widest D the float modes take
+    ([300, 5, 900], 128, 1, 32),             # one routed row, blk 128
+    ([1500, 0, 40], 512, 63, 33),            # one row short of a warpgroup
+    ([1500, 0, 40], 512, 65, 33),            # one row into the second warpgroup
+    ([300, 16 * 128 - 7], 128, 256, 320),    # a cluster of 16 blocks: the code wraps
 ])
 @pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
 @pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
@@ -95,6 +112,36 @@ def test_k1_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, bin
     assert ivf_accum.LAUNCHES == before + 1
     rows = torch.nonzero(bl).flatten()
     assert torch.equal(got[rows], want[rows])
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", [
+    ([2000, 0, 5000, 129], 2048, 40, 129),
+    ([1500, 0, 40], 512, 65, 33),
+])
+def test_k1_kernel_bf16_close_to_plain_on_noninteger_data(dev, sizes, blk, qcap, d):
+    """bf16 on wgmma sums in another order than the plain fp32 product of
+    the same bf16 values.  Each plane value (the key turned back into fp32,
+    its 8 low bits ceded to the pack) within the order bound
+    2·D·2^-24·(|q|@|b|) plus those bits on both sides, KMIN exactly where the
+    plain version has it."""
+    rng = np.random.default_rng(17)
+    _, _, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d)
+    nb = len(bf)
+    qg = torch.from_numpy(rng.standard_normal((nb, qcap, d), dtype=np.float32)).to(dev)
+    vt = torch.from_numpy(rng.standard_normal((nb, d, blk), dtype=np.float32)).to(dev)
+    qg, vt = qg.to(torch.bfloat16), vt.to(torch.bfloat16)
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    got = ivf_accum.cluster_major_accum_planes(qg, vt, bf, bl, rv, blk=blk)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg, vt, bf, bl, rv, blk=blk)
+    torch.cuda.synchronize()
+    rows = torch.nonzero(bl).flatten()
+    got, want = got[rows], want[rows]
+    assert torch.equal(got == ivf_accum.KMIN, want == ivf_accum.KMIN)
+    order = 2 * d * 2.0**-24 * float(torch.bmm(qg.double().abs(), vt.double().abs()).max())
+    ok = want != ivf_accum.KMIN
+    gv = ivf_accum._key_to_f32(got[ok]).double()
+    wv = ivf_accum._key_to_f32(want[ok]).double()
+    assert bool(((gv - wv).abs() <= order + wv.abs() * 2.0**-14).all())
 
 
 def test_k1_kernel_refuses_float(dev):

@@ -285,6 +285,60 @@ def test_k1_plain_float_modes_match_jax():
     np.testing.assert_array_equal(got.numpy()[rows], _np(want)[rows])
 
 
+def _jnp_bits(x):
+    """A port tensor as a JAX array, bf16 through its bits."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.view(torch.int16).numpy()).view(jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("mode,sizes,blk,qcap,d", [
+    ("int8-ip", [2000, 0, 5000, 129], 2048, 40, 129),   # multi-block and empty clusters
+    ("int8-l2", [700, 300, 129, 2000], 256, 100, 37),   # ragged qcap tile, d % 4 != 0
+    ("bf16", [700, 300, 129, 2000], 256, 100, 129),     # D' = 129: the L2-augmented width
+])
+def test_k1_kernel_operands_keep_every_key(mode, sizes, blk, qcap, d):
+    """What the CUDA K1's int8 and bf16 modes read: the routed rows through
+    the wrapper's own preparation (D padded to TMA's 16-byte pitch), both
+    operands' d read as zeros up to the kernel's unit (TMA's fill).  The
+    plain K1 on those operands equals the JAX kernel on the original ones:
+    padding moves no key."""
+    rng = np.random.default_rng(21)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d)
+    tabs = [torch.from_numpy(x) for x in (bf, bl, rv)]
+    qg, vt = torch.from_numpy(qg), torch.from_numpy(vt)
+    kw = {}
+    if mode == "bf16":
+        qg, vt = qg.to(torch.bfloat16), vt.to(torch.bfloat16)  # integers: exact in bf16
+    if mode == "int8-l2":
+        kw["bias_rows"] = torch.from_numpy(rng.integers(-2**29, 2**29, (len(bf), 1, blk),
+                                                        dtype=np.int32))
+    want = pallas_ivf_dma.cluster_major_accum_planes(
+        _jnp_bits(qg), _jnp_bits(vt), *map(jnp.asarray, (bf, bl, rv)), blk=blk,
+        **{k: jnp.asarray(v.numpy()) for k, v in kw.items()})
+    qk = ivf_accum.kernel_operands(qg)
+    assert qk.shape[-1] * qk.element_size() % 16 == 0 and qk.shape[-1] - d < 16
+    assert torch.equal(qk[..., :d], qg) and not qk[..., d:].any()
+    unit = 128 // qg.element_size()  # the kernel's unit of d: 128 bytes
+    width = -(-d // unit) * unit
+    qk = torch.nn.functional.pad(qk, (0, width - qk.shape[-1]))
+    vk = torch.nn.functional.pad(vt, (0, 0, 0, width - d))
+    got = ivf_accum.cluster_major_accum_planes(qk, vk, *tabs, blk=blk, **kw)
+    rows = np.nonzero(bl)[0]
+    np.testing.assert_array_equal(got.numpy()[rows], _np(want)[rows])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.int8, 128), (torch.bfloat16, 64)])
+def test_k1_kernel_operands_copy_only_to_pad(dtype, d):
+    """A row pitch that TMA takes as it is (int8 D = 128, bf16 D = 64) is
+    handed over with no copy; D = 129 is padded with zeros."""
+    qg = torch.ones((3, 5, d), dtype=dtype)
+    assert ivf_accum.kernel_operands(qg).data_ptr() == qg.data_ptr()
+    wide = ivf_accum.kernel_operands(torch.ones((3, 5, 129), dtype=dtype))
+    assert wide.shape[-1] == 129 + (16 - 129 * qg.element_size() % 16) // qg.element_size()
+    assert not wide[..., 129:].any()
+
+
 def test_k1_rejects_bad_inputs():
     rng = np.random.default_rng(13)
     qg, vt, bf, bl, rv = (torch.from_numpy(x) for x in _k1_inputs(rng, [100], 128, 8, 16))
