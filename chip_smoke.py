@@ -19,8 +19,9 @@ script exits non-zero without a result line:
              K5's and K1's sources once more to cubins with ``-Xptxas -v``:
              each wgmma kernel's registers, spills and warpgroup MMA opcodes
              (``cuobjdump -sass``; every int8 instantiation must hold the s8
-             MMA, every bf16 one the bf16 MMA, and no kernel but K9's
-             ``__dp4a``).
+             MMA, every bf16 one the bf16 MMA, and no kernel of these three
+             sources but K9's ``accum_extract_kernel`` a ``__dp4a``; K4, K6,
+             K7, K10 and K14 still score on ``__dp4a``, unchecked).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -36,8 +37,7 @@ script exits non-zero without a result line:
              launches counted over those two calls), with median times of
              both and each kernel's bound; beside K1, the same per-block
              product alone as ``torch.bmm`` of bf16 operands into fp32
-             (``prod_ms``, a yardstick), and K1 int8 L2 timed again with
-             its in-kernel transpose left out (what the transpose costs).
+             (``prod_ms``, a yardstick).
 4. slice   — search all 10,000 queries through ``IVFIndex.search_device``
              with its defaults (nlist=1024, nprobe=4, k=10, B=8192, int8,
              pad_block=2048; the recovery pass where the auto policy turns
@@ -179,7 +179,6 @@ The last two lines are the kernel table as JSON and the result line
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
@@ -352,18 +351,21 @@ def planes_close(ivf_accum, got, want, order) -> tuple[bool, float]:
             and bool((err <= order + wv.abs() * 2.0**-14).all()), float(err.max()))
 
 
-def walked_blocks(np, block_first, block_last, rows_valid) -> int:
-    """Blocks a cluster-major kernel reads: those with rows in a run of
-    blocks that ends at a ``block_last`` (the run starts at the latest
-    ``block_first``)."""
+def walked_blocks(np, block_first, block_last, rows_valid) -> tuple[int, int]:
+    """What a cluster-major function must read: the blocks with rows in a
+    run of blocks that ends at a ``block_last`` (the run starts at the
+    latest ``block_first``), and the sum of their ``rows_valid``.  Columns
+    past ``rows_valid`` only yield masked keys, so a bound charges a block's
+    slab, bias and products for its valid columns alone."""
     bf, bl, rv = (x.cpu().numpy() for x in (block_first, block_last, rows_valid))
-    walked = 0
+    walked = cols = 0
     for t in np.nonzero(bl)[0]:
         b = t
         while b > 0 and bf[b] == 0:
             b -= 1
         walked += int((rv[b:t + 1] > 0).sum())
-    return walked
+        cols += int(rv[b:t + 1].sum())
+    return walked, cols
 
 
 def main() -> None:
@@ -480,36 +482,16 @@ def main() -> None:
         *k1_args, blk=PAD_BLOCK, bias_rows=bias_rows))
     k1_plain_ms = cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_planes_reference(
         *k1_args, blk=PAD_BLOCK, bias_rows=bias_rows))
-    walked = walked_blocks(np, *k1_args[2:])
-    k1_bound = bound(walked * (qcap * DIM + DIM * PAD_BLOCK + PAD_BLOCK * 4)
-                     + rows.numel() * pp[0].numel() * 4,
-                     2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S)
+    walked, cols = walked_blocks(np, *k1_args[2:])
+    k1_bound = bound(walked * qcap * DIM + cols * (DIM + 4) + rows.numel() * pp[0].numel() * 4,
+                     2.0 * qcap * cols * DIM, INT8_OPS_S)
     k1_prod_ms = prod_ms(torch, qb, a["vectors_t"])
-    # What K1's in-kernel int8 transpose costs: the same launch with the
-    # transpose left out (its planes meaningless), timed beside it.
-    untransposed = _build.load_library("ivf_accum_planes").ivf_accum_planes_i8_untransposed
-    untransposed.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    qk, junk = ivf_accum.kernel_operands(qb), torch.empty_like(pp)
-
-    def k1_untransposed():
-        err = untransposed(qk.data_ptr(), a["vectors_t"].data_ptr(), a["block_first"].data_ptr(),
-                           a["block_last"].data_ptr(), a["rows_valid"].data_ptr(),
-                           bias_rows.data_ptr(), junk.data_ptr(), nblocks, qcap, DIM,
-                           qk.shape[-1], PAD_BLOCK, 2, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"ivf_accum_planes_i8_untransposed: CUDA error {err}")
-
-    k1_tr = {name: cuda_ms(torch, fn) for name, fn in (
-        ("with", lambda: ivf_accum.cluster_major_accum_planes(*k1_args, blk=PAD_BLOCK,
-                                                              bias_rows=bias_rows)),
-        ("without", k1_untransposed))}
-    del junk
     phase("kernels", t0, f"K1 qg {tuple(qb.shape)} vectors_t {tuple(a['vectors_t'].shape)} "
           f"bias {tuple(bias_rows.shape)} qcap={qcap} lossy pairs={int(lossy.sum())}: "
           f"bit-equal on {rows.numel()} last blocks; {k1_ms} ms vs plain {k1_plain_ms} ms; "
-          f"bound {k1_bound[0]} ms by {k1_bound[1]} ({walked} blocks walked); prod_ms "
-          f"{k1_prod_ms} (torch.bmm bf16 -> fp32 of the same per-block product, a yardstick); "
-          f"with and without the int8 transpose (ms, the same launch timed again) {k1_tr}")
+          f"bound {k1_bound[0]} ms by {k1_bound[1]} ({walked} blocks walked, {cols} valid "
+          f"columns); prod_ms {k1_prod_ms} (torch.bmm bf16 -> fp32 of the same per-block "
+          f"product, a yardstick)")
 
     pool = idx._join_pool(probes, slot, pp)
     kk = 2 * K
@@ -553,14 +535,13 @@ def main() -> None:
             raise AssertionError(f"K4 differs from the plain version at the {name} shapes")
         err = float((pv[r4][fin] - rpv[r4][fin]).abs().max()) if fin.any() else 0.0
         del rpv, rpr
-        walked = walked_blocks(np, bf_, bl_, rv_)
+        walked, cols = walked_blocks(np, bf_, bl_, rv_)
         k4[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(*args, **kw)),
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
                 *args, **kw)),
-            bound=bound(walked * (qcap * DIM + DIM * PAD_BLOCK + PAD_BLOCK * 4)
-                        + r4.numel() * qcap * kk * 8,
-                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+            bound=bound(walked * qcap * DIM + cols * (DIM + 4) + r4.numel() * qcap * kk * 8,
+                        2.0 * qcap * cols * DIM, INT8_OPS_S))
         phase("kernels", t0, f"K4 {name}: qg {tuple(qg_.shape)} vectors_t {tuple(vt_.shape)} "
               f"bias {tuple(bias_.shape)} k={kk}: pv bit-equal, pr equal where finite, on "
               f"{r4.numel()} last blocks ({int(fin.sum())} finite entries, {walked} blocks "
@@ -590,16 +571,16 @@ def main() -> None:
             raise AssertionError(f"K7 differs from K4 on the gathered table at the {name} shapes")
         err = float((pv[r7][fin] - rpv[r7][fin]).abs().max()) if fin.any() else 0.0
         del rpv, rpr, gpv, gpr
-        walked = walked_blocks(np, bf_, bl_, rv_)
+        walked, cols = walked_blocks(np, bf_, bl_, rv_)
         k7[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed(*args, **kw)),
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed_reference(
                 *args, **kw)),
             # K4's convention with the batch read once instead of a table,
             # and the walked blocks' rows of cq_blocks.
-            bound=bound(walked * (qcap * 4 + DIM * PAD_BLOCK + PAD_BLOCK * 4) + qi.numel()
+            bound=bound(walked * qcap * 4 + cols * (DIM + 4) + qi.numel()
                         + r7.numel() * qcap * kk * 8,
-                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+                        2.0 * qcap * cols * DIM, INT8_OPS_S))
         phase("kernels", t0, f"K7 {name}: qi {tuple(qi.shape)} cq_blocks {tuple(cqb_.shape)} "
               f"vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal to the plain version and to "
               f"K4 on the gathered table, pr equal where finite, on {r7.numel()} last blocks "
@@ -631,15 +612,15 @@ def main() -> None:
             raise AssertionError(f"K9 differs from the plain version ({name})")
         err = float((pv[rows][fin] - rpv[rows][fin]).abs().max()) if fin.any() else 0.0
         del pv, pr, rpv, rpr
-        walked = walked_blocks(np, *k1_args[2:])
+        walked, cols = walked_blocks(np, *k1_args[2:])
         k9[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum(
                 *k1_args, kk, blk=PAD_BLOCK, bias_rows=br_)),
             plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_reference(
                 *k1_args, kk, blk=PAD_BLOCK, bias_rows=br_), reps=3),
-            bound=bound(walked * (qcap * DIM + DIM * PAD_BLOCK + PAD_BLOCK * 4 * (br_ is not None))
+            bound=bound(walked * qcap * DIM + cols * (DIM + 4 * (br_ is not None))
                         + rows.numel() * qcap * kk * 8,
-                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+                        2.0 * qcap * cols * DIM, INT8_OPS_S))
         phase("kernels", t0, f"K9 {name} qg {tuple(qb.shape)} k={kk} bin2: pv bit-equal and pr "
               f"equal to the plain version on {rows.numel()} last blocks ({int(fin.sum())} "
               f"finite entries); {k9[name]['ms']} ms vs plain {k9[name]['plain_ms']} ms; bound "
@@ -1025,13 +1006,12 @@ def main() -> None:
             raise AssertionError(f"K6 differs from the plain version at the {name} shapes")
         err = float((pv[r6][fin] - rpv[r6][fin]).abs().max()) if fin.any() else 0.0
         del rpv, rpr
-        walked = walked_blocks(np, bf_, bl_, rv_)
+        walked, cols = walked_blocks(np, bf_, bl_, rv_)
         k6[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw)),
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(*args, **kw)),
-            bound=bound(walked * (DIM * PAD_BLOCK + PAD_BLOCK * 4)
-                        + r6.numel() * qcap * (DIM + kk * 8),
-                        2.0 * walked * qcap * PAD_BLOCK * DIM, INT8_OPS_S))
+            bound=bound(cols * (DIM + 4) + r6.numel() * qcap * (DIM + kk * 8),
+                        2.0 * qcap * cols * DIM, INT8_OPS_S))
         phase("kernels", t0, f"K6 {name} (shard {0 if name == 'dense' else s_rec}): qg "
               f"{tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv bit-equal, "
               f"pr equal where finite, on {r6.numel()} emitted clusters ({int(fin.sum())} "
@@ -1167,10 +1147,10 @@ def main() -> None:
         k10[variant] = dict(err=err, windows=win.numel(), finite=int(fin.sum()),
                             plain_ms=cuda_ms(torch, lambda: kernel_lab._variant_scan_reference(
                                 *args), reps=3))
-    walked = walked_blocks(np, *lab_tabs[2:])
+    walked, cols = walked_blocks(np, *lab_tabs[2:])
     n_win = lab_windows["full"].numel()
-    k10_bound = bound(walked * DIM * PAD_BLOCK + n_win * LAB_QCAP * (DIM + LAB_K * 8),
-                      2.0 * walked * LAB_QCAP * PAD_BLOCK * DIM, INT8_OPS_S)
+    k10_bound = bound(cols * DIM + n_win * LAB_QCAP * (DIM + LAB_K * 8),
+                      2.0 * LAB_QCAP * cols * DIM, INT8_OPS_S)
     phase("lab", t0, f"K10 qg {tuple(qg_lab.shape)} vectors_t {tuple(a['vectors_t'].shape)} "
           f"k={LAB_K}: every variant equal to its plain version on its defined windows "
           f"({ {v: (k10[v]['windows'], k10[v]['finite']) for v in k10} } windows, finite "
@@ -1764,14 +1744,14 @@ def main() -> None:
         if err:
             raise AssertionError(f"K1 {mode} planes differ from the plain version: {err}")
         del pp_ref
-        walked_f = walked_blocks(np, *args[2:])
+        walked_f, cols_f = walked_blocks(np, *args[2:])
         fl[f"K1 {mode}"] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_planes(
                 *args, blk=PAD_BLOCK)),
             plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_planes_reference(
                 *args, blk=PAD_BLOCK), reps=3),
-            bound=bound(walked_f * (qcap_f + PAD_BLOCK) * dp * es + rows_f.numel()
-                        * pp_f[0].numel() * 4, 2.0 * walked_f * qcap_f * PAD_BLOCK * dp, rate),
+            bound=bound((walked_f * qcap_f + cols_f) * dp * es + rows_f.numel()
+                        * pp_f[0].numel() * 4, 2.0 * qcap_f * cols_f * dp, rate),
             lib_ms=None)
         if mode == "bf16":
             fl["K1 bf16"]["prod_ms"] = prod_ms(torch, qb_f, vt)
@@ -1792,14 +1772,14 @@ def main() -> None:
         if not torch.equal(pv[r4], rpv[r4]) or not torch.equal(pr[r4][fin], rpr[r4][fin]):
             raise AssertionError(f"K4 {mode} differs from the plain version at the recovery "
                                  "list")
-        walked4 = walked_blocks(np, *rec[2:5])
+        walked4, cols4 = walked_blocks(np, *rec[2:5])
         fl[f"K4 {mode}"] = dict(
             err=float((pv[r4][fin] - rpv[r4][fin]).abs().max()) if fin.any() else 0.0,
             ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(*rec[:5], **kw)),
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
                 *rec[:5], **kw), reps=3),
-            bound=bound(walked4 * (qcap_f + PAD_BLOCK) * dp * es + r4.numel() * qcap_f * kk * 8,
-                        2.0 * walked4 * qcap_f * PAD_BLOCK * dp, rate),
+            bound=bound((walked4 * qcap_f + cols4) * dp * es + r4.numel() * qcap_f * kk * 8,
+                        2.0 * qcap_f * cols4 * dp, rate),
             lib_ms=None)
         phase("float", t0, f"K4 {mode} recovery list qg {tuple(rec[0].shape)} ({int(lossy_f.sum())} "
               f"lossy pairs, {walked4} blocks walked): pv bit-equal, pr equal where finite "
@@ -2097,14 +2077,14 @@ def main() -> None:
                                      "walk")
             err = max_err(pv[r7], rpv[r7])
             del pv, pr, rpv, rpr
-            walked = walked_blocks(np, bf_, bl_, rv_)
+            walked, cols = walked_blocks(np, bf_, bl_, rv_)
             k7[name] = dict(
                 err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed(*args, **kw)),
                 plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_routed_reference(
                     *args, **kw), reps=3),
-                bound=bound(walked * (qcap_f * 4 + dp * PAD_BLOCK * es) + qi_f.numel() * es
+                bound=bound(walked * qcap_f * 4 + cols * dp * es + qi_f.numel() * es
                             + r7.numel() * qcap_f * kk * 8,
-                            2.0 * walked * qcap_f * PAD_BLOCK * dp, rate), lib_ms=None)
+                            2.0 * qcap_f * cols * dp, rate), lib_ms=None)
             phase("floatscan", t0, f"K7 {mode} {name}: qi {tuple(qi_f.shape)} cq_blocks "
                   f"{tuple(cqb_.shape)} vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal, pr "
                   f"equal where finite, on {r7.numel()} last blocks ({walked} walked); {k7[name]}")
@@ -2150,14 +2130,14 @@ def main() -> None:
         if n9 != 1 or not bits_equal(pv[rows9], rpv[rows9]) or not torch.equal(pr[rows9],
                                                                                 rpr[rows9]):
             raise AssertionError(f"K9 {mode} differs from the plain version (launches {n9})")
-        walked9 = walked_blocks(np, *tabs)
+        walked9, cols9 = walked_blocks(np, *tabs)
         fl14[f"K9 {mode}"] = dict(
             err=max_err(pv[rows9], rpv[rows9]), launches=n9, lib_ms=None,
             ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum(*args9, blk=PAD_BLOCK)),
             plain_ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum_reference(
                 *args9, blk=PAD_BLOCK), reps=3),
-            bound=bound(walked9 * (qcap_f + PAD_BLOCK) * dp * es + rows9.numel() * qcap_f * kk * 8,
-                        2.0 * walked9 * qcap_f * PAD_BLOCK * dp, rate))
+            bound=bound((walked9 * qcap_f + cols9) * dp * es + rows9.numel() * qcap_f * kk * 8,
+                        2.0 * qcap_f * cols9 * dp, rate))
         del pv, pr, rpv, rpr, qb_f, args9
         phase("floatscan", t0, f"K9 {mode} (K1's shapes, k={kk}, bin2): pv (the masked key) "
               f"bit-equal and pr equal on {rows9.numel()} last blocks; {fl14[f'K9 {mode}']}")
@@ -2199,12 +2179,12 @@ def main() -> None:
                                quiet=True)
         torch.cuda.synchronize()
         n10 = read_launches()["K10"]
-        walked10 = walked_blocks(np, *tabs)
+        _, cols10 = walked_blocks(np, *tabs)
         n_win = k10_windows("full", fa["block_cluster"], fa["block_last"]).numel()
         fl14[f"K10 {mode}"] = dict(
             err=err10, ms=lab_f["full"][0], plain_ms=plain10, launches=n10, lib_ms=None,
-            bound=bound(walked10 * dp * PAD_BLOCK * es + n_win * LAB_QCAP * (dp * es + LAB_K * 8),
-                        2.0 * walked10 * LAB_QCAP * PAD_BLOCK * dp, rate))
+            bound=bound(cols10 * dp * es + n_win * LAB_QCAP * (dp * es + LAB_K * 8),
+                        2.0 * LAB_QCAP * cols10 * dp, rate))
         phase("floatscan", t0, f"K10 {mode} qg {tuple(qg_l.shape)}: the four variants equal "
               f"to their plain versions on their windows, full equal to K6; lab ms/call and "
               f"us/block {lab_f}; launches {n10}; {fl14[f'K10 {mode}']}")
@@ -2238,13 +2218,13 @@ def main() -> None:
                                      "walk")
             err = max_err(pv[r6], rpv[r6])
             del pv, pr, rpv, rpr
-            walked = walked_blocks(np, *args[3:6])
+            walked, cols = walked_blocks(np, *args[3:6])
             k6[name] = dict(
                 err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw)),
                 plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(
                     *args, **kw), reps=3), lib_ms=None,
-                bound=bound(walked * (qcap_f + PAD_BLOCK) * dp * es + r6.numel() * qcap_f * kk * 8,
-                            2.0 * walked * qcap_f * PAD_BLOCK * dp, rate))
+                bound=bound((walked * qcap_f + cols) * dp * es + r6.numel() * qcap_f * kk * 8,
+                            2.0 * qcap_f * cols * dp, rate))
             phase("floatscan", t0, f"K6 {mode} {name} (shard {0 if name == 'dense' else s_rec}):"
                   f" qg {tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv "
                   f"bit-equal, pr equal where finite, on {r6.numel()} emitted clusters "

@@ -20,14 +20,16 @@
 // Float L2 has no bias rows: it rides an augmented dimension (b' = [b,
 // -|b|^2/2], q' = [q, 1]) that the index already holds in the slabs.
 //
-// What bounds it on the H100: at the SIFT-1M slice (1176 blocks of 2048
-// rows, 256 routed rows, D = 128) the int8 product is 1.6e11 operations
-// against 0.3 GB of slabs and 0.27 GB of planes written: on the tensor
-// cores (1,979 T int8 ops/s) the bytes bound it, 0.19 ms at 3.35 TB/s.  The
-// bf16 mode (D' = 129) is twice the bytes and, at 989 TFLOP/s, the same
-// share of tensor time.  The fp32 mode has no tensor-core path without TF32,
-// which would change the keys: its 7.9e10 FFMAs bound it (2.4 ms at 67
-// TFLOP/s), over six times the bytes' 0.37 ms.
+// What bounds it on the H100: only a block's columns below rows_valid yield
+// a key that is not KMIN, so at the SIFT-1M slice (1176 blocks of 2048
+// rows holding 1,000,000 valid columns, 256 routed rows, D = 128) the
+// int8 product is 6.6e10 operations against 0.13 GB of valid slab and bias
+// columns, 0.04 GB of routed rows and 0.27 GB of planes written: on the
+// tensor cores (1,979 T int8 ops/s) the bytes bound it, 0.13 ms at 3.35
+// TB/s.  The bf16 mode (D' = 129) moves 0.6 GB, 0.18 ms, its product a
+// third of that at 989 TFLOP/s.  The fp32 mode has no tensor-core path
+// without TF32, which would change the keys: its 3.3e10 FFMAs bound it
+// (0.99 ms at 67 TFLOP/s), over three times the bytes' 0.28 ms.
 //
 // Design of the int8 and bf16 modes (planes_wgmma_kernel, hopper_mma.cuh):
 // - one CTA of two warpgroups per (last block t, 128 routed rows, one half
@@ -57,10 +59,11 @@
 //   stores them in the 128-byte-swizzled layout the descriptor reads (the
 //   stores free of bank conflicts, the reads two-way).  The transpose of
 //   unit u+1 runs while unit u's wgmma groups are in flight, on two B
-//   buffers; one barrier a unit orders it all.  Measured on the H100 at the
-//   SIFT-1M slice (chip_smoke.py, the same launch without it): 0.054 ms of
-//   the int8 L2 call's 0.52, where a per-call K-major copy of the slab
-//   would take about 1 ms.
+//   buffers; one barrier a unit orders it all.  Measured once during
+//   development on an H100 at the SIFT-1M slice, by timing the same launch
+//   with the transpose left out: 0.049-0.061 ms of the int8 L2 call's
+//   0.51-0.53, where a per-call K-major copy of the slab would take about
+//   1 ms.
 // - the epilogue on the fragment: after the unit's groups retire, a copy of
 //   the accumulators (copy_acc: reading the fragment itself has ptxas
 //   serialize the groups) is turned into keys, masked only in the
@@ -74,9 +77,9 @@
 //   defined for negative dots and gives the same bits as JAX's shift_left
 //   and torch's int32 arithmetic.  The wrapper bounds D so that it never
 //   wraps.
-// - what bounds it as built: 0.52-0.57 ms int8 L2 and 0.77-0.78 bf16 at
-//   the SIFT-1M slice on the H100 (PERF.md section 6), 2.8x and 2.7x the
-//   byte bound.  213-218 registers (int8; bf16 178) leave one CTA of two
+// - what bounds it as built: 0.50-0.57 ms int8 L2 at the SIFT-1M slice on
+//   the H100, 3.9-4.3x the byte bound of the valid columns; bf16 in
+//   PERF.md section 6.  213-218 registers (int8; bf16 178) leave one CTA of two
 //   warpgroups an SM, so each CTA's first TMA round trip is exposed, and
 //   the fold costs some six integer operations a score.
 //
@@ -286,10 +289,8 @@ __device__ __forceinline__ void plane_update(int32_t x, int32_t& p1, int32_t& p2
 // bias rows [nblocks, blk] through `tb`.  CTA i: last block t = i / nsub
 // and, with x = i % nsub, routed rows 128 (x / 2) .. + 127 and bins 64 (x %
 // 2) .. + 63 (a block's CTAs run side by side and share its slab in L2).  kb
-// units of 128 bytes of d a half-chunk.  TRANSPOSE false leaves the int8
-// transpose out (the products are then meaningless): a measurement of what
-// the transpose costs, nothing else.
-template <int MODE, bool TRANSPOSE = true>
+// units of 128 bytes of d a half-chunk.
+template <int MODE>
 __global__ void __launch_bounds__(P_THREADS, 1)
 planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tb,
@@ -378,7 +379,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   // int8 transposes it into buffer kbuf.
   auto prep = [&](int s, unsigned ph, int buf) {
     mbar_wait_loop(&full[s], ph);
-    if constexpr (INT8 && TRANSPOSE)
+    if constexpr (INT8)
       transpose_unit(reinterpret_cast<const uint32_t*>(gbase + (st_b - base) + s * P_BOX),
                      gbase + (bk - base) + buf * P_BOX);
   };
@@ -494,7 +495,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 // qg [nblocks, qcap, ldq], vec [nblocks, d, blk] (int8 or bf16), bias
 // [nblocks, blk] (int8 L2) or null.
-template <int MODE, bool TRANSPOSE = true>
+template <int MODE>
 int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first,
                         const void* block_last, const void* rows_valid, const void* bias,
                         void* out, int nblocks, int qcap, int d, int ldq, int blk, int nplanes,
@@ -521,11 +522,10 @@ int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + stages * per_stage;
   if (const cudaError_t e = cudaFuncSetAttribute(
-          planes_wgmma_kernel<MODE, TRANSPOSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem))
+          planes_wgmma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return (int)e;
   const int nsub = 2 * ((qcap + P_ROWS - 1) / P_ROWS);
-  planes_wgmma_kernel<MODE, TRANSPOSE><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
+  planes_wgmma_kernel<MODE><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
       tq, tv, tb, static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
       static_cast<int32_t*>(out), qcap, blk, kb, nplanes, stages, nsub);
@@ -549,18 +549,6 @@ extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* 
                                             out, nblocks, qcap, d, ldq, blk, nplanes, s)
              : launch_planes_wgmma<P_I8>(qg, vec, block_first, block_last, rows_valid, nullptr,
                                          out, nblocks, qcap, d, ldq, blk, nplanes, s);
-}
-
-// The int8 L2 mode with the B transpose left out, its planes meaningless:
-// chip_smoke.py times it beside ivf_accum_planes_i8 for the transpose's cost.
-extern "C" int ivf_accum_planes_i8_untransposed(const void* qg, const void* vec,
-                                                const void* block_first, const void* block_last,
-                                                const void* rows_valid, const void* bias,
-                                                void* out, int nblocks, int qcap, int d, int ldq,
-                                                int blk, int nplanes, void* stream) {
-  return launch_planes_wgmma<P_I8_L2, false>(qg, vec, block_first, block_last, rows_valid, bias,
-                                             out, nblocks, qcap, d, ldq, blk, nplanes,
-                                             static_cast<cudaStream_t>(stream));
 }
 
 // bf16: qg [nblocks, qcap, ldq] with ldq = d rounded up to 8 (the pad zero),
