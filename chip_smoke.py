@@ -16,12 +16,14 @@ script exits non-zero without a result line:
 2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 and
              K11-K14 (CUDA C++, one nvcc per source, all at once) and K2
              (Triton) from the sources in this checkout; beside them, K3's,
-             K5's and K1's sources once more to cubins with ``-Xptxas -v``:
-             each wgmma kernel's registers, spills and warpgroup MMA opcodes
-             (``cuobjdump -sass``; every int8 instantiation must hold the s8
-             MMA, every bf16 one the bf16 MMA, and no kernel of these three
-             sources but K9's ``accum_extract_kernel`` a ``__dp4a``; K4, K6,
-             K7, K10 and K14 still score on ``__dp4a``, unchecked).
+             K5's, K1's and K4's sources once more to cubins with
+             ``-Xptxas -v``: each wgmma kernel's registers, spills and
+             warpgroup MMA opcodes (``cuobjdump -sass``; every int8
+             instantiation must hold the s8 MMA, every bf16 one the bf16
+             MMA, and no kernel of these four sources a ``__dp4a`` but K9's
+             ``accum_extract_kernel`` and the int8 modes of K6 and K10
+             (``grouped_scan_kernel``, listed by instantiation); K14's
+             ``__dp4a`` probe is unchecked).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -255,9 +257,11 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
     and read it back with ``cuobjdump -sass``: each wgmma kernel's registers,
     stack frame, spills and warpgroup MMA opcodes, any ptxas warning that serializes the
     wgmma groups (C7520), and the count of ``__dp4a`` (IDP) instructions by
-    kernel.  Raises if an int8 instantiation holds no s8 warpgroup MMA, or
-    a kernel not named in ``idp_allowed`` (K9's ``accum_extract_kernel``,
-    beside K1) holds IDP."""
+    kernel (``grouped_scan_kernel`` by instantiation: K6's and K10's int8
+    modes).  Raises if an int8 instantiation holds no s8 warpgroup MMA, a
+    wgmma kernel holds IDP, or a kernel not named in ``idp_allowed`` (K9's
+    ``accum_extract_kernel`` beside K1; ``grouped_scan_kernel`` beside K4
+    and K7) holds IDP."""
     import re
 
     nvcc = _build._nvcc()
@@ -301,26 +305,36 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
         if "wgmma_kernel" not in fn:
             continue
         short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
+        grouped = re.search(r"grouped_wgmma_kernelILi(\d)E\w*?QSrcE(\d)E", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
+        if grouped:
+            tag = (f"grouped_wgmma_kernel<{'K7' if grouped.group(2) == '2' else 'K4'}, "
+                   f"depth {grouped.group(1)}>")
         p_ = props.get(fn, {})
         lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
                      f"spill stores/loads {p_.get('spills')}, wgmma opcodes "
                      f"{sorted(ops.get(fn, ()))}")
-        int8 = re.search(r"wgmma_kernelILi[12]E", fn)
+        int8 = re.search(r"wgmma_kernelILi[12]E", fn) or grouped
         if int8 and not any("S8" in o or o.startswith("IGMMA") for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
         if re.search(r"wgmma_kernelILi0E", fn) and not any("BF16" in o for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no bf16 warpgroup MMA: {sorted(ops.get(fn, ()))}")
-    by_kernel = {}
+    by_kernel, by_inst = {}, {}
     for f, n in idp.items():
         short = re.search(r"[a-z][a-z_]*_kernel", f)
         key = short.group(0) if short else f
         by_kernel[key] = by_kernel.get(key, 0) + n
-    stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed}
+        inst = re.search(r"grouped_scan_kernelIaLi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", f)
+        if inst:  # K6 (kCluster, kFull; K10 full is its depth-2 instance) or a K10 variant
+            depth, src, var = inst.groups()
+            key = (f"K6 int8 depth {depth}" if var == "0" else f"K10 int8 variant {var}") \
+                if src == "1" else f"grouped_scan_kernel int8 source {src} depth {depth}"
+        by_inst[key] = by_inst.get(key, 0) + n
+    stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed or "wgmma" in f}
     if stray:
         raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {stray}")
     lines.append(f"IDP (__dp4a) instructions in lib{name}: {sum(idp.values())} "
-                 f"{by_kernel or ''}; ptxas serialization warnings: {warnings or 'none'}")
+                 f"{by_inst or ''}; ptxas serialization warnings: {warnings or 'none'}")
     return lines
 
 
@@ -397,9 +411,11 @@ def main() -> None:
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
                "tiled_matmul", "hw_probe"]
-    # K5's, K3's and K1's wgmma kernels; K9 (beside K1) keeps its __dp4a.
+    # K5's, K3's, K1's and K4's and K7's wgmma kernels; K9 (beside K1) and
+    # K6 and K10 (grouped_scan_kernel, beside K4 and K7) keep their __dp4a.
     reported = {"bruteforce_accum": (), "bruteforce_fused": (),
-                "ivf_accum_planes": ("accum_extract_kernel",)}
+                "ivf_accum_planes": ("accum_extract_kernel",),
+                "ivf_grouped_scan": ("grouped_scan_kernel",)}
     with ThreadPoolExecutor(len(sources) + len(reported)) as ex:  # one nvcc each, all at once
         reports = [ex.submit(wgmma_report, _build, name, allowed)
                    for name, allowed in reported.items()]

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the kernels that run wgmma fed by TMA:
 // K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
-// (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu) and
-// K1's int8 and bf16 modes (ivf_accum_planes.cu).
+// (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu),
+// K1's int8 and bf16 modes (ivf_accum_planes.cu) and K4's and K7's int8
+// modes (ivf_grouped_scan.cu).
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
@@ -14,8 +15,11 @@
 //   wgmma.mma_async m64nNk16 bf16 -> f32 for N = 64, 128 and 256, with A
 //   K-major and B MN-major (the transpose-B bit), so B is read as it lies
 //   N-contiguous in device memory; wgmma.mma_async m64nNk32 s8 -> s32 for
-//   N = 64 and 128, with A and B both K-major (8-bit operands have no
-//   transpose bit); a copy of a fragment;
+//   N = 16, 32, 64 and 128, with A and B both K-major (8-bit operands have
+//   no transpose bit); a copy of a fragment;
+// - the in-shared transpose of an N-major int8 slab unit, as TMA lands it,
+//   into the K-major swizzled tile an 8-bit wgmma operand must be (K1's B,
+//   K4's and K7's A);
 // - host: cuTensorMapEncodeTiled through the runtime's entry-point lookup
 //   (the libraries link libcudart only), the bf16 and 8-bit tensor maps
 //   (128-byte swizzle; an 8-bit 3-D map swizzled or not) and an unswizzled
@@ -238,6 +242,37 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x 16] (s32) = A[64 x 32] @ B[32 x 16], both s8 and K-major, plus D
+// where `accumulate` is not 0.
+__device__ __forceinline__ void wgmma_m64n16k32_s8(int32_t (&d)[8], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "},"
+      " %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (s32) = A[64 x 32] @ B[32 x 32], both s8 and K-major, plus D
+// where `accumulate` is not 0.
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int32_t (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] (s32) = A[64 x 32] @ B[32 x 64], both s8 and K-major (8-bit
 // operands have no transpose bit), plus D where `accumulate` is not 0.
 __device__ __forceinline__ void wgmma_m64n64k32_s8(int32_t (&d)[32], uint64_t da, uint64_t db,
@@ -287,6 +322,43 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t d
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
+
+// Transpose one int8 unit of a slab [d, blk] (N-major, the JAX layout) for
+// wgmma, by a CTA of 256 threads: `raw` holds four TMA boxes [128 d][16 bins]
+// (box g: bins 16g..16g+15), `bk` receives [64 bins][128 d] K-major in the
+// 128-byte swizzle (16-byte chunk j of bin row n at j ^ (n % 8)).  Thread
+// (warp, lane) takes bin quad m = 2 warp + lane % 2 and d quads q = lane / 2
+// and q + 16: four words, a 4 x 4 byte tile, per quad.  It loads row 4q + (k
+// ^ r) as word k, r = (q / 2) % 4, so a warp's loads spread over the banks
+// (two-way); the selectors undo the rotation.
+__device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw, uint8_t* bk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = (warp << 1) | (lane & 1);
+  const int g = m >> 2, w = m & 3;
+  const int r = (lane >> 2) & 3;
+  // Stage 1 pairs words {0, 1} and {2, 3}; r's low bit swaps each pair's
+  // operands, its high bit swaps the pairs (each a selector's nibble ^ 4).
+  const uint32_t s1lo = (r & 1) ? 0x1504u : 0x5140u, s1hi = (r & 1) ? 0x3726u : 0x7362u;
+  const uint32_t s2a = (r & 2) ? 0x1054u : 0x5410u, s2b = (r & 2) ? 0x3276u : 0x7632u;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int q = (lane >> 1) + 16 * a;
+    uint32_t x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = raw[g * 512 + (4 * q + (k ^ r)) * 4 + w];
+    const uint32_t lo0 = __byte_perm(x[0], x[1], s1lo), hi0 = __byte_perm(x[0], x[1], s1hi);
+    const uint32_t lo1 = __byte_perm(x[2], x[3], s1lo), hi1 = __byte_perm(x[2], x[3], s1hi);
+    const uint32_t out[4] = {__byte_perm(lo0, lo1, s2a), __byte_perm(lo0, lo1, s2b),
+                             __byte_perm(hi0, hi1, s2a), __byte_perm(hi0, hi1, s2b)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * m + i;  // bin row; word out[i] holds its d 4q .. 4q+3
+      *reinterpret_cast<uint32_t*>(bk + n * 128 + ((((q >> 2) ^ (n & 7)) << 4) | ((q & 3) << 2))) =
+          out[i];
+    }
+  }
+}
+
 
 // ------------------------------------------------------------------ host
 

@@ -238,41 +238,6 @@ __device__ __forceinline__ bool next_half(int& c, int& b, int tb, int t, int nch
   }
 }
 
-// Transpose one int8 unit of B: `raw` holds four TMA boxes [128 d][16 bins]
-// (box g: bins 16g..16g+15), `bk` receives [64 bins][128 d] K-major in the
-// 128-byte swizzle (16-byte chunk j of bin row n at j ^ (n % 8)).  Thread
-// (warp, lane) takes bin quad m = 2 warp + lane % 2 and d quads q = lane / 2
-// and q + 16: four words, a 4 x 4 byte tile, per quad.  It loads row 4q + (k
-// ^ r) as word k, r = (q / 2) % 4, so a warp's loads spread over the banks
-// (two-way); the selectors undo the rotation.
-__device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw, uint8_t* bk) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m = (warp << 1) | (lane & 1);
-  const int g = m >> 2, w = m & 3;
-  const int r = (lane >> 2) & 3;
-  // Stage 1 pairs words {0, 1} and {2, 3}; r's low bit swaps each pair's
-  // operands, its high bit swaps the pairs (each a selector's nibble ^ 4).
-  const uint32_t s1lo = (r & 1) ? 0x1504u : 0x5140u, s1hi = (r & 1) ? 0x3726u : 0x7362u;
-  const uint32_t s2a = (r & 2) ? 0x1054u : 0x5410u, s2b = (r & 2) ? 0x3276u : 0x7632u;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int q = (lane >> 1) + 16 * a;
-    uint32_t x[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) x[k] = raw[g * 512 + (4 * q + (k ^ r)) * 4 + w];
-    const uint32_t lo0 = __byte_perm(x[0], x[1], s1lo), hi0 = __byte_perm(x[0], x[1], s1hi);
-    const uint32_t lo1 = __byte_perm(x[2], x[3], s1lo), hi1 = __byte_perm(x[2], x[3], s1hi);
-    const uint32_t out[4] = {__byte_perm(lo0, lo1, s2a), __byte_perm(lo0, lo1, s2b),
-                             __byte_perm(hi0, hi1, s2a), __byte_perm(hi0, hi1, s2b)};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = 4 * m + i;  // bin row; word out[i] holds its d 4q .. 4q+3
-      *reinterpret_cast<uint32_t*>(bk + n * 128 + ((((q >> 2) ^ (n & 7)) << 4) | ((q & 3) << 2))) =
-          out[i];
-    }
-  }
-}
-
 // A routed row's plane update with the chunk's key x: plane 1 the largest,
 // plane 2 the largest different from plane 1.  Without `ties`, x never
 // equals plane 1 unless both are KMIN, where either form keeps plane 2.

@@ -59,13 +59,61 @@
 // rule, pallas_ivf.py:524-531); a run whose bc[t] is outside [0, nlist)
 // writes nothing.
 //
-// What bounds it on the H100: on the dense walk, multiply-adds, as for K1
-// (with dp4a or fp32 FMAs and no tensor cores the instruction rate is the
-// limit, not memory).  On the recovery pass the kernel walks only the few runs
-// whose last block made the compacted list; most CTAs exit at once.  K7's
-// gather reads the batch (1 MB at B = 8192, d = 128) through L2.
+// What bounds it on the H100: on the dense walk (SIFT-1M: 1176 blocks of
+// 2048 columns holding 1,000,000 valid ones, 256 routed rows, D = 128) the
+// int8 product is 6.6e10 operations, 0.03 ms on the tensor cores, and the
+// bytes (the valid slab columns, the routed rows, the top-k written) 0.05-
+// 0.06 ms; the selection after the product (a top-DEPTH per bin and a
+// merge per block and row) is not counted in either.  On the recovery pass
+// the kernel walks only the few runs whose last block made the compacted
+// list; most CTAs exit at once, and the time is one CTA's walk along the
+// longest run.  K7's gather reads the batch (1 MB at B = 8192, d = 128)
+// through L2.
 //
-// Design (simple first; wgmma and TMA are later work):
+// Design of K4's and K7's int8 modes (grouped_wgmma_kernel, hopper_mma.cuh):
+// - one CTA of two warpgroups per (last block t, N routed rows: 32, or 16
+//   for DEPTH > 2); CTAs on other blocks exit before any setup.  The
+//   product is transposed against K1's: the chunk's 128 bins are wgmma's M
+//   (64 a warpgroup) and the routed rows its N, so m64nNk32 s8 -> s32 puts
+//   each (row, bin) in one thread's registers in every chunk, and the
+//   per-bin top-DEPTH (score, chunk) stays beside the fragment (F = N / 2
+//   entries a thread); no score goes through shared memory.
+// - empty slots: most rows of a routed table are zero (at B = 8192,
+//   nprobe 4, nlist 1024 a cluster routes 32 pairs on average into qcap
+//   256 slots; the recovery table holds only the dropped pairs), and a
+//   zero row scores 0 - bias on every column whatever the slab holds.  A tile
+//   whose rows are all zero in every block of its run loads no slab: it
+//   bins one row from the bias words and merges it, and every row takes
+//   the result.  In the other tiles the rows that were zero in every block
+//   so far share one running top-k: the lowest is binned and merged, the
+//   others copy it after each merge.  Both are exact.
+// - the work is a list of (block, chunk, unit) along the run: blocks
+//   without rows and chunks wholly past rows_valid are skipped (they would
+//   only add -inf; SIFT-1M's blocks are about 41% full), chunks ascending
+//   within a block so ties still go to the lower id.  Each unit is 128
+//   bytes of d: 4 k-steps.
+// - operands: the slab's unit lands by TMA in a ring (`stages` deep, one
+//   mbarrier each) as eight [128 d, 16 bin] boxes and the threads
+//   transpose it into two K-major swizzled tiles (transpose_unit, shared
+//   with K1), unit u+1 while unit u's groups run; no per-call copy of the
+//   slab.  The routed rows (N x kb units) stay in shared memory for the
+//   block: K4 by TMA (the wrapper pads D to TMA's 16-byte pitch), K7
+//   gathered by the threads in 16-byte pieces from qi (zero rows for slots
+//   outside [0, B)) and handed to wgmma through the proxy fence.  The next
+//   block's rows load while this one's survivors merge.
+// - the epilogue on copy_acc's copy of the fragment (reading the fragment
+//   itself has ptxas serialize the groups): score = __int2float_rn(dot)
+//   then one __fsub_rn of the bias, -inf past rows_valid, inserted with
+//   strict > (an equal score keeps the earlier, lower id).
+// - per block the survivors go to shared memory and each warp merges its
+//   N / 8 rows side by side: only candidates that beat the row's k-th
+//   entry take part, each lane's four bins are sorted lists whose heads
+//   compete, a pass takes the warp's best by two reductions (the score
+//   key, then the lowest id at it), and once every candidate that beat
+//   the k-th entry is placed the rest of the row is its old list, shifted.
+//
+// Design of the rest (grouped_scan_kernel: K6 and K10 in every mode, and
+// K4's and K7's fp32 and bf16 modes):
 // - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
 //   DEPTH > 2): two row groups x 128 lanes, thread = (group, bin).  It
 //   walks back from t to the run's first block and then forward, one block
@@ -73,13 +121,12 @@
 //   (a top-DEPTH per bin folded across blocks would keep fewer candidates).
 // - per block: 16 chunks of 128 columns, each staged in shared memory and
 //   scored with __dp4a (int8) or fmaf (fp32 and bf16, widened to fp32 as
-//   they are staged): the stages and dot loops of ivf_stage.cuh, shared
-//   with K1.  The three sources differ only in the query stage: a block's
-//   rows, a cluster's rows, or a gather through cq_blocks (the float gather
-//   loads scalars into the zero-padded fp32 rows, since a row of D' = 129
-//   starts every 516 bytes).  Each thread keeps its bin's DEPTH best
-//   (score, chunk) per row in registers, inserted with strict > so an equal
-//   score keeps the earlier, lower id.
+//   they are staged): the stages and dot loops of ivf_stage.cuh.  The
+//   three sources differ only in the query stage: a block's rows, a
+//   cluster's rows, or (float K7) a gather through cq_blocks that loads
+//   scalars into the zero-padded fp32 rows, since a row of D' = 129 starts
+//   every 516 bytes.  Each thread keeps its bin's DEPTH best (score,
+//   chunk) per row in registers, inserted with strict > as above.
 //   The DEPTH survivors of a bin may be equal in value (K1's plane 2 is the
 //   opposite: the largest key DIFFERENT from plane 1).
 // - then the survivors go to shared memory (reusing the staging area) and
@@ -97,6 +144,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "ivf_stage.cuh"
 
 namespace {
@@ -150,6 +198,8 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
   constexpr int NCAND = Tile<DEPTH>::NCAND;
   constexpr int PER_LANE = NCAND / 32;
   constexpr bool INT8 = std::is_same_v<T, int8_t>;
+  // K4's and K7's int8 modes run on grouped_wgmma_kernel.
+  static_assert(!INT8 || SRC == QSrc::kCluster, "int8 kBlock and kRouted run on wgmma");
   const float NEG_INF = -INFINITY;
 
   const int t = blockIdx.x;
@@ -209,9 +259,6 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
       const int qrow = BY_CLUSTER ? block_cluster[b] : b;
       stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
                                reinterpret_cast<float*>(q_s));
-    } else if constexpr (SRC == QSrc::kRouted) {
-      stage_queries_gather<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
-                                    CTA_ROWS, qstride, reinterpret_cast<int8_t*>(q_s));
     } else {
       const int qrow = BY_CLUSTER ? block_cluster[b] : b;
       stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
@@ -425,6 +472,603 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
 #undef RAG_LAUNCH
 }
 
+// ------------------------------------------ K4 and K7 int8: wgmma fed by TMA
+
+constexpr int W_UNIT = 128 * 128;         // a unit of the slab: 128 bins x 128 bytes of d
+constexpr int W_HALF = W_UNIT / 2;        // one warpgroup's 64 bins
+constexpr int W_STAGES_MAX = 6;
+constexpr int W_SMEM_MAX = 232448 - 1024; // the opt-in limit less the static part
+
+// A CTA's tiling: N routed rows (the wgmma's N) x the 128 bins (its M, two
+// warpgroups of 64), so each thread holds F (row, bin) entries of the
+// fragment, with a top-DEPTH each.
+template <int DEPTH>
+struct WTile {
+  static constexpr int N = DEPTH <= 2 ? 32 : 16;
+  static constexpr int F = N / 2;
+  static constexpr int NCAND = DEPTH * LANES;  // survivors per row and block
+  static constexpr int CS = NCAND + 4;         // their row stride: the stores are conflict-free
+};
+
+template <int R>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[R], uint64_t da, uint64_t db, int acc) {
+  if constexpr (R == 16)
+    wgmma_m64n32k32_s8(d, da, db, acc);
+  else
+    wgmma_m64n16k32_s8(d, da, db, acc);
+}
+
+// Insert x (chunk c) into a sorted top-DEPTH: strict > keeps an equal,
+// earlier (lower-id) entry ahead; descending j reads tv[j-1] before it is
+// rewritten.
+template <int DEPTH>
+__device__ __forceinline__ void insert_top(float (&tv)[DEPTH], int (&tc)[DEPTH], float x, int c) {
+#pragma unroll
+  for (int j = DEPTH - 1; j > 0; --j) {
+    if (x > tv[j - 1]) {
+      tv[j] = tv[j - 1];
+      tc[j] = tc[j - 1];
+    } else if (x > tv[j]) {
+      tv[j] = x;
+      tc[j] = c;
+    }
+  }
+  if (x > tv[0]) {
+    tv[0] = x;
+    tc[0] = c;
+  }
+}
+
+// The unit after (b, c, j) along the run tb..t: j over the kb units of d,
+// c over the chunks of block b that hold a valid column, b over the blocks
+// that hold rows; false past the last.  Start from (tb - 1, 0, kb - 1).
+// Every thread walks the same list from the same global values.
+__device__ __forceinline__ bool next_unit(int& b, int& c, int& j, int tb, int t, int kb, int blk,
+                                          const int32_t* __restrict__ rows_valid) {
+  if (++j < kb) return true;
+  j = 0;
+  if (b >= tb && ++c * LANES < min(rows_valid[b], blk)) return true;
+  c = 0;
+  while (++b <= t)
+    if (rows_valid[b] > 0) return true;
+  return false;
+}
+
+// K4 (SRC kBlock: q = qg [nblocks, qcap, ldq], also through `tq`, [1, N,
+// 128] boxes, 128-byte swizzle) and K7 (SRC kRouted: q = qi [nsrc, ldq], row
+// r of block b being qi[cq_blocks[b, r]], gathered by the threads); the
+// slab [nblocks, d, blk] through `tv` ([1, 128, 16] boxes).  ldq is d
+// rounded up to 16 (the pad zero); kb units of 128 bytes of d.  CTA (t,
+// y): last block t, routed rows N y .. N y + N - 1.
+template <int DEPTH, QSrc SRC>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tv,
+                     const int8_t* __restrict__ q,
+                     const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7)
+                     const int32_t* __restrict__ block_first,
+                     const int32_t* __restrict__ block_last,
+                     const int32_t* __restrict__ rows_valid,
+                     const float* __restrict__ bias,          // [nblocks, blk] or null
+                     const int32_t* __restrict__ row_base,
+                     float* __restrict__ out_v, int32_t* __restrict__ out_i,
+                     int qcap, int blk, int kb, int ldq, int k, int stages, int nsrc) {
+  using Tl = WTile<DEPTH>;
+  constexpr int N = Tl::N, F = Tl::F, CS = Tl::CS;
+  constexpr int R = N / WARPS;               // rows each warp merges
+  constexpr int QUNIT = N * 128;             // a unit of the routed rows
+  const float NEG_INF = -INFINITY;
+
+  // CTAs on blocks that end no run leave before any setup (the recovery
+  // pass lists ~300 blocks and walks ~5 runs).
+  const int t = blockIdx.x;
+  if (block_last[t] == 0) return;
+  const int r0 = blockIdx.y * N;
+  int tb = t;  // the run's first block
+  while (tb > 0 && block_first[tb] == 0) --tb;
+  int cb = tb - 1, cc = 0, cj = kb - 1;  // the consumers' unit
+  bool have = next_unit(cb, cc, cj, tb, t, kb, blk, rows_valid);
+  if (!have) {  // no block of the run holds rows: every entry is -inf
+    for (int i = threadIdx.x; i < N * k; i += THREADS) {
+      const int r = i / k;
+      if (r0 + r >= qcap) continue;
+      const size_t o = ((size_t)t * qcap + r0) * k + i;
+      out_v[o] = NEG_INF;
+      out_i[o] = 0;
+    }
+    return;
+  }
+
+  // Shared memory: the TMA ring of raw slab units, two transposed units, the
+  // routed rows (kb units), the block's survivors and the running top-k.
+  extern __shared__ uint8_t w_smem[];
+  __shared__ __align__(8) uint64_t full[W_STAGES_MAX], qbar;
+  __shared__ uint32_t s_nz;  // the routed rows of the block that hold a nonzero byte
+  const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
+  uint8_t* const gbase = w_smem + (base - smem_u32(w_smem));
+  const uint32_t st = base, bk = st + stages * W_UNIT, qs = bk + 2 * W_UNIT;
+  float* const cand_v = reinterpret_cast<float*>(gbase + (qs - base) + kb * QUNIT);
+  int32_t* const cand_i = reinterpret_cast<int32_t*>(cand_v + N * CS);
+  float* const run_v = reinterpret_cast<float*>(cand_i + N * CS);
+  int32_t* const run_i = reinterpret_cast<int32_t*>(run_v + N * K_MAX);
+
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31, wg = warp >> 2;
+  // Fragment entry i of this thread: bin bin0 + 8 ((i / 2) % 2) of the
+  // chunk, routed row 8 (i / 4) + 2 (wl % 4) + i % 2 of the CTA's N.
+  const int bin0 = 64 * wg + 16 * (warp & 3) + (wl >> 2);
+  // The CTA's rows below qcap.
+  const int nrows = min(qcap - r0, N);
+  const uint32_t vmask = nrows == 32 ? ~0u : (1u << nrows) - 1u;
+
+  for (int i = threadIdx.x; i < N * K_MAX; i += THREADS) {
+    run_v[i] = NEG_INF;
+    run_i[i] = 0;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init(&qbar, 1);
+    s_nz = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Block b's routed rows into the K-major swizzled tile: K4 by TMA on
+  // qbar, K7 gathered in 16-byte pieces (zero rows for slots outside [0,
+  // nsrc) and past qcap), then the proxy fence; a barrier follows.
+  auto load_queries = [&](int b) {
+    if constexpr (SRC == QSrc::kBlock) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&qbar, kb * QUNIT);
+        for (int j = 0; j < kb; ++j) tma_load_3d(qs + j * QUNIT, &tq, 128 * j, r0, b, &qbar);
+      }
+    } else {
+      const int pieces = kb * 8;
+      for (int i = threadIdx.x; i < N * pieces; i += THREADS) {
+        const int n = i / pieces, p = i % pieces;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (r0 + n < qcap && 16 * p < ldq) {
+          const int s = cq_blocks[(size_t)b * qcap + r0 + n];
+          if (s >= 0 && s < nsrc) v = *reinterpret_cast<const int4*>(q + (size_t)s * ldq + 16 * p);
+        }
+        *reinterpret_cast<int4*>(gbase + (qs - base) + (p >> 3) * QUNIT + n * 128 +
+                                 (((p & 7) ^ (n & 7)) << 4)) = v;
+      }
+      fence_proxy_async();
+    }
+  };
+
+  // The block's rows that hold a nonzero byte, from the tile in shared
+  // memory, into s_nz (bit n: row n; reset beforehand, read after a
+  // barrier).  TPR threads a row, then a ballot.
+  auto detect = [&]() {
+    constexpr int TPR = THREADS / N;
+    const int n = threadIdx.x / TPR;
+    uint32_t any = 0;
+    for (int p = threadIdx.x % TPR; p < kb * 8; p += TPR) {
+      const uint4 v = *reinterpret_cast<const uint4*>(gbase + (qs - base) + (p >> 3) * QUNIT +
+                                                      n * 128 + (((p & 7) ^ (n & 7)) << 4));
+      any |= v.x | v.y | v.z | v.w;
+    }
+    const unsigned ball = __ballot_sync(FULL, any != 0);
+    if (wl == 0) {
+      uint32_t rows = 0;
+#pragma unroll
+      for (int j = 0; j < 32 / TPR; ++j)
+        if ((ball >> (j * TPR)) & ((1u << TPR) - 1u)) rows |= 1u << (warp * (32 / TPR) + j);
+      if (rows) atomicOr(&s_nz, rows);
+    }
+  };
+
+  // The producer (thread 0): `stages` units ahead of the consumers.
+  int pb = cb, pc = cc, pj = cj;
+  bool phave = true;
+  auto load = [&](int s) {
+    mbar_expect_tx(&full[s], W_UNIT);
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      tma_load_3d(st + s * W_UNIT + g * 2048, &tv, pc * LANES + 16 * g, 128 * pj, pb, &full[s]);
+    phave = next_unit(pb, pc, pj, tb, t, kb, blk, rows_valid);
+  };
+
+  // Make the unit in stage s (parity ph) ready: its bytes have landed; the
+  // threads transpose both halves (64 bins each) into buffer buf.
+  auto prep = [&](int s, unsigned ph, int buf) {
+    mbar_wait_loop(&full[s], ph);
+    const uint32_t* raw = reinterpret_cast<const uint32_t*>(gbase + (st - base) + s * W_UNIT);
+    uint8_t* dst = gbase + (bk - base) + buf * W_UNIT;
+    transpose_unit(raw, dst);
+    transpose_unit(raw + W_HALF / 4, dst + W_HALF);
+  };
+
+  int32_t d[F], e[F];
+  float tv_[F][DEPTH];
+  int tc_[F][DEPTH];
+#pragma unroll
+  for (int i = 0; i < F; ++i) {
+    d[i] = 0;
+#pragma unroll
+    for (int j = 0; j < DEPTH; ++j) {
+      tv_[i][j] = NEG_INF;
+      tc_[i][j] = 0;
+    }
+  }
+  float bsub[2] = {0.0f, 0.0f};
+
+  // The chunk's scores from the copy e, inserted into each entry's sorted
+  // top-DEPTH.  Bins at or past lim (rows_valid[b] less the chunk's first
+  // column) score -inf.  Only
+  // the rows in `need` are kept (the others copy a row after the merge):
+  // entry i covers rows 8 (i / 4) + i % 2 + {0, 2, 4, 6} across a warp's
+  // lanes, so the test is the same in every lane.
+  auto epilogue = [&](int b, int c, uint32_t need) {
+    const int lim = rows_valid[b] - c * LANES;
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      if (!(need & (0x55u << (8 * (i >> 2) + (i & 1))))) continue;
+      float x = __int2float_rn(e[i]);
+      if (bias != nullptr) x = __fsub_rn(x, bsub[(i >> 1) & 1]);
+      if (bin0 + 8 * ((i >> 1) & 1) >= lim) x = NEG_INF;
+      insert_top<DEPTH>(tv_[i], tc_[i], x, c);
+    }
+  };
+
+  // Block b's survivors to shared memory, [row][depth][bin], and the
+  // entries reset for the next block.
+  auto flush = [&](int b) {
+    const int rb = row_base[b];
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      const int bin = bin0 + 8 * ((i >> 1) & 1);
+      const int row = 8 * (i >> 2) + 2 * (wl & 3) + (i & 1);
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        cand_v[row * CS + j * LANES + bin] = tv_[i][j];
+        cand_i[row * CS + j * LANES + bin] = rb + tc_[i][j] * LANES + bin;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        tv_[i][j] = NEG_INF;
+        tc_[i][j] = 0;
+      }
+  };
+
+  // The survivors merged into each row's running top-k, warp w taking rows
+  // w, w + 8, ... side by side.  Only candidates that beat the row's k-th
+  // entry can enter (the others have k better entries ahead of them); the
+  // row is skipped when there are none (the TPU kernel's `improves`), and
+  // once every such candidate is placed the rest of the row is its old
+  // list, shifted.  Lane l holds bins l + 32 q (q < 4), each a list sorted
+  // by (score desc, id asc), and old entry l: a pass takes the lane's best
+  // head, then the warp's best by two reductions (the largest score key,
+  // then the lowest id at it), and the lane that held it pops that list.
+  // Finite ids are unique (row_base differs between blocks); int8 scores
+  // are never -0, so the score key orders them as the floats do.  Rows in
+  // `dup` are left out: their state is copied from another row after.
+  auto merge = [&](uint32_t dup) {
+    float lv[R][4][DEPTH], ov[R], sv0[R];
+    int li[R][4][DEPTH], oi[R], si0[R], nbeat[R], left[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int rr = warp + WARPS * r;
+      const bool act = ((vmask & ~dup) >> rr) & 1u;  // the same in every lane
+      const float kv = run_v[rr * K_MAX + k - 1];
+      const int ki = run_i[rr * K_MAX + k - 1];
+      int cnt = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < DEPTH; ++j) {
+          float v = NEG_INF;
+          int id = 0;
+          if (act) {
+            v = cand_v[rr * CS + j * LANES + q * 32 + wl];
+            id = cand_i[rr * CS + j * LANES + q * 32 + wl];
+          }
+          const bool beats = v > NEG_INF && better(v, id, kv, ki);
+          lv[r][q][j] = beats ? v : NEG_INF;
+          li[r][q][j] = id;
+          cnt += beats;
+        }
+      nbeat[r] = left[r] = __reduce_add_sync(FULL, cnt);
+      ov[r] = sv0[r] = wl < k ? run_v[rr * K_MAX + wl] : NEG_INF;
+      oi[r] = si0[r] = wl < k ? run_i[rr * K_MAX + wl] : 0;
+    }
+    __syncwarp();
+    for (int p = 0; p < k; ++p) {
+      bool busy = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) busy |= left[r] > 0;
+      if (!busy) break;
+      int mk[R], mi[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float bv = ov[r];
+        int bi = oi[r];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (better(lv[r][q][0], li[r][q][0], bv, bi)) {
+            bv = lv[r][q][0];
+            bi = li[r][q][0];
+          }
+        mk[r] = monotone_key(bv);
+        mi[r] = bi;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int key = __reduce_max_sync(FULL, mk[r]);
+        mi[r] = __reduce_min_sync(FULL, mk[r] == key ? mi[r] : INT32_MAX);
+        mk[r] = key;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (left[r] == 0) continue;  // the same in every lane
+        const int rr = warp + WARPS * r;
+        const float bv = key_to_f32(mk[r]);
+        if (wl == 0) {
+          run_v[rr * K_MAX + p] = bv;
+          run_i[rr * K_MAX + p] = mi[r];
+        }
+        const bool took = ov[r] == bv && oi[r] == mi[r];
+        if (took) ov[r] = NEG_INF;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (lv[r][q][0] == bv && li[r][q][0] == mi[r]) {
+#pragma unroll
+            for (int j = 0; j + 1 < DEPTH; ++j) {
+              lv[r][q][j] = lv[r][q][j + 1];
+              li[r][q][j] = li[r][q][j + 1];
+            }
+            lv[r][q][DEPTH - 1] = NEG_INF;
+          }
+        if (!__any_sync(FULL, took) && --left[r] == 0) {
+          // Slots p+1.. take the old entries not yet placed, in order.
+          const int at = wl + nbeat[r];
+          if (wl >= p + 1 - nbeat[r] && at < k) {
+            run_v[rr * K_MAX + at] = sv0[r];
+            run_i[rr * K_MAX + at] = si0[r];
+          }
+        }
+      }
+    }
+    __syncwarp();
+  };
+
+  // A tile whose rows are zero in every block of the run (most tiles of a
+  // routed table hold only empty slots) scores 0 - bias on every valid
+  // column, whatever the slab holds: no slab is loaded.  Per block the
+  // threads of bins 0-127 bin row 0's scores from the bias words, row 0 is
+  // merged, and every row takes its result.  The test stops at the first
+  // block that holds a row (a routed table's cluster shares its rows
+  // across its blocks, so that is the run's first).
+  bool nonzero = false;
+  for (int b = tb; b <= t && !nonzero; ++b) {
+    if (rows_valid[b] <= 0) continue;
+    bool any = false;
+    if constexpr (SRC == QSrc::kBlock) {
+      const int pieces = ldq / 16;
+      for (int i = threadIdx.x; i < nrows * pieces; i += THREADS) {
+        const int4 v = *reinterpret_cast<const int4*>(
+            q + ((size_t)b * qcap + r0 + i / pieces) * ldq + 16 * (i % pieces));
+        any |= (v.x | v.y | v.z | v.w) != 0;
+      }
+    } else {
+      for (int n = threadIdx.x; n < nrows; n += THREADS) {
+        const int s = cq_blocks[(size_t)b * qcap + r0 + n];
+        any |= s >= 0 && s < nsrc;
+      }
+    }
+    nonzero = __syncthreads_or(any);
+  }
+  if (!nonzero) {
+    for (int b = tb; b <= t; ++b) {
+      const int nvalid = min(rows_valid[b], blk);
+      if (nvalid <= 0) continue;
+      if (threadIdx.x < LANES) {
+        float zv[DEPTH];
+        int zc[DEPTH];
+#pragma unroll
+        for (int j = 0; j < DEPTH; ++j) {
+          zv[j] = NEG_INF;
+          zc[j] = 0;
+        }
+        const float* bw = bias != nullptr ? bias + (size_t)b * blk + threadIdx.x : nullptr;
+        const int nch = (nvalid + LANES - 1) / LANES;
+        for (int c0 = 0; c0 < nch; c0 += 8) {
+          float w[8];  // eight chunks' words in flight at once
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            w[u] = bw != nullptr && c0 + u < nch ? bw[(c0 + u) * LANES] : 0.0f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int c = c0 + u;
+            if (c >= nch) break;
+            float x = bw != nullptr ? __fsub_rn(0.0f, w[u]) : 0.0f;
+            if (c * LANES + (int)threadIdx.x >= nvalid) x = NEG_INF;
+            insert_top<DEPTH>(zv, zc, x, c);
+          }
+        }
+        const int rb = row_base[b];
+#pragma unroll
+        for (int j = 0; j < DEPTH; ++j) {
+          cand_v[j * LANES + threadIdx.x] = zv[j];
+          cand_i[j * LANES + threadIdx.x] = rb + zc[j] * LANES + threadIdx.x;
+        }
+      }
+      __syncthreads();
+      merge(vmask & ~1u);
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < nrows * k; i += THREADS) {
+      const size_t o = ((size_t)t * qcap + r0) * k + i;
+      out_v[o] = run_v[i % k];
+      out_i[o] = run_i[i % k];
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages && phave; ++s) load(s);
+  load_queries(cb);
+  int rs = 0, kbuf = 0;  // the unit's stage and transposed buffer
+  unsigned rph = 0, qph = 0;
+  prep(0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
+  if constexpr (SRC == QSrc::kBlock) mbar_wait_loop(&qbar, qph);
+  qph ^= 1u;
+  detect();
+  __syncthreads();
+  // Rows that were zero in every block so far (`same`) share one running
+  // top-k, their candidates being equal in every block: the lowest of them
+  // (`lead`) is scored and merged, the others (`dup`) copy it after the
+  // merge.
+  uint32_t same = vmask, dup = 0, need = 0;
+  int lead = 0;
+  auto rows_of_block = [&]() {
+    same &= ~s_nz;
+    lead = same != 0 ? __ffs(same) - 1 : 0;
+    dup = same & ~(1u << lead);
+    need = vmask & ~dup;
+  };
+  rows_of_block();
+  while (have) {
+    if (bias != nullptr && cj == 0) {  // the chunk's bias words for this thread's two bins
+      const float* bw = bias + (size_t)cb * blk + cc * LANES + bin0;
+      bsub[0] = bw[0];
+      bsub[1] = bw[8];
+    }
+    // The unit's product: 4 k-steps, the chunk's first unit from zero.
+    // A: the warpgroup's 64 bins, 128-byte rows, 8-row groups 1 KB apart; B:
+    // the N routed rows, the same layout; a k-step 32 bytes along the row.
+    {
+      const uint32_t sa = bk + kbuf * W_UNIT + wg * W_HALF;
+      const uint32_t sb = qs + cj * QUNIT;
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_s8(d, gmma_desc(sa + kk * 32, 16, 1024), gmma_desc(sb + kk * 32, 16, 1024),
+                 cj + kk);
+      wgmma_commit();
+      fence_acc(d);
+    }
+    // The next unit, and its transpose while the groups run.
+    int nb = cb, nc = cc, nj = cj;
+    const bool nhave = next_unit(nb, nc, nj, tb, t, kb, blk, rows_valid);
+    const int ns = rs + 1 == stages ? 0 : rs + 1;
+    const unsigned nph = rs + 1 == stages ? rph ^ 1u : rph;
+    if (nhave) prep(ns, nph, kbuf ^ 1);
+    wgmma_wait<0>();
+    fence_acc(d);
+    const bool chunk_end = cj == kb - 1;
+    if (chunk_end) {
+      copy_acc(d, e);
+      epilogue(cb, cc, need);
+    }
+    fence_proxy_async();
+    __syncthreads();  // stage rs and buffer kbuf are free; the next unit is transposed
+    if (threadIdx.x == 0 && phave) load(rs);
+    if (chunk_end && (!nhave || nb != cb)) {
+      // Block cb is scored: every product on the routed rows retired, so
+      // the next block's rows load while this one's survivors merge.
+      if (nhave) load_queries(nb);
+      flush(cb);
+      if (threadIdx.x == 0) s_nz = 0;
+      __syncthreads();
+      merge(dup);
+      __syncthreads();
+      for (int i = threadIdx.x; dup != 0 && i < N * k; i += THREADS) {
+        const int r = i / k, p = i % k;
+        if ((dup >> r) & 1u) {
+          run_v[r * K_MAX + p] = run_v[lead * K_MAX + p];
+          run_i[r * K_MAX + p] = run_i[lead * K_MAX + p];
+        }
+      }
+      if (nhave) {
+        if constexpr (SRC == QSrc::kBlock) {
+          mbar_wait_loop(&qbar, qph);
+          qph ^= 1u;
+        }
+        detect();
+      }
+      __syncthreads();
+      rows_of_block();
+    }
+    cb = nb;
+    cc = nc;
+    cj = nj;
+    rs = ns;
+    rph = nph;
+    kbuf ^= 1;
+    have = nhave;
+  }
+
+  for (int i = threadIdx.x; i < N * k; i += THREADS) {
+    const int r = i / k, p = i % k;
+    if (r0 + r >= qcap) continue;
+    const size_t o = ((size_t)t * qcap + r0 + r) * k + p;
+    out_v[o] = run_v[r * K_MAX + p];
+    out_i[o] = run_i[r * K_MAX + p];
+  }
+}
+
+// qg (K4: [nblocks, qcap, ldq]) or qi (K7: [nsrc, ldq]) with ldq = d rounded
+// up to 16, cq_blocks [nblocks, qcap] (K7), vec [nblocks, d, blk], bias
+// [nblocks, blk] or null.
+template <int DEPTH, QSrc SRC>
+int launch_wgmma(const void* q, const void* cq_blocks, const void* vec, const void* block_first,
+                 const void* block_last, const void* rows_valid, const void* bias,
+                 const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
+                 int ldq, int blk, int k, int nsrc, cudaStream_t s) {
+  using Tl = WTile<DEPTH>;
+  static const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int kb = (d + 127) / 128;
+  CUtensorMap tq{}, tv;
+  if constexpr (SRC == QSrc::kBlock)
+    if (const int e = int8_map_3d(encode, &tq, q, nblocks, qcap, ldq, 128, Tl::N, true)) return e;
+  if (const int e = int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false)) return e;
+  const int fixed = 1024 + 2 * W_UNIT + kb * Tl::N * 128 +
+                    Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
+  const int stages = min(W_STAGES_MAX, (W_SMEM_MAX - fixed) / W_UNIT);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const int smem = fixed + stages * W_UNIT;
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          grouped_wgmma_kernel<DEPTH, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return (int)e;
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + Tl::N - 1) / Tl::N));
+  grouped_wgmma_kernel<DEPTH, SRC><<<grid, THREADS, smem, s>>>(
+      tq, tv, static_cast<const int8_t*>(q), static_cast<const int32_t*>(cq_blocks),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
+      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc);
+  return (int)cudaGetLastError();
+}
+
+template <QSrc SRC>
+int dispatch_wgmma(const void* q, const void* cq_blocks, const void* vec,
+                   const void* block_first, const void* block_last, const void* rows_valid,
+                   const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
+                   int qcap, int d, int ldq, int blk, int k, int depth, int nsrc, void* stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RAG_LAUNCH(D)                                                                       \
+  launch_wgmma<D, SRC>(q, cq_blocks, vec, block_first, block_last, rows_valid, bias, row_base, \
+                       out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s)
+  switch (depth) {
+    case 1: return RAG_LAUNCH(1);
+    case 2: return RAG_LAUNCH(2);
+    case 3: return RAG_LAUNCH(3);
+    case 4: return RAG_LAUNCH(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RAG_LAUNCH
+}
+
 }  // namespace
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
@@ -432,15 +1076,16 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
 // mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 and
 // 1 <= depth <= 4.
 //
-// K4: qg [nblocks, qcap, d], out [nblocks, qcap, k].
+// K4: qg [nblocks, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
+// 16-byte aligned, out [nblocks, qcap, k]; on wgmma.
 extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
                                    const void* bias, const void* row_base, void* out_v,
-                                   void* out_i, int nblocks, int qcap, int d, int blk, int k,
-                                   int depth, void* stream) {
-  return dispatch<QSrc::kBlock>(qg, vec, nullptr, nullptr, block_first, block_last, rows_valid,
-                                bias, row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                                nblocks, stream);
+                                   void* out_i, int nblocks, int qcap, int d, int ldq, int blk,
+                                   int k, int depth, void* stream) {
+  return dispatch_wgmma<QSrc::kBlock>(qg, nullptr, vec, block_first, block_last, rows_valid,
+                                      bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                                      depth, nblocks, stream);
 }
 
 // K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
@@ -485,16 +1130,17 @@ extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* b
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
 }
 
-// K7: qi [nbatch, d], cq_blocks [nblocks, qcap] (-1 = empty slot),
-// out [nblocks, qcap, k].
+// K7: qi [nbatch, ldq] with ldq = d rounded up to 16 (the pad zero),
+// 16-byte aligned, cq_blocks [nblocks, qcap] (-1 = empty slot), out
+// [nblocks, qcap, k]; on wgmma.
 extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const void* vec,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
-                                  int d, int blk, int k, int depth, void* stream) {
-  return dispatch<QSrc::kRouted>(qi, vec, nullptr, cq_blocks, block_first, block_last,
-                                 rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d, blk,
-                                 k, depth, nbatch, stream);
+                                  int d, int ldq, int blk, int k, int depth, void* stream) {
+  return dispatch_wgmma<QSrc::kRouted>(qi, cq_blocks, vec, block_first, block_last, rows_valid,
+                                       bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk,
+                                       k, depth, nbatch, stream);
 }
 
 // K7's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qi and vec; vec

@@ -1,10 +1,11 @@
-// Slab staging shared by the cluster-major scan kernels (K9
-// ivf_accum_planes.cu; K4, K6, K7 and K10 ivf_grouped_scan.cu): the int8
-// stage (packed words, __dp4a) and the float stage (fp32 or bf16 operands
-// widened to fp32 as they are staged, fmaf), which the fp32 modes of K1
-// (ivf_accum_planes.cu; its int8 and bf16 modes run on wgmma) and of the
-// brute-force kernels (K5 bruteforce_accum.cu, K3 bruteforce_fused.cu) use
-// too.
+// Slab staging shared by the cluster-major scan kernels that do not run on
+// wgmma: the int8 stage (packed words, __dp4a) of K9 (ivf_accum_planes.cu)
+// and of K6's and K10's int8 modes (ivf_grouped_scan.cu; K4's and K7's int8
+// modes and K1's int8 and bf16 modes run on wgmma), and the float stage
+// (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
+// fp32 and bf16 modes of K4, K6, K7, K9 and K10, of K1's fp32 mode and of
+// the brute-force kernels' fp32 modes (K5 bruteforce_accum.cu, K3
+// bruteforce_fused.cu).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -66,25 +67,6 @@ __device__ __forceinline__ void stage_queries(const int8_t* __restrict__ qsrc, i
   for (int i = threadIdx.x; i < nrows * qstride * 4; i += NTHREADS) {
     const int r = i / (qstride * 4), e = i % (qstride * 4);
     q_b[i] = (row0 + r < qcap && e < d) ? qsrc[(size_t)(row0 + r) * d + e] : 0;
-  }
-}
-
-// The gathering form: routed row i (< qcap) is row idx[i] of a query batch
-// [nsrc, d], or zeros where idx[i] lies outside [0, nsrc) (an empty slot is
-// -1).  Same layout of `q_b` as stage_queries.
-template <int NTHREADS>
-__device__ __forceinline__ void stage_queries_gather(const int8_t* __restrict__ qsrc,
-                                                     const int32_t* __restrict__ idx, int nsrc,
-                                                     int qcap, int d, int row0, int nrows,
-                                                     int qstride, int8_t* q_b) {
-  for (int i = threadIdx.x; i < nrows * qstride * 4; i += NTHREADS) {
-    const int r = i / (qstride * 4), e = i % (qstride * 4);
-    int8_t v = 0;
-    if (row0 + r < qcap && e < d) {
-      const int s = idx[row0 + r];
-      if (s >= 0 && s < nsrc) v = qsrc[(size_t)s * d + e];
-    }
-    q_b[i] = v;
   }
 }
 

@@ -198,10 +198,11 @@ def _entry(name, nptr, nint):
 
 
 def kernel_operands(qg_blocks):
-    """The routed rows as the CUDA K1's int8 and bf16 modes read them: D
-    zero-padded to a 16-byte row pitch (TMA's), one copy where D needs it
-    and none otherwise (int8 D = 128).  The pad adds zero terms to every
-    dot, so no key moves."""
+    """The routed rows as the CUDA K1's int8 and bf16 modes (and K4's and
+    K7's int8 modes, ``ivf_scan.int8_operands``) read them: D zero-padded to
+    a 16-byte row pitch (TMA's), one copy where D needs it and none
+    otherwise (int8 D = 128).  The pad adds zero terms to every dot, so no
+    key moves."""
     return _build.pad_rows(qg_blocks, 16 // qg_blocks.element_size())
 
 

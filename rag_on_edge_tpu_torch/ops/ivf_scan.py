@@ -20,7 +20,11 @@ and ids are compared only where ``pv > -inf``.
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
 operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 do the
-same, in the same modes.
+same, in the same modes.  K4's and K7's int8 modes run on ``wgmma`` (s8 ->
+s32) fed by TMA, with the routed rows at TMA's 16-byte row pitch
+(:func:`int8_operands`; no copy at D = 128) and the slab transposed in
+shared memory; the float modes and K6's int8 mode score on the staged
+``fmaf`` and ``__dp4a`` loops of ``csrc/ivf_stage.cuh``.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -48,7 +52,7 @@ import ctypes
 
 import torch
 
-from rag_on_edge_tpu_torch.ops import _build, topk
+from rag_on_edge_tpu_torch.ops import _build, ivf_accum, topk
 
 __all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "ROUTED_LAUNCHES", "cluster_major_scan_grouped",
            "cluster_major_scan_grouped_reference", "cluster_major_scan",
@@ -76,11 +80,12 @@ _CUDA_DIM_MAX = 1024
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
-# stream last.  The float entries take one more int, bf16 (0 or 1).
+# stream last.  The float entries take one more int, bf16 (0 or 1); K4's and
+# K7's int8 entries (wgmma) one more, the routed rows' padded pitch.
 _ENTRIES = {
-    "ivf_grouped_scan_i8": (9, 6), "ivf_grouped_scan_f": (9, 7),
+    "ivf_grouped_scan_i8": (9, 7), "ivf_grouped_scan_f": (9, 7),
     "ivf_cluster_scan_i8": (10, 7), "ivf_cluster_scan_f": (10, 8),
-    "ivf_routed_scan_i8": (10, 7), "ivf_routed_scan_f": (10, 8),
+    "ivf_routed_scan_i8": (10, 8), "ivf_routed_scan_f": (10, 8),
     "ivf_variant_scan_i8": (9, 7), "ivf_variant_scan_f": (9, 8),
 }
 
@@ -223,6 +228,17 @@ def float_args(name: str, queries, vectors_t, d: int):
     return _build.aligned(vectors_t, 16), (int(vectors_t.dtype == torch.bfloat16),)
 
 
+def int8_operands(queries, vectors_t):
+    """What K4's and K7's int8 modes (``wgmma`` fed by TMA) read: the
+    routed rows (K4's ``qg_blocks``) or the batch (K7's ``qi``) with D
+    zero-padded to TMA's 16-byte row pitch (:func:`ivf_accum.kernel_operands`:
+    one copy where D needs it, none at D = 128), and both on 16-byte bases.
+    The pad adds zero terms to every dot, so no score moves; the kernel
+    reads d past the pitch, up to its 128-byte unit, as TMA's zeros."""
+    return (_build.aligned(ivf_accum.kernel_operands(queries), 16),
+            _build.aligned(vectors_t, 16))
+
+
 def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
                                rows_valid, k, blk=2048, group=4, nbins=128,
                                bin_depth=2, bias=None, row_base=None):
@@ -248,15 +264,20 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
     _check_cuda_limits("K4", nbins, k, bin_depth, d)
-    flag = ()
-    if not int_path:
+    if int_path:
+        # wgmma fed by TMA: the routed rows at TMA's 16-byte row pitch, both
+        # operands from 16-byte bases.
+        qg_blocks, vectors_t = int8_operands(qg_blocks, vectors_t)
+        dims, flag = (d, qg_blocks.shape[-1]), ()
+    else:
         vectors_t, flag = float_args("K4", qg_blocks, vectors_t, d)
+        dims = (d,)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     args = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
             block_last.data_ptr(), rows_valid.data_ptr(),
             bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-            pv.data_ptr(), pr.data_ptr(), nblocks, qcap, d, blk, k, bin_depth)
+            pv.data_ptr(), pr.data_ptr(), nblocks, qcap, *dims, blk, k, bin_depth)
     name = "ivf_grouped_scan_i8" if int_path else "ivf_grouped_scan_f"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -428,11 +449,16 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
                                     rows_valid, row_base, bias])
     _check_cuda_limits("K7", nbins, k, bin_depth, d)
-    flag = ()
-    if not int_path:
+    if int_path:
+        # wgmma: the batch gathered in 16-byte pieces (its rows at a 16-byte
+        # pitch), the slab by TMA from a 16-byte base.
+        qi, vectors_t = int8_operands(qi, vectors_t)
+        dims, flag = (d, qi.shape[-1]), ()
+    else:
         # The routed rows are gathered from qi a scalar at a time: only the
         # slabs need the 16-byte boundary.
         vectors_t, flag = float_args("K7", qi, vectors_t, d)
+        dims = (d,)
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     name = "ivf_routed_scan_i8" if int_path else "ivf_routed_scan_f"
@@ -441,7 +467,7 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         err = entry(name)(qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
                           block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
                           bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                          pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, d, blk, k,
+                          pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, *dims, blk, k,
                           bin_depth, *flag, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -192,12 +192,19 @@ def test_k2_kernel_equal_to_plain(dev, make, k):
     assert torch.equal(v, rv) and torch.equal(i, ri)
 
 
-def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias):
+def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, empty_slots=False):
     """K4 inputs; ``compact`` lays them out as the recovery pass does: the
     blocks of every other cluster in storage order, then the rest with
-    zeroed tables, and row_base = block·blk."""
+    zeroed tables, and row_base = block·blk.  ``empty_slots`` zeroes the
+    rows of each block from a random count on (0 to qcap), as a routed
+    table's empty slots, and row 3 of every other block, so a row can be
+    zero in one block of a run and not in the next."""
     qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d, *((0, 2) if ties else ()))
     nb = len(bf)
+    if empty_slots:
+        for b, n in enumerate(rng.integers(0, qcap + 1, nb)):
+            qg[b, n:] = 0
+        qg[::2, 3:4] = 0
     rb = np.arange(nb, dtype=np.int32) * blk
     br = rng.uniform(0, 3000, (nb, 1, blk)).astype(np.float32) if bias else None
     if compact:
@@ -210,11 +217,36 @@ def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias):
     return qg, vt, bf, bl, rv, br, rb
 
 
-@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
-    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
-    ([700, 300, 129, 2000], 256, 100, 37, 32, False),      # ragged qcap tile, d % 4 != 0
-    ([3000, 2100, 40], 2048, 24, 128, 20, True),            # scores 0..128: heavy ties
-], ids=["blk2048", "blk256", "ties"])
+# The int8 modes' tiling (wgmma): N = 32 routed rows a CTA (16 for depth >
+# 2) x the 128 bins of a chunk, d in units of 128 bytes, the chunks past
+# rows_valid skipped, each block's survivors merged per row.
+K4_SHAPES = [
+    pytest.param([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False,
+                 id="blk2048"),    # 3-block cluster, -inf fill
+    pytest.param([700, 300, 129, 2000], 256, 100, 37, 32, False,
+                 id="blk256"),     # ragged qcap tile, d % 4 != 0
+    pytest.param([3000, 2100, 40], 2048, 24, 128, 20, True,
+                 id="ties"),       # scores 0..128: ties across chunks and blocks of a run
+    pytest.param([300, 5, 900], 128, 1, 32, 10, False,
+                 id="q1-d32"),     # one routed row, blk 128, D one k32 step
+    pytest.param([1500, 0, 40], 512, 63, 1024, 20, False,
+                 id="q63-d1024"),  # one row short of 64; 8 units of d
+    pytest.param([1500, 40], 512, 64, 512, 20, False,
+                 id="q64-d512"),
+    pytest.param([1500, 0, 40], 512, 65, 37, 20, False,
+                 id="q65-d37"),
+    pytest.param([2000, 700], 256, 128, 128, 16, False,
+                 id="q128"),
+    pytest.param([700, 300], 256, 129, 128, 20, False,
+                 id="q129"),
+    pytest.param([300, 16 * 128 - 7], 128, 256, 128, 20, False,
+                 id="q256-16blocks"),  # a cluster of 16 blocks
+    pytest.param([2000, 1000], 128, 33, 32, 20, True,
+                 id="ties-blk128"),    # ties across 16 one-chunk blocks of one run
+]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", K4_SHAPES)
 @pytest.mark.parametrize("depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
 @pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
@@ -222,7 +254,7 @@ def test_k4_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias
     rng = np.random.default_rng(19)
     qg, vt, bf, bl, rv, br, rb = (None if x is None else torch.from_numpy(x).to(dev)
                                   for x in _k4_inputs(rng, sizes, blk, qcap, d, ties,
-                                                      compact, bias))
+                                                      compact, bias, empty_slots=True))
     kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
     before = ivf_scan.LAUNCHES
     pv, pr = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw)
@@ -473,11 +505,7 @@ def _k7_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, nbatch=300):
     return (qi, np.ascontiguousarray(cq[bc][..., None]), vt, bc, bf, bl, rv, br, rb, cq)
 
 
-@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
-    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
-    ([700, 300, 129, 2000], 256, 100, 37, 32, False),      # ragged qcap tile, d % 4 != 0
-    ([3000, 2100, 40], 2048, 24, 128, 20, True),            # scores 0..128: heavy ties
-], ids=["blk2048", "blk256", "ties"])
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", K4_SHAPES)
 @pytest.mark.parametrize("depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
 @pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])

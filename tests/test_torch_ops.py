@@ -449,6 +449,47 @@ def test_k4_plain_equals_jax(case):
         assert (chunks[:, -1] == chunks[:, -2]).any()  # a bin's two best are equal
 
 
+def test_k4_int8_operands_keep_every_score():
+    """What the CUDA K4's int8 mode (wgmma fed by TMA) reads: the routed
+    rows through the wrapper's own preparation (D 37 padded to TMA's
+    16-byte pitch, 16-byte bases), both operands' d read as zeros up to the
+    kernel's 128-byte unit (TMA's fill).  The plain K4 on those operands
+    equals the JAX kernel on the original ones: padding moves no score."""
+    rng = np.random.default_rng(31)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, K4_SIZES, K4_BLK, 12, 37)
+    nb = len(bf)
+    bias = rng.uniform(0, 3000, (nb, 1, K4_BLK)).astype(np.float32)
+    rb = np.arange(nb, dtype=np.int32) * K4_BLK
+    jv, ji = pallas_ivf.cluster_major_scan_grouped(
+        *map(jnp.asarray, (qg, vt, bf, bl, rv)), k=K4_K, blk=K4_BLK, bias=jnp.asarray(bias),
+        row_base=jnp.asarray(rb))
+    qk, vk = ivf_scan.int8_operands(torch.from_numpy(qg), torch.from_numpy(vt))
+    assert qk.shape[-1] == 48 and qk.data_ptr() % 16 == 0 and vk.data_ptr() % 16 == 0
+    assert torch.equal(qk[..., :37], torch.from_numpy(qg)) and not qk[..., 37:].any()
+    qk = torch.nn.functional.pad(qk, (0, 128 - qk.shape[-1]))
+    vk = torch.nn.functional.pad(vk, (0, 0, 0, 128 - 37))
+    tv, ti = ivf_scan.cluster_major_scan_grouped(
+        qk, vk, *map(torch.from_numpy, (bf, bl, rv)), k=K4_K, blk=K4_BLK,
+        bias=torch.from_numpy(bias), row_base=torch.from_numpy(rb))
+    rows = np.nonzero(bl)[0]
+    jv, ji, tv, ti = _np(jv)[rows], _np(ji)[rows], tv.numpy()[rows], ti.numpy()[rows]
+    np.testing.assert_array_equal(tv, jv)
+    fin = jv > -np.inf
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    assert fin.any()
+
+
+def test_int8_operands_copy_only_to_pad():
+    """K4's and K7's int8 operands: a row pitch that TMA takes as it is (D =
+    128) and slabs on a 16-byte base are handed over with no copy."""
+    q = torch.ones((3, 5, 128), dtype=torch.int8)
+    vt = torch.ones((3, 128, 256), dtype=torch.int8)
+    qk, vk = ivf_scan.int8_operands(q, vt)
+    assert qk.data_ptr() == q.data_ptr() and vk.data_ptr() == vt.data_ptr()
+    wide, _ = ivf_scan.int8_operands(torch.ones((7, 129), dtype=torch.int8), vt)
+    assert wide.shape == (7, 144) and not wide[:, 129:].any()
+
+
 def test_k4_rejects_bad_inputs():
     qg, vt, bf, bl, rv, _, _, _ = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
                                    for x in _k4_case("i8-compact-d3"))

@@ -96,6 +96,31 @@ def test_k7_plain_equals_jax(case):
     assert (cqb[rows] < 0).any()
 
 
+def test_k7_int8_operands_keep_every_score():
+    """What the CUDA K7's int8 mode reads: the batch at TMA's 16-byte row
+    pitch (D = 64: handed over with no copy), gathered into tiles that read
+    d as zeros up to the kernel's 128-byte unit.  The plain K7 on those
+    operands equals the JAX kernel on the original ones."""
+    qi, cqb, vt, bf, bl, rv, bias, rb, depth = _k7_case("i8-bias-dense")
+    jv, ji = pallas_ivf.cluster_major_scan_routed(
+        *map(jnp.asarray, (qi, cqb, vt, bf, bl, rv)), k=K, blk=BLK, group=2, bin_depth=depth,
+        bias=jnp.asarray(bias), row_base=jnp.asarray(rb))
+    q = torch.from_numpy(qi)
+    qk, vk = ivf_scan.int8_operands(q, torch.from_numpy(vt))
+    assert qk.data_ptr() == q.data_ptr()
+    qk = torch.nn.functional.pad(qk, (0, 128 - D))
+    vk = torch.nn.functional.pad(vk, (0, 0, 0, 128 - D))
+    tv, ti = ivf_scan.cluster_major_scan_routed(
+        qk, torch.from_numpy(cqb), vk, *map(torch.from_numpy, (bf, bl, rv)), k=K, blk=BLK,
+        group=2, bin_depth=depth, bias=torch.from_numpy(bias), row_base=torch.from_numpy(rb))
+    rows = np.nonzero(bl)[0]
+    jv, ji, tv, ti = _np(jv)[rows], _np(ji)[rows], tv.numpy()[rows], ti.numpy()[rows]
+    assert tv.tobytes() == jv.tobytes()
+    fin = jv > -np.inf
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    assert fin.any()
+
+
 def test_k7_plain_equals_k4_on_the_gathered_table():
     qi, cqb, vt, bf, bl, rv, bias, rb, depth = _k7_case("i8-bias-dense")
     cqb[0, 0, 0] = K7_B  # an index past the batch gives a zero row, as -1 does
