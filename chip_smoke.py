@@ -13,17 +13,19 @@ Phases, each printed with its wall time; any failure raises and the
 script exits non-zero without a result line:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile kernels K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8 and
-             K11-K14 (CUDA C++, one nvcc per source, all at once) and K2
-             (Triton) from the sources in this checkout; beside them, K3's,
-             K5's, K1's and K4's sources once more to cubins with
-             ``-Xptxas -v``: each wgmma kernel's registers, spills and
-             warpgroup MMA opcodes (``cuobjdump -sass``; every int8
-             instantiation must hold the s8 MMA, every bf16 one the bf16
-             MMA, and no kernel of these four sources a ``__dp4a`` but K9's
-             ``accum_extract_kernel`` and the int8 modes of K6 and K10
-             (``grouped_scan_kernel``, listed by instantiation); K14's
-             ``__dp4a`` probe is unchecked).
+2. build   — compile kernels K1 + K9, K2, K4 + K6 + K7 + K10, K3, K5, K8
+             and K11-K14 (CUDA C++, one nvcc per source, all at once) from
+             the sources in this checkout; beside them, K3's, K5's, K1's,
+             K4's and K2's sources once more to cubins with ``-Xptxas -v``:
+             each wgmma kernel's registers, spills and warpgroup MMA opcodes
+             (``cuobjdump -sass``; every int8 instantiation, K6's included,
+             must hold the s8 MMA, every bf16 one the bf16 MMA, and no
+             kernel of these four sources a ``__dp4a`` but K9's
+             ``accum_extract_kernel`` and K10's int8 variants at bin depth
+             2 (``grouped_scan_kernel``, listed by instantiation; any other
+             int8 instance of it fails the build); K14's ``__dp4a`` probe is
+             unchecked), and K2's registers, spills and warp reductions
+             (``REDUX``, required).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
@@ -33,6 +35,8 @@ script exits non-zero without a result line:
              version on the card at the slice's shapes (bit-equal planes,
              exactly equal top-k; K4 at the recovery pass's shapes from
              this batch's dropped pairs and at the dense grouped walk's;
+             K2 also at W = 4096 and 8192, the joins of nprobe 16 and 32,
+             each timed beside its plain version and ``torch.topk``;
              K7 at the same two walks, also against K4 on the gathered
              table; K9, which no search calls, at the batch's routed table
              twice, int8 IP and int8 L2 with its 4-bit bias rows, with its
@@ -48,7 +52,8 @@ script exits non-zero without a result line:
              spill; check recall@10 and recall@1 against exact ground truth
              beside the recall without recovery, and time one B=8192 call
              and its stages, and split one call by kernel with
-             ``torch.profiler`` (the device's busy time and idle share).
+             ``torch.profiler`` (K1, K4, K2 and the rest; the device's busy
+             time and idle share).
 5. grouped — the same queries through ``engine="pallas"`` (kernel K4 over
              the dense block walk): recall and one B=8192 call's time.
 6. routed  — the same queries through ``engine="pallas_routed"`` (kernel
@@ -86,7 +91,10 @@ script exits non-zero without a result line:
              0.99), and through ``mode="query"`` at B=128 (recall@10 >=
              0.99); and ``ShardedBruteForceIndex(base, metric="l2",
              dtype="int8", rescore=True)`` (K3 per shard, recall@10 >=
-             0.999).  One call of each timed with CUDA events.
+             0.999).  One call of each timed with CUDA events; the default
+             call and ``engine="pallas"`` split by kernel (K1, K6, K2 and
+             the rest, launches counted over one call, ``torch.profiler``:
+             device busy time and idle share).
 10. lab    — the kernel lab (``harness/kernel_lab.py``) on the same index at
              its defaults (qcap 128, k 20, 128 bins, B=2048, nprobe 4, one
              fixed routing): kernel K10 in its four variants held against
@@ -196,6 +204,13 @@ REPS = 10
 # dense int8 tensor-core ops/s, and 32-bit non-tensor ops/s.
 HBM_BYTES_S, INT8_OPS_S, OPS32_S = 3.35e12, 1979e12, 67e12
 BF16_OPS_S = 989e12  # dense bf16 tensor-core FLOP/s: the bound of the bf16 modes
+# The kernels of the int8 IVF default calls, by a substring of their device
+# names: the single index's (K1, the recovery pass's K4, K2) and the sharded
+# index's (K1, the recovery pass's K6, K2; its engine="pallas" walk is K6).
+HEADLINE_KERNELS = {"K1": "planes_wgmma_kernel", "K4": "grouped_wgmma_kernel",
+                    "K2": "fused_topk_kernel"}
+SHARDED_KERNELS = {"K1": "planes_wgmma_kernel", "K6": "grouped_wgmma_kernel",
+                   "K2": "fused_topk_kernel"}
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -223,15 +238,16 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(torch, fn) -> dict | str:
+def device_ms_by_kernel(torch, fn, calls: int = 1) -> dict | str:
     """Device ms of one ``fn()`` call, summed by kernel name, from
-    ``torch.profiler`` (after a warm-up call)."""
+    ``torch.profiler`` over ``calls`` calls (after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
@@ -241,7 +257,7 @@ def device_ms_by_kernel(torch, fn) -> dict | str:
         if us > 0:
             name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
             name = name.split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + us / 1e3
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
     return out or "not measured (the profiler saw no device time)"
 
 
@@ -252,17 +268,13 @@ def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
+def cubin_report(_build, name: str):
     """Compile ``csrc/<name>.cu`` once more to a cubin with ``-Xptxas -v``
-    and read it back with ``cuobjdump -sass``: each wgmma kernel's registers,
-    stack frame, spills and warpgroup MMA opcodes, any ptxas warning that serializes the
-    wgmma groups (C7520), and the count of ``__dp4a`` (IDP) instructions by
-    kernel (``grouped_scan_kernel`` by instantiation: K6's and K10's int8
-    modes).  Raises if an int8 instantiation holds no s8 warpgroup MMA, a
-    wgmma kernel holds IDP, or a kernel not named in ``idp_allowed`` (K9's
-    ``accum_extract_kernel`` beside K1; ``grouped_scan_kernel`` beside K4
-    and K7) holds IDP."""
+    and read it back with ``cuobjdump -sass`` → (props: each kernel's
+    registers, stack frame and spills; ptxas's warnings that serialize the
+    wgmma groups (C7520); opcodes: each kernel's SASS opcodes, counted)."""
     import re
+    from collections import Counter
 
     nvcc = _build._nvcc()
     cubin = _build.BUILD_DIR / f"{name}-report.cubin"
@@ -288,7 +300,7 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
             props.setdefault(entry, {})["regs"] = int(m.group(1))
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, timeout=600, check=True).stdout
-    ops, fn, idp = {}, None, {}
+    opcodes, fn = {}, None
     for ln in sass.splitlines():
         m = re.match(r"\s*Function : (\w+)", ln)
         if m:
@@ -296,20 +308,37 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)
         if m and fn:
-            if m.group(1).startswith("IDP"):
-                idp[fn] = idp.get(fn, 0) + 1
-            if "GMMA" in m.group(1):
-                ops.setdefault(fn, set()).add(m.group(1))
-    lines = []
-    for fn in sorted(set(ops) | {f for f in props if "wgmma_kernel" in f}):
-        if "wgmma_kernel" not in fn:
-            continue
+            opcodes.setdefault(fn, Counter())[m.group(1)] += 1
+    return props, warnings, opcodes
+
+
+def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
+    """Each wgmma kernel's registers, stack frame, spills and warpgroup MMA
+    opcodes in ``csrc/<name>.cu`` (:func:`cubin_report`), any ptxas warning
+    that serializes the wgmma groups, and the count of ``__dp4a`` (IDP)
+    instructions by kernel (``grouped_scan_kernel`` by instantiation).
+    Raises if an int8 instantiation holds no s8 warpgroup MMA, a wgmma
+    kernel holds IDP, a kernel not named in ``idp_allowed`` (K9's
+    ``accum_extract_kernel`` beside K1; ``grouped_scan_kernel`` beside K4,
+    K6 and K7) holds IDP, an int8 ``grouped_scan_kernel`` instance is not
+    one of K10's four variants at bin depth 2 (K6's int8 mode runs on
+    ``grouped_wgmma_kernel``), or ``grouped_wgmma_kernel`` lacks one of
+    K4's, K6's and K7's depths 1-4."""
+    import re
+
+    props, warnings, opcodes = cubin_report(_build, name)
+    ops = {f: {o for o in c if "GMMA" in o} for f, c in opcodes.items()}
+    idp = {f: n for f, c in opcodes.items() if (n := sum(v for o, v in c.items()
+                                                          if o.startswith("IDP")))}
+    lines, grouped_seen = [], set()
+    for fn in sorted(f for f in set(ops) | set(props) if "wgmma_kernel" in f):
         short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
         grouped = re.search(r"grouped_wgmma_kernelILi(\d)E\w*?QSrcE(\d)E", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
         if grouped:
-            tag = (f"grouped_wgmma_kernel<{'K7' if grouped.group(2) == '2' else 'K4'}, "
-                   f"depth {grouped.group(1)}>")
+            kern = {"0": "K4", "1": "K6", "2": "K7"}[grouped.group(2)]
+            grouped_seen.add((kern, grouped.group(1)))
+            tag = f"grouped_wgmma_kernel<{kern}, depth {grouped.group(1)}>"
         p_ = props.get(fn, {})
         lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
                      f"spill stores/loads {p_.get('spills')}, wgmma opcodes "
@@ -319,23 +348,61 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
             raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
         if re.search(r"wgmma_kernelILi0E", fn) and not any("BF16" in o for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no bf16 warpgroup MMA: {sorted(ops.get(fn, ()))}")
+    if grouped_seen and len(grouped_seen) != 12:
+        raise AssertionError(f"grouped_wgmma_kernel instances {sorted(grouped_seen)}: K4, K6 "
+                             "and K7 at depths 1-4 expected")
     by_kernel, by_inst = {}, {}
-    for f, n in idp.items():
+    for f in opcodes:
+        inst = re.search(r"grouped_scan_kernelIaLi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", f)
+        if inst and (inst.group(1) != "2" or inst.group(2) != "1"):
+            raise AssertionError(f"an int8 grouped_scan_kernel instance other than K10's is "
+                                 f"left (depth {inst.group(1)}, source {inst.group(2)}): {f}")
+        if f not in idp:
+            continue
         short = re.search(r"[a-z][a-z_]*_kernel", f)
         key = short.group(0) if short else f
-        by_kernel[key] = by_kernel.get(key, 0) + n
-        inst = re.search(r"grouped_scan_kernelIaLi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", f)
-        if inst:  # K6 (kCluster, kFull; K10 full is its depth-2 instance) or a K10 variant
-            depth, src, var = inst.groups()
-            key = (f"K6 int8 depth {depth}" if var == "0" else f"K10 int8 variant {var}") \
-                if src == "1" else f"grouped_scan_kernel int8 source {src} depth {depth}"
-        by_inst[key] = by_inst.get(key, 0) + n
+        by_kernel[key] = by_kernel.get(key, 0) + idp[f]
+        if inst:
+            variant = ("full", "nogate", "maxonly", "fixedout")[int(inst.group(3))]
+            key = f"K10 int8 {variant} (depth 2)"
+        by_inst[key] = by_inst.get(key, 0) + idp[f]
     stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed or "wgmma" in f}
     if stray:
         raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {stray}")
     lines.append(f"IDP (__dp4a) instructions in lib{name}: {sum(idp.values())} "
                  f"{by_inst or ''}; ptxas serialization warnings: {warnings or 'none'}")
     return lines
+
+
+def k2_report(_build) -> list[str]:
+    """K2's two instances (int32, float32): registers, stack frame, spills
+    and the warp reductions (``REDUX``) in their SASS; raises if an
+    instance holds no ``REDUX`` or spills."""
+    props, _, opcodes = cubin_report(_build, "fused_topk")
+    lines = []
+    for fn in sorted(f for f in opcodes if "fused_topk_kernel" in f):
+        redux = {o: n for o, n in opcodes[fn].items() if o.startswith("REDUX")}
+        p_ = props.get(fn, {})
+        tag = f"fused_topk_kernel<{'float32' if 'ILb1E' in fn else 'int32'}>"
+        if not redux or (p_.get("spills") or (0, 0)) != (0, 0):
+            raise AssertionError(f"{tag}: REDUX {redux}, spills {p_.get('spills')}")
+        lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
+                     f"spill stores/loads {p_.get('spills')}, REDUX {redux}, "
+                     f"{sum(opcodes[fn].values())} instructions")
+    if len(lines) != 2:
+        raise AssertionError(f"libfused_topk: {len(lines)} fused_topk_kernel instances, 2 expected")
+    return lines
+
+
+def split_by_kernel(by_kernel: dict, families: dict) -> dict:
+    """Device ms by kernel family ({label: name substring}), the rest under
+    ``other``."""
+    out = {label: 0.0 for label in families}
+    out["other"] = 0.0
+    for name, ms in by_kernel.items():
+        label = next((lb for lb, sub in families.items() if sub in name), "other")
+        out[label] += ms
+    return out
 
 
 def prod_ms(torch, qg, vectors_t) -> float | str:
@@ -410,25 +477,24 @@ def main() -> None:
 
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
-               "tiled_matmul", "hw_probe"]
-    # K5's, K3's, K1's and K4's and K7's wgmma kernels; K9 (beside K1) and
-    # K6 and K10 (grouped_scan_kernel, beside K4 and K7) keep their __dp4a.
+               "tiled_matmul", "hw_probe", "fused_topk"]
+    # K5's, K3's, K1's and K4's, K6's and K7's wgmma kernels; K9 (beside K1)
+    # and K10 (grouped_scan_kernel, beside K4, K6 and K7) keep their __dp4a.
     reported = {"bruteforce_accum": (), "bruteforce_fused": (),
                 "ivf_accum_planes": ("accum_extract_kernel",),
                 "ivf_grouped_scan": ("grouped_scan_kernel",)}
-    with ThreadPoolExecutor(len(sources) + len(reported)) as ex:  # one nvcc each, all at once
+    with ThreadPoolExecutor(len(sources) + len(reported) + 1) as ex:  # one nvcc each, all at once
         reports = [ex.submit(wgmma_report, _build, name, allowed)
                    for name, allowed in reported.items()]
+        report_k2 = ex.submit(k2_report, _build)
         list(ex.map(_build.load_library, sources))
         for name, rep in zip(reported, reports):
             for line in rep.result():
                 print(f"[build] {name} ptxas -v / SASS: {line}", flush=True)
-    nvcc_s = time.time() - t
-    t = time.time()
-    fused_topk.fused_topk(torch.zeros((4, NPROBE * 256), dtype=torch.int32, device=dev), 2 * K)
-    torch.cuda.synchronize()
-    phase("build", t0, f"K1 + K9, K4 + K6 + K7 + K10, K3, K5, K8, K11-K14 nvcc {nvcc_s:.1f}s, "
-          f"K2 triton {time.time() - t:.1f}s")
+        for line in report_k2.result():
+            print(f"[build] fused_topk ptxas -v / SASS: {line}", flush=True)
+    phase("build", t0, f"K1 + K9, K2, K4 + K6 + K7 + K10, K3, K5, K8, K11-K14 nvcc "
+          f"{time.time() - t:.1f}s")
 
     def reset_launches():
         for mod in (ivf_accum, fused_topk, ivf_scan, bruteforce_fused, bruteforce_accum,
@@ -523,13 +589,39 @@ def main() -> None:
         if err:
             raise AssertionError(f"K2 differs from the plain version on {name}: {err}")
         k2_err = max(k2_err, err)
-    k2_ms = cuda_ms(torch, lambda: fused_topk.fused_topk(pool, kk))
-    k2_plain_ms = cuda_ms(torch, lambda: fused_topk.fused_topk_reference(pool, kk))
-    k2_lib_ms = cuda_ms(torch, lambda: torch.topk(pool, kk, dim=1))
-    k2_bound = bound(pool.numel() * 4 + pool.shape[0] * kk * 8, kk * pool.numel(), OPS32_S)
-    phase("kernels", t0, f"K2 {tuple(pool.shape)} int32 k={kk}: exactly equal on the "
-          f"joined pool and a tie-heavy matrix; {k2_ms} ms vs plain {k2_plain_ms} ms, "
-          f"torch.topk {k2_lib_ms} ms; bound {k2_bound[0]} ms by {k2_bound[1]}")
+    # K2 timed at the joins of nprobe 4, 16 and 32 (W = nprobe * 256): the
+    # pool at W = 1024, full-range int32 with 1/8 KMIN (empty probes) beyond
+    # it, each held to the plain version first.  CUDA events around one call
+    # count the wrapper's host time wherever the card idles while the host
+    # launches it; calls captured in one CUDA graph count the device alone
+    # (the plain version's scalar tensors cannot be captured).
+    gen = torch.Generator(device=dev).manual_seed(15)
+    k2_widths = {}
+    for w in (pool.shape[1], 4096, 8192):
+        if w == pool.shape[1]:
+            xw = pool
+        else:
+            xw = torch.randint(-2**31, 2**31 - 1, (BATCH, w), generator=gen, device=dev,
+                               dtype=torch.int32)
+            xw[:, ::8] = ivf_accum.KMIN
+        vw, iw = fused_topk.fused_topk(xw, kk)
+        rvw, riw = fused_topk.fused_topk_reference(xw, kk)
+        torch.cuda.synchronize()
+        if not torch.equal(vw, rvw) or not torch.equal(iw, riw):
+            raise AssertionError(f"K2 differs from the plain version at W={w}")
+        k2_widths[w] = dict(
+            ms=cuda_ms(torch, lambda: fused_topk.fused_topk(xw, kk)),
+            device_ms=timing.graph_ms(lambda: fused_topk.fused_topk(xw, kk), dev, calls=REPS),
+            plain_ms=cuda_ms(torch, lambda: fused_topk.fused_topk_reference(xw, kk)),
+            lib_ms=cuda_ms(torch, lambda: torch.topk(xw, kk, dim=1)),
+            lib_device_ms=timing.graph_ms(lambda: torch.topk(xw, kk, dim=1), dev, calls=REPS),
+            bound=bound(xw.numel() * 4 + BATCH * kk * 8, kk * xw.numel(), OPS32_S))
+        del xw, vw, iw, rvw, riw
+    k2 = k2_widths[pool.shape[1]]
+    phase("kernels", t0, f"K2 [{BATCH}, W] int32 k={kk}: exactly equal to the plain version on "
+          f"the joined pool (W={pool.shape[1]}), a tie-heavy matrix and W 4096, 8192; by W, ms "
+          f"(events around a call: kernel, plain, torch.topk; device time in a CUDA graph: "
+          f"kernel, torch.topk) and bound: {k2_widths}")
 
     # K4 at the recovery pass's own inputs (this batch's lossy pairs, the
     # default recover_qcap and recover_blocks), then at the dense grouped walk.
@@ -713,9 +805,10 @@ def main() -> None:
     if isinstance(by_kernel, dict):
         busy = sum(by_kernel.values())
         top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        split = split_by_kernel(by_kernel, HEADLINE_KERNELS)
         phase("slice", t0, f"one B={BATCH} search_device by kernel (torch.profiler): device "
               f"busy {busy} ms of the {search_ms} ms call, idle share {1 - busy / search_ms:.3f}; "
-              f"largest {top}")
+              f"by kernel {split}; largest {top}")
     else:
         phase("slice", t0, f"one B={BATCH} search_device by kernel: {by_kernel}")
 
@@ -1023,15 +1116,22 @@ def main() -> None:
         err = float((pv[r6][fin] - rpv[r6][fin]).abs().max()) if fin.any() else 0.0
         del rpv, rpr
         walked, cols = walked_blocks(np, bf_, bl_, rv_)
+        # Beside CUDA events around one call (the wrapper's host time
+        # included where the card idles), the kernel's own device time.
+        dev_k6 = device_ms_by_kernel(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw),
+                                     calls=REPS)
         k6[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan(*args, **kw)),
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(*args, **kw)),
+            device_ms=split_by_kernel(dev_k6, {"K6": "grouped_wgmma_kernel"})["K6"]
+            if isinstance(dev_k6, dict) else dev_k6,
             bound=bound(cols * (DIM + 4) + r6.numel() * qcap * (DIM + kk * 8),
                         2.0 * qcap * cols * DIM, INT8_OPS_S))
         phase("kernels", t0, f"K6 {name} (shard {0 if name == 'dense' else s_rec}): qg "
               f"{tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv bit-equal, "
               f"pr equal where finite, on {r6.numel()} emitted clusters ({int(fin.sum())} "
-              f"finite entries, {walked} blocks walked); {k6[name]['ms']} ms vs plain "
+              f"finite entries, {walked} blocks walked); {k6[name]['ms']} ms (kernel alone "
+              f"{k6[name]['device_ms']} ms by torch.profiler) vs plain "
               f"{k6[name]['plain_ms']} ms; bound {k6[name]['bound'][0]} ms by "
               f"{k6[name]['bound'][1]}")
     del r, rec_scan, k6_inputs
@@ -1083,6 +1183,22 @@ def main() -> None:
     }.items()}
     phase("sharded", t0, f"one B={BATCH} sharded call, stages ms {sh_stage_ms}")
     del r8, outs8
+    # The call split by kernel: its launches (counted over one call) and its
+    # device time (torch.profiler), K1, K6 (the recovery passes) and K2 once
+    # per shard.
+    reset_launches()
+    sh.search_device(qs, K, NPROBE, mode="cluster")
+    torch.cuda.synchronize()
+    one_call = {key: n for key, n in read_launches().items() if n}
+    by_kernel_s = device_ms_by_kernel(torch, lambda: sh.search_device(qs, K, NPROBE,
+                                                                      mode="cluster"))
+    if isinstance(by_kernel_s, dict):
+        busy_s = sum(by_kernel_s.values())
+        phase("sharded", t0, f"one B={BATCH} sharded call by kernel (torch.profiler): launches "
+              f"{one_call}; device ms {split_by_kernel(by_kernel_s, SHARDED_KERNELS)}; device "
+              f"busy {busy_s} ms of the {sh_ms} ms call, idle share {1 - busy_s / sh_ms:.3f}")
+    else:
+        phase("sharded", t0, f"one B={BATCH} sharded call: launches {one_call}; {by_kernel_s}")
     if min(launch_s["K1"], launch_s["K2"], launch_s["K6"]) < 1:
         raise AssertionError(f"the sharded default path did not launch K1, K2 and K6: {launch_s}")
     if any(residual_s):
@@ -1099,6 +1215,15 @@ def main() -> None:
     phase("sharded", t0, f"engine=pallas {N_QUERIES} queries {wall_sp:.1f}s: residual "
           f"last_spill={residual_sp} launches={launch_sp} recall@10={r10_sp:.4f}; one "
           f"B={BATCH} call {sp_ms} ms")
+    by_kernel_sp = device_ms_by_kernel(torch, lambda: sh.search_device(
+        qs, K, NPROBE, mode="cluster", engine="pallas"))
+    if isinstance(by_kernel_sp, dict):
+        busy_sp = sum(by_kernel_sp.values())
+        phase("sharded", t0, f"engine=pallas one B={BATCH} call by kernel (torch.profiler): "
+              f"device ms {split_by_kernel(by_kernel_sp, SHARDED_KERNELS)}; device busy "
+              f"{busy_sp} ms of the {sp_ms} ms call, idle share {1 - busy_sp / sp_ms:.3f}")
+    else:
+        phase("sharded", t0, f"engine=pallas one B={BATCH} call by kernel: {by_kernel_sp}")
     if launch_sp["K6"] < 1 or r10_sp < 0.99:
         raise AssertionError(f"sharded engine='pallas': launches {launch_sp}, recall@10 {r10_sp}")
 
@@ -2397,12 +2522,14 @@ def main() -> None:
          "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None, "prod_ms": k1_prod_ms},
-        {"name": "fused_topk", "route": "triton",
-         "source": "rag_on_edge_tpu_torch/csrc/fused_topk_triton.py",
+        {"name": "fused_topk", "route": "cuda",
+         "source": "rag_on_edge_tpu_torch/csrc/fused_topk.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_topk.py:39",
-         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": k2_lib_ms},
+         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
+         "library_ms": k2["lib_ms"], "device_ms": k2["device_ms"],
+         "by_width": {w: {key: r[key] for key in ("ms", "device_ms", "lib_ms", "lib_device_ms")}
+                      for w, r in k2_widths.items()}},
         {"name": "cluster_major_scan_grouped", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:144",
@@ -2432,7 +2559,9 @@ def main() -> None:
          "launches": launch_s["K6"], "max_abs_err": max(k6[n]["err"] for n in k6),
          "ms": k6["recovery"]["ms"], "plain_ms": k6["recovery"]["plain_ms"],
          "bound_ms": k6["recovery"]["bound"][0], "bound_by": k6["recovery"]["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "device_ms": k6["recovery"]["device_ms"],
+         "dense_ms": k6["dense"]["ms"], "dense_device_ms": k6["dense"]["device_ms"],
+         "dense_bound_ms": k6["dense"]["bound"][0]},
         {"name": "cluster_major_scan_routed", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:320",

@@ -7,11 +7,11 @@ find:
   JAX package (``load_dataset``, ``io``), exact ground truth, recall, and
   the int8 GEMM operands (``preprocess``).
 - ``ops``    — quantization, distances, top-k, block tables, and the
-  hand-written Hopper kernels with their plain PyTorch versions: the IVF
-  scan kernels (``ivf_accum``, ``ivf_scan``: CUDA C++; ``fused_topk``:
-  Triton), the brute-force kernels (``bruteforce_fused``,
-  ``bruteforce_accum``: CUDA C++) and the spatial GEMM's tiled GEMM
-  (``tiled_matmul``: CUDA C++).
+  hand-written Hopper kernels with their plain PyTorch versions, all in
+  CUDA C++: the IVF scan kernels (``ivf_accum``, ``ivf_scan``,
+  ``fused_topk``), the brute-force kernels (``bruteforce_fused``,
+  ``bruteforce_accum``) and the spatial GEMM's tiled GEMM
+  (``tiled_matmul``).
 - ``models`` — k-means, the cluster-major ``IVFIndex`` and the
   ``BruteForceIndex``.
 - ``parallel`` — ``make_mesh`` and the sharded indexes

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels that run wgmma fed by TMA:
 // K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
 // (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu),
-// K1's int8 and bf16 modes (ivf_accum_planes.cu) and K4's and K7's int8
-// modes (ivf_grouped_scan.cu).
+// K1's int8 and bf16 modes (ivf_accum_planes.cu) and K4's, K6's and K7's
+// int8 modes (ivf_grouped_scan.cu); K2 (fused_topk.cu) takes the mbarrier
+// helpers for its bulk row copies.
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
@@ -19,7 +20,7 @@
 //   no transpose bit); a copy of a fragment;
 // - the in-shared transpose of an N-major int8 slab unit, as TMA lands it,
 //   into the K-major swizzled tile an 8-bit wgmma operand must be (K1's B,
-//   K4's and K7's A);
+//   K4's, K6's and K7's A);
 // - host: cuTensorMapEncodeTiled through the runtime's entry-point lookup
 //   (the libraries link libcudart only), the bf16 and 8-bit tensor maps
 //   (128-byte swizzle; an 8-bit 3-D map swizzled or not) and an unswizzled

@@ -12,7 +12,9 @@
 // cluster_major_scan in the same file (its _kernel): the routed queries come
 // per cluster, qg[bc[b]], and the output is per cluster, out[bc[t]].  The
 // sharded index runs it over each shard's block walk and over the recovery
-// pass's compacted list.
+// pass's compacted list (whose excluded tail is parked on the last listed
+// block's cluster as blocks with no rows that end no run: no CTA writes for
+// them).
 // K7 (entries ivf_routed_scan_i8 and ivf_routed_scan_f) replaces
 // cluster_major_scan_routed in the same file (its _routed_grouped_kernel):
 // the routed queries are gathered from the whole batch inside the kernel,
@@ -70,9 +72,11 @@
 // longest run.  K7's gather reads the batch (1 MB at B = 8192, d = 128)
 // through L2.
 //
-// Design of K4's and K7's int8 modes (grouped_wgmma_kernel, hopper_mma.cuh):
+// Design of K4's, K6's and K7's int8 modes (grouped_wgmma_kernel,
+// hopper_mma.cuh):
 // - one CTA of two warpgroups per (last block t, N routed rows: 32, or 16
-//   for DEPTH > 2); CTAs on other blocks exit before any setup.  The
+//   for DEPTH > 2); CTAs on other blocks exit before any setup, and K6's
+//   CTAs whose run's cluster bc[t] lies outside [0, nlist) too.  The
 //   product is transposed against K1's: the chunk's 128 bins are wgmma's M
 //   (64 a warpgroup) and the routed rows its N, so m64nNk32 s8 -> s32 puts
 //   each (row, bin) in one thread's registers in every chunk, and the
@@ -97,10 +101,12 @@
 //   transpose it into two K-major swizzled tiles (transpose_unit, shared
 //   with K1), unit u+1 while unit u's groups run; no per-call copy of the
 //   slab.  The routed rows (N x kb units) stay in shared memory for the
-//   block: K4 by TMA (the wrapper pads D to TMA's 16-byte pitch), K7
-//   gathered by the threads in 16-byte pieces from qi (zero rows for slots
-//   outside [0, B)) and handed to wgmma through the proxy fence.  The next
-//   block's rows load while this one's survivors merge.
+//   block: K4 and K6 by TMA (the wrapper pads D to TMA's 16-byte pitch; K6's
+//   map is 3-D over qg [nlist, qcap, ldq] with the cluster bc[b] as the
+//   outer coordinate, the same rows in every block of a run), K7 gathered
+//   by the threads in 16-byte pieces from qi (zero rows for slots outside
+//   [0, B)) and handed to wgmma through the proxy fence.  The next block's
+//   rows load while this one's survivors merge.
 // - the epilogue on copy_acc's copy of the fragment (reading the fragment
 //   itself has ptxas serialize the groups): score = __int2float_rn(dot)
 //   then one __fsub_rn of the bias, -inf past rows_valid, inserted with
@@ -112,8 +118,9 @@
 //   key, then the lowest id at it), and once every candidate that beat
 //   the k-th entry is placed the rest of the row is its old list, shifted.
 //
-// Design of the rest (grouped_scan_kernel: K6 and K10 in every mode, and
-// K4's and K7's fp32 and bf16 modes):
+// Design of the rest (grouped_scan_kernel: K4's, K6's and K7's fp32 and
+// bf16 modes, and K10 at bin depth 2 in every mode; K10's int8 mode is its
+// one __dp4a user):
 // - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
 //   DEPTH > 2): two row groups x 128 lanes, thread = (group, bin).  It
 //   walks back from t to the run's first block and then forward, one block
@@ -198,7 +205,7 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
   constexpr int NCAND = Tile<DEPTH>::NCAND;
   constexpr int PER_LANE = NCAND / 32;
   constexpr bool INT8 = std::is_same_v<T, int8_t>;
-  // K4's and K7's int8 modes run on grouped_wgmma_kernel.
+  // K4's, K6's and K7's int8 modes run on grouped_wgmma_kernel; K10's here.
   static_assert(!INT8 || SRC == QSrc::kCluster, "int8 kBlock and kRouted run on wgmma");
   const float NEG_INF = -INFINITY;
 
@@ -452,7 +459,8 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   return (int)cudaGetLastError();
 }
 
-template <QSrc SRC, Variant V = Variant::kFull, typename T = int8_t>
+// The float modes of K4, K6 and K7 at bin depth 1-4.
+template <QSrc SRC, typename T>
 int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
              const void* block_first, const void* block_last, const void* rows_valid,
              const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
@@ -460,8 +468,9 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                        \
-  launch<T, D, SRC, V>(qg, vec, block_cluster, cq_blocks, block_first, block_last, rows_valid, \
-                       bias, row_base, out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
+  launch<T, D, SRC, Variant::kFull>(qg, vec, block_cluster, cq_blocks, block_first,           \
+                                    block_last, rows_valid, bias, row_base, out_v, out_i,     \
+                                    nblocks, qcap, d, blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -472,7 +481,7 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
 #undef RAG_LAUNCH
 }
 
-// ------------------------------------------ K4 and K7 int8: wgmma fed by TMA
+// ------------------------------------- K4, K6 and K7 int8: wgmma fed by TMA
 
 constexpr int W_UNIT = 128 * 128;         // a unit of the slab: 128 bins x 128 bytes of d
 constexpr int W_HALF = W_UNIT / 2;        // one warpgroup's 64 bins
@@ -535,17 +544,20 @@ __device__ __forceinline__ bool next_unit(int& b, int& c, int& j, int tb, int t,
 }
 
 // K4 (SRC kBlock: q = qg [nblocks, qcap, ldq], also through `tq`, [1, N,
-// 128] boxes, 128-byte swizzle) and K7 (SRC kRouted: q = qi [nsrc, ldq], row
-// r of block b being qi[cq_blocks[b, r]], gathered by the threads); the
-// slab [nblocks, d, blk] through `tv` ([1, 128, 16] boxes).  ldq is d
-// rounded up to 16 (the pad zero); kb units of 128 bytes of d.  CTA (t,
-// y): last block t, routed rows N y .. N y + N - 1.
+// 128] boxes, 128-byte swizzle), K6 (SRC kCluster: q = qg [nsrc = nlist,
+// qcap, ldq], block b's rows being qg[block_cluster[b]], the same map, the
+// output row of a run ending at t being block_cluster[t]) and K7 (SRC
+// kRouted: q = qi [nsrc, ldq], row r of block b being qi[cq_blocks[b, r]],
+// gathered by the threads); the slab [nblocks, d, blk] through `tv` ([1,
+// 128, 16] boxes).  ldq is d rounded up to 16 (the pad zero); kb units of
+// 128 bytes of d.  CTA (t, y): last block t, routed rows N y .. N y + N - 1.
 template <int DEPTH, QSrc SRC>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv,
                      const int8_t* __restrict__ q,
                      const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7)
+                     const int32_t* __restrict__ block_cluster, // [nblocks] (K6)
                      const int32_t* __restrict__ block_first,
                      const int32_t* __restrict__ block_last,
                      const int32_t* __restrict__ rows_valid,
@@ -560,9 +572,17 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float NEG_INF = -INFINITY;
 
   // CTAs on blocks that end no run leave before any setup (the recovery
-  // pass lists ~300 blocks and walks ~5 runs).
+  // pass lists ~300 blocks and walks ~5 runs), and so do K6's CTAs whose
+  // run's cluster has no output row.
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
+  int orow = t;  // the output row: the block (K4, K7) or its cluster (K6)
+  if constexpr (SRC == QSrc::kCluster) {
+    orow = block_cluster[t];
+    if (orow < 0 || orow >= nsrc) return;
+  }
+  // Block b's rows in q: K4's own, K6's cluster's (K7 gathers through cq).
+  auto qrow = [&](int b) { return SRC == QSrc::kCluster ? block_cluster[b] : b; };
   const int r0 = blockIdx.y * N;
   int tb = t;  // the run's first block
   while (tb > 0 && block_first[tb] == 0) --tb;
@@ -572,7 +592,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = threadIdx.x; i < N * k; i += THREADS) {
       const int r = i / k;
       if (r0 + r >= qcap) continue;
-      const size_t o = ((size_t)t * qcap + r0) * k + i;
+      const size_t o = ((size_t)orow * qcap + r0) * k + i;
       out_v[o] = NEG_INF;
       out_i[o] = 0;
     }
@@ -612,14 +632,15 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  // Block b's routed rows into the K-major swizzled tile: K4 by TMA on
-  // qbar, K7 gathered in 16-byte pieces (zero rows for slots outside [0,
+  // Block b's routed rows into the K-major swizzled tile: K4 and K6 by TMA
+  // on qbar, K7 gathered in 16-byte pieces (zero rows for slots outside [0,
   // nsrc) and past qcap), then the proxy fence; a barrier follows.
   auto load_queries = [&](int b) {
-    if constexpr (SRC == QSrc::kBlock) {
+    if constexpr (SRC != QSrc::kRouted) {
       if (threadIdx.x == 0) {
+        const int qb = qrow(b);
         mbar_expect_tx(&qbar, kb * QUNIT);
-        for (int j = 0; j < kb; ++j) tma_load_3d(qs + j * QUNIT, &tq, 128 * j, r0, b, &qbar);
+        for (int j = 0; j < kb; ++j) tma_load_3d(qs + j * QUNIT, &tq, 128 * j, r0, qb, &qbar);
       }
     } else {
       const int pieces = kb * 8;
@@ -847,11 +868,12 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int b = tb; b <= t && !nonzero; ++b) {
     if (rows_valid[b] <= 0) continue;
     bool any = false;
-    if constexpr (SRC == QSrc::kBlock) {
+    if constexpr (SRC != QSrc::kRouted) {
       const int pieces = ldq / 16;
+      const size_t qb = qrow(b);
       for (int i = threadIdx.x; i < nrows * pieces; i += THREADS) {
         const int4 v = *reinterpret_cast<const int4*>(
-            q + ((size_t)b * qcap + r0 + i / pieces) * ldq + 16 * (i % pieces));
+            q + (qb * qcap + r0 + i / pieces) * ldq + 16 * (i % pieces));
         any |= (v.x | v.y | v.z | v.w) != 0;
       }
     } else {
@@ -902,7 +924,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncthreads();
     }
     for (int i = threadIdx.x; i < nrows * k; i += THREADS) {
-      const size_t o = ((size_t)t * qcap + r0) * k + i;
+      const size_t o = ((size_t)orow * qcap + r0) * k + i;
       out_v[o] = run_v[i % k];
       out_i[o] = run_i[i % k];
     }
@@ -917,7 +939,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   prep(0, 0, 0);
   fence_proxy_async();
   __syncthreads();
-  if constexpr (SRC == QSrc::kBlock) mbar_wait_loop(&qbar, qph);
+  if constexpr (SRC != QSrc::kRouted) mbar_wait_loop(&qbar, qph);
   qph ^= 1u;
   detect();
   __syncthreads();
@@ -988,7 +1010,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       if (nhave) {
-        if constexpr (SRC == QSrc::kBlock) {
+        if constexpr (SRC != QSrc::kRouted) {
           mbar_wait_loop(&qbar, qph);
           qph ^= 1u;
         }
@@ -1009,27 +1031,30 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = threadIdx.x; i < N * k; i += THREADS) {
     const int r = i / k, p = i % k;
     if (r0 + r >= qcap) continue;
-    const size_t o = ((size_t)t * qcap + r0 + r) * k + p;
+    const size_t o = ((size_t)orow * qcap + r0 + r) * k + p;
     out_v[o] = run_v[r * K_MAX + p];
     out_i[o] = run_i[r * K_MAX + p];
   }
 }
 
-// qg (K4: [nblocks, qcap, ldq]) or qi (K7: [nsrc, ldq]) with ldq = d rounded
-// up to 16, cq_blocks [nblocks, qcap] (K7), vec [nblocks, d, blk], bias
-// [nblocks, blk] or null.
+// qg (K4: [nblocks, qcap, ldq]; K6: [nsrc = nlist, qcap, ldq]) or qi (K7:
+// [nsrc, ldq]) with ldq = d rounded up to 16, cq_blocks [nblocks, qcap]
+// (K7), block_cluster [nblocks] (K6), vec [nblocks, d, blk], bias [nblocks,
+// blk] or null.
 template <int DEPTH, QSrc SRC>
-int launch_wgmma(const void* q, const void* cq_blocks, const void* vec, const void* block_first,
-                 const void* block_last, const void* rows_valid, const void* bias,
-                 const void* row_base, void* out_v, void* out_i, int nblocks, int qcap, int d,
-                 int ldq, int blk, int k, int nsrc, cudaStream_t s) {
+int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
+                 const void* block_first, const void* block_last, const void* rows_valid,
+                 const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
+                 int qcap, int d, int ldq, int blk, int k, int nsrc, cudaStream_t s) {
   using Tl = WTile<DEPTH>;
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const int kb = (d + 127) / 128;
   CUtensorMap tq{}, tv;
-  if constexpr (SRC == QSrc::kBlock)
-    if (const int e = int8_map_3d(encode, &tq, q, nblocks, qcap, ldq, 128, Tl::N, true)) return e;
+  if constexpr (SRC != QSrc::kRouted)
+    if (const int e = int8_map_3d(encode, &tq, q, SRC == QSrc::kCluster ? nsrc : nblocks, qcap,
+                                  ldq, 128, Tl::N, true))
+      return e;
   if (const int e = int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false)) return e;
   const int fixed = 1024 + 2 * W_UNIT + kb * Tl::N * 128 +
                     Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
@@ -1042,7 +1067,8 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* vec, const vo
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + Tl::N - 1) / Tl::N));
   grouped_wgmma_kernel<DEPTH, SRC><<<grid, THREADS, smem, s>>>(
       tq, tv, static_cast<const int8_t*>(q), static_cast<const int32_t*>(cq_blocks),
-      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
+      static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
       static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc);
@@ -1050,15 +1076,16 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* vec, const vo
 }
 
 template <QSrc SRC>
-int dispatch_wgmma(const void* q, const void* cq_blocks, const void* vec,
-                   const void* block_first, const void* block_last, const void* rows_valid,
-                   const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
-                   int qcap, int d, int ldq, int blk, int k, int depth, int nsrc, void* stream) {
+int dispatch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster,
+                   const void* vec, const void* block_first, const void* block_last,
+                   const void* rows_valid, const void* bias, const void* row_base, void* out_v,
+                   void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k, int depth,
+                   int nsrc, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAG_LAUNCH(D)                                                                       \
-  launch_wgmma<D, SRC>(q, cq_blocks, vec, block_first, block_last, rows_valid, bias, row_base, \
-                       out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s)
+#define RAG_LAUNCH(D)                                                                          \
+  launch_wgmma<D, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last, rows_valid,  \
+                       bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -1083,9 +1110,9 @@ extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* bias, const void* row_base, void* out_v,
                                    void* out_i, int nblocks, int qcap, int d, int ldq, int blk,
                                    int k, int depth, void* stream) {
-  return dispatch_wgmma<QSrc::kBlock>(qg, nullptr, vec, block_first, block_last, rows_valid,
-                                      bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                                      depth, nblocks, stream);
+  return dispatch_wgmma<QSrc::kBlock>(qg, nullptr, nullptr, vec, block_first, block_last,
+                                      rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
+                                      ldq, blk, k, depth, nblocks, stream);
 }
 
 // K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
@@ -1095,24 +1122,25 @@ extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* b
                                   const void* bias, const void* row_base, void* out_v,
                                   void* out_i, int nblocks, int qcap, int d, int blk, int k,
                                   int depth, int bf16, void* stream) {
-  return bf16 ? dispatch<QSrc::kBlock, Variant::kFull, __nv_bfloat16>(
+  return bf16 ? dispatch<QSrc::kBlock, __nv_bfloat16>(
                     qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream)
-              : dispatch<QSrc::kBlock, Variant::kFull, float>(
+              : dispatch<QSrc::kBlock, float>(
                     qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream);
 }
 
-// K6: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k].
+// K6: qg [nlist, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
+// 16-byte aligned, block_cluster [nblocks], out [nlist, qcap, k]; on wgmma.
 extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* block_cluster,
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* bias,
                                    const void* row_base, void* out_v, void* out_i, int nlist,
-                                   int nblocks, int qcap, int d, int blk, int k, int depth,
-                                   void* stream) {
-  return dispatch<QSrc::kCluster>(qg, vec, block_cluster, nullptr, block_first, block_last,
-                                  rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
-                                  blk, k, depth, nlist, stream);
+                                   int nblocks, int qcap, int d, int ldq, int blk, int k,
+                                   int depth, void* stream) {
+  return dispatch_wgmma<QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first, block_last,
+                                        rows_valid, bias, row_base, out_v, out_i, nblocks, qcap,
+                                        d, ldq, blk, k, depth, nlist, stream);
 }
 
 // K6's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
@@ -1122,10 +1150,10 @@ extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* b
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   void* out_v, void* out_i, int nlist, int nblocks, int qcap,
                                   int d, int blk, int k, int depth, int bf16, void* stream) {
-  return bf16 ? dispatch<QSrc::kCluster, Variant::kFull, __nv_bfloat16>(
+  return bf16 ? dispatch<QSrc::kCluster, __nv_bfloat16>(
                     qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream)
-              : dispatch<QSrc::kCluster, Variant::kFull, float>(
+              : dispatch<QSrc::kCluster, float>(
                     qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
 }
@@ -1138,9 +1166,9 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
                                   int d, int ldq, int blk, int k, int depth, void* stream) {
-  return dispatch_wgmma<QSrc::kRouted>(qi, cq_blocks, vec, block_first, block_last, rows_valid,
-                                       bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk,
-                                       k, depth, nbatch, stream);
+  return dispatch_wgmma<QSrc::kRouted>(qi, cq_blocks, nullptr, vec, block_first, block_last,
+                                       rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
+                                       ldq, blk, k, depth, nbatch, stream);
 }
 
 // K7's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qi and vec; vec
@@ -1150,26 +1178,30 @@ extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const vo
                                  const void* rows_valid, const void* bias, const void* row_base,
                                  void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
                                  int d, int blk, int k, int depth, int bf16, void* stream) {
-  return bf16 ? dispatch<QSrc::kRouted, Variant::kFull, __nv_bfloat16>(
+  return bf16 ? dispatch<QSrc::kRouted, __nv_bfloat16>(
                     qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream)
-              : dispatch<QSrc::kRouted, Variant::kFull, float>(
+              : dispatch<QSrc::kRouted, float>(
                     qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
                     row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream);
 }
 
 // K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
-// bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.
+// bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.  Only
+// the depth-2 instances are built: in int8 they are the last __dp4a users
+// of this source.
 namespace {
 template <typename T>
 int variant_scan(const void* qg, const void* vec, const void* block_cluster,
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* row_base, void* out_v, void* out_i, int nlist, int nblocks, int qcap,
                  int d, int blk, int k, int variant, void* stream) {
-#define RAG_VARIANT(V)                                                                         \
-  dispatch<QSrc::kCluster, V, T>(qg, vec, block_cluster, nullptr, block_first, block_last,      \
-                                 rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, d, \
-                                 blk, k, 2, nlist, stream)
+  if (nblocks == 0 || qcap == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RAG_VARIANT(V)                                                                        \
+  launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,    \
+                                  rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, \
+                                  d, blk, k, nlist, s)
   switch (variant) {
     case 0: return RAG_VARIANT(Variant::kFull);
     case 1: return RAG_VARIANT(Variant::kNoGate);

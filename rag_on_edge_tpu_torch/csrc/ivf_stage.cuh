@@ -1,6 +1,6 @@
 // Slab staging shared by the cluster-major scan kernels that do not run on
 // wgmma: the int8 stage (packed words, __dp4a) of K9 (ivf_accum_planes.cu)
-// and of K6's and K10's int8 modes (ivf_grouped_scan.cu; K4's and K7's int8
+// and of K10's int8 mode (ivf_grouped_scan.cu; K4's, K6's and K7's int8
 // modes and K1's int8 and bf16 modes run on wgmma), and the float stage
 // (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
 // fp32 and bf16 modes of K4, K6, K7, K9 and K10, of K1's fp32 mode and of

@@ -15,7 +15,9 @@ the same block walk:
 :func:`_variant_scan` is K10: CPU tensors take
 :func:`_variant_scan_reference`; CUDA tensors launch the fourth pair of
 entries of ``csrc/ivf_grouped_scan.cu`` (``ivf_variant_scan_i8`` and
-``ivf_variant_scan_f``, K6's template with a compile-time variant) or raise.
+``ivf_variant_scan_f``: ``grouped_scan_kernel``, the staged template of
+K6's float modes, at bin depth 2 with a compile-time variant; its int8
+instances score on ``__dp4a``, where K6's int8 mode runs on ``wgmma``) or raise.
 Its launches count in ``LAUNCHES``.  The lab's own CLI builds an int8
 index, as the JAX lab does; the float modes are reached by calling
 :func:`_variant_scan` or :func:`lab` with an fp32 or bf16 routed table and

@@ -3,14 +3,13 @@
 k max-and-mask passes over each row of ``x`` [B, W], ties to the lowest
 position, the JAX kernel's algorithm.  :func:`fused_topk` dispatches on the
 device of ``x``: a CPU tensor takes :func:`fused_topk_reference`, a CUDA
-tensor launches the Triton kernel in ``csrc/fused_topk_triton.py`` or
-raises.
+tensor launches the CUDA kernel in ``csrc/fused_topk.cu`` (one warp a row,
+the row in shared memory; W up to 16384) or raises.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
+import ctypes
 
 import torch
 
@@ -18,12 +17,14 @@ from rag_on_edge_tpu_torch.ops import _build, topk
 
 __all__ = ["LAUNCHES", "fused_topk", "fused_topk_reference"]
 
-#: Launches of the Triton kernel in this process; the plain version does
-#: not count.
+#: Launches of the CUDA kernel in this process; the plain version does not
+#: count.
 LAUNCHES = 0
 
-_KERNEL = None
-_BLOCK_B = 4
+# The widest row the CUDA kernel holds in a warp's shared memory (64 KB).
+_CUDA_W_MAX = 16384
+
+_FN = None
 
 
 def _check(x: torch.Tensor, k: int) -> None:
@@ -44,37 +45,41 @@ def fused_topk_reference(x: torch.Tensor, k: int):
     return topk.extract_topk(x, k)
 
 
-def _kernel():
-    """Load the Triton source once (triton is imported only here)."""
-    global _KERNEL
-    if _KERNEL is None:
-        path = _build.CSRC_DIR / "fused_topk_triton.py"
-        spec = importlib.util.spec_from_file_location(
-            "rag_on_edge_tpu_torch_fused_topk_triton", path)
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[spec.name] = mod
-        spec.loader.exec_module(mod)
-        _KERNEL = mod.fused_topk_kernel
-    return _KERNEL
+def _entry():
+    """Build/load ``csrc/fused_topk.cu`` once and declare its C entry."""
+    global _FN
+    if _FN is None:
+        fn = _build.load_library("fused_topk").fused_topk_rows
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def fused_topk(x: torch.Tensor, k: int):
     """Exact top-k along axis 1 of ``x`` [B, W] (int32 or float32; W a
     multiple of 128) → (vals [B, k], idx [B, k] int32 positions), best
-    first, ties to the lowest position."""
+    first, ties to the lowest position.  On the card W <= 16384."""
     global LAUNCHES
     if x.device.type == "cpu":
         return fused_topk_reference(x, k)
     _check(x, k)
     _build.check_inputs("K2", x.device, [x])
     b, w = x.shape
-    vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
-    idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    if w > _CUDA_W_MAX:
+        raise ValueError(f"the CUDA K2 takes W <= {_CUDA_W_MAX} (one row in a warp's shared "
+                         f"memory); got W={w}")
+    # The row is copied by one bulk TMA copy from a 16-byte boundary.
+    x = _build.aligned(x, 16)
+    # One allocation for both outputs, and the device made current inside
+    # the C entry: the join calls this once a batch on a host-bound path.
+    out = torch.empty((2, b, k), dtype=torch.int32, device=x.device)
+    vals, idx = out[0].view(x.dtype), out[1]
     if b:
-        w_p2 = 1 << (w - 1).bit_length()
-        grid = (-(-b // _BLOCK_B),)
-        with torch.cuda.device(x.device):
-            _kernel()[grid](x, vals, idx, b, w, K=k, BLOCK_B=_BLOCK_B, W_P2=w_p2,
-                            IS_FLOAT=x.dtype == torch.float32, num_warps=4)
+        err = _entry()(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, w, k,
+                       int(x.dtype == torch.float32), x.device.index,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused_topk_rows launch failed: CUDA error {err}")
         LAUNCHES += 1
     return vals, idx

@@ -20,11 +20,11 @@ and ids are compared only where ``pv > -inf``.
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
 operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 do the
-same, in the same modes.  K4's and K7's int8 modes run on ``wgmma`` (s8 ->
-s32) fed by TMA, with the routed rows at TMA's 16-byte row pitch
+same, in the same modes.  The int8 modes of K4, K6 and K7 run on ``wgmma``
+(s8 -> s32) fed by TMA, with the routed rows at TMA's 16-byte row pitch
 (:func:`int8_operands`; no copy at D = 128) and the slab transposed in
-shared memory; the float modes and K6's int8 mode score on the staged
-``fmaf`` and ``__dp4a`` loops of ``csrc/ivf_stage.cuh``.
+shared memory; the float modes score on the staged ``fmaf`` loops of
+``csrc/ivf_stage.cuh``.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -80,11 +80,11 @@ _CUDA_DIM_MAX = 1024
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
-# stream last.  The float entries take one more int, bf16 (0 or 1); K4's and
-# K7's int8 entries (wgmma) one more, the routed rows' padded pitch.
+# stream last.  The float entries take one more int, bf16 (0 or 1); K4's, K6's
+# and K7's int8 entries (wgmma) one more, the routed rows' padded pitch.
 _ENTRIES = {
     "ivf_grouped_scan_i8": (9, 7), "ivf_grouped_scan_f": (9, 7),
-    "ivf_cluster_scan_i8": (10, 7), "ivf_cluster_scan_f": (10, 8),
+    "ivf_cluster_scan_i8": (10, 8), "ivf_cluster_scan_f": (10, 8),
     "ivf_routed_scan_i8": (10, 8), "ivf_routed_scan_f": (10, 8),
     "ivf_variant_scan_i8": (9, 7), "ivf_variant_scan_f": (9, 8),
 }
@@ -229,8 +229,8 @@ def float_args(name: str, queries, vectors_t, d: int):
 
 
 def int8_operands(queries, vectors_t):
-    """What K4's and K7's int8 modes (``wgmma`` fed by TMA) read: the
-    routed rows (K4's ``qg_blocks``) or the batch (K7's ``qi``) with D
+    """What K4's, K6's and K7's int8 modes (``wgmma`` fed by TMA) read: the
+    routed rows (K4's ``qg_blocks``, K6's ``qg``) or the batch (K7's ``qi``) with D
     zero-padded to TMA's 16-byte row pitch (:func:`ivf_accum.kernel_operands`:
     one copy where D needs it, none at D = 128), and both on 16-byte bases.
     The pad adds zero terms to every dot, so no score moves; the kernel
@@ -364,9 +364,14 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
                                     rows_valid, row_base, bias])
     _check_cuda_limits("K6", nbins, k, bin_depth, d)
-    flag = ()
-    if not int_path:
+    if int_path:
+        # wgmma fed by TMA: the clusters' routed rows at TMA's 16-byte row
+        # pitch, both operands from 16-byte bases.
+        qg, vectors_t = int8_operands(qg, vectors_t)
+        dims, flag = (d, qg.shape[-1]), ()
+    else:
         vectors_t, flag = float_args("K6", qg, vectors_t, d)
+        dims = (d,)
     pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
     name = "ivf_cluster_scan_i8" if int_path else "ivf_cluster_scan_f"
@@ -375,7 +380,7 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         err = entry(name)(qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
                           block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
                           bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                          pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, d, blk, k,
+                          pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, *dims, blk, k,
                           bin_depth, *flag, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -7,6 +7,8 @@ with a card and no JAX::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex
 from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
 from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
-from rag_on_edge_tpu_torch.ops import tiled_matmul
+from rag_on_edge_tpu_torch.ops import tiled_matmul, topk
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
 from rag_on_edge_tpu_torch.parallel import make_mesh_2d, spatial_matmul
 from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
@@ -180,9 +182,51 @@ def _not_pow2():
     return np.random.default_rng(7).integers(0, 3, (33, 768), dtype=np.int32)
 
 
-@pytest.mark.parametrize("make,k", [(_ties, 20), (_neg_inf, 8), (_wide, 20), (_not_pow2, 20)],
-                         ids=["int32-ties", "f32-neginf", "join-shape", "w768"])
+def _k2_mix(w, dtype, b=37):
+    """Rows of every kind the passes meet, [b, w] (37 rows: a multiple of
+    no CTA's row count).  int32: heavy ties, full-range values, FILL
+    (INT32_MIN) and KMIN (INT32_MIN + 1, an empty probe) scattered mid-row,
+    rows with 0-24 values above FILL (the later passes repeat the lowest
+    FILL position), and an all-FILL row.  float32: ties among -0.0, +0.0 and
+    a few values, -inf scattered and in whole rows, normal values."""
+    rng = np.random.default_rng(w + (dtype == "f32"))
+    if dtype == "int32":
+        fill = np.iinfo(np.int32).min
+        x = rng.integers(-4, 5, (b, w)).astype(np.int32)
+        x[1::4] = rng.integers(fill, 2**31 - 1, (len(range(1, b, 4)), w), dtype=np.int32)
+        x[rng.random(x.shape) < 0.05] = fill
+        x[rng.random(x.shape) < 0.05] = fill + 1
+        x[3::8, w // 3::5] = fill + 1
+        sparse = [fill + 1, 0, 7]
+    else:
+        fill = -np.inf
+        x = rng.choice(np.array([-2.0, -1.0, -0.0, 0.0, 1.0, 3.0], np.float32), (b, w))
+        x[1::4] = rng.normal(size=(len(range(1, b, 4)), w)).astype(np.float32)
+        x[rng.random(x.shape) < 0.05] = fill
+        x[3::8, w // 3::5] = -0.0
+        sparse = [-0.0, 0.0, 1.0, -1.0]
+    for r in range(2, b, 4):
+        x[r] = fill
+        cols = rng.choice(w, int(rng.integers(0, 25)), replace=False)
+        x[r, cols] = rng.choice(np.array(sparse, x.dtype), cols.size)
+    x[0] = fill
+    return x
+
+
+K2_CASES = [pytest.param(_ties, 20, id="int32-ties"), pytest.param(_neg_inf, 8, id="f32-neginf"),
+            pytest.param(_wide, 20, id="join-shape"), pytest.param(_not_pow2, 20, id="w768")]
+K2_CASES += [pytest.param(functools.partial(_k2_mix, w, dtype), k, id=f"{dtype}-w{w}-k{k}")
+             for w in (128, 1024, 4096, 8192) for k in (1, 20, 32, 100)
+             for dtype in ("int32", "f32")]
+K2_CASES += [pytest.param(functools.partial(_k2_mix, 128, "f32"), 128, id="f32-w128-k128"),
+             pytest.param(functools.partial(_k2_mix, 16384, "int32"), 40, id="int32-w16384-k40")]
+
+
+@pytest.mark.parametrize("make,k", K2_CASES)
 def test_k2_kernel_equal_to_plain(dev, make, k):
+    """Values and positions equal to the plain version's; where a pass took
+    a value above FILL, the kernel's value is the element at its position,
+    bit for bit (the plain version's max of -0.0 and +0.0 may be either)."""
     x = torch.from_numpy(make()).to(dev)
     before = fused_topk.LAUNCHES
     v, i = fused_topk.fused_topk(x, k)
@@ -190,6 +234,17 @@ def test_k2_kernel_equal_to_plain(dev, make, k):
     torch.cuda.synchronize()
     assert fused_topk.LAUNCHES == before + 1
     assert torch.equal(v, rv) and torch.equal(i, ri)
+    bits = (lambda t: t.view(torch.int32)) if x.dtype == torch.float32 else (lambda t: t)
+    took = v > topk.fill_value(x.dtype)
+    at = bits(torch.gather(x, 1, i.long()))
+    assert torch.equal(bits(v)[took], at[took])
+
+
+def test_k2_kernel_refuses_what_it_does_not_take(dev):
+    """Past the widest row a warp's shared memory holds, the wrapper raises
+    and names the limit."""
+    with pytest.raises(ValueError, match="W <= 16384"):
+        fused_topk.fused_topk(torch.zeros((2, 16512), dtype=torch.int32, device=dev), 4)
 
 
 def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, empty_slots=False):
@@ -352,14 +407,15 @@ def test_k4_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)
 
 
-def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias):
+def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias, empty_slots=False):
     """K6 inputs laid out as one shard of ShardedIVFIndex: clusters 2.. of
     nlist = len(sizes) + 4 (global ids), padded to 8 blocks with dummies on
     the last one.  ``walk`` "cut" and "parked" lay them out as the recovery
     pass does: every other cluster's blocks in storage order, cut one block
     short of them all (that cluster emits nothing) or followed by two more
     blocks with zeroed tables, parked on the last listed block's cluster;
-    row_base = block·blk."""
+    row_base = block·blk.  ``empty_slots`` zeroes each cluster's rows from
+    a random count on (0 to qcap), as a routed table's empty slots."""
     lo = 2
     sizes = np.asarray(sizes)
     offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
@@ -370,6 +426,9 @@ def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias):
     nb, nlist = len(bc), len(sizes) + 4
     lo_v, hi_v = (0, 2) if ties else (-127, 128)
     qg = rng.integers(lo_v, hi_v, (nlist, qcap, d), dtype=np.int8)
+    if empty_slots:
+        for c, n in enumerate(rng.integers(0, qcap + 1, nlist)):
+            qg[c, n:] = 0
     vt = rng.integers(lo_v, hi_v, (nb, d, blk), dtype=np.int8)
     rb = np.arange(nb, dtype=np.int32) * blk
     br = rng.uniform(0, 3000, (1, nb * blk)).astype(np.float32) if bias else None
@@ -388,19 +447,48 @@ def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias):
     return qg, vt, bc, bf, bl, rv, br, rb
 
 
-@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties", [
-    ([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False),  # 3-block cluster, -inf fill
-    ([700, 300, 129, 2000, 90], 256, 100, 37, 32, False),  # ragged qcap tile, d % 4 != 0
-    ([3000, 2100, 40, 2500], 2048, 24, 128, 20, True),     # scores 0..128: heavy ties
-], ids=["blk2048", "blk256", "ties"])
+# The int8 mode's tiling is K4's (wgmma, N = 32 routed rows a CTA, 16 for
+# depth > 2): K4's cases, each with at least two clusters that the recovery
+# walks keep (every other one), and with empty (zero) slots.
+K6_SHAPES = [
+    pytest.param([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False, False,
+                 id="blk2048"),    # 3-block cluster, -inf fill
+    pytest.param([700, 300, 129, 2000, 90], 256, 100, 37, 32, False, False,
+                 id="blk256"),     # ragged qcap tile, d % 4 != 0
+    pytest.param([3000, 2100, 40, 2500], 2048, 24, 128, 20, True, False,
+                 id="ties"),       # scores 0..128: heavy ties
+    pytest.param([2000, 0, 5000, 129, 10], 2048, 40, 128, 20, False, True,
+                 id="blk2048-empty"),
+    pytest.param([3000, 2100, 40], 2048, 24, 128, 20, True, True,
+                 id="ties-empty"),  # ties across chunks and blocks of a run
+    pytest.param([300, 5, 900], 128, 1, 32, 10, False, True,
+                 id="q1-d32"),     # one routed row, blk 128, D one k32 step
+    pytest.param([1500, 0, 40], 512, 63, 1024, 20, False, True,
+                 id="q63-d1024"),  # one row short of 64; 8 units of d
+    pytest.param([1500, 40, 600], 512, 64, 512, 20, False, True,
+                 id="q64-d512"),
+    pytest.param([1500, 0, 40], 512, 65, 37, 20, False, True,
+                 id="q65-d37"),
+    pytest.param([2000, 700, 300], 256, 128, 128, 16, False, True,
+                 id="q128"),
+    pytest.param([700, 300, 129], 256, 129, 128, 20, False, True,
+                 id="q129"),
+    pytest.param([16 * 128 - 7, 300, 500], 128, 256, 128, 20, False, True,
+                 id="q256-16blocks"),  # a cluster of 16 blocks, kept by the recovery walks
+    pytest.param([2000, 1000, 700], 128, 33, 32, 20, True, True,
+                 id="ties-blk128"),    # ties across 16 one-chunk blocks of one run
+]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,k,ties,empty", K6_SHAPES)
 @pytest.mark.parametrize("depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
 @pytest.mark.parametrize("walk", ["dense", "cut", "parked"])
-def test_k6_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, depth, bias, walk):
+def test_k6_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, empty, depth, bias, walk):
     rng = np.random.default_rng(21)
     qg, vt, bc, bf, bl, rv, br, rb = (None if x is None else torch.from_numpy(x).to(dev)
                                       for x in _k6_inputs(rng, sizes, blk, qcap, d, ties,
-                                                          walk, bias))
+                                                          walk, bias, empty_slots=empty))
     kw = dict(k=k, blk=blk, bin_depth=depth, bias=br, row_base=rb)
     before, k4_before = ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES
     pv, pr = ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, **kw)

@@ -140,8 +140,27 @@ def _neg_inf_f32():
     return x
 
 
+def _fill_kmin_int32():
+    """int32 [40, 1024] (the shape of :func:`_tie_int32`, so the JAX programs
+    compile once) as the IVF join's pool holds it: FILL (INT32_MIN) and
+    KMIN (INT32_MIN + 1, an empty probe) scattered mid-row among tied
+    values, and rows with fewer than 20 values above FILL, whose later
+    passes return the lowest FILL position again and again."""
+    rng = np.random.default_rng(8)
+    fill = np.iinfo(np.int32).min
+    x = rng.integers(-3, 4, (40, 1024)).astype(np.int32)
+    x[rng.random(x.shape) < 0.1] = fill
+    x[rng.random(x.shape) < 0.1] = fill + 1
+    for r in range(0, 40, 3):
+        x[r] = fill
+        cols = rng.choice(1024, r // 2, replace=False)
+        x[r, cols] = rng.choice([fill + 1, 0, 5], cols.size)
+    return x
+
+
 CASES = [pytest.param(_tie_int32, 20, id="int32-ties-k20"),
-         pytest.param(_neg_inf_f32, 8, id="f32-neginf-k8")]
+         pytest.param(_neg_inf_f32, 8, id="f32-neginf-k8"),
+         pytest.param(_fill_kmin_int32, 20, id="int32-fill-kmin-k20")]
 
 
 @pytest.mark.parametrize("make,k", CASES)

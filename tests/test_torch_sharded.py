@@ -128,6 +128,41 @@ def test_k6_plain_equals_jax(case):
         assert not fin.all()  # the 10-row cluster cannot fill k=20
 
 
+def test_k6_int8_operands_keep_every_score():
+    """What the CUDA K6's int8 mode (wgmma fed by TMA) reads: the routed
+    rows per cluster through the wrapper's own preparation (D 37 padded to
+    TMA's 16-byte pitch, 16-byte bases), both operands' d read as zeros up
+    to the kernel's 128-byte unit (TMA's fill).  The plain K6 on those
+    operands equals the JAX kernel on the original ones, empty (zero) slots
+    and the L2 bias included: padding moves no score."""
+    rng = np.random.default_rng(43)
+    bc, bf, bl, rv = _k6_tables(K6_SIZES, K6_LO, K6_BLK, 8)
+    nb = len(bc)
+    qg = rng.integers(-127, 128, (K6_NLIST, K6_QCAP, 37), dtype=np.int8)
+    for c, n in enumerate(rng.integers(0, K6_QCAP + 1, K6_NLIST)):
+        qg[c, n:] = 0
+    vt = rng.integers(-127, 128, (nb, 37, K6_BLK), dtype=np.int8)
+    rb = np.arange(nb, dtype=np.int32) * K6_BLK
+    bias = rng.uniform(0, 3000, (1, nb * K6_BLK)).astype(np.float32)
+    kw = dict(k=K6_K, blk=K6_BLK)
+    jv, ji = pallas_ivf.cluster_major_scan(*map(jnp.asarray, (qg, vt, bc, bf, bl, rv)),
+                                           bias=jnp.asarray(bias), row_base=jnp.asarray(rb), **kw)
+    qk, vk = ivf_scan.int8_operands(_t(qg), _t(vt))
+    assert qk.shape == (K6_NLIST, K6_QCAP, 48) and qk.data_ptr() % 16 == 0
+    assert torch.equal(qk[..., :37], _t(qg)) and not qk[..., 37:].any()
+    qk = torch.nn.functional.pad(qk, (0, 128 - qk.shape[-1]))
+    vk = torch.nn.functional.pad(vk, (0, 0, 0, 128 - 37))
+    tv, ti = ivf_scan.cluster_major_scan(qk, vk, *map(_t, (bc, bf, bl, rv)), bias=_t(bias),
+                                         row_base=_t(rb), **kw)
+    emitted = bc[np.nonzero(bl)[0]]
+    jv, ji, tv, ti = np.asarray(jv)[emitted], np.asarray(ji)[emitted], tv.numpy()[emitted], \
+        ti.numpy()[emitted]
+    np.testing.assert_array_equal(tv, jv)
+    fin = jv > -np.inf
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    assert fin.any()
+
+
 def test_k6_rejects_bad_inputs():
     qg, vt, bc, bf, bl, rv, _, _, _ = map(lambda x: _t(x) if isinstance(x, np.ndarray) else x,
                                           _k6_case("i8-bias-dense-d2"))
