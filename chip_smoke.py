@@ -28,8 +28,10 @@ script exits non-zero without a result line:
              (``REDUX``, required).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
-             kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M); the
-             two must be equal on all 10,000 queries.
+             kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M; its
+             column splits joined by K2); the two must be equal on all
+             10,000 queries, at k = 10 and at k = 100 (``load_dataset``'s
+             default depth).
 3. kernels — build the SIFT-1M index the slice searches, route one real
              B=8192 batch, and hold each kernel against its plain PyTorch
              version on the card at the slice's shapes (bit-equal planes,
@@ -62,6 +64,16 @@ script exits non-zero without a result line:
              after: ids and scores equal to ``engine="pallas"``, K7 launched
              and K4 not, residual spill 0, recall@10 >= 0.99; one B=8192
              call and its stages.
+   wide    — the public calls at k = 20, whose rescore pool of 2k = 40 is
+             past the 32 a row K4 and K7 keep a pass: ``search_device(q,
+             20, 4)`` with its defaults (the recovery pass's K4 in two
+             passes), ``engine="pallas"`` and ``engine="pallas_routed"``
+             (ids and scores equal to ``pallas``), each over all queries,
+             counted, spill 0, recall@20 >= 0.99 against the k = 100 ground
+             truth; and ``engine="pallas_accum"`` at nprobe 128 on 2,048
+             queries at the capacity that drops no pair (the join W =
+             32768: K2 in two segments and a merge; recall@10 >= 0.99 and
+             no lower than the defaults' on the same queries).
 7. brute   — ``BruteForceIndex(base, metric="l2", dtype="int8")`` two ways:
              the defaults (``engine="auto"``: accum, kernel K5, rescored)
              and ``engine="pallas", rescore=True`` (kernel K3 binned).
@@ -75,7 +87,13 @@ script exits non-zero without a result line:
              through each engine
              with the counters reset just before and read just after;
              recall@10 >= 0.99 (accum) and >= 0.999 (pallas) against the
-             plain ground truth.
+             plain ground truth; the pallas engine again at k = 20 (K3 int8
+             in two passes of 32, recall@20 >= 0.999).  K3's fp32 mode,
+             bit-equal to its plain version and timed beside it, beside
+             ``torch.mm`` of the same product (TF32 off, ``gemm_ms``) and
+             its bound: a ground-truth chunk [1024, 129] x [129, 1M] at k =
+             10 and 100, and the fused coarse tier's [8192, 129] x [129,
+             8192] at k = 4.
 8. coarse  — one B=8192 batch through the fused coarse tier (kernel K3 on
              the augmented centroids) of a second IVF index over the same
              arrays, its tier threshold lowered on a subclass: K3 launched,
@@ -86,7 +104,8 @@ script exits non-zero without a result line:
              then all 10,000 queries through ``search_device(q, 10, 4,
              mode="cluster")`` with its defaults (K1, the recovery pass
              through K6, K2; counters reset just before and read just after;
-             recall@10 and @1 >= 0.99, residual spill 0), through
+             recall@10 and @1 >= 0.99, residual spill 0; again at k = 20,
+             the recovery pass's K6 in two passes, recall@20 >= 0.99), through
              ``engine="pallas"`` (K6 over every shard's walk, recall@10 >=
              0.99), and through ``mode="query"`` at B=128 (recall@10 >=
              0.99); and ``ShardedBruteForceIndex(base, metric="l2",
@@ -182,6 +201,14 @@ script exits non-zero without a result line:
              B=8192 (recall@10 >= 0.99; where its routing dropped none of a
              query's pairs and its answer lies in the default engine's
              rescore pool, ids equal to the default engine's, or a tie).
+15. widedim — sentence-embedding widths past the kernels' old D caps, on
+             synthetic corpora of 200,000 vectors and 1,024 queries at D =
+             384 and 768: ``BruteForceIndex(base)`` with every default (ip,
+             bf16, accum = K5; recall@10 >= 0.99) and an fp32 and a bf16
+             ``IVFIndex`` (nlist 256, L2, nprobe 16, the recovery pass on:
+             K1 and K4 launched, recall@10 >= 0.95), counted; then K2 at
+             [8192, 32768], past the 16384 columns one warp holds, equal to
+             its plain version in three launches and timed.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -199,6 +226,9 @@ from pathlib import Path
 
 N_BASE, N_QUERIES, DIM, N_CENTERS = 1_000_000, 10_000, 128, 4096  # DATASET_SPECS["sift"]
 NLIST, PAD_BLOCK, K, NPROBE, BATCH = 1024, 2048, 10, 4, 8192
+# k of the public calls past the kernels' old 32 a row (their rescore pool
+# is 2k), and the ground truth's depth as load_dataset takes it by default.
+K_WIDE, GT_K = 20, 100
 REPS = 10
 # H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
 # dense int8 tensor-core ops/s, and 32-bit non-tensor ops/s.
@@ -543,6 +573,32 @@ def main() -> None:
         raise AssertionError("the fused ground truth did not launch K3")
     if not np.array_equal(gt_fused, gt):
         raise AssertionError("the K3 ground truth differs from the plain branch")
+    gt_k10_s = time.time() - t
+    # load_dataset's default depth, k = 100: the K3 branch (fp32 k = 100 in
+    # one launch a chunk, the splits joined by K2) over all queries, held to
+    # the plain branch on the first GT_PLAIN_Q (its 100 passes a column
+    # chunk take ~10 s a 1,000 queries) and to the k = 10 truth on all.
+    GT_PLAIN_Q = 2048
+    reset_launches()
+    t = time.time()
+    gt100 = ground_truth(base, queries, GT_K, metric="l2", device=dev)
+    torch.cuda.synchronize()
+    gt100_s = time.time() - t
+    gt100_launches = {key: n for key, n in read_launches().items() if n}
+    t = time.time()
+    gt100_plain = ground_truth(base, queries[:GT_PLAIN_Q], GT_K, metric="l2", device=dev,
+                               query_chunk=512)
+    torch.cuda.synchronize()
+    phase("setup", t0, f"ground truth k={GT_K}: K3 branch {gt100_s:.1f}s over {N_QUERIES} "
+          f"queries (launches {gt100_launches}); plain branch {time.time() - t:.1f}s over the "
+          f"first {GT_PLAIN_Q}: ids equal on "
+          f"{int((gt100[:GT_PLAIN_Q] == gt100_plain).all(axis=1).sum())} of them")
+    if gt100_launches.get("K3", 0) < 1:
+        raise AssertionError(f"the k={GT_K} fused ground truth did not launch K3")
+    if not np.array_equal(gt100[:GT_PLAIN_Q], gt100_plain) or not np.array_equal(
+            gt100[:, :K], gt):
+        raise AssertionError(f"the k={GT_K} K3 ground truth differs from the plain branch")
+    del gt100_plain
 
     # ---- phase 3: each kernel against its plain version on one routed batch.
     qcap = idx._auto_qcap(BATCH, NPROBE)
@@ -735,7 +791,7 @@ def main() -> None:
               f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}")
     del k9_inputs
 
-    def search_all(index, nprobe=NPROBE, **kw):
+    def search_all(index, nprobe=NPROBE, k=K, **kw):
         """All queries through ``index`` in B=BATCH batches (the tail padded
         cyclically) → (ids, scores, per-batch residual spill, wall s)."""
         t = time.time()
@@ -743,18 +799,21 @@ def main() -> None:
         for s in range(0, N_QUERIES, BATCH):
             chunk = queries[s:s + BATCH]
             qs = torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev)
-            vals, ids, _ = index.search_device(qs, K, nprobe, **kw)
+            vals, ids, _ = index.search_device(qs, k, nprobe, **kw)
             ids_parts.append(ids.cpu().numpy()[:chunk.shape[0]])
             score_parts.append(vals.cpu().numpy()[:chunk.shape[0]])
             residual.append(int(index.last_spill))
         ids, scores = np.concatenate(ids_parts), np.concatenate(score_parts)
-        if ids.shape != (N_QUERIES, K) or not np.isfinite(scores).all() or (ids < 0).any():
+        if ids.shape != (N_QUERIES, k) or not np.isfinite(scores).all() or (ids < 0).any():
             raise AssertionError(f"search {kw} output has the wrong shape, -1 ids or "
                                  "non-finite scores")
         return ids, scores, residual, time.time() - t
 
     def recalls(ids):
         return recall_at_k(ids, gt, K), recall_at_k(ids[:, :1], gt[:, :1], 1)
+
+    def recall_wide(ids):
+        return recall_at_k(ids, gt100[:, :K_WIDE], K_WIDE)
 
     # ---- phase 4: the slice through the public entry point, with its defaults.
     reset_launches()
@@ -866,6 +925,63 @@ def main() -> None:
     phase("routed", t0, f"one B={BATCH} search_device(engine='pallas_routed'): {routed_ms} ms "
           f"(engine='pallas' {grouped_ms} ms); stages ms {routed_stage_ms}")
 
+    # ---- phase 6b: the public calls at k = 20, whose rescore pool of 2k = 40
+    # is past the 32 a row K4 and K7 keep (they run two passes), and the
+    # accum engine at nprobe 128, whose join of W = 256 * 128 = 32768 is past
+    # the 16384 K2 holds in a warp's shared memory (it runs in segments).
+    wide = {}
+    for name, kw in (("defaults", {}), ("pallas", dict(engine="pallas")),
+                     ("pallas_routed", dict(engine="pallas_routed"))):
+        reset_launches()
+        ids_w, scores_w, residual_w, wall_w = search_all(idx, k=K_WIDE, **kw)
+        wide[name] = dict(ids=ids_w, scores=scores_w, residual=residual_w, wall=wall_w,
+                          launches={key: n for key, n in read_launches().items() if n},
+                          recall=recall_wide(ids_w), engine=idx.last_engine)
+    same_routed = (np.array_equal(wide["pallas_routed"]["ids"], wide["pallas"]["ids"])
+                   and wide["pallas_routed"]["scores"].tobytes()
+                   == wide["pallas"]["scores"].tobytes())
+    phase("wide", t0, f"search_device(q, {K_WIDE}, {NPROBE}) over {N_QUERIES} queries: "
+          + "; ".join(f"{name}: engine={w['engine']} {w['wall']:.1f}s residual "
+                      f"last_spill={w['residual']} launches={w['launches']} "
+                      f"recall@{K_WIDE}={w['recall']:.4f}" for name, w in wide.items())
+          + f"; routed ids and scores equal to pallas: {same_routed}")
+    for name, w in wide.items():
+        key = "K7" if name == "pallas_routed" else "K4"
+        if w["launches"].get(key, 0) < 2 or any(w["residual"]) or w["recall"] < 0.99:
+            raise AssertionError(f"k={K_WIDE} {name}: launches {w['launches']}, residual "
+                                 f"{w['residual']}, recall@{K_WIDE} {w['recall']}")
+    if not same_routed:
+        raise AssertionError(f"k={K_WIDE}: engine='pallas_routed' differs from engine='pallas'")
+    del wide
+    # nprobe 128 on 2048 queries (B·pool = 2048 * 32768 still takes the
+    # fused join), routed at the capacity that drops no pair.
+    NPROBE_WIDE, QW = 128, 2048
+    qw = torch.from_numpy(np.ascontiguousarray(queries[:QW])).to(dev)
+    qcap_w = idx.required_qcap(queries[:QW], NPROBE_WIDE)
+    reset_launches()
+    t = time.time()
+    vals_n, ids_n, _ = idx.search_device(qw, K, NPROBE_WIDE, mode="cluster", qcap=qcap_w,
+                                         engine="pallas_accum")
+    torch.cuda.synchronize()
+    wall_n = time.time() - t
+    launch_n = {key: n for key, n in read_launches().items() if n}
+    engine_n, spill_n = idx.last_engine, int(idx.last_spill)
+    r10_n = recall_at_k(ids_n.cpu().numpy(), gt[:QW], K)
+    r10_4 = recall_at_k(ids[:QW], gt[:QW], K)
+    wide_ms = cuda_ms(torch, lambda: idx.search_device(qw, K, NPROBE_WIDE, mode="cluster",
+                                                       qcap=qcap_w, engine="pallas_accum"),
+                      reps=3)
+    phase("wide", t0, f"engine=pallas_accum nprobe={NPROBE_WIDE} (join W={256 * NPROBE_WIDE}) "
+          f"B={QW} qcap={qcap_w} (no pair dropped) {wall_n:.1f}s: engine={engine_n} "
+          f"spill={spill_n} launches={launch_n} recall@10={r10_n:.4f} (nprobe {NPROBE}, the "
+          f"defaults, on the same queries {r10_4:.4f}); one call {wide_ms} ms")
+    if engine_n != "pallas_accum" or launch_n.get("K2", 0) != 3 or spill_n:
+        raise AssertionError(f"nprobe={NPROBE_WIDE}: engine {engine_n}, spill {spill_n}, "
+                             f"launches {launch_n} (K2: two segments and a merge)")
+    if not torch.isfinite(vals_n).all() or r10_n < max(r10_4, 0.99):
+        raise AssertionError(f"nprobe={NPROBE_WIDE} recall@10 {r10_n} below nprobe={NPROBE}'s "
+                             f"{r10_4} or 0.99")
+
     # ---- phase 7: the brute-force index, its kernels K3 and K5, two engines.
     t = time.time()
     bf_auto = BruteForceIndex(base, metric="l2", dtype="int8", device=dev)
@@ -973,19 +1089,52 @@ def main() -> None:
         phase("kernels", t0, f"{name} one B={BATCH} call by kernel (torch.profiler, device ms): "
               f"{device_ms_by_kernel(torch, lambda: fn(*args, **kw))}")
 
-    # K3 in its fp32 exact mode at the ground truth's shapes (one 1024-row chunk).
+    # K3 in its fp32 exact mode (the register-tiled kernel over column
+    # splits, joined by K2) at the ground truth's shapes (one 1024-row
+    # chunk), k = 10 and the loader's k = 100, and at the fused coarse
+    # tier's [8192, D'] x [D', 8192], k = 4; beside each, the plain version
+    # and torch.mm of the same product alone (TF32 off: `gemm_ms`).
     bt_aug = torch.cat([torch.from_numpy(base.T.copy()),
                         torch.from_numpy(-0.5 * np.sum(base ** 2, axis=1))[None, :]]).to(dev)
     q_aug = torch.cat([torch.from_numpy(queries[:1024]),
                        torch.ones((1024, 1))], dim=1).to(dev)
-    gt_ms = cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(q_aug, bt_aug, K), reps=3)
-    gt_bound = bound(bt_aug.numel() * 4 + q_aug.numel() * 4 + 1024 * K * 8,
-                     2.0 * 1024 * (DIM + 1) * N_BASE, OPS32_S)
-    phase("kernels", t0, f"K3 fp32 exact k={K} [1024,{DIM + 1}] x [{DIM + 1},{N_BASE}] "
-          f"(one ground-truth chunk): {gt_ms} ms (bound {gt_bound[0]} ms by {gt_bound[1]})")
-    del bt_aug, q_aug
+    # The coarse tier takes K3 from nlist 8192 (the 10M configuration's): its
+    # transposed, augmented centroids [D + 1, 8192], here random integers.
+    nl = 8192
+    cents = torch.randint(0, 142, (DIM, nl), generator=torch.Generator().manual_seed(16))
+    cents = torch.cat([cents, -0.5 * (cents * cents).sum(0, keepdim=True)]).float().to(dev)
+    q_coarse = torch.cat([torch.from_numpy(np.resize(queries, (BATCH, DIM))),
+                          torch.ones((BATCH, 1))], dim=1).to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k3_f32 = {}
+    for name, (qx, btx, kx) in (("gt", (q_aug, bt_aug, K)), ("gt k=100", (q_aug, bt_aug, GT_K)),
+                                ("coarse", (q_coarse, cents, NPROBE))):
+        v, i = bruteforce_fused.fused_topk_matmul(qx, btx, kx)
+        rv, ri = bruteforce_fused.fused_topk_matmul_reference(qx, btx, kx)
+        torch.cuda.synchronize()
+        if not torch.equal(v, rv) or not torch.equal(i, ri):
+            raise AssertionError(f"K3 fp32 differs from its plain version at the {name} shape")
+        del rv, ri
+        bx, nx = qx.shape[0], btx.shape[1]
+        k3_f32[name] = dict(
+            err=0.0, splits=bruteforce_fused.split_plan(bx, nx, 512, 0, sms)[1],
+            ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(qx, btx, kx), reps=5),
+            plain_ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul_reference(
+                qx, btx, kx), reps=2),
+            gemm_ms=cuda_ms(torch, lambda: torch.mm(qx, btx), reps=5),
+            bound=bound(btx.numel() * 4 + qx.numel() * 4 + bx * kx * 8,
+                        2.0 * bx * btx.shape[0] * nx, OPS32_S))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    phase("kernels", t0, f"K3 fp32 exact, bit-equal to its plain version: ground-truth chunk "
+          f"[1024,{DIM + 1}] x [{DIM + 1},{N_BASE}] k={K} and k={GT_K}, fused coarse tier "
+          f"[{BATCH},{DIM + 1}] x [{DIM + 1},{nl}] k={NPROBE}; ms, plain ms, gemm_ms "
+          f"(torch.mm, TF32 off), bound and splits: {k3_f32}; the whole {N_QUERIES}-query "
+          f"L2 ground truth through K3: k={K} {gt_k10_s:.2f}s, k={GT_K} {gt100_s:.2f}s")
+    del bt_aug, q_aug, q_coarse, cents
 
-    def brute_all(idx):
+    def brute_all(idx, k=K):
         """All queries in B=BATCH batches (the tail padded cyclically) →
         (ids, launches, wall s)."""
         reset_launches()
@@ -994,13 +1143,13 @@ def main() -> None:
         for s_ in range(0, N_QUERIES, BATCH):
             chunk = queries[s_:s_ + BATCH]
             vals, ids_ = idx.search_device(
-                torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev), K)
+                torch.from_numpy(np.resize(chunk, (BATCH, DIM))).to(dev), k)
             if not torch.isfinite(vals).all():
                 raise AssertionError("brute-force scores are not finite")
             parts.append(ids_.cpu().numpy()[:chunk.shape[0]])
         got = read_launches()
         ids_ = np.concatenate(parts)
-        if ids_.shape != (N_QUERIES, K) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
+        if ids_.shape != (N_QUERIES, k) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
             raise AssertionError("brute-force ids out of shape or range")
         return ids_, got, time.time() - t
 
@@ -1024,6 +1173,14 @@ def main() -> None:
         raise AssertionError(f"engine='pallas' did not launch K3: {launch_p}")
     if r10_p < 0.999:
         raise AssertionError(f"engine='pallas' rescore=True recall@10 {r10_p} below 0.999")
+    # k = 20: the rescore pool of 2k = 40 runs K3's int8 mode in two passes.
+    ids_pw, launch_pw, wall_pw = brute_all(bf_pallas, k=K_WIDE)
+    r20_p = recall_wide(ids_pw)
+    phase("wide", t0, f"BruteForceIndex(l2, int8, engine=pallas, rescore=True) k={K_WIDE} "
+          f"{N_QUERIES} queries {wall_pw:.1f}s: launches={launch_pw} "
+          f"recall@{K_WIDE}={r20_p:.4f}")
+    if launch_pw["K3"] < 2 * n_batches or r20_p < 0.999:
+        raise AssertionError(f"brute pallas k={K_WIDE}: launches {launch_pw}, recall {r20_p}")
     del bf_auto, bf_pallas, ba, bp
 
     # ---- phase 8: the fused coarse tier (K3) on a second index over the same arrays.
@@ -1136,7 +1293,7 @@ def main() -> None:
               f"{k6[name]['bound'][1]}")
     del r, rec_scan, k6_inputs
 
-    def sharded_all(sh, bs, **kw):
+    def sharded_all(sh, bs, k=K, **kw):
         """All queries through the sharded index ``sh`` in B=bs batches (the
         tail padded cyclically) → (ids, per-batch residual spill, wall s)."""
         t = time.time()
@@ -1144,14 +1301,14 @@ def main() -> None:
         for s_ in range(0, N_QUERIES, bs):
             chunk = queries[s_:s_ + bs]
             vals, ids_, _ = sh.search_device(
-                torch.from_numpy(np.resize(chunk, (bs, DIM))).to(dev), K, NPROBE, **kw)
+                torch.from_numpy(np.resize(chunk, (bs, DIM))).to(dev), k, NPROBE, **kw)
             if not torch.isfinite(vals).all():
                 raise AssertionError(f"sharded search {kw} scores are not finite")
             parts.append(ids_.cpu().numpy()[:chunk.shape[0]])
             if kw.get("mode") == "cluster":
                 residual.append(int(sh.last_spill))
         ids_ = np.concatenate(parts)
-        if ids_.shape != (N_QUERIES, K) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
+        if ids_.shape != (N_QUERIES, k) or (ids_ < 0).any() or (ids_ >= N_BASE).any():
             raise AssertionError(f"sharded search {kw} ids out of shape or range")
         return ids_, residual, time.time() - t
 
@@ -1205,6 +1362,17 @@ def main() -> None:
         raise AssertionError(f"sharded: pairs still dropped after recovery: {residual_s}")
     if r10_s < 0.99 or r1_s < 0.99:
         raise AssertionError(f"sharded recall below 0.99: recall@10 {r10_s}, recall@1 {r1_s}")
+    # k = 20: each shard's recovery pass runs K6 in two passes of 32.
+    reset_launches()
+    ids_sw, residual_sw, wall_sw = sharded_all(sh, BATCH, k=K_WIDE, mode="cluster")
+    launch_sw = {key: n for key, n in read_launches().items() if n}
+    r20_s = recall_wide(ids_sw)
+    phase("wide", t0, f"sharded search_device(q, {K_WIDE}, {NPROBE}, mode='cluster') "
+          f"{N_QUERIES} queries {wall_sw:.1f}s: residual last_spill={residual_sw} "
+          f"launches={launch_sw} recall@{K_WIDE}={r20_s:.4f}")
+    if launch_sw.get("K6", 0) < 2 or any(residual_sw) or r20_s < 0.99:
+        raise AssertionError(f"sharded k={K_WIDE}: launches {launch_sw}, residual "
+                             f"{residual_sw}, recall@{K_WIDE} {r20_s}")
 
     reset_launches()
     ids_sp, residual_sp, wall_sp = sharded_all(sh, BATCH, mode="cluster", engine="pallas")
@@ -2515,6 +2683,75 @@ def main() -> None:
     del iidx, arrays_f
     torch.cuda.empty_cache()
 
+    # ---- phase 15: sentence-embedding widths, past the kernels' old D caps
+    # (D = 384, all-MiniLM-L6-v2; 768, BERT-base) on synthetic corpora:
+    # BruteForceIndex(base) with every default (ip, bf16, accum: K5), and
+    # the fp32 and bf16 IVFIndex (K1, the recovery pass's K4) at nprobe 16;
+    # then K2 at W = 32768, past the row one warp holds.
+    WIDE_N, WIDE_Q, WIDE_NLIST, WIDE_NPROBE = 200_000, 1024, 256, 16
+    widedim = {}
+    for dw in (384, 768):
+        t = time.time()
+        base_w, queries_w = make_synthetic(WIDE_N, WIDE_Q, dw, 256, seed=43)
+        qw = torch.from_numpy(queries_w).to(dev)
+        gt_w = {m: ground_truth(base_w, queries_w, K, metric=m, device=dev) for m in ("ip", "l2")}
+        reset_launches()
+        bfw = BruteForceIndex(base_w, device=dev)
+        vals_w, ids_w = bfw.search_device(qw, K)
+        torch.cuda.synchronize()
+        res = {"brute": dict(engine=bfw.engine, dtype=bfw.dtype, launches=read_launches()["K5"],
+                             finite=bool(torch.isfinite(vals_w).all()),
+                             recall=recall_at_k(ids_w.cpu().numpy(), gt_w["ip"], K),
+                             ms=cuda_ms(torch, lambda: bfw.search_device(qw, K), reps=3))}
+        del bfw
+        ivf_w = IVFIndex.build(base_w, nlist=WIDE_NLIST, metric="l2", dtype="fp32",
+                               pad_block=512, seed=42, max_iter=10, device=dev)
+        for mode in ("fp32", "bf16"):
+            ix = ivf_w if mode == "fp32" else IVFIndex.from_arrays(
+                ivf_w._centroids_np, ivf_w._vectors_np, ivf_w._offsets_np, ivf_w._reorder_np,
+                metric="l2", dtype="bf16", pad_block=512, config=dict(ivf_w.config), device=dev)
+            reset_launches()
+            vals_w, ids_w, _ = ix.search_device(qw, K, WIDE_NPROBE, mode="cluster", recover=True)
+            torch.cuda.synchronize()
+            got = read_launches()
+            res[f"ivf {mode}"] = dict(
+                engine=ix.last_engine, launches={"K1": got["K1"], "K4": got["K4"]},
+                spill=int(ix.last_spill), finite=bool(torch.isfinite(vals_w).all()),
+                recall=recall_at_k(ids_w.cpu().numpy(), gt_w["l2"], K),
+                ms=cuda_ms(torch, lambda: ix.search_device(qw, K, WIDE_NPROBE, mode="cluster",
+                                                           recover=True), reps=3))
+            del ix
+        del ivf_w, base_w, queries_w, qw
+        torch.cuda.empty_cache()
+        widedim[dw] = res
+        phase("widedim", t0, f"D={dw}, N={WIDE_N}, {WIDE_Q} queries ({time.time() - t:.1f}s "
+              f"with the builds): {res}")
+        for name, r_ in res.items():
+            floor = 0.99 if name == "brute" else 0.95
+            ran = r_["launches"] >= 1 if name == "brute" else min(r_["launches"].values()) >= 1
+            if not (ran and r_["finite"] and r_["recall"] >= floor):
+                raise AssertionError(f"D={dw} {name}: {r_} (recall floor {floor})")
+    xw = torch.randint(0, 64, (BATCH, 32768), generator=torch.Generator(device=dev).manual_seed(17),
+                       device=dev, dtype=torch.int32)  # ties across both segment edges
+    xw[::13] = ivf_accum.KMIN
+    reset_launches()
+    vw, iw = fused_topk.fused_topk(xw, kk)
+    k2_w_launches = read_launches()["K2"]
+    rvw, riw = fused_topk.fused_topk_reference(xw, kk)
+    torch.cuda.synchronize()
+    if not torch.equal(vw, rvw) or not torch.equal(iw, riw) or k2_w_launches != 3:
+        raise AssertionError(f"K2 at W=32768 differs from its plain version or took "
+                             f"{k2_w_launches} launches")
+    k2_wide = dict(
+        ms=cuda_ms(torch, lambda: fused_topk.fused_topk(xw, kk)),
+        plain_ms=cuda_ms(torch, lambda: fused_topk.fused_topk_reference(xw, kk), reps=3),
+        lib_ms=cuda_ms(torch, lambda: torch.topk(xw, kk, dim=1)),
+        bound=bound(xw.numel() * 4 + BATCH * kk * 8, kk * xw.numel(), OPS32_S))
+    phase("widedim", t0, f"K2 [{BATCH}, 32768] int32 k={kk}: equal to its plain version in "
+          f"{k2_w_launches} launches (two segments, one merge); ms, plain ms, torch.topk ms and "
+          f"bound: {k2_wide}")
+    del xw, vw, iw, rvw, riw
+
     kernels = [
         {"name": "cluster_major_accum_planes", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_accum_planes.cu",
@@ -2529,7 +2766,8 @@ def main() -> None:
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
          "library_ms": k2["lib_ms"], "device_ms": k2["device_ms"],
          "by_width": {w: {key: r[key] for key in ("ms", "device_ms", "lib_ms", "lib_device_ms")}
-                      for w, r in k2_widths.items()}},
+                      for w, r in k2_widths.items()},
+         "w32768": {key: k2_wide[key] for key in ("ms", "plain_ms", "lib_ms")}},
         {"name": "cluster_major_scan_grouped", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/ivf_grouped_scan.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_ivf.py:144",
@@ -2622,6 +2860,17 @@ def main() -> None:
          "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
          "library_ms": None},
     ]
+    # K3's fp32 mode: its launches are the whole L2 ground truth's (setup, k=10).
+    kernels.append({
+        "name": "fused_topk_matmul", "mode": "fp32", "route": "cuda",
+        "source": "rag_on_edge_tpu_torch/csrc/bruteforce_fused.cu",
+        "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce.py:193", "launches": gt_launches,
+        "max_abs_err": k3_f32["gt"]["err"], "ms": k3_f32["gt"]["ms"],
+        "plain_ms": k3_f32["gt"]["plain_ms"], "bound_ms": k3_f32["gt"]["bound"][0],
+        "bound_by": k3_f32["gt"]["bound"][1], "library_ms": None,
+        "gemm_ms": k3_f32["gt"]["gemm_ms"], "k100_ms": k3_f32["gt k=100"]["ms"],
+        "coarse_ms": k3_f32["coarse"]["ms"], "coarse_bound_ms": k3_f32["coarse"]["bound"][0],
+        "coarse_gemm_ms": k3_f32["coarse"]["gemm_ms"]})
     # The float modes, one entry per (kernel, mode): phase 13's and phase 14's.
     fl.update(fl14)
     for key, name, src, tpu in (

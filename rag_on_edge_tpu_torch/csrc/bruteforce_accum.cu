@@ -125,12 +125,15 @@ accum_bins_kernel(const float* __restrict__ q,           // [b, d]
   const int bin = blockIdx.x * LANES + lane;
   const int cta_r0 = blockIdx.y * CTA_ROWS;
 
-  // Query rows [CTA_ROWS][qstride] fp32, then the chunk [qstride][LANES] fp32.
+  // Query rows [CTA_ROWS][dsl] fp32, then the chunk [dsl][LANES] fp32: all
+  // of qstride while it fits, else a d-slice at a time (ivf_stage.cuh).
+  const int dsl = float_slice(qstride);
+  const bool sliced = dsl < qstride;
   extern __shared__ int4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* col_s = q_s + CTA_ROWS * qstride;
-  const float* my_q = q_s + grp * ROWS * qstride;
-  stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, q_s);
+  float* col_s = q_s + CTA_ROWS * dsl;
+  const float* my_q = q_s + grp * ROWS * dsl;
+  if (!sliced) stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, q_s);
 
   int32_t rv[ROWS], ri[ROWS];
 #pragma unroll
@@ -151,10 +154,16 @@ accum_bins_kernel(const float* __restrict__ q,           // [b, d]
       const float* vsrc = tiles + (size_t)t * d * tile_n + blockIdx.x * LANES;
       const bool valid = t * tile_n + bin < n;
       const uint32_t code = low - (uint32_t)j;
-      stage_chunk_f<THREADS>(vsrc, d, tile_n, qstride, col_s);
-      __syncthreads();
       float dots[ROWS];
-      dot_rows_f<ROWS>(col_s, lane, my_q, qstride, dots);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) dots[r] = 0.0f;
+      for (int e0 = 0; e0 < qstride; e0 += dsl) {
+        if (e0 > 0) __syncthreads();  // the last slice is read
+        if (sliced) stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, dsl, q_s, e0);
+        stage_chunk_f<THREADS>(vsrc + (size_t)e0 * tile_n, d - e0, tile_n, dsl, col_s);
+        __syncthreads();
+        dot_rows_f_acc<ROWS>(col_s, lane, my_q, dsl, min(dsl, qstride - e0), dots);
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(dots[r]) & ~low) | code)
@@ -209,9 +218,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tt,
                    const __grid_constant__ CUtensorMap tbias, int32_t* __restrict__ rv_out,
                    int32_t* __restrict__ ri_out, int b, int ldq, int tile_n, int n, int low,
-                   int nrb, int stages, int wgs_arg) {
+                   int nrb, int stages, int wgs, int a_ring) {
   using Acc = std::conditional_t<MODE == W_BF16, float, int32_t>;
-  const int wgs = MODE == W_BF16 ? W_WGS : wgs_arg;  // bf16: always three
   constexpr bool BIAS = MODE == W_I8_L2;
   constexpr int KD = MODE == W_BF16 ? 64 : 128;  // d a box
   extern __shared__ uint8_t w_smem[];
@@ -219,7 +227,11 @@ accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
   const int kb = (ldq + KD - 1) / KD;        // boxes a tile
   const int a_box = wgs * W_A_WG;            // the CTA's rows x one box of d
-  const uint32_t a_s = base, ring = base + kb * a_box, bias_s = ring + stages * W_BOX;
+  // The query rows stay resident (kb boxes), or with a_ring (wide D) ride
+  // each stage beside its base box, re-read from L2 for every tile.
+  const int stage_bytes = W_BOX + (a_ring ? a_box : 0);
+  const uint32_t a_s = base, ring = base + (a_ring ? 0 : kb) * a_box;
+  const uint32_t bias_s = ring + stages * stage_bytes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rb = (int)(blockIdx.x % nrb), bin0 = (int)(blockIdx.x / nrb) * W_BN;
   const int t_live = (n + tile_n - 1) / tile_n;
@@ -235,9 +247,11 @@ accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   if (warp == 4 * wgs) {  // producer
     if (lane == 0) {
-      mbar_expect_tx(&abar, kb * a_box);
-      for (int j = 0; j < kb; ++j)
-        tma_load_2d(a_s + j * a_box, &tq, KD * j, rb * 64 * wgs, &abar);
+      if (!a_ring) {
+        mbar_expect_tx(&abar, kb * a_box);
+        for (int j = 0; j < kb; ++j)
+          tma_load_2d(a_s + j * a_box, &tq, KD * j, rb * 64 * wgs, &abar);
+      }
       int s = 0;          // the stage, and the parity of its round, of the next box
       unsigned ph = 0;
       bool wrapped = false;
@@ -245,11 +259,13 @@ accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         for (int j = 0; j < kb; ++j) {
           if (wrapped) mbar_wait(&empty[s], ph ^ 1u);
           const bool with_bias = BIAS && j == kb - 1;
-          mbar_expect_tx(&full[s], W_BOX + (with_bias ? W_BIAS : 0));
+          mbar_expect_tx(&full[s], stage_bytes + (with_bias ? W_BIAS : 0));
           if constexpr (MODE == W_BF16)
-            tma_load_3d(ring + s * W_BOX, &tt, bin0, 64 * j, t, &full[s]);
+            tma_load_3d(ring + s * stage_bytes, &tt, bin0, 64 * j, t, &full[s]);
           else
-            tma_load_2d(ring + s * W_BOX, &tt, 128 * j, t * tile_n + bin0, &full[s]);
+            tma_load_2d(ring + s * stage_bytes, &tt, 128 * j, t * tile_n + bin0, &full[s]);
+          if (a_ring) tma_load_2d(ring + s * stage_bytes + W_BOX, &tq, KD * j, rb * 64 * wgs,
+                                  &full[s]);
           if (with_bias) tma_load_2d(bias_s + s * W_BIAS, &tbias, bin0, t, &full[s]);
           if (++s == stages) {
             s = 0;
@@ -289,7 +305,8 @@ accum_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int j = 0; j < kb; ++j) {
       const int s = rs;
       mbar_wait_loop(&full[s], rph);
-      const uint32_t sa = a_s + j * a_box + wg * W_A_WG, sb = ring + s * W_BOX;
+      const uint32_t sb = ring + s * stage_bytes;
+      const uint32_t sa = (a_ring ? sb + W_BOX : a_s + j * a_box) + wg * W_A_WG;
       fence_acc(d);
       wgmma_fence();
       // A: 128-byte rows, 8-row groups 1 KB apart, a k-step 32 bytes along
@@ -468,8 +485,8 @@ int launch_accum_f32(const void* q, const void* tiles, void* rv, void* ri, void*
                      cudaStream_t s) {
   if (b == 0) return 0;
   const int qstride = stage_row_words<float>(d);
-  const size_t smem = ((size_t)CTA_ROWS * qstride + stage_chunk_words<float>(qstride))
-                      * sizeof(int32_t);
+  const int dsl = float_slice(qstride);
+  const size_t smem = ((size_t)CTA_ROWS * dsl + stage_chunk_words<float>(dsl)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         accum_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -502,13 +519,20 @@ int launch_accum_wgmma(const void* q, const void* tiles, const void* bias, void*
   const int t_live = (n + tile_n - 1) / tile_n;
   const int kb = (ldq + KD - 1) / KD;
   const int per_stage = W_BOX + (MODE == W_I8_L2 ? W_BIAS : 0);
-  // int8 takes no more warpgroups than the batch fills, and fewer where
-  // the resident query rows would leave the ring under four stages.
+  // int8 takes no more warpgroups than the batch fills; both take fewer
+  // where the resident query rows would leave the ring under four stages,
+  // and past one warpgroup's (wide D) the rows ride the ring instead.
   int wgs = MODE == W_BF16 ? W_WGS : min(W_WGS, (b + 63) / 64);
-  int stages = 0;
+  int stages = 0, a_ring = 0, stage_bytes = per_stage;
   for (;; --wgs) {
     stages = min(W_STAGES_MAX, (W_SMEM_MAX - 1024 - kb * wgs * W_A_WG) / per_stage);
-    if (MODE == W_BF16 || stages >= 4 || wgs == 1) break;
+    if (stages >= 4 || wgs == 1) break;
+  }
+  if (stages < 2) {
+    a_ring = 1;
+    wgs = MODE == W_BF16 ? W_WGS : min(W_WGS, (b + 63) / 64);
+    stage_bytes = per_stage + wgs * W_A_WG;
+    stages = min(W_STAGES_MAX, (W_SMEM_MAX - 1024) / stage_bytes);
   }
   if (stages < 2) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tt, tb{};
@@ -522,14 +546,14 @@ int launch_accum_wgmma(const void* q, const void* tiles, const void* bias, void*
     if (MODE == W_I8_L2)
       if (const int e = word_map(encode, &tb, bias, t_live, tile_n, W_BN)) return e;
   }
-  const int smem = 1024 + kb * wgs * W_A_WG + stages * per_stage;
+  const int smem = 1024 + (a_ring ? 0 : kb * wgs * W_A_WG) + stages * stage_bytes;
   if (const cudaError_t e = cudaFuncSetAttribute(
           accum_wgmma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return (int)e;
   const int nrb = (b + 64 * wgs - 1) / (64 * wgs);
   accum_wgmma_kernel<MODE><<<(unsigned)(nrb * (tile_n / W_BN)), 128 * wgs + 32, smem, s>>>(
       tq, tt, tb, static_cast<int32_t*>(rv), static_cast<int32_t*>(ri), b, ldq, tile_n, n,
-      group - 1, nrb, stages, wgs);
+      group - 1, nrb, stages, wgs, a_ring);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   int shift = 0;

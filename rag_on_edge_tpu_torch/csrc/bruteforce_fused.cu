@@ -26,28 +26,52 @@
 // TMA ring the binned table leaves room for, and runs its selection after
 // each chunk's product on the same warpgroup: those, and not the tensor
 // cores, set the pace.  The fp32 mode (exact ground truth, the fused coarse
-// tier) is bound by fp32 FMAs.
+// tier) is bound by fp32 FMAs: [1024, 129] x [129, 1M] is 1.35e11 FMAs,
+// 3.94 ms at the card's 67 TFLOP/s (2 flops an FMA).
 //
-// Design of the fp32 mode (fused_topk_kernel):
-// - one CTA of 256 threads per 32 query rows: two row groups of 16 rows x
-//   128 lanes, thread = (group, lane), walking all N columns 128 at a time.
-//   The query rows stay in shared memory for the whole walk; the chunk is
-//   staged in slices of 32 d-rows and scored with fmaf.
-// - selection by threshold: each row's running top-k (k <= 32) sits in
-//   shared memory, and each thread keeps the row's k-th value in a
-//   register.  Only a score above it can enter (an equal one comes from a
-//   later column, a higher id, and loses), so it is appended to the row's
-//   candidate buffer (256 entries; a warp-aggregated atomicAdd).  Once a
-//   buffer may overflow on the next chunk, one warp per row merges it into
-//   the top-k: k passes of a warp argmax by (score desc, id asc) with
-//   shuffles, as in K4.  After the first chunks the threshold is high and
-//   few scores pass it.  This per-row test is the per-row form of the TPU
-//   kernel's `improves` skip.
-// - binned: each thread keeps, per row, its bin's two best (score, chunk)
-//   of the current tile in registers (strict >, so an equal, later score
-//   lands behind); at the tile's end the survivors above the threshold go
-//   to the buffer and are merged.  tile_n is the JAX wrapper's, so the same
-//   candidates survive; the walk itself is 128 columns at a time.
+// Design of the fp32 mode (fused_f32_kernel).  The first design ran one
+// CTA of 256 threads per 32 query rows over all N columns, each thread 16
+// rows x 1 column by scalar fmaf from shared memory: a 1024-row
+// ground-truth chunk filled 32 of the 132 SMs and ran at 33x its FFMA bound
+// (PERF.md section 6).  Now:
+// - a 2-D grid: row tiles x column splits.  The wrapper sizes the splits
+//   from the SM count (ops/bruteforce_fused.py, split_plan) so that the
+//   CTAs fill one wave (B = 1024: 8 row tiles x 16 splits on 132 SMs; two
+//   and four waves ran slower, the more so the larger k: every split pays
+//   its own first merges), each split at least 32 chunks long.  CTAs of
+//   one split run side by side (row tiles fastest), so its slice of the
+//   base is read from device memory about once.  Each split writes its
+//   rows' sorted top-k (value, id) to its k columns of a [B, nsplit k]
+//   buffer, and the wrapper joins the splits with K2 (fused_topk.cu),
+//   ties to the lowest position: splits lie in column order and each list
+//   in (score desc, id asc) order, so that is the lowest id.  In binned
+//   mode the splits fall on tile_n multiples, so the tiles, and the
+//   survivors, are the JAX wrapper's.  D is never split: each score is
+//   one fmaf a dimension in d order from +0, as the plain version.
+// - a register tile on the pattern of K8's fp32 kernel (tiled_matmul.cu):
+//   128 rows (binned: 64) x 128 columns a CTA, 8 x 8 fp32 accumulators a
+//   thread; the query rows' and the base's d-slices of 16 come through a
+//   three-stage cp.async ring, so D has no cap, and the query rows are
+//   re-read from L2 each chunk.  Groups of 4 d past D are skipped.
+// - selection on the accumulators.  Each thread tests its 64 scores against
+//   its rows' k-th values (registers); a passer goes to its row's candidate
+//   buffer in shared memory (one shared atomic per thread and row).  Once a
+//   row's buffer could overflow on the next chunk, the next step's barrier
+//   (a __syncthreads_or) has the CTA merge every row's buffer: a warp a row,
+//   each entry placed at its rank in the union of the sorted list and the
+//   buffer (every (score, id) is distinct; a ballot counts the list entries
+//   above a buffer entry), ranks below k kept.  Merging every row at once
+//   makes the CTA wait once where single rows would stop it again and
+//   again.  The lists, up to 256 long, live in the
+//   output buffer itself (in L2), so k costs no shared memory (the merge
+//   holds a list in 1, 2, 4 or 8 registers a lane, by k); merges are rare
+//   after the first chunk.
+// - binned: a thread owns the same 64 (row, bin) pairs in every chunk, and
+//   keeps each pair's two best passers of the tile in a shared table
+//   (strict >, so an equal, later score lands behind); at the tile's end
+//   the survivors go to the buffers a warp column at a time and are merged.
+//   The threshold only moves at tile ends, and a bin's top two among its
+//   passers are its top two wherever they pass.
 // Design of the bf16 and int8 modes (fused_wgmma_kernel, hopper_mma.cuh):
 // - one CTA of 160 threads per 64 query rows: one consumer warpgroup and
 //   one producer warp.  The rows (zero-padded to a multiple of 16 by the
@@ -98,30 +122,31 @@
 //   binned table.  An int8 stage holds a whole 128-d chunk, so at D = 128 the
 //   ring holds six chunks (bf16: five stages, 1.7 chunks at D = 129); two
 //   int8 stages ran within a few percent of seven (PERF.md section 7).
+// - wide D: where two stages no longer fit beside the resident query rows
+//   (bf16 past D ~ 700 binned, int8 past ~1400), the rows ride in the ring
+//   instead, one [64 rows, 128 bytes] box beside each stage's base box,
+//   re-read from L2 every chunk: D has no cap.
+// - k > 32: the wrapper runs the kernel in passes of 32 (ops/_build.py,
+//   by_passes), each pass given every row's last entry of the one before
+//   as a bound; only an entry ranked after its bound may enter (in binned
+//   mode the bound is applied to the survivors, so the bins are cut as
+//   before).  The passes' lists, joined, are the exact top-k.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
 #include "hopper_mma.cuh"
-#include "ivf_stage.cuh"
 
 namespace {
 
-constexpr int LANES = 128;               // columns per chunk: one per lane of a row group
-constexpr int ROWS = 16;                 // query rows per row group
-constexpr int GROUPS = 2;                // row groups per CTA
-constexpr int THREADS = LANES * GROUPS;
-constexpr int WARPS = THREADS / 32;
-constexpr int CTA_ROWS = ROWS * GROUPS;
-constexpr int K_MAX = 32;                // running top-k width in shared memory
-constexpr int BUF = 2 * LANES;           // candidate buffer per row: one tile's bin survivors
-constexpr int PER_LANE = BUF / 32;
-constexpr int DS = 32;                   // fp32 d-rows staged per slice
+constexpr int K_MAX = 32;                // the wgmma modes' running top-k width in shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int32_t fill_of(int32_t) { return INT32_MIN; }
 __device__ __forceinline__ float fill_of(float) { return -INFINITY; }
+__device__ __forceinline__ int32_t top_of(int32_t) { return INT32_MAX; }
+__device__ __forceinline__ float top_of(float) { return INFINITY; }
 
 // (v, i) ranks before (bv, bi): larger score, then lower id.
 template <typename T>
@@ -129,244 +154,394 @@ __device__ __forceinline__ bool better(T v, int i, T bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// Merge each row's candidate buffer into its running top-k: one warp per
-// row, k passes of a warp argmax by (score desc, id asc).  Candidate ids
-// are fresh columns, so a winner is removed by (value, id).  Clears the
-// row's count.
-__device__ void merge_rows(float* run_v, int32_t* run_i, const float* buf_v,
-                           const int32_t* buf_i, int* cnt, int k) {
-  using T = float;
-  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
-  const T FILL = -INFINITY;
-  for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
-    const int c = cnt[rr];
-    if (c == 0) continue;  // uniform in the warp
-    T* sv = run_v + rr * K_MAX;
-    int32_t* si = run_i + rr * K_MAX;
-    T cv[PER_LANE];
-    int ci[PER_LANE];
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int e = i * 32 + wl;
-      cv[i] = e < c ? buf_v[rr * BUF + e] : FILL;
-      ci[i] = e < c ? buf_i[rr * BUF + e] : INT32_MAX;
-    }
-    T ov = wl < k ? sv[wl] : FILL;
-    int oi = wl < k ? si[wl] : INT32_MAX;
-    __syncwarp();
-    for (int p = 0; p < k; ++p) {
-      T bv = ov;
-      int bi = oi;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i)
-        if (better(cv[i], ci[i], bv, bi)) {
-          bv = cv[i];
-          bi = ci[i];
-        }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const T v2 = __shfl_xor_sync(FULL, bv, off);
-        const int i2 = __shfl_xor_sync(FULL, bi, off);
-        if (better(v2, i2, bv, bi)) {
-          bv = v2;
-          bi = i2;
-        }
-      }
-      // Only fill left: slots p.. of the old state held fill already (any
-      // real entry would have won first).  bv is the same in every lane.
-      if (bv == FILL) break;
-      if (wl == 0) {
-        sv[p] = bv;
-        si[p] = bi;
-      }
-      if (ov == bv && oi == bi) ov = FILL;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i)
-        if (cv[i] == bv && ci[i] == bi) cv[i] = FILL;
-    }
-    __syncwarp();
-    if (wl == 0) cnt[rr] = 0;
-  }
-}
+// ------------------------------------------- fp32: register-tiled FFMA
 
-// Append `push` entries (v, id) of the lanes of one warp to row rr's
-// buffer with one atomicAdd per warp; sets *flag once the buffer could
-// overflow on the next chunk.  Every lane of the warp calls it.
-__device__ __forceinline__ void push_warp(bool push, float v, int id, int rr, float* buf_v,
-                                          int32_t* buf_i, int* cnt, int* flag) {
-  const unsigned m = __ballot_sync(FULL, push);
-  if (m == 0) return;
-  const int wl = threadIdx.x % 32, leader = __ffs(m) - 1;
-  int base = 0;
-  if (wl == leader) {
-    base = atomicAdd(&cnt[rr], __popc(m));
-    if (base + __popc(m) > BUF - LANES) *flag = 1;
-  }
-  base = __shfl_sync(FULL, base, leader);
-  if (push) {
-    const int slot = base + __popc(m & ((1u << wl) - 1u));
-    buf_v[rr * BUF + slot] = v;
-    buf_i[rr * BUF + slot] = id;
-  }
-}
+constexpr int F_BN = 128;                // columns a chunk (and the binned mode's bins)
+constexpr int F_KMAX = 256;              // the widest top-k: 8 entries a lane
+// A three-stage ring of d-slices of 16 (two stages of 32, four of 16 and
+// six of 8 each ran slower on the H100 at the ground-truth chunk).
+constexpr int F_BK = 16;
+constexpr int F_PA = F_BK + 4;           // a staged query row's pitch in floats
+constexpr int F_STAGES = 3;
 
-// Two CTAs per SM: the cap keeps the binned variant at two CTAs an SM.
+// The CTA's shape: WM warps along the rows (64 rows each) x 4 along the
+// chunk's 128 columns.  Exact mode: 128 rows, and a buffer a row that takes
+// a whole chunk's passers on top of the 28 it may hold (it is merged past
+// those); binned: 64 rows beside the table, and a buffer that takes one
+// warp column's tile-end survivors (4 lanes x 8 bins x 2).
 template <bool BINNED>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_topk_kernel(const float* __restrict__ q,           // [b, d]
-                  const float* __restrict__ base,        // [d, n]
-                  const int32_t* __restrict__ n_valid,   // [1] or null
-                  float* __restrict__ out_v,             // [b, k]
-                  int32_t* __restrict__ out_i,           // [b, k]
-                  int b, int d, int n, int k, int tile_n, int qstride) {
+struct FTile {
+  static constexpr int WM = BINNED ? 1 : 2;
+  static constexpr int BM = 64 * WM;
+  static constexpr int THREADS = 128 * WM;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int BUF = BINNED ? 64 : 28 + F_BN;
+  static constexpr int BJ = (BUF + 31) / 32;
+  static constexpr int STAGE_FLOATS = BM * F_PA + F_BK * F_BN;
+  static constexpr int TABLE = BINNED ? 2 * 64 * THREADS : 0;  // entries of the binned table
+  static constexpr size_t SMEM = ((size_t)F_STAGES * STAGE_FLOATS + (size_t)BM * BUF * 2 +
+                                  3 * BM + (size_t)TABLE * 2) * 4;
+};
+
+// 16 bytes from global to shared memory (src_bytes 0 writes zeros), and 4.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// q [b, ldq] (ldq = d rounded up to 4, the pad zero, 16-byte aligned),
+// base [d, ldb] (columns n.. ignored), out_v / out_i [b, ldo]: split s
+// writes its rows' top-k, sorted, at columns s k .. s k + k - 1 (the caller
+// fills them with (-inf, 0) first).  CTA (x, s) takes rows BM x .. and the
+// columns [s split_cols, (s + 1) split_cols) of the base; split_cols is a
+// multiple of 128, and in binned mode of tile_n.  Warp (wm, wn), lane (lm,
+// ln) = (lane / 4, lane % 4): rows 64 wm + 8 i + lm (i < 8) and chunk
+// columns 32 wn + 16 (j / 4) + 4 ln + j % 4 (j < 8).
+template <bool BINNED, int KJ>
+__global__ void __launch_bounds__(FTile<BINNED>::THREADS, 1)
+fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
+                 const int32_t* __restrict__ n_valid, float* __restrict__ out_v,
+                 int32_t* __restrict__ out_i, int b, int d, int ldq, int n, int ldb, int k,
+                 int tile_n, int split_cols, int ldo, int vec_b) {
+  using Tl = FTile<BINNED>;
+  constexpr int BM = Tl::BM, THREADS = Tl::THREADS, WARPS = Tl::WARPS, BUF = Tl::BUF;
+  constexpr int SF = Tl::STAGE_FLOATS, AF = BM * F_PA;
   const float FILL = -INFINITY;
-  const int lane = threadIdx.x % LANES;
-  const int group = threadIdx.x / LANES;
-  const int cta_r0 = blockIdx.x * CTA_ROWS;
-  const int r0 = group * ROWS;  // this group's first row within the CTA
+  extern __shared__ __align__(16) float fsm[];
+  float* const buf_v = fsm + F_STAGES * SF;                  // [BM][BUF]
+  int32_t* const buf_i = reinterpret_cast<int32_t*>(buf_v + BM * BUF);
+  int* const cnt = buf_i + BM * BUF;                         // [BM] candidates held
+  int* const len = cnt + BM;                                 // [BM] entries of the list
+  float* const thr_s = reinterpret_cast<float*>(len + BM);   // [BM] the k-th value, or -inf
+  float* const tv = thr_s + BM;                              // binned: [2][64][THREADS]
+  int32_t* const ti = reinterpret_cast<int32_t*>(tv + Tl::TABLE);
 
-  extern __shared__ int4 smem4[];
-  float* run_v = reinterpret_cast<float*>(smem4);                  // [CTA_ROWS][K_MAX]
-  int32_t* run_i = reinterpret_cast<int32_t*>(run_v + CTA_ROWS * K_MAX);
-  float* buf_v = reinterpret_cast<float*>(run_i + CTA_ROWS * K_MAX);  // [CTA_ROWS][BUF]
-  int32_t* buf_i = reinterpret_cast<int32_t*>(buf_v + CTA_ROWS * BUF);
-  int* cnt = reinterpret_cast<int*>(buf_i + CTA_ROWS * BUF);        // [CTA_ROWS]
-  int* flag = cnt + CTA_ROWS;                                       // [4] (keeps 16-byte alignment)
-  float* q_s = reinterpret_cast<float*>(flag + 4);                  // [CTA_ROWS][qstride]
-  float* cf = q_s + CTA_ROWS * qstride;                             // [DS][LANES]
-
-  for (int i = threadIdx.x; i < CTA_ROWS * K_MAX; i += THREADS) {
-    run_v[i] = FILL;
-    run_i[i] = 0;
-  }
-  if (threadIdx.x < CTA_ROWS) cnt[threadIdx.x] = 0;
-  if (threadIdx.x == 0) *flag = 0;
-  stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, q_s);
-
-  float thr[ROWS];
-  bool live[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    live[r] = cta_r0 + r0 + r < b;
-    thr[r] = FILL;
-  }
-  float tv[BINNED ? ROWS : 1][2];
-  int tc[BINNED ? ROWS : 1][2];
-  if constexpr (BINNED) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      tv[r][0] = tv[r][1] = FILL;
-      tc[r][0] = tc[r][1] = 0;
-    }
-  }
-
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3, lm = lane >> 2, ln = lane & 3;
+  const int row0 = blockIdx.x * BM, split = blockIdx.y;
+  const int c_lo = split * split_cols;
+  const int c_hi = min(n, c_lo + split_cols);
+  const int nchunks = (c_hi - c_lo + F_BN - 1) / F_BN;
+  const int nk = (d + F_BK - 1) / F_BK;
+  const int steps = nchunks * nk;
   const int n_bound = n_valid != nullptr ? min(*n_valid, n) : n;
-  const int nchunks = (n + LANES - 1) / LANES;
-  const int tile_chunks = tile_n / LANES;
+  const int tile_chunks = BINNED ? tile_n / F_BN : 1;
 
-  for (int c = 0; c < nchunks; ++c) {
-    const int col = c * LANES + lane;
-    float x[ROWS];
-    const float* qf = q_s + r0 * qstride;
-    float acc[ROWS];
+  for (int i = tid; i < BM; i += THREADS) {
+    cnt[i] = 0;
+    len[i] = 0;
+    thr_s[i] = FILL;
+  }
+  for (int i = tid; i < Tl::TABLE; i += THREADS) tv[i] = FILL;
+
+  // This thread's copies of a stage, 16 bytes each: query rows ar + AR j at
+  // d column aq; base d-rows br + BR j at chunk column bq.
+  constexpr int ACH = F_BK / 4, AR = THREADS / ACH, BR = THREADS / 32;
+  const int ar = tid / ACH, aq = (tid % ACH) * 4;
+  const int br = tid >> 5, bq = (tid & 31) * 4;
+  auto load = [&](int step) {
+    const int c = step / nk, kt = step - c * nk;
+    const uint32_t so = smem_u32(fsm) + (step % F_STAGES) * SF * 4;
+    const int k0 = kt * F_BK, col = c_lo + c * F_BN + bq;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-    for (int d0 = 0; d0 < qstride; d0 += DS) {
-      for (int i = threadIdx.x; i < DS * LANES; i += THREADS) {
-        const int e = d0 + i / LANES, cc = c * LANES + i % LANES;
-        cf[i] = (e < d && cc < n) ? base[(size_t)e * n + cc] : 0.0f;
-      }
-      __syncthreads();
-      const int lim = min(DS, qstride - d0);
-      for (int i = 0; i < lim; i += 4) {
-        const float c0 = cf[i * LANES + lane], c1 = cf[(i + 1) * LANES + lane];
-        const float c2 = cf[(i + 2) * LANES + lane], c3 = cf[(i + 3) * LANES + lane];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qf + r * qstride + d0 + i);
-          acc[r] = fmaf(q4.x, c0, acc[r]);
-          acc[r] = fmaf(q4.y, c1, acc[r]);
-          acc[r] = fmaf(q4.z, c2, acc[r]);
-          acc[r] = fmaf(q4.w, c3, acc[r]);
-        }
-      }
-      __syncthreads();  // the slice is restaged next
+    for (int j = 0; j < BM / AR; ++j) {
+      const int r = row0 + ar + AR * j;
+      const bool ok = r < b && k0 + aq < ldq;
+      cp_async_16(so + ((ar + AR * j) * F_PA + aq) * 4, ok ? q + (size_t)r * ldq + k0 + aq : q,
+                  ok ? 16 : 0);
     }
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) x[r] = acc[r];
-    const bool valid = col < n_bound;
-
-    bool merge;
-    if constexpr (BINNED) {
+    for (int j = 0; j < F_BK / BR; ++j) {
+      const int e = k0 + br + BR * j;
+      const uint32_t dst = so + (AF + (br + BR * j) * F_BN + bq) * 4;
+      const float* src = base + (size_t)e * ldb + col;
+      if (vec_b) {
+        const bool ok = e < d && col < n;
+        cp_async_16(dst, ok ? src : base, ok ? 16 : 0);
+      } else {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float v = valid ? x[r] : FILL;
-        if (v > tv[r][0]) {
-          tv[r][1] = tv[r][0];
-          tc[r][1] = tc[r][0];
-          tv[r][0] = v;
-          tc[r][0] = c;
-        } else if (v > tv[r][1]) {
-          tv[r][1] = v;
-          tc[r][1] = c;
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = e < d && col + u < n;
+          cp_async_4(dst + 4 * u, ok ? src + u : base, ok ? 4 : 0);
         }
       }
-      merge = (c + 1) % tile_chunks == 0 || c == nchunks - 1;  // the tile's end
-      if (merge) {
+    }
+  };
+
+  float thr[8];
+  bool live[8];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r)
+  for (int i = 0; i < 8; ++i) {
+    thr[i] = FILL;
+    live[i] = row0 + wm * 64 + 8 * i + lm < b;
+  }
+  uint64_t dirty = 0;  // binned: this thread's (row, bin) pairs with a passer this tile
+  float acc[8][8];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            push_warp(live[r] && tv[r][j] > thr[r], tv[r][j], tc[r][j] * LANES + lane,
-                      r0 + r, buf_v, buf_i, cnt, flag);
-            tv[r][j] = FILL;
-            tc[r][j] = 0;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  // Push this thread's entries of row slot i whose bit is set in `m` into
+  // the row's buffer: one shared atomic for all of them.  Returns the
+  // buffer's count after them.
+  auto push = [&](int i, unsigned m, const float (&v)[16], const int (&id)[16]) {
+    const int rl = wm * 64 + 8 * i + lm;
+    const int base_at = atomicAdd(&cnt[rl], __popc(m));
+    int at = base_at;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if ((m >> j) & 1u) {
+        buf_v[rl * BUF + at] = v[j];
+        buf_i[rl * BUF + at] = id[j];
+        ++at;
+      }
+    return at;
+  };
+
+  // Merge each row's buffer into its sorted list (in out_v / out_i, KJ
+  // entries a lane): one warp a row, the warps' rows side by side.
+  // Every (score, id) is distinct, so an entry's rank in the union is the
+  // count of entries better than it: a list entry's is its position plus
+  // the buffer entries better than it, a buffer entry's the list entries
+  // and buffer entries better than it.  Ranks below k are written; the list
+  // grows to min(k, len + cnt).
+  auto merge = [&]() {
+    for (int rl = warp; rl < BM; rl += WARPS) {
+      const int c = cnt[rl];
+      if (c == 0) continue;  // the same in every lane
+      const int ln_ = len[rl];
+      float* const gv = out_v + (size_t)(row0 + rl) * ldo + (size_t)split * k;
+      int32_t* const gi = out_i + (size_t)(row0 + rl) * ldo + (size_t)split * k;
+      float lv[KJ], bv[Tl::BJ];
+      int li[KJ], bi[Tl::BJ], lr[KJ], brk[Tl::BJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int e = 32 * j + lane;
+        lv[j] = e < ln_ ? gv[e] : FILL;
+        li[j] = e < ln_ ? gi[e] : INT32_MAX;
+        lr[j] = e;
+      }
+#pragma unroll
+      for (int j = 0; j < Tl::BJ; ++j) {
+        const int e = 32 * j + lane;
+        bv[j] = e < c ? buf_v[rl * BUF + e] : FILL;
+        bi[j] = e < c ? buf_i[rl * BUF + e] : INT32_MAX;
+        brk[j] = 0;
+      }
+      // Buffer entry t against every entry: the lanes' list and buffer
+      // entries count it when it is better, and a ballot counts the list
+      // entries better than it for the lane that holds it.
+#pragma unroll 4
+      for (int t = 0; t < c; ++t) {
+        const float v = buf_v[rl * BUF + t];
+        const int id = buf_i[rl * BUF + t];
+        int above = 0;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          lr[j] += better(v, id, lv[j], li[j]);
+          above += __popc(__ballot_sync(FULL, better(lv[j], li[j], v, id)));
+        }
+#pragma unroll
+        for (int j = 0; j < Tl::BJ; ++j)
+          brk[j] += better(v, id, bv[j], bi[j]) + ((t >> 5) == j && (t & 31) == lane ? above : 0);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        if (32 * j + lane < ln_ && lr[j] < k) {
+          gv[lr[j]] = lv[j];
+          gi[lr[j]] = li[j];
+          if (lr[j] == k - 1) thr_s[rl] = lv[j];
+        }
+#pragma unroll
+      for (int j = 0; j < Tl::BJ; ++j)
+        if (32 * j + lane < c && brk[j] < k) {
+          gv[brk[j]] = bv[j];
+          gi[brk[j]] = bi[j];
+          if (brk[j] == k - 1) thr_s[rl] = bv[j];
+        }
+      __syncwarp();
+      if (lane == 0) {
+        len[rl] = min(k, ln_ + c);
+        cnt[rl] = 0;
+      }
+    }
+  };
+  auto reload = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) thr[i] = thr_s[wm * 64 + 8 * i + lm];
+  };
+
+  __syncthreads();  // the counters are set before any push
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  int cpos = 0;      // binned: the chunk's place in its tile
+  bool need = false;  // exact: a row this thread pushed to could overflow on the next chunk
+  for (int step = 0; step < steps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(F_STAGES - 2) : "memory");
+    // The step's barrier also tells whether the last chunk's pushes left a
+    // row at risk; if so its rows merge before anything is pushed again.
+    if (__syncthreads_or(need)) {
+      merge();  // every row with a candidate: the CTA waits once for all
+      __syncthreads();
+      reload();
+    }
+    need = false;
+    if (step + F_STAGES - 1 < steps) load(step + F_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int c = step / nk, kt = step - c * nk;
+    const float* as = fsm + (step % F_STAGES) * SF + (wm * 64 + lm) * F_PA;
+    const float* bs = fsm + (step % F_STAGES) * SF + AF + wn * 32 + ln * 4;
+    // d in order from 0, one fmaf each.  A whole slice runs unrolled with
+    // no branch (the next group's loads overlap this one's FMAs); in the
+    // last, partial slice groups of 4 past d are skipped, and the zeros of
+    // a partial group add exact zeros.
+    auto group4 = [&](int kq) {
+      float av[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + i * 8 * F_PA + kq);
+        av[i][0] = v.x;
+        av[i][1] = v.y;
+        av[i][2] = v.z;
+        av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN);
+        const float4 b1 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN + 16);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = (i & 1) ? 7 - jj : jj;
+            acc[i][j] = __fmaf_rn(av[i][kk], bv[j], acc[i][j]);
           }
       }
-      __syncthreads();
+    };
+    if ((kt + 1) * F_BK <= d) {
+#pragma unroll
+      for (int kq = 0; kq < F_BK; kq += 4) group4(kq);
     } else {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        push_warp(live[r] && valid && x[r] > thr[r], x[r], col, r0 + r, buf_v, buf_i, cnt,
-                  flag);
-      __syncthreads();
-      merge = *flag != 0 || c == nchunks - 1;
+      for (int kq = 0; kt * F_BK + kq < d; kq += 4) group4(kq);
     }
-    if (merge) {  // uniform in the CTA
-      merge_rows(run_v, run_i, buf_v, buf_i, cnt, k);
-      __syncthreads();
-      if (threadIdx.x == 0) *flag = 0;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) thr[r] = run_v[(r0 + r) * K_MAX + k - 1];
-    }
-  }
+    if (kt != nk - 1) continue;
 
-  for (int i = threadIdx.x; i < CTA_ROWS * k; i += THREADS) {
-    const int r = i / k, p = i % k;
-    if (cta_r0 + r >= b) continue;
-    out_v[(size_t)(cta_r0 + r) * k + p] = run_v[r * K_MAX + p];
-    out_i[(size_t)(cta_r0 + r) * k + p] = run_i[r * K_MAX + p];
+    // The chunk is scored: the selection.  Only a score above its row's
+    // k-th value can enter (an equal one has a higher id and loses).
+    const int col0 = c_lo + c * F_BN + wn * 32 + ln * 4;
+    if constexpr (!BINNED) {
+      // Push the passers; the merge waits for the next step's barrier (the
+      // split's last chunk merges every row after the walk).
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v[16];
+        int id[16];
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col0 + 16 * (j >> 2) + (j & 3);
+          v[j] = acc[i][j];
+          id[j] = col;
+          m |= (unsigned)(live[i] && col < n_bound && acc[i][j] > thr[i]) << j;
+        }
+        if (m) need |= push(i, m, v, id) > BUF - F_BN;
+      }
+    } else {
+      const bool last = c == nchunks - 1;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col0 + 16 * (j >> 2) + (j & 3);
+          const float x = acc[i][j];
+          if (live[i] && col < n_bound && x > thr[i]) {
+            const int p = 8 * i + j;
+            const int e0 = p * THREADS + tid, e1 = (64 + p) * THREADS + tid;
+            const float v0 = tv[e0];
+            if (x > v0) {  // strict: an equal, later score lands behind
+              tv[e1] = v0;
+              ti[e1] = ti[e0];
+              tv[e0] = x;
+              ti[e0] = col;
+            } else if (x > tv[e1]) {
+              tv[e1] = x;
+              ti[e1] = col;
+            }
+            dirty |= 1ull << p;
+          }
+        }
+      if (++cpos == tile_chunks || last) {
+        // The tile's end: its survivors go to the buffers a warp column at
+        // a time (at most 64 a row), each batch merged.
+        cpos = 0;
+        if (__syncthreads_or(dirty != 0)) {
+          for (int s = 0; s < 4; ++s) {
+            if (wn == s && dirty) {
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                if (((dirty >> (8 * i)) & 0xffull) == 0) continue;
+                float v[16];
+                int id[16];
+                unsigned m = 0;
+#pragma unroll
+                for (int j = 0; j < 16; ++j) {
+                  const int e = ((j >> 3) * 64 + 8 * i + (j & 7)) * THREADS + tid;
+                  v[j] = tv[e];
+                  id[j] = ti[e];
+                  m |= (unsigned)(v[j] > FILL) << j;
+                  tv[e] = FILL;
+                }
+                if (m) push(i, m, v, id);
+              }
+              dirty = 0;
+            }
+            __syncthreads();
+            merge();
+            __syncthreads();
+          }
+          reload();
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if constexpr (!BINNED) {
+    __syncthreads();
+    merge();
   }
 }
 
-template <bool BINNED>
+template <bool BINNED, int KJ>
 int launch_f32(const void* q, const void* base, const void* n_valid, void* out_v, void* out_i,
-               int b, int d, int n, int k, int tile_n, cudaStream_t stream) {
-  // Floats per staged query row, a multiple of 4.
-  const int qstride = (d + 3) / 4 * 4;
-  const size_t smem = ((size_t)CTA_ROWS * (K_MAX + BUF) * 2 + CTA_ROWS + 4
-                       + (size_t)CTA_ROWS * qstride + (size_t)DS * LANES) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(fused_topk_kernel<BINNED>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((b + CTA_ROWS - 1) / CTA_ROWS));
-  fused_topk_kernel<BINNED><<<grid, THREADS, smem, stream>>>(
+               int b, int d, int ldq, int n, int ldb, int k, int tile_n, int split_cols,
+               int nsplit, int ldo, cudaStream_t stream) {
+  using Tl = FTile<BINNED>;
+  if (const cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<BINNED, KJ>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)Tl::SMEM))
+    return (int)e;
+  const int vec_b = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+  const dim3 grid((unsigned)((b + Tl::BM - 1) / Tl::BM), (unsigned)nsplit);
+  fused_f32_kernel<BINNED, KJ><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(base),
       static_cast<const int32_t*>(n_valid), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), b, d, n, k, tile_n, qstride);
+      static_cast<int32_t*>(out_i), b, d, ldq, n, ldb, k, tile_n, split_cols, ldo, vec_b);
   return (int)cudaGetLastError();
 }
 
@@ -415,9 +590,10 @@ template <int MODE, bool BINNED>
 __global__ void __launch_bounds__(G_THREADS, 1)
 fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
                    const __grid_constant__ CUtensorMap tbias, const int32_t* __restrict__ n_valid,
-                   const float* __restrict__ alpha, void* __restrict__ out_vv,
+                   const float* __restrict__ alpha, const void* __restrict__ bound_vv,
+                   const int32_t* __restrict__ bound_i, void* __restrict__ out_vv,
                    int32_t* __restrict__ out_i, int b, int ldq, int n, int k, int tile_n,
-                   int stages) {
+                   int stages, int qring) {
   using Acc = std::conditional_t<MODE == G_BF16, float, int32_t>;  // the fragment
   using T = std::conditional_t<MODE == G_I8, int32_t, float>;      // the scores
   constexpr bool BIAS = MODE == G_I8_L2;
@@ -427,9 +603,12 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   __shared__ __align__(8) uint64_t full[G_STAGES_MAX], empty[G_STAGES_MAX], abar;
   const uint32_t base = (smem_u32(g_smem) + 1023u) & ~1023u;
   const int kb = (ldq + KD - 1) / KD;  // boxes a chunk
-  const uint32_t a_s = base, ring = base + kb * G_BOX;
-  T* lv = reinterpret_cast<T*>(g_smem + (base - smem_u32(g_smem)) + kb * G_BOX +
-                               stages * G_STAGE);  // [64 rows][K_MAX]
+  // The query rows: resident (kb boxes, loaded once), or with qring one box
+  // beside each stage's base box, re-read from L2 every chunk.
+  const int resident = qring ? 0 : kb * G_BOX, stage_bytes = G_STAGE + (qring ? G_BOX : 0);
+  const uint32_t a_s = base, ring = base + resident;
+  T* lv = reinterpret_cast<T*>(g_smem + (base - smem_u32(g_smem)) + resident +
+                               stages * stage_bytes);  // [64 rows][K_MAX]
   int32_t* li = reinterpret_cast<int32_t*>(lv + G_TOPK);
   T* tv = reinterpret_cast<T*>(li + G_TOPK);               // binned: scores
   uint16_t* tc = reinterpret_cast<uint16_t*>(tv + G_TABLE);  // binned: chunk in the tile
@@ -456,8 +635,10 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   if (warp == 4) {  // producer
     if (lane == 0) {
-      mbar_expect_tx(&abar, kb * G_BOX);
-      for (int j = 0; j < kb; ++j) tma_load_2d(a_s + j * G_BOX, &tq, KD * j, row0, &abar);
+      if (!qring) {
+        mbar_expect_tx(&abar, kb * G_BOX);
+        for (int j = 0; j < kb; ++j) tma_load_2d(a_s + j * G_BOX, &tq, KD * j, row0, &abar);
+      }
       int s = 0;          // the stage, and the parity of its round, of the next box
       unsigned ph = 0;
       bool wrapped = false;
@@ -465,13 +646,15 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         for (int j = 0; j < kb; ++j) {
           if (wrapped) mbar_wait(&empty[s], ph ^ 1u);
           const bool with_bias = BIAS && j == kb - 1;
-          mbar_expect_tx(&full[s], G_STAGE + (with_bias ? G_BIAS : 0));
+          mbar_expect_tx(&full[s], stage_bytes + (with_bias ? G_BIAS : 0));
+          const uint32_t st = ring + s * stage_bytes;
           if constexpr (MODE == G_BF16) {
-            tma_load_2d(ring + s * G_STAGE, &tb, G_BN * c, 64 * j, &full[s]);
-            tma_load_2d(ring + s * G_STAGE + G_BOX, &tb, G_BN * c + 64, 64 * j, &full[s]);
+            tma_load_2d(st, &tb, G_BN * c, 64 * j, &full[s]);
+            tma_load_2d(st + G_BOX, &tb, G_BN * c + 64, 64 * j, &full[s]);
           } else {
-            tma_load_2d(ring + s * G_STAGE, &tb, 128 * j, G_BN * c, &full[s]);
+            tma_load_2d(st, &tb, 128 * j, G_BN * c, &full[s]);
           }
+          if (qring) tma_load_2d(st + G_STAGE, &tq, KD * j, row0, &full[s]);
           if (with_bias)
             tma_load_2d(smem_u32(bias_w + s * G_BN), &tbias, G_BN * c, 0, &full[s]);
           if (++s == stages) {
@@ -492,6 +675,17 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int tile_chunks = BINNED ? tile_n / G_BN : 1;
   Acc d[64], e[64];
   T thr[2] = {FILL, FILL};  // the rows' k-th values
+  // The rows' bounds (a later pass of the wrapper's): only an entry ranked
+  // after (bnd_v, bnd_i) may enter.  No bound: (the type's top, -1).
+  T bnd_v[2];
+  int bnd_i[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl + 8 * h;
+    const bool has = bound_i != nullptr && r < b;
+    bnd_v[h] = has ? static_cast<const T*>(bound_vv)[r] : top_of(T());
+    bnd_i[h] = has ? bound_i[r] : -1;
+  }
   float al[2] = {0.0f, 0.0f};
   if constexpr (BIAS) {
     if (row0 + rl < b) al[0] = alpha[row0 + rl];
@@ -511,7 +705,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int j = 0; j < kb; ++j) {
       const int s = rs;
       mbar_wait_loop(&full[s], rph);
-      const uint32_t sa = a_s + j * G_BOX, sb = ring + s * G_STAGE;
+      const uint32_t sb = ring + s * stage_bytes, sa = qring ? sb + G_STAGE : a_s + j * G_BOX;
       fence_acc(d);
       wgmma_fence();
       // A: 128-byte rows, 8-row groups 1 KB apart, a k-step 32 bytes along
@@ -581,7 +775,9 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   auto select = [&](int c) {
     const int col0 = c * G_BN, lim = n_bound - col0;
     auto passes = [&](int i) {
-      return val(i) > thr[(i / 2) % 2] && 8 * (i / 4) + cl + i % 2 < lim;
+      const int h = (i / 2) % 2, cc = 8 * (i / 4) + cl + i % 2;
+      return val(i) > thr[h] && cc < lim &&
+             (BINNED || better(bnd_v[h], bnd_i[h], val(i), col0 + cc));
     };
     bool any = false;
     if (lim >= G_BN) {
@@ -663,10 +859,16 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         v1 = __shfl_sync(FULL, v1, src);
         c0 = __shfl_sync(FULL, c0, src);
         c1 = __shfl_sync(FULL, c1, src);
-        const int r = 16 * warp + (src >> 2) + 8 * ((i / 2) % 2);
+        const int h = (i / 2) % 2;
+        const int r = 16 * warp + (src >> 2) + 8 * h;
         const int cb = tile0 + 8 * (i / 4) + 2 * (src & 3) + i % 2;
-        insert_row(lv + r * K_MAX, li + r * K_MAX, k, v0, cb + G_BN * c0, lane);
-        if (v1 > FILL) insert_row(lv + r * K_MAX, li + r * K_MAX, k, v1, cb + G_BN * c1, lane);
+        // The bound is applied to the survivors, after the bins are cut.
+        const T bv = __shfl_sync(FULL, h ? bnd_v[1] : bnd_v[0], src);
+        const int bi = __shfl_sync(FULL, h ? bnd_i[1] : bnd_i[0], src);
+        if (better(bv, bi, v0, cb + G_BN * c0))
+          insert_row(lv + r * K_MAX, li + r * K_MAX, k, v0, cb + G_BN * c0, lane);
+        if (v1 > FILL && better(bv, bi, v1, cb + G_BN * c1))
+          insert_row(lv + r * K_MAX, li + r * K_MAX, k, v1, cb + G_BN * c1, lane);
       }
       thr[0] = lv[rl * K_MAX + k - 1];
       thr[1] = lv[(rl + 8) * K_MAX + k - 1];
@@ -677,7 +879,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   // Per chunk: the product, then the selection from its copy (a selection
   // beside the next chunk's product has ptxas serialize the groups: C7515).
-  mbar_wait_loop(&abar, 0);
+  if (!qring) mbar_wait_loop(&abar, 0);
   for (int c = 0; c < nchunks; ++c) {
     issue();
     retire();
@@ -700,8 +902,9 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 // stages as fit.
 template <int MODE, bool BINNED>
 int launch_wgmma(const void* q, const void* base, const void* alpha, const void* bias,
-                 const void* n_valid, void* out_v, void* out_i, int b, int d, int ldq, int n,
-                 int ldb, int k, int tile_n, cudaStream_t stream) {
+                 const void* n_valid, const void* bound_v, const void* bound_i, void* out_v,
+                 void* out_i, int b, int d, int ldq, int n, int ldb, int k, int tile_n,
+                 cudaStream_t stream) {
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   constexpr int KD = MODE == G_BF16 ? 64 : 128;
@@ -716,75 +919,112 @@ int launch_wgmma(const void* q, const void* base, const void* alpha, const void*
       if (const int e = word_map(encode, &tbias, bias, 1, n, G_BN)) return e;
   }
   const int kb = (ldq + KD - 1) / KD;
-  const int fixed = 1024 + kb * G_BOX + 2 * G_TOPK * 4 + (BINNED ? G_TABLE_BYTES : 0);
-  const int per_stage = G_STAGE + (MODE == G_I8_L2 ? G_BIAS : 0);
   const int cap = MODE == G_BF16 ? G_STAGES_BF16 : G_STAGES_MAX;
-  const int stages = min(cap, (G_SMEM_MAX - fixed) / per_stage);
+  const int bias_bytes = MODE == G_I8_L2 ? G_BIAS : 0;
+  const int fixed = 1024 + 2 * G_TOPK * 4 + (BINNED ? G_TABLE_BYTES : 0);
+  // The query rows stay resident where two stages fit beside them; past
+  // that (wide D) they ride in the ring, a box beside each base box.
+  const int qring = (G_SMEM_MAX - fixed - kb * G_BOX) / (G_STAGE + bias_bytes) < 2;
+  const int per_stage = G_STAGE + bias_bytes + (qring ? G_BOX : 0);
+  const int resident = qring ? 0 : kb * G_BOX;
+  const int stages = min(cap, (G_SMEM_MAX - fixed - resident) / per_stage);
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  const int smem = fixed + stages * per_stage;
+  const int smem = fixed + resident + stages * per_stage;
   if (const cudaError_t e = cudaFuncSetAttribute(
           fused_wgmma_kernel<MODE, BINNED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return (int)e;
   fused_wgmma_kernel<MODE, BINNED>
       <<<(unsigned)((b + G_ROWS - 1) / G_ROWS), G_THREADS, smem, stream>>>(
           tq, tb, tbias, static_cast<const int32_t*>(n_valid), static_cast<const float*>(alpha),
-          out_v, static_cast<int32_t*>(out_i), b, ldq, n, k, tile_n, stages);
+          bound_v, static_cast<const int32_t*>(bound_i), out_v, static_cast<int32_t*>(out_i), b,
+          ldq, n, k, tile_n, stages, qring);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int launch_wgmma_binned(bool binned, const void* q, const void* base, const void* alpha,
-                        const void* bias, const void* n_valid, void* out_v, void* out_i, int b,
-                        int d, int ldq, int n, int ldb, int k, int tile_n, cudaStream_t s) {
-  return binned ? launch_wgmma<MODE, true>(q, base, alpha, bias, n_valid, out_v, out_i, b, d, ldq,
-                                           n, ldb, k, tile_n, s)
-                : launch_wgmma<MODE, false>(q, base, alpha, bias, n_valid, out_v, out_i, b, d,
-                                            ldq, n, ldb, k, tile_n, s);
+                        const void* bias, const void* n_valid, const void* bound_v,
+                        const void* bound_i, void* out_v, void* out_i, int b, int d, int ldq,
+                        int n, int ldb, int k, int tile_n, cudaStream_t s) {
+  return binned ? launch_wgmma<MODE, true>(q, base, alpha, bias, n_valid, bound_v, bound_i, out_v,
+                                           out_i, b, d, ldq, n, ldb, k, tile_n, s)
+                : launch_wgmma<MODE, false>(q, base, alpha, bias, n_valid, bound_v, bound_i,
+                                            out_v, out_i, b, d, ldq, n, ldb, k, tile_n, s);
 }
 
 }  // namespace
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `n_valid` may be null.  The
-// wrapper guarantees 1 <= k <= 32, k <= n, nbins 0 or 128, tile_n a
-// multiple of 128 (binned int8 and bf16: a tile walks at most 65536 chunks
-// of 128), and
-// d <= 512.
+// wrapper guarantees k <= n, nbins 0 or 128, tile_n a multiple of 128
+// (binned int8 and bf16: a tile walks at most 65536 chunks of 128).  The
+// int8 and bf16 entries take 1 <= k <= 32 and, for a later pass of the
+// wrapper's (ops/_build.py, by_passes), each row's bound (bound_v [b] of
+// the scores' type, bound_i [b] int32, or both null): only an entry ranked
+// after it may enter, the bound applied to the binned mode's survivors.
 
-// fp32: q [b, d] and base_t [d, n] fp32; f32 out.
+// fp32: q [b, ldq] (ldq = d rounded up to 4, the pad zero, 16-byte
+// aligned) and base_t [d, ldb] fp32 (columns n.. ignored); out_v / out_i
+// [b, ldo], split s's sorted top-k at columns s k .. s k + k - 1, filled
+// with (-inf, 0) by the caller.  nsplit splits of split_cols columns (a
+// multiple of 128, and of tile_n in binned mode); k <= 256.
 extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, const void* n_valid,
-                                         void* out_v, void* out_i, int b, int d, int n, int k,
-                                         int tile_n, int nbins, void* stream) {
+                                         void* out_v, void* out_i, int b, int d, int ldq, int n,
+                                         int ldb, int k, int tile_n, int nbins, int split_cols,
+                                         int nsplit, int ldo, void* stream) {
   if (b == 0) return 0;
+  if (k < 1 || k > F_KMAX || ldq % 4 || split_cols % F_BN || nsplit < 1 || ldo < nsplit * k ||
+      (nbins != 0 && (tile_n % F_BN || split_cols % tile_n)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nbins != 0 ? launch_f32<true>(q, base_t, n_valid, out_v, out_i, b, d, n, k, tile_n, s)
-                    : launch_f32<false>(q, base_t, n_valid, out_v, out_i, b, d, n, k, tile_n, s);
+  // The list's registers a lane in the merge: 1, 2, 4 or 8.
+#define RAG_F32(BINNED, KJ)                                                                     \
+  launch_f32<BINNED, KJ>(q, base_t, n_valid, out_v, out_i, b, d, ldq, n, ldb, k, tile_n,        \
+                         split_cols, nsplit, ldo, s)
+  const int kj = k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
+  switch (kj + (nbins != 0 ? 16 : 0)) {
+    case 1: return RAG_F32(false, 1);
+    case 2: return RAG_F32(false, 2);
+    case 4: return RAG_F32(false, 4);
+    case 8: return RAG_F32(false, 8);
+    case 17: return RAG_F32(true, 1);
+    case 18: return RAG_F32(true, 2);
+    case 20: return RAG_F32(true, 4);
+    default: return RAG_F32(true, 8);
+  }
+#undef RAG_F32
 }
 
 // int8: q [b, ldq] and the K-major base [n, ldq] with ldq = d rounded up
 // to a multiple of 16 (the pad zero), both 16-byte aligned; alpha [b] and
 // bias [n] (16-byte aligned) for L2, f32 out, or both null, int32 out.
 extern "C" int bruteforce_fused_topk_i8(const void* q, const void* base_k, const void* alpha,
-                                        const void* bias, const void* n_valid, void* out_v,
+                                        const void* bias, const void* n_valid,
+                                        const void* bound_v, const void* bound_i, void* out_v,
                                         void* out_i, int b, int ldq, int n, int k, int tile_n,
                                         int nbins, void* stream) {
   if (b == 0) return 0;
+  if (k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bias != nullptr
-             ? launch_wgmma_binned<G_I8_L2>(nbins != 0, q, base_k, alpha, bias, n_valid, out_v,
-                                            out_i, b, ldq, ldq, n, ldq, k, tile_n, s)
-             : launch_wgmma_binned<G_I8>(nbins != 0, q, base_k, nullptr, nullptr, n_valid, out_v,
-                                         out_i, b, ldq, ldq, n, ldq, k, tile_n, s);
+             ? launch_wgmma_binned<G_I8_L2>(nbins != 0, q, base_k, alpha, bias, n_valid, bound_v,
+                                            bound_i, out_v, out_i, b, ldq, ldq, n, ldq, k, tile_n,
+                                            s)
+             : launch_wgmma_binned<G_I8>(nbins != 0, q, base_k, nullptr, nullptr, n_valid,
+                                         bound_v, bound_i, out_v, out_i, b, ldq, ldq, n, ldq, k,
+                                         tile_n, s);
 }
 
 // The bf16 mode: q [b, ldq] bf16 with ldq = d rounded up to a multiple of
 // 16 (the pad zero), base_t [d, n] bf16 at a row pitch of ldb elements (a
 // multiple of 8), both 16-byte aligned; f32 out.
 extern "C" int bruteforce_fused_topk_bf16(const void* q, const void* base_t, const void* n_valid,
-                                          void* out_v, void* out_i, int b, int d, int ldq, int n,
-                                          int ldb, int k, int tile_n, int nbins, void* stream) {
+                                          const void* bound_v, const void* bound_i, void* out_v,
+                                          void* out_i, int b, int d, int ldq, int n, int ldb,
+                                          int k, int tile_n, int nbins, void* stream) {
   if (b == 0) return 0;
-  return launch_wgmma_binned<G_BF16>(nbins != 0, q, base_t, nullptr, nullptr, n_valid, out_v,
-                                     out_i, b, d, ldq, n, ldb, k, tile_n,
+  if (k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
+  return launch_wgmma_binned<G_BF16>(nbins != 0, q, base_t, nullptr, nullptr, n_valid, bound_v,
+                                     bound_i, out_v, out_i, b, d, ldq, n, ldb, k, tile_n,
                                      static_cast<cudaStream_t>(stream));
 }

@@ -40,6 +40,12 @@
 // - once the max is FILL, every remaining pass returns (FILL, 0);
 // - lane p of the warp keeps result p of each group of 32, and the group
 //   is stored with one coalesced write per output, so k runs up to W.
+// - a row wider than W_MAX (16384) is cut into segments of W_MAX columns
+//   by the wrapper (ops/fused_topk.py, segmented_topk): the kernel takes
+//   each segment's top-k in place (row pitch ldx), then the top-k of the
+//   [B, nseg * k] concatenation of the winners, whose positions map back.
+//   Equal values leave a segment in position order and segments lie in
+//   column order, so ties stay on the lowest position.
 // The float mode reduces on an order-preserving integer key in which -0.0
 // and +0.0 are equal (both map to 0).
 #include <climits>
@@ -93,12 +99,13 @@ __device__ __forceinline__ void offer(int32_t key, int pos, int32_t& bk, int& bp
   }
 }
 
-// Row `blockIdx.x * warps + warp` of x [b, w] (w a multiple of 128) →
-// out_v, out_i [b, k] (values by their bits, int32 positions).
+// Row `blockIdx.x * warps + warp` of x [b, w] at a row pitch of ldx (w a
+// multiple of 128) → out_v, out_i [b, k] (values by their bits, int32
+// positions within the row).
 template <bool FLOAT>
 __global__ void __launch_bounds__(WARPS_MAX * 32)
 fused_topk_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out_v,
-                  int32_t* __restrict__ out_i, int b, int w, int k) {
+                  int32_t* __restrict__ out_i, int b, int w, int k, int ldx) {
   extern __shared__ __align__(16) int32_t rows_s[];
   __shared__ __align__(8) uint64_t bar[WARPS_MAX];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -111,7 +118,7 @@ fused_topk_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out_v,
     mbar_init(&bar[warp], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(&bar[warp], (unsigned)w * 4u);
-    bulk_load(smem_u32(rs), x + (size_t)row * w, (unsigned)w * 4u, &bar[warp]);
+    bulk_load(smem_u32(rs), x + (size_t)row * ldx, (unsigned)w * 4u, &bar[warp]);
   }
   __syncwarp();
   mbar_wait(&bar[warp], 0);
@@ -233,7 +240,8 @@ int smem_limit(int dev) {
 }
 
 template <bool FLOAT>
-int launch(const void* x, void* vals, void* idx, int b, int w, int k, int dev, cudaStream_t s) {
+int launch(const void* x, void* vals, void* idx, int b, int w, int k, int ldx, int dev,
+           cudaStream_t s) {
   const int lim = smem_limit<FLOAT>(dev);
   if (lim < 0) return -lim;
   if (w * 4 > lim) return (int)cudaErrorInvalidValue;
@@ -242,30 +250,32 @@ int launch(const void* x, void* vals, void* idx, int b, int w, int k, int dev, c
   const unsigned grid = (unsigned)((b + r - 1) / r);
   fused_topk_kernel<FLOAT><<<grid, r * 32, (size_t)r * w * 4, s>>>(
       static_cast<const int32_t*>(x), static_cast<int32_t*>(vals), static_cast<int32_t*>(idx), b,
-      w, k);
+      w, k, ldx);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry for ctypes: x [b, w] int32 (is_float = 0) or float32 by its bits
-// (is_float = 1), 16-byte aligned, contiguous; vals [b, k] of x's type and
+// (is_float = 1) at a row pitch of ldx elements (a multiple of 4; a column
+// segment of a wider matrix), 16-byte aligned; vals [b, k] of x's type and
 // idx [b, k] int32, all on device `dev`, and `stream` one of its streams.
-// Makes `dev` current for the launch (and restores the caller's device),
-// launches on `stream`, allocates nothing, and returns cudaGetLastError()
-// (0 = launched).  The wrapper guarantees w a multiple of 128 in [128,
-// 16384] and 1 <= k <= w.
+// Makes `dev` current for the launch (and
+// restores the caller's device), launches on `stream`, allocates nothing,
+// and returns cudaGetLastError() (0 = launched).  The wrapper guarantees w
+// a multiple of 128 in [128, 16384] and 1 <= k <= w.
 extern "C" int fused_topk_rows(const void* x, void* vals, void* idx, int b, int w, int k,
-                               int is_float, int dev, void* stream) {
+                               int ldx, int is_float, int dev, void* stream) {
   if (b == 0) return 0;
-  if (w < 128 || w % 128 || w > W_MAX || k < 1 || k > w) return (int)cudaErrorInvalidValue;
+  if (w < 128 || w % 128 || w > W_MAX || k < 1 || k > w || ldx < w || ldx % 4)
+    return (int)cudaErrorInvalidValue;
   int cur = 0;
   if (const cudaError_t e = cudaGetDevice(&cur)) return (int)e;
   if (cur != dev)
     if (const cudaError_t e = cudaSetDevice(dev)) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = is_float ? launch<true>(x, vals, idx, b, w, k, dev, s)
-                           : launch<false>(x, vals, idx, b, w, k, dev, s);
+  const int err = is_float ? launch<true>(x, vals, idx, b, w, k, ldx, dev, s)
+                           : launch<false>(x, vals, idx, b, w, k, ldx, dev, s);
   if (cur != dev) cudaSetDevice(cur);
   return err;
 }

@@ -45,7 +45,8 @@
 //   m64n64k32 s8 -> s32 (int8) or m64n64k16 bf16 -> f32 (bf16) per unit.
 // - operands: the routed rows (A, K-major, the wrapper pads D to TMA's
 //   16-byte pitch: no copy at D = 128) stay in shared memory for a one-block
-//   cluster, and ride in the unit's stage for a longer one; the slab's unit
+//   cluster, and ride in the unit's stage for a longer one, or where they
+//   are too wide to stay beside two stages (bf16 past D ~ 700); the slab's unit
 //   (B) rides a TMA ring of `stages` stages, one mbarrier each.  Thread 0
 //   refills the stage the last unit released; d past D arrives as TMA's
 //   zeros, and the k-steps past D add zeros.
@@ -122,11 +123,14 @@ accum_planes_kernel(const float* __restrict__ qg,                // [nblocks, qc
   const int group = threadIdx.x / LANES;
   const int r0 = (blockIdx.y * GROUPS + group) * ROWS;  // this group's first row
 
-  // Query rows [GROUPS*ROWS][qstride] fp32, then the chunk [qstride][LANES].
+  // Query rows [GROUPS*ROWS][dsl] fp32, then the chunk [dsl][LANES]: all
+  // of qstride while it fits, else a d-slice at a time (ivf_stage.cuh).
+  const int dsl = float_slice(qstride);
+  const bool sliced = dsl < qstride;
   extern __shared__ int4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* col_s = q_s + GROUPS * ROWS * qstride;
-  const float* my_q = q_s + group * ROWS * qstride;
+  float* col_s = q_s + GROUPS * ROWS * dsl;
+  const float* my_q = q_s + group * ROWS * dsl;
 
   int tb = t;  // the cluster's first block
   while (tb > 0 && block_first[tb] == 0) --tb;
@@ -146,17 +150,23 @@ accum_planes_kernel(const float* __restrict__ qg,                // [nblocks, qc
 
     for (int b = tb; b <= t; ++b) {
       // The routed rows change only with the block: load them once for a
-      // one-block cluster, per block otherwise.
-      stage_chunk_f<THREADS>(vec + (size_t)b * d * blk + c * LANES, d, blk, qstride, col_s);
-      if (c == 0 || nb > 1)
-        stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
-                                 qstride, q_s);
-      __syncthreads();
+      // one-block cluster, per block otherwise (per slice when sliced).
+      float acc[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+      for (int e0 = 0; e0 < qstride; e0 += dsl) {
+        if (e0 > 0) __syncthreads();  // the last slice is read
+        stage_chunk_f<THREADS>(vec + (size_t)b * d * blk + c * LANES + (size_t)e0 * blk, d - e0,
+                               blk, dsl, col_s);
+        if (sliced || c == 0 || nb > 1)
+          stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
+                                   dsl, q_s, e0);
+        __syncthreads();
+        dot_rows_f_acc<ROWS>(col_s, lane, my_q, dsl, min(dsl, qstride - e0), acc);
+      }
 
       const bool valid = col < rows_valid[b];
       const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
-      float acc[ROWS];
-      dot_rows_f<ROWS>(col_s, lane, my_q, qstride, acc);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(acc[r]) & ~255u) | pack)
@@ -194,8 +204,9 @@ int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
                       int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const int qstride = stage_row_words<float>(d);
+  const int dsl = float_slice(qstride);
   const size_t smem =
-      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<float>(qstride)) * sizeof(int32_t);
+      ((size_t)GROUPS * ROWS * dsl + stage_chunk_words<float>(dsl)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(accum_planes_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -262,7 +273,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const int32_t* __restrict__ block_first,
                     const int32_t* __restrict__ block_last,
                     const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out, int qcap,
-                    int blk, int kb, int nplanes, int stages, int nsub) {
+                    int blk, int kb, int nplanes, int stages, int nsub, int a_ring) {
   using Acc = std::conditional_t<MODE == P_BF16, float, int32_t>;
   constexpr bool INT8 = MODE != P_BF16;
   constexpr bool BIAS = MODE == P_I8_L2;
@@ -274,16 +285,19 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   __shared__ __align__(8) uint64_t full[P_STAGES_MAX], abar;
   const uint32_t base = (smem_u32(p_smem) + 1023u) & ~1023u;
   uint8_t* const gbase = p_smem + (base - smem_u32(p_smem));
-  // Resident A (kb units), the stages' B and A, two transposed B buffers
-  // (int8), the stages' bias words (L2).
-  const uint32_t res_a = base, st_b = res_a + kb * P_A_BOX, st_a = st_b + stages * P_BOX;
+  // Resident A (kb units, none with a_ring), the stages' B and A, two
+  // transposed B buffers (int8), the stages' bias words (L2).
+  const uint32_t res_a = base, st_b = res_a + (a_ring ? 0 : kb) * P_A_BOX;
+  const uint32_t st_a = st_b + stages * P_BOX;
   const uint32_t bk = st_a + stages * P_A_BOX, st_bias = bk + (INT8 ? 2 * P_BOX : 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
 
   int tb_ = t;  // the cluster's first block
   while (tb_ > 0 && block_first[tb_] == 0) --tb_;
   const int tb0 = tb_;
-  const bool multi = t > tb0;  // A changes with the block: it rides the stages
+  // A rides the stages where it changes with the block, or is too wide to
+  // stay resident beside two stages (a_ring).
+  const bool multi = a_ring || t > tb0;
   const int nchunks = blk / 128;
 
   if (threadIdx.x == 0) {
@@ -481,8 +495,10 @@ int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first
     if (MODE == P_I8_L2)
       if (const int e = word_map(encode, &tb, bias, nblocks, blk, P_BINS)) return e;
   }
-  const int fixed = 1024 + kb * P_A_BOX + (MODE == P_BF16 ? 0 : 2 * P_BOX);
   const int per_stage = P_BOX + P_A_BOX + (MODE == P_I8_L2 ? P_BIAS : 0);
+  const int a_ring = (P_SMEM_MAX - 1024 - kb * P_A_BOX - (MODE == P_BF16 ? 0 : 2 * P_BOX)) /
+                         per_stage < 2;
+  const int fixed = 1024 + (a_ring ? 0 : kb) * P_A_BOX + (MODE == P_BF16 ? 0 : 2 * P_BOX);
   const int stages = min(P_STAGES_MAX, (P_SMEM_MAX - fixed) / per_stage);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + stages * per_stage;
@@ -493,7 +509,7 @@ int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first
   planes_wgmma_kernel<MODE><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
       tq, tv, tb, static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
-      static_cast<int32_t*>(out), qcap, blk, kb, nplanes, stages, nsub);
+      static_cast<int32_t*>(out), qcap, blk, kb, nplanes, stages, nsub, a_ring);
   return (int)cudaGetLastError();
 }
 
@@ -605,15 +621,18 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
   const int group = threadIdx.x / LANES;
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
   const int cstride = qstride + 1;
+  // float: the d-slice staged at a time (all of qstride while it fits).
+  const int dsl = INT8 ? qstride : float_slice(qstride);
+  const bool sliced = dsl < qstride;
 
   extern __shared__ int4 smem4[];
-  // Query rows [GROUPS*ROWS][qstride] words, then the chunk (int8:
-  // [LANES][cstride] words; float: [qstride][LANES] fp32), as the fp32 K1's.
+  // Query rows [GROUPS*ROWS][dsl] words, then the chunk (int8:
+  // [LANES][cstride] words; float: [dsl][LANES] fp32), as the fp32 K1's.
   int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
-  int32_t* col_s = q_s + GROUPS * ROWS * qstride;
+  int32_t* col_s = q_s + GROUPS * ROWS * dsl;
   int32_t* cand_v = q_s;                              // [GROUPS*ROWS][NCAND], after the scan
   int32_t* cand_i = q_s + GROUPS * ROWS * NCAND;
-  const int32_t* my_q = q_s + group * ROWS * qstride;
+  const int32_t* my_q = q_s + group * ROWS * dsl;
 
   int tb = t;  // the cluster's first block
   while (tb > 0 && block_first[tb] == 0) --tb;
@@ -644,13 +663,13 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
         if (load_q)
           stage_queries<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
                                  reinterpret_cast<int8_t*>(q_s));
-      } else {
+      } else if (!sliced) {
         stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
         if (load_q)
           stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
                                    reinterpret_cast<float*>(q_s));
       }
-      __syncthreads();
+      if (INT8 || !sliced) __syncthreads();
 
       const bool masked = mask_rows != 0 && col >= rows_valid[b];
       const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
@@ -667,8 +686,24 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
         }
       } else {
         float acc[ROWS];
-        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                         reinterpret_cast<const float*>(my_q), qstride, acc);
+        if (!sliced) {
+          dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                           reinterpret_cast<const float*>(my_q), qstride, acc);
+        } else {
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+          for (int e0 = 0; e0 < qstride; e0 += dsl) {
+            if (e0 > 0) __syncthreads();  // the last slice is read
+            stage_chunk_f<THREADS>(vsrc + (size_t)e0 * blk, d - e0, blk, dsl,
+                                   reinterpret_cast<float*>(col_s));
+            stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, dsl,
+                                     reinterpret_cast<float*>(q_s), e0);
+            __syncthreads();
+            dot_rows_f_acc<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                                 reinterpret_cast<const float*>(my_q), dsl,
+                                 min(dsl, qstride - e0), acc);
+          }
+        }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int32_t key =
@@ -712,7 +747,7 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
   __syncthreads();
 
   // Exact top-k: one warp per row, k passes of a warp argmax by (value desc,
-  // row asc); lane p keeps pass p's result.
+  // row asc); lane 0 writes each pass's result, so k has no cap.
   for (int rr = warp; rr < GROUPS * ROWS; rr += WARPS) {
     if (cta_r0 + rr >= qcap) continue;
     int32_t cv[PER_LANE];
@@ -722,8 +757,8 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
       cv[i] = cand_v[rr * NCAND + i * 32 + wl];
       ci[i] = cand_i[rr * NCAND + i * 32 + wl];
     }
-    float ov = -INFINITY;
-    int oi = 0;
+    float* const ov = out_v + ((size_t)t * qcap + cta_r0 + rr) * k;
+    int32_t* const oi = out_i + ((size_t)t * qcap + cta_r0 + rr) * k;
     for (int p = 0; p < k; ++p) {
       int32_t bv = cv[0];
       int bi = ci[0];
@@ -744,24 +779,19 @@ accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, 
       }
       if (bv == KMIN) {
         // Only KMIN left: every later pass returns the same (KMIN, bi).
-        if (wl >= p) {
-          ov = -INFINITY;
-          oi = bi;
+        for (int q = p + wl; q < k; q += 32) {
+          ov[q] = -INFINITY;
+          oi[q] = bi;
         }
         break;
       }
-      if (wl == p) {
-        ov = INT8 ? __int2float_rn(bv) : key_to_f32(bv);
-        oi = bi;
+      if (wl == 0) {
+        ov[p] = INT8 ? __int2float_rn(bv) : key_to_f32(bv);
+        oi[p] = bi;
       }
 #pragma unroll
       for (int i = 0; i < PER_LANE; ++i)
         if (ci[i] == bi) cv[i] = KMIN;
-    }
-    if (wl < k) {
-      const size_t o = ((size_t)t * qcap + cta_r0 + rr) * k + wl;
-      out_v[o] = ov;
-      out_i[o] = oi;
     }
   }
 }
@@ -772,8 +802,8 @@ int launch_extract(const void* qg, const void* vec, const void* block_first,
                    void* out_i, int nblocks, int qcap, int d, int blk, int k, int mask_rows,
                    cudaStream_t stream) {
   const int qstride = stage_row_words<T>(d);
-  const size_t scan =
-      ((size_t)GROUPS * ROWS * qstride + stage_chunk_words<T>(qstride)) * sizeof(int32_t);
+  const int dsl = std::is_same_v<T, int8_t> ? qstride : float_slice(qstride);
+  const size_t scan = ((size_t)GROUPS * ROWS * dsl + stage_chunk_words<T>(dsl)) * sizeof(int32_t);
   const size_t cand = (size_t)GROUPS * ROWS * NPLANES * LANES * 2 * sizeof(int32_t);
   const size_t smem = scan > cand ? scan : cand;
   if (smem > 48 * 1024) {
@@ -811,7 +841,7 @@ int extract(const void* qg, const void* vec, const void* block_first, const void
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  The wrapper guarantees
-// blk % 128 == 0, 1 <= k <= 32 and nplanes in {1, 2}.
+// blk % 128 == 0, k >= 1 and nplanes in {1, 2}.
 // int8: `bias` may be null (no-bias mode).
 extern "C" int ivf_accum_extract_i8(const void* qg, const void* vec, const void* block_first,
                                     const void* block_last, const void* rows_valid,

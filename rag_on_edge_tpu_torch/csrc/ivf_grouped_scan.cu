@@ -196,6 +196,8 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
                     const int32_t* __restrict__ rows_valid,    // [nblocks]
                     const float* __restrict__ bias,          // [nblocks, blk] or null
                     const int32_t* __restrict__ row_base,      // [nblocks]
+                    const float* __restrict__ bound_v,       // like out's rows, or null
+                    const int32_t* __restrict__ bound_i,     // like out's rows, or null
                     float* __restrict__ out_v,               // see above
                     int32_t* __restrict__ out_i,             // see above
                     int qcap, int d, int blk, int k, int qstride,
@@ -230,20 +232,23 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
   const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
   const int cta_r0 = blockIdx.y * CTA_ROWS;
   const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
+  // float: the d-slice staged at a time (all of qstride while it fits).
+  const int dsl = INT8 ? qstride : float_slice(qstride);
+  const bool sliced = dsl < qstride;
 
   // Shared memory: the running top-k, then a scan area (staged query rows
   // and slab chunk) that the block's survivors reuse once the scan is done.
   // int8: query rows of qstride words (4 dims a word) and the chunk
-  // [LANES][cstride] words; float: query rows of qstride fp32 and the chunk
-  // [qstride][LANES] fp32.
+  // [LANES][cstride] words; float: query rows of dsl fp32 and the chunk
+  // [dsl][LANES] fp32, a d-slice at a time past F_RESIDENT (ivf_stage.cuh).
   extern __shared__ int4 smem4[];
   float* run_v = reinterpret_cast<float*>(smem4);                      // [CTA_ROWS][K_MAX]
   int32_t* run_i = reinterpret_cast<int32_t*>(run_v + CTA_ROWS * K_MAX);
   int32_t* q_s = run_i + CTA_ROWS * K_MAX;                             // [CTA_ROWS][qstride]
-  int32_t* col_s = q_s + CTA_ROWS * qstride;                           // [LANES][cstride]
+  int32_t* col_s = q_s + CTA_ROWS * dsl;                               // [LANES][cstride]
   float* cand_v = reinterpret_cast<float*>(q_s);                       // [CTA_ROWS][NCAND]
   int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + CTA_ROWS * NCAND);
-  const int32_t* my_q = q_s + group * ROWS * qstride;
+  const int32_t* my_q = q_s + group * ROWS * dsl;
 
   for (int i = threadIdx.x; i < CTA_ROWS * K_MAX; i += THREADS) {
     run_v[i] = NEG_INF;
@@ -259,13 +264,19 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
   for (int b = tb; b <= t; ++b) {
     const int nvalid = rows_valid[b];
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    if constexpr (!INT8 && SRC == QSrc::kRouted) {
-      stage_queries_gather_f<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
-                                      CTA_ROWS, qstride, reinterpret_cast<float*>(q_s));
-    } else if constexpr (!INT8) {
-      const int qrow = BY_CLUSTER ? block_cluster[b] : b;
-      stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
-                               reinterpret_cast<float*>(q_s));
+    // The float rows' d-slice from e0 (all of them when not sliced).
+    auto stage_q = [&](int e0) {
+      if constexpr (!INT8 && SRC == QSrc::kRouted) {
+        stage_queries_gather_f<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
+                                        CTA_ROWS, dsl, reinterpret_cast<float*>(q_s), e0);
+      } else if constexpr (!INT8) {
+        const int qrow = BY_CLUSTER ? block_cluster[b] : b;
+        stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, dsl,
+                                 reinterpret_cast<float*>(q_s), e0);
+      }
+    };
+    if constexpr (!INT8) {
+      if (!sliced) stage_q(0);
     } else {
       const int qrow = BY_CLUSTER ? block_cluster[b] : b;
       stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
@@ -294,10 +305,20 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) sc[r] = __int2float_rn(acc[r]);
       } else {
-        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
-        __syncthreads();
-        dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                         reinterpret_cast<const float*>(my_q), qstride, sc);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) sc[r] = 0.0f;
+        for (int e0 = 0; e0 < qstride; e0 += dsl) {
+          if (sliced) {
+            if (e0 > 0) __syncthreads();  // the last slice is read
+            stage_q(e0);
+          }
+          stage_chunk_f<THREADS>(vsrc + (size_t)e0 * blk, d - e0, blk, dsl,
+                                 reinterpret_cast<float*>(col_s));
+          __syncthreads();
+          dot_rows_f_acc<ROWS>(reinterpret_cast<const float*>(col_s), lane,
+                               reinterpret_cast<const float*>(my_q), dsl,
+                               min(dsl, qstride - e0), sc);
+        }
       }
       const int col = c * LANES + lane;
       const bool valid = col < nvalid;
@@ -362,13 +383,21 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
       }
     __syncthreads();
 
-    // Merge: one warp per row.
+    // Merge: one warp per row.  With a bound (a later pass of the
+    // wrapper's), only survivors ranked after the row's bound take part.
     for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
       if (cta_r0 + rr >= qcap) continue;
       float* sv = run_v + rr * K_MAX;
       int32_t* si = run_i + rr * K_MAX;
       const float kv = sv[k - 1];
       const int ki = si[k - 1];
+      float bnd_v = INFINITY;
+      int bnd_i = -1;
+      if (bound_i != nullptr) {
+        const size_t o = (size_t)orow * qcap + cta_r0 + rr;
+        bnd_v = bound_v[o];
+        bnd_i = bound_i[o];
+      }
       float cv[PER_LANE];
       int ci[PER_LANE];
       bool beats = false;
@@ -376,6 +405,7 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
       for (int i = 0; i < PER_LANE; ++i) {
         cv[i] = cand_v[rr * NCAND + i * 32 + wl];
         ci[i] = cand_i[rr * NCAND + i * 32 + wl];
+        if (!better(bnd_v, bnd_i, cv[i], ci[i])) cv[i] = NEG_INF;
         beats |= cv[i] > NEG_INF && better(cv[i], ci[i], kv, ki);
       }
       if constexpr (V != Variant::kNoGate) {
@@ -433,13 +463,15 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
 template <typename T, int DEPTH, QSrc SRC, Variant V>
 int launch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
            const void* block_first, const void* block_last, const void* rows_valid,
-           const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
-           int qcap, int d, int blk, int k, int nsrc, cudaStream_t stream) {
+           const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
+           void* out_v, void* out_i, int nblocks, int qcap, int d, int blk, int k, int nsrc,
+           cudaStream_t stream) {
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   const int qstride = stage_row_words<T>(d);
+  // The float stage holds a d-slice of dsl rows (all of them while they fit).
+  const int dsl = std::is_same_v<T, int8_t> ? qstride : float_slice(qstride);
   const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
-  const size_t scan = ((size_t)CTA_ROWS * qstride + stage_chunk_words<T>(qstride))
-                      * sizeof(int32_t);
+  const size_t scan = ((size_t)CTA_ROWS * dsl + stage_chunk_words<T>(dsl)) * sizeof(int32_t);
   const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
   const size_t smem = run + (scan > cand ? scan : cand);
   if (smem > 48 * 1024) {
@@ -454,7 +486,8 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
+      static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
+      static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
       static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride, nsrc);
   return (int)cudaGetLastError();
 }
@@ -463,14 +496,15 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
 template <QSrc SRC, typename T>
 int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
              const void* block_first, const void* block_last, const void* rows_valid,
-             const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
-             int qcap, int d, int blk, int k, int depth, int nsrc, void* stream) {
+             const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
+             void* out_v, void* out_i, int nblocks, int qcap, int d, int blk, int k, int depth,
+             int nsrc, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                        \
   launch<T, D, SRC, Variant::kFull>(qg, vec, block_cluster, cq_blocks, block_first,           \
-                                    block_last, rows_valid, bias, row_base, out_v, out_i,     \
-                                    nblocks, qcap, d, blk, k, nsrc, s)
+                                    block_last, rows_valid, bias, row_base, bound_v, bound_i, \
+                                    out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -563,6 +597,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const int32_t* __restrict__ rows_valid,
                      const float* __restrict__ bias,          // [nblocks, blk] or null
                      const int32_t* __restrict__ row_base,
+                     const float* __restrict__ bound_v,   // like out's rows, or null
+                     const int32_t* __restrict__ bound_i,
                      float* __restrict__ out_v, int32_t* __restrict__ out_i,
                      int qcap, int blk, int kb, int ldq, int k, int stages, int nsrc) {
   using Tl = WTile<DEPTH>;
@@ -604,6 +640,10 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   extern __shared__ uint8_t w_smem[];
   __shared__ __align__(8) uint64_t full[W_STAGES_MAX], qbar;
   __shared__ uint32_t s_nz;  // the routed rows of the block that hold a nonzero byte
+  // Each row's bound (a later pass of the wrapper's): only survivors ranked
+  // after it take part in the merge.  No bound: (+inf, -1).
+  __shared__ float s_bv[32];
+  __shared__ int s_bi[32];
   const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
   uint8_t* const gbase = w_smem + (base - smem_u32(w_smem));
   const uint32_t st = base, bk = st + stages * W_UNIT, qs = bk + 2 * W_UNIT;
@@ -623,6 +663,12 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = threadIdx.x; i < N * K_MAX; i += THREADS) {
     run_v[i] = NEG_INF;
     run_i[i] = 0;
+  }
+  if (threadIdx.x < N) {
+    const bool has = bound_i != nullptr && r0 + (int)threadIdx.x < qcap;
+    const size_t o = (size_t)orow * qcap + r0 + threadIdx.x;
+    s_bv[threadIdx.x] = has ? bound_v[o] : INFINITY;
+    s_bi[threadIdx.x] = has ? bound_i[o] : -1;
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
@@ -779,7 +825,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int ki = run_i[rr * K_MAX + k - 1];
       int cnt = 0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int q = 0; q < 4; ++q) {
+        int drop = 0;  // the bin's entries at or before the row's bound: a prefix
 #pragma unroll
         for (int j = 0; j < DEPTH; ++j) {
           float v = NEG_INF;
@@ -788,11 +835,26 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             v = cand_v[rr * CS + j * LANES + q * 32 + wl];
             id = cand_i[rr * CS + j * LANES + q * 32 + wl];
           }
-          const bool beats = v > NEG_INF && better(v, id, kv, ki);
+          const bool after = better(s_bv[rr], s_bi[rr], v, id);
+          const bool beats = v > NEG_INF && better(v, id, kv, ki) && after;
           lv[r][q][j] = beats ? v : NEG_INF;
           li[r][q][j] = id;
           cnt += beats;
+          drop += v > NEG_INF && !after;
         }
+        // The bin's list is sorted (score desc, id asc), so the entries the
+        // bound drops lead it: shift the rest to the head, where a pass reads.
+#pragma unroll
+        for (int s = 0; s < DEPTH - 1; ++s) {
+          if (s >= drop) break;
+#pragma unroll
+          for (int j = 0; j + 1 < DEPTH; ++j) {
+            lv[r][q][j] = lv[r][q][j + 1];
+            li[r][q][j] = li[r][q][j + 1];
+          }
+          lv[r][q][DEPTH - 1] = NEG_INF;
+        }
+      }
       nbeat[r] = left[r] = __reduce_add_sync(FULL, cnt);
       ov[r] = sv0[r] = wl < k ? run_v[rr * K_MAX + wl] : NEG_INF;
       oi[r] = si0[r] = wl < k ? run_i[rr * K_MAX + wl] : 0;
@@ -947,7 +1009,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // top-k, their candidates being equal in every block: the lowest of them
   // (`lead`) is scored and merged, the others (`dup`) copy it after the
   // merge.
-  uint32_t same = vmask, dup = 0, need = 0;
+  // With bounds, rows differ by their bounds: none shares.
+  uint32_t same = bound_i != nullptr ? 0u : vmask, dup = 0, need = 0;
   int lead = 0;
   auto rows_of_block = [&]() {
     same &= ~s_nz;
@@ -1044,8 +1107,9 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int DEPTH, QSrc SRC>
 int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
                  const void* block_first, const void* block_last, const void* rows_valid,
-                 const void* bias, const void* row_base, void* out_v, void* out_i, int nblocks,
-                 int qcap, int d, int ldq, int blk, int k, int nsrc, cudaStream_t s) {
+                 const void* bias, const void* row_base, const void* bound_v,
+                 const void* bound_i, void* out_v, void* out_i, int nblocks, int qcap, int d,
+                 int ldq, int blk, int k, int nsrc, cudaStream_t s) {
   using Tl = WTile<DEPTH>;
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -1070,7 +1134,8 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(row_base), static_cast<float*>(out_v),
+      static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
+      static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
       static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc);
   return (int)cudaGetLastError();
 }
@@ -1078,14 +1143,16 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
 template <QSrc SRC>
 int dispatch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster,
                    const void* vec, const void* block_first, const void* block_last,
-                   const void* rows_valid, const void* bias, const void* row_base, void* out_v,
-                   void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k, int depth,
-                   int nsrc, void* stream) {
+                   const void* rows_valid, const void* bias, const void* row_base,
+                   const void* bound_v, const void* bound_i, void* out_v, void* out_i,
+                   int nblocks, int qcap, int d, int ldq, int blk, int k, int depth, int nsrc,
+                   void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                          \
   launch_wgmma<D, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last, rows_valid,  \
-                       bias, row_base, out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s)
+                       bias, row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq,  \
+                       blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -1101,33 +1168,40 @@ int dispatch_wgmma(const void* q, const void* cq_blocks, const void* block_clust
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `bias` may be null (no-bias
 // mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 and
-// 1 <= depth <= 4.
+// 1 <= depth <= 4.  K4's, K6's and K7's entries take, for a later pass of
+// the wrapper's (ops/_build.py, by_passes), each output row's bound
+// (bound_v f32 and bound_i int32, shaped as out's rows, or both null):
+// only a survivor ranked after it may enter the row's top-k.
 //
 // K4: qg [nblocks, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
 // 16-byte aligned, out [nblocks, qcap, k]; on wgmma.
 extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
-                                   const void* bias, const void* row_base, void* out_v,
-                                   void* out_i, int nblocks, int qcap, int d, int ldq, int blk,
-                                   int k, int depth, void* stream) {
+                                   const void* bias, const void* row_base, const void* bound_v,
+                                   const void* bound_i, void* out_v, void* out_i, int nblocks,
+                                   int qcap, int d, int ldq, int blk, int k, int depth,
+                                   void* stream) {
   return dispatch_wgmma<QSrc::kBlock>(qg, nullptr, nullptr, vec, block_first, block_last,
-                                      rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
-                                      ldq, blk, k, depth, nblocks, stream);
+                                      rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
+                                      nblocks, qcap, d, ldq, blk, k, depth, nblocks, stream);
 }
 
 // K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
 // 16-byte aligned.
 extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* block_first,
                                   const void* block_last, const void* rows_valid,
-                                  const void* bias, const void* row_base, void* out_v,
-                                  void* out_i, int nblocks, int qcap, int d, int blk, int k,
-                                  int depth, int bf16, void* stream) {
+                                  const void* bias, const void* row_base, const void* bound_v,
+                                  const void* bound_i, void* out_v, void* out_i, int nblocks,
+                                  int qcap, int d, int blk, int k, int depth, int bf16,
+                                  void* stream) {
   return bf16 ? dispatch<QSrc::kBlock, __nv_bfloat16>(
                     qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream)
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nblocks, stream)
               : dispatch<QSrc::kBlock, float>(
                     qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nblocks, stream);
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nblocks, stream);
 }
 
 // K6: qg [nlist, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
@@ -1135,12 +1209,14 @@ extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* b
 extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* block_cluster,
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* bias,
-                                   const void* row_base, void* out_v, void* out_i, int nlist,
+                                   const void* row_base, const void* bound_v,
+                                   const void* bound_i, void* out_v, void* out_i, int nlist,
                                    int nblocks, int qcap, int d, int ldq, int blk, int k,
                                    int depth, void* stream) {
-  return dispatch_wgmma<QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first, block_last,
-                                        rows_valid, bias, row_base, out_v, out_i, nblocks, qcap,
-                                        d, ldq, blk, k, depth, nlist, stream);
+  return dispatch_wgmma<QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first,
+                                        block_last, rows_valid, bias, row_base, bound_v,
+                                        bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                                        depth, nlist, stream);
 }
 
 // K6's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
@@ -1148,14 +1224,17 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
 extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
-                                  void* out_v, void* out_i, int nlist, int nblocks, int qcap,
-                                  int d, int blk, int k, int depth, int bf16, void* stream) {
+                                  const void* bound_v, const void* bound_i, void* out_v,
+                                  void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
+                                  int k, int depth, int bf16, void* stream) {
   return bf16 ? dispatch<QSrc::kCluster, __nv_bfloat16>(
                     qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream)
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nlist, stream)
               : dispatch<QSrc::kCluster, float>(
                     qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nlist, stream);
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nlist, stream);
 }
 
 // K7: qi [nbatch, ldq] with ldq = d rounded up to 16 (the pad zero),
@@ -1164,11 +1243,12 @@ extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* b
 extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const void* vec,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
-                                  void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
-                                  int d, int ldq, int blk, int k, int depth, void* stream) {
+                                  const void* bound_v, const void* bound_i, void* out_v,
+                                  void* out_i, int nbatch, int nblocks, int qcap, int d, int ldq,
+                                  int blk, int k, int depth, void* stream) {
   return dispatch_wgmma<QSrc::kRouted>(qi, cq_blocks, nullptr, vec, block_first, block_last,
-                                       rows_valid, bias, row_base, out_v, out_i, nblocks, qcap, d,
-                                       ldq, blk, k, depth, nbatch, stream);
+                                       rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
+                                       nblocks, qcap, d, ldq, blk, k, depth, nbatch, stream);
 }
 
 // K7's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qi and vec; vec
@@ -1176,14 +1256,17 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
 extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const void* vec,
                                  const void* block_first, const void* block_last,
                                  const void* rows_valid, const void* bias, const void* row_base,
-                                 void* out_v, void* out_i, int nbatch, int nblocks, int qcap,
-                                 int d, int blk, int k, int depth, int bf16, void* stream) {
+                                 const void* bound_v, const void* bound_i, void* out_v,
+                                 void* out_i, int nbatch, int nblocks, int qcap, int d, int blk,
+                                 int k, int depth, int bf16, void* stream) {
   return bf16 ? dispatch<QSrc::kRouted, __nv_bfloat16>(
                     qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream)
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nbatch, stream)
               : dispatch<QSrc::kRouted, float>(
                     qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
-                    row_base, out_v, out_i, nblocks, qcap, d, blk, k, depth, nbatch, stream);
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                    nbatch, stream);
 }
 
 // K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
@@ -1200,8 +1283,8 @@ int variant_scan(const void* qg, const void* vec, const void* block_cluster,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_VARIANT(V)                                                                        \
   launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,    \
-                                  rows_valid, nullptr, row_base, out_v, out_i, nblocks, qcap, \
-                                  d, blk, k, nlist, s)
+                                  rows_valid, nullptr, row_base, nullptr, nullptr, out_v,     \
+                                  out_i, nblocks, qcap, d, blk, k, nlist, s)
   switch (variant) {
     case 0: return RAG_VARIANT(Variant::kFull);
     case 1: return RAG_VARIANT(Variant::kNoGate);

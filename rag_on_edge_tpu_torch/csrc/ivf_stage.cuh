@@ -4,8 +4,8 @@
 // modes and K1's int8 and bf16 modes run on wgmma), and the float stage
 // (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
 // fp32 and bf16 modes of K4, K6, K7, K9 and K10, of K1's fp32 mode and of
-// the brute-force kernels' fp32 modes (K5 bruteforce_accum.cu, K3
-// bruteforce_fused.cu).
+// K5's fp32 mode (bruteforce_accum.cu).  Past D' = 320 the float stage
+// walks D in slices (float_slice, dot_rows_f_acc).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -109,6 +109,16 @@ __device__ __forceinline__ float4 load4_f(const __nv_bfloat16* p) {
                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
 }
 __device__ __forceinline__ float widen(float x) { return x; }
+
+// The float stage holds the query rows and a [dstride, 128] chunk whole
+// while dstride <= F_RESIDENT; past it, d walks in slices of F_SLICE: each
+// slice of the rows and of the chunk staged, scored and released in turn,
+// so D has no cap (the rows are then restaged for every chunk).
+constexpr int F_RESIDENT = 320;
+constexpr int F_SLICE = 64;
+__host__ __device__ __forceinline__ int float_slice(int dstride) {
+  return dstride <= F_RESIDENT ? dstride : F_SLICE;
+}
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Stage one block's [d, 128] chunk as fp32, d-row major: row e holds the
@@ -129,14 +139,16 @@ __device__ __forceinline__ void stage_chunk_f(const T* __restrict__ vsrc, int d,
   }
 }
 
-// Load rows row0..row0+nrows-1 of a query table [nsrc, d] (fp32 or bf16)
-// into `q_f` as nrows x dstride fp32, zero past d and past nsrc.  Rows of
-// [nsrc, d] start at any element (d may be odd), so the loads are scalar.
+// Load dimensions e0..e0+dstride-1 of rows row0..row0+nrows-1 of a query
+// table [nsrc, d] (fp32 or bf16) into `q_f` as nrows x dstride fp32, zero
+// past d and past nsrc.  Rows of [nsrc, d] start at any element (d may be
+// odd), so the loads are scalar.
 template <int NTHREADS, typename T>
 __device__ __forceinline__ void stage_queries_f(const T* __restrict__ qsrc, int nsrc, int d,
-                                                int row0, int nrows, int dstride, float* q_f) {
+                                                int row0, int nrows, int dstride, float* q_f,
+                                                int e0 = 0) {
   for (int i = threadIdx.x; i < nrows * dstride; i += NTHREADS) {
-    const int r = i / dstride, e = i % dstride;
+    const int r = i / dstride, e = e0 + i % dstride;
     q_f[i] = (row0 + r < nsrc && e < d) ? widen(qsrc[(size_t)(row0 + r) * d + e]) : 0.0f;
   }
 }
@@ -149,15 +161,36 @@ template <int NTHREADS, typename T>
 __device__ __forceinline__ void stage_queries_gather_f(const T* __restrict__ qsrc,
                                                        const int32_t* __restrict__ idx, int nsrc,
                                                        int qcap, int d, int row0, int nrows,
-                                                       int dstride, float* q_f) {
+                                                       int dstride, float* q_f, int e0 = 0) {
   for (int i = threadIdx.x; i < nrows * dstride; i += NTHREADS) {
-    const int r = i / dstride, e = i % dstride;
+    const int r = i / dstride, e = e0 + i % dstride;
     float v = 0.0f;
     if (row0 + r < qcap && e < d) {
       const int s = idx[row0 + r];
       if (s >= 0 && s < nsrc) v = widen(qsrc[(size_t)s * d + e]);
     }
     q_f[i] = v;
+  }
+}
+
+// The running form over a d-slice: acc[r] += the fp32 dot over the slice's
+// first n dimensions (a multiple of 4), the staged query rows at a pitch of
+// dstride floats and the staged chunk's rows one per dimension.  Slices
+// taken in d order give the one-pass sum bit for bit.
+template <int ROWS>
+__device__ __forceinline__ void dot_rows_f_acc(const float* col_f, int lane, const float* my_q,
+                                               int dstride, int n, float (&acc)[ROWS]) {
+  for (int j = 0; j < n; j += 4) {
+    const float v0 = col_f[j * 128 + lane], v1 = col_f[(j + 1) * 128 + lane];
+    const float v2 = col_f[(j + 2) * 128 + lane], v3 = col_f[(j + 3) * 128 + lane];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float4 q4 = *reinterpret_cast<const float4*>(my_q + r * dstride + j);
+      acc[r] = fmaf(q4.x, v0, acc[r]);
+      acc[r] = fmaf(q4.y, v1, acc[r]);
+      acc[r] = fmaf(q4.z, v2, acc[r]);
+      acc[r] = fmaf(q4.w, v3, acc[r]);
+    }
   }
 }
 
@@ -170,18 +203,7 @@ __device__ __forceinline__ void dot_rows_f(const float* col_f, int lane, const f
                                            int dstride, float (&acc)[ROWS]) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-  for (int j = 0; j < dstride; j += 4) {
-    const float v0 = col_f[j * 128 + lane], v1 = col_f[(j + 1) * 128 + lane];
-    const float v2 = col_f[(j + 2) * 128 + lane], v3 = col_f[(j + 3) * 128 + lane];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 q4 = *reinterpret_cast<const float4*>(my_q + r * dstride + j);
-      acc[r] = fmaf(q4.x, v0, acc[r]);
-      acc[r] = fmaf(q4.y, v1, acc[r]);
-      acc[r] = fmaf(q4.z, v2, acc[r]);
-      acc[r] = fmaf(q4.w, v3, acc[r]);
-    }
-  }
+  dot_rows_f_acc<ROWS>(col_f, lane, my_q, dstride, dstride, acc);
 }
 
 // The order-preserving int32 key of an fp32 score (IEEE-754 total order:

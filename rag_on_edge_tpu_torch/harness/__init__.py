@@ -2,4 +2,5 @@
 spatial-GEMM benchmark (``bench_gemm``), the kernel-variant lab
 (``kernel_lab``, kernel K10), the hardware probes (``hw_probe``, kernels
 K11-K14; ``python -m rag_on_edge_tpu_torch.harness.hw_probe``) and their
-device timing (``timing``)."""
+device timing (``timing``); and the times of kernel K3's fp32 mode at its
+callers' shapes (``k3_times``), which the JAX package does not have."""

@@ -107,6 +107,10 @@ def _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, varian
     return out_v, out_i
 
 
+_K_MAX = 32
+_INT8_DIM_MAX = 1024
+
+
 def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     """K10 with the JAX signature → (out_v [nlist, qcap, k] f32, out_i
     [nlist, qcap, k] int32); see :func:`_variant_scan_reference`.
@@ -115,7 +119,7 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     [nblocks, D, blk]; ``bc``/``bf``/``bl``/``rv`` the block tables
     [nblocks] int32.  Ids are ``block·blk + column``.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (int8, nbins 128, k <=
-    32, D <= 1024; fp32 or bf16 in one dtype, D <= 320) or raise."""
+    32, D <= 1024; fp32 or bf16 in one dtype, any D) or raise."""
     global LAUNCHES
     nlist, nblocks, qcap, d, int_path = _check(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins,
                                                variant)
@@ -123,10 +127,14 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     if dev.type == "cpu":
         return _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant)
     _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv])
-    ivf_scan._check_cuda_limits("K10", nbins, k, 2, d)
+    # The lab's variants keep one running top-k of 32 a row, and the int8
+    # stage holds the routed rows and a [D, 128] chunk whole.
+    if nbins != 128 or k > _K_MAX or (int_path and d > _INT8_DIM_MAX):
+        raise ValueError(f"the CUDA K10 takes nbins 128, k <= {_K_MAX} and int8 D <= "
+                         f"{_INT8_DIM_MAX}; got nbins={nbins}, k={k}, D={d}")
     flag = ()
     if not int_path:
-        vectors_t, flag = ivf_scan.float_args("K10", qg, vectors_t, d)
+        vectors_t, flag = ivf_scan.float_args("K10", qg, vectors_t)
     row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     out_v = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)

@@ -29,19 +29,18 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "FLOAT_DIM_MAX", "load_library",
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library",
            "check_inputs", "check_float", "aligned", "pad_rows", "kmajor",
-           "kmajor_operands"]
+           "kmajor_operands", "PASS_K", "by_passes"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# The float stage of csrc/ivf_stage.cuh (K1, K4-K7, K9, K10 and K5) holds a
-# [D, 128] chunk and 32 query rows as fp32 in the 227 KB of shared memory a
-# CTA may have.
-FLOAT_DIM_MAX = 320
+# The widest running top-k the kernels that hold it one entry a lane keep
+# (K3's int8 and bf16 modes, K4, K6, K7): a larger k runs in passes.
+PASS_K = 32
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -104,13 +103,12 @@ def check_inputs(name: str, dev, tensors) -> None:
             raise ValueError(f"{name} inputs must be contiguous")
 
 
-def check_float(name: str, queries, base, d: int, d_max: int = FLOAT_DIM_MAX) -> None:
+def check_float(name: str, queries, base) -> None:
     """What a kernel's float modes take on the card: fp32 or bf16 queries
-    and base in one dtype (the kernel widens both the same way), and
-    ``D <= d_max``."""
-    if queries.dtype != base.dtype or d > d_max:
-        raise ValueError(f"the CUDA {name} takes fp32 or bf16 operands in one dtype and "
-                         f"D <= {d_max}; got {queries.dtype} x {base.dtype}, D={d}")
+    and base in one dtype (the kernel widens both the same way)."""
+    if queries.dtype != base.dtype:
+        raise ValueError(f"the CUDA {name} takes fp32 or bf16 operands in one dtype; got "
+                         f"{queries.dtype} x {base.dtype}")
 
 
 def pad_rows(x, multiple: int):
@@ -153,3 +151,23 @@ def aligned(x, nbytes: int):
     """``x``, or a copy of it whose storage starts on an ``nbytes`` boundary
     (a view into a larger tensor may start anywhere)."""
     return x if x.data_ptr() % nbytes == 0 else x.clone()
+
+
+def by_passes(k: int, run):
+    """The exact top-k of a kernel that keeps at most ``PASS_K`` a row, in
+    passes: ``run(kp, bound_v, bound_i)`` → (vals [..., kp], ids [..., kp])
+    returns the best ``kp`` entries ranked after each row's bound (none on
+    the first pass: both None), and each pass takes the last entry of the
+    one before as its bound.  The passes' lists, joined on the last axis,
+    are the top-k, ties to the lowest id; a row that runs out of entries
+    above the fill value returns fill values from then on."""
+    vals, ids = [], []
+    bound_v = bound_i = None
+    for p0 in range(0, k, PASS_K):
+        v, i = run(min(PASS_K, k - p0), bound_v, bound_i)
+        vals.append(v)
+        ids.append(i)
+        bound_v, bound_i = v[..., -1].contiguous(), i[..., -1].contiguous()
+    if len(vals) == 1:
+        return vals[0], ids[0]
+    return torch.cat(vals, dim=-1), torch.cat(ids, dim=-1)

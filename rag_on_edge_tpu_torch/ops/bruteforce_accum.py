@@ -25,10 +25,10 @@ bin (column mod tile_n); callers rescore.
 
 :func:`fused_topk_accum` dispatches on the device of its inputs: CPU
 tensors take :func:`fused_topk_accum_reference`, CUDA tensors launch
-``csrc/bruteforce_accum.cu`` (int8 ± bias rows, D <= 1024; fp32 or bf16
-with queries and tiles in one dtype, D <= 320; int8 and bf16 on the tensor
-cores, ``wgmma`` fed by TMA, int8 on the K-major copy of
-:func:`_build.kmajor_operands`) or raise.
+``csrc/bruteforce_accum.cu`` (int8 ± bias rows; fp32 or bf16 with queries
+and tiles in one dtype; any D; int8 and bf16 on the tensor cores, ``wgmma``
+fed by TMA, int8 on the K-major copy of :func:`_build.kmajor_operands`) or
+raise.
 """
 
 from __future__ import annotations
@@ -51,11 +51,8 @@ KMIN = -(2**31) + 1  # the key of a masked column
 LAUNCHES = 0
 
 # What the CUDA kernel takes: bins in 128-lane chunks, at most 2048 of them
-# (the final top-k holds 8 per thread of one 256-thread CTA), and the query
-# rows resident in shared memory beside the ring (int8: 192 rows of 1024 d
-# leave it four stages).
+# (the final top-k holds 8 per thread of one 256-thread CTA).
 _CUDA_TILE_MAX = 2048
-_CUDA_DIM_MAX = 1024
 
 _FN = None
 _FLOAT_FN = None
@@ -224,9 +221,8 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
     first; see the module docstring.  ``tile_b`` and ``depth`` shape the TPU
     kernel's pipeline only and do not change the result.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (tile_n a multiple of
-    128 up to 2048; int8 ± bias rows with D <= 1024, the rows as
-    :func:`l2_bias_rows` makes them, or fp32 or bf16 queries and tiles in one
-    dtype with D <= 320) or raise."""
+    128 up to 2048; int8 ± bias rows, the rows as :func:`l2_bias_rows` makes
+    them, or fp32 or bf16 queries and tiles in one dtype; any D) or raise."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -235,11 +231,11 @@ def fused_topk_accum(queries, base_tiles, n, k, tile_b=256, group=16, depth=8,
     n_tiles, d, tile_n, int_path, l2 = _check(queries, base_tiles, n, k, group, depth,
                                               bias_rows)
     _build.check_inputs("K5", dev, [queries, base_tiles, bias_rows if l2 else None])
-    if tile_n % 128 or tile_n > _CUDA_TILE_MAX or d > _CUDA_DIM_MAX:
-        raise ValueError(f"the CUDA K5 takes tile_n a multiple of 128 up to {_CUDA_TILE_MAX} "
-                         f"and D <= {_CUDA_DIM_MAX}; got tile_n={tile_n}, D={d}")
+    if tile_n % 128 or tile_n > _CUDA_TILE_MAX:
+        raise ValueError(f"the CUDA K5 takes tile_n a multiple of 128 up to {_CUDA_TILE_MAX}; "
+                         f"got tile_n={tile_n}")
     if not int_path:
-        _build.check_float("K5", queries, base_tiles, d)
+        _build.check_float("K5", queries, base_tiles)
         base_tiles = _build.aligned(base_tiles, 16)  # 16-byte loads along tile_n
     b = queries.shape[0]
     # The per-bin running keys and columns between the two passes.

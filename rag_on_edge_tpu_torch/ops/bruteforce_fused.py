@@ -28,7 +28,11 @@ tensors take :func:`fused_topk_matmul_reference`, CUDA tensors launch
 ``csrc/bruteforce_fused.cu`` (int8, int8 L2, and fp32 or bf16 with queries
 and base in one dtype; int8 and bf16 on the tensor cores, ``wgmma`` fed by
 TMA, int8 on the K-major copy of :func:`_build.kmajor_operands`) or
-raise.
+raise.  The fp32 mode runs a register-tiled FFMA kernel over column
+splits (:func:`split_plan`), each split's sorted top-k joined by K2
+(:func:`merge_splits`); :func:`split_topk_reference` is that
+split-and-merge with plain parts.  The int8 and bf16 modes keep 32 a row
+and take a larger k in passes (``_build.by_passes``).
 """
 
 from __future__ import annotations
@@ -37,24 +41,28 @@ import ctypes
 
 import torch
 
-from rag_on_edge_tpu_torch.ops import _build, distances, topk
+from rag_on_edge_tpu_torch.ops import _build, distances, fused_topk, topk
 
-__all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_reference"]
+__all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_reference",
+           "split_plan", "merge_splits", "split_topk_reference"]
 
 #: Launches of the CUDA kernel in this process; the plain version does not
 #: count.  A run that must show it went through the kernel sets it to 0
 #: before and reads it after.
 LAUNCHES = 0
 
-# What the CUDA kernel takes: a running top-k of at most 32 per row (one
-# per lane of the merging warp), bins of 128 (one per lane of a row group),
-# and the query rows resident in shared memory beside the candidate buffers.
-_CUDA_K_MAX = 32
+# What the CUDA kernel takes: bins of 128 (one per column of a chunk), the
+# fp32 mode's top-k up to 256 long (it lives in the output buffer), and
+# the int8 and bf16 modes' 32 a pass (one per lane of the inserting warp;
+# a larger k runs in passes, _build.by_passes).
 _CUDA_NBINS = 128
-_CUDA_DIM_MAX = 512
+_F32_K_MAX = 256
 # The int8 and bf16 kernels' binned table names a column's chunk within
 # its tile in 16 bits: a tile walks at most 65536 chunks of 128.
 _CUDA_BINNED_TILE_MAX = 65536 * 128
+# The fp32 mode: each column split at least this many 128-column chunks
+# long.
+_F32_MIN_CHUNKS = 32
 
 _FNS = {}
 
@@ -137,8 +145,63 @@ def fused_topk_matmul_reference(queries, base_t, k, tile_n=None, tile_b=None, nb
     return topk.extract_topk_ids(tv.reshape(b, -1), ti.reshape(b, -1), k, fill)
 
 
+def split_plan(b: int, n: int, tile_n: int, nbins: int, sms: int):
+    """The fp32 kernel's column splits → (split_cols, nsplit): as many as
+    keep the row tiles (128 rows; 64 binned) x splits within one wave of
+    one CTA a multiprocessor (a second, partial wave would idle most of the
+    card), each split at least ``_F32_MIN_CHUNKS`` chunks of 128 long, and
+    (binned) a whole number of ``tile_n`` tiles, so the JAX wrapper's tiles
+    are kept."""
+    bm = 64 if nbins else 128
+    unit = tile_n if nbins else 128
+    nunits = -(-n // unit)
+    want = sms // -(-b // bm)
+    nsplit = max(1, min(want, nunits, (-(-n // 128)) // _F32_MIN_CHUNKS))
+    per = -(-nunits // nsplit)
+    return per * unit, -(-nunits // per)
+
+
+def merge_splits(vals, ids, k: int, topk_fn):
+    """The top-k of a row's per-split lists → (vals [B, k], ids [B, k]):
+    ``vals`` / ``ids`` [B, W] hold split s's sorted list at columns s·k ..
+    s·k + k - 1 (the fill value past a short list, and past the last split
+    to W, a multiple of 128).  ``topk_fn`` is K2 (or its plain version):
+    ties go to the lowest position, which is the lowest id, since the
+    splits lie in column order and each list in (score desc, id asc)
+    order."""
+    mv, pos = topk_fn(vals, k)
+    return mv, torch.gather(ids, 1, pos.long())
+
+
+def split_topk_reference(queries, base_t, k, split_cols, tile_n=None, tile_b=None, nbins=0,
+                         n_valid=None):
+    """The fp32 kernel's split-and-merge with plain parts: the plain K3 on
+    each split of ``split_cols`` columns (a multiple of ``tile_n`` when
+    binned), written as the kernel writes its lists, then
+    :func:`merge_splits` with the plain K2.  Equals
+    :func:`fused_topk_matmul_reference` above the fill value."""
+    b, d, n, _, _, tile_n = _resolve(queries, base_t, k, tile_n, tile_b, nbins, None, None)
+    if nbins and split_cols % tile_n:
+        raise ValueError(f"split_cols={split_cols} must be a multiple of tile_n={tile_n}")
+    nsplit = -(-n // split_cols)
+    width = -(-nsplit * k // 128) * 128
+    fill = float("-inf")
+    vals = torch.full((b, width), fill, dtype=torch.float32, device=queries.device)
+    ids = torch.zeros((b, width), dtype=torch.int32, device=queries.device)
+    nv = n if n_valid is None else int(torch.as_tensor(n_valid).reshape(()))
+    for s in range(nsplit):
+        c0, c1 = s * split_cols, min(n, (s + 1) * split_cols)
+        kk = min(k, c1 - c0)
+        v, i = fused_topk_matmul_reference(
+            queries, base_t[:, c0:c1], kk, tile_n=tile_n, nbins=nbins,
+            n_valid=torch.tensor([max(0, min(nv, c1) - c0)], dtype=torch.int32))
+        vals[:, s * k:s * k + kk] = v.to(torch.float32)
+        ids[:, s * k:s * k + kk] = i + c0
+    return merge_splits(vals, ids, k, fused_topk.fused_topk_reference)
+
+
 # Each mode's C entry: (pointers, ints) before the stream.
-_ENTRIES = {"i8": (7, 6), "f32": (5, 6), "bf16": (5, 8)}
+_ENTRIES = {"i8": (9, 6), "f32": (5, 11), "bf16": (7, 8)}
 
 
 def _kernel(mode):
@@ -164,7 +227,9 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     leading columns (at most N).  ``alpha`` [B] / ``bias`` [N]: the int8 L2
     mode (both or neither).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (int8 ± L2, and fp32 or bf16 with queries
-    and base_t in one dtype; nbins 0 or 128, k <= 32, D <= 512) or raise."""
+    and base_t in one dtype; nbins 0 or 128; any D; fp32 k <= 256, int8 and
+    bf16 any k, in passes of 32) or raise.  The fp32 mode joins its column
+    splits with K2."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -181,25 +246,25 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     _build.check_inputs("K3", dev, [queries, base_t, alpha if l2 else None,
                                     bias if l2 else None, n_valid])
     if not int_path:
-        _build.check_float("K3", queries, base_t, d, _CUDA_DIM_MAX)
-    if nbins not in (0, _CUDA_NBINS) or k > _CUDA_K_MAX or d > _CUDA_DIM_MAX:
-        raise ValueError(
-            f"the CUDA K3 takes nbins 0 or {_CUDA_NBINS}, k <= {_CUDA_K_MAX} and D <= "
-            f"{_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, D={d}")
+        _build.check_float("K3", queries, base_t)
+    if nbins not in (0, _CUDA_NBINS):
+        raise ValueError(f"the CUDA K3 takes nbins 0 or {_CUDA_NBINS}; got nbins={nbins}")
     if int_path:
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
+    if mode == "f32" and k > _F32_K_MAX:
+        raise ValueError(f"the CUDA K3 takes fp32 k <= {_F32_K_MAX} (its lists' registers in "
+                         f"the merge); got k={k}")
     if mode != "f32" and nbins and min(tile_n, n) > _CUDA_BINNED_TILE_MAX:
         raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles of up to "
                          f"{_CUDA_BINNED_TILE_MAX} columns of the base; got tile_n={tile_n}, "
                          f"N={n}")
-    vals = torch.empty((b, k), dtype=torch.int32 if mode == "i8" else torch.float32,
-                       device=dev)
-    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     nv_ptr = n_valid.data_ptr() if n_valid is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if mode == "f32":
+            return _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, stream)
         if mode == "bf16":
             # TMA takes rows of whole 16-byte units: the queries' rows are
             # padded to whole k16 steps (the pad zero), and base_t is copied
@@ -208,18 +273,50 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
             qp = torch.nn.functional.pad(queries, (0, ldq - d)).contiguous()
             bp = base_t if ldb == n else torch.nn.functional.pad(base_t, (0, ldb - n))
             bp = _build.aligned(bp, 16)
-            err = _kernel("bf16")(qp.data_ptr(), bp.data_ptr(), nv_ptr, vals.data_ptr(),
-                                  ids.data_ptr(), b, d, ldq, n, ldb, k, tile_n, nbins, stream)
-        elif mode == "f32":
-            err = _kernel("f32")(queries.data_ptr(), base_t.data_ptr(), nv_ptr, vals.data_ptr(),
-                                 ids.data_ptr(), b, d, n, k, tile_n, nbins, stream)
+            ptrs, ints = (qp.data_ptr(), bp.data_ptr(), nv_ptr), (b, d, ldq, n, ldb)
         else:
             qk, bk = (_build.aligned(x, 16) for x in _build.kmajor_operands(queries, base_t))
             bias = _build.aligned(bias, 16) if l2 else None
-            err = _kernel("i8")(qk.data_ptr(), bk.data_ptr(), alpha.data_ptr() if l2 else None,
-                                bias.data_ptr() if l2 else None, nv_ptr, vals.data_ptr(),
-                                ids.data_ptr(), b, qk.shape[1], n, k, tile_n, nbins, stream)
+            ptrs = (qk.data_ptr(), bk.data_ptr(), alpha.data_ptr() if l2 else None,
+                    bias.data_ptr() if l2 else None, nv_ptr)
+            ints = (b, qk.shape[1], n)
+        vdtype = torch.int32 if mode == "i8" else torch.float32
+
+        def run(kp, bound_v, bound_i):
+            global LAUNCHES
+            vals = torch.empty((b, kp), dtype=vdtype, device=dev)
+            ids = torch.empty((b, kp), dtype=torch.int32, device=dev)
+            err = _kernel("bf16" if mode == "bf16" else "i8")(
+                *ptrs, bound_v.data_ptr() if bound_v is not None else None,
+                bound_i.data_ptr() if bound_i is not None else None, vals.data_ptr(),
+                ids.data_ptr(), *ints, kp, tile_n, nbins, stream)
+            if err != 0:
+                raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
+            LAUNCHES += 1
+            return vals, ids
+
+        return _build.by_passes(k, run)
+
+
+def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, stream):
+    """The fp32 kernel over its column splits, then K2 over the splits'
+    lists (none where one split covers N)."""
+    global LAUNCHES
+    b, n = queries.shape[0], base_t.shape[1]
+    dev = queries.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split_cols, nsplit = split_plan(b, n, tile_n, nbins, sms)
+    # cp.async moves 16-byte pieces: the queries' rows padded to 4 floats.
+    qp = _build.aligned(_build.pad_rows(queries, 4), 16)
+    width = -(-nsplit * k // 128) * 128
+    vals = torch.full((b, width), float("-inf"), dtype=torch.float32, device=dev)
+    ids = torch.zeros((b, width), dtype=torch.int32, device=dev)
+    err = _kernel("f32")(qp.data_ptr(), base_t.data_ptr(), nv_ptr, vals.data_ptr(),
+                         ids.data_ptr(), b, base_t.shape[0], qp.shape[1], n, n, k, tile_n,
+                         nbins, split_cols, nsplit, width, stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return vals, ids
+    if nsplit == 1:
+        return vals[:, :k].contiguous(), ids[:, :k].contiguous()
+    return merge_splits(vals, ids, k, fused_topk.fused_topk)

@@ -22,8 +22,9 @@ rows are defined.
 
 :func:`cluster_major_accum_planes` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_accum_planes_reference`, CUDA
-tensors launch ``csrc/ivf_accum_planes.cu`` (int8 ± bias rows, and fp32
-or bf16, both operands in one dtype, D <= 320) or raise.  The int8 and
+tensors launch ``csrc/ivf_accum_planes.cu`` (int8 ± bias rows up to the
+JAX package's caps, 512 and 384; fp32 or bf16, both operands in one dtype,
+any D) or raise.  The int8 and
 bf16 modes run on ``wgmma`` fed by TMA; they read the routed rows through
 :func:`kernel_operands` (D zero-padded to a 16-byte row pitch, TMA's; no
 copy where D needs none) and the slab as the index holds it, its d past D
@@ -80,11 +81,11 @@ LAUNCHES = 0
 ACCUM_LAUNCHES = 0
 
 _ENTRIES: dict = {}
-# What the CUDA K9 takes: at most 32 per row (one per lane of the merging
-# warp), and |dots| <= D·127² below 2**24 so the fp32 plain version on the
-# card is exact.
-_CUDA_K_MAX = 32
-_CUDA_DIM_MAX = 1024
+_F32_EXACT_DIM = (1 << 24) // (127 * 127)
+# What the CUDA K9 takes in int8: D <= 1024, where its key (dots << 4) -
+# row (the JAX kernel's, rag_on_edge_tpu/ops/pallas_ivf_dma.py:16), with
+# rows clipped to ±2**25 (accum_bias_rows), stays inside int32.
+_CUDA_INT8_DIM_MAX = 1024
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -104,10 +105,17 @@ def _dots(qg_blocks, vectors_t, int_path):
     if int_path and qg_blocks.device.type == "cpu":
         # torch.bmm on int8 returns int8 and wraps: upcast, exact in int32.
         return torch.bmm(qg_blocks.to(torch.int32), vectors_t.to(torch.int32))
-    # No int32 GEMM on CUDA: fp32 with TF32 off is exact for int8 data
-    # (|dots| <= 1024·127² < 2**24).
-    dots = torch.bmm(qg_blocks.to(torch.float32), vectors_t.to(torch.float32))
-    return dots.to(torch.int32) if int_path else dots
+    if not int_path:
+        return torch.bmm(qg_blocks.to(torch.float32), vectors_t.to(torch.float32))
+    # No int32 GEMM on CUDA: fp32 with TF32 off is exact for an int8 dot
+    # over at most 1040 dimensions (|dots| <= d·127² < 2**24); wider D sums
+    # such slices in int32.
+    out = None
+    for s in range(0, qg_blocks.shape[-1], _F32_EXACT_DIM):
+        part = torch.bmm(qg_blocks[..., s:s + _F32_EXACT_DIM].to(torch.float32),
+                         vectors_t[:, s:s + _F32_EXACT_DIM].to(torch.float32)).to(torch.int32)
+        out = part if out is None else out + part
+    return out
 
 
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, blk,
@@ -211,7 +219,7 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
     """K1 with the JAX signature → planes ``[nblocks, qcap, planes·128]``
     int32; see the module docstring.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (int8 ± bias rows; fp32 or bf16 with
-    both operands in one dtype and D <= 320) or raise."""
+    both operands in one dtype, any D) or raise."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -223,7 +231,7 @@ def cluster_major_accum_planes(qg_blocks, vectors_t, block_first, block_last,
     _build.check_inputs("K1", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     bias_rows])
     if not int_path:
-        _build.check_float("K1", qg_blocks, vectors_t, d)
+        _build.check_float("K1", qg_blocks, vectors_t)
     # TMA (int8, bf16) and the fp32 stage's 16-byte loads need 16-byte bases.
     vectors_t = _build.aligned(vectors_t, 16)
     nplanes = 2 if bin2 else 1
@@ -356,9 +364,8 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
     """K9 with the JAX signature → (pv [nblocks, qcap, k] f32, pr [nblocks,
     qcap, k] int32 padded row ids); only each cluster's ``last_block`` rows
     are defined.  See the module docstring.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (int8 ± bias rows, k <= 32,
-    D <= 1024; fp32 or bf16 in one dtype, no bias rows, D <= 320) or
-    raise."""
+    version; CUDA tensors launch the kernel (int8 ± bias rows, D <= 1024;
+    fp32 or bf16 in one dtype, no bias rows, any D; any k) or raise."""
     global ACCUM_LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -370,11 +377,11 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
         bias_rows, mask_rows)
     _build.check_inputs("K9", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     bias_rows])
-    if not 1 <= k <= _CUDA_K_MAX or d > _CUDA_DIM_MAX:
-        raise ValueError(f"the CUDA K9 takes 1 <= k <= {_CUDA_K_MAX} and D <= "
-                         f"{_CUDA_DIM_MAX}; got k={k}, D={d}")
+    if k < 1 or (int_path and d > _CUDA_INT8_DIM_MAX):
+        raise ValueError(f"the CUDA K9 takes k >= 1 and int8 D <= {_CUDA_INT8_DIM_MAX} (its "
+                         f"(dots << 4) - row key in int32); got k={k}, D={d}")
     if not int_path:
-        _build.check_float("K9", qg_blocks, vectors_t, d)
+        _build.check_float("K9", qg_blocks, vectors_t)
         vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)

@@ -19,12 +19,15 @@ and ids are compared only where ``pv > -inf``.
 :func:`cluster_major_scan_grouped` dispatches on the device of its inputs:
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
-operands in one dtype and D <= 320; ± bias) or raise.  K6 and K7 do the
-same, in the same modes.  The int8 modes of K4, K6 and K7 run on ``wgmma``
-(s8 -> s32) fed by TMA, with the routed rows at TMA's 16-byte row pitch
+operands in one dtype; ± bias) or raise.  K6 and K7 do the same, in the
+same modes.  The int8 modes of K4, K6 and K7 run on ``wgmma`` (s8 -> s32)
+fed by TMA, with the routed rows at TMA's 16-byte row pitch
 (:func:`int8_operands`; no copy at D = 128) and the slab transposed in
 shared memory; the float modes score on the staged ``fmaf`` loops of
-``csrc/ivf_stage.cuh``.
+``csrc/ivf_stage.cuh``, in d-slices past D' = 320.  The kernels keep a
+running top-k of 32 a row; a larger k runs in passes of 32
+(``_build.by_passes``), each pass given each row's last entry of the one
+before as its bound.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -68,24 +71,26 @@ CLUSTER_LAUNCHES = 0
 ROUTED_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
-# What the CUDA kernel takes: 128 bins (one per lane of a row group), at
-# most 32 survivors per row (one per lane of the merging warp), bin depths
-# 1-4 (register arrays sized at compile time), and |dots| <= D·127² below
-# 2**24 so the fp32 plain version on the card is exact too.
+# What the CUDA kernel takes: 128 bins (one per lane of a row group) and
+# bin depths 1-4 (register arrays sized at compile time).
 _CUDA_NBINS = 128
-_CUDA_K_MAX = 32
 _CUDA_DEPTH_MAX = 4
-_CUDA_DIM_MAX = 1024
+# The int8 wgmma kernel holds a block's routed rows whole in shared memory
+# beside its survivors and a two-stage ring (csrc/ivf_grouped_scan.cu,
+# launch_wgmma): the 227 KB a CTA may have, less those, over a 128-byte
+# unit of d for each of its rows (32 at depth 1-2, 16 at 3-4).
+_SMEM_OPTIN = 232448 - 1024
 
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
 # stream last.  The float entries take one more int, bf16 (0 or 1); K4's, K6's
-# and K7's int8 entries (wgmma) one more, the routed rows' padded pitch.
+# and K7's int8 entries (wgmma) one more, the routed rows' padded pitch; K4's,
+# K6's and K7's entries two more pointers, the rows' bounds of a later pass.
 _ENTRIES = {
-    "ivf_grouped_scan_i8": (9, 7), "ivf_grouped_scan_f": (9, 7),
-    "ivf_cluster_scan_i8": (10, 8), "ivf_cluster_scan_f": (10, 8),
-    "ivf_routed_scan_i8": (10, 8), "ivf_routed_scan_f": (10, 8),
+    "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 7),
+    "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 8),
+    "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 8),
     "ivf_variant_scan_i8": (9, 7), "ivf_variant_scan_f": (9, 8),
 }
 
@@ -196,15 +201,46 @@ def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
     return sv, si
 
 
-def _check_cuda_limits(name, nbins, k, bin_depth, d):
-    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128, k <= 32,
-    bin_depth <= 4, D <= 1024."""
-    if (nbins != _CUDA_NBINS or k > _CUDA_K_MAX or bin_depth > _CUDA_DEPTH_MAX
-            or d > _CUDA_DIM_MAX):
+def int8_dim_max(bin_depth: int) -> int:
+    """The widest int8 D the wgmma K4, K6 and K7 hold at ``bin_depth``."""
+    n = 32 if bin_depth <= 2 else 16
+    cand = n * (bin_depth * 128 + 4 + 32) * 8
+    units = (_SMEM_OPTIN - 1024 - 2 * 16384 - cand - 2 * 16384) // (n * 128)
+    return units * 128
+
+
+def _check_cuda_limits(name, nbins, bin_depth, d, int_path):
+    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128, bin_depth
+    <= 4, and in int8 D up to :func:`int8_dim_max` (2816 at bin depth 1-2;
+    the float modes walk D in slices, any k in passes)."""
+    if nbins != _CUDA_NBINS or bin_depth > _CUDA_DEPTH_MAX:
         raise ValueError(
-            f"the CUDA {name} takes nbins={_CUDA_NBINS}, k <= {_CUDA_K_MAX}, bin_depth <= "
-            f"{_CUDA_DEPTH_MAX} and D <= {_CUDA_DIM_MAX}; got nbins={nbins}, k={k}, "
-            f"bin_depth={bin_depth}, D={d}")
+            f"the CUDA {name} takes nbins={_CUDA_NBINS} and bin_depth <= {_CUDA_DEPTH_MAX}; "
+            f"got nbins={nbins}, bin_depth={bin_depth}")
+    if int_path and d > int8_dim_max(bin_depth):
+        raise ValueError(
+            f"the CUDA {name} takes int8 D <= {int8_dim_max(bin_depth)} at bin_depth "
+            f"{bin_depth} (the routed rows in shared memory); got D={d}")
+
+
+def _launch_passes(name, k, out_rows, qcap, dev, launch):
+    """The kernel in passes of ``_build.PASS_K``: ``launch(kp, pv, pr,
+    bound_v, bound_i, stream)`` fills pv / pr [out_rows, qcap, kp] and
+    returns the CUDA error → ((pv, pr) [out_rows, qcap, k], the launches
+    made)."""
+    def run(kp, bound_v, bound_i):
+        pv = torch.empty((out_rows, qcap, kp), dtype=torch.float32, device=dev)
+        pr = torch.empty((out_rows, qcap, kp), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = launch(kp, pv.data_ptr(), pr.data_ptr(),
+                         bound_v.data_ptr() if bound_v is not None else None,
+                         bound_i.data_ptr() if bound_i is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        return pv, pr
+
+    return _build.by_passes(k, run), -(-k // _build.PASS_K)
 
 
 def entry(name: str):
@@ -219,12 +255,12 @@ def entry(name: str):
     return _FNS[name]
 
 
-def float_args(name: str, queries, vectors_t, d: int):
+def float_args(name: str, queries, vectors_t):
     """What a float mode of K4, K6, K7 or K10 adds before its launch: the
     float checks, and the slabs on a 16-byte boundary (the chunk stage loads
     16 bytes along blk) → (vectors_t, the float entry's extra arguments:
     ``(bf16,)``)."""
-    _build.check_float(name, queries, vectors_t, d)
+    _build.check_float(name, queries, vectors_t)
     return _build.aligned(vectors_t, 16), (int(vectors_t.dtype == torch.bfloat16),)
 
 
@@ -248,8 +284,8 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     ``row_base`` [nblocks] int32 is each block's first row id (default
     ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024; fp32 or
-    bf16 in one dtype, D <= 320) or raise."""
+    (int8 ± bias, nbins 128, bin_depth <= 4, D <= :func:`int8_dim_max`;
+    fp32 or bf16 in one dtype, any D; k > 32 in passes) or raise."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -263,29 +299,24 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
-    _check_cuda_limits("K4", nbins, k, bin_depth, d)
+    _check_cuda_limits("K4", nbins, bin_depth, d, int_path)
     if int_path:
         # wgmma fed by TMA: the routed rows at TMA's 16-byte row pitch, both
         # operands from 16-byte bases.
         qg_blocks, vectors_t = int8_operands(qg_blocks, vectors_t)
         dims, flag = (d, qg_blocks.shape[-1]), ()
     else:
-        vectors_t, flag = float_args("K4", qg_blocks, vectors_t, d)
+        vectors_t, flag = float_args("K4", qg_blocks, vectors_t)
         dims = (d,)
-    pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
-    pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
-    args = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
-            block_last.data_ptr(), rows_valid.data_ptr(),
-            bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-            pv.data_ptr(), pr.data_ptr(), nblocks, qcap, *dims, blk, k, bin_depth)
     name = "ivf_grouped_scan_i8" if int_path else "ivf_grouped_scan_f"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(name)(*args, *flag, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return pv, pr
+    fn = entry(name)
+    head = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
+            block_last.data_ptr(), rows_valid.data_ptr(),
+            bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    out, n = _launch_passes(name, k, nblocks, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
+        *head, bv, bi, pv, pr, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+    LAUNCHES += n
+    return out
 
 
 def _check_cluster(qg, vectors_t, block_cluster, block_first, block_last, rows_valid, k,
@@ -348,8 +379,8 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
-    bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024; fp32 or bf16 in
-    one dtype, D <= 320) or raise."""
+    bias, nbins 128, bin_depth <= 4, D <= :func:`int8_dim_max`; fp32 or
+    bf16 in one dtype, any D; k > 32 in passes) or raise."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":
@@ -363,29 +394,24 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K6", nbins, k, bin_depth, d)
+    _check_cuda_limits("K6", nbins, bin_depth, d, int_path)
     if int_path:
         # wgmma fed by TMA: the clusters' routed rows at TMA's 16-byte row
         # pitch, both operands from 16-byte bases.
         qg, vectors_t = int8_operands(qg, vectors_t)
         dims, flag = (d, qg.shape[-1]), ()
     else:
-        vectors_t, flag = float_args("K6", qg, vectors_t, d)
+        vectors_t, flag = float_args("K6", qg, vectors_t)
         dims = (d,)
-    pv = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
-    pr = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
     name = "ivf_cluster_scan_i8" if int_path else "ivf_cluster_scan_f"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(name)(qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
-                          block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
-                          bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                          pv.data_ptr(), pr.data_ptr(), nlist, nblocks, qcap, *dims, blk, k,
-                          bin_depth, *flag, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    CLUSTER_LAUNCHES += 1
-    return pv, pr
+    fn = entry(name)
+    head = (qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
+            block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+            bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    out, n = _launch_passes(name, k, nlist, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
+        *head, bv, bi, pv, pr, nlist, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+    CLUSTER_LAUNCHES += n
+    return out
 
 
 def _check_routed(qi, cq_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
@@ -438,8 +464,9 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
     the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
     are defined.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (int8 ± bias, nbins 128, k <= 32, bin_depth <= 4, D <= 1024;
-    fp32 or bf16 in one dtype, D <= 320) or raise."""
+    the kernel (int8 ± bias, nbins 128, bin_depth <= 4, D <=
+    :func:`int8_dim_max`; fp32 or bf16 in one dtype, any D; k > 32 in
+    passes) or raise."""
     global ROUTED_LAUNCHES
     dev = qi.device
     if dev.type == "cpu":
@@ -453,7 +480,7 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K7", nbins, k, bin_depth, d)
+    _check_cuda_limits("K7", nbins, bin_depth, d, int_path)
     if int_path:
         # wgmma: the batch gathered in 16-byte pieces (its rows at a 16-byte
         # pitch), the slab by TMA from a 16-byte base.
@@ -462,19 +489,14 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     else:
         # The routed rows are gathered from qi a scalar at a time: only the
         # slabs need the 16-byte boundary.
-        vectors_t, flag = float_args("K7", qi, vectors_t, d)
+        vectors_t, flag = float_args("K7", qi, vectors_t)
         dims = (d,)
-    pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
-    pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
     name = "ivf_routed_scan_i8" if int_path else "ivf_routed_scan_f"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(name)(qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
-                          block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
-                          bias.data_ptr() if bias is not None else None, row_base.data_ptr(),
-                          pv.data_ptr(), pr.data_ptr(), nbatch, nblocks, qcap, *dims, blk, k,
-                          bin_depth, *flag, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    ROUTED_LAUNCHES += 1
-    return pv, pr
+    fn = entry(name)
+    head = (qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
+            block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
+            bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    out, n = _launch_passes(name, k, nblocks, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
+        *head, bv, bi, pv, pr, nbatch, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+    ROUTED_LAUNCHES += n
+    return out

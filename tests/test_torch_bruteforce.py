@@ -411,3 +411,23 @@ def test_ground_truth_fused_equals_jax(small_data, metric):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, datasets.ground_truth(base, queries, K, metric,
                                                              device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_index_pallas_rescored_k20_equals_jax(small_data, dtype):
+    """k = 20 through the pallas engine with rescore: K3's rescore pool of
+    2k = 40 is past the 32 its int8 and bf16 modes keep a pass."""
+    j, t = _pair(small_data, metric="l2", dtype=dtype, engine="pallas", rescore=True)
+    _assert_same(j, t, small_data[1], k=20)
+
+
+def test_index_defaults_at_d384_equal_jax():
+    """The defaults of ``BruteForceIndex(base)`` past N = 100,000 (ip, bf16,
+    the accum engine: K5), at D = 384, a sentence embedding's width, past
+    the old float caps; the engine named, as N is small here."""
+    base, queries = jdatasets.make_synthetic(n_base=1024, n_queries=8, dim=384, n_clusters=8,
+                                             seed=9)
+    j, t = _pair((base, queries), engine="accum")
+    assert (t.engine, t.dtype, t.metric, t.rescore) == (j.engine, j.dtype, j.metric, j.rescore)
+    assert (t.dtype, t.metric, t.rescore) == ("bf16", "ip", True)
+    _assert_same(j, t, queries)

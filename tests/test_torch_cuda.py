@@ -147,17 +147,20 @@ def test_k1_kernel_bf16_close_to_plain_on_noninteger_data(dev, sizes, blk, qcap,
 
 
 def test_k1_kernel_refuses_float(dev):
-    """The float modes the CUDA K1 does not take: operands of two dtypes,
-    and D past what its shared memory stages."""
+    """The float modes the CUDA K1 does not take: operands of two dtypes.
+    A D past the old float stage's 320 is taken (d-slices) and equals the
+    plain version."""
     rng = np.random.default_rng(15)
     qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
                           for x in _k1_inputs(rng, [100], 128, 8, 16))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_accum.cluster_major_accum_planes(qg.float(), vt.bfloat16(), bf, bl, rv, blk=128)
-    wide = torch.zeros((qg.shape[0], 8, 330), device=dev)
-    with pytest.raises(ValueError, match="D <= 320"):
-        ivf_accum.cluster_major_accum_planes(wide, torch.zeros((qg.shape[0], 330, 128),
-                                                               device=dev), bf, bl, rv, blk=128)
+    wide = torch.ones((qg.shape[0], 8, 330), device=dev)
+    wide_t = torch.ones((qg.shape[0], 330, 128), device=dev)
+    got = ivf_accum.cluster_major_accum_planes(wide, wide_t, bf, bl, rv, blk=128)
+    want = ivf_accum.cluster_major_accum_planes_reference(wide, wide_t, bf, bl, rv, blk=128)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(got[rows], want[rows])
 
 
 def _ties():
@@ -241,10 +244,15 @@ def test_k2_kernel_equal_to_plain(dev, make, k):
 
 
 def test_k2_kernel_refuses_what_it_does_not_take(dev):
-    """Past the widest row a warp's shared memory holds, the wrapper raises
-    and names the limit."""
-    with pytest.raises(ValueError, match="W <= 16384"):
-        fused_topk.fused_topk(torch.zeros((2, 16512), dtype=torch.int32, device=dev), 4)
+    """What the JAX kernel refuses too: W not a multiple of 128, k past W.
+    A row wider than a warp's shared memory holds (16384) is taken in
+    segments."""
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_topk.fused_topk(torch.zeros((2, 16500), dtype=torch.int32, device=dev), 4)
+    with pytest.raises(ValueError, match="k=200"):
+        fused_topk.fused_topk(torch.zeros((2, 128), dtype=torch.int32, device=dev), 200)
+    v, i = fused_topk.fused_topk(torch.zeros((2, 16512), dtype=torch.int32, device=dev), 4)
+    assert torch.equal(i.cpu(), torch.tensor([[0, 1, 2, 3]] * 2, dtype=torch.int32))
 
 
 def _k4_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, empty_slots=False):
@@ -401,8 +409,8 @@ def test_k4_kernel_refuses_what_it_does_not_take(dev):
                                                     False))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan_grouped(qg.float(), vt.bfloat16(), bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError):  # more than 32 per row
-        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError):  # depth past 4
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
     with pytest.raises(ValueError):  # bins other than 128
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)
 
@@ -553,8 +561,12 @@ def test_k6_kernel_refuses_what_it_does_not_take(dev):
                                                         False))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan(qg.float(), vt.bfloat16(), bc, bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError):  # more than 32 per row
-        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError, match="int8 D <="):  # past its shared-memory cap
+        wide = ivf_scan.int8_dim_max(2) + 1
+        ivf_scan.cluster_major_scan(torch.zeros((qg.shape[0], 8, wide), dtype=torch.int8,
+                                                device=dev),
+                                    torch.zeros((vt.shape[0], wide, 128), dtype=torch.int8,
+                                                device=dev), bc, bf, bl, rv, 4, blk=128)
     with pytest.raises(ValueError):  # bins other than 128
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, nbins=64)
     with pytest.raises(ValueError):  # depth past 4
@@ -665,12 +677,13 @@ def test_k7_kernel_refuses_what_it_does_not_take(dev):
     qi, cqb, vt, _, bf, bl, rv, _, _, _ = (
         None if x is None else torch.from_numpy(x).to(dev)
         for x in _k7_inputs(rng, [100], 128, 8, 16, False, False, False))
-    with pytest.raises(ValueError, match="D <= 320"):
+    with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan_routed(
             torch.zeros((qi.shape[0], 330), device=dev), cqb,
-            torch.zeros((vt.shape[0], 330, 128), device=dev), bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError):  # more than 32 per row
-        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 33, blk=128)
+            torch.zeros((vt.shape[0], 330, 128), device=dev, dtype=torch.bfloat16), bf, bl, rv,
+            4, blk=128)
+    with pytest.raises(ValueError):  # bins other than 128
+        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, nbins=64)
     with pytest.raises(ValueError):  # depth past 4
         ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
 
@@ -748,8 +761,11 @@ def test_k9_kernel_refuses_what_it_does_not_take(dev):
         ivf_accum.cluster_major_accum(qg.float(), vt.float(), bf, bl, rv, 4, blk=128,
                                       bias_rows=torch.zeros((vt.shape[0], 1, 128),
                                                             dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError):  # more than 32 per row
-        ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, 33, blk=128)
+    with pytest.raises(ValueError, match="int8 D <= 1024"):  # its key's int32 cap
+        ivf_accum.cluster_major_accum(
+            torch.zeros((qg.shape[0], 8, 1025), dtype=torch.int8, device=dev),
+            torch.zeros((vt.shape[0], 1025, 128), dtype=torch.int8, device=dev), bf, bl, rv, 4,
+            blk=128)
 
 
 @pytest.mark.parametrize("recover", [False, True])
@@ -878,8 +894,8 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
     bt = torch.zeros((16, 600), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="one dtype"):
         bruteforce_fused.fused_topk_matmul(q.float(), bt.bfloat16(), 4)
-    with pytest.raises(ValueError):  # more than 32 per row
-        bruteforce_fused.fused_topk_matmul(q, bt, 33)
+    with pytest.raises(ValueError, match="k <= 256"):  # fp32: its merge's registers
+        bruteforce_fused.fused_topk_matmul(q.float(), bt.float(), 257)
     with pytest.raises(ValueError):  # bins other than 128
         bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
 
@@ -1431,3 +1447,389 @@ def test_probe_cli_runs_at_toy_sizes_on_the_card(dev, capsys):
     assert hw_probe.LAUNCHES["K14"] - before == 6 * (2 + 4) * 2
     res = hw_probe.probe_pallas_step(repeats=1, device=dev, grids=(4, 16))
     assert res["launch_us"]["graph"] > 0 and res["launch_us"]["eager"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Past the kernels' old limits: k past 32 (K3's int8 and bf16 modes, K4, K6
+# and K7 in passes of 32; K3 fp32 and K9 in one launch), rows wider than
+# 16384 (K2 in segments), and any D (the float stage in d-slices, the wgmma
+# modes' rows in the ring) up to the int8 caps of the key packing.
+
+WIDE_K = [33, 40, 64, 100, 256]
+WIDE_D = [384, 768, 1536]
+
+
+def _k3_operands(dev, rng, mode, b, d, n, lo, hi):
+    """K3 operands in ``mode``: int8 values in [lo, hi), the float modes the
+    same integers (exact sums while D·max² stays below 2**24)."""
+    q = torch.from_numpy(rng.integers(lo, hi, (b, d), dtype=np.int8)).to(dev)
+    bt = torch.from_numpy(rng.integers(lo, hi, (d, n), dtype=np.int8)).to(dev)
+    kw = {}
+    if mode == "i8_l2":
+        kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+        kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
+    if mode in ("f32", "bf16"):
+        q, bt = (x.to(torch.bfloat16 if mode == "bf16" else torch.float32) for x in (q, bt))
+    return q, bt, kw
+
+
+def _k3_equal(q, bt, k, **kw):
+    """K3 against its plain version: values bit-equal, ids equal above the
+    fill value → the launches it made."""
+    before = bruteforce_fused.LAUNCHES
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(v), _bits(rv))
+    fin = rv > topk.fill_value(rv.dtype)
+    assert fin.any()
+    assert torch.equal(i[fin], ri[fin])
+    return bruteforce_fused.LAUNCHES - before
+
+
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32", "bf16"])
+def test_k3_kernel_wide_k_equal_to_plain(dev, k, nbins, mode):
+    """k past 32 on a tie-heavy batch (values 0..3): the int8 and bf16
+    modes run ceil(k / 32) passes, fp32 one launch."""
+    rng = np.random.default_rng(40)
+    q, bt, kw = _k3_operands(dev, rng, mode, 70, 37, 3001, 0, 4)
+    n_valid = torch.tensor([2900], dtype=torch.int32, device=dev)
+    launches = _k3_equal(q, bt, k, nbins=nbins, tile_n=512 if nbins else None, n_valid=n_valid,
+                         **kw)
+    assert launches == (1 if mode == "f32" else -(-k // 32))
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32", "bf16"])
+def test_k3_kernel_wide_d_equal_to_plain(dev, d, nbins, mode):
+    """D past the rows the wgmma modes keep resident beside two stages
+    (they then ride the ring) and past the old fp32 cap."""
+    rng = np.random.default_rng(41)
+    lo, hi = (-127, 128) if mode.startswith("i8") else (-8, 9)
+    q, bt, kw = _k3_operands(dev, rng, mode, 70, d, 3001, lo, hi)
+    _k3_equal(q, bt, 20, nbins=nbins, tile_n=512 if nbins else None, **kw)
+
+
+# K3 fp32 (the register-tiled kernel over column splits): (B, D, N, k,
+# n_valid); values 0..2, so ties run across chunks and splits.
+K3_F32_SHAPES = {
+    "b33-d37": (33, 37, 20000, 10, None),
+    "b200-d129-nvalid": (200, 129, 40000, 20, 39000),
+    "b70-d513": (70, 513, 9000, 40, None),
+    "b130-d1024-nvalid": (130, 1024, 9000, 100, 8000),
+    "b1024-d129-split": (1024, 129, 300000, 10, None),
+}
+
+
+@pytest.mark.parametrize("shape", list(K3_F32_SHAPES))
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+def test_k3_fp32_bit_equal_to_plain(dev, shape, nbins):
+    b, d, n, k, n_valid = K3_F32_SHAPES[shape]
+    rng = np.random.default_rng(42)
+    q, bt, _ = _k3_operands(dev, rng, "f32", b, d, n, 0, 3)
+    kw = dict(nbins=nbins, tile_n=2048 if nbins else None)
+    if n_valid is not None:
+        kw["n_valid"] = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+    before = fused_topk.LAUNCHES
+    assert _k3_equal(q, bt, k, **kw) == 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = bruteforce_fused.split_plan(b, n, 2048, nbins, sms)[1]
+    assert fused_topk.LAUNCHES - before == (nsplit > 1)  # K2 joins the splits
+    if shape == "b1024-d129-split":
+        assert nsplit > 1
+
+
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+def test_k3_fp32_ties_across_split_edges(dev, nbins):
+    """2k equal best columns straddle the first split edge: the k lowest ids
+    win, all of them left of the edge."""
+    b, d, n, k = 256, 37, 200000, 40
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge, nsplit = bruteforce_fused.split_plan(b, n, 512, nbins, sms)
+    assert nsplit > 1
+    rng = np.random.default_rng(43)
+    q = torch.from_numpy(rng.integers(1, 3, (b, d)).astype(np.float32)).to(dev)
+    bt = torch.from_numpy(rng.integers(0, 2, (d, n)).astype(np.float32)).to(dev)
+    bt[:, edge - k:edge + k] = 3.0
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, nbins=nbins, tile_n=512)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, nbins=nbins, tile_n=512)
+    torch.cuda.synchronize()
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    assert torch.equal(i[0].sort().values.cpu(),
+                       torch.arange(edge - k, edge, dtype=torch.int32))
+
+
+def test_k3_fp32_sorted_base_every_column_passes(dev):
+    """A base whose scores rise along the columns: every chunk's every
+    column beats the running k-th value, the buffers' worst case."""
+    q = torch.ones((300, 16), device=dev)
+    bt = torch.arange(20000, device=dev, dtype=torch.float32).repeat(16, 1)
+    for k in (10, 200):
+        assert _k3_equal(q, bt, k) == 1
+
+
+def _k2_wide(w, dtype):
+    """Rows of values 0..4 (ties across every segment edge), a row of fill
+    values but two, and (float) -0.0 / +0.0 ties."""
+    rng = np.random.default_rng(44)
+    x = rng.integers(0, 5, (37, w)).astype(np.int32)
+    fill = np.iinfo(np.int32).min
+    if dtype == "float32":
+        x = x.astype(np.float32)
+        fill = -np.inf
+        x[5] = 0.0
+        x[5, 1::3] = -0.0
+    x[3] = fill
+    x[3, [7, w - 5]] = 2
+    return x
+
+
+@pytest.mark.parametrize("w", [16512, 32768, 65536])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("k", [1, 20, 100, 256])
+def test_k2_kernel_wide_rows_equal_to_plain(dev, w, dtype, k):
+    """Past 16384 columns (16512: one column chunk past): a launch a
+    segment, then one on the segments' winners."""
+    x = torch.from_numpy(_k2_wide(w, dtype)).to(dev)
+    before = fused_topk.LAUNCHES
+    v, i = fused_topk.fused_topk(x, k)
+    rv, ri = fused_topk.fused_topk_reference(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    assert fused_topk.LAUNCHES - before == -(-w // 16384) + 1
+    # As in one launch: a value above the fill value is the element at its
+    # position, bit for bit (the plain version's max of -0.0 and +0.0 may
+    # be either).
+    took = v > topk.fill_value(x.dtype)
+    assert torch.equal(_bits(v)[took], _bits(torch.gather(x, 1, i.long()))[took])
+
+
+def _grouped_three(dev, dtype, k, depth, d, sizes=(3000, 2100, 40, 700), ties=True):
+    """K7 on its inputs, K4 on the gathered table and K6 on the per-cluster
+    table, each against its plain version → the launches each made."""
+    rng = np.random.default_rng(45)
+    qi, cqb, vt, bc, bf, bl, rv, _, rb, cq = _k7_inputs(rng, list(sizes), 256, 40, d, ties,
+                                                        False, False)
+    if dtype == "int8":
+        qi, vt = (torch.from_numpy(x).to(dev) for x in (qi, vt))
+    else:  # small values: every fp32 sum exact at any D here
+        qi, vt = (np.clip(x, -8, 8) for x in (qi, vt))
+        qi, vt = _as_float(dev, dtype, qi, vt)
+    cqb, bc, bf, bl, rv, rb, cq = (torch.from_numpy(x).to(dev)
+                                   for x in (cqb, bc, bf, bl, rv, rb, cq))
+    kw = dict(k=k, blk=256, bin_depth=depth, row_base=rb)
+
+    def gathered(idx):
+        hit = (idx >= 0) & (idx < qi.shape[0])
+        g = qi[torch.where(hit, idx, torch.zeros_like(idx)).long()]
+        return torch.where(hit[..., None], g, torch.zeros_like(g)).contiguous()
+
+    rows = torch.nonzero(bl).flatten()
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES, ivf_scan.CLUSTER_LAUNCHES)
+    runs = [
+        (rows, ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw),
+         ivf_scan.cluster_major_scan_routed_reference(qi, cqb, vt, bf, bl, rv, **kw)),
+        (rows, ivf_scan.cluster_major_scan_grouped(gathered(cqb[..., 0]), vt, bf, bl, rv, **kw),
+         ivf_scan.cluster_major_scan_grouped_reference(gathered(cqb[..., 0]), vt, bf, bl, rv,
+                                                       **kw)),
+        (bc[rows].long(), ivf_scan.cluster_major_scan(gathered(cq), vt, bc, bf, bl, rv, **kw),
+         ivf_scan.cluster_major_scan_reference(gathered(cq), vt, bc, bf, bl, rv, **kw)),
+    ]
+    torch.cuda.synchronize()
+    for sel, (pv, pr), (wv, wr) in runs:
+        assert torch.equal(_bits(pv[sel]), _bits(wv[sel]))
+        fin = wv[sel] > float("-inf")
+        assert fin.any()
+        assert torch.equal(pr[sel][fin], wr[sel][fin])
+    return (ivf_scan.ROUTED_LAUNCHES - before[0], ivf_scan.LAUNCHES - before[1],
+            ivf_scan.CLUSTER_LAUNCHES - before[2])
+
+
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+@pytest.mark.parametrize("depth", [2, 4])
+def test_k4_k6_k7_kernels_wide_k_equal_to_plain(dev, k, dtype, depth):
+    """k past 32 on tie-heavy tables (values 0..1): passes of 32, each bound
+    by the last entry of the one before."""
+    passes = -(-k // 32)
+    assert _grouped_three(dev, dtype, k, depth, 37) == (passes, passes, passes)
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+def test_k4_k6_k7_kernels_wide_d_equal_to_plain(dev, d, dtype):
+    """The float stage in d-slices past D' = 320; int8 on wgmma to its
+    shared-memory cap (ivf_scan.int8_dim_max)."""
+    assert _grouped_three(dev, dtype, 20, 2, d, sizes=(900, 300, 129), ties=False) == (1, 1, 1)
+
+
+def test_k4_int8_names_its_shared_memory_cap(dev):
+    d = ivf_scan.int8_dim_max(2) + 128
+    rng = np.random.default_rng(46)
+    qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                for x in _k4_inputs(rng, [100], 128, 8, d, False, False, False))
+    with pytest.raises(ValueError, match=f"D <= {d - 128}"):
+        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128)
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_k1_kernel_float_wide_d_bit_equal_to_plain(dev, d, dtype):
+    rng = np.random.default_rng(47)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, [900, 0, 300, 129], 256, 70, d, -8, 9)
+    qg, vt = _as_float(dev, dtype, qg, vt)
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    got = ivf_accum.cluster_major_accum_planes(qg, vt, bf, bl, rv, blk=256)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg, vt, bf, bl, rv, blk=256)
+    torch.cuda.synchronize()
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(got[rows], want[rows])
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("bias", [False, True], ids=["ip", "l2bias"])
+def test_k1_kernel_int8_at_the_jax_caps(dev, d, bias):
+    """int8 K1 to the JAX package's key caps (512; 384 with bias rows) and
+    the JAX package's refusal one past them."""
+    cap = ivf_accum.INT8_DIM_MAX_BIAS if bias else ivf_accum.INT8_DIM_MAX
+    rng = np.random.default_rng(48)
+    qg, vt, bf, bl, rv = (torch.from_numpy(x).to(dev)
+                          for x in _k1_inputs(rng, [900, 300], 256, 40, min(d, cap)))
+    br = None
+    if bias:
+        br = torch.from_numpy(rng.integers(-2**29, 2**29, (vt.shape[0], 1, 256),
+                                           dtype=np.int32)).to(dev)
+    got = ivf_accum.cluster_major_accum_planes(qg, vt, bf, bl, rv, blk=256, bias_rows=br)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg, vt, bf, bl, rv, blk=256,
+                                                          bias_rows=br)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(got[rows], want[rows])
+    wide = torch.zeros((qg.shape[0], 8, cap + 1), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match=f"dim <= {cap}"):
+        ivf_accum.cluster_major_accum_planes(
+            wide, torch.zeros((qg.shape[0], cap + 1, 256), dtype=torch.int8, device=dev), bf, bl,
+            rv, blk=256, bias_rows=br)
+
+
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("dtype", ["int8", "fp32"])
+@pytest.mark.parametrize("d", [37, 768, 1536])
+def test_k9_kernel_wide_k_and_d_equal_to_plain(dev, k, dtype, d):
+    """K9 writes each pass's winner from lane 0, so any k in one launch (past
+    the 256 candidates of bin2 the rest is fill); float D in d-slices, int8
+    to its key's cap of 1024."""
+    if dtype == "int8":
+        d = min(d, 1024)
+    rng = np.random.default_rng(49)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, [2000, 0, 900, 129], 256, 40, d, -8, 9)
+    if dtype == "int8":
+        qg, vt = (torch.from_numpy(x).to(dev) for x in (qg, vt))
+    else:
+        qg, vt = _as_float(dev, dtype, qg, vt)
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    kw = dict(k=k, blk=256, group=8, depth=8, bin2=True)
+    before = ivf_accum.ACCUM_LAUNCHES
+    pv, pr = ivf_accum.cluster_major_accum(qg, vt, bf, bl, rv, **kw)
+    rv_, rr = ivf_accum.cluster_major_accum_reference(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_accum.ACCUM_LAUNCHES - before == 1
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    assert torch.equal(pr[rows], rr[rows])
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+def test_k5_kernel_wide_d_equal_to_plain(dev, d, dtype):
+    """K5 past its old caps: fp32 in d-slices; bf16 and int8 with fewer
+    warpgroups, or the rows in the ring once one warpgroup's no longer fit."""
+    rng = np.random.default_rng(50)
+    lo, hi = (-127, 128) if dtype == "int8" else (-8, 9)
+    q = torch.from_numpy(rng.integers(lo, hi, (193, d), dtype=np.int8)).to(dev)
+    tiles, _ = bruteforce_accum.tile_base(rng.integers(lo, hi, (d, 5000), dtype=np.int8), 256,
+                                          8)
+    tiles = tiles.to(dev)
+    if dtype != "int8":
+        q, tiles = q.to(FLOAT_DTYPES[dtype]), tiles.to(FLOAT_DTYPES[dtype])
+    kw = dict(group=8, depth=8)
+    v, i = bruteforce_accum.fused_topk_accum(q, tiles, 5000, 20, **kw)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q, tiles, 5000, 20, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(v), _bits(rv)) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_k10_kernel_float_wide_d_equal_to_plain(dev, d, dtype):
+    rng = np.random.default_rng(51)
+    qg, vt, bc, bf, bl, rv, _, _ = _k6_inputs(rng, [900, 300, 129], 256, 16, d, False, "dense",
+                                              False)
+    qg = rng.integers(-8, 9, qg.shape, dtype=np.int8)
+    vt = rng.integers(-8, 9, vt.shape, dtype=np.int8)
+    qg, vt = _as_float(dev, dtype, qg, vt)
+    bc, bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bc, bf, bl, rv))
+    args = (qg, vt, bc, bf, bl, rv, 20, 256, 128, "full")
+    ov, oi = kernel_lab._variant_scan(*args)
+    rv_, ri = kernel_lab._variant_scan_reference(*args)
+    torch.cuda.synchronize()
+    out = bc[torch.nonzero(bl).flatten()].long()
+    assert torch.equal(_bits(ov[out]), _bits(rv_[out]))
+    fin = rv_[out] > float("-inf")
+    assert torch.equal(oi[out][fin], ri[out][fin])
+
+
+def test_search_device_k20_with_recovery_card_equals_cpu(dev):
+    """The public call the recovery pass's 2k pool (k = 40) used to refuse:
+    ``search_device(q, 20, 4)`` with the recovery pass, int8, on the card and
+    on the CPU."""
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=5)
+    src = IVFIndex.build(base, nlist=12, metric="l2", dtype="int8", pad_block=256,
+                         max_iter=5, device="cpu")
+    kw = dict(mode="cluster", qcap=4, recover=True, recover_qcap=16, recover_passes=2)
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype="int8", pad_block=256,
+                                   config=src.config, device=device)
+        out = idx.search_device(torch.from_numpy(queries).to(device), 20, 4, **kw)
+        return [x.cpu() for x in out], int(idx.last_spill)
+
+    before = ivf_scan.LAUNCHES
+    got, spill = search(dev)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES - before == 2 * 2  # two recovery passes, two k-passes each
+    want, want_spill = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert spill == want_spill
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_brute_pallas_rescore_k20_card_equals_cpu(dev, dtype):
+    base, queries = make_synthetic(3000, 40, 64, 8, seed=6)
+    kw = dict(metric="l2", dtype=dtype, engine="pallas", rescore=True)
+    got = BruteForceIndex(base, device=dev, **kw).search_device(
+        torch.from_numpy(queries).to(dev), 20)
+    torch.cuda.synchronize()
+    want = BruteForceIndex(base, device="cpu", **kw).search_device(torch.from_numpy(queries), 20)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_brute_force_defaults_at_d768_card_equals_cpu(dev):
+    """``BruteForceIndex(base)`` with every default (ip, bf16, and at N =
+    100,000 the accum engine: K5) at a sentence embedding's width; values up
+    to 141 keep every fp32 sum exact."""
+    base, queries = make_synthetic(100_000, 40, 768, 8, seed=7)
+    before = bruteforce_accum.LAUNCHES
+    idx = BruteForceIndex(base, device=dev)
+    assert idx.engine == "accum"
+    got = idx.search_device(torch.from_numpy(queries).to(dev), 10)
+    torch.cuda.synchronize()
+    assert bruteforce_accum.LAUNCHES - before >= 1
+    want = BruteForceIndex(base, device="cpu").search_device(torch.from_numpy(queries), 10)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

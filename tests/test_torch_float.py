@@ -166,12 +166,14 @@ def test_float_slice_equal_jax(float_pairs, small_data, dtype, pb, run):
 @pytest.mark.parametrize("case", ["mixed", "wide"])
 def test_check_float_refuses(case):
     """The rule the float modes of K1, K3, K4 and K5 apply on the card
-    before a launch: operands in one dtype, D within the float stage."""
+    before a launch: operands in one dtype, and any D (the float stage
+    walks D in slices past D' = 320, the wgmma modes ride their rows in the
+    ring)."""
     x = torch.zeros((4, 16))
     if case == "mixed":
         with pytest.raises(ValueError, match="one dtype"):
-            _build.check_float("K1", x, x.bfloat16(), 16)
+            _build.check_float("K1", x, x.bfloat16())
     else:
-        with pytest.raises(ValueError, match=f"D <= {_build.FLOAT_DIM_MAX}"):
-            _build.check_float("K4", x, x, _build.FLOAT_DIM_MAX + 1)
-    _build.check_float("K5", x.bfloat16(), x.bfloat16(), _build.FLOAT_DIM_MAX)
+        wide = torch.zeros((4, 1536))
+        _build.check_float("K4", wide, wide)
+    _build.check_float("K5", x.bfloat16(), x.bfloat16())

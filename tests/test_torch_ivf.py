@@ -573,3 +573,33 @@ def test_port_runs_without_jax(tmp_path):
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.startswith("ok")
+
+
+def test_search_device_k20_recovery_equals_jax(pair, small_data):
+    """k = 20 with the recovery pass: its rescore pool of 2k = 40 is past
+    the 32 the CUDA kernels keep a pass (the card runs two), and the port
+    answers as the JAX package does."""
+    j, t = pair[512]
+    q = np.ascontiguousarray(small_data[1])
+    jv, jids, jc = j.search_device(jnp.asarray(q), 20, NPROBE, mode="cluster", **RECOVER)
+    tv, tids, tc = t.search_device(_t(q), 20, NPROBE, mode="cluster", **RECOVER)
+    assert int(t.last_spill) == int(j.last_spill) == 0
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_float_index_at_d384_equals_jax():
+    """An fp32 IVF index at a sentence embedding's width (D = 384, past the
+    old float stage's 320): the same ids and scores as the JAX index, with
+    the recovery pass forced."""
+    from rag_on_edge_tpu.utils.datasets import make_synthetic
+
+    base, queries = make_synthetic(n_base=1024, n_queries=8, dim=384, n_clusters=8, seed=8)
+    j = jivf.IVFIndex.build(base, nlist=8, metric="l2", dtype="fp32", pad_block=128, seed=42)
+    t = _port_of(j)
+    kw = dict(mode="cluster", qcap=4, recover=True, recover_qcap=8, recover_passes=2)
+    jv, jids, _ = j.search_device(jnp.asarray(queries), K, NPROBE, **kw)
+    tv, tids, _ = t.search_device(_t(queries), K, NPROBE, **kw)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
