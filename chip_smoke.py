@@ -24,8 +24,10 @@ script exits non-zero without a result line:
              ``accum_extract_kernel`` and K10's int8 variants at bin depth
              2 (``grouped_scan_kernel``, listed by instantiation; any other
              int8 instance of it fails the build); K14's ``__dp4a`` probe is
-             unchecked), and K2's registers, spills and warp reductions
-             (``REDUX``, required).
+             unchecked), the fp32 register-tiled kernels' registers, spills
+             and FFMA count (K3's ``fused_f32_kernel``, K5's
+             ``accum_ffma_kernel``, K1's ``planes_ffma_kernel``), and K2's
+             registers, spills and warp reductions (``REDUX``, required).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M; its
@@ -45,7 +47,9 @@ script exits non-zero without a result line:
              launches counted over those two calls), with median times of
              both and each kernel's bound; beside K1, the same per-block
              product alone as ``torch.bmm`` of bf16 operands into fp32
-             (``prod_ms``, a yardstick).
+             (``prod_ms``, a yardstick); and the routed slots of each walked
+             block that hold a query (mean, median, max of qcap, and the
+             128-row tiles that hold none).
 4. slice   — search all 10,000 queries through ``IVFIndex.search_device``
              with its defaults (nlist=1024, nprobe=4, k=10, B=8192, int8,
              pad_block=2048; the recovery pass where the auto policy turns
@@ -118,9 +122,11 @@ script exits non-zero without a result line:
              its defaults (qcap 128, k 20, 128 bins, B=2048, nprobe 4, one
              fixed routing): kernel K10 in its four variants held against
              its plain version on each variant's defined windows, ``full``
-             also against K6 on the same table; then the lab itself with
-             the counters reset just before and read just after, printing
-             its ms/call and µs/block for each variant.
+             also against K6 on the same table, and again at k = 64 (``full``
+             and ``nogate`` in two passes, ``maxonly`` and ``fixedout`` in one
+             launch, counted and timed); then the lab itself with the
+             counters reset just before and read just after, printing its
+             ms/call and µs/block for each variant.
 11. gemm   — the index is freed first.  Kernel K8 (int8 on ``mma.sync``,
              bf16 on ``wgmma`` fed by TMA, fp32 on a ``cp.async`` FFMA tile)
              against its plain version at a ragged shape in int8 (exact),
@@ -173,7 +179,8 @@ script exits non-zero without a result line:
              against the plain IP ground truth) and an fp32 L2 accum index
              (K5 fp32 on the augmented dimension; >= 0.99), K5 held
              bit-equal at B=8192 and timed beside the GEMM alone
-             (``torch.mm``); ``BruteForceIndex(base, metric="l2",
+             (``torch.mm``); K1 fp32 beside ``torch.bmm`` of its per-block
+             product in fp32 (TF32 off); ``BruteForceIndex(base, metric="l2",
              dtype="bf16", engine="pallas", rescore=True)`` (K3 bf16, held
              bit-equal at B=1024 with nbins 0 and 128; ids equal to the
              plain path's, K3's plain version and the same rescore, on all
@@ -206,9 +213,15 @@ script exits non-zero without a result line:
              384 and 768: ``BruteForceIndex(base)`` with every default (ip,
              bf16, accum = K5; recall@10 >= 0.99) and an fp32 and a bf16
              ``IVFIndex`` (nlist 256, L2, nprobe 16, the recovery pass on:
-             K1 and K4 launched, recall@10 >= 0.95), counted; then K2 at
-             [8192, 32768], past the 16384 columns one warp holds, equal to
-             its plain version in three launches and timed.
+             K1 and K4 launched, recall@10 >= 0.95), counted; at D = 384 also
+             ``BruteForceIndex(base, metric="l2", dtype="fp32",
+             engine="pallas")`` at k = 300 (K3 fp32 in two passes of 256,
+             recall@300 >= 0.999 against the plain ground truth); an int8 L2
+             ``IVFIndex`` at D = 3072 (N 200,000, 1,024 queries, nlist 256,
+             nprobe 16: engine auto → pallas, K4 with each unit's routed rows
+             gathered beside its transpose; recall@10 >= 0.95, counted); then
+             K2 at [8192, 32768], past the 16384 columns one warp holds,
+             equal to its plain version in three launches and timed.
 
 The last two lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -229,6 +242,8 @@ NLIST, PAD_BLOCK, K, NPROBE, BATCH = 1024, 2048, 10, 4, 8192
 # k of the public calls past the kernels' old 32 a row (their rescore pool
 # is 2k), and the ground truth's depth as load_dataset takes it by default.
 K_WIDE, GT_K = 20, 100
+# k past one launch of K10 (32 a row) and of K3's fp32 mode (256 a row).
+K10_WIDE_K, K3_WIDE_K = 64, 300
 REPS = 10
 # H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
 # dense int8 tensor-core ops/s, and 32-bit non-tensor ops/s.
@@ -344,9 +359,10 @@ def cubin_report(_build, name: str):
 
 def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
     """Each wgmma kernel's registers, stack frame, spills and warpgroup MMA
-    opcodes in ``csrc/<name>.cu`` (:func:`cubin_report`), any ptxas warning
-    that serializes the wgmma groups, and the count of ``__dp4a`` (IDP)
-    instructions by kernel (``grouped_scan_kernel`` by instantiation).
+    opcodes in ``csrc/<name>.cu`` (:func:`cubin_report`), each fp32
+    register-tiled kernel's registers, spills and FFMA count, any ptxas
+    warning that serializes the wgmma groups, and the count of ``__dp4a``
+    (IDP) instructions by kernel (``grouped_scan_kernel`` by instantiation).
     Raises if an int8 instantiation holds no s8 warpgroup MMA, a wgmma
     kernel holds IDP, a kernel not named in ``idp_allowed`` (K9's
     ``accum_extract_kernel`` beside K1; ``grouped_scan_kernel`` beside K4,
@@ -378,6 +394,17 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
             raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
         if re.search(r"wgmma_kernelILi0E", fn) and not any("BF16" in o for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no bf16 warpgroup MMA: {sorted(ops.get(fn, ()))}")
+    for fn in sorted(f for f in set(opcodes) | set(props)
+                     if "ffma_kernel" in f or "fused_f32_kernel" in f):
+        # The fp32 modes on ffma_tile.cuh's register tile (K3, K5, K1).
+        p_ = props.get(fn, {})
+        short = re.search(r"(fused_f32_kernel|accum_ffma_kernel|planes_ffma_kernel)(?:I(\w+?)EEv)?",
+                          fn)
+        tag = (f"{short.group(1)}<{short.group(2)}>" if short and short.group(2) else
+               short.group(1) if short else fn)
+        lines.append(f"{tag}: {p_.get('regs')} registers, "
+                     f"{p_.get('stack')} bytes stack frame, spill stores/loads "
+                     f"{p_.get('spills')}, FFMA {opcodes.get(fn, {}).get('FFMA', 0)}")
     if grouped_seen and len(grouped_seen) != 12:
         raise AssertionError(f"grouped_wgmma_kernel instances {sorted(grouped_seen)}: K4, K6 "
                              "and K7 at depths 1-4 expected")
@@ -437,8 +464,16 @@ def split_by_kernel(by_kernel: dict, families: dict) -> dict:
 
 def prod_ms(torch, qg, vectors_t) -> float | str:
     """Device ms of the per-block product ``qg @ vectors_t`` alone as one
-    ``torch.bmm`` of bf16 operands into fp32 (K1's yardstick; SIFT's
-    integers are exact in bf16).  The casts are made outside the timing."""
+    ``torch.bmm`` (K1's yardstick): fp32 operands in fp32 with TF32 off;
+    any other as bf16 operands into fp32 (SIFT's integers are exact in
+    bf16).  The casts are made outside the timing."""
+    if qg.dtype == torch.float32:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return cuda_ms(torch, lambda: torch.bmm(qg, vectors_t))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
     q16, v16 = qg.to(torch.bfloat16), vectors_t.to(torch.bfloat16)
     try:
         return cuda_ms(torch, lambda: torch.bmm(q16, v16, out_dtype=torch.float32))
@@ -630,6 +665,17 @@ def main() -> None:
           f"bound {k1_bound[0]} ms by {k1_bound[1]} ({walked} blocks walked, {cols} valid "
           f"columns); prod_ms {k1_prod_ms} (torch.bmm bf16 -> fp32 of the same per-block "
           f"product, a yardstick)")
+
+    # The routed slots of each walked (last) block that hold a query (a
+    # routed row with a nonzero byte; an empty slot is a zero row), and the
+    # 128-row tiles with none, which K1's fp32 mode still multiplies.
+    live_rows = (qb[rows] != 0).any(-1).sum(-1).float()
+    occupancy = dict(qcap=qcap, blocks=rows.numel(), mean=float(live_rows.mean()),
+                     median=float(live_rows.median()), max=int(live_rows.max()),
+                     empty_128_row_tiles=int(((qb[rows] != 0).any(-1).reshape(
+                         rows.numel(), -1, 128).any(-1) == 0).sum()) if qcap % 128 == 0 else None)
+    phase("kernels", t0, f"live routed rows per walked block at B={BATCH}, nprobe={NPROBE}: "
+          f"{occupancy}")
 
     pool = idx._join_pool(probes, slot, pp)
     kk = 2 * K
@@ -1456,6 +1502,29 @@ def main() -> None:
         k10[variant] = dict(err=err, windows=win.numel(), finite=int(fin.sum()),
                             plain_ms=cuda_ms(torch, lambda: kernel_lab._variant_scan_reference(
                                 *args), reps=3))
+    # Past 32 a row: full and nogate in passes of 32, maxonly and fixedout
+    # in one launch (their row max in every slot), each against its plain
+    # version on its windows, counted.
+    k10_wide = {}
+    for variant in kernel_lab.VARIANTS:
+        args = (qg_lab, *lab_tabs, K10_WIDE_K, PAD_BLOCK, 128, variant)
+        reset_launches()
+        pv, pr = kernel_lab._variant_scan(*args)
+        n_l = read_launches()["K10"]
+        rpv, rpr = kernel_lab._variant_scan_reference(*args)
+        torch.cuda.synchronize()
+        win = lab_windows[variant]
+        fin = rpv[win] > float("-inf")
+        want_l = -(-K10_WIDE_K // 32) if variant in ("full", "nogate") else 1
+        if (not torch.equal(pv[win], rpv[win]) or not torch.equal(pr[win][fin], rpr[win][fin])
+                or n_l != want_l):
+            raise AssertionError(f"K10 {variant} at k={K10_WIDE_K} differs from the plain "
+                                 f"version or took {n_l} launches ({want_l} expected)")
+        del pv, pr, rpv, rpr
+        k10_wide[variant] = dict(launches=n_l, ms=cuda_ms(
+            torch, lambda: kernel_lab._variant_scan(*args), reps=3))
+    phase("lab", t0, f"K10 at k={K10_WIDE_K}: every variant equal to its plain version on its "
+          f"windows; launches and ms {k10_wide}")
     walked, cols = walked_blocks(np, *lab_tabs[2:])
     n_win = lab_windows["full"].numel()
     k10_bound = bound(cols * DIM + n_win * LAB_QCAP * (DIM + LAB_K * 8),
@@ -2062,8 +2131,8 @@ def main() -> None:
             bound=bound((walked_f * qcap_f + cols_f) * dp * es + rows_f.numel()
                         * pp_f[0].numel() * 4, 2.0 * qcap_f * cols_f * dp, rate),
             lib_ms=None)
+        fl[f"K1 {mode}"]["prod_ms"] = prod_ms(torch, qb_f, vt)
         if mode == "bf16":
-            fl["K1 bf16"]["prod_ms"] = prod_ms(torch, qb_f, vt)
             # The routed rows' pad to TMA's 16-byte pitch (D' 129 -> 136), inside ms.
             fl["K1 bf16"]["pad_ms"] = cuda_ms(torch, lambda: ivf_accum.kernel_operands(qb_f))
         phase("float", t0, f"K1 {mode} qg {tuple(qb_f.shape)} vectors_t {tuple(vt.shape)}: "
@@ -2704,6 +2773,19 @@ def main() -> None:
                              recall=recall_at_k(ids_w.cpu().numpy(), gt_w["ip"], K),
                              ms=cuda_ms(torch, lambda: bfw.search_device(qw, K), reps=3))}
         del bfw
+        if dw == 384:
+            # fp32 brute force through K3 at k = 300, past one launch's 256:
+            # two passes a call, ids against the plain ground truth.
+            gt_300 = ground_truth(base_w, queries_w, K3_WIDE_K, metric="l2", device=dev)
+            bf3 = BruteForceIndex(base_w, metric="l2", dtype="fp32", engine="pallas", device=dev)
+            reset_launches()
+            vals_w, ids_w = bf3.search_device(qw, K3_WIDE_K)
+            torch.cuda.synchronize()
+            res["brute fp32 pallas k=300"] = dict(
+                launches=read_launches()["K3"], finite=bool(torch.isfinite(vals_w).all()),
+                recall=recall_at_k(ids_w.cpu().numpy(), gt_300, K3_WIDE_K),
+                ms=cuda_ms(torch, lambda: bf3.search_device(qw, K3_WIDE_K), reps=3))
+            del bf3, gt_300
         ivf_w = IVFIndex.build(base_w, nlist=WIDE_NLIST, metric="l2", dtype="fp32",
                                pad_block=512, seed=42, max_iter=10, device=dev)
         for mode in ("fp32", "bf16"):
@@ -2727,10 +2809,39 @@ def main() -> None:
         phase("widedim", t0, f"D={dw}, N={WIDE_N}, {WIDE_Q} queries ({time.time() - t:.1f}s "
               f"with the builds): {res}")
         for name, r_ in res.items():
-            floor = 0.99 if name == "brute" else 0.95
-            ran = r_["launches"] >= 1 if name == "brute" else min(r_["launches"].values()) >= 1
+            floor = {"brute": 0.99, "brute fp32 pallas k=300": 0.999}.get(name, 0.95)
+            ran = (r_["launches"] >= 1 if name == "brute" else
+                   r_["launches"] >= 2 if name.startswith("brute fp32") else
+                   min(r_["launches"].values()) >= 1)
             if not (ran and r_["finite"] and r_["recall"] >= floor):
                 raise AssertionError(f"D={dw} {name}: {r_} (recall floor {floor})")
+    # int8 L2 IVF at D 3072 (OpenAI text-embedding-3-large's width): past
+    # K1's key caps, so engine="auto" takes K4 over every block, whose
+    # routed rows no longer stay in shared memory: each unit's rows are
+    # gathered beside its transpose.
+    t = time.time()
+    base_w, queries_w = make_synthetic(WIDE_N, WIDE_Q, 3072, 256, seed=44)
+    qw = torch.from_numpy(queries_w).to(dev)
+    gt_w = ground_truth(base_w, queries_w, K, metric="l2", device=dev)
+    ivf_w = IVFIndex.build(base_w, nlist=WIDE_NLIST, metric="l2", dtype="int8", pad_block=512,
+                           seed=42, max_iter=10, device=dev)
+    del base_w
+    reset_launches()
+    vals_w, ids_w, _ = ivf_w.search_device(qw, K, WIDE_NPROBE)
+    torch.cuda.synchronize()
+    got = read_launches()
+    d3072 = dict(engine=ivf_w.last_engine, launches={"K1": got["K1"], "K4": got["K4"]},
+                 spill=int(ivf_w.last_spill), finite=bool(torch.isfinite(vals_w).all()),
+                 recall=recall_at_k(ids_w.cpu().numpy(), gt_w, K),
+                 ms=cuda_ms(torch, lambda: ivf_w.search_device(qw, K, WIDE_NPROBE), reps=3))
+    del ivf_w, queries_w, qw, vals_w, ids_w
+    torch.cuda.empty_cache()
+    phase("widedim", t0, f"int8 L2 IVFIndex D=3072, N={WIDE_N}, nlist={WIDE_NLIST}, "
+          f"search_device(q, {K}, {WIDE_NPROBE}) defaults over {WIDE_Q} queries "
+          f"({time.time() - t:.1f}s with the build): {d3072}")
+    if not (d3072["engine"] == "pallas" and d3072["launches"]["K4"] >= 1 and d3072["finite"]
+            and d3072["recall"] >= 0.95):
+        raise AssertionError(f"int8 IVF at D=3072: {d3072}")
     xw = torch.randint(0, 64, (BATCH, 32768), generator=torch.Generator(device=dev).manual_seed(17),
                        device=dev, dtype=torch.int32)  # ties across both segment edges
     xw[::13] = ivf_accum.KMIN

@@ -33,16 +33,20 @@
 // a round trip of the per-bin state; on the tensor-core modes the fold, not
 // the product, is most of each tile's time.
 //
-// Design of the fp32 mode (accum_bins_kernel):
-// - pass 1: one CTA of 256 threads per (32 query rows, 128 bins): two row
-//   groups of 16 rows x 128 lanes, thread = (group, bin).  It walks every
-//   tile holding a valid column, staging the tile's [D, 128] chunk at its
-//   bins in shared memory as fp32 and scoring it with fmaf in d order (K1's
-//   float stage, ivf_stage.cuh).  The group accumulator and the bin's
-//   running key and column live in registers (3 x 16 ints a thread), so no
-//   CTA needs another's state; it writes the running keys and columns,
-//   [B, tile_n] each.  Padded tiles are skipped (their keys would all be
-//   KMIN).
+// Design of the fp32 mode (accum_ffma_kernel):
+// - pass 1: K3 fp32's register tile (ffma_tile.cuh): one CTA of 256
+//   threads per (128 query rows, 128 bins), 8 x 8 fp32 accumulators a
+//   thread, the rows' and the tile's d-slices of 32 through a two-stage
+//   cp.async ring (any D; each score one fmaf a dimension in d order from
+//   +0), the steps running through every live tile's slices in turn.  CTAs
+//   take row blocks fastest, so those in flight share a bin slice of each
+//   tile in L2.  After a tile's last slice its 64 scores a thread fold as
+//   the bf16 mode's below: a threshold a (row, bin) in registers, the tile
+//   that set it in shared memory (64 thresholds, 64 tiles and 64
+//   accumulators would not fit a thread's 255 registers).  The first
+//   design staged each [D, 128] chunk between barriers and had a thread
+//   score 16 rows x 1 bin from shared memory, reading 20 words for 16 FMAs
+//   (100.8 ms at the SIFT-1M shape on the H100, PERF.md section 6).
 // Design of the bf16 and int8 modes (accum_wgmma_kernel, hopper_mma.cuh):
 // - pass 1: one CTA of up to 416 threads per (64 wgs query rows, 64 bins):
 //   wgs consumer warpgroups of 64 rows (three; int8 takes fewer when the
@@ -99,96 +103,121 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
 #include "ivf_stage.cuh"
 
 namespace {
 
-constexpr int LANES = 128;               // bins per CTA: one per lane of a row group
-constexpr int ROWS = 16;                 // query rows per row group
-constexpr int GROUPS = 2;                // row groups per CTA (share one staged chunk)
-constexpr int THREADS = LANES * GROUPS;
-constexpr int CTA_ROWS = ROWS * GROUPS;
+constexpr int THREADS = 256;             // pass 2: threads a row
 constexpr int32_t KMIN = -2147483647;    // -(2**31) + 1: a masked column
 constexpr int EPT = 8;                   // bins per thread in pass 2 (tile_n <= 2048)
 constexpr unsigned FULL = 0xffffffffu;
 
-// Pass 1 of the fp32 mode: q [b, d] and tiles [T, d, tile_n] fp32.
-__global__ void __launch_bounds__(THREADS)
-accum_bins_kernel(const float* __restrict__ q,           // [b, d]
+// Pass 1 of the fp32 mode on ffma_tile.cuh's 128 x 128 tile: q [b, d] and
+// tiles [T, d, tile_n] fp32.  CTA i takes row block i % nrb (128 query
+// rows) and bins 128 (i / nrb) .. + 127 of every tile; accumulator (i, j)
+// is (row, bin) Place (i, j).  Each (row, bin) keeps its threshold in a
+// register (the bf16 mode's fold: a score improves its bin when above it,
+// and then it becomes key_to_f32(monotone(s) | low)) and its tile in
+// shared memory, laid out by thread ([64][THREADS]: the stores never
+// conflict), -1 while no tile has improved it.
+// Two stages of 32 d: 6% faster than three of 16 on the H100 at SIFT-1M.
+using ATile = ffma::Tile<2, 32, 2>;
+__global__ void __launch_bounds__(ATile::THREADS, 1)
+accum_ffma_kernel(const float* __restrict__ q,           // [b, d]
                   const float* __restrict__ tiles,       // [T, d, tile_n]
                   int32_t* __restrict__ rv_out,          // [b, tile_n]
                   int32_t* __restrict__ ri_out,          // [b, tile_n]
-                  int b, int d, int tile_n, int n, int group, int qstride) {
-  const int lane = threadIdx.x % LANES;
-  const int grp = threadIdx.x / LANES;
-  const int bin = blockIdx.x * LANES + lane;
-  const int cta_r0 = blockIdx.y * CTA_ROWS;
-
-  // Query rows [CTA_ROWS][dsl] fp32, then the chunk [dsl][LANES] fp32: all
-  // of qstride while it fits, else a d-slice at a time (ivf_stage.cuh).
-  const int dsl = float_slice(qstride);
-  const bool sliced = dsl < qstride;
-  extern __shared__ int4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* col_s = q_s + CTA_ROWS * dsl;
-  const float* my_q = q_s + grp * ROWS * dsl;
-  if (!sliced) stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, qstride, q_s);
-
-  int32_t rv[ROWS], ri[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    rv[r] = KMIN;
-    ri[r] = 0;
-  }
+                  int b, int d, int tile_n, int n, int low, int nrb, int vec_a) {
+  constexpr int TH = ATile::THREADS, SF = ATile::STAGE_FLOATS;
+  extern __shared__ __align__(16) float fsm[];
+  int32_t* const ti_s = reinterpret_cast<int32_t*>(fsm + ATile::STAGES * SF);  // [64][TH]
+  const int tid = threadIdx.x;
+  const ffma::Place pl(tid);
+  const int row0 = (int)(blockIdx.x % nrb) * ATile::BM;
+  const int bin0 = (int)(blockIdx.x / nrb) * ffma::BN;
   const int t_live = (n + tile_n - 1) / tile_n;  // tiles holding a valid column
-  const uint32_t low = (uint32_t)(group - 1);
+  const int nk = (d + ATile::BK - 1) / ATile::BK;
+  const int steps = t_live * nk;
+  const uint32_t lowu = (uint32_t)low;
 
-  for (int g0 = 0; g0 < t_live; g0 += group) {
-    int32_t acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = KMIN;
-    for (int j = 0; j < group && g0 + j < t_live; ++j) {
-      const int t = g0 + j;
-      __syncthreads();  // the previous chunk's reads are done
-      const float* vsrc = tiles + (size_t)t * d * tile_n + blockIdx.x * LANES;
-      const bool valid = t * tile_n + bin < n;
-      const uint32_t code = low - (uint32_t)j;
-      float dots[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) dots[r] = 0.0f;
-      for (int e0 = 0; e0 < qstride; e0 += dsl) {
-        if (e0 > 0) __syncthreads();  // the last slice is read
-        if (sliced) stage_queries_f<THREADS>(q, b, d, cta_r0, CTA_ROWS, dsl, q_s, e0);
-        stage_chunk_f<THREADS>(vsrc + (size_t)e0 * tile_n, d - e0, tile_n, dsl, col_s);
-        __syncthreads();
-        dot_rows_f_acc<ROWS>(col_s, lane, my_q, dsl, min(dsl, qstride - e0), dots);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(dots[r]) & ~low) | code)
-                                  : KMIN;
-        acc[r] = max(acc[r], key);
-      }
+  // The ring: the next load's tile, d-slice and stage (counters: no step
+  // divides).
+  const ffma::Copier<ATile> cp(tid, b - row0);
+  const float* const qa = q + (size_t)row0 * d;
+  int pt = 0, pk = 0, pslot = 0;
+  auto load_next = [&]() {
+    cp.load(fsm + pslot * SF, qa, d, vec_a, tiles + (size_t)pt * d * tile_n + bin0, tile_n,
+            ffma::BN, true, d, pk * ATile::BK);
+    if (++pk == nk) {
+      pk = 0;
+      ++pt;
     }
-    // Unpack the group's best key and fold it into the bin's running best.
+    pslot = pslot + 1 == ATile::STAGES ? 0 : pslot + 1;
+  };
+
+  float thr[8][8], acc[8][8];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const uint32_t code = (uint32_t)acc[r] & low;
-      const int32_t merge_key = (int32_t)((uint32_t)acc[r] ^ code);
-      if (merge_key > rv[r]) {  // strict: ties keep the earlier group
-        rv[r] = merge_key;
-        ri[r] = (g0 + (int)(low - code)) * tile_n + bin;
-      }
-    }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) thr[i][j] = -INFINITY;  // every finite score improves
+  ffma::zero(acc);
+#pragma unroll 8
+  for (int p = 0; p < 64; ++p) ti_s[p * TH + tid] = -1;
+
+#pragma unroll
+  for (int s = 0; s < ATile::STAGES - 1; ++s) {
+    if (s < steps) load_next();
+    ffma::commit();
   }
+  int t = 0, kt = 0, slot = 0;  // the step's tile, d-slice and stage
+  for (int step = 0; step < steps; ++step) {
+    ffma::wait_stage<ATile>();
+    __syncthreads();  // the stage has landed, and the one refilled next is read
+    if (step + ATile::STAGES - 1 < steps) load_next();
+    ffma::commit();
+    ffma::fma_slice<ATile>(fsm + slot * SF, pl, d - kt * ATile::BK, acc);
+    slot = slot + 1 == ATile::STAGES ? 0 : slot + 1;
+    if (++kt < nk) continue;
+    kt = 0;
+    // Tile t is scored: the fold, branch-free.  Only the last tile has
+    // bins at or past lim, its columns past n, which never improve.
+    const int lim = t == t_live - 1 ? n - t * tile_n - bin0 : ffma::BN;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x = acc[i][j];
+        const bool up = x > thr[i][j] && pl.col(j) < lim;
+        const uint32_t bits = __float_as_uint(x);
+        const uint32_t nt = (bits | lowu) ^ ((uint32_t)((int32_t)bits >> 31) & lowu);
+        thr[i][j] = up ? __uint_as_float(nt) : thr[i][j];
+        if (up) ti_s[(8 * i + j) * TH + tid] = t;
+      }
+    ffma::zero(acc);
+    ++t;
+  }
+  ffma::wait_all();
 
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int row = cta_r0 + grp * ROWS + r;
-    if (row >= b) break;
-    rv_out[(size_t)row * tile_n + bin] = rv[r];
-    ri_out[(size_t)row * tile_n + bin] = ri[r];
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + pl.row(i);
+    if (row >= b) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns pl.col(4 h) .. + 3
+      int v[4], c[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = 4 * h + u;
+        const int tt = ti_s[(8 * i + j) * TH + tid];
+        v[u] = tt >= 0 ? (int32_t)((uint32_t)monotone_key(thr[i][j]) & ~lowu) : KMIN;
+        c[u] = tt >= 0 ? tt * tile_n + bin0 + pl.col(j) : 0;
+      }
+      const size_t o = (size_t)row * tile_n + bin0 + pl.col(4 * h);
+      *reinterpret_cast<int4*>(rv_out + o) = make_int4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<int4*>(ri_out + o) = make_int4(c[0], c[1], c[2], c[3]);
+    }
   }
 }
 
@@ -484,18 +513,16 @@ int launch_accum_f32(const void* q, const void* tiles, void* rv, void* ri, void*
                      void* out_i, int b, int d, int tile_n, int n, int k, int group,
                      cudaStream_t s) {
   if (b == 0) return 0;
-  const int qstride = stage_row_words<float>(d);
-  const int dsl = float_slice(qstride);
-  const size_t smem = ((size_t)CTA_ROWS * dsl + stage_chunk_words<float>(dsl)) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        accum_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid1((unsigned)(tile_n / LANES), (unsigned)((b + CTA_ROWS - 1) / CTA_ROWS));
-  accum_bins_kernel<<<grid1, THREADS, smem, s>>>(
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = ATile::RING_BYTES + (size_t)64 * ATile::THREADS * sizeof(int32_t);
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          accum_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return (int)e;
+  const int vec_a = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const int nrb = (b + ATile::BM - 1) / ATile::BM;
+  accum_ffma_kernel<<<(unsigned)(nrb * (tile_n / ffma::BN)), ATile::THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(tiles), static_cast<int32_t*>(rv),
-      static_cast<int32_t*>(ri), b, d, tile_n, n, group, qstride);
+      static_cast<int32_t*>(ri), b, d, tile_n, n, group - 1, nrb, vec_a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // The float keys are compared as they are: their low bits are ceded.
@@ -569,8 +596,7 @@ int launch_accum_wgmma(const void* q, const void* tiles, const void* bias, void*
 // C entries for ctypes.  Each launches both passes on `stream`, allocates
 // nothing, and returns cudaGetLastError() (0 = launched).  rv / ri are
 // [b, tile_n] int32 scratch.  The wrapper guarantees tile_n a multiple of
-// 128 up to 2048, group a power of two >= 2 dividing T = n_tiles, and d <=
-// 1024 (int8) or <= 320 (fp32, bf16).
+// 128 up to 2048 and group a power of two >= 2 dividing T = n_tiles.
 // int8: q [b, ldq] and the K-major tiles [T, tile_n, ldq], ldq = d rounded
 // up to a multiple of 16 (the pad zero), both 16-byte aligned; `bias` [T,
 // tile_n] (16-byte aligned) or null (no-bias mode).

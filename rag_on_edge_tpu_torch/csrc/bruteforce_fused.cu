@@ -48,11 +48,12 @@
 //   mode the splits fall on tile_n multiples, so the tiles, and the
 //   survivors, are the JAX wrapper's.  D is never split: each score is
 //   one fmaf a dimension in d order from +0, as the plain version.
-// - a register tile on the pattern of K8's fp32 kernel (tiled_matmul.cu):
-//   128 rows (binned: 64) x 128 columns a CTA, 8 x 8 fp32 accumulators a
-//   thread; the query rows' and the base's d-slices of 16 come through a
-//   three-stage cp.async ring, so D has no cap, and the query rows are
-//   re-read from L2 each chunk.  Groups of 4 d past D are skipped.
+// - the register tile of ffma_tile.cuh (shared with K5's and K1's fp32
+//   modes), on the pattern of K8's fp32 kernel (tiled_matmul.cu): 128 rows
+//   (binned: 64) x 128 columns a CTA, 8 x 8 fp32 accumulators a thread; the
+//   query rows' and the base's d-slices of 16 come through a three-stage
+//   cp.async ring, so D has no cap, and the query rows are re-read from L2
+//   each chunk.  Groups of 4 d past D are skipped.
 // - selection on the accumulators.  Each thread tests its 64 scores against
 //   its rows' k-th values (registers); a passer goes to its row's candidate
 //   buffer in shared memory (one shared atomic per thread and row).  Once a
@@ -65,7 +66,8 @@
 //   again.  The lists, up to 256 long, live in the
 //   output buffer itself (in L2), so k costs no shared memory (the merge
 //   holds a list in 1, 2, 4 or 8 registers a lane, by k); merges are rare
-//   after the first chunk.
+//   after the first chunk.  A larger k runs in passes of 256 (the
+//   wrapper's by_passes), each bounded as the int8 and bf16 modes' below.
 // - binned: a thread owns the same 64 (row, bin) pairs in every chunk, and
 //   keeps each pair's two best passers of the tile in a shared table
 //   (strict >, so an equal, later score lands behind); at the tile's end
@@ -136,6 +138,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -156,79 +159,69 @@ __device__ __forceinline__ bool better(T v, int i, T bv, int bi) {
 
 // ------------------------------------------- fp32: register-tiled FFMA
 
-constexpr int F_BN = 128;                // columns a chunk (and the binned mode's bins)
-constexpr int F_KMAX = 256;              // the widest top-k: 8 entries a lane
-// A three-stage ring of d-slices of 16 (two stages of 32, four of 16 and
-// six of 8 each ran slower on the H100 at the ground-truth chunk).
-constexpr int F_BK = 16;
-constexpr int F_PA = F_BK + 4;           // a staged query row's pitch in floats
-constexpr int F_STAGES = 3;
+constexpr int F_BN = ffma::BN;           // columns a chunk (and the binned mode's bins)
+constexpr int F_KMAX = 256;              // the widest top-k a launch: 8 entries a lane
 
 // The CTA's shape: WM warps along the rows (64 rows each) x 4 along the
-// chunk's 128 columns.  Exact mode: 128 rows, and a buffer a row that takes
-// a whole chunk's passers on top of the 28 it may hold (it is merged past
-// those); binned: 64 rows beside the table, and a buffer that takes one
-// warp column's tile-end survivors (4 lanes x 8 bins x 2).
+// chunk's 128 columns (ffma_tile.cuh).  Exact mode: 128 rows, and a buffer
+// a row that takes a whole chunk's passers on top of the 28 it may hold
+// (it is merged past those); binned: 64 rows beside the table, and a
+// buffer that takes one warp column's tile-end survivors (4 lanes x 8 bins
+// x 2).
 template <bool BINNED>
 struct FTile {
   static constexpr int WM = BINNED ? 1 : 2;
-  static constexpr int BM = 64 * WM;
-  static constexpr int THREADS = 128 * WM;
+  using T = ffma::Tile<WM, 16, 3>;  // three slices of 16: the buffers leave no room for more
+  static constexpr int BM = T::BM;
+  static constexpr int THREADS = T::THREADS;
   static constexpr int WARPS = THREADS / 32;
   static constexpr int BUF = BINNED ? 64 : 28 + F_BN;
   static constexpr int BJ = (BUF + 31) / 32;
-  static constexpr int STAGE_FLOATS = BM * F_PA + F_BK * F_BN;
   static constexpr int TABLE = BINNED ? 2 * 64 * THREADS : 0;  // entries of the binned table
-  static constexpr size_t SMEM = ((size_t)F_STAGES * STAGE_FLOATS + (size_t)BM * BUF * 2 +
-                                  3 * BM + (size_t)TABLE * 2) * 4;
+  static constexpr size_t SMEM = T::RING_BYTES + ((size_t)BM * BUF * 2 + 5 * BM +
+                                                  (size_t)TABLE * 2) * 4;
 };
-
-// 16 bytes from global to shared memory (src_bytes 0 writes zeros), and 4.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
 
 // q [b, ldq] (ldq = d rounded up to 4, the pad zero, 16-byte aligned),
 // base [d, ldb] (columns n.. ignored), out_v / out_i [b, ldo]: split s
 // writes its rows' top-k, sorted, at columns s k .. s k + k - 1 (the caller
 // fills them with (-inf, 0) first).  CTA (x, s) takes rows BM x .. and the
 // columns [s split_cols, (s + 1) split_cols) of the base; split_cols is a
-// multiple of 128, and in binned mode of tile_n.  Warp (wm, wn), lane (lm,
-// ln) = (lane / 4, lane % 4): rows 64 wm + 8 i + lm (i < 8) and chunk
-// columns 32 wn + 16 (j / 4) + 4 ln + j % 4 (j < 8).
+// multiple of 128, and in binned mode of tile_n.  Thread accumulator (i, j)
+// is (row, column) Place (i, j) of the tile and the chunk (ffma_tile.cuh).
+// bound_v / bound_i [b], or null: a later pass of the wrapper's, where
+// only an entry ranked after its row's bound may enter (binned: a
+// survivor).
 template <bool BINNED, int KJ>
 __global__ void __launch_bounds__(FTile<BINNED>::THREADS, 1)
 fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
-                 const int32_t* __restrict__ n_valid, float* __restrict__ out_v,
+                 const int32_t* __restrict__ n_valid, const float* __restrict__ bound_v,
+                 const int32_t* __restrict__ bound_i, float* __restrict__ out_v,
                  int32_t* __restrict__ out_i, int b, int d, int ldq, int n, int ldb, int k,
                  int tile_n, int split_cols, int ldo, int vec_b) {
   using Tl = FTile<BINNED>;
-  constexpr int BM = Tl::BM, THREADS = Tl::THREADS, WARPS = Tl::WARPS, BUF = Tl::BUF;
-  constexpr int SF = Tl::STAGE_FLOATS, AF = BM * F_PA;
+  constexpr int WM = Tl::WM, BM = Tl::BM, THREADS = Tl::THREADS, WARPS = Tl::WARPS;
+  using R = typename Tl::T;
+  constexpr int BUF = Tl::BUF, SF = R::STAGE_FLOATS;
   const float FILL = -INFINITY;
   extern __shared__ __align__(16) float fsm[];
-  float* const buf_v = fsm + F_STAGES * SF;                  // [BM][BUF]
+  float* const buf_v = fsm + R::STAGES * SF;              // [BM][BUF]
   int32_t* const buf_i = reinterpret_cast<int32_t*>(buf_v + BM * BUF);
   int* const cnt = buf_i + BM * BUF;                         // [BM] candidates held
   int* const len = cnt + BM;                                 // [BM] entries of the list
   float* const thr_s = reinterpret_cast<float*>(len + BM);   // [BM] the k-th value, or -inf
-  float* const tv = thr_s + BM;                              // binned: [2][64][THREADS]
+  float* const bnd_v = thr_s + BM;                           // [BM] the bound, or +inf
+  int32_t* const bnd_i = reinterpret_cast<int32_t*>(bnd_v + BM);
+  float* const tv = reinterpret_cast<float*>(bnd_i + BM);    // binned: [2][64][THREADS]
   int32_t* const ti = reinterpret_cast<int32_t*>(tv + Tl::TABLE);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3, lm = lane >> 2, ln = lane & 3;
+  const ffma::Place pl(tid);
   const int row0 = blockIdx.x * BM, split = blockIdx.y;
   const int c_lo = split * split_cols;
   const int c_hi = min(n, c_lo + split_cols);
   const int nchunks = (c_hi - c_lo + F_BN - 1) / F_BN;
-  const int nk = (d + F_BK - 1) / F_BK;
+  const int nk = (d + R::BK - 1) / R::BK;
   const int steps = nchunks * nk;
   const int n_bound = n_valid != nullptr ? min(*n_valid, n) : n;
   const int tile_chunks = BINNED ? tile_n / F_BN : 1;
@@ -237,41 +230,25 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
     cnt[i] = 0;
     len[i] = 0;
     thr_s[i] = FILL;
+    const bool has = bound_i != nullptr && row0 + i < b;
+    bnd_v[i] = has ? bound_v[row0 + i] : INFINITY;
+    bnd_i[i] = has ? bound_i[row0 + i] : -1;
   }
   for (int i = tid; i < Tl::TABLE; i += THREADS) tv[i] = FILL;
 
-  // This thread's copies of a stage, 16 bytes each: query rows ar + AR j at
-  // d column aq; base d-rows br + BR j at chunk column bq.
-  constexpr int ACH = F_BK / 4, AR = THREADS / ACH, BR = THREADS / 32;
-  const int ar = tid / ACH, aq = (tid % ACH) * 4;
-  const int br = tid >> 5, bq = (tid & 31) * 4;
-  auto load = [&](int step) {
-    const int c = step / nk, kt = step - c * nk;
-    const uint32_t so = smem_u32(fsm) + (step % F_STAGES) * SF * 4;
-    const int k0 = kt * F_BK, col = c_lo + c * F_BN + bq;
-#pragma unroll
-    for (int j = 0; j < BM / AR; ++j) {
-      const int r = row0 + ar + AR * j;
-      const bool ok = r < b && k0 + aq < ldq;
-      cp_async_16(so + ((ar + AR * j) * F_PA + aq) * 4, ok ? q + (size_t)r * ldq + k0 + aq : q,
-                  ok ? 16 : 0);
+  // The ring: the next load's chunk, d-slice and stage (counters: no step
+  // divides).
+  const ffma::Copier<R> cp(tid, b - row0);
+  const float* const qa = q + (size_t)row0 * ldq;
+  int pc = 0, pk = 0, pslot = 0;
+  auto load_next = [&]() {
+    const int col = c_lo + pc * F_BN;
+    cp.load(fsm + pslot * SF, qa, ldq, true, base + col, ldb, n - col, vec_b, d, pk * R::BK);
+    if (++pk == nk) {
+      pk = 0;
+      ++pc;
     }
-#pragma unroll
-    for (int j = 0; j < F_BK / BR; ++j) {
-      const int e = k0 + br + BR * j;
-      const uint32_t dst = so + (AF + (br + BR * j) * F_BN + bq) * 4;
-      const float* src = base + (size_t)e * ldb + col;
-      if (vec_b) {
-        const bool ok = e < d && col < n;
-        cp_async_16(dst, ok ? src : base, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = e < d && col + u < n;
-          cp_async_4(dst + 4 * u, ok ? src + u : base, ok ? 4 : 0);
-        }
-      }
-    }
+    pslot = pslot + 1 == R::STAGES ? 0 : pslot + 1;
   };
 
   float thr[8];
@@ -279,20 +256,20 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     thr[i] = FILL;
-    live[i] = row0 + wm * 64 + 8 * i + lm < b;
+    live[i] = row0 + pl.row(i) < b;
   }
   uint64_t dirty = 0;  // binned: this thread's (row, bin) pairs with a passer this tile
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  ffma::zero(acc);
+
+  // (v, id) is ranked after row rl's bound.
+  auto after = [&](int rl, float v, int id) { return better(bnd_v[rl], bnd_i[rl], v, id); };
 
   // Push this thread's entries of row slot i whose bit is set in `m` into
   // the row's buffer: one shared atomic for all of them.  Returns the
   // buffer's count after them.
   auto push = [&](int i, unsigned m, const float (&v)[16], const int (&id)[16]) {
-    const int rl = wm * 64 + 8 * i + lm;
+    const int rl = pl.row(i);
     const int base_at = atomicAdd(&cnt[rl], __popc(m));
     int at = base_at;
 #pragma unroll
@@ -304,7 +281,6 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
       }
     return at;
   };
-
   // Merge each row's buffer into its sorted list (in out_v / out_i, KJ
   // entries a lane): one warp a row, the warps' rows side by side.
   // Every (score, id) is distinct, so an entry's rank in the union is the
@@ -376,19 +352,20 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
   };
   auto reload = [&]() {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) thr[i] = thr_s[wm * 64 + 8 * i + lm];
+    for (int i = 0; i < 8; ++i) thr[i] = thr_s[pl.row(i)];
   };
 
-  __syncthreads();  // the counters are set before any push
+  __syncthreads();  // the counters and bounds are set before any push
 #pragma unroll
-  for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (s < steps) load(s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int s = 0; s < R::STAGES - 1; ++s) {
+    if (s < steps) load_next();
+    ffma::commit();
   }
+  int c = 0, kt = 0, slot = 0;  // the step's chunk, d-slice and stage
   int cpos = 0;      // binned: the chunk's place in its tile
   bool need = false;  // exact: a row this thread pushed to could overflow on the next chunk
   for (int step = 0; step < steps; ++step) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(F_STAGES - 2) : "memory");
+    ffma::wait_stage<R>();
     // The step's barrier also tells whether the last chunk's pushes left a
     // row at risk; if so its rows merge before anything is pushed again.
     if (__syncthreads_or(need)) {
@@ -397,53 +374,21 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
       reload();
     }
     need = false;
-    if (step + F_STAGES - 1 < steps) load(step + F_STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int c = step / nk, kt = step - c * nk;
-    const float* as = fsm + (step % F_STAGES) * SF + (wm * 64 + lm) * F_PA;
-    const float* bs = fsm + (step % F_STAGES) * SF + AF + wn * 32 + ln * 4;
-    // d in order from 0, one fmaf each.  A whole slice runs unrolled with
-    // no branch (the next group's loads overlap this one's FMAs); in the
-    // last, partial slice groups of 4 past d are skipped, and the zeros of
-    // a partial group add exact zeros.
-    auto group4 = [&](int kq) {
-      float av[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(as + i * 8 * F_PA + kq);
-        av[i][0] = v.x;
-        av[i][1] = v.y;
-        av[i][2] = v.z;
-        av[i][3] = v.w;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN);
-        const float4 b1 = *reinterpret_cast<const float4*>(bs + (kq + kk) * F_BN + 16);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const int j = (i & 1) ? 7 - jj : jj;
-            acc[i][j] = __fmaf_rn(av[i][kk], bv[j], acc[i][j]);
-          }
-      }
-    };
-    if ((kt + 1) * F_BK <= d) {
-#pragma unroll
-      for (int kq = 0; kq < F_BK; kq += 4) group4(kq);
-    } else {
-      for (int kq = 0; kt * F_BK + kq < d; kq += 4) group4(kq);
-    }
-    if (kt != nk - 1) continue;
+    if (step + R::STAGES - 1 < steps) load_next();
+    ffma::commit();
+    ffma::fma_slice<R>(fsm + slot * SF, pl, d - kt * R::BK, acc);
+    slot = slot + 1 == R::STAGES ? 0 : slot + 1;
+    if (++kt < nk) continue;
+    kt = 0;
 
     // The chunk is scored: the selection.  Only a score above its row's
     // k-th value can enter (an equal one has a higher id and loses).
-    const int col0 = c_lo + c * F_BN + wn * 32 + ln * 4;
+    const int col0 = c_lo + c * F_BN;
     if constexpr (!BINNED) {
-      // Push the passers; the merge waits for the next step's barrier (the
-      // split's last chunk merges every row after the walk).
+      // Push the passers ranked after the row's bound (a later pass: the
+      // test runs only on the rare passers); the merge waits for the next
+      // step's barrier (the split's last chunk merges every row after the
+      // walk).
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         float v[16];
@@ -451,10 +396,15 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
         unsigned m = 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = col0 + 16 * (j >> 2) + (j & 3);
+          const int col = col0 + pl.col(j);
           v[j] = acc[i][j];
           id[j] = col;
           m |= (unsigned)(live[i] && col < n_bound && acc[i][j] > thr[i]) << j;
+        }
+        if (m && bound_i != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (!after(pl.row(i), v[j], id[j])) m &= ~(1u << j);
         }
         if (m) need |= push(i, m, v, id) > BUF - F_BN;
       }
@@ -464,7 +414,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = col0 + 16 * (j >> 2) + (j & 3);
+          const int col = col0 + pl.col(j);
           const float x = acc[i][j];
           if (live[i] && col < n_bound && x > thr[i]) {
             const int p = 8 * i + j;
@@ -483,12 +433,13 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
           }
         }
       if (++cpos == tile_chunks || last) {
-        // The tile's end: its survivors go to the buffers a warp column at
-        // a time (at most 64 a row), each batch merged.
+        // The tile's end: its survivors ranked after their row's bound go
+        // to the buffers a warp column at a time (at most 64 a row), each
+        // batch merged.
         cpos = 0;
         if (__syncthreads_or(dirty != 0)) {
           for (int s = 0; s < 4; ++s) {
-            if (wn == s && dirty) {
+            if (pl.wn == s && dirty) {
 #pragma unroll
               for (int i = 0; i < 8; ++i) {
                 if (((dirty >> (8 * i)) & 0xffull) == 0) continue;
@@ -500,7 +451,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
                   const int e = ((j >> 3) * 64 + 8 * i + (j & 7)) * THREADS + tid;
                   v[j] = tv[e];
                   id[j] = ti[e];
-                  m |= (unsigned)(v[j] > FILL) << j;
+                  m |= (unsigned)(v[j] > FILL && after(pl.row(i), v[j], id[j])) << j;
                   tv[e] = FILL;
                 }
                 if (m) push(i, m, v, id);
@@ -515,12 +466,10 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    ffma::zero(acc);
+    ++c;
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  ffma::wait_all();
   if constexpr (!BINNED) {
     __syncthreads();
     merge();
@@ -528,9 +477,10 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
 }
 
 template <bool BINNED, int KJ>
-int launch_f32(const void* q, const void* base, const void* n_valid, void* out_v, void* out_i,
-               int b, int d, int ldq, int n, int ldb, int k, int tile_n, int split_cols,
-               int nsplit, int ldo, cudaStream_t stream) {
+int launch_f32(const void* q, const void* base, const void* n_valid, const void* bound_v,
+               const void* bound_i, void* out_v, void* out_i, int b, int d, int ldq, int n,
+               int ldb, int k, int tile_n, int split_cols, int nsplit, int ldo,
+               cudaStream_t stream) {
   using Tl = FTile<BINNED>;
   if (const cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<BINNED, KJ>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,7 +490,8 @@ int launch_f32(const void* q, const void* base, const void* n_valid, void* out_v
   const dim3 grid((unsigned)((b + Tl::BM - 1) / Tl::BM), (unsigned)nsplit);
   fused_f32_kernel<BINNED, KJ><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(base),
-      static_cast<const int32_t*>(n_valid), static_cast<float*>(out_v),
+      static_cast<const int32_t*>(n_valid), static_cast<const float*>(bound_v),
+      static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
       static_cast<int32_t*>(out_i), b, d, ldq, n, ldb, k, tile_n, split_cols, ldo, vec_b);
   return (int)cudaGetLastError();
 }
@@ -967,10 +918,12 @@ int launch_wgmma_binned(bool binned, const void* q, const void* base, const void
 // aligned) and base_t [d, ldb] fp32 (columns n.. ignored); out_v / out_i
 // [b, ldo], split s's sorted top-k at columns s k .. s k + k - 1, filled
 // with (-inf, 0) by the caller.  nsplit splits of split_cols columns (a
-// multiple of 128, and of tile_n in binned mode); k <= 256.
+// multiple of 128, and of tile_n in binned mode); k <= 256 a launch, a
+// larger k in passes of 256 with the bounds as above.
 extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, const void* n_valid,
-                                         void* out_v, void* out_i, int b, int d, int ldq, int n,
-                                         int ldb, int k, int tile_n, int nbins, int split_cols,
+                                         const void* bound_v, const void* bound_i, void* out_v,
+                                         void* out_i, int b, int d, int ldq, int n, int ldb,
+                                         int k, int tile_n, int nbins, int split_cols,
                                          int nsplit, int ldo, void* stream) {
   if (b == 0) return 0;
   if (k < 1 || k > F_KMAX || ldq % 4 || split_cols % F_BN || nsplit < 1 || ldo < nsplit * k ||
@@ -979,8 +932,8 @@ extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The list's registers a lane in the merge: 1, 2, 4 or 8.
 #define RAG_F32(BINNED, KJ)                                                                     \
-  launch_f32<BINNED, KJ>(q, base_t, n_valid, out_v, out_i, b, d, ldq, n, ldb, k, tile_n,        \
-                         split_cols, nsplit, ldo, s)
+  launch_f32<BINNED, KJ>(q, base_t, n_valid, bound_v, bound_i, out_v, out_i, b, d, ldq, n, ldb, \
+                         k, tile_n, split_cols, nsplit, ldo, s)
   const int kj = k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
   switch (kj + (nbins != 0 ? 16 : 0)) {
     case 1: return RAG_F32(false, 1);

@@ -84,18 +84,24 @@
 //   warpgroups an SM, so each CTA's first TMA round trip is exposed, and
 //   the fold costs some six integer operations a score.
 //
-// Design of the fp32 mode (accum_planes_kernel, the float stage of
-// ivf_stage.cuh, shared with K4-K7, K9 and K10): one CTA of 256 threads per
-// (last block, 32-row tile): two row groups of 16 rows x 128 lanes sharing
-// each staged chunk, the chunk loop outside the block loop, the running max
-// and the two planes in registers (3 x 16 a thread); the chunk staged as
-// fp32 rows of 128 and the query rows as fp32 rows of D' rounded up to 4,
-// one fmaf a dimension in d order (84.5 KB of shared memory at D' = 129).
+// Design of the fp32 mode (planes_ffma_kernel): K3 fp32's register tile
+// (ffma_tile.cuh, shared with K3 and K5): one CTA of 256 threads per (last
+// block, 128 routed rows), 8 x 8 fp32 accumulators a thread over a chunk's
+// 128 bins, the rows' and the slab's d-slices of 32 through a two-stage
+// cp.async ring (any D; one fmaf a dimension in d order from +0); the walk
+// over (chunk, block) pairs holding a valid column, as the wgmma modes'
+// half-chunks, so chunks past rows_valid cost nothing; the routed rows are
+// re-read from L2 for each chunk.  The running planes: plane 1 in
+// registers, plane 2 and the multi-block chunk max in shared memory.  The
+// first design (a thread 16 rows x 1 bin, the chunk staged between
+// barriers: K9's float stage) ran 8.75 ms at the SIFT-1M slice on the H100
+// (PERF.md section 6).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
 #include "ivf_stage.cuh"
 
@@ -107,119 +113,6 @@ constexpr int GROUPS = 2;                    // row groups per CTA (share one st
 constexpr int THREADS = LANES * GROUPS;
 constexpr int CODE_MAX = 16;                 // block codes (4 bits)
 constexpr int32_t KMIN = -2147483647;        // -(2**31) + 1: invalid entry
-
-// The fp32 mode: qg [nblocks, qcap, d] and vec [nblocks, d, blk] fp32.
-__global__ void __launch_bounds__(THREADS)
-accum_planes_kernel(const float* __restrict__ qg,                // [nblocks, qcap, d]
-                    const float* __restrict__ vec,               // [nblocks, d, blk]
-                    const int32_t* __restrict__ block_first,     // [nblocks]
-                    const int32_t* __restrict__ block_last,      // [nblocks]
-                    const int32_t* __restrict__ rows_valid,      // [nblocks]
-                    int32_t* __restrict__ out,                   // [nblocks, qcap, nplanes*128]
-                    int qcap, int d, int blk, int nplanes, int qstride) {
-  const int t = blockIdx.x;
-  if (block_last[t] == 0) return;
-  const int lane = threadIdx.x % LANES;
-  const int group = threadIdx.x / LANES;
-  const int r0 = (blockIdx.y * GROUPS + group) * ROWS;  // this group's first row
-
-  // Query rows [GROUPS*ROWS][dsl] fp32, then the chunk [dsl][LANES]: all
-  // of qstride while it fits, else a d-slice at a time (ivf_stage.cuh).
-  const int dsl = float_slice(qstride);
-  const bool sliced = dsl < qstride;
-  extern __shared__ int4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* col_s = q_s + GROUPS * ROWS * dsl;
-  const float* my_q = q_s + group * ROWS * dsl;
-
-  int tb = t;  // the cluster's first block
-  while (tb > 0 && block_first[tb] == 0) --tb;
-  const int nb = t - tb + 1;
-  const int nchunks = blk / LANES;
-  const int cta_r0 = blockIdx.y * GROUPS * ROWS;
-
-  int32_t p1[ROWS], p2[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) p1[r] = p2[r] = KMIN;
-
-  for (int c = 0; c < nchunks; ++c) {
-    const int col = c * LANES + lane;
-    int32_t m[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
-
-    for (int b = tb; b <= t; ++b) {
-      // The routed rows change only with the block: load them once for a
-      // one-block cluster, per block otherwise (per slice when sliced).
-      float acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-      for (int e0 = 0; e0 < qstride; e0 += dsl) {
-        if (e0 > 0) __syncthreads();  // the last slice is read
-        stage_chunk_f<THREADS>(vec + (size_t)b * d * blk + c * LANES + (size_t)e0 * blk, d - e0,
-                               blk, dsl, col_s);
-        if (sliced || c == 0 || nb > 1)
-          stage_queries_f<THREADS>(qg + (size_t)b * qcap * d, qcap, d, cta_r0, GROUPS * ROWS,
-                                   dsl, q_s, e0);
-        __syncthreads();
-        dot_rows_f_acc<ROWS>(col_s, lane, my_q, dsl, min(dsl, qstride - e0), acc);
-      }
-
-      const bool valid = col < rows_valid[b];
-      const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int32_t key = valid ? (int32_t)(((uint32_t)monotone_key(acc[r]) & ~255u) | pack)
-                                  : KMIN;
-        m[r] = max(m[r], key);
-      }
-      __syncthreads();  // col_s / q_s are rewritten next
-    }
-
-    // Running top-2 per bin; plane 2 is the largest key DIFFERENT from
-    // plane 1 (_plane_max masks every entry equal to plane 1).
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int32_t x = m[r];
-      if (x > p1[r]) {
-        p2[r] = p1[r];
-        p1[r] = x;
-      } else if (x != p1[r] && x > p2[r]) {
-        p2[r] = x;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r0 + r >= qcap) break;
-    int32_t* o = out + ((size_t)t * qcap + r0 + r) * (size_t)(nplanes * LANES);
-    o[lane] = p1[r];
-    if (nplanes == 2) o[LANES + lane] = p2[r];
-  }
-}
-
-int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
-                      const void* block_last, const void* rows_valid, void* out, int nblocks,
-                      int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
-  if (nblocks == 0 || qcap == 0) return 0;
-  const int qstride = stage_row_words<float>(d);
-  const int dsl = float_slice(qstride);
-  const size_t smem =
-      ((size_t)GROUPS * ROWS * dsl + stage_chunk_words<float>(dsl)) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(accum_planes_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
-  accum_planes_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(qg), static_cast<const float*>(vec),
-      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<int32_t*>(out), qcap, d, blk,
-      nplanes, qstride);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------ int8 and bf16: wgmma fed by TMA
 
@@ -257,6 +150,145 @@ __device__ __forceinline__ void plane_update(int32_t x, int32_t& p1, int32_t& p2
   const int32_t lo = min(x, p1);
   p2 = (TIES && x == p1) ? p2 : max(p2, lo);
   p1 = max(p1, x);
+}
+
+// The fp32 mode on ffma_tile.cuh's 128 x 128 tile: qg [nblocks, qcap, d]
+// and vec [nblocks, d, blk] fp32.  CTA (t, y): last block t, routed rows
+// 128 y .. + 127, the tile's columns a chunk's 128 bins.  The walk is
+// next_half's (chunk, block) list with col0 = 0 (chunk-major, the
+// cluster's blocks inside, only those holding a valid column), nk d-slices
+// each; accumulator (i, j) is (row, bin) Place (i, j).  Plane 1 stays in
+// registers; plane 2 and, in a cluster of several blocks, the chunk's max
+// over its blocks so far live in shared memory laid out by thread ([64][TH]:
+// the accesses never conflict; 64 accumulators and three 64-key arrays
+// would not fit a thread's 255 registers).
+// Two stages of 32 d: 2% faster than three of 16 on the H100 at SIFT-1M.
+using FTile = ffma::Tile<2, 32, 2>;
+__global__ void __launch_bounds__(FTile::THREADS, 1)
+planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
+                   const int32_t* __restrict__ block_first, const int32_t* __restrict__ block_last,
+                   const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out, int qcap,
+                   int d, int blk, int nplanes, int vec_a) {
+  constexpr int TH = FTile::THREADS, SF = FTile::STAGE_FLOATS;
+  const int t = blockIdx.x;
+  if (block_last[t] == 0) return;
+  extern __shared__ __align__(16) float fsm[];
+  int32_t* const p2_s = reinterpret_cast<int32_t*>(fsm + FTile::STAGES * SF);  // [64][TH]
+  int32_t* const m_s = p2_s + 64 * TH;                                       // [64][TH]
+  const int tid = threadIdx.x;
+  const ffma::Place pl(tid);
+  const int r0 = blockIdx.y * FTile::BM;
+  int tb = t;  // the cluster's first block
+  while (tb > 0 && block_first[tb] == 0) --tb;
+  const int nchunks = blk / 128;
+  const int nk = (d + FTile::BK - 1) / FTile::BK;
+
+  int32_t p1[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p1[i][j] = KMIN;
+#pragma unroll 8
+  for (int e = 0; e < 64; ++e) p2_s[e * TH + tid] = KMIN;
+  float acc[8][8];
+  ffma::zero(acc);
+
+  // A step is (chunk, block, d-slice); the producer's runs STAGES - 1
+  // ahead of the consumers'.
+  auto advance = [&](int& c, int& b, int& kq) {
+    if (++kq < nk) return true;
+    kq = 0;
+    return next_half(c, b, tb, t, nchunks, 0, rows_valid);
+  };
+  int pc = 0, pb = tb - 1, pk = nk - 1;
+  bool phave = advance(pc, pb, pk);
+  int cc = pc, cb = pb, ck = pk;
+  bool have = phave;
+  const ffma::Copier<FTile> cp(tid, qcap - r0);
+  auto load = [&](int slot) {
+    cp.load(fsm + slot * SF, qg + ((size_t)pb * qcap + r0) * d, d, vec_a,
+            vec + (size_t)pb * d * blk + pc * 128, blk, 128, true, d, pk * FTile::BK);
+    phave = advance(pc, pb, pk);
+  };
+#pragma unroll
+  for (int s = 0; s < FTile::STAGES - 1; ++s) {
+    if (phave) load(s);
+    ffma::commit();
+  }
+  int slot = 0, pslot = FTile::STAGES - 1;
+  bool first = true;  // the step's (chunk, block) is its chunk's first
+  while (have) {
+    ffma::wait_stage<FTile>();
+    __syncthreads();  // the stage has landed, and the one refilled next is read
+    if (phave) load(pslot);
+    ffma::commit();
+    pslot = pslot + 1 == FTile::STAGES ? 0 : pslot + 1;
+    ffma::fma_slice<FTile>(fsm + slot * SF, pl, d - ck * FTile::BK, acc);
+    slot = slot + 1 == FTile::STAGES ? 0 : slot + 1;
+    const int b = cb, c = cc;
+    const bool done = ck == nk - 1;
+    have = advance(cc, cb, ck);
+    if (!done) continue;
+    // Block b's scores of chunk c: keys, masked past rows_valid, max-folded
+    // over the chunk's blocks, and at its last block into the planes.
+    const bool last = !have || cc != c;
+    const int lim = rows_valid[b] - c * 128;
+    const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = (8 * i + j) * TH + tid;
+        int32_t x = pl.col(j) < lim
+                        ? (int32_t)(((uint32_t)monotone_key(acc[i][j]) & ~255u) | pack)
+                        : KMIN;
+        if (!first) x = max(x, m_s[e]);
+        if (!last) {
+          m_s[e] = x;
+        } else {
+          int32_t p2 = p2_s[e];
+          plane_update<false>(x, p1[i][j], p2);  // keys of two chunks never tie
+          p2_s[e] = p2;
+        }
+      }
+    ffma::zero(acc);
+    first = last;
+  }
+  ffma::wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + pl.row(i);
+    if (row >= qcap) continue;
+    int32_t* o = out + ((size_t)t * qcap + row) * (size_t)(nplanes * 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns pl.col(4 h) .. + 3
+      const int c0 = pl.col(4 * h), e0 = (8 * i + 4 * h) * TH + tid;
+      *reinterpret_cast<int4*>(o + c0) =
+          make_int4(p1[i][4 * h], p1[i][4 * h + 1], p1[i][4 * h + 2], p1[i][4 * h + 3]);
+      if (nplanes == 2)
+        *reinterpret_cast<int4*>(o + 128 + c0) =
+            make_int4(p2_s[e0], p2_s[e0 + TH], p2_s[e0 + 2 * TH], p2_s[e0 + 3 * TH]);
+    }
+  }
+}
+
+int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
+                      const void* block_last, const void* rows_valid, void* out, int nblocks,
+                      int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
+  if (nblocks == 0 || qcap == 0) return 0;
+  constexpr size_t smem = FTile::RING_BYTES + (size_t)2 * 64 * FTile::THREADS * sizeof(int32_t);
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          planes_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+    return (int)e;
+  const int vec_a = d % 4 == 0 && reinterpret_cast<uintptr_t>(qg) % 16 == 0;
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + FTile::BM - 1) / FTile::BM));
+  planes_ffma_kernel<<<grid, FTile::THREADS, smem, stream>>>(
+      static_cast<const float*>(qg), static_cast<const float*>(vec),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<int32_t*>(out), qcap, d, blk,
+      nplanes, vec_a);
+  return (int)cudaGetLastError();
 }
 
 // qg [nblocks, qcap, ldq] through `tq` (int8: ldq = D rounded up to 16;

@@ -106,7 +106,12 @@
 //   outer coordinate, the same rows in every block of a run), K7 gathered
 //   by the threads in 16-byte pieces from qi (zero rows for slots outside
 //   [0, B)) and handed to wgmma through the proxy fence.  The next block's
-//   rows load while this one's survivors merge.
+//   rows load while this one's survivors merge.  Where kb units of rows
+//   would leave the ring under two stages (int8 D past 2816 at depth 1-2,
+//   5888 at 3-4), they are not held: the threads gather each unit's rows
+//   in 16-byte pieces into one of two unit buffers while the unit before
+//   multiplies, beside the slab's transpose, re-read from L2 every chunk,
+//   and the empty-row test reads q itself; so D has no cap.
 // - the epilogue on copy_acc's copy of the fragment (reading the fragment
 //   itself has ptxas serialize the groups): score = __int2float_rn(dot)
 //   then one __fsub_rn of the bias, -inf past rows_valid, inserted with
@@ -600,7 +605,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ bound_v,   // like out's rows, or null
                      const int32_t* __restrict__ bound_i,
                      float* __restrict__ out_v, int32_t* __restrict__ out_i,
-                     int qcap, int blk, int kb, int ldq, int k, int stages, int nsrc) {
+                     int qcap, int blk, int kb, int ldq, int k, int stages, int nsrc,
+                     int qwide) {
   using Tl = WTile<DEPTH>;
   constexpr int N = Tl::N, F = Tl::F, CS = Tl::CS;
   constexpr int R = N / WARPS;               // rows each warp merges
@@ -636,7 +642,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // Shared memory: the TMA ring of raw slab units, two transposed units, the
-  // routed rows (kb units), the block's survivors and the running top-k.
+  // routed rows (kb units; wide D: two, each unit's rows gathered beside its
+  // transpose), the block's survivors and the running top-k.
   extern __shared__ uint8_t w_smem[];
   __shared__ __align__(8) uint64_t full[W_STAGES_MAX], qbar;
   __shared__ uint32_t s_nz;  // the routed rows of the block that hold a nonzero byte
@@ -647,7 +654,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
   uint8_t* const gbase = w_smem + (base - smem_u32(w_smem));
   const uint32_t st = base, bk = st + stages * W_UNIT, qs = bk + 2 * W_UNIT;
-  float* const cand_v = reinterpret_cast<float*>(gbase + (qs - base) + kb * QUNIT);
+  float* const cand_v = reinterpret_cast<float*>(gbase + (qs - base) + (qwide ? 2 : kb) * QUNIT);
   int32_t* const cand_i = reinterpret_cast<int32_t*>(cand_v + N * CS);
   float* const run_v = reinterpret_cast<float*>(cand_i + N * CS);
   int32_t* const run_i = reinterpret_cast<int32_t*>(run_v + N * K_MAX);
@@ -678,10 +685,36 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
+  // Row n of block b in q, or null (past qcap; K7: a slot outside [0, nsrc)).
+  auto row_ptr = [&](int b, int n) -> const int8_t* {
+    if (r0 + n >= qcap) return nullptr;
+    if constexpr (SRC == QSrc::kRouted) {
+      const int s = cq_blocks[(size_t)b * qcap + r0 + n];
+      return s >= 0 && s < nsrc ? q + (size_t)s * ldq : nullptr;
+    } else {
+      return q + ((size_t)qrow(b) * qcap + r0 + n) * ldq;
+    }
+  };
+  // Wide D: unit j of block b's routed rows into row buffer buf, by the
+  // threads in 16-byte pieces, in the layout TMA gives (zeros past ldq and
+  // for rows without a source); the proxy fence and a barrier follow.
+  auto gather_unit = [&](int b, int j, int buf) {
+    for (int i = threadIdx.x; i < N * 8; i += THREADS) {
+      const int n = i >> 3, p = i & 7;
+      int4 v = make_int4(0, 0, 0, 0);
+      const int8_t* src = 16 * (8 * j + p) < ldq ? row_ptr(b, n) : nullptr;
+      if (src != nullptr) v = *reinterpret_cast<const int4*>(src + 16 * (8 * j + p));
+      *reinterpret_cast<int4*>(gbase + (qs - base) + buf * QUNIT + n * 128 + ((p ^ (n & 7)) << 4)) =
+          v;
+    }
+  };
+
   // Block b's routed rows into the K-major swizzled tile: K4 and K6 by TMA
   // on qbar, K7 gathered in 16-byte pieces (zero rows for slots outside [0,
-  // nsrc) and past qcap), then the proxy fence; a barrier follows.
+  // nsrc) and past qcap), then the proxy fence; a barrier follows.  Wide D
+  // takes its rows a unit at a time (gather_unit) instead.
   auto load_queries = [&](int b) {
+    if (qwide) return;
     if constexpr (SRC != QSrc::kRouted) {
       if (threadIdx.x == 0) {
         const int qb = qrow(b);
@@ -704,17 +737,25 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   };
 
-  // The block's rows that hold a nonzero byte, from the tile in shared
-  // memory, into s_nz (bit n: row n; reset beforehand, read after a
-  // barrier).  TPR threads a row, then a ballot.
-  auto detect = [&]() {
+  // Block b's rows that hold a nonzero byte, from the tile in shared
+  // memory (wide D: from q), into s_nz (bit n: row n; reset beforehand, read
+  // after a barrier).  TPR threads a row, then a ballot.
+  auto detect = [&](int b) {
     constexpr int TPR = THREADS / N;
     const int n = threadIdx.x / TPR;
     uint32_t any = 0;
-    for (int p = threadIdx.x % TPR; p < kb * 8; p += TPR) {
-      const uint4 v = *reinterpret_cast<const uint4*>(gbase + (qs - base) + (p >> 3) * QUNIT +
-                                                      n * 128 + (((p & 7) ^ (n & 7)) << 4));
-      any |= v.x | v.y | v.z | v.w;
+    if (qwide) {
+      const int8_t* src = row_ptr(b, n);
+      for (int p = threadIdx.x % TPR; src != nullptr && p < ldq / 16; p += TPR) {
+        const uint4 v = *reinterpret_cast<const uint4*>(src + 16 * p);
+        any |= v.x | v.y | v.z | v.w;
+      }
+    } else {
+      for (int p = threadIdx.x % TPR; p < kb * 8; p += TPR) {
+        const uint4 v = *reinterpret_cast<const uint4*>(gbase + (qs - base) + (p >> 3) * QUNIT +
+                                                        n * 128 + (((p & 7) ^ (n & 7)) << 4));
+        any |= v.x | v.y | v.z | v.w;
+      }
     }
     const unsigned ball = __ballot_sync(FULL, any != 0);
     if (wl == 0) {
@@ -999,11 +1040,14 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int rs = 0, kbuf = 0;  // the unit's stage and transposed buffer
   unsigned rph = 0, qph = 0;
   prep(0, 0, 0);
+  if (qwide) gather_unit(cb, cj, 0);
   fence_proxy_async();
   __syncthreads();
-  if constexpr (SRC != QSrc::kRouted) mbar_wait_loop(&qbar, qph);
-  qph ^= 1u;
-  detect();
+  if (SRC != QSrc::kRouted && !qwide) {
+    mbar_wait_loop(&qbar, qph);
+    qph ^= 1u;
+  }
+  detect(cb);
   __syncthreads();
   // Rows that were zero in every block so far (`same`) share one running
   // top-k, their candidates being equal in every block: the lowest of them
@@ -1030,7 +1074,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // the N routed rows, the same layout; a k-step 32 bytes along the row.
     {
       const uint32_t sa = bk + kbuf * W_UNIT + wg * W_HALF;
-      const uint32_t sb = qs + cj * QUNIT;
+      const uint32_t sb = qs + (qwide ? kbuf : cj) * QUNIT;
       fence_acc(d);
       wgmma_fence();
 #pragma unroll
@@ -1045,7 +1089,10 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bool nhave = next_unit(nb, nc, nj, tb, t, kb, blk, rows_valid);
     const int ns = rs + 1 == stages ? 0 : rs + 1;
     const unsigned nph = rs + 1 == stages ? rph ^ 1u : rph;
-    if (nhave) prep(ns, nph, kbuf ^ 1);
+    if (nhave) {
+      prep(ns, nph, kbuf ^ 1);
+      if (qwide) gather_unit(nb, nj, kbuf ^ 1);
+    }
     wgmma_wait<0>();
     fence_acc(d);
     const bool chunk_end = cj == kb - 1;
@@ -1073,11 +1120,11 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       if (nhave) {
-        if constexpr (SRC != QSrc::kRouted) {
+        if (SRC != QSrc::kRouted && !qwide) {
           mbar_wait_loop(&qbar, qph);
           qph ^= 1u;
         }
-        detect();
+        detect(nb);
       }
       __syncthreads();
       rows_of_block();
@@ -1120,10 +1167,15 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
                                   ldq, 128, Tl::N, true))
       return e;
   if (const int e = int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false)) return e;
-  const int fixed = 1024 + 2 * W_UNIT + kb * Tl::N * 128 +
-                    Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
+  // The routed rows stay resident for the block (kb units) while that
+  // leaves two stages; wider, two unit buffers take them a unit at a time.
+  const int part = 1024 + 2 * W_UNIT + Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
+  int qwide = 0, fixed = part + kb * Tl::N * 128;
+  if ((W_SMEM_MAX - fixed) / W_UNIT < 2) {
+    qwide = 1;
+    fixed = part + 2 * Tl::N * 128;
+  }
   const int stages = min(W_STAGES_MAX, (W_SMEM_MAX - fixed) / W_UNIT);
-  if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + stages * W_UNIT;
   if (const cudaError_t e = cudaFuncSetAttribute(
           grouped_wgmma_kernel<DEPTH, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
@@ -1136,7 +1188,7 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
       static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc);
+      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc, qwide);
   return (int)cudaGetLastError();
 }
 
@@ -1272,18 +1324,21 @@ extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const vo
 // K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
 // bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.  Only
 // the depth-2 instances are built: in int8 they are the last __dp4a users
-// of this source.
+// of this source.  full and nogate take k <= 32 and the bounds of a later
+// pass as K6 does; maxonly and fixedout write their row max to any k slots
+// and take no bounds.
 namespace {
 template <typename T>
 int variant_scan(const void* qg, const void* vec, const void* block_cluster,
                  const void* block_first, const void* block_last, const void* rows_valid,
-                 const void* row_base, void* out_v, void* out_i, int nlist, int nblocks, int qcap,
-                 int d, int blk, int k, int variant, void* stream) {
+                 const void* row_base, const void* bound_v, const void* bound_i, void* out_v,
+                 void* out_i, int nlist, int nblocks, int qcap, int d, int blk, int k,
+                 int variant, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_VARIANT(V)                                                                        \
   launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,    \
-                                  rows_valid, nullptr, row_base, nullptr, nullptr, out_v,     \
+                                  rows_valid, nullptr, row_base, bound_v, bound_i, out_v,     \
                                   out_i, nblocks, qcap, d, blk, k, nlist, s)
   switch (variant) {
     case 0: return RAG_VARIANT(Variant::kFull);
@@ -1298,25 +1353,27 @@ int variant_scan(const void* qg, const void* vec, const void* block_cluster,
 
 extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* block_cluster,
                                    const void* block_first, const void* block_last,
-                                   const void* rows_valid, const void* row_base, void* out_v,
+                                   const void* rows_valid, const void* row_base,
+                                   const void* bound_v, const void* bound_i, void* out_v,
                                    void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
                                    int k, int variant, void* stream) {
   return variant_scan<int8_t>(qg, vec, block_cluster, block_first, block_last, rows_valid,
-                              row_base, out_v, out_i, nlist, nblocks, qcap, d, blk, k, variant,
-                              stream);
+                              row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks, qcap, d,
+                              blk, k, variant, stream);
 }
 
 // K10's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
 // 16-byte aligned.
 extern "C" int ivf_variant_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
-                                  const void* rows_valid, const void* row_base, void* out_v,
+                                  const void* rows_valid, const void* row_base,
+                                  const void* bound_v, const void* bound_i, void* out_v,
                                   void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
                                   int k, int variant, int bf16, void* stream) {
   return bf16 ? variant_scan<__nv_bfloat16>(qg, vec, block_cluster, block_first, block_last,
-                                            rows_valid, row_base, out_v, out_i, nlist, nblocks,
-                                            qcap, d, blk, k, variant, stream)
+                                            rows_valid, row_base, bound_v, bound_i, out_v, out_i,
+                                            nlist, nblocks, qcap, d, blk, k, variant, stream)
               : variant_scan<float>(qg, vec, block_cluster, block_first, block_last, rows_valid,
-                                    row_base, out_v, out_i, nlist, nblocks, qcap, d, blk, k,
-                                    variant, stream);
+                                    row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks,
+                                    qcap, d, blk, k, variant, stream);
 }

@@ -3,9 +3,10 @@
 // and of K10's int8 mode (ivf_grouped_scan.cu; K4's, K6's and K7's int8
 // modes and K1's int8 and bf16 modes run on wgmma), and the float stage
 // (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
-// fp32 and bf16 modes of K4, K6, K7, K9 and K10, of K1's fp32 mode and of
-// K5's fp32 mode (bruteforce_accum.cu).  Past D' = 320 the float stage
-// walks D in slices (float_slice, dot_rows_f_acc).
+// fp32 and bf16 modes of K4, K6, K7, K9 and K10 (K1's and K5's fp32 modes
+// run on ffma_tile.cuh's register tile, as K3's).  Past D' = 320 the float
+// stage walks D in slices (float_slice, dot_rows_f_acc).  The monotone key
+// and its inverse at the end serve every float mode.
 #pragma once
 #include <cstddef>
 #include <cstdint>

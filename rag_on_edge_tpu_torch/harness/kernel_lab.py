@@ -107,7 +107,6 @@ def _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, varian
     return out_v, out_i
 
 
-_K_MAX = 32
 _INT8_DIM_MAX = 1024
 
 
@@ -118,8 +117,10 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     ``qg`` [nlist, qcap, D] routed queries per cluster; ``vectors_t``
     [nblocks, D, blk]; ``bc``/``bf``/``bl``/``rv`` the block tables
     [nblocks] int32.  Ids are ``block·blk + column``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (int8, nbins 128, k <=
-    32, D <= 1024; fp32 or bf16 in one dtype, any D) or raise."""
+    plain version; CUDA tensors launch the kernel (int8, nbins 128, D <=
+    1024; fp32 or bf16 in one dtype, any D; any k: ``full`` and ``nogate``
+    in passes of 32, as K6, ``maxonly`` and ``fixedout`` in one launch,
+    their row max written to every slot) or raise."""
     global LAUNCHES
     nlist, nblocks, qcap, d, int_path = _check(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins,
                                                variant)
@@ -127,29 +128,26 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     if dev.type == "cpu":
         return _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant)
     _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv])
-    # The lab's variants keep one running top-k of 32 a row, and the int8
-    # stage holds the routed rows and a [D, 128] chunk whole.
-    if nbins != 128 or k > _K_MAX or (int_path and d > _INT8_DIM_MAX):
-        raise ValueError(f"the CUDA K10 takes nbins 128, k <= {_K_MAX} and int8 D <= "
-                         f"{_INT8_DIM_MAX}; got nbins={nbins}, k={k}, D={d}")
+    # The int8 stage holds the routed rows and a [D, 128] chunk whole.
+    if nbins != 128 or (int_path and d > _INT8_DIM_MAX):
+        raise ValueError(f"the CUDA K10 takes nbins 128 and int8 D <= {_INT8_DIM_MAX}; got "
+                         f"nbins={nbins}, D={d}")
     flag = ()
     if not int_path:
         vectors_t, flag = ivf_scan.float_args("K10", qg, vectors_t)
     row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
-    out_v = torch.empty((nlist, qcap, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nlist, qcap, k), dtype=torch.int32, device=dev)
     name = "ivf_variant_scan_i8" if int_path else "ivf_variant_scan_f"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = ivf_scan.entry(name)(qg.data_ptr(), vectors_t.data_ptr(), bc.data_ptr(),
-                                   bf.data_ptr(), bl.data_ptr(), rv.data_ptr(),
-                                   row_base.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                                   nlist, nblocks, qcap, d, blk, k, VARIANTS.index(variant),
-                                   *flag, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out_v, out_i
+    fn = ivf_scan.entry(name)
+    head = (qg.data_ptr(), vectors_t.data_ptr(), bc.data_ptr(), bf.data_ptr(), bl.data_ptr(),
+            rv.data_ptr(), row_base.data_ptr())
+    # full and nogate keep a running top-k of 32 a row, so a larger k runs
+    # in passes as K6's; maxonly and fixedout write one row max to every slot.
+    width = _build.PASS_K if variant in ("full", "nogate") else k
+    out, n = ivf_scan._launch_passes(name, k, nlist, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
+        *head, bv, bi, pv, pr, nlist, nblocks, qcap, d, blk, kp, VARIANTS.index(variant), *flag,
+        st), width)
+    LAUNCHES += n
+    return out
 
 
 def routed_table(idx: IVFIndex, queries: np.ndarray, batch: int, nprobe: int,

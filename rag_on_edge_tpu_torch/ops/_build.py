@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # The widest running top-k the kernels that hold it one entry a lane keep
-# (K3's int8 and bf16 modes, K4, K6, K7): a larger k runs in passes.
+# (K3's int8 and bf16 modes, K4, K6, K7, K10): a larger k runs in passes.
 PASS_K = 32
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -153,8 +153,8 @@ def aligned(x, nbytes: int):
     return x if x.data_ptr() % nbytes == 0 else x.clone()
 
 
-def by_passes(k: int, run):
-    """The exact top-k of a kernel that keeps at most ``PASS_K`` a row, in
+def by_passes(k: int, run, width: int = PASS_K):
+    """The exact top-k of a kernel that keeps at most ``width`` a row, in
     passes: ``run(kp, bound_v, bound_i)`` → (vals [..., kp], ids [..., kp])
     returns the best ``kp`` entries ranked after each row's bound (none on
     the first pass: both None), and each pass takes the last entry of the
@@ -163,8 +163,8 @@ def by_passes(k: int, run):
     above the fill value returns fill values from then on."""
     vals, ids = [], []
     bound_v = bound_i = None
-    for p0 in range(0, k, PASS_K):
-        v, i = run(min(PASS_K, k - p0), bound_v, bound_i)
+    for p0 in range(0, k, width):
+        v, i = run(min(width, k - p0), bound_v, bound_i)
         vals.append(v)
         ids.append(i)
         bound_v, bound_i = v[..., -1].contiguous(), i[..., -1].contiguous()

@@ -31,8 +31,9 @@ TMA, int8 on the K-major copy of :func:`_build.kmajor_operands`) or
 raise.  The fp32 mode runs a register-tiled FFMA kernel over column
 splits (:func:`split_plan`), each split's sorted top-k joined by K2
 (:func:`merge_splits`); :func:`split_topk_reference` is that
-split-and-merge with plain parts.  The int8 and bf16 modes keep 32 a row
-and take a larger k in passes (``_build.by_passes``).
+split-and-merge with plain parts.  The fp32 mode keeps 256 a row, the int8
+and bf16 modes 32, and a larger k runs in passes of that width
+(``_build.by_passes``).
 """
 
 from __future__ import annotations
@@ -51,12 +52,12 @@ __all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_re
 #: before and reads it after.
 LAUNCHES = 0
 
-# What the CUDA kernel takes: bins of 128 (one per column of a chunk), the
-# fp32 mode's top-k up to 256 long (it lives in the output buffer), and
-# the int8 and bf16 modes' 32 a pass (one per lane of the inserting warp;
-# a larger k runs in passes, _build.by_passes).
+# What the CUDA kernel takes: bins of 128 (one per column of a chunk), and
+# a top-k a launch up to 256 long in the fp32 mode (it lives in the output
+# buffer) and 32 in the int8 and bf16 modes (one per lane of the inserting
+# warp); a larger k runs in passes of that width (_build.by_passes).
 _CUDA_NBINS = 128
-_F32_K_MAX = 256
+_F32_PASS_K = 256
 # The int8 and bf16 kernels' binned table names a column's chunk within
 # its tile in 16 bits: a tile walks at most 65536 chunks of 128.
 _CUDA_BINNED_TILE_MAX = 65536 * 128
@@ -201,7 +202,7 @@ def split_topk_reference(queries, base_t, k, split_cols, tile_n=None, tile_b=Non
 
 
 # Each mode's C entry: (pointers, ints) before the stream.
-_ENTRIES = {"i8": (9, 6), "f32": (5, 11), "bf16": (7, 8)}
+_ENTRIES = {"i8": (9, 6), "f32": (7, 11), "bf16": (7, 8)}
 
 
 def _kernel(mode):
@@ -227,8 +228,8 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     leading columns (at most N).  ``alpha`` [B] / ``bias`` [N]: the int8 L2
     mode (both or neither).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (int8 ± L2, and fp32 or bf16 with queries
-    and base_t in one dtype; nbins 0 or 128; any D; fp32 k <= 256, int8 and
-    bf16 any k, in passes of 32) or raise.  The fp32 mode joins its column
+    and base_t in one dtype; nbins 0 or 128; any D; any k, in passes of 256
+    (fp32) or 32 (int8, bf16)) or raise.  The fp32 mode joins its column
     splits with K2."""
     global LAUNCHES
     dev = queries.device
@@ -253,9 +254,6 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
-    if mode == "f32" and k > _F32_K_MAX:
-        raise ValueError(f"the CUDA K3 takes fp32 k <= {_F32_K_MAX} (its lists' registers in "
-                         f"the merge); got k={k}")
     if mode != "f32" and nbins and min(tile_n, n) > _CUDA_BINNED_TILE_MAX:
         raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles of up to "
                          f"{_CUDA_BINNED_TILE_MAX} columns of the base; got tile_n={tile_n}, "
@@ -264,7 +262,8 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == "f32":
-            return _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, stream)
+            return _build.by_passes(k, lambda kp, bv, bi: _launch_f32(
+                queries, base_t, kp, tile_n, nbins, nv_ptr, bv, bi, stream), _F32_PASS_K)
         if mode == "bf16":
             # TMA takes rows of whole 16-byte units: the queries' rows are
             # padded to whole k16 steps (the pad zero), and base_t is copied
@@ -298,9 +297,10 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         return _build.by_passes(k, run)
 
 
-def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, stream):
-    """The fp32 kernel over its column splits, then K2 over the splits'
-    lists (none where one split covers N)."""
+def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, bound_v, bound_i, stream):
+    """One pass of the fp32 kernel (k <= 256, the entries ranked after each
+    row's bound where one is given) over its column splits, then K2 over
+    the splits' lists (none where one split covers N)."""
     global LAUNCHES
     b, n = queries.shape[0], base_t.shape[1]
     dev = queries.device
@@ -311,7 +311,9 @@ def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, stream):
     width = -(-nsplit * k // 128) * 128
     vals = torch.full((b, width), float("-inf"), dtype=torch.float32, device=dev)
     ids = torch.zeros((b, width), dtype=torch.int32, device=dev)
-    err = _kernel("f32")(qp.data_ptr(), base_t.data_ptr(), nv_ptr, vals.data_ptr(),
+    err = _kernel("f32")(qp.data_ptr(), base_t.data_ptr(), nv_ptr,
+                         bound_v.data_ptr() if bound_v is not None else None,
+                         bound_i.data_ptr() if bound_i is not None else None, vals.data_ptr(),
                          ids.data_ptr(), b, base_t.shape[0], qp.shape[1], n, n, k, tile_n,
                          nbins, split_cols, nsplit, width, stream)
     if err != 0:

@@ -75,23 +75,19 @@ _NEG_INF = float("-inf")
 # bin depths 1-4 (register arrays sized at compile time).
 _CUDA_NBINS = 128
 _CUDA_DEPTH_MAX = 4
-# The int8 wgmma kernel holds a block's routed rows whole in shared memory
-# beside its survivors and a two-stage ring (csrc/ivf_grouped_scan.cu,
-# launch_wgmma): the 227 KB a CTA may have, less those, over a 128-byte
-# unit of d for each of its rows (32 at depth 1-2, 16 at 3-4).
-_SMEM_OPTIN = 232448 - 1024
 
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
 # stream last.  The float entries take one more int, bf16 (0 or 1); K4's, K6's
 # and K7's int8 entries (wgmma) one more, the routed rows' padded pitch; K4's,
-# K6's and K7's entries two more pointers, the rows' bounds of a later pass.
+# K6's, K7's and K10's entries two more pointers, the rows' bounds of a later
+# pass.
 _ENTRIES = {
     "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 7),
     "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 8),
     "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 8),
-    "ivf_variant_scan_i8": (9, 7), "ivf_variant_scan_f": (9, 8),
+    "ivf_variant_scan_i8": (11, 7), "ivf_variant_scan_f": (11, 8),
 }
 
 
@@ -201,33 +197,19 @@ def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
     return sv, si
 
 
-def int8_dim_max(bin_depth: int) -> int:
-    """The widest int8 D the wgmma K4, K6 and K7 hold at ``bin_depth``."""
-    n = 32 if bin_depth <= 2 else 16
-    cand = n * (bin_depth * 128 + 4 + 32) * 8
-    units = (_SMEM_OPTIN - 1024 - 2 * 16384 - cand - 2 * 16384) // (n * 128)
-    return units * 128
-
-
-def _check_cuda_limits(name, nbins, bin_depth, d, int_path):
-    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128, bin_depth
-    <= 4, and in int8 D up to :func:`int8_dim_max` (2816 at bin depth 1-2;
-    the float modes walk D in slices, any k in passes)."""
+def _check_cuda_limits(name, nbins, bin_depth):
+    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128 and
+    bin_depth <= 4 (any D; any k, in passes)."""
     if nbins != _CUDA_NBINS or bin_depth > _CUDA_DEPTH_MAX:
         raise ValueError(
             f"the CUDA {name} takes nbins={_CUDA_NBINS} and bin_depth <= {_CUDA_DEPTH_MAX}; "
             f"got nbins={nbins}, bin_depth={bin_depth}")
-    if int_path and d > int8_dim_max(bin_depth):
-        raise ValueError(
-            f"the CUDA {name} takes int8 D <= {int8_dim_max(bin_depth)} at bin_depth "
-            f"{bin_depth} (the routed rows in shared memory); got D={d}")
 
 
-def _launch_passes(name, k, out_rows, qcap, dev, launch):
-    """The kernel in passes of ``_build.PASS_K``: ``launch(kp, pv, pr,
-    bound_v, bound_i, stream)`` fills pv / pr [out_rows, qcap, kp] and
-    returns the CUDA error → ((pv, pr) [out_rows, qcap, k], the launches
-    made)."""
+def _launch_passes(name, k, out_rows, qcap, dev, launch, width=_build.PASS_K):
+    """The kernel in passes of ``width``: ``launch(kp, pv, pr, bound_v,
+    bound_i, stream)`` fills pv / pr [out_rows, qcap, kp] and returns the
+    CUDA error → ((pv, pr) [out_rows, qcap, k], the launches made)."""
     def run(kp, bound_v, bound_i):
         pv = torch.empty((out_rows, qcap, kp), dtype=torch.float32, device=dev)
         pr = torch.empty((out_rows, qcap, kp), dtype=torch.int32, device=dev)
@@ -240,7 +222,7 @@ def _launch_passes(name, k, out_rows, qcap, dev, launch):
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         return pv, pr
 
-    return _build.by_passes(k, run), -(-k // _build.PASS_K)
+    return _build.by_passes(k, run, width), -(-k // width)
 
 
 def entry(name: str):
@@ -284,8 +266,8 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     ``row_base`` [nblocks] int32 is each block's first row id (default
     ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (int8 ± bias, nbins 128, bin_depth <= 4, D <= :func:`int8_dim_max`;
-    fp32 or bf16 in one dtype, any D; k > 32 in passes) or raise."""
+    (int8 ± bias, or fp32 or bf16 in one dtype; nbins 128, bin_depth <= 4;
+    any D; k > 32 in passes) or raise."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -299,7 +281,7 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
-    _check_cuda_limits("K4", nbins, bin_depth, d, int_path)
+    _check_cuda_limits("K4", nbins, bin_depth)
     if int_path:
         # wgmma fed by TMA: the routed rows at TMA's 16-byte row pitch, both
         # operands from 16-byte bases.
@@ -379,8 +361,8 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
-    bias, nbins 128, bin_depth <= 4, D <= :func:`int8_dim_max`; fp32 or
-    bf16 in one dtype, any D; k > 32 in passes) or raise."""
+    bias, or fp32 or bf16 in one dtype; nbins 128, bin_depth <= 4; any D;
+    k > 32 in passes) or raise."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":
@@ -394,7 +376,7 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K6", nbins, bin_depth, d, int_path)
+    _check_cuda_limits("K6", nbins, bin_depth)
     if int_path:
         # wgmma fed by TMA: the clusters' routed rows at TMA's 16-byte row
         # pitch, both operands from 16-byte bases.
@@ -464,9 +446,8 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
     the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
     are defined.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (int8 ± bias, nbins 128, bin_depth <= 4, D <=
-    :func:`int8_dim_max`; fp32 or bf16 in one dtype, any D; k > 32 in
-    passes) or raise."""
+    the kernel (int8 ± bias, or fp32 or bf16 in one dtype; nbins 128,
+    bin_depth <= 4; any D; k > 32 in passes) or raise."""
     global ROUTED_LAUNCHES
     dev = qi.device
     if dev.type == "cpu":
@@ -480,7 +461,7 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K7", nbins, bin_depth, d, int_path)
+    _check_cuda_limits("K7", nbins, bin_depth)
     if int_path:
         # wgmma: the batch gathered in 16-byte pieces (its rows at a 16-byte
         # pitch), the slab by TMA from a 16-byte base.

@@ -561,12 +561,6 @@ def test_k6_kernel_refuses_what_it_does_not_take(dev):
                                                         False))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan(qg.float(), vt.bfloat16(), bc, bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError, match="int8 D <="):  # past its shared-memory cap
-        wide = ivf_scan.int8_dim_max(2) + 1
-        ivf_scan.cluster_major_scan(torch.zeros((qg.shape[0], 8, wide), dtype=torch.int8,
-                                                device=dev),
-                                    torch.zeros((vt.shape[0], wide, 128), dtype=torch.int8,
-                                                device=dev), bc, bf, bl, rv, 4, blk=128)
     with pytest.raises(ValueError):  # bins other than 128
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, nbins=64)
     with pytest.raises(ValueError):  # depth past 4
@@ -894,8 +888,8 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
     bt = torch.zeros((16, 600), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="one dtype"):
         bruteforce_fused.fused_topk_matmul(q.float(), bt.bfloat16(), 4)
-    with pytest.raises(ValueError, match="k <= 256"):  # fp32: its merge's registers
-        bruteforce_fused.fused_topk_matmul(q.float(), bt.float(), 257)
+    with pytest.raises(ValueError, match="k=601 > N=600"):  # past the base, as JAX refuses
+        bruteforce_fused.fused_topk_matmul(q.float(), bt.float(), 601)
     with pytest.raises(ValueError):  # bins other than 128
         bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
 
@@ -1246,8 +1240,8 @@ def test_k10_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kernel_lab._variant_scan(qg, vt.transpose(1, 2).contiguous().transpose(1, 2), bc, bf,
                                  bl, rv, 4, 128, 128, "full")
-    with pytest.raises(ValueError):  # more than 32 per row
-        kernel_lab._variant_scan(qg, vt, bc, bf, bl, rv, 33, 128, 128, "nogate")
+    with pytest.raises(ValueError, match="nbins 128"):  # bins other than 128
+        kernel_lab._variant_scan(qg, vt, bc, bf, bl, rv, 4, 128, 64, "nogate")
 
 
 @pytest.mark.parametrize("pallas", [True, False], ids=["k8", "plain"])
@@ -1571,6 +1565,19 @@ def test_k3_fp32_sorted_base_every_column_passes(dev):
         assert _k3_equal(q, bt, k) == 1
 
 
+@pytest.mark.parametrize("k", [257, 300, 1000])
+@pytest.mark.parametrize("nbins", [0, 128], ids=["exact", "bin128"])
+def test_k3_fp32_past_256_in_passes_equal_to_plain(dev, k, nbins):
+    """fp32 k past one launch's 256 on a tie-heavy batch (values 0..3): a
+    pass of 256 at a time, each bounded by the last entry of the one
+    before (binned: the survivors of 6 tiles of 512, 1536 a row)."""
+    rng = np.random.default_rng(52)
+    q, bt, _ = _k3_operands(dev, rng, "f32", 70, 37, 3001, 0, 4)
+    n_valid = torch.tensor([2900], dtype=torch.int32, device=dev)
+    launches = _k3_equal(q, bt, k, nbins=nbins, tile_n=512 if nbins else None, n_valid=n_valid)
+    assert launches == -(-k // 256)
+
+
 def _k2_wide(w, dtype):
     """Rows of values 0..4 (ties across every segment edge), a row of fill
     values but two, and (float) -0.0 / +0.0 ties."""
@@ -1661,18 +1668,20 @@ def test_k4_k6_k7_kernels_wide_k_equal_to_plain(dev, k, dtype, depth):
 @pytest.mark.parametrize("d", WIDE_D)
 @pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
 def test_k4_k6_k7_kernels_wide_d_equal_to_plain(dev, d, dtype):
-    """The float stage in d-slices past D' = 320; int8 on wgmma to its
-    shared-memory cap (ivf_scan.int8_dim_max)."""
+    """The float stage in d-slices past D' = 320; int8 on wgmma with the
+    routed rows resident."""
     assert _grouped_three(dev, dtype, 20, 2, d, sizes=(900, 300, 129), ties=False) == (1, 1, 1)
 
 
-def test_k4_int8_names_its_shared_memory_cap(dev):
-    d = ivf_scan.int8_dim_max(2) + 128
-    rng = np.random.default_rng(46)
-    qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
-                                for x in _k4_inputs(rng, [100], 128, 8, d, False, False, False))
-    with pytest.raises(ValueError, match=f"D <= {d - 128}"):
-        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128)
+@pytest.mark.parametrize("d", [3072, 4096, 6144])
+@pytest.mark.parametrize("depth", [2, 4])
+def test_k4_k6_k7_int8_past_the_resident_rows_equal_to_plain(dev, d, depth):
+    """int8 D past the routed rows the wgmma kernel holds beside two stages
+    (2816 at depth 1-2, 5888 at 3-4): each unit's rows gathered beside its
+    transpose.  Random int8 values keep every |dot| far below 2**24, so the
+    plain fp32 product stays exact."""
+    assert _grouped_three(dev, "int8", 20, depth, d, sizes=(900, 300, 129),
+                          ties=False) == (1, 1, 1)
 
 
 @pytest.mark.parametrize("d", WIDE_D)
@@ -1833,3 +1842,113 @@ def test_brute_force_defaults_at_d768_card_equals_cpu(dev):
     want = BruteForceIndex(base, device="cpu").search_device(torch.from_numpy(queries), 10)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# K5 fp32 on the register tile (128 rows x 128 bins a CTA): (B, D, N,
+# tile_n, group): B past a whole row tile, N not a multiple of tile_n (a
+# partial tile and padded ones), group 2 and 16 (the ceded low bits).
+# Values -8..8 keep every fp32 sum exact at D 768.
+K5_F32_SHAPES = {
+    "b200-d129-g2": (200, 129, 5000, 256, 2),
+    "b129-d129-g16": (129, 129, 9000, 2048, 16),
+    "b70-d384-g16": (70, 384, 3001, 128, 16),
+    "b300-d768-g2": (300, 768, 4100, 512, 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(K5_F32_SHAPES))
+def test_k5_fp32_tile_edges_bit_equal_to_plain(dev, shape):
+    b, d, n, tile_n, group = K5_F32_SHAPES[shape]
+    rng = np.random.default_rng(53)
+    q = torch.from_numpy(rng.integers(-8, 9, (b, d)).astype(np.float32)).to(dev)
+    q[::7] = 0.0  # rows whose every score is +0: ties across every tile
+    tiles, _ = bruteforce_accum.tile_base(rng.integers(-8, 9, (d, n)).astype(np.float32),
+                                          tile_n, group)
+    tiles = tiles.to(dev)
+    kw = dict(group=group, depth=group)
+    before = bruteforce_accum.LAUNCHES
+    v, i = bruteforce_accum.fused_topk_accum(q, tiles, n, 20, **kw)
+    rv, ri = bruteforce_accum.fused_topk_accum_reference(q, tiles, n, 20, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_accum.LAUNCHES == before + 1
+    assert torch.equal(_bits(v), _bits(rv)) and torch.equal(i, ri)
+    assert int(i.max()) < n
+
+
+# K1 fp32 on the register tile (128 routed rows x a chunk's 128 bins a
+# CTA): (sizes, blk, qcap, d): qcap 200 (a partial row tile) and 256,
+# clusters of 1, 3 and 16 blocks, partial rows_valid, D 129 and 768.
+K1_F32_SHAPES = [
+    ([2000, 129, 5000], 2048, 200, 129),
+    ([300, 16 * 128 - 7, 129], 128, 256, 129),
+    ([700, 4100, 40], 2048, 256, 768),
+    ([5000, 1, 0, 2048], 2048, 200, 768),
+]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", K1_F32_SHAPES)
+@pytest.mark.parametrize("bin2", [True, False], ids=["bin2", "bin1"])
+def test_k1_fp32_tile_edges_bit_equal_to_plain(dev, sizes, blk, qcap, d, bin2):
+    rng = np.random.default_rng(54)
+    lo, hi = (-127, 128) if d <= 129 else (-8, 9)
+    qg, vt, bf, bl, rv = _k1_inputs(rng, sizes, blk, qcap, d, lo, hi)
+    qg[:, ::7] = 0
+    qg, vt = _as_float(dev, "fp32", qg, vt)
+    bf, bl, rv = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv))
+    before = ivf_accum.LAUNCHES
+    got = ivf_accum.cluster_major_accum_planes(qg, vt, bf, bl, rv, blk=blk, bin2=bin2)
+    want = ivf_accum.cluster_major_accum_planes_reference(qg, vt, bf, bl, rv, blk=blk,
+                                                          bin2=bin2)
+    torch.cuda.synchronize()
+    assert ivf_accum.LAUNCHES == before + 1
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(got[rows], want[rows])
+
+
+@pytest.mark.parametrize("k", [33, 64])
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_kernel_wide_k_equal_to_plain(dev, k, variant):
+    """K10 past 32 a row: full and nogate in passes of 32 (as K6), maxonly
+    and fixedout in one launch that writes the row max to every slot."""
+    rng = np.random.default_rng(55)
+    qg, vt, bc, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
+                                    for x in _k6_inputs(rng, [3000, 2100, 40, 2500], 2048, 24,
+                                                        128, True, "dense", False))
+    cut = int(torch.nonzero(rv).max()) + 1
+    tabs = [x[:cut] for x in (vt, bc, bf, bl, rv)]
+    args = (qg, *tabs, k, 2048, 128, variant)
+    before = kernel_lab.LAUNCHES
+    pv, pr = kernel_lab._variant_scan(*args)
+    rv_, rr = kernel_lab._variant_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert kernel_lab.LAUNCHES - before == (-(-k // 32) if variant in ("full", "nogate") else 1)
+    win = _k10_defined(variant, tabs[1], tabs[3])
+    assert torch.equal(pv[win], rv_[win])
+    fin = rv_[win] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[win][fin], rr[win][fin])
+
+
+def test_int8_l2_ivf_at_d3072_card_equals_cpu(dev):
+    """An int8 L2 ``IVFIndex`` at D 3072 (OpenAI text-embedding-3-large's
+    width): ``engine="auto"`` resolves to "pallas" (K4) past K1's key caps,
+    and ``search_device`` with its defaults answers on the card as on the
+    CPU."""
+    base, queries = make_synthetic(3000, 40, 3072, 8, seed=8)
+    src = IVFIndex.build(base, nlist=12, metric="l2", dtype="int8", pad_block=256,
+                         max_iter=5, device="cpu")
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype="int8", pad_block=256,
+                                   config=src.config, device=device)
+        out = idx.search_device(torch.from_numpy(queries).to(device), 10, 4)
+        return [x.cpu() for x in out]
+
+    before = ivf_scan.LAUNCHES
+    got = search(dev)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES - before >= 1
+    want = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -1,11 +1,13 @@
 """The port's selection past its CUDA kernels' old limits, on the CPU: K2's
 segment-and-merge for rows wider than a warp's shared memory holds, K3's
-fp32 split-and-merge, and the passes of 32 that K3's int8 and bf16 modes,
-K4, K6 and K7 run for k > 32.  Each is a plain function that takes the
-per-part selection as an argument, so the code the card runs around its
-kernels runs here with the plain versions, against the JAX kernels in
-interpret mode.  The kernels themselves are held to these on the card by
-``tests/test_torch_cuda.py``.
+fp32 split-and-merge, the passes of 32 that K3's int8 and bf16 modes, K4,
+K6, K7 and K10 run for k > 32 and the passes of 256 of K3's fp32 mode.
+Each is a plain function that takes the per-part selection as an
+argument, so the code the card runs around its kernels runs here with the
+plain versions, against the JAX kernels in interpret mode.  The kernels
+themselves are held to these on the card by ``tests/test_torch_cuda.py``.
+Beside them, the public call the card used to refuse: an int8 L2 IVF index
+at D 3072.
 """
 
 import jax.numpy as jnp
@@ -13,9 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from rag_on_edge_tpu.harness import kernel_lab as jax_lab
+from rag_on_edge_tpu.models import ivf as jax_ivf
 from rag_on_edge_tpu.ops.pallas_bruteforce import fused_topk_matmul as jax_fused_topk_matmul
 from rag_on_edge_tpu.ops.pallas_topk import fused_topk as jax_fused_topk
-from rag_on_edge_tpu_torch.ops import _build, bruteforce_fused, fused_topk, topk
+from rag_on_edge_tpu.utils.datasets import make_synthetic
+from rag_on_edge_tpu_torch.harness import kernel_lab
+from rag_on_edge_tpu_torch.models import ivf as port_ivf
+from rag_on_edge_tpu_torch.ops import _build, block_tables, bruteforce_fused, fused_topk, topk
 
 
 def _wide_rows(dtype, w=20480):
@@ -120,3 +127,79 @@ def test_passes_equal_one_selection(k, dtype):
     assert torch.equal(v, rv)
     fin = rv > fill
     assert torch.equal(i[fin], ri[fin])
+
+
+@pytest.mark.parametrize("k", [257, 300, 600])
+def test_passes_of_256_equal_one_selection(k):
+    """K3 fp32's width: passes of 256 (the last one short), each bounded by
+    the last entry of the one before, on ties, shuffled ids and rows that
+    run out: the same list as one selection of k."""
+    rng = np.random.default_rng(63)
+    scores = torch.from_numpy(rng.integers(0, 9, (5, 900)).astype(np.float32))
+    scores[1, 280:] = float("-inf")
+    ids = torch.from_numpy(np.stack([rng.permutation(900) for _ in range(5)]).astype(np.int32))
+    v, i = _build.by_passes(k, _bounded_topk(scores, ids, float("-inf")), 256)
+    rv, ri = topk.extract_topk_ids(scores, ids, k, float("-inf"))
+    assert torch.equal(v, rv)
+    fin = rv > float("-inf")
+    assert torch.equal(i[fin], ri[fin])
+
+
+def _lab_layout():
+    """Three clusters over six 256-column blocks (two partly valid), qcap 8,
+    D 16, values 0..2 (ties everywhere) → (qg, vt, [bc, bf, bl, rv])."""
+    rng = np.random.default_rng(64)
+    sizes = np.asarray([400, 700, 256])
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // 256) * 256)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, 256)
+    qg = rng.integers(0, 3, (3, 8, 16), dtype=np.int8)
+    vt = rng.integers(0, 3, (len(bc), 16, 256), dtype=np.int8)
+    return qg, vt, [np.ascontiguousarray(x, np.int32) for x in (bc, bf, bl, rv)]
+
+
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_pass_split_at_k40_equals_jax(variant):
+    """K10 at k = 40 as the card runs it: ``full`` and ``nogate`` in passes
+    of 32, each pass the plain K10's candidates ranked after the row's
+    bound; ``maxonly`` and ``fixedout`` in one launch of width k, the row
+    max in every slot.  Against the JAX kernel in interpret mode, in the
+    windows each variant defines."""
+    k = 40
+    qg, vt, tabs = _lab_layout()
+    args = (torch.from_numpy(qg), torch.from_numpy(vt), *(torch.from_numpy(x) for x in tabs))
+    win = {"fixedout": np.array([0]), "maxonly": np.unique(tabs[0])}.get(
+        variant, np.unique(tabs[0][tabs[2] > 0]))
+    if variant in ("full", "nogate"):
+        # Every candidate a window holds, in the kernels' order (2 bins of
+        # 128 per block, at most 3 blocks a cluster), taken in passes.
+        allv, alli = kernel_lab._variant_scan(*args, 3 * 256, 256, 128, variant)
+        allv, alli = allv[win].reshape(-1, 3 * 256), alli[win].reshape(-1, 3 * 256)
+        v, i = _build.by_passes(k, _bounded_topk(allv, alli, float("-inf")), _build.PASS_K)
+    else:
+        v, i = kernel_lab._variant_scan(*args, k, 256, 128, variant)
+        v, i = v[win].reshape(-1, k), i[win].reshape(-1, k)
+    jv, ji = jax_lab._variant_scan(jnp.asarray(qg), jnp.asarray(vt),
+                                   *(jnp.asarray(x) for x in tabs), k, 256, 128, variant)
+    jv, ji = np.asarray(jv)[win].reshape(-1, k), np.asarray(ji)[win].reshape(-1, k)
+    assert v.numpy().tobytes() == jv.tobytes()
+    fin = jv > -np.inf
+    assert fin.any()
+    np.testing.assert_array_equal(i.numpy()[fin], ji[fin])
+
+
+def test_int8_l2_ivf_at_d3072_equals_jax():
+    """An int8 L2 IVF index at D 3072 (OpenAI text-embedding-3-large's
+    width), past K1's key caps, so ``engine="auto"`` resolves to "pallas"
+    (K4) in both packages: ``search_device`` with its defaults gives the
+    JAX package's ids, scores and candidate counts."""
+    base, queries = make_synthetic(n_base=512, n_queries=4, dim=3072, n_clusters=4, seed=9)
+    j = jax_ivf.IVFIndex.build(base, nlist=4, metric="l2", dtype="int8", pad_block=128, seed=42)
+    t = port_ivf.IVFIndex.from_arrays(j._centroids_np, j._vectors_np, j._offsets_np,
+                                      j._reorder_np, metric="l2", dtype="int8", pad_block=128,
+                                      config=j.config, device="cpu")
+    assert j.dim > j._accum_dim_cap() and t.dim > t._accum_dim_cap()
+    jv, jids, jc = j.search_device(jnp.asarray(queries), 10, 2)
+    tv, tids, tc = t.search_device(torch.from_numpy(queries), 10, 2)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
