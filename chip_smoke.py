@@ -190,13 +190,16 @@ script exits non-zero without a result line:
              bit-equal to their plain versions at ragged sizes (D' 37, 129
              and 320, 40 routed rows, a batch of 70) on integer data; then,
              on phase 13's fp32 and bf16 indexes rebuilt from its arrays: K7
-             at the dense walk and a recovery list, and
+             (bf16 on ``grouped_wgmma_kernel``, fp32 on ``grouped_ffma_kernel``)
+             at the dense walk and a recovery list, timed beside
+             ``torch.bmm`` of the dense walk's product alone, and
              ``search_device(q, 10, 4, engine="pallas_routed")`` over all
              queries, counted (K7 alone; ids and scores equal to
              ``engine="pallas"``); K9 at K1's shapes, counted; K10's four
              variants on a float routed table at the lab's defaults, then the
-             lab, counted; ``ShardedIVFIndex(index, [cuda:0] * 4)``: K6 at
-             shard 0's dense walk and at a recovery list, then
+             lab, counted; ``ShardedIVFIndex(index, [cuda:0] * 4)``: K6 (K7's
+             kernels) at shard 0's dense walk, beside ``torch.bmm`` of its
+             product alone, and at a recovery list, then
              ``search_device(q, 10, 4, mode="cluster")`` with its defaults
              (K1, K6 in the recovery pass, K2; counted; spill 0, recall@10
              >= 0.99, @1 >= the fp32 index's, both within 0.001 of the single
@@ -245,10 +248,6 @@ K_WIDE, GT_K = 20, 100
 # k past one launch of K10 (32 a row) and of K3's fp32 mode (256 a row).
 K10_WIDE_K, K3_WIDE_K = 64, 300
 REPS = 10
-# H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
-# dense int8 tensor-core ops/s, and 32-bit non-tensor ops/s.
-HBM_BYTES_S, INT8_OPS_S, OPS32_S = 3.35e12, 1979e12, 67e12
-BF16_OPS_S = 989e12  # dense bf16 tensor-core FLOP/s: the bound of the bf16 modes
 # The kernels of the int8 IVF default calls, by a substring of their device
 # names: the single index's (K1, the recovery pass's K4, K2) and the sharded
 # index's (K1, the recovery pass's K6, K2; its engine="pallas" walk is K6).
@@ -256,6 +255,8 @@ HEADLINE_KERNELS = {"K1": "planes_wgmma_kernel", "K4": "grouped_wgmma_kernel",
                     "K2": "fused_topk_kernel"}
 SHARDED_KERNELS = {"K1": "planes_wgmma_kernel", "K6": "grouped_wgmma_kernel",
                    "K2": "fused_topk_kernel"}
+# The CUDA kernel of K6's and K7's float modes, by mode (the kernel line).
+K67_KERNEL = {"bf16": "grouped_wgmma_kernel", "fp32": "grouped_ffma_kernel"}
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -270,17 +271,10 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = REPS) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events, after a warm-up)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of ``fn()`` in ms (``timing.median_ms``)."""
+    from rag_on_edge_tpu_torch.harness.timing import median_ms
+
+    return median_ms(fn, reps)
 
 
 def device_ms_by_kernel(torch, fn, calls: int = 1) -> dict | str:
@@ -307,10 +301,12 @@ def device_ms_by_kernel(torch, fn, calls: int = 1) -> dict | str:
 
 
 def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the operations over their peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    """The least time (ms) the card could take (``timing.bound_ms``): the
+    larger of the bytes over the memory rate and the operations over their
+    peak rate."""
+    from rag_on_edge_tpu_torch.harness.timing import bound_ms
+
+    return bound_ms(nbytes, ops, ops_rate)
 
 
 def cubin_report(_build, name: str):
@@ -363,51 +359,66 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
     register-tiled kernel's registers, spills and FFMA count, any ptxas
     warning that serializes the wgmma groups, and the count of ``__dp4a``
     (IDP) instructions by kernel (``grouped_scan_kernel`` by instantiation).
-    Raises if an int8 instantiation holds no s8 warpgroup MMA, a wgmma
-    kernel holds IDP, a kernel not named in ``idp_allowed`` (K9's
-    ``accum_extract_kernel`` beside K1; ``grouped_scan_kernel`` beside K4,
-    K6 and K7) holds IDP, an int8 ``grouped_scan_kernel`` instance is not
-    one of K10's four variants at bin depth 2 (K6's int8 mode runs on
-    ``grouped_wgmma_kernel``), or ``grouped_wgmma_kernel`` lacks one of
-    K4's, K6's and K7's depths 1-4."""
+    Raises if an int8 instantiation holds no s8 warpgroup MMA or a bf16 one
+    no bf16 warpgroup MMA, a wgmma kernel holds IDP, a kernel not named in
+    ``idp_allowed`` (K9's ``accum_extract_kernel`` beside K1;
+    ``grouped_scan_kernel`` beside K4, K6 and K7) holds IDP, an int8
+    ``grouped_scan_kernel`` instance is not one of K10's four variants at
+    bin depth 2 (K6's int8 mode runs on ``grouped_wgmma_kernel``),
+    ``grouped_wgmma_kernel`` lacks one of K4's, K6's and K7's int8 depths
+    1-4 or K6's and K7's bf16 depths 1-4, ptxas serializes its groups
+    (C7520), or ``grouped_ffma_kernel`` lacks one of K6's and K7's fp32
+    depths 1-4."""
     import re
 
     props, warnings, opcodes = cubin_report(_build, name)
     ops = {f: {o for o in c if "GMMA" in o} for f, c in opcodes.items()}
     idp = {f: n for f, c in opcodes.items() if (n := sum(v for o, v in c.items()
                                                           if o.startswith("IDP")))}
-    lines, grouped_seen = [], set()
+    lines, grouped_seen, ffma_seen = [], set(), set()
+    kern_of = {"0": "K4", "1": "K6", "2": "K7"}
     for fn in sorted(f for f in set(ops) | set(props) if "wgmma_kernel" in f):
         short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
-        grouped = re.search(r"grouped_wgmma_kernelILi(\d)E\w*?QSrcE(\d)E", fn)
+        grouped = re.search(r"grouped_wgmma_kernelI(a|13__nv_bfloat16)Li(\d)E\w*?QSrcE(\d)E", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
         if grouped:
-            kern = {"0": "K4", "1": "K6", "2": "K7"}[grouped.group(2)]
-            grouped_seen.add((kern, grouped.group(1)))
-            tag = f"grouped_wgmma_kernel<{kern}, depth {grouped.group(1)}>"
+            kern, mode = kern_of[grouped.group(3)], "int8" if grouped.group(1) == "a" else "bf16"
+            grouped_seen.add((kern, mode, grouped.group(2)))
+            tag = f"grouped_wgmma_kernel<{kern} {mode}, depth {grouped.group(2)}>"
         p_ = props.get(fn, {})
         lines.append(f"{tag}: {p_.get('regs')} registers, {p_.get('stack')} bytes stack frame, "
                      f"spill stores/loads {p_.get('spills')}, wgmma opcodes "
                      f"{sorted(ops.get(fn, ()))}")
-        int8 = re.search(r"wgmma_kernelILi[12]E", fn) or grouped
+        int8 = re.search(r"wgmma_kernelILi[12]E", fn) or (grouped and grouped.group(1) == "a")
         if int8 and not any("S8" in o or o.startswith("IGMMA") for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no s8 warpgroup MMA: {sorted(ops.get(fn, ()))}")
-        if re.search(r"wgmma_kernelILi0E", fn) and not any("BF16" in o for o in ops.get(fn, ())):
+        bf16 = re.search(r"wgmma_kernelILi0E", fn) or (grouped and grouped.group(1) != "a")
+        if bf16 and not any("BF16" in o for o in ops.get(fn, ())):
             raise AssertionError(f"{tag} holds no bf16 warpgroup MMA: {sorted(ops.get(fn, ()))}")
+    serial = [w for w in warnings if "grouped_wgmma_kernel" in w]
+    if serial:
+        raise AssertionError(f"ptxas serializes grouped_wgmma_kernel's groups: {serial}")
     for fn in sorted(f for f in set(opcodes) | set(props)
                      if "ffma_kernel" in f or "fused_f32_kernel" in f):
-        # The fp32 modes on ffma_tile.cuh's register tile (K3, K5, K1).
+        # The fp32 modes on ffma_tile.cuh's register tile (K3, K5, K1, K6, K7).
         p_ = props.get(fn, {})
         short = re.search(r"(fused_f32_kernel|accum_ffma_kernel|planes_ffma_kernel)(?:I(\w+?)EEv)?",
                           fn)
         tag = (f"{short.group(1)}<{short.group(2)}>" if short and short.group(2) else
                short.group(1) if short else fn)
+        grouped = re.search(r"grouped_ffma_kernelILi(\d)E\w*?QSrcE(\d)E", fn)
+        if grouped:
+            ffma_seen.add((kern_of[grouped.group(2)], grouped.group(1)))
+            tag = f"grouped_ffma_kernel<{kern_of[grouped.group(2)]} fp32, depth {grouped.group(1)}>"
         lines.append(f"{tag}: {p_.get('regs')} registers, "
                      f"{p_.get('stack')} bytes stack frame, spill stores/loads "
                      f"{p_.get('spills')}, FFMA {opcodes.get(fn, {}).get('FFMA', 0)}")
-    if grouped_seen and len(grouped_seen) != 12:
+    if grouped_seen and len(grouped_seen) != 20:
         raise AssertionError(f"grouped_wgmma_kernel instances {sorted(grouped_seen)}: K4, K6 "
-                             "and K7 at depths 1-4 expected")
+                             "and K7 int8 and K6 and K7 bf16 at depths 1-4 expected")
+    if grouped_seen and len(ffma_seen) != 8:
+        raise AssertionError(f"grouped_ffma_kernel instances {sorted(ffma_seen)}: K6 and K7 "
+                             "fp32 at depths 1-4 expected")
     by_kernel, by_inst = {}, {}
     for f in opcodes:
         inst = re.search(r"grouped_scan_kernelIaLi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", f)
@@ -464,24 +475,10 @@ def split_by_kernel(by_kernel: dict, families: dict) -> dict:
 
 def prod_ms(torch, qg, vectors_t) -> float | str:
     """Device ms of the per-block product ``qg @ vectors_t`` alone as one
-    ``torch.bmm`` (K1's yardstick): fp32 operands in fp32 with TF32 off;
-    any other as bf16 operands into fp32 (SIFT's integers are exact in
-    bf16).  The casts are made outside the timing."""
-    if qg.dtype == torch.float32:
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return cuda_ms(torch, lambda: torch.bmm(qg, vectors_t))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-    q16, v16 = qg.to(torch.bfloat16), vectors_t.to(torch.bfloat16)
-    try:
-        return cuda_ms(torch, lambda: torch.bmm(q16, v16, out_dtype=torch.float32))
-    except TypeError:
-        return "not measured (torch.bmm takes no out_dtype here)"
-    finally:
-        del q16, v16
-        torch.cuda.empty_cache()
+    ``torch.bmm`` (K1's yardstick; ``timing.bmm_ms``)."""
+    from rag_on_edge_tpu_torch.harness.timing import bmm_ms
+
+    return bmm_ms(qg, vectors_t, REPS)
 
 
 def planes_close(ivf_accum, got, want, order) -> tuple[bool, float]:
@@ -498,20 +495,11 @@ def planes_close(ivf_accum, got, want, order) -> tuple[bool, float]:
 
 
 def walked_blocks(np, block_first, block_last, rows_valid) -> tuple[int, int]:
-    """What a cluster-major function must read: the blocks with rows in a
-    run of blocks that ends at a ``block_last`` (the run starts at the
-    latest ``block_first``), and the sum of their ``rows_valid``.  Columns
-    past ``rows_valid`` only yield masked keys, so a bound charges a block's
-    slab, bias and products for its valid columns alone."""
-    bf, bl, rv = (x.cpu().numpy() for x in (block_first, block_last, rows_valid))
-    walked = cols = 0
-    for t in np.nonzero(bl)[0]:
-        b = t
-        while b > 0 and bf[b] == 0:
-            b -= 1
-        walked += int((rv[b:t + 1] > 0).sum())
-        cols += int(rv[b:t + 1].sum())
-    return walked, cols
+    """The blocks a cluster-major function must read and their valid
+    columns (``timing.walked_blocks``)."""
+    from rag_on_edge_tpu_torch.harness.timing import walked_blocks as walked
+
+    return walked(block_first, block_last, rows_valid)
 
 
 def main() -> None:
@@ -527,6 +515,7 @@ def main() -> None:
 
     from rag_on_edge_tpu_torch import BruteForceIndex, IVFIndex
     from rag_on_edge_tpu_torch.harness import bench_gemm, hw_probe, kernel_lab, timing
+    from rag_on_edge_tpu_torch.harness.timing import BF16_OPS_S, INT8_OPS_S, OPS32_S
     from rag_on_edge_tpu_torch.models import ivf as ivf_mod
     from rag_on_edge_tpu_torch.ops import (_build, bruteforce_accum, bruteforce_fused,
                                            fused_topk, ivf_accum, ivf_scan, quantize,
@@ -2463,11 +2452,15 @@ def main() -> None:
                 bound=bound(walked * qcap_f * 4 + cols * dp * es + qi_f.numel() * es
                             + r7.numel() * qcap_f * kk * 8,
                             2.0 * qcap_f * cols * dp, rate), lib_ms=None)
+            if name == "dense":  # the per-block product alone, torch.bmm (K1's yardstick)
+                k7[name]["prod_ms"] = prod_ms(torch, index._scan_inputs(q, cq_f)[1], vt)
             phase("floatscan", t0, f"K7 {mode} {name}: qi {tuple(qi_f.shape)} cq_blocks "
                   f"{tuple(cqb_.shape)} vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal, pr "
                   f"equal where finite, on {r7.numel()} last blocks ({walked} walked); {k7[name]}")
         del k7_in
-        fl14[f"K7 {mode}"] = k7["dense"]
+        fl14[f"K7 {mode}"] = dict(k7["dense"], recovery_ms=k7["recovery"]["ms"],
+                                  recovery_bound_ms=k7["recovery"]["bound"][0],
+                                  kernel=K67_KERNEL[mode])
 
         # The routed engine over all queries, counted, against engine="pallas".
         reset_launches()
@@ -2603,12 +2596,17 @@ def main() -> None:
                     *args, **kw), reps=3), lib_ms=None,
                 bound=bound((walked * qcap_f + cols) * dp * es + r6.numel() * qcap_f * kk * 8,
                             2.0 * qcap_f * cols * dp, rate))
+            if name == "dense":  # the per-block product alone, torch.bmm
+                k6[name]["prod_ms"] = prod_ms(torch, args[0][args[2].long()].contiguous(),
+                                              args[1])
             phase("floatscan", t0, f"K6 {mode} {name} (shard {0 if name == 'dense' else s_rec}):"
                   f" qg {tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv "
                   f"bit-equal, pr equal where finite, on {r6.numel()} emitted clusters "
                   f"({walked} blocks walked); {k6[name]}")
         del r, rec_scan, k6_in
-        fl14[f"K6 {mode}"] = k6["recovery"]
+        fl14[f"K6 {mode}"] = dict(k6["recovery"], dense_ms=k6["dense"]["ms"],
+                                  dense_bound_ms=k6["dense"]["bound"][0],
+                                  prod_ms=k6["dense"]["prod_ms"], kernel=K67_KERNEL[mode])
         reset_launches()
         ids_s, residual_s, wall_s = sharded_all(sh, BATCH, mode="cluster")
         launch_s = read_launches()
@@ -3003,7 +3001,8 @@ def main() -> None:
                 "replaces": f"rag_on_edge_tpu/{tpu}", "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"],
-                **({"prod_ms": r["prod_ms"]} if "prod_ms" in r else {})})
+                **{x: r[x] for x in ("prod_ms", "kernel", "dense_ms", "dense_bound_ms",
+                                     "recovery_ms", "recovery_bound_ms") if x in r}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

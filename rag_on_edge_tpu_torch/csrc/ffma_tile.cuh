@@ -1,17 +1,20 @@
 // The register-tiled FFMA product shared by the fp32 modes of K3
 // (bruteforce_fused.cu, fused_f32_kernel), K5 (bruteforce_accum.cu,
-// accum_ffma_kernel) and K1 (ivf_accum_planes.cu, planes_ffma_kernel): the
-// pattern of K8's fp32 kernel (tiled_matmul.cu).
+// accum_ffma_kernel), K1 (ivf_accum_planes.cu, planes_ffma_kernel) and K6
+// and K7 (ivf_grouped_scan.cu, grouped_ffma_kernel): the pattern of K8's
+// fp32 kernel (tiled_matmul.cu).
 //
-// - the CTA's tile: 64 WM rows x 128 columns, WM warps along the rows x 4
-//   along the columns, 8 x 8 fp32 accumulators a thread (Place: which rows
-//   and columns those are);
+// - the CTA's tile: 8 MI WM rows x 128 columns, WM warps along the rows x 4
+//   along the columns, MI x 8 fp32 accumulators a thread (Place: which rows
+//   and columns those are; MI = 8 but in K6's and K7's 32-row tiles, MI = 4
+//   with WM = 1);
 // - the ring: STAGES stages of one d-slice of BK each (the kernel picks
 //   both: K3 three of 16, which its shared buffers leave room for; K5 and
-//   K1 two of 32), the tile's rows [BM, BK] at a pitch of PA = BK + 4
-//   floats (the pad keeps a warp's 16-byte reads of eight rows apart in the
-//   banks) and the chunk's [BK, 128] columns,
-//   filled by cp.async (Copier) while the stage before is multiplied;
+//   K1 two of 32; K6 and K7 two of 32, or three of 16 at bin depths 3-4),
+//   the tile's rows [BM, BK] at a pitch of PA = BK + 4 floats (the pad
+//   keeps a warp's 16-byte reads of eight rows apart in the banks) and the
+//   chunk's [BK, 128] columns, filled by cp.async (Copier; the rows strided,
+//   or gathered through an index) while the stage before is multiplied;
 //   d past D, rows past the operand's and columns past its width arrive as
 //   zeros, so D has no cap;
 // - the product of one slice (fma_slice): every score is one fmaf a
@@ -31,9 +34,11 @@ namespace ffma {
 
 constexpr int BN = 128;       // columns a chunk
 
-template <int WM, int BK_, int STAGES_>
+template <int WM, int BK_, int STAGES_, int MI_ = 8>
 struct Tile {
-  static constexpr int BM = 64 * WM;
+  static_assert(MI_ == 8 || WM == 1, "fewer rows a thread take one warp row");
+  static constexpr int MI = MI_;              // rows a thread, 8 apart
+  static constexpr int BM = 8 * MI * WM;
   static constexpr int THREADS = 128 * WM;
   static constexpr int BK = BK_;              // d a slice
   static constexpr int PA = BK + 4;           // a staged row's pitch in floats
@@ -45,7 +50,7 @@ struct Tile {
 
 // This thread's place: warp (wm, wn), lane (lm, ln) = (lane / 4, lane % 4);
 // accumulator (i, j) is tile row 64 wm + 8 i + lm and chunk column 32 wn +
-// 16 (j / 4) + 4 ln + j % 4 (i, j < 8).
+// 16 (j / 4) + 4 ln + j % 4 (i < MI, j < 8).
 struct Place {
   int wm, wn, lm, ln;
   __device__ __forceinline__ explicit Place(int tid)
@@ -107,7 +112,6 @@ struct Copier {
     const uint32_t so = smem_addr(stage);
     const int ea = k0 + aq;
     const int na = 4 * min(4, max(0, d - ea));     // the bytes of d an A copy holds
-    const int nc = 4 * min(4, max(0, ncols - bq));  // the bytes of columns a B copy holds
 #pragma unroll
     for (int j = 0; j < NA; ++j) {
       const int r = ar + AR * j;
@@ -125,6 +129,33 @@ struct Copier {
         }
       }
     }
+    load_b(so, b, ldb, ncols, vec_b, d, k0);
+  }
+
+  // The same with A gathered: row r is row idx[r] of a [nsrc, lda] (16-byte
+  // aligned rows), zeros where idx[r] lies outside [0, nsrc) or r is past
+  // A's row count (K7's fp32 mode: the routed rows from the batch).
+  __device__ __forceinline__ void load_gather(float* stage, const float* __restrict__ a, int lda,
+                                              const int32_t* __restrict__ idx, int nsrc,
+                                              const float* __restrict__ b, int ldb, int ncols,
+                                              bool vec_b, int d, int k0) const {
+    const uint32_t so = smem_addr(stage);
+    const int ea = k0 + aq;
+    const int na = 4 * min(4, max(0, d - ea));
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int r = ar + AR * j;
+      const int s = (arows >> j) & 1u ? idx[r] : -1;
+      const int nb = s >= 0 && s < nsrc ? na : 0;
+      cp_async_16(so + (r * PA + aq) * 4, nb ? a + (size_t)s * lda + ea : a, nb);
+    }
+    load_b(so, b, ldb, ncols, vec_b, d, k0);
+  }
+
+  // B's part of a stage at shared address so.
+  __device__ __forceinline__ void load_b(uint32_t so, const float* __restrict__ b, int ldb,
+                                         int ncols, bool vec_b, int d, int k0) const {
+    const int nc = 4 * min(4, max(0, ncols - bq));  // the bytes of columns a B copy holds
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const int e = k0 + br + BR * j;
@@ -151,14 +182,14 @@ struct Copier {
 // past dl.
 template <class Tl>
 __device__ __forceinline__ void fma_slice(const float* stage, const Place& p, int dl,
-                                          float (&acc)[8][8]) {
-  constexpr int BK = Tl::BK, PA = Tl::PA;
+                                          float (&acc)[Tl::MI][8]) {
+  constexpr int BK = Tl::BK, PA = Tl::PA, MI = Tl::MI;
   const float* as = stage + (64 * p.wm + p.lm) * PA;
   const float* bs = stage + Tl::A_FLOATS + 32 * p.wn + 4 * p.ln;
   auto group4 = [&](int kq) {
-    float av[8][4];
+    float av[MI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const float4 v = *reinterpret_cast<const float4*>(as + i * 8 * PA + kq);
       av[i][0] = v.x;
       av[i][1] = v.y;
@@ -171,7 +202,7 @@ __device__ __forceinline__ void fma_slice(const float* stage, const Place& p, in
       const float4 b1 = *reinterpret_cast<const float4*>(bs + (kq + kk) * BN + 16);
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int j = (i & 1) ? 7 - jj : jj;
@@ -187,9 +218,10 @@ __device__ __forceinline__ void fma_slice(const float* stage, const Place& p, in
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+template <int MI>
+__device__ __forceinline__ void zero(float (&acc)[MI][8]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 }

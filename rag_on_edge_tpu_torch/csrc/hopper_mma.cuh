@@ -2,8 +2,8 @@
 // K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
 // (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu),
 // K1's int8 and bf16 modes (ivf_accum_planes.cu) and K4's, K6's and K7's
-// int8 modes (ivf_grouped_scan.cu); K2 (fused_topk.cu) takes the mbarrier
-// helpers for its bulk row copies.
+// int8 modes and K6's and K7's bf16 modes (ivf_grouped_scan.cu); K2
+// (fused_topk.cu) takes the mbarrier helpers for its bulk row copies.
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
@@ -15,7 +15,8 @@
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled operand and
 //   wgmma.mma_async m64nNk16 bf16 -> f32 for N = 64, 128 and 256, with A
 //   K-major and B MN-major (the transpose-B bit), so B is read as it lies
-//   N-contiguous in device memory; wgmma.mma_async m64nNk32 s8 -> s32 for
+//   N-contiguous in device memory, and for N = 16 and 32 with A MN-major
+//   (the transpose-A bit) and B K-major; wgmma.mma_async m64nNk32 s8 -> s32 for
 //   N = 16, 32, 64 and 128, with A and B both K-major (8-bit operands have
 //   no transpose bit); a copy of a fragment;
 // - the in-shared transpose of an N-major int8 slab unit, as TMA lands it,
@@ -243,6 +244,35 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x N] = A[64 x 16] (MN-major: transpose-A 1) @ B[16 x N] (K-major),
+// bf16 -> f32, plus D where `accumulate` is not 0, for N = 32 and 16: K6's
+// and K7's bf16 modes, whose A is the slab [d, bins] as TMA lands it.
+__device__ __forceinline__ void wgmma_m64n32k16_ta(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_m64n16k16_ta(float (&d)[8], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "},"
+      " %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 16] (s32) = A[64 x 32] @ B[32 x 16], both s8 and K-major, plus D
 // where `accumulate` is not 0.
 __device__ __forceinline__ void wgmma_m64n16k32_s8(int32_t (&d)[8], uint64_t da, uint64_t db,
@@ -399,13 +429,16 @@ int bf16_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, i
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A contiguous bf16 [planes, rows, cols] array as a 128-byte-swizzled 3-D
-// tensor map of [1, box_rows, 64] boxes: a box never crosses a plane, so
-// rows past `rows` arrive as zeros, not as the next plane's first rows.
+// A bf16 [planes, rows, cols] array, its rows `pitch` elements apart (a
+// multiple of 8; 0: cols) and its planes rows * pitch, as a
+// 128-byte-swizzled 3-D tensor map of [1, box_rows, 64] boxes: a box never
+// crosses a plane, so rows past `rows` and columns past `cols` arrive as
+// zeros, not as the next plane's first rows or a row's pad.
 int bf16_map_3d(EncodeTiled encode, CUtensorMap* map, const void* base, int planes, int rows,
-                int cols, int box_rows) {
+                int cols, int box_rows, int pitch = 0) {
+  if (pitch == 0) pitch = cols;
   const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t stride[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint64_t stride[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)rows * pitch * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, step[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dim,
                             stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -66,22 +66,26 @@
 // int8 product is 6.6e10 operations, 0.03 ms on the tensor cores, and the
 // bytes (the valid slab columns, the routed rows, the top-k written) 0.05-
 // 0.06 ms; the selection after the product (a top-DEPTH per bin and a
-// merge per block and row) is not counted in either.  On the recovery pass
-// the kernel walks only the few runs whose last block made the compacted
-// list; most CTAs exit at once, and the time is one CTA's walk along the
-// longest run.  K7's gather reads the batch (1 MB at B = 8192, d = 128)
-// through L2.
+// merge per block and row) is not counted in either.  The fp32 mode (D' =
+// 129, L2 on the augmented dimension) has no tensor-core path that keeps
+// its scores, so its FMAs bound it (0.99 ms at 67 TFLOP/s over every routed
+// slot); bf16 on wgmma is bound by its bytes (0.09 ms).  On the recovery
+// pass the kernel walks only the few runs whose last block made the
+// compacted list; most CTAs exit at once, and the time is one CTA's walk
+// along the longest run.  K7's gather reads the batch (1 MB at B = 8192,
+// d = 128) through L2.
 //
-// Design of K4's, K6's and K7's int8 modes (grouped_wgmma_kernel,
-// hopper_mma.cuh):
+// Design of K4's, K6's and K7's int8 modes and K6's and K7's bf16 modes
+// (grouped_wgmma_kernel<T, DEPTH, SRC>, hopper_mma.cuh):
 // - one CTA of two warpgroups per (last block t, N routed rows: 32, or 16
 //   for DEPTH > 2); CTAs on other blocks exit before any setup, and K6's
 //   CTAs whose run's cluster bc[t] lies outside [0, nlist) too.  The
 //   product is transposed against K1's: the chunk's 128 bins are wgmma's M
-//   (64 a warpgroup) and the routed rows its N, so m64nNk32 s8 -> s32 puts
-//   each (row, bin) in one thread's registers in every chunk, and the
-//   per-bin top-DEPTH (score, chunk) stays beside the fragment (F = N / 2
-//   entries a thread); no score goes through shared memory.
+//   (64 a warpgroup) and the routed rows its N, so m64nNk32 s8 -> s32 (bf16:
+//   m64nNk16 -> f32) puts each (row, bin) in one thread's registers in every
+//   chunk, and the per-bin top-DEPTH (score, chunk) stays beside the
+//   fragment (F = N / 2 entries a thread); no score goes through shared
+//   memory.
 // - empty slots: most rows of a routed table are zero (at B = 8192,
 //   nprobe 4, nlist 1024 a cluster routes 32 pairs on average into qcap
 //   256 slots; the recovery table holds only the dropped pairs), and a
@@ -95,37 +99,63 @@
 //   without rows and chunks wholly past rows_valid are skipped (they would
 //   only add -inf; SIFT-1M's blocks are about 41% full), chunks ascending
 //   within a block so ties still go to the lower id.  Each unit is 128
-//   bytes of d: 4 k-steps.
+//   bytes of d (64 bf16 dims): 4 k-steps.
 // - operands: the slab's unit lands by TMA in a ring (`stages` deep, one
-//   mbarrier each) as eight [128 d, 16 bin] boxes and the threads
-//   transpose it into two K-major swizzled tiles (transpose_unit, shared
-//   with K1), unit u+1 while unit u's groups run; no per-call copy of the
-//   slab.  The routed rows (N x kb units) stay in shared memory for the
-//   block: K4 and K6 by TMA (the wrapper pads D to TMA's 16-byte pitch; K6's
-//   map is 3-D over qg [nlist, qcap, ldq] with the cluster bc[b] as the
-//   outer coordinate, the same rows in every block of a run), K7 gathered
-//   by the threads in 16-byte pieces from qi (zero rows for slots outside
-//   [0, B)) and handed to wgmma through the proxy fence.  The next block's
-//   rows load while this one's survivors merge.  Where kb units of rows
-//   would leave the ring under two stages (int8 D past 2816 at depth 1-2,
-//   5888 at 3-4), they are not held: the threads gather each unit's rows
-//   in 16-byte pieces into one of two unit buffers while the unit before
-//   multiplies, beside the slab's transpose, re-read from L2 every chunk,
-//   and the empty-row test reads q itself; so D has no cap.
+//   mbarrier each).  int8 lands as eight [128 d, 16 bin] boxes and the
+//   threads transpose it into two K-major swizzled tiles (transpose_unit,
+//   shared with K1), unit u+1 while unit u's groups run: 8-bit operands have
+//   no transpose bit.  bf16 lands as two [64 d, 64 bin] boxes that wgmma
+//   reads as they lie, M-major through its transpose-A bit.  No per-call
+//   copy of the slab.  The routed rows (N x kb units) stay in shared memory
+//   for the block: K4 and K6 by TMA (rows at a 16-byte pitch; K6's map is
+//   3-D over qg [nlist, qcap, ldq] with the cluster bc[b] as the outer
+//   coordinate, the same rows in every block of a run; d past D arrives as
+//   zeros), K7 gathered by the threads in 16-byte pieces from qi (zero rows
+//   for slots outside [0, B); bf16 zeroes a piece's elements past D, since a
+//   pitched row's pad may hold anything) and handed to wgmma through the
+//   proxy fence.  The next block's rows load while this one's survivors
+//   merge.  Where kb units of rows would leave the ring under two stages
+//   (int8 D past 2816 at depth 1-2, 5888 at 3-4; bf16 past 1920 and 3968),
+//   they are not held: the threads gather each unit's rows in
+//   16-byte pieces into one of two unit buffers while the unit before
+//   multiplies, re-read from L2 every chunk, and the empty-row test reads q
+//   itself; so D has no cap.
 // - the epilogue on copy_acc's copy of the fragment (reading the fragment
-//   itself has ptxas serialize the groups): score = __int2float_rn(dot)
-//   then one __fsub_rn of the bias, -inf past rows_valid, inserted with
-//   strict > (an equal score keeps the earlier, lower id).
+//   itself has ptxas serialize the groups): int8 score = __int2float_rn(dot)
+//   then one __fsub_rn of the bias; bf16 takes an exact-zero sum as +0 (the
+//   plain version sums from +0) before the bias; -inf past rows_valid,
+//   inserted with strict > (an equal score keeps the earlier, lower id).
 // - per block the survivors go to shared memory and each warp merges its
-//   N / 8 rows side by side: only candidates that beat the row's k-th
-//   entry take part, each lane's four bins are sorted lists whose heads
-//   compete, a pass takes the warp's best by two reductions (the score
-//   key, then the lowest id at it), and once every candidate that beat
-//   the k-th entry is placed the rest of the row is its old list, shifted.
+//   N / 8 rows side by side (merge_rows): only candidates that beat the
+//   row's k-th entry take part, each lane's four bins are sorted lists
+//   whose heads compete, a pass takes the warp's best by two reductions (the
+//   score key, then the lowest id at it), and once every candidate that
+//   beat the k-th entry is placed the rest of the row is its old list,
+//   shifted.
 //
-// Design of the rest (grouped_scan_kernel: K4's, K6's and K7's fp32 and
-// bf16 modes, and K10 at bin depth 2 in every mode; K10's int8 mode is its
-// one __dp4a user):
+// Design of K6's and K7's fp32 modes (grouped_ffma_kernel<DEPTH, SRC>,
+// ffma_tile.cuh, the register tile of K1's, K3's and K5's fp32 modes):
+// - one CTA of 128 threads per (last block t, 32 routed rows), 4 x 8 fp32
+//   accumulators a thread over the chunk's 128 bins; the walk over (block,
+//   chunk, d-slice) as above, the slices (32 d; 16 at DEPTH > 2) riding a
+//   cp.async ring while the slice before is multiplied, the routed rows
+//   re-read from L2 with every slice (K6 strided from qg, K7 gathered
+//   through cq_blocks at a 16-byte row pitch); one fmaf a dimension in d
+//   order from +0, so scores are bit-equal to the plain version's on exact
+//   data.
+// - a top-DEPTH (score, chunk) per accumulator would pass 255 registers:
+//   the lists live in shared memory as [row][depth][bin] (the
+//   scores fp32, the chunks a byte each: blk <= 32768), the chunk's first
+//   block writes them, later chunks read one threshold a score and insert
+//   only what passes it; the merge reads them in place.  Empty slots as in
+//   the wgmma modes: all-zero tiles from the bias words, zero rows sharing
+//   one running top-k (K7: a row is taken as zero where its slot lies
+//   outside [0, B); a zero query in a valid slot is scored, which is exact
+//   too).
+//
+// Design of the rest (grouped_scan_kernel: K4's fp32 and bf16 modes, and
+// K10 at bin depth 2 in every mode; K10's int8 mode is its one __dp4a
+// user):
 // - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
 //   DEPTH > 2): two row groups x 128 lanes, thread = (group, bin).  It
 //   walks back from t to the run's first block and then forward, one block
@@ -134,13 +164,11 @@
 // - per block: 16 chunks of 128 columns, each staged in shared memory and
 //   scored with __dp4a (int8) or fmaf (fp32 and bf16, widened to fp32 as
 //   they are staged): the stages and dot loops of ivf_stage.cuh.  The
-//   three sources differ only in the query stage: a block's rows, a
-//   cluster's rows, or (float K7) a gather through cq_blocks that loads
-//   scalars into the zero-padded fp32 rows, since a row of D' = 129 starts
-//   every 516 bytes.  Each thread keeps its bin's DEPTH best (score,
-//   chunk) per row in registers, inserted with strict > as above.
-//   The DEPTH survivors of a bin may be equal in value (K1's plane 2 is the
-//   opposite: the largest key DIFFERENT from plane 1).
+//   sources differ only in the query stage: a block's rows or a cluster's
+//   rows.  Each thread keeps its bin's DEPTH best (score, chunk) per row in
+//   registers, inserted with strict > as above.  The DEPTH survivors of a
+//   bin may be equal in value (K1's plane 2 is the opposite: the largest
+//   key DIFFERENT from plane 1).
 // - then the survivors go to shared memory (reusing the staging area) and
 //   one warp per row merges them into the row's running top-k (k <= 32, in
 //   shared memory): k passes of a warp argmax by (score desc, id asc) with
@@ -156,6 +184,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
 #include "ivf_stage.cuh"
 
@@ -182,20 +211,19 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 
 // Where the routed queries come from, and where the output goes:
 // kBlock: K4 (qg [nblocks, qcap, d], out [nblocks, qcap, k]);
-// kCluster: K6 (qg [nlist, qcap, d], out [nlist, qcap, k], through bc);
+// kCluster: K6 and K10 (qg [nlist, qcap, d], out [nlist, qcap, k], through bc);
 // kRouted: K7 (qg = qi [B, d] gathered through cq_blocks, out [nblocks, qcap, k]).
 enum class QSrc { kBlock, kCluster, kRouted };
 
 // K10's variants; every other kernel is kFull.
 enum class Variant { kFull, kNoGate, kMaxOnly, kFixedOut };
 
-// T: int8_t, or float / __nv_bfloat16 (the float modes).
+// T: int8_t (K10), or float / __nv_bfloat16 (K4's and K10's float modes).
 template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(THREADS)
 grouped_scan_kernel(const T* __restrict__ qg,                // see above
                     const T* __restrict__ vec,               // [nblocks, d, blk]
-                    const int32_t* __restrict__ block_cluster, // [nblocks] (K6 only)
-                    const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7 only)
+                    const int32_t* __restrict__ block_cluster, // [nblocks] (kCluster only)
                     const int32_t* __restrict__ block_first,   // [nblocks]
                     const int32_t* __restrict__ block_last,    // [nblocks]
                     const int32_t* __restrict__ rows_valid,    // [nblocks]
@@ -206,14 +234,16 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
                     float* __restrict__ out_v,               // see above
                     int32_t* __restrict__ out_i,             // see above
                     int qcap, int d, int blk, int k, int qstride,
-                    int nsrc) {  // rows of qg: nlist for K6, B for K7
+                    int nsrc) {  // rows of qg: nlist for kCluster
   constexpr int ROWS = Tile<DEPTH>::ROWS;
   constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
   constexpr int NCAND = Tile<DEPTH>::NCAND;
   constexpr int PER_LANE = NCAND / 32;
   constexpr bool INT8 = std::is_same_v<T, int8_t>;
-  // K4's, K6's and K7's int8 modes run on grouped_wgmma_kernel; K10's here.
-  static_assert(!INT8 || SRC == QSrc::kCluster, "int8 kBlock and kRouted run on wgmma");
+  // K4's, K6's and K7's int8 modes and K6's and K7's float modes run on
+  // grouped_wgmma_kernel and grouped_ffma_kernel; K10's and K4's float here.
+  static_assert(SRC != QSrc::kRouted && (!INT8 || SRC == QSrc::kCluster),
+                "K7 and int8 K4 run on grouped_wgmma_kernel or grouped_ffma_kernel");
   const float NEG_INF = -INFINITY;
 
   const int t = blockIdx.x;
@@ -271,10 +301,7 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
     if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
     // The float rows' d-slice from e0 (all of them when not sliced).
     auto stage_q = [&](int e0) {
-      if constexpr (!INT8 && SRC == QSrc::kRouted) {
-        stage_queries_gather_f<THREADS>(qg, cq_blocks + (size_t)b * qcap, nsrc, qcap, d, cta_r0,
-                                        CTA_ROWS, dsl, reinterpret_cast<float*>(q_s), e0);
-      } else if constexpr (!INT8) {
+      if constexpr (!INT8) {
         const int qrow = BY_CLUSTER ? block_cluster[b] : b;
         stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, dsl,
                                  reinterpret_cast<float*>(q_s), e0);
@@ -466,7 +493,7 @@ grouped_scan_kernel(const T* __restrict__ qg,                // see above
 }
 
 template <typename T, int DEPTH, QSrc SRC, Variant V>
-int launch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
+int launch(const void* qg, const void* vec, const void* block_cluster,
            const void* block_first, const void* block_last, const void* rows_valid,
            const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
            void* out_v, void* out_i, int nblocks, int qcap, int d, int blk, int k, int nsrc,
@@ -488,7 +515,7 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
   grouped_scan_kernel<T, DEPTH, SRC, V><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(qg), static_cast<const T*>(vec),
-      static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(cq_blocks),
+      static_cast<const int32_t*>(block_cluster),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
@@ -497,19 +524,18 @@ int launch(const void* qg, const void* vec, const void* block_cluster, const voi
   return (int)cudaGetLastError();
 }
 
-// The float modes of K4, K6 and K7 at bin depth 1-4.
-template <QSrc SRC, typename T>
-int dispatch(const void* qg, const void* vec, const void* block_cluster, const void* cq_blocks,
-             const void* block_first, const void* block_last, const void* rows_valid,
-             const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
-             void* out_v, void* out_i, int nblocks, int qcap, int d, int blk, int k, int depth,
-             int nsrc, void* stream) {
+// K4's float modes at bin depth 1-4.
+template <typename T>
+int dispatch(const void* qg, const void* vec, const void* block_first, const void* block_last,
+             const void* rows_valid, const void* bias, const void* row_base,
+             const void* bound_v, const void* bound_i, void* out_v, void* out_i, int nblocks,
+             int qcap, int d, int blk, int k, int depth, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAG_LAUNCH(D)                                                                        \
-  launch<T, D, SRC, Variant::kFull>(qg, vec, block_cluster, cq_blocks, block_first,           \
-                                    block_last, rows_valid, bias, row_base, bound_v, bound_i, \
-                                    out_v, out_i, nblocks, qcap, d, blk, k, nsrc, s)
+#define RAG_LAUNCH(D)                                                                         \
+  launch<T, D, QSrc::kBlock, Variant::kFull>(qg, vec, nullptr, block_first, block_last,        \
+                                             rows_valid, bias, row_base, bound_v, bound_i,     \
+                                             out_v, out_i, nblocks, qcap, d, blk, k, nblocks, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -520,7 +546,7 @@ int dispatch(const void* qg, const void* vec, const void* block_cluster, const v
 #undef RAG_LAUNCH
 }
 
-// ------------------------------------- K4, K6 and K7 int8: wgmma fed by TMA
+// ------------------------- K4, K6 and K7 int8, K6 and K7 bf16: wgmma fed by TMA
 
 constexpr int W_UNIT = 128 * 128;         // a unit of the slab: 128 bins x 128 bytes of d
 constexpr int W_HALF = W_UNIT / 2;        // one warpgroup's 64 bins
@@ -538,12 +564,21 @@ struct WTile {
   static constexpr int CS = NCAND + 4;         // their row stride: the stores are conflict-free
 };
 
+// One k-step of the unit's product: int8 m64nNk32 s8 (A and B K-major);
+// bf16 m64nNk16 with A M-major (the transpose-A bit) and B K-major.
 template <int R>
-__device__ __forceinline__ void wgmma_s8(int32_t (&d)[R], uint64_t da, uint64_t db, int acc) {
+__device__ __forceinline__ void wgmma_step(int32_t (&d)[R], uint64_t da, uint64_t db, int acc) {
   if constexpr (R == 16)
     wgmma_m64n32k32_s8(d, da, db, acc);
   else
     wgmma_m64n16k32_s8(d, da, db, acc);
+}
+template <int R>
+__device__ __forceinline__ void wgmma_step(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+  if constexpr (R == 16)
+    wgmma_m64n32k16_ta(d, da, db, acc);
+  else
+    wgmma_m64n16k16_ta(d, da, db, acc);
 }
 
 // Insert x (chunk c) into a sorted top-DEPTH: strict > keeps an equal,
@@ -582,19 +617,172 @@ __device__ __forceinline__ bool next_unit(int& b, int& c, int& j, int tb, int t,
   return false;
 }
 
-// K4 (SRC kBlock: q = qg [nblocks, qcap, ldq], also through `tq`, [1, N,
-// 128] boxes, 128-byte swizzle), K6 (SRC kCluster: q = qg [nsrc = nlist,
-// qcap, ldq], block b's rows being qg[block_cluster[b]], the same map, the
-// output row of a run ending at t being block_cluster[t]) and K7 (SRC
-// kRouted: q = qi [nsrc, ldq], row r of block b being qi[cq_blocks[b, r]],
-// gathered by the threads); the slab [nblocks, d, blk] through `tv` ([1,
-// 128, 16] boxes).  ldq is d rounded up to 16 (the pad zero); kb units of
-// 128 bytes of d.  CTA (t, y): last block t, routed rows N y .. N y + N - 1.
-template <int DEPTH, QSrc SRC>
+// A tile whose rows are zero in every block of the run scores 0 - bias on
+// every valid column, whatever the slab holds: row 0's top-DEPTH (score,
+// chunk) of bin `bin` (< 128) of a block with nvalid valid columns, from
+// the bias words bw (this bin's, the block's first; null: scores +0).
+template <int DEPTH>
+__device__ __forceinline__ void zero_row_top(const float* __restrict__ bw, int nvalid, int bin,
+                                             float (&zv)[DEPTH], int (&zc)[DEPTH]) {
+#pragma unroll
+  for (int j = 0; j < DEPTH; ++j) {
+    zv[j] = -INFINITY;
+    zc[j] = 0;
+  }
+  const int nch = (nvalid + LANES - 1) / LANES;
+  for (int c0 = 0; c0 < nch; c0 += 8) {
+    float w[8];  // eight chunks' words in flight at once
+#pragma unroll
+    for (int u = 0; u < 8; ++u) w[u] = bw != nullptr && c0 + u < nch ? bw[(c0 + u) * LANES] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = c0 + u;
+      if (c >= nch) break;
+      float x = bw != nullptr ? __fsub_rn(0.0f, w[u]) : 0.0f;
+      if (c * LANES + bin >= nvalid) x = -INFINITY;
+      insert_top<DEPTH>(zv, zc, x, c);
+    }
+  }
+}
+
+// A block's survivors merged into the running top-k of rows rows[0..R-1],
+// side by side, by one warp; rows not set in `act` take no part.
+// cand(row, depth, bin, v, id) reads a survivor.  Only candidates that beat
+// the row's k-th entry can enter (the others have k better entries ahead
+// of them); the row is skipped when there are none (the TPU kernel's
+// `improves`), and once every such candidate is placed the rest of the row
+// is its old list, shifted.  Lane l holds bins l + 32 q (q < 4), each a
+// list sorted by (score desc, id asc), and old entry l: a pass takes the
+// lane's best head, then the warp's best by two reductions (the largest
+// score key, then the lowest id at it), and the lane that held it pops that
+// list.  Finite ids are unique (row_base differs between blocks); scores
+// are never -0, so the score key orders them as the floats do.  With a
+// bound (s_bv, s_bi: a later pass of the wrapper's), only survivors ranked
+// after it take part.
+template <int DEPTH, int R, class Cand>
+__device__ __forceinline__ void merge_rows(const int (&rows)[R], uint32_t act, const Cand& cand,
+                                           float* __restrict__ run_v, int32_t* __restrict__ run_i,
+                                           const float* __restrict__ s_bv,
+                                           const int* __restrict__ s_bi, int k) {
+  const float NEG_INF = -INFINITY;
+  const int wl = threadIdx.x & 31;
+  float lv[R][4][DEPTH], ov[R], sv0[R];
+  int li[R][4][DEPTH], oi[R], si0[R], nbeat[R], left[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int rr = rows[r];
+    const bool on = (act >> rr) & 1u;  // the same in every lane
+    const float kv = run_v[rr * K_MAX + k - 1];
+    const int ki = run_i[rr * K_MAX + k - 1];
+    int cnt = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int drop = 0;  // the bin's entries at or before the row's bound: a prefix
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        float v = NEG_INF;
+        int id = 0;
+        if (on) cand(rr, j, q * 32 + wl, v, id);
+        const bool after = better(s_bv[rr], s_bi[rr], v, id);
+        const bool beats = v > NEG_INF && better(v, id, kv, ki) && after;
+        lv[r][q][j] = beats ? v : NEG_INF;
+        li[r][q][j] = id;
+        cnt += beats;
+        drop += v > NEG_INF && !after;
+      }
+      // The bin's list is sorted (score desc, id asc), so the entries the
+      // bound drops lead it: shift the rest to the head, where a pass reads.
+#pragma unroll
+      for (int s = 0; s < DEPTH - 1; ++s) {
+        if (s >= drop) break;
+#pragma unroll
+        for (int j = 0; j + 1 < DEPTH; ++j) {
+          lv[r][q][j] = lv[r][q][j + 1];
+          li[r][q][j] = li[r][q][j + 1];
+        }
+        lv[r][q][DEPTH - 1] = NEG_INF;
+      }
+    }
+    nbeat[r] = left[r] = __reduce_add_sync(FULL, cnt);
+    ov[r] = sv0[r] = wl < k ? run_v[rr * K_MAX + wl] : NEG_INF;
+    oi[r] = si0[r] = wl < k ? run_i[rr * K_MAX + wl] : 0;
+  }
+  __syncwarp();
+  for (int p = 0; p < k; ++p) {
+    bool busy = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) busy |= left[r] > 0;
+    if (!busy) break;
+    int mk[R], mi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float bv = ov[r];
+      int bi = oi[r];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (better(lv[r][q][0], li[r][q][0], bv, bi)) {
+          bv = lv[r][q][0];
+          bi = li[r][q][0];
+        }
+      mk[r] = monotone_key(bv);
+      mi[r] = bi;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = __reduce_max_sync(FULL, mk[r]);
+      mi[r] = __reduce_min_sync(FULL, mk[r] == key ? mi[r] : INT32_MAX);
+      mk[r] = key;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (left[r] == 0) continue;  // the same in every lane
+      const int rr = rows[r];
+      const float bv = key_to_f32(mk[r]);
+      if (wl == 0) {
+        run_v[rr * K_MAX + p] = bv;
+        run_i[rr * K_MAX + p] = mi[r];
+      }
+      const bool took = ov[r] == bv && oi[r] == mi[r];
+      if (took) ov[r] = NEG_INF;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (lv[r][q][0] == bv && li[r][q][0] == mi[r]) {
+#pragma unroll
+          for (int j = 0; j + 1 < DEPTH; ++j) {
+            lv[r][q][j] = lv[r][q][j + 1];
+            li[r][q][j] = li[r][q][j + 1];
+          }
+          lv[r][q][DEPTH - 1] = NEG_INF;
+        }
+      if (!__any_sync(FULL, took) && --left[r] == 0) {
+        // Slots p+1.. take the old entries not yet placed, in order.
+        const int at = wl + nbeat[r];
+        if (wl >= p + 1 - nbeat[r] && at < k) {
+          run_v[rr * K_MAX + at] = sv0[r];
+          run_i[rr * K_MAX + at] = si0[r];
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// T: int8_t (K4, K6, K7) or __nv_bfloat16 (K6, K7).  K4 (SRC kBlock: q = qg
+// [nblocks, qcap] rows, also through `tq`, [1, N, 128-byte] boxes, 128-byte
+// swizzle), K6 (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's
+// rows being qg[block_cluster[b]], the same map, the output row of a run
+// ending at t being block_cluster[t]) and K7 (SRC kRouted: q = qi [nsrc]
+// rows, row r of block b being qi[cq_blocks[b, r]], gathered by the
+// threads); the slab [nblocks, d, blk] through `tv` (int8: [1, 128, 16]
+// boxes; bf16: [1, 64, 64], 128-byte swizzle).  The rows of q lie ldq
+// bytes apart (a multiple of 16), their first qbytes (D) holding data: int8
+// is zero past it, bf16 need not be.  kb units of 128 bytes of d.  CTA (t,
+// y): last block t, routed rows N y .. N y + N - 1.
+template <typename T, int DEPTH, QSrc SRC>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv,
-                     const int8_t* __restrict__ q,
+                     const int8_t* __restrict__ q,            // bytes
                      const int32_t* __restrict__ cq_blocks,   // [nblocks, qcap] (K7)
                      const int32_t* __restrict__ block_cluster, // [nblocks] (K6)
                      const int32_t* __restrict__ block_first,
@@ -605,12 +793,15 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ bound_v,   // like out's rows, or null
                      const int32_t* __restrict__ bound_i,
                      float* __restrict__ out_v, int32_t* __restrict__ out_i,
-                     int qcap, int blk, int kb, int ldq, int k, int stages, int nsrc,
+                     int qcap, int blk, int kb, int ldq, int qbytes, int k, int stages, int nsrc,
                      int qwide) {
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
+  using Acc = std::conditional_t<BF16, float, int32_t>;
   using Tl = WTile<DEPTH>;
   constexpr int N = Tl::N, F = Tl::F, CS = Tl::CS;
   constexpr int R = N / WARPS;               // rows each warp merges
   constexpr int QUNIT = N * 128;             // a unit of the routed rows
+  constexpr int KD = 128 / (int)sizeof(T);   // d a unit
   const float NEG_INF = -INFINITY;
 
   // CTAs on blocks that end no run leave before any setup (the recovery
@@ -641,9 +832,10 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // Shared memory: the TMA ring of raw slab units, two transposed units, the
-  // routed rows (kb units; wide D: two, each unit's rows gathered beside its
-  // transpose), the block's survivors and the running top-k.
+  // Shared memory: the TMA ring of raw slab units, two transposed units
+  // (int8), the routed rows (kb units; wide D: two, each unit's rows
+  // gathered beside its transpose), the block's survivors and the running
+  // top-k.
   extern __shared__ uint8_t w_smem[];
   __shared__ __align__(8) uint64_t full[W_STAGES_MAX], qbar;
   __shared__ uint32_t s_nz;  // the routed rows of the block that hold a nonzero byte
@@ -653,7 +845,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ int s_bi[32];
   const uint32_t base = (smem_u32(w_smem) + 1023u) & ~1023u;
   uint8_t* const gbase = w_smem + (base - smem_u32(w_smem));
-  const uint32_t st = base, bk = st + stages * W_UNIT, qs = bk + 2 * W_UNIT;
+  const uint32_t st = base, bk = st + stages * W_UNIT, qs = bk + (BF16 ? 0 : 2 * W_UNIT);
   float* const cand_v = reinterpret_cast<float*>(gbase + (qs - base) + (qwide ? 2 : kb) * QUNIT);
   int32_t* const cand_i = reinterpret_cast<int32_t*>(cand_v + N * CS);
   float* const run_v = reinterpret_cast<float*>(cand_i + N * CS);
@@ -695,17 +887,34 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       return q + ((size_t)qrow(b) * qcap + r0 + n) * ldq;
     }
   };
+  // 16 bytes of a routed row (null: zeros) at byte `off`: zeros past ldq,
+  // and (bf16) past the row's qbytes of data.
+  auto piece = [&](const int8_t* row, int off) -> int4 {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (row == nullptr || off >= ldq) return v;
+    v = *reinterpret_cast<const int4*>(row + off);
+    if constexpr (BF16) {
+      const int keep = qbytes - off;  // bytes of data in the piece; even
+      if (keep < 16) {
+        int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int kw = keep - 4 * u;
+          w[u] = kw >= 4 ? w[u] : kw <= 0 ? 0 : (w[u] & 0xffff);
+        }
+        v = make_int4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    return v;
+  };
   // Wide D: unit j of block b's routed rows into row buffer buf, by the
-  // threads in 16-byte pieces, in the layout TMA gives (zeros past ldq and
-  // for rows without a source); the proxy fence and a barrier follow.
+  // threads in 16-byte pieces, in the layout TMA gives (zeros past the data
+  // and for rows without a source); the proxy fence and a barrier follow.
   auto gather_unit = [&](int b, int j, int buf) {
     for (int i = threadIdx.x; i < N * 8; i += THREADS) {
       const int n = i >> 3, p = i & 7;
-      int4 v = make_int4(0, 0, 0, 0);
-      const int8_t* src = 16 * (8 * j + p) < ldq ? row_ptr(b, n) : nullptr;
-      if (src != nullptr) v = *reinterpret_cast<const int4*>(src + 16 * (8 * j + p));
       *reinterpret_cast<int4*>(gbase + (qs - base) + buf * QUNIT + n * 128 + ((p ^ (n & 7)) << 4)) =
-          v;
+          piece(row_ptr(b, n), 16 * (8 * j + p));
     }
   };
 
@@ -719,19 +928,14 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (threadIdx.x == 0) {
         const int qb = qrow(b);
         mbar_expect_tx(&qbar, kb * QUNIT);
-        for (int j = 0; j < kb; ++j) tma_load_3d(qs + j * QUNIT, &tq, 128 * j, r0, qb, &qbar);
+        for (int j = 0; j < kb; ++j) tma_load_3d(qs + j * QUNIT, &tq, KD * j, r0, qb, &qbar);
       }
     } else {
       const int pieces = kb * 8;
       for (int i = threadIdx.x; i < N * pieces; i += THREADS) {
         const int n = i / pieces, p = i % pieces;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (r0 + n < qcap && 16 * p < ldq) {
-          const int s = cq_blocks[(size_t)b * qcap + r0 + n];
-          if (s >= 0 && s < nsrc) v = *reinterpret_cast<const int4*>(q + (size_t)s * ldq + 16 * p);
-        }
         *reinterpret_cast<int4*>(gbase + (qs - base) + (p >> 3) * QUNIT + n * 128 +
-                                 (((p & 7) ^ (n & 7)) << 4)) = v;
+                                 (((p & 7) ^ (n & 7)) << 4)) = piece(row_ptr(b, n), 16 * p);
       }
       fence_proxy_async();
     }
@@ -747,7 +951,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (qwide) {
       const int8_t* src = row_ptr(b, n);
       for (int p = threadIdx.x % TPR; src != nullptr && p < ldq / 16; p += TPR) {
-        const uint4 v = *reinterpret_cast<const uint4*>(src + 16 * p);
+        const int4 v = piece(src, 16 * p);
         any |= v.x | v.y | v.z | v.w;
       }
     } else {
@@ -767,28 +971,38 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   };
 
-  // The producer (thread 0): `stages` units ahead of the consumers.
+  // The producer (thread 0): `stages` units ahead of the consumers.  int8:
+  // eight [128 d, 16 bin] boxes; bf16: two [64 d, 64 bin] boxes, one a
+  // warpgroup.
   int pb = cb, pc = cc, pj = cj;
   bool phave = true;
   auto load = [&](int s) {
     mbar_expect_tx(&full[s], W_UNIT);
+    if constexpr (BF16) {
 #pragma unroll
-    for (int g = 0; g < 8; ++g)
-      tma_load_3d(st + s * W_UNIT + g * 2048, &tv, pc * LANES + 16 * g, 128 * pj, pb, &full[s]);
+      for (int g = 0; g < 2; ++g)
+        tma_load_3d(st + s * W_UNIT + g * W_HALF, &tv, pc * LANES + 64 * g, KD * pj, pb, &full[s]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+        tma_load_3d(st + s * W_UNIT + g * 2048, &tv, pc * LANES + 16 * g, KD * pj, pb, &full[s]);
+    }
     phave = next_unit(pb, pc, pj, tb, t, kb, blk, rows_valid);
   };
 
-  // Make the unit in stage s (parity ph) ready: its bytes have landed; the
-  // threads transpose both halves (64 bins each) into buffer buf.
+  // Make the unit in stage s (parity ph) ready: its bytes have landed; int8
+  // transposes both halves (64 bins each) into buffer buf.
   auto prep = [&](int s, unsigned ph, int buf) {
     mbar_wait_loop(&full[s], ph);
-    const uint32_t* raw = reinterpret_cast<const uint32_t*>(gbase + (st - base) + s * W_UNIT);
-    uint8_t* dst = gbase + (bk - base) + buf * W_UNIT;
-    transpose_unit(raw, dst);
-    transpose_unit(raw + W_HALF / 4, dst + W_HALF);
+    if constexpr (!BF16) {
+      const uint32_t* raw = reinterpret_cast<const uint32_t*>(gbase + (st - base) + s * W_UNIT);
+      uint8_t* dst = gbase + (bk - base) + buf * W_UNIT;
+      transpose_unit(raw, dst);
+      transpose_unit(raw + W_HALF / 4, dst + W_HALF);
+    }
   };
 
-  int32_t d[F], e[F];
+  Acc d[F], e[F];
   float tv_[F][DEPTH];
   int tc_[F][DEPTH];
 #pragma unroll
@@ -813,7 +1027,11 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < F; ++i) {
       if (!(need & (0x55u << (8 * (i >> 2) + (i & 1))))) continue;
-      float x = __int2float_rn(e[i]);
+      float x;
+      if constexpr (BF16)
+        x = __fadd_rn(e[i], 0.0f);  // an exact-zero sum as +0
+      else
+        x = __int2float_rn(e[i]);
       if (bias != nullptr) x = __fsub_rn(x, bsub[(i >> 1) & 1]);
       if (bin0 + 8 * ((i >> 1) & 1) >= lim) x = NEG_INF;
       insert_top<DEPTH>(tv_[i], tc_[i], x, c);
@@ -844,129 +1062,26 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   };
 
   // The survivors merged into each row's running top-k, warp w taking rows
-  // w, w + 8, ... side by side.  Only candidates that beat the row's k-th
-  // entry can enter (the others have k better entries ahead of them); the
-  // row is skipped when there are none (the TPU kernel's `improves`), and
-  // once every such candidate is placed the rest of the row is its old
-  // list, shifted.  Lane l holds bins l + 32 q (q < 4), each a list sorted
-  // by (score desc, id asc), and old entry l: a pass takes the lane's best
-  // head, then the warp's best by two reductions (the largest score key,
-  // then the lowest id at it), and the lane that held it pops that list.
-  // Finite ids are unique (row_base differs between blocks); int8 scores
-  // are never -0, so the score key orders them as the floats do.  Rows in
-  // `dup` are left out: their state is copied from another row after.
+  // w, w + 8, ... side by side (merge_rows).  Rows in `dup` are left out:
+  // their state is copied from another row after.
+  auto cand = [&](int rr, int j, int bin, float& v, int& id) {
+    v = cand_v[rr * CS + j * LANES + bin];
+    id = cand_i[rr * CS + j * LANES + bin];
+  };
+  int mrows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mrows[r] = warp + WARPS * r;
   auto merge = [&](uint32_t dup) {
-    float lv[R][4][DEPTH], ov[R], sv0[R];
-    int li[R][4][DEPTH], oi[R], si0[R], nbeat[R], left[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int rr = warp + WARPS * r;
-      const bool act = ((vmask & ~dup) >> rr) & 1u;  // the same in every lane
-      const float kv = run_v[rr * K_MAX + k - 1];
-      const int ki = run_i[rr * K_MAX + k - 1];
-      int cnt = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int drop = 0;  // the bin's entries at or before the row's bound: a prefix
-#pragma unroll
-        for (int j = 0; j < DEPTH; ++j) {
-          float v = NEG_INF;
-          int id = 0;
-          if (act) {
-            v = cand_v[rr * CS + j * LANES + q * 32 + wl];
-            id = cand_i[rr * CS + j * LANES + q * 32 + wl];
-          }
-          const bool after = better(s_bv[rr], s_bi[rr], v, id);
-          const bool beats = v > NEG_INF && better(v, id, kv, ki) && after;
-          lv[r][q][j] = beats ? v : NEG_INF;
-          li[r][q][j] = id;
-          cnt += beats;
-          drop += v > NEG_INF && !after;
-        }
-        // The bin's list is sorted (score desc, id asc), so the entries the
-        // bound drops lead it: shift the rest to the head, where a pass reads.
-#pragma unroll
-        for (int s = 0; s < DEPTH - 1; ++s) {
-          if (s >= drop) break;
-#pragma unroll
-          for (int j = 0; j + 1 < DEPTH; ++j) {
-            lv[r][q][j] = lv[r][q][j + 1];
-            li[r][q][j] = li[r][q][j + 1];
-          }
-          lv[r][q][DEPTH - 1] = NEG_INF;
-        }
-      }
-      nbeat[r] = left[r] = __reduce_add_sync(FULL, cnt);
-      ov[r] = sv0[r] = wl < k ? run_v[rr * K_MAX + wl] : NEG_INF;
-      oi[r] = si0[r] = wl < k ? run_i[rr * K_MAX + wl] : 0;
-    }
-    __syncwarp();
-    for (int p = 0; p < k; ++p) {
-      bool busy = false;
-#pragma unroll
-      for (int r = 0; r < R; ++r) busy |= left[r] > 0;
-      if (!busy) break;
-      int mk[R], mi[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float bv = ov[r];
-        int bi = oi[r];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (better(lv[r][q][0], li[r][q][0], bv, bi)) {
-            bv = lv[r][q][0];
-            bi = li[r][q][0];
-          }
-        mk[r] = monotone_key(bv);
-        mi[r] = bi;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int key = __reduce_max_sync(FULL, mk[r]);
-        mi[r] = __reduce_min_sync(FULL, mk[r] == key ? mi[r] : INT32_MAX);
-        mk[r] = key;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (left[r] == 0) continue;  // the same in every lane
-        const int rr = warp + WARPS * r;
-        const float bv = key_to_f32(mk[r]);
-        if (wl == 0) {
-          run_v[rr * K_MAX + p] = bv;
-          run_i[rr * K_MAX + p] = mi[r];
-        }
-        const bool took = ov[r] == bv && oi[r] == mi[r];
-        if (took) ov[r] = NEG_INF;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (lv[r][q][0] == bv && li[r][q][0] == mi[r]) {
-#pragma unroll
-            for (int j = 0; j + 1 < DEPTH; ++j) {
-              lv[r][q][j] = lv[r][q][j + 1];
-              li[r][q][j] = li[r][q][j + 1];
-            }
-            lv[r][q][DEPTH - 1] = NEG_INF;
-          }
-        if (!__any_sync(FULL, took) && --left[r] == 0) {
-          // Slots p+1.. take the old entries not yet placed, in order.
-          const int at = wl + nbeat[r];
-          if (wl >= p + 1 - nbeat[r] && at < k) {
-            run_v[rr * K_MAX + at] = sv0[r];
-            run_i[rr * K_MAX + at] = si0[r];
-          }
-        }
-      }
-    }
-    __syncwarp();
+    merge_rows<DEPTH, R>(mrows, vmask & ~dup, cand, run_v, run_i, s_bv, s_bi, k);
   };
 
   // A tile whose rows are zero in every block of the run (most tiles of a
-  // routed table hold only empty slots) scores 0 - bias on every valid
-  // column, whatever the slab holds: no slab is loaded.  Per block the
-  // threads of bins 0-127 bin row 0's scores from the bias words, row 0 is
-  // merged, and every row takes its result.  The test stops at the first
-  // block that holds a row (a routed table's cluster shares its rows
-  // across its blocks, so that is the run's first).
+  // routed table hold only empty slots) loads no slab: per block the
+  // threads of bins 0-127 bin row 0's scores from the bias words
+  // (zero_row_top), row 0 is merged, and every row takes its result.  The
+  // test stops at the first block that holds a row (a routed table's
+  // cluster shares its rows across its blocks, so that is the run's
+  // first).
   bool nonzero = false;
   for (int b = tb; b <= t && !nonzero; ++b) {
     if (rows_valid[b] <= 0) continue;
@@ -994,27 +1109,8 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (threadIdx.x < LANES) {
         float zv[DEPTH];
         int zc[DEPTH];
-#pragma unroll
-        for (int j = 0; j < DEPTH; ++j) {
-          zv[j] = NEG_INF;
-          zc[j] = 0;
-        }
-        const float* bw = bias != nullptr ? bias + (size_t)b * blk + threadIdx.x : nullptr;
-        const int nch = (nvalid + LANES - 1) / LANES;
-        for (int c0 = 0; c0 < nch; c0 += 8) {
-          float w[8];  // eight chunks' words in flight at once
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-            w[u] = bw != nullptr && c0 + u < nch ? bw[(c0 + u) * LANES] : 0.0f;
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int c = c0 + u;
-            if (c >= nch) break;
-            float x = bw != nullptr ? __fsub_rn(0.0f, w[u]) : 0.0f;
-            if (c * LANES + (int)threadIdx.x >= nvalid) x = NEG_INF;
-            insert_top<DEPTH>(zv, zc, x, c);
-          }
-        }
+        zero_row_top<DEPTH>(bias != nullptr ? bias + (size_t)b * blk + threadIdx.x : nullptr,
+                            nvalid, threadIdx.x, zv, zc);
         const int rb = row_base[b];
 #pragma unroll
         for (int j = 0; j < DEPTH; ++j) {
@@ -1069,18 +1165,20 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       bsub[0] = bw[0];
       bsub[1] = bw[8];
     }
-    // The unit's product: 4 k-steps, the chunk's first unit from zero.
-    // A: the warpgroup's 64 bins, 128-byte rows, 8-row groups 1 KB apart; B:
-    // the N routed rows, the same layout; a k-step 32 bytes along the row.
+    // The unit's product: 4 k-steps, the chunk's first unit from zero.  B:
+    // the N routed rows, K-major, 128-byte rows, 8-row groups 1 KB apart, a
+    // k-step 32 bytes along the row.  A: the warpgroup's 64 bins; int8
+    // K-major as B; bf16 M-major, 128-byte d rows, a k16 step 16 rows (2 KB).
     {
-      const uint32_t sa = bk + kbuf * W_UNIT + wg * W_HALF;
+      const uint32_t sa = (BF16 ? st + rs * W_UNIT : bk + kbuf * W_UNIT) + wg * W_HALF;
       const uint32_t sb = qs + (qwide ? kbuf : cj) * QUNIT;
       fence_acc(d);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_s8(d, gmma_desc(sa + kk * 32, 16, 1024), gmma_desc(sb + kk * 32, 16, 1024),
-                 cj + kk);
+        wgmma_step(d, BF16 ? gmma_desc(sa + kk * 2048, W_HALF, 1024)
+                           : gmma_desc(sa + kk * 32, 16, 1024),
+                   gmma_desc(sb + kk * 32, 16, 1024), cj + kk);
       wgmma_commit();
       fence_acc(d);
     }
@@ -1147,29 +1245,37 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// qg (K4: [nblocks, qcap, ldq]; K6: [nsrc = nlist, qcap, ldq]) or qi (K7:
-// [nsrc, ldq]) with ldq = d rounded up to 16, cq_blocks [nblocks, qcap]
-// (K7), block_cluster [nblocks] (K6), vec [nblocks, d, blk], bias [nblocks,
-// blk] or null.
-template <int DEPTH, QSrc SRC>
+// q: K4's qg [nblocks, qcap] rows, K6's qg [nsrc = nlist, qcap] rows or K7's
+// qi [nsrc] rows, of d elements of T at a pitch of ldq elements (16 bytes'
+// worth; int8: the pad zero); cq_blocks [nblocks, qcap] (K7),
+// block_cluster [nblocks] (K6), vec [nblocks, d, blk], bias [nblocks, blk]
+// or null.
+template <typename T, int DEPTH, QSrc SRC>
 int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* bias, const void* row_base, const void* bound_v,
                  const void* bound_i, void* out_v, void* out_i, int nblocks, int qcap, int d,
                  int ldq, int blk, int k, int nsrc, cudaStream_t s) {
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
+  constexpr int ES = (int)sizeof(T), KD = 128 / ES;
   using Tl = WTile<DEPTH>;
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int kb = (d + 127) / 128;
+  const int kb = (d + KD - 1) / KD;
+  const int planes = SRC == QSrc::kCluster ? nsrc : nblocks;
   CUtensorMap tq{}, tv;
-  if constexpr (SRC != QSrc::kRouted)
-    if (const int e = int8_map_3d(encode, &tq, q, SRC == QSrc::kCluster ? nsrc : nblocks, qcap,
-                                  ldq, 128, Tl::N, true))
-      return e;
-  if (const int e = int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false)) return e;
+  if constexpr (SRC != QSrc::kRouted) {
+    const int e = BF16 ? bf16_map_3d(encode, &tq, q, planes, qcap, d, Tl::N, ldq)
+                       : int8_map_3d(encode, &tq, q, planes, qcap, ldq, 128, Tl::N, true);
+    if (e) return e;
+  }
+  if (const int e = BF16 ? bf16_map_3d(encode, &tv, vec, nblocks, d, blk, 64)
+                         : int8_map_3d(encode, &tv, vec, nblocks, d, blk, 16, 128, false))
+    return e;
   // The routed rows stay resident for the block (kb units) while that
   // leaves two stages; wider, two unit buffers take them a unit at a time.
-  const int part = 1024 + 2 * W_UNIT + Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
+  const int part = 1024 + (BF16 ? 0 : 2 * W_UNIT) +
+                   Tl::N * (Tl::CS + K_MAX) * 2 * (int)sizeof(int32_t);
   int qwide = 0, fixed = part + kb * Tl::N * 128;
   if ((W_SMEM_MAX - fixed) / W_UNIT < 2) {
     qwide = 1;
@@ -1177,34 +1283,395 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
   }
   const int stages = min(W_STAGES_MAX, (W_SMEM_MAX - fixed) / W_UNIT);
   const int smem = fixed + stages * W_UNIT;
-  if (const cudaError_t e = cudaFuncSetAttribute(
-          grouped_wgmma_kernel<DEPTH, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+  if (const cudaError_t e = cudaFuncSetAttribute(grouped_wgmma_kernel<T, DEPTH, SRC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem))
     return (int)e;
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + Tl::N - 1) / Tl::N));
-  grouped_wgmma_kernel<DEPTH, SRC><<<grid, THREADS, smem, s>>>(
+  grouped_wgmma_kernel<T, DEPTH, SRC><<<grid, THREADS, smem, s>>>(
       tq, tv, static_cast<const int8_t*>(q), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last),
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
       static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq, k, stages, nsrc, qwide);
+      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq * ES, d * ES, k, stages, nsrc, qwide);
   return (int)cudaGetLastError();
 }
 
-template <QSrc SRC>
-int dispatch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster,
-                   const void* vec, const void* block_first, const void* block_last,
-                   const void* rows_valid, const void* bias, const void* row_base,
-                   const void* bound_v, const void* bound_i, void* out_v, void* out_i,
-                   int nblocks, int qcap, int d, int ldq, int blk, int k, int depth, int nsrc,
-                   void* stream) {
+// ------------------------------------ K6 and K7 fp32: the FFMA register tile
+
+// The fp32 modes' tile: ffma_tile.cuh's tile cut to 32 routed rows (WM = 1:
+// four warps; MI = 4: 4 x 8 accumulators a thread) x the chunk's 128 bins;
+// d-slices of 32 through two stages, or of 16 through three at DEPTH > 2,
+// whose lists take more shared memory.
+constexpr int F_ROWS = 32;
+template <int DEPTH>
+using FTile = ffma::Tile<1, DEPTH <= 2 ? 32 : 16, DEPTH <= 2 ? 2 : 3, F_ROWS / 8>;
+constexpr int F_CHUNKS = 256;  // chunks a block: the lists keep a chunk in a byte
+
+// A row's stride in the lists [row][depth][bin] (odd: a warp's epilogue
+// stores of eight rows fall at most two to a bank), and the shared memory of
+// the ring, the lists and the running top-k.
+template <int DEPTH>
+struct FList {
+  static constexpr int CS = DEPTH * LANES + 1;
+  static constexpr size_t SMEM = FTile<DEPTH>::RING_BYTES +
+                                 (size_t)F_ROWS * CS * (sizeof(float) + 1) +
+                                 (size_t)F_ROWS * K_MAX * 2 * sizeof(int32_t);
+};
+
+// K6 (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's rows being
+// qg[block_cluster[b]], the output row of a run ending at t being
+// block_cluster[t]) and K7 (SRC kRouted: q = qi [nsrc] rows, row r of block
+// b being qi[cq_blocks[b, r]]): rows of d fp32 at a pitch of ldq (a
+// multiple of 4, 16-byte aligned); the slab vec [nblocks, d, blk] (16-byte
+// aligned).  CTA (t, y): last block t, routed rows F_ROWS y .. + F_ROWS - 1.
+// The walk is next_unit's over (block, chunk, d-slice), nk slices a chunk;
+// accumulator (i, j) is (row, bin) Place (i, j).
+template <int DEPTH, QSrc SRC>
+__global__ void __launch_bounds__(FTile<DEPTH>::THREADS, 2)
+grouped_ffma_kernel(const float* __restrict__ q,
+                    const int32_t* __restrict__ cq_blocks,     // [nblocks, qcap] (K7)
+                    const int32_t* __restrict__ block_cluster, // [nblocks] (K6)
+                    const float* __restrict__ vec,
+                    const int32_t* __restrict__ block_first,
+                    const int32_t* __restrict__ block_last,
+                    const int32_t* __restrict__ rows_valid,
+                    const float* __restrict__ bias,            // [nblocks, blk] or null
+                    const int32_t* __restrict__ row_base,
+                    const float* __restrict__ bound_v,         // like out's rows, or null
+                    const int32_t* __restrict__ bound_i,
+                    float* __restrict__ out_v, int32_t* __restrict__ out_i,
+                    int qcap, int d, int blk, int ldq, int k, int nsrc) {
+  static_assert(SRC != QSrc::kBlock, "K4's fp32 mode runs on grouped_scan_kernel");
+  using Tl = FTile<DEPTH>;
+  constexpr int TH = Tl::THREADS, SF = Tl::STAGE_FLOATS, CS = FList<DEPTH>::CS;
+  constexpr int NW = TH / 32;             // warps
+  constexpr int R = DEPTH <= 2 ? 4 : 2;   // rows a warp merges side by side
+  const float NEG_INF = -INFINITY;
+
+  const int t = blockIdx.x;
+  if (block_last[t] == 0) return;
+  int orow = t;  // the output row: the block (K7) or its cluster (K6)
+  if constexpr (SRC == QSrc::kCluster) {
+    orow = block_cluster[t];
+    if (orow < 0 || orow >= nsrc) return;
+  }
+  const int r0 = blockIdx.y * F_ROWS;
+  const int nrows = min(qcap - r0, F_ROWS);
+  static_assert(F_ROWS == 32, "a CTA's rows are the bits of one word");
+  const uint32_t vmask = nrows == 32 ? ~0u : (1u << nrows) - 1u;
+  constexpr int MI = Tl::MI;
+  int tb = t;  // the run's first block
+  while (tb > 0 && block_first[tb] == 0) --tb;
+  const int nk = (d + Tl::BK - 1) / Tl::BK;
+
+  // Shared memory: the ring, the lists' scores [F_ROWS][CS], the running
+  // top-k, the lists' chunks [F_ROWS][CS] (a byte each).
+  extern __shared__ __align__(16) float fsm[];
+  float* const list_v = fsm + Tl::STAGES * SF;
+  float* const run_v = list_v + F_ROWS * CS;
+  int32_t* const run_i = reinterpret_cast<int32_t*>(run_v + F_ROWS * K_MAX);
+  uint8_t* const list_c = reinterpret_cast<uint8_t*>(run_i + F_ROWS * K_MAX);
+  __shared__ float s_bv[F_ROWS];
+  __shared__ int s_bi[F_ROWS];
+  __shared__ uint32_t s_nz;  // the rows of the block taken as nonzero
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+
+  for (int i = tid; i < F_ROWS * K_MAX; i += TH) {
+    run_v[i] = NEG_INF;
+    run_i[i] = 0;
+  }
+  if (tid < F_ROWS) {
+    const bool has = bound_i != nullptr && r0 + tid < qcap;
+    const size_t o = (size_t)orow * qcap + r0 + tid;
+    s_bv[tid] = has ? bound_v[o] : INFINITY;
+    s_bi[tid] = has ? bound_i[o] : -1;
+  }
+  if (tid == 0) s_nz = 0;
+  __syncthreads();
+
+  // Row n (< nrows) of block b taken as nonzero: K6 holds a nonzero word
+  // in its ldq; K7 has a slot in [0, nsrc) (a zero query there is scored,
+  // which is exact too).  TPR threads a row.
+  constexpr int TPR = TH / F_ROWS;
+  auto row_nonzero = [&](int b, int n, int part) {
+    if (n >= nrows) return false;
+    if constexpr (SRC == QSrc::kRouted) {
+      const int s = cq_blocks[(size_t)b * qcap + r0 + n];
+      return part == 0 && s >= 0 && s < nsrc;
+    } else {
+      const float4* row = reinterpret_cast<const float4*>(
+          q + ((size_t)block_cluster[b] * qcap + r0 + n) * ldq);
+      unsigned any = 0;
+      for (int p = part; p < ldq / 4; p += TPR) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + p);
+        any |= v.x | v.y | v.z | v.w;
+      }
+      return any != 0;
+    }
+  };
+  // Block b's nonzero rows into s_nz (reset beforehand, read after a
+  // barrier).
+  auto detect = [&](int b) {
+    const unsigned ball = __ballot_sync(FULL, row_nonzero(b, tid / TPR, tid % TPR));
+    if (wl == 0) {
+      uint32_t rows = 0;
+#pragma unroll
+      for (int j = 0; j < 32 / TPR; ++j)
+        if ((ball >> (j * TPR)) & ((1u << TPR) - 1u)) rows |= 1u << (warp * (32 / TPR) + j);
+      if (rows) atomicOr(&s_nz, rows);
+    }
+  };
+
+  // The survivors of the block (row base rb) merged into each row's running
+  // top-k: warp w takes rows w + NW (r + R g), R side by side, the groups in
+  // turn; a group without a row in `act` is skipped.
+  int rb = 0;
+  auto cand = [&](int rr, int j, int bin, float& v, int& id) {
+    const int o = rr * CS + j * LANES + bin;
+    v = list_v[o];
+    id = rb + list_c[o] * LANES + bin;
+  };
+  auto merge = [&](uint32_t act) {
+#pragma unroll 1
+    for (int g = 0; g < F_ROWS / (NW * R); ++g) {
+      int rows[R];
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        rows[r] = warp + NW * (r + R * g);
+        any |= (act >> rows[r]) & 1u;
+      }
+      if (any) merge_rows<DEPTH, R>(rows, act, cand, run_v, run_i, s_bv, s_bi, k);
+    }
+  };
+
+  // The all-zero tile (the wgmma modes' test and path): row 0 binned from
+  // the bias words and merged, its result every row's.
+  bool nonzero = false;
+  for (int b = tb; b <= t && !nonzero; ++b) {
+    if (rows_valid[b] <= 0) continue;
+    nonzero = __syncthreads_or(row_nonzero(b, tid / TPR, tid % TPR));
+  }
+  if (!nonzero) {
+    for (int b = tb; b <= t; ++b) {
+      const int nvalid = min(rows_valid[b], blk);
+      if (nvalid <= 0) continue;
+      float zv[DEPTH];
+      int zc[DEPTH];
+      zero_row_top<DEPTH>(bias != nullptr ? bias + (size_t)b * blk + tid : nullptr, nvalid, tid,
+                          zv, zc);
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        list_v[j * LANES + tid] = zv[j];
+        list_c[j * LANES + tid] = (uint8_t)zc[j];
+      }
+      rb = row_base[b];
+      __syncthreads();
+      merge(1u);
+      __syncthreads();
+    }
+    for (int i = tid; i < nrows * k; i += TH) {
+      const size_t o = ((size_t)orow * qcap + r0) * k + i;
+      out_v[o] = run_v[i % k];
+      out_i[o] = run_i[i % k];
+    }
+    return;
+  }
+
+  // The producer's step runs STAGES - 1 ahead of the consumers'.
+  const ffma::Copier<Tl> cp(tid, nrows);
+  int pb = tb - 1, pc = 0, pk = nk - 1;
+  bool phave = next_unit(pb, pc, pk, tb, t, nk, blk, rows_valid);
+  int cb = pb, cc = pc, ck = pk;
+  bool have = phave;
+  auto load = [&](int slot) {
+    float* stage = fsm + slot * SF;
+    const float* bsrc = vec + (size_t)pb * d * blk + pc * LANES;
+    if constexpr (SRC == QSrc::kCluster)
+      cp.load(stage, q + ((size_t)block_cluster[pb] * qcap + r0) * ldq, ldq, true, bsrc, blk,
+              LANES, true, d, pk * Tl::BK);
+    else
+      cp.load_gather(stage, q, ldq, cq_blocks + (size_t)pb * qcap + r0, nsrc, bsrc, blk, LANES,
+                     true, d, pk * Tl::BK);
+    phave = next_unit(pb, pc, pk, tb, t, nk, blk, rows_valid);
+  };
+#pragma unroll
+  for (int s = 0; s < Tl::STAGES - 1; ++s) {
+    if (phave) load(s);
+    ffma::commit();
+  }
+
+  // Rows zero in every block so far share one running top-k, as in the
+  // wgmma modes: `lead` is scored and merged, `dup` copy it.
+  detect(cb);
+  __syncthreads();
+  uint32_t same = bound_i != nullptr ? 0u : vmask, dup = 0, need = 0;
+  int lead = 0;
+  auto rows_of_block = [&]() {
+    same &= ~s_nz;
+    lead = same != 0 ? __ffs(same) - 1 : 0;
+    dup = same & ~(1u << lead);
+    need = vmask & ~dup;
+  };
+  rows_of_block();
+
+  // Chunk c of block b scored: each needed entry, less the bias and -inf
+  // past rows_valid, into its (row, bin)'s list: the block's first chunk
+  // writes the list, a later one inserts a score above the list's last.
+  const ffma::Place pl(tid);
+  auto epilogue = [&](int b, int c, const float (&acc)[MI][8]) {
+    const int lim = rows_valid[b] - c * LANES;
+    float bs[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bs[j] = bias != nullptr ? bias[(size_t)b * blk + c * LANES + pl.col(j)] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int row = pl.row(i);
+      if (!((need >> row) & 1u)) continue;
+      float* lv = list_v + row * CS;
+      uint8_t* lc = list_c + row * CS;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int bin = pl.col(j);
+        float x = acc[i][j];
+        if (bias != nullptr) x = __fsub_rn(x, bs[j]);
+        if (bin >= lim) x = NEG_INF;
+        if (c == 0) {
+          lv[bin] = x;
+          lc[bin] = 0;
+#pragma unroll
+          for (int u = 1; u < DEPTH; ++u) lv[u * LANES + bin] = NEG_INF;
+        } else if (x > lv[(DEPTH - 1) * LANES + bin]) {
+          float tv[DEPTH];
+          int tc[DEPTH];
+#pragma unroll
+          for (int u = 0; u < DEPTH; ++u) {
+            tv[u] = lv[u * LANES + bin];
+            tc[u] = lc[u * LANES + bin];
+          }
+          insert_top<DEPTH>(tv, tc, x, c);
+#pragma unroll
+          for (int u = 0; u < DEPTH; ++u) {
+            lv[u * LANES + bin] = tv[u];
+            lc[u * LANES + bin] = (uint8_t)tc[u];
+          }
+        }
+      }
+    }
+  };
+
+  float acc[MI][8];
+  ffma::zero(acc);
+  int slot = 0, pslot = Tl::STAGES - 1;
+  while (have) {
+    ffma::wait_stage<Tl>();
+    __syncthreads();  // the stage has landed, and the one refilled next is read
+    if (phave) load(pslot);
+    ffma::commit();
+    pslot = pslot + 1 == Tl::STAGES ? 0 : pslot + 1;
+    ffma::fma_slice<Tl>(fsm + slot * SF, pl, d - ck * Tl::BK, acc);
+    slot = slot + 1 == Tl::STAGES ? 0 : slot + 1;
+    const int b = cb, c = cc;
+    const bool done = ck == nk - 1;
+    have = next_unit(cb, cc, ck, tb, t, nk, blk, rows_valid);
+    if (!done) continue;
+    epilogue(b, c, acc);
+    ffma::zero(acc);
+    if (have && cb == b) continue;
+    // Block b is scored: its lists merged, the dup rows copied, the next
+    // block's rows tested.
+    rb = row_base[b];
+    if (tid == 0) s_nz = 0;
+    __syncthreads();
+    merge(vmask & ~dup);
+    __syncthreads();
+    for (int i = tid; dup != 0 && i < F_ROWS * k; i += TH) {
+      const int r = i / k, p = i % k;
+      if ((dup >> r) & 1u) {
+        run_v[r * K_MAX + p] = run_v[lead * K_MAX + p];
+        run_i[r * K_MAX + p] = run_i[lead * K_MAX + p];
+      }
+    }
+    if (have) detect(cb);
+    __syncthreads();
+    rows_of_block();
+  }
+  ffma::wait_all();
+
+  for (int i = tid; i < F_ROWS * k; i += TH) {
+    const int r = i / k, p = i % k;
+    if (r >= nrows) continue;
+    const size_t o = ((size_t)orow * qcap + r0 + r) * k + p;
+    out_v[o] = run_v[r * K_MAX + p];
+    out_i[o] = run_i[r * K_MAX + p];
+  }
+}
+
+// q: K6's qg [nsrc = nlist, qcap] rows or K7's qi [nsrc] rows, of d fp32 at
+// a pitch of ldq (a multiple of 4), 16-byte aligned; cq_blocks [nblocks,
+// qcap] (K7), block_cluster [nblocks] (K6), vec [nblocks, d, blk] 16-byte
+// aligned, bias [nblocks, blk] or null; blk <= 128 * F_CHUNKS.
+template <int DEPTH, QSrc SRC>
+int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
+                const void* block_first, const void* block_last, const void* rows_valid,
+                const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
+                void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k,
+                int nsrc, cudaStream_t s) {
+  if (blk > LANES * F_CHUNKS || ldq % 4 != 0) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = FList<DEPTH>::SMEM;
+  if (const cudaError_t e = cudaFuncSetAttribute(grouped_ffma_kernel<DEPTH, SRC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem))
+    return (int)e;
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + F_ROWS - 1) / F_ROWS));
+  grouped_ffma_kernel<DEPTH, SRC><<<grid, FTile<DEPTH>::THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const int32_t*>(cq_blocks),
+      static_cast<const int32_t*>(block_cluster), static_cast<const float*>(vec),
+      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
+      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
+      static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
+      static_cast<int32_t*>(out_i), qcap, d, blk, ldq, k, nsrc);
+  return (int)cudaGetLastError();
+}
+
+// One launch of K4's, K6's and K7's int8 modes or K6's and K7's bf16 modes
+// on grouped_wgmma_kernel (T = int8_t or __nv_bfloat16), or of K6's and
+// K7's fp32 modes on grouped_ffma_kernel (T = float).
+template <typename T, int DEPTH, QSrc SRC>
+int launch_scan(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
+                const void* block_first, const void* block_last, const void* rows_valid,
+                const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
+                void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k,
+                int nsrc, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, float>)
+    return launch_ffma<DEPTH, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last,
+                                   rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
+                                   nblocks, qcap, d, ldq, blk, k, nsrc, s);
+  else
+    return launch_wgmma<T, DEPTH, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last,
+                                       rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
+                                       nblocks, qcap, d, ldq, blk, k, nsrc, s);
+}
+
+// The same at bin depth 1-4.
+template <typename T, QSrc SRC>
+int dispatch_scan(const void* q, const void* cq_blocks, const void* block_cluster,
+                  const void* vec, const void* block_first, const void* block_last,
+                  const void* rows_valid, const void* bias, const void* row_base,
+                  const void* bound_v, const void* bound_i, void* out_v, void* out_i,
+                  int nblocks, int qcap, int d, int ldq, int blk, int k, int depth, int nsrc,
+                  void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAG_LAUNCH(D)                                                                          \
-  launch_wgmma<D, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last, rows_valid,  \
-                       bias, row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq,  \
-                       blk, k, nsrc, s)
+#define RAG_LAUNCH(D)                                                                         \
+  launch_scan<T, D, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last, rows_valid, \
+                         bias, row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, \
+                         blk, k, nsrc, s)
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -1233,9 +1700,10 @@ extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* bound_i, void* out_v, void* out_i, int nblocks,
                                    int qcap, int d, int ldq, int blk, int k, int depth,
                                    void* stream) {
-  return dispatch_wgmma<QSrc::kBlock>(qg, nullptr, nullptr, vec, block_first, block_last,
-                                      rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
-                                      nblocks, qcap, d, ldq, blk, k, depth, nblocks, stream);
+  return dispatch_scan<int8_t, QSrc::kBlock>(qg, nullptr, nullptr, vec, block_first, block_last,
+                                             rows_valid, bias, row_base, bound_v, bound_i, out_v,
+                                             out_i, nblocks, qcap, d, ldq, blk, k, depth, nblocks,
+                                             stream);
 }
 
 // K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
@@ -1246,14 +1714,12 @@ extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* b
                                   const void* bound_i, void* out_v, void* out_i, int nblocks,
                                   int qcap, int d, int blk, int k, int depth, int bf16,
                                   void* stream) {
-  return bf16 ? dispatch<QSrc::kBlock, __nv_bfloat16>(
-                    qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nblocks, stream)
-              : dispatch<QSrc::kBlock, float>(
-                    qg, vec, nullptr, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nblocks, stream);
+  return bf16 ? dispatch<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid, bias,
+                                        row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap,
+                                        d, blk, k, depth, stream)
+              : dispatch<float>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
+                                bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
+                                stream);
 }
 
 // K6: qg [nlist, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
@@ -1265,28 +1731,29 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* bound_i, void* out_v, void* out_i, int nlist,
                                    int nblocks, int qcap, int d, int ldq, int blk, int k,
                                    int depth, void* stream) {
-  return dispatch_wgmma<QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first,
-                                        block_last, rows_valid, bias, row_base, bound_v,
-                                        bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                                        depth, nlist, stream);
+  return dispatch_scan<int8_t, QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first,
+                                               block_last, rows_valid, bias, row_base, bound_v,
+                                               bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk,
+                                               k, depth, nlist, stream);
 }
 
-// K6's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
-// 16-byte aligned.
+// K6's float modes: fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or bf16
+// (bf16 = 1; on wgmma) qg [nlist, qcap] rows of d at a pitch of ldq (16
+// bytes' worth; the pad need not be zero) and vec, both 16-byte aligned.
 extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   const void* bound_v, const void* bound_i, void* out_v,
-                                  void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
-                                  int k, int depth, int bf16, void* stream) {
-  return bf16 ? dispatch<QSrc::kCluster, __nv_bfloat16>(
-                    qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nlist, stream)
-              : dispatch<QSrc::kCluster, float>(
-                    qg, vec, block_cluster, nullptr, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nlist, stream);
+                                  void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
+                                  int blk, int k, int depth, int bf16, void* stream) {
+  return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kCluster>(
+                    qg, nullptr, block_cluster, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nlist, stream)
+              : dispatch_scan<float, QSrc::kCluster>(
+                    qg, nullptr, block_cluster, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nlist, stream);
 }
 
 // K7: qi [nbatch, ldq] with ldq = d rounded up to 16 (the pad zero),
@@ -1298,27 +1765,29 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
                                   const void* bound_v, const void* bound_i, void* out_v,
                                   void* out_i, int nbatch, int nblocks, int qcap, int d, int ldq,
                                   int blk, int k, int depth, void* stream) {
-  return dispatch_wgmma<QSrc::kRouted>(qi, cq_blocks, nullptr, vec, block_first, block_last,
-                                       rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
-                                       nblocks, qcap, d, ldq, blk, k, depth, nbatch, stream);
+  return dispatch_scan<int8_t, QSrc::kRouted>(qi, cq_blocks, nullptr, vec, block_first,
+                                              block_last, rows_valid, bias, row_base, bound_v,
+                                              bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk,
+                                              k, depth, nbatch, stream);
 }
 
-// K7's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qi and vec; vec
-// 16-byte aligned (qi is read a scalar at a time).
+// K7's float modes: fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or bf16
+// (bf16 = 1; on wgmma) qi [nbatch] rows of d at a pitch of ldq (16 bytes'
+// worth; the pad need not be zero) and vec, both 16-byte aligned.
 extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const void* vec,
                                  const void* block_first, const void* block_last,
                                  const void* rows_valid, const void* bias, const void* row_base,
                                  const void* bound_v, const void* bound_i, void* out_v,
-                                 void* out_i, int nbatch, int nblocks, int qcap, int d, int blk,
-                                 int k, int depth, int bf16, void* stream) {
-  return bf16 ? dispatch<QSrc::kRouted, __nv_bfloat16>(
-                    qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nbatch, stream)
-              : dispatch<QSrc::kRouted, float>(
-                    qi, vec, nullptr, cq_blocks, block_first, block_last, rows_valid, bias,
-                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                    nbatch, stream);
+                                 void* out_i, int nbatch, int nblocks, int qcap, int d, int ldq,
+                                 int blk, int k, int depth, int bf16, void* stream) {
+  return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kRouted>(
+                    qi, cq_blocks, nullptr, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nbatch, stream)
+              : dispatch_scan<float, QSrc::kRouted>(
+                    qi, cq_blocks, nullptr, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nbatch, stream);
 }
 
 // K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
@@ -1337,7 +1806,7 @@ int variant_scan(const void* qg, const void* vec, const void* block_cluster,
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_VARIANT(V)                                                                        \
-  launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, nullptr, block_first, block_last,    \
+  launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, block_first, block_last,             \
                                   rows_valid, nullptr, row_base, bound_v, bound_i, out_v,     \
                                   out_i, nblocks, qcap, d, blk, k, nlist, s)
   switch (variant) {

@@ -3,8 +3,9 @@
 // and of K10's int8 mode (ivf_grouped_scan.cu; K4's, K6's and K7's int8
 // modes and K1's int8 and bf16 modes run on wgmma), and the float stage
 // (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
-// fp32 and bf16 modes of K4, K6, K7, K9 and K10 (K1's and K5's fp32 modes
-// run on ffma_tile.cuh's register tile, as K3's).  Past D' = 320 the float
+// fp32 and bf16 modes of K4, K9 and K10 (K1's, K5's, K6's and K7's fp32
+// modes run on ffma_tile.cuh's register tile, as K3's; K6's and K7's bf16
+// modes on wgmma).  Past D' = 320 the float
 // stage walks D in slices (float_slice, dot_rows_f_acc).  The monotone key
 // and its inverse at the end serve every float mode.
 #pragma once
@@ -151,26 +152,6 @@ __device__ __forceinline__ void stage_queries_f(const T* __restrict__ qsrc, int 
   for (int i = threadIdx.x; i < nrows * dstride; i += NTHREADS) {
     const int r = i / dstride, e = e0 + i % dstride;
     q_f[i] = (row0 + r < nsrc && e < d) ? widen(qsrc[(size_t)(row0 + r) * d + e]) : 0.0f;
-  }
-}
-
-// The gathering form (K7's float modes): routed row i (< qcap) is row
-// idx[i] of a query batch [nsrc, d], or zeros where idx[i] lies outside
-// [0, nsrc) (an empty slot is -1).  Same layout of `q_f` as stage_queries_f;
-// scalar loads, so the batch needs only its element alignment.
-template <int NTHREADS, typename T>
-__device__ __forceinline__ void stage_queries_gather_f(const T* __restrict__ qsrc,
-                                                       const int32_t* __restrict__ idx, int nsrc,
-                                                       int qcap, int d, int row0, int nrows,
-                                                       int dstride, float* q_f, int e0 = 0) {
-  for (int i = threadIdx.x; i < nrows * dstride; i += NTHREADS) {
-    const int r = i / dstride, e = e0 + i % dstride;
-    float v = 0.0f;
-    if (row0 + r < qcap && e < d) {
-      const int s = idx[row0 + r];
-      if (s >= 0 && s < nsrc) v = widen(qsrc[(size_t)s * d + e]);
-    }
-    q_f[i] = v;
   }
 }
 

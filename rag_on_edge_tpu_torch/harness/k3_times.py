@@ -1,62 +1,86 @@
-"""Time the fp32 modes of kernels K3, K5 and K1 (the register-tiled FFMA
-kernels of ``csrc/ffma_tile.cuh``) on one card at the shapes their callers
-give them, beside one PyTorch call of the same product alone (TF32 off)
-and the FFMA bound, and the whole calls they serve:
+"""Time the port's redesigned kernels on one card, at the shapes their
+callers give them, beside one PyTorch call of the same product alone, the
+bound, and the whole calls they serve:
 
-    python -m rag_on_edge_tpu_torch.harness.k3_times [--reps 5]
+    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67] [--reps 5]
 
-K3: one ground-truth chunk, [1024, 129] x [129, 1M] (SIFT-1M, L2 on the
-augmented dimension) at k = 10, 32, 100 and 300; the fused coarse tier at
-nlist 8192, [8192, 129] x [129, 8192], k = 4; and the whole 10,000-query
-L2 ground truth through ``utils.datasets.ground_truth`` (ten chunks; host
-copies and the id transfer included), at k = 10.  K5: an fp32 L2
-``BruteForceIndex`` over SIFT-1M (engine auto: accum), [8192, 129] x [512,
-129, 2048] at k = 20 (its rescore pool), beside ``torch.mm`` in 8 column
-blocks, and one ``search_device(q, 10)`` call.  K1: an fp32 ``IVFIndex``
-(the default dtype; nlist 1024, L2, pad_block 2048, 25 k-means
-iterations) on one routed B=8192
-batch at nprobe 4, beside ``torch.bmm`` of the per-block product, and one
-``search_device(q, 10, 4)`` call with its defaults.  A call the kernel
-refuses prints its error instead of a time.  The last line is one JSON
-object.
+``--kernels ffma`` (the default): the fp32 modes of K3, K5 and K1, the
+register-tiled FFMA kernels of ``csrc/ffma_tile.cuh``.  K3: one
+ground-truth chunk, [1024, 129] x [129, 1M] (SIFT-1M, L2 on the augmented
+dimension) at k = 10, 32, 100 and 300; the fused coarse tier at nlist 8192,
+[8192, 129] x [129, 8192], k = 4; and the whole 10,000-query L2 ground
+truth through ``utils.datasets.ground_truth`` (ten chunks; host copies and
+the id transfer included), at k = 10.  K5: an fp32 L2 ``BruteForceIndex``
+over SIFT-1M (engine auto: accum), [8192, 129] x [512, 129, 2048] at k = 20
+(its rescore pool), beside ``torch.mm`` in 8 column blocks, and one
+``search_device(q, 10)`` call.  K1: an fp32 ``IVFIndex`` (the default
+dtype; nlist 1024, L2, pad_block 2048, 25 k-means iterations) on one routed
+B=8192 batch at nprobe 4, beside ``torch.bmm`` of the per-block product,
+and one ``search_device(q, 10, 4)`` call with its defaults.
+
+``--kernels k67``: the float modes (fp32, bf16) of K7 and K6 on that fp32
+index and the same index in bf16, one routed B=8192 batch at nprobe 4,
+k = 20 (the rescore pool of k = 10):
+
+- K7, ``cluster_major_scan_routed``: the dense walk over all 1176 blocks
+  and the batch's first recovery list; beside it K4 (the same dense walk on
+  the gathered table), ``torch.bmm`` of the per-block product alone (fp32
+  with TF32 off; bf16 into fp32), and one ``_build.pad_rows`` copy of the
+  batch to its 16-byte row pitch (what each K7 wrapper call adds: the
+  routed engine hands the batch over as the query prep leaves it);
+- K6, ``cluster_major_scan``: the index as ``ShardedIVFIndex`` over four
+  shards on this card, shard 0's dense walk and the recovery list of the
+  shard with the most dropped pairs; ``torch.bmm`` beside the dense walk,
+  and one ``pad_rows`` copy of the routed table (what each K6 call would
+  add if the table were not written at the pitch);
+- the calls: ``search_device(q, 10, 4, engine="pallas_routed")`` and the
+  sharded ``search_device(q, 10, 4, mode="cluster", engine="pallas")``, by
+  CUDA events and, from ``torch.profiler`` over three calls, the device
+  time a call (all kernels, and the scan kernels K7 / K6 alone: the
+  sharded call runs its four shards in turn from the host, so its clock
+  time is mostly the host's).
+
+Bounds (``timing.bound_ms``): the FFMA rate for K3, K5 and K1; for K6 and
+K7 the valid columns of the walked blocks, the routed rows and the top-k
+written, and the product over every routed slot at the FFMA rate (fp32) or
+the bf16 tensor-core rate.  Times are medians of CUDA events
+(``timing.median_ms``).  A call the kernel refuses prints its error instead
+of a time.  The last line is one JSON object.
 
 The script imports the ``rag_on_edge_tpu_torch`` it finds first on the
 path, so with another checkout's root first on ``PYTHONPATH`` it times that
-checkout's K3: two versions are compared within one call on one card.
+checkout's kernels (one whose ``harness/timing.py`` has ``median_ms``): two
+versions are compared within one call on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import time
 
 import numpy as np
 import torch
 
-FFMA_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, at 700 W
+from rag_on_edge_tpu_torch.harness.timing import (BF16_OPS_S, OPS32_S, bmm_ms, bound_ms,
+                                                  median_ms, walked_blocks)
+
+K, NPROBE, BATCH, KK = 10, 4, 8192, 20
 
 
-def _ms(fn, reps: int) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _timed(fn, reps: int):
+    try:
+        return median_ms(fn, reps)
+    except (ValueError, RuntimeError) as e:
+        return f"refused: {str(e)[:300]}"
 
 
 def main(argv=None) -> dict:
-    from rag_on_edge_tpu_torch.ops import bruteforce_fused
-    from rag_on_edge_tpu_torch.utils.datasets import ground_truth, make_synthetic
+    from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67"], default=["ffma"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,6 +91,20 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     base, queries = make_synthetic(1_000_000, 10_000, 128, 4096, seed=42)
+    out = {"card": card, "torch": torch.__version__}
+    if "ffma" in args.kernels:
+        out.update(_ffma(base, queries, dev, args.reps))
+    if "k67" in args.kernels:
+        out.update(_k67(base, queries, dev, args.reps))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _ffma(base, queries, dev, reps: int) -> dict:
+    """K3, K5 and K1 fp32 (``--kernels ffma``)."""
+    from rag_on_edge_tpu_torch.ops import bruteforce_fused
+    from rag_on_edge_tpu_torch.utils.datasets import ground_truth
+
     bt = torch.cat([torch.from_numpy(base.T.copy()),
                     torch.from_numpy(-0.5 * np.sum(base ** 2, axis=1))[None, :]]).to(dev)
     q = torch.cat([torch.from_numpy(queries[:1024]), torch.ones((1024, 1))], dim=1).to(dev)
@@ -75,17 +113,14 @@ def main(argv=None) -> dict:
     cents = torch.cat([cents, -0.5 * (cents * cents).sum(0, keepdim=True)]).float().to(dev)
     qc = torch.cat([torch.from_numpy(np.resize(queries, (8192, 128))),
                     torch.ones((8192, 1))], dim=1).to(dev)
-    out = {"card": card, "torch": torch.__version__}
+    out = {}
     for name, (qx, btx, k) in {"gt k=10": (q, bt, 10), "gt k=32": (q, bt, 32),
                                "gt k=100": (q, bt, 100), "gt k=300": (q, bt, 300),
                                "coarse k=4": (qc, cents, 4)}.items():
         b, d, n = qx.shape[0], btx.shape[0], btx.shape[1]
-        row = {"bound_ms": 2.0 * b * d * n / FFMA_FLOPS * 1e3,
-               "gemm_ms": _ms(lambda: torch.mm(qx, btx), args.reps)}
-        try:
-            row["ms"] = _ms(lambda: bruteforce_fused.fused_topk_matmul(qx, btx, k), args.reps)
-        except (ValueError, RuntimeError) as e:
-            row["ms"] = f"refused: {e}"
+        row = {"bound_ms": bound_ms(0, 2.0 * b * d * n, OPS32_S)[0],
+               "gemm_ms": median_ms(lambda: torch.mm(qx, btx), reps),
+               "ms": _timed(lambda: bruteforce_fused.fused_topk_matmul(qx, btx, k), reps)}
         out[name] = row
         print(name, row, flush=True)
     torch.cuda.synchronize()
@@ -95,14 +130,13 @@ def main(argv=None) -> dict:
     out["gt 10K queries k=10 s"] = time.time() - t
     del bt, q, cents, qc
 
-    q8 = torch.from_numpy(queries[:8192]).to(dev)
+    q8 = torch.from_numpy(queries[:BATCH]).to(dev)
     for name, part in (("K5", _k5), ("K1", _k1)):
         try:
-            out[name] = part(base, q8, args.reps)
+            out[name] = part(base, q8, reps)
         except (ValueError, RuntimeError) as e:
             out[name] = f"refused: {e}"
         print(f"{name} fp32", out[name], flush=True)
-    print(json.dumps(out), flush=True)
     return out
 
 
@@ -120,12 +154,12 @@ def _k5(base, q8, reps: int) -> dict:
     bt = tiles.permute(1, 0, 2).reshape(dp, -1)[:, :n].contiguous()
     step = -(-n // 8)
     row = {"engine": idx.engine, "shape": [list(qx.shape), list(tiles.shape)],
-           "bound_ms": 2.0 * qx.shape[0] * dp * n / FFMA_FLOPS * 1e3,
-           "gemm_ms": sum(_ms(lambda s=s: torch.mm(qx, bt[:, s:s + step]), reps)
+           "bound_ms": bound_ms(0, 2.0 * qx.shape[0] * dp * n, OPS32_S)[0],
+           "gemm_ms": sum(median_ms(lambda s=s: torch.mm(qx, bt[:, s:s + step]), reps)
                           for s in range(0, n, step))}
     del bt
-    row["ms"] = _ms(lambda: bruteforce_accum.fused_topk_accum(qx, tiles, n, 20, **kw), reps)
-    row["call_ms"] = _ms(lambda: idx.search_device(q8, 10), reps)
+    row["ms"] = median_ms(lambda: bruteforce_accum.fused_topk_accum(qx, tiles, n, 20, **kw), reps)
+    row["call_ms"] = median_ms(lambda: idx.search_device(q8, 10), reps)
     return row
 
 
@@ -146,11 +180,136 @@ def _k1(base, q8, reps: int) -> dict:
     args = (qb, vt, a["block_first"], a["block_last"], a["rows_valid"])
     valid = int(a["rows_valid"].sum())
     row = {"dtype": idx.dtype, "shape": [list(qb.shape), list(vt.shape)],
-           "bound_ms": 2.0 * qcap * valid * vt.shape[1] / FFMA_FLOPS * 1e3,
-           "bmm_ms": _ms(lambda: torch.bmm(qb, vt), reps)}
-    row["ms"] = _ms(lambda: ivf_accum.cluster_major_accum_planes(*args, blk=2048), reps)
-    row["call_ms"] = _ms(lambda: idx.search_device(q8, 10, 4), reps)
+           "bound_ms": bound_ms(0, 2.0 * qcap * valid * vt.shape[1], OPS32_S)[0],
+           "bmm_ms": median_ms(lambda: torch.bmm(qb, vt), reps)}
+    row["ms"] = median_ms(lambda: ivf_accum.cluster_major_accum_planes(*args, blk=2048), reps)
+    row["call_ms"] = median_ms(lambda: idx.search_device(q8, 10, 4), reps)
     return row
+
+
+
+def _k67(base, queries, dev, reps: int) -> dict:
+    """K7 and K6 fp32 and bf16, and the calls they serve (``--kernels k67``)."""
+    from rag_on_edge_tpu_torch.models.ivf import IVFIndex
+
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    out = {}
+    fidx = IVFIndex.build(base, nlist=1024, metric="l2", pad_block=2048, seed=42, max_iter=25,
+                          device=dev)
+    arrays = (fidx._centroids_np, fidx._vectors_np, fidx._offsets_np, fidx._reorder_np)
+    for mode in ("fp32", "bf16"):
+        idx = fidx if mode == "fp32" else IVFIndex.from_arrays(
+            *arrays, metric="l2", dtype="bf16", pad_block=2048, config=dict(fidx.config),
+            device=dev)
+        idx._ensure_kernel_state()
+        out[mode] = _k67_mode(idx, q, mode, reps)
+        print(mode, out[mode], flush=True)
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _device(fn, calls: int = 3) -> dict:
+    """Device ms a call of ``fn``: every kernel's, and the IVF scan
+    kernels' (``grouped_*``), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = scan = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+        total += us
+        scan += us if "grouped_" in ev.key else 0.0
+    return {"device_ms": total / 1e3 / calls, "scan_device_ms": scan / 1e3 / calls}
+
+
+def _scan_bound(mode, qcap, dp, tabs) -> float:
+    """K6's and K7's bound (ms) over the walk of ``tabs`` (block_first,
+    block_last, rows_valid): the routed rows of each walked block, the valid
+    columns' slab, the top-k of each emitted run; the product over every
+    routed slot."""
+    walked, cols = walked_blocks(*tabs)
+    runs = int(tabs[1].count_nonzero())
+    es = 4 if mode == "fp32" else 2
+    nbytes = walked * qcap * dp * es + cols * dp * es + runs * qcap * KK * 8
+    return bound_ms(nbytes, 2.0 * qcap * cols * dp, OPS32_S if mode == "fp32" else BF16_OPS_S)[0]
+
+
+def _pad_ms(rows, reps: int):
+    """One ``_build.pad_rows`` copy of contiguous ``rows`` to a 16-byte
+    row pitch: what a float K6 / K7 wrapper call adds for rows not handed
+    over at the pitch."""
+    from rag_on_edge_tpu_torch.ops import _build
+
+    rows = rows.contiguous()
+    return _timed(lambda: _build.pad_rows(rows, 16 // rows.element_size()), reps)
+
+
+def _k67_mode(index, q, mode: str, reps: int) -> dict:
+    from rag_on_edge_tpu_torch.ops import ivf_scan
+    from rag_on_edge_tpu_torch.parallel import ShardedIVFIndex
+
+    a = index._arrays
+    vt, dp = a["vectors_t"], a["vectors_t"].shape[1]
+    tabs = (a["block_first"], a["block_last"], a["rows_valid"])
+    qcap = index._auto_qcap(BATCH, NPROBE)
+    probes, cq, _, lossy, _ = index._route(q, NPROBE, qcap)
+    qi = index._query_prep(q)[0]
+    out = {"qcap": qcap, "shape": [list(qi.shape), list(vt.shape)], "K7 pad_ms": _pad_ms(qi, reps)}
+    rb = -(-(vt.shape[0] // 4) // index.CM_GROUP) * index.CM_GROUP
+
+    cqb = cq[a["block_cluster"].long()].unsqueeze(-1).contiguous()
+    kw = dict(k=KK, blk=index.PAD_BLOCK, group=index.CM_GROUP)
+    qb = index._scan_inputs(q, cq)[1]
+    out["K7 dense"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan_routed(
+        qi, cqb, vt, *tabs, **kw), reps), "bound_ms": _scan_bound(mode, qcap, dp, tabs),
+        "bmm_ms": bmm_ms(qb, vt, reps),
+        "K4_ms": _timed(lambda: ivf_scan.cluster_major_scan_grouped(qb, vt, *tabs, **kw), reps)}
+    del qb
+    rec = index._recover_tables(qi, probes, lossy, None, qcap, rb, routed=True)[0]
+    out["K7 recovery"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan_routed(
+        qi, *rec[:5], row_base=rec[6], **kw), reps),
+        "bound_ms": _scan_bound(mode, qcap, dp, rec[2:5]), "pairs": int(lossy.sum())}
+    del rec
+    torch.cuda.empty_cache()
+
+    sh = ShardedIVFIndex(index, [q.device] * 4)
+    sh._ensure_cluster_state()
+    sa = sh._cm_arrays
+    r = sh._cm_route(q, NPROBE, qcap)
+    a0 = sa[0]
+    dense = (r["qg"], a0["vectors_t"], a0["bc"], a0["bf"], a0["bl"], a0["rv"])
+    qb0 = r["qg"][a0["bc"].long()].contiguous()
+    out["K6 dense"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan(
+        *dense, k=KK, blk=index.PAD_BLOCK), reps),
+        "bound_ms": _scan_bound(mode, qcap, dp, dense[3:6]),
+        "bmm_ms": bmm_ms(qb0, a0["vectors_t"], reps), "pad_ms": _pad_ms(r["qg"], reps)}
+    del qb0
+    owned = [int((r["lossy"] & (s_["cluster_shard"][r["probes"].long()] == i)).sum())
+             for i, s_ in enumerate(sa)]
+    s_rec = max(range(len(sa)), key=lambda i: owned[i])
+    rb_sh = max(1, a0["vectors_t"].shape[0] // 4)
+    rec = sh._cm_recover_tables(s_rec, r, r["lossy"], None, qcap, rb_sh)[0]
+    out["K6 recovery"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan(
+        *rec[:6], k=KK, blk=index.PAD_BLOCK, row_base=rec[7]), reps),
+        "bound_ms": _scan_bound(mode, qcap, dp, rec[3:6]), "shard": s_rec}
+    del rec, r
+    torch.cuda.empty_cache()
+
+    calls = {"routed call": lambda: index.search_device(q, K, NPROBE, engine="pallas_routed"),
+             "sharded pallas call": lambda: sh.search_device(q, K, NPROBE, mode="cluster",
+                                                             engine="pallas")}
+    for name, fn in calls.items():
+        out[name] = {"ms": _timed(fn, reps), **_device(fn)}
+    del sh
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -15,7 +15,15 @@ So this module keeps only what the harnesses measure:
 - :func:`graph_ms` — device time per call of calls captured in one CUDA
   graph: no host time between them, which :func:`per_call_ms` counts
   wherever the host issues calls slower than the card runs them (small
-  kernels behind a Python wrapper).
+  kernels behind a Python wrapper);
+- :func:`median_ms` — the median device time of single calls (CUDA
+  events), as ``chip_smoke.py`` and ``k3_times.py`` time a kernel;
+
+and what they set beside a time: :func:`bound_ms`, the least time the card
+could take (bytes over the memory rate or operations over their peak rate,
+the H100 SXM5 peaks below), :func:`walked_blocks`, the part of a
+cluster-major walk a bound charges, and :func:`bmm_ms`, one ``torch.bmm``
+of a per-block product alone.
 """
 
 from __future__ import annotations
@@ -25,7 +33,12 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["per_call_ms", "sync_latency_ms", "graph_ms"]
+__all__ = ["per_call_ms", "sync_latency_ms", "graph_ms", "median_ms", "bound_ms",
+           "walked_blocks", "bmm_ms", "HBM_BYTES_S", "INT8_OPS_S", "BF16_OPS_S", "OPS32_S"]
+
+# H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
+# dense int8 and bf16 tensor-core ops/s, and 32-bit non-tensor ops/s (FFMA).
+HBM_BYTES_S, INT8_OPS_S, BF16_OPS_S, OPS32_S = 3.35e12, 1979e12, 989e12, 67e12
 
 
 def _unique(devices) -> list[torch.device]:
@@ -104,3 +117,65 @@ def graph_ms(fn, device, calls: int, replays: int = 3) -> float:
     ms = per_call_ms(graph.replay, [dev], calls=replays, warmup=1) / calls
     del graph
     return ms
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` calls, each timed
+    alone by CUDA events on the current stream, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of ``nbytes``
+    over the memory rate and ``ops`` over ``ops_rate`` → (ms, "bytes" or
+    "operations", whichever sets it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def walked_blocks(block_first, block_last, rows_valid) -> tuple[int, int]:
+    """What a cluster-major function must read: the blocks with rows in a
+    run of blocks that ends at a ``block_last`` (the run starts at the
+    latest ``block_first``), and the sum of their ``rows_valid``.  Columns
+    past ``rows_valid`` only yield masked keys, so a bound charges a block's
+    slab, bias and products for its valid columns alone."""
+    bf, bl, rv = (x.cpu().numpy() for x in (block_first, block_last, rows_valid))
+    walked = cols = 0
+    for t in np.nonzero(bl)[0]:
+        b = t
+        while b > 0 and bf[b] == 0:
+            b -= 1
+        walked += int((rv[b:t + 1] > 0).sum())
+        cols += int(rv[b:t + 1].sum())
+    return walked, cols
+
+
+def bmm_ms(qg, vectors_t, reps: int) -> float | str:
+    """Device ms (:func:`median_ms`) of the per-block product ``qg @
+    vectors_t`` alone as one ``torch.bmm``: fp32 operands in fp32 with TF32
+    off; any other as bf16 operands into fp32 (SIFT's integers are exact in
+    bf16).  The casts are made outside the timing."""
+    if qg.dtype == torch.float32:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return median_ms(lambda: torch.bmm(qg, vectors_t), reps)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    q16, v16 = qg.to(torch.bfloat16), vectors_t.to(torch.bfloat16)
+    try:
+        return median_ms(lambda: torch.bmm(q16, v16, out_dtype=torch.float32), reps)
+    except TypeError:
+        return "not measured (torch.bmm takes no out_dtype here)"
+    finally:
+        del q16, v16
+        torch.cuda.empty_cache()

@@ -12,15 +12,16 @@ minutes.
 :func:`check_inputs` is the one rule for which inputs a kernel wrapper
 refuses before it launches; each wrapper checks its kernel's own shape
 limits beside the call, :func:`aligned` gives a kernel that loads wide
-words a base pointer it can take, and :func:`pad_rows`, :func:`kmajor` and
-:func:`kmajor_operands` the row pitch and the K-major layout TMA and 8-bit
-``wgmma`` take.
+words a base pointer it can take, and :func:`pad_rows`,
+:func:`pitched_storage`, :func:`kmajor` and :func:`kmajor_operands` the row
+pitch and the K-major layout TMA and 8-bit ``wgmma`` take.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -30,8 +31,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library",
-           "check_inputs", "check_float", "aligned", "pad_rows", "kmajor",
-           "kmajor_operands", "PASS_K", "by_passes"]
+           "check_inputs", "check_float", "aligned", "pad_rows", "pitched_storage",
+           "kmajor", "kmajor_operands", "PASS_K", "by_passes"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rag_on_edge_tpu_torch"
@@ -122,6 +123,28 @@ def pad_rows(x, multiple: int):
     out = x.new_zeros((*x.shape[:-1], width + pad))
     out[..., :width] = x
     return out
+
+
+def pitched_storage(x):
+    """The rows of ``x`` [..., D] as TMA and 16-byte copies read them →
+    (``storage`` [..., ldq] contiguous, ``ldq``), ``storage[..., :D]`` being
+    ``x`` and ``ldq`` elements a multiple of 16 bytes.  Where ``x`` already
+    lies so (a contiguous tensor whose ``D`` fills the pitch, or a view of
+    the first ``D`` columns of one, on a 16-byte base) nothing is copied
+    and the pad is whatever the buffer holds: the kernels read only the
+    first ``D`` elements of a row.  Else one copy, :func:`pad_rows`."""
+    mult = 16 // x.element_size()
+    d = x.shape[-1]
+    if x.dim() >= 2 and x.numel() and x.stride(-1) == 1:
+        ldq = x.stride(-2)
+        nested = all(x.stride(i) == ldq * math.prod(x.shape[i + 1:-1])
+                     for i in range(x.dim() - 2))
+        last = x.storage_offset() + math.prod(x.shape[:-1]) * ldq
+        if (ldq >= d and ldq % mult == 0 and nested and x.data_ptr() % 16 == 0
+                and last * x.element_size() <= x.untyped_storage().nbytes()):
+            return x.as_strided((*x.shape[:-1], ldq), x.stride()), ldq
+    storage = pad_rows(x, mult)
+    return storage, storage.shape[-1]
 
 
 def kmajor(x, multiple: int):

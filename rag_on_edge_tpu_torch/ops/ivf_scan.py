@@ -23,11 +23,15 @@ operands in one dtype; ± bias) or raise.  K6 and K7 do the same, in the
 same modes.  The int8 modes of K4, K6 and K7 run on ``wgmma`` (s8 -> s32)
 fed by TMA, with the routed rows at TMA's 16-byte row pitch
 (:func:`int8_operands`; no copy at D = 128) and the slab transposed in
-shared memory; the float modes score on the staged ``fmaf`` loops of
-``csrc/ivf_stage.cuh``, in d-slices past D' = 320.  The kernels keep a
-running top-k of 32 a row; a larger k runs in passes of 32
-(``_build.by_passes``), each pass given each row's last entry of the one
-before as its bound.
+shared memory.  K6's and K7's bf16 modes run on the same kernel (``wgmma``
+bf16 -> f32, the slab read as it lies through the transpose-A bit), their
+fp32 modes on the FFMA register tile of ``csrc/ffma_tile.cuh``; both read
+the routed rows at a 16-byte row pitch (:func:`float_operands`: a view
+that lies so is read in place).  K4's float modes score on
+the staged ``fmaf`` loops of ``csrc/ivf_stage.cuh``, in d-slices past D' =
+320.  The kernels keep a running top-k of 32 a row; a larger k runs in
+passes of 32 (``_build.by_passes``), each pass given each row's last entry
+of the one before as its bound.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -72,21 +76,23 @@ ROUTED_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
 # What the CUDA kernel takes: 128 bins (one per lane of a row group) and
-# bin depths 1-4 (register arrays sized at compile time).
+# bin depths 1-4 (register arrays sized at compile time); K6's and K7's fp32
+# modes keep a block's chunk in a byte (blk <= 32768).
 _CUDA_NBINS = 128
 _CUDA_DEPTH_MAX = 4
+_CUDA_FP32_BLK_MAX = 128 * 256
 
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
 # stream last.  The float entries take one more int, bf16 (0 or 1); K4's, K6's
-# and K7's int8 entries (wgmma) one more, the routed rows' padded pitch; K4's,
-# K6's, K7's and K10's entries two more pointers, the rows' bounds of a later
-# pass.
+# and K7's int8 entries and K6's and K7's float entries one more, the routed
+# rows' pitch; K4's, K6's, K7's and K10's entries two more pointers, the rows'
+# bounds of a later pass.
 _ENTRIES = {
     "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 7),
-    "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 8),
-    "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 8),
+    "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 9),
+    "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 9),
     "ivf_variant_scan_i8": (11, 7), "ivf_variant_scan_f": (11, 8),
 }
 
@@ -238,12 +244,30 @@ def entry(name: str):
 
 
 def float_args(name: str, queries, vectors_t):
-    """What a float mode of K4, K6, K7 or K10 adds before its launch: the
+    """What a float mode of K4 or K10 adds before its launch: the
     float checks, and the slabs on a 16-byte boundary (the chunk stage loads
     16 bytes along blk) → (vectors_t, the float entry's extra arguments:
     ``(bf16,)``)."""
     _build.check_float(name, queries, vectors_t)
     return _build.aligned(vectors_t, 16), (int(vectors_t.dtype == torch.bfloat16),)
+
+
+def float_operands(name: str, queries, vectors_t, blk: int):
+    """What K6's and K7's float modes (bf16 on ``wgmma`` fed by TMA, fp32 on
+    the FFMA register tile) read: the routed rows (K6's ``qg``) or the batch
+    (K7's ``qi``) at a 16-byte row pitch (:func:`_build.pitched_storage`:
+    read in place where they lie so, as the sharded index writes its routed
+    tables; else one zero-padded copy), and the slab on a 16-byte base → (queries'
+    storage [..., ldq], vectors_t, the entry's extra arguments: ``(ldq, blk,
+    ..., bf16)`` as its dims).  fp32 keeps a block's chunk in a byte: blk <=
+    32768."""
+    _build.check_float(name, queries, vectors_t)
+    bf16 = int(vectors_t.dtype == torch.bfloat16)
+    if not bf16 and blk > _CUDA_FP32_BLK_MAX:
+        raise ValueError(f"the CUDA {name} fp32 mode takes blk <= {_CUDA_FP32_BLK_MAX} (a "
+                         f"block's chunk in a byte); got blk={blk}")
+    storage, ldq = _build.pitched_storage(queries)
+    return _build.aligned(storage, 16), _build.aligned(vectors_t, 16), ldq, bf16
 
 
 def int8_operands(queries, vectors_t):
@@ -361,8 +385,10 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
-    bias, or fp32 or bf16 in one dtype; nbins 128, bin_depth <= 4; any D;
-    k > 32 in passes) or raise."""
+    bias, or fp32 or bf16 in one dtype, fp32 at blk <= 32768; nbins 128,
+    bin_depth <= 4; any D; k > 32 in passes) or raise.  A float ``qg`` that
+    whose rows lie at a 16-byte pitch (the sharded index's tables) is read
+    in place."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":
@@ -374,6 +400,8 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    if not int_path:  # qg read at its row pitch (in place where it lies so)
+        qg, vectors_t, ldq, bf16 = float_operands("K6", qg, vectors_t, blk)
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
                                     rows_valid, row_base, bias])
     _check_cuda_limits("K6", nbins, bin_depth)
@@ -383,8 +411,7 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         qg, vectors_t = int8_operands(qg, vectors_t)
         dims, flag = (d, qg.shape[-1]), ()
     else:
-        vectors_t, flag = float_args("K6", qg, vectors_t)
-        dims = (d,)
+        dims, flag = (d, ldq), (bf16,)
     name = "ivf_cluster_scan_i8" if int_path else "ivf_cluster_scan_f"
     fn = entry(name)
     head = (qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
@@ -446,8 +473,9 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
     the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
     are defined.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (int8 ± bias, or fp32 or bf16 in one dtype; nbins 128,
-    bin_depth <= 4; any D; k > 32 in passes) or raise."""
+    the kernel (int8 ± bias, or fp32 or bf16 in one dtype, fp32 at blk <=
+    32768; nbins 128, bin_depth <= 4; any D; k > 32 in passes) or raise.  A
+    float ``qi`` whose rows lie at a 16-byte pitch is read in place."""
     global ROUTED_LAUNCHES
     dev = qi.device
     if dev.type == "cpu":
@@ -459,6 +487,10 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    if not int_path:
+        # bf16 gathers the batch in 16-byte pieces, fp32 in 16-byte copies:
+        # its rows at a 16-byte pitch (in place where they lie so).
+        qi, vectors_t, ldq, bf16 = float_operands("K7", qi, vectors_t, blk)
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
                                     rows_valid, row_base, bias])
     _check_cuda_limits("K7", nbins, bin_depth)
@@ -468,10 +500,7 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         qi, vectors_t = int8_operands(qi, vectors_t)
         dims, flag = (d, qi.shape[-1]), ()
     else:
-        # The routed rows are gathered from qi a scalar at a time: only the
-        # slabs need the 16-byte boundary.
-        vectors_t, flag = float_args("K7", qi, vectors_t)
-        dims = (d,)
+        dims, flag = (d, ldq), (bf16,)
     name = "ivf_routed_scan_i8" if int_path else "ivf_routed_scan_f"
     fn = entry(name)
     head = (qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),

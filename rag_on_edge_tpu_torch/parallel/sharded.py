@@ -34,7 +34,8 @@ import torch
 from rag_on_edge_tpu_torch.models.ivf import (JOIN_FUSED_MIN, IVFIndex, coarse_arrays_host,
                                               coarse_probes_tiered, coarse_tier, fine_scan,
                                               invert_probes)
-from rag_on_edge_tpu_torch.ops import distances, fused_topk, ivf_accum, ivf_scan, quantize, topk
+from rag_on_edge_tpu_torch.ops import (_build, distances, fused_topk, ivf_accum, ivf_scan,
+                                       quantize, topk)
 from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
 from rag_on_edge_tpu_torch.ops.bruteforce_fused import fused_topk_matmul
 
@@ -108,6 +109,19 @@ def _place_shards(devices: list[torch.device], specs: dict) -> list[dict]:
             arrays[name] = x.to(dev).to(dtype).contiguous()
         out.append(arrays)
     return out
+
+
+def _routed_table(qrow: torch.Tensor, cq: torch.Tensor) -> torch.Tensor:
+    """The routed table [nlist, qcap, D] of the batch ``qrow`` [B, D]: row
+    ``cq[c, s]`` of the batch, zero for an empty slot (-1).  A float table
+    is written at a 16-byte row pitch (a view of a zero-padded buffer),
+    which K6's float modes read in place, so no K6 launch copies it; an
+    int8 table is contiguous, since K6's int8 kernel reads the pad and its
+    wrapper pads the rows itself."""
+    src = qrow if qrow.dtype == torch.int8 else _build.pad_rows(qrow, 16 // qrow.element_size())
+    table = torch.where((cq >= 0)[..., None], src[cq.clamp_min(0).long()],
+                        torch.zeros((), dtype=qrow.dtype, device=qrow.device))
+    return table[..., :qrow.shape[-1]]
 
 
 def _partition_clusters(offsets: np.ndarray, n_shards: int) -> list[tuple[int, int]]:
@@ -567,7 +581,8 @@ class ShardedIVFIndex:
         """The replicated stages on the first device: coarse probe,
         inversion, the lossy pairs, candidate counts, and the query prep
         (int8: one per-batch query scale, ``alpha = sq·sb``, doubled for L2;
-        float: a ones column for L2) with the routed table ``qg``."""
+        float: a ones column for L2) with the routed table ``qg``; float
+        rows at a 16-byte row pitch (:func:`_routed_table`)."""
         sizes = self._cm_arrays[0]["sizes"]
         probes = self._probes(q, nprobe)
         cq, slot, _ = invert_probes(probes, self.nlist, qcap)
@@ -586,9 +601,7 @@ class ShardedIVFIndex:
                 qrow = torch.cat([qrow, torch.ones((q.shape[0], 1), dtype=q.dtype,
                                                    device=q.device)], dim=-1)
             qrow = qrow.to(self._cm_arrays[0]["vectors_t"].dtype)
-        routed = (cq >= 0)[..., None]
-        qg = torch.where(routed, qrow[cq.clamp_min(0).long()],
-                         torch.zeros((), dtype=qrow.dtype, device=q.device)).contiguous()
+        qg = _routed_table(qrow, cq)
         return dict(q=q, probes=probes, slot=slot, lossy=lossy, qrow=qrow, qg=qg, alpha=alpha,
                     spill=lossy.sum().to(torch.int32),
                     ncand=p_sizes.sum(dim=1).to(torch.int32))
@@ -625,9 +638,7 @@ class ShardedIVFIndex:
         inc_b = active_b & (rank < rb)
         inc_list = inc_b[blocks_list]
         cluster_inc = active_c & (last_blk >= 0) & inc_b[last_blk.clamp_min(0).long()]
-        routed2 = (cq2 >= 0)[..., None]
-        qg2 = torch.where(routed2, qrow[cq2.clamp_min(0).long()],
-                          torch.zeros((), dtype=qrow.dtype, device=dev)).contiguous()
+        qg2 = _routed_table(qrow, cq2)
         bias2 = None
         if bias is not None:
             bias2 = bias.reshape(nblocks_local, blk)[blocks_list].reshape(1, -1)

@@ -17,7 +17,7 @@ from rag_on_edge_tpu_torch.harness import bench_gemm, hw_probe, kernel_lab
 from rag_on_edge_tpu_torch.models.brute_force import BruteForceIndex
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex
 from rag_on_edge_tpu_torch.ops import bruteforce_accum, bruteforce_fused
-from rag_on_edge_tpu_torch.ops import block_tables, fused_topk, ivf_accum, ivf_scan
+from rag_on_edge_tpu_torch.ops import _build, block_tables, fused_topk, ivf_accum, ivf_scan
 from rag_on_edge_tpu_torch.ops import tiled_matmul, topk
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex
 from rag_on_edge_tpu_torch.parallel import make_mesh_2d, spatial_matmul
@@ -402,6 +402,56 @@ def test_k4_kernel_fp32_close_to_plain_on_noninteger_data(dev):
     _assert_topk_close(pv[rows], pr[rows], rv_[rows], rr[rows], bound[rows])
 
 
+def _noninteger(rng, dev, dtype, *shapes):
+    """Normal values of the given shapes as ``dtype`` on ``dev``."""
+    return tuple(torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(
+        dev, FLOAT_DTYPES[dtype]) for sh in shapes)
+
+
+def _order_bound(q, vt, d):
+    """2·D·2^-24·(|q|@|v|), each row's max over every block's slab v: two
+    fp32 sums of D products (exact in fp32 for bf16 operands) in any order
+    differ by no more."""
+    v = vt.double().abs().amax(dim=0, keepdim=True)
+    return 2.0 * d * 2.0**-24 * torch.matmul(q.double().abs(), v).amax(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+def test_k6_kernel_float_close_to_plain_on_noninteger_data(dev, dtype):
+    """K6's float modes sum in another order than the plain fp32 product
+    (bf16: the tensor cores' order) on non-integer data: within the order
+    bound, ids equal where values stand apart."""
+    rng = np.random.default_rng(29)
+    _, _, bc, bf, bl, rv, _, rb = _k6_inputs(rng, [700, 300, 129, 2000, 90], 256, 100, 129,
+                                             False, "dense", False)
+    qg, vt = _noninteger(rng, dev, dtype, (9, 100, 129), (len(bc), 129, 256))
+    bc, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bc, bf, bl, rv, rb))
+    kw = dict(k=20, blk=256, row_base=rb)
+    pv, pr = ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_reference(qg, vt, bc, bf, bl, rv, **kw)
+    last = torch.nonzero(bl).flatten()
+    rows = bc[last].long()
+    _assert_topk_close(pv[rows], pr[rows], rv_[rows], rr[rows], _order_bound(qg[rows], vt, 129))
+
+
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+def test_k7_kernel_float_close_to_plain_on_noninteger_data(dev, dtype):
+    """K7's float modes on non-integer data, as K6's."""
+    rng = np.random.default_rng(30)
+    _, cqb, _, _, bf, bl, rv, _, rb, _ = _k7_inputs(rng, [2000, 0, 5000, 129, 10], 2048, 40,
+                                                    129, False, False, False)
+    qi, vt = _noninteger(rng, dev, dtype, (300, 129), (len(bf), 129, 2048))
+    cqb, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (cqb, bf, bl, rv, rb))
+    kw = dict(k=20, blk=2048, row_base=rb)
+    pv, pr = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw)
+    rv_, rr = ivf_scan.cluster_major_scan_routed_reference(qi, cqb, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    idx = cqb[rows, :, 0].long()
+    qg = torch.where(((idx >= 0) & (idx < 300))[..., None], qi[idx.clamp(0, 299)],
+                     torch.zeros((), dtype=qi.dtype, device=dev))
+    _assert_topk_close(pv[rows], pr[rows], rv_[rows], rr[rows], _order_bound(qg, vt, 129))
+
+
 def test_k4_kernel_refuses_what_it_does_not_take(dev):
     rng = np.random.default_rng(20)
     qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
@@ -512,10 +562,11 @@ def test_k6_kernel_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, empty, dept
 
 
 # Ragged float shapes: D' 129 (odd, the augmented L2 index), 37 (d % 4 != 0)
-# and 320 (the widest the float stage holds), qcap off the row tile.
+# and 320 (the widest the float stage holds), qcap off the row tile; three
+# clusters or more, so a recovery walk cut short still emits one.
 FLOAT_SHAPES = [([2000, 0, 5000, 129, 10], 2048, 40, 129),
                 ([700, 300, 129, 2000, 90], 256, 100, 37),
-                ([700, 300], 256, 24, 320)]
+                ([700, 300, 129], 256, 24, 320)]
 FLOAT_SHAPE_IDS = ["d129", "d37", "d320"]
 
 
@@ -529,29 +580,40 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def _assert_plus_zero(pv):
+    """The finite scores of zero routed rows (no bias) are +0, bit for bit."""
+    fin = pv > float("-inf")
+    assert fin.any() and bool((pv[fin].float().view(torch.int32) == 0).all())
+
+
 @pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
 @pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
-@pytest.mark.parametrize("walk", ["dense", "parked"])
-@pytest.mark.parametrize("depth", [2, 3])
-def test_k6_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, walk, depth):
-    """K6's float modes over a shard's walk and a recovery list; every 7th
-    routed row is zero, as an empty slot: it scores +0."""
+@pytest.mark.parametrize("walk", ["dense", "cut", "parked"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [20, 33, 64])
+def test_k6_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, walk, depth, k):
+    """K6's float modes (bf16 on wgmma, fp32 on the FFMA tile) over a
+    shard's walk and a recovery list, cut or with its parked tail; k past
+    32 in passes; every 7th routed row is zero, as an empty slot: it scores
+    +0."""
     rng = np.random.default_rng(27)
     qg, vt, bc, bf, bl, rv, _, rb = _k6_inputs(rng, sizes, blk, qcap, d, False, walk, False)
     qg[:, ::7] = 0
     qg, vt = _as_float(dev, dtype, qg, vt)
     bc, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bc, bf, bl, rv, rb))
-    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb)
-    before = ivf_scan.CLUSTER_LAUNCHES
+    kw = dict(k=k, blk=blk, bin_depth=depth, row_base=rb)
+    before = (ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES)
     pv, pr = ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, **kw)
     torch.cuda.synchronize()
-    assert ivf_scan.CLUSTER_LAUNCHES == before + 1
+    assert (ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES) == (before[0] + -(-k // 32),
+                                                              before[1])
     rv_, rr = ivf_scan.cluster_major_scan_reference(qg, vt, bc, bf, bl, rv, **kw)
     rows = bc[torch.nonzero(bl).flatten()].long()
     assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
     fin = rv_[rows] > float("-inf")
     assert fin.any()
     assert torch.equal(pr[rows][fin], rr[rows][fin])
+    _assert_plus_zero(pv[rows][:, ::7])
 
 
 def test_k6_kernel_refuses_what_it_does_not_take(dev):
@@ -565,6 +627,9 @@ def test_k6_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, nbins=64)
     with pytest.raises(ValueError):  # depth past 4
         ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, bin_depth=5)
+    with pytest.raises(ValueError, match="blk <= 32768"):  # fp32 keeps a chunk in a byte
+        ivf_scan.cluster_major_scan(qg.float(), torch.zeros((len(bc), 16, 32896), device=dev),
+                                    bc, bf, bl, rv, 4, blk=32896)
 
 
 def _k7_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, nbatch=300):
@@ -643,27 +708,150 @@ def test_k7_kernel_equal_to_plain_and_to_k4_k6(dev, sizes, blk, qcap, d, k, ties
 @pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
 @pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
 @pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
-@pytest.mark.parametrize("depth", [2, 4])
-def test_k7_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, compact, depth):
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [20, 33, 64])
+def test_k7_kernel_float_bit_equal_to_plain(dev, sizes, blk, qcap, d, dtype, compact, depth, k):
     """K7's float modes: the routed rows gathered from the batch [B, D']
-    (rows start every 4·D' bytes, D' odd) through cq_blocks; a slot past the
-    batch and the -1 slots give zero rows."""
+    (D' odd: the wrapper pads the rows to a 16-byte pitch) through
+    cq_blocks; a slot past the batch and the -1 slots give zero rows; k past
+    32 in passes."""
     rng = np.random.default_rng(28)
     qi, cqb, vt, _, bf, bl, rv, _, rb, _ = _k7_inputs(rng, sizes, blk, qcap, d, False,
                                                       compact, False)
     qi, vt = _as_float(dev, dtype, qi, vt)
     cqb, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (cqb, bf, bl, rv, rb))
-    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb)
+    kw = dict(k=k, blk=blk, bin_depth=depth, row_base=rb)
     before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES)
     pv, pr = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw)
     torch.cuda.synchronize()
-    assert (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES) == (before[0] + 1, before[1])
+    assert (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES) == (before[0] + -(-k // 32),
+                                                             before[1])
     rv_, rr = ivf_scan.cluster_major_scan_routed_reference(qi, cqb, vt, bf, bl, rv, **kw)
     rows = torch.nonzero(bl).flatten()
     assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
     fin = rv_[rows] > float("-inf")
     assert fin.any()
     assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
+# The float kernels' edges: (sizes, blk, qcap, D', depth).  qcap 257 runs
+# one row into a fifth 64-row (fp32) and ninth 32-row (bf16) tile, its empty
+# slots making all-zero tiles; D' 384, 768 and 1536 (sentence-embedding
+# widths, with L2's column left out) pass the fp32 slice of 32 and bf16's
+# 64-dim unit many times; 2100 and 4000 hold bf16's routed rows out of
+# shared memory (read a unit at a time) at depths 1-2 and 3-4.  Values in
+# [-8, 7]: every fp32 sum is exact at these D.
+FLOAT_EDGES = [
+    pytest.param([2000, 0, 5000, 129, 10], 2048, 257, 129, 2, id="q257-d129"),
+    pytest.param([700, 300, 129, 2000, 90], 256, 24, 384, 1, id="q24-d384"),
+    pytest.param([700, 300, 129], 256, 40, 768, 3, id="q40-d768"),
+    pytest.param([1500, 0, 40], 512, 100, 1536, 2, id="q100-d1536"),
+    pytest.param([700, 300, 129], 256, 40, 2100, 2, id="q40-d2100"),
+    pytest.param([700, 300, 129], 128, 33, 4000, 4, id="q33-d4000"),
+]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d,depth", FLOAT_EDGES)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_k6_k7_kernel_float_edges_bit_equal_to_plain(dev, sizes, blk, qcap, d, depth, dtype,
+                                                     bias, kernel):
+    """K6 (empty slots from a random count on, and walks cut short) and K7
+    (a compacted list) at the float kernels' edges, ± bias, the routed rows
+    handed over as pitched views whose pad holds NaN: no kernel reads past
+    a row's D'."""
+    rng = np.random.default_rng(31)
+    if kernel == "K6":
+        qg, vt, bc, bf, bl, rv, br, rb = _k6_inputs(rng, sizes, blk, qcap, d, False, "cut",
+                                                    bias, empty_slots=True)
+        cqb = None
+    else:
+        qg, cqb, vt, bc, bf, bl, rv, br, rb, _ = _k7_inputs(rng, sizes, blk, qcap, d, False,
+                                                           True, bias)
+    q, vt = _as_float(dev, dtype, qg // 16, vt // 16)
+    storage = _build.pad_rows(q, 16 // q.element_size())
+    storage[..., d:] = float("nan")
+    q = storage[..., :d]
+    bc, bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bc, bf, bl, rv, rb))
+    br = None if br is None else torch.from_numpy(br).to(dev)
+    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb, bias=br)
+    if kernel == "K6":
+        before = ivf_scan.CLUSTER_LAUNCHES
+        pv, pr = ivf_scan.cluster_major_scan(q, vt, bc, bf, bl, rv, **kw)
+        rv_, rr = ivf_scan.cluster_major_scan_reference(q, vt, bc, bf, bl, rv, **kw)
+        launched = ivf_scan.CLUSTER_LAUNCHES - before
+        rows = bc[torch.nonzero(bl).flatten()].long()
+    else:
+        cqb = torch.from_numpy(cqb).to(dev)
+        before = ivf_scan.ROUTED_LAUNCHES
+        pv, pr = ivf_scan.cluster_major_scan_routed(q, cqb, vt, bf, bl, rv, **kw)
+        rv_, rr = ivf_scan.cluster_major_scan_routed_reference(q, cqb, vt, bf, bl, rv, **kw)
+        launched = ivf_scan.ROUTED_LAUNCHES - before
+        rows = torch.nonzero(bl).flatten()
+    torch.cuda.synchronize()
+    assert launched == 1 and rows.numel() > 0
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", FLOAT_SHAPES, ids=FLOAT_SHAPE_IDS)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("depth", [1, 4])
+def test_k7_kernel_float_equals_k6_and_k4(dev, sizes, blk, qcap, d, dtype, depth):
+    """The three float designs on the same rows: K7 (gathered in the
+    kernel), K6 on the per-cluster table ``qi[cq]`` and K4 (the float stage)
+    on the per-block table ``qi[cq_blocks]`` give the same values, bit for
+    bit, and the same ids."""
+    rng = np.random.default_rng(32)
+    qi, cqb, vt, bc, bf, bl, rv, _, rb, cq = _k7_inputs(rng, sizes, blk, qcap, d, False, False,
+                                                        False)
+    qi, vt = _as_float(dev, dtype, qi, vt)
+    cqb, cq, bc, bf, bl, rv, rb = (torch.from_numpy(x).to(dev)
+                                   for x in (cqb, cq, bc, bf, bl, rv, rb))
+
+    def gathered(idx):
+        hit = (idx >= 0) & (idx < qi.shape[0])
+        g = qi[torch.where(hit, idx, torch.zeros_like(idx)).long()]
+        return torch.where(hit[..., None], g, torch.zeros_like(g)).contiguous()
+
+    kw = dict(k=20, blk=blk, bin_depth=depth, row_base=rb)
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES)
+    pv, pr = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, **kw)
+    cv, ci = ivf_scan.cluster_major_scan(gathered(cq), vt, bc, bf, bl, rv, **kw)
+    gv, gr = ivf_scan.cluster_major_scan_grouped(gathered(cqb[..., 0]), vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert (ivf_scan.ROUTED_LAUNCHES, ivf_scan.CLUSTER_LAUNCHES, ivf_scan.LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    rows = torch.nonzero(bl).flatten()
+    out = bc[rows].long()
+    fin = pv[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(_bits(cv[out]), _bits(pv[rows]))
+    assert torch.equal(_bits(gv[rows]), _bits(pv[rows]))
+    assert torch.equal(ci[out][fin], pr[rows][fin]) and torch.equal(gr[rows][fin], pr[rows][fin])
+
+
+def test_grouped_scan_cubin_bf16_on_wgmma_unserialized(dev):
+    """The build report of ``csrc/ivf_grouped_scan.cu`` (``chip_smoke.py``'s
+    ``wgmma_report``, which raises on a missing instance, a bf16 instance
+    without bf16 ``wgmma`` or ptxas serializing its groups, C7520): K6's
+    and K7's bf16 instances hold HGMMA, their fp32 instances FFMA."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lines = smoke.wgmma_report(_build, "ivf_grouped_scan", ("grouped_scan_kernel",))
+    bf16 = [ln for ln in lines if " bf16, depth" in ln]
+    fp32 = [ln for ln in lines if "grouped_ffma_kernel<" in ln]
+    assert len(bf16) == 8 and all("HGMMA" in ln and "BF16" in ln for ln in bf16)
+    assert len(fp32) == 8 and all("FFMA 0" not in ln for ln in fp32)
+    assert lines[-1].endswith("ptxas serialization warnings: none")
 
 
 def test_k7_kernel_refuses_what_it_does_not_take(dev):
@@ -680,6 +868,10 @@ def test_k7_kernel_refuses_what_it_does_not_take(dev):
         ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, nbins=64)
     with pytest.raises(ValueError):  # depth past 4
         ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
+    with pytest.raises(ValueError, match="blk <= 32768"):  # fp32 keeps a chunk in a byte
+        ivf_scan.cluster_major_scan_routed(
+            qi.float(), cqb, torch.zeros((vt.shape[0], 16, 32896), device=dev), bf, bl, rv, 4,
+            blk=32896)
 
 
 @pytest.mark.parametrize("sizes,blk,qcap,d,lo_hi", [
@@ -1059,6 +1251,75 @@ def test_sharded_ivf_card_equals_cpu(dev, run):
         assert int(spill) == int(want_spill)
     assert (k1 == 3) == (run in ("auto", "recover")) and (k6 > 0) == (run in ("pallas",
                                                                               "recover"))
+
+
+def _index_d100(dtype, device):
+    """An L2 IVF index at D 100 (no 16-byte multiple in any dtype: int8
+    rows pad to 112, fp32 and bf16 (D' 101) to 104), built on the CPU and
+    placed on ``device``."""
+    _, queries = make_synthetic(3000, 40, 100, 8, seed=5)
+    src = _index_d100_src()
+    idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                               src._reorder_np, metric="l2", dtype=dtype, pad_block=256,
+                               config=src.config, device=device)
+    return idx, torch.from_numpy(queries).to(device)
+
+
+@functools.lru_cache(maxsize=1)
+def _index_d100_src():
+    base, _ = make_synthetic(3000, 40, 100, 8, seed=5)
+    return IVFIndex.build(base, nlist=12, metric="l2", dtype="int8", pad_block=256,
+                          max_iter=5, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+@pytest.mark.parametrize("recover", [False, True])
+def test_routed_engine_card_equals_cpu_at_d100(dev, dtype, recover):
+    """The routed engine at D 100: K7 takes the int8 batch contiguous (its
+    wrapper pads it) and a float batch at the 16-byte pitch in place; the
+    same ids, scores and spill on the card as on the CPU."""
+    kw = dict(mode="cluster", engine="pallas_routed", qcap=4, recover=recover,
+              recover_qcap=16, recover_blocks=24, recover_passes=2)  # every block
+
+    def search(device):
+        idx, q = _index_d100(dtype, device)
+        out = idx.search_device(q, 10, 4, **kw)
+        return [x.cpu() for x in out], int(idx.last_spill)
+
+    before = (ivf_scan.ROUTED_LAUNCHES, ivf_scan.LAUNCHES)
+    got, spill = search(dev)
+    torch.cuda.synchronize()
+    launches = (ivf_scan.ROUTED_LAUNCHES - before[0], ivf_scan.LAUNCHES - before[1])
+    want, want_spill = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert spill == want_spill and (spill == 0) == recover
+    assert launches == ((3, 0) if recover else (1, 0))  # main walk + 2 recovery passes
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+@pytest.mark.parametrize("run", ["pallas", "recover"])
+def test_sharded_ivf_card_equals_cpu_at_d100(dev, dtype, run):
+    """The sharded index at D 100, K6 over each shard's walk
+    (``engine="pallas"``) or in the recovery pass after K1: K6 takes the int8
+    routed tables contiguous and the float ones at the 16-byte pitch in
+    place; the same ids, scores and spill on the card as on the CPU."""
+    kw = SHARDED_IVF_RUNS[run]
+
+    def search(device):
+        idx, q = _index_d100(dtype, device)
+        sh = ShardedIVFIndex(idx, [torch.device(device)] * 3)
+        out = sh.search_device(q, 10, 4, **kw)
+        return [x.cpu() for x in out], int(sh.last_spill)
+
+    before = ivf_scan.CLUSTER_LAUNCHES
+    got, spill = search(dev)
+    torch.cuda.synchronize()
+    k6 = ivf_scan.CLUSTER_LAUNCHES - before
+    want, want_spill = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert spill == want_spill and k6 > 0
 
 
 @pytest.mark.parametrize("rescore", [False, True])

@@ -97,3 +97,26 @@ def test_k10_checks():
         tlab._variant_scan(*args, K, BLK, NBINS, "bogus")
     with pytest.raises(ValueError, match="multiple of nbins"):
         tlab._variant_scan(*args, K, BLK, 96, "full")
+
+
+@pytest.mark.parametrize("sizes,blk", [([300, 0, 700, 129, 10], 256), ([2048, 1, 0], 2048)])
+def test_walked_blocks_and_bound_over_jax_block_tables(sizes, blk):
+    """What the timing harnesses charge a cluster-major walk
+    (``timing.walked_blocks``) over the JAX package's block tables: every
+    block that holds rows, and the clusters' sizes summed; a compacted list
+    (the first cluster's blocks only, as a recovery pass walks) charges
+    those blocks alone.  ``timing.bound_ms`` is the larger of the bytes and
+    the operations time."""
+    from rag_on_edge_tpu.ops.pallas_ivf import build_block_tables as jax_tables
+    from rag_on_edge_tpu_torch.harness import timing
+
+    sizes = np.asarray(sizes)
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = (torch.from_numpy(np.asarray(x, np.int32))
+                         for x in jax_tables(offs, sizes, blk))
+    nb = -(-sizes // blk)
+    assert timing.walked_blocks(bf, bl, rv) == (int(nb.sum()), int(sizes.sum()))
+    first = int(nb[0])
+    assert timing.walked_blocks(bf[:first], bl[:first], rv[:first]) == (first, int(sizes[0]))
+    assert timing.bound_ms(3.35e9, 0, 1.0) == (1.0, "bytes")
+    assert timing.bound_ms(1.0, 2 * timing.OPS32_S, timing.OPS32_S) == (2000.0, "operations")

@@ -7,7 +7,8 @@ argument, so the code the card runs around its kernels runs here with the
 plain versions, against the JAX kernels in interpret mode.  The kernels
 themselves are held to these on the card by ``tests/test_torch_cuda.py``.
 Beside them, the public call the card used to refuse: an int8 L2 IVF index
-at D 3072.
+at D 3072; and the row pitch K6's and K7's float modes read their routed
+rows at (``_build.pitched_storage``, ``ivf_scan.float_operands``).
 """
 
 import jax.numpy as jnp
@@ -17,12 +18,14 @@ import torch
 
 from rag_on_edge_tpu.harness import kernel_lab as jax_lab
 from rag_on_edge_tpu.models import ivf as jax_ivf
+from rag_on_edge_tpu.ops import pallas_ivf
 from rag_on_edge_tpu.ops.pallas_bruteforce import fused_topk_matmul as jax_fused_topk_matmul
 from rag_on_edge_tpu.ops.pallas_topk import fused_topk as jax_fused_topk
 from rag_on_edge_tpu.utils.datasets import make_synthetic
 from rag_on_edge_tpu_torch.harness import kernel_lab
 from rag_on_edge_tpu_torch.models import ivf as port_ivf
-from rag_on_edge_tpu_torch.ops import _build, block_tables, bruteforce_fused, fused_topk, topk
+from rag_on_edge_tpu_torch.ops import (_build, block_tables, bruteforce_fused, fused_topk,
+                                       ivf_scan, topk)
 
 
 def _wide_rows(dtype, w=20480):
@@ -203,3 +206,82 @@ def test_int8_l2_ivf_at_d3072_equals_jax():
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+FLOAT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _jnp_of(x):
+    """A port tensor as a JAX array (bf16 through its bits)."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.contiguous().view(torch.int16).numpy()).view(jnp.bfloat16)
+    return jnp.asarray(x.contiguous().numpy())
+
+
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+def test_k7_float_reads_a_pitched_batch_equal_jax(small_data, dtype):
+    """A float batch [B, D' = 129] (small_data with L2's ones column) as a
+    view of a zero-padded buffer: rows a 16-byte multiple apart (132 fp32,
+    136 bf16), which ``float_operands`` hands K7 in place, pad and all
+    (here filled with 7s: the kernels read only D' of a row).  The plain K7
+    on the view equals the JAX kernel on the batch."""
+    _, queries = small_data
+    dt = FLOAT_DTYPES[dtype]
+    qi = torch.cat([torch.from_numpy(queries), torch.ones((len(queries), 1))], 1).to(dt)
+    view = _build.pad_rows(qi, 16 // qi.element_size())[:, :129]
+    storage, ldq = _build.pitched_storage(view)
+    assert ldq == {"fp32": 132, "bf16": 136}[dtype] and storage.data_ptr() == view.data_ptr()
+    assert not storage[:, 129:].any() and torch.equal(view, qi)
+    storage[:, 129:] = 7
+    blk, nlist, qcap = 128, 6, 8
+    sizes = np.array([200, 0, 300, 5, 128, 60])
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
+    rng = np.random.default_rng(70)
+    vt = torch.from_numpy(rng.integers(-8, 9, (len(bc), 129, blk)).astype(np.float32)).to(dt)
+    cq = np.full((nlist, qcap), -1, np.int32)
+    for c in range(nlist):
+        n = int(rng.integers(1, qcap))
+        cq[c, :n] = rng.choice(len(queries), n, replace=False)
+    cq[0, 0] = len(queries)  # past the batch: a zero row, as -1 gives
+    cqb = torch.from_numpy(np.ascontiguousarray(cq[bc][..., None]))
+    qs, vs, ldq2, bf16 = ivf_scan.float_operands("K7", view, vt, blk)
+    assert (qs.data_ptr(), ldq2, bf16) == (view.data_ptr(), ldq, int(dtype == "bf16"))
+    tabs = tuple(torch.from_numpy(x.astype(np.int32)) for x in (bf, bl, rv))
+    kw = dict(k=6, blk=blk, group=1, bin_depth=2)
+    tv, ti = ivf_scan.cluster_major_scan_routed(view, cqb, vt, *tabs, **kw)
+    jv, ji = pallas_ivf.cluster_major_scan_routed(
+        _jnp_of(qi), jnp.asarray(cqb.numpy()), _jnp_of(vt),
+        *(jnp.asarray(x.numpy()) for x in tabs), **kw)
+    rows = np.nonzero(bl)[0]
+    jv, ji = np.asarray(jv)[rows], np.asarray(ji)[rows]
+    assert tv.numpy()[rows].tobytes() == jv.tobytes()
+    fin = jv > -np.inf
+    assert fin.any()
+    np.testing.assert_array_equal(ti.numpy()[rows][fin], ji[fin])
+
+
+def test_float_operands_check_what_the_kernels_take():
+    """K6's and K7's float wrappers before a launch (plain functions, so
+    they run here): one dtype, fp32 at blk <= 32768 (a chunk in a byte),
+    bf16 at any blk; rows that do not lie at a 16-byte pitch, or lie at one
+    past their storage's end, are copied once with a zero pad."""
+    q = torch.zeros((5, 129))
+    with pytest.raises(ValueError, match="one dtype"):
+        ivf_scan.float_operands("K6", q, torch.zeros((2, 129, 128), dtype=torch.bfloat16), 128)
+    with pytest.raises(ValueError, match="blk <= 32768"):
+        ivf_scan.float_operands("K7", q, torch.zeros((1, 129, 32896)), 32896)
+    qs, _, ldq, bf16 = ivf_scan.float_operands(
+        "K7", q.bfloat16(), torch.zeros((1, 129, 32896), dtype=torch.bfloat16), 32896)
+    assert (ldq, bf16, tuple(qs.shape)) == (136, 1, (5, 136)) and not qs.any()
+    wide = torch.randn(6, 200)
+    for x, in_place in ((wide[:, :129], True), (wide[1:, 3:132], False),
+                        (torch.randn(4, 3, 128), True), (torch.randn(4, 3, 129), False)):
+        s, p = _build.pitched_storage(x)
+        assert (s.data_ptr() == x.data_ptr()) == in_place and s.is_contiguous()
+        assert p % 4 == 0 and torch.equal(s[..., :x.shape[-1]], x)
+        if not in_place:
+            assert not s[..., x.shape[-1]:].any()
+    last_row_past_end = torch.randn(3 * 132 - 3).as_strided((3, 129), (132, 1))
+    s, p = _build.pitched_storage(last_row_past_end)
+    assert s.data_ptr() != last_row_past_end.data_ptr() and p == 132

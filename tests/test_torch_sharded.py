@@ -25,7 +25,7 @@ from rag_on_edge_tpu.parallel import ShardedIVFIndex as JIVF
 from rag_on_edge_tpu.parallel import make_mesh as jax_mesh
 from rag_on_edge_tpu.parallel.sharded import _partition_clusters as jax_partition
 from rag_on_edge_tpu_torch.models import ivf as tivf
-from rag_on_edge_tpu_torch.ops import block_tables, ivf_scan
+from rag_on_edge_tpu_torch.ops import _build, block_tables, ivf_scan
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex, make_mesh
 from rag_on_edge_tpu_torch.parallel.sharded import _gather_merge, _partition_clusters
 
@@ -412,6 +412,38 @@ def test_sharded_ivf_recovery_equal_jax(ivf_pair, small_data, run):
         assert int(ts.last_spill) > 0  # the pairs the recovery pass placed
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_routed_tables_written_at_pitch_equal_jax(jax_index, small_data, dtype):
+    """The routed tables of a float index's sharded search (the main walk's
+    and the recovery pass's) lie at the batch's 16-byte row pitch (D' = 129
+    with L2's ones column: 132 fp32, 136 bf16, the pad zero), so K6's float
+    wrapper reads them in place; their values equal the JAX package's table
+    (``jnp.where(routed, qrow[clip(cq, 0)], 0)``, its sharded.py) on the
+    same probes."""
+    j = _variant(jax_index, "l2", dtype)
+    ts = ShardedIVFIndex(_port_of(j), _cpus(8))
+    ts._ensure_cluster_state()
+    queries = small_data[1]
+    r = ts._cm_route(_t(queries), NPROBE, 4)
+    assert r["lossy"].any()
+    rec = ts._cm_recover_tables(0, r, r["lossy"], None, 16, 8)[0]
+    ldq = {"fp32": 132, "bf16": 136}[dtype]
+    for table in (r["qg"], rec[0]):
+        storage, pitch = _build.pitched_storage(table)
+        assert (storage.data_ptr(), pitch) == (table.data_ptr(), ldq)
+        assert table.shape[-1] == 129 and not storage[..., 129:].any()
+        qs, _, ldq2, _ = ivf_scan.float_operands("K6", table, rec[1], 128)
+        assert (qs.data_ptr(), ldq2) == (table.data_ptr(), ldq)
+    cq, _, _ = jivf.invert_probes(jnp.asarray(r["probes"].numpy()), 16, 4)
+    qrow = jnp.concatenate([jnp.asarray(queries), jnp.ones((len(queries), 1), jnp.float32)], -1)
+    qrow = qrow.astype(jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    want = jnp.where((cq >= 0)[..., None], qrow[jnp.clip(cq, 0)], jnp.zeros((), qrow.dtype))
+    got = r["qg"].contiguous()
+    got = got.view(torch.int16) if dtype == "bf16" else got
+    want = np.asarray(want.view(jnp.int16) if dtype == "bf16" else want)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_sharded_ivf_spilled_dedup_equal_jax(jax_index, meshes, small_data):
     """A spilled index: a vector stored in two clusters reaches a pool twice
     (in-shard dedup) or two shards' results (the merge's dedup)."""
@@ -452,3 +484,79 @@ def test_sharded_ivf_refusals(ivf_pair, small_data):
         ts.search_device(q, K, NPROBE, mode="cluster", engine="xla")
     with pytest.raises(ValueError, match="mode"):
         ts.search_device(q, K, NPROBE, mode="auto")
+
+
+# ------------------------------------------------- routed rows at D = 100
+
+D_UNPITCHED = 100  # int8 rows pad to 112, fp32 / bf16 (L2: D' 101) to 104
+
+
+@pytest.fixture(scope="module")
+def jax_index_d100(jax_index, small_data):
+    """The JAX index of ``small_data`` cut to D 100 (no multiple of 16
+    bytes in any dtype), on the first 100 dims of ``jax_index``'s
+    centroids."""
+    return jivf.IVFIndex.build(small_data[0][:, :D_UNPITCHED], nlist=16, metric="l2",
+                               dtype="int8", pad_block=128, seed=42,
+                               centroids=jax_index._centroids_np[:, :D_UNPITCHED])
+
+
+def _spy_scan_rows(monkeypatch):
+    """Wrap K6's and K7's wrappers to record how their routed rows lie →
+    the list of (kernel, dtype, contiguous, read in place at a 16-byte row
+    pitch by ``ivf_scan.float_operands``).  On the card the int8 rows must
+    be contiguous (``_build.check_inputs``; the wrapper pads them, since
+    the kernel reads the pad); float rows take any layout, and a copy where
+    they do not lie at the pitch."""
+    seen = []
+
+    def spy(name, fn):
+        def call(rows, *args, **kw):
+            in_place = _build.pitched_storage(rows)[0].data_ptr() == rows.data_ptr()
+            seen.append((name, str(rows.dtype), rows.is_contiguous(), in_place))
+            return fn(rows, *args, **kw)
+        return call
+
+    monkeypatch.setattr(ivf_scan, "cluster_major_scan", spy("K6", ivf_scan.cluster_major_scan))
+    monkeypatch.setattr(ivf_scan, "cluster_major_scan_routed",
+                        spy("K7", ivf_scan.cluster_major_scan_routed))
+    return seen
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+def test_sharded_k6_rows_at_d100_equal_jax(jax_index_d100, meshes, small_data, monkeypatch,
+                                           dtype):
+    """A sharded search at D 100 with ``engine="pallas"`` and two recovery
+    passes: K6's routed tables lie as the card's wrapper takes them, int8
+    contiguous and float written at the 16-byte pitch (read in place), and
+    the answers equal the JAX package's."""
+    j = _variant(jax_index_d100, "l2", dtype)
+    js, ts = JIVF(j, meshes[8]), ShardedIVFIndex(_port_of(j), _cpus(8))
+    seen = _spy_scan_rows(monkeypatch)
+    _check_ivf(js, ts, small_data[1][:, :D_UNPITCHED], mode="cluster", qcap=4, recover=True,
+               recover_qcap=16, recover_blocks=8, recover_passes=2, engine="pallas")
+    assert seen and {name for name, _, _, _ in seen} == {"K6"}, seen
+    assert all(in_place if dtype != "int8" else contiguous
+               for _, _, contiguous, in_place in seen), seen
+    assert int(ts.last_spill) == 0
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+def test_routed_engine_rows_at_d100_equal_grouped(jax_index_d100, small_data, monkeypatch,
+                                                  dtype):
+    """The routed engine at D 100 with two recovery passes: K7's batch is
+    contiguous, as the card's int8 wrapper takes it (the float wrapper pads
+    it to the 16-byte pitch), and the answers equal ``engine="pallas"``'s
+    (K4 on the gathered rows), as they must on the card."""
+    t = _port_of(_variant(jax_index_d100, "l2", dtype))
+    q = _t(small_data[1][:, :D_UNPITCHED])
+    kw = dict(mode="cluster", qcap=4, recover=True, recover_qcap=16, recover_blocks=64,
+              recover_passes=2)  # every block
+    want = t.search_device(q, K, NPROBE, engine="pallas", **kw)
+    seen = _spy_scan_rows(monkeypatch)
+    got = t.search_device(q, K, NPROBE, engine="pallas_routed", **kw)
+    assert seen and {name for name, _, _, _ in seen} == {"K7"}, seen
+    assert all(contiguous for _, _, contiguous, _ in seen), seen
+    assert int(t.last_spill) == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
