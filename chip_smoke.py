@@ -18,16 +18,17 @@ script exits non-zero without a result line:
              the sources in this checkout; beside them, K3's, K5's, K1's,
              K4's and K2's sources once more to cubins with ``-Xptxas -v``:
              each wgmma kernel's registers, spills and warpgroup MMA opcodes
-             (``cuobjdump -sass``; every int8 instantiation, K6's included,
-             must hold the s8 MMA, every bf16 one the bf16 MMA, and no
+             (``cuobjdump -sass``; every int8 instantiation must hold the s8
+             MMA, every bf16 one the bf16 MMA; ``grouped_wgmma_kernel`` and
+             ``grouped_ffma_kernel`` must hold K4's, K6's and K7's depths
+             1-4 and K10's nogate, maxonly and fixedout at depth 2, and no
              kernel of these four sources a ``__dp4a`` but K9's
-             ``accum_extract_kernel`` and K10's int8 variants at bin depth
-             2 (``grouped_scan_kernel``, listed by instantiation; any other
-             int8 instance of it fails the build); K14's ``__dp4a`` probe is
+             ``accum_extract_kernel``; K14's ``__dp4a`` probe is
              unchecked), the fp32 register-tiled kernels' registers, spills
              and FFMA count (K3's ``fused_f32_kernel``, K5's
-             ``accum_ffma_kernel``, K1's ``planes_ffma_kernel``), and K2's
-             registers, spills and warp reductions (``REDUX``, required).
+             ``accum_ffma_kernel``, K1's ``planes_ffma_kernel``, K4's, K6's,
+             K7's and K10's ``grouped_ffma_kernel``), and K2's registers,
+             spills and warp reductions (``REDUX``, required).
    setup   — the corpus, the IVF index, and the exact ground truth two
              ways: the plain branch (the recall reference below) and
              kernel K3 in fp32 (the 2 GiB rule picks it at SIFT-1M; its
@@ -124,9 +125,11 @@ script exits non-zero without a result line:
              its plain version on each variant's defined windows, ``full``
              also against K6 on the same table, and again at k = 64 (``full``
              and ``nogate`` in two passes, ``maxonly`` and ``fixedout`` in one
-             launch, counted and timed); then the lab itself with the
-             counters reset just before and read just after, printing its
-             ms/call and µs/block for each variant.
+             launch, counted and timed), and in int8 at D 1152 on a small
+             walk (each variant against its plain version, ``full`` against
+             K6); then the lab itself with the counters reset just before
+             and read just after, printing its ms/call and µs/block for each
+             variant, and each variant's time beside its bound.
 11. gemm   — the index is freed first.  Kernel K8 (int8 on ``mma.sync``,
              bf16 on ``wgmma`` fed by TMA, fp32 on a ``cp.async`` FFMA tile)
              against its plain version at a ragged shape in int8 (exact),
@@ -168,13 +171,19 @@ script exits non-zero without a result line:
              they cede); then an fp32 ``IVFIndex`` (the default
              dtype; nlist=1024, L2, pad_block=2048, the int8 index's
              centroids) and the same index in bf16: K1 on one routed B=8192
-             batch and K4 at its recovery list held bit-equal to their
-             plain versions, then all 10,000 queries through
-             ``search_device(q, 10, 4)`` with its defaults, counters reset
-             just before and read just after (engine pallas_accum, K1 and
-             the recovery pass's K4 launched, residual spill 0; fp32
-             recall@10 >= 0.99 and recall@1 >= the int8 index's), one call
-             and its stages timed; ``BruteForceIndex(base)`` with every
+             batch and K4 (bf16 on ``grouped_wgmma_kernel``, fp32 on
+             ``grouped_ffma_kernel``) at its recovery list and at the dense
+             walk (the table at the 16-byte row pitch, as
+             ``engine="pallas"`` builds it) held bit-equal to their plain
+             versions and timed beside ``torch.bmm`` of the dense product,
+             then all 10,000 queries through ``search_device(q, 10, 4)``
+             with its defaults, counters reset just before and read just
+             after (engine pallas_accum, K1 and the recovery pass's K4
+             launched, residual spill 0; fp32 recall@10 >= 0.99 and
+             recall@1 >= the int8 index's), one call and its stages timed,
+             and through ``engine="pallas"``, counted (K4 alone), equal to
+             ``engine="pallas_routed"`` in ids and scores, spill 0,
+             recall@10 >= 0.99; ``BruteForceIndex(base)`` with every
              default (ip, bf16, accum = K5, rescored; recall@10 >= 0.99
              against the plain IP ground truth) and an fp32 L2 accum index
              (K5 fp32 on the augmented dimension; >= 0.99), K5 held
@@ -196,8 +205,10 @@ script exits non-zero without a result line:
              ``search_device(q, 10, 4, engine="pallas_routed")`` over all
              queries, counted (K7 alone; ids and scores equal to
              ``engine="pallas"``); K9 at K1's shapes, counted; K10's four
-             variants on a float routed table at the lab's defaults, then the
-             lab, counted; ``ShardedIVFIndex(index, [cuda:0] * 4)``: K6 (K7's
+             variants on the lab's float routed table at its defaults
+             (``kernel_lab.routed_table``, at the 16-byte row pitch), then
+             the lab, counted, each variant beside its bound;
+             ``ShardedIVFIndex(index, [cuda:0] * 4)``: K6 (K7's
              kernels) at shard 0's dense walk, beside ``torch.bmm`` of its
              product alone, and at a recovery list, then
              ``search_device(q, 10, 4, mode="cluster")`` with its defaults
@@ -227,7 +238,9 @@ script exits non-zero without a result line:
              equal to its plain version in three launches and timed.
 
 The last two lines are the kernel table as JSON and the result line
-``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  The bounds of K4, K6, K7 and K10 charge
+the products of each walked block's live routed rows (an empty slot needs
+none: ``timing.live_products``).  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -353,22 +366,26 @@ def cubin_report(_build, name: str):
     return props, warnings, opcodes
 
 
+# The instances of ivf_grouped_scan.cu's two kernels, by (QSrc, Variant)
+# template arguments: K4, K6 and K7 at kFull (K6's depth-2 instance is also
+# K10's full), K10's other variants on K6's source.
+GROUPED_KERN = {("0", "0"): "K4", ("1", "0"): "K6", ("2", "0"): "K7", ("1", "1"): "K10 nogate",
+                ("1", "2"): "K10 maxonly", ("1", "3"): "K10 fixedout"}
+
+
 def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
     """Each wgmma kernel's registers, stack frame, spills and warpgroup MMA
     opcodes in ``csrc/<name>.cu`` (:func:`cubin_report`), each fp32
     register-tiled kernel's registers, spills and FFMA count, any ptxas
     warning that serializes the wgmma groups, and the count of ``__dp4a``
-    (IDP) instructions by kernel (``grouped_scan_kernel`` by instantiation).
-    Raises if an int8 instantiation holds no s8 warpgroup MMA or a bf16 one
-    no bf16 warpgroup MMA, a wgmma kernel holds IDP, a kernel not named in
-    ``idp_allowed`` (K9's ``accum_extract_kernel`` beside K1;
-    ``grouped_scan_kernel`` beside K4, K6 and K7) holds IDP, an int8
-    ``grouped_scan_kernel`` instance is not one of K10's four variants at
-    bin depth 2 (K6's int8 mode runs on ``grouped_wgmma_kernel``),
-    ``grouped_wgmma_kernel`` lacks one of K4's, K6's and K7's int8 depths
-    1-4 or K6's and K7's bf16 depths 1-4, ptxas serializes its groups
-    (C7520), or ``grouped_ffma_kernel`` lacks one of K6's and K7's fp32
-    depths 1-4."""
+    (IDP) instructions by kernel.  Raises if an int8 instantiation holds no
+    s8 warpgroup MMA or a bf16 one no bf16 warpgroup MMA, a wgmma kernel
+    holds IDP, a kernel not named in ``idp_allowed`` (K9's
+    ``accum_extract_kernel`` beside K1) holds IDP, ``grouped_wgmma_kernel``
+    lacks one of K4's, K6's and K7's int8 and bf16 depths 1-4 or K10's
+    nogate, maxonly and fixedout in int8 and bf16 at depth 2, ptxas
+    serializes its groups (C7520), or ``grouped_ffma_kernel`` lacks one of
+    K4's, K6's and K7's fp32 depths 1-4 or K10's three at depth 2."""
     import re
 
     props, warnings, opcodes = cubin_report(_build, name)
@@ -376,13 +393,14 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
     idp = {f: n for f, c in opcodes.items() if (n := sum(v for o, v in c.items()
                                                           if o.startswith("IDP")))}
     lines, grouped_seen, ffma_seen = [], set(), set()
-    kern_of = {"0": "K4", "1": "K6", "2": "K7"}
     for fn in sorted(f for f in set(ops) | set(props) if "wgmma_kernel" in f):
         short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
-        grouped = re.search(r"grouped_wgmma_kernelI(a|13__nv_bfloat16)Li(\d)E\w*?QSrcE(\d)E", fn)
+        grouped = re.search(r"grouped_wgmma_kernelI(a|13__nv_bfloat16)Li(\d)E\w*?QSrcE(\d)E"
+                            r"\w*?VariantE(\d)E", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
         if grouped:
-            kern, mode = kern_of[grouped.group(3)], "int8" if grouped.group(1) == "a" else "bf16"
+            kern = GROUPED_KERN[grouped.group(3), grouped.group(4)]
+            mode = "int8" if grouped.group(1) == "a" else "bf16"
             grouped_seen.add((kern, mode, grouped.group(2)))
             tag = f"grouped_wgmma_kernel<{kern} {mode}, depth {grouped.group(2)}>"
         p_ = props.get(fn, {})
@@ -406,39 +424,34 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
                           fn)
         tag = (f"{short.group(1)}<{short.group(2)}>" if short and short.group(2) else
                short.group(1) if short else fn)
-        grouped = re.search(r"grouped_ffma_kernelILi(\d)E\w*?QSrcE(\d)E", fn)
+        grouped = re.search(r"grouped_ffma_kernelILi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", fn)
         if grouped:
-            ffma_seen.add((kern_of[grouped.group(2)], grouped.group(1)))
-            tag = f"grouped_ffma_kernel<{kern_of[grouped.group(2)]} fp32, depth {grouped.group(1)}>"
+            kern = GROUPED_KERN[grouped.group(2), grouped.group(3)]
+            ffma_seen.add((kern, grouped.group(1)))
+            tag = f"grouped_ffma_kernel<{kern} fp32, depth {grouped.group(1)}>"
         lines.append(f"{tag}: {p_.get('regs')} registers, "
                      f"{p_.get('stack')} bytes stack frame, spill stores/loads "
                      f"{p_.get('spills')}, FFMA {opcodes.get(fn, {}).get('FFMA', 0)}")
-    if grouped_seen and len(grouped_seen) != 20:
+    full = {(kern, str(dp)) for kern in ("K4", "K6", "K7") for dp in range(1, 5)}
+    lab = {(kern, "2") for kern in ("K10 nogate", "K10 maxonly", "K10 fixedout")}
+    want_w = {(kern, mode, dp) for kern, dp in full | lab for mode in ("int8", "bf16")}
+    if grouped_seen and grouped_seen != want_w:
         raise AssertionError(f"grouped_wgmma_kernel instances {sorted(grouped_seen)}: K4, K6 "
-                             "and K7 int8 and K6 and K7 bf16 at depths 1-4 expected")
-    if grouped_seen and len(ffma_seen) != 8:
-        raise AssertionError(f"grouped_ffma_kernel instances {sorted(ffma_seen)}: K6 and K7 "
-                             "fp32 at depths 1-4 expected")
-    by_kernel, by_inst = {}, {}
-    for f in opcodes:
-        inst = re.search(r"grouped_scan_kernelIaLi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", f)
-        if inst and (inst.group(1) != "2" or inst.group(2) != "1"):
-            raise AssertionError(f"an int8 grouped_scan_kernel instance other than K10's is "
-                                 f"left (depth {inst.group(1)}, source {inst.group(2)}): {f}")
-        if f not in idp:
-            continue
+                             "and K7 int8 and bf16 at depths 1-4 and K10's other variants at "
+                             "depth 2 expected")
+    if grouped_seen and ffma_seen != full | lab:
+        raise AssertionError(f"grouped_ffma_kernel instances {sorted(ffma_seen)}: K4, K6 and "
+                             "K7 fp32 at depths 1-4 and K10's other variants at depth 2 expected")
+    by_kernel = {}
+    for f, n in idp.items():
         short = re.search(r"[a-z][a-z_]*_kernel", f)
         key = short.group(0) if short else f
-        by_kernel[key] = by_kernel.get(key, 0) + idp[f]
-        if inst:
-            variant = ("full", "nogate", "maxonly", "fixedout")[int(inst.group(3))]
-            key = f"K10 int8 {variant} (depth 2)"
-        by_inst[key] = by_inst.get(key, 0) + idp[f]
+        by_kernel[key] = by_kernel.get(key, 0) + n
     stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed or "wgmma" in f}
     if stray:
         raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {stray}")
     lines.append(f"IDP (__dp4a) instructions in lib{name}: {sum(idp.values())} "
-                 f"{by_inst or ''}; ptxas serialization warnings: {warnings or 'none'}")
+                 f"{by_kernel or ''}; ptxas serialization warnings: {warnings or 'none'}")
     return lines
 
 
@@ -532,11 +545,10 @@ def main() -> None:
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
                "tiled_matmul", "hw_probe", "fused_topk"]
-    # K5's, K3's, K1's and K4's, K6's and K7's wgmma kernels; K9 (beside K1)
-    # and K10 (grouped_scan_kernel, beside K4, K6 and K7) keep their __dp4a.
+    # K5's, K3's, K1's and K4's, K6's, K7's and K10's kernels; K9 (beside K1)
+    # keeps the one __dp4a of the four sources.
     reported = {"bruteforce_accum": (), "bruteforce_fused": (),
-                "ivf_accum_planes": ("accum_extract_kernel",),
-                "ivf_grouped_scan": ("grouped_scan_kernel",)}
+                "ivf_accum_planes": ("accum_extract_kernel",), "ivf_grouped_scan": ()}
     with ThreadPoolExecutor(len(sources) + len(reported) + 1) as ex:  # one nvcc each, all at once
         reports = [ex.submit(wgmma_report, _build, name, allowed)
                    for name, allowed in reported.items()]
@@ -740,7 +752,8 @@ def main() -> None:
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
                 *args, **kw)),
             bound=bound(walked * qcap * DIM + cols * (DIM + 4) + r4.numel() * qcap * kk * 8,
-                        2.0 * qcap * cols * DIM, INT8_OPS_S))
+                        2.0 * DIM * timing.live_products(timing.live_rows(qg_), bf_, bl_, rv_),
+                        INT8_OPS_S))
         phase("kernels", t0, f"K4 {name}: qg {tuple(qg_.shape)} vectors_t {tuple(vt_.shape)} "
               f"bias {tuple(bias_.shape)} k={kk}: pv bit-equal, pr equal where finite, on "
               f"{r4.numel()} last blocks ({int(fin.sum())} finite entries, {walked} blocks "
@@ -779,7 +792,9 @@ def main() -> None:
             # and the walked blocks' rows of cq_blocks.
             bound=bound(walked * qcap * 4 + cols * (DIM + 4) + qi.numel()
                         + r7.numel() * qcap * kk * 8,
-                        2.0 * qcap * cols * DIM, INT8_OPS_S))
+                        2.0 * DIM * timing.live_products(
+                            ((cqb_ >= 0) & (cqb_ < qi.shape[0])).sum((1, 2)), bf_, bl_, rv_),
+                        INT8_OPS_S))
         phase("kernels", t0, f"K7 {name}: qi {tuple(qi.shape)} cq_blocks {tuple(cqb_.shape)} "
               f"vectors_t {tuple(vt_.shape)} k={kk}: pv bit-equal to the plain version and to "
               f"K4 on the gathered table, pr equal where finite, on {r7.numel()} last blocks "
@@ -1318,7 +1333,8 @@ def main() -> None:
             device_ms=split_by_kernel(dev_k6, {"K6": "grouped_wgmma_kernel"})["K6"]
             if isinstance(dev_k6, dict) else dev_k6,
             bound=bound(cols * (DIM + 4) + r6.numel() * qcap * (DIM + kk * 8),
-                        2.0 * qcap * cols * DIM, INT8_OPS_S))
+                        2.0 * DIM * timing.live_products(timing.live_rows(args[0])[bc_.long()],
+                                                         bf_, bl_, rv_), INT8_OPS_S))
         phase("kernels", t0, f"K6 {name} (shard {0 if name == 'dense' else s_rec}): qg "
               f"{tuple(args[0].shape)} vectors_t {tuple(args[1].shape)} k={kk}: pv bit-equal, "
               f"pr equal where finite, on {r6.numel()} emitted clusters ({int(fin.sum())} "
@@ -1514,10 +1530,53 @@ def main() -> None:
             torch, lambda: kernel_lab._variant_scan(*args), reps=3))
     phase("lab", t0, f"K10 at k={K10_WIDE_K}: every variant equal to its plain version on its "
           f"windows; launches and ms {k10_wide}")
+    # int8 past the D the old staged kernel took (1024): D 1152 (nine wgmma
+    # units) on a small walk of four clusters with rows (one of three
+    # blocks), 40 routed rows a cluster, every fifth one empty.
+    from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
+
+    gen10 = torch.Generator(device=dev).manual_seed(10)
+    w_sizes = np.array([2000, 0, 5000, 129, 700])
+    w_offs = np.concatenate([[0], np.cumsum(-(-w_sizes // PAD_BLOCK) * PAD_BLOCK)[:-1]])
+    w_tabs = [torch.from_numpy(x.astype(np.int32)).to(dev)
+              for x in build_block_tables(w_offs, w_sizes, PAD_BLOCK)[:4]]
+    qg_w = torch.randint(-127, 128, (len(w_sizes), 40, 1152), generator=gen10, device=dev,
+                         dtype=torch.int8)
+    qg_w[:, ::5] = 0
+    vt_w = torch.randint(-127, 128, (len(w_tabs[0]), 1152, PAD_BLOCK), generator=gen10,
+                         device=dev, dtype=torch.int8)
+    k10_d1152 = {}
+    for variant in kernel_lab.VARIANTS:
+        args = (qg_w, vt_w, *w_tabs, LAB_K, PAD_BLOCK, 128, variant)
+        pv, pr = kernel_lab._variant_scan(*args)
+        rpv, rpr = kernel_lab._variant_scan_reference(*args)
+        torch.cuda.synchronize()
+        bc_w = w_tabs[0].long()
+        win = {"fixedout": torch.zeros(1, dtype=torch.long, device=dev),
+               "maxonly": torch.unique(bc_w)}.get(variant, torch.unique(bc_w[w_tabs[2] > 0]))
+        fin = rpv[win] > float("-inf")
+        ok = bool(fin.any()) and torch.equal(pv[win], rpv[win]) \
+            and torch.equal(pr[win][fin], rpr[win][fin])
+        if variant == "full":
+            kv, ki = ivf_scan.cluster_major_scan(*args[:6], LAB_K, blk=PAD_BLOCK, bin_depth=2)
+            ok = ok and torch.equal(pv[win], kv[win]) and torch.equal(pr[win][fin], ki[win][fin])
+        k10_d1152[variant] = ok
+    phase("lab", t0, f"K10 int8 at D 1152 (qg {tuple(qg_w.shape)}), equal to the plain version "
+          f"on each variant's windows, full also to K6: {k10_d1152}")
+    if not all(k10_d1152.values()):
+        raise AssertionError(f"K10 int8 at D 1152 differs from its plain version: {k10_d1152}")
+    del qg_w, vt_w, pv, pr, rpv, rpr, kv, ki
+    # The bounds of the four variants over the lab's walk (the valid
+    # columns' slab, the routed rows each written window reads, the windows
+    # written; the products of each block's live routed rows): full and
+    # nogate write the clusters that end a run, maxonly every cluster with
+    # blocks, fixedout one window, and every variant scores every block.
     walked, cols = walked_blocks(np, *lab_tabs[2:])
-    n_win = lab_windows["full"].numel()
-    k10_bound = bound(cols * DIM + n_win * LAB_QCAP * (DIM + LAB_K * 8),
-                      2.0 * LAB_QCAP * cols * DIM, INT8_OPS_S)
+    k10_ops = 2.0 * DIM * timing.live_products(timing.live_rows(qg_lab)[bc_lab], *lab_tabs[2:])
+    k10_bounds = {v: bound(cols * DIM + lab_windows[v].numel() * LAB_QCAP * (DIM + LAB_K * 8),
+                           k10_ops, INT8_OPS_S)
+                  for v in kernel_lab.VARIANTS}
+    k10_bound = k10_bounds["full"]
     phase("lab", t0, f"K10 qg {tuple(qg_lab.shape)} vectors_t {tuple(a['vectors_t'].shape)} "
           f"k={LAB_K}: every variant equal to its plain version on its defined windows "
           f"({ {v: (k10[v]['windows'], k10[v]['finite']) for v in k10} } windows, finite "
@@ -1532,6 +1591,9 @@ def main() -> None:
     k10_launches = read_launches()["K10"]
     if k10_launches != len(kernel_lab.VARIANTS) * (REPS + 2):
         raise AssertionError(f"the lab launched K10 {k10_launches} times")
+    k10_variants = {v: {"ms": lab_out[v][0], "bound_ms": k10_bounds[v][0],
+                        "bound_by": k10_bounds[v][1]} for v in kernel_lab.VARIANTS}
+    phase("lab", t0, f"K10 int8 by variant (ms/call, bound) on {card}: {k10_variants}")
     del qg_lab, lab_tabs
 
     # ---- phase 11: the spatial GEMM (K8).  The index and its state go first:
@@ -2093,8 +2155,11 @@ def main() -> None:
 
     def float_ivf(index, mode):
         """K1 and K4 of a float index against their plain versions on the
-        first routed B=8192 batch (K4 at the batch's recovery list), then
-        the default call over all queries, counted; its recall and stages."""
+        first routed B=8192 batch (K4 at the batch's recovery list and at
+        the dense walk, beside torch.bmm of the dense product), then the
+        default call over all queries, counted, its recall and stages, and
+        engine="pallas" over all queries, counted, against
+        engine="pallas_routed"."""
         rate = floats[mode][1]
         fa = index._arrays
         vt = fa["vectors_t"]
@@ -2146,12 +2211,46 @@ def main() -> None:
             plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
                 *rec[:5], **kw), reps=3),
             bound=bound((walked4 * qcap_f + cols4) * dp * es + r4.numel() * qcap_f * kk * 8,
-                        2.0 * qcap_f * cols4 * dp, rate),
+                        2.0 * dp * timing.live_products(timing.live_rows(rec[0]), *rec[2:5]),
+                        rate),
             lib_ms=None)
         phase("float", t0, f"K4 {mode} recovery list qg {tuple(rec[0].shape)} ({int(lossy_f.sum())} "
               f"lossy pairs, {walked4} blocks walked): pv bit-equal, pr equal where finite "
               f"({int(fin.sum())} finite entries); {fl[f'K4 {mode}']}")
         del pv, pr, rpv, rpr, rec
+        # K4 at the dense walk, on the table engine="pallas" builds (at the
+        # 16-byte row pitch, read in place); dense_copy_ms: the same call on
+        # K1's contiguous table, which the wrapper copies to the pitch.
+        qb_p = index._scan_inputs(q, cq_f, pitched=True)[1]
+        dense = (qb_p, *args[1:])
+        kw_d = dict(k=kk, blk=PAD_BLOCK, group=index.CM_GROUP)
+        pv, pr = ivf_scan.cluster_major_scan_grouped(*dense, **kw_d)
+        rpv, rpr = ivf_scan.cluster_major_scan_grouped_reference(*dense, **kw_d)
+        torch.cuda.synchronize()
+        fin = rpv[rows_f] > float("-inf")
+        if not bool(fin.any()) or not bits_equal(pv[rows_f], rpv[rows_f]) \
+                or not torch.equal(pr[rows_f][fin], rpr[rows_f][fin]):
+            raise AssertionError(f"K4 {mode} differs from the plain version at the dense walk")
+        fl[f"K4 {mode}"].update(
+            kernel=K67_KERNEL[mode],
+            dense_err=float((pv[rows_f][fin] - rpv[rows_f][fin]).abs().max()),
+            dense_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(*dense, **kw_d)),
+            dense_copy_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(
+                qb_f, *dense[1:], **kw_d)),
+            dense_plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped_reference(
+                *dense, **kw_d), reps=3),
+            dense_bound_ms=bound((walked_f * qcap_f + cols_f) * dp * es
+                                 + rows_f.numel() * qcap_f * kk * 8,
+                                 2.0 * dp * timing.live_products(timing.live_rows(qb_f),
+                                                                 *args[2:]), rate)[0],
+            prod_ms=fl[f"K1 {mode}"]["prod_ms"])
+        phase("float", t0, f"K4 {mode} dense walk qg {tuple(qb_p.shape)} (pitch "
+              f"{qb_p.stride(1)}): pv bit-equal, pr equal where finite ({int(fin.sum())} finite "
+              f"entries, {walked_f} blocks walked); ms {fl[f'K4 {mode}']['dense_ms']} (on the "
+              f"contiguous table {fl[f'K4 {mode}']['dense_copy_ms']}), plain "
+              f"{fl[f'K4 {mode}']['dense_plain_ms']}, bound {fl[f'K4 {mode}']['dense_bound_ms']}, "
+              f"torch.bmm of the product alone {fl[f'K4 {mode}']['prod_ms']} on {card}")
+        del pv, pr, rpv, rpr, qb_p, dense
         # The default call, counted.
         reset_launches()
         ids_f, _, residual_f, wall_f = search_all(index)
@@ -2182,6 +2281,29 @@ def main() -> None:
                                  f"{launch_f} (K1 and the recovery pass's K4 expected)")
         if any(residual_f):
             raise AssertionError(f"{mode}: pairs still dropped after recovery: {residual_f}")
+        # engine="pallas" (K4 over the dense walk and in the recovery pass),
+        # counted, against engine="pallas_routed" (K7): the same function.
+        reset_launches()
+        ids_g, scores_g, residual_g, wall_g = search_all(index, engine="pallas")
+        launch_g = read_launches()
+        ids_r, scores_r, residual_r, _ = search_all(index, engine="pallas_routed")
+        r10_g, r1_g = recalls(ids_g)
+        n_batch = -(-N_QUERIES // BATCH)
+        k4_expected = n_batch * (1 + (rp if index._auto_recover(BATCH, NPROBE) else 0))
+        same = np.array_equal(ids_g, ids_r) and scores_g.tobytes() == scores_r.tobytes()
+        fl[f"K4 {mode}"]["pallas_launches"] = launch_g["K4"]
+        pallas_ms = cuda_ms(torch, lambda: index.search_device(qs, K, NPROBE, engine="pallas"))
+        phase("float", t0, f"{mode} IVFIndex search_device(q, {K}, {NPROBE}, engine='pallas') "
+              f"{N_QUERIES} queries {wall_g:.1f}s: residual last_spill={residual_g} launches="
+              f"{launch_g} (K4 expected {k4_expected}) recall@10={r10_g:.4f} recall@1={r1_g:.4f}; "
+              f"ids and scores equal to engine=pallas_routed on every query: {same}; one "
+              f"B={BATCH} call {pallas_ms} ms on {card}")
+        if launch_g["K4"] != k4_expected or launch_g["K1"] or launch_g["K7"]:
+            raise AssertionError(f"{mode} engine=pallas launches {launch_g}")
+        if not same or any(residual_g) or any(residual_r) or r10_g < 0.99:
+            raise AssertionError(f"{mode} engine=pallas: equal to pallas_routed {same}, residual "
+                                 f"{residual_g} {residual_r}, recall@10 {r10_g}")
+        del ids_g, scores_g, ids_r, scores_r
         return r10_f, r1_f
 
     t = time.time()
@@ -2333,8 +2455,6 @@ def main() -> None:
     # the kernel lab on a float table), then the query-major mode and the xla
     # engine of the int8, fp32 and bf16 indexes.  Integer-valued data again:
     # every kernel is held bit-equal to its plain version.
-    from rag_on_edge_tpu_torch.ops import topk as topk_mod
-
     def scan_equal(pv, pr, rpv, rpr, need_finite=True):
         """pv bit-equal, pr equal where the value is finite, and (with
         ``need_finite``) some value finite."""
@@ -2451,7 +2571,9 @@ def main() -> None:
                     *args, **kw), reps=3),
                 bound=bound(walked * qcap_f * 4 + cols * dp * es + qi_f.numel() * es
                             + r7.numel() * qcap_f * kk * 8,
-                            2.0 * qcap_f * cols * dp, rate), lib_ms=None)
+                            2.0 * dp * timing.live_products(
+                                ((cqb_ >= 0) & (cqb_ < qi_f.shape[0])).sum((1, 2)), bf_, bl_,
+                                rv_), rate), lib_ms=None)
             if name == "dense":  # the per-block product alone, torch.bmm (K1's yardstick)
                 k7[name]["prod_ms"] = prod_ms(torch, index._scan_inputs(q, cq_f)[1], vt)
             phase("floatscan", t0, f"K7 {mode} {name}: qi {tuple(qi_f.shape)} cq_blocks "
@@ -2513,17 +2635,12 @@ def main() -> None:
         phase("floatscan", t0, f"K9 {mode} (K1's shapes, k={kk}, bin2): pv (the masked key) "
               f"bit-equal and pr equal on {rows9.numel()} last blocks; {fl14[f'K9 {mode}']}")
 
-        # K10: the lab's defaults on a float routed table, made as the lab's
-        # routed_table makes its int8 one (same shuffle, IP probes, qcap 128)
-        # with the index's own query prep (the ones column of L2).
-        rng = np.random.default_rng(0)
-        ql = torch.from_numpy(rng.permuted(np.resize(queries, (LAB_BATCH, DIM)), axis=0)
-                              .astype(np.float32)).to(dev)
-        _, probes_l = topk_mod.small_topk(ql @ fa["centroids"].T, NPROBE)
-        cq_l, _, _ = ivf_mod.invert_probes(probes_l, NLIST, LAB_QCAP)
-        ql_i = index._query_prep(ql)[0]
-        qg_l = torch.where((cq_l >= 0)[..., None], ql_i[cq_l.clamp_min(0).long()],
-                           torch.zeros((), dtype=ql_i.dtype, device=dev)).contiguous()
+        # K10: the lab's defaults on the lab's float routed table (same
+        # shuffle, IP probes, qcap 128; the index's own query prep, the ones
+        # column of L2), written at the 16-byte row pitch and read in place.
+        qg_l = kernel_lab.routed_table(index, queries, LAB_BATCH, NPROBE, LAB_QCAP)
+        if _build.pitched_storage(qg_l)[0].data_ptr() != qg_l.data_ptr():
+            raise AssertionError(f"the lab's {mode} routed table is not at the 16-byte pitch")
         lab_tabs = (vt, fa["block_cluster"], *tabs)
         err10, plain10 = 0.0, None
         for variant in kernel_lab.VARIANTS:
@@ -2551,17 +2668,23 @@ def main() -> None:
         torch.cuda.synchronize()
         n10 = read_launches()["K10"]
         _, cols10 = walked_blocks(np, *tabs)
-        n_win = k10_windows("full", fa["block_cluster"], fa["block_last"]).numel()
+        ops10 = 2.0 * dp * timing.live_products(
+            timing.live_rows(qg_l)[fa["block_cluster"].long()], *tabs)
+        bounds10 = {v: bound(cols10 * dp * es + k10_windows(v, fa["block_cluster"],
+                                                              fa["block_last"]).numel()
+                             * LAB_QCAP * (dp * es + LAB_K * 8), ops10, rate)
+                    for v in kernel_lab.VARIANTS}
         fl14[f"K10 {mode}"] = dict(
             err=err10, ms=lab_f["full"][0], plain_ms=plain10, launches=n10, lib_ms=None,
-            bound=bound(cols10 * dp * es + n_win * LAB_QCAP * (dp * es + LAB_K * 8),
-                        2.0 * LAB_QCAP * cols10 * dp, rate))
+            bound=bounds10["full"], kernel=K67_KERNEL[mode],
+            variants={v: {"ms": lab_f[v][0], "bound_ms": bounds10[v][0],
+                          "bound_by": bounds10[v][1]} for v in kernel_lab.VARIANTS})
         phase("floatscan", t0, f"K10 {mode} qg {tuple(qg_l.shape)}: the four variants equal "
               f"to their plain versions on their windows, full equal to K6; lab ms/call and "
               f"us/block {lab_f}; launches {n10}; {fl14[f'K10 {mode}']}")
         if n10 != len(kernel_lab.VARIANTS) * (REPS + 2):
             raise AssertionError(f"the {mode} lab launched K10 {n10} times")
-        del qg_l, ql, ql_i
+        del qg_l
 
         # K6: the index as ShardedIVFIndex over 4 logical shards on this card.
         sh = ShardedIVFIndex(index, shards)
@@ -2595,7 +2718,8 @@ def main() -> None:
                 plain_ms=cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_reference(
                     *args, **kw), reps=3), lib_ms=None,
                 bound=bound((walked * qcap_f + cols) * dp * es + r6.numel() * qcap_f * kk * 8,
-                            2.0 * qcap_f * cols * dp, rate))
+                            2.0 * dp * timing.live_products(
+                                timing.live_rows(args[0])[args[2].long()], *args[3:6]), rate))
             if name == "dense":  # the per-block product alone, torch.bmm
                 k6[name]["prod_ms"] = prod_ms(torch, args[0][args[2].long()].contiguous(),
                                               args[1])
@@ -2883,7 +3007,7 @@ def main() -> None:
          "launches": launches["K4"], "max_abs_err": max(k4[n]["err"] for n in k4),
          "ms": k4["recovery"]["ms"], "plain_ms": k4["recovery"]["plain_ms"],
          "bound_ms": k4["recovery"]["bound"][0], "bound_by": k4["recovery"]["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "kernel": "grouped_wgmma_kernel"},
         {"name": "fused_topk_matmul", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/bruteforce_fused.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce.py:193",
@@ -2941,7 +3065,8 @@ def main() -> None:
          "replaces": "rag_on_edge_tpu/harness/kernel_lab.py:93",
          "launches": k10_launches, "max_abs_err": max(k10[v]["err"] for v in k10),
          "ms": lab_out["full"][0], "plain_ms": k10["full"]["plain_ms"],
-         "bound_ms": k10_bound[0], "bound_by": k10_bound[1], "library_ms": None},
+         "bound_ms": k10_bound[0], "bound_by": k10_bound[1], "library_ms": None,
+         "kernel": "grouped_wgmma_kernel", "variants": k10_variants},
         {"name": "_step_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:111",
@@ -3002,7 +3127,8 @@ def main() -> None:
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib_ms"],
                 **{x: r[x] for x in ("prod_ms", "kernel", "dense_ms", "dense_bound_ms",
-                                     "recovery_ms", "recovery_bound_ms") if x in r}})
+                                     "dense_copy_ms", "pallas_launches", "recovery_ms",
+                                     "recovery_bound_ms", "variants") if x in r}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,8 @@
 // - the in-shared transpose of an N-major int8 slab unit, as TMA lands it,
 //   into the K-major swizzled tile an 8-bit wgmma operand must be (K1's B,
 //   K4's, K6's and K7's A);
+// - the order-preserving int32 key of an fp32 score and its inverse (every
+//   float mode's ranking);
 // - host: cuTensorMapEncodeTiled through the runtime's entry-point lookup
 //   (the libraries link libcudart only), the bf16 and 8-bit tensor maps
 //   (128-byte swizzle; an 8-bit 3-D map swizzled or not) and an unswizzled
@@ -67,6 +69,18 @@ __device__ __forceinline__ void mbar_wait_loop(uint64_t* bar, unsigned parity) {
       " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// The order-preserving int32 key of an fp32 score (IEEE-754 total order:
+// -0 sorts just below +0), as the JAX kernels' _monotone_key.
+__device__ __forceinline__ int32_t monotone_key(float x) {
+  const int32_t m = __float_as_int(x);
+  return m >= 0 ? m : m ^ 0x7FFFFFFF;
+}
+
+// Its inverse, as the JAX kernels' _key_to_f32.
+__device__ __forceinline__ float key_to_f32(int32_t k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
 }
 
 // Copy an accumulator fragment out with explicit moves, right after its

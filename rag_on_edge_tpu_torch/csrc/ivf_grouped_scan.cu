@@ -2,6 +2,8 @@
 // with a per-row running top-k over binned survivors, with three sources of
 // the routed queries; and K10, the kernel lab's four variants of K6.  Each
 // has an int8 entry (_i8) and a float entry (_f: fp32 or bf16 operands).
+// All of them run on two kernels: grouped_wgmma_kernel (int8 and bf16) and
+// grouped_ffma_kernel (fp32).
 //
 // K4 (entries ivf_grouped_scan_i8 and ivf_grouped_scan_f) replaces the TPU
 // kernel rag_on_edge_tpu/ops/pallas_ivf.py, cluster_major_scan_grouped (its
@@ -26,20 +28,24 @@
 // K10 (entries ivf_variant_scan_i8 and ivf_variant_scan_f) replaces the
 // kernel lab's rag_on_edge_tpu/harness/kernel_lab.py, _variant_scan (its
 // _variant_kernel): K6 at bin depth 2 with no bias, in four compile-time
-// variants (the Variant parameter; K4, K6 and K7 are kFull, and every
-// variant branch is an `if constexpr`, so their code is unchanged):
-//   kFull     - K6 itself: binned top-2 and the running merge, whose
-//               per-row skip is the TPU kernel's `improves` gate;
-//   kNoGate   - the merge on every block, with no skip (the same values);
+// variants (the Variant parameter of both kernels; K4, K6 and K7 are kFull,
+// and every variant branch is an `if constexpr`, so their code is
+// unchanged):
+//   kFull     - K6 itself (the same instance): binned top-2 and the running
+//               merge, whose per-candidate filter against the row's k-th
+//               entry is the TPU kernel's `improves` gate;
+//   kNoGate   - every survivor of every block enters the merge, with no
+//               filter against the k-th entry (the same values);
 //   kMaxOnly  - the scores and a row max per block, no selection: a CTA per
-//               block (the TPU grid), and the last block of each cluster in
-//               the walk writes its row max over all k slots of out[bc[t]],
-//               ids 0 (a cluster's blocks must be contiguous in the walk, as
-//               in every index's block tables);
+//               block (the TPU grid) and no run walk, and the last block of
+//               each cluster in the walk writes its row max over all k slots
+//               of out[bc[t]], ids 0 (a cluster's blocks must be contiguous
+//               in the walk, as in every index's block tables);
 //   kFixedOut - kMaxOnly into one constant window: out[0] holds the row max
-//               of the walk's last block.  The other blocks compute and
-//               write nothing, which is what the TPU's constant output index
-//               gives too: its one window is written back once, at the end.
+//               of the walk's last block.  The other CTAs compute and write
+//               nothing (a runtime store predicate, so their work stays),
+//               which is what the TPU's constant output index gives too: its
+//               one window is written back once, at the end.
 //
 // What it computes, for each run of blocks that ends at a block t with
 // block_last[t] = 1 (the run starts at the latest block_first at or before
@@ -54,7 +60,7 @@
 //   id = row_base[b] + col, ties to the lowest id;
 //   those 128*DEPTH survivors of each block merged into a running top-k
 //   ordered by (score desc, id asc), written to out_v/out_i[O(t), r, :k]
-//   with O(t) = t for K4 and K7 and bc[t] for K6.
+//   with O(t) = t for K4 and K7 and bc[t] for K6 and K10.
 // Only those rows are written.  Entries past the last finite score hold
 // -inf and an unspecified id.  For K6, bc must be constant along a run and
 // each cluster must end at most one run (the TPU kernel's output-window
@@ -75,8 +81,8 @@
 // along the longest run.  K7's gather reads the batch (1 MB at B = 8192,
 // d = 128) through L2.
 //
-// Design of K4's, K6's and K7's int8 modes and K6's and K7's bf16 modes
-// (grouped_wgmma_kernel<T, DEPTH, SRC>, hopper_mma.cuh):
+// Design of the int8 and bf16 modes (grouped_wgmma_kernel<T, DEPTH, SRC,
+// V>, hopper_mma.cuh):
 // - one CTA of two warpgroups per (last block t, N routed rows: 32, or 16
 //   for DEPTH > 2); CTAs on other blocks exit before any setup, and K6's
 //   CTAs whose run's cluster bc[t] lies outside [0, nlist) too.  The
@@ -107,19 +113,19 @@
 //   no transpose bit.  bf16 lands as two [64 d, 64 bin] boxes that wgmma
 //   reads as they lie, M-major through its transpose-A bit.  No per-call
 //   copy of the slab.  The routed rows (N x kb units) stay in shared memory
-//   for the block: K4 and K6 by TMA (rows at a 16-byte pitch; K6's map is
-//   3-D over qg [nlist, qcap, ldq] with the cluster bc[b] as the outer
-//   coordinate, the same rows in every block of a run; d past D arrives as
-//   zeros), K7 gathered by the threads in 16-byte pieces from qi (zero rows
-//   for slots outside [0, B); bf16 zeroes a piece's elements past D, since a
-//   pitched row's pad may hold anything) and handed to wgmma through the
-//   proxy fence.  The next block's rows load while this one's survivors
-//   merge.  Where kb units of rows would leave the ring under two stages
-//   (int8 D past 2816 at depth 1-2, 5888 at 3-4; bf16 past 1920 and 3968),
-//   they are not held: the threads gather each unit's rows in
-//   16-byte pieces into one of two unit buffers while the unit before
-//   multiplies, re-read from L2 every chunk, and the empty-row test reads q
-//   itself; so D has no cap.
+//   for the block: K4, K6 and K10 by TMA (rows at a 16-byte pitch; a 3-D
+//   map over qg [planes, qcap, ldq] whose outer coordinate is the block b
+//   for K4 and its cluster bc[b] for K6 and K10, the same rows in every
+//   block of a K6 run; d past D arrives as zeros), K7 gathered by the
+//   threads in 16-byte pieces from qi (zero rows for slots outside [0, B);
+//   bf16 zeroes a piece's elements past D, since a pitched row's pad may
+//   hold anything) and handed to wgmma through the proxy fence.  The next
+//   block's rows load while this one's survivors merge.  Where kb units of
+//   rows would leave the ring under two stages (int8 D past 2816 at depth
+//   1-2, 5888 at 3-4; bf16 past 1920 and 3968), they are not held: the
+//   threads gather each unit's rows in 16-byte pieces into one of two unit
+//   buffers while the unit before multiplies, re-read from L2 every chunk,
+//   and the empty-row test reads q itself; so D has no cap.
 // - the epilogue on copy_acc's copy of the fragment (reading the fragment
 //   itself has ptxas serialize the groups): int8 score = __int2float_rn(dot)
 //   then one __fsub_rn of the bias; bf16 takes an exact-zero sum as +0 (the
@@ -127,22 +133,26 @@
 //   inserted with strict > (an equal score keeps the earlier, lower id).
 // - per block the survivors go to shared memory and each warp merges its
 //   N / 8 rows side by side (merge_rows): only candidates that beat the
-//   row's k-th entry take part, each lane's four bins are sorted lists
-//   whose heads compete, a pass takes the warp's best by two reductions (the
-//   score key, then the lowest id at it), and once every candidate that
-//   beat the k-th entry is placed the rest of the row is its old list,
-//   shifted.
+//   row's k-th entry take part (kNoGate: all of them), each lane's four
+//   bins are sorted lists whose heads compete, a pass takes the warp's best
+//   by two reductions (the score key, then the lowest id at it), and once
+//   every candidate that took part is placed the rest of the row is its old
+//   list, shifted.
+// - kMaxOnly and kFixedOut keep one running max an entry of the copy
+//   instead of the top-DEPTH, and at the block's end reduce it over the
+//   128 bins: within a warp by shuffles, across the eight warps through
+//   shared memory.
 //
-// Design of K6's and K7's fp32 modes (grouped_ffma_kernel<DEPTH, SRC>,
+// Design of the fp32 modes (grouped_ffma_kernel<DEPTH, SRC, V>,
 // ffma_tile.cuh, the register tile of K1's, K3's and K5's fp32 modes):
 // - one CTA of 128 threads per (last block t, 32 routed rows), 4 x 8 fp32
 //   accumulators a thread over the chunk's 128 bins; the walk over (block,
 //   chunk, d-slice) as above, the slices (32 d; 16 at DEPTH > 2) riding a
 //   cp.async ring while the slice before is multiplied, the routed rows
-//   re-read from L2 with every slice (K6 strided from qg, K7 gathered
-//   through cq_blocks at a 16-byte row pitch); one fmaf a dimension in d
-//   order from +0, so scores are bit-equal to the plain version's on exact
-//   data.
+//   re-read from L2 with every slice (K4, K6 and K10 strided from qg, K7
+//   gathered through cq_blocks at a 16-byte row pitch); one fmaf a
+//   dimension in d order from +0, so scores are bit-equal to the plain
+//   version's on exact data.
 // - a top-DEPTH (score, chunk) per accumulator would pass 255 registers:
 //   the lists live in shared memory as [row][depth][bin] (the
 //   scores fp32, the chunks a byte each: blk <= 32768), the chunk's first
@@ -151,58 +161,26 @@
 //   the wgmma modes: all-zero tiles from the bias words, zero rows sharing
 //   one running top-k (K7: a row is taken as zero where its slot lies
 //   outside [0, B); a zero query in a valid slot is scored, which is exact
-//   too).
-//
-// Design of the rest (grouped_scan_kernel: K4's fp32 and bf16 modes, and
-// K10 at bin depth 2 in every mode; K10's int8 mode is its one __dp4a
-// user):
-// - one CTA of 256 threads per (last block t, tile of 32 rows; 16 rows for
-//   DEPTH > 2): two row groups x 128 lanes, thread = (group, bin).  It
-//   walks back from t to the run's first block and then forward, one block
-//   at a time, so each block is binned and merged on its own, as on the TPU
-//   (a top-DEPTH per bin folded across blocks would keep fewer candidates).
-// - per block: 16 chunks of 128 columns, each staged in shared memory and
-//   scored with __dp4a (int8) or fmaf (fp32 and bf16, widened to fp32 as
-//   they are staged): the stages and dot loops of ivf_stage.cuh.  The
-//   sources differ only in the query stage: a block's rows or a cluster's
-//   rows.  Each thread keeps its bin's DEPTH best (score, chunk) per row in
-//   registers, inserted with strict > as above.  The DEPTH survivors of a
-//   bin may be equal in value (K1's plane 2 is the opposite: the largest
-//   key DIFFERENT from plane 1).
-// - then the survivors go to shared memory (reusing the staging area) and
-//   one warp per row merges them into the row's running top-k (k <= 32, in
-//   shared memory): k passes of a warp argmax by (score desc, id asc) with
-//   shuffles.  A row is skipped when no survivor beats its k-th entry, the
-//   per-row form of the TPU kernel's `improves` skip.  Finite ids are unique
-//   (row_base differs between blocks), so the winner is removed by id.
-// - score = __int2float_rn(dot) then one __fsub_rn, the JAX kernel's order:
-//   the dot is exact in f32 (|dot| <= D*127^2 < 2^24), so scores are
-//   bit-equal to the plain version.  The float modes sum from +0 with one
-//   fmaf a dimension in d order (an empty routed slot scores +0).
+//   too).  kMaxOnly and kFixedOut keep a row max a thread in registers
+//   and reduce it across the four warps through shared memory.
+// - the recovery list's time is one CTA's serial walk along its longest
+//   run (a hot cluster's blocks), not the product.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
-#include "ivf_stage.cuh"
 
 namespace {
 
-constexpr int LANES = 128;               // bins: one per lane of a row group
-constexpr int GROUPS = 2;                // row groups per CTA (share one staged chunk)
-constexpr int THREADS = LANES * GROUPS;
+constexpr int LANES = 128;               // bins: the chunk's columns mod 128
+constexpr int THREADS = 256;             // grouped_wgmma_kernel: two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr int K_MAX = 32;                // running top-k width in shared memory
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int DEPTH>
-struct Tile {
-  static constexpr int ROWS = DEPTH <= 2 ? 16 : 8;   // rows per group (registers)
-  static constexpr int CTA_ROWS = GROUPS * ROWS;
-  static constexpr int NCAND = DEPTH * LANES;        // survivors per row and block
-};
 
 // (v, i) ranks before (bv, bi): larger score, then lower id.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -218,333 +196,9 @@ enum class QSrc { kBlock, kCluster, kRouted };
 // K10's variants; every other kernel is kFull.
 enum class Variant { kFull, kNoGate, kMaxOnly, kFixedOut };
 
-// T: int8_t (K10), or float / __nv_bfloat16 (K4's and K10's float modes).
-template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
-__global__ void __launch_bounds__(THREADS)
-grouped_scan_kernel(const T* __restrict__ qg,                // see above
-                    const T* __restrict__ vec,               // [nblocks, d, blk]
-                    const int32_t* __restrict__ block_cluster, // [nblocks] (kCluster only)
-                    const int32_t* __restrict__ block_first,   // [nblocks]
-                    const int32_t* __restrict__ block_last,    // [nblocks]
-                    const int32_t* __restrict__ rows_valid,    // [nblocks]
-                    const float* __restrict__ bias,          // [nblocks, blk] or null
-                    const int32_t* __restrict__ row_base,      // [nblocks]
-                    const float* __restrict__ bound_v,       // like out's rows, or null
-                    const int32_t* __restrict__ bound_i,     // like out's rows, or null
-                    float* __restrict__ out_v,               // see above
-                    int32_t* __restrict__ out_i,             // see above
-                    int qcap, int d, int blk, int k, int qstride,
-                    int nsrc) {  // rows of qg: nlist for kCluster
-  constexpr int ROWS = Tile<DEPTH>::ROWS;
-  constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
-  constexpr int NCAND = Tile<DEPTH>::NCAND;
-  constexpr int PER_LANE = NCAND / 32;
-  constexpr bool INT8 = std::is_same_v<T, int8_t>;
-  // K4's, K6's and K7's int8 modes and K6's and K7's float modes run on
-  // grouped_wgmma_kernel and grouped_ffma_kernel; K10's and K4's float here.
-  static_assert(SRC != QSrc::kRouted && (!INT8 || SRC == QSrc::kCluster),
-                "K7 and int8 K4 run on grouped_wgmma_kernel or grouped_ffma_kernel");
-  const float NEG_INF = -INFINITY;
-
-  const int t = blockIdx.x;
-  // K10's kMaxOnly and kFixedOut: one block per CTA, a row max, no selection.
-  constexpr bool MAX_ONLY = V == Variant::kMaxOnly || V == Variant::kFixedOut;
-  if constexpr (!MAX_ONLY) {
-    if (block_last[t] == 0) return;
-  }
-  constexpr bool BY_CLUSTER = SRC == QSrc::kCluster;
-  int orow = BY_CLUSTER ? block_cluster[t] : t;  // the output row
-  if (BY_CLUSTER && (orow < 0 || orow >= nsrc)) return;
-  bool writes = true;
-  if constexpr (V == Variant::kMaxOnly) {
-    writes = t + 1 == (int)gridDim.x || block_cluster[t + 1] != orow;
-  } else if constexpr (V == Variant::kFixedOut) {
-    writes = t + 1 == (int)gridDim.x;
-    orow = 0;
-  }
-  const int lane = threadIdx.x % LANES;
-  const int group = threadIdx.x / LANES;
-  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
-  const int cta_r0 = blockIdx.y * CTA_ROWS;
-  const int cstride = qstride + 1;  // int8: odd word stride, conflict-free column reads
-  // float: the d-slice staged at a time (all of qstride while it fits).
-  const int dsl = INT8 ? qstride : float_slice(qstride);
-  const bool sliced = dsl < qstride;
-
-  // Shared memory: the running top-k, then a scan area (staged query rows
-  // and slab chunk) that the block's survivors reuse once the scan is done.
-  // int8: query rows of qstride words (4 dims a word) and the chunk
-  // [LANES][cstride] words; float: query rows of dsl fp32 and the chunk
-  // [dsl][LANES] fp32, a d-slice at a time past F_RESIDENT (ivf_stage.cuh).
-  extern __shared__ int4 smem4[];
-  float* run_v = reinterpret_cast<float*>(smem4);                      // [CTA_ROWS][K_MAX]
-  int32_t* run_i = reinterpret_cast<int32_t*>(run_v + CTA_ROWS * K_MAX);
-  int32_t* q_s = run_i + CTA_ROWS * K_MAX;                             // [CTA_ROWS][qstride]
-  int32_t* col_s = q_s + CTA_ROWS * dsl;                               // [LANES][cstride]
-  float* cand_v = reinterpret_cast<float*>(q_s);                       // [CTA_ROWS][NCAND]
-  int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + CTA_ROWS * NCAND);
-  const int32_t* my_q = q_s + group * ROWS * dsl;
-
-  for (int i = threadIdx.x; i < CTA_ROWS * K_MAX; i += THREADS) {
-    run_v[i] = NEG_INF;
-    run_i[i] = 0;
-  }
-
-  int tb = t;  // the run's first block
-  if constexpr (!MAX_ONLY) {
-    while (tb > 0 && block_first[tb] == 0) --tb;
-  }
-  const int nchunks = blk / LANES;
-
-  for (int b = tb; b <= t; ++b) {
-    const int nvalid = rows_valid[b];
-    if (nvalid <= 0) continue;  // all scores -inf: nothing to merge (uniform in the CTA)
-    // The float rows' d-slice from e0 (all of them when not sliced).
-    auto stage_q = [&](int e0) {
-      if constexpr (!INT8) {
-        const int qrow = BY_CLUSTER ? block_cluster[b] : b;
-        stage_queries_f<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, dsl,
-                                 reinterpret_cast<float*>(q_s), e0);
-      }
-    };
-    if constexpr (!INT8) {
-      if (!sliced) stage_q(0);
-    } else {
-      const int qrow = BY_CLUSTER ? block_cluster[b] : b;
-      stage_queries<THREADS>(qg + (size_t)qrow * qcap * d, qcap, d, cta_r0, CTA_ROWS, qstride,
-                             reinterpret_cast<int8_t*>(q_s));
-    }
-    const float* brow = bias != nullptr ? bias + (size_t)b * blk : nullptr;
-
-    float tv[ROWS][DEPTH];
-    int tc[ROWS][DEPTH];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
-        tv[r][j] = NEG_INF;
-        tc[r][j] = 0;
-      }
-
-    for (int c = 0; c < nchunks; ++c) {
-      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
-      float sc[ROWS];  // the chunk's scores before the bias
-      if constexpr (INT8) {
-        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
-        __syncthreads();
-        int32_t acc[ROWS];
-        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sc[r] = __int2float_rn(acc[r]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sc[r] = 0.0f;
-        for (int e0 = 0; e0 < qstride; e0 += dsl) {
-          if (sliced) {
-            if (e0 > 0) __syncthreads();  // the last slice is read
-            stage_q(e0);
-          }
-          stage_chunk_f<THREADS>(vsrc + (size_t)e0 * blk, d - e0, blk, dsl,
-                                 reinterpret_cast<float*>(col_s));
-          __syncthreads();
-          dot_rows_f_acc<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                               reinterpret_cast<const float*>(my_q), dsl,
-                               min(dsl, qstride - e0), sc);
-        }
-      }
-      const int col = c * LANES + lane;
-      const bool valid = col < nvalid;
-      const float sub = brow != nullptr ? brow[col] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float x = sc[r];
-        if (brow != nullptr) x = __fsub_rn(x, sub);
-        if (!valid) x = NEG_INF;
-        if constexpr (MAX_ONLY) {
-          if (x > tv[r][0]) tv[r][0] = x;
-        } else {
-          // Insert into the bin's sorted top-DEPTH; strict > keeps an
-          // equal, earlier (lower-id) entry ahead.  Descending j reads
-          // tv[j-1] before it is rewritten.
-#pragma unroll
-          for (int j = DEPTH - 1; j > 0; --j) {
-            if (x > tv[r][j - 1]) {
-              tv[r][j] = tv[r][j - 1];
-              tc[r][j] = tc[r][j - 1];
-            } else if (x > tv[r][j]) {
-              tv[r][j] = x;
-              tc[r][j] = c;
-            }
-          }
-          if (x > tv[r][0]) {
-            tv[r][0] = x;
-            tc[r][0] = c;
-          }
-        }
-      }
-      __syncthreads();  // col_s is restaged next
-    }
-
-    if constexpr (MAX_ONLY) {
-      // The row max: each lane's column max to shared memory, then a warp
-      // per row reduces its 128 lanes into slot 0 of the row's state.
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) cand_v[(group * ROWS + r) * LANES + lane] = tv[r][0];
-      __syncthreads();
-      for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int i = 0; i < LANES / 32; ++i) mx = fmaxf(mx, cand_v[rr * LANES + i * 32 + wl]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-        if (wl == 0) run_v[rr * K_MAX] = mx;
-      }
-      __syncthreads();
-      continue;
-    }
-
-    // Survivors to shared memory (over the scan area, now free).
-    const int rb = row_base[b];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
-        const int o = (group * ROWS + r) * NCAND + j * LANES + lane;
-        cand_v[o] = tv[r][j];
-        cand_i[o] = rb + tc[r][j] * LANES + lane;
-      }
-    __syncthreads();
-
-    // Merge: one warp per row.  With a bound (a later pass of the
-    // wrapper's), only survivors ranked after the row's bound take part.
-    for (int rr = warp; rr < CTA_ROWS; rr += WARPS) {
-      if (cta_r0 + rr >= qcap) continue;
-      float* sv = run_v + rr * K_MAX;
-      int32_t* si = run_i + rr * K_MAX;
-      const float kv = sv[k - 1];
-      const int ki = si[k - 1];
-      float bnd_v = INFINITY;
-      int bnd_i = -1;
-      if (bound_i != nullptr) {
-        const size_t o = (size_t)orow * qcap + cta_r0 + rr;
-        bnd_v = bound_v[o];
-        bnd_i = bound_i[o];
-      }
-      float cv[PER_LANE];
-      int ci[PER_LANE];
-      bool beats = false;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        cv[i] = cand_v[rr * NCAND + i * 32 + wl];
-        ci[i] = cand_i[rr * NCAND + i * 32 + wl];
-        if (!better(bnd_v, bnd_i, cv[i], ci[i])) cv[i] = NEG_INF;
-        beats |= cv[i] > NEG_INF && better(cv[i], ci[i], kv, ki);
-      }
-      if constexpr (V != Variant::kNoGate) {
-        if (!__any_sync(FULL, beats)) continue;
-      }
-      float ov = wl < k ? sv[wl] : NEG_INF;
-      int oi = wl < k ? si[wl] : 0;
-      __syncwarp();
-      for (int p = 0; p < k; ++p) {
-        float bv = ov;
-        int bi = oi;
-#pragma unroll
-        for (int i = 0; i < PER_LANE; ++i)
-          if (better(cv[i], ci[i], bv, bi)) {
-            bv = cv[i];
-            bi = ci[i];
-          }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float v2 = __shfl_xor_sync(FULL, bv, off);
-          const int i2 = __shfl_xor_sync(FULL, bi, off);
-          if (better(v2, i2, bv, bi)) {
-            bv = v2;
-            bi = i2;
-          }
-        }
-        // Only -inf left: slots p.. of the old state held -inf already
-        // (any finite one would have won).  bv is the same in every lane.
-        if (bv == NEG_INF) break;
-        if (wl == 0) {
-          sv[p] = bv;
-          si[p] = bi;
-        }
-        if (ov == bv && oi == bi) ov = NEG_INF;
-#pragma unroll
-        for (int i = 0; i < PER_LANE; ++i)
-          if (cv[i] == bv && ci[i] == bi) cv[i] = NEG_INF;
-      }
-      __syncwarp();
-    }
-    __syncthreads();  // the survivors' area is restaged by the next block
-  }
-
-  __syncthreads();
-  if (!writes) return;
-  for (int i = threadIdx.x; i < CTA_ROWS * k; i += THREADS) {
-    const int r = i / k, p = i % k;
-    if (cta_r0 + r >= qcap) continue;
-    const size_t o = ((size_t)orow * qcap + cta_r0 + r) * k + p;
-    out_v[o] = run_v[r * K_MAX + (MAX_ONLY ? 0 : p)];
-    out_i[o] = MAX_ONLY ? 0 : run_i[r * K_MAX + p];
-  }
-}
-
-template <typename T, int DEPTH, QSrc SRC, Variant V>
-int launch(const void* qg, const void* vec, const void* block_cluster,
-           const void* block_first, const void* block_last, const void* rows_valid,
-           const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
-           void* out_v, void* out_i, int nblocks, int qcap, int d, int blk, int k, int nsrc,
-           cudaStream_t stream) {
-  constexpr int CTA_ROWS = Tile<DEPTH>::CTA_ROWS;
-  const int qstride = stage_row_words<T>(d);
-  // The float stage holds a d-slice of dsl rows (all of them while they fit).
-  const int dsl = std::is_same_v<T, int8_t> ? qstride : float_slice(qstride);
-  const size_t run = (size_t)CTA_ROWS * K_MAX * 2 * sizeof(int32_t);
-  const size_t scan = ((size_t)CTA_ROWS * dsl + stage_chunk_words<T>(dsl)) * sizeof(int32_t);
-  const size_t cand = (size_t)CTA_ROWS * Tile<DEPTH>::NCAND * 2 * sizeof(int32_t);
-  const size_t smem = run + (scan > cand ? scan : cand);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(grouped_scan_kernel<T, DEPTH, SRC, V>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + CTA_ROWS - 1) / CTA_ROWS));
-  grouped_scan_kernel<T, DEPTH, SRC, V><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(vec),
-      static_cast<const int32_t*>(block_cluster),
-      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
-      static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, d, blk, k, qstride, nsrc);
-  return (int)cudaGetLastError();
-}
-
-// K4's float modes at bin depth 1-4.
-template <typename T>
-int dispatch(const void* qg, const void* vec, const void* block_first, const void* block_last,
-             const void* rows_valid, const void* bias, const void* row_base,
-             const void* bound_v, const void* bound_i, void* out_v, void* out_i, int nblocks,
-             int qcap, int d, int blk, int k, int depth, void* stream) {
-  if (nblocks == 0 || qcap == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAG_LAUNCH(D)                                                                         \
-  launch<T, D, QSrc::kBlock, Variant::kFull>(qg, vec, nullptr, block_first, block_last,        \
-                                             rows_valid, bias, row_base, bound_v, bound_i,     \
-                                             out_v, out_i, nblocks, qcap, d, blk, k, nblocks, s)
-  switch (depth) {
-    case 1: return RAG_LAUNCH(1);
-    case 2: return RAG_LAUNCH(2);
-    case 3: return RAG_LAUNCH(3);
-    case 4: return RAG_LAUNCH(4);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef RAG_LAUNCH
-}
+// kMaxOnly and kFixedOut: a row max per block, no selection, no run walk.
+template <Variant V>
+constexpr bool kMaxVariant = V == Variant::kMaxOnly || V == Variant::kFixedOut;
 
 // ------------------------- K4, K6 and K7 int8, K6 and K7 bf16: wgmma fed by TMA
 
@@ -647,11 +301,12 @@ __device__ __forceinline__ void zero_row_top(const float* __restrict__ bw, int n
 
 // A block's survivors merged into the running top-k of rows rows[0..R-1],
 // side by side, by one warp; rows not set in `act` take no part.
-// cand(row, depth, bin, v, id) reads a survivor.  Only candidates that beat
-// the row's k-th entry can enter (the others have k better entries ahead
-// of them); the row is skipped when there are none (the TPU kernel's
-// `improves`), and once every such candidate is placed the rest of the row
-// is its old list, shifted.  Lane l holds bins l + 32 q (q < 4), each a
+// cand(row, depth, bin, v, id) reads a survivor.  With GATE, only candidates
+// that beat the row's k-th entry can enter (the others have k better
+// entries ahead of them) and the row is skipped when there are none (the
+// TPU kernel's `improves`); without (K10's kNoGate) every finite one takes
+// part, to the same result.  Once every candidate that takes part is placed
+// the rest of the row is its old list, shifted.  Lane l holds bins l + 32 q (q < 4), each a
 // list sorted by (score desc, id asc), and old entry l: a pass takes the
 // lane's best head, then the warp's best by two reductions (the largest
 // score key, then the lowest id at it), and the lane that held it pops that
@@ -659,7 +314,7 @@ __device__ __forceinline__ void zero_row_top(const float* __restrict__ bw, int n
 // are never -0, so the score key orders them as the floats do.  With a
 // bound (s_bv, s_bi: a later pass of the wrapper's), only survivors ranked
 // after it take part.
-template <int DEPTH, int R, class Cand>
+template <int DEPTH, int R, bool GATE = true, class Cand>
 __device__ __forceinline__ void merge_rows(const int (&rows)[R], uint32_t act, const Cand& cand,
                                            float* __restrict__ run_v, int32_t* __restrict__ run_i,
                                            const float* __restrict__ s_bv,
@@ -684,7 +339,7 @@ __device__ __forceinline__ void merge_rows(const int (&rows)[R], uint32_t act, c
         int id = 0;
         if (on) cand(rr, j, q * 32 + wl, v, id);
         const bool after = better(s_bv[rr], s_bi[rr], v, id);
-        const bool beats = v > NEG_INF && better(v, id, kv, ki) && after;
+        const bool beats = v > NEG_INF && (!GATE || better(v, id, kv, ki)) && after;
         lv[r][q][j] = beats ? v : NEG_INF;
         li[r][q][j] = id;
         cnt += beats;
@@ -767,18 +422,19 @@ __device__ __forceinline__ void merge_rows(const int (&rows)[R], uint32_t act, c
   __syncwarp();
 }
 
-// T: int8_t (K4, K6, K7) or __nv_bfloat16 (K6, K7).  K4 (SRC kBlock: q = qg
-// [nblocks, qcap] rows, also through `tq`, [1, N, 128-byte] boxes, 128-byte
-// swizzle), K6 (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's
-// rows being qg[block_cluster[b]], the same map, the output row of a run
-// ending at t being block_cluster[t]) and K7 (SRC kRouted: q = qi [nsrc]
-// rows, row r of block b being qi[cq_blocks[b, r]], gathered by the
-// threads); the slab [nblocks, d, blk] through `tv` (int8: [1, 128, 16]
-// boxes; bf16: [1, 64, 64], 128-byte swizzle).  The rows of q lie ldq
-// bytes apart (a multiple of 16), their first qbytes (D) holding data: int8
-// is zero past it, bf16 need not be.  kb units of 128 bytes of d.  CTA (t,
-// y): last block t, routed rows N y .. N y + N - 1.
-template <typename T, int DEPTH, QSrc SRC>
+// T: int8_t or __nv_bfloat16.  K4 (SRC kBlock: q = qg [nblocks, qcap] rows,
+// also through `tq`, [1, N, 128-byte] boxes, 128-byte swizzle), K6 and K10
+// (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's rows being
+// qg[block_cluster[b]], the same map, the output row of a run ending at t
+// being block_cluster[t]) and K7 (SRC kRouted: q = qi [nsrc] rows, row r of
+// block b being qi[cq_blocks[b, r]], gathered by the threads); the slab
+// [nblocks, d, blk] through `tv` (int8: [1, 128, 16] boxes; bf16: [1, 64,
+// 64], 128-byte swizzle).  The rows of q lie ldq bytes apart (a multiple of
+// 16), their first qbytes (D) holding data: int8 is zero past it, bf16 need
+// not be.  kb units of 128 bytes of d.  CTA (t, y): last block t (kMaxOnly,
+// kFixedOut: block t), routed rows N y .. N y + N - 1.  V: K10's variant
+// (kCluster and no bias but kFull).
+template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv,
@@ -802,26 +458,41 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int R = N / WARPS;               // rows each warp merges
   constexpr int QUNIT = N * 128;             // a unit of the routed rows
   constexpr int KD = 128 / (int)sizeof(T);   // d a unit
+  constexpr bool MAX_ONLY = kMaxVariant<V>;
+  static_assert(V == Variant::kFull || SRC == QSrc::kCluster, "K10's variants are K6's");
   const float NEG_INF = -INFINITY;
 
   // CTAs on blocks that end no run leave before any setup (the recovery
   // pass lists ~300 blocks and walks ~5 runs), and so do K6's CTAs whose
-  // run's cluster has no output row.
+  // run's cluster has no output row.  kMaxOnly and kFixedOut run every
+  // block alone, and only some CTAs write (`writes`, a runtime predicate).
   const int t = blockIdx.x;
-  if (block_last[t] == 0) return;
-  int orow = t;  // the output row: the block (K4, K7) or its cluster (K6)
+  if constexpr (!MAX_ONLY) {
+    if (block_last[t] == 0) return;
+  }
+  int orow = t;  // the output row: the block (K4, K7) or its cluster (K6, K10)
   if constexpr (SRC == QSrc::kCluster) {
     orow = block_cluster[t];
     if (orow < 0 || orow >= nsrc) return;
+  }
+  bool writes = true;
+  if constexpr (V == Variant::kMaxOnly) {
+    writes = t + 1 == (int)gridDim.x || block_cluster[t + 1] != orow;
+  } else if constexpr (V == Variant::kFixedOut) {
+    writes = t + 1 == (int)gridDim.x;
+    orow = 0;
   }
   // Block b's rows in q: K4's own, K6's cluster's (K7 gathers through cq).
   auto qrow = [&](int b) { return SRC == QSrc::kCluster ? block_cluster[b] : b; };
   const int r0 = blockIdx.y * N;
   int tb = t;  // the run's first block
-  while (tb > 0 && block_first[tb] == 0) --tb;
+  if constexpr (!MAX_ONLY) {
+    while (tb > 0 && block_first[tb] == 0) --tb;
+  }
   int cb = tb - 1, cc = 0, cj = kb - 1;  // the consumers' unit
   bool have = next_unit(cb, cc, cj, tb, t, kb, blk, rows_valid);
   if (!have) {  // no block of the run holds rows: every entry is -inf
+    if (!writes) return;
     for (int i = threadIdx.x; i < N * k; i += THREADS) {
       const int r = i / k;
       if (r0 + r >= qcap) continue;
@@ -1034,7 +705,11 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         x = __int2float_rn(e[i]);
       if (bias != nullptr) x = __fsub_rn(x, bsub[(i >> 1) & 1]);
       if (bin0 + 8 * ((i >> 1) & 1) >= lim) x = NEG_INF;
-      insert_top<DEPTH>(tv_[i], tc_[i], x, c);
+      if constexpr (MAX_ONLY) {
+        if (x > tv_[i][0]) tv_[i][0] = x;
+      } else {
+        insert_top<DEPTH>(tv_[i], tc_[i], x, c);
+      }
     }
   };
 
@@ -1072,7 +747,32 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < R; ++r) mrows[r] = warp + WARPS * r;
   auto merge = [&](uint32_t dup) {
-    merge_rows<DEPTH, R>(mrows, vmask & ~dup, cand, run_v, run_i, s_bv, s_bi, k);
+    if constexpr (!MAX_ONLY)
+      merge_rows<DEPTH, R, V != Variant::kNoGate>(mrows, vmask & ~dup, cand, run_v, run_i, s_bv,
+                                                   s_bi, k);
+  };
+
+  // kMaxOnly, kFixedOut: each row's max over the block's 128 bins into
+  // slot 0 of its running state.  Entries i and i ^ 2 hold one row in two
+  // bins; the lanes of one wl % 4 hold a row's other bins of the warp
+  // (shuffles), the eight warps the rest (shared memory, over cand_v).
+  auto row_max = [&]() {
+#pragma unroll
+    for (int h = 0; h < F / 2; ++h) {
+      const int i = 4 * (h >> 1) + (h & 1);
+      float x = fmaxf(tv_[i][0], tv_[i + 2][0]);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
+      if (wl < 4) cand_v[warp * N + 8 * (h >> 1) + 2 * wl + (h & 1)] = x;
+    }
+    __syncthreads();
+    if (threadIdx.x < N) {
+      float x = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) x = fmaxf(x, cand_v[w * N + threadIdx.x]);
+      run_v[threadIdx.x * K_MAX] = x;
+    }
+    __syncthreads();
   };
 
   // A tile whose rows are zero in every block of the run (most tiles of a
@@ -1103,6 +803,16 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     nonzero = __syncthreads_or(any);
   }
   if (!nonzero) {
+    if constexpr (MAX_ONLY) {
+      // Every valid column scores +0 (no bias), and block t holds one.
+      if (!writes) return;
+      for (int i = threadIdx.x; i < nrows * k; i += THREADS) {
+        const size_t o = ((size_t)orow * qcap + r0) * k + i;
+        out_v[o] = 0.0f;
+        out_i[o] = 0;
+      }
+      return;
+    }
     for (int b = tb; b <= t; ++b) {
       const int nvalid = min(rows_valid[b], blk);
       if (nvalid <= 0) continue;
@@ -1149,8 +859,9 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // top-k, their candidates being equal in every block: the lowest of them
   // (`lead`) is scored and merged, the others (`dup`) copy it after the
   // merge.
-  // With bounds, rows differ by their bounds: none shares.
-  uint32_t same = bound_i != nullptr ? 0u : vmask, dup = 0, need = 0;
+  // With bounds, rows differ by their bounds: none shares; nor in
+  // kMaxOnly and kFixedOut, which keep no top-k.
+  uint32_t same = bound_i != nullptr || MAX_ONLY ? 0u : vmask, dup = 0, need = 0;
   int lead = 0;
   auto rows_of_block = [&]() {
     same &= ~s_nz;
@@ -1201,7 +912,9 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_proxy_async();
     __syncthreads();  // stage rs and buffer kbuf are free; the next unit is transposed
     if (threadIdx.x == 0 && phave) load(rs);
-    if (chunk_end && (!nhave || nb != cb)) {
+    if (MAX_ONLY && chunk_end && !nhave) {
+      row_max();  // the CTA's one block is scored
+    } else if (chunk_end && (!nhave || nb != cb)) {
       // Block cb is scored: every product on the routed rows retired, so
       // the next block's rows load while this one's survivors merge.
       if (nhave) load_queries(nb);
@@ -1236,21 +949,22 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     have = nhave;
   }
 
+  if (!writes) return;
   for (int i = threadIdx.x; i < N * k; i += THREADS) {
     const int r = i / k, p = i % k;
     if (r0 + r >= qcap) continue;
     const size_t o = ((size_t)orow * qcap + r0 + r) * k + p;
-    out_v[o] = run_v[r * K_MAX + p];
-    out_i[o] = run_i[r * K_MAX + p];
+    out_v[o] = run_v[r * K_MAX + (MAX_ONLY ? 0 : p)];
+    out_i[o] = MAX_ONLY ? 0 : run_i[r * K_MAX + p];
   }
 }
 
-// q: K4's qg [nblocks, qcap] rows, K6's qg [nsrc = nlist, qcap] rows or K7's
-// qi [nsrc] rows, of d elements of T at a pitch of ldq elements (16 bytes'
-// worth; int8: the pad zero); cq_blocks [nblocks, qcap] (K7),
-// block_cluster [nblocks] (K6), vec [nblocks, d, blk], bias [nblocks, blk]
-// or null.
-template <typename T, int DEPTH, QSrc SRC>
+// q: K4's qg [nblocks, qcap] rows, K6's and K10's qg [nsrc = nlist, qcap]
+// rows or K7's qi [nsrc] rows, of d elements of T at a pitch of ldq elements
+// (16 bytes' worth; int8: the pad zero); cq_blocks [nblocks, qcap] (K7),
+// block_cluster [nblocks] (K6, K10), vec [nblocks, d, blk], bias [nblocks,
+// blk] or null.
+template <typename T, int DEPTH, QSrc SRC, Variant V>
 int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* bias, const void* row_base, const void* bound_v,
@@ -1283,12 +997,12 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
   }
   const int stages = min(W_STAGES_MAX, (W_SMEM_MAX - fixed) / W_UNIT);
   const int smem = fixed + stages * W_UNIT;
-  if (const cudaError_t e = cudaFuncSetAttribute(grouped_wgmma_kernel<T, DEPTH, SRC>,
+  if (const cudaError_t e = cudaFuncSetAttribute(grouped_wgmma_kernel<T, DEPTH, SRC, V>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  smem))
     return (int)e;
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + Tl::N - 1) / Tl::N));
-  grouped_wgmma_kernel<T, DEPTH, SRC><<<grid, THREADS, smem, s>>>(
+  grouped_wgmma_kernel<T, DEPTH, SRC, V><<<grid, THREADS, smem, s>>>(
       tq, tv, static_cast<const int8_t*>(q), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_cluster), static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last),
@@ -1299,7 +1013,7 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------ K6 and K7 fp32: the FFMA register tile
+// ------------------------------- K4, K6, K7 and K10 fp32: the FFMA register tile
 
 // The fp32 modes' tile: ffma_tile.cuh's tile cut to 32 routed rows (WM = 1:
 // four warps; MI = 4: 4 x 8 accumulators a thread) x the chunk's 128 bins;
@@ -1321,15 +1035,17 @@ struct FList {
                                  (size_t)F_ROWS * K_MAX * 2 * sizeof(int32_t);
 };
 
-// K6 (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's rows being
+// K4 (SRC kBlock: q = qg [nblocks, qcap] rows), K6 and K10 (SRC kCluster:
+// q = qg [nsrc = nlist, qcap] rows, block b's rows being
 // qg[block_cluster[b]], the output row of a run ending at t being
 // block_cluster[t]) and K7 (SRC kRouted: q = qi [nsrc] rows, row r of block
 // b being qi[cq_blocks[b, r]]): rows of d fp32 at a pitch of ldq (a
 // multiple of 4, 16-byte aligned); the slab vec [nblocks, d, blk] (16-byte
-// aligned).  CTA (t, y): last block t, routed rows F_ROWS y .. + F_ROWS - 1.
-// The walk is next_unit's over (block, chunk, d-slice), nk slices a chunk;
-// accumulator (i, j) is (row, bin) Place (i, j).
-template <int DEPTH, QSrc SRC>
+// aligned).  CTA (t, y): last block t (kMaxOnly, kFixedOut: block t), routed
+// rows F_ROWS y .. + F_ROWS - 1.  The walk is next_unit's over (block,
+// chunk, d-slice), nk slices a chunk; accumulator (i, j) is (row, bin)
+// Place (i, j).  V: K10's variant, as grouped_wgmma_kernel's.
+template <int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 __global__ void __launch_bounds__(FTile<DEPTH>::THREADS, 2)
 grouped_ffma_kernel(const float* __restrict__ q,
                     const int32_t* __restrict__ cq_blocks,     // [nblocks, qcap] (K7)
@@ -1344,27 +1060,41 @@ grouped_ffma_kernel(const float* __restrict__ q,
                     const int32_t* __restrict__ bound_i,
                     float* __restrict__ out_v, int32_t* __restrict__ out_i,
                     int qcap, int d, int blk, int ldq, int k, int nsrc) {
-  static_assert(SRC != QSrc::kBlock, "K4's fp32 mode runs on grouped_scan_kernel");
   using Tl = FTile<DEPTH>;
+  constexpr bool MAX_ONLY = kMaxVariant<V>;
+  static_assert(V == Variant::kFull || SRC == QSrc::kCluster, "K10's variants are K6's");
   constexpr int TH = Tl::THREADS, SF = Tl::STAGE_FLOATS, CS = FList<DEPTH>::CS;
   constexpr int NW = TH / 32;             // warps
   constexpr int R = DEPTH <= 2 ? 4 : 2;   // rows a warp merges side by side
   const float NEG_INF = -INFINITY;
 
   const int t = blockIdx.x;
-  if (block_last[t] == 0) return;
-  int orow = t;  // the output row: the block (K7) or its cluster (K6)
+  if constexpr (!MAX_ONLY) {
+    if (block_last[t] == 0) return;
+  }
+  int orow = t;  // the output row: the block (K4, K7) or its cluster (K6, K10)
   if constexpr (SRC == QSrc::kCluster) {
     orow = block_cluster[t];
     if (orow < 0 || orow >= nsrc) return;
   }
+  bool writes = true;  // kMaxOnly, kFixedOut: as grouped_wgmma_kernel's
+  if constexpr (V == Variant::kMaxOnly) {
+    writes = t + 1 == (int)gridDim.x || block_cluster[t + 1] != orow;
+  } else if constexpr (V == Variant::kFixedOut) {
+    writes = t + 1 == (int)gridDim.x;
+    orow = 0;
+  }
+  // Block b's rows in q: K4's own, K6's cluster's (K7 gathers through cq).
+  auto qrow = [&](int b) { return SRC == QSrc::kCluster ? block_cluster[b] : b; };
   const int r0 = blockIdx.y * F_ROWS;
   const int nrows = min(qcap - r0, F_ROWS);
   static_assert(F_ROWS == 32, "a CTA's rows are the bits of one word");
   const uint32_t vmask = nrows == 32 ? ~0u : (1u << nrows) - 1u;
   constexpr int MI = Tl::MI;
   int tb = t;  // the run's first block
-  while (tb > 0 && block_first[tb] == 0) --tb;
+  if constexpr (!MAX_ONLY) {
+    while (tb > 0 && block_first[tb] == 0) --tb;
+  }
   const int nk = (d + Tl::BK - 1) / Tl::BK;
 
   // Shared memory: the ring, the lists' scores [F_ROWS][CS], the running
@@ -1392,9 +1122,9 @@ grouped_ffma_kernel(const float* __restrict__ q,
   if (tid == 0) s_nz = 0;
   __syncthreads();
 
-  // Row n (< nrows) of block b taken as nonzero: K6 holds a nonzero word
-  // in its ldq; K7 has a slot in [0, nsrc) (a zero query there is scored,
-  // which is exact too).  TPR threads a row.
+  // Row n (< nrows) of block b taken as nonzero: K4 and K6 hold a nonzero
+  // word in its ldq; K7 has a slot in [0, nsrc) (a zero query there is
+  // scored, which is exact too).  TPR threads a row.
   constexpr int TPR = TH / F_ROWS;
   auto row_nonzero = [&](int b, int n, int part) {
     if (n >= nrows) return false;
@@ -1403,7 +1133,7 @@ grouped_ffma_kernel(const float* __restrict__ q,
       return part == 0 && s >= 0 && s < nsrc;
     } else {
       const float4* row = reinterpret_cast<const float4*>(
-          q + ((size_t)block_cluster[b] * qcap + r0 + n) * ldq);
+          q + ((size_t)qrow(b) * qcap + r0 + n) * ldq);
       unsigned any = 0;
       for (int p = part; p < ldq / 4; p += TPR) {
         const uint4 v = *reinterpret_cast<const uint4*>(row + p);
@@ -1435,6 +1165,7 @@ grouped_ffma_kernel(const float* __restrict__ q,
     id = rb + list_c[o] * LANES + bin;
   };
   auto merge = [&](uint32_t act) {
+    if constexpr (MAX_ONLY) return;
 #pragma unroll 1
     for (int g = 0; g < F_ROWS / (NW * R); ++g) {
       int rows[R];
@@ -1444,7 +1175,9 @@ grouped_ffma_kernel(const float* __restrict__ q,
         rows[r] = warp + NW * (r + R * g);
         any |= (act >> rows[r]) & 1u;
       }
-      if (any) merge_rows<DEPTH, R>(rows, act, cand, run_v, run_i, s_bv, s_bi, k);
+      if (any)
+        merge_rows<DEPTH, R, V != Variant::kNoGate>(rows, act, cand, run_v, run_i, s_bv, s_bi,
+                                                     k);
     }
   };
 
@@ -1456,6 +1189,18 @@ grouped_ffma_kernel(const float* __restrict__ q,
     nonzero = __syncthreads_or(row_nonzero(b, tid / TPR, tid % TPR));
   }
   if (!nonzero) {
+    if constexpr (MAX_ONLY) {
+      // Every valid column scores +0 (no bias): the row max is +0 where
+      // block t holds one, else -inf.
+      if (!writes) return;
+      const float z = rows_valid[t] > 0 ? 0.0f : NEG_INF;
+      for (int i = tid; i < nrows * k; i += TH) {
+        const size_t o = ((size_t)orow * qcap + r0) * k + i;
+        out_v[o] = z;
+        out_i[o] = 0;
+      }
+      return;
+    }
     for (int b = tb; b <= t; ++b) {
       const int nvalid = min(rows_valid[b], blk);
       if (nvalid <= 0) continue;
@@ -1490,9 +1235,9 @@ grouped_ffma_kernel(const float* __restrict__ q,
   auto load = [&](int slot) {
     float* stage = fsm + slot * SF;
     const float* bsrc = vec + (size_t)pb * d * blk + pc * LANES;
-    if constexpr (SRC == QSrc::kCluster)
-      cp.load(stage, q + ((size_t)block_cluster[pb] * qcap + r0) * ldq, ldq, true, bsrc, blk,
-              LANES, true, d, pk * Tl::BK);
+    if constexpr (SRC != QSrc::kRouted)
+      cp.load(stage, q + ((size_t)qrow(pb) * qcap + r0) * ldq, ldq, true, bsrc, blk, LANES, true,
+              d, pk * Tl::BK);
     else
       cp.load_gather(stage, q, ldq, cq_blocks + (size_t)pb * qcap + r0, nsrc, bsrc, blk, LANES,
                      true, d, pk * Tl::BK);
@@ -1508,7 +1253,7 @@ grouped_ffma_kernel(const float* __restrict__ q,
   // wgmma modes: `lead` is scored and merged, `dup` copy it.
   detect(cb);
   __syncthreads();
-  uint32_t same = bound_i != nullptr ? 0u : vmask, dup = 0, need = 0;
+  uint32_t same = bound_i != nullptr || MAX_ONLY ? 0u : vmask, dup = 0, need = 0;
   int lead = 0;
   auto rows_of_block = [&]() {
     same &= ~s_nz;
@@ -1518,12 +1263,26 @@ grouped_ffma_kernel(const float* __restrict__ q,
   };
   rows_of_block();
 
+  // kMaxOnly, kFixedOut: this thread's max of each of its rows over its
+  // columns of every chunk so far.
+  float rmax[MI];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) rmax[i] = NEG_INF;
+
   // Chunk c of block b scored: each needed entry, less the bias and -inf
   // past rows_valid, into its (row, bin)'s list: the block's first chunk
   // writes the list, a later one inserts a score above the list's last.
   const ffma::Place pl(tid);
   auto epilogue = [&](int b, int c, const float (&acc)[MI][8]) {
     const int lim = rows_valid[b] - c * LANES;
+    if constexpr (MAX_ONLY) {  // no bias
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (pl.col(j) < lim && acc[i][j] > rmax[i]) rmax[i] = acc[i][j];
+      return;
+    }
     float bs[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -1582,6 +1341,24 @@ grouped_ffma_kernel(const float* __restrict__ q,
     epilogue(b, c, acc);
     ffma::zero(acc);
     if (have && cb == b) continue;
+    if constexpr (MAX_ONLY) {
+      // The CTA's one block is scored: each row's max across the four
+      // lanes of one lm (shuffles) and the four warps (shared memory, over
+      // the lists), into slot 0 of its running state.
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        float x = rmax[i];
+        x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+        if (pl.ln == 0) list_v[pl.wn * F_ROWS + pl.row(i)] = x;
+      }
+      __syncthreads();
+      if (tid < F_ROWS)
+        run_v[tid * K_MAX] = fmaxf(fmaxf(list_v[tid], list_v[F_ROWS + tid]),
+                                   fmaxf(list_v[2 * F_ROWS + tid], list_v[3 * F_ROWS + tid]));
+      __syncthreads();
+      continue;
+    }
     // Block b is scored: its lists merged, the dup rows copied, the next
     // block's rows tested.
     rb = row_base[b];
@@ -1602,20 +1379,22 @@ grouped_ffma_kernel(const float* __restrict__ q,
   }
   ffma::wait_all();
 
+  if (!writes) return;
   for (int i = tid; i < F_ROWS * k; i += TH) {
     const int r = i / k, p = i % k;
     if (r >= nrows) continue;
     const size_t o = ((size_t)orow * qcap + r0 + r) * k + p;
-    out_v[o] = run_v[r * K_MAX + p];
-    out_i[o] = run_i[r * K_MAX + p];
+    out_v[o] = run_v[r * K_MAX + (MAX_ONLY ? 0 : p)];
+    out_i[o] = MAX_ONLY ? 0 : run_i[r * K_MAX + p];
   }
 }
 
-// q: K6's qg [nsrc = nlist, qcap] rows or K7's qi [nsrc] rows, of d fp32 at
-// a pitch of ldq (a multiple of 4), 16-byte aligned; cq_blocks [nblocks,
-// qcap] (K7), block_cluster [nblocks] (K6), vec [nblocks, d, blk] 16-byte
-// aligned, bias [nblocks, blk] or null; blk <= 128 * F_CHUNKS.
-template <int DEPTH, QSrc SRC>
+// q: K4's qg [nblocks, qcap] rows, K6's and K10's qg [nsrc = nlist, qcap]
+// rows or K7's qi [nsrc] rows, of d fp32 at a pitch of ldq (a multiple of
+// 4), 16-byte aligned; cq_blocks [nblocks, qcap] (K7), block_cluster
+// [nblocks] (K6, K10), vec [nblocks, d, blk] 16-byte aligned, bias
+// [nblocks, blk] or null; blk <= 128 * F_CHUNKS.
+template <int DEPTH, QSrc SRC, Variant V>
 int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
                 const void* block_first, const void* block_last, const void* rows_valid,
                 const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
@@ -1623,12 +1402,12 @@ int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster,
                 int nsrc, cudaStream_t s) {
   if (blk > LANES * F_CHUNKS || ldq % 4 != 0) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = FList<DEPTH>::SMEM;
-  if (const cudaError_t e = cudaFuncSetAttribute(grouped_ffma_kernel<DEPTH, SRC>,
+  if (const cudaError_t e = cudaFuncSetAttribute(grouped_ffma_kernel<DEPTH, SRC, V>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)smem))
     return (int)e;
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + F_ROWS - 1) / F_ROWS));
-  grouped_ffma_kernel<DEPTH, SRC><<<grid, FTile<DEPTH>::THREADS, smem, s>>>(
+  grouped_ffma_kernel<DEPTH, SRC, V><<<grid, FTile<DEPTH>::THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const int32_t*>(cq_blocks),
       static_cast<const int32_t*>(block_cluster), static_cast<const float*>(vec),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
@@ -1639,23 +1418,23 @@ int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster,
   return (int)cudaGetLastError();
 }
 
-// One launch of K4's, K6's and K7's int8 modes or K6's and K7's bf16 modes
-// on grouped_wgmma_kernel (T = int8_t or __nv_bfloat16), or of K6's and
-// K7's fp32 modes on grouped_ffma_kernel (T = float).
-template <typename T, int DEPTH, QSrc SRC>
+// One launch of an int8 or bf16 mode on grouped_wgmma_kernel (T = int8_t or
+// __nv_bfloat16), or of an fp32 mode on grouped_ffma_kernel (T = float).
+template <typename T, int DEPTH, QSrc SRC, Variant V = Variant::kFull>
 int launch_scan(const void* q, const void* cq_blocks, const void* block_cluster, const void* vec,
                 const void* block_first, const void* block_last, const void* rows_valid,
                 const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
                 void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k,
                 int nsrc, cudaStream_t s) {
   if constexpr (std::is_same_v<T, float>)
-    return launch_ffma<DEPTH, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last,
-                                   rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
-                                   nblocks, qcap, d, ldq, blk, k, nsrc, s);
+    return launch_ffma<DEPTH, SRC, V>(q, cq_blocks, block_cluster, vec, block_first,
+                                      block_last, rows_valid, bias, row_base, bound_v, bound_i,
+                                      out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s);
   else
-    return launch_wgmma<T, DEPTH, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last,
-                                       rows_valid, bias, row_base, bound_v, bound_i, out_v, out_i,
-                                       nblocks, qcap, d, ldq, blk, k, nsrc, s);
+    return launch_wgmma<T, DEPTH, SRC, V>(q, cq_blocks, block_cluster, vec, block_first,
+                                          block_last, rows_valid, bias, row_base, bound_v,
+                                          bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                                          nsrc, s);
 }
 
 // The same at bin depth 1-4.
@@ -1686,14 +1465,17 @@ int dispatch_scan(const void* q, const void* cq_blocks, const void* block_cluste
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `bias` may be null (no-bias
-// mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 and
-// 1 <= depth <= 4.  K4's, K6's and K7's entries take, for a later pass of
-// the wrapper's (ops/_build.py, by_passes), each output row's bound
-// (bound_v f32 and bound_i int32, shaped as out's rows, or both null):
-// only a survivor ranked after it may enter the row's top-k.
+// mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 (K10's
+// maxonly and fixedout: any k) and 1 <= depth <= 4.  The entries take, for
+// a later pass of the wrapper's (ops/_build.py, by_passes), each output
+// row's bound (bound_v f32 and bound_i int32, shaped as out's rows, or both
+// null): only a survivor ranked after it may enter the row's top-k.  The
+// float entries take fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or
+// bf16 (bf16 = 1; on wgmma) operands, the routed rows at a pitch of ldq (16
+// bytes' worth; the pad need not be zero); the int8 entries' ldq is d
+// rounded up to 16 with the pad zero.  q and vec are 16-byte aligned.
 //
-// K4: qg [nblocks, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
-// 16-byte aligned, out [nblocks, qcap, k]; on wgmma.
+// K4: qg [nblocks, qcap, ldq], out [nblocks, qcap, k].
 extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
                                    const void* bias, const void* row_base, const void* bound_v,
@@ -1706,24 +1488,23 @@ extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* 
                                              stream);
 }
 
-// K4's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
-// 16-byte aligned.
 extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* block_first,
                                   const void* block_last, const void* rows_valid,
                                   const void* bias, const void* row_base, const void* bound_v,
                                   const void* bound_i, void* out_v, void* out_i, int nblocks,
-                                  int qcap, int d, int blk, int k, int depth, int bf16,
+                                  int qcap, int d, int ldq, int blk, int k, int depth, int bf16,
                                   void* stream) {
-  return bf16 ? dispatch<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid, bias,
-                                        row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap,
-                                        d, blk, k, depth, stream)
-              : dispatch<float>(qg, vec, block_first, block_last, rows_valid, bias, row_base,
-                                bound_v, bound_i, out_v, out_i, nblocks, qcap, d, blk, k, depth,
-                                stream);
+  return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kBlock>(
+                    qg, nullptr, nullptr, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nblocks, stream)
+              : dispatch_scan<float, QSrc::kBlock>(
+                    qg, nullptr, nullptr, vec, block_first, block_last, rows_valid, bias,
+                    row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
+                    depth, nblocks, stream);
 }
 
-// K6: qg [nlist, qcap, ldq] with ldq = d rounded up to 16 (the pad zero),
-// 16-byte aligned, block_cluster [nblocks], out [nlist, qcap, k]; on wgmma.
+// K6: qg [nlist, qcap, ldq], block_cluster [nblocks], out [nlist, qcap, k].
 extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* block_cluster,
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* bias,
@@ -1737,9 +1518,6 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
                                                k, depth, nlist, stream);
 }
 
-// K6's float modes: fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or bf16
-// (bf16 = 1; on wgmma) qg [nlist, qcap] rows of d at a pitch of ldq (16
-// bytes' worth; the pad need not be zero) and vec, both 16-byte aligned.
 extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
@@ -1756,9 +1534,8 @@ extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* b
                     depth, nlist, stream);
 }
 
-// K7: qi [nbatch, ldq] with ldq = d rounded up to 16 (the pad zero),
-// 16-byte aligned, cq_blocks [nblocks, qcap] (-1 = empty slot), out
-// [nblocks, qcap, k]; on wgmma.
+// K7: qi [nbatch, ldq], cq_blocks [nblocks, qcap] (-1 = empty slot), out
+// [nblocks, qcap, k].
 extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const void* vec,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
@@ -1771,9 +1548,6 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
                                               k, depth, nbatch, stream);
 }
 
-// K7's float modes: fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or bf16
-// (bf16 = 1; on wgmma) qi [nbatch] rows of d at a pitch of ldq (16 bytes'
-// worth; the pad need not be zero) and vec, both 16-byte aligned.
 extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const void* vec,
                                  const void* block_first, const void* block_last,
                                  const void* rows_valid, const void* bias, const void* row_base,
@@ -1790,25 +1564,24 @@ extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const vo
                     depth, nbatch, stream);
 }
 
-// K10: qg [nlist, qcap, d], block_cluster [nblocks], out [nlist, qcap, k];
-// bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout.  Only
-// the depth-2 instances are built: in int8 they are the last __dp4a users
-// of this source.  full and nogate take k <= 32 and the bounds of a later
-// pass as K6 does; maxonly and fixedout write their row max to any k slots
-// and take no bounds.
+// K10: qg [nlist, qcap, ldq], block_cluster [nblocks], out [nlist, qcap, k];
+// bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout (full
+// is K6's own instance).  full and nogate take k <= 32 and the bounds of a
+// later pass as K6 does; maxonly and fixedout write their row max to any k
+// slots and take no bounds.
 namespace {
 template <typename T>
 int variant_scan(const void* qg, const void* vec, const void* block_cluster,
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* row_base, const void* bound_v, const void* bound_i, void* out_v,
-                 void* out_i, int nlist, int nblocks, int qcap, int d, int blk, int k,
+                 void* out_i, int nlist, int nblocks, int qcap, int d, int ldq, int blk, int k,
                  int variant, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_VARIANT(V)                                                                        \
-  launch<T, 2, QSrc::kCluster, V>(qg, vec, block_cluster, block_first, block_last,             \
-                                  rows_valid, nullptr, row_base, bound_v, bound_i, out_v,     \
-                                  out_i, nblocks, qcap, d, blk, k, nlist, s)
+  launch_scan<T, 2, QSrc::kCluster, V>(qg, nullptr, block_cluster, vec, block_first, block_last, \
+                                       rows_valid, nullptr, row_base, bound_v, bound_i, out_v,   \
+                                       out_i, nblocks, qcap, d, ldq, blk, k, nlist, s)
   switch (variant) {
     case 0: return RAG_VARIANT(Variant::kFull);
     case 1: return RAG_VARIANT(Variant::kNoGate);
@@ -1824,25 +1597,23 @@ extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* row_base,
                                    const void* bound_v, const void* bound_i, void* out_v,
-                                   void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
-                                   int k, int variant, void* stream) {
+                                   void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
+                                   int blk, int k, int variant, void* stream) {
   return variant_scan<int8_t>(qg, vec, block_cluster, block_first, block_last, rows_valid,
                               row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks, qcap, d,
-                              blk, k, variant, stream);
+                              ldq, blk, k, variant, stream);
 }
 
-// K10's float modes: fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec; vec
-// 16-byte aligned.
 extern "C" int ivf_variant_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* row_base,
                                   const void* bound_v, const void* bound_i, void* out_v,
-                                  void* out_i, int nlist, int nblocks, int qcap, int d, int blk,
-                                  int k, int variant, int bf16, void* stream) {
+                                  void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
+                                  int blk, int k, int variant, int bf16, void* stream) {
   return bf16 ? variant_scan<__nv_bfloat16>(qg, vec, block_cluster, block_first, block_last,
                                             rows_valid, row_base, bound_v, bound_i, out_v, out_i,
-                                            nlist, nblocks, qcap, d, blk, k, variant, stream)
+                                            nlist, nblocks, qcap, d, ldq, blk, k, variant, stream)
               : variant_scan<float>(qg, vec, block_cluster, block_first, block_last, rows_valid,
                                     row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks,
-                                    qcap, d, blk, k, variant, stream);
+                                    qcap, d, ldq, blk, k, variant, stream);
 }

@@ -1,13 +1,9 @@
-// Slab staging shared by the cluster-major scan kernels that do not run on
-// wgmma: the int8 stage (packed words, __dp4a) of K9 (ivf_accum_planes.cu)
-// and of K10's int8 mode (ivf_grouped_scan.cu; K4's, K6's and K7's int8
-// modes and K1's int8 and bf16 modes run on wgmma), and the float stage
-// (fp32 or bf16 operands widened to fp32 as they are staged, fmaf) of the
-// fp32 and bf16 modes of K4, K9 and K10 (K1's, K5's, K6's and K7's fp32
-// modes run on ffma_tile.cuh's register tile, as K3's; K6's and K7's bf16
-// modes on wgmma).  Past D' = 320 the float
-// stage walks D in slices (float_slice, dot_rows_f_acc).  The monotone key
-// and its inverse at the end serve every float mode.
+// Slab staging of the one cluster-major scan kernel that does not run on
+// wgmma or the FFMA register tile: K9's accum_extract_kernel
+// (ivf_accum_planes.cu), its int8 stage (packed words, __dp4a) and its
+// float stage (fp32 or bf16 operands widened to fp32 as they are staged,
+// fmaf).  Past D' = 320 the float stage walks D in slices (float_slice,
+// dot_rows_f_acc).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -186,18 +182,6 @@ __device__ __forceinline__ void dot_rows_f(const float* col_f, int lane, const f
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
   dot_rows_f_acc<ROWS>(col_f, lane, my_q, dstride, dstride, acc);
-}
-
-// The order-preserving int32 key of an fp32 score (IEEE-754 total order:
-// -0 sorts just below +0), as the JAX kernels' _monotone_key.
-__device__ __forceinline__ int32_t monotone_key(float x) {
-  const int32_t m = __float_as_int(x);
-  return m >= 0 ? m : m ^ 0x7FFFFFFF;
-}
-
-// Its inverse, as the JAX kernels' _key_to_f32.
-__device__ __forceinline__ float key_to_f32(int32_t k) {
-  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
 }
 
 }  // namespace

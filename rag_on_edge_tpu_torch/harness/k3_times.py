@@ -2,7 +2,7 @@
 callers give them, beside one PyTorch call of the same product alone, the
 bound, and the whole calls they serve:
 
-    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67] [--reps 5]
+    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67 k4k10] [--reps 5]
 
 ``--kernels ffma`` (the default): the fp32 modes of K3, K5 and K1, the
 register-tiled FFMA kernels of ``csrc/ffma_tile.cuh``.  K3: one
@@ -40,12 +40,32 @@ k = 20 (the rescore pool of k = 10):
   sharded call runs its four shards in turn from the host, so its clock
   time is mostly the host's).
 
-Bounds (``timing.bound_ms``): the FFMA rate for K3, K5 and K1; for K6 and
-K7 the valid columns of the walked blocks, the routed rows and the top-k
-written, and the product over every routed slot at the FFMA rate (fp32) or
-the bf16 tensor-core rate.  Times are medians of CUDA events
-(``timing.median_ms``).  A call the kernel refuses prints its error instead
-of a time.  The last line is one JSON object.
+``--kernels k4k10``: K4's float modes and K10 in every mode, at the
+shapes their callers give them:
+
+- K4 (``cluster_major_scan_grouped``) on the fp32 and bf16 indexes above,
+  one routed B=8192 batch at nprobe 4, k = 20: the dense walk
+  (``engine="pallas"``) on a routed table at the 16-byte row pitch (read in
+  place) and on the contiguous table K1 reads (which the wrapper copies to
+  the pitch), beside the build of each table, ``torch.bmm`` of the product
+  alone and the bound; the batch's first recovery list (the table
+  ``_recover_tables`` gives); and the calls ``search_device(q, 10, 4,
+  engine="pallas")`` and ``search_device(q, 10, 4)`` (the default: K1 and
+  the recovery pass's K4), by CUDA events and by ``torch.profiler``;
+- K10 (``kernel_lab._variant_scan``) at the lab's defaults (B=2048, nprobe
+  4, qcap 128, k = 20, 128 bins) in its four variants, on the lab's routing
+  built here: int8 on an int8 L2 index of the same corpus (the lab's CLI
+  index; its table contiguous, as ``kernel_lab.routed_table`` gives it),
+  fp32 and bf16 on the float indexes, the table at the pitch and
+  contiguous; each variant's bound.
+
+Bounds (``timing.bound_ms``): the FFMA rate for K3, K5 and K1; for K4, K6,
+K7 and K10 the valid columns of the walked blocks, the routed rows and the top-k
+written, and the products of each walked block's live routed rows (an
+empty slot, a zero row, needs none) at the FFMA rate (fp32), the bf16
+tensor-core rate or the int8 one.  Times are medians of CUDA events
+(``timing.median_ms``).  A call the kernel (or an older checkout's API)
+refuses prints its error instead of a time.  The last line is one JSON object.
 
 The script imports the ``rag_on_edge_tpu_torch`` it finds first on the
 path, so with another checkout's root first on ``PYTHONPATH`` it times that
@@ -63,16 +83,18 @@ import time
 import numpy as np
 import torch
 
-from rag_on_edge_tpu_torch.harness.timing import (BF16_OPS_S, OPS32_S, bmm_ms, bound_ms,
-                                                  median_ms, walked_blocks)
+from rag_on_edge_tpu_torch.harness.timing import (BF16_OPS_S, INT8_OPS_S, OPS32_S, bmm_ms,
+                                                  bound_ms, median_ms, walked_blocks)
 
 K, NPROBE, BATCH, KK = 10, 4, 8192, 20
 
 
 def _timed(fn, reps: int):
+    """:func:`median_ms`, or what refused the call (a checkout whose API or
+    kernel does not take it)."""
     try:
         return median_ms(fn, reps)
-    except (ValueError, RuntimeError) as e:
+    except (ValueError, RuntimeError, TypeError) as e:
         return f"refused: {str(e)[:300]}"
 
 
@@ -80,7 +102,7 @@ def main(argv=None) -> dict:
     from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67"], default=["ffma"])
+    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67", "k4k10"], default=["ffma"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -96,6 +118,8 @@ def main(argv=None) -> dict:
         out.update(_ffma(base, queries, dev, args.reps))
     if "k67" in args.kernels:
         out.update(_k67(base, queries, dev, args.reps))
+    if "k4k10" in args.kernels:
+        out.update(_k4k10(base, queries, dev, args.reps))
     print(json.dumps(out), flush=True)
     return out
 
@@ -229,16 +253,28 @@ def _device(fn, calls: int = 3) -> dict:
     return {"device_ms": total / 1e3 / calls, "scan_device_ms": scan / 1e3 / calls}
 
 
-def _scan_bound(mode, qcap, dp, tabs) -> float:
-    """K6's and K7's bound (ms) over the walk of ``tabs`` (block_first,
-    block_last, rows_valid): the routed rows of each walked block, the valid
-    columns' slab, the top-k of each emitted run; the product over every
-    routed slot."""
+_RATE = {"fp32": (4, OPS32_S), "bf16": (2, BF16_OPS_S), "int8": (1, INT8_OPS_S)}
+
+
+def _live(table):
+    """The routed rows of each plane of ``table`` that hold a query (an
+    empty slot is a zero row; ``timing.live_rows``) → [planes]."""
+    return (table != 0).any(-1).sum(-1)
+
+
+def _scan_bound(mode, qcap, dp, tabs, live) -> float:
+    """K4's, K6's, K7's and K10's bound (ms) over the walk of ``tabs``
+    (block_first, block_last, rows_valid): the routed rows of each walked
+    block, the valid columns' slab, the top-k of each emitted run; the
+    product of each block's ``live`` routed rows with its valid columns (an
+    empty slot needs none; every block with rows lies in an emitted run in
+    these walks, so this is ``timing.live_products``)."""
     walked, cols = walked_blocks(*tabs)
     runs = int(tabs[1].count_nonzero())
-    es = 4 if mode == "fp32" else 2
+    es, rate = _RATE[mode]
     nbytes = walked * qcap * dp * es + cols * dp * es + runs * qcap * KK * 8
-    return bound_ms(nbytes, 2.0 * qcap * cols * dp, OPS32_S if mode == "fp32" else BF16_OPS_S)[0]
+    products = int((live.long() * tabs[2].clamp_min(0).long()).sum())
+    return bound_ms(nbytes, 2.0 * dp * products, rate)[0]
 
 
 def _pad_ms(rows, reps: int):
@@ -268,14 +304,16 @@ def _k67_mode(index, q, mode: str, reps: int) -> dict:
     kw = dict(k=KK, blk=index.PAD_BLOCK, group=index.CM_GROUP)
     qb = index._scan_inputs(q, cq)[1]
     out["K7 dense"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan_routed(
-        qi, cqb, vt, *tabs, **kw), reps), "bound_ms": _scan_bound(mode, qcap, dp, tabs),
+        qi, cqb, vt, *tabs, **kw), reps),
+        "bound_ms": _scan_bound(mode, qcap, dp, tabs, (cqb >= 0).sum((1, 2))),
         "bmm_ms": bmm_ms(qb, vt, reps),
         "K4_ms": _timed(lambda: ivf_scan.cluster_major_scan_grouped(qb, vt, *tabs, **kw), reps)}
     del qb
     rec = index._recover_tables(qi, probes, lossy, None, qcap, rb, routed=True)[0]
     out["K7 recovery"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan_routed(
         qi, *rec[:5], row_base=rec[6], **kw), reps),
-        "bound_ms": _scan_bound(mode, qcap, dp, rec[2:5]), "pairs": int(lossy.sum())}
+        "bound_ms": _scan_bound(mode, qcap, dp, rec[2:5], (rec[0] >= 0).sum((1, 2))),
+        "pairs": int(lossy.sum())}
     del rec
     torch.cuda.empty_cache()
 
@@ -288,7 +326,7 @@ def _k67_mode(index, q, mode: str, reps: int) -> dict:
     qb0 = r["qg"][a0["bc"].long()].contiguous()
     out["K6 dense"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan(
         *dense, k=KK, blk=index.PAD_BLOCK), reps),
-        "bound_ms": _scan_bound(mode, qcap, dp, dense[3:6]),
+        "bound_ms": _scan_bound(mode, qcap, dp, dense[3:6], _live(r["qg"])[a0["bc"].long()]),
         "bmm_ms": bmm_ms(qb0, a0["vectors_t"], reps), "pad_ms": _pad_ms(r["qg"], reps)}
     del qb0
     owned = [int((r["lossy"] & (s_["cluster_shard"][r["probes"].long()] == i)).sum())
@@ -298,7 +336,8 @@ def _k67_mode(index, q, mode: str, reps: int) -> dict:
     rec = sh._cm_recover_tables(s_rec, r, r["lossy"], None, qcap, rb_sh)[0]
     out["K6 recovery"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan(
         *rec[:6], k=KK, blk=index.PAD_BLOCK, row_base=rec[7]), reps),
-        "bound_ms": _scan_bound(mode, qcap, dp, rec[3:6]), "shard": s_rec}
+        "bound_ms": _scan_bound(mode, qcap, dp, rec[3:6], _live(rec[0])[rec[2].long()]),
+        "shard": s_rec}
     del rec, r
     torch.cuda.empty_cache()
 
@@ -309,6 +348,120 @@ def _k67_mode(index, q, mode: str, reps: int) -> dict:
         out[name] = {"ms": _timed(fn, reps), **_device(fn)}
     del sh
     torch.cuda.empty_cache()
+    return out
+
+
+def _pitched(rows):
+    """A view of ``rows`` [..., D] at a 16-byte row pitch (a copy into a
+    zero-padded buffer, made outside any timing)."""
+    from rag_on_edge_tpu_torch.ops import _build
+
+    return _build.pad_rows(rows, 16 // rows.element_size())[..., :rows.shape[-1]]
+
+
+def _k4k10(base, queries, dev, reps: int) -> dict:
+    """K4 fp32 and bf16 and K10 in every mode (``--kernels k4k10``)."""
+    from rag_on_edge_tpu_torch.models.ivf import IVFIndex
+
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    out = {}
+    idx8 = IVFIndex.build(base, nlist=1024, metric="l2", dtype="int8", pad_block=2048, seed=42,
+                          device=dev)
+    idx8._ensure_kernel_state()
+    out["K10 int8"] = _k10(idx8, queries, "int8", reps)
+    print("K10 int8", out["K10 int8"], flush=True)
+    del idx8
+    torch.cuda.empty_cache()
+    fidx = IVFIndex.build(base, nlist=1024, metric="l2", pad_block=2048, seed=42, max_iter=25,
+                          device=dev)
+    arrays = (fidx._centroids_np, fidx._vectors_np, fidx._offsets_np, fidx._reorder_np)
+    for mode in ("fp32", "bf16"):
+        idx = fidx if mode == "fp32" else IVFIndex.from_arrays(
+            *arrays, metric="l2", dtype="bf16", pad_block=2048, config=dict(fidx.config),
+            device=dev)
+        idx._ensure_kernel_state()
+        out[f"K4 {mode}"] = _k4_mode(idx, q, mode, reps)
+        print(f"K4 {mode}", out[f"K4 {mode}"], flush=True)
+        out[f"K10 {mode}"] = _k10(idx, queries, mode, reps)
+        print(f"K10 {mode}", out[f"K10 {mode}"], flush=True)
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k4_mode(index, q, mode: str, reps: int) -> dict:
+    """K4 on a float index: the dense walk on a pitched and on a contiguous
+    table, the first recovery list, and the calls that run it."""
+    from rag_on_edge_tpu_torch.ops import ivf_scan
+
+    a = index._arrays
+    vt, dp = a["vectors_t"], a["vectors_t"].shape[1]
+    tabs = (a["block_first"], a["block_last"], a["rows_valid"])
+    qcap = index._auto_qcap(BATCH, NPROBE)
+    probes, cq, _, lossy, _ = index._route(q, NPROBE, qcap)
+    qi, qb = index._scan_inputs(q, cq)[:2]
+    kw = dict(k=KK, blk=index.PAD_BLOCK, group=index.CM_GROUP)
+    qb_p = _pitched(qb)
+    out = {"qcap": qcap, "shape": [list(qb.shape), list(vt.shape)],
+           "bound_ms": _scan_bound(mode, qcap, dp, tabs, _live(qb)), "bmm_ms": bmm_ms(qb, vt, reps),
+           "table_ms": _timed(lambda: index._scan_inputs(q, cq), reps),
+           "pitched_table_ms": _timed(lambda: index._scan_inputs(q, cq, pitched=True), reps),
+           "dense_ms": _timed(lambda: ivf_scan.cluster_major_scan_grouped(qb_p, vt, *tabs, **kw),
+                              reps),
+           "dense_contiguous_ms": _timed(lambda: ivf_scan.cluster_major_scan_grouped(
+               qb, vt, *tabs, **kw), reps)}
+    del qb, qb_p
+    rb = -(-(vt.shape[0] // 4) // index.CM_GROUP) * index.CM_GROUP
+    rec = index._recover_tables(qi, probes, lossy, None, qcap, rb)[0]
+    out["recovery"] = {"ms": _timed(lambda: ivf_scan.cluster_major_scan_grouped(
+        *rec[:5], row_base=rec[6], **kw), reps),
+        "bound_ms": _scan_bound(mode, qcap, dp, rec[2:5], _live(rec[0])),
+        "pairs": int(lossy.sum()), "table_pitch": rec[0].stride(1)}
+    del rec
+    torch.cuda.empty_cache()
+    calls = {"pallas call": lambda: index.search_device(q, K, NPROBE, engine="pallas"),
+             "default call": lambda: index.search_device(q, K, NPROBE)}
+    for name, fn in calls.items():
+        out[name] = {"ms": _timed(fn, reps), **_device(fn)}
+    return out
+
+
+def _k10(index, queries, mode: str, reps: int, batch: int = 2048, qcap: int = 128) -> dict:
+    """K10's four variants at the lab's defaults on ``index``: int8 on the
+    lab's own table, fp32 and bf16 on the same routing built here, at the
+    16-byte pitch and contiguous."""
+    from rag_on_edge_tpu_torch.harness import kernel_lab
+    from rag_on_edge_tpu_torch.models.ivf import invert_probes
+    from rag_on_edge_tpu_torch.ops import topk
+
+    a = index._arrays
+    vt, dp = a["vectors_t"], a["vectors_t"].shape[1]
+    lab_tabs = (vt, a["block_cluster"], a["block_first"], a["block_last"], a["rows_valid"])
+    rng = np.random.default_rng(0)
+    ql = torch.from_numpy(rng.permuted(np.resize(queries, (batch, queries.shape[1])), axis=0)
+                          .astype(np.float32)).to(vt.device)
+    _, probes = topk.small_topk(ql @ a["centroids"].T, NPROBE)
+    cq, _, _ = invert_probes(probes, index.nlist, qcap)
+    rows = index._query_prep(ql)[0]
+    qg = torch.where((cq >= 0)[..., None], rows[cq.clamp_min(0).long()],
+                     torch.zeros((), dtype=rows.dtype, device=rows.device)).contiguous()
+    tables = {"contiguous": qg} if mode == "int8" else {"pitched": _pitched(qg), "contiguous": qg}
+    _, cols = walked_blocks(*lab_tabs[2:])
+    products = int((_live(qg)[a["block_cluster"].long()].long()
+                    * a["rows_valid"].clamp_min(0).long()).sum())
+    es, rate = _RATE[mode]
+    bc = a["block_cluster"].long()
+    windows = {"full": torch.unique(bc[a["block_last"] > 0]).numel(),
+               "maxonly": torch.unique(bc).numel(), "fixedout": 1}
+    windows["nogate"] = windows["full"]
+    out = {}
+    for variant in kernel_lab.VARIANTS:
+        row = {"bound_ms": bound_ms(cols * dp * es + windows[variant] * qcap * (dp * es + KK * 8),
+                                    2.0 * dp * products, rate)[0]}
+        for name, table in tables.items():
+            row[f"{name} ms"] = _timed(lambda t=table: kernel_lab._variant_scan(
+                t, *lab_tabs, KK, index.PAD_BLOCK, 128, variant), reps)
+        out[variant] = row
     return out
 
 

@@ -15,13 +15,12 @@ the same block walk:
 :func:`_variant_scan` is K10: CPU tensors take
 :func:`_variant_scan_reference`; CUDA tensors launch the fourth pair of
 entries of ``csrc/ivf_grouped_scan.cu`` (``ivf_variant_scan_i8`` and
-``ivf_variant_scan_f``: ``grouped_scan_kernel``, the staged template of
-K6's float modes, at bin depth 2 with a compile-time variant; its int8
-instances score on ``__dp4a``, where K6's int8 mode runs on ``wgmma``) or raise.
+``ivf_variant_scan_f``) or raise.  They run K6's own kernels at bin depth 2
+with a compile-time variant: int8 and bf16 on ``grouped_wgmma_kernel``,
+fp32 on ``grouped_ffma_kernel``, so ``full`` is the very instance K6 runs.
 Its launches count in ``LAUNCHES``.  The lab's own CLI builds an int8
 index, as the JAX lab does; the float modes are reached by calling
-:func:`_variant_scan` or :func:`lab` with an fp32 or bf16 routed table and
-slabs.
+:func:`routed_table` on a float index and :func:`lab` with its table.
 
 Usage (on the card)::
 
@@ -38,7 +37,7 @@ import torch
 
 from rag_on_edge_tpu_torch.harness import timing
 from rag_on_edge_tpu_torch.models.ivf import IVFIndex, invert_probes
-from rag_on_edge_tpu_torch.ops import _build, ivf_scan, quantize, topk
+from rag_on_edge_tpu_torch.ops import _build, ivf_scan, topk
 
 __all__ = ["LAUNCHES", "VARIANTS", "routed_table", "lab", "main"]
 
@@ -107,9 +106,6 @@ def _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, varian
     return out_v, out_i
 
 
-_INT8_DIM_MAX = 1024
-
-
 def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     """K10 with the JAX signature → (out_v [nlist, qcap, k] f32, out_i
     [nlist, qcap, k] int32); see :func:`_variant_scan_reference`.
@@ -117,24 +113,28 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     ``qg`` [nlist, qcap, D] routed queries per cluster; ``vectors_t``
     [nblocks, D, blk]; ``bc``/``bf``/``bl``/``rv`` the block tables
     [nblocks] int32.  Ids are ``block·blk + column``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (int8, nbins 128, D <=
-    1024; fp32 or bf16 in one dtype, any D; any k: ``full`` and ``nogate``
-    in passes of 32, as K6, ``maxonly`` and ``fixedout`` in one launch,
-    their row max written to every slot) or raise."""
+    plain version; CUDA tensors launch the kernel (int8, or fp32 or bf16 in
+    one dtype, fp32 at blk <= 32768; nbins 128; any D; any k: ``full`` and
+    ``nogate`` in passes of 32, as K6, ``maxonly`` and ``fixedout`` in one
+    launch, their row max written to every slot) or raise.  A float ``qg``
+    whose rows lie at a 16-byte pitch (:func:`routed_table`'s) is read in
+    place; int8 rows are padded to the pitch as K6's."""
     global LAUNCHES
     nlist, nblocks, qcap, d, int_path = _check(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins,
                                                variant)
     dev = qg.device
     if dev.type == "cpu":
         return _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant)
+    if not int_path:  # qg read at its row pitch (in place where it lies so)
+        qg, vectors_t, ldq, bf16 = ivf_scan.float_operands("K10", qg, vectors_t, blk)
     _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv])
-    # The int8 stage holds the routed rows and a [D, 128] chunk whole.
-    if nbins != 128 or (int_path and d > _INT8_DIM_MAX):
-        raise ValueError(f"the CUDA K10 takes nbins 128 and int8 D <= {_INT8_DIM_MAX}; got "
-                         f"nbins={nbins}, D={d}")
-    flag = ()
-    if not int_path:
-        vectors_t, flag = ivf_scan.float_args("K10", qg, vectors_t)
+    if nbins != 128:
+        raise ValueError(f"the CUDA K10 takes nbins 128; got nbins={nbins}")
+    if int_path:  # wgmma fed by TMA: the rows at TMA's 16-byte pitch, the pad zero
+        qg, vectors_t = ivf_scan.int8_operands(qg, vectors_t)
+        ldq, flag = qg.shape[-1], ()
+    else:
+        flag = (bf16,)
     row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     name = "ivf_variant_scan_i8" if int_path else "ivf_variant_scan_f"
     fn = ivf_scan.entry(name)
@@ -144,8 +144,8 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     # in passes as K6's; maxonly and fixedout write one row max to every slot.
     width = _build.PASS_K if variant in ("full", "nogate") else k
     out, n = ivf_scan._launch_passes(name, k, nlist, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
-        *head, bv, bi, pv, pr, nlist, nblocks, qcap, d, blk, kp, VARIANTS.index(variant), *flag,
-        st), width)
+        *head, bv, bi, pv, pr, nlist, nblocks, qcap, d, ldq, blk, kp, VARIANTS.index(variant),
+        *flag, st), width)
     LAUNCHES += n
     return out
 
@@ -155,18 +155,18 @@ def routed_table(idx: IVFIndex, queries: np.ndarray, batch: int, nprobe: int,
     """The lab's one fixed routing, built outside the timed region: a
     seeded shuffle of ``batch`` queries (the dataset's, repeated), their
     top-``nprobe`` centroids by inner product, the probe inversion at
-    ``qcap``, and the int8 routed table ``qg`` [nlist, qcap, D] on the
-    index's device (zero rows in empty slots)."""
+    ``qcap``, and the routed table ``qg`` [nlist, qcap, D'] on the index's
+    device (zero rows in empty slots) of the index's query rows: int8
+    (``quantize_int8``, as the JAX lab), or fp32 / bf16 with L2's ones
+    column, written at the 16-byte pitch the float kernels read in place
+    (``ivf_scan.routed_table``)."""
     rng = np.random.default_rng(0)
     q = rng.permuted(np.resize(queries, (batch, queries.shape[1])), axis=0).astype(np.float32)
     q = torch.from_numpy(q).to(idx.device)
     a = idx._arrays
     _, probes = topk.small_topk(q @ a["centroids"].T, nprobe)
     cq, _, _ = invert_probes(probes, idx.nlist, qcap)
-    qi, _ = quantize.quantize_int8(q)
-    qg = torch.where((cq >= 0)[..., None], qi[cq.clamp_min(0).long()],
-                     torch.zeros((), dtype=torch.int8, device=q.device))
-    return qg.contiguous()
+    return ivf_scan.routed_table(idx._query_prep(q)[0], cq)
 
 
 def lab(idx: IVFIndex, qg: torch.Tensor, k: int = 20, nbins: int = 128,

@@ -22,8 +22,10 @@ So this module keeps only what the harnesses measure:
 and what they set beside a time: :func:`bound_ms`, the least time the card
 could take (bytes over the memory rate or operations over their peak rate,
 the H100 SXM5 peaks below), :func:`walked_blocks`, the part of a
-cluster-major walk a bound charges, and :func:`bmm_ms`, one ``torch.bmm``
-of a per-block product alone.
+cluster-major walk a bound charges, :func:`live_rows` and
+:func:`live_products`, the products a scan over a routed table needs (none
+for an empty slot), and :func:`bmm_ms`, one ``torch.bmm`` of a per-block
+product alone.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["per_call_ms", "sync_latency_ms", "graph_ms", "median_ms", "bound_ms",
-           "walked_blocks", "bmm_ms", "HBM_BYTES_S", "INT8_OPS_S", "BF16_OPS_S", "OPS32_S"]
+           "walked_blocks", "live_rows", "live_products", "bmm_ms", "HBM_BYTES_S", "INT8_OPS_S",
+           "BF16_OPS_S", "OPS32_S"]
 
 # H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
 # dense int8 and bf16 tensor-core ops/s, and 32-bit non-tensor ops/s (FFMA).
@@ -157,6 +160,31 @@ def walked_blocks(block_first, block_last, rows_valid) -> tuple[int, int]:
         walked += int((rv[b:t + 1] > 0).sum())
         cols += int(rv[b:t + 1].sum())
     return walked, cols
+
+
+def live_rows(table) -> torch.Tensor:
+    """The routed rows of each plane of ``table`` [..., qcap, D] that hold a
+    query: a row with a nonzero element (an empty slot is a zero row) →
+    [...] int64."""
+    return (table != 0).any(-1).sum(-1)
+
+
+def live_products(live, block_first, block_last, rows_valid) -> int:
+    """The (routed row, valid column) pairs a cluster-major scan (K4, K6,
+    K7, K10) must multiply over the blocks :func:`walked_blocks` charges:
+    each block's live routed rows (``live`` [nblocks], e.g. :func:`live_rows`
+    of its table) times its valid columns.  An empty slot scores 0 less the
+    bias whatever the slab holds, so a bound charges no product for it: the
+    operations a run's data needs, not the most its shapes could."""
+    bf, bl, rv, lv = (np.asarray(x.cpu() if torch.is_tensor(x) else x, np.int64)
+                      for x in (block_first, block_last, rows_valid, live))
+    total = 0
+    for t in np.nonzero(bl)[0]:
+        b = t
+        while b > 0 and bf[b] == 0:
+            b -= 1
+        total += int((lv[b:t + 1] * np.maximum(rv[b:t + 1], 0)).sum())
+    return total
 
 
 def bmm_ms(qg, vectors_t, reps: int) -> float | str:

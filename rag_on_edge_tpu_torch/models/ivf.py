@@ -556,12 +556,15 @@ class IVFIndex:
             qi = qi.to(a["vectors_t"].dtype)
         return qi, bias, alpha
 
-    def _scan_inputs(self, q: torch.Tensor, cq: torch.Tensor):
+    def _scan_inputs(self, q: torch.Tensor, cq: torch.Tensor, pitched: bool = False):
         """STAGE 3 → (qi, qb [nblocks, qcap, D'] routed queries per block,
         bias, bias_rows [nblocks, 1, blk] int32 or None, alpha); ``qi``,
         ``bias`` and ``alpha`` as :meth:`_query_prep`.  The bias rows of
         kernel K1 are ``(round(bias) clipped to ±2**21) << 8`` minus the
-        block and chunk pack, as the JAX package makes them."""
+        block and chunk pack, as the JAX package makes them.  ``qb`` is
+        contiguous (K1 reads it so), or with ``pitched`` (the grouped
+        engine: K4 alone reads it) a float ``qb`` lies at the 16-byte row
+        pitch K4 reads in place."""
         qi, bias, alpha = self._query_prep(q)
         bias_rows = None
         if bias is not None:
@@ -572,18 +575,8 @@ class IVFIndex:
             pack = (code << 4)[:, None] | cidc[None, :]
             br = torch.clamp(torch.round(bias), -(2.0**21), 2.0**21).to(torch.int32)
             bias_rows = (br * 256 - pack[:, None, :]).contiguous()
-        qb = self._routed_blocks(qi, cq, self._arrays["block_cluster"])
+        qb = ivf_scan.routed_table(qi, cq, self._arrays["block_cluster"], pitched)
         return qi, qb, bias, bias_rows, alpha
-
-    @staticmethod
-    def _routed_blocks(qi: torch.Tensor, cq: torch.Tensor,
-                       block_cluster: torch.Tensor) -> torch.Tensor:
-        """Each block's cluster's routed queries [len(block_cluster), qcap,
-        D'], zero rows for empty slots."""
-        routed = (cq >= 0)[..., None]
-        qk = torch.where(routed, qi[cq.clamp_min(0).long()],
-                         torch.zeros((), dtype=qi.dtype, device=qi.device))
-        return qk[block_cluster.long()].contiguous()
 
     def _scan(self, qb: torch.Tensor, bias_rows: torch.Tensor | None,
               bin_depth: int = 2) -> torch.Tensor:
@@ -636,7 +629,9 @@ class IVFIndex:
         clusters' blocks are compacted, in storage order, into a list of
         ``cap_blocks`` blocks that K4 walks with ``row_base = block·blk``.
         A cluster is covered iff its last block made the list; blocks past
-        the list's active prefix get zero tables and are no-ops.
+        the list's active prefix get zero tables and are no-ops.  A float
+        table lies at the 16-byte row pitch K4 reads in place
+        (``ivf_scan.routed_table``).
         Returns ((qg, vectors_t, block_first, block_last, rows_valid, bias,
         row_base) for K4, slot2 [B, P], cluster_inc [nlist] bool,
         cluster_pos [nlist] — the row of each cluster's result).  With
@@ -666,7 +661,7 @@ class IVFIndex:
         if routed:
             first = cq2[bc_t[blocks_list]].unsqueeze(-1).contiguous()
         else:
-            first = self._routed_blocks(qi, cq2, bc_t[blocks_list])
+            first = ivf_scan.routed_table(qi, cq2, bc_t[blocks_list])
         scan = (first, a["vectors_t"][blocks_list],
                 listed("block_first"), listed("block_last"), listed("rows_valid"),
                 None if bias is None else bias[blocks_list],
@@ -1125,7 +1120,8 @@ class IVFIndex:
             qi, bias, alpha = self._query_prep(q)
             pv, pr = self._scan_routed(qi, cq, bias, ck, alpha, bin_depth)
         else:
-            qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq)
+            qi, qb, bias, bias_rows, alpha = self._scan_inputs(q, cq,
+                                                               pitched=engine == "pallas")
             if engine == "pallas_accum":
                 pp = self._scan(qb, bias_rows, bin_depth)
             else:

@@ -20,18 +20,18 @@ and ids are compared only where ``pv > -inf``.
 CPU tensors take :func:`cluster_major_scan_grouped_reference`, CUDA tensors
 launch ``csrc/ivf_grouped_scan.cu`` (int8, or fp32 or bf16 with both
 operands in one dtype; ± bias) or raise.  K6 and K7 do the same, in the
-same modes.  The int8 modes of K4, K6 and K7 run on ``wgmma`` (s8 -> s32)
-fed by TMA, with the routed rows at TMA's 16-byte row pitch
-(:func:`int8_operands`; no copy at D = 128) and the slab transposed in
-shared memory.  K6's and K7's bf16 modes run on the same kernel (``wgmma``
-bf16 -> f32, the slab read as it lies through the transpose-A bit), their
-fp32 modes on the FFMA register tile of ``csrc/ffma_tile.cuh``; both read
-the routed rows at a 16-byte row pitch (:func:`float_operands`: a view
-that lies so is read in place).  K4's float modes score on
-the staged ``fmaf`` loops of ``csrc/ivf_stage.cuh``, in d-slices past D' =
-320.  The kernels keep a running top-k of 32 a row; a larger k runs in
-passes of 32 (``_build.by_passes``), each pass given each row's last entry
-of the one before as its bound.
+same modes, and so does K10 (``harness/kernel_lab.py``), on the same two
+kernels.  The int8 and bf16 modes run on ``grouped_wgmma_kernel``: ``wgmma``
+(s8 -> s32, the slab transposed in shared memory; bf16 -> f32, the slab
+read as it lies through the transpose-A bit) fed by TMA.  The fp32 modes
+run on ``grouped_ffma_kernel``, the FFMA register tile of
+``csrc/ffma_tile.cuh``.  Both read the routed rows at a 16-byte row pitch:
+int8 with the pad zero (:func:`int8_operands`; no copy at D = 128), the
+float modes with any pad (:func:`float_operands`: a view that lies so, as
+:func:`routed_table` writes a float table, is read in place).  The kernels
+keep a running top-k of 32 a row; a larger k runs in passes of 32
+(``_build.by_passes``), each pass given each row's last entry of the one
+before as its bound.
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -40,7 +40,7 @@ goes to row ``block_cluster[t]`` of ``[nlist, qcap, k]``.  Rows of clusters
 that end no run are unwritten.  The sharded index runs it over a shard's
 block walk and the recovery pass's compacted block list.  Its CUDA entries
 (``ivf_cluster_scan_i8`` and ``ivf_cluster_scan_f`` in the same source)
-share K4's kernel; its launches count in ``CLUSTER_LAUNCHES``.
+share K4's kernels; its launches count in ``CLUSTER_LAUNCHES``.
 
 K7, :func:`cluster_major_scan_routed`, is K4 with the routing done inside
 the kernel: it takes the whole batch ``qi`` [B, D] and, per block, the
@@ -61,7 +61,8 @@ import torch
 
 from rag_on_edge_tpu_torch.ops import _build, ivf_accum, topk
 
-__all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "ROUTED_LAUNCHES", "cluster_major_scan_grouped",
+__all__ = ["LAUNCHES", "CLUSTER_LAUNCHES", "ROUTED_LAUNCHES", "routed_table",
+           "cluster_major_scan_grouped",
            "cluster_major_scan_grouped_reference", "cluster_major_scan",
            "cluster_major_scan_reference", "cluster_major_scan_routed",
            "cluster_major_scan_routed_reference"]
@@ -75,9 +76,9 @@ CLUSTER_LAUNCHES = 0
 ROUTED_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
-# What the CUDA kernel takes: 128 bins (one per lane of a row group) and
-# bin depths 1-4 (register arrays sized at compile time); K6's and K7's fp32
-# modes keep a block's chunk in a byte (blk <= 32768).
+# What the CUDA kernels take: 128 bins (the chunk's columns) and bin depths
+# 1-4 (register arrays sized at compile time); the fp32 modes keep a
+# block's chunk in a byte (blk <= 32768).
 _CUDA_NBINS = 128
 _CUDA_DEPTH_MAX = 4
 _CUDA_FP32_BLK_MAX = 128 * 256
@@ -85,16 +86,35 @@ _CUDA_FP32_BLK_MAX = 128 * 256
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
-# stream last.  The float entries take one more int, bf16 (0 or 1); K4's, K6's
-# and K7's int8 entries and K6's and K7's float entries one more, the routed
-# rows' pitch; K4's, K6's, K7's and K10's entries two more pointers, the rows'
-# bounds of a later pass.
+# stream last.  Every entry takes the routed rows' pitch and two pointers,
+# the rows' bounds of a later pass; the float entries one more int, bf16 (0
+# or 1).
 _ENTRIES = {
-    "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 7),
+    "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 8),
     "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 9),
     "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 9),
-    "ivf_variant_scan_i8": (11, 7), "ivf_variant_scan_f": (11, 8),
+    "ivf_variant_scan_i8": (11, 8), "ivf_variant_scan_f": (11, 9),
 }
+
+
+def routed_table(rows: torch.Tensor, cq: torch.Tensor, blocks: torch.Tensor | None = None,
+                 pitched: bool = True) -> torch.Tensor:
+    """The routed table of the batch ``rows`` [B, D]: row ``cq[c, s]`` of
+    the batch, zero for an empty slot (-1) → [nlist, qcap, D], or with
+    ``blocks`` each listed block's cluster's rows, [len(blocks), qcap, D].
+    A float table is written at a 16-byte row pitch (a view of a
+    zero-padded buffer), which the float wrappers of K4, K6 and K10 read in
+    place, so no launch copies it; contiguous with ``pitched=False`` (K1's
+    input).  An int8 table is contiguous, since the int8 kernels read the
+    pad and their wrappers pad the rows themselves."""
+    src = rows
+    if pitched and rows.dtype != torch.int8:
+        src = _build.pad_rows(rows, 16 // rows.element_size())
+    table = torch.where((cq >= 0)[..., None], src[cq.clamp_min(0).long()],
+                        torch.zeros((), dtype=rows.dtype, device=rows.device))
+    if blocks is not None:
+        table = table[blocks.long()]
+    return table[..., :rows.shape[-1]]
 
 
 def _check(qg_blocks, vectors_t, block_first, block_last, rows_valid, k, blk,
@@ -243,23 +263,14 @@ def entry(name: str):
     return _FNS[name]
 
 
-def float_args(name: str, queries, vectors_t):
-    """What a float mode of K4 or K10 adds before its launch: the
-    float checks, and the slabs on a 16-byte boundary (the chunk stage loads
-    16 bytes along blk) → (vectors_t, the float entry's extra arguments:
-    ``(bf16,)``)."""
-    _build.check_float(name, queries, vectors_t)
-    return _build.aligned(vectors_t, 16), (int(vectors_t.dtype == torch.bfloat16),)
-
-
 def float_operands(name: str, queries, vectors_t, blk: int):
-    """What K6's and K7's float modes (bf16 on ``wgmma`` fed by TMA, fp32 on
-    the FFMA register tile) read: the routed rows (K6's ``qg``) or the batch
-    (K7's ``qi``) at a 16-byte row pitch (:func:`_build.pitched_storage`:
-    read in place where they lie so, as the sharded index writes its routed
-    tables; else one zero-padded copy), and the slab on a 16-byte base → (queries'
-    storage [..., ldq], vectors_t, the entry's extra arguments: ``(ldq, blk,
-    ..., bf16)`` as its dims).  fp32 keeps a block's chunk in a byte: blk <=
+    """What the float modes of K4, K6, K7 and K10 (bf16 on ``wgmma`` fed by
+    TMA, fp32 on the FFMA register tile) read: the routed rows (K4's
+    ``qg_blocks``, K6's and K10's ``qg``) or the batch (K7's ``qi``) at a
+    16-byte row pitch (:func:`_build.pitched_storage`: read in place where
+    they lie so, as :func:`routed_table` writes them; else one zero-padded
+    copy), and the slab on a 16-byte base → (queries' storage [..., ldq],
+    vectors_t, ldq, bf16).  fp32 keeps a block's chunk in a byte: blk <=
     32768."""
     _build.check_float(name, queries, vectors_t)
     bf16 = int(vectors_t.dtype == torch.bfloat16)
@@ -271,8 +282,9 @@ def float_operands(name: str, queries, vectors_t, blk: int):
 
 
 def int8_operands(queries, vectors_t):
-    """What K4's, K6's and K7's int8 modes (``wgmma`` fed by TMA) read: the
-    routed rows (K4's ``qg_blocks``, K6's ``qg``) or the batch (K7's ``qi``) with D
+    """What the int8 modes of K4, K6, K7 and K10 (``wgmma`` fed by TMA) read:
+    the routed rows (K4's ``qg_blocks``, K6's and K10's ``qg``) or the batch
+    (K7's ``qi``) with D
     zero-padded to TMA's 16-byte row pitch (:func:`ivf_accum.kernel_operands`:
     one copy where D needs it, none at D = 128), and both on 16-byte bases.
     The pad adds zero terms to every dot, so no score moves; the kernel
@@ -290,8 +302,10 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     ``row_base`` [nblocks] int32 is each block's first row id (default
     ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (int8 ± bias, or fp32 or bf16 in one dtype; nbins 128, bin_depth <= 4;
-    any D; k > 32 in passes) or raise."""
+    (int8 ± bias, or fp32 or bf16 in one dtype, fp32 at blk <= 32768; nbins
+    128, bin_depth <= 4; any D; k > 32 in passes) or raise.  A float
+    ``qg_blocks`` whose rows lie at a 16-byte pitch (:func:`routed_table`'s)
+    is read in place."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -303,6 +317,8 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
                                         bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    if not int_path:  # qg_blocks read at its row pitch (in place where it lies so)
+        qg_blocks, vectors_t, ldq, bf16 = float_operands("K4", qg_blocks, vectors_t, blk)
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
     _check_cuda_limits("K4", nbins, bin_depth)
@@ -312,8 +328,7 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
         qg_blocks, vectors_t = int8_operands(qg_blocks, vectors_t)
         dims, flag = (d, qg_blocks.shape[-1]), ()
     else:
-        vectors_t, flag = float_args("K4", qg_blocks, vectors_t)
-        dims = (d,)
+        dims, flag = (d, ldq), (bf16,)
     name = "ivf_grouped_scan_i8" if int_path else "ivf_grouped_scan_f"
     fn = entry(name)
     head = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
@@ -386,9 +401,9 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
     bias, or fp32 or bf16 in one dtype, fp32 at blk <= 32768; nbins 128,
-    bin_depth <= 4; any D; k > 32 in passes) or raise.  A float ``qg`` that
-    whose rows lie at a 16-byte pitch (the sharded index's tables) is read
-    in place."""
+    bin_depth <= 4; any D; k > 32 in passes) or raise.  A float ``qg``
+    whose rows lie at a 16-byte pitch (:func:`routed_table`'s) is read in
+    place."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":

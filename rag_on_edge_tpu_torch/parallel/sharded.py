@@ -111,19 +111,6 @@ def _place_shards(devices: list[torch.device], specs: dict) -> list[dict]:
     return out
 
 
-def _routed_table(qrow: torch.Tensor, cq: torch.Tensor) -> torch.Tensor:
-    """The routed table [nlist, qcap, D] of the batch ``qrow`` [B, D]: row
-    ``cq[c, s]`` of the batch, zero for an empty slot (-1).  A float table
-    is written at a 16-byte row pitch (a view of a zero-padded buffer),
-    which K6's float modes read in place, so no K6 launch copies it; an
-    int8 table is contiguous, since K6's int8 kernel reads the pad and its
-    wrapper pads the rows itself."""
-    src = qrow if qrow.dtype == torch.int8 else _build.pad_rows(qrow, 16 // qrow.element_size())
-    table = torch.where((cq >= 0)[..., None], src[cq.clamp_min(0).long()],
-                        torch.zeros((), dtype=qrow.dtype, device=qrow.device))
-    return table[..., :qrow.shape[-1]]
-
-
 def _partition_clusters(offsets: np.ndarray, n_shards: int) -> list[tuple[int, int]]:
     """Assign contiguous cluster ranges to shards, balancing row counts.
 
@@ -582,7 +569,7 @@ class ShardedIVFIndex:
         inversion, the lossy pairs, candidate counts, and the query prep
         (int8: one per-batch query scale, ``alpha = sq·sb``, doubled for L2;
         float: a ones column for L2) with the routed table ``qg``; float
-        rows at a 16-byte row pitch (:func:`_routed_table`)."""
+        rows at a 16-byte row pitch (``ivf_scan.routed_table``)."""
         sizes = self._cm_arrays[0]["sizes"]
         probes = self._probes(q, nprobe)
         cq, slot, _ = invert_probes(probes, self.nlist, qcap)
@@ -601,7 +588,7 @@ class ShardedIVFIndex:
                 qrow = torch.cat([qrow, torch.ones((q.shape[0], 1), dtype=q.dtype,
                                                    device=q.device)], dim=-1)
             qrow = qrow.to(self._cm_arrays[0]["vectors_t"].dtype)
-        qg = _routed_table(qrow, cq)
+        qg = ivf_scan.routed_table(qrow, cq)
         return dict(q=q, probes=probes, slot=slot, lossy=lossy, qrow=qrow, qg=qg, alpha=alpha,
                     spill=lossy.sum().to(torch.int32),
                     ncand=p_sizes.sum(dim=1).to(torch.int32))
@@ -638,7 +625,7 @@ class ShardedIVFIndex:
         inc_b = active_b & (rank < rb)
         inc_list = inc_b[blocks_list]
         cluster_inc = active_c & (last_blk >= 0) & inc_b[last_blk.clamp_min(0).long()]
-        qg2 = _routed_table(qrow, cq2)
+        qg2 = ivf_scan.routed_table(qrow, cq2)
         bias2 = None
         if bias is not None:
             bias2 = bias.reshape(nblocks_local, blk)[blocks_list].reshape(1, -1)

@@ -365,6 +365,55 @@ def test_k4_kernel_float_equal_to_plain(dev, sizes, blk, qcap, d, k, ties, dtype
     assert torch.equal(pr[rows][fin], rr[rows][fin])
 
 
+# K4's float modes at the edges of grouped_wgmma_kernel (bf16) and
+# grouped_ffma_kernel (fp32): qcap 24, 40, 100 and 257 (tiles of 32 and 16
+# rows cut short; 257 one row into a ninth tile), D' 37 and 129 (odd), 320,
+# and 384, 768 and 1536 (many fp32 slices and bf16 units).  Values in
+# [-8, 7] keep every fp32 sum exact at these D.
+K4_FLOAT_EDGES = [
+    pytest.param([2000, 0, 5000, 129, 10], 2048, 257, 129, id="q257-d129"),
+    pytest.param([700, 300, 129, 2000], 256, 24, 37, id="q24-d37"),
+    pytest.param([700, 300, 129], 256, 40, 320, id="q40-d320"),
+    pytest.param([1500, 0, 40], 512, 100, 384, id="q100-d384"),
+    pytest.param([700, 300, 129], 256, 40, 768, id="q40-d768"),
+    pytest.param([300, 16 * 128 - 7], 128, 24, 1536, id="q24-d1536-16blocks"),
+]
+
+
+@pytest.mark.parametrize("sizes,blk,qcap,d", K4_FLOAT_EDGES)
+@pytest.mark.parametrize("dtype", list(FLOAT_DTYPES))
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [20, 33, 64])
+@pytest.mark.parametrize("walk", ["dense-pitched", "compact"])
+def test_k4_kernel_float_edges_equal_to_plain(dev, sizes, blk, qcap, d, dtype, depth, k, walk):
+    """K4's float modes (bf16 on wgmma, fp32 on the FFMA tile) with empty
+    slots from a random count on in every block: the dense walk with the
+    routed rows handed over as a pitched view whose pad holds NaN (read in
+    place: no kernel reads past a row's D'), and a compacted recovery list;
+    k past 32 in passes.  pv bit-equal, pr equal where finite."""
+    rng = np.random.default_rng(33)
+    qg, vt, bf, bl, rv, _, rb = _k4_inputs(rng, sizes, blk, qcap, d, False, walk == "compact",
+                                           False, empty_slots=True)
+    qg, vt = _as_float(dev, dtype, qg // 16, vt // 16)
+    if walk == "dense-pitched":
+        storage = _build.pad_rows(qg, 16 // qg.element_size())
+        storage[..., d:] = float("nan")
+        qg = storage[..., :d]
+        assert ivf_scan.float_operands("K4", qg, vt, blk)[0].data_ptr() == qg.data_ptr()
+    bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv, rb))
+    kw = dict(k=k, blk=blk, bin_depth=depth, row_base=rb)
+    before = ivf_scan.LAUNCHES
+    pv, pr = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES - before == -(-k // 32)
+    rv_, rr = ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv, **kw)
+    rows = torch.nonzero(bl).flatten()
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
 def _assert_topk_close(v, i, rv, ri, bound):
     """Non-integer float data, where the kernel and the plain version sum in
     different orders: finite values within ``bound`` (2·D·2**-24·max|q|·|b|
@@ -837,8 +886,10 @@ def test_k7_kernel_float_equals_k6_and_k4(dev, sizes, blk, qcap, d, dtype, depth
 def test_grouped_scan_cubin_bf16_on_wgmma_unserialized(dev):
     """The build report of ``csrc/ivf_grouped_scan.cu`` (``chip_smoke.py``'s
     ``wgmma_report``, which raises on a missing instance, a bf16 instance
-    without bf16 ``wgmma`` or ptxas serializing its groups, C7520): K6's
-    and K7's bf16 instances hold HGMMA, their fp32 instances FFMA."""
+    without bf16 ``wgmma``, ptxas serializing its groups, C7520, or any
+    ``__dp4a``): the bf16 instances of K4, K6 and K7 at depths 1-4 and of
+    K10's nogate, maxonly and fixedout hold HGMMA, their fp32 instances
+    FFMA, and the library holds no IDP (``__dp4a``) instruction."""
     import importlib.util
     from pathlib import Path
 
@@ -846,11 +897,12 @@ def test_grouped_scan_cubin_bf16_on_wgmma_unserialized(dev):
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    lines = smoke.wgmma_report(_build, "ivf_grouped_scan", ("grouped_scan_kernel",))
+    lines = smoke.wgmma_report(_build, "ivf_grouped_scan")
     bf16 = [ln for ln in lines if " bf16, depth" in ln]
     fp32 = [ln for ln in lines if "grouped_ffma_kernel<" in ln]
-    assert len(bf16) == 8 and all("HGMMA" in ln and "BF16" in ln for ln in bf16)
-    assert len(fp32) == 8 and all("FFMA 0" not in ln for ln in fp32)
+    assert len(bf16) == 15 and all("HGMMA" in ln and "BF16" in ln for ln in bf16)
+    assert len(fp32) == 15 and all("FFMA 0" not in ln for ln in fp32)
+    assert lines[-1].startswith("IDP (__dp4a) instructions in libivf_grouped_scan: 0 ")
     assert lines[-1].endswith("ptxas serialization warnings: none")
 
 
@@ -1481,6 +1533,62 @@ def test_k10_kernel_float_equal_to_plain(dev, sizes, blk, qcap, d, dtype, varian
     torch.cuda.synchronize()
     assert kernel_lab.LAUNCHES == before + 1
     rv_, rr = kernel_lab._variant_scan_reference(*args)
+    win = _k10_defined(variant, tabs[0], tabs[2])
+    assert torch.equal(_bits(pv[win]), _bits(rv_[win]))
+    fin = rv_[win] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[win][fin], rr[win][fin])
+
+
+@pytest.mark.parametrize("d", [1152, 2048, 3072])
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_kernel_int8_wide_d_equal_to_plain(dev, d, variant):
+    """K10 int8 past the D 1024 the staged kernel took, on K6's wgmma
+    kernel: D 1152 and 2048 with the routed rows resident, 3072 gathered a
+    unit at a time beside the transpose.  Random int8 values keep every
+    |dot| far below 2**24, so the plain fp32 product stays exact."""
+    rng = np.random.default_rng(56)
+    qg, vt, bc, bf, bl, rv, _, _ = (torch.from_numpy(x).to(dev) if x is not None else None
+                                    for x in _k6_inputs(rng, [900, 300, 2100, 129], 256, 40, d,
+                                                        False, "dense", False,
+                                                        empty_slots=True))
+    cut = int(torch.nonzero(rv).max()) + 1
+    tabs = [x[:cut] for x in (vt, bc, bf, bl, rv)]
+    args = (qg, *tabs, 20, 256, 128, variant)
+    before = kernel_lab.LAUNCHES
+    pv, pr = kernel_lab._variant_scan(*args)
+    torch.cuda.synchronize()
+    assert kernel_lab.LAUNCHES == before + 1
+    rv_, rr = kernel_lab._variant_scan_reference(*args)
+    win = _k10_defined(variant, tabs[1], tabs[3])
+    assert torch.equal(pv[win], rv_[win])
+    fin = rv_[win] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[win][fin], rr[win][fin])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_k10_kernel_zero_tiles_equal_to_plain(dev, dtype, variant):
+    """K10 where whole row tiles are empty slots: one cluster routes no
+    query (every tile zero: its scores are +0, maxonly's row max +0) and
+    another none past row 20 (its second tile zero), qcap 40.  Values
+    bit-equal (+0 is not -0), ids equal where finite."""
+    rng = np.random.default_rng(57)
+    qg, vt, bc, bf, bl, rv, _, _ = _k6_inputs(rng, [900, 300, 2100, 129], 256, 40, 129, False,
+                                              "dense", False)
+    qg[3] = 0
+    qg[4, 20:] = 0
+    cut = int(np.nonzero(rv)[0].max()) + 1
+    if dtype == "int8":
+        qg, vt = torch.from_numpy(qg).to(dev), torch.from_numpy(vt[:cut]).to(dev)
+    else:
+        qg, vt = _as_float(dev, dtype, qg, vt[:cut])
+    tabs = [torch.from_numpy(x[:cut]).to(dev) for x in (bc, bf, bl, rv)]
+    args = (qg, vt, *tabs, 20, 256, 128, variant)
+    pv, pr = kernel_lab._variant_scan(*args)
+    rv_, rr = kernel_lab._variant_scan_reference(*args)
+    torch.cuda.synchronize()
     win = _k10_defined(variant, tabs[0], tabs[2])
     assert torch.equal(_bits(pv[win]), _bits(rv_[win]))
     fin = rv_[win] > float("-inf")

@@ -99,6 +99,58 @@ def test_k10_checks():
         tlab._variant_scan(*args, K, BLK, 96, "full")
 
 
+@pytest.mark.parametrize("variant", tlab.VARIANTS)
+def test_k10_int8_plain_at_d1152_equals_jax(variant):
+    """K10's int8 mode past the D 1024 the card used to refuse: the plain
+    version at D 1152 (nine 128-byte units of d) on a tiny walk (two
+    clusters over three blocks, one partly valid) equals the JAX kernel in
+    interpret mode on each variant's windows."""
+    rng = np.random.default_rng(32)
+    sizes = np.asarray([300, 200])
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // BLK) * BLK)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, BLK)
+    tabs = [np.ascontiguousarray(x, np.int32) for x in (bc, bf, bl, rv)]
+    qg = rng.integers(-127, 128, (len(sizes), QCAP, 1152), dtype=np.int8)
+    qg[1, 5:] = 0  # empty slots
+    vt = rng.integers(-127, 128, (len(bc), 1152, BLK), dtype=np.int8)
+    tv, ti = tlab._variant_scan(torch.from_numpy(qg), torch.from_numpy(vt),
+                                *(torch.from_numpy(x) for x in tabs), K, BLK, NBINS, variant)
+    jv, ji = jlab._variant_scan(jnp.asarray(qg), jnp.asarray(vt), *(jnp.asarray(x) for x in tabs),
+                                K, BLK, NBINS, variant)
+    win = _defined_windows(variant, tabs)
+    jv, ji = np.asarray(jv)[win], np.asarray(ji)[win]
+    assert tv.numpy()[win].tobytes() == jv.tobytes()
+    fin = jv > -np.inf
+    assert fin.any()
+    np.testing.assert_array_equal(ti.numpy()[win][fin], ji[fin])
+
+
+@pytest.mark.parametrize("sizes,blk", [([300, 0, 700, 129, 10], 256), ([2048, 1, 0], 2048)])
+def test_live_products_over_jax_block_tables(sizes, blk):
+    """What the bounds of K4, K6, K7 and K10 charge for the product
+    (``timing.live_products``): each walked block's live routed rows times
+    its valid columns, over the JAX package's block tables; a compacted
+    list (the first cluster's blocks) charges those alone.  ``live_rows``
+    counts the rows with a nonzero element."""
+    from rag_on_edge_tpu.ops.pallas_ivf import build_block_tables as jax_tables
+    from rag_on_edge_tpu_torch.harness import timing
+
+    sizes = np.asarray(sizes)
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = (np.asarray(x, np.int32) for x in jax_tables(offs, sizes, blk))
+    table = np.zeros((len(sizes), 6, 5), np.float32)
+    for c, n in enumerate([3, 0, 6, 1, 2][:len(sizes)]):
+        table[c, :n, c % 5] = -1.5
+    live = timing.live_rows(torch.from_numpy(table))
+    assert live.tolist() == [3, 0, 6, 1, 2][:len(sizes)]
+    per_block = live[torch.from_numpy(bc).long()]
+    want = sum(int(live[c]) * int(sizes[c]) for c in range(len(sizes)))
+    assert timing.live_products(per_block, *(torch.from_numpy(x) for x in (bf, bl, rv))) == want
+    first = -(-int(sizes[0]) // blk)
+    assert timing.live_products(per_block[:first], bf[:first], bl[:first], rv[:first]) == \
+        int(live[0]) * int(sizes[0])
+
+
 @pytest.mark.parametrize("sizes,blk", [([300, 0, 700, 129, 10], 256), ([2048, 1, 0], 2048)])
 def test_walked_blocks_and_bound_over_jax_block_tables(sizes, blk):
     """What the timing harnesses charge a cluster-major walk

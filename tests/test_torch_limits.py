@@ -7,8 +7,9 @@ argument, so the code the card runs around its kernels runs here with the
 plain versions, against the JAX kernels in interpret mode.  The kernels
 themselves are held to these on the card by ``tests/test_torch_cuda.py``.
 Beside them, the public call the card used to refuse: an int8 L2 IVF index
-at D 3072; and the row pitch K6's and K7's float modes read their routed
-rows at (``_build.pitched_storage``, ``ivf_scan.float_operands``).
+at D 3072; the row pitch the float modes of K4, K6, K7 and K10 read their
+routed rows at (``_build.pitched_storage``, ``ivf_scan.float_operands``)
+and the routed tables written at it (``ivf_scan.routed_table``).
 """
 
 import jax.numpy as jnp
@@ -285,3 +286,45 @@ def test_float_operands_check_what_the_kernels_take():
     last_row_past_end = torch.randn(3 * 132 - 3).as_strided((3, 129), (132, 1))
     s, p = _build.pitched_storage(last_row_past_end)
     assert s.data_ptr() != last_row_past_end.data_ptr() and p == 132
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32", "bf16"])
+def test_routed_table_at_pitch_equals_contiguous(small_data, dtype):
+    """The routed tables of an L2 index on small_data (D' = 129 with the
+    ones column of the float modes): ``ivf_scan.routed_table`` writes a
+    float table at the batch's 16-byte row pitch (132 fp32, 136 bf16, the
+    pad zero), which K4's float wrapper reads in place, equal in value to
+    the contiguous table K1 reads and to a plain gather of the batch; an
+    int8 table is contiguous either way (its kernels read the pad), also
+    at D 37.  The index hands K4 its recovery tables and the grouped
+    engine's dense table at the pitch, K1 its dense table contiguous."""
+    base, queries = small_data
+    t = port_ivf.IVFIndex.build(base, nlist=16, metric="l2", dtype=dtype, pad_block=128,
+                                max_iter=5, device="cpu")
+    t._ensure_kernel_state()
+    q = torch.from_numpy(queries)
+    probes, cq, _, lossy, _ = t._route(q, 4, 4)
+    assert lossy.any()
+    qi = t._query_prep(q)[0]
+    bc = t._arrays["block_cluster"]
+    flat = t._scan_inputs(q, cq)[1]
+    pitched = t._scan_inputs(q, cq, pitched=True)[1]
+    rec = t._recover_tables(qi, probes, lossy, None, 9, 16)[0]
+    cqn, qn = cq.numpy(), qi.float().numpy()
+    want = np.where((cqn >= 0)[..., None], qn[np.clip(cqn, 0, None)], 0)[bc.numpy()]
+    assert flat.is_contiguous() and torch.equal(flat, pitched)
+    np.testing.assert_array_equal(flat.float().numpy(), want)
+    d = qi.shape[-1]
+    for table in (pitched, rec[0]):
+        storage, ldq = _build.pitched_storage(table)
+        assert storage.data_ptr() == table.data_ptr() and table.shape[-1] == d
+        if dtype == "int8":
+            assert table.is_contiguous() and ldq == d == 128
+        else:
+            assert ldq == {"fp32": 132, "bf16": 136}[dtype] and not storage[..., d:].any()
+            qs = ivf_scan.float_operands("K4", table, t._arrays["vectors_t"], 128)[0]
+            assert qs.data_ptr() == table.data_ptr()
+    narrow = torch.from_numpy(np.random.default_rng(71).integers(-127, 128, (32, 37),
+                                                                 dtype=np.int8))
+    for pitch in (True, False):
+        assert ivf_scan.routed_table(narrow, cq, bc, pitched=pitch).is_contiguous()
