@@ -24,7 +24,10 @@ script exits non-zero without a result line:
              1-4 and K10's nogate, maxonly and fixedout at depth 2, and no
              kernel of these four sources a ``__dp4a`` but K9's
              ``accum_extract_kernel``; K14's ``__dp4a`` probe is
-             unchecked), the fp32 register-tiled kernels' registers, spills
+             unchecked), the probes' ``wgmma`` kernels (K12's
+             ``stream_wgmma_kernel``, K14's ``gemm_rate_wgmma_kernel`` at
+             each of its 16 k-step counts; int8 and bf16, no ``mma.sync``,
+             no serialized groups), the fp32 register-tiled kernels' registers, spills
              and FFMA count (K3's ``fused_f32_kernel``, K5's
              ``accum_ffma_kernel``, K1's ``planes_ffma_kernel``, K4's, K6's,
              K7's and K10's ``grouped_ffma_kernel``), and K2's registers,
@@ -149,11 +152,16 @@ script exits non-zero without a result line:
              ``bench_gemm.run(128, 128, 10240, "int8")``, the AIE reference
              workload, whose result dict is printed.
 12. probe  — the hardware probes (``harness/hw_probe.py``): kernels K11-K14
-             against their plain versions at ragged shapes and at one JAX
+             against their plain versions at ragged shapes (K12's product
+             also at x rows 1, 64 and 65 and blk 128 and 2052, 16- and
+             4-byte row pitches; K14 also at tb 64 and 65, d 32, 48 and the
+             512-byte cap, tn 16 and 130, g not a multiple of the CTAs a
+             unit, on ``wgmma`` beside the ``__dp4a`` unit) and at one JAX
              size each (K11 g=4096 moving; K12 the int8 512 MB walk at
-             blk=2048 with and without the product; K13 the int8 2 GiB walk
-             at depth 8; K14 (256, 2048) at g=2048 in int8 on mma.sync and
-             on __dp4a, and in bf16), K12 and K14 in their value and in
+             blk=2048 with and without the product, and the bf16 512 MB
+             walk with it; K13 the int8 2 GiB walk at depth 8; K14 (256,
+             2048) at g=2048 in int8 on ``wgmma`` and on __dp4a, and in
+             bf16), K12 and K14 in their value and in
              every step's max (K12 over walks with a planted max in every
              step), K13 with one value planted at a time across the walk
              (also in bf16 where its ring wraps, and past the walk), each
@@ -475,6 +483,52 @@ def k2_report(_build) -> list[str]:
     return lines
 
 
+def probe_report(_build) -> list[str]:
+    """The probes' tensor-core kernels in ``csrc/hw_probe.cu`` (K12's
+    ``stream_wgmma_kernel``, K14's ``gemm_rate_wgmma_kernel`` at 1-16
+    k-steps of 32 bytes): registers, stack frame and spills, one line a
+    kernel and dtype (ranges over K14's k-step counts).  Raises if an int8
+    instance holds no s8 warpgroup MMA or a bf16 one no bf16 warpgroup MMA,
+    any holds ``mma.sync`` (IMMA / HMMA), K14 lacks one of its 16 k-step
+    counts in either dtype, or ptxas serializes their groups."""
+    import re
+
+    props, warnings, opcodes = cubin_report(_build, "hw_probe")
+    fams = {}
+    for fn in sorted(set(props) | set(opcodes)):
+        m = re.search(r"(stream|gemm_rate)_wgmma_kernelI(a|13__nv_bfloat16)(?:Li(\d+)E)?", fn)
+        if not m:
+            continue
+        mode = "int8" if m.group(2) == "a" else "bf16"
+        ops = set(opcodes.get(fn, ()))
+        want = "IGMMA" if mode == "int8" else "HGMMA"
+        if not any(o.startswith(want) for o in ops) or any(
+                o.startswith(("IMMA", "HMMA")) for o in ops):
+            raise AssertionError(f"{fn}: {want} expected and no mma.sync, got {sorted(ops)}")
+        fam = fams.setdefault((f"{m.group(1)}_wgmma_kernel", mode), {"nkt": [], "regs": [],
+                                                                    "stack": [], "spills": []})
+        fam["nkt"].append(int(m.group(3) or 0))
+        p_ = props.get(fn, {})
+        fam["regs"].append(p_.get("regs"))
+        fam["stack"].append(p_.get("stack"))
+        fam["spills"].append(p_.get("spills"))
+    for mode in ("int8", "bf16"):
+        if sorted(fams.get(("gemm_rate_wgmma_kernel", mode), {}).get("nkt", [])) != list(
+                range(1, 17)) or ("stream_wgmma_kernel", mode) not in fams:
+            raise AssertionError(f"hw_probe's wgmma instances {sorted(fams)}: K12 and K14 at "
+                                 "1-16 k-steps in int8 and bf16 expected")
+    serial = [w for w in warnings if "wgmma_kernel" in w]
+    if serial:
+        raise AssertionError(f"ptxas serializes the probes' wgmma groups: {serial}")
+    lines = []
+    for (name, mode), f in sorted(fams.items()):
+        spilled = {n: sp for n, sp in zip(f["nkt"], f["spills"]) if sp and sp != (0, 0)}
+        lines.append(f"{name}<{mode}>: {min(f['regs'])}-{max(f['regs'])} registers, stack "
+                     f"frame up to {max(f['stack'])} bytes, spill stores/loads "
+                     f"{spilled or 'none'}" + (" (by k-steps)" if len(f["nkt"]) > 1 else ""))
+    return lines
+
+
 def split_by_kernel(by_kernel: dict, families: dict) -> dict:
     """Device ms by kernel family ({label: name substring}), the rest under
     ``other``."""
@@ -549,16 +603,19 @@ def main() -> None:
     # keeps the one __dp4a of the four sources.
     reported = {"bruteforce_accum": (), "bruteforce_fused": (),
                 "ivf_accum_planes": ("accum_extract_kernel",), "ivf_grouped_scan": ()}
-    with ThreadPoolExecutor(len(sources) + len(reported) + 1) as ex:  # one nvcc each, all at once
+    with ThreadPoolExecutor(len(sources) + len(reported) + 2) as ex:  # one nvcc each, all at once
         reports = [ex.submit(wgmma_report, _build, name, allowed)
                    for name, allowed in reported.items()]
         report_k2 = ex.submit(k2_report, _build)
+        report_probe = ex.submit(probe_report, _build)
         list(ex.map(_build.load_library, sources))
         for name, rep in zip(reported, reports):
             for line in rep.result():
                 print(f"[build] {name} ptxas -v / SASS: {line}", flush=True)
         for line in report_k2.result():
             print(f"[build] fused_topk ptxas -v / SASS: {line}", flush=True)
+        for line in report_probe.result():
+            print(f"[build] hw_probe ptxas -v / SASS: {line}", flush=True)
     phase("build", t0, f"K1 + K9, K2, K4 + K6 + K7 + K10, K3, K5, K8, K11-K14 nvcc "
           f"{time.time() - t:.1f}s")
 
@@ -1888,11 +1945,15 @@ def main() -> None:
                             hw_probe._step_probe_reference(xs, g_, moving, sem))
     ntrials = 0
     for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
-        xr = prand((100, 36), dtype)
-        for gemm, blk_ in ((False, 301), (True, 300)):
+        # The product's edges beside the ragged walk: x of 1 and 65 rows (one
+        # past a warpgroup), blk 128 (16-byte cp.async pieces) and 2052 (a
+        # 4-byte row pitch: 4-byte pieces, the last slice 4 columns wide).
+        for m_, gemm, blk_ in ((100, False, 301), (100, True, 300), (1, True, 128),
+                               (65, True, 2052)):
+            xr = prand((m_, 36), dtype)
             data_, tops = hw_probe._planted_walk(9, 36, blk_, 3, dtype, pgen)
-            k12_checks(f"{dtype} [9,36,{blk_}] fat=3", xr, data_, blk_, 3, gemm, tops,
-                       hw_probe.SEMANTICS)
+            k12_checks(f"{dtype} [9,36,{blk_}] x [{m_},36] fat=3", xr, data_, blk_, 3, gemm,
+                       tops, hw_probe.SEMANTICS)
         data_ = prand((11, 24, 40), dtype)
         for depth in (3, 8):
             ntrials += k13_trials(f"{dtype} [11,24,40]", data_, depth, plant, decoy, 4)
@@ -1901,24 +1962,34 @@ def main() -> None:
     data_ = prand((70, 128, 2048), torch.bfloat16)
     for depth in (3, 8):
         ntrials += k13_trials("bf16 [70,128,2048]", data_, depth, 64.0, 128.0, 16)
+    # K14's ragged shape, then the edges of its wgmma design: tb 64 (one
+    # warpgroup) and 65, tn 16 and 130, d 32 and 48 (int8: one and 1.5
+    # k-steps) and the 512-byte cap (0: int8 512, bf16 256); g 37 and 300,
+    # which no CTA count a unit divides.
+    k14_shapes = ((200, 300, 96, 37), (65, 130, 48, 300), (64, 16, 32, 37), (65, 16, 0, 37))
     for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
-        q_, v_ = prand((200, 96), dtype), prand((96, 300), dtype)
-        tol = (k14_bf16_tol(q_, v_, 37) if dtype == torch.bfloat16
-               else torch.zeros(37, dtype=torch.float64, device=dev))
-        probe_check("K14", f"{dtype} {unit} [200,96]x[96,300] g=37 steps",
-                    hw_probe._gemm_rate_steps(q_, v_, 37, 200, 300, True, unit),
-                    hw_probe._gemm_rate_steps_reference(q_, v_, 37, 200, 300, True, unit), tol)
-        probe_check("K14", f"{dtype} {unit} [200,96]x[96,300] g=37",
-                    hw_probe._gemm_rate_probe(xs, q_, v_, 37, 200, 300, True, unit),
-                    hw_probe._gemm_rate_probe_reference(xs, q_, v_, 37, 200, 300, True, unit),
-                    tol[-1:])
+        for tb_, tn_, d_, g_ in k14_shapes:
+            d_ = d_ or hw_probe._MAX_KBYTES // dtype.itemsize
+            q_, v_ = prand((tb_, d_), dtype), prand((d_, tn_), dtype)
+            tol = (k14_bf16_tol(q_, v_, g_) if dtype == torch.bfloat16
+                   else torch.zeros(g_, dtype=torch.float64, device=dev))
+            name = f"{dtype} {unit} [{tb_},{d_}]x[{d_},{tn_}] g={g_}"
+            probe_check("K14", f"{name} steps",
+                        hw_probe._gemm_rate_steps(q_, v_, g_, tb_, tn_, True, unit),
+                        hw_probe._gemm_rate_steps_reference(q_, v_, g_, tb_, tn_, True, unit),
+                        tol)
+            probe_check("K14", name,
+                        hw_probe._gemm_rate_probe(xs, q_, v_, g_, tb_, tn_, True, unit),
+                        hw_probe._gemm_rate_probe_reference(xs, q_, v_, g_, tb_, tn_, True, unit),
+                        tol[-1:])
     del data_, q_, v_, xr
     phase("probe", t0, f"K11-K14 equal to their plain versions at ragged shapes (K11 g 3 and "
-          f"300; K12 [9,36,301] and [9,36,300] x [100,36], fat 3, planted step maxima, "
-          f"value and every step; K13 [11,24,40] at depth 3 and 8 and bf16 [70,128,2048] "
-          f"(the ring wraps) at depth 3 and 8, {ntrials} planted trials; K14 [200,96] x "
-          f"[96,300] g=37, sel, value and every step), max |err| {probe_err} "
-          f"({time.time() - t:.1f}s)")
+          f"300; K12 [9,36,301] and, with the product, [9,36,300] x [100,36], [9,36,128] x "
+          f"[1,36] and [9,36,2052] x [65,36], fat 3, planted step maxima, value and every "
+          f"step; K13 [11,24,40] at depth 3 and 8 and bf16 [70,128,2048] (the ring wraps) at "
+          f"depth 3 and 8, {ntrials} planted trials; K14 (tb, tn, d, g) {k14_shapes} (d 0: "
+          f"the 512-byte cap) on wgmma and dp4a, sel, value and every step), max |err| "
+          f"{probe_err} ({time.time() - t:.1f}s)")
 
     # One JAX size each, timed beside the plain version (and data.amax()):
     # device time of REPS calls captured in one CUDA graph, since the
@@ -1951,6 +2022,18 @@ def main() -> None:
     k12[False]["lib_ms"] = gms(lambda: walk.amax())
     del walk, tops
     torch.cuda.empty_cache()
+    # The same 512 MB through the bf16 product ([1024,128,2048]).
+    walk, tops = hw_probe._planted_walk((512 << 20) // (D128 * BLK2 * 2), D128, BLK2, 1,
+                                        torch.bfloat16, pgen)
+    xw = prand((128, D128), torch.bfloat16)
+    k12_checks(f"bf16 512 MB blk={BLK2}", xw, walk, BLK2, 1, True, tops, (None, "arbitrary"))
+    k12["bf16"] = dict(
+        ms=gms(lambda: hw_probe._stream_probe(xw, walk, BLK2, 1, True, None)),
+        plain_ms=gms(lambda: hw_probe._stream_probe_reference(xw, walk, BLK2, 1, True, None)),
+        bound=bound(walk.numel() * 2 + walk.shape[0] * 4, 2.0 * 128 * walk.numel(),
+                    BF16_OPS_S))
+    del walk, tops, xw
+    torch.cuda.empty_cache()
     walk = prand(((2 << 30) // (D128 * BLK2), D128, BLK2), torch.int8)
     k13_n = k13_trials("int8 2 GiB", walk, 8, 127, 127, 16)
     k13 = dict(ms=gms(lambda: hw_probe._dma_probe(x1, walk, 8)),
@@ -1962,7 +2045,7 @@ def main() -> None:
     TB, TN, G = 256, 2048, 2048
     k14 = {}
     for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
-                              (torch.bfloat16, "mma", 989e12)):
+                              (torch.bfloat16, "mma", BF16_OPS_S)):
         q_, v_ = prand((TB, D128), dtype), prand((D128, TN), dtype)
         tol = (k14_bf16_tol(q_, v_, G) if dtype == torch.bfloat16
                else torch.zeros(G, dtype=torch.float64, device=dev))
@@ -1985,7 +2068,8 @@ def main() -> None:
     phase("probe", t0, f"JAX sizes, equal to the plain versions, value and every step (K12 "
           f"planted step maxima; K13 {k13_n} planted trials) ({time.time() - t:.1f}s); ms, "
           f"plain ms, library ms, bound: K11 g=4096 moving {k11}; K12 int8 512 MB blk={BLK2} "
-          f"{k12[False]}, with the product {k12[True]}; K13 int8 2 GiB depth 8 {k13}; K14 "
+          f"{k12[False]}, with the product {k12[True]}, bf16 with the product "
+          f"{k12['bf16']}; K13 int8 2 GiB depth 8 {k13}; K14 "
           f"({TB}, {TN}) g={G} {k14}")
 
     # The probes themselves, counted, at the JAX sizes.
@@ -3079,7 +3163,11 @@ def main() -> None:
          "launches": probe_launches["K12"], "max_abs_err": probe_err["K12"],
          "ms": k12[False]["ms"], "plain_ms": k12[False]["plain_ms"],
          "bound_ms": k12[False]["bound"][0], "bound_by": k12[False]["bound"][1],
-         "library_ms": k12[False]["lib_ms"]},
+         "library_ms": k12[False]["lib_ms"],
+         "product": {mode: {"kernel": "stream_wgmma_kernel", "ms": r["ms"],
+                            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                            "bound_by": r["bound"][1], "library_ms": None}
+                     for mode, r in (("int8", k12[True]), ("bf16", k12["bf16"]))}},
         {"name": "_dma_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:273",
@@ -3092,7 +3180,10 @@ def main() -> None:
          "launches": probe_launches["K14"], "max_abs_err": probe_err["K14"],
          "ms": k14["int8 mma"]["ms"], "plain_ms": k14["int8 mma"]["plain_ms"],
          "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "kernel": "gemm_rate_wgmma_kernel",
+         "modes": {key: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                         "bound_by": r["bound"][1], "library_ms": None}
+                   for key, r in k14.items()}},
     ]
     # K3's fp32 mode: its launches are the whole L2 ground truth's (setup, k=10).
     kernels.append({

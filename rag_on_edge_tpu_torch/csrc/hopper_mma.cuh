@@ -2,8 +2,10 @@
 // K8's bf16 mode (tiled_matmul.cu), K5's bf16 and int8 modes
 // (bruteforce_accum.cu), K3's bf16 and int8 modes (bruteforce_fused.cu),
 // K1's int8 and bf16 modes (ivf_accum_planes.cu) and K4's, K6's and K7's
-// int8 modes and K6's and K7's bf16 modes (ivf_grouped_scan.cu); K2
-// (fused_topk.cu) takes the mbarrier helpers for its bulk row copies.
+// int8 modes and K6's and K7's bf16 modes (ivf_grouped_scan.cu), and the
+// tensor-core paths of the probes K12 and K14 (hw_probe.cu); K2
+// (fused_topk.cu) takes the mbarrier helpers for its bulk row copies, K13
+// (hw_probe.cu) for its ring.
 //
 // - mbarrier helpers: init, a parity wait (as a C++ loop, and as one PTX
 //   loop), a plain arrive and the producer's arrive with an expected
@@ -18,7 +20,8 @@
 //   N-contiguous in device memory, and for N = 16 and 32 with A MN-major
 //   (the transpose-A bit) and B K-major; wgmma.mma_async m64nNk32 s8 -> s32 for
 //   N = 16, 32, 64 and 128, with A and B both K-major (8-bit operands have
-//   no transpose bit); a copy of a fragment;
+//   no transpose bit); m64n128k32 s8 and m64n128k16 bf16 with A in
+//   registers (K14's twisted resident operand); a copy of a fragment;
 // - the in-shared transpose of an N-major int8 slab unit, as TMA lands it,
 //   into the K-major swizzled tile an 8-bit wgmma operand must be (K1's B,
 //   K4's, K6's and K7's A);
@@ -368,15 +371,84 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same products with A in registers (K-major: the only layout an
+// 8-bit A takes from registers): thread t of the warpgroup gives, for its
+// rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, the four 32-bit words of
+// one 32-byte k-step {row r bytes 4 (t % 4) .. +3, row r + 8 the same,
+// row r bytes 16 + 4 (t % 4) .. +3, row r + 8 the same} (for bf16, bytes
+// of the two elements 2 (t % 4), +1 and 8 + 2 (t % 4), +1): the layout of
+// mma.sync's m16n8k32 / m16n8k16 A fragment, one warp a 16-row slice.
+// The registers must not change until the group that reads them retires.
+// D[64 x 128] (s32) = A[64 x 32] (registers) @ B[32 x 128] (K-major),
+// plus D where `accumulate` is not 0 (the instruction of CUTLASS's 64x128x32
+// S32S8S8 RS_TN GMMA atom).
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int32_t (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (f32) = A[64 x 16] (registers) @ B[16 x 128] (MN-major: the
+// transpose-B bit), bf16, plus D where `accumulate` is not 0 (the
+// instruction of CUTLASS's 64x128x16 F32BF16BF16 RS GMMA atom, tnspB set).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // Transpose one int8 unit of a slab [d, blk] (N-major, the JAX layout) for
 // wgmma, by a CTA of 256 threads: `raw` holds four TMA boxes [128 d][16 bins]
-// (box g: bins 16g..16g+15), `bk` receives [64 bins][128 d] K-major in the
+// (box g: bins 16g..16g+15, `box_words` 32-bit words apart: 512 as TMA
+// lands them, 516 where K12 pads a box so that a row's chunks written side
+// by side fall on distinct banks), `bk` receives [64 bins][128 d] K-major in the
 // 128-byte swizzle (16-byte chunk j of bin row n at j ^ (n % 8)).  Thread
 // (warp, lane) takes bin quad m = 2 warp + lane % 2 and d quads q = lane / 2
 // and q + 16: four words, a 4 x 4 byte tile, per quad.  It loads row 4q + (k
 // ^ r) as word k, r = (q / 2) % 4, so a warp's loads spread over the banks
 // (two-way); the selectors undo the rotation.
-__device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw, uint8_t* bk) {
+__device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw, uint8_t* bk,
+                                               int box_words = 512) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m = (warp << 1) | (lane & 1);
   const int g = m >> 2, w = m & 3;
@@ -390,7 +462,7 @@ __device__ __forceinline__ void transpose_unit(const uint32_t* __restrict__ raw,
     const int q = (lane >> 1) + 16 * a;
     uint32_t x[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) x[k] = raw[g * 512 + (4 * q + (k ^ r)) * 4 + w];
+    for (int k = 0; k < 4; ++k) x[k] = raw[g * box_words + (4 * q + (k ^ r)) * 4 + w];
     const uint32_t lo0 = __byte_perm(x[0], x[1], s1lo), hi0 = __byte_perm(x[0], x[1], s1hi);
     const uint32_t lo1 = __byte_perm(x[2], x[3], s1lo), hi1 = __byte_perm(x[2], x[3], s1hi);
     const uint32_t out[4] = {__byte_perm(lo0, lo1, s2a), __byte_perm(lo0, lo1, s2b),

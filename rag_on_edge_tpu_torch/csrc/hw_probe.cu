@@ -5,12 +5,14 @@
 //                      step (a CTA, or one turn of an in-kernel loop).
 // K12 _stream_probe    a walk over [nblocks, d, blk] int8/bf16 tiles, fat
 //                      blocks a step, each step max-reduced (optionally
-//                      through a product with a resident x [m, d]).
+//                      through a product with a resident x [m, d], on the
+//                      tensor cores through wgmma).
 // K13 _dma_probe       the same walk through a ring of `depth` bulk async
 //                      copies (cp.async.bulk, TMA's 1-D copy) per CTA.
 // K14 _gemm_rate_probe g steps of a resident [tb, d] x [d, tn] product, A
 //                      twisted each step: the in-kernel matrix rate, on the
-//                      tensor cores (mma.sync) or, for int8, on __dp4a.
+//                      tensor cores through wgmma (A in registers) or, for
+//                      int8, on __dp4a.
 //
 // What each returns is the JAX function's value: K11 twice the last step's
 // tile; K12 the last step's max (the TPU output window is pinned, so the
@@ -21,9 +23,16 @@
 // hold those buffers whole against the plain versions.
 //
 // What bounds each on the H100: K11 nothing but its fixed costs (it moves
-// 4 KB a step); K12 without the product and K13 device memory (3.35 TB/s);
-// K12's product and K14 the tensor-core rate (int8 1979 T ops/s, bf16 989
-// TFLOP/s) or, on the dp4a unit, the 32-bit integer pipe.
+// 4 KB a step: its gap to the byte bound is the quantity it reports); K12
+// without the product and K13 device memory (3.35 TB/s); K12 with the
+// product device memory too (at d = 128 the product is ~0.07 ms of
+// tensor-core time on a 512 MB walk, the bytes 0.16 ms), so its design is
+// a deep cp.async ring with two CTAs an SM, the product and the int8
+// transpose of each unit overlapped with the bytes of the next; K14 the
+// tensor-core rate (int8 1979 T ops/s, bf16 989 TFLOP/s), so its design
+// keeps both operands resident (A in registers, B in shared memory), two
+// accumulator sets and RING groups in flight, the fold of one step under
+// the next step's groups; on the dp4a unit, the 32-bit integer pipe.
 //
 // How the TPU grid maps onto the card (dimension_semantics):
 // - "parallel" and None: one CTA per step; CTAs run in no order.
@@ -32,28 +41,29 @@
 //   (K12).
 // Shared memory is the constraint the TPU's VMEM is not: one TPU block
 // (128 x 2048 int8, 256 KB) exceeds a CTA's 227 KB, so K12 takes a tile in
-// 128-column slices, K13 copies 16 KB slices of the walk into its ring, and
-// K14 splits v's columns (and q's rows) across CTAs, each CTA holding one
-// 128 x 128 unit of the product resident and taking every R-th step.
+// 16 KB units (128 columns by 128 bytes of d), K13 copies 16 KB slices of
+// the walk into its ring, and K14 splits v's columns (and q's rows) across
+// CTAs, each CTA holding one 128 x 128 unit of the product resident and
+// taking every R-th step.
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_frag.cuh"
+#include "ffma_tile.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
+
+enum class Elem { kI8, kBF16 };
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BM = 128, BN = 128;    // product unit per CTA (K12, K14)
-constexpr int TILE_WORDS = BM * KW;  // one swizzled [128][16]-word operand tile
 constexpr int STAGE = 16384;         // bytes of one K13 ring stage
 constexpr int MAX_DEPTH = 8;         // K13 ring stages
 constexpr float NEG_INF = -__builtin_huge_valf();
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 // Max over the warp; every lane gets the result.
 __device__ __forceinline__ float warp_max(float v) {
@@ -223,259 +233,452 @@ __global__ void __launch_bounds__(THREADS) stream_max_kernel(const uint8_t* __re
   }
 }
 
-// ------------------------------------------------------- K12 / K14 mma
+// ----------------------------------------------------- K12 / K14 wgmma
 
-// Fill nkt swizzled A tiles from rows [r0, r0 + 128) of a row-major
-// [rows, kbytes] operand (kbytes a multiple of 4); zero past the edges.
-__device__ __forceinline__ void load_a_tiles(uint32_t* tiles, const uint8_t* a, int r0, int rows,
-                                             int kbytes, int nkt) {
-  for (int e = threadIdx.x; e < nkt * BM * KW; e += THREADS) {
-    const int gw = e % (nkt * KW), row = e / (nkt * KW);  // K word fastest: coalesced
-    const int r = r0 + row;
-    const uint32_t v = (r < rows && gw * 4 < kbytes)
-                           ? *reinterpret_cast<const uint32_t*>(a + (size_t)r * kbytes + gw * 4)
-                           : 0u;
-    tiles[(gw / KW) * TILE_WORDS + swz(row, gw % KW)] = v;
-  }
+constexpr int UNIT = 16384;             // a [128][128-byte] operand tile; a K12 ring stage
+constexpr int RAW_BOX = 2064;           // K12 int8: a [128 d][16 B] box, padded by 16 bytes
+constexpr int RAW_UNIT = 8 * RAW_BOX;   // K12 int8: a ring stage of eight such boxes
+constexpr int MAX_STAGES = 8;           // K12 ring stages
+// K12's dynamic shared memory for two CTAs an SM (half the SM's 228 KB,
+// less the 1 KB the card keeps per CTA and room for the static part), and
+// for one.
+constexpr int SMEM_TWO = 233472 / 2 - 1024 - 256;
+constexpr int SMEM_ONE = 232448 - 256;
+constexpr uint32_t ONES = 0x01010101u;  // the int8 twist: four 1s
+
+template <typename Acc>
+__device__ __forceinline__ Acc lowest();
+template <>
+__device__ __forceinline__ int32_t lowest<int32_t>() {
+  return INT32_MIN;
+}
+template <>
+__device__ __forceinline__ float lowest<float>() {
+  return NEG_INF;
 }
 
-// Fill nkt swizzled B^T tiles from columns [n0, n0 + 128) of a row-major
-// [k, n] operand, P K-rows to a word; zero past the edges.
-template <Elem E>
-__device__ __forceinline__ void load_bt_tiles(uint32_t* tiles, const uint8_t* b, int n0, int n,
-                                              int k, int nkt) {
-  constexpr int ES = Mma<E>::kEs, P = 4 / ES;
-  for (int e = threadIdx.x; e < nkt * KW * BN; e += THREADS) {
-    const int col = e % BN, gw = e / BN;  // column fastest: coalesced
-    uint32_t v = 0;
+// A fold's max as f32 (int8: the integer max, converted once; no entry:
+// -inf).
+__device__ __forceinline__ float to_f32(int32_t v) { return v == INT32_MIN ? NEG_INF : (float)v; }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// One accumulator read through a move, after its groups retired: code that
+// reads the fragment itself has ptxas serialize the wgmma groups.
+__device__ __forceinline__ int32_t acc_mov(int32_t x) {
+  int32_t y;
+  asm volatile("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+__device__ __forceinline__ float acc_mov(float x) {
+  float y;
+  asm volatile("mov.b32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int32_t max3(int32_t a, int32_t b, int32_t c) {
+  return __vimax3_s32(a, b, c);  // one DPX instruction on Hopper
+}
+__device__ __forceinline__ float max3(float a, float b, float c) { return fmaxf(fmaxf(a, b), c); }
+
+// This thread's max of a retired m64n128 fragment over the tile's rows
+// below `rows` and columns below `cols` (FULL: the whole tile, no test);
+// `r` is this thread's first row (entry i: row r + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (t % 4) + i % 2).  With `sel`, each row's max first,
+// across the quad of threads that holds the row, as the TPU's per-row
+// reduction does; the value is the same.
+template <bool FULL, typename Acc>
+__device__ __forceinline__ Acc fold_max(const Acc (&d)[64], int r, int rows, int cols, bool sel) {
+  const int c0 = 2 * (threadIdx.x & 3);
+  Acc m = lowest<Acc>();
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const int kr = gw * P + i;
-      if (kr < k && n0 + col < n) {
-        const uint8_t* src = b + ((size_t)kr * n + n0 + col) * ES;
-        const uint32_t x =
-            ES == 1 ? (uint32_t)*src : (uint32_t)*reinterpret_cast<const uint16_t*>(src);
-        v |= x << (8 * ES * i);
+  for (int h = 0; h < 2; ++h) {
+    const bool row_ok = FULL || r + 8 * h < rows;
+    Acc rm = lowest<Acc>();
+#pragma unroll
+    for (int i = 2 * h; i < 64; i += 4) {
+      const Acc v0 = acc_mov(d[i]), v1 = acc_mov(d[i + 1]);
+      if constexpr (FULL) {
+        rm = max3(rm, v0, v1);
+      } else {
+        const int col = 8 * (i / 4) + c0;
+        if (row_ok && col < cols) rm = max(rm, v0);
+        if (row_ok && col + 1 < cols) rm = max(rm, v1);
       }
     }
-    tiles[(gw / KW) * TILE_WORDS + swz(col, gw % KW)] = v;
+    if (sel) {
+      rm = max(rm, __shfl_xor_sync(0xffffffffu, rm, 1));
+      rm = max(rm, __shfl_xor_sync(0xffffffffu, rm, 2));
+    }
+    m = max(m, rm);
   }
-}
-
-template <Elem E>
-using Acc = typename Mma<E>::Acc;
-
-template <Elem E>
-__device__ __forceinline__ void zero(Acc<E> (&acc)[4][4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = Acc<E>(0);
-}
-
-// A warp's 64 x 32 of the 128 x 128 unit over one 64-byte K tile (K8's
-// fragment loop).  `twist` edits each A fragment before its products.
-template <Elem E, typename Twist>
-__device__ __forceinline__ void mma_tile(Acc<E> (&acc)[4][4][4], const uint32_t* as,
-                                         const uint32_t* bs, Twist twist) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int s = 0; s < KW / 8; ++s) {
-    uint32_t af[4][4], bf[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      ldsm_x4(af[mt], as + swz(wm * 64 + mt * 16 + (lane & 15), 4 * (2 * s + (lane >> 4))));
-      twist(af[mt], mt);
-    }
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t r[4];
-      ldsm_x4(r, bs + swz(wn * 32 + np * 16 + (lane & 7) + 8 * (lane >> 4),
-                          4 * (2 * s + ((lane >> 3) & 1))));
-      bf[2 * np][0] = r[0];
-      bf[2 * np][1] = r[1];
-      bf[2 * np + 1][0] = r[2];
-      bf[2 * np + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) Mma<E>::run(acc[mt][nt], af[mt], bf[nt]);
-  }
-}
-
-// This thread's max of the accumulators inside [rows) x [cols) of the unit
-// at (m0, n0).  With `sel`, each row's max first (across the quad of
-// threads that holds the row), as the TPU's per-row reduction does; the
-// value is the same.
-template <Elem E>
-__device__ __forceinline__ float fold_max(const Acc<E> (&acc)[4][4][4], int m0, int rows, int n0,
-                                          int cols, bool sel) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, tg = lane & 3;
-  float m = NEG_INF;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool row_ok = m0 + wm * 64 + mt * 16 + g + 8 * h < rows;
-      float rm = NEG_INF;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const bool ok = row_ok && n0 + wn * 32 + nt * 8 + 2 * tg + c < cols;
-          if (ok) rm = fmaxf(rm, (float)acc[mt][nt][2 * h + c]);
-        }
-      if (sel) {
-        rm = fmaxf(rm, __shfl_xor_sync(0xffffffffu, rm, 1));
-        rm = fmaxf(rm, __shfl_xor_sync(0xffffffffu, rm, 2));
-      }
-      m = fmaxf(m, rm);
-    }
   return m;
 }
 
-// K12 with the product: steps[s] = max over step s's fat tiles of
-// max(x @ tile), x [m <= 128, d] resident in shared memory, each tile
-// [d, blk] taken in 128-column slices, 64 bytes of K at a time, through a
-// register-staged double buffer (K8's loop) over the step's whole
-// (tile, slice, K tile) sequence.
-template <Elem E>
-__global__ void __launch_bounds__(THREADS, 2)
-stream_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ data,
-                   float* __restrict__ steps, int m, int d, int blk, int fat, int g,
-                   int persistent) {
-  constexpr int ES = Mma<E>::kEs;
-  constexpr int P = 4 / ES;
-  constexpr int NCG = BN * ES / 4;          // column words of a B slice row
-  constexpr int NBLK = KW * NCG / THREADS;  // B word-blocks per thread
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int kbytes = d * ES, nkt = (kbytes + KB - 1) / KB;
-  uint32_t* xs = smem;
-  uint32_t* bsm = smem + nkt * TILE_WORDS;
-  load_a_tiles(xs, x, 0, m, kbytes, nkt);
-  __syncthreads();
+__device__ __forceinline__ uint8_t* align_1k(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
 
-  const int tid = threadIdx.x;
-  const int nsl = (blk + BN - 1) / BN, nu = fat * nsl * nkt;
-  const size_t tile_bytes = (size_t)d * blk * ES, b_pitch = (size_t)blk * ES;
-  uint32_t rb[NBLK][P];
-  const uint8_t* base = data;
-
-  auto load_b = [&](int u) {
-    const int kt = u % nkt, r = u / nkt;
-    const int n0 = (r % nsl) * BN;
-    const uint8_t* b = base + (size_t)(r / nsl) * tile_bytes;
-#pragma unroll
-    for (int j = 0; j < NBLK; ++j) {
-      const int bi = tid + THREADS * j, bl = bi & 31, bw = bi >> 5;
-      const int kw = (bl & 3) + 4 * (bw & 3), cg = (bl >> 2) + 8 * (bw >> 2);
-      const size_t cb = (size_t)n0 * ES + cg * 4;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int kr = kt * (KB / ES) + kw * P + i;
-        rb[j][i] = (kr < d && cb < b_pitch)
-                       ? *reinterpret_cast<const uint32_t*>(b + (size_t)kr * b_pitch + cb)
-                       : 0u;
-      }
-    }
-  };
-  auto store_b = [&](int buf) {
-    uint32_t* bs = bsm + buf * TILE_WORDS;
-#pragma unroll
-    for (int j = 0; j < NBLK; ++j) {
-      const int bi = tid + THREADS * j, bl = bi & 31, bw = bi >> 5;
-      const int kw = (bl & 3) + 4 * (bw & 3), cg = (bl >> 2) + 8 * (bw >> 2);
-      uint32_t o[P];
-      BStage<P>::transpose(rb[j], o);
-#pragma unroll
-      for (int cc = 0; cc < P; ++cc) bs[swz(cg * P + cc, kw)] = o[cc];
-    }
-  };
-  auto no_twist = [](uint32_t(&)[4], int) {};
-
-  int s0, s1;
-  step_range(g, persistent, &s0, &s1);
-  Acc<E> acc[4][4][4];
-  for (int s = s0; s < s1; ++s) {
-    base = data + (size_t)s * fat * tile_bytes;
-    float mx = NEG_INF;
-    zero<E>(acc);
-    load_b(0);
-    store_b(0);
-    __syncthreads();
-    for (int u = 0; u < nu; ++u) {
-      const int cur = u & 1, kt = u % nkt;
-      const bool more = u + 1 < nu;
-      if (more) load_b(u + 1);
-      mma_tile<E>(acc, xs + kt * TILE_WORDS, bsm + cur * TILE_WORDS, no_twist);
-      if (kt == nkt - 1) {
-        mx = fmaxf(mx, fold_max<E>(acc, 0, m, ((u / nkt) % nsl) * BN, blk, false));
-        zero<E>(acc);
-      }
-      if (more) store_b(cur ^ 1);
-      __syncthreads();
-    }
-    mx = block_max(mx);
-    if (tid == 0) steps[s] = mx;
+// Wait until at most n (0..MAX_STAGES - 1) of this thread's groups are
+// pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
 }
 
-// K14 on the tensor cores.  CTA c holds unit c % U of the product (a 128-row
-// tile of q, a 128-column tile of v, whole K) in shared memory and takes
-// steps c / U, c / U + R, ...  Each step twists A (int8: row (i % tb) set to
-// 1; bf16: every element times bf16(1 + i), rounded to bf16), runs the
-// unit's product, and each warp writes its max of it to
-// sink[i][unit][warp]: every step, unit and warp once across the grid.
-template <Elem E>
+// K12 with the product: steps[s] = max over step s's fat tiles of
+// max(x @ tile), x [m <= 128, d] resident, tile [d, blk].  The CTA's walk
+// is a list of units (step, tile, 128-column slice, 128 bytes of d: int8
+// 128 d, bf16 64 d), 16 KB each, through a ring of `stages` stages filled
+// by cp.async, each thread's pieces of a unit one group (16-byte pieces
+// where the row pitch blk·es and the base allow, 4-byte pieces otherwise;
+// rows past d and columns past blk arrive as zeros); the ring runs across
+// step boundaries.  The bytes bound it, so the ring is as deep as two CTAs
+// an SM leave room for (a CTA per step: one CTA's start hides under the
+// other's walk), or one (the persistent grid).  x is wgmma's A, K-major as
+// it lies (two warpgroups of 64 rows, a 128-byte-swizzled tile per unit of
+// d, landed by cp.async in the first unit's group); each unit is four
+// k-steps of m64n128k32 s8 / m64n128k16 bf16.  bf16 reads the unit N-major
+// through the transpose-B bit.  int8 has no transpose bit: the unit lands
+// as eight [128 d][16 column] boxes (each padded by 16 bytes, so that a
+// row's 128 bytes, landed side by side, fall on eight bank groups) and
+// transpose_unit (K1's) turns it K-major into one of two buffers while the
+// previous unit's groups run; its stage is refilled as soon as it is
+// transposed, a unit earlier than bf16's.  A slice's fragment is folded
+// into the step's max (rows below m, columns below blk; no test where
+// there are none) through moves, the step's max reduced over the CTA and
+// written.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-gemm_rate_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
-                     float* __restrict__ sink, int tb, int tn, int d, int g, int units, int reps,
-                     int sel) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  constexpr int ES = Mma<E>::kEs;
-  const int kbytes = d * ES, nkt = (kbytes + KB - 1) / KB;
-  const int unit = blockIdx.x % units, r = blockIdx.x / units;
+stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ data,
+                    float* __restrict__ steps, int m, int d, int blk, int fat, int g,
+                    int persistent, int stages, int vec16) {
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
+  using Acc = std::conditional_t<INT8, int32_t, float>;
+  constexpr int ES = sizeof(T);
+  constexpr int KD = 128 / ES;    // d of a unit
+  constexpr int CH = 8 * ES;      // 16-byte chunks of a unit row (128 columns)
+  int s0, s1;
+  step_range(g, persistent, &s0, &s1);
+  const int kbytes = d * ES, nku = (kbytes + 127) / 128, nsl = (blk + BN - 1) / BN;
+  const int per_step = fat * nsl * nku, nu = (s1 - s0) * per_step;
+  if (nu == 0) return;
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int SST = INT8 ? RAW_UNIT : UNIT;     // bytes of a stage
+  uint8_t* const xs = align_1k(smem_raw);          // x: nku [128 rows][128 B] tiles
+  uint8_t* const ring = xs + nku * UNIT;           // the stages
+  uint8_t* const bk = ring + ((stages * SST + 1023) & ~1023);  // int8: two K-major units
+  const uint32_t xsa = smem_u32(xs), ringa = smem_u32(ring), bka = smem_u32(bk);
+  const size_t pitch = (size_t)blk * ES, tile_bytes = (size_t)d * pitch;
+
+  // A position in the walk: the step's tile f, 128-column slice sl and
+  // 128 bytes of d ku, innermost last; the walk's units in order.
+  struct Pos {
+    int s, f, sl, ku;
+  };
+  auto next = [&](Pos& p) {
+    if (++p.ku < nku) return;
+    p.ku = 0;
+    if (++p.sl < nsl) return;
+    p.sl = 0;
+    if (++p.f < fat) return;
+    p.f = 0;
+    ++p.s;
+  };
+  // Where 16-byte chunk c of row rr of a unit lands in its stage: int8 in
+  // box c ([128 d][16 B], transpose_unit's input; the 16-byte pad puts a
+  // row's 8 chunks on 8 bank groups), bf16 in N-half c / 8 ([64 d][128 B]),
+  // chunk c % 8 swizzled by rr.
+  auto chunk_at = [](int rr, int c) {
+    return INT8 ? c * RAW_BOX + rr * 16 : (c >> 3) * 8192 + rr * 128 + (((c & 7) ^ (rr & 7)) << 4);
+  };
+  // Issue the pieces of the unit at `pp` (nothing past the walk) into stage
+  // `pst`, then advance both.
+  Pos pp{s0, 0, 0, 0};
+  int pst = 0;
+  auto load = [&]() {
+    if (pp.s < s1) {
+      const uint8_t* src = data + ((size_t)pp.s * fat + pp.f) * tile_bytes +
+                           (size_t)pp.ku * KD * pitch + (size_t)pp.sl * BN * ES;
+      const int colb = (blk - pp.sl * BN) * ES;  // valid bytes of the slice's rows
+      const int rows = min(KD, d - pp.ku * KD);  // valid d of the unit
+      const uint32_t dst = ringa + pst * SST;
+      if (vec16) {
+        for (int e = threadIdx.x; e < KD * CH; e += THREADS) {
+          const int c = e % CH, rr = e / CH;  // a row's 128 (int8) or 256 bytes, side by side
+          const bool ok = rr < rows && 16 * c < colb;
+          ffma::cp_async_16(dst + chunk_at(rr, c), ok ? src + rr * pitch + 16 * c : data,
+                            ok ? 16 : 0);
+        }
+      } else {
+        for (int e = threadIdx.x; e < KD * CH * 4; e += THREADS) {
+          const int w = e % (CH * 4), rr = e / (CH * 4);
+          const bool ok = rr < rows && 4 * w < colb;
+          ffma::cp_async_4(dst + chunk_at(rr, w >> 2) + 4 * (w & 3),
+                           ok ? src + rr * pitch + 4 * w : data, ok ? 4 : 0);
+        }
+      }
+      next(pp);
+    }
+    pst = pst + 1 == stages ? 0 : pst + 1;
+  };
+  // Make the unit in stage `st` ready: its pieces (and, first, x's words)
+  // landed for every thread; int8 transposes it into buffer `buf`.
+  auto prep = [&](int st, int buf, int pending) {
+    cp_async_wait(pending);
+    fence_proxy_async();
+    __syncthreads();
+    if constexpr (INT8) {
+      const auto* raw = reinterpret_cast<const uint32_t*>(ring + st * SST);
+      uint8_t* dst = bk + buf * UNIT;
+      transpose_unit(raw, dst, RAW_BOX / 4);
+      transpose_unit(raw + RAW_BOX, dst + 8192, RAW_BOX / 4);
+    }
+  };
+
+  // x, once, by 4-byte cp.async pieces in the first unit's group: word w of
+  // row r at 16-byte chunk (w % 32) / 4 ^ (r % 8) of its tile.
+  for (int e = threadIdx.x; e < BM * nku * 32; e += THREADS) {
+    const int w = e % (nku * 32), row = e / (nku * 32);
+    const bool ok = row < m && 4 * w < kbytes;
+    ffma::cp_async_4(xsa + (w / 32) * UNIT + row * 128 + ((((w % 32) >> 2) ^ (row & 7)) << 4) +
+                         (w & 3) * 4,
+                     ok ? x + (size_t)row * kbytes + 4 * w : x, ok ? 4 : 0);
+  }
+  // Unit k's pieces are cp.async group k.  int8 refills a stage once its
+  // unit is transposed, one unit earlier than bf16, whose wgmma reads the
+  // stage itself: `lead` more units in flight.
+  constexpr int lead = INT8 ? 1 : 0;
+  for (int j = 0; j < stages; ++j) {
+    load();
+    ffma::commit();
+  }
+  prep(0, 0, stages - 1);
+  fence_proxy_async();
+  __syncthreads();
+  if constexpr (INT8) {
+    load();
+    ffma::commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  const int r = wg * 64 + 16 * (warp & 3) + (lane >> 2);  // this thread's first row
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  Acc mx = lowest<Acc>();
+  Pos cp{s0, 0, 0, 0};  // the unit the product takes
+  int cst = 0;          // its stage
+  for (int u = 0; u < nu; ++u) {
+    const uint32_t sa = xsa + cp.ku * UNIT + wg * 8192;
+    const uint32_t sb = INT8 ? bka + (u & 1) * UNIT : ringa + cst * SST;
+    fence_acc(acc);
+    wgmma_fence();
+    // A and int8 B: 128-byte rows, 8-row groups 1 KB apart, a k-step 32
+    // bytes along the row; bf16 B: 128-byte d rows, a k16 step 16 rows (2
+    // KB), the N-halves 8 KB apart.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (INT8)
+        wgmma_m64n128k32_s8(acc, gmma_desc(sa + kk * 32, 16, 1024),
+                            gmma_desc(sb + kk * 32, 16, 1024), cp.ku + kk);
+      else
+        wgmma_m64n128k16(acc, gmma_desc(sa + kk * 32, 16, 1024),
+                         gmma_desc(sb + kk * 2048, 8192, 1024), cp.ku + kk);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    const int nst = cst + 1 == stages ? 0 : cst + 1;
+    if (u + 1 < nu) prep(nst, (u + 1) & 1, stages - 2 + lead);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    const Pos at = cp;
+    next(cp);
+    if (cp.ku == 0) {  // the slice's last unit
+      const int cols = blk - at.sl * BN;
+      mx = max(mx, m == BM && cols >= BN ? fold_max<true>(acc, r, 0, 0, false)
+                                         : fold_max<false>(acc, r, m, cols, false));
+      if (cp.s != at.s) {  // the step's last slice
+        const float sm = block_max(to_f32(mx));
+        if (threadIdx.x == 0) steps[at.s] = sm;
+        mx = lowest<Acc>();
+      }
+    }
+    fence_proxy_async();  // int8: the transposed unit u + 1
+    __syncthreads();      // buffer u & 1 is free, and stage cst (int8: nst)
+    load();
+    ffma::commit();
+    cst = nst;
+  }
+}
+
+// K14 on the tensor cores.  CTA c holds unit c % U of the product (a
+// 128-row tile of q, 64 rows a warpgroup; a 128-column tile of v; all of
+// K, NKT k-steps of 32 bytes) and takes steps c / U, c / U + R, ...  Each
+// warpgroup keeps its rows' wgmma A fragment of every k-step in registers,
+// loaded once from device memory (K-major, as q's rows lie); B stays in
+// shared memory (int8: K-major, v transposed once on its way in; bf16:
+// N-major, read through the transpose-B bit).  A step twists a copy of A
+// (int8: row i % tb set to 1; bf16: every element times bf16(1 + i),
+// rounded to bf16) into a ring of RING k-step fragments and issues one
+// group a k-step (m64n128k32 s8 / m64n128k16 bf16, A from registers); a
+// slot is rewritten once the group that read it, RING groups back, has
+// retired.  Steps alternate between two accumulator sets: the wait before
+// step i+1's RING-th group retires step i's last, whose fragment is then
+// folded (on int32 for int8) while step i+1's groups run.  Each warp
+// writes its max of each step's unit to sink[i][unit][warp].
+template <typename T, int NKT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_rate_wgmma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
+                       float* __restrict__ sink, int tb, int tn, int d, int g, int units,
+                       int reps, int sel) {
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
+  using Acc = std::conditional_t<INT8, int32_t, float>;
+  // Groups in flight: a divisor of NKT, so that k-step k always takes slot
+  // k % RING; fewer past 12 k-steps, where A's registers leave no room.
+  constexpr int RING = NKT % 4 == 0 && NKT <= 12 ? 4
+                       : NKT % 2 == 0 && NKT <= 14 ? 2
+                       : NKT <= 7 ? NKT : 1;
+  constexpr int HALF = NKT * 2048;  // bf16: an N-half of B, [16 NKT d][128 B]
+  const int unit = blockIdx.x % units, rep = blockIdx.x / units;
+  if (rep >= g) return;
   const int mtiles = (tb + BM - 1) / BM;
   const int m0 = (unit % mtiles) * BM, n0 = (unit / mtiles) * BN;
-  uint32_t* as = smem;
-  uint32_t* bs = smem + nkt * TILE_WORDS;
-  load_a_tiles(as, q, m0, tb, kbytes, nkt);
-  load_bt_tiles<E>(bs, v, n0, tn, d, nkt);
+  const int kbytes = d * (int)sizeof(T);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const bs = align_1k(smem_raw);
+  const uint32_t bsa = smem_u32(bs);
+
+  // B, once.  int8: word kw of column n (its d 4 kw .. 4 kw + 3) in the
+  // K-major tile of its 128 bytes of d; bf16: element (k, n) in N-half n /
+  // 64, row k, its 16-byte chunk swizzled by k.
+  if constexpr (INT8) {
+    for (int e = threadIdx.x; e < BN * NKT * 8; e += THREADS) {
+      const int n = e % BN, kw = e / BN, kb = 4 * kw;
+      uint32_t w = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (kb + i < d && n0 + n < tn)
+          w |= (uint32_t)v[(size_t)(kb + i) * tn + n0 + n] << (8 * i);
+      *reinterpret_cast<uint32_t*>(bs + (kb >> 7) * UNIT + n * 128 +
+                                   ((((kb & 127) >> 4) ^ (n & 7)) << 4) + (kb & 15)) = w;
+    }
+  } else {
+    for (int e = threadIdx.x; e < NKT * 16 * BN; e += THREADS) {
+      const int n = e % BN, k = e / BN, c = n & 63;
+      const uint16_t x = k < d && n0 + n < tn
+                             ? reinterpret_cast<const uint16_t*>(v)[(size_t)k * tn + n0 + n]
+                             : (uint16_t)0;
+      *reinterpret_cast<uint16_t*>(bs + (n >> 6) * HALF + k * 128 + (((c >> 3) ^ (k & 7)) << 4) +
+                                   (c & 7) * 2) = x;
+    }
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = m0 + (warp >> 2) * 64 + (lane >> 2);  // + mt * 16 (+ 8)
-  Acc<E> acc[4][4][4];
-  for (int i = r; i < g; i += reps) {
-    zero<E>(acc);
-    if constexpr (E == Elem::kI8) {
-      const int trow = i % tb;
-      auto twist = [&](uint32_t(&a)[4], int mt) {
-        const int lo = row0 + mt * 16;
-        if (lo == trow) a[0] = a[2] = 0x01010101u;
-        if (lo + 8 == trow) a[1] = a[3] = 0x01010101u;
-      };
-      for (int kt = 0; kt < nkt; ++kt)
-        mma_tile<E>(acc, as + kt * TILE_WORDS, bs + kt * TILE_WORDS, twist);
-    } else {
-      const __nv_bfloat162 s2 = __bfloat162bfloat162(__float2bfloat16_rn((float)(1 + i)));
-      auto twist = [&](uint32_t(&a)[4], int) {
+  // A: rows r0 and r0 + 8 of the product; per k-step {r0 bytes 4 (t % 4)
+  // .., r0 + 8 the same, r0 bytes 16 + 4 (t % 4) .., r0 + 8 the same}.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rl = (warp >> 2) * 64 + 16 * (warp & 3) + (lane >> 2);  // row in the unit
+  const int r0 = m0 + rl;
+  uint32_t a[NKT][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat162 t = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a[j]), s2);
-          a[j] = *reinterpret_cast<const uint32_t*>(&t);
-        }
-      };
-      for (int kt = 0; kt < nkt; ++kt)
-        mma_tile<E>(acc, as + kt * TILE_WORDS, bs + kt * TILE_WORDS, twist);
+  for (int k = 0; k < NKT; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = r0 + 8 * (j & 1), byte = 32 * k + 16 * (j >> 1) + 4 * (lane & 3);
+      a[k][j] = row < tb && byte < kbytes
+                    ? *reinterpret_cast<const uint32_t*>(q + (size_t)row * kbytes + byte)
+                    : 0u;
     }
-    const float mx = warp_max(fold_max<E>(acc, m0, tb, n0, tn, sel != 0));
+
+  uint32_t t[RING][4];
+  Acc acc0[64], acc1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0;
+  // Step i's max of the unit from its retired fragment, a warp's to sink.
+  // A unit with no row or column to mask folds without tests (up to 12
+  // k-steps: past them the second fold's registers would spill).
+  const bool full = NKT <= 12 && m0 + BM <= tb && n0 + BN <= tn;
+  auto emit = [&](Acc(&f)[64], int i) {
+    Acc m;
+    if constexpr (NKT <= 12) {
+      m = full ? fold_max<true>(f, rl, 0, 0, sel != 0)
+               : fold_max<false>(f, rl, tb - m0, tn - n0, sel != 0);
+    } else {
+      m = fold_max<false>(f, rl, tb - m0, tn - n0, sel != 0);
+    }
+    float mx = to_f32(m);
+    mx = warp_max(mx);
     if (lane == 0) sink[((size_t)i * units + unit) * WARPS + warp] = mx;
+  };
+  // Issue step i's groups into `cur`; with `fold` true, fold step ip from
+  // `prv` once the wait before the RING-th group has retired it.
+  auto step = [&](Acc(&cur)[64], int i, Acc(&prv)[64], int ip, auto fold) {
+    // int8: whether rows r0 and r0 + 8 are the twisted row; bf16: the scale.
+    const int trow = i % tb;
+    [[maybe_unused]] const bool tw[2] = {r0 == trow, r0 + 8 == trow};
+    [[maybe_unused]] const __nv_bfloat162 scale =
+        __bfloat162bfloat162(__float2bfloat16_rn((float)(1 + i)));
+    fence_acc(cur);
+#pragma unroll
+    for (int k = 0; k < NKT; ++k) {
+      uint32_t(&tk)[4] = t[k % RING];
+      wgmma_wait<RING - 1>();  // the group that read slot k % RING has retired
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (INT8) {
+          tk[j] = tw[j & 1] ? ONES : a[k][j];
+        } else {
+          const __nv_bfloat162 x =
+              __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a[k][j]), scale);
+          tk[j] = *reinterpret_cast<const uint32_t*>(&x);
+        }
+      }
+      wgmma_fence();
+      if constexpr (INT8)
+        wgmma_m64n128k32_s8_rs(cur, tk, gmma_desc(bsa + (k >> 2) * UNIT + (k & 3) * 32, 16, 1024),
+                               k);
+      else
+        wgmma_m64n128k16_rs(cur, tk, gmma_desc(bsa + k * 2048, HALF, 1024), k);
+      wgmma_commit();
+      if constexpr (decltype(fold)::value) {
+        if (k == RING - 1) {
+          fence_acc(prv);
+          emit(prv, ip);
+        }
+      }
+    }
+    fence_acc(cur);
+  };
+  auto drain = [&](Acc(&f)[64], int i) {
+    wgmma_wait<0>();
+    fence_acc(f);
+    emit(f, i);
+  };
+
+  int i = rep;
+  step(acc0, i, acc1, -1, std::false_type{});
+  for (;;) {
+    const int ip = i;
+    if ((i += reps) >= g) {
+      drain(acc0, ip);
+      break;
+    }
+    step(acc1, i, acc0, ip, std::true_type{});
+    const int iq = i;
+    if ((i += reps) >= g) {
+      drain(acc1, iq);
+      break;
+    }
+    step(acc0, i, acc1, iq, std::true_type{});
   }
 }
 
@@ -563,34 +766,17 @@ gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
 
 // ------------------------------------------------------------------ K13
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
-}
-
 // One thread: expect `bytes` on `bar` and start their bulk copy into
 // shared memory; the copy completes the transaction on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
                                           uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -681,19 +867,28 @@ int launch_stream(const void* x, const void* data, void* steps, int m, int d, in
     if (const int e = sm_count(&sms)) return e;
     grid = (unsigned)min(sms, g);
   }
+  constexpr int ES = Lanes<E>::kEs;
   const auto* dp = static_cast<const uint8_t*>(data);
   if (!gemm) {
-    const size_t step_bytes = (size_t)fat * d * blk * Mma<E>::kEs;
+    const size_t step_bytes = (size_t)fat * d * blk * ES;
     stream_max_kernel<E><<<grid, THREADS, 0, st>>>(dp, static_cast<float*>(steps), g,
                                                    step_bytes, persistent);
   } else {
-    const int nkt = (d * Mma<E>::kEs + KB - 1) / KB;
-    const int smem = (nkt + 2) * TILE_WORDS * 4;
-    static const int smem_err = allow_smem(stream_gemm_kernel<E>);
+    using T = std::conditional_t<E == Elem::kI8, int8_t, __nv_bfloat16>;
+    // x, the ring and (int8) the two transposed units.  A CTA per step:
+    // as many stages as leave two CTAs an SM (one CTA's start under the
+    // other's walk), else one; the persistent grid holds one CTA an SM, so
+    // it takes the deepest ring.
+    const int sst = E == Elem::kI8 ? RAW_UNIT : UNIT;
+    const int fixed = 2048 + (d * ES + 127) / 128 * UNIT + (E == Elem::kI8 ? 2 * UNIT : 0);
+    int stages = persistent ? 0 : min(MAX_STAGES, (SMEM_TWO - fixed) / sst);
+    if (stages < 2) stages = min(MAX_STAGES, (SMEM_ONE - fixed) / sst);
+    static const int smem_err = allow_smem(stream_wgmma_kernel<T>);
     if (smem_err) return smem_err;
-    stream_gemm_kernel<E><<<grid, THREADS, smem, st>>>(static_cast<const uint8_t*>(x), dp,
-                                                       static_cast<float*>(steps), m, d, blk,
-                                                       fat, g, persistent);
+    const int vec16 = (blk * ES) % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+    stream_wgmma_kernel<T><<<grid, THREADS, fixed + stages * sst, st>>>(
+        static_cast<const uint8_t*>(x), dp, static_cast<float*>(steps), m, d, blk, fat, g,
+        persistent, stages, vec16);
   }
   return (int)cudaGetLastError();
 }
@@ -730,6 +925,32 @@ int launch_rate(K kernel, int smem, const void* q, const void* v, void* sink, vo
   max_kernel<<<1, THREADS, 0, st>>>(sp + (size_t)(g - 1) * units * WARPS, units * WARPS,
                                     static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// K14 on wgmma at NKT k-steps of 32 bytes: B in shared memory (int8: a
+// [128][128-byte] tile per 128 bytes of d; bf16: two N-halves of NKT 2 KB).
+template <typename T, int NKT>
+int launch_rate_wgmma(const void* q, const void* v, void* sink, void* out, int tb, int tn, int d,
+                      int g, int reps, int sel, cudaStream_t st) {
+  constexpr int smem = 1024 + (std::is_same_v<T, int8_t> ? (NKT + 3) / 4 * UNIT : NKT * 4096);
+  static const int smem_err = allow_smem(gemm_rate_wgmma_kernel<T, NKT>);
+  if (smem_err) return smem_err;
+  return launch_rate(gemm_rate_wgmma_kernel<T, NKT>, smem, q, v, sink, out, tb, tn, d, g, reps,
+                     sel, st);
+}
+
+// The instance for nkt (1..16) k-steps.
+template <typename T, int... N>
+int launch_rate_nkt(std::integer_sequence<int, N...>, int nkt, const void* q, const void* v,
+                    void* sink, void* out, int tb, int tn, int d, int g, int reps, int sel,
+                    cudaStream_t st) {
+  int err = (int)cudaErrorInvalidValue;
+  auto one = [&](auto n) {
+    err = launch_rate_wgmma<T, decltype(n)::value>(q, v, sink, out, tb, tn, d, g, reps, sel, st);
+    return true;
+  };
+  (void)((nkt == N + 1 && one(std::integral_constant<int, N + 1>{})) || ...);
+  return err;
 }
 
 }  // namespace
@@ -782,25 +1003,19 @@ extern "C" int hw_dma_probe(const void* data, void* partial, void* out, long lon
 extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* sink, void* out, int tb,
                                   int tn, int d, int g, int reps, int sel, int bf16, int dp4a,
                                   void* stream) {
-  if (g <= 0) return (int)cudaErrorInvalidValue;
+  const int nkt = (d * (bf16 ? 2 : 1) + 31) / 32;
+  if (g <= 0 || nkt < 1 || nkt > 16) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  static const int smem_err = [] {
-    int e = allow_smem(gemm_rate_dp4a_kernel);
-    if (!e) e = allow_smem(gemm_rate_mma_kernel<Elem::kI8>);
-    if (!e) e = allow_smem(gemm_rate_mma_kernel<Elem::kBF16>);
-    return e;
-  }();
-  if (smem_err) return smem_err;
   if (dp4a) {
     if (bf16) return (int)cudaErrorInvalidValue;
+    static const int smem_err = allow_smem(gemm_rate_dp4a_kernel);
+    if (smem_err) return smem_err;
     const int smem = 2 * BM * ((((d + 3) / 4 + 3) & ~3) + 4) * 4;
     return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, sink, out, tb, tn, d, g, reps, sel,
                        st);
   }
-  const int es = bf16 ? 2 : 1;
-  const int smem = 2 * ((d * es + KB - 1) / KB) * TILE_WORDS * 4;
-  return bf16 ? launch_rate(gemm_rate_mma_kernel<Elem::kBF16>, smem, q, v, sink, out, tb, tn, d,
-                            g, reps, sel, st)
-              : launch_rate(gemm_rate_mma_kernel<Elem::kI8>, smem, q, v, sink, out, tb, tn, d, g,
-                            reps, sel, st);
+  const auto n = std::make_integer_sequence<int, 16>{};
+  return bf16 ? launch_rate_nkt<__nv_bfloat16>(n, nkt, q, v, sink, out, tb, tn, d, g, reps, sel,
+                                               st)
+              : launch_rate_nkt<int8_t>(n, nkt, q, v, sink, out, tb, tn, d, g, reps, sel, st);
 }

@@ -1,8 +1,7 @@
-// mma.sync fragments shared by the tensor-core kernels: K8's tiled GEMM
-// (tiled_matmul.cu) and the hardware probes K12 and K14 (hw_probe.cu).
+// mma.sync fragments of K8's int8 mode (tiled_matmul.cu, mma_kernel).
 //
 // Operand tiles live in shared memory as [128 rows][16 words] (64 bytes of
-// K a row; a word is 4 int8 or 2 bf16 K-neighbours) with the 4-word group
+// K a row; a word is 4 int8 K-neighbours) with the 4-word group
 // XOR-swizzled by row bits, so ldmatrix.x4 reads A and B^T fragments free
 // of bank conflicts.  B, stored N-contiguous in device memory, is
 // transposed on its way to shared memory (BStage, __byte_perm), because the
@@ -25,7 +24,7 @@ __device__ __forceinline__ int swz(int r, int w) {
   return r * KW + ((((w >> 2) ^ h) << 2) | (w & 3));
 }
 
-enum class Elem { kI8, kBF16 };
+enum class Elem { kI8 };
 
 template <Elem E>
 struct Mma;
@@ -33,27 +32,12 @@ struct Mma;
 template <>
 struct Mma<Elem::kI8> {
   using Acc = int32_t;
-  static constexpr int kEs = 1;  // bytes per element
   __device__ __forceinline__ static void run(Acc (&c)[4], const uint32_t (&a)[4],
                                              const uint32_t (&b)[2]) {
     asm volatile(
         "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
         "{%8,%9}, {%0,%1,%2,%3};\n"
         : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Mma<Elem::kBF16> {
-  using Acc = float;
-  static constexpr int kEs = 2;
-  __device__ __forceinline__ static void run(Acc (&c)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
@@ -82,14 +66,6 @@ struct BStage<4> {  // int8: 4 K-rows x 4 columns -> 4 column words
     o[1] = __byte_perm(lo01, lo23, 0x7632);
     o[2] = __byte_perm(hi01, hi23, 0x5410);
     o[3] = __byte_perm(hi01, hi23, 0x7632);
-  }
-};
-
-template <>
-struct BStage<2> {  // bf16: 2 K-rows x 2 columns -> 2 column words
-  __device__ __forceinline__ static void transpose(const uint32_t (&w)[2], uint32_t (&o)[2]) {
-    o[0] = __byte_perm(w[0], w[1], 0x5410);
-    o[1] = __byte_perm(w[0], w[1], 0x7632);
   }
 };
 

@@ -17,8 +17,9 @@ The probes measure what the port's kernels are judged against:
    a quarter walk of the same array);
 5. ``probe_pallas_gemm`` — kernel K14, g steps of a resident product: the
    slope over g is the in-kernel matrix rate, on the tensor cores
-   (``unit="mma"``) and, for int8, on ``__dp4a`` (the unit the port's
-   scan kernels run on).
+   (``unit="mma"``: ``wgmma``, the instruction the port's int8 and bf16
+   kernels run on) and, for int8, on ``__dp4a`` (which only K9's
+   ``accum_extract_kernel`` still runs on).
 
 Each kernel function keeps the JAX name and arguments.  CPU tensors take
 its plain version (``*_reference``); CUDA tensors launch
@@ -68,10 +69,10 @@ UNITS = ("mma", "dp4a")
 
 _DTYPES = (torch.int8, torch.bfloat16)
 _NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16", torch.float32: "float32"}
-# K12's product and K14 hold 64-byte K tiles of both operands in shared
-# memory: at most 512 bytes of K (8 tiles).  The plain versions take the
-# same limit, under which an int8 product is exact in float32
-# (|sum| <= 512·128·128 = 2**23).
+# K12's product holds x's K in shared memory, K14 its A in registers (a
+# k-step of 32 bytes a template instance): at most 512 bytes of K.  The
+# plain versions take the same limit, under which an int8 product is exact
+# in float32 (|sum| <= 512·128·128 = 2**23).
 _MAX_KBYTES = 512
 # K13's ring: at most 8 stages of 16 KB per CTA.
 _MAX_DEPTH = 8
@@ -253,9 +254,11 @@ def _stream_probe(x, data, blk, fat, gemm, semantics):
     """K12 with the JAX signature → [1] f32; see
     :func:`_stream_probe_reference`.  ``data`` [nblocks, d, blk] int8 or
     bf16, walked ``fat`` blocks a step; with ``gemm`` through a product
-    with ``x`` [m, d] (m <= 128).  On the card, None and "parallel" run a
-    CTA per step, "arbitrary" one CTA per SM walking a contiguous run of
-    steps; each step's max is written, and the last one returned."""
+    with ``x`` [m, d] (m <= 128; on the tensor cores through ``wgmma``,
+    the walk's 16 KB units through a ``cp.async`` ring).  On the card, None
+    and "parallel" run a CTA per step, "arbitrary" one CTA per SM walking a
+    contiguous run of steps; each step's max is written, and the last one
+    returned."""
     _check_semantics(semantics)
     if data.device.type == "cpu":
         if x.device != data.device:
@@ -398,7 +401,10 @@ def _gemm_rate_launch(q, v, g, tb, tn, sel, unit, fill):
         raise ValueError(f"the CUDA K14 takes d·{es} a multiple of 4; got d={d}")
     q, v = _build.aligned(q, 4), _build.aligned(v, 4)
     units = -(-tb // 128) * -(-tn // 128)
-    reps = max(1, 2 * _sms(dev) // units)
+    # CTAs per unit that fill the card once with the CTAs an SM holds:
+    # the wgmma kernel one (its two accumulator sets and resident A take
+    # over 128 registers a thread), the dp4a kernel two.
+    reps = max(1, (1 if unit == "mma" else 2) * _sms(dev) // units)
     sink = fill(g * units * 8, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fn = _kernel("hw_gemm_rate_probe", 4, 8)
@@ -411,9 +417,11 @@ def _gemm_rate_probe(x, q, v, g, tb, tn, sel, unit="mma"):
     """K14 with the JAX signature (and ``unit``, "mma" or "dp4a") → [1]
     f32; see :func:`_gemm_rate_probe_reference`.  On the card each CTA
     holds one 128 x 128 unit of the product (a row tile of q, a column tile
-    of v, whole K) in shared memory and takes every R-th step, R = the CTAs
-    per unit that fill the card twice over; every step's product is
-    computed once across the card, and each warp writes its max of it."""
+    of v, whole K) resident and takes every R-th step, R = the CTAs per
+    unit that fill the card once with the CTAs an SM holds ("mma":
+    ``wgmma`` with A in registers, one CTA an SM; "dp4a": two); every
+    step's product is computed once across the card, and each warp writes
+    its max of it."""
     if q.device.type == "cpu":
         if v.device != q.device or x.device != q.device:
             raise ValueError("all K14 inputs must be on one device")

@@ -2,7 +2,7 @@
 callers give them, beside one PyTorch call of the same product alone, the
 bound, and the whole calls they serve:
 
-    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67 k4k10] [--reps 5]
+    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67 k4k10 probes] [--reps 5]
 
 ``--kernels ffma`` (the default): the fp32 modes of K3, K5 and K1, the
 register-tiled FFMA kernels of ``csrc/ffma_tile.cuh``.  K3: one
@@ -59,6 +59,22 @@ shapes their callers give them:
   fp32 and bf16 on the float indexes, the table at the pitch and
   contiguous; each variant's bound.
 
+``--kernels probes``: the tensor-core paths of the hardware probes at the
+JAX sizes (``harness/hw_probe.py``), each beside its bound and its plain
+version's time:
+
+- K14 (``_gemm_rate_probe``) at (tb, tn) = (256, 2048), d 128, g 2048, in
+  int8 on the tensor cores (``unit="mma"``) and on ``__dp4a``, and in bf16,
+  with its rate (2·tb·d·tn·g over the time) and the slope rate between g
+  512 and 2048 that ``probe_pallas_gemm`` reports;
+- K12 (``_stream_probe``) with the product over the 512 MB walk [2048,
+  128, 2048] int8 and [1024, 128, 2048] bf16, x [128, 128], fat 1, semantics
+  None and "arbitrary", and without it (int8, None).
+
+Their times are device times of 10 calls captured in one CUDA graph
+(``timing.graph_ms``, as ``hw_probe`` times them: a call's Python costs
+more than K14's device time), the median of ``--reps`` such timings.
+
 Bounds (``timing.bound_ms``): the FFMA rate for K3, K5 and K1; for K4, K6,
 K7 and K10 the valid columns of the walked blocks, the routed rows and the top-k
 written, and the products of each walked block's live routed rows (an
@@ -102,7 +118,8 @@ def main(argv=None) -> dict:
     from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67", "k4k10"], default=["ffma"])
+    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67", "k4k10", "probes"],
+                    default=["ffma"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -112,8 +129,11 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    base, queries = make_synthetic(1_000_000, 10_000, 128, 4096, seed=42)
     out = {"card": card, "torch": torch.__version__}
+    if "probes" in args.kernels:
+        out["probes"] = _probes(dev, args.reps)
+    if set(args.kernels) - {"probes"}:
+        base, queries = make_synthetic(1_000_000, 10_000, 128, 4096, seed=42)
     if "ffma" in args.kernels:
         out.update(_ffma(base, queries, dev, args.reps))
     if "k67" in args.kernels:
@@ -122,6 +142,71 @@ def main(argv=None) -> dict:
         out.update(_k4k10(base, queries, dev, args.reps))
     print(json.dumps(out), flush=True)
     return out
+
+
+def _probes(dev, reps: int) -> dict:
+    """K14 and K12 at the JAX sizes (``--kernels probes``)."""
+    from rag_on_edge_tpu_torch.harness import hw_probe
+    from rag_on_edge_tpu_torch.harness.timing import graph_ms
+
+    calls = 10
+
+    def gms(fn):
+        try:
+            return float(np.median([graph_ms(fn, dev, calls=calls) for _ in range(reps)]))
+        except (ValueError, RuntimeError, TypeError) as e:
+            return f"refused: {str(e)[:300]}"
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 127, shape, generator=gen, device=dev, dtype=dtype)
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    out = {}
+    tb, tn, d, g = 256, 2048, 128, 2048
+    x1 = torch.zeros((8, 128), device=dev)
+    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
+                              (torch.bfloat16, "mma", BF16_OPS_S)):
+        q, v = rand((tb, d), dtype), rand((d, tn), dtype)
+        units = (tb // 128) * (tn // 128)
+        nbytes = (q.numel() + v.numel()) * q.element_size() + g * units * 8 * 4 + 4
+        row = {"bound_ms": bound_ms(nbytes, 2.0 * tb * d * tn * g, rate)[0]}
+        ts = {gg: gms(lambda gg=gg: hw_probe._gemm_rate_probe(x1, q, v, gg, tb, tn, False, unit))
+              for gg in (512, g)}
+        row["ms"] = ts[g]
+        if not any(isinstance(t, str) for t in ts.values()):
+            row["tops"] = 2.0 * tb * d * tn * g / (ts[g] * 1e-3) / 1e12
+            row["slope_tops"] = 2.0 * tb * d * tn * (g - 512) / ((ts[g] - ts[512]) * 1e-3) / 1e12
+        row["plain_ms"] = gms(lambda: hw_probe._gemm_rate_probe_reference(
+            x1, q, v, g, tb, tn, False, unit))
+        out[f"K14 {_NAME[dtype]} {unit}"] = row
+        print(f"K14 {_NAME[dtype]} {unit}", row, flush=True)
+        del q, v
+    blk, total = 2048, 512 << 20
+    for dtype in (torch.int8, torch.bfloat16):
+        es = dtype.itemsize
+        data = rand((total // (d * blk * es), d, blk), dtype)
+        x = rand((128, d), dtype)
+        nbytes = data.numel() * es + x.numel() * es + data.shape[0] * 4
+        cases = [(True, None), (True, "arbitrary")] + ([(False, None)] if es == 1 else [])
+        for gemm, sem in cases:
+            row = {"bound_ms": bound_ms(nbytes, 2.0 * 128 * data.numel() if gemm else 0,
+                                        INT8_OPS_S if es == 1 else BF16_OPS_S)[0],
+                   "ms": gms(lambda: hw_probe._stream_probe(x, data, blk, 1, gemm, sem))}
+            if gemm and sem is None:
+                row["plain_ms"] = gms(lambda: hw_probe._stream_probe_reference(
+                    x, data, blk, 1, gemm, sem))
+            name = f"K12 {_NAME[dtype]} {'gemm' if gemm else 'max'} {sem}"
+            out[name] = row
+            print(name, row, flush=True)
+        del data, x
+        torch.cuda.empty_cache()
+    return out
+
+
+_NAME = {torch.int8: "int8", torch.bfloat16: "bf16"}
 
 
 def _ffma(base, queries, dev, reps: int) -> dict:

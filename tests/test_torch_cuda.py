@@ -1701,16 +1701,23 @@ def _k12_against_plain(x, data, blk, fat, gemm, semantics, tops):
 
 @pytest.mark.parametrize("semantics", hw_probe.SEMANTICS)
 @pytest.mark.parametrize("fat", [1, 3])
-@pytest.mark.parametrize("gemm", [False, True], ids=["max", "gemm"])
+@pytest.mark.parametrize("gemm,m,blk", [
+    pytest.param(False, 100, 301, id="max"), pytest.param(True, 100, 300, id="gemm"),
+    pytest.param(True, 1, 128, id="gemm-m1-blk128"),
+    pytest.param(True, 64, 2052, id="gemm-m64-blk2052"),
+    pytest.param(True, 65, 128, id="gemm-m65-blk128"),
+    pytest.param(True, 65, 2052, id="gemm-m65-blk2052")])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
-def test_k12_kernel_equal_to_plain(dev, dtype, gemm, fat, semantics):
+def test_k12_kernel_equal_to_plain(dev, dtype, gemm, m, blk, fat, semantics):
     # Ragged: 9 blocks of [36, 301] (steps start off 16-byte boundaries) or,
     # with the product, [36, 300] (column slices end mid-tile), x [100, 36];
-    # every step holds a planted max, an earlier step the walk's.
-    blk = 300 if gemm else 301
+    # every step holds a planted max, an earlier step the walk's.  The
+    # product's edges: x of 1, 64 (one warpgroup) and 65 rows; blk 128 (a
+    # 16-byte row pitch: the 16-byte cp.async pieces) and 2052 (a 4-byte
+    # pitch: the 4-byte pieces, 17 slices, the last 4 columns wide).
     gen = _probe_gen(dev, 52)
     data, tops = hw_probe._planted_walk(9, 36, blk, fat, dtype, gen)
-    x = _rand_op((100, 36), dtype, gen, dev)
+    x = _rand_op((m, 36), dtype, gen, dev)
     _k12_against_plain(x, data, blk, fat, gemm, semantics, tops)
 
 
@@ -1757,13 +1764,21 @@ def test_k13_kernel_equal_to_plain(dev, dtype, shape, depth):
 
 
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
-@pytest.mark.parametrize("g", [1, 37])
-@pytest.mark.parametrize("tb,tn,d", [(200, 300, 96), (256, 2048, 128)])
+@pytest.mark.parametrize("g", [1, 37, 300])
+@pytest.mark.parametrize("tb,tn,d", [(200, 300, 96), (256, 2048, 128), (64, 16, 32),
+                                     (65, 130, 48), (65, 16, "cap")])
 @pytest.mark.parametrize("dtype,unit", [(torch.int8, "mma"), (torch.int8, "dp4a"),
                                         (torch.bfloat16, "mma")])
 def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
     # The value and every step's max (NaN where no CTA wrote); bf16 each
-    # step within 2·d·2**-24·max(|twisted q| @ |v|).
+    # step within 2·d·2**-24·max(|twisted q| @ |v|).  The edges of the
+    # wgmma design: tb 64 (one warpgroup) and 65 (a row past it), d 32 and
+    # 48 (int8: one and 1.5 k-steps of 32 bytes), d at the 512-byte cap
+    # ("cap": int8 512, bf16 256, 16 k-steps), tn 16 and 130; g 1, and 37
+    # and 300, which no CTA count divides (a CTA with no step, CTAs with
+    # one, two or many steps through both accumulator sets).
+    if d == "cap":
+        d = hw_probe._MAX_KBYTES // dtype.itemsize
     gen = _probe_gen(dev, 54)
     q, v = _rand_op((tb, d), dtype, gen, dev), _rand_op((d, tn), dtype, gen, dev)
     x = torch.zeros((8, 128), device=dev)

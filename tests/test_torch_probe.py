@@ -62,27 +62,32 @@ def test_k11_step_probe_equals_jax(moving, semantics):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("fat,gemm", [(1, False), (2, True)], ids=["fat1", "fat2-gemm"])
+@pytest.mark.parametrize("fat,gemm,m,blk", [
+    pytest.param(1, False, M, BLK, id="fat1"),
+    pytest.param(2, True, M, BLK, id="fat2-gemm"),
+    # The product's edges: x rows one past a warpgroup of 64, a block 4
+    # columns past its last 128-column slice.
+    pytest.param(1, True, 65, 132, id="fat1-gemm-m65-blk132")])
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-def test_k12_stream_probe_equals_jax(dtype, fat, gemm):
+def test_k12_stream_probe_equals_jax(dtype, fat, gemm, m, blk):
     # Every step holds a planted max above the bulk, distinct from its
     # neighbours'; the first step also holds the walk's max, which is not
     # what lands.
     rng = np.random.default_rng(12)
     g = 4 // fat
     if dtype == "int8":
-        raw = rng.integers(-127, -100, (g, fat * D * BLK)).astype(np.float32)
+        raw = rng.integers(-127, -100, (g, fat * D * blk)).astype(np.float32)
         tops, decoy = -100.0 + (37 * np.arange(g)) % 226, 127
     else:
-        raw = rng.standard_normal((g, fat * D * BLK)).clip(-7.5, 7.5).astype(np.float32)
+        raw = rng.standard_normal((g, fat * D * blk)).clip(-7.5, 7.5).astype(np.float32)
         tops, decoy = 8.0 + 0.25 * rng.permutation(g), 64.0
     raw[np.arange(g), rng.integers(0, raw.shape[1], g)] = tops
     raw[0, 0] = decoy
-    raw = raw.reshape(4, D, BLK)
+    raw = raw.reshape(4, D, blk)
     dj, dt = _pair(raw.astype(np.int8) if dtype == "int8" else raw, dtype)
-    xj, xt = _operand(rng, (M, D), dtype)
-    want = _jax(jhp._stream_probe, xj, dj, BLK, fat, gemm, None)
-    got = thp._stream_probe(xt, dt, BLK, fat, gemm, None)
+    xj, xt = _operand(rng, (m, D), dtype)
+    want = _jax(jhp._stream_probe, xj, dj, blk, fat, gemm, None)
+    got = thp._stream_probe(xt, dt, blk, fat, gemm, None)
     assert got.shape == (1,) and got.dtype == torch.float32
     if dtype == "bf16" and gemm:
         last = dt[-fat:].float()
@@ -91,7 +96,7 @@ def test_k12_stream_probe_equals_jax(dtype, fat, gemm):
         np.testing.assert_array_equal(got.numpy(), want)
     if not gemm:
         assert float(got[0]) == tops[-1] < decoy
-        assert thp._stream_steps(xt, dt, BLK, fat, gemm, None).tolist() == [decoy, *tops[1:]]
+        assert thp._stream_steps(xt, dt, blk, fat, gemm, None).tolist() == [decoy, *tops[1:]]
 
 
 @pytest.mark.parametrize("depth", [1, 4])
@@ -110,23 +115,32 @@ def test_k13_dma_probe_equals_jax(dtype, depth):
     assert float(got[0]) == (120 if depth == 1 else 110)
 
 
+# (tb, d, tn, g): g > tb, so the twisted row wraps to (g - 1) % tb; then
+# the edges of the card's wgmma design: a row one past a warpgroup of 64,
+# 1.5 int8 k-steps of 32 bytes, two columns past a 128-column unit.
+K14_SHAPES = {"": (M, D, BLK, 19), "-65x48x130": (65, 48, 130, 70)}
+
+
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
-@pytest.mark.parametrize("dtype,unit", [("int8", "mma"), ("int8", "dp4a"), ("bf16", "mma")])
-def test_k14_gemm_rate_probe_equals_jax(dtype, unit, sel):
+@pytest.mark.parametrize("dtype,unit,shape", [
+    pytest.param(dt, unit, shape, id=f"{dt}-{unit}{key}")
+    for key, shape in K14_SHAPES.items()
+    for dt, unit in (("int8", "mma"), ("int8", "dp4a"), ("bf16", "mma"))])
+def test_k14_gemm_rate_probe_equals_jax(dtype, unit, shape, sel):
+    tb, d, tn, g = shape
     rng = np.random.default_rng(14)
-    qj, qt = _operand(rng, (M, D), dtype)
-    vj, vt = _operand(rng, (D, BLK), dtype)
+    qj, qt = _operand(rng, (tb, d), dtype)
+    vj, vt = _operand(rng, (d, tn), dtype)
     xj, xt = _pair(np.zeros((8, 128), np.float32), "f32")
-    g = 19  # > tb: the twisted row wraps to (g - 1) % tb = 2
-    want = _jax(jhp._gemm_rate_probe, xj, qj, vj, g, M, BLK, sel)
-    got = thp._gemm_rate_probe(xt, qt, vt, g, M, BLK, sel, unit)
+    want = _jax(jhp._gemm_rate_probe, xj, qj, vj, g, tb, tn, sel)
+    got = thp._gemm_rate_probe(xt, qt, vt, g, tb, tn, sel, unit)
     assert got.shape == (1,) and got.dtype == torch.float32
     if dtype == "int8":
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         qx = thp._twisted_q(qt, torch.tensor([g - 1]), torch.float32)[0]
         assert abs(float(got[0]) - float(want[0])) <= _bf16_bound(qx, vt.float())
-    steps = thp._gemm_rate_steps(qt, vt, g, M, BLK, sel, unit)
+    steps = thp._gemm_rate_steps(qt, vt, g, tb, tn, sel, unit)
     assert steps.shape == (g,) and torch.equal(steps[-1:], got)
 
 
