@@ -21,13 +21,16 @@ script exits non-zero without a result line:
              (``cuobjdump -sass``; every int8 instantiation must hold the s8
              MMA, every bf16 one the bf16 MMA; ``grouped_wgmma_kernel`` and
              ``grouped_ffma_kernel`` must hold K4's, K6's and K7's depths
-             1-4 and K10's nogate, maxonly and fixedout at depth 2, and no
-             kernel of these four sources a ``__dp4a`` but K9's
-             ``accum_extract_kernel``; K14's ``__dp4a`` probe is
-             unchecked), the probes' ``wgmma`` kernels (K12's
-             ``stream_wgmma_kernel``, K14's ``gemm_rate_wgmma_kernel`` at
-             each of its 16 k-step counts; int8 and bf16, no ``mma.sync``,
-             no serialized groups), the fp32 register-tiled kernels' registers, spills
+             1-4 and their general selection (depth 0: any nbins and bin
+             depth) and K10's nogate, maxonly and fixedout at depth 2,
+             ``planes_wgmma_kernel`` K1's and K9's three modes and
+             ``planes_ffma_kernel`` both, and no kernel of these four
+             sources a ``__dp4a``; K14's ``__dp4a`` probe is unchecked), the
+             probes' ``wgmma`` kernels (K12's ``stream_wgmma_kernel``, K14's
+             ``gemm_rate_wgmma_kernel`` at each of its 16 k-step counts and
+             its ``gemm_rate_chunked_kernel`` past them; int8 and bf16, no
+             ``mma.sync``, no serialized groups), the fp32 register-tiled
+             kernels' registers, spills
              and FFMA count (K3's ``fused_f32_kernel``, K5's
              ``accum_ffma_kernel``, K1's ``planes_ffma_kernel``, K4's, K6's,
              K7's and K10's ``grouped_ffma_kernel``), and K2's registers,
@@ -53,7 +56,20 @@ script exits non-zero without a result line:
              product alone as ``torch.bmm`` of bf16 operands into fp32
              (``prod_ms``, a yardstick); and the routed slots of each walked
              block that hold a query (mean, median, max of qcap, and the
-             128-row tiles that hold none).
+             128-row tiles that hold none).  K9 runs K1's kernels with its
+             own key and an emit kernel; its lines print the parent
+             design's times (``K9_PARENT_MS``) beside the new ones.
+   caps    — what the kernels once refused (F8, F9), each against its
+             plain version: K4 at the dense walk at bin depths 5, 8, 16 and
+             nbins 64, 256 (timed); K4, K6, K7 in int8, fp32 and bf16 at
+             depths 5, 8, 16, nbins 64, 256 and 96 (blk 384, and blk 480
+             padded to whole chunks), with K10's full and nogate at depth
+             2; K3 at nbins 64, 32, 256, 96 and 192; K4 fp32 at blk 65536;
+             ``search_device(q[:1024], 10, 4, qcap=4, bin_depth=5,
+             recover=True)`` on the SIFT index against the same index on
+             the CPU (K4 launched); an fp32 index at pad_block 65536
+             through ``engine="pallas"`` and its recovery pass against the
+             CPU.
 4. slice   — search all 10,000 queries through ``IVFIndex.search_device``
              with its defaults (nlist=1024, nprobe=4, k=10, B=8192, int8,
              pad_block=2048; the recovery pass where the auto policy turns
@@ -154,9 +170,12 @@ script exits non-zero without a result line:
 12. probe  — the hardware probes (``harness/hw_probe.py``): kernels K11-K14
              against their plain versions at ragged shapes (K12's product
              also at x rows 1, 64 and 65 and blk 128 and 2052, 16- and
-             4-byte row pitches; K14 also at tb 64 and 65, d 32, 48 and the
-             512-byte cap, tn 16 and 130, g not a multiple of the CTAs a
-             unit, on ``wgmma`` beside the ``__dp4a`` unit) and at one JAX
+             4-byte row pitches; K14 also at tb 64 and 65, d 32, 48 and 512
+             bytes, tn 16 and 130, g not a multiple of the CTAs a unit, on
+             ``wgmma`` beside the ``__dp4a`` unit; and what they once
+             refused, F10: K12's product at 256 and 300 x rows, odd d and
+             blk, d 1100; K13 at depths 9 and 16 over 15-byte blocks; K14
+             at 640 bytes of K and odd d past 512 bytes) and at one JAX
              size each (K11 g=4096 moving; K12 the int8 512 MB walk at
              blk=2048 with and without the product, and the bf16 512 MB
              walk with it; K13 the int8 2 GiB walk at depth 8; K14 (256,
@@ -276,6 +295,12 @@ HEADLINE_KERNELS = {"K1": "planes_wgmma_kernel", "K4": "grouped_wgmma_kernel",
                     "K2": "fused_topk_kernel"}
 SHARDED_KERNELS = {"K1": "planes_wgmma_kernel", "K6": "grouped_wgmma_kernel",
                    "K2": "fused_topk_kernel"}
+# K9's times on its first design (the staged __dp4a / scalar-fmaf kernel
+# of ivf_stage.cuh) at these shapes, as PERF.md section 6 records them from
+# this script on an NVIDIA H100 80GB HBM3 at 700 W: the parent's, printed
+# beside the new design's.
+K9_PARENT_MS = {"int8-IP": 6.4436, "int8-L2": 6.5680, "fp32": 12.1328, "bf16": 14.0377}
+
 # The CUDA kernel of K6's and K7's float modes, by mode (the kernel line).
 K67_KERNEL = {"bf16": "grouped_wgmma_kernel", "fp32": "grouped_ffma_kernel"}
 
@@ -376,36 +401,41 @@ def cubin_report(_build, name: str):
 
 # The instances of ivf_grouped_scan.cu's two kernels, by (QSrc, Variant)
 # template arguments: K4, K6 and K7 at kFull (K6's depth-2 instance is also
-# K10's full), K10's other variants on K6's source.
+# K10's full, its general selection K10's full and nogate at other bins),
+# K10's other variants on K6's source.
 GROUPED_KERN = {("0", "0"): "K4", ("1", "0"): "K6", ("2", "0"): "K7", ("1", "1"): "K10 nogate",
                 ("1", "2"): "K10 maxonly", ("1", "3"): "K10 fixedout"}
 
 
-def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[str]:
+def wgmma_report(_build, name: str) -> list[str]:
     """Each wgmma kernel's registers, stack frame, spills and warpgroup MMA
     opcodes in ``csrc/<name>.cu`` (:func:`cubin_report`), each fp32
     register-tiled kernel's registers, spills and FFMA count, any ptxas
     warning that serializes the wgmma groups, and the count of ``__dp4a``
     (IDP) instructions by kernel.  Raises if an int8 instantiation holds no
-    s8 warpgroup MMA or a bf16 one no bf16 warpgroup MMA, a wgmma kernel
-    holds IDP, a kernel not named in ``idp_allowed`` (K9's
-    ``accum_extract_kernel`` beside K1) holds IDP, ``grouped_wgmma_kernel``
-    lacks one of K4's, K6's and K7's int8 and bf16 depths 1-4 or K10's
-    nogate, maxonly and fixedout in int8 and bf16 at depth 2, ptxas
-    serializes its groups (C7520), or ``grouped_ffma_kernel`` lacks one of
-    K4's, K6's and K7's fp32 depths 1-4 or K10's three at depth 2."""
+    s8 warpgroup MMA or a bf16 one no bf16 warpgroup MMA, any kernel holds
+    IDP, ``grouped_wgmma_kernel`` lacks one of K4's, K6's and K7's int8 and
+    bf16 depths 0-4 (0: the general selection) or K10's nogate, maxonly
+    and fixedout in int8 and bf16 at depth 2, ptxas serializes its groups
+    (C7520), ``grouped_ffma_kernel`` lacks one of K4's, K6's and K7's fp32
+    depths 0-4 or K10's three at depth 2, or ``ivf_accum_planes.cu`` lacks
+    one of K1's and K9's ``planes_wgmma_kernel`` modes (int8, int8 L2,
+    bf16) or ``planes_ffma_kernel`` instances."""
     import re
 
     props, warnings, opcodes = cubin_report(_build, name)
     ops = {f: {o for o in c if "GMMA" in o} for f, c in opcodes.items()}
     idp = {f: n for f, c in opcodes.items() if (n := sum(v for o, v in c.items()
                                                           if o.startswith("IDP")))}
-    lines, grouped_seen, ffma_seen = [], set(), set()
+    lines, grouped_seen, ffma_seen, planes_seen = [], set(), set(), set()
     for fn in sorted(f for f in set(ops) | set(props) if "wgmma_kernel" in f):
         short = re.search(r"([a-z][a-z_]*_wgmma_kernel)I(\w+?)EEv", fn)
         grouped = re.search(r"grouped_wgmma_kernelI(a|13__nv_bfloat16)Li(\d)E\w*?QSrcE(\d)E"
                             r"\w*?VariantE(\d)E", fn)
         tag = f"{short.group(1)}<{short.group(2)}>" if short else fn
+        planes = re.search(r"planes_(wgmma|ffma)_kernelI(?:Li(\d)E)?Lb([01])E", fn)
+        if planes:
+            planes_seen.add((planes.group(1), planes.group(2), planes.group(3)))
         if grouped:
             kern = GROUPED_KERN[grouped.group(3), grouped.group(4)]
             mode = "int8" if grouped.group(1) == "a" else "bf16"
@@ -433,6 +463,9 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
         tag = (f"{short.group(1)}<{short.group(2)}>" if short and short.group(2) else
                short.group(1) if short else fn)
         grouped = re.search(r"grouped_ffma_kernelILi(\d)E\w*?QSrcE(\d)E\w*?VariantE(\d)E", fn)
+        planes = re.search(r"planes_ffma_kernelILb([01])E", fn)
+        if planes:
+            planes_seen.add(("ffma", None, planes.group(1)))
         if grouped:
             kern = GROUPED_KERN[grouped.group(2), grouped.group(3)]
             ffma_seen.add((kern, grouped.group(1)))
@@ -440,24 +473,30 @@ def wgmma_report(_build, name: str, idp_allowed: tuple[str, ...] = ()) -> list[s
         lines.append(f"{tag}: {p_.get('regs')} registers, "
                      f"{p_.get('stack')} bytes stack frame, spill stores/loads "
                      f"{p_.get('spills')}, FFMA {opcodes.get(fn, {}).get('FFMA', 0)}")
-    full = {(kern, str(dp)) for kern in ("K4", "K6", "K7") for dp in range(1, 5)}
+    full = {(kern, str(dp)) for kern in ("K4", "K6", "K7") for dp in range(5)}
     lab = {(kern, "2") for kern in ("K10 nogate", "K10 maxonly", "K10 fixedout")}
     want_w = {(kern, mode, dp) for kern, dp in full | lab for mode in ("int8", "bf16")}
     if grouped_seen and grouped_seen != want_w:
         raise AssertionError(f"grouped_wgmma_kernel instances {sorted(grouped_seen)}: K4, K6 "
-                             "and K7 int8 and bf16 at depths 1-4 and K10's other variants at "
+                             "and K7 int8 and bf16 at depths 0-4 and K10's other variants at "
                              "depth 2 expected")
     if grouped_seen and ffma_seen != full | lab:
         raise AssertionError(f"grouped_ffma_kernel instances {sorted(ffma_seen)}: K4, K6 and "
-                             "K7 fp32 at depths 1-4 and K10's other variants at depth 2 expected")
+                             "K7 fp32 at depths 0-4 and K10's other variants at depth 2 expected")
+    # K1 (EX 0) and K9 (EX 1): planes_wgmma_kernel<bf16 0, int8 1, int8 L2
+    # 2> and planes_ffma_kernel (fp32).
+    want_p = ({("wgmma", m, ex) for m in "012" for ex in "01"}
+              | {("ffma", None, ex) for ex in "01"})
+    if name == "ivf_accum_planes" and planes_seen != want_p:
+        raise AssertionError(f"ivf_accum_planes instances {sorted(planes_seen, key=str)}: K1's "
+                             "and K9's planes_wgmma_kernel modes and planes_ffma_kernel expected")
     by_kernel = {}
     for f, n in idp.items():
         short = re.search(r"[a-z][a-z_]*_kernel", f)
         key = short.group(0) if short else f
         by_kernel[key] = by_kernel.get(key, 0) + n
-    stray = {f: n for f, n in by_kernel.items() if f not in idp_allowed or "wgmma" in f}
-    if stray:
-        raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {stray}")
+    if by_kernel:
+        raise AssertionError(f"lib{name} holds IDP (__dp4a) instructions in {by_kernel}")
     lines.append(f"IDP (__dp4a) instructions in lib{name}: {sum(idp.values())} "
                  f"{by_kernel or ''}; ptxas serialization warnings: {warnings or 'none'}")
     return lines
@@ -486,17 +525,19 @@ def k2_report(_build) -> list[str]:
 def probe_report(_build) -> list[str]:
     """The probes' tensor-core kernels in ``csrc/hw_probe.cu`` (K12's
     ``stream_wgmma_kernel``, K14's ``gemm_rate_wgmma_kernel`` at 1-16
-    k-steps of 32 bytes): registers, stack frame and spills, one line a
-    kernel and dtype (ranges over K14's k-step counts).  Raises if an int8
-    instance holds no s8 warpgroup MMA or a bf16 one no bf16 warpgroup MMA,
-    any holds ``mma.sync`` (IMMA / HMMA), K14 lacks one of its 16 k-step
-    counts in either dtype, or ptxas serializes their groups."""
+    k-steps of 32 bytes and ``gemm_rate_chunked_kernel`` past them):
+    registers, stack frame and spills, one line a kernel and dtype (ranges
+    over K14's k-step counts).  Raises if an int8 instance holds no s8
+    warpgroup MMA or a bf16 one no bf16 warpgroup MMA, any holds
+    ``mma.sync`` (IMMA / HMMA), K14 lacks one of its 16 k-step counts or
+    its chunked kernel in either dtype, or ptxas serializes their groups."""
     import re
 
     props, warnings, opcodes = cubin_report(_build, "hw_probe")
     fams = {}
     for fn in sorted(set(props) | set(opcodes)):
-        m = re.search(r"(stream|gemm_rate)_wgmma_kernelI(a|13__nv_bfloat16)(?:Li(\d+)E)?", fn)
+        m = re.search(r"(stream_wgmma|gemm_rate_wgmma|gemm_rate_chunked)_kernel"
+                      r"I(a|13__nv_bfloat16)(?:Li(\d+)E)?", fn)
         if not m:
             continue
         mode = "int8" if m.group(2) == "a" else "bf16"
@@ -505,8 +546,8 @@ def probe_report(_build) -> list[str]:
         if not any(o.startswith(want) for o in ops) or any(
                 o.startswith(("IMMA", "HMMA")) for o in ops):
             raise AssertionError(f"{fn}: {want} expected and no mma.sync, got {sorted(ops)}")
-        fam = fams.setdefault((f"{m.group(1)}_wgmma_kernel", mode), {"nkt": [], "regs": [],
-                                                                    "stack": [], "spills": []})
+        fam = fams.setdefault((f"{m.group(1)}_kernel", mode), {"nkt": [], "regs": [],
+                                                             "stack": [], "spills": []})
         fam["nkt"].append(int(m.group(3) or 0))
         p_ = props.get(fn, {})
         fam["regs"].append(p_.get("regs"))
@@ -514,10 +555,11 @@ def probe_report(_build) -> list[str]:
         fam["spills"].append(p_.get("spills"))
     for mode in ("int8", "bf16"):
         if sorted(fams.get(("gemm_rate_wgmma_kernel", mode), {}).get("nkt", [])) != list(
-                range(1, 17)) or ("stream_wgmma_kernel", mode) not in fams:
-            raise AssertionError(f"hw_probe's wgmma instances {sorted(fams)}: K12 and K14 at "
-                                 "1-16 k-steps in int8 and bf16 expected")
-    serial = [w for w in warnings if "wgmma_kernel" in w]
+                range(1, 17)) or {("stream_wgmma_kernel", mode),
+                                  ("gemm_rate_chunked_kernel", mode)} - set(fams):
+            raise AssertionError(f"hw_probe's wgmma instances {sorted(fams)}: K12, K14 at "
+                                 "1-16 k-steps and K14 chunked in int8 and bf16 expected")
+    serial = [w for w in warnings if "wgmma_kernel" in w or "chunked_kernel" in w]
     if serial:
         raise AssertionError(f"ptxas serializes the probes' wgmma groups: {serial}")
     lines = []
@@ -599,13 +641,11 @@ def main() -> None:
     t = time.time()
     sources = ["ivf_accum_planes", "ivf_grouped_scan", "bruteforce_fused", "bruteforce_accum",
                "tiled_matmul", "hw_probe", "fused_topk"]
-    # K5's, K3's, K1's and K4's, K6's, K7's and K10's kernels; K9 (beside K1)
-    # keeps the one __dp4a of the four sources.
-    reported = {"bruteforce_accum": (), "bruteforce_fused": (),
-                "ivf_accum_planes": ("accum_extract_kernel",), "ivf_grouped_scan": ()}
+    # K5's, K3's, K1's and K9's, and K4's, K6's, K7's and K10's kernels: no
+    # __dp4a in any of the four sources.
+    reported = ["bruteforce_accum", "bruteforce_fused", "ivf_accum_planes", "ivf_grouped_scan"]
     with ThreadPoolExecutor(len(sources) + len(reported) + 2) as ex:  # one nvcc each, all at once
-        reports = [ex.submit(wgmma_report, _build, name, allowed)
-                   for name, allowed in reported.items()]
+        reports = [ex.submit(wgmma_report, _build, name) for name in reported]
         report_k2 = ex.submit(k2_report, _build)
         report_probe = ex.submit(probe_report, _build)
         list(ex.map(_build.load_library, sources))
@@ -884,6 +924,8 @@ def main() -> None:
         err = float((pv[rows][fin] - rpv[rows][fin]).abs().max()) if fin.any() else 0.0
         del pv, pr, rpv, rpr
         walked, cols = walked_blocks(np, *k1_args[2:])
+        if br_ is not None:  # no row mask with bias rows: every column of a block is scored
+            cols = walked * PAD_BLOCK
         k9[name] = dict(
             err=err, ms=cuda_ms(torch, lambda: ivf_accum.cluster_major_accum(
                 *k1_args, kk, blk=PAD_BLOCK, bias_rows=br_)),
@@ -895,8 +937,158 @@ def main() -> None:
         phase("kernels", t0, f"K9 {name} qg {tuple(qb.shape)} k={kk} bin2: pv bit-equal and pr "
               f"equal to the plain version on {rows.numel()} last blocks ({int(fin.sum())} "
               f"finite entries); {k9[name]['ms']} ms vs plain {k9[name]['plain_ms']} ms; bound "
-              f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}")
+              f"{k9[name]['bound'][0]} ms by {k9[name]['bound'][1]}; the parent design's "
+              f"{K9_PARENT_MS[name]} ms (PERF.md section 6, this script on the same card model)")
     del k9_inputs
+
+    # ---- F8, F9: the grouped kernels (K4, K6, K7, K10) and K3 at what they
+    # once refused, each against its plain version: bin depths past 4 and
+    # nbins other than 128 on the general selection (csrc/ivf_grouped_scan.cu,
+    # ivf_scan.selection), K3 at nbins other than 128 (its general binning),
+    # and fp32 at blk 65536.  K4's new paths timed at the dense walk above.
+    t = time.time()
+    from rag_on_edge_tpu_torch.ops.block_tables import build_block_tables
+
+    caps = {}
+    for name, extra in (("depth5", dict(bin_depth=5)), ("depth8", dict(bin_depth=8)),
+                        ("depth16", dict(bin_depth=16)), ("nbins64", dict(nbins=64)),
+                        ("nbins256", dict(nbins=256))):
+        kw = dict(k=kk, blk=PAD_BLOCK, group=idx.CM_GROUP, bias=bias, **extra)
+        pv, pr = ivf_scan.cluster_major_scan_grouped(*k1_args, **kw)
+        rpv, rpr = ivf_scan.cluster_major_scan_grouped_reference(*k1_args, **kw)
+        torch.cuda.synchronize()
+        fin = rpv[rows] > float("-inf")
+        if not torch.equal(pv[rows], rpv[rows]) or not torch.equal(pr[rows][fin], rpr[rows][fin]):
+            raise AssertionError(f"K4 {name} differs from the plain version at the dense walk")
+        del pv, pr, rpv, rpr
+        caps[f"K4 dense {name}"] = cuda_ms(torch, lambda: ivf_scan.cluster_major_scan_grouped(
+            *k1_args, **kw))
+    cap_rng = np.random.default_rng(21)
+
+    def cap_inputs(mode, blk_, qcap_=40, d_=37):
+        """One to three blocks a cluster at blk_, half the routed slots
+        empty, values in [-8, 7] (exact sums), int8 with bias → (qg,
+        vectors_t, (bf, bl, rv, row_base), bias or None) on the card."""
+        sizes = np.array([1500, 0, 40, 700, 129])
+        offs = np.concatenate([[0], np.cumsum(-(-sizes // blk_) * blk_)[:-1]])
+        tabs_ = [np.asarray(x, np.int32) for x in build_block_tables(offs, sizes, blk_)[1:4]]
+        nb = len(tabs_[0])
+        qg_ = cap_rng.integers(-8, 8, (nb, qcap_, d_))
+        qg_[:, qcap_ // 2:] = 0
+        dt = {"int8": torch.int8, "fp32": torch.float32, "bf16": torch.bfloat16}[mode]
+        qg_, vt_ = (torch.from_numpy(x).to(dev, dt) for x in
+                    (qg_, cap_rng.integers(-8, 8, (nb, d_, blk_))))
+        tabs_ = [torch.from_numpy(x).to(dev) for x in tabs_]
+        tabs_.append(torch.arange(nb, dtype=torch.int32, device=dev) * blk_)
+        br_ = (torch.from_numpy(cap_rng.uniform(0, 300, (nb, 1, blk_)).astype(np.float32)).to(dev)
+               if mode == "int8" else None)
+        return qg_, vt_, tabs_, br_
+
+    def cap_equal(name, got, want, out_rows):
+        (pv_, pr_), (rpv_, rpr_) = got, want
+        fin_ = rpv_[out_rows] > float("-inf")
+        if not (torch.equal(pv_[out_rows].float().view(torch.int32),
+                            rpv_[out_rows].float().view(torch.int32))
+                and torch.equal(pr_[out_rows][fin_], rpr_[out_rows][fin_]) and fin_.any()):
+            raise AssertionError(f"{name} differs from its plain version")
+
+    ncases = 0
+    for mode in ("int8", "fp32", "bf16"):
+        for nbins_, depth_, blk_, k_ in ((128, 5, 2048, 20), (128, 8, 2048, 20),
+                                         (128, 16, 2048, 33), (64, 2, 2048, 20),
+                                         (256, 2, 2048, 20), (96, 2, 384, 20),
+                                         (96, 3, 480, 33)):
+            qg_, vt_, (bf_, bl_, rv_, rb_), br_ = cap_inputs(mode, blk_)
+            kw = dict(k=k_, blk=blk_, nbins=nbins_, bin_depth=depth_, row_base=rb_)
+            r_ = torch.nonzero(bl_).flatten()
+            tag = f"{mode} nbins {nbins_} depth {depth_} blk {blk_} k {k_}"
+            cap_equal(f"K4 {tag}", ivf_scan.cluster_major_scan_grouped(
+                qg_, vt_, bf_, bl_, rv_, bias=br_, **kw),
+                ivf_scan.cluster_major_scan_grouped_reference(qg_, vt_, bf_, bl_, rv_, bias=br_,
+                                                              **kw), r_)
+            bc_ = torch.cumsum(bf_, 0, dtype=torch.int32) - 1
+            qc_ = qg_[torch.nonzero(bf_).flatten()]
+            cap_equal(f"K6 {tag}", ivf_scan.cluster_major_scan(qc_, vt_, bc_, bf_, bl_, rv_, **kw),
+                      ivf_scan.cluster_major_scan_reference(qc_, vt_, bc_, bf_, bl_, rv_, **kw),
+                      bc_[r_].long())
+            qi_ = qc_.reshape(-1, qc_.shape[-1])
+            cqb_ = (bc_[:, None] * qc_.shape[1] + torch.arange(qc_.shape[1], device=dev)).to(
+                torch.int32)[..., None].contiguous()
+            cap_equal(f"K7 {tag}", ivf_scan.cluster_major_scan_routed(
+                qi_, cqb_, vt_, bf_, bl_, rv_, bias=br_, **kw),
+                ivf_scan.cluster_major_scan_routed_reference(qi_, cqb_, vt_, bf_, bl_, rv_,
+                                                             bias=br_, **kw), r_)
+            if depth_ == 2:
+                for variant in ("full", "nogate"):
+                    args_ = (qc_, vt_, bc_, bf_, bl_, rv_, k_, blk_, nbins_, variant)
+                    cap_equal(f"K10 {variant} {tag}", kernel_lab._variant_scan(*args_),
+                              kernel_lab._variant_scan_reference(*args_), bc_[r_].long())
+            ncases += 1
+        for nbins_, tile_ in ((64, 512), (32, 512), (256, 512), (96, 384), (192, 384)):
+            qk = torch.from_numpy(cap_rng.integers(-8, 8, (70, 37))).to(dev)
+            bk = torch.from_numpy(cap_rng.integers(-8, 8, (37, 3000))).to(dev)
+            dt = {"int8": torch.int8, "fp32": torch.float32, "bf16": torch.bfloat16}[mode]
+            got = bruteforce_fused.fused_topk_matmul(qk.to(dt), bk.to(dt), 20, tile_n=tile_,
+                                                     nbins=nbins_)
+            want = bruteforce_fused.fused_topk_matmul_reference(qk.to(dt), bk.to(dt), 20,
+                                                                tile_n=tile_, nbins=nbins_)
+            if not (torch.equal(got[0].float(), want[0].float())
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K3 {mode} nbins {nbins_} differs from its plain version")
+            ncases += 1
+    qg_, vt_, (bf_, bl_, rv_, rb_), _ = cap_inputs("fp32", 65536, qcap_=24, d_=9)
+    for depth_ in (2, 4):
+        kw = dict(k=20, blk=65536, bin_depth=depth_, row_base=rb_)
+        cap_equal(f"K4 fp32 blk 65536 depth {depth_}",
+                  ivf_scan.cluster_major_scan_grouped(qg_, vt_, bf_, bl_, rv_, **kw),
+                  ivf_scan.cluster_major_scan_grouped_reference(qg_, vt_, bf_, bl_, rv_, **kw),
+                  torch.nonzero(bl_).flatten())
+    del qg_, vt_
+    phase("caps", t0, f"F8, F9: K4, K6, K7 (and K10 full, nogate at depth 2) in int8, fp32 and "
+          f"bf16 at nbins 128 depths 5, 8, 16, nbins 64, 256, 96 (blk 384; blk 480 padded), "
+          f"K3 at nbins 64, 32, 256, 96, 192, K4 fp32 at blk 65536: {ncases} cases equal to "
+          f"the plain versions; K4 at the dense walk (k={kk}), ms: {caps} "
+          f"({time.time() - t:.1f}s)")
+
+    # The public calls at what they once refused: the SIFT index's default
+    # search with bin_depth=5 (K1, then the recovery pass's K4 on the
+    # general selection) against the same index on the CPU, on 1024
+    # queries; an fp32 index with pad_block 65536 through engine="pallas"
+    # and its recovery pass against the CPU, on a small corpus.
+    t = time.time()
+    q_cap = torch.from_numpy(np.ascontiguousarray(queries[:1024]))
+    idx_cpu = IVFIndex.from_arrays(idx._centroids_np, idx._vectors_np, idx._offsets_np,
+                                   idx._reorder_np, metric="l2", dtype="int8",
+                                   pad_block=PAD_BLOCK, config=idx.config, device="cpu")
+    reset_launches()
+    # qcap 4 drops pairs, so the recovery pass has work.
+    got = [x.cpu() for x in idx.search_device(q_cap.to(dev), K, NPROBE, qcap=4, bin_depth=5,
+                                              recover=True)]
+    torch.cuda.synchronize()
+    depth5_launches = read_launches()
+    want = idx_cpu.search_device(q_cap, K, NPROBE, qcap=4, bin_depth=5, recover=True)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)) or depth5_launches["K4"] < 1:
+        raise AssertionError(f"search_device(bin_depth=5) differs from the CPU path or launched "
+                             f"no K4: {depth5_launches}")
+    del idx_cpu
+    base_s, q_s = make_synthetic(3000, 40, 32, 4, seed=6)
+    src_s = IVFIndex.build(base_s, nlist=4, metric="l2", dtype="int8", pad_block=256,
+                           max_iter=5, device="cpu")
+    wide_blk = []
+    for device in (dev, "cpu"):
+        ix = IVFIndex.from_arrays(src_s._centroids_np, src_s._vectors_np, src_s._offsets_np,
+                                  src_s._reorder_np, metric="l2", dtype="fp32", pad_block=65536,
+                                  config=src_s.config, device=device)
+        wide_blk.append([x.cpu() for x in ix.search_device(
+            torch.from_numpy(q_s).to(device), K, NPROBE, mode="cluster", engine="pallas",
+            recover=True, qcap=16, recover_qcap=16)])
+    if not all(torch.equal(g, w) for g, w in zip(*wide_blk)):
+        raise AssertionError("the fp32 index at pad_block 65536 differs from the CPU path")
+    phase("caps", t0, f"search_device(q[:1024], {K}, {NPROBE}, qcap=4, bin_depth=5, "
+          f"recover=True) on "
+          f"the SIFT index equal to the CPU path (launches {depth5_launches}); an fp32 index at "
+          f"pad_block 65536 (engine='pallas', recovery) equal to the CPU path "
+          f"({time.time() - t:.1f}s)")
 
     def search_all(index, nprobe=NPROBE, k=K, **kw):
         """All queries through ``index`` in B=BATCH batches (the tail padded
@@ -1969,7 +2161,7 @@ def main() -> None:
     k14_shapes = ((200, 300, 96, 37), (65, 130, 48, 300), (64, 16, 32, 37), (65, 16, 0, 37))
     for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
         for tb_, tn_, d_, g_ in k14_shapes:
-            d_ = d_ or hw_probe._MAX_KBYTES // dtype.itemsize
+            d_ = d_ or 512 // dtype.itemsize
             q_, v_ = prand((tb_, d_), dtype), prand((d_, tn_), dtype)
             tol = (k14_bf16_tol(q_, v_, g_) if dtype == torch.bfloat16
                    else torch.zeros(g_, dtype=torch.float64, device=dev))
@@ -1982,7 +2174,37 @@ def main() -> None:
                         hw_probe._gemm_rate_probe(xs, q_, v_, g_, tb_, tn_, True, unit),
                         hw_probe._gemm_rate_probe_reference(xs, q_, v_, g_, tb_, tn_, True, unit),
                         tol[-1:])
+    # F10: what the probes once refused.  K12's product at 256 and 300 x
+    # rows (row tiles in turn), odd d and blk (padded to 4-byte words), and
+    # d 1100 (K past 512 bytes: x rides the ring); K13 at JAX depths 9 and
+    # 16 (past the ring of 8) over 15-byte int8 / 30-byte bf16 blocks; K14
+    # at 640 bytes of K and an odd d past 512 bytes (int8 1025: dp4a's K in
+    # chunks; bf16 257) on both units.
+    f10 = []
+    for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
+        for m_, d_, blk_ in ((256, 37, 130), (300, 1100, 515)):
+            xr = prand((m_, d_), dtype)
+            data_, tops = hw_probe._planted_walk(6, d_, blk_, 2, dtype, pgen)
+            k12_checks(f"{dtype} [6,{d_},{blk_}] x [{m_},{d_}] fat=2", xr, data_, blk_, 2, True,
+                       tops, (None, "arbitrary"))
+            f10.append(f"K12 {dtype} x [{m_},{d_}] blk {blk_}")
+        data_ = prand((40, 3, 5), dtype)
+        for depth in (9, 16):
+            ntrials += k13_trials(f"{dtype} [40,3,5]", data_, depth, plant, decoy, 4)
+            f10.append(f"K13 {dtype} [40,3,5] depth {depth}")
+    for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
+        for tb_, tn_, d_, g_ in ((65, 130, 640 // dtype.itemsize, 37),
+                                 (20, 40, 1025 if dtype == torch.int8 else 257, 37)):
+            q_, v_ = prand((tb_, d_), dtype), prand((d_, tn_), dtype)
+            tol = (k14_bf16_tol(q_, v_, g_) if dtype == torch.bfloat16
+                   else torch.zeros(g_, dtype=torch.float64, device=dev))
+            probe_check("K14", f"{dtype} {unit} [{tb_},{d_}]x[{d_},{tn_}] steps",
+                        hw_probe._gemm_rate_steps(q_, v_, g_, tb_, tn_, True, unit),
+                        hw_probe._gemm_rate_steps_reference(q_, v_, g_, tb_, tn_, True, unit),
+                        tol)
+            f10.append(f"K14 {dtype} {unit} d {d_}")
     del data_, q_, v_, xr
+    phase("probe", t0, f"F10, equal to the plain versions (value and every step): {f10}")
     phase("probe", t0, f"K11-K14 equal to their plain versions at ragged shapes (K11 g 3 and "
           f"300; K12 [9,36,301] and, with the product, [9,36,300] x [100,36], [9,36,128] x "
           f"[1,36] and [9,36,2052] x [65,36], fat 3, planted step maxima, value and every "
@@ -2717,7 +2939,9 @@ def main() -> None:
                         2.0 * qcap_f * cols9 * dp, rate))
         del pv, pr, rpv, rpr, qb_f, args9
         phase("floatscan", t0, f"K9 {mode} (K1's shapes, k={kk}, bin2): pv (the masked key) "
-              f"bit-equal and pr equal on {rows9.numel()} last blocks; {fl14[f'K9 {mode}']}")
+              f"bit-equal and pr equal on {rows9.numel()} last blocks; {fl14[f'K9 {mode}']}; "
+              f"the parent design's {K9_PARENT_MS[mode]} ms (PERF.md section 6, this script on "
+              f"the same card model)")
 
         # K10: the lab's defaults on the lab's float routed table (same
         # shuffle, IP probes, qcap 128; the index's own query prep, the ones

@@ -105,7 +105,6 @@
 
 #include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
-#include "ivf_stage.cuh"
 
 namespace {
 

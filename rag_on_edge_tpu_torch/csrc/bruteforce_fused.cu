@@ -12,8 +12,12 @@
 //         = fp32 dot of bf16 operands on the tensor cores (mode BF16)
 //   and then the top-k of the row by (score desc, col asc):
 //   - nbins = 0: over all columns (exact);
-//   - nbins = 128: over the survivors of each tile of tile_n columns, the
-//     two best (score desc, col asc) of every bin col % 128 within the tile.
+//   - nbins > 0: over the survivors of each tile of tile_n columns, the
+//     two best (score desc, col asc) of every bin col % nbins within the
+//     tile.  nbins 128: each column of a chunk is a bin (the table below);
+//     any other nbins runs the general binning (the GEN instances,
+//     gen_bin_chunk): per-(row, bin) lists in device memory, a chunk's
+//     passers through shared memory.
 //   Entries past the last valid score hold the fill value (INT32_MIN or
 //   -inf) and an unspecified id.
 //
@@ -144,6 +148,7 @@
 namespace {
 
 constexpr int K_MAX = 32;                // the wgmma modes' running top-k width in shared memory
+constexpr int F_BN = ffma::BN;           // columns a chunk (and the binned mode's bins)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int32_t fill_of(int32_t) { return INT32_MIN; }
@@ -157,9 +162,42 @@ __device__ __forceinline__ bool better(T v, int i, T bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// ------------------------------------------- fp32: register-tiled FFMA
+// The general binning (GEN instances): nbins other than 128.  Each (row,
+// bin) keeps its two best (score desc, column asc) of the tile in device
+// memory, a slot of lists a CTA: [64 rows][nbins][2] scores and columns.  A
+// chunk's scores of passers (the fill value elsewhere) go to shared memory
+// S [rows][S_LD]; then one thread a (row, l), l < min(nbins, 128), takes
+// the chunk's columns l, l + nbins, ... of the row (one bin, (tcol0 + l) %
+// nbins) in ascending order: strict >, so an equal, later score lands
+// behind.  tcol0 is the chunk's first column in its tile, col0 its global
+// column.
+constexpr int S_LD = F_BN + 4;
 
-constexpr int F_BN = ffma::BN;           // columns a chunk (and the binned mode's bins)
+template <typename T>
+__device__ __forceinline__ void gen_bin_chunk(T* __restrict__ lv, int32_t* __restrict__ li,
+                                              const T* __restrict__ S, int rows, int nbins,
+                                              int tcol0, int col0, int t, int nt) {
+  const int owners = min(nbins, F_BN);
+  for (int p = t; p < rows * owners; p += nt) {
+    const int r = p / owners, l = p - r * owners;
+    const size_t o = ((size_t)r * nbins + (tcol0 + l) % nbins) * 2;
+    for (int x = l; x < F_BN; x += nbins) {
+      const T v = S[r * S_LD + x];
+      if (!(v > lv[o + 1])) continue;
+      if (v > lv[o]) {
+        lv[o + 1] = lv[o];
+        li[o + 1] = li[o];
+        lv[o] = v;
+        li[o] = col0 + x;
+      } else {
+        lv[o + 1] = v;
+        li[o + 1] = col0 + x;
+      }
+    }
+  }
+}
+
+// ------------------------------------------- fp32: register-tiled FFMA
 constexpr int F_KMAX = 256;              // the widest top-k a launch: 8 entries a lane
 
 // The CTA's shape: WM warps along the rows (64 rows each) x 4 along the
@@ -192,13 +230,15 @@ struct FTile {
 // bound_v / bound_i [b], or null: a later pass of the wrapper's, where
 // only an entry ranked after its row's bound may enter (binned: a
 // survivor).
-template <bool BINNED, int KJ>
+template <bool BINNED, int KJ, bool GEN = false>
 __global__ void __launch_bounds__(FTile<BINNED>::THREADS, 1)
 fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
                  const int32_t* __restrict__ n_valid, const float* __restrict__ bound_v,
                  const int32_t* __restrict__ bound_i, float* __restrict__ out_v,
-                 int32_t* __restrict__ out_i, int b, int d, int ldq, int n, int ldb, int k,
-                 int tile_n, int split_cols, int ldo, int vec_b) {
+                 int32_t* __restrict__ out_i, float* __restrict__ gen_v,
+                 int32_t* __restrict__ gen_i, int b, int d, int ldq, int n, int ldb, int k,
+                 int tile_n, int nbins, int split_cols, int ldo, int vec_b) {
+  static_assert(!GEN || BINNED, "the general binning is a binned mode");
   using Tl = FTile<BINNED>;
   constexpr int WM = Tl::WM, BM = Tl::BM, THREADS = Tl::THREADS, WARPS = Tl::WARPS;
   using R = typename Tl::T;
@@ -225,6 +265,13 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
   const int steps = nchunks * nk;
   const int n_bound = n_valid != nullptr ? min(*n_valid, n) : n;
   const int tile_chunks = BINNED ? tile_n / F_BN : 1;
+  // GEN: this CTA's slot of lists, all fill at the start.
+  const size_t gen_n = GEN ? (size_t)nbins * 2 : 0;
+  float* const glv = GEN ? gen_v + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * BM * gen_n
+                         : nullptr;
+  int32_t* const gli = GEN ? gen_i + (glv - gen_v) : nullptr;
+  if constexpr (GEN)
+    for (size_t i = tid; i < BM * gen_n; i += THREADS) glv[i] = FILL;
 
   for (int i = tid; i < BM; i += THREADS) {
     cnt[i] = 0;
@@ -408,6 +455,43 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
         }
         if (m) need |= push(i, m, v, id) > BUF - F_BN;
       }
+    } else if constexpr (GEN) {
+      // The chunk's passers through S (over the table) into the lists.
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = col0 + pl.col(j);
+          const float x = acc[i][j];
+          tv[pl.row(i) * S_LD + pl.col(j)] =
+              live[i] && col < n_bound && x > thr[i] ? x : FILL;
+        }
+      __syncthreads();
+      gen_bin_chunk(glv, gli, tv, BM, nbins, cpos * F_BN, col0, tid, THREADS);
+      __syncthreads();
+      if (++cpos == tile_chunks || c == nchunks - 1) {
+        // The tile's end: each row's lists ranked after its bound go to the
+        // buffers, BUF a row at a time, each batch merged.
+        cpos = 0;
+        const int r = tid >> 1;  // two threads a row
+        for (size_t b0 = 0; b0 < gen_n; b0 += BUF) {
+          for (size_t j = b0 + (tid & 1); j < min(gen_n, b0 + BUF); j += 2) {
+            const size_t o = r * gen_n + j;
+            const float v = glv[o];
+            const int id = gli[o];
+            glv[o] = FILL;
+            if (v > FILL && after(r, v, id)) {
+              const int at = atomicAdd(&cnt[r], 1);
+              buf_v[r * BUF + at] = v;
+              buf_i[r * BUF + at] = id;
+            }
+          }
+          __syncthreads();
+          merge();
+          __syncthreads();
+        }
+        reload();
+      }
     } else {
       const bool last = c == nchunks - 1;
 #pragma unroll
@@ -476,23 +560,24 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
   }
 }
 
-template <bool BINNED, int KJ>
+template <bool BINNED, int KJ, bool GEN = false>
 int launch_f32(const void* q, const void* base, const void* n_valid, const void* bound_v,
-               const void* bound_i, void* out_v, void* out_i, int b, int d, int ldq, int n,
-               int ldb, int k, int tile_n, int split_cols, int nsplit, int ldo,
-               cudaStream_t stream) {
+               const void* bound_i, void* out_v, void* out_i, void* gen_v, void* gen_i, int b,
+               int d, int ldq, int n, int ldb, int k, int tile_n, int nbins, int split_cols,
+               int nsplit, int ldo, cudaStream_t stream) {
   using Tl = FTile<BINNED>;
-  if (const cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<BINNED, KJ>,
+  if (const cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<BINNED, KJ, GEN>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)Tl::SMEM))
     return (int)e;
   const int vec_b = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
   const dim3 grid((unsigned)((b + Tl::BM - 1) / Tl::BM), (unsigned)nsplit);
-  fused_f32_kernel<BINNED, KJ><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+  fused_f32_kernel<BINNED, KJ, GEN><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(base),
       static_cast<const int32_t*>(n_valid), static_cast<const float*>(bound_v),
       static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), b, d, ldq, n, ldb, k, tile_n, split_cols, ldo, vec_b);
+      static_cast<int32_t*>(out_i), static_cast<float*>(gen_v), static_cast<int32_t*>(gen_i), b,
+      d, ldq, n, ldb, k, tile_n, nbins, split_cols, ldo, vec_b);
   return (int)cudaGetLastError();
 }
 
@@ -537,14 +622,16 @@ __device__ __forceinline__ void insert_row(T* lv, int32_t* li, int k, T v, int i
 // 64 i .. 64 i + 63.  The ring holds the chunks' 128-byte boxes in turn
 // (kb a chunk: 64 d in bf16, 128 in int8); producer and consumers keep its
 // stage and round parity in counters, so no step divides.
-template <int MODE, bool BINNED>
+template <int MODE, bool BINNED, bool GEN = false>
 __global__ void __launch_bounds__(G_THREADS, 1)
 fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
                    const __grid_constant__ CUtensorMap tbias, const int32_t* __restrict__ n_valid,
                    const float* __restrict__ alpha, const void* __restrict__ bound_vv,
                    const int32_t* __restrict__ bound_i, void* __restrict__ out_vv,
-                   int32_t* __restrict__ out_i, int b, int ldq, int n, int k, int tile_n,
-                   int stages, int qring) {
+                   int32_t* __restrict__ out_i, void* __restrict__ gen_vv,
+                   int32_t* __restrict__ gen_i, int b, int ldq, int n, int k, int tile_n,
+                   int nbins, int stages, int qring) {
+  static_assert(!GEN || BINNED, "the general binning is a binned mode");
   using Acc = std::conditional_t<MODE == G_BF16, float, int32_t>;  // the fragment
   using T = std::conditional_t<MODE == G_I8, int32_t, float>;      // the scores
   constexpr bool BIAS = MODE == G_I8_L2;
@@ -621,6 +708,15 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   // Consumers: fragment entry i of this thread is row rl + 8 h(i), h(i) =
   // (i / 2) % 2, of the block and column 8 (i / 4) + cl + i % 2 of the chunk.
   const int t = threadIdx.x;
+  // GEN: warp w's 16 rows' lists in this CTA's slot, all fill at the start,
+  // and its 16 rows of S over the table.
+  const size_t gen_n = GEN ? (size_t)nbins * 2 : 0;
+  T* const glv = GEN ? static_cast<T*>(gen_vv) + ((size_t)blockIdx.x * G_ROWS + 16 * warp) * gen_n
+                     : nullptr;
+  int32_t* const gli = GEN ? gen_i + (glv - static_cast<T*>(gen_vv)) : nullptr;
+  T* const S = tv + warp * 16 * S_LD;
+  if constexpr (GEN)
+    for (size_t i = lane; i < 16 * gen_n; i += 32) glv[i] = FILL;
   const int rl = 16 * warp + (lane >> 2), cl = 2 * (lane & 3);
   const int n_bound = n_valid != nullptr ? min(*n_valid, n) : n;
   const int tile_chunks = BINNED ? tile_n / G_BN : 1;
@@ -737,7 +833,16 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
       for (int i = 0; i < 64; ++i) any |= passes(i);
     }
-    if (__any_sync(FULL, any)) {
+    if (GEN && __any_sync(FULL, any)) {
+      // The chunk's passers through the warp's rows of S into its lists.
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        S[((lane >> 2) + 8 * ((i / 2) % 2)) * S_LD + 8 * (i / 4) + cl + i % 2] =
+            passes(i) ? val(i) : FILL;
+      __syncwarp();
+      gen_bin_chunk(glv, gli, S, 16, nbins, cpos * G_BN, col0, lane, 32);
+      __syncwarp();
+    } else if (__any_sync(FULL, any)) {
       // Eight groups of eight entries; a group without a passer in the warp
       // (exact) or the thread (binned) costs its tests and one branch.
 #pragma unroll
@@ -787,7 +892,35 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         thr[1] = lv[(rl + 8) * K_MAX + k - 1];
       }
     }
-    if (BINNED && (++cpos == tile_chunks || c == nchunks - 1)) {
+    if (GEN && (++cpos == tile_chunks || c == nchunks - 1)) {
+      // The tile's end: each of the warp's rows takes its lists' entries
+      // ranked after its bound, one at a time, and the lists are reset.
+      for (int r16 = 0; r16 < 16; ++r16) {
+        const int r = 16 * warp + r16, src = (r16 & 7) * 4;
+        const T bv = __shfl_sync(FULL, r16 < 8 ? bnd_v[0] : bnd_v[1], src);
+        const int bi = __shfl_sync(FULL, r16 < 8 ? bnd_i[0] : bnd_i[1], src);
+        for (size_t j0 = 0; j0 < gen_n; j0 += 32) {
+          const size_t o = r16 * gen_n + j0 + lane;
+          T v = FILL;
+          int id = 0;
+          if (j0 + lane < gen_n) {
+            v = glv[o];
+            id = gli[o];
+            glv[o] = FILL;
+          }
+          unsigned m = __ballot_sync(FULL, v > FILL && better(bv, bi, v, id));
+          while (m) {
+            const int s2 = __ffs(m) - 1;
+            m &= m - 1;
+            insert_row(lv + r * K_MAX, li + r * K_MAX, k, __shfl_sync(FULL, v, s2),
+                       __shfl_sync(FULL, id, s2), lane);
+          }
+        }
+      }
+      thr[0] = lv[rl * K_MAX + k - 1];
+      thr[1] = lv[(rl + 8) * K_MAX + k - 1];
+      cpos = 0;
+    } else if (BINNED && !GEN && (++cpos == tile_chunks || c == nchunks - 1)) {
       // The tile's end: insert every pair's survivors, one at a time.
       for (;;) {
         const unsigned m = __ballot_sync(FULL, dirty != 0);
@@ -851,11 +984,11 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 // bf16: base_t [d, n] at a row pitch of ldb.  int8: the K-major base [n,
 // ldq], alpha [b] and bias [n] (I8_L2) or null.  The ring takes as many
 // stages as fit.
-template <int MODE, bool BINNED>
+template <int MODE, bool BINNED, bool GEN = false>
 int launch_wgmma(const void* q, const void* base, const void* alpha, const void* bias,
                  const void* n_valid, const void* bound_v, const void* bound_i, void* out_v,
-                 void* out_i, int b, int d, int ldq, int n, int ldb, int k, int tile_n,
-                 cudaStream_t stream) {
+                 void* out_i, void* gen_v, void* gen_i, int b, int d, int ldq, int n, int ldb,
+                 int k, int tile_n, int nbins, cudaStream_t stream) {
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   constexpr int KD = MODE == G_BF16 ? 64 : 128;
@@ -881,34 +1014,52 @@ int launch_wgmma(const void* q, const void* base, const void* alpha, const void*
   const int stages = min(cap, (G_SMEM_MAX - fixed - resident) / per_stage);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + resident + stages * per_stage;
-  if (const cudaError_t e = cudaFuncSetAttribute(
-          fused_wgmma_kernel<MODE, BINNED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+  if (const cudaError_t e = cudaFuncSetAttribute(fused_wgmma_kernel<MODE, BINNED, GEN>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem))
     return (int)e;
-  fused_wgmma_kernel<MODE, BINNED>
+  fused_wgmma_kernel<MODE, BINNED, GEN>
       <<<(unsigned)((b + G_ROWS - 1) / G_ROWS), G_THREADS, smem, stream>>>(
           tq, tb, tbias, static_cast<const int32_t*>(n_valid), static_cast<const float*>(alpha),
-          bound_v, static_cast<const int32_t*>(bound_i), out_v, static_cast<int32_t*>(out_i), b,
-          ldq, n, k, tile_n, stages, qring);
+          bound_v, static_cast<const int32_t*>(bound_i), out_v, static_cast<int32_t*>(out_i),
+          gen_v, static_cast<int32_t*>(gen_i), b, ldq, n, k, tile_n, nbins, stages, qring);
   return (int)cudaGetLastError();
 }
 
+// What the binned modes take: nbins 128 on the table, any other on the
+// general binning (its lists given), tile_n a multiple of 128 and of nbins.
+bool bins_ok(int nbins, int tile_n, const void* gen_v) {
+  return nbins == 0 || (nbins > 0 && tile_n % 128 == 0 && tile_n % nbins == 0 &&
+                        (nbins == 128 || gen_v != nullptr));
+}
+
 template <int MODE>
-int launch_wgmma_binned(bool binned, const void* q, const void* base, const void* alpha,
+int launch_wgmma_binned(int nbins, const void* q, const void* base, const void* alpha,
                         const void* bias, const void* n_valid, const void* bound_v,
-                        const void* bound_i, void* out_v, void* out_i, int b, int d, int ldq,
-                        int n, int ldb, int k, int tile_n, cudaStream_t s) {
-  return binned ? launch_wgmma<MODE, true>(q, base, alpha, bias, n_valid, bound_v, bound_i, out_v,
-                                           out_i, b, d, ldq, n, ldb, k, tile_n, s)
-                : launch_wgmma<MODE, false>(q, base, alpha, bias, n_valid, bound_v, bound_i,
-                                            out_v, out_i, b, d, ldq, n, ldb, k, tile_n, s);
+                        const void* bound_i, void* out_v, void* out_i, void* gen_v, void* gen_i,
+                        int b, int d, int ldq, int n, int ldb, int k, int tile_n,
+                        cudaStream_t s) {
+  if (nbins != 0 && nbins != 128)
+    return launch_wgmma<MODE, true, true>(q, base, alpha, bias, n_valid, bound_v, bound_i, out_v,
+                                          out_i, gen_v, gen_i, b, d, ldq, n, ldb, k, tile_n,
+                                          nbins, s);
+  return nbins ? launch_wgmma<MODE, true>(q, base, alpha, bias, n_valid, bound_v, bound_i, out_v,
+                                          out_i, nullptr, nullptr, b, d, ldq, n, ldb, k, tile_n,
+                                          nbins, s)
+               : launch_wgmma<MODE, false>(q, base, alpha, bias, n_valid, bound_v, bound_i,
+                                           out_v, out_i, nullptr, nullptr, b, d, ldq, n, ldb, k,
+                                           tile_n, 0, s);
 }
 
 }  // namespace
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `n_valid` may be null.  The
-// wrapper guarantees k <= n, nbins 0 or 128, tile_n a multiple of 128
-// (binned int8 and bf16: a tile walks at most 65536 chunks of 128).  The
+// wrapper guarantees k <= n, tile_n a multiple of 128 and of nbins (binned
+// int8 and bf16: a tile walks at most 65536 chunks of 128), and at nbins
+// other than 0 and 128 (the general binning) gen_v / gen_i: 64·nbins·2
+// scores (the scores' type) and int32 columns for each CTA (int8 and bf16:
+// ceil(b / 64) CTAs; fp32: ceil(b / 64) · nsplit), else null.  The
 // int8 and bf16 entries take 1 <= k <= 32 and, for a later pass of the
 // wrapper's (ops/_build.py, by_passes), each row's bound (bound_v [b] of
 // the scores' type, bound_i [b] int32, or both null): only an entry ranked
@@ -922,28 +1073,36 @@ int launch_wgmma_binned(bool binned, const void* q, const void* base, const void
 // larger k in passes of 256 with the bounds as above.
 extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, const void* n_valid,
                                          const void* bound_v, const void* bound_i, void* out_v,
-                                         void* out_i, int b, int d, int ldq, int n, int ldb,
-                                         int k, int tile_n, int nbins, int split_cols,
-                                         int nsplit, int ldo, void* stream) {
+                                         void* out_i, void* gen_v, void* gen_i, int b, int d,
+                                         int ldq, int n, int ldb, int k, int tile_n, int nbins,
+                                         int split_cols, int nsplit, int ldo, void* stream) {
   if (b == 0) return 0;
   if (k < 1 || k > F_KMAX || ldq % 4 || split_cols % F_BN || nsplit < 1 || ldo < nsplit * k ||
-      (nbins != 0 && (tile_n % F_BN || split_cols % tile_n)))
+      !bins_ok(nbins, tile_n, gen_v) || (nbins != 0 && split_cols % tile_n))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The list's registers a lane in the merge: 1, 2, 4 or 8.
-#define RAG_F32(BINNED, KJ)                                                                     \
-  launch_f32<BINNED, KJ>(q, base_t, n_valid, bound_v, bound_i, out_v, out_i, b, d, ldq, n, ldb, \
-                         k, tile_n, split_cols, nsplit, ldo, s)
+#define RAG_F32(BINNED, KJ, GEN)                                                                \
+  launch_f32<BINNED, KJ, GEN>(q, base_t, n_valid, bound_v, bound_i, out_v, out_i, gen_v, gen_i, \
+                              b, d, ldq, n, ldb, k, tile_n, nbins, split_cols, nsplit, ldo, s)
   const int kj = k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
+  if (nbins != 0 && nbins != 128) {
+    switch (kj) {
+      case 1: return RAG_F32(true, 1, true);
+      case 2: return RAG_F32(true, 2, true);
+      case 4: return RAG_F32(true, 4, true);
+      default: return RAG_F32(true, 8, true);
+    }
+  }
   switch (kj + (nbins != 0 ? 16 : 0)) {
-    case 1: return RAG_F32(false, 1);
-    case 2: return RAG_F32(false, 2);
-    case 4: return RAG_F32(false, 4);
-    case 8: return RAG_F32(false, 8);
-    case 17: return RAG_F32(true, 1);
-    case 18: return RAG_F32(true, 2);
-    case 20: return RAG_F32(true, 4);
-    default: return RAG_F32(true, 8);
+    case 1: return RAG_F32(false, 1, false);
+    case 2: return RAG_F32(false, 2, false);
+    case 4: return RAG_F32(false, 4, false);
+    case 8: return RAG_F32(false, 8, false);
+    case 17: return RAG_F32(true, 1, false);
+    case 18: return RAG_F32(true, 2, false);
+    case 20: return RAG_F32(true, 4, false);
+    default: return RAG_F32(true, 8, false);
   }
 #undef RAG_F32
 }
@@ -954,18 +1113,18 @@ extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, cons
 extern "C" int bruteforce_fused_topk_i8(const void* q, const void* base_k, const void* alpha,
                                         const void* bias, const void* n_valid,
                                         const void* bound_v, const void* bound_i, void* out_v,
-                                        void* out_i, int b, int ldq, int n, int k, int tile_n,
-                                        int nbins, void* stream) {
+                                        void* out_i, void* gen_v, void* gen_i, int b, int ldq,
+                                        int n, int k, int tile_n, int nbins, void* stream) {
   if (b == 0) return 0;
-  if (k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > K_MAX || !bins_ok(nbins, tile_n, gen_v)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bias != nullptr
-             ? launch_wgmma_binned<G_I8_L2>(nbins != 0, q, base_k, alpha, bias, n_valid, bound_v,
-                                            bound_i, out_v, out_i, b, ldq, ldq, n, ldq, k, tile_n,
-                                            s)
-             : launch_wgmma_binned<G_I8>(nbins != 0, q, base_k, nullptr, nullptr, n_valid,
-                                         bound_v, bound_i, out_v, out_i, b, ldq, ldq, n, ldq, k,
-                                         tile_n, s);
+             ? launch_wgmma_binned<G_I8_L2>(nbins, q, base_k, alpha, bias, n_valid, bound_v,
+                                            bound_i, out_v, out_i, gen_v, gen_i, b, ldq, ldq, n,
+                                            ldq, k, tile_n, s)
+             : launch_wgmma_binned<G_I8>(nbins, q, base_k, nullptr, nullptr, n_valid,
+                                         bound_v, bound_i, out_v, out_i, gen_v, gen_i, b, ldq,
+                                         ldq, n, ldq, k, tile_n, s);
 }
 
 // The bf16 mode: q [b, ldq] bf16 with ldq = d rounded up to a multiple of
@@ -973,11 +1132,12 @@ extern "C" int bruteforce_fused_topk_i8(const void* q, const void* base_k, const
 // multiple of 8), both 16-byte aligned; f32 out.
 extern "C" int bruteforce_fused_topk_bf16(const void* q, const void* base_t, const void* n_valid,
                                           const void* bound_v, const void* bound_i, void* out_v,
-                                          void* out_i, int b, int d, int ldq, int n, int ldb,
-                                          int k, int tile_n, int nbins, void* stream) {
+                                          void* out_i, void* gen_v, void* gen_i, int b, int d,
+                                          int ldq, int n, int ldb, int k, int tile_n, int nbins,
+                                          void* stream) {
   if (b == 0) return 0;
-  if (k < 1 || k > K_MAX) return (int)cudaErrorInvalidValue;
-  return launch_wgmma_binned<G_BF16>(nbins != 0, q, base_t, nullptr, nullptr, n_valid, bound_v,
-                                     bound_i, out_v, out_i, b, d, ldq, n, ldb, k, tile_n,
-                                     static_cast<cudaStream_t>(stream));
+  if (k < 1 || k > K_MAX || !bins_ok(nbins, tile_n, gen_v)) return (int)cudaErrorInvalidValue;
+  return launch_wgmma_binned<G_BF16>(nbins, q, base_t, nullptr, nullptr, n_valid, bound_v,
+                                     bound_i, out_v, out_i, gen_v, gen_i, b, d, ldq, n, ldb, k,
+                                     tile_n, static_cast<cudaStream_t>(stream));
 }

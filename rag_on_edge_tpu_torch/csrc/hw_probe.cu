@@ -41,10 +41,14 @@
 //   (K12).
 // Shared memory is the constraint the TPU's VMEM is not: one TPU block
 // (128 x 2048 int8, 256 KB) exceeds a CTA's 227 KB, so K12 takes a tile in
-// 16 KB units (128 columns by 128 bytes of d), K13 copies 16 KB slices of
-// the walk into its ring, and K14 splits v's columns (and q's rows) across
-// CTAs, each CTA holding one 128 x 128 unit of the product resident and
-// taking every R-th step.
+// 16 KB units (128 columns by 128 bytes of d; x's 128-row tiles in turn,
+// x resident or riding the ring past what fits), K13 copies 16 KB slices
+// of the walk into its ring (at most 8 stages, whatever JAX's depth; the
+// walk's tail past its last 16-byte piece by ordinary loads), and K14
+// splits v's columns (and q's rows) across CTAs, each CTA holding one 128
+// x 128 unit of the product resident and taking every R-th step (past 16
+// k-steps of 32 bytes, K in chunks of 16 staged each step).  The wrappers
+// pad d (K12's x, K14's q and v) and K12's blk to 4-byte words with zeros.
 #include <cstdint>
 #include <type_traits>
 #include <utility>
@@ -239,6 +243,7 @@ constexpr int UNIT = 16384;             // a [128][128-byte] operand tile; a K12
 constexpr int RAW_BOX = 2064;           // K12 int8: a [128 d][16 B] box, padded by 16 bytes
 constexpr int RAW_UNIT = 8 * RAW_BOX;   // K12 int8: a ring stage of eight such boxes
 constexpr int MAX_STAGES = 8;           // K12 ring stages
+constexpr int RAW_SLOT = 17 * 1024;     // K12 int8 with x in the ring: the raw unit, 1 KB-aligned
 // K12's dynamic shared memory for two CTAs an SM (half the SM's 228 KB,
 // less the 1 KB the card keeps per CTA and room for the static part), and
 // for one.
@@ -334,15 +339,17 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 }
 
 // K12 with the product: steps[s] = max over step s's fat tiles of
-// max(x @ tile), x [m <= 128, d] resident, tile [d, blk].  The CTA's walk
-// is a list of units (step, tile, 128-column slice, 128 bytes of d: int8
+// max(x @ tile), x [m, d] (rows ldx bytes apart, a multiple of 4), tile
+// [d, blk] (rows ldb elements apart).  The CTA's walk is a list of units
+// (step, 128-row tile of x, tile, 128-column slice, 128 bytes of d: int8
 // 128 d, bf16 64 d), 16 KB each, through a ring of `stages` stages filled
 // by cp.async, each thread's pieces of a unit one group (16-byte pieces
-// where the row pitch blk·es and the base allow, 4-byte pieces otherwise;
+// where the row pitch ldb·es and the base allow, 4-byte pieces otherwise;
 // rows past d and columns past blk arrive as zeros); the ring runs across
-// step boundaries.  The bytes bound it, so the ring is as deep as two CTAs
-// an SM leave room for (a CTA per step: one CTA's start hides under the
-// other's walk), or one (the persistent grid).  x is wgmma's A, K-major as
+// step boundaries.  Each row tile of x walks the step's units again.  The
+// bytes bound it, so the ring is as deep as two CTAs an SM leave room for
+// (a CTA per step: one CTA's start hides under the other's walk), or one
+// (the persistent grid).  x is wgmma's A, K-major as
 // it lies (two warpgroups of 64 rows, a 128-byte-swizzled tile per unit of
 // d, landed by cp.async in the first unit's group); each unit is four
 // k-steps of m64n128k32 s8 / m64n128k16 bf16.  bf16 reads the unit N-major
@@ -354,12 +361,16 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 // transposed, a unit earlier than bf16's.  A slice's fragment is folded
 // into the step's max (rows below m, columns below blk; no test where
 // there are none) through moves, the step's max reduced over the CTA and
-// written.
-template <typename T>
+// written.  Where x's tiles (mtiles x nku of 16 KB) leave the ring under two
+// stages (XRING), each stage carries the unit's x tile beside it, re-read
+// from L2, and int8 refills a stage only once its x tile is used (lead 0).
+// MULTI: x has more than one row tile (XRING implies it); without it the
+// walk keeps no row-tile position.
+template <typename T, bool XRING, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 2)
 stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ data,
-                    float* __restrict__ steps, int m, int d, int blk, int fat, int g,
-                    int persistent, int stages, int vec16) {
+                    float* __restrict__ steps, int m, int ldx, int d, int blk, int ldb, int fat,
+                    int g, int persistent, int stages, int vec16) {
   constexpr bool INT8 = std::is_same_v<T, int8_t>;
   using Acc = std::conditional_t<INT8, int32_t, float>;
   constexpr int ES = sizeof(T);
@@ -368,20 +379,25 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
   int s0, s1;
   step_range(g, persistent, &s0, &s1);
   const int kbytes = d * ES, nku = (kbytes + 127) / 128, nsl = (blk + BN - 1) / BN;
-  const int per_step = fat * nsl * nku, nu = (s1 - s0) * per_step;
+  static_assert(MULTI || !XRING, "x rides the ring only in the multi-tile walk");
+  const int mtiles = MULTI ? (m + BM - 1) / BM : 1;
+  const int per_step = fat * nsl * mtiles * nku, nu = (s1 - s0) * per_step;
   if (nu == 0) return;
   extern __shared__ uint8_t smem_raw[];
-  constexpr int SST = INT8 ? RAW_UNIT : UNIT;     // bytes of a stage
-  uint8_t* const xs = align_1k(smem_raw);          // x: nku [128 rows][128 B] tiles
-  uint8_t* const ring = xs + nku * UNIT;           // the stages
-  uint8_t* const bk = ring + ((stages * SST + 1023) & ~1023);  // int8: two K-major units
+  // A stage: the raw unit, then (xring) the unit's x tile, 1 KB-aligned.
+  constexpr int xoff = INT8 ? RAW_SLOT : UNIT;
+  constexpr int sst = XRING ? xoff + UNIT : (INT8 ? RAW_UNIT : UNIT);
+  uint8_t* const xs = align_1k(smem_raw);          // x: mtiles x nku [128 rows][128 B] tiles
+  uint8_t* const ring = xs + (XRING ? 0 : mtiles * nku * UNIT);  // the stages
+  uint8_t* const bk = ring + ((stages * sst + 1023) & ~1023);  // int8: two K-major units
   const uint32_t xsa = smem_u32(xs), ringa = smem_u32(ring), bka = smem_u32(bk);
-  const size_t pitch = (size_t)blk * ES, tile_bytes = (size_t)d * pitch;
+  const size_t pitch = (size_t)ldb * ES, tile_bytes = (size_t)d * pitch;
 
-  // A position in the walk: the step's tile f, 128-column slice sl and
-  // 128 bytes of d ku, innermost last; the walk's units in order.
+  // A position in the walk: x's row tile mt of the step, the step's tile
+  // f, 128-column slice sl and 128 bytes of d ku, innermost last; the
+  // walk's units in order (each row tile walks the step's units again).
   struct Pos {
-    int s, f, sl, ku;
+    int s, mt, f, sl, ku;
   };
   auto next = [&](Pos& p) {
     if (++p.ku < nku) return;
@@ -390,6 +406,10 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
     p.sl = 0;
     if (++p.f < fat) return;
     p.f = 0;
+    if constexpr (MULTI) {
+      if (++p.mt < mtiles) return;
+      p.mt = 0;
+    }
     ++p.s;
   };
   // Where 16-byte chunk c of row rr of a unit lands in its stage: int8 in
@@ -399,9 +419,20 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
   auto chunk_at = [](int rr, int c) {
     return INT8 ? c * RAW_BOX + rr * 16 : (c >> 3) * 8192 + rr * 128 + (((c & 7) ^ (rr & 7)) << 4);
   };
+  // x's row tile mt, 128 bytes of d ku, at shared address dst: word w of
+  // row r at 16-byte chunk (w % 32) / 4 ^ (r % 8), by 4-byte cp.async
+  // pieces (zeros past m and d).
+  auto load_x = [&](uint32_t dst, int mt, int ku) {
+    for (int e = threadIdx.x; e < BM * 32; e += THREADS) {
+      const int w = e % 32, row = e / 32, gr = mt * BM + row, byte = ku * 128 + 4 * w;
+      const bool ok = gr < m && byte < kbytes;
+      ffma::cp_async_4(dst + row * 128 + (((w >> 2) ^ (row & 7)) << 4) + (w & 3) * 4,
+                       ok ? x + (size_t)gr * ldx + byte : x, ok ? 4 : 0);
+    }
+  };
   // Issue the pieces of the unit at `pp` (nothing past the walk) into stage
   // `pst`, then advance both.
-  Pos pp{s0, 0, 0, 0};
+  Pos pp{s0, 0, 0, 0, 0};
   int pst = 0;
   auto load = [&]() {
     if (pp.s < s1) {
@@ -409,7 +440,8 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
                            (size_t)pp.ku * KD * pitch + (size_t)pp.sl * BN * ES;
       const int colb = (blk - pp.sl * BN) * ES;  // valid bytes of the slice's rows
       const int rows = min(KD, d - pp.ku * KD);  // valid d of the unit
-      const uint32_t dst = ringa + pst * SST;
+      const uint32_t dst = ringa + pst * sst;
+      if constexpr (XRING) load_x(dst + xoff, pp.mt, pp.ku);
       if (vec16) {
         for (int e = threadIdx.x; e < KD * CH; e += THREADS) {
           const int c = e % CH, rr = e / CH;  // a row's 128 (int8) or 256 bytes, side by side
@@ -436,26 +468,22 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
     fence_proxy_async();
     __syncthreads();
     if constexpr (INT8) {
-      const auto* raw = reinterpret_cast<const uint32_t*>(ring + st * SST);
+      const auto* raw = reinterpret_cast<const uint32_t*>(ring + st * sst);
       uint8_t* dst = bk + buf * UNIT;
       transpose_unit(raw, dst, RAW_BOX / 4);
       transpose_unit(raw + RAW_BOX, dst + 8192, RAW_BOX / 4);
     }
   };
 
-  // x, once, by 4-byte cp.async pieces in the first unit's group: word w of
-  // row r at 16-byte chunk (w % 32) / 4 ^ (r % 8) of its tile.
-  for (int e = threadIdx.x; e < BM * nku * 32; e += THREADS) {
-    const int w = e % (nku * 32), row = e / (nku * 32);
-    const bool ok = row < m && 4 * w < kbytes;
-    ffma::cp_async_4(xsa + (w / 32) * UNIT + row * 128 + ((((w % 32) >> 2) ^ (row & 7)) << 4) +
-                         (w & 3) * 4,
-                     ok ? x + (size_t)row * kbytes + 4 * w : x, ok ? 4 : 0);
-  }
+  // x, once (unless it rides in the ring), in the first unit's group: tile
+  // (mt, ku) at mt nku + ku.
+  if constexpr (!XRING)
+    for (int t = 0; t < mtiles * nku; ++t) load_x(xsa + t * UNIT, t / nku, t % nku);
   // Unit k's pieces are cp.async group k.  int8 refills a stage once its
   // unit is transposed, one unit earlier than bf16, whose wgmma reads the
-  // stage itself: `lead` more units in flight.
-  constexpr int lead = INT8 ? 1 : 0;
+  // stage itself (as it reads the x tile in the ring): `lead` more units in
+  // flight.
+  constexpr int lead = INT8 && !XRING ? 1 : 0;
   for (int j = 0; j < stages; ++j) {
     load();
     ffma::commit();
@@ -463,7 +491,7 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
   prep(0, 0, stages - 1);
   fence_proxy_async();
   __syncthreads();
-  if constexpr (INT8) {
+  if constexpr (lead > 0) {
     load();
     ffma::commit();
   }
@@ -474,11 +502,13 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0;
   Acc mx = lowest<Acc>();
-  Pos cp{s0, 0, 0, 0};  // the unit the product takes
-  int cst = 0;          // its stage
+  Pos cp{s0, 0, 0, 0, 0};  // the unit the product takes
+  int cst = 0;             // its stage
   for (int u = 0; u < nu; ++u) {
-    const uint32_t sa = xsa + cp.ku * UNIT + wg * 8192;
-    const uint32_t sb = INT8 ? bka + (u & 1) * UNIT : ringa + cst * SST;
+    const uint32_t sa = (XRING ? ringa + cst * sst + xoff
+                               : xsa + ((MULTI ? cp.mt * nku : 0) + cp.ku) * UNIT) +
+                        wg * 8192;
+    const uint32_t sb = INT8 ? bka + (u & 1) * UNIT : ringa + cst * sst;
     fence_acc(acc);
     wgmma_fence();
     // A and int8 B: 128-byte rows, 8-row groups 1 KB apart, a k-step 32
@@ -501,10 +531,10 @@ stream_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ d
     fence_acc(acc);
     const Pos at = cp;
     next(cp);
-    if (cp.ku == 0) {  // the slice's last unit
-      const int cols = blk - at.sl * BN;
-      mx = max(mx, m == BM && cols >= BN ? fold_max<true>(acc, r, 0, 0, false)
-                                         : fold_max<false>(acc, r, m, cols, false));
+    if (cp.ku == 0) {  // the last unit of the slice's row tile
+      const int cols = blk - at.sl * BN, rows = MULTI ? m - at.mt * BM : m;
+      mx = max(mx, rows >= BM && cols >= BN ? fold_max<true>(acc, r, 0, 0, false)
+                                            : fold_max<false>(acc, r, rows, cols, false));
       if (cp.s != at.s) {  // the step's last slice
         const float sm = block_max(to_f32(mx));
         if (threadIdx.x == 0) steps[at.s] = sm;
@@ -682,39 +712,158 @@ gemm_rate_wgmma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict_
   }
 }
 
+// K14 on the tensor cores past 16 k-steps of 32 bytes (d·es > 512), where
+// A no longer fits in registers beside two accumulator sets: the same
+// units, steps and sink, K cut into chunks of 16 k-steps.  For every step
+// and chunk the CTA stages the chunk's B in shared memory (as
+// gemm_rate_wgmma_kernel holds its whole B) and each warpgroup loads its
+// rows' A fragments of the chunk from device memory, twists them and
+// issues them through a ring of four k-step slots into one accumulator
+// set, the chunk's groups retired before the next chunk's B lands; the
+// step's fragment is folded once its last chunk has retired.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_rate_chunked_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
+                         float* __restrict__ sink, int tb, int tn, int d, int g, int units,
+                         int reps, int sel) {
+  constexpr bool INT8 = std::is_same_v<T, int8_t>;
+  using Acc = std::conditional_t<INT8, int32_t, float>;
+  constexpr int NKT = 16, RING = 4;    // k-steps a chunk, slots in flight
+  constexpr int HALF = NKT * 2048;     // bf16: an N-half of a chunk's B
+  constexpr int KD = NKT * 32 / (int)sizeof(T);  // d a chunk
+  const int unit = blockIdx.x % units, rep = blockIdx.x / units;
+  if (rep >= g) return;
+  const int mtiles = (tb + BM - 1) / BM;
+  const int m0 = (unit % mtiles) * BM, n0 = (unit / mtiles) * BN;
+  const int kbytes = d * (int)sizeof(T), nch = (d + KD - 1) / KD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const bs = align_1k(smem_raw);
+  const uint32_t bsa = smem_u32(bs);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rl = (warp >> 2) * 64 + 16 * (warp & 3) + (lane >> 2);  // row in the unit
+  const int r0 = m0 + rl;
+
+  // Chunk ch of B, laid out as gemm_rate_wgmma_kernel lays out its B.
+  auto stage_b = [&](int ch) {
+    const int d0 = ch * KD;
+    if constexpr (INT8) {
+      for (int e = threadIdx.x; e < BN * NKT * 8; e += THREADS) {
+        const int n = e % BN, kb = 4 * (e / BN);
+        uint32_t w = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (d0 + kb + i < d && n0 + n < tn)
+            w |= (uint32_t)v[(size_t)(d0 + kb + i) * tn + n0 + n] << (8 * i);
+        *reinterpret_cast<uint32_t*>(bs + (kb >> 7) * UNIT + n * 128 +
+                                     ((((kb & 127) >> 4) ^ (n & 7)) << 4) + (kb & 15)) = w;
+      }
+    } else {
+      for (int e = threadIdx.x; e < NKT * 16 * BN; e += THREADS) {
+        const int n = e % BN, k = e / BN, c = n & 63;
+        const uint16_t x = d0 + k < d && n0 + n < tn
+                               ? reinterpret_cast<const uint16_t*>(v)[(size_t)(d0 + k) * tn + n0 + n]
+                               : (uint16_t)0;
+        *reinterpret_cast<uint16_t*>(bs + (n >> 6) * HALF + k * 128 +
+                                     (((c >> 3) ^ (k & 7)) << 4) + (c & 7) * 2) = x;
+      }
+    }
+  };
+
+  uint32_t t[RING][4];
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int i = rep; i < g; i += reps) {
+    const int trow = i % tb;
+    [[maybe_unused]] const bool tw[2] = {r0 == trow, r0 + 8 == trow};
+    [[maybe_unused]] const __nv_bfloat162 scale =
+        __bfloat162bfloat162(__float2bfloat16_rn((float)(1 + i)));
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();  // every group on the last chunk's B has retired
+      stage_b(ch);
+      fence_proxy_async();
+      __syncthreads();
+      fence_acc(acc);
+#pragma unroll
+      for (int k = 0; k < NKT; ++k) {
+        uint32_t(&tk)[4] = t[k % RING];
+        wgmma_wait<RING - 1>();  // the group that read slot k % RING has retired
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = r0 + 8 * (j & 1);
+          const int byte = ch * 512 + 32 * k + 16 * (j >> 1) + 4 * (lane & 3);
+          const uint32_t a = row < tb && byte < kbytes
+                                 ? *reinterpret_cast<const uint32_t*>(q + (size_t)row * kbytes +
+                                                                      byte)
+                                 : 0u;
+          if constexpr (INT8) {
+            tk[j] = tw[j & 1] ? ONES : a;
+          } else {
+            const __nv_bfloat162 x = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a), scale);
+            tk[j] = *reinterpret_cast<const uint32_t*>(&x);
+          }
+        }
+        wgmma_fence();
+        if constexpr (INT8)
+          wgmma_m64n128k32_s8_rs(acc, tk,
+                                 gmma_desc(bsa + (k >> 2) * UNIT + (k & 3) * 32, 16, 1024),
+                                 ch + k);
+        else
+          wgmma_m64n128k16_rs(acc, tk, gmma_desc(bsa + k * 2048, HALF, 1024), ch + k);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    const Acc m = fold_max<false>(acc, rl, tb - m0, tn - n0, sel != 0);
+    float mx = warp_max(to_f32(m));
+    if (lane == 0) sink[((size_t)i * units + unit) * WARPS + warp] = mx;
+  }
+}
+
 // K14 int8 on __dp4a: the same units and steps; thread (ty, tx) of 16 x 16
 // holds rows ty + 16 i and columns tx + 16 j (i, j < 8) of the unit, K 16
 // int8 at a time: one 16-byte shared-memory load per row of A and per
 // column of B^T (K-contiguous words, A as stored, B transposed once) feeds
 // 4 __dp4a each.  Rows sit at a pitch of 4 words past a multiple of 4, so
-// the 16-byte loads stay aligned and free of bank conflicts.  Each warp
-// writes its max of each step's unit to sink[i][unit][warp], as above.
+// the 16-byte loads stay aligned and free of bank conflicts.  Both tiles
+// stay resident where they fit (cw = every word of K); past that (d over
+// DP4A_CW_MAX bytes) K is cut into chunks of cw words that every step
+// loads in turn.  Each warp writes its max of each step's unit to
+// sink[i][unit][warp], as above.
+constexpr int DP4A_CW_MAX = 192;  // words of K a chunk: two tiles of 100 KB
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
                       float* __restrict__ sink, int tb, int tn, int d, int g, int units, int reps,
                       int sel) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const int kw = (d + 3) / 4, kw4 = (kw + 3) & ~3, pitch = kw4 + 4;
+  const int kw = (d + 3) / 4, kw4 = (kw + 3) & ~3;
+  const int cw = min(kw4, DP4A_CW_MAX), pitch = cw + 4, nch = (kw4 + cw - 1) / cw;
   const int unit = blockIdx.x % units, r = blockIdx.x / units;
   const int mtiles = (tb + BM - 1) / BM;
   const int m0 = (unit % mtiles) * BM, n0 = (unit / mtiles) * BN;
   uint32_t* as = smem;               // [128][pitch]: q rows
   uint32_t* bs = smem + BM * pitch;  // [128][pitch]: v columns
-  for (int e = threadIdx.x; e < BM * kw4; e += THREADS) {
-    const int w = e % kw4, row = e / kw4;
-    const uint8_t* src = q + (size_t)(m0 + row) * d + 4 * w;
-    as[row * pitch + w] = m0 + row < tb && w < kw ? *reinterpret_cast<const uint32_t*>(src) : 0u;
-  }
-  for (int e = threadIdx.x; e < BN * kw4; e += THREADS) {
-    const int col = e % BN, w = e / BN;
-    uint32_t x = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = 4 * w + i;
-      if (kr < d && n0 + col < tn) x |= (uint32_t)v[(size_t)kr * tn + n0 + col] << (8 * i);
+  // Words w0 .. w0 + cw - 1 of K into both tiles.
+  auto load = [&](int w0) {
+    for (int e = threadIdx.x; e < BM * cw; e += THREADS) {
+      const int w = e % cw, row = e / cw;
+      const uint8_t* src = q + (size_t)(m0 + row) * d + 4 * (w0 + w);
+      as[row * pitch + w] =
+          m0 + row < tb && w0 + w < kw ? *reinterpret_cast<const uint32_t*>(src) : 0u;
     }
-    bs[col * pitch + w] = x;
-  }
+    for (int e = threadIdx.x; e < BN * cw; e += THREADS) {
+      const int col = e % BN, w = e / BN;
+      uint32_t x = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kr = 4 * (w0 + w) + i;
+        if (kr < d && n0 + col < tn) x |= (uint32_t)v[(size_t)kr * tn + n0 + col] << (8 * i);
+      }
+      bs[col * pitch + w] = x;
+    }
+  };
+  if (nch == 1) load(0);
   __syncthreads();
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -726,22 +875,29 @@ gemm_rate_dp4a_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
     for (int a = 0; a < 8; ++a)
 #pragma unroll
       for (int b = 0; b < 8; ++b) acc[a][b] = 0;
-    for (int w = 0; w < kw4; w += 4) {
-      uint4 bv[8];
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) {
+        __syncthreads();  // every thread is done with the last chunk
+        load(ch * cw);
+        __syncthreads();
+      }
+      for (int w = 0; w < cw; w += 4) {
+        uint4 bv[8];
 #pragma unroll
-      for (int b = 0; b < 8; ++b)
-        bv[b] = *reinterpret_cast<const uint4*>(bs + (tx + 16 * b) * pitch + w);
+        for (int b = 0; b < 8; ++b)
+          bv[b] = *reinterpret_cast<const uint4*>(bs + (tx + 16 * b) * pitch + w);
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const uint4 x = 16 * a == trow ? ones
-                                       : *reinterpret_cast<const uint4*>(
-                                             as + (ty + 16 * a) * pitch + w);
+        for (int a = 0; a < 8; ++a) {
+          const uint4 x = 16 * a == trow ? ones
+                                         : *reinterpret_cast<const uint4*>(
+                                               as + (ty + 16 * a) * pitch + w);
 #pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          int c = __dp4a((int)x.x, (int)bv[b].x, acc[a][b]);
-          c = __dp4a((int)x.y, (int)bv[b].y, c);
-          c = __dp4a((int)x.z, (int)bv[b].z, c);
-          acc[a][b] = __dp4a((int)x.w, (int)bv[b].w, c);
+          for (int b = 0; b < 8; ++b) {
+            int c = __dp4a((int)x.x, (int)bv[b].x, acc[a][b]);
+            c = __dp4a((int)x.y, (int)bv[b].y, c);
+            c = __dp4a((int)x.z, (int)bv[b].z, c);
+            acc[a][b] = __dp4a((int)x.w, (int)bv[b].w, c);
+          }
         }
       }
     }
@@ -783,7 +939,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 // K13: the walk [0, nbytes) in STAGE-byte chunks, a contiguous run of
 // chunks per CTA, through a ring of `depth` stages: thread 0 keeps `depth`
 // copies in flight, every thread reduces each stage once its barrier
-// completes, and the stage is refilled after a CTA barrier.
+// completes, and the stage is refilled after a CTA barrier.  The bulk
+// copies move whole 16-byte pieces: the last CTA reads the walk's tail past
+// them (under 16 bytes, blocks of any size) with ordinary loads.
 // partial[blockIdx.x] = the CTA's max.
 template <Elem E>
 __global__ void __launch_bounds__(THREADS) dma_ring_kernel(const uint8_t* __restrict__ data,
@@ -791,6 +949,8 @@ __global__ void __launch_bounds__(THREADS) dma_ring_kernel(const uint8_t* __rest
                                                            long long nbytes, int depth) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t bars[MAX_DEPTH];
+  const long long tail = nbytes & 15;
+  nbytes -= tail;
   const long long nchunks = (nbytes + STAGE - 1) / STAGE;
   const long long per = (nchunks + gridDim.x - 1) / gridDim.x;
   const long long c0 = min(nchunks, (long long)blockIdx.x * per);
@@ -820,7 +980,11 @@ __global__ void __launch_bounds__(THREADS) dma_ring_kernel(const uint8_t* __rest
       issue(j + depth);
     }
   }
-  const float m = block_max(wm.value());
+  float mt = wm.value();
+  constexpr int ES = Lanes<E>::kEs;
+  if (blockIdx.x + 1 == gridDim.x && threadIdx.x * ES < tail)
+    mt = fmaxf(mt, Lanes<E>::elem(data + nbytes + threadIdx.x * ES));
+  const float m = block_max(mt);
   if (threadIdx.x == 0) partial[blockIdx.x] = m;
 }
 
@@ -858,8 +1022,8 @@ int allow_smem(K kernel) {
 }
 
 template <Elem E>
-int launch_stream(const void* x, const void* data, void* steps, int m, int d, int blk, int fat,
-                  int g, int gemm, int persistent, cudaStream_t st) {
+int launch_stream(const void* x, const void* data, void* steps, int m, int ldx, int d, int blk,
+                  int ldb, int fat, int g, int gemm, int persistent, cudaStream_t st) {
   if (g <= 0) return 0;
   unsigned grid = (unsigned)g;
   if (persistent) {
@@ -870,7 +1034,7 @@ int launch_stream(const void* x, const void* data, void* steps, int m, int d, in
   constexpr int ES = Lanes<E>::kEs;
   const auto* dp = static_cast<const uint8_t*>(data);
   if (!gemm) {
-    const size_t step_bytes = (size_t)fat * d * blk * ES;
+    const size_t step_bytes = (size_t)fat * d * ldb * ES;
     stream_max_kernel<E><<<grid, THREADS, 0, st>>>(dp, static_cast<float*>(steps), g,
                                                    step_bytes, persistent);
   } else {
@@ -878,17 +1042,27 @@ int launch_stream(const void* x, const void* data, void* steps, int m, int d, in
     // x, the ring and (int8) the two transposed units.  A CTA per step:
     // as many stages as leave two CTAs an SM (one CTA's start under the
     // other's walk), else one; the persistent grid holds one CTA an SM, so
-    // it takes the deepest ring.
-    const int sst = E == Elem::kI8 ? RAW_UNIT : UNIT;
-    const int fixed = 2048 + (d * ES + 127) / 128 * UNIT + (E == Elem::kI8 ? 2 * UNIT : 0);
+    // it takes the deepest ring.  Where x's tiles would leave one CTA an SM
+    // under two stages, x rides in the ring.
+    constexpr bool I8 = E == Elem::kI8;
+    const int xtiles = (m + BM - 1) / BM * ((d * ES + 127) / 128);
+    const int base = 2048 + (I8 ? 2 * UNIT : 0);
+    const int xring = (SMEM_ONE - base - xtiles * UNIT) / (I8 ? RAW_UNIT : UNIT) < 2;
+    const int sst = xring ? (I8 ? RAW_SLOT : UNIT) + UNIT : (I8 ? RAW_UNIT : UNIT);
+    const int fixed = base + (xring ? 0 : xtiles * UNIT);
     int stages = persistent ? 0 : min(MAX_STAGES, (SMEM_TWO - fixed) / sst);
     if (stages < 2) stages = min(MAX_STAGES, (SMEM_ONE - fixed) / sst);
-    static const int smem_err = allow_smem(stream_wgmma_kernel<T>);
+    static const int smem_err = allow_smem(stream_wgmma_kernel<T, false, false>) |
+                                allow_smem(stream_wgmma_kernel<T, false, true>) |
+                                allow_smem(stream_wgmma_kernel<T, true, true>);
     if (smem_err) return smem_err;
-    const int vec16 = (blk * ES) % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
-    stream_wgmma_kernel<T><<<grid, THREADS, fixed + stages * sst, st>>>(
-        static_cast<const uint8_t*>(x), dp, static_cast<float*>(steps), m, d, blk, fat, g,
-        persistent, stages, vec16);
+    const int vec16 = (ldb * ES) % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+    auto* kernel = xring     ? stream_wgmma_kernel<T, true, true>
+                   : m > BM ? stream_wgmma_kernel<T, false, true>
+                            : stream_wgmma_kernel<T, false, false>;
+    kernel<<<grid, THREADS, fixed + stages * sst, st>>>(
+        static_cast<const uint8_t*>(x), dp, static_cast<float*>(steps), m, ldx, d, blk, ldb, fat,
+        g, persistent, stages, vec16);
   }
   return (int)cudaGetLastError();
 }
@@ -898,8 +1072,9 @@ int launch_dma(const void* data, void* partial, void* out, long long nbytes, int
                cudaStream_t st) {
   int sms;
   if (const int e = sm_count(&sms)) return e;
-  const long long nchunks = (nbytes + STAGE - 1) / STAGE;
-  const int grid = (int)min((long long)sms, nchunks);
+  // One CTA at least where the walk is only a tail of under 16 bytes.
+  const long long nchunks = ((nbytes & ~15ll) + STAGE - 1) / STAGE;
+  const int grid = nbytes > 0 ? (int)max(1ll, min((long long)sms, nchunks)) : 0;
   if (grid > 0) {
     const int smem = depth * STAGE;
     static const int smem_err = allow_smem(dma_ring_kernel<E>);
@@ -974,20 +1149,22 @@ extern "C" int hw_step_probe(const void* in, void* out, int g, int moving, int l
   return (int)cudaGetLastError();
 }
 
-// K12: data [g * fat, d, blk], x [m, d] (m <= 128; gemm: d * es and
-// blk * es multiples of 4, d * es <= 512, 4-byte aligned bases);
-// steps [g] f32.
-extern "C" int hw_stream_probe(const void* x, const void* data, void* steps, int m, int d,
-                               int blk, int fat, int g, int gemm, int persistent, int bf16,
-                               void* stream) {
+// K12: data [g * fat, d, ldb] of which the first blk columns count, x [m,
+// d] at a row pitch of ldx bytes (gemm: ldx and ldb * es multiples of 4,
+// 4-byte aligned bases; without the product ldb = blk); steps [g] f32.
+extern "C" int hw_stream_probe(const void* x, const void* data, void* steps, int m, int ldx,
+                               int d, int blk, int ldb, int fat, int g, int gemm, int persistent,
+                               int bf16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_stream<Elem::kBF16>(x, data, steps, m, d, blk, fat, g, gemm, persistent, st)
-              : launch_stream<Elem::kI8>(x, data, steps, m, d, blk, fat, g, gemm, persistent, st);
+  return bf16 ? launch_stream<Elem::kBF16>(x, data, steps, m, ldx, d, blk, ldb, fat, g, gemm,
+                                           persistent, st)
+              : launch_stream<Elem::kI8>(x, data, steps, m, ldx, d, blk, ldb, fat, g, gemm,
+                                         persistent, st);
 }
 
-// K13: the max of data[0, nbytes) (nbytes a multiple of 16, base 16-byte
-// aligned) with `depth` (1..8) copies in flight per CTA; partial [SMs]
-// f32 scratch, out [1] f32.
+// K13: the max of data[0, nbytes) (any whole number of elements, base
+// 16-byte aligned) with `depth` (1..8) copies in flight per CTA; partial
+// [SMs] f32 scratch, out [1] f32.
 extern "C" int hw_dma_probe(const void* data, void* partial, void* out, long long nbytes,
                             int depth, int bf16, void* stream) {
   if (depth < 1 || depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
@@ -996,23 +1173,39 @@ extern "C" int hw_dma_probe(const void* data, void* partial, void* out, long lon
               : launch_dma<Elem::kI8>(data, partial, out, nbytes, depth, st);
 }
 
-// K14: q [tb, d], v [d, tn] (d * es a multiple of 4, <= 512 bytes), g >= 1
-// steps over units * reps CTAs; sink [g, units, 8] f32 (each step's max per
-// unit and warp), out [1] f32 (the last step's max).  dp4a = 1 takes the
-// __dp4a unit (int8 only).
+// K14: q [tb, d], v [d, tn] (d * es a multiple of 4), g >= 1 steps over
+// units * reps CTAs; sink [g, units, 8] f32 (each step's max per unit and
+// warp), out [1] f32 (the last step's max).  dp4a = 1 takes the __dp4a unit
+// (int8 only).  Up to 16 k-steps of 32 bytes the wgmma unit holds A in
+// registers (one instance a k-step count), past that it runs
+// gemm_rate_chunked_kernel.
 extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* sink, void* out, int tb,
                                   int tn, int d, int g, int reps, int sel, int bf16, int dp4a,
                                   void* stream) {
   const int nkt = (d * (bf16 ? 2 : 1) + 31) / 32;
-  if (g <= 0 || nkt < 1 || nkt > 16) return (int)cudaErrorInvalidValue;
+  if (g <= 0 || nkt < 1 || (d * (bf16 ? 2 : 1)) % 4) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   if (dp4a) {
     if (bf16) return (int)cudaErrorInvalidValue;
     static const int smem_err = allow_smem(gemm_rate_dp4a_kernel);
     if (smem_err) return smem_err;
-    const int smem = 2 * BM * ((((d + 3) / 4 + 3) & ~3) + 4) * 4;
+    const int cw = min((((d + 3) / 4 + 3) & ~3), DP4A_CW_MAX);
+    const int smem = 2 * BM * (cw + 4) * 4;
     return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, sink, out, tb, tn, d, g, reps, sel,
                        st);
+  }
+  if (nkt > 16) {
+    constexpr int smem = 1024 + 4 * UNIT;  // a chunk's B: int8 four units, bf16 two N-halves
+    if (bf16) {
+      static const int err = allow_smem(gemm_rate_chunked_kernel<__nv_bfloat16>);
+      if (err) return err;
+      return launch_rate(gemm_rate_chunked_kernel<__nv_bfloat16>, smem, q, v, sink, out, tb, tn,
+                         d, g, reps, sel, st);
+    }
+    static const int err = allow_smem(gemm_rate_chunked_kernel<int8_t>);
+    if (err) return err;
+    return launch_rate(gemm_rate_chunked_kernel<int8_t>, smem, q, v, sink, out, tb, tn, d, g,
+                       reps, sel, st);
   }
   const auto n = std::make_integer_sequence<int, 16>{};
   return bf16 ? launch_rate_nkt<__nv_bfloat16>(n, nkt, q, v, sink, out, tb, tn, d, g, reps, sel,

@@ -103,14 +103,10 @@
 
 #include "ffma_tile.cuh"
 #include "hopper_mma.cuh"
-#include "ivf_stage.cuh"
 
 namespace {
 
-constexpr int LANES = 128;                   // bin width: threads of one row group
-constexpr int ROWS = 16;                     // routed query rows per row group
-constexpr int GROUPS = 2;                    // row groups per CTA (share one staged chunk)
-constexpr int THREADS = LANES * GROUPS;
+constexpr int LANES = 128;                   // bins: a chunk's columns
 constexpr int CODE_MAX = 16;                 // block codes (4 bits)
 constexpr int32_t KMIN = -2147483647;        // -(2**31) + 1: invalid entry
 
@@ -129,17 +125,51 @@ constexpr int P_STAGES_MAX = 8;
 constexpr int P_SMEM_MAX = 232448 - 1024;    // the opt-in limit less the static part
 
 // The next (chunk c, block b) half-chunk after (c, b) that holds a valid
-// column, chunk-major over the cluster's blocks tb..t; false past the last.
-// Every thread walks the same list from the same global values.
+// column (with all_cols, K9 without its row mask: every one), chunk-major
+// over the cluster's blocks tb..t; false past the last.  Every thread walks
+// the same list from the same global values.
 __device__ __forceinline__ bool next_half(int& c, int& b, int tb, int t, int nchunks, int col0,
-                                          const int32_t* __restrict__ rows_valid) {
+                                          const int32_t* __restrict__ rows_valid, int all_cols) {
   for (;;) {
     if (++b > t) {
       b = tb;
       if (++c >= nchunks) return false;
     }
-    if (c * 128 + col0 < rows_valid[b]) return true;
+    if (all_cols || c * 128 + col0 < rows_valid[b]) return true;
   }
+}
+
+// K9's key of a score: the 4-bit block code alone in its low bits (K1's
+// carry the code and the chunk in eight).
+__device__ __forceinline__ uint32_t extract_key(float x, uint32_t code) {
+  return ((uint32_t)monotone_key(x) & ~(uint32_t)(CODE_MAX - 1)) | code;
+}
+
+// K9's planes of one (row, bin) with their chunks, c = (c1 | c2 << 16): the
+// chunk's key x (chunks come in increasing order) shifts plane 1 down where
+// it is larger, and replaces plane 2 where it lies between them and differs
+// from plane 1, so each plane keeps the lowest chunk holding its key.
+__device__ __forceinline__ void extract_update(int32_t x, int chunk, int32_t& p1, int32_t& p2,
+                                               int32_t* cs) {
+  if (x > p1) {
+    p2 = p1;
+    p1 = x;
+    *cs = chunk | (*cs << 16);
+  } else if (x != p1 && x > p2) {
+    p2 = x;
+    *cs = (*cs & 0xffff) | (chunk << 16);
+  }
+}
+
+// K9's decoded candidate of a plane key mk of chunk cid and bin lane at the
+// cluster's last block t: (value, row), the value mk >> 4 (int8) or mk
+// itself (float), the row named by the block code; (KMIN, 0) for KMIN.
+template <bool INT8>
+__device__ __forceinline__ int2 extract_decode(int32_t mk, int cid, int lane, int t, int blk) {
+  if (mk == KMIN) return make_int2(KMIN, 0);
+  const int dd = ((t & (CODE_MAX - 1)) - ((CODE_MAX - 1) - (mk & (CODE_MAX - 1)))) &
+                 (CODE_MAX - 1);
+  return make_int2(INT8 ? mk >> 4 : mk, (t - dd) * blk + cid * LANES + lane);
 }
 
 // A routed row's plane update with the chunk's key x: plane 1 the largest,
@@ -163,25 +193,34 @@ __device__ __forceinline__ void plane_update(int32_t x, int32_t& p1, int32_t& p2
 // the accesses never conflict; 64 accumulators and three 64-key arrays
 // would not fit a thread's 255 registers).
 // Two stages of 32 d: 2% faster than three of 16 on the H100 at SIFT-1M.
-using FTile = ffma::Tile<2, 32, 2>;
-__global__ void __launch_bounds__(FTile::THREADS, 1)
+// EX (K9): its keys, its row mask (all_cols: none, every chunk walked), the
+// planes' chunks (c1 | c2 << 16) a third [64][TH] array, and the decoded
+// candidates written to out (values) and out_i (rows); that array leaves
+// the ring three stages of 8 d.
+template <bool EX>
+using FTile = std::conditional_t<EX, ffma::Tile<2, 8, 3>, ffma::Tile<2, 32, 2>>;
+template <bool EX>
+__global__ void __launch_bounds__(FTile<EX>::THREADS, 1)
 planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
                    const int32_t* __restrict__ block_first, const int32_t* __restrict__ block_last,
-                   const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out, int qcap,
-                   int d, int blk, int nplanes, int vec_a) {
-  constexpr int TH = FTile::THREADS, SF = FTile::STAGE_FLOATS;
+                   const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out,
+                   int32_t* __restrict__ out_i, int qcap, int d, int blk, int nplanes, int vec_a,
+                   int all_cols) {
+  using FT = FTile<EX>;
+  constexpr int TH = FT::THREADS, SF = FT::STAGE_FLOATS;
   const int t = blockIdx.x;
   if (block_last[t] == 0) return;
   extern __shared__ __align__(16) float fsm[];
-  int32_t* const p2_s = reinterpret_cast<int32_t*>(fsm + FTile::STAGES * SF);  // [64][TH]
-  int32_t* const m_s = p2_s + 64 * TH;                                       // [64][TH]
+  int32_t* const p2_s = reinterpret_cast<int32_t*>(fsm + FT::STAGES * SF);  // [64][TH]
+  int32_t* const m_s = p2_s + 64 * TH;                                    // [64][TH]
+  int32_t* const c_s = m_s + 64 * TH;                                     // EX: [64][TH]
   const int tid = threadIdx.x;
   const ffma::Place pl(tid);
-  const int r0 = blockIdx.y * FTile::BM;
+  const int r0 = blockIdx.y * FT::BM;
   int tb = t;  // the cluster's first block
   while (tb > 0 && block_first[tb] == 0) --tb;
   const int nchunks = blk / 128;
-  const int nk = (d + FTile::BK - 1) / FTile::BK;
+  const int nk = (d + FT::BK - 1) / FT::BK;
 
   int32_t p1[8][8];
 #pragma unroll
@@ -189,7 +228,10 @@ planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
 #pragma unroll
     for (int j = 0; j < 8; ++j) p1[i][j] = KMIN;
 #pragma unroll 8
-  for (int e = 0; e < 64; ++e) p2_s[e * TH + tid] = KMIN;
+  for (int e = 0; e < 64; ++e) {
+    p2_s[e * TH + tid] = KMIN;
+    if (EX) c_s[e * TH + tid] = 0;
+  }
   float acc[8][8];
   ffma::zero(acc);
 
@@ -198,33 +240,33 @@ planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
   auto advance = [&](int& c, int& b, int& kq) {
     if (++kq < nk) return true;
     kq = 0;
-    return next_half(c, b, tb, t, nchunks, 0, rows_valid);
+    return next_half(c, b, tb, t, nchunks, 0, rows_valid, all_cols);
   };
   int pc = 0, pb = tb - 1, pk = nk - 1;
   bool phave = advance(pc, pb, pk);
   int cc = pc, cb = pb, ck = pk;
   bool have = phave;
-  const ffma::Copier<FTile> cp(tid, qcap - r0);
+  const ffma::Copier<FT> cp(tid, qcap - r0);
   auto load = [&](int slot) {
     cp.load(fsm + slot * SF, qg + ((size_t)pb * qcap + r0) * d, d, vec_a,
-            vec + (size_t)pb * d * blk + pc * 128, blk, 128, true, d, pk * FTile::BK);
+            vec + (size_t)pb * d * blk + pc * 128, blk, 128, true, d, pk * FT::BK);
     phave = advance(pc, pb, pk);
   };
 #pragma unroll
-  for (int s = 0; s < FTile::STAGES - 1; ++s) {
+  for (int s = 0; s < FT::STAGES - 1; ++s) {
     if (phave) load(s);
     ffma::commit();
   }
-  int slot = 0, pslot = FTile::STAGES - 1;
+  int slot = 0, pslot = FT::STAGES - 1;
   bool first = true;  // the step's (chunk, block) is its chunk's first
   while (have) {
-    ffma::wait_stage<FTile>();
+    ffma::wait_stage<FT>();
     __syncthreads();  // the stage has landed, and the one refilled next is read
     if (phave) load(pslot);
     ffma::commit();
-    pslot = pslot + 1 == FTile::STAGES ? 0 : pslot + 1;
-    ffma::fma_slice<FTile>(fsm + slot * SF, pl, d - ck * FTile::BK, acc);
-    slot = slot + 1 == FTile::STAGES ? 0 : slot + 1;
+    pslot = pslot + 1 == FT::STAGES ? 0 : pslot + 1;
+    ffma::fma_slice<FT>(fsm + slot * SF, pl, d - ck * FT::BK, acc);
+    slot = slot + 1 == FT::STAGES ? 0 : slot + 1;
     const int b = cb, c = cc;
     const bool done = ck == nk - 1;
     have = advance(cc, cb, ck);
@@ -232,22 +274,26 @@ planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
     // Block b's scores of chunk c: keys, masked past rows_valid, max-folded
     // over the chunk's blocks, and at its last block into the planes.
     const bool last = !have || cc != c;
-    const int lim = rows_valid[b] - c * 128;
-    const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
+    const int lim = all_cols ? 128 : rows_valid[b] - c * 128;
+    const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int e = (8 * i + j) * TH + tid;
-        int32_t x = pl.col(j) < lim
-                        ? (int32_t)(((uint32_t)monotone_key(acc[i][j]) & ~255u) | pack)
-                        : KMIN;
+        int32_t x = KMIN;
+        if (pl.col(j) < lim)
+          x = EX ? (int32_t)extract_key(acc[i][j], code)
+                 : (int32_t)(((uint32_t)monotone_key(acc[i][j]) & ~255u) | code << 4 | c);
         if (!first) x = max(x, m_s[e]);
         if (!last) {
           m_s[e] = x;
         } else {
           int32_t p2 = p2_s[e];
-          plane_update<false>(x, p1[i][j], p2);  // keys of two chunks never tie
+          if constexpr (EX)
+            extract_update(x, c, p1[i][j], p2, &c_s[e]);
+          else
+            plane_update<false>(x, p1[i][j], p2);  // keys of two chunks never tie
           p2_s[e] = p2;
         }
       }
@@ -260,34 +306,57 @@ planes_ffma_kernel(const float* __restrict__ qg, const float* __restrict__ vec,
   for (int i = 0; i < 8; ++i) {
     const int row = r0 + pl.row(i);
     if (row >= qcap) continue;
-    int32_t* o = out + ((size_t)t * qcap + row) * (size_t)(nplanes * 128);
+    const size_t ro = ((size_t)t * qcap + row) * (size_t)(nplanes * 128);
+    int32_t* o = out + ro;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // columns pl.col(4 h) .. + 3
       const int c0 = pl.col(4 * h), e0 = (8 * i + 4 * h) * TH + tid;
-      *reinterpret_cast<int4*>(o + c0) =
-          make_int4(p1[i][4 * h], p1[i][4 * h + 1], p1[i][4 * h + 2], p1[i][4 * h + 3]);
-      if (nplanes == 2)
-        *reinterpret_cast<int4*>(o + 128 + c0) =
-            make_int4(p2_s[e0], p2_s[e0 + TH], p2_s[e0 + 2 * TH], p2_s[e0 + 3 * TH]);
+      if constexpr (EX) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          if (p == nplanes) break;
+          int2 cand[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int cs = c_s[e0 + u * TH];
+            cand[u] = extract_decode<false>(p ? p2_s[e0 + u * TH] : p1[i][4 * h + u],
+                                            p ? cs >> 16 : cs & 0xffff, c0 + u, t, blk);
+          }
+          *reinterpret_cast<int4*>(o + 128 * p + c0) =
+              make_int4(cand[0].x, cand[1].x, cand[2].x, cand[3].x);
+          *reinterpret_cast<int4*>(out_i + ro + 128 * p + c0) =
+              make_int4(cand[0].y, cand[1].y, cand[2].y, cand[3].y);
+        }
+      } else {
+        *reinterpret_cast<int4*>(o + c0) =
+            make_int4(p1[i][4 * h], p1[i][4 * h + 1], p1[i][4 * h + 2], p1[i][4 * h + 3]);
+        if (nplanes == 2)
+          *reinterpret_cast<int4*>(o + 128 + c0) =
+              make_int4(p2_s[e0], p2_s[e0 + TH], p2_s[e0 + 2 * TH], p2_s[e0 + 3 * TH]);
+      }
     }
   }
 }
 
+template <bool EX>
 int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
-                      const void* block_last, const void* rows_valid, void* out, int nblocks,
-                      int qcap, int d, int blk, int nplanes, cudaStream_t stream) {
+                      const void* block_last, const void* rows_valid, void* out, void* out_i,
+                      int nblocks, int qcap, int d, int blk, int nplanes, int all_cols,
+                      cudaStream_t stream) {
   if (nblocks == 0 || qcap == 0) return 0;
-  constexpr size_t smem = FTile::RING_BYTES + (size_t)2 * 64 * FTile::THREADS * sizeof(int32_t);
+  using FT = FTile<EX>;
+  constexpr size_t smem =
+      FT::RING_BYTES + (size_t)(EX ? 3 : 2) * 64 * FT::THREADS * sizeof(int32_t);
   if (const cudaError_t e = cudaFuncSetAttribute(
-          planes_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+          planes_ffma_kernel<EX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
     return (int)e;
   const int vec_a = d % 4 == 0 && reinterpret_cast<uintptr_t>(qg) % 16 == 0;
-  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + FTile::BM - 1) / FTile::BM));
-  planes_ffma_kernel<<<grid, FTile::THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + FT::BM - 1) / FT::BM));
+  planes_ffma_kernel<EX><<<grid, FT::THREADS, smem, stream>>>(
       static_cast<const float*>(qg), static_cast<const float*>(vec),
       static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<int32_t*>(out), qcap, d, blk,
-      nplanes, vec_a);
+      static_cast<const int32_t*>(rows_valid), static_cast<int32_t*>(out),
+      static_cast<int32_t*>(out_i), qcap, d, blk, nplanes, vec_a, all_cols);
   return (int)cudaGetLastError();
 }
 
@@ -297,15 +366,20 @@ int launch_planes_f32(const void* qg, const void* vec, const void* block_first,
 // bias rows [nblocks, blk] through `tb`.  CTA i: last block t = i / nsub
 // and, with x = i % nsub, routed rows 128 (x / 2) .. + 127 and bins 64 (x %
 // 2) .. + 63 (a block's CTAs run side by side and share its slab in L2).  kb
-// units of 128 bytes of d a half-chunk.
-template <int MODE>
+// units of 128 bytes of d a half-chunk.  EX (K9): its keys (shifted by 4,
+// the block code alone), its row mask (all_cols: none, every half-chunk
+// walked), the planes' chunks (c1 | c2 << 16) in shared memory laid out by
+// thread ([32][256]), and the decoded candidates written to out (values)
+// and out_i (rows).
+template <int MODE, bool EX>
 __global__ void __launch_bounds__(P_THREADS, 1)
 planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tb,
                     const int32_t* __restrict__ block_first,
                     const int32_t* __restrict__ block_last,
-                    const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out, int qcap,
-                    int blk, int kb, int nplanes, int stages, int nsub, int a_ring) {
+                    const int32_t* __restrict__ rows_valid, int32_t* __restrict__ out,
+                    int32_t* __restrict__ out_i, int qcap, int blk, int kb, int nplanes,
+                    int stages, int nsub, int a_ring, int all_cols) {
   using Acc = std::conditional_t<MODE == P_BF16, float, int32_t>;
   constexpr bool INT8 = MODE != P_BF16;
   constexpr bool BIAS = MODE == P_I8_L2;
@@ -322,6 +396,8 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const uint32_t res_a = base, st_b = res_a + (a_ring ? 0 : kb) * P_A_BOX;
   const uint32_t st_a = st_b + stages * P_BOX;
   const uint32_t bk = st_a + stages * P_A_BOX, st_bias = bk + (INT8 ? 2 * P_BOX : 0);
+  int32_t* const c_s = reinterpret_cast<int32_t*>(gbase + (st_bias - base) +
+                                                  (BIAS ? stages * P_BIAS : 0));  // EX
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
 
   int tb_ = t;  // the cluster's first block
@@ -342,7 +418,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   // The consumers' unit (cc, cb, cj) and the producer's (thread 0, `stages`
   // units ahead).
   int cc = 0, cb = tb0 - 1, cj = 0;
-  bool have = next_half(cc, cb, tb0, t, nchunks, col0, rows_valid);
+  bool have = next_half(cc, cb, tb0, t, nchunks, col0, rows_valid, all_cols);
   int pc = cc, pb = cb, pj = 0;
   bool phave = have;
   auto load = [&](int s) {
@@ -360,7 +436,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     if (with_bias) tma_load_2d(st_bias + s * P_BIAS, &tb, c0, pb, &full[s]);
     if (++pj == kb) {
       pj = 0;
-      phave = next_half(pc, pb, tb0, t, nchunks, col0, rows_valid);
+      phave = next_half(pc, pb, tb0, t, nchunks, col0, rows_valid, all_cols);
     }
   };
   if (threadIdx.x == 0 && have) {
@@ -381,6 +457,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   for (int i = 0; i < 32; ++i) {
     d[i] = 0;
     p1[i] = p2[i] = KMIN;
+    if (EX) c_s[i * P_THREADS + threadIdx.x] = 0;
   }
   int rs = 0, kbuf = 0;  // the unit's stage and (int8) transposed buffer
   unsigned rph = 0;      // the parity of the unit's stage round
@@ -398,8 +475,11 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   // `lim` is rows_valid[b] less the half-chunk's first column: bins at or
   // past it are KMIN (tested only where lim < 64).
   auto epilogue = [&](int c, int b, bool first, bool last) {
-    const int lim = rows_valid[b] - (c * 128 + col0);
-    const uint32_t pack = (uint32_t)(((CODE_MAX - 1) - (b & (CODE_MAX - 1))) << 4 | c);
+    const int lim = all_cols ? P_BINS : rows_valid[b] - (c * 128 + col0);
+    const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
+    // K1's keys carry the code and the chunk in 8 bits; K9's the code in 4.
+    const uint32_t pack = EX ? code : code << 4 | c;
+    constexpr int SHIFT = EX ? 4 : 8;
     const uint32_t* bw = reinterpret_cast<const uint32_t*>(gbase + (st_bias - base) + rs * P_BIAS);
     int32_t key[32];
     auto keys = [&](auto masked) {
@@ -408,11 +488,11 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         const int col = cl + 8 * (i / 4) + (i % 2);
         uint32_t k;
         if constexpr (MODE == P_BF16)
-          k = ((uint32_t)monotone_key(__fadd_rn(e[i], 0.0f)) & ~255u) | pack;
+          k = ((uint32_t)monotone_key(__fadd_rn(e[i], 0.0f)) & ~((1u << SHIFT) - 1u)) | pack;
         else if constexpr (BIAS)
-          k = ((uint32_t)e[i] << 8) - bw[col];
+          k = ((uint32_t)e[i] << SHIFT) - bw[col];
         else
-          k = ((uint32_t)e[i] << 8) | pack;
+          k = ((uint32_t)e[i] << SHIFT) | pack;
         key[i] = (decltype(masked)::value && col >= lim) ? KMIN : (int32_t)k;
       }
     };
@@ -420,19 +500,25 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       keys(std::false_type{});
     else
       keys(std::true_type{});
-    if (first && last) {
+    // The chunk's key (its blocks folded) into the planes.
+    auto planes = [&](const int32_t(&x)[32]) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) plane_update<BIAS>(key[i], p1[i], p2[i]);
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (EX)
+          extract_update(x[i], c, p1[i], p2[i], &c_s[i * P_THREADS + threadIdx.x]);
+        else
+          plane_update<BIAS>(x[i], p1[i], p2[i]);
+      }
+    };
+    if (first && last) {
+      planes(key);
     } else if (first) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) run[i] = key[i];
     } else {
 #pragma unroll
       for (int i = 0; i < 32; ++i) run[i] = max(run[i], key[i]);
-      if (last) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) plane_update<BIAS>(run[i], p1[i], p2[i]);
-      }
+      if (last) planes(run);
     }
   };
 
@@ -469,7 +555,7 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     bool nhave = true;
     if (nj == kb) {
       nj = 0;
-      nhave = next_half(nc, nb, tb0, t, nchunks, col0, rows_valid);
+      nhave = next_half(nc, nb, tb0, t, nchunks, col0, rows_valid, all_cols);
     }
     const int ns = rs + 1 == stages ? 0 : rs + 1;
     const unsigned nph = rs + 1 == stages ? rph ^ 1u : rph;
@@ -498,19 +584,35 @@ planes_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   for (int i = 0; i < 32; i += 2) {
     const int row = row0 + 8 * ((i / 2) % 2);
     if (row >= qcap) continue;
-    int32_t* o = out + ((size_t)t * qcap + row) * (size_t)(nplanes * 128) + col0 + cl + 8 * (i / 4);
-    *reinterpret_cast<int2*>(o) = make_int2(p1[i], p1[i + 1]);
-    if (nplanes == 2) *reinterpret_cast<int2*>(o + 128) = make_int2(p2[i], p2[i + 1]);
+    const int bin = col0 + cl + 8 * (i / 4);
+    const size_t o = ((size_t)t * qcap + row) * (size_t)(nplanes * 128) + bin;
+    if constexpr (EX) {
+      const int cs0 = c_s[i * P_THREADS + threadIdx.x], cs1 = c_s[(i + 1) * P_THREADS + threadIdx.x];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (p == nplanes) break;
+        const int2 a = extract_decode<INT8>(p ? p2[i] : p1[i], p ? cs0 >> 16 : cs0 & 0xffff, bin,
+                                            t, blk);
+        const int2 b = extract_decode<INT8>(p ? p2[i + 1] : p1[i + 1],
+                                            p ? cs1 >> 16 : cs1 & 0xffff, bin + 1, t, blk);
+        *reinterpret_cast<int2*>(out + o + 128 * p) = make_int2(a.x, b.x);
+        *reinterpret_cast<int2*>(out_i + o + 128 * p) = make_int2(a.y, b.y);
+      }
+    } else {
+      *reinterpret_cast<int2*>(out + o) = make_int2(p1[i], p1[i + 1]);
+      if (nplanes == 2) *reinterpret_cast<int2*>(out + o + 128) = make_int2(p2[i], p2[i + 1]);
+    }
   }
 }
 
 // qg [nblocks, qcap, ldq], vec [nblocks, d, blk] (int8 or bf16), bias
-// [nblocks, blk] (int8 L2) or null.
-template <int MODE>
+// [nblocks, blk] (int8 L2) or null.  EX: K9's scan, out_i its candidates'
+// rows.
+template <int MODE, bool EX>
 int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first,
                         const void* block_last, const void* rows_valid, const void* bias,
-                        void* out, int nblocks, int qcap, int d, int ldq, int blk, int nplanes,
-                        cudaStream_t s) {
+                        void* out, void* out_i, int nblocks, int qcap, int d, int ldq, int blk,
+                        int nplanes, int all_cols, cudaStream_t s) {
   if (nblocks == 0 || qcap == 0) return 0;
   static const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -528,20 +630,24 @@ int launch_planes_wgmma(const void* qg, const void* vec, const void* block_first
       if (const int e = word_map(encode, &tb, bias, nblocks, blk, P_BINS)) return e;
   }
   const int per_stage = P_BOX + P_A_BOX + (MODE == P_I8_L2 ? P_BIAS : 0);
-  const int a_ring = (P_SMEM_MAX - 1024 - kb * P_A_BOX - (MODE == P_BF16 ? 0 : 2 * P_BOX)) /
-                         per_stage < 2;
-  const int fixed = 1024 + (a_ring ? 0 : kb) * P_A_BOX + (MODE == P_BF16 ? 0 : 2 * P_BOX);
+  // K9's chunks of the planes: [32][P_THREADS] words past the ring.
+  const int chunks = EX ? 32 * P_THREADS * 4 : 0;
+  const int a_ring = (P_SMEM_MAX - 1024 - kb * P_A_BOX - (MODE == P_BF16 ? 0 : 2 * P_BOX) -
+                      chunks) / per_stage < 2;
+  const int fixed =
+      1024 + (a_ring ? 0 : kb) * P_A_BOX + (MODE == P_BF16 ? 0 : 2 * P_BOX) + chunks;
   const int stages = min(P_STAGES_MAX, (P_SMEM_MAX - fixed) / per_stage);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + stages * per_stage;
   if (const cudaError_t e = cudaFuncSetAttribute(
-          planes_wgmma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+          planes_wgmma_kernel<MODE, EX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return (int)e;
   const int nsub = 2 * ((qcap + P_ROWS - 1) / P_ROWS);
-  planes_wgmma_kernel<MODE><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
+  planes_wgmma_kernel<MODE, EX><<<(unsigned)((long long)nblocks * nsub), P_THREADS, smem, s>>>(
       tq, tv, tb, static_cast<const int32_t*>(block_first),
       static_cast<const int32_t*>(block_last), static_cast<const int32_t*>(rows_valid),
-      static_cast<int32_t*>(out), qcap, blk, kb, nplanes, stages, nsub, a_ring);
+      static_cast<int32_t*>(out), static_cast<int32_t*>(out_i), qcap, blk, kb, nplanes, stages,
+      nsub, a_ring, all_cols);
   return (int)cudaGetLastError();
 }
 
@@ -558,10 +664,12 @@ extern "C" int ivf_accum_planes_i8(const void* qg, const void* vec, const void* 
                                    int ldq, int blk, int nplanes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bias != nullptr
-             ? launch_planes_wgmma<P_I8_L2>(qg, vec, block_first, block_last, rows_valid, bias,
-                                            out, nblocks, qcap, d, ldq, blk, nplanes, s)
-             : launch_planes_wgmma<P_I8>(qg, vec, block_first, block_last, rows_valid, nullptr,
-                                         out, nblocks, qcap, d, ldq, blk, nplanes, s);
+             ? launch_planes_wgmma<P_I8_L2, false>(qg, vec, block_first, block_last, rows_valid,
+                                                   bias, out, nullptr, nblocks, qcap, d, ldq, blk,
+                                                   nplanes, 0, s)
+             : launch_planes_wgmma<P_I8, false>(qg, vec, block_first, block_last, rows_valid,
+                                                nullptr, out, nullptr, nblocks, qcap, d, ldq, blk,
+                                                nplanes, 0, s);
 }
 
 // bf16: qg [nblocks, qcap, ldq] with ldq = d rounded up to 8 (the pad zero),
@@ -570,9 +678,9 @@ extern "C" int ivf_accum_planes_bf16(const void* qg, const void* vec, const void
                                      const void* block_last, const void* rows_valid, void* out,
                                      int nblocks, int qcap, int d, int ldq, int blk, int nplanes,
                                      void* stream) {
-  return launch_planes_wgmma<P_BF16>(qg, vec, block_first, block_last, rows_valid, nullptr, out,
-                                     nblocks, qcap, d, ldq, blk, nplanes,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_planes_wgmma<P_BF16, false>(qg, vec, block_first, block_last, rows_valid, nullptr,
+                                            out, nullptr, nblocks, qcap, d, ldq, blk, nplanes, 0,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // fp32 qg [nblocks, qcap, d] and vec [nblocks, d, blk], no bias rows.
@@ -580,8 +688,9 @@ extern "C" int ivf_accum_planes_f32(const void* qg, const void* vec, const void*
                                     const void* block_last, const void* rows_valid, void* out,
                                     int nblocks, int qcap, int d, int blk, int nplanes,
                                     void* stream) {
-  return launch_planes_f32(qg, vec, block_first, block_last, rows_valid, out, nblocks, qcap, d,
-                           blk, nplanes, static_cast<cudaStream_t>(stream));
+  return launch_planes_f32<false>(qg, vec, block_first, block_last, rows_valid, out, nullptr,
+                                  nblocks, qcap, d, blk, nplanes, 0,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -611,288 +720,182 @@ extern "C" int ivf_accum_planes_f32(const void* qg, const void* vec, const void*
 //   for KMIN; out_i[t, r, p] = row.
 // The float value is the score with its 4 low key bits replaced by the
 // block code (JAX pallas_ivf_dma.py:232-240), not the exact score.
-// Keys of different chunks can be equal here (K1's keys carry the chunk),
-// which is why the chunk ids are tracked.
 //
-// What bounds it on the H100: the scan is K1's, here on __dp4a (int8) or
-// fp32 FMAs (the float modes); the emit adds k warp passes over 256
-// candidates per routed row of a last block.
+// What bounds it on the H100: the scan is K1's (its bounds above; without
+// the row mask every column of a block is scored, the padding too); the
+// emit reads the candidates and writes k entries a row.
 //
-// Design: the fp32 K1's CTA (256 threads = 2 row groups x 128 lanes, 16
-// rows each), chunk loop outside the block loop, the fold in registers,
-// and ivf_stage.cuh's int8 stage (packed columns, __dp4a) or float stage
-// (84.5 KB of dynamic shared memory at D' = 129).  Each lane folds
-// its chunks, in increasing order, into (m1, c1, m2, c2): a key above m1
-// shifts plane 1 down; a key equal to m1 changes nothing (the lower chunk
-// wins, and plane 2 excludes every key equal to m1); a key between m2 and m1
-// replaces plane 2.  The decoded candidates go to shared memory (over the
-// staging area) and one warp per row takes the top-k with shuffles; once
-// only KMIN is left, the argmax by (value, row) is the JAX fill id, so the
-// rest of the row repeats it.
+// Design: two kernels a call.
+// - the scan is K1's, each mode on K1's kernel with EX set: int8 and bf16
+//   planes_wgmma_kernel (wgmma m64n64k32 s8 / m64n64k16 bf16 fed by the TMA
+//   ring, the int8 units transposed in shared memory, the (chunk, block)
+//   walk), fp32 planes_ffma_kernel (ffma_tile.cuh's register tile).  The
+//   key is K9's (shift 4, the block code alone), so keys of two chunks can
+//   tie: each (row, bin) keeps its planes' chunks beside them (16 bits
+//   each, in shared memory laid out by thread), and the walk being
+//   chunk-major, "first seen wins" keeps the lowest chunk (extract_update).
+//   A wgmma CTA holds 64 of the 128 bins, so the scan writes each row's
+//   decoded candidates (value, row) [nblocks, qcap, planes·128] to device
+//   memory;
+// - the emit (extract_emit_kernel): a warp a routed row of a last block.
+//   Each lane sorts its candidates (value desc, row asc) in registers; a
+//   pass takes the warp's best head by a shuffle reduction and the lane
+//   that held it pops it (finite rows are unique, so that is JAX's mask of
+//   the winner's row).  Once only KMIN is left, JAX's argmax returns the
+//   lowest row of all the row's candidates, masked ones included: the
+//   rest of the row repeats it.  Lane 0 writes each pass, so k has no cap.
 namespace {
 
-template <typename T, int NPLANES>
-__global__ void __launch_bounds__(THREADS)
-accum_extract_kernel(const T* __restrict__ qg,               // [nblocks, qcap, d]
-                     const T* __restrict__ vec,              // [nblocks, d, blk]
-                     const int32_t* __restrict__ block_first,  // [nblocks]
-                     const int32_t* __restrict__ block_last,   // [nblocks]
-                     const int32_t* __restrict__ rows_valid,   // [nblocks]
-                     const int32_t* __restrict__ bias,       // [nblocks, blk] or null (int8)
-                     float* __restrict__ out_v,              // [nblocks, qcap, k]
-                     int32_t* __restrict__ out_i,            // [nblocks, qcap, k]
-                     int qcap, int d, int blk, int k, int mask_rows, int qstride) {
-  constexpr int NCAND = NPLANES * LANES;  // candidates per row
-  constexpr int PER_LANE = NCAND / 32;
-  constexpr int WARPS = THREADS / 32;
+constexpr int E_WARPS = 8;  // the emit's rows a CTA, a warp each
+
+template <bool INT8, int NC>
+__global__ void __launch_bounds__(E_WARPS * 32)
+extract_emit_kernel(const int32_t* __restrict__ cand_v, const int32_t* __restrict__ cand_i,
+                    const int32_t* __restrict__ block_last, float* __restrict__ out_v,
+                    int32_t* __restrict__ out_i, int qcap, int k) {
+  constexpr int PER_LANE = NC / 32;
   constexpr unsigned FULL = 0xffffffffu;
-  constexpr bool INT8 = std::is_same_v<T, int8_t>;
-  const int t = blockIdx.x;
-  if (block_last[t] == 0) return;
-  const int lane = threadIdx.x % LANES;
-  const int group = threadIdx.x / LANES;
-  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
-  const int cstride = qstride + 1;
-  // float: the d-slice staged at a time (all of qstride while it fits).
-  const int dsl = INT8 ? qstride : float_slice(qstride);
-  const bool sliced = dsl < qstride;
-
-  extern __shared__ int4 smem4[];
-  // Query rows [GROUPS*ROWS][dsl] words, then the chunk (int8:
-  // [LANES][cstride] words; float: [dsl][LANES] fp32), as the fp32 K1's.
-  int32_t* q_s = reinterpret_cast<int32_t*>(smem4);
-  int32_t* col_s = q_s + GROUPS * ROWS * dsl;
-  int32_t* cand_v = q_s;                              // [GROUPS*ROWS][NCAND], after the scan
-  int32_t* cand_i = q_s + GROUPS * ROWS * NCAND;
-  const int32_t* my_q = q_s + group * ROWS * dsl;
-
-  int tb = t;  // the cluster's first block
-  while (tb > 0 && block_first[tb] == 0) --tb;
-  const int nb = t - tb + 1;
-  const int nchunks = blk / LANES;
-  const int cta_r0 = blockIdx.y * GROUPS * ROWS;
-
-  int32_t m1[ROWS], m2[ROWS];
-  int c1[ROWS], c2[ROWS];
+  const int t = blockIdx.x, wl = threadIdx.x & 31;
+  const int row = blockIdx.y * E_WARPS + (threadIdx.x >> 5);
+  if (block_last[t] == 0 || row >= qcap) return;
+  const size_t rc = ((size_t)t * qcap + row) * NC;
+  int32_t cv[PER_LANE];
+  int ci[PER_LANE];
+  int fill = INT32_MAX;  // the row's lowest candidate row: JAX's fill id
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m1[r] = m2[r] = KMIN;
-    c1[r] = c2[r] = 0;
+  for (int i = 0; i < PER_LANE; ++i) {
+    cv[i] = cand_v[rc + i * 32 + wl];
+    ci[i] = cand_i[rc + i * 32 + wl];
+    fill = min(fill, ci[i]);
   }
-
-  for (int c = 0; c < nchunks; ++c) {
-    const int col = c * LANES + lane;
-    int32_t m[ROWS];
+  fill = __reduce_min_sync(FULL, fill);
+  // The lane's list sorted (value desc, row asc): odd-even transposition.
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) m[r] = KMIN;
-
-    for (int b = tb; b <= t; ++b) {
-      const T* vsrc = vec + (size_t)b * d * blk + c * LANES;
-      const T* qsrc = qg + (size_t)b * qcap * d;
-      const bool load_q = c == 0 || nb > 1;
-      if constexpr (INT8) {
-        stage_chunk<THREADS>(vsrc, d, blk, qstride, col_s, cstride);
-        if (load_q)
-          stage_queries<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
-                                 reinterpret_cast<int8_t*>(q_s));
-      } else if (!sliced) {
-        stage_chunk_f<THREADS>(vsrc, d, blk, qstride, reinterpret_cast<float*>(col_s));
-        if (load_q)
-          stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, qstride,
-                                   reinterpret_cast<float*>(q_s));
+  for (int r = 0; r < PER_LANE; ++r)
+#pragma unroll
+    for (int i = r & 1; i + 1 < PER_LANE; i += 2)
+      if (cv[i + 1] > cv[i] || (cv[i + 1] == cv[i] && ci[i + 1] < ci[i])) {
+        const int32_t v = cv[i];
+        const int c = ci[i];
+        cv[i] = cv[i + 1];
+        ci[i] = ci[i + 1];
+        cv[i + 1] = v;
+        ci[i + 1] = c;
       }
-      if (INT8 || !sliced) __syncthreads();
-
-      const bool masked = mask_rows != 0 && col >= rows_valid[b];
-      const uint32_t code = (uint32_t)((CODE_MAX - 1) - (b & (CODE_MAX - 1)));
-      if constexpr (INT8) {
-        int32_t acc[ROWS];
-        dot_rows<ROWS>(col_s + lane * cstride, my_q, qstride, acc);
-        const uint32_t sub = bias != nullptr ? (uint32_t)bias[(size_t)b * blk + col] : 0u;
+  float* const ov = out_v + ((size_t)t * qcap + row) * k;
+  int32_t* const oi = out_i + ((size_t)t * qcap + row) * k;
+  for (int p = 0; p < k; ++p) {
+    int32_t bv = cv[0];
+    int bi = ci[0];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const uint32_t shifted = (uint32_t)acc[r] << 4;
-          const int32_t key = masked ? KMIN
-                                     : (int32_t)(bias != nullptr ? shifted - sub : shifted | code);
-          m[r] = max(m[r], key);
-        }
-      } else {
-        float acc[ROWS];
-        if (!sliced) {
-          dot_rows_f<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                           reinterpret_cast<const float*>(my_q), qstride, acc);
-        } else {
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-          for (int e0 = 0; e0 < qstride; e0 += dsl) {
-            if (e0 > 0) __syncthreads();  // the last slice is read
-            stage_chunk_f<THREADS>(vsrc + (size_t)e0 * blk, d - e0, blk, dsl,
-                                   reinterpret_cast<float*>(col_s));
-            stage_queries_f<THREADS>(qsrc, qcap, d, cta_r0, GROUPS * ROWS, dsl,
-                                     reinterpret_cast<float*>(q_s), e0);
-            __syncthreads();
-            dot_rows_f_acc<ROWS>(reinterpret_cast<const float*>(col_s), lane,
-                                 reinterpret_cast<const float*>(my_q), dsl,
-                                 min(dsl, qstride - e0), acc);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int32_t key =
-              masked ? KMIN
-                     : (int32_t)(((uint32_t)monotone_key(acc[r]) & ~(uint32_t)(CODE_MAX - 1)) | code);
-          m[r] = max(m[r], key);
-        }
-      }
-      __syncthreads();  // col_s / q_s are rewritten next
-    }
-
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int32_t x = m[r];
-      if (x > m1[r]) {
-        m2[r] = m1[r];
-        c2[r] = c1[r];
-        m1[r] = x;
-        c1[r] = c;
-      } else if (NPLANES == 2 && x != m1[r] && x > m2[r]) {
-        m2[r] = x;
-        c2[r] = c;
+    for (int off = 16; off > 0; off >>= 1) {
+      const int32_t v2 = __shfl_xor_sync(FULL, bv, off);
+      const int i2 = __shfl_xor_sync(FULL, bi, off);
+      if (v2 > bv || (v2 == bv && i2 < bi)) {
+        bv = v2;
+        bi = i2;
       }
     }
-  }
-
-  // Decode each plane entry to (value, row); the scan area is free (the
-  // block loop ended on a barrier).
-  const int tl = t & (CODE_MAX - 1);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int p = 0; p < NPLANES; ++p) {
-      const int32_t mk = p == 0 ? m1[r] : m2[r];
-      const int cid = p == 0 ? c1[r] : c2[r];
-      const int dd = (tl - ((CODE_MAX - 1) - (mk & (CODE_MAX - 1)))) & (CODE_MAX - 1);
-      const int o = (group * ROWS + r) * NCAND + p * LANES + lane;
-      cand_v[o] = mk == KMIN ? KMIN : (INT8 ? mk >> 4 : mk);
-      cand_i[o] = mk == KMIN ? 0 : (t - dd) * blk + cid * LANES + lane;
+    if (bv == KMIN) {
+      // Only KMIN left: every later pass returns the same (KMIN, fill).
+      for (int q = p + wl; q < k; q += 32) {
+        ov[q] = -INFINITY;
+        oi[q] = fill;
+      }
+      return;
     }
-  __syncthreads();
-
-  // Exact top-k: one warp per row, k passes of a warp argmax by (value desc,
-  // row asc); lane 0 writes each pass's result, so k has no cap.
-  for (int rr = warp; rr < GROUPS * ROWS; rr += WARPS) {
-    if (cta_r0 + rr >= qcap) continue;
-    int32_t cv[PER_LANE];
-    int ci[PER_LANE];
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      cv[i] = cand_v[rr * NCAND + i * 32 + wl];
-      ci[i] = cand_i[rr * NCAND + i * 32 + wl];
+    if (wl == 0) {
+      ov[p] = INT8 ? __int2float_rn(bv) : key_to_f32(bv);
+      oi[p] = bi;
     }
-    float* const ov = out_v + ((size_t)t * qcap + cta_r0 + rr) * k;
-    int32_t* const oi = out_i + ((size_t)t * qcap + cta_r0 + rr) * k;
-    for (int p = 0; p < k; ++p) {
-      int32_t bv = cv[0];
-      int bi = ci[0];
+    if (cv[0] == bv && ci[0] == bi) {  // this lane held the winner: pop it
 #pragma unroll
-      for (int i = 1; i < PER_LANE; ++i)
-        if (cv[i] > bv || (cv[i] == bv && ci[i] < bi)) {
-          bv = cv[i];
-          bi = ci[i];
-        }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const int32_t v2 = __shfl_xor_sync(FULL, bv, off);
-        const int i2 = __shfl_xor_sync(FULL, bi, off);
-        if (v2 > bv || (v2 == bv && i2 < bi)) {
-          bv = v2;
-          bi = i2;
-        }
+      for (int i = 0; i + 1 < PER_LANE; ++i) {
+        cv[i] = cv[i + 1];
+        ci[i] = ci[i + 1];
       }
-      if (bv == KMIN) {
-        // Only KMIN left: every later pass returns the same (KMIN, bi).
-        for (int q = p + wl; q < k; q += 32) {
-          ov[q] = -INFINITY;
-          oi[q] = bi;
-        }
-        break;
-      }
-      if (wl == 0) {
-        ov[p] = INT8 ? __int2float_rn(bv) : key_to_f32(bv);
-        oi[p] = bi;
-      }
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i)
-        if (ci[i] == bi) cv[i] = KMIN;
+      cv[PER_LANE - 1] = KMIN;
     }
   }
 }
 
-template <typename T, int NPLANES>
-int launch_extract(const void* qg, const void* vec, const void* block_first,
-                   const void* block_last, const void* rows_valid, const void* bias, void* out_v,
-                   void* out_i, int nblocks, int qcap, int d, int blk, int k, int mask_rows,
-                   cudaStream_t stream) {
-  const int qstride = stage_row_words<T>(d);
-  const int dsl = std::is_same_v<T, int8_t> ? qstride : float_slice(qstride);
-  const size_t scan = ((size_t)GROUPS * ROWS * dsl + stage_chunk_words<T>(dsl)) * sizeof(int32_t);
-  const size_t cand = (size_t)GROUPS * ROWS * NPLANES * LANES * 2 * sizeof(int32_t);
-  const size_t smem = scan > cand ? scan : cand;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(accum_extract_kernel<T, NPLANES>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + GROUPS * ROWS - 1) / (GROUPS * ROWS)));
-  accum_extract_kernel<T, NPLANES><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(vec),
-      static_cast<const int32_t*>(block_first), static_cast<const int32_t*>(block_last),
-      static_cast<const int32_t*>(rows_valid), static_cast<const int32_t*>(bias),
-      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), qcap, d, blk, k, mask_rows,
-      qstride);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int extract(const void* qg, const void* vec, const void* block_first, const void* block_last,
-            const void* rows_valid, const void* bias, void* out_v, void* out_i, int nblocks,
-            int qcap, int d, int blk, int k, int nplanes, int mask_rows, void* stream) {
+// The scan (K1's kernel of the mode with EX) into cand_v / cand_i, then
+// the emit.  mode: P_I8 / P_I8_L2 / P_BF16, or -1 for fp32.
+int extract(int mode, const void* qg, const void* vec, const void* block_first,
+            const void* block_last, const void* rows_valid, const void* bias, void* cand_v,
+            void* cand_i, void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq,
+            int blk, int k, int nplanes, int mask_rows, cudaStream_t s) {
   if (nblocks == 0 || qcap == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nplanes == 2)
-    return launch_extract<T, 2>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
-                                nblocks, qcap, d, blk, k, mask_rows, s);
-  if (nplanes == 1)
-    return launch_extract<T, 1>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
-                                nblocks, qcap, d, blk, k, mask_rows, s);
-  return (int)cudaErrorInvalidValue;
+  if (k < 1 || (nplanes != 1 && nplanes != 2)) return (int)cudaErrorInvalidValue;
+  const int all = !mask_rows;
+  int err;
+  switch (mode) {
+    case P_I8_L2:
+      err = launch_planes_wgmma<P_I8_L2, true>(qg, vec, block_first, block_last, rows_valid, bias,
+                                               cand_v, cand_i, nblocks, qcap, d, ldq, blk,
+                                               nplanes, all, s);
+      break;
+    case P_I8:
+      err = launch_planes_wgmma<P_I8, true>(qg, vec, block_first, block_last, rows_valid, nullptr,
+                                            cand_v, cand_i, nblocks, qcap, d, ldq, blk, nplanes,
+                                            all, s);
+      break;
+    case P_BF16:
+      err = launch_planes_wgmma<P_BF16, true>(qg, vec, block_first, block_last, rows_valid,
+                                              nullptr, cand_v, cand_i, nblocks, qcap, d, ldq,
+                                              blk, nplanes, all, s);
+      break;
+    default:
+      err = launch_planes_f32<true>(qg, vec, block_first, block_last, rows_valid, cand_v, cand_i,
+                                    nblocks, qcap, d, blk, nplanes, all, s);
+  }
+  if (err) return err;
+  const dim3 grid((unsigned)nblocks, (unsigned)((qcap + E_WARPS - 1) / E_WARPS));
+  const auto* cv = static_cast<const int32_t*>(cand_v);
+  const auto* ci = static_cast<const int32_t*>(cand_i);
+  const auto* bl = static_cast<const int32_t*>(block_last);
+  auto* ov = static_cast<float*>(out_v);
+  auto* oi = static_cast<int32_t*>(out_i);
+  const bool int8 = mode != P_BF16 && mode >= 0;
+  if (int8 && nplanes == 2)
+    extract_emit_kernel<true, 256><<<grid, E_WARPS * 32, 0, s>>>(cv, ci, bl, ov, oi, qcap, k);
+  else if (int8)
+    extract_emit_kernel<true, 128><<<grid, E_WARPS * 32, 0, s>>>(cv, ci, bl, ov, oi, qcap, k);
+  else if (nplanes == 2)
+    extract_emit_kernel<false, 256><<<grid, E_WARPS * 32, 0, s>>>(cv, ci, bl, ov, oi, qcap, k);
+  else
+    extract_emit_kernel<false, 128><<<grid, E_WARPS * 32, 0, s>>>(cv, ci, bl, ov, oi, qcap, k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entries for ctypes.  Each launches on `stream`, allocates nothing, and
-// returns cudaGetLastError() (0 = launched).  The wrapper guarantees
-// blk % 128 == 0, k >= 1 and nplanes in {1, 2}.
-// int8: `bias` may be null (no-bias mode).
+// C entries for ctypes.  Each launches its two kernels on `stream`,
+// allocates nothing, and returns cudaGetLastError() (0 = launched).  The
+// wrapper guarantees blk % 128 == 0, k >= 1, nplanes in {1, 2}, 16-byte
+// aligned inputs, and cand_v / cand_i [nblocks, qcap, nplanes·128] int32
+// of scratch (the scan's decoded candidates).  int8: qg [nblocks, qcap,
+// ldq] with ldq = d rounded up to 16 (the pad zero), `bias` [nblocks, blk]
+// or null (no-bias mode).
 extern "C" int ivf_accum_extract_i8(const void* qg, const void* vec, const void* block_first,
                                     const void* block_last, const void* rows_valid,
-                                    const void* bias, void* out_v, void* out_i, int nblocks,
-                                    int qcap, int d, int blk, int k, int nplanes, int mask_rows,
-                                    void* stream) {
-  return extract<int8_t>(qg, vec, block_first, block_last, rows_valid, bias, out_v, out_i,
-                         nblocks, qcap, d, blk, k, nplanes, mask_rows, stream);
+                                    const void* bias, void* cand_v, void* cand_i, void* out_v,
+                                    void* out_i, int nblocks, int qcap, int d, int ldq, int blk,
+                                    int k, int nplanes, int mask_rows, void* stream) {
+  return extract(bias != nullptr ? P_I8_L2 : P_I8, qg, vec, block_first, block_last, rows_valid,
+                 bias, cand_v, cand_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k, nplanes,
+                 mask_rows, static_cast<cudaStream_t>(stream));
 }
 
-// fp32 (bf16 = 0) or bf16 (bf16 = 1) qg and vec, no bias rows (the JAX
-// function refuses them on float slabs); vec 16-byte aligned.
+// fp32 (bf16 = 0: qg [nblocks, qcap, d]) or bf16 (bf16 = 1: qg [nblocks,
+// qcap, ldq], ldq = d rounded up to 8, the pad zero) qg and vec, no bias
+// rows (the JAX function refuses them on float slabs).
 extern "C" int ivf_accum_extract_f(const void* qg, const void* vec, const void* block_first,
-                                   const void* block_last, const void* rows_valid, void* out_v,
-                                   void* out_i, int nblocks, int qcap, int d, int blk, int k,
-                                   int nplanes, int mask_rows, int bf16, void* stream) {
-  return bf16 ? extract<__nv_bfloat16>(qg, vec, block_first, block_last, rows_valid, nullptr,
-                                       out_v, out_i, nblocks, qcap, d, blk, k, nplanes,
-                                       mask_rows, stream)
-              : extract<float>(qg, vec, block_first, block_last, rows_valid, nullptr, out_v,
-                               out_i, nblocks, qcap, d, blk, k, nplanes, mask_rows, stream);
+                                   const void* block_last, const void* rows_valid, void* cand_v,
+                                   void* cand_i, void* out_v, void* out_i, int nblocks, int qcap,
+                                   int d, int ldq, int blk, int k, int nplanes, int mask_rows,
+                                   int bf16, void* stream) {
+  return extract(bf16 ? P_BF16 : -1, qg, vec, block_first, block_last, rows_valid, nullptr,
+                 cand_v, cand_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k, nplanes, mask_rows,
+                 static_cast<cudaStream_t>(stream));
 }

@@ -56,9 +56,9 @@
 //                      bias where one is given (the index gives none: its L2
 //                      rides an augmented dimension), -inf for col >= rows_valid[b];
 //   Q(b) = qg[b] for K4, qg[bc[b]] for K6 and K10, qi[cq_blocks[b]] for K7;
-//   per block b and bin (col % 128), the DEPTH best (score, id) with
+//   per block b and bin (col % nbins), the DEPTH best (score, id) with
 //   id = row_base[b] + col, ties to the lowest id;
-//   those 128*DEPTH survivors of each block merged into a running top-k
+//   those nbins*DEPTH survivors of each block merged into a running top-k
 //   ordered by (score desc, id asc), written to out_v/out_i[O(t), r, :k]
 //   with O(t) = t for K4 and K7 and bc[t] for K6 and K10.
 // Only those rows are written.  Entries past the last finite score hold
@@ -154,10 +154,10 @@
 //   dimension in d order from +0, so scores are bit-equal to the plain
 //   version's on exact data.
 // - a top-DEPTH (score, chunk) per accumulator would pass 255 registers:
-//   the lists live in shared memory as [row][depth][bin] (the
-//   scores fp32, the chunks a byte each: blk <= 32768), the chunk's first
-//   block writes them, later chunks read one threshold a score and insert
-//   only what passes it; the merge reads them in place.  Empty slots as in
+//   the lists live in shared memory as [row][depth][bin] (the scores
+//   fp32, the chunks in 16 bits: up to 65536 chunks a block), the chunk's
+//   first block writes them, later chunks read one threshold a score and
+//   insert only what passes it; the merge reads them in place.  Empty slots as in
 //   the wgmma modes: all-zero tiles from the bias words, zero rows sharing
 //   one running top-k (K7: a row is taken as zero where its slot lies
 //   outside [0, B); a zero query in a valid slot is scored, which is exact
@@ -165,6 +165,12 @@
 //   and reduce it across the four warps through shared memory.
 // - the recovery list's time is one CTA's serial walk along its longest
 //   run (a hot cluster's blocks), not the product.
+//
+// The general selection (DEPTH = 0 instances of both kernels; GenArgs
+// below): nbins other than 128, bin depths past 4, fp32 past 65536 chunks
+// a block.  The same walk, product, empty-slot handling and passes as the
+// kernels' own selection, with a slower epilogue through shared memory and
+// device memory (PERF.md section 6 times it).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -214,7 +220,8 @@ template <int DEPTH>
 struct WTile {
   static constexpr int N = DEPTH <= 2 ? 32 : 16;
   static constexpr int F = N / 2;
-  static constexpr int NCAND = DEPTH * LANES;  // survivors per row and block
+  // Survivors per row and block (the general selection: one chunk's scores).
+  static constexpr int NCAND = (DEPTH > 0 ? DEPTH : 1) * LANES;
   static constexpr int CS = NCAND + 4;         // their row stride: the stores are conflict-free
 };
 
@@ -422,6 +429,158 @@ __device__ __forceinline__ void merge_rows(const int (&rows)[R], uint32_t act, c
   __syncwarp();
 }
 
+// The general selection (the DEPTH = 0 instances of both kernels): any
+// nbins dividing blk, any bin depth, and fp32 at any blk.  A chunk's scores
+// go to shared memory as S [rows][ls] (bias applied, -inf past rows_valid),
+// and then either
+// - keepall: every column of the chunk is a candidate of the running top-k
+//   (warp_merge reads S).  The wrapper asks for it where the bin depth is
+//   at least min(k, blk / nbins): a column among a row's top k of the run
+//   has fewer than k better columns in its bin, so it survives any such
+//   depth, and the binned walk is the unbinned one;
+// - lists: each (row, bin) keeps its top `depth` (score, column) of the
+//   block, sorted (score desc, column asc), in a slot of global scratch
+//   that the CTA holds while it runs (gen_acquire: one lock word a slot,
+//   more slots than CTAs fit on the card, so a free one always exists);
+//   bin = column % nbins, the columns of a chunk in a bin scanned in
+//   ascending order by one thread (strict >, so an equal, later score stays
+//   behind).  At the block's end warp_merge takes each row's lists, and the
+//   lists are reset.
+// This is JAX's binned_top2 over the block at any depth, then its merge.
+struct GenArgs {
+  float* v;          // nslots x [rows][nbins][depth] scores
+  int32_t* c;        // their columns within the block
+  int32_t* locks;    // [nslots], 0 = free
+  int nslots, nbins, depth, keepall;
+};
+
+__device__ __forceinline__ int gen_acquire(int32_t* locks, int nslots) {
+  int s = (int)(((size_t)gridDim.x * blockIdx.y + blockIdx.x) % (size_t)nslots);
+  while (atomicCAS(&locks[s], 0, 1) != 0) s = s + 1 == nslots ? 0 : s + 1;
+  __threadfence();
+  return s;
+}
+
+__device__ __forceinline__ void gen_release(int32_t* locks, int s) {
+  __threadfence();
+  atomicExch(&locks[s], 0);
+}
+
+// Every list of the CTA's slot (`rows` rows) to -inf.
+__device__ __forceinline__ void gen_reset(const GenArgs& g, int slot, int rows) {
+  const size_t n = (size_t)rows * g.nbins * g.depth;
+  float* lv = g.v + (size_t)slot * n;
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x) lv[i] = -INFINITY;
+}
+
+// Chunk c's scores S [rows][ls] into the lists of the rows in `need`: one
+// thread a (row, l), l < min(nbins, 128), taking the chunk's columns l, l +
+// nbins, ... (one bin, (128 c + l) % nbins) in ascending order.
+__device__ __forceinline__ void gen_insert(const GenArgs& g, int slot, int rows,
+                                           const float* S, int ls, uint32_t need, int c) {
+  const int owners = min(g.nbins, LANES), col0 = c * LANES, dep = g.depth;
+  const size_t per = (size_t)rows * g.nbins * dep;
+  float* const lvb = g.v + (size_t)slot * per;
+  int32_t* const lcb = g.c + (size_t)slot * per;
+  for (int i = threadIdx.x; i < rows * owners; i += blockDim.x) {
+    const int row = i / owners, l = i - row * owners;
+    if (!((need >> row) & 1u)) continue;
+    const size_t o = ((size_t)row * g.nbins + (col0 + l) % g.nbins) * dep;
+    float* lv = lvb + o;
+    int32_t* lc = lcb + o;
+    for (int x = l; x < LANES; x += g.nbins) {
+      const float sc = S[row * ls + x];
+      if (!(sc > lv[dep - 1])) continue;
+      int p = dep - 1;
+      for (; p > 0 && sc > lv[p - 1]; --p) {
+        lv[p] = lv[p - 1];
+        lc[p] = lc[p - 1];
+      }
+      lv[p] = sc;
+      lc[p] = col0 + x;
+    }
+  }
+}
+
+// Candidates 0..n-1 (cand(j, v, id)) merged into one row's running top-k
+// (run_v / run_i, k <= 32 entries) by one warp: lane l holds entry l; each
+// finite candidate ranked after the row's bound (bv, bi) and before its
+// k-th entry is placed at its rank (the count of better entries, a ballot)
+// and the tail shifts one lane down.  Finite ids are unique, so the order
+// of insertion does not matter.
+template <class Cand>
+__device__ __forceinline__ void warp_merge(int n, const Cand& cand, float* __restrict__ run_v,
+                                           int32_t* __restrict__ run_i, float bv, int bi,
+                                           int k) {
+  const int wl = threadIdx.x & 31;
+  float rv = wl < k ? run_v[wl] : -INFINITY;
+  int ri = wl < k ? run_i[wl] : 0;
+  float kv = __shfl_sync(FULL, rv, k - 1);
+  int ki = __shfl_sync(FULL, ri, k - 1);
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    float v = -INFINITY;
+    int id = 0;
+    if (j0 + wl < n) cand(j0 + wl, v, id);
+    unsigned m = __ballot_sync(FULL, v > -INFINITY && better(v, id, kv, ki) &&
+                                         better(bv, bi, v, id));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(FULL, v, src);
+      const int ci = __shfl_sync(FULL, id, src);
+      if (!better(cv, ci, kv, ki)) continue;  // the same in every lane
+      const int pos = __popc(__ballot_sync(FULL, wl < k && better(rv, ri, cv, ci)));
+      const float uv = __shfl_up_sync(FULL, rv, 1);
+      const int ui = __shfl_up_sync(FULL, ri, 1);
+      if (wl == pos) {
+        rv = cv;
+        ri = ci;
+      } else if (wl > pos) {
+        rv = uv;
+        ri = ui;
+      }
+      kv = __shfl_sync(FULL, rv, k - 1);
+      ki = __shfl_sync(FULL, ri, k - 1);
+    }
+  }
+  if (wl < k) {
+    run_v[wl] = rv;
+    run_i[wl] = ri;
+  }
+  __syncwarp();
+}
+
+// The rows in `act` of a CTA (`rows` rows, run_v / run_i [rows][K_MAX])
+// merged with their candidates by the CTA's warps, a row a warp at a time:
+// keepall, chunk c's scores S [rows][ls] (ids rb + 128 c + column);
+// else the lists of the CTA's slot (ids rb + column), which are then reset.
+// Every thread calls it; a barrier follows.
+__device__ __forceinline__ void gen_merge(const GenArgs& g, int slot, int rows, uint32_t act,
+                                          const float* S, int ls, int c, int rb,
+                                          float* run_v, int32_t* run_i, const float* s_bv,
+                                          const int* s_bi, int k) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const size_t per = (size_t)g.nbins * g.depth;
+  for (int rr = warp; rr < rows; rr += nw) {
+    if (!((act >> rr) & 1u)) continue;
+    if (g.keepall) {
+      const float* sr = S + rr * ls;
+      const int r0 = rb + c * LANES;
+      warp_merge(LANES, [&](int j, float& v, int& id) { v = sr[j]; id = r0 + j; },
+                 run_v + rr * K_MAX, run_i + rr * K_MAX, s_bv[rr], s_bi[rr], k);
+    } else {
+      const float* lv = g.v + ((size_t)slot * rows + rr) * per;
+      const int32_t* lc = g.c + ((size_t)slot * rows + rr) * per;
+      warp_merge((int)per, [&](int j, float& v, int& id) { v = lv[j]; id = rb + lc[j]; },
+                 run_v + rr * K_MAX, run_i + rr * K_MAX, s_bv[rr], s_bi[rr], k);
+    }
+  }
+  if (!g.keepall) {
+    __syncthreads();
+    gen_reset(g, slot, rows);
+  }
+}
+
 // T: int8_t or __nv_bfloat16.  K4 (SRC kBlock: q = qg [nblocks, qcap] rows,
 // also through `tq`, [1, N, 128-byte] boxes, 128-byte swizzle), K6 and K10
 // (SRC kCluster: q = qg [nsrc = nlist, qcap] rows, block b's rows being
@@ -450,7 +609,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const int32_t* __restrict__ bound_i,
                      float* __restrict__ out_v, int32_t* __restrict__ out_i,
                      int qcap, int blk, int kb, int ldq, int qbytes, int k, int stages, int nsrc,
-                     int qwide) {
+                     int qwide, const GenArgs gen) {
   constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
   using Acc = std::conditional_t<BF16, float, int32_t>;
   using Tl = WTile<DEPTH>;
@@ -459,7 +618,10 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int QUNIT = N * 128;             // a unit of the routed rows
   constexpr int KD = 128 / (int)sizeof(T);   // d a unit
   constexpr bool MAX_ONLY = kMaxVariant<V>;
+  constexpr bool GEN = DEPTH == 0;           // the general selection
+  constexpr int LD = GEN ? 1 : DEPTH;
   static_assert(V == Variant::kFull || SRC == QSrc::kCluster, "K10's variants are K6's");
+  static_assert(!(GEN && MAX_ONLY), "kMaxOnly and kFixedOut select nothing");
   const float NEG_INF = -INFINITY;
 
   // CTAs on blocks that end no run leave before any setup (the recovery
@@ -510,6 +672,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   extern __shared__ uint8_t w_smem[];
   __shared__ __align__(8) uint64_t full[W_STAGES_MAX], qbar;
   __shared__ uint32_t s_nz;  // the routed rows of the block that hold a nonzero byte
+  __shared__ int s_slot;     // the general selection's slot of lists
   // Each row's bound (a later pass of the wrapper's): only survivors ranked
   // after it take part in the merge.  No bound: (+inf, -1).
   __shared__ float s_bv[32];
@@ -544,9 +707,18 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
     mbar_init(&qbar, 1);
     s_nz = 0;
+    if (GEN && !gen.keepall) s_slot = gen_acquire(gen.locks, gen.nslots);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const bool lists = GEN && !gen.keepall;
+  if (lists) gen_reset(gen, s_slot, N);
+  // The slot goes back once every thread is done with it.
+  auto release = [&]() {
+    if (!lists) return;
+    __syncthreads();
+    if (threadIdx.x == 0) gen_release(gen.locks, s_slot);
+  };
 
   // Row n of block b in q, or null (past qcap; K7: a slot outside [0, nsrc)).
   auto row_ptr = [&](int b, int n) -> const int8_t* {
@@ -674,13 +846,13 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   };
 
   Acc d[F], e[F];
-  float tv_[F][DEPTH];
-  int tc_[F][DEPTH];
+  float tv_[F][LD];
+  int tc_[F][LD];
 #pragma unroll
   for (int i = 0; i < F; ++i) {
     d[i] = 0;
 #pragma unroll
-    for (int j = 0; j < DEPTH; ++j) {
+    for (int j = 0; j < LD; ++j) {
       tv_[i][j] = NEG_INF;
       tc_[i][j] = 0;
     }
@@ -705,10 +877,12 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         x = __int2float_rn(e[i]);
       if (bias != nullptr) x = __fsub_rn(x, bsub[(i >> 1) & 1]);
       if (bin0 + 8 * ((i >> 1) & 1) >= lim) x = NEG_INF;
-      if constexpr (MAX_ONLY) {
+      if constexpr (GEN) {  // to S, [row][bin]
+        cand_v[(8 * (i >> 2) + 2 * (wl & 3) + (i & 1)) * CS + bin0 + 8 * ((i >> 1) & 1)] = x;
+      } else if constexpr (MAX_ONLY) {
         if (x > tv_[i][0]) tv_[i][0] = x;
       } else {
-        insert_top<DEPTH>(tv_[i], tc_[i], x, c);
+        insert_top<LD>(tv_[i], tc_[i], x, c);
       }
     }
   };
@@ -716,13 +890,14 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // Block b's survivors to shared memory, [row][depth][bin], and the
   // entries reset for the next block.
   auto flush = [&](int b) {
+    if constexpr (GEN) return;  // the lists are in the slot
     const int rb = row_base[b];
 #pragma unroll
     for (int i = 0; i < F; ++i) {
       const int bin = bin0 + 8 * ((i >> 1) & 1);
       const int row = 8 * (i >> 2) + 2 * (wl & 3) + (i & 1);
 #pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
+      for (int j = 0; j < LD; ++j) {
         cand_v[row * CS + j * LANES + bin] = tv_[i][j];
         cand_i[row * CS + j * LANES + bin] = rb + tc_[i][j] * LANES + bin;
       }
@@ -730,7 +905,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < F; ++i)
 #pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
+      for (int j = 0; j < LD; ++j) {
         tv_[i][j] = NEG_INF;
         tc_[i][j] = 0;
       }
@@ -746,10 +921,23 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int mrows[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) mrows[r] = warp + WARPS * r;
-  auto merge = [&](uint32_t dup) {
-    if constexpr (!MAX_ONLY)
-      merge_rows<DEPTH, R, V != Variant::kNoGate>(mrows, vmask & ~dup, cand, run_v, run_i, s_bv,
-                                                   s_bi, k);
+  // The general selection: chunk c of block b scored into S (cand_v):
+  // keepall merges it, else its scores go to the lists.
+  auto gen_chunk = [&](int b, int c, uint32_t rows) {
+    if (gen.keepall)
+      gen_merge(gen, 0, N, rows, cand_v, CS, c, row_base[b], run_v, run_i, s_bv, s_bi, k);
+    else
+      gen_insert(gen, s_slot, N, cand_v, CS, rows, c);
+  };
+  auto merge = [&](uint32_t dup, int b) {
+    if constexpr (GEN) {
+      if (lists)
+        gen_merge(gen, s_slot, N, vmask & ~dup, cand_v, CS, 0, row_base[b], run_v, run_i, s_bv,
+                  s_bi, k);
+    } else if constexpr (!MAX_ONLY) {
+      merge_rows<LD, R, V != Variant::kNoGate>(mrows, vmask & ~dup, cand, run_v, run_i, s_bv,
+                                                s_bi, k);
+    }
   };
 
   // kMaxOnly, kFixedOut: each row's max over the block's 128 bins into
@@ -816,22 +1004,38 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int b = tb; b <= t; ++b) {
       const int nvalid = min(rows_valid[b], blk);
       if (nvalid <= 0) continue;
-      if (threadIdx.x < LANES) {
-        float zv[DEPTH];
-        int zc[DEPTH];
-        zero_row_top<DEPTH>(bias != nullptr ? bias + (size_t)b * blk + threadIdx.x : nullptr,
-                            nvalid, threadIdx.x, zv, zc);
-        const int rb = row_base[b];
-#pragma unroll
-        for (int j = 0; j < DEPTH; ++j) {
-          cand_v[j * LANES + threadIdx.x] = zv[j];
-          cand_i[j * LANES + threadIdx.x] = rb + zc[j] * LANES + threadIdx.x;
+      if constexpr (GEN) {
+        // Row 0's scores chunk by chunk into S, through the general selection.
+        for (int c = 0; c * LANES < nvalid; ++c) {
+          if (threadIdx.x < LANES) {
+            const int col = c * LANES + threadIdx.x;
+            cand_v[threadIdx.x] = col >= nvalid ? NEG_INF
+                                  : bias != nullptr ? __fsub_rn(0.0f, bias[(size_t)b * blk + col])
+                                                    : 0.0f;
+          }
+          __syncthreads();
+          gen_chunk(b, c, 1u);
+          __syncthreads();
         }
+      } else {
+        if (threadIdx.x < LANES) {
+          float zv[LD];
+          int zc[LD];
+          zero_row_top<LD>(bias != nullptr ? bias + (size_t)b * blk + threadIdx.x : nullptr,
+                           nvalid, threadIdx.x, zv, zc);
+          const int rb = row_base[b];
+#pragma unroll
+          for (int j = 0; j < LD; ++j) {
+            cand_v[j * LANES + threadIdx.x] = zv[j];
+            cand_i[j * LANES + threadIdx.x] = rb + zc[j] * LANES + threadIdx.x;
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
-      merge(vmask & ~1u);
+      merge(vmask & ~1u, b);
       __syncthreads();
     }
+    release();
     for (int i = threadIdx.x; i < nrows * k; i += THREADS) {
       const size_t o = ((size_t)orow * qcap + r0) * k + i;
       out_v[o] = run_v[i % k];
@@ -912,6 +1116,10 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_proxy_async();
     __syncthreads();  // stage rs and buffer kbuf are free; the next unit is transposed
     if (threadIdx.x == 0 && phave) load(rs);
+    if (GEN && chunk_end) {  // S is read before the next chunk writes it
+      gen_chunk(cb, cc, need);
+      __syncthreads();
+    }
     if (MAX_ONLY && chunk_end && !nhave) {
       row_max();  // the CTA's one block is scored
     } else if (chunk_end && (!nhave || nb != cb)) {
@@ -921,7 +1129,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       flush(cb);
       if (threadIdx.x == 0) s_nz = 0;
       __syncthreads();
-      merge(dup);
+      merge(dup, cb);
       __syncthreads();
       for (int i = threadIdx.x; dup != 0 && i < N * k; i += THREADS) {
         const int r = i / k, p = i % k;
@@ -948,6 +1156,7 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     kbuf ^= 1;
     have = nhave;
   }
+  release();
 
   if (!writes) return;
   for (int i = threadIdx.x; i < N * k; i += THREADS) {
@@ -957,6 +1166,25 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     out_v[o] = run_v[r * K_MAX + (MAX_ONLY ? 0 : p)];
     out_i[o] = MAX_ONLY ? 0 : run_i[r * K_MAX + p];
   }
+}
+
+// The general selection's lists: more slots than the kernel's CTAs that fit
+// on the card at once, so a CTA that waits for one always finds one freed.
+template <class Kernel>
+int check_slots(Kernel kernel, int threads, size_t smem, const GenArgs& gen) {
+  if (gen.nbins < 1 || gen.depth < 1) return (int)cudaErrorInvalidValue;
+  if (gen.keepall) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  if (const cudaError_t e =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem))
+    return (int)e;
+  return gen.v == nullptr || gen.c == nullptr || gen.locks == nullptr ||
+                 (long long)per_sm * sms > gen.nslots
+             ? (int)cudaErrorInvalidValue
+             : 0;
 }
 
 // q: K4's qg [nblocks, qcap] rows, K6's and K10's qg [nsrc = nlist, qcap]
@@ -969,7 +1197,7 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* bias, const void* row_base, const void* bound_v,
                  const void* bound_i, void* out_v, void* out_i, int nblocks, int qcap, int d,
-                 int ldq, int blk, int k, int nsrc, cudaStream_t s) {
+                 int ldq, int blk, int k, int nsrc, const GenArgs& gen, cudaStream_t s) {
   constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
   constexpr int ES = (int)sizeof(T), KD = 128 / ES;
   using Tl = WTile<DEPTH>;
@@ -1001,6 +1229,9 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  smem))
     return (int)e;
+  if (DEPTH == 0)
+    if (const int e = check_slots(grouped_wgmma_kernel<T, DEPTH, SRC, V>, THREADS, smem, gen))
+      return e;
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + Tl::N - 1) / Tl::N));
   grouped_wgmma_kernel<T, DEPTH, SRC, V><<<grid, THREADS, smem, s>>>(
       tq, tv, static_cast<const int8_t*>(q), static_cast<const int32_t*>(cq_blocks),
@@ -1009,7 +1240,7 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
       static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq * ES, d * ES, k, stages, nsrc, qwide);
+      static_cast<int32_t*>(out_i), qcap, blk, kb, ldq * ES, d * ES, k, stages, nsrc, qwide, gen);
   return (int)cudaGetLastError();
 }
 
@@ -1022,16 +1253,16 @@ int launch_wgmma(const void* q, const void* cq_blocks, const void* block_cluster
 constexpr int F_ROWS = 32;
 template <int DEPTH>
 using FTile = ffma::Tile<1, DEPTH <= 2 ? 32 : 16, DEPTH <= 2 ? 2 : 3, F_ROWS / 8>;
-constexpr int F_CHUNKS = 256;  // chunks a block: the lists keep a chunk in a byte
+constexpr int F_CHUNKS = 65536;  // chunks a block: the lists keep a chunk in 16 bits
 
 // A row's stride in the lists [row][depth][bin] (odd: a warp's epilogue
 // stores of eight rows fall at most two to a bank), and the shared memory of
 // the ring, the lists and the running top-k.
 template <int DEPTH>
 struct FList {
-  static constexpr int CS = DEPTH * LANES + 1;
+  static constexpr int CS = (DEPTH > 0 ? DEPTH : 1) * LANES + 1;  // general: one chunk's scores
   static constexpr size_t SMEM = FTile<DEPTH>::RING_BYTES +
-                                 (size_t)F_ROWS * CS * (sizeof(float) + 1) +
+                                 (size_t)F_ROWS * CS * (sizeof(float) + sizeof(uint16_t)) +
                                  (size_t)F_ROWS * K_MAX * 2 * sizeof(int32_t);
 };
 
@@ -1059,9 +1290,12 @@ grouped_ffma_kernel(const float* __restrict__ q,
                     const float* __restrict__ bound_v,         // like out's rows, or null
                     const int32_t* __restrict__ bound_i,
                     float* __restrict__ out_v, int32_t* __restrict__ out_i,
-                    int qcap, int d, int blk, int ldq, int k, int nsrc) {
+                    int qcap, int d, int blk, int ldq, int k, int nsrc, const GenArgs gen) {
   using Tl = FTile<DEPTH>;
   constexpr bool MAX_ONLY = kMaxVariant<V>;
+  constexpr bool GEN = DEPTH == 0;         // the general selection
+  constexpr int LD = GEN ? 1 : DEPTH;
+  static_assert(!(GEN && MAX_ONLY), "kMaxOnly and kFixedOut select nothing");
   static_assert(V == Variant::kFull || SRC == QSrc::kCluster, "K10's variants are K6's");
   constexpr int TH = Tl::THREADS, SF = Tl::STAGE_FLOATS, CS = FList<DEPTH>::CS;
   constexpr int NW = TH / 32;             // warps
@@ -1097,16 +1331,18 @@ grouped_ffma_kernel(const float* __restrict__ q,
   }
   const int nk = (d + Tl::BK - 1) / Tl::BK;
 
-  // Shared memory: the ring, the lists' scores [F_ROWS][CS], the running
-  // top-k, the lists' chunks [F_ROWS][CS] (a byte each).
+  // Shared memory: the ring, the lists' scores [F_ROWS][CS] (general: the
+  // chunk's scores S), the running top-k, the lists' chunks [F_ROWS][CS]
+  // (16 bits each).
   extern __shared__ __align__(16) float fsm[];
   float* const list_v = fsm + Tl::STAGES * SF;
   float* const run_v = list_v + F_ROWS * CS;
   int32_t* const run_i = reinterpret_cast<int32_t*>(run_v + F_ROWS * K_MAX);
-  uint8_t* const list_c = reinterpret_cast<uint8_t*>(run_i + F_ROWS * K_MAX);
+  uint16_t* const list_c = reinterpret_cast<uint16_t*>(run_i + F_ROWS * K_MAX);
   __shared__ float s_bv[F_ROWS];
   __shared__ int s_bi[F_ROWS];
   __shared__ uint32_t s_nz;  // the rows of the block taken as nonzero
+  __shared__ int s_slot;     // the general selection's slot of lists
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
 
   for (int i = tid; i < F_ROWS * K_MAX; i += TH) {
@@ -1119,8 +1355,18 @@ grouped_ffma_kernel(const float* __restrict__ q,
     s_bv[tid] = has ? bound_v[o] : INFINITY;
     s_bi[tid] = has ? bound_i[o] : -1;
   }
-  if (tid == 0) s_nz = 0;
+  if (tid == 0) {
+    s_nz = 0;
+    if (GEN && !gen.keepall) s_slot = gen_acquire(gen.locks, gen.nslots);
+  }
   __syncthreads();
+  const bool lists = GEN && !gen.keepall;
+  if (lists) gen_reset(gen, s_slot, F_ROWS);
+  auto release = [&]() {  // once every thread is done with the slot
+    if (!lists) return;
+    __syncthreads();
+    if (tid == 0) gen_release(gen.locks, s_slot);
+  };
 
   // Row n (< nrows) of block b taken as nonzero: K4 and K6 hold a nonzero
   // word in its ldq; K7 has a slot in [0, nsrc) (a zero query there is
@@ -1166,6 +1412,11 @@ grouped_ffma_kernel(const float* __restrict__ q,
   };
   auto merge = [&](uint32_t act) {
     if constexpr (MAX_ONLY) return;
+    if constexpr (GEN) {
+      if (lists)
+        gen_merge(gen, s_slot, F_ROWS, act, list_v, CS, 0, rb, run_v, run_i, s_bv, s_bi, k);
+      return;
+    }
 #pragma unroll 1
     for (int g = 0; g < F_ROWS / (NW * R); ++g) {
       int rows[R];
@@ -1176,9 +1427,16 @@ grouped_ffma_kernel(const float* __restrict__ q,
         any |= (act >> rows[r]) & 1u;
       }
       if (any)
-        merge_rows<DEPTH, R, V != Variant::kNoGate>(rows, act, cand, run_v, run_i, s_bv, s_bi,
-                                                     k);
+        merge_rows<LD, R, V != Variant::kNoGate>(rows, act, cand, run_v, run_i, s_bv, s_bi, k);
     }
+  };
+  // The general selection: chunk c of block b scored into S (list_v):
+  // keepall merges it, else its scores go to the lists.
+  auto gen_chunk = [&](int b, int c, uint32_t rows) {
+    if (gen.keepall)
+      gen_merge(gen, 0, F_ROWS, rows, list_v, CS, c, row_base[b], run_v, run_i, s_bv, s_bi, k);
+    else
+      gen_insert(gen, s_slot, F_ROWS, list_v, CS, rows, c);
   };
 
   // The all-zero tile (the wgmma modes' test and path): row 0 binned from
@@ -1204,20 +1462,33 @@ grouped_ffma_kernel(const float* __restrict__ q,
     for (int b = tb; b <= t; ++b) {
       const int nvalid = min(rows_valid[b], blk);
       if (nvalid <= 0) continue;
-      float zv[DEPTH];
-      int zc[DEPTH];
-      zero_row_top<DEPTH>(bias != nullptr ? bias + (size_t)b * blk + tid : nullptr, nvalid, tid,
-                          zv, zc);
-#pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
-        list_v[j * LANES + tid] = zv[j];
-        list_c[j * LANES + tid] = (uint8_t)zc[j];
-      }
       rb = row_base[b];
-      __syncthreads();
+      if constexpr (GEN) {
+        // Row 0's scores chunk by chunk into S, through the general selection.
+        for (int c = 0; c * LANES < nvalid; ++c) {
+          const int col = c * LANES + tid;
+          list_v[tid] = col >= nvalid ? NEG_INF
+                        : bias != nullptr ? __fsub_rn(0.0f, bias[(size_t)b * blk + col]) : 0.0f;
+          __syncthreads();
+          gen_chunk(b, c, 1u);
+          __syncthreads();
+        }
+      } else {
+        float zv[LD];
+        int zc[LD];
+        zero_row_top<LD>(bias != nullptr ? bias + (size_t)b * blk + tid : nullptr, nvalid, tid,
+                         zv, zc);
+#pragma unroll
+        for (int j = 0; j < LD; ++j) {
+          list_v[j * LANES + tid] = zv[j];
+          list_c[j * LANES + tid] = (uint16_t)zc[j];
+        }
+        __syncthreads();
+      }
       merge(1u);
       __syncthreads();
     }
+    release();
     for (int i = tid; i < nrows * k; i += TH) {
       const size_t o = ((size_t)orow * qcap + r0) * k + i;
       out_v[o] = run_v[i % k];
@@ -1292,31 +1563,33 @@ grouped_ffma_kernel(const float* __restrict__ q,
       const int row = pl.row(i);
       if (!((need >> row) & 1u)) continue;
       float* lv = list_v + row * CS;
-      uint8_t* lc = list_c + row * CS;
+      uint16_t* lc = list_c + row * CS;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int bin = pl.col(j);
         float x = acc[i][j];
         if (bias != nullptr) x = __fsub_rn(x, bs[j]);
         if (bin >= lim) x = NEG_INF;
-        if (c == 0) {
+        if constexpr (GEN) {  // to S, [row][bin]
+          lv[bin] = x;
+        } else if (c == 0) {
           lv[bin] = x;
           lc[bin] = 0;
 #pragma unroll
-          for (int u = 1; u < DEPTH; ++u) lv[u * LANES + bin] = NEG_INF;
-        } else if (x > lv[(DEPTH - 1) * LANES + bin]) {
-          float tv[DEPTH];
-          int tc[DEPTH];
+          for (int u = 1; u < LD; ++u) lv[u * LANES + bin] = NEG_INF;
+        } else if (x > lv[(LD - 1) * LANES + bin]) {
+          float tv[LD];
+          int tc[LD];
 #pragma unroll
-          for (int u = 0; u < DEPTH; ++u) {
+          for (int u = 0; u < LD; ++u) {
             tv[u] = lv[u * LANES + bin];
             tc[u] = lc[u * LANES + bin];
           }
-          insert_top<DEPTH>(tv, tc, x, c);
+          insert_top<LD>(tv, tc, x, c);
 #pragma unroll
-          for (int u = 0; u < DEPTH; ++u) {
+          for (int u = 0; u < LD; ++u) {
             lv[u * LANES + bin] = tv[u];
-            lc[u * LANES + bin] = (uint8_t)tc[u];
+            lc[u * LANES + bin] = (uint16_t)tc[u];
           }
         }
       }
@@ -1340,6 +1613,11 @@ grouped_ffma_kernel(const float* __restrict__ q,
     if (!done) continue;
     epilogue(b, c, acc);
     ffma::zero(acc);
+    if constexpr (GEN) {  // S is whole, and read before the next chunk writes it
+      __syncthreads();
+      gen_chunk(b, c, need);
+      __syncthreads();
+    }
     if (have && cb == b) continue;
     if constexpr (MAX_ONLY) {
       // The CTA's one block is scored: each row's max across the four
@@ -1378,6 +1656,7 @@ grouped_ffma_kernel(const float* __restrict__ q,
     rows_of_block();
   }
   ffma::wait_all();
+  release();
 
   if (!writes) return;
   for (int i = tid; i < F_ROWS * k; i += TH) {
@@ -1399,13 +1678,17 @@ int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster,
                 const void* block_first, const void* block_last, const void* rows_valid,
                 const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
                 void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k,
-                int nsrc, cudaStream_t s) {
-  if (blk > LANES * F_CHUNKS || ldq % 4 != 0) return (int)cudaErrorInvalidValue;
+                int nsrc, const GenArgs& gen, cudaStream_t s) {
+  if ((DEPTH > 0 && blk > LANES * F_CHUNKS) || ldq % 4 != 0) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = FList<DEPTH>::SMEM;
   if (const cudaError_t e = cudaFuncSetAttribute(grouped_ffma_kernel<DEPTH, SRC, V>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)smem))
     return (int)e;
+  if (DEPTH == 0)
+    if (const int e = check_slots(grouped_ffma_kernel<DEPTH, SRC, V>, FTile<DEPTH>::THREADS, smem,
+                                  gen))
+      return e;
   const dim3 grid((unsigned)nblocks, (unsigned)((qcap + F_ROWS - 1) / F_ROWS));
   grouped_ffma_kernel<DEPTH, SRC, V><<<grid, FTile<DEPTH>::THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const int32_t*>(cq_blocks),
@@ -1414,7 +1697,7 @@ int launch_ffma(const void* q, const void* cq_blocks, const void* block_cluster,
       static_cast<const int32_t*>(rows_valid), static_cast<const float*>(bias),
       static_cast<const int32_t*>(row_base), static_cast<const float*>(bound_v),
       static_cast<const int32_t*>(bound_i), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), qcap, d, blk, ldq, k, nsrc);
+      static_cast<int32_t*>(out_i), qcap, d, blk, ldq, k, nsrc, gen);
   return (int)cudaGetLastError();
 }
 
@@ -1425,32 +1708,48 @@ int launch_scan(const void* q, const void* cq_blocks, const void* block_cluster,
                 const void* block_first, const void* block_last, const void* rows_valid,
                 const void* bias, const void* row_base, const void* bound_v, const void* bound_i,
                 void* out_v, void* out_i, int nblocks, int qcap, int d, int ldq, int blk, int k,
-                int nsrc, cudaStream_t s) {
+                int nsrc, const GenArgs& gen, cudaStream_t s) {
   if constexpr (std::is_same_v<T, float>)
     return launch_ffma<DEPTH, SRC, V>(q, cq_blocks, block_cluster, vec, block_first,
                                       block_last, rows_valid, bias, row_base, bound_v, bound_i,
-                                      out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, s);
+                                      out_v, out_i, nblocks, qcap, d, ldq, blk, k, nsrc, gen, s);
   else
     return launch_wgmma<T, DEPTH, SRC, V>(q, cq_blocks, block_cluster, vec, block_first,
                                           block_last, rows_valid, bias, row_base, bound_v,
                                           bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                                          nsrc, s);
+                                          nsrc, gen, s);
 }
 
-// The same at bin depth 1-4.
+// Whether a launch takes the general selection: nbins other than 128, a
+// bin depth past 4, or fp32 past 65536 chunks a block (the lists' 16 bits).
+template <typename T>
+bool general(int nbins, int depth, int blk) {
+  return nbins != LANES || depth > 4 || (std::is_same_v<T, float> && blk > LANES * F_CHUNKS);
+}
+
+// The general selection's arguments of a C entry.
+GenArgs gen_args(void* gen_v, void* gen_c, void* gen_locks, int nslots, int nbins, int depth,
+                 int keepall) {
+  return GenArgs{static_cast<float*>(gen_v), static_cast<int32_t*>(gen_c),
+                 static_cast<int32_t*>(gen_locks), nslots, nbins, depth, keepall};
+}
+
+// The same at any bin depth and nbins: depth 1-4 at nbins 128 on the
+// instances of that depth, the rest on the general selection.
 template <typename T, QSrc SRC>
 int dispatch_scan(const void* q, const void* cq_blocks, const void* block_cluster,
                   const void* vec, const void* block_first, const void* block_last,
                   const void* rows_valid, const void* bias, const void* row_base,
                   const void* bound_v, const void* bound_i, void* out_v, void* out_i,
                   int nblocks, int qcap, int d, int ldq, int blk, int k, int depth, int nsrc,
-                  void* stream) {
+                  const GenArgs& gen, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RAG_LAUNCH(D)                                                                         \
   launch_scan<T, D, SRC>(q, cq_blocks, block_cluster, vec, block_first, block_last, rows_valid, \
                          bias, row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, \
-                         blk, k, nsrc, s)
+                         blk, k, nsrc, gen, s)
+  if (general<T>(gen.nbins, depth, blk)) return RAG_LAUNCH(0);
   switch (depth) {
     case 1: return RAG_LAUNCH(1);
     case 2: return RAG_LAUNCH(2);
@@ -1465,43 +1764,54 @@ int dispatch_scan(const void* q, const void* cq_blocks, const void* block_cluste
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `bias` may be null (no-bias
-// mode).  The wrappers guarantee blk % 128 == 0, 1 <= k <= 32 (K10's
-// maxonly and fixedout: any k) and 1 <= depth <= 4.  The entries take, for
-// a later pass of the wrapper's (ops/_build.py, by_passes), each output
-// row's bound (bound_v f32 and bound_i int32, shaped as out's rows, or both
-// null): only a survivor ranked after it may enter the row's top-k.  The
-// float entries take fp32 (bf16 = 0; on the FFMA tile, blk <= 32768) or
-// bf16 (bf16 = 1; on wgmma) operands, the routed rows at a pitch of ldq (16
-// bytes' worth; the pad need not be zero); the int8 entries' ldq is d
-// rounded up to 16 with the pad zero.  q and vec are 16-byte aligned.
+// mode).  The wrappers guarantee blk % 128 == 0, blk % nbins == 0, 1 <= k
+// <= 32 (K10's maxonly and fixedout: any k) and 1 <= depth <= blk / nbins
+// (the effective depth).  The entries take, for a later pass of the
+// wrapper's (ops/_build.py, by_passes), each output row's bound (bound_v
+// f32 and bound_i int32, shaped as out's rows, or both null): only a
+// survivor ranked after it may enter the row's top-k.  The float entries
+// take fp32 (bf16 = 0; on the FFMA tile) or bf16 (bf16 = 1; on wgmma)
+// operands, the routed rows at a pitch of ldq (16 bytes' worth; the pad
+// need not be zero); the int8 entries' ldq is d rounded up to 16 with the
+// pad zero.  q and vec are 16-byte aligned.  The general selection (any
+// nbins but 128, depth past 4, fp32 past 65536 chunks a block) takes
+// `keepall` (1: every column is a candidate, which the wrapper asks for
+// where depth >= min(k of the whole call, blk / nbins)) and otherwise its
+// scratch: gen_v and gen_c nslots x [32][nbins][depth] floats and ints,
+// gen_locks [nslots] int32 zeros, nslots at least the kernel's CTAs that fit
+// on the card at once.
 //
 // K4: qg [nblocks, qcap, ldq], out [nblocks, qcap, k].
 extern "C" int ivf_grouped_scan_i8(const void* qg, const void* vec, const void* block_first,
                                    const void* block_last, const void* rows_valid,
                                    const void* bias, const void* row_base, const void* bound_v,
-                                   const void* bound_i, void* out_v, void* out_i, int nblocks,
-                                   int qcap, int d, int ldq, int blk, int k, int depth,
-                                   void* stream) {
+                                   const void* bound_i, void* out_v, void* out_i, void* gen_v,
+                                   void* gen_c, void* gen_locks, int nblocks, int qcap, int d,
+                                   int ldq, int blk, int k, int depth, int nbins, int keepall,
+                                   int nslots, void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return dispatch_scan<int8_t, QSrc::kBlock>(qg, nullptr, nullptr, vec, block_first, block_last,
                                              rows_valid, bias, row_base, bound_v, bound_i, out_v,
                                              out_i, nblocks, qcap, d, ldq, blk, k, depth, nblocks,
-                                             stream);
+                                             g, stream);
 }
 
 extern "C" int ivf_grouped_scan_f(const void* qg, const void* vec, const void* block_first,
                                   const void* block_last, const void* rows_valid,
                                   const void* bias, const void* row_base, const void* bound_v,
-                                  const void* bound_i, void* out_v, void* out_i, int nblocks,
-                                  int qcap, int d, int ldq, int blk, int k, int depth, int bf16,
-                                  void* stream) {
+                                  const void* bound_i, void* out_v, void* out_i, void* gen_v,
+                                  void* gen_c, void* gen_locks, int nblocks, int qcap, int d,
+                                  int ldq, int blk, int k, int depth, int bf16, int nbins,
+                                  int keepall, int nslots, void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kBlock>(
                     qg, nullptr, nullptr, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nblocks, stream)
+                    depth, nblocks, g, stream)
               : dispatch_scan<float, QSrc::kBlock>(
                     qg, nullptr, nullptr, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nblocks, stream);
+                    depth, nblocks, g, stream);
 }
 
 // K6: qg [nlist, qcap, ldq], block_cluster [nblocks], out [nlist, qcap, k].
@@ -1509,29 +1819,34 @@ extern "C" int ivf_cluster_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* bias,
                                    const void* row_base, const void* bound_v,
-                                   const void* bound_i, void* out_v, void* out_i, int nlist,
-                                   int nblocks, int qcap, int d, int ldq, int blk, int k,
-                                   int depth, void* stream) {
+                                   const void* bound_i, void* out_v, void* out_i, void* gen_v,
+                                   void* gen_c, void* gen_locks, int nlist, int nblocks, int qcap,
+                                   int d, int ldq, int blk, int k, int depth, int nbins,
+                                   int keepall, int nslots, void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return dispatch_scan<int8_t, QSrc::kCluster>(qg, nullptr, block_cluster, vec, block_first,
                                                block_last, rows_valid, bias, row_base, bound_v,
                                                bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk,
-                                               k, depth, nlist, stream);
+                                               k, depth, nlist, g, stream);
 }
 
 extern "C" int ivf_cluster_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   const void* bound_v, const void* bound_i, void* out_v,
-                                  void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
-                                  int blk, int k, int depth, int bf16, void* stream) {
+                                  void* out_i, void* gen_v, void* gen_c, void* gen_locks,
+                                  int nlist, int nblocks, int qcap, int d, int ldq, int blk,
+                                  int k, int depth, int bf16, int nbins, int keepall, int nslots,
+                                  void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kCluster>(
                     qg, nullptr, block_cluster, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nlist, stream)
+                    depth, nlist, g, stream)
               : dispatch_scan<float, QSrc::kCluster>(
                     qg, nullptr, block_cluster, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nlist, stream);
+                    depth, nlist, g, stream);
 }
 
 // K7: qi [nbatch, ldq], cq_blocks [nblocks, qcap] (-1 = empty slot), out
@@ -1540,53 +1855,64 @@ extern "C" int ivf_routed_scan_i8(const void* qi, const void* cq_blocks, const v
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* bias, const void* row_base,
                                   const void* bound_v, const void* bound_i, void* out_v,
-                                  void* out_i, int nbatch, int nblocks, int qcap, int d, int ldq,
-                                  int blk, int k, int depth, void* stream) {
+                                  void* out_i, void* gen_v, void* gen_c, void* gen_locks,
+                                  int nbatch, int nblocks, int qcap, int d, int ldq, int blk,
+                                  int k, int depth, int nbins, int keepall, int nslots,
+                                  void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return dispatch_scan<int8_t, QSrc::kRouted>(qi, cq_blocks, nullptr, vec, block_first,
                                               block_last, rows_valid, bias, row_base, bound_v,
                                               bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk,
-                                              k, depth, nbatch, stream);
+                                              k, depth, nbatch, g, stream);
 }
 
 extern "C" int ivf_routed_scan_f(const void* qi, const void* cq_blocks, const void* vec,
                                  const void* block_first, const void* block_last,
                                  const void* rows_valid, const void* bias, const void* row_base,
                                  const void* bound_v, const void* bound_i, void* out_v,
-                                 void* out_i, int nbatch, int nblocks, int qcap, int d, int ldq,
-                                 int blk, int k, int depth, int bf16, void* stream) {
+                                 void* out_i, void* gen_v, void* gen_c, void* gen_locks,
+                                 int nbatch, int nblocks, int qcap, int d, int ldq, int blk, int k,
+                                 int depth, int bf16, int nbins, int keepall, int nslots,
+                                 void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return bf16 ? dispatch_scan<__nv_bfloat16, QSrc::kRouted>(
                     qi, cq_blocks, nullptr, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nbatch, stream)
+                    depth, nbatch, g, stream)
               : dispatch_scan<float, QSrc::kRouted>(
                     qi, cq_blocks, nullptr, vec, block_first, block_last, rows_valid, bias,
                     row_base, bound_v, bound_i, out_v, out_i, nblocks, qcap, d, ldq, blk, k,
-                    depth, nbatch, stream);
+                    depth, nbatch, g, stream);
 }
 
 // K10: qg [nlist, qcap, ldq], block_cluster [nblocks], out [nlist, qcap, k];
 // bin depth 2, no bias; variant 0-3 = full, nogate, maxonly, fixedout (full
 // is K6's own instance).  full and nogate take k <= 32 and the bounds of a
 // later pass as K6 does; maxonly and fixedout write their row max to any k
-// slots and take no bounds.
+// slots and take no bounds.  full and nogate at nbins other than 128 (or
+// fp32 past 65536 chunks a block) run K6's general selection at the
+// effective depth min(2, blk / nbins), nogate too (its merge tests each
+// candidate against the k-th entry; the values are the same); maxonly and
+// fixedout select nothing, so nbins changes nothing there.
 namespace {
 template <typename T>
 int variant_scan(const void* qg, const void* vec, const void* block_cluster,
                  const void* block_first, const void* block_last, const void* rows_valid,
                  const void* row_base, const void* bound_v, const void* bound_i, void* out_v,
                  void* out_i, int nlist, int nblocks, int qcap, int d, int ldq, int blk, int k,
-                 int variant, void* stream) {
+                 int variant, const GenArgs& g, void* stream) {
   if (nblocks == 0 || qcap == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAG_VARIANT(V)                                                                        \
-  launch_scan<T, 2, QSrc::kCluster, V>(qg, nullptr, block_cluster, vec, block_first, block_last, \
+#define RAG_VARIANT(D, V)                                                                     \
+  launch_scan<T, D, QSrc::kCluster, V>(qg, nullptr, block_cluster, vec, block_first, block_last, \
                                        rows_valid, nullptr, row_base, bound_v, bound_i, out_v,   \
-                                       out_i, nblocks, qcap, d, ldq, blk, k, nlist, s)
+                                       out_i, nblocks, qcap, d, ldq, blk, k, nlist, g, s)
+  if (variant <= 1 && general<T>(g.nbins, g.depth, blk)) return RAG_VARIANT(0, Variant::kFull);
   switch (variant) {
-    case 0: return RAG_VARIANT(Variant::kFull);
-    case 1: return RAG_VARIANT(Variant::kNoGate);
-    case 2: return RAG_VARIANT(Variant::kMaxOnly);
-    case 3: return RAG_VARIANT(Variant::kFixedOut);
+    case 0: return RAG_VARIANT(2, Variant::kFull);
+    case 1: return RAG_VARIANT(2, Variant::kNoGate);
+    case 2: return RAG_VARIANT(2, Variant::kMaxOnly);
+    case 3: return RAG_VARIANT(2, Variant::kFixedOut);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RAG_VARIANT
@@ -1597,23 +1923,30 @@ extern "C" int ivf_variant_scan_i8(const void* qg, const void* vec, const void* 
                                    const void* block_first, const void* block_last,
                                    const void* rows_valid, const void* row_base,
                                    const void* bound_v, const void* bound_i, void* out_v,
-                                   void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
-                                   int blk, int k, int variant, void* stream) {
+                                   void* out_i, void* gen_v, void* gen_c, void* gen_locks,
+                                   int nlist, int nblocks, int qcap, int d, int ldq, int blk,
+                                   int k, int variant, int nbins, int depth, int keepall,
+                                   int nslots, void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return variant_scan<int8_t>(qg, vec, block_cluster, block_first, block_last, rows_valid,
                               row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks, qcap, d,
-                              ldq, blk, k, variant, stream);
+                              ldq, blk, k, variant, g, stream);
 }
 
 extern "C" int ivf_variant_scan_f(const void* qg, const void* vec, const void* block_cluster,
                                   const void* block_first, const void* block_last,
                                   const void* rows_valid, const void* row_base,
                                   const void* bound_v, const void* bound_i, void* out_v,
-                                  void* out_i, int nlist, int nblocks, int qcap, int d, int ldq,
-                                  int blk, int k, int variant, int bf16, void* stream) {
+                                  void* out_i, void* gen_v, void* gen_c, void* gen_locks,
+                                  int nlist, int nblocks, int qcap, int d, int ldq, int blk,
+                                  int k, int variant, int bf16, int nbins, int depth, int keepall,
+                                  int nslots, void* stream) {
+  const GenArgs g = gen_args(gen_v, gen_c, gen_locks, nslots, nbins, depth, keepall);
   return bf16 ? variant_scan<__nv_bfloat16>(qg, vec, block_cluster, block_first, block_last,
                                             rows_valid, row_base, bound_v, bound_i, out_v, out_i,
-                                            nlist, nblocks, qcap, d, ldq, blk, k, variant, stream)
+                                            nlist, nblocks, qcap, d, ldq, blk, k, variant, g,
+                                            stream)
               : variant_scan<float>(qg, vec, block_cluster, block_first, block_last, rows_valid,
                                     row_base, bound_v, bound_i, out_v, out_i, nlist, nblocks,
-                                    qcap, d, ldq, blk, k, variant, stream);
+                                    qcap, d, ldq, blk, k, variant, g, stream);
 }

@@ -69,13 +69,12 @@ UNITS = ("mma", "dp4a")
 
 _DTYPES = (torch.int8, torch.bfloat16)
 _NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16", torch.float32: "float32"}
-# K12's product holds x's K in shared memory, K14 its A in registers (a
-# k-step of 32 bytes a template instance): at most 512 bytes of K.  The
-# plain versions take the same limit, under which an int8 product is exact
-# in float32 (|sum| <= 512·128·128 = 2**23).
-_MAX_KBYTES = 512
-# K13's ring: at most 8 stages of 16 KB per CTA.
-_MAX_DEPTH = 8
+# The plain versions' products: int8 in float64, exact at any d (as the JAX
+# probes' int32 sums), bf16 in float32.
+_ACC = {torch.int8: torch.float64, torch.bfloat16: torch.float32}
+# K13's ring on the card: at most 8 stages of 16 KB per CTA, whatever the
+# JAX depth (which only picks the blocks walked).
+_MAX_RING = 8
 # Elements of one chunk of a plain version's score tensor.
 _CHUNK = 1 << 26
 
@@ -196,25 +195,24 @@ def _stream_check(x, data, blk, fat, gemm):
         raise ValueError("the walk has no step")
     if gemm and (x.dim() != 2 or x.shape[1] != d or x.dtype != data.dtype):
         raise ValueError(f"expected x [m, {d}] {data.dtype}, got {tuple(x.shape)} {x.dtype}")
-    if gemm and d * data.element_size() > _MAX_KBYTES:
-        raise ValueError(f"the product takes d·{data.element_size()} <= {_MAX_KBYTES}; got d={d}")
     return nblocks // fat
 
 
 def _stream_steps_reference(x, data, fat, gemm):
-    """Every step's max → [g] f32 (max(tile), or max(x @ tile) in int32 /
-    f32, over the step's fat blocks)."""
+    """Every step's max → [g] f32 (max(tile), or max(x @ tile), exact for
+    int8 at any d, f32 for bf16, over the step's fat blocks)."""
     nblocks, d, blk = data.shape
     g = nblocks // fat
     steps = data.reshape(g, fat * d * blk) if not gemm else data.reshape(g, fat, d, blk)
     if not gemm:
         return steps.amax(dim=1).to(torch.float32)
-    xa = x.to(torch.float32)
+    acc = _ACC[data.dtype]
+    xa = x.to(acc)
     out = []
     chunk = max(1, _CHUNK // (fat * x.shape[0] * blk))
     for s in range(0, g, chunk):
-        out.append(torch.matmul(xa, steps[s:s + chunk].to(torch.float32)).amax(dim=(1, 2, 3)))
-    return torch.cat(out)
+        out.append(torch.matmul(xa, steps[s:s + chunk].to(acc)).amax(dim=(1, 2, 3)))
+    return torch.cat(out).to(torch.float32)
 
 
 def _stream_probe_reference(x, data, blk, fat, gemm, semantics):
@@ -236,16 +234,18 @@ def _stream_launch(x, data, blk, fat, gemm, semantics, fill):
     _build.check_inputs("K12", dev, [x, data])
     _, d, _ = data.shape
     es = data.element_size()
-    m = 0
+    m = ldx = 0
     if gemm:
+        # cp.async moves 4-byte pieces: x's rows and the tiles' rows padded
+        # to a multiple of 4 bytes with zeros (zero terms move no product;
+        # the kernel masks the columns past blk).
         m = x.shape[0]
-        if m > 128 or (d * es) % 4 or (blk * es) % 4:
-            raise ValueError(f"the CUDA K12 product takes x rows <= 128 and d·{es} and "
-                             f"blk·{es} multiples of 4; got m={m}, d={d}, blk={blk}")
-        x, data = _build.aligned(x, 4), _build.aligned(data, 4)
+        x = _build.aligned(_build.pad_rows(x, 4 // es), 4)
+        data = _build.aligned(_build.pad_rows(data, 4 // es), 4)
+        ldx = x.shape[1] * es
     steps = fill(g, device=dev)
-    fn = _kernel("hw_stream_probe", 3, 8)
-    _launch("K12", "hw_stream_probe", dev, fn, x, data, steps, m, d, blk,
+    fn = _kernel("hw_stream_probe", 3, 10)
+    _launch("K12", "hw_stream_probe", dev, fn, x, data, steps, m, ldx, d, blk, data.shape[2],
             fat, g, int(gemm), int(semantics == "arbitrary"), int(data.dtype == torch.bfloat16))
     return steps
 
@@ -254,8 +254,9 @@ def _stream_probe(x, data, blk, fat, gemm, semantics):
     """K12 with the JAX signature → [1] f32; see
     :func:`_stream_probe_reference`.  ``data`` [nblocks, d, blk] int8 or
     bf16, walked ``fat`` blocks a step; with ``gemm`` through a product
-    with ``x`` [m, d] (m <= 128; on the tensor cores through ``wgmma``,
-    the walk's 16 KB units through a ``cp.async`` ring).  On the card, None
+    with ``x`` [m, d] (any m and d, x's row tiles of 128 in turn; on the
+    tensor cores through ``wgmma``, the walk's 16 KB units through a
+    ``cp.async`` ring, x resident or riding in it).  On the card, None
     and "parallel" run a CTA per step, "arbitrary" one CTA per SM walking a
     contiguous run of steps; each step's max is written, and the last one
     returned."""
@@ -304,10 +305,11 @@ def _dma_probe_reference(x, data, depth):
 
 def _dma_probe(x, data, depth):
     """K13 with the JAX signature → [1] f32; see :func:`_dma_probe_reference`.
-    On the card, one CTA per SM walks a contiguous run of 16 KB slices
-    through a ring of ``depth`` (1..8) shared-memory stages filled by
-    ``cp.async.bulk`` and completed on mbarriers; a block's bytes
-    (d·blk·elem) must be a multiple of 16."""
+    On the card, one CTA per SM walks a contiguous run of 16 KB slices of
+    the blocks JAX's ``depth`` picks through a ring of ``min(depth, 8)``
+    shared-memory stages filled by ``cp.async.bulk`` and completed on
+    mbarriers; the walk's tail past its last 16-byte piece (blocks of any
+    size) is read with ordinary loads."""
     n = _dma_blocks(data, depth)
     dev = data.device
     if dev.type == "cpu":
@@ -317,15 +319,13 @@ def _dma_probe(x, data, depth):
     _build.check_inputs("K13", dev, [x, data])
     _, d, blk = data.shape
     block_bytes = d * blk * data.element_size()
-    if depth > _MAX_DEPTH or block_bytes % 16:
-        raise ValueError(f"the CUDA K13 takes depth <= {_MAX_DEPTH} and blocks of a multiple "
-                         f"of 16 bytes; got depth={depth}, {block_bytes} bytes")
     data = _build.aligned(data, 16)
     partial = torch.empty(_sms(dev), dtype=torch.float32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     fn = _kernel("hw_dma_probe", 3, 3, longlong=True)
     _launch("K13", "hw_dma_probe", dev, fn, data, partial, out,
-            n * block_bytes, depth, int(data.dtype == torch.bfloat16), kernels=2 if n else 1)
+            n * block_bytes, min(depth, _MAX_RING), int(data.dtype == torch.bfloat16),
+            kernels=2 if n else 1)
     return out + x.sum() * 0
 
 
@@ -345,8 +345,6 @@ def _gemm_rate_check(q, v, g, tb, tn, unit):
         raise ValueError("the dp4a unit takes int8")
     if q.shape[0] < tb or v.shape[1] < tn or g < 1:
         raise ValueError(f"need q rows >= tb={tb}, v columns >= tn={tn} and g >= 1")
-    if q.shape[1] * q.element_size() > _MAX_KBYTES:
-        raise ValueError(f"K14 takes d·{q.element_size()} <= {_MAX_KBYTES}; got d={q.shape[1]}")
     # The JAX BlockSpecs take the first [tb, d] of q and [d, tn] of v.
     return q[:tb], v[:, :tn].contiguous()
 
@@ -367,18 +365,19 @@ def _twisted_q(q, steps, acc):
 
 def _gemm_rate_steps_reference(q, v, g, tb, tn, sel, unit="mma"):
     """Plain K14's every step → [g] f32: the max of each step's product
-    (twisted q @ v, int8 → int32 exactly, bf16 → f32; ``sel`` takes the row
-    maxima first, as the JAX kernel does, and changes no value; ``unit``
-    picks the card's unit and changes no value)."""
+    (twisted q @ v, int8 exactly at any d, bf16 → f32; ``sel`` takes the
+    row maxima first, as the JAX kernel does, and changes no value;
+    ``unit`` picks the card's unit and changes no value)."""
     q, v = _gemm_rate_check(q, v, g, tb, tn, unit)
-    va = v.to(torch.float32)
+    acc = _ACC[q.dtype]
+    va = v.to(acc)
     per = max(1, _CHUNK // (tb * tn))
     maxes = []
     for s in range(0, g, per):
         steps = torch.arange(s, min(g, s + per), device=q.device)
-        scores = torch.matmul(_twisted_q(q, steps, torch.float32), va)
+        scores = torch.matmul(_twisted_q(q, steps, acc), va)
         maxes.append(scores.amax(dim=2).amax(dim=1) if sel else scores.amax(dim=(1, 2)))
-    return torch.cat(maxes)
+    return torch.cat(maxes).to(torch.float32)
 
 
 def _gemm_rate_probe_reference(x, q, v, g, tb, tn, sel, unit="mma"):
@@ -395,10 +394,14 @@ def _gemm_rate_launch(q, v, g, tb, tn, sel, unit, fill):
     q, v = _gemm_rate_check(q, v, g, tb, tn, unit)
     dev = q.device
     _build.check_inputs("K14", dev, [q, v])
-    d = q.shape[1]
+    # The kernels read K in 4-byte words: d padded to a multiple of 4 bytes
+    # with zeros in q's columns and v's rows (zero terms move no product;
+    # the int8 twist sets a row's pad to 1, against v's zero rows).
     es = q.element_size()
-    if (d * es) % 4:
-        raise ValueError(f"the CUDA K14 takes d·{es} a multiple of 4; got d={d}")
+    q = _build.pad_rows(q, 4 // es)
+    if q.shape[1] != v.shape[0]:
+        v = torch.cat([v, v.new_zeros((q.shape[1] - v.shape[0], v.shape[1]))])
+    d = q.shape[1]
     q, v = _build.aligned(q, 4), _build.aligned(v, 4)
     units = -(-tb // 128) * -(-tn // 128)
     # CTAs per unit that fill the card once with the CTAs an SM holds:

@@ -2,7 +2,7 @@
 callers give them, beside one PyTorch call of the same product alone, the
 bound, and the whole calls they serve:
 
-    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67 k4k10 probes] [--reps 5]
+    python -m rag_on_edge_tpu_torch.harness.k3_times [--kernels ffma k67 k4k10 probes k9] [--reps 5]
 
 ``--kernels ffma`` (the default): the fp32 modes of K3, K5 and K1, the
 register-tiled FFMA kernels of ``csrc/ffma_tile.cuh``.  K3: one
@@ -69,9 +69,23 @@ version's time:
   512 and 2048 that ``probe_pallas_gemm`` reports;
 - K12 (``_stream_probe``) with the product over the 512 MB walk [2048,
   128, 2048] int8 and [1024, 128, 2048] bf16, x [128, 128], fat 1, semantics
-  None and "arbitrary", and without it (int8, None).
+  None and "arbitrary", and without it (int8, None);
+- K13 (``_dma_probe``) over the int8 2 GiB walk [8192, 128, 2048] at depth
+  8.
 
-Their times are device times of 10 calls captured in one CUDA graph
+``--kernels k9``: K9 (``ivf_accum.cluster_major_accum``, the extract
+emit, which no search calls) at K1's shapes, one routed B=8192 batch at
+nprobe 4, k = 20: int8 IP and int8 L2 with its 4-bit bias rows on an int8
+L2 index, fp32 and bf16 on the float indexes; and K4's paths past the
+kernels' own selection at the int8 dense walk (bin depths 5, 8 and 16,
+nbins 64 and 256; depth 2 beside them), each beside its bound; and K3's
+binned int8 mode (``bruteforce_fused.fused_topk_matmul``, IP, [8192,
+128] x [128, 1M] random int8, k = 20, tile_n 6144) exact (nbins 0), at
+nbins 128 (its table) and at 64 and 96 (its general binning).  K9's
+device time by ``torch.profiler``: the whole call and its scan (K1's
+``planes_*`` kernels; the rest is the emit).
+
+The probes' times are device times of 10 calls captured in one CUDA graph
 (``timing.graph_ms``, as ``hw_probe`` times them: a call's Python costs
 more than K14's device time), the median of ``--reps`` such timings.
 
@@ -118,7 +132,7 @@ def main(argv=None) -> dict:
     from rag_on_edge_tpu_torch.utils.datasets import make_synthetic
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67", "k4k10", "probes"],
+    ap.add_argument("--kernels", nargs="+", choices=["ffma", "k67", "k4k10", "probes", "k9"],
                     default=["ffma"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -140,6 +154,8 @@ def main(argv=None) -> dict:
         out.update(_k67(base, queries, dev, args.reps))
     if "k4k10" in args.kernels:
         out.update(_k4k10(base, queries, dev, args.reps))
+    if "k9" in args.kernels:
+        out.update(_k9(base, queries, dev, args.reps))
     print(json.dumps(out), flush=True)
     return out
 
@@ -203,6 +219,13 @@ def _probes(dev, reps: int) -> dict:
             print(name, row, flush=True)
         del data, x
         torch.cuda.empty_cache()
+    data = rand((8192, d, blk), torch.int8)
+    row = {"bound_ms": bound_ms(data.numel() + 4, 0, INT8_OPS_S)[0],
+           "ms": gms(lambda: hw_probe._dma_probe(x1, data, 8))}
+    out["K13 int8 depth 8"] = row
+    print("K13 int8 depth 8", row, flush=True)
+    del data
+    torch.cuda.empty_cache()
     return out
 
 
@@ -318,9 +341,10 @@ def _k67(base, queries, dev, reps: int) -> dict:
     return out
 
 
-def _device(fn, calls: int = 3) -> dict:
-    """Device ms a call of ``fn``: every kernel's, and the IVF scan
-    kernels' (``grouped_*``), from ``torch.profiler``."""
+def _device(fn, calls: int = 3, scan: str = "grouped_") -> dict:
+    """Device ms a call of ``fn``: every kernel's, and the scan kernels'
+    (names holding ``scan``: the IVF scans ``grouped_*``), from
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -329,12 +353,12 @@ def _device(fn, calls: int = 3) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = scan = 0.0
+    scan_key, total, scan = scan, 0.0, 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
         total += us
-        scan += us if "grouped_" in ev.key else 0.0
+        scan += us if scan_key in ev.key else 0.0
     return {"device_ms": total / 1e3 / calls, "scan_device_ms": scan / 1e3 / calls}
 
 
@@ -547,6 +571,89 @@ def _k10(index, queries, mode: str, reps: int, batch: int = 2048, qcap: int = 12
             row[f"{name} ms"] = _timed(lambda t=table: kernel_lab._variant_scan(
                 t, *lab_tabs, KK, index.PAD_BLOCK, 128, variant), reps)
         out[variant] = row
+    return out
+
+
+
+
+def _k9(base, queries, dev, reps: int) -> dict:
+    """K9 in every mode at K1's shapes, and K4's general selection at the
+    int8 dense walk (``--kernels k9``)."""
+    from rag_on_edge_tpu_torch.models.ivf import IVFIndex
+    from rag_on_edge_tpu_torch.ops import ivf_accum, ivf_scan
+
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    out = {}
+    idx8 = IVFIndex.build(base, nlist=1024, metric="l2", dtype="int8", pad_block=2048, seed=42,
+                          device=dev)
+    idx8._ensure_kernel_state()
+    qcap = idx8._auto_qcap(BATCH, NPROBE)
+    cq = idx8._route(q, NPROBE, qcap)[1]
+    _, qb, bias, _, _ = idx8._scan_inputs(q, cq)
+    a = idx8._arrays
+    args = (qb, a["vectors_t"], a["block_first"], a["block_last"], a["rows_valid"])
+    blk, d = idx8.PAD_BLOCK, qb.shape[-1]
+    walked, cols = walked_blocks(*args[2:])
+    last = int(a["block_last"].sum())
+    for name, br in (("int8-IP", None), ("int8-L2", ivf_accum.accum_bias_rows(bias,
+                                                                             a["rows_valid"]))):
+        # Without a row mask (bias rows) every column of a walked block is scored.
+        c = cols if br is None else walked * blk
+        out[f"K9 {name}"] = {
+            "ms": _timed(lambda: ivf_accum.cluster_major_accum(*args, KK, blk=blk,
+                                                               bias_rows=br), reps),
+            **_device(lambda: ivf_accum.cluster_major_accum(*args, KK, blk=blk, bias_rows=br),
+                      scan="planes_"),
+            "bound_ms": bound_ms(walked * qcap * d + c * (d + 4 * (br is not None))
+                                 + last * qcap * KK * 8, 2.0 * qcap * c * d, INT8_OPS_S)[0]}
+        print(f"K9 {name}", out[f"K9 {name}"], flush=True)
+    kw = dict(k=KK, blk=blk, group=idx8.CM_GROUP, bias=bias)
+    for name, extra in (("depth2", {}), ("depth5", dict(bin_depth=5)),
+                        ("depth8", dict(bin_depth=8)), ("depth16", dict(bin_depth=16)),
+                        ("nbins64", dict(nbins=64)), ("nbins256", dict(nbins=256))):
+        out[f"K4 int8 dense {name}"] = _timed(lambda: ivf_scan.cluster_major_scan_grouped(
+            *args, **kw, **extra), reps)
+        print(f"K4 int8 dense {name}", out[f"K4 int8 dense {name}"], flush=True)
+    del idx8, args, qb
+    torch.cuda.empty_cache()
+    from rag_on_edge_tpu_torch.ops import bruteforce_fused
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q8 = torch.randint(-127, 127, (BATCH, 128), generator=gen, device=dev, dtype=torch.int8)
+    b8 = torch.randint(-127, 127, (128, 1_000_000), generator=gen, device=dev, dtype=torch.int8)
+    for nbins in (0, 128, 64, 96):
+        out[f"K3 int8 IP nbins {nbins}"] = _timed(lambda: bruteforce_fused.fused_topk_matmul(
+            q8, b8, KK, tile_n=6144, nbins=nbins), reps)
+        print(f"K3 int8 IP nbins {nbins}", out[f"K3 int8 IP nbins {nbins}"], flush=True)
+    del q8, b8
+    torch.cuda.empty_cache()
+    fidx = IVFIndex.build(base, nlist=1024, metric="l2", pad_block=2048, seed=42, max_iter=25,
+                          device=dev)
+    arrays = (fidx._centroids_np, fidx._vectors_np, fidx._offsets_np, fidx._reorder_np)
+    for mode in ("fp32", "bf16"):
+        idx = fidx if mode == "fp32" else IVFIndex.from_arrays(
+            *arrays, metric="l2", dtype="bf16", pad_block=2048, config=dict(fidx.config),
+            device=dev)
+        idx._ensure_kernel_state()
+        qcap = idx._auto_qcap(BATCH, NPROBE)
+        cq = idx._route(q, NPROBE, qcap)[1]
+        qb = idx._scan_inputs(q, cq)[1]
+        a = idx._arrays
+        args = (qb, a["vectors_t"], a["block_first"], a["block_last"], a["rows_valid"])
+        dp = qb.shape[-1]
+        walked, cols = walked_blocks(*args[2:])
+        last = int(a["block_last"].sum())
+        es, rate = _RATE[mode]
+        # K1's bound: the product over every routed slot (K9, as K1, scores
+        # its empty slots too).
+        out[f"K9 {mode}"] = {
+            "ms": _timed(lambda: ivf_accum.cluster_major_accum(*args, KK, blk=blk), reps),
+            **_device(lambda: ivf_accum.cluster_major_accum(*args, KK, blk=blk), scan="planes_"),
+            "bound_ms": bound_ms((walked * qcap + cols) * dp * es + last * qcap * KK * 8,
+                                 2.0 * qcap * cols * dp, rate)[0]}
+        print(f"K9 {mode}", out[f"K9 {mode}"], flush=True)
+        del idx, args, qb
+        torch.cuda.empty_cache()
     return out
 
 

@@ -114,7 +114,9 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     [nblocks, D, blk]; ``bc``/``bf``/``bl``/``rv`` the block tables
     [nblocks] int32.  Ids are ``block·blk + column``.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (int8, or fp32 or bf16 in
-    one dtype, fp32 at blk <= 32768; nbins 128; any D; any k: ``full`` and
+    one dtype; any nbins dividing blk: ``full`` and ``nogate`` at nbins
+    other than 128 on K6's general selection, ``ivf_scan.selection``,
+    ``maxonly`` and ``fixedout`` select nothing; any D; any k: ``full`` and
     ``nogate`` in passes of 32, as K6, ``maxonly`` and ``fixedout`` in one
     launch, their row max written to every slot) or raise.  A float ``qg``
     whose rows lie at a 16-byte pitch (:func:`routed_table`'s) is read in
@@ -125,17 +127,22 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     dev = qg.device
     if dev.type == "cpu":
         return _variant_scan_reference(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant)
+    row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    # K6's selection at JAX's fixed depth 2; maxonly and fixedout select
+    # nothing, so their bins change nothing.
+    if variant not in ("full", "nogate"):
+        nbins = 128
+    depth, keepall, scratch, nslots = ivf_scan.selection(
+        k, blk, nbins, 2, vectors_t.dtype == torch.float32, dev)
+    vectors_t, rv, _, blk = ivf_scan.whole_chunks(vectors_t, rv, None, blk)
     if not int_path:  # qg read at its row pitch (in place where it lies so)
-        qg, vectors_t, ldq, bf16 = ivf_scan.float_operands("K10", qg, vectors_t, blk)
+        qg, vectors_t, ldq, bf16 = ivf_scan.float_operands("K10", qg, vectors_t)
     _build.check_inputs("K10", dev, [qg, vectors_t, bc, bf, bl, rv])
-    if nbins != 128:
-        raise ValueError(f"the CUDA K10 takes nbins 128; got nbins={nbins}")
     if int_path:  # wgmma fed by TMA: the rows at TMA's 16-byte pitch, the pad zero
         qg, vectors_t = ivf_scan.int8_operands(qg, vectors_t)
         ldq, flag = qg.shape[-1], ()
     else:
         flag = (bf16,)
-    row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
     name = "ivf_variant_scan_i8" if int_path else "ivf_variant_scan_f"
     fn = ivf_scan.entry(name)
     head = (qg.data_ptr(), vectors_t.data_ptr(), bc.data_ptr(), bf.data_ptr(), bl.data_ptr(),
@@ -143,9 +150,10 @@ def _variant_scan(qg, vectors_t, bc, bf, bl, rv, k, blk, nbins, variant):
     # full and nogate keep a running top-k of 32 a row, so a larger k runs
     # in passes as K6's; maxonly and fixedout write one row max to every slot.
     width = _build.PASS_K if variant in ("full", "nogate") else k
+    gen = ivf_scan.gen_pointers(scratch)
     out, n = ivf_scan._launch_passes(name, k, nlist, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
-        *head, bv, bi, pv, pr, nlist, nblocks, qcap, d, ldq, blk, kp, VARIANTS.index(variant),
-        *flag, st), width)
+        *head, bv, bi, pv, pr, *gen, nlist, nblocks, qcap, d, ldq, blk, kp,
+        VARIANTS.index(variant), *flag, nbins, depth, keepall, nslots, st), width)
     LAUNCHES += n
     return out
 

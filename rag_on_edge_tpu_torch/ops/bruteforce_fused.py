@@ -52,11 +52,9 @@ __all__ = ["LAUNCHES", "auto_tile_n", "fused_topk_matmul", "fused_topk_matmul_re
 #: before and reads it after.
 LAUNCHES = 0
 
-# What the CUDA kernel takes: bins of 128 (one per column of a chunk), and
-# a top-k a launch up to 256 long in the fp32 mode (it lives in the output
+# A top-k a launch up to 256 long in the fp32 mode (it lives in the output
 # buffer) and 32 in the int8 and bf16 modes (one per lane of the inserting
 # warp); a larger k runs in passes of that width (_build.by_passes).
-_CUDA_NBINS = 128
 _F32_PASS_K = 256
 # The int8 and bf16 kernels' binned table names a column's chunk within
 # its tile in 16 bits: a tile walks at most 65536 chunks of 128.
@@ -146,6 +144,44 @@ def fused_topk_matmul_reference(queries, base_t, k, tile_n=None, tile_b=None, nb
     return topk.extract_topk_ids(tv.reshape(b, -1), ti.reshape(b, -1), k, fill)
 
 
+def card_nbins(k: int, tile_n: int, nbins: int) -> int:
+    """The bins the CUDA K3 runs for a call of total ``k``: ``nbins``
+    itself where ``tile_n`` is a multiple of 128 (the kernels' chunks):
+    nbins 128 on the kernels' table (a chunk's columns are the bins), any
+    other on the general binning (:func:`general_bins`).  Else 0 (exact) where
+    the binning keeps every column that can place: two a bin is at least
+    ``min(k, tile_n // nbins)``, so a column among a row's top k has fewer
+    than two better columns in its bin, or its bin holds at most two.  Any
+    other case raises."""
+    if not nbins:
+        return 0
+    if tile_n % 128 == 0:
+        return nbins
+    if 2 >= min(k, tile_n // nbins):
+        return 0
+    raise ValueError(f"the CUDA K3 takes binned tiles of a multiple of 128 columns, or k <= 2; "
+                     f"got nbins={nbins}, tile_n={tile_n}, k={k}")
+
+
+def general_bins(nbins: int) -> bool:
+    """Whether the CUDA K3 runs ``nbins`` on its general binning: any nbins
+    but 0 and 128 (a chunk's columns are not its bins), each (row, bin)
+    keeping its two best of the tile in a slot of device memory a CTA
+    (:func:`gen_scratch`)."""
+    return nbins not in (0, 128)
+
+
+def gen_scratch(nbins: int, ctas: int, dev):
+    """The general binning's lists: ``ctas`` slots of 64 rows × nbins × 2
+    scores (4 bytes: int32 or fp32) and int32 columns → (scores, columns),
+    or (None, None) where nbins takes none."""
+    if not general_bins(nbins):
+        return None, None
+    n = ctas * 64 * nbins * 2
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+
+
 def split_plan(b: int, n: int, tile_n: int, nbins: int, sms: int):
     """The fp32 kernel's column splits → (split_cols, nsplit): as many as
     keep the row tiles (128 rows; 64 binned) x splits within one wave of
@@ -202,7 +238,7 @@ def split_topk_reference(queries, base_t, k, split_cols, tile_n=None, tile_b=Non
 
 
 # Each mode's C entry: (pointers, ints) before the stream.
-_ENTRIES = {"i8": (9, 6), "f32": (7, 11), "bf16": (7, 8)}
+_ENTRIES = {"i8": (11, 6), "f32": (9, 11), "bf16": (9, 8)}
 
 
 def _kernel(mode):
@@ -228,9 +264,11 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     leading columns (at most N).  ``alpha`` [B] / ``bias`` [N]: the int8 L2
     mode (both or neither).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (int8 ± L2, and fp32 or bf16 with queries
-    and base_t in one dtype; nbins 0 or 128; any D; any k, in passes of 256
-    (fp32) or 32 (int8, bf16)) or raise.  The fp32 mode joins its column
-    splits with K2."""
+    and base_t in one dtype; any nbins with tile_n a multiple of 128, or
+    where the binning keeps every column that can place
+    (:func:`card_nbins`); any D; any k, in passes of 256 (fp32) or 32
+    (int8, bf16)) or raise.  The fp32 mode joins its
+    column splits with K2."""
     global LAUNCHES
     dev = queries.device
     if dev.type == "cpu":
@@ -248,8 +286,7 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                                     bias if l2 else None, n_valid])
     if not int_path:
         _build.check_float("K3", queries, base_t)
-    if nbins not in (0, _CUDA_NBINS):
-        raise ValueError(f"the CUDA K3 takes nbins 0 or {_CUDA_NBINS}; got nbins={nbins}")
+    nbins = card_nbins(k, tile_n, nbins)
     if int_path:
         mode = "i8_l2" if l2 else "i8"
     else:
@@ -280,6 +317,8 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                     bias.data_ptr() if l2 else None, nv_ptr)
             ints = (b, qk.shape[1], n)
         vdtype = torch.int32 if mode == "i8" else torch.float32
+        scratch = gen_scratch(nbins, -(-b // 64), dev)  # alive through the passes
+        gen = tuple(x.data_ptr() if x is not None else None for x in scratch)
 
         def run(kp, bound_v, bound_i):
             global LAUNCHES
@@ -288,7 +327,7 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
             err = _kernel("bf16" if mode == "bf16" else "i8")(
                 *ptrs, bound_v.data_ptr() if bound_v is not None else None,
                 bound_i.data_ptr() if bound_i is not None else None, vals.data_ptr(),
-                ids.data_ptr(), *ints, kp, tile_n, nbins, stream)
+                ids.data_ptr(), *gen, *ints, kp, tile_n, nbins, stream)
             if err != 0:
                 raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")
             LAUNCHES += 1
@@ -311,10 +350,12 @@ def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, bound_v, bound_i, str
     width = -(-nsplit * k // 128) * 128
     vals = torch.full((b, width), float("-inf"), dtype=torch.float32, device=dev)
     ids = torch.zeros((b, width), dtype=torch.int32, device=dev)
+    scratch = gen_scratch(nbins, -(-b // 64) * nsplit, dev)  # alive through the launch
+    gen = tuple(x.data_ptr() if x is not None else None for x in scratch)
     err = _kernel("f32")(qp.data_ptr(), base_t.data_ptr(), nv_ptr,
                          bound_v.data_ptr() if bound_v is not None else None,
                          bound_i.data_ptr() if bound_i is not None else None, vals.data_ptr(),
-                         ids.data_ptr(), b, base_t.shape[0], qp.shape[1], n, n, k, tile_n,
+                         ids.data_ptr(), *gen, b, base_t.shape[0], qp.shape[1], n, n, k, tile_n,
                          nbins, split_cols, nsplit, width, stream)
     if err != 0:
         raise RuntimeError(f"bruteforce_fused_topk launch failed: CUDA error {err}")

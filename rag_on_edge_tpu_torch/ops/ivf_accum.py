@@ -50,7 +50,12 @@ invalid) and ``pr`` int32 rows, each ``[nblocks, qcap, k]``.  A float
 score with its 4 low key bits replaced, as in the JAX kernel.  The JAX
 package has no production caller; its CUDA entries are
 ``ivf_accum_extract_i8`` and ``ivf_accum_extract_f`` of the same source,
-counted in ``ACCUM_LAUNCHES``.
+counted in ``ACCUM_LAUNCHES`` (one a call, for its two kernels).  On the
+card its scan is K1's, on K1's kernels with K9's key (int8 and bf16 on
+``wgmma``, fp32 on the FFMA register tile), each (row, bin) keeping its
+planes' chunks beside them; the scan writes every row's decoded candidates
+to a ``[2, nblocks, qcap, planes·128]`` int32 scratch, and an emit kernel
+takes each row's exact top-k from them, a warp a row.
 """
 
 from __future__ import annotations
@@ -364,8 +369,10 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
     """K9 with the JAX signature → (pv [nblocks, qcap, k] f32, pr [nblocks,
     qcap, k] int32 padded row ids); only each cluster's ``last_block`` rows
     are defined.  See the module docstring.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (int8 ± bias rows, D <= 1024;
-    fp32 or bf16 in one dtype, no bias rows, any D; any k) or raise."""
+    version; CUDA tensors launch the kernels (int8 ± bias rows, D <= 1024;
+    fp32 or bf16 in one dtype, no bias rows, any D; any k) or raise.  The
+    int8 and bf16 routed rows are read as K1 reads them
+    (:func:`kernel_operands`)."""
     global ACCUM_LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -382,22 +389,30 @@ def cluster_major_accum(qg_blocks, vectors_t, block_first, block_last, rows_vali
                          f"(dots << 4) - row key in int32); got k={k}, D={d}")
     if not int_path:
         _build.check_float("K9", qg_blocks, vectors_t)
-        vectors_t = _build.aligned(vectors_t, 16)  # 16-byte loads along blk
+    # TMA (int8, bf16) and the fp32 ring's 16-byte copies need 16-byte bases.
+    vectors_t = _build.aligned(vectors_t, 16)
+    q = qg_blocks
+    if vectors_t.dtype != torch.float32:
+        q = _build.aligned(kernel_operands(qg_blocks), 16)
+    nplanes = 2 if bin2 else 1
     pv = torch.empty((nblocks, qcap, k), dtype=torch.float32, device=dev)
     pr = torch.empty((nblocks, qcap, k), dtype=torch.int32, device=dev)
-    tabs = (block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr())
-    shape = (nblocks, qcap, d, blk, k, 2 if bin2 else 1, int(mask_rows))
+    # The scan's decoded candidates (values, rows), which the emit reads.
+    cand = torch.empty((2, nblocks, qcap, nplanes * 128), dtype=torch.int32, device=dev)
+    ptrs = (block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr())
+    outs = (cand[0].data_ptr(), cand[1].data_ptr(), pv.data_ptr(), pr.data_ptr())
+    shape = (nblocks, qcap, d, q.shape[-1], blk, k, nplanes, int(mask_rows))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if int_path:
             name = "ivf_accum_extract_i8"
-            err = _entry(name, 8, 7)(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
-                                     bias_rows.data_ptr() if bias_rows is not None else None,
-                                     pv.data_ptr(), pr.data_ptr(), *shape, stream)
+            br = _build.aligned(bias_rows, 16) if bias_rows is not None else None
+            err = _entry(name, 10, 8)(q.data_ptr(), vectors_t.data_ptr(), *ptrs,
+                                      br.data_ptr() if br is not None else None, *outs, *shape,
+                                      stream)
         else:
             name = "ivf_accum_extract_f"
-            err = _entry(name, 7, 8)(qg_blocks.data_ptr(), vectors_t.data_ptr(), *tabs,
-                                     pv.data_ptr(), pr.data_ptr(), *shape,
+            err = _entry(name, 9, 9)(q.data_ptr(), vectors_t.data_ptr(), *ptrs, *outs, *shape,
                                      int(vectors_t.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

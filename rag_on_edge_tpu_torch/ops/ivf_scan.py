@@ -31,7 +31,9 @@ float modes with any pad (:func:`float_operands`: a view that lies so, as
 :func:`routed_table` writes a float table, is read in place).  The kernels
 keep a running top-k of 32 a row; a larger k runs in passes of 32
 (``_build.by_passes``), each pass given each row's last entry of the one
-before as its bound.
+before as its bound.  The kernels' own selection holds nbins 128 at bin
+depths 1-4 (fp32 up to 65536 chunks a block); any other nbins dividing
+blk, and any depth, run the general selection (:func:`selection`).
 
 K6, :func:`cluster_major_scan`, computes the same walk with the routed
 queries and the output indexed by cluster: block ``j`` is scored against
@@ -76,24 +78,32 @@ CLUSTER_LAUNCHES = 0
 ROUTED_LAUNCHES = 0
 
 _NEG_INF = float("-inf")
-# What the CUDA kernels take: 128 bins (the chunk's columns) and bin depths
-# 1-4 (register arrays sized at compile time); the fp32 modes keep a
-# block's chunk in a byte (blk <= 32768).
-_CUDA_NBINS = 128
-_CUDA_DEPTH_MAX = 4
-_CUDA_FP32_BLK_MAX = 128 * 256
+# The kernels' own selection: 128 bins (a chunk's columns) at bin depths 1-4
+# (register arrays sized at compile time), fp32 up to 65536 chunks a block
+# (the lists keep a chunk in 16 bits).  Other shapes take the general
+# selection (:func:`selection`).
+_FAST_NBINS = 128
+_FAST_DEPTH_MAX = 4
+_FAST_FP32_BLK_MAX = 128 * 65536
+# The general selection's slots of lists: more than the CTAs of its kernels
+# that fit on a multiprocessor at once (the FFMA kernel three, the wgmma
+# kernel one), so a CTA that waits for a slot always finds one.
+_SLOTS_PER_SM = 4
+# The rows of a CTA of the general selection (both kernels).
+_GEN_ROWS = 32
 
 _FNS: dict = {}
 
 # The C entries of csrc/ivf_grouped_scan.cu: (pointer args, int args), the
-# stream last.  Every entry takes the routed rows' pitch and two pointers,
-# the rows' bounds of a later pass; the float entries one more int, bf16 (0
-# or 1).
+# stream last.  Every entry takes the routed rows' pitch, two pointers, the
+# rows' bounds of a later pass, and the general selection's three
+# (scratch, locks) and three ints (nbins, keepall, slots); the float
+# entries one more int, bf16 (0 or 1).
 _ENTRIES = {
-    "ivf_grouped_scan_i8": (11, 7), "ivf_grouped_scan_f": (11, 8),
-    "ivf_cluster_scan_i8": (12, 8), "ivf_cluster_scan_f": (12, 9),
-    "ivf_routed_scan_i8": (12, 8), "ivf_routed_scan_f": (12, 9),
-    "ivf_variant_scan_i8": (11, 8), "ivf_variant_scan_f": (11, 9),
+    "ivf_grouped_scan_i8": (14, 10), "ivf_grouped_scan_f": (14, 11),
+    "ivf_cluster_scan_i8": (15, 11), "ivf_cluster_scan_f": (15, 12),
+    "ivf_routed_scan_i8": (15, 11), "ivf_routed_scan_f": (15, 12),
+    "ivf_variant_scan_i8": (14, 12), "ivf_variant_scan_f": (14, 13),
 }
 
 
@@ -223,13 +233,54 @@ def cluster_major_scan_grouped_reference(qg_blocks, vectors_t, block_first,
     return sv, si
 
 
-def _check_cuda_limits(name, nbins, bin_depth):
-    """The shapes the CUDA kernels K4, K6 and K7 take: nbins 128 and
-    bin_depth <= 4 (any D; any k, in passes)."""
-    if nbins != _CUDA_NBINS or bin_depth > _CUDA_DEPTH_MAX:
-        raise ValueError(
-            f"the CUDA {name} takes nbins={_CUDA_NBINS} and bin_depth <= {_CUDA_DEPTH_MAX}; "
-            f"got nbins={nbins}, bin_depth={bin_depth}")
+def selection(k: int, blk: int, nbins: int, bin_depth: int, fp32: bool, dev):
+    """How the CUDA K4, K6, K7 and K10 select for a call of total ``k`` →
+    (depth, keepall, scratch, nslots), the last three the general
+    selection's.
+
+    ``depth`` is ``min(bin_depth, blk // nbins)``: a bin holds ``blk //
+    nbins`` columns, and a depth at or past that keeps them all, which is
+    the same function.  The kernels' own selection takes nbins 128 at
+    depths 1-4 (fp32 up to 65536 chunks a block); the rest runs the general
+    selection (``csrc/ivf_grouped_scan.cu``, ``GenArgs``): with
+    ``keepall`` where ``bin_depth >= min(k, blk // nbins)`` (a column among
+    a row's top k of the run has fewer than k better columns in its bin,
+    so every such column survives, and the binned walk equals the unbinned
+    one), else through per-(row, bin) lists of ``depth`` in ``scratch``
+    (scores, columns, lock words), ``nslots`` slots of ``32·nbins·depth``
+    entries."""
+    depth = min(bin_depth, blk // nbins)
+    general = (nbins != _FAST_NBINS or depth > _FAST_DEPTH_MAX
+               or (fp32 and blk > _FAST_FP32_BLK_MAX))
+    keepall = int(general and bin_depth >= min(k, blk // nbins))
+    if not general or keepall:
+        return depth, keepall, (None, None, None), 0
+    nslots = _SLOTS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+    n = nslots * _GEN_ROWS * nbins * depth
+    scratch = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.zeros(nslots, dtype=torch.int32, device=dev))
+    return depth, keepall, scratch, nslots
+
+
+def gen_pointers(scratch):
+    """The general selection's three pointers (None where it takes none)."""
+    return tuple(x.data_ptr() if x is not None else None for x in scratch)
+
+
+def whole_chunks(vectors_t, rows_valid, bias, blk):
+    """The kernels walk the slab in chunks of 128 columns: a ``blk`` that is
+    not a multiple of 128 (nbins dividing it) is zero-padded to one, with
+    ``rows_valid`` clamped to ``blk`` so the pad scores -inf and ``bias``
+    padded alike → (vectors_t, rows_valid, bias [nblocks, blk'] or None,
+    blk').  Ids and bins are the caller's, from the true ``blk``."""
+    if blk % 128 == 0:
+        return vectors_t, rows_valid, bias, blk
+    vectors_t = _build.pad_rows(vectors_t, 128)
+    rows_valid = rows_valid.clamp(max=blk).contiguous()
+    if bias is not None:
+        bias = _build.pad_rows(bias.reshape(-1, blk), 128)
+    return vectors_t, rows_valid, bias, vectors_t.shape[-1]
 
 
 def _launch_passes(name, k, out_rows, qcap, dev, launch, width=_build.PASS_K):
@@ -263,20 +314,16 @@ def entry(name: str):
     return _FNS[name]
 
 
-def float_operands(name: str, queries, vectors_t, blk: int):
+def float_operands(name: str, queries, vectors_t):
     """What the float modes of K4, K6, K7 and K10 (bf16 on ``wgmma`` fed by
     TMA, fp32 on the FFMA register tile) read: the routed rows (K4's
     ``qg_blocks``, K6's and K10's ``qg``) or the batch (K7's ``qi``) at a
     16-byte row pitch (:func:`_build.pitched_storage`: read in place where
     they lie so, as :func:`routed_table` writes them; else one zero-padded
     copy), and the slab on a 16-byte base → (queries' storage [..., ldq],
-    vectors_t, ldq, bf16).  fp32 keeps a block's chunk in a byte: blk <=
-    32768."""
+    vectors_t, ldq, bf16)."""
     _build.check_float(name, queries, vectors_t)
     bf16 = int(vectors_t.dtype == torch.bfloat16)
-    if not bf16 and blk > _CUDA_FP32_BLK_MAX:
-        raise ValueError(f"the CUDA {name} fp32 mode takes blk <= {_CUDA_FP32_BLK_MAX} (a "
-                         f"block's chunk in a byte); got blk={blk}")
     storage, ldq = _build.pitched_storage(queries)
     return _build.aligned(storage, 16), _build.aligned(vectors_t, 16), ldq, bf16
 
@@ -302,10 +349,10 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     ``row_base`` [nblocks] int32 is each block's first row id (default
     ``arange(nblocks)·blk``; the recovery pass gives ``blocks_list·blk``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (int8 ± bias, or fp32 or bf16 in one dtype, fp32 at blk <= 32768; nbins
-    128, bin_depth <= 4; any D; k > 32 in passes) or raise.  A float
-    ``qg_blocks`` whose rows lie at a 16-byte pitch (:func:`routed_table`'s)
-    is read in place."""
+    (int8 ± bias, or fp32 or bf16 in one dtype; any nbins dividing blk, any
+    bin_depth, as :func:`selection` sets out; any D; k > 32 in passes) or
+    raise.  A float ``qg_blocks`` whose rows lie at a 16-byte pitch
+    (:func:`routed_table`'s) is read in place."""
     global LAUNCHES
     dev = qg_blocks.device
     if dev.type == "cpu":
@@ -317,11 +364,13 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
                                         bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    depth, keepall, scratch, nslots = selection(k, blk, nbins, bin_depth,
+                                                vectors_t.dtype == torch.float32, dev)
+    vectors_t, rows_valid, bias, blk = whole_chunks(vectors_t, rows_valid, bias, blk)
     if not int_path:  # qg_blocks read at its row pitch (in place where it lies so)
-        qg_blocks, vectors_t, ldq, bf16 = float_operands("K4", qg_blocks, vectors_t, blk)
+        qg_blocks, vectors_t, ldq, bf16 = float_operands("K4", qg_blocks, vectors_t)
     _build.check_inputs("K4", dev, [qg_blocks, vectors_t, block_first, block_last, rows_valid,
                                     row_base, bias])
-    _check_cuda_limits("K4", nbins, bin_depth)
     if int_path:
         # wgmma fed by TMA: the routed rows at TMA's 16-byte row pitch, both
         # operands from 16-byte bases.
@@ -334,8 +383,10 @@ def cluster_major_scan_grouped(qg_blocks, vectors_t, block_first, block_last,
     head = (qg_blocks.data_ptr(), vectors_t.data_ptr(), block_first.data_ptr(),
             block_last.data_ptr(), rows_valid.data_ptr(),
             bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    gen = gen_pointers(scratch)
     out, n = _launch_passes(name, k, nblocks, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
-        *head, bv, bi, pv, pr, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+        *head, bv, bi, pv, pr, *gen, nblocks, qcap, *dims, blk, kp, depth, *flag, nbins,
+        keepall, nslots, st))
     LAUNCHES += n
     return out
 
@@ -400,10 +451,10 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     ``arange(nblocks)·blk``).  As on the TPU, ``block_cluster`` must be
     constant along a run and a cluster must end at most one run.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (int8 ±
-    bias, or fp32 or bf16 in one dtype, fp32 at blk <= 32768; nbins 128,
-    bin_depth <= 4; any D; k > 32 in passes) or raise.  A float ``qg``
-    whose rows lie at a 16-byte pitch (:func:`routed_table`'s) is read in
-    place."""
+    bias, or fp32 or bf16 in one dtype; any nbins dividing blk, any
+    bin_depth, as :func:`selection` sets out; any D; k > 32 in passes) or
+    raise.  A float ``qg`` whose rows lie at a 16-byte pitch
+    (:func:`routed_table`'s) is read in place."""
     global CLUSTER_LAUNCHES
     dev = qg.device
     if dev.type == "cpu":
@@ -415,11 +466,13 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    depth, keepall, scratch, nslots = selection(k, blk, nbins, bin_depth,
+                                                vectors_t.dtype == torch.float32, dev)
+    vectors_t, rows_valid, bias, blk = whole_chunks(vectors_t, rows_valid, bias, blk)
     if not int_path:  # qg read at its row pitch (in place where it lies so)
-        qg, vectors_t, ldq, bf16 = float_operands("K6", qg, vectors_t, blk)
+        qg, vectors_t, ldq, bf16 = float_operands("K6", qg, vectors_t)
     _build.check_inputs("K6", dev, [qg, vectors_t, block_cluster, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K6", nbins, bin_depth)
     if int_path:
         # wgmma fed by TMA: the clusters' routed rows at TMA's 16-byte row
         # pitch, both operands from 16-byte bases.
@@ -432,8 +485,10 @@ def cluster_major_scan(qg, vectors_t, block_cluster, block_first, block_last, ro
     head = (qg.data_ptr(), vectors_t.data_ptr(), block_cluster.data_ptr(),
             block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
             bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    gen = gen_pointers(scratch)
     out, n = _launch_passes(name, k, nlist, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
-        *head, bv, bi, pv, pr, nlist, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+        *head, bv, bi, pv, pr, *gen, nlist, nblocks, qcap, *dims, blk, kp, depth, *flag, nbins,
+        keepall, nslots, st))
     CLUSTER_LAUNCHES += n
     return out
 
@@ -488,9 +543,10 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     ``qi`` [B, D] the whole batch; ``cq_blocks`` [nblocks, qcap, 1] int32;
     the rest as :func:`cluster_major_scan_grouped`.  Only ``block_last`` rows
     are defined.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (int8 ± bias, or fp32 or bf16 in one dtype, fp32 at blk <=
-    32768; nbins 128, bin_depth <= 4; any D; k > 32 in passes) or raise.  A
-    float ``qi`` whose rows lie at a 16-byte pitch is read in place."""
+    the kernel (int8 ± bias, or fp32 or bf16 in one dtype; any nbins
+    dividing blk, any bin_depth, as :func:`selection` sets out; any D; k >
+    32 in passes) or raise.  A float ``qi`` whose rows lie at a 16-byte
+    pitch is read in place."""
     global ROUTED_LAUNCHES
     dev = qi.device
     if dev.type == "cpu":
@@ -502,13 +558,15 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
         bin_depth, bias, row_base)
     if row_base is None:
         row_base = torch.arange(nblocks, dtype=torch.int32, device=dev) * blk
+    depth, keepall, scratch, nslots = selection(k, blk, nbins, bin_depth,
+                                                vectors_t.dtype == torch.float32, dev)
+    vectors_t, rows_valid, bias, blk = whole_chunks(vectors_t, rows_valid, bias, blk)
     if not int_path:
         # bf16 gathers the batch in 16-byte pieces, fp32 in 16-byte copies:
         # its rows at a 16-byte pitch (in place where they lie so).
-        qi, vectors_t, ldq, bf16 = float_operands("K7", qi, vectors_t, blk)
+        qi, vectors_t, ldq, bf16 = float_operands("K7", qi, vectors_t)
     _build.check_inputs("K7", dev, [qi, cq_blocks, vectors_t, block_first, block_last,
                                     rows_valid, row_base, bias])
-    _check_cuda_limits("K7", nbins, bin_depth)
     if int_path:
         # wgmma: the batch gathered in 16-byte pieces (its rows at a 16-byte
         # pitch), the slab by TMA from a 16-byte base.
@@ -521,7 +579,9 @@ def cluster_major_scan_routed(qi, cq_blocks, vectors_t, block_first, block_last,
     head = (qi.data_ptr(), cq_blocks.data_ptr(), vectors_t.data_ptr(),
             block_first.data_ptr(), block_last.data_ptr(), rows_valid.data_ptr(),
             bias.data_ptr() if bias is not None else None, row_base.data_ptr())
+    gen = gen_pointers(scratch)
     out, n = _launch_passes(name, k, nblocks, qcap, dev, lambda kp, pv, pr, bv, bi, st: fn(
-        *head, bv, bi, pv, pr, nbatch, nblocks, qcap, *dims, blk, kp, bin_depth, *flag, st))
+        *head, bv, bi, pv, pr, *gen, nbatch, nblocks, qcap, *dims, blk, kp, depth, *flag, nbins,
+        keepall, nslots, st))
     ROUTED_LAUNCHES += n
     return out

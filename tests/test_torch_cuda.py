@@ -399,7 +399,7 @@ def test_k4_kernel_float_edges_equal_to_plain(dev, sizes, blk, qcap, d, dtype, d
         storage = _build.pad_rows(qg, 16 // qg.element_size())
         storage[..., d:] = float("nan")
         qg = storage[..., :d]
-        assert ivf_scan.float_operands("K4", qg, vt, blk)[0].data_ptr() == qg.data_ptr()
+        assert ivf_scan.float_operands("K4", qg, vt)[0].data_ptr() == qg.data_ptr()
     bf, bl, rv, rb = (torch.from_numpy(x).to(dev) for x in (bf, bl, rv, rb))
     kw = dict(k=k, blk=blk, bin_depth=depth, row_base=rb)
     before = ivf_scan.LAUNCHES
@@ -501,17 +501,30 @@ def test_k7_kernel_float_close_to_plain_on_noninteger_data(dev, dtype):
     _assert_topk_close(pv[rows], pr[rows], rv_[rows], rr[rows], _order_bound(qg, vt, 129))
 
 
+def _assert_scan_equal(got, want, rows):
+    """A scan's (pv, pr) against the plain version's at output rows ``rows``:
+    pv bit-equal, pr equal where finite."""
+    (pv, pr), (rv_, rr) = got, want
+    assert torch.equal(_bits(pv[rows]), _bits(rv_[rows]))
+    fin = rv_[rows] > float("-inf")
+    assert fin.any()
+    assert torch.equal(pr[rows][fin], rr[rows][fin])
+
+
 def test_k4_kernel_refuses_what_it_does_not_take(dev):
+    """Operands of two float dtypes; a bin depth past 4 and bins other than
+    128, once refused, equal the plain version (the general selection)."""
     rng = np.random.default_rng(20)
     qg, vt, bf, bl, rv, _, _ = (None if x is None else torch.from_numpy(x).to(dev)
                                 for x in _k4_inputs(rng, [100], 128, 8, 16, False, False,
                                                     False))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan_grouped(qg.float(), vt.bfloat16(), bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError):  # depth past 4
-        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
-    with pytest.raises(ValueError):  # bins other than 128
-        ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, nbins=64)
+    for kw in (dict(bin_depth=5), dict(nbins=64)):
+        _assert_scan_equal(
+            ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 4, blk=128, **kw),
+            ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv, 4, blk=128, **kw),
+            torch.nonzero(bl).flatten())
 
 
 def _k6_inputs(rng, sizes, blk, qcap, d, ties, walk, bias, empty_slots=False):
@@ -672,13 +685,16 @@ def test_k6_kernel_refuses_what_it_does_not_take(dev):
                                                         False))
     with pytest.raises(ValueError, match="one dtype"):
         ivf_scan.cluster_major_scan(qg.float(), vt.bfloat16(), bc, bf, bl, rv, 4, blk=128)
-    with pytest.raises(ValueError):  # bins other than 128
-        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, nbins=64)
-    with pytest.raises(ValueError):  # depth past 4
-        ivf_scan.cluster_major_scan(qg, vt, bc, bf, bl, rv, 4, blk=128, bin_depth=5)
-    with pytest.raises(ValueError, match="blk <= 32768"):  # fp32 keeps a chunk in a byte
-        ivf_scan.cluster_major_scan(qg.float(), torch.zeros((len(bc), 16, 32896), device=dev),
-                                    bc, bf, bl, rv, 4, blk=32896)
+    # Once refused: bins other than 128, a depth past 4, fp32 past 256
+    # chunks a block (a chunk in a byte then; 16 bits now).
+    rows = bc[torch.nonzero(bl).flatten()].long()
+    wide = torch.zeros((len(bc), 16, 32896), device=dev)
+    wide[..., :128] = vt.float()
+    for args, kw in (((qg, vt), dict(blk=128, nbins=64)), ((qg, vt), dict(blk=128, bin_depth=5)),
+                     ((qg.float(), wide), dict(blk=32896))):
+        _assert_scan_equal(
+            ivf_scan.cluster_major_scan(*args, bc, bf, bl, rv, 4, **kw),
+            ivf_scan.cluster_major_scan_reference(*args, bc, bf, bl, rv, 4, **kw), rows)
 
 
 def _k7_inputs(rng, sizes, blk, qcap, d, ties, compact, bias, nbatch=300):
@@ -887,9 +903,10 @@ def test_grouped_scan_cubin_bf16_on_wgmma_unserialized(dev):
     """The build report of ``csrc/ivf_grouped_scan.cu`` (``chip_smoke.py``'s
     ``wgmma_report``, which raises on a missing instance, a bf16 instance
     without bf16 ``wgmma``, ptxas serializing its groups, C7520, or any
-    ``__dp4a``): the bf16 instances of K4, K6 and K7 at depths 1-4 and of
-    K10's nogate, maxonly and fixedout hold HGMMA, their fp32 instances
-    FFMA, and the library holds no IDP (``__dp4a``) instruction."""
+    ``__dp4a``): the bf16 instances of K4, K6 and K7 at depths 1-4 and 0
+    (the general selection) and of K10's nogate, maxonly and fixedout hold
+    HGMMA, their fp32 instances FFMA, and the library holds no IDP
+    (``__dp4a``) instruction."""
     import importlib.util
     from pathlib import Path
 
@@ -900,8 +917,8 @@ def test_grouped_scan_cubin_bf16_on_wgmma_unserialized(dev):
     lines = smoke.wgmma_report(_build, "ivf_grouped_scan")
     bf16 = [ln for ln in lines if " bf16, depth" in ln]
     fp32 = [ln for ln in lines if "grouped_ffma_kernel<" in ln]
-    assert len(bf16) == 15 and all("HGMMA" in ln and "BF16" in ln for ln in bf16)
-    assert len(fp32) == 15 and all("FFMA 0" not in ln for ln in fp32)
+    assert len(bf16) == 18 and all("HGMMA" in ln and "BF16" in ln for ln in bf16)
+    assert len(fp32) == 18 and all("FFMA 0" not in ln for ln in fp32)
     assert lines[-1].startswith("IDP (__dp4a) instructions in libivf_grouped_scan: 0 ")
     assert lines[-1].endswith("ptxas serialization warnings: none")
 
@@ -916,14 +933,177 @@ def test_k7_kernel_refuses_what_it_does_not_take(dev):
             torch.zeros((qi.shape[0], 330), device=dev), cqb,
             torch.zeros((vt.shape[0], 330, 128), device=dev, dtype=torch.bfloat16), bf, bl, rv,
             4, blk=128)
-    with pytest.raises(ValueError):  # bins other than 128
-        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, nbins=64)
-    with pytest.raises(ValueError):  # depth past 4
-        ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, 4, blk=128, bin_depth=5)
-    with pytest.raises(ValueError, match="blk <= 32768"):  # fp32 keeps a chunk in a byte
-        ivf_scan.cluster_major_scan_routed(
-            qi.float(), cqb, torch.zeros((vt.shape[0], 16, 32896), device=dev), bf, bl, rv, 4,
-            blk=32896)
+    # Once refused: bins other than 128, a depth past 4, fp32 past 256
+    # chunks a block.
+    wide = torch.zeros((vt.shape[0], 16, 32896), device=dev)
+    wide[..., :128] = vt.float()
+    for args, kw in (((qi, cqb, vt), dict(blk=128, nbins=64)),
+                     ((qi, cqb, vt), dict(blk=128, bin_depth=5)),
+                     ((qi.float(), cqb, wide), dict(blk=32896))):
+        _assert_scan_equal(
+            ivf_scan.cluster_major_scan_routed(*args, bf, bl, rv, 4, **kw),
+            ivf_scan.cluster_major_scan_routed_reference(*args, bf, bl, rv, 4, **kw),
+            torch.nonzero(bl).flatten())
+
+
+# The general selection of K4, K6 and K7 (nbins, depth, blk, k): depths
+# past 4 (5 and 8 on the lists; 16 = blk / nbins keeps every column), nbins
+# dividing 128, a multiple of it and neither (96 at blk 384), a blk off the
+# 128-column chunk (480 = 5·96: padded), and keepall where the depth
+# reaches k; k 33 runs two passes.
+GENERAL_CASES = [
+    pytest.param(128, 5, 2048, 20, id="depth5"),
+    pytest.param(128, 8, 2048, 20, id="depth8"),
+    pytest.param(128, 16, 2048, 33, id="depth16-all"),
+    pytest.param(64, 2, 2048, 20, id="nbins64"),
+    pytest.param(256, 2, 2048, 20, id="nbins256"),
+    pytest.param(96, 2, 384, 20, id="nbins96-blk384"),
+    pytest.param(96, 3, 480, 33, id="nbins96-blk480-k33"),
+    pytest.param(64, 4, 2048, 3, id="keepall-k3"),
+]
+GENERAL_SIZES = [1500, 0, 40, 700, 129]
+
+
+def _general_inputs(rng, dev, mode, blk, qcap=40, d=37):
+    """K4's inputs at ``blk`` (one to three blocks a cluster, empty slots,
+    the int8 mode with bias) in ``mode`` on ``dev``: float values in [-8,
+    7], exact sums."""
+    qg, vt, bf, bl, rv, br, rb = _k4_inputs(rng, GENERAL_SIZES, blk, qcap, d, False, False,
+                                            mode == "int8", empty_slots=True)
+    if mode == "int8":
+        qg, vt = (torch.from_numpy(x).to(dev) for x in (qg, vt))
+    else:
+        qg, vt = _as_float(dev, mode, qg // 16, vt // 16)
+    tabs = tuple(torch.from_numpy(x).to(dev) for x in (bf, bl, rv, rb))
+    return qg, vt, tabs, None if br is None else torch.from_numpy(br).to(dev)
+
+
+@pytest.mark.parametrize("nbins,depth,blk,k", GENERAL_CASES)
+@pytest.mark.parametrize("mode", ["int8", "fp32", "bf16"])
+def test_k4_k6_k7_general_selection_equal_to_plain(dev, mode, nbins, depth, blk, k):
+    """F8, F9: K4, K6 (the routed table by cluster) and K7 (the batch
+    gathered through cq) at bins other than 128 and depths past 4, each
+    counted and equal to its plain version."""
+    rng = np.random.default_rng(90)
+    qg, vt, (bf, bl, rv, rb), br = _general_inputs(rng, dev, mode, blk)
+    kw = dict(k=k, blk=blk, nbins=nbins, bin_depth=depth, row_base=rb)
+    rows = torch.nonzero(bl).flatten()
+    passes = -(-k // 32)
+    before = ivf_scan.LAUNCHES
+    got = ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, bias=br, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES - before == passes
+    _assert_scan_equal(got, ivf_scan.cluster_major_scan_grouped_reference(
+        qg, vt, bf, bl, rv, bias=br, **kw), rows)
+    # K6: each block's rows as its own cluster's (one block a cluster run
+    # here keeps a cluster to one run); K7: the same rows from a batch.
+    bc = torch.cumsum(bf, 0, dtype=torch.int32) - 1
+    nlist = int(bc.max()) + 1
+    qc = qg[torch.nonzero(bf).flatten()]
+    before = ivf_scan.CLUSTER_LAUNCHES
+    got = ivf_scan.cluster_major_scan(qc, vt, bc, bf, bl, rv, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.CLUSTER_LAUNCHES - before == passes
+    _assert_scan_equal(got, ivf_scan.cluster_major_scan_reference(qc, vt, bc, bf, bl, rv, **kw),
+                       bc[rows].long())
+    qi = qc.reshape(-1, qc.shape[-1])
+    cqb = (bc[:, None] * qc.shape[1] + torch.arange(qc.shape[1], device=dev)).to(torch.int32)
+    cqb = cqb[..., None].contiguous()
+    before = ivf_scan.ROUTED_LAUNCHES
+    got = ivf_scan.cluster_major_scan_routed(qi, cqb, vt, bf, bl, rv, bias=br, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.ROUTED_LAUNCHES - before == passes and nlist == len(qc)
+    _assert_scan_equal(got, ivf_scan.cluster_major_scan_routed_reference(
+        qi, cqb, vt, bf, bl, rv, bias=br, **kw), rows)
+
+
+@pytest.mark.parametrize("nbins,depth,blk,k", GENERAL_CASES[3:7])
+@pytest.mark.parametrize("mode", ["int8", "fp32", "bf16"])
+def test_k10_general_bins_equal_to_plain(dev, mode, nbins, depth, blk, k):
+    """F9: the lab's four variants at bins other than 128 (full and nogate
+    on K6's general selection; maxonly and fixedout select nothing)."""
+    rng = np.random.default_rng(91)
+    qg, vt, (bf, bl, rv, _), _ = _general_inputs(rng, dev, mode, blk)
+    bc = torch.cumsum(bf, 0, dtype=torch.int32) - 1
+    qc = qg[torch.nonzero(bf).flatten()]
+    rows = bc[torch.nonzero(bl).flatten()].long()
+    for variant in kernel_lab.VARIANTS:
+        args = (qc, vt, bc, bf, bl, rv, k, blk, nbins, variant)
+        got, want = kernel_lab._variant_scan(*args), kernel_lab._variant_scan_reference(*args)
+        if variant in ("full", "nogate"):
+            _assert_scan_equal(got, want, rows)
+        else:
+            rows_ = rows[-1:] if variant == "fixedout" else rows
+            rows_ = torch.zeros_like(rows_) if variant == "fixedout" else rows_
+            assert torch.equal(_bits(got[0][rows_]), _bits(want[0][rows_]))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("nbins,tile_n", [(64, 512), (256, 512), (32, 512), (96, 384),
+                                          (192, 384)])
+def test_k3_binned_general_bins_equal_to_plain(dev, mode, nbins, tile_n):
+    """F9: K3's binned modes at nbins 64, 32, 256, 96 and 192 (dividing 128,
+    a multiple of it and neither), all on the general binning (per-(row,
+    bin) lists in device memory), over a ragged N, k 20."""
+    gen = torch.Generator(device=dev).manual_seed(92)
+    q = torch.randint(-8, 8, (70, 37), generator=gen, device=dev)
+    bt = torch.randint(-8, 8, (37, 3000), generator=gen, device=dev)
+    if mode == "int8":
+        q, bt = q.to(torch.int8), bt.to(torch.int8)
+    else:
+        q, bt = q.to(FLOAT_DTYPES[mode]), bt.to(FLOAT_DTYPES[mode])
+    before = bruteforce_fused.LAUNCHES
+    got = bruteforce_fused.fused_topk_matmul(q, bt, 20, tile_n=tile_n, nbins=nbins)
+    torch.cuda.synchronize()
+    assert bruteforce_fused.LAUNCHES > before
+    want = bruteforce_fused.fused_topk_matmul_reference(q, bt, 20, tile_n=tile_n, nbins=nbins)
+    fin = want[0] > float("-inf")
+    assert torch.equal(got[0].float(), want[0].float())
+    assert torch.equal(got[1][fin], want[1][fin])
+
+
+def test_k4_kernel_fp32_at_blk_65536_equal_to_plain(dev):
+    """F9: fp32 past 256 chunks a block (the lists' chunks in 16 bits):
+    blk 65536, three blocks, depth 2 and 4."""
+    rng = np.random.default_rng(93)
+    for depth in (2, 4):
+        qg, vt, (bf, bl, rv, rb), _ = _general_inputs(rng, dev, "fp32", 65536, qcap=24, d=9)
+        kw = dict(k=20, blk=65536, bin_depth=depth, row_base=rb)
+        _assert_scan_equal(ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, **kw),
+                           ivf_scan.cluster_major_scan_grouped_reference(qg, vt, bf, bl, rv,
+                                                                         **kw),
+                           torch.nonzero(bl).flatten())
+
+
+@pytest.mark.parametrize("case", ["bin_depth5", "fp32_blk65536"])
+def test_ivf_search_general_selection_card_equals_cpu(dev, case):
+    """F8: ``search_device(q, 10, 4, bin_depth=5)`` with the recovery pass
+    (K1, then K4 at depth 5 on the lists) on an int8 index of 2048-row
+    blocks; F9: an fp32 index with pad_block 65536 through
+    ``engine="pallas"`` (K4) and its recovery pass.  The same ids, scores
+    and spill on the card as on the CPU."""
+    base, queries = make_synthetic(3000, 40, 32, 4, seed=6)
+    dtype, blk, kw = (("int8", 2048, dict(bin_depth=5)) if case == "bin_depth5"
+                      else ("fp32", 65536, dict(engine="pallas")))
+    src = IVFIndex.build(base, nlist=4, metric="l2", dtype="int8", pad_block=256, max_iter=5,
+                         device="cpu")
+
+    def search(device):
+        idx = IVFIndex.from_arrays(src._centroids_np, src._vectors_np, src._offsets_np,
+                                   src._reorder_np, metric="l2", dtype=dtype, pad_block=blk,
+                                   config=src.config, device=device)
+        out = idx.search_device(torch.from_numpy(queries).to(device), 10, 4, mode="cluster",
+                                recover=True, qcap=16, recover_qcap=16, **kw)
+        return [x.cpu() for x in out], int(idx.last_spill)
+
+    before = ivf_scan.LAUNCHES
+    got, spill = search(dev)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES > before
+    want, want_spill = search("cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert spill == want_spill
 
 
 @pytest.mark.parametrize("sizes,blk,qcap,d,lo_hi", [
@@ -1134,8 +1314,15 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
         bruteforce_fused.fused_topk_matmul(q.float(), bt.bfloat16(), 4)
     with pytest.raises(ValueError, match="k=601 > N=600"):  # past the base, as JAX refuses
         bruteforce_fused.fused_topk_matmul(q.float(), bt.float(), 601)
-    with pytest.raises(ValueError):  # bins other than 128
-        bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
+    with pytest.raises(ValueError, match="multiple of 128"):  # tiles off the chunks, k past 2
+        bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=192, nbins=48)
+    # Once refused: bins other than 128 (64 divides 128), equal to the plain version.
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randint(-127, 127, (4, 16), generator=gen, device=dev, dtype=torch.int8)
+    bt = torch.randint(-127, 127, (16, 600), generator=gen, device=dev, dtype=torch.int8)
+    got = bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
+    want = bruteforce_fused.fused_topk_matmul_reference(q, bt, 4, tile_n=512, nbins=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # K5: (B, D, N, tile_n, group, k, alpha of the L2 bias rows or None, value
@@ -1609,8 +1796,11 @@ def test_k10_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kernel_lab._variant_scan(qg, vt.transpose(1, 2).contiguous().transpose(1, 2), bc, bf,
                                  bl, rv, 4, 128, 128, "full")
-    with pytest.raises(ValueError, match="nbins 128"):  # bins other than 128
-        kernel_lab._variant_scan(qg, vt, bc, bf, bl, rv, 4, 128, 64, "nogate")
+    # Once refused: bins other than 128, equal to the plain version.
+    rows = bc[torch.nonzero(bl).flatten()].long()
+    _assert_scan_equal(kernel_lab._variant_scan(qg, vt, bc, bf, bl, rv, 4, 128, 64, "nogate"),
+                       kernel_lab._variant_scan_reference(qg, vt, bc, bf, bl, rv, 4, 128, 64,
+                                                          "nogate"), rows)
 
 
 @pytest.mark.parametrize("pallas", [True, False], ids=["k8", "plain"])
@@ -1766,7 +1956,8 @@ def test_k13_kernel_equal_to_plain(dev, dtype, shape, depth):
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
 @pytest.mark.parametrize("g", [1, 37, 300])
 @pytest.mark.parametrize("tb,tn,d", [(200, 300, 96), (256, 2048, 128), (64, 16, 32),
-                                     (65, 130, 48), (65, 16, "cap")])
+                                     (65, 130, 48), (65, 16, "cap"), (65, 130, "640B"),
+                                     (20, 40, "odd")])
 @pytest.mark.parametrize("dtype,unit", [(torch.int8, "mma"), (torch.int8, "dp4a"),
                                         (torch.bfloat16, "mma")])
 def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
@@ -1776,9 +1967,12 @@ def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
     # 48 (int8: one and 1.5 k-steps of 32 bytes), d at the 512-byte cap
     # ("cap": int8 512, bf16 256, 16 k-steps), tn 16 and 130; g 1, and 37
     # and 300, which no CTA count divides (a CTA with no step, CTAs with
-    # one, two or many steps through both accumulator sets).
-    if d == "cap":
-        d = hw_probe._MAX_KBYTES // dtype.itemsize
+    # one, two or many steps through both accumulator sets).  Past the
+    # registers' 16 k-steps: 640 bytes of K (int8 640, bf16 320: the
+    # chunked kernel, dp4a's resident tiles) and an odd d past 512 bytes
+    # (int8 1025: dp4a in chunks; bf16 257), padded to 4-byte words.
+    d = {"cap": 512, "640B": 640, "odd": {torch.int8: 1025, torch.bfloat16: 514}[dtype]}.get(
+        d, d * dtype.itemsize) // dtype.itemsize
     gen = _probe_gen(dev, 54)
     q, v = _rand_op((tb, d), dtype, gen, dev), _rand_op((d, tn), dtype, gen, dev)
     x = torch.zeros((8, 128), device=dev)
@@ -1799,21 +1993,52 @@ def test_k14_kernel_equal_to_plain(dev, dtype, unit, tb, tn, d, g, sel):
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    """K11's tile other than [8, 128] (JAX's BlockSpec).  What K12-K14 once
+    refused equals the plain version: K13 at 15-byte blocks and depth 9,
+    K12's product at d·elem 3, K14 at 1024 bytes of K."""
     x = torch.zeros((8, 128), device=dev)
-    data = torch.zeros((8, 3, 5), dtype=torch.int8, device=dev)  # 15-byte blocks
-    with pytest.raises(ValueError):
-        hw_probe._dma_probe(x, data, 1)
-    with pytest.raises(ValueError):
-        hw_probe._dma_probe(x, torch.zeros((9, 4, 4), dtype=torch.int8, device=dev), 9)
-    with pytest.raises(ValueError):  # the product wants d·elem a multiple of 4
-        hw_probe._stream_probe(torch.zeros((4, 3), dtype=torch.int8, device=dev), data, 5, 1,
-                               True, None)
-    with pytest.raises(ValueError):
-        hw_probe._gemm_rate_probe(x, torch.zeros((4, 1024), dtype=torch.int8, device=dev),
-                                  torch.zeros((1024, 8), dtype=torch.int8, device=dev), 2, 4, 8,
-                                  False)
     with pytest.raises(ValueError):
         hw_probe._step_probe(x[:, :64], 4, True, None)
+    gen = _probe_gen(dev, 56)
+    data = _rand_op((9, 3, 5), torch.int8, gen, dev)  # 15-byte blocks
+    for depth in (1, 9):
+        assert torch.equal(hw_probe._dma_probe(x, data, depth),
+                           hw_probe._dma_probe_reference(x, data, depth))
+    xs = _rand_op((4, 3), torch.int8, gen, dev)
+    assert torch.equal(hw_probe._stream_steps(xs, data, 5, 1, True, None),
+                       hw_probe._stream_steps_reference(xs, data, 1, True))
+    q, v = _rand_op((4, 1024), torch.int8, gen, dev), _rand_op((1024, 8), torch.int8, gen, dev)
+    assert torch.equal(hw_probe._gemm_rate_probe(x, q, v, 2, 4, 8, False),
+                       hw_probe._gemm_rate_probe_reference(x, q, v, 2, 4, 8, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("m,d,blk", [(256, 37, 130), (130, 640, 2048), (300, 1100, 515)])
+def test_k12_product_past_the_old_caps_equal_to_plain(dev, dtype, m, d, blk):
+    """F10: K12's product at 256 and more x rows (row tiles in turn), odd
+    d and blk (padded to 4-byte words), and K past 512 bytes (x resident,
+    or riding the ring at d 1100: 3 row tiles x 9 units of 16 KB)."""
+    gen = _probe_gen(dev, 57)
+    data, tops = hw_probe._planted_walk(6, d, blk, 2, dtype, gen)
+    x = _rand_op((m, d), dtype, gen, dev)
+    _k12_against_plain(x, data, blk, 2, True, None, tops)
+
+
+@pytest.mark.parametrize("depth", [8, 15, 16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_k13_kernel_past_the_old_caps_equal_to_plain(dev, dtype, depth):
+    """F10: K13 at depths past its ring of 8 (the JAX depth picks the
+    blocks) over 15-byte int8 blocks (30-byte bf16) whose walk ends off a
+    16-byte piece, a value planted at its last element."""
+    gen = _probe_gen(dev, 58)
+    data = _rand_op((40, 3, 5), dtype, gen, dev)
+    x = torch.zeros((8, 128), device=dev)
+    walked = hw_probe._dma_blocks(data, depth) * 15
+    flat = data.view(-1)
+    flat[walked - 1] = 127 if dtype == torch.int8 else 64.0
+    want = hw_probe._dma_probe_reference(x, data, depth)
+    assert float(want[0]) == float(flat[walked - 1])
+    assert torch.equal(hw_probe._dma_probe(x, data, depth), want)
 
 
 def test_probe_cli_runs_at_toy_sizes_on_the_card(dev, capsys):

@@ -342,6 +342,27 @@ def test_search_device_recovery_and_grouped_equal_jax(pair, small_data, run):
         assert t.last_engine == kw["engine"]
 
 
+@pytest.mark.parametrize("pad_block,bin_depth", [(1024, 5), (512, 9)],
+                         ids=["depth5", "depth-past-bin"])
+def test_search_device_bin_depth_equals_jax(jax_base, small_data, pad_block, bin_depth):
+    """F8: the recovery pass at bin depth 5 (of the 8 columns a bin holds at
+    pad_block 1024) and at a depth past a bin's 4 columns (pad_block 512:
+    the same function as depth 4, which the card's general selection
+    clamps to), equal to the JAX package."""
+    j = jivf.IVFIndex(jax_base._centroids_np, jax_base._vectors_np, jax_base._offsets_np,
+                      jax_base._reorder_np, metric="l2", dtype="int8", pad_block=pad_block,
+                      config=dict(jax_base.config))
+    t = _port_of(j)
+    q = np.ascontiguousarray(small_data[1])
+    kw = dict(RECOVER, bin_depth=bin_depth)
+    jv, jids, jc = j.search_device(jnp.asarray(q), K, NPROBE, mode="cluster", **kw)
+    tv, tids, tc = t.search_device(_t(q), K, NPROBE, mode="cluster", **kw)
+    assert int(t.last_spill) == int(j.last_spill) == 0
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
 def test_signatures_take_jax_positions():
     """``search_device``, ``build``, ``kmeans``, ``ground_truth``,
     ``make_mesh`` and the sharded indexes take the JAX package's parameters

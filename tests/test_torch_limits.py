@@ -246,7 +246,7 @@ def test_k7_float_reads_a_pitched_batch_equal_jax(small_data, dtype):
         cq[c, :n] = rng.choice(len(queries), n, replace=False)
     cq[0, 0] = len(queries)  # past the batch: a zero row, as -1 gives
     cqb = torch.from_numpy(np.ascontiguousarray(cq[bc][..., None]))
-    qs, vs, ldq2, bf16 = ivf_scan.float_operands("K7", view, vt, blk)
+    qs, vs, ldq2, bf16 = ivf_scan.float_operands("K7", view, vt)
     assert (qs.data_ptr(), ldq2, bf16) == (view.data_ptr(), ldq, int(dtype == "bf16"))
     tabs = tuple(torch.from_numpy(x.astype(np.int32)) for x in (bf, bl, rv))
     kw = dict(k=6, blk=blk, group=1, bin_depth=2)
@@ -264,16 +264,17 @@ def test_k7_float_reads_a_pitched_batch_equal_jax(small_data, dtype):
 
 def test_float_operands_check_what_the_kernels_take():
     """K6's and K7's float wrappers before a launch (plain functions, so
-    they run here): one dtype, fp32 at blk <= 32768 (a chunk in a byte),
-    bf16 at any blk; rows that do not lie at a 16-byte pitch, or lie at one
-    past their storage's end, are copied once with a zero pad."""
+    they run here): one dtype, fp32 and bf16 at any blk (past 32768 too,
+    where fp32 once kept a chunk in a byte); rows that do not lie at a
+    16-byte pitch, or lie at one past their storage's end, are copied once
+    with a zero pad."""
     q = torch.zeros((5, 129))
     with pytest.raises(ValueError, match="one dtype"):
-        ivf_scan.float_operands("K6", q, torch.zeros((2, 129, 128), dtype=torch.bfloat16), 128)
-    with pytest.raises(ValueError, match="blk <= 32768"):
-        ivf_scan.float_operands("K7", q, torch.zeros((1, 129, 32896)), 32896)
+        ivf_scan.float_operands("K6", q, torch.zeros((2, 129, 128), dtype=torch.bfloat16))
+    qs, _, ldq, bf16 = ivf_scan.float_operands("K7", q, torch.zeros((1, 129, 32896)))
+    assert (ldq, bf16, tuple(qs.shape)) == (132, 0, (5, 132)) and not qs.any()
     qs, _, ldq, bf16 = ivf_scan.float_operands(
-        "K7", q.bfloat16(), torch.zeros((1, 129, 32896), dtype=torch.bfloat16), 32896)
+        "K7", q.bfloat16(), torch.zeros((1, 129, 32896), dtype=torch.bfloat16))
     assert (ldq, bf16, tuple(qs.shape)) == (136, 1, (5, 136)) and not qs.any()
     wide = torch.randn(6, 200)
     for x, in_place in ((wide[:, :129], True), (wide[1:, 3:132], False),
@@ -322,7 +323,7 @@ def test_routed_table_at_pitch_equals_contiguous(small_data, dtype):
             assert table.is_contiguous() and ldq == d == 128
         else:
             assert ldq == {"fp32": 132, "bf16": 136}[dtype] and not storage[..., d:].any()
-            qs = ivf_scan.float_operands("K4", table, t._arrays["vectors_t"], 128)[0]
+            qs = ivf_scan.float_operands("K4", table, t._arrays["vectors_t"])[0]
             assert qs.data_ptr() == table.data_ptr()
     narrow = torch.from_numpy(np.random.default_rng(71).integers(-127, 128, (32, 37),
                                                                  dtype=np.int8))

@@ -521,3 +521,93 @@ def test_k4_rejects_bad_inputs():
     with pytest.raises(ValueError):  # int32 bias
         ivf_scan.cluster_major_scan_grouped(qg, vt, bf, bl, rv, 5, blk=K4_BLK,
                                             bias=torch.zeros((8, 1, K4_BLK), dtype=torch.int32))
+
+
+# F8, F9: the plain K4, K6, K7 and K10 at bins other than 128 (64 and 256
+# at blk 512; 96 at blk 384, neither a divisor nor a multiple of 128) and
+# K4 at a bin depth past 4 (5 of the 8 columns a bin holds at blk 1024),
+# against the JAX kernels in interpret mode, one compilation a case.  The
+# CUDA kernels take the same shapes on the general selection.
+GENERAL = {"nbins64": (64, 2, 512), "nbins256": (256, 2, 512), "nbins96": (96, 2, 384),
+           "depth5": (128, 5, 1024)}
+GENERAL_K = 6
+
+
+def _general_case(blk):
+    """int8 blocks of clusters of 2, 0, 1 and 1 blocks (padded to 8) with
+    per-cluster routed rows, bias rows → (qg [nlist, qcap, D], qi, cq
+    [nblocks, qcap, 1], vt, bc, bf, bl, rv, bias, row_base) as numpy."""
+    rng = np.random.default_rng(23)
+    sizes = np.asarray([blk + 100, 0, 300, 40])
+    offs = np.concatenate([[0], np.cumsum(-(-sizes // blk) * blk)[:-1]])
+    bc, bf, bl, rv, _ = block_tables.build_block_tables(offs, sizes, blk)
+    pad = (-len(bc)) % 8
+    bc = np.pad(bc, (0, pad), constant_values=len(sizes) - 1).astype(np.int32)
+    bf, bl, rv = (np.pad(x, (0, pad)).astype(np.int32) for x in (bf, bl, rv))
+    nb, qcap, d = len(bc), 4, 8
+    qg = rng.integers(-127, 128, (len(sizes), qcap, d), dtype=np.int8)
+    vt = rng.integers(-127, 128, (nb, d, blk), dtype=np.int8)
+    cq = np.arange(len(sizes) * qcap, dtype=np.int32).reshape(len(sizes), qcap)[bc]
+    bias = rng.uniform(0, 3000, (nb, 1, blk)).astype(np.float32)
+    rb = np.arange(nb, dtype=np.int32) * blk
+    return (qg, qg.reshape(-1, d), np.ascontiguousarray(cq[..., None]), vt, bc, bf, bl, rv,
+            bias, rb)
+
+
+@pytest.mark.parametrize("kernel,case", [
+    (kernel, case) for kernel in ("K4", "K6", "K7", "K10") for case in GENERAL
+    if kernel != "K10" or GENERAL[case][1] == 2])  # K10's bin depth is JAX's fixed 2
+def test_general_selection_plain_equals_jax(kernel, case):
+    nbins, depth, blk = GENERAL[case]
+    qg, qi, cq, vt, bc, bf, bl, rv, bias, rb = _general_case(blk)
+    j, t = jnp.asarray, torch.from_numpy
+    tabs = (bf, bl, rv)
+    kw = dict(k=GENERAL_K, blk=blk, nbins=nbins, bin_depth=depth)
+    out_rows = np.nonzero(bl)[0]
+    if kernel == "K4":
+        qb = qg[bc]
+        want = pallas_ivf.cluster_major_scan_grouped(
+            j(qb), j(vt), *map(j, tabs), group=1, bias=j(bias), row_base=j(rb), **kw)
+        got = ivf_scan.cluster_major_scan_grouped(
+            t(qb), t(vt), *map(t, tabs), group=1, bias=t(bias), row_base=t(rb), **kw)
+    elif kernel == "K7":
+        want = pallas_ivf.cluster_major_scan_routed(
+            j(qi), j(cq), j(vt), *map(j, tabs), group=1, bias=j(bias), row_base=j(rb), **kw)
+        got = ivf_scan.cluster_major_scan_routed(
+            t(qi), t(cq), t(vt), *map(t, tabs), group=1, bias=t(bias), row_base=t(rb), **kw)
+    elif kernel == "K6":
+        want = pallas_ivf.cluster_major_scan(j(qg), j(vt), j(bc), *map(j, tabs), **kw)
+        got = ivf_scan.cluster_major_scan(t(qg), t(vt), t(bc), *map(t, tabs), **kw)
+        out_rows = bc[out_rows]
+    else:
+        from rag_on_edge_tpu.harness import kernel_lab as jlab
+        from rag_on_edge_tpu_torch.harness import kernel_lab as tlab
+
+        want = jlab._variant_scan(j(qg), j(vt), j(bc), *map(j, tabs), GENERAL_K, blk, nbins,
+                                  "full")
+        got = tlab._variant_scan(t(qg), t(vt), t(bc), *map(t, tabs), GENERAL_K, blk, nbins,
+                                 "full")
+        out_rows = bc[out_rows]
+    jv, ji = _np(want[0])[out_rows], _np(want[1])[out_rows]
+    tv, ti = got[0].numpy()[out_rows], got[1].numpy()[out_rows]
+    np.testing.assert_array_equal(tv, jv)
+    fin = jv > -np.inf
+    assert fin.any()
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+
+
+def test_k3_plain_at_nbins64_equals_jax():
+    """F9: K3's binned plain version at nbins 64 (dividing 128) against the
+    JAX kernel in interpret mode; the card runs it on the kernels' pairs of
+    a bin's two columns."""
+    rng = np.random.default_rng(24)
+    q = rng.integers(-127, 128, (8, 16), dtype=np.int8)
+    bt = rng.integers(-127, 128, (16, 1300), dtype=np.int8)
+    jv, ji = pallas_bruteforce.fused_topk_matmul(jnp.asarray(q), jnp.asarray(bt), 12,
+                                                 tile_n=512, nbins=64)
+    from rag_on_edge_tpu_torch.ops import bruteforce_fused
+
+    tv, ti = bruteforce_fused.fused_topk_matmul(torch.from_numpy(q), torch.from_numpy(bt), 12,
+                                                tile_n=512, nbins=64)
+    np.testing.assert_array_equal(tv.numpy(), _np(jv))
+    np.testing.assert_array_equal(ti.numpy(), _np(ji))

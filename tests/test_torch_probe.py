@@ -62,30 +62,38 @@ def test_k11_step_probe_equals_jax(moving, semantics):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("fat,gemm,m,blk", [
-    pytest.param(1, False, M, BLK, id="fat1"),
-    pytest.param(2, True, M, BLK, id="fat2-gemm"),
+# K's bytes past the 512 the probes' products once took: 640 (int8 640,
+# bf16 320 dims) and an odd d past them (int8 513, bf16 257, 514 bytes).
+WIDE_D = {"640B": {"int8": 640, "bf16": 320}, "odd": {"int8": 513, "bf16": 257}}
+
+
+@pytest.mark.parametrize("fat,gemm,m,blk,d", [
+    pytest.param(1, False, M, BLK, D, id="fat1"),
+    pytest.param(2, True, M, BLK, D, id="fat2-gemm"),
     # The product's edges: x rows one past a warpgroup of 64, a block 4
-    # columns past its last 128-column slice.
-    pytest.param(1, True, 65, 132, id="fat1-gemm-m65-blk132")])
+    # columns past its last 128-column slice; K past 512 bytes.
+    pytest.param(1, True, 65, 132, D, id="fat1-gemm-m65-blk132"),
+    pytest.param(1, True, 24, 130, "640B", id="fat1-gemm-d640B"),
+    pytest.param(1, True, 24, 130, "odd", id="fat1-gemm-d-odd")])
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-def test_k12_stream_probe_equals_jax(dtype, fat, gemm, m, blk):
+def test_k12_stream_probe_equals_jax(dtype, fat, gemm, m, blk, d):
     # Every step holds a planted max above the bulk, distinct from its
     # neighbours'; the first step also holds the walk's max, which is not
     # what lands.
+    d = WIDE_D[d][dtype] if isinstance(d, str) else d
     rng = np.random.default_rng(12)
     g = 4 // fat
     if dtype == "int8":
-        raw = rng.integers(-127, -100, (g, fat * D * blk)).astype(np.float32)
+        raw = rng.integers(-127, -100, (g, fat * d * blk)).astype(np.float32)
         tops, decoy = -100.0 + (37 * np.arange(g)) % 226, 127
     else:
-        raw = rng.standard_normal((g, fat * D * blk)).clip(-7.5, 7.5).astype(np.float32)
+        raw = rng.standard_normal((g, fat * d * blk)).clip(-7.5, 7.5).astype(np.float32)
         tops, decoy = 8.0 + 0.25 * rng.permutation(g), 64.0
     raw[np.arange(g), rng.integers(0, raw.shape[1], g)] = tops
     raw[0, 0] = decoy
-    raw = raw.reshape(4, D, blk)
+    raw = raw.reshape(4, d, blk)
     dj, dt = _pair(raw.astype(np.int8) if dtype == "int8" else raw, dtype)
-    xj, xt = _operand(rng, (m, D), dtype)
+    xj, xt = _operand(rng, (m, d), dtype)
     want = _jax(jhp._stream_probe, xj, dj, blk, fat, gemm, None)
     got = thp._stream_probe(xt, dt, blk, fat, gemm, None)
     assert got.shape == (1,) and got.dtype == torch.float32
@@ -99,12 +107,14 @@ def test_k12_stream_probe_equals_jax(dtype, fat, gemm, m, blk):
         assert thp._stream_steps(xt, dt, blk, fat, gemm, None).tolist() == [decoy, *tops[1:]]
 
 
-@pytest.mark.parametrize("depth", [1, 4])
+@pytest.mark.parametrize("depth", [1, 4, 9])
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
 def test_k13_dma_probe_equals_jax(dtype, depth):
+    # Depth 9 (past the card's ring of 8) walks the first 9 of 10 blocks.
     rng = np.random.default_rng(13)
-    raw = (rng.integers(-100, 100, (6, 16, 128)).astype(np.float32) if dtype == "int8"
-           else rng.standard_normal((6, 16, 128)).astype(np.float32))
+    shape = (10 if depth == 9 else 6, 16, 128)
+    raw = (rng.integers(-100, 100, shape).astype(np.float32) if dtype == "int8"
+           else rng.standard_normal(shape).astype(np.float32))
     raw[3, 5, 9] = 110  # in the last whole group of 4
     raw[5, 3, 7] = 120  # in a block past it
     dj, dt = _pair(raw.astype(np.int8) if dtype == "int8" else raw, dtype)
@@ -112,13 +122,15 @@ def test_k13_dma_probe_equals_jax(dtype, depth):
     want = _jax(jhp._dma_probe, xj, dj, depth)
     got = thp._dma_probe(xt, dt, depth)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert float(got[0]) == (120 if depth == 1 else 110)
+    assert float(got[0]) == (110 if depth == 4 else 120)
 
 
 # (tb, d, tn, g): g > tb, so the twisted row wraps to (g - 1) % tb; then
 # the edges of the card's wgmma design: a row one past a warpgroup of 64,
-# 1.5 int8 k-steps of 32 bytes, two columns past a 128-column unit.
-K14_SHAPES = {"": (M, D, BLK, 19), "-65x48x130": (65, 48, 130, 70)}
+# 1.5 int8 k-steps of 32 bytes, two columns past a 128-column unit; K past
+# the 512 bytes the product once took (WIDE_D).
+K14_SHAPES = {"": (M, D, BLK, 19), "-65x48x130": (65, 48, 130, 70),
+              "-65x640Bx130": (65, "640B", 130, 7), "-20xoddx40": (20, "odd", 40, 5)}
 
 
 @pytest.mark.parametrize("sel", [False, True], ids=["max", "sel"])
@@ -128,6 +140,7 @@ K14_SHAPES = {"": (M, D, BLK, 19), "-65x48x130": (65, 48, 130, 70)}
     for dt, unit in (("int8", "mma"), ("int8", "dp4a"), ("bf16", "mma"))])
 def test_k14_gemm_rate_probe_equals_jax(dtype, unit, shape, sel):
     tb, d, tn, g = shape
+    d = WIDE_D[d][dtype] if isinstance(d, str) else d
     rng = np.random.default_rng(14)
     qj, qt = _operand(rng, (tb, d), dtype)
     vj, vt = _operand(rng, (d, tn), dtype)
@@ -172,12 +185,14 @@ def test_probes_refuse_bad_arguments():
     with pytest.raises(ValueError):
         thp._gemm_rate_probe(x, torch.zeros((4, 8), dtype=torch.bfloat16),
                              torch.zeros((8, 16), dtype=torch.bfloat16), 2, 4, 16, False, "dp4a")
-    with pytest.raises(ValueError):  # the products take d·elem <= 512, as the kernels do
-        thp._gemm_rate_probe(x, torch.zeros((4, 513), dtype=torch.int8),
-                             torch.zeros((513, 16), dtype=torch.int8), 2, 4, 16, False)
-    with pytest.raises(ValueError):
-        thp._stream_probe(torch.zeros((4, 257), dtype=torch.bfloat16),
-                          torch.zeros((2, 257, 8), dtype=torch.bfloat16), 8, 1, True, None)
+    # K past 512 bytes (int8 d = 513, bf16 d = 257) is no longer refused:
+    # the products equal JAX's there (test_k12_stream_probe_equals_jax and
+    # test_k14_gemm_rate_probe_equals_jax at WIDE_D).
+    qj, qt = _operand(np.random.default_rng(16), (4, 513), "int8")
+    vj, vt = _operand(np.random.default_rng(17), (513, 16), "int8")
+    xj, _ = _pair(np.zeros((8, 128), np.float32), "f32")
+    np.testing.assert_array_equal(thp._gemm_rate_probe(x, qt, vt, 2, 4, 16, False).numpy(),
+                                  _jax(jhp._gemm_rate_probe, xj, qj, vj, 2, 4, 16, False))
 
 
 def _rows(out, head):

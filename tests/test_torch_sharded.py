@@ -432,7 +432,7 @@ def test_routed_tables_written_at_pitch_equal_jax(jax_index, small_data, dtype):
         storage, pitch = _build.pitched_storage(table)
         assert (storage.data_ptr(), pitch) == (table.data_ptr(), ldq)
         assert table.shape[-1] == 129 and not storage[..., 129:].any()
-        qs, _, ldq2, _ = ivf_scan.float_operands("K6", table, rec[1], 128)
+        qs, _, ldq2, _ = ivf_scan.float_operands("K6", table, rec[1])
         assert (qs.data_ptr(), ldq2) == (table.data_ptr(), ldq)
     cq, _, _ = jivf.invert_probes(jnp.asarray(r["probes"].numpy()), 16, 4)
     qrow = jnp.concatenate([jnp.asarray(queries), jnp.ones((len(queries), 1), jnp.float32)], -1)
