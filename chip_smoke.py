@@ -2,7 +2,8 @@
 """Drive the PyTorch port's SIFT-1M search paths once on one NVIDIA GPU:
 the IVF index (its default engine, the grouped engine and the routed
 engine), the brute-force index, both sharded over 4 logical shards on
-the card, the kernel lab on the same index, the spatial GEMM, the
+the card, the kernel lab on the same index, k-means with its checkpoint,
+the compact store, the serving executor, the spatial GEMM, the
 hardware probes, the float (fp32 and bf16) IVF and brute-force indexes
 with the library's defaults, the float sharded index, routed engine and
 kernel lab, and the query-major mode and xla engine of the IVF index.
@@ -149,6 +150,33 @@ script exits non-zero without a result line:
              K6); then the lab itself with the counters reset just before
              and read just after, printing its ms/call and µs/block for each
              variant, and each variant's time beside its bound.
+   f11     — K3's binned modes at tiles off the 128-column chunk (F11: a
+             chunk across two tiles binned once for each): int8 L2 at
+             tile_n 192, nbins 48, k 4, and int8 IP, int8 L2, bf16 and fp32
+             at tile_n 320, nbins 40, k 20, each at [8192, 128] x [128, 1M]
+             (the corpus shifted into int8), launched, bit-equal to the plain
+             version on every row (in blocks of 512 rows) and timed.
+   kmeans  — ``kmeans`` on the SIFT-1M base at nlist 1024, 6 steps: two
+             uninterrupted runs bit-equal; 3 steps with a checkpoint, then a
+             resume to 6, bit-equal to them; ``IVFIndex.build`` resumed from
+             the 3-step checkpoint lays out the same clusters; times.
+   compact — the setup's arrays in ``store="compact"``: at B=8192, nprobe 4,
+             k 10 and a capacity that drops no pair, ids equal to the
+             padded store's, single and sharded over ``[cuda:0] * 4``.
+   serving — the serving path: ``bench_executor.run`` on the setup's index
+             (``load_dataset("sift")`` is the setup's corpus, checked) at the
+             JAX package's defaults (B 2048, nprobe 4, k 10, 20,000
+             requests, ``max_delay_ms`` 5, ``inflight`` 8, the uint8 wire),
+             counters reset just before and read just after (K1 launched:
+             at B 2048 the join takes no K2 and the auto policy runs no
+             recovery pass): QPS, recall@10 (>= 0.99 and within 0.001 of direct
+             ``search_device`` at B 2048 over the same queries), latency
+             percentiles, batches per drain, underfull launches; the same
+             run under ``torch.profiler`` for the device's busy share; then
+             ``run_open_loop`` at 0.25, 0.5 and 0.8 of the measured
+             capacity (6,000 requests each, the window from
+             ``auto_max_delay_ms``), each with its latency percentiles and
+             served recall.
 11. gemm   — the index is freed first.  Kernel K8 (int8 on ``mma.sync``,
              bf16 on ``wgmma`` fed by TMA, fp32 on a ``cp.async`` FFMA tile)
              against its plain version at a ragged shape in int8 (exact),
@@ -1845,6 +1873,213 @@ def main() -> None:
     phase("lab", t0, f"K10 int8 by variant (ms/call, bound) on {card}: {k10_variants}")
     del qg_lab, lab_tabs
 
+    # ---- phase 10b (f11): K3's binned modes at tiles off the 128-column chunk
+    # (F11), each chunk across two tiles binned once for each: at B=8192 over
+    # the whole base, held row block by row block against the plain version
+    # (its [B, N] score matrix is 32 GB at B=8192) and timed.
+    bt_i8 = torch.from_numpy(np.ascontiguousarray(base.T) - 70.0).to(dev, torch.int8)
+    q_i8 = torch.from_numpy(queries[:BATCH] - 70.0).to(dev, torch.int8)
+    f11_l2 = dict(alpha=torch.full((BATCH,), 2.0, device=dev),
+                  bias=(bt_i8.float() ** 2).sum(0))
+    f11_ops = {"int8-IP": ((q_i8, bt_i8), {}), "int8-L2": ((q_i8, bt_i8), f11_l2),
+               "bf16": ((q_i8.to(torch.bfloat16), bt_i8.to(torch.bfloat16)), {}),
+               "fp32": ((q_i8.float(), bt_i8.float()), {})}
+    f11 = {}
+    for name, mode, (tile_n, nbins, kx) in (("int8-L2 t192 n48 k4", "int8-L2", (192, 48, 4)),
+                                            *((f"{m} t320 n40 k20", m, (320, 40, 20))
+                                              for m in f11_ops)):
+        (qx, btx), extra = f11_ops[mode]
+        kw = dict(tile_n=tile_n, nbins=nbins, **extra)
+        reset_launches()
+        v, i = bruteforce_fused.fused_topk_matmul(qx, btx, kx, **kw)
+        torch.cuda.synchronize()
+        f11_launches = read_launches()["K3"]
+        if f11_launches < 1:
+            raise AssertionError(f"F11: K3 {name} did not launch its kernel")
+        for r0 in range(0, BATCH, SLICE):
+            kr = dict(kw, alpha=kw["alpha"][r0:r0 + SLICE]) if "alpha" in kw else kw
+            rv, ri = bruteforce_fused.fused_topk_matmul_reference(qx[r0:r0 + SLICE], btx, kx,
+                                                                  **kr)
+            if not torch.equal(v[r0:r0 + SLICE], rv) or not torch.equal(i[r0:r0 + SLICE], ri):
+                raise AssertionError(f"F11: K3 {name} differs from its plain version at rows "
+                                     f"{r0}..{r0 + SLICE}")
+        kr = dict(kw, alpha=kw["alpha"][:SLICE]) if "alpha" in kw else kw
+        eb = btx.element_size()
+        f11[name] = dict(
+            launches=f11_launches, err=0.0,
+            ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul(qx, btx, kx, **kw),
+                       reps=3),
+            plain_ms=cuda_ms(torch, lambda: bruteforce_fused.fused_topk_matmul_reference(
+                qx[:SLICE], btx, kx, **kr), reps=2),
+            bound=bound(btx.numel() * eb + qx.numel() * eb + BATCH * kx * 8,
+                        2.0 * BATCH * N_BASE * DIM,
+                        {1: INT8_OPS_S, 2: BF16_OPS_S}.get(eb, OPS32_S)))
+        del v, i, rv, ri
+    phase("f11", t0, f"K3 binned at tiles off the 128-column chunk, [{BATCH},{DIM}] x "
+          f"[{DIM},{N_BASE}], bit-equal to the plain version on every row (plain ms at "
+          f"B={SLICE}); launches, ms, plain ms and bound on {card}: {f11}")
+    del bt_i8, q_i8, f11_l2, f11_ops
+
+    # ---- phase 10c (kmeans): k-means on the SIFT-1M base at nlist 1024, 6
+    # steps: two uninterrupted runs bit-equal, then 3 steps with a
+    # checkpoint and a resume to 6 bit-equal to them; IVFIndex.build resumed
+    # from the same checkpoint lays out the uninterrupted run's clusters.
+    from rag_on_edge_tpu_torch.models import kmeans as kmeans_mod
+
+    ck_dir = Path(__file__).resolve().parent / "build"
+    ck_dir.mkdir(exist_ok=True)
+    ck = str(ck_dir / "chip_smoke_kmeans.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    km_s = {}
+    km = []
+    for run_ in ("run 1", "run 2"):
+        t = time.time()
+        km.append(kmeans_mod.kmeans(base, NLIST, seed=42, max_iter=6, tol=0.0, device=dev))
+        km_s[run_] = round(time.time() - t, 3)
+    t = time.time()
+    kmeans_mod.kmeans(base, NLIST, seed=42, max_iter=3, tol=0.0, checkpoint=ck, device=dev)
+    km_s["3 steps, checkpointed"] = round(time.time() - t, 3)
+    if int(np.load(ck)["next_iter"]) != 3:
+        raise AssertionError("the k-means checkpoint does not hold 3 steps")
+    ck3 = ck + ".3"
+    with open(ck, "rb") as fsrc, open(ck3, "wb") as fdst:
+        fdst.write(fsrc.read())
+    t = time.time()
+    km.append(kmeans_mod.kmeans(base, NLIST, seed=42, max_iter=6, tol=0.0, checkpoint=ck,
+                                device=dev))
+    km_s["resume 3 -> 6"] = round(time.time() - t, 3)
+    km_equal = [bool(np.array_equal(km[0][j], km[r][j])) for r in (1, 2) for j in (0, 1)]
+    t = time.time()
+    ck_idx = IVFIndex.build(base, nlist=NLIST, metric="l2", dtype="int8", pad_block=PAD_BLOCK,
+                            seed=42, max_iter=6, kmeans_checkpoint=ck3, device=dev)
+    km_s["IVFIndex.build resumed 3 -> 6"] = round(time.time() - t, 3)
+    build_equal = (np.array_equal(ck_idx._centroids_np, km[0][0]) and np.array_equal(
+        np.diff(ck_idx._offsets_np), np.bincount(km[0][1], minlength=NLIST)))
+    phase("kmeans", t0, f"kmeans(base [{N_BASE},{DIM}], {NLIST}, max_iter=6, tol=0) on {card}: "
+          f"seconds {km_s}; run 2 and the resume bit-equal to run 1 (centroids, assignment): "
+          f"{km_equal}; IVFIndex.build(kmeans_checkpoint=) resumed to run 1's centroids and "
+          f"cluster sizes: {build_equal}")
+    if not all(km_equal) or not build_equal:
+        raise AssertionError("k-means on the card is not bit-reproducible or its resume differs")
+    del ck_idx, km
+    for f in (ck, ck3):
+        os.remove(f)
+
+    # ---- phase 10d (compact): the setup's arrays in a compact store, at a
+    # capacity that drops no pair, against the padded store, single and
+    # sharded over [cuda:0] * 4.
+    cidx = IVFIndex.from_arrays(idx._centroids_np, idx._vectors_np, idx._offsets_np,
+                                idx._reorder_np, metric="l2", dtype="int8", pad_block=PAD_BLOCK,
+                                config=idx.config, device=dev, store="compact")
+    load = torch.bincount(idx._coarse_probes(q, NPROBE).flatten(), minlength=NLIST)
+    qcap_all = int(-(-int(load.max()) // 128) * 128)
+    compact = {}
+    for name, (pad_s, cmp_s, kwx) in (
+            ("single", (idx, cidx, {})),
+            ("sharded", (ShardedIVFIndex(idx, [dev] * 4), ShardedIVFIndex(cidx, [dev] * 4),
+                         dict(mode="cluster")))):
+        out = {}
+        for store, searcher in (("padded", pad_s), ("compact", cmp_s)):
+            reset_launches()
+            vals_, ids_, _ = searcher.search_device(q, K, NPROBE, qcap=qcap_all, **kwx)
+            torch.cuda.synchronize()
+            out[store] = (ids_.cpu().numpy(), int(searcher.last_spill),
+                          {key: n for key, n in read_launches().items() if n})
+        if not np.array_equal(out["padded"][0], out["compact"][0]) or out["compact"][1]:
+            raise AssertionError(f"the compact store's ids differ from the padded store's "
+                                 f"({name}) or it dropped pairs")
+        compact[name] = dict(spill=out["compact"][1], launches=out["compact"][2],
+                             recall10=recall_at_k(out["compact"][0], gt[:BATCH], K))
+    phase("compact", t0, f"store='compact' (the setup's arrays) at B={BATCH}, nprobe "
+          f"{NPROBE}, k {K}, qcap {qcap_all} (no pair dropped): ids equal to the padded "
+          f"store's, single and sharded over [cuda:0] * 4: {compact}; memory compact "
+          f"{cidx.memory_report()['TOTAL']:,} bytes, padded {idx.memory_report()['TOTAL']:,}")
+    del cidx, load
+
+    # ---- phase 10e (serving): the serving path, BatchingExecutor through
+    # bench_executor on the setup's index: the saturated protocol at the
+    # JAX package's defaults, again traced for the device's busy share, then
+    # the open loop at three fractions of the measured capacity.
+    from rag_on_edge_tpu_torch.harness import bench_executor
+    from rag_on_edge_tpu_torch.runtime import BatchingExecutor
+    from rag_on_edge_tpu_torch.utils.datasets import load_dataset
+
+    t = time.time()
+    ds = load_dataset("sift", gt_k=K, device=dev)
+    if not (np.array_equal(ds.base, base) and np.array_equal(ds.queries, queries)):
+        raise AssertionError("load_dataset('sift') is not the setup's corpus")
+    ds_s = time.time() - t
+    SB = 2048  # the JAX package's serving batch
+    t = time.time()
+    direct_ids, _, _ = idx.search(queries, K, NPROBE, batch_size=SB, mode="cluster")
+    direct_r10 = recall_at_k(direct_ids, ds.ground_truth_l2, K)
+    direct_s = time.time() - t
+    serve_ms = cuda_ms(torch, lambda: idx.search_device(q[:SB], K, NPROBE, mode="cluster"))
+
+    def host_then_done():
+        """(ms until search_device returns, ms until its batch is done)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx.search_device(q[:SB], K, NPROBE, mode="cluster")
+        th = time.perf_counter()
+        torch.cuda.synchronize()
+        return (th - t) * 1e3, (time.perf_counter() - t) * 1e3
+
+    hd = np.array([host_then_done() for _ in range(REPS)])
+    serve_host_ms, serve_done_ms = (float(np.median(hd[:, j])) for j in (0, 1))
+    reset_launches()
+    sat = bench_executor.run(dataset="sift", batch=SB, nprobe=NPROBE, k=K, requests=20000,
+                             max_delay_ms=5.0, inflight=8, quiet=True, index=idx)
+    serve_launches = {key: n for key, n in read_launches().items() if n}
+    sat_p = bench_executor.run(dataset="sift", batch=SB, nprobe=NPROBE, k=K, requests=20000,
+                               max_delay_ms=5.0, inflight=8, quiet=True, index=idx,
+                               profile=True)
+    phase("serving", t0, f"load_dataset('sift') {ds_s:.1f}s (the setup's corpus); direct "
+          f"search_device at B={SB} over {N_QUERIES} queries {direct_s:.1f}s, recall@{K} "
+          f"{direct_r10}; one B={SB} call {serve_ms} ms (CUDA events, median of {REPS}); "
+          f"host clock, median of {REPS}: search_device returns after {serve_host_ms:.3f} ms, "
+          f"its batch is done after {serve_done_ms:.3f} ms (a return near the done time "
+          f"means the call waits on the device inside: the executor's dispatch is serial)")
+    phase("serving", t0, f"saturated (B={SB}, nprobe {NPROBE}, k {K}, 20000 requests, "
+          f"max_delay_ms 5, inflight 8, wire {sat['wire']}) on {card}: QPS "
+          f"{sat['qps_end_to_end']}, recall@{K} {sat['recall']}, latency ms {sat['latency_ms']}, "
+          f"pipeline {sat['pipeline']}; launches {serve_launches}")
+    phase("serving", t0, f"saturated again under torch.profiler: QPS {sat_p['qps_end_to_end']}, "
+          f"device busy {sat_p.get('device_busy_ms')} ms = share "
+          f"{sat_p.get('device_busy_share')} of the timed region")
+    if sat["recall"] < 0.99 or abs(sat["recall"] - direct_r10) > 0.001:
+        raise AssertionError(f"served recall@{K} {sat['recall']} is below 0.99 or more than "
+                             f"0.001 from direct search_device's {direct_r10}")
+    # At B=2048 the path is K1 alone: the join takes K2 from B·pool >= 8 << 20
+    # (B=8192 at nprobe 4), and the auto policy runs no recovery pass (K4).
+    if serve_launches.get("K1", 0) < 1:
+        raise AssertionError(f"the served path launched {serve_launches}, not K1")
+    capacity = sat["qps_end_to_end"]
+    fn_s = lambda qx: idx.search_device(qx, K, NPROBE, mode="cluster")  # noqa: E731
+    wd = bench_executor._wire_dtype(queries, "auto")
+    OPEN_N = 6000
+    reqs = np.resize(queries, (OPEN_N, DIM)).astype(np.float32)
+    gt_reqs = np.resize(ds.ground_truth_l2[:, :K], (OPEN_N, K))
+    curve = []
+    with BatchingExecutor(fn_s, dim=DIM, batch_size=SB, max_delay_ms=5.0, inflight=8,
+                          wire_dtype=wd, device=dev) as ex:
+        ex.submit(reqs[0]).result(timeout=600)
+        for frac in (0.25, 0.5, 0.8):
+            delay = bench_executor.auto_max_delay_ms(SB, frac * capacity, capacity)
+            ex.set_max_delay_ms(delay)
+            s0 = ex.stats()
+            row = bench_executor.run_open_loop(ex, reqs, frac * capacity, delay, gt=gt_reqs,
+                                               k=K)
+            s1 = ex.stats()
+            row.update(load=frac, max_delay_ms=round(delay, 2),
+                       underfull=s1["underfull_launches"] - s0["underfull_launches"],
+                       batches=s1["batches_dispatched"] - s0["batches_dispatched"])
+            curve.append(row)
+    phase("serving", t0, f"open loop, {OPEN_N} requests a load (max_delay_ms from "
+          f"auto_max_delay_ms), each with its served recall@{K}: {curve}")
+    del ds, direct_ids, reqs, gt_reqs
+
     # ---- phase 11: the spatial GEMM (K8).  The index and its state go first:
     # the full-width product's output alone is 32.8 GB.
     from rag_on_edge_tpu_torch.parallel import spatial_matmul, verify_matmul
@@ -3323,7 +3558,9 @@ def main() -> None:
          "max_abs_err": max(brute["K3 int8-L2 bin128"]["err"], brute["K3 int8-IP exact"]["err"]),
          "ms": brute["K3 int8-L2 bin128"]["ms"], "plain_ms": brute["K3 int8-L2 bin128"]["plain_ms"],
          "bound_ms": brute["K3 int8-L2 bin128"]["bound"][0],
-         "bound_by": brute["K3 int8-L2 bin128"]["bound"][1], "library_ms": None},
+         "bound_by": brute["K3 int8-L2 bin128"]["bound"][1], "library_ms": None,
+         "f11": {name: {key: r[key] for key in ("launches", "ms", "plain_ms")} | {
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for name, r in f11.items()}},
         {"name": "fused_topk_accum", "mode": "int8", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/bruteforce_accum.cu",
          "replaces": "rag_on_edge_tpu/ops/pallas_bruteforce_dma.py:212",

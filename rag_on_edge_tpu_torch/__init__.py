@@ -12,13 +12,17 @@ find:
   ``fused_topk``), the brute-force kernels (``bruteforce_fused``,
   ``bruteforce_accum``) and the spatial GEMM's tiled GEMM
   (``tiled_matmul``).
-- ``models`` — k-means, the cluster-major ``IVFIndex`` and the
-  ``BruteForceIndex``.
+- ``models`` — k-means (with its per-step checkpoint and resume), the
+  cluster-major ``IVFIndex`` and the ``BruteForceIndex``.
+- ``runtime`` — the serving executor (``BatchingExecutor``): single
+  queries in, fixed batches through a device search function, pipelined.
 - ``parallel`` — ``make_mesh`` and the sharded indexes
   (``ShardedBruteForceIndex``, ``ShardedIVFIndex``): one process drives a
   list of devices, one shard each; ``make_mesh_2d`` and
   ``spatial_matmul``, the GEMM over a grid of devices.
-- ``harness`` — the spatial-GEMM benchmark (``bench_gemm``), the
+- ``harness`` — the IVF, brute-force and serving benchmarks
+  (``bench_ivf`` with the index cache ``build_or_load_index``,
+  ``bench_bruteforce``, ``bench_executor``), the spatial-GEMM benchmark (``bench_gemm``), the
   kernel-variant lab (``kernel_lab``, its kernel K10 in CUDA C++) and the
   hardware probes (``hw_probe``, kernels K11-K14 in CUDA C++: the card's
   per-step and launch costs, streaming and async-copy GB/s, and the

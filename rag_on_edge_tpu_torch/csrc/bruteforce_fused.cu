@@ -17,7 +17,8 @@
 //     tile.  nbins 128: each column of a chunk is a bin (the table below);
 //     any other nbins runs the general binning (the GEN instances,
 //     gen_bin_chunk): per-(row, bin) lists in device memory, a chunk's
-//     passers through shared memory.
+//     passers through shared memory, a chunk across two tiles (tile_n off
+//     the 128-column chunk) binned once for each.
 //   Entries past the last valid score hold the fill value (INT32_MIN or
 //   -inf) and an unspecified id.
 //
@@ -166,22 +167,25 @@ __device__ __forceinline__ bool better(T v, int i, T bv, int bi) {
 // bin) keeps its two best (score desc, column asc) of the tile in device
 // memory, a slot of lists a CTA: [64 rows][nbins][2] scores and columns.  A
 // chunk's scores of passers (the fill value elsewhere) go to shared memory
-// S [rows][S_LD]; then one thread a (row, l), l < min(nbins, 128), takes
-// the chunk's columns l, l + nbins, ... of the row (one bin, (tcol0 + l) %
-// nbins) in ascending order: strict >, so an equal, later score lands
-// behind.  tcol0 is the chunk's first column in its tile, col0 its global
-// column.
+// S [rows][S_LD]; then one thread a (row, l), l < min(nbins, x_hi - x_lo),
+// takes the chunk's columns x_lo + l, x_lo + l + nbins, ... below x_hi of
+// the row (one bin, (tcol + l) % nbins) in ascending order: strict >, so an
+// equal, later score lands behind.  [x_lo, x_hi) is the part of the chunk
+// in one tile, tcol the tile's column of x_lo, col0 the chunk's global
+// column.  A tile_n off the 128-column chunk (F11) leaves a chunk across
+// two tiles: it is binned once for each, the other tile's columns left out.
 constexpr int S_LD = F_BN + 4;
 
 template <typename T>
 __device__ __forceinline__ void gen_bin_chunk(T* __restrict__ lv, int32_t* __restrict__ li,
                                               const T* __restrict__ S, int rows, int nbins,
-                                              int tcol0, int col0, int t, int nt) {
-  const int owners = min(nbins, F_BN);
+                                              int tcol, int col0, int x_lo, int x_hi, int t,
+                                              int nt) {
+  const int owners = min(nbins, x_hi - x_lo);
   for (int p = t; p < rows * owners; p += nt) {
     const int r = p / owners, l = p - r * owners;
-    const size_t o = ((size_t)r * nbins + (tcol0 + l) % nbins) * 2;
-    for (int x = l; x < F_BN; x += nbins) {
+    const size_t o = ((size_t)r * nbins + (tcol + l) % nbins) * 2;
+    for (int x = x_lo + l; x < x_hi; x += nbins) {
       const T v = S[r * S_LD + x];
       if (!(v > lv[o + 1])) continue;
       if (v > lv[o]) {
@@ -467,30 +471,37 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ base,
               live[i] && col < n_bound && x > thr[i] ? x : FILL;
         }
       __syncthreads();
-      gen_bin_chunk(glv, gli, tv, BM, nbins, cpos * F_BN, col0, tid, THREADS);
-      __syncthreads();
-      if (++cpos == tile_chunks || c == nchunks - 1) {
-        // The tile's end: each row's lists ranked after its bound go to the
-        // buffers, BUF a row at a time, each batch merged.
-        cpos = 0;
-        const int r = tid >> 1;  // two threads a row
-        for (size_t b0 = 0; b0 < gen_n; b0 += BUF) {
-          for (size_t j = b0 + (tid & 1); j < min(gen_n, b0 + BUF); j += 2) {
-            const size_t o = r * gen_n + j;
-            const float v = glv[o];
-            const int id = gli[o];
-            glv[o] = FILL;
-            if (v > FILL && after(r, v, id)) {
-              const int at = atomicAdd(&cnt[r], 1);
-              buf_v[r * BUF + at] = v;
-              buf_i[r * BUF + at] = id;
+      // The chunk's part in each tile it meets (two where tile_n is off the
+      // chunk: split_cols is a multiple of tile_n, so tiles start at
+      // multiples of it), each tile's lists taken at the tile's end.
+      for (int x = 0; x < F_BN && col0 + x < c_hi;) {
+        const int t0 = (col0 + x) / tile_n * tile_n;
+        const int x_hi = min(F_BN, t0 + tile_n - col0);
+        gen_bin_chunk(glv, gli, tv, BM, nbins, col0 + x - t0, col0, x, x_hi, tid, THREADS);
+        __syncthreads();
+        if (t0 + tile_n <= col0 + F_BN || c == nchunks - 1) {
+          // The tile's end: each row's lists ranked after its bound go to
+          // the buffers, BUF a row at a time, each batch merged.
+          const int r = tid >> 1;  // two threads a row
+          for (size_t b0 = 0; b0 < gen_n; b0 += BUF) {
+            for (size_t j = b0 + (tid & 1); j < min(gen_n, b0 + BUF); j += 2) {
+              const size_t o = r * gen_n + j;
+              const float v = glv[o];
+              const int id = gli[o];
+              glv[o] = FILL;
+              if (v > FILL && after(r, v, id)) {
+                const int at = atomicAdd(&cnt[r], 1);
+                buf_v[r * BUF + at] = v;
+                buf_i[r * BUF + at] = id;
+              }
             }
+            __syncthreads();
+            merge();
+            __syncthreads();
           }
-          __syncthreads();
-          merge();
-          __syncthreads();
+          reload();
         }
-        reload();
+        x = x_hi;
       }
     } else {
       const bool last = c == nchunks - 1;
@@ -815,6 +826,34 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int q = 0; q < 4; ++q) m[q] = max(m[q], m[q + 4]);
     return max(max(m[0], m[2]), max(m[1], m[3]));
   };
+  // GEN: the tile's end: each of the warp's rows takes its lists' entries
+  // ranked after its bound, one at a time, and the lists are reset.
+  auto gen_flush = [&]() {
+    for (int r16 = 0; r16 < 16; ++r16) {
+      const int r = 16 * warp + r16, src = (r16 & 7) * 4;
+      const T bv = __shfl_sync(FULL, r16 < 8 ? bnd_v[0] : bnd_v[1], src);
+      const int bi = __shfl_sync(FULL, r16 < 8 ? bnd_i[0] : bnd_i[1], src);
+      for (size_t j0 = 0; j0 < gen_n; j0 += 32) {
+        const size_t o = r16 * gen_n + j0 + lane;
+        T v = FILL;
+        int id = 0;
+        if (j0 + lane < gen_n) {
+          v = glv[o];
+          id = gli[o];
+          glv[o] = FILL;
+        }
+        unsigned m = __ballot_sync(FULL, v > FILL && better(bv, bi, v, id));
+        while (m) {
+          const int s2 = __ffs(m) - 1;
+          m &= m - 1;
+          insert_row(lv + r * K_MAX, li + r * K_MAX, k, __shfl_sync(FULL, v, s2),
+                     __shfl_sync(FULL, id, s2), lane);
+        }
+      }
+    }
+    thr[0] = lv[rl * K_MAX + k - 1];
+    thr[1] = lv[(rl + 8) * K_MAX + k - 1];
+  };
   // The selection of chunk c from its copy e.  Entry i passes when above
   // its row's threshold and before n_bound (columns past it hold the fill
   // value).  A whole chunk first tests each row's max; only a warp with a
@@ -833,15 +872,28 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
       for (int i = 0; i < 64; ++i) any |= passes(i);
     }
-    if (GEN && __any_sync(FULL, any)) {
-      // The chunk's passers through the warp's rows of S into its lists.
+    if constexpr (GEN) {
+      // The chunk's passers through the warp's rows of S into its lists:
+      // the chunk's part in each tile it meets (two where tile_n is off the
+      // chunk), each tile's lists taken at the tile's end.
+      const bool bin = __any_sync(FULL, any);
+      if (bin) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
-        S[((lane >> 2) + 8 * ((i / 2) % 2)) * S_LD + 8 * (i / 4) + cl + i % 2] =
-            passes(i) ? val(i) : FILL;
-      __syncwarp();
-      gen_bin_chunk(glv, gli, S, 16, nbins, cpos * G_BN, col0, lane, 32);
-      __syncwarp();
+        for (int i = 0; i < 64; ++i)
+          S[((lane >> 2) + 8 * ((i / 2) % 2)) * S_LD + 8 * (i / 4) + cl + i % 2] =
+              passes(i) ? val(i) : FILL;
+        __syncwarp();
+      }
+      for (int x = 0; x < G_BN && col0 + x < n;) {
+        const int t0 = (col0 + x) / tile_n * tile_n;
+        const int x_hi = min(G_BN, t0 + tile_n - col0);
+        if (bin) {
+          gen_bin_chunk(glv, gli, S, 16, nbins, col0 + x - t0, col0, x, x_hi, lane, 32);
+          __syncwarp();
+        }
+        if (t0 + tile_n <= col0 + G_BN || c == nchunks - 1) gen_flush();
+        x = x_hi;
+      }
     } else if (__any_sync(FULL, any)) {
       // Eight groups of eight entries; a group without a passer in the warp
       // (exact) or the thread (binned) costs its tests and one branch.
@@ -892,35 +944,7 @@ fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         thr[1] = lv[(rl + 8) * K_MAX + k - 1];
       }
     }
-    if (GEN && (++cpos == tile_chunks || c == nchunks - 1)) {
-      // The tile's end: each of the warp's rows takes its lists' entries
-      // ranked after its bound, one at a time, and the lists are reset.
-      for (int r16 = 0; r16 < 16; ++r16) {
-        const int r = 16 * warp + r16, src = (r16 & 7) * 4;
-        const T bv = __shfl_sync(FULL, r16 < 8 ? bnd_v[0] : bnd_v[1], src);
-        const int bi = __shfl_sync(FULL, r16 < 8 ? bnd_i[0] : bnd_i[1], src);
-        for (size_t j0 = 0; j0 < gen_n; j0 += 32) {
-          const size_t o = r16 * gen_n + j0 + lane;
-          T v = FILL;
-          int id = 0;
-          if (j0 + lane < gen_n) {
-            v = glv[o];
-            id = gli[o];
-            glv[o] = FILL;
-          }
-          unsigned m = __ballot_sync(FULL, v > FILL && better(bv, bi, v, id));
-          while (m) {
-            const int s2 = __ffs(m) - 1;
-            m &= m - 1;
-            insert_row(lv + r * K_MAX, li + r * K_MAX, k, __shfl_sync(FULL, v, s2),
-                       __shfl_sync(FULL, id, s2), lane);
-          }
-        }
-      }
-      thr[0] = lv[rl * K_MAX + k - 1];
-      thr[1] = lv[(rl + 8) * K_MAX + k - 1];
-      cpos = 0;
-    } else if (BINNED && !GEN && (++cpos == tile_chunks || c == nchunks - 1)) {
+    if (BINNED && !GEN && (++cpos == tile_chunks || c == nchunks - 1)) {
       // The tile's end: insert every pair's survivors, one at a time.
       for (;;) {
         const unsigned m = __ballot_sync(FULL, dirty != 0);
@@ -1026,11 +1050,11 @@ int launch_wgmma(const void* q, const void* base, const void* alpha, const void*
   return (int)cudaGetLastError();
 }
 
-// What the binned modes take: nbins 128 on the table, any other on the
-// general binning (its lists given), tile_n a multiple of 128 and of nbins.
+// What the binned modes take: tile_n a multiple of nbins, and the general
+// binning where its lists are given (any nbins), else nbins 128 on the
+// table.
 bool bins_ok(int nbins, int tile_n, const void* gen_v) {
-  return nbins == 0 || (nbins > 0 && tile_n % 128 == 0 && tile_n % nbins == 0 &&
-                        (nbins == 128 || gen_v != nullptr));
+  return nbins == 0 || (nbins > 0 && tile_n % nbins == 0 && (nbins == 128 || gen_v != nullptr));
 }
 
 template <int MODE>
@@ -1039,7 +1063,7 @@ int launch_wgmma_binned(int nbins, const void* q, const void* base, const void* 
                         const void* bound_i, void* out_v, void* out_i, void* gen_v, void* gen_i,
                         int b, int d, int ldq, int n, int ldb, int k, int tile_n,
                         cudaStream_t s) {
-  if (nbins != 0 && nbins != 128)
+  if (nbins != 0 && gen_v != nullptr)
     return launch_wgmma<MODE, true, true>(q, base, alpha, bias, n_valid, bound_v, bound_i, out_v,
                                           out_i, gen_v, gen_i, b, d, ldq, n, ldb, k, tile_n,
                                           nbins, s);
@@ -1055,9 +1079,9 @@ int launch_wgmma_binned(int nbins, const void* q, const void* base, const void* 
 
 // C entries for ctypes.  Each launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).  `n_valid` may be null.  The
-// wrapper guarantees k <= n, tile_n a multiple of 128 and of nbins (binned
-// int8 and bf16: a tile walks at most 65536 chunks of 128), and at nbins
-// other than 0 and 128 (the general binning) gen_v / gen_i: 64·nbins·2
+// wrapper guarantees k <= n and tile_n a multiple of nbins.  Binned, the
+// general binning runs where gen_v / gen_i are given (every nbins but 128,
+// and 128 on int8 and bf16 tiles past 65536 chunks, the table's reach): 64·nbins·2
 // scores (the scores' type) and int32 columns for each CTA (int8 and bf16:
 // ceil(b / 64) CTAs; fp32: ceil(b / 64) · nsplit), else null.  The
 // int8 and bf16 entries take 1 <= k <= 32 and, for a later pass of the
@@ -1069,7 +1093,8 @@ int launch_wgmma_binned(int nbins, const void* q, const void* base, const void* 
 // aligned) and base_t [d, ldb] fp32 (columns n.. ignored); out_v / out_i
 // [b, ldo], split s's sorted top-k at columns s k .. s k + k - 1, filled
 // with (-inf, 0) by the caller.  nsplit splits of split_cols columns (a
-// multiple of 128, and of tile_n in binned mode); k <= 256 a launch, a
+// multiple of 128, and of tile_n in binned mode: of their least common
+// multiple); k <= 256 a launch, a
 // larger k in passes of 256 with the bounds as above.
 extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, const void* n_valid,
                                          const void* bound_v, const void* bound_i, void* out_v,
@@ -1086,7 +1111,7 @@ extern "C" int bruteforce_fused_topk_f32(const void* q, const void* base_t, cons
   launch_f32<BINNED, KJ, GEN>(q, base_t, n_valid, bound_v, bound_i, out_v, out_i, gen_v, gen_i, \
                               b, d, ldq, n, ldb, k, tile_n, nbins, split_cols, nsplit, ldo, s)
   const int kj = k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
-  if (nbins != 0 && nbins != 128) {
+  if (nbins != 0 && gen_v != nullptr) {
     switch (kj) {
       case 1: return RAG_F32(true, 1, true);
       case 2: return RAG_F32(true, 2, true);

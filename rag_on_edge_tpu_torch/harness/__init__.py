@@ -1,4 +1,7 @@
 """Harnesses of the port (counterpart: ``rag_on_edge_tpu/harness``): the
+IVF benchmark and its index cache (``bench_ivf``, ``build_or_load_index``),
+the brute-force benchmark (``bench_bruteforce``), the serving benchmark
+(``bench_executor``, saturated and open loop), the
 spatial-GEMM benchmark (``bench_gemm``), the kernel-variant lab
 (``kernel_lab``, kernel K10), the hardware probes (``hw_probe``, kernels
 K11-K14; ``python -m rag_on_edge_tpu_torch.harness.hw_probe``) and their

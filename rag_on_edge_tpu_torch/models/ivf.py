@@ -348,7 +348,8 @@ class IVFIndex:
     def from_arrays(cls, centroids, vectors_reordered, cluster_offsets,
                     reorder_to_original, metric: str = "ip", dtype: str = "fp32",
                     pad_block: int | None = None, config: dict | None = None,
-                    device: str | torch.device = "cuda") -> "IVFIndex":
+                    device: str | torch.device = "cuda",
+                    store: str = "padded") -> "IVFIndex":
         """An index over another index's arrays (for example the JAX
         package's ``_centroids_np``, ``_vectors_np``, ``_offsets_np``,
         ``_reorder_np`` and ``config``); ``coarse_metric`` comes from the
@@ -357,7 +358,7 @@ class IVFIndex:
         return cls(centroids, vectors_reordered, cluster_offsets,
                    reorder_to_original, metric=metric, dtype=dtype,
                    coarse_metric=config.get("coarse_metric", "l2"),
-                   pad_block=pad_block, config=config, device=device)
+                   pad_block=pad_block, store=store, config=config, device=device)
 
     # ------------------------------------------------------------------ build
 
@@ -382,12 +383,8 @@ class IVFIndex:
         """Train the coarse quantizer on ``device`` and lay out clusters
         contiguously.  ``spill_eps > 0`` stores a second copy of each vector
         whose second-nearest centroid is within ``(1+spill_eps)·d1²``.
-        ``kmeans_checkpoint`` sits where the JAX package takes it; the
-        k-means resume behind it is not ported yet (it raises)."""
-        if kmeans_checkpoint is not None:
-            raise NotImplementedError(
-                "IVFIndex.build(kmeans_checkpoint=) is not ported yet — ROADMAP Queue 1 "
-                "item 6")
+        ``kmeans_checkpoint``: a path for k-means' per-step checkpoint, from
+        which a long build resumes (:func:`kmeans_mod.kmeans`)."""
         base = np.asarray(base, dtype=np.float32)
         n = base.shape[0]
         nlist = kmeans_mod.default_nlist(n, nlist)
@@ -404,7 +401,7 @@ class IVFIndex:
         else:
             centroids, assign = kmeans_mod.kmeans(
                 base, nlist, seed=seed, max_iter=max_iter, init=kmeans_init,
-                device=device)
+                checkpoint=kmeans_checkpoint, device=device)
 
         ids_all = np.arange(n, dtype=np.int64)
         cl_all = None if assign is None else assign.astype(np.int64)

@@ -39,6 +39,7 @@ and bf16 modes 32, and a larger k runs in passes of that width
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -144,39 +145,22 @@ def fused_topk_matmul_reference(queries, base_t, k, tile_n=None, tile_b=None, nb
     return topk.extract_topk_ids(tv.reshape(b, -1), ti.reshape(b, -1), k, fill)
 
 
-def card_nbins(k: int, tile_n: int, nbins: int) -> int:
-    """The bins the CUDA K3 runs for a call of total ``k``: ``nbins``
-    itself where ``tile_n`` is a multiple of 128 (the kernels' chunks):
-    nbins 128 on the kernels' table (a chunk's columns are the bins), any
-    other on the general binning (:func:`general_bins`).  Else 0 (exact) where
-    the binning keeps every column that can place: two a bin is at least
-    ``min(k, tile_n // nbins)``, so a column among a row's top k has fewer
-    than two better columns in its bin, or its bin holds at most two.  Any
-    other case raises."""
-    if not nbins:
-        return 0
-    if tile_n % 128 == 0:
-        return nbins
-    if 2 >= min(k, tile_n // nbins):
-        return 0
-    raise ValueError(f"the CUDA K3 takes binned tiles of a multiple of 128 columns, or k <= 2; "
-                     f"got nbins={nbins}, tile_n={tile_n}, k={k}")
-
-
-def general_bins(nbins: int) -> bool:
+def general_bins(nbins: int, tile_n: int, n: int, mode: str) -> bool:
     """Whether the CUDA K3 runs ``nbins`` on its general binning: any nbins
-    but 0 and 128 (a chunk's columns are not its bins), each (row, bin)
-    keeping its two best of the tile in a slot of device memory a CTA
-    (:func:`gen_scratch`)."""
-    return nbins not in (0, 128)
+    but 0 and 128 (a chunk's columns are not its bins), and 128 on an int8
+    or bf16 tile past the table's reach (a column's chunk within its tile in
+    16 bits), each (row, bin) keeping its two best of the tile in a slot of
+    device memory a CTA (:func:`gen_scratch`).  It takes any ``tile_n`` that
+    is a multiple of nbins: a 128-column chunk across two tiles is binned
+    once for each."""
+    if nbins == 0:
+        return False
+    return nbins != 128 or (mode != "f32" and min(tile_n, n) > _CUDA_BINNED_TILE_MAX)
 
 
 def gen_scratch(nbins: int, ctas: int, dev):
     """The general binning's lists: ``ctas`` slots of 64 rows × nbins × 2
-    scores (4 bytes: int32 or fp32) and int32 columns → (scores, columns),
-    or (None, None) where nbins takes none."""
-    if not general_bins(nbins):
-        return None, None
+    scores (4 bytes: int32 or fp32) and int32 columns → (scores, columns)."""
     n = ctas * 64 * nbins * 2
     return (torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev))
@@ -187,10 +171,10 @@ def split_plan(b: int, n: int, tile_n: int, nbins: int, sms: int):
     keep the row tiles (128 rows; 64 binned) x splits within one wave of
     one CTA a multiprocessor (a second, partial wave would idle most of the
     card), each split at least ``_F32_MIN_CHUNKS`` chunks of 128 long, and
-    (binned) a whole number of ``tile_n`` tiles, so the JAX wrapper's tiles
-    are kept."""
+    (binned) a whole number of ``tile_n`` tiles and of 128-column chunks, so
+    the JAX wrapper's tiles are kept."""
     bm = 64 if nbins else 128
-    unit = tile_n if nbins else 128
+    unit = math.lcm(tile_n, 128) if nbins else 128
     nunits = -(-n // unit)
     want = sms // -(-b // bm)
     nsplit = max(1, min(want, nunits, (-(-n // 128)) // _F32_MIN_CHUNKS))
@@ -264,10 +248,9 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
     leading columns (at most N).  ``alpha`` [B] / ``bias`` [N]: the int8 L2
     mode (both or neither).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (int8 ± L2, and fp32 or bf16 with queries
-    and base_t in one dtype; any nbins with tile_n a multiple of 128, or
-    where the binning keeps every column that can place
-    (:func:`card_nbins`); any D; any k, in passes of 256 (fp32) or 32
-    (int8, bf16)) or raise.  The fp32 mode joins its
+    and base_t in one dtype; any nbins and any tile_n that is a multiple of
+    it, as the JAX function (:func:`general_bins`); any D; any k, in passes
+    of 256 (fp32) or 32 (int8, bf16)) or raise.  The fp32 mode joins its
     column splits with K2."""
     global LAUNCHES
     dev = queries.device
@@ -286,21 +269,18 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                                     bias if l2 else None, n_valid])
     if not int_path:
         _build.check_float("K3", queries, base_t)
-    nbins = card_nbins(k, tile_n, nbins)
     if int_path:
         mode = "i8_l2" if l2 else "i8"
     else:
         mode = "bf16" if base_t.dtype == torch.bfloat16 else "f32"
-    if mode != "f32" and nbins and min(tile_n, n) > _CUDA_BINNED_TILE_MAX:
-        raise ValueError(f"the CUDA K3 takes int8 and bf16 binned tiles of up to "
-                         f"{_CUDA_BINNED_TILE_MAX} columns of the base; got tile_n={tile_n}, "
-                         f"N={n}")
+    gen_on = general_bins(nbins, tile_n, n, mode)
     nv_ptr = n_valid.data_ptr() if n_valid is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == "f32":
             return _build.by_passes(k, lambda kp, bv, bi: _launch_f32(
-                queries, base_t, kp, tile_n, nbins, nv_ptr, bv, bi, stream), _F32_PASS_K)
+                queries, base_t, kp, tile_n, nbins, gen_on, nv_ptr, bv, bi, stream),
+                _F32_PASS_K)
         if mode == "bf16":
             # TMA takes rows of whole 16-byte units: the queries' rows are
             # padded to whole k16 steps (the pad zero), and base_t is copied
@@ -317,7 +297,8 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
                     bias.data_ptr() if l2 else None, nv_ptr)
             ints = (b, qk.shape[1], n)
         vdtype = torch.int32 if mode == "i8" else torch.float32
-        scratch = gen_scratch(nbins, -(-b // 64), dev)  # alive through the passes
+        # The general binning's lists, alive through the passes.
+        scratch = gen_scratch(nbins, -(-b // 64), dev) if gen_on else (None, None)
         gen = tuple(x.data_ptr() if x is not None else None for x in scratch)
 
         def run(kp, bound_v, bound_i):
@@ -336,7 +317,7 @@ def fused_topk_matmul(queries, base_t, k, tile_n=None, tile_b=None, nbins=0,
         return _build.by_passes(k, run)
 
 
-def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, bound_v, bound_i, stream):
+def _launch_f32(queries, base_t, k, tile_n, nbins, gen_on, nv_ptr, bound_v, bound_i, stream):
     """One pass of the fp32 kernel (k <= 256, the entries ranked after each
     row's bound where one is given) over its column splits, then K2 over
     the splits' lists (none where one split covers N)."""
@@ -350,7 +331,8 @@ def _launch_f32(queries, base_t, k, tile_n, nbins, nv_ptr, bound_v, bound_i, str
     width = -(-nsplit * k // 128) * 128
     vals = torch.full((b, width), float("-inf"), dtype=torch.float32, device=dev)
     ids = torch.zeros((b, width), dtype=torch.int32, device=dev)
-    scratch = gen_scratch(nbins, -(-b // 64) * nsplit, dev)  # alive through the launch
+    # The general binning's lists, alive through the launch.
+    scratch = gen_scratch(nbins, -(-b // 64) * nsplit, dev) if gen_on else (None, None)
     gen = tuple(x.data_ptr() if x is not None else None for x in scratch)
     err = _kernel("f32")(qp.data_ptr(), base_t.data_ptr(), nv_ptr,
                          bound_v.data_ptr() if bound_v is not None else None,

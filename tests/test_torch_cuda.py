@@ -1314,15 +1314,51 @@ def test_k3_kernel_refuses_what_it_does_not_take(dev):
         bruteforce_fused.fused_topk_matmul(q.float(), bt.bfloat16(), 4)
     with pytest.raises(ValueError, match="k=601 > N=600"):  # past the base, as JAX refuses
         bruteforce_fused.fused_topk_matmul(q.float(), bt.float(), 601)
-    with pytest.raises(ValueError, match="multiple of 128"):  # tiles off the chunks, k past 2
-        bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=192, nbins=48)
-    # Once refused: bins other than 128 (64 divides 128), equal to the plain version.
+    # Once refused: bins other than 128 (64 divides 128), and (F11) tiles off
+    # the 128-column chunk, equal to the plain version.
     gen = torch.Generator(device=dev).manual_seed(3)
     q = torch.randint(-127, 127, (4, 16), generator=gen, device=dev, dtype=torch.int8)
     bt = torch.randint(-127, 127, (16, 600), generator=gen, device=dev, dtype=torch.int8)
-    got = bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=512, nbins=64)
-    want = bruteforce_fused.fused_topk_matmul_reference(q, bt, 4, tile_n=512, nbins=64)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for tile_n, nbins in ((512, 64), (192, 48)):
+        got = bruteforce_fused.fused_topk_matmul(q, bt, 4, tile_n=tile_n, nbins=nbins)
+        want = bruteforce_fused.fused_topk_matmul_reference(q, bt, 4, tile_n=tile_n,
+                                                            nbins=nbins)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# F11: binned tiles off the 128-column chunk, so a chunk lies across two
+# tiles: (B, D, N, k, tile_n, nbins, n_valid).  N 40,000 gives the fp32
+# mode several column splits (a multiple of 384 columns each).
+K3_OFF_CHUNK = {
+    "t192-n48-k4": (70, 37, 3001, 4, 192, 48, None),
+    "t320-n40-k20": (100, 64, 40000, 20, 320, 40, 39000),
+}
+
+
+@pytest.mark.parametrize("shape", list(K3_OFF_CHUNK))
+@pytest.mark.parametrize("mode", ["i8", "i8_l2", "f32", "bf16"])
+def test_k3_binned_off_chunk_tiles_equal_to_plain(dev, mode, shape):
+    """F11: K3's binned modes at tile_n 192 and 320 (off the 128-column
+    chunk), each chunk across two tiles binned once for each."""
+    b, d, n, k, tile_n, nbins, n_valid = K3_OFF_CHUNK[shape]
+    rng = np.random.default_rng(33)
+    q = torch.from_numpy(rng.integers(-127, 128, (b, d), dtype=np.int8)).to(dev)
+    bt = torch.from_numpy(rng.integers(-127, 128, (d, n), dtype=np.int8)).to(dev)
+    kw = dict(nbins=nbins, tile_n=tile_n)
+    if mode == "i8_l2":
+        kw["alpha"] = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+        kw["bias"] = torch.from_numpy(rng.uniform(0, 3e4, n).astype(np.float32)).to(dev)
+    if mode in ("f32", "bf16"):  # integer values: exact in bf16, every fp32 sum exact
+        q, bt = (x.to(torch.bfloat16 if mode == "bf16" else torch.float32) for x in (q, bt))
+    if n_valid is not None:
+        kw["n_valid"] = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+    before = bruteforce_fused.LAUNCHES
+    v, i = bruteforce_fused.fused_topk_matmul(q, bt, k, **kw)
+    rv, ri = bruteforce_fused.fused_topk_matmul_reference(q, bt, k, **kw)
+    torch.cuda.synchronize()
+    assert bruteforce_fused.LAUNCHES == before + 1
+    assert torch.equal(v, rv)
+    assert torch.equal(i, ri)
 
 
 # K5: (B, D, N, tile_n, group, k, alpha of the L2 bias rows or None, value

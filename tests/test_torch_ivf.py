@@ -428,13 +428,25 @@ def test_search_device_positional_equals_keyword(pair, small_data):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-def test_checkpoints_raise_naming_item_6(small_data):
+def test_checkpoints_raise_naming_item_6(small_data, tmp_path):
+    """The checkpoint at its JAX positions now builds and resumes: the same
+    positional calls write the file, and a second call resumes from it to
+    the same centroids and assignment (the index to the same arrays)."""
     base, _ = small_data
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tivf.IVFIndex.build(base, 16, "l2", "int8", "l2", 512, "padded", 42, 5, "kmeans++",
-                            "ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tkmeans.kmeans(base, 16, 42, 5, 1e-4, 131_072, "sample", 1024, "ckpt", device="cpu")
+    ck = str(tmp_path / "ivf.ckpt.npz")
+    a = tivf.IVFIndex.build(base, 16, "l2", "int8", "l2", 512, "padded", 42, 5, "kmeans++",
+                            ck, device="cpu")
+    assert int(np.load(ck)["next_iter"]) == 5
+    b = tivf.IVFIndex.build(base, 16, "l2", "int8", "l2", 512, "padded", 42, 5, "kmeans++",
+                            ck, device="cpu")
+    for x, y in ((a._centroids_np, b._centroids_np), (a._reorder_np, b._reorder_np),
+                 (a._offsets_np, b._offsets_np)):
+        np.testing.assert_array_equal(x, y)
+    ck = str(tmp_path / "km.ckpt.npz")
+    c1, a1 = tkmeans.kmeans(base, 16, 42, 5, 1e-4, 131_072, "sample", 1024, ck, device="cpu")
+    c2, a2 = tkmeans.kmeans(base, 16, 42, 5, 1e-4, 131_072, "sample", 1024, ck, device="cpu")
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_array_equal(a1, a2)
 
 
 # cluster_k below JAX's clamp (ceil(2k / nprobe) = 5) and above it, through
@@ -624,3 +636,45 @@ def test_float_index_at_d384_equals_jax():
     tv, tids, _ = t.search_device(_t(queries), K, NPROBE, **kw)
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("metric,dtype", [("ip", "fp32"), ("l2", "int8")])
+def test_compact_store_matches_padded(jax_base, small_data, metric, dtype):
+    """store='compact' returns the padded store's results on the
+    cluster-major path, and the JAX compact index's on the same arrays
+    (``from_arrays``); neither store holds a padded fp32 copy until the xla
+    engine asks for one, and the query mode and the xla engine agree
+    across stores."""
+    _, queries = small_data
+    j = jivf.IVFIndex(jax_base._centroids_np, jax_base._vectors_np, jax_base._offsets_np,
+                      jax_base._reorder_np, metric=metric, dtype=dtype, pad_block=512,
+                      store="compact", config=dict(jax_base.config))
+    pad = _port_of(j)
+    cmp_ = _port_of(j, store="compact")
+    assert (pad.store, cmp_.store) == ("padded", "compact")
+    q = _t(queries)
+    b = q.shape[0]
+    for nprobe in (4, 16):
+        v_p, i_p, c_p = pad.search_device(q, K, nprobe, mode="cluster", qcap=b)
+        _, i_a, _ = cmp_.search_device(q, K, nprobe)  # auto → cluster on a compact store
+        assert cmp_.last_mode == "cluster"
+        v_c, i_c, c_c = cmp_.search_device(q, K, nprobe, mode="cluster", qcap=b)
+        assert torch.equal(c_p, c_c) and torch.equal(i_p, i_c)
+        np.testing.assert_allclose(v_p.numpy(), v_c.numpy(), rtol=1e-5)
+        if nprobe == 4:
+            jv, ji, jc = j.search_device(jnp.asarray(queries), K, nprobe, mode="cluster",
+                                         qcap=b)
+            np.testing.assert_array_equal(i_c.numpy(), np.asarray(ji))
+            np.testing.assert_array_equal(c_c.numpy(), np.asarray(jc))
+            np.testing.assert_allclose(v_c.numpy(), np.asarray(jv), rtol=1e-6)
+    assert "vectors" not in cmp_._arrays and "vectors_f32" in cmp_._arrays
+    assert "vectors" not in pad._arrays and "vectors_f32" in pad._arrays
+    assert cmp_.memory_report()["TOTAL"] <= pad.memory_report()["TOTAL"] + \
+        cmp_._arrays["vectors_f32"].numel() * 4
+    _, i_q, _ = cmp_.search_device(q, K, 4, mode="query")
+    _, i_qp, _ = pad.search_device(q, K, 4, mode="query")
+    assert torch.equal(i_q, i_qp)
+    _, i_x, _ = cmp_.search_device(q, K, 4, mode="cluster", engine="xla", qcap=b)
+    assert "vectors" in cmp_._arrays  # the lazy padded copy, xla engine only
+    _, i_xp, _ = pad.search_device(q, K, 4, mode="cluster", engine="xla", qcap=b)
+    assert torch.equal(i_x, i_xp)

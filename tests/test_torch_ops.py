@@ -611,3 +611,21 @@ def test_k3_plain_at_nbins64_equals_jax():
                                                 tile_n=512, nbins=64)
     np.testing.assert_array_equal(tv.numpy(), _np(jv))
     np.testing.assert_array_equal(ti.numpy(), _np(ji))
+
+
+@pytest.mark.parametrize("k", [4, 12])
+def test_k3_plain_at_off_chunk_tiles_equals_jax(k):
+    """F11: K3's binned plain version at tile_n 192, nbins 48 (tiles off the
+    128-column chunk, which the card walks once for each tile it meets)
+    against the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(25)
+    q = rng.integers(-127, 128, (8, 16), dtype=np.int8)
+    bt = rng.integers(-127, 128, (16, 1000), dtype=np.int8)
+    jv, ji = pallas_bruteforce.fused_topk_matmul(jnp.asarray(q), jnp.asarray(bt), k,
+                                                 tile_n=192, nbins=48)
+    from rag_on_edge_tpu_torch.ops import bruteforce_fused
+
+    tv, ti = bruteforce_fused.fused_topk_matmul(torch.from_numpy(q), torch.from_numpy(bt), k,
+                                                tile_n=192, nbins=48)
+    np.testing.assert_array_equal(tv.numpy(), _np(jv))
+    np.testing.assert_array_equal(ti.numpy(), _np(ji))

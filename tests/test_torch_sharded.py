@@ -28,6 +28,7 @@ from rag_on_edge_tpu_torch.models import ivf as tivf
 from rag_on_edge_tpu_torch.ops import _build, block_tables, ivf_scan
 from rag_on_edge_tpu_torch.parallel import ShardedBruteForceIndex, ShardedIVFIndex, make_mesh
 from rag_on_edge_tpu_torch.parallel.sharded import _gather_merge, _partition_clusters
+from rag_on_edge_tpu_torch.utils.metrics import recall_at_k
 
 K, NPROBE = 10, 4
 
@@ -560,3 +561,49 @@ def test_routed_engine_rows_at_d100_equal_grouped(jax_index_d100, small_data, mo
     assert int(t.last_spill) == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _compact_pair(j0, meshes, n_shards=8):
+    """(JAX sharded index, port sharded index) over compact-store indexes
+    on ``j0``'s arrays."""
+    args = (j0._centroids_np, j0._vectors_np, j0._offsets_np, j0._reorder_np)
+    jc = jivf.IVFIndex(*args, metric=j0.metric, dtype=j0.dtype, pad_block=j0.PAD_BLOCK,
+                       store="compact", config=dict(j0.config))
+    tc = tivf.IVFIndex.from_arrays(*args, metric=j0.metric, dtype=j0.dtype,
+                                   pad_block=j0.PAD_BLOCK, config=j0.config, device="cpu",
+                                   store="compact")
+    return JIVF(jc, meshes[n_shards]), ShardedIVFIndex(tc, _cpus(n_shards))
+
+
+@pytest.mark.parametrize("metric,dtype", [("l2", "int8"), ("ip", "fp32")])
+def test_sharded_compact_store_matches_padded(jax_index, meshes, small_data, metric, dtype):
+    """store='compact' sources shard the cluster-major path: kernel slabs
+    sliced from the source's own tables, the fp32 rescore through the
+    compact offset maps.  The port's results equal its padded-store sharded
+    index's, and the JAX compact sharded index's on the same arrays."""
+    _, queries = small_data
+    j0 = _variant(jax_index, metric, dtype)
+    padded = ShardedIVFIndex(_port_of(j0), _cpus(8))
+    js_c, ts_c = _compact_pair(j0, meshes)
+    ids_p, s_p, cand_p = padded.search(queries, k=K, nprobe=NPROBE, mode="cluster")
+    ids_c, s_c, cand_c = ts_c.search(queries, k=K, nprobe=NPROBE, mode="cluster")
+    np.testing.assert_array_equal(ids_p, ids_c)
+    np.testing.assert_allclose(s_p, s_c, rtol=1e-5)
+    assert cand_p == cand_c
+    _check_ivf(js_c, ts_c, queries, mode="cluster")
+
+
+def test_sharded_compact_matches_single_chip(jax_index, small_data):
+    """The sharded compact cluster-major search against the single-card
+    compact index it shards: recall@10 >= 0.97 of the single index's ids,
+    as the JAX package holds it."""
+    _, queries = small_data
+    j0 = jax_index
+    single = tivf.IVFIndex.from_arrays(j0._centroids_np, j0._vectors_np, j0._offsets_np,
+                                       j0._reorder_np, metric="l2", dtype="int8",
+                                       pad_block=j0.PAD_BLOCK, config=j0.config,
+                                       device="cpu", store="compact")
+    sharded = ShardedIVFIndex(single, _cpus(8))
+    ids_s, _, _ = single.search(queries, k=K, nprobe=NPROBE, mode="cluster")
+    ids_m, _, _ = sharded.search(queries, k=K, nprobe=NPROBE, mode="cluster")
+    assert recall_at_k(ids_m, ids_s, K) >= 0.97
