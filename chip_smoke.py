@@ -3,7 +3,9 @@
 the IVF index (its default engine, the grouped engine and the routed
 engine), the brute-force index, both sharded over 4 logical shards on
 the card, the kernel lab on the same index, k-means with its checkpoint,
-the compact store, the serving executor, the spatial GEMM, the
+the compact store, the serving executor, the per-stage profilers, the
+native CPU oracle, the transfer probes, the gated serving run, the skew
+and recovery harnesses, the spatial GEMM, the
 hardware probes, the float (fp32 and bf16) IVF and brute-force indexes
 with the library's defaults, the float sharded index, routed engine and
 kernel lab, and the query-major mode and xla engine of the IVF index.
@@ -177,6 +179,33 @@ script exits non-zero without a result line:
              capacity (6,000 requests each, the window from
              ``auto_max_delay_ms``), each with its latency percentiles and
              served recall.
+   profile — ``build_or_load_index("sift")`` caches the setup's index (its
+             centroids and clusters checked) for the harnesses below;
+             ``profile_ivf.profile`` at B=8192 for ``engine="pallas"`` and
+             ``"pallas_accum"`` (cumulative prefixes coarse+topk, +invert,
+             +route/gather, +kernel = K4, +join/rescore = the whole call;
+             K4, and K1 and K2 under the accum engine, launched) and
+             ``profile_sharded.profile`` over ``[cuda:0] * 4`` with the auto
+             engine (K1, K2) and ``"pallas"`` (K6), each counted, every
+             prefix finite, each full prefix's ids equal to the public
+             call's (``recover=False``).
+   oracle  — the native CPU oracle (``runtime/oracle.py``, g++) over 1,000
+             queries x 1M, L2, k 10, against the card's exact ground truth
+             (K3 fp32, counted): the exact scores of the returned ids equal
+             within rtol 1e-4; both timed.
+   relay   — ``relay_probe.probe_fetch`` (pageable device -> host copies:
+             the per-copy and per-MB terms, the one-element round trip),
+             ``probe_cycle`` at B=16384 (unpacked and packed through the
+             executor's pack) and ``bench_executor.relay_cycle_probe`` at
+             B=16384 on the uint8 wire, counted (K1).
+   hunt    — ``serve_hunt`` at B=2048 with no wait: its record holds one
+             probe and one saturated run of "sift" and no error; recall@10
+             >= 0.99, counted (K1).
+   recover — ``qcap_calib`` at nprobe 4, 8 and 16 (measured hottest-cell
+             load beside ``_est_max_load``), and ``recover_sweep`` at nprobe
+             4 with one swept shape (recover_qcap 256, one pass), counted
+             (K1, K4, K2): the auto row drops no pair and keeps at least the
+             off row's recall.
 11. gemm   — the index is freed first.  Kernel K8 (int8 on ``mma.sync``,
              bf16 on ``wgmma`` fed by TMA, fp32 on a ``cp.async`` FFMA tile)
              against its plain version at a ragged shape in int8 (exact),
@@ -2079,6 +2108,200 @@ def main() -> None:
     phase("serving", t0, f"open loop, {OPEN_N} requests a load (max_delay_ms from "
           f"auto_max_delay_ms), each with its served recall@{K}: {curve}")
     del ds, direct_ids, reqs, gt_reqs
+
+    # ---- phases 10f-10j: the harnesses ported last, on the setup's index.
+    # The dataset harnesses load "sift" and its index through
+    # build_or_load_index: its first call builds and caches the index of
+    # the setup's configuration, which must be the setup's own.
+    from rag_on_edge_tpu_torch.harness import (profile_ivf, profile_sharded, qcap_calib,
+                                               recover_sweep, relay_probe, serve_hunt)
+    from rag_on_edge_tpu_torch.harness.bench_ivf import build_or_load_index
+    from rag_on_edge_tpu_torch.runtime import oracle
+
+    t = time.time()
+    cached = build_or_load_index(load_dataset("sift", gt_k=K, device=dev), nlist=None,
+                                 metric="l2", dtype="int8", pad_block=PAD_BLOCK, device=dev)
+    if not (np.array_equal(cached._centroids_np, idx._centroids_np)
+            and np.array_equal(cached._offsets_np, idx._offsets_np)):
+        raise AssertionError("build_or_load_index('sift') is not the setup's index")
+    phase("profile", t0, f"build_or_load_index('sift') {time.time() - t:.1f}s: the setup's "
+          f"index, cached for the harnesses")
+    del cached
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_harness"
+    if out_dir.exists():
+        for f in out_dir.iterdir():
+            f.unlink()
+
+    def launched():
+        return {key: n for key, n in read_launches().items() if n}
+
+    def need(what, got, kernels):
+        missing = [kx for kx in kernels if got.get(kx, 0) < 1]
+        if missing:
+            raise AssertionError(f"{what} launched {got}: no {missing}")
+
+    # ---- phase 10f (profile): profile_ivf's cumulative prefixes at B=8192 for
+    # the grouped engine and the default accum engine (the +kernel prefix is
+    # K4 either way), and profile_sharded's stages over [cuda:0] * 4, auto
+    # (K1, K2) and pallas (K6), counters reset just before each and read
+    # just after; each full prefix must return the public call's ids.
+    qcap = idx._auto_qcap(BATCH, NPROBE)
+    prof = {}
+    for engine, kernels in (("pallas", ["K4"]), ("pallas_accum", ["K4", "K1", "K2"])):
+        reset_launches()
+        t = time.time()
+        rows_ = profile_ivf.profile(idx, queries[:BATCH], K, NPROBE, engine=engine)
+        torch.cuda.synchronize()
+        prof[f"profile_ivf {engine}"] = dict(rows=rows_, launches=launched(),
+                                             wall_s=round(time.time() - t, 1))
+        need(f"profile_ivf engine={engine}", prof[f"profile_ivf {engine}"]["launches"], kernels)
+        if not all(np.isfinite(cum) and cum > 0 for _, cum, _ in rows_):
+            raise AssertionError(f"profile_ivf {engine}: a prefix time is not finite: {rows_}")
+        _, fns = profile_ivf._stage_fns(idx, K, NPROBE, qcap, engine=engine)
+        ids_full = fns[-1](q)[1]
+        ids_pub = idx.search_device(q, K, NPROBE, mode="cluster", engine=engine, recover=False)[1]
+        if not torch.equal(ids_full, ids_pub):
+            raise AssertionError(f"profile_ivf {engine}: the full prefix's ids differ from "
+                                 "search_device's")
+    sh_p = ShardedIVFIndex(idx, [dev] * 4)
+    for engine, kernels in (("auto", ["K1", "K2"]), ("pallas", ["K6"])):
+        reset_launches()
+        t = time.time()
+        rows_ = profile_sharded.profile(sh_p, queries[:BATCH], K, NPROBE, engine=engine)
+        torch.cuda.synchronize()
+        prof[f"profile_sharded {engine}"] = dict(rows=rows_, launches=launched(),
+                                                 wall_s=round(time.time() - t, 1))
+        need(f"profile_sharded engine={engine}", prof[f"profile_sharded {engine}"]["launches"],
+             kernels)
+        if not all(np.isfinite(cum) and cum > 0 for _, cum, _ in rows_):
+            raise AssertionError(f"profile_sharded {engine}: a stage time is not finite: {rows_}")
+        resolved = "pallas_accum" if engine == "auto" else engine
+        ids_full = sh_p._search_cluster(q, K, NPROBE, qcap, 0, 0, 1, resolved, "full")[1]
+        ids_pub = sh_p.search_device(q, K, NPROBE, mode="cluster", recover=False,
+                                     engine=resolved)[1]
+        if not torch.equal(ids_full, ids_pub):
+            raise AssertionError(f"profile_sharded {engine}: the full stage's ids differ from "
+                                 "search_device's")
+    del sh_p
+    for name, r in prof.items():
+        phase("profile", t0, f"{name} B={BATCH} nprobe {NPROBE} k {K} qcap {qcap} on {card} "
+              f"(prefix, cumulative ms, stage ms; host clock over 6 distinct batches): "
+              f"{[(n, round(c, 4), round(d, 4)) for n, c, d in r['rows']]}; launches "
+              f"{r['launches']}; {r['wall_s']}s")
+
+    # ---- phase 10g (oracle): the native CPU oracle over 1,000 queries x 1M
+    # against the card's exact ground truth (K3 fp32 by the 2 GiB rule):
+    # the exact fp64 scores of each row's returned ids equal, sorted, within
+    # rtol 1e-4 (ties may pick other ids).
+    ORACLE_Q = 1000
+    t = time.time()
+    lib_path = oracle.build_library()
+    oracle_build_s = time.time() - t
+    if not oracle.native_available():
+        raise AssertionError(f"the native oracle did not build ({lib_path})")
+    t = time.time()
+    o_ids, o_scores = oracle.oracle_search(queries[:ORACLE_Q], base, K, metric="l2")
+    oracle_s = time.time() - t
+    reset_launches()
+    t = time.time()
+    gt_o = ground_truth(base, queries[:ORACLE_Q], K, metric="l2", device=dev)
+    torch.cuda.synchronize()
+    k3_gt_s = time.time() - t
+    gt_o_launches = launched()
+    need("the oracle's K3 ground truth", gt_o_launches, ["K3"])
+    q64 = queries[:ORACLE_Q].astype(np.float64)[:, None, :]
+
+    def exact(ids):
+        return np.sort(-((base[ids].astype(np.float64) - q64) ** 2).sum(-1), axis=1)
+
+    oracle_err = float(np.max(np.abs(exact(o_ids) - exact(gt_o))
+                              / np.maximum(np.abs(exact(gt_o)), 1.0)))
+    ids_equal = int((o_ids == gt_o).all(axis=1).sum())
+    phase("oracle", t0, f"native oracle (g++ {oracle_build_s:.1f}s, {lib_path}) over "
+          f"{ORACLE_Q} queries x {N_BASE}, k {K}, L2: {oracle_s:.3f}s on the host's "
+          f"{os.cpu_count()} cores; the card's exact ground truth (K3 fp32, launches "
+          f"{gt_o_launches}) {k3_gt_s:.3f}s on {card}; ids equal on {ids_equal} of {ORACLE_Q} "
+          f"rows, max relative score error of the returned ids {oracle_err:.3g}")
+    if oracle_err > 1e-4:
+        raise AssertionError(f"the oracle's scores differ from the card's ground truth by "
+                             f"{oracle_err} (rtol 1e-4)")
+    del o_ids, o_scores, gt_o, q64
+
+    # ---- phase 10h (relay): the transfer terms (pageable device -> host
+    # copies, as jax.device_get), the serialized serving cycle at B=16384
+    # unpacked and packed (the executor's pack), and relay_cycle_probe.
+    fetch = relay_probe.probe_fetch(rounds=5, device=dev)
+    reset_launches()
+    cycle = relay_probe.probe_cycle(batch=16384, nprobe=NPROBE, k=K, rounds=5, dataset="sift",
+                                    device=dev)
+    cycle_launches = launched()
+    need("probe_cycle", cycle_launches, ["K1"])
+    wd = bench_executor._wire_dtype(queries, "auto")
+    reset_launches()
+    relay_ms = bench_executor.relay_cycle_probe(
+        lambda qx: idx.search_device(qx, K, NPROBE, mode="cluster", recover_passes=1), DIM,
+        16384, wire_dtype=wd, device=dev)
+    relay_launches = launched()
+    need("relay_cycle_probe", relay_launches, ["K1"])
+    terms = {**fetch, **cycle, "relay_cycle_probe_ms": relay_ms}
+    if not all(np.isfinite(v) for v in terms.values()) or min(
+            cycle["cycle_packed_ms"], cycle["cycle_unpacked_ms"], relay_ms) <= 0:
+        raise AssertionError(f"a relay term is not a positive finite time: {terms}")
+    phase("relay", t0, f"transfer terms on {card} (host clock ms, pageable copies): {fetch}; "
+          f"cycle B=16384: {cycle} (launches {cycle_launches}); relay_cycle_probe B=16384 "
+          f"wire {np.dtype(wd)}: {relay_ms} ms (launches {relay_launches})")
+
+    # ---- phase 10i (hunt): serve_hunt with no wait at B=2048: one probe,
+    # one saturated run of dataset "sift", no error in the record.
+    reset_launches()
+    t = time.time()
+    if serve_hunt.main(["--dataset", "sift", "--batch", "2048", "--nprobe", str(NPROBE),
+                        "--max-wait-s", "0", "--outdir", str(out_dir)]) != 0:
+        raise AssertionError("serve_hunt exited non-zero")
+    hunt_launches = launched()
+    (hunt_file,) = out_dir.glob("serving_hunt_*.json")
+    rec = json.loads(hunt_file.read_text())
+    if (len(rec["probes"]) != 1 or len(rec["runs"]) != 1
+            or any("error" in e for e in rec["probes"] + rec["runs"])):
+        raise AssertionError(f"the hunt's record is not one probe and one run without error: "
+                             f"{rec}")
+    need("serve_hunt", hunt_launches, ["K1"])
+    run_h = rec["runs"][0]
+    phase("hunt", t0, f"serve_hunt B=2048 nprobe {NPROBE} (131072 requests, window 75 ms) on "
+          f"{card}, {time.time() - t:.1f}s: probe cycle {rec['probes'][0]['cycle_ms']} ms; run "
+          f"trigger {run_h['trigger']}, dataset {run_h['dataset']}, QPS "
+          f"{run_h['qps_end_to_end']}, recall@{K} {run_h['recall']}, latency ms "
+          f"{run_h['latency_ms']}, pipeline {run_h['pipeline']}; launches {hunt_launches}")
+    if run_h["dataset"] != "sift" or run_h["recall"] < 0.99:
+        raise AssertionError(f"the hunt's run served {run_h['dataset']} at recall "
+                             f"{run_h['recall']}")
+
+    # ---- phase 10j (recover): qcap_calib at nprobe 4, 8 and 16, and
+    # recover_sweep at nprobe 4 with one swept shape (recover_qcap 256, one
+    # pass), counted: the auto row drops no pair and keeps the off row's
+    # recall or more.
+    qcap_calib.main(["--dataset", "sift", "--nlist", str(NLIST), "--nprobe", "4", "8", "16",
+                     "--batch", str(BATCH), "--pad-block", str(PAD_BLOCK), "--json",
+                     "--outdir", str(out_dir)])
+    (calib_file,) = out_dir.glob("qcap_calib_*.json")
+    calib = json.loads(calib_file.read_text())
+    reset_launches()
+    t = time.time()
+    recover_sweep.main(["--dataset", "sift", "--nlist", str(NLIST), "--spill-eps", "0",
+                        "--pad-block", str(PAD_BLOCK), "--store", "padded", "--batch", str(BATCH),
+                        "--k", str(K), "--nprobe", str(NPROBE), "--recover-qcap", "256",
+                        "--recover-passes", "1", "--json", "--outdir", str(out_dir)])
+    sweep_launches = launched()
+    (sweep_file,) = out_dir.glob("recover_sweep_*.json")
+    rs = json.loads(sweep_file.read_text())["rows"]
+    phase("recover", t0, f"qcap_calib (B={BATCH}) on {card}: {calib}; recover_sweep "
+          f"(nprobe {NPROBE}, 10,000 queries) {time.time() - t:.1f}s: {rs}; launches "
+          f"{sweep_launches}")
+    need("recover_sweep", sweep_launches, ["K1", "K4", "K2"])
+    off, auto = rs[0], rs[1]
+    if auto["spill_total"] != 0 or auto["recall"] < off["recall"]:
+        raise AssertionError(f"recover_sweep: the auto row dropped pairs or lost recall to the "
+                             f"off row: {auto} vs {off}")
 
     # ---- phase 11: the spatial GEMM (K8).  The index and its state go first:
     # the full-width product's output alone is 32.8 GB.

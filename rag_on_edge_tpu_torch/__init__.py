@@ -4,8 +4,9 @@ Same layout as the JAX package, so each module's counterpart is easy to
 find:
 
 - ``utils``  — synthetic SIFT corpora, the dataset cache shared with the
-  JAX package (``load_dataset``, ``io``), exact ground truth, recall, and
-  the int8 GEMM operands (``preprocess``).
+  JAX package (``load_dataset``, ``io``), exact ground truth, recall, the
+  int8 GEMM operands (``preprocess``) and the kernel-library cache
+  (``cache``).
 - ``ops``    — quantization, distances, top-k, block tables, and the
   hand-written Hopper kernels with their plain PyTorch versions, all in
   CUDA C++: the IVF scan kernels (``ivf_accum``, ``ivf_scan``,
@@ -15,14 +16,19 @@ find:
 - ``models`` — k-means (with its per-step checkpoint and resume), the
   cluster-major ``IVFIndex`` and the ``BruteForceIndex``.
 - ``runtime`` — the serving executor (``BatchingExecutor``): single
-  queries in, fixed batches through a device search function, pipelined.
+  queries in, fixed batches through a device search function, pipelined;
+  and the native exact-search oracle on the CPU (``oracle``, C++ through
+  ``ctypes``).
 - ``parallel`` — ``make_mesh`` and the sharded indexes
   (``ShardedBruteForceIndex``, ``ShardedIVFIndex``): one process drives a
   list of devices, one shard each; ``make_mesh_2d`` and
   ``spatial_matmul``, the GEMM over a grid of devices.
 - ``harness`` — the IVF, brute-force and serving benchmarks
   (``bench_ivf`` with the index cache ``build_or_load_index``,
-  ``bench_bruteforce``, ``bench_executor``), the spatial-GEMM benchmark (``bench_gemm``), the
+  ``bench_bruteforce``, ``bench_executor``), the sweeps, the per-stage
+  profilers (single and sharded), the skew and recovery harnesses, the
+  transfer probe, the gated serving run and ``warmup``, the spatial-GEMM
+  benchmark (``bench_gemm``), the
   kernel-variant lab (``kernel_lab``, its kernel K10 in CUDA C++) and the
   hardware probes (``hw_probe``, kernels K11-K14 in CUDA C++: the card's
   per-step and launch costs, streaming and async-copy GB/s, and the

@@ -35,11 +35,12 @@ import time
 import numpy as np
 import torch
 
-from rag_on_edge_tpu_torch.runtime.executor import BatchingExecutor
+from rag_on_edge_tpu_torch.runtime.executor import BatchingExecutor, _flatten
 from rag_on_edge_tpu_torch.utils import metrics
 from rag_on_edge_tpu_torch.utils.datasets import load_dataset
 
-__all__ = ["run", "run_open_loop", "auto_max_delay_ms", "run_load_curve", "main"]
+__all__ = ["run", "relay_cycle_probe", "run_open_loop", "auto_max_delay_ms", "run_load_curve",
+           "main"]
 
 # The stats() counters a run reports as differences over its timed region.
 _COUNTERS = ("batches_dispatched", "rows_dispatched", "underfull_launches", "drains",
@@ -189,6 +190,28 @@ def run(dataset: str = "sift", batch: int = 2048, nprobe: int = 4, k: int = 10,
               f"{stats['batches_per_drain']} batches/drain, "
               f"{stats['underfull_launches']} underfull")
     return out
+
+
+def relay_cycle_probe(fn, dim: int, batch: int, cycles: int = 4, seed: int = 0,
+                      wire_dtype=None, device: str | torch.device = "cuda") -> float:
+    """The serialized upload → search → fetch cost, ms a batch (the JAX
+    package's "weather" reading of its relay).  Each cycle uploads a
+    distinct host batch (fresh randoms in ``wire_dtype``, the serving
+    path's upload format), runs ``fn`` and moves its whole result to the
+    host before the next cycle starts: no pipelining, so capacity ≈ B /
+    cycle.  The median over the cycles, the first one dropped."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    qs = rng.uniform(0.0, 100.0, size=(cycles + 1, batch, dim)).astype(
+        wire_dtype or np.float32)
+    times = []
+    for i in range(cycles + 1):
+        t0 = time.perf_counter()
+        leaves, _ = _flatten(fn(torch.from_numpy(qs[i]).to(device)))
+        for leaf in leaves:
+            leaf.cpu()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:]) * 1e3)
 
 
 def run_open_loop(ex, reqs: np.ndarray, rate_qps: float, max_delay_ms: float,

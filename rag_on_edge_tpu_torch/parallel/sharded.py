@@ -564,18 +564,24 @@ class ShardedIVFIndex:
             and index.dim <= index._accum_dim_cap()
         )
 
-    def _cm_route(self, q: torch.Tensor, nprobe: int, qcap: int) -> dict:
+    def _cm_route(self, q: torch.Tensor, nprobe: int, qcap: int, stage: str = "full"):
         """The replicated stages on the first device: coarse probe,
         inversion, the lossy pairs, candidate counts, and the query prep
         (int8: one per-batch query scale, ``alpha = sq·sb``, doubled for L2;
         float: a ones column for L2) with the routed table ``qg``; float
-        rows at a 16-byte row pitch (``ivf_scan.routed_table``)."""
+        rows at a 16-byte row pitch (``ivf_scan.routed_table``).  ``stage``
+        (``profile_sharded``'s prefixes) returns early: "coarse" the probes,
+        "invert" (cq, slot, lossy); else the dict of all of it."""
         sizes = self._cm_arrays[0]["sizes"]
         probes = self._probes(q, nprobe)
+        if stage == "coarse":
+            return probes
         cq, slot, _ = invert_probes(probes, self.nlist, qcap)
         # Dropped pairs on empty clusters lose nothing and are not spill.
         p_sizes = sizes[probes.long()]
         lossy = (slot < 0) & (p_sizes > 0)
+        if stage == "invert":
+            return cq, slot, lossy
         alpha = None
         if self.dtype == "int8":
             qrow, sq = quantize.quantize_int8(q)
@@ -669,9 +675,13 @@ class ShardedIVFIndex:
             todo = todo & ~placed
         return (torch.cat(ev, dim=1), torch.cat(er, dim=1)), todo
 
-    def _cm_shard(self, s, r, k, rq, rb, rp, engine):
+    def _cm_shard(self, s, r, k, rq, rb, rp, engine, stage: str = "full"):
         """Shard s's cluster-mode search → (vals [B, k], ids [B, k], its
-        residual spill or None without recovery)."""
+        residual spill or None without recovery).  ``stage``
+        (``profile_sharded``'s prefixes) returns early: "kernel" the scan's
+        output (K1's planes, or K6's (pv, pr)) before any recovery pass,
+        "join" the shard's top-kk (vals, padded rows), "rescore" its
+        rescored (vals, ids)."""
         a = self._cm_arrays[s]
         dev = self.devices[s]
         blk = self._src_index.PAD_BLOCK
@@ -709,6 +719,8 @@ class ShardedIVFIndex:
         else:
             pv, pr = ivf_scan.cluster_major_scan(r["qg"], vecs_t, a["bc"], a["bf"], a["bl"],
                                                  a["rv"], k=ck, blk=blk, bias=bias)
+        if stage == "kernel":
+            return pp if pp is not None else (pv, pr)
         extra, spill = None, None
         if rq and rb:
             extra, todo = self._cm_recover(s, r, owned, bias, ck, rq, rb, rp)
@@ -767,6 +779,8 @@ class ShardedIVFIndex:
             gr = torch.cat([gr, extra[1]], dim=1)
         best_v, sel = topk.small_topk(gv, min(kk, gv.shape[1]))
         best_r = torch.gather(gr, 1, sel.long())
+        if stage == "join":
+            return best_v, best_r
         # Rows under -inf may be unwritten kernel output: zeroed before any
         # lookup.  Then the exact fp32 rescore of the local candidates
         # against the shard's compact rows, through crow_map.
@@ -788,18 +802,27 @@ class ShardedIVFIndex:
         best_v, sel2 = topk.small_topk(scores, k)
         ids = torch.where(best_v > _NEG_INF, torch.gather(pool_ids, 1, sel2.long()),
                           torch.full_like(sel2, -1))
+        if stage == "rescore":
+            return best_v, ids
         return best_v, ids.to(torch.int32), spill
 
-    def _search_cluster(self, q, k, nprobe, qcap, rq, rb, rp, engine):
-        r0 = self._cm_route(q, nprobe, qcap)
+    def _search_cluster(self, q, k, nprobe, qcap, rq, rb, rp, engine, stage: str = "full"):
+        """The cluster-mode call → (vals, ids, ncand, spill).  ``stage``, one
+        of ``profile_sharded.STAGES``, ends the call after that prefix and
+        returns what it computed: the replicated route's output (coarse,
+        invert, route), or each shard's (kernel, join, rescore), for the
+        caller to synchronize on; "full" is the whole call."""
+        r0 = self._cm_route(q, nprobe, qcap, stage)
+        if stage in ("coarse", "invert", "route"):
+            return r0
         reps = self._replicate(r0)
-        vals_l, ids_l, spills = [], [], []
-        for s in range(self.n_shards):
-            v, i, sp = self._cm_shard(s, reps[s], k, rq, rb, rp, engine)
-            vals_l.append(v)
-            ids_l.append(i)
-            if sp is not None:
-                spills.append(sp.to(self.devices[0]))
+        outs = [self._cm_shard(s, reps[s], k, rq, rb, rp, engine, stage)
+                for s in range(self.n_shards)]
+        if stage != "full":
+            return outs
+        vals_l = [v for v, _, _ in outs]
+        ids_l = [i for _, i, _ in outs]
+        spills = [sp.to(self.devices[0]) for _, _, sp in outs if sp is not None]
         out_v, out_i = _gather_merge(vals_l, ids_l, k, dedup=self.spilled)
         spill = torch.stack(spills).sum() if spills else r0["spill"]
         return out_v, out_i, r0["ncand"], spill.to(torch.int32)
