@@ -242,10 +242,19 @@ script exits non-zero without a result line:
              step), K13 with one value planted at a time across the walk
              (also in bf16 where its ring wraps, and past the walk), each
              timed beside its plain version
-             and, for K12 and K13, ``data.amax()``; then, counters reset
+             and, for K12 and K13, ``data.amax()`` (K11 also by kernel,
+             ``torch.profiler``: its timed call writes the 16 MB moving
+             input before the kernel reads it); then, counters reset
              just before and read just after, the five probes at the JAX
              sizes through ``hw_probe.main([])``, and the ceilings they
-             measure, one a line.
+             measure, one a line; where torch sees more than one card,
+             each further card in turn (``probe_other_cards``): the probes'
+             entry points counted at toy sizes through the paths past 48
+             KB of dynamic shared memory, and K11-K14 against their plain
+             versions there at the ragged and F10 shapes, a line a card
+             with its own launches and max |err| (the kernel line keeps
+             the first card's main-path counts; one card: a line saying
+             the other-cards check was not run).
 13. float  — the float modes of K1, K4, K5 and K3, held bit-equal to their
              plain versions at ragged sizes (D' odd, N and B off the
              tiles) on integer data, with K1's int8 (± bias rows) and bf16
@@ -668,6 +677,216 @@ def walked_blocks(np, block_first, block_last, rows_valid) -> tuple[int, int]:
     return walked(block_first, block_last, rows_valid)
 
 
+class ProbeChecks:
+    """K11-K14 held against their plain versions on one card: seeded data
+    made there, each kernel's max |err| in ``errs``.  ``check`` raises where
+    a kernel is refused or differs."""
+
+    # K14's ragged shape (tb, tn, d, g), then the edges of its wgmma design:
+    # tb 64 (one warpgroup) and 65, tn 16 and 130, d 32 and 48 (int8: one and
+    # 1.5 k-steps) and the 512-byte cap (0: int8 512, bf16 256); g 37 and
+    # 300, which no CTA count a unit divides.
+    K14_SHAPES = ((200, 300, 96, 37), (65, 130, 48, 300), (64, 16, 32, 37), (65, 16, 0, 37))
+
+    def __init__(self, torch, hw_probe, dev, seed: int):
+        self.torch, self.hw, self.dev = torch, hw_probe, dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.errs = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
+        self.x1 = torch.ones((8, 128), dtype=torch.float32, device=dev)
+
+    def rand(self, shape, dtype):
+        torch = self.torch
+        if dtype == torch.int8:
+            return torch.randint(-127, 127, shape, generator=self.gen, device=self.dev,
+                                 dtype=dtype)
+        return torch.randn(shape, generator=self.gen, device=self.dev, dtype=dtype)
+
+    def check(self, key, name, got, want, tol=0.0):
+        """``got`` against ``want`` within ``tol`` (a number, or one per
+        element); NaN, which the per-step views leave where no CTA wrote,
+        fails."""
+        torch = self.torch
+        torch.cuda.synchronize(self.dev)
+        diff = (got.double() - want.double()).abs()
+        if got.shape != want.shape or not bool((diff <= tol).all()):
+            raise AssertionError(f"{self.dev} {key} {name} differs from its plain version: "
+                                 f"|err| {float(diff.max())}, tolerance "
+                                 f"{float(torch.as_tensor(tol).max())}")
+        self.errs[key] = max(self.errs[key], float(diff.max()))
+
+    def k12(self, name, x, data, blk, fat, gemm, tops, sems):
+        """K12's value and its whole per-step buffer against the plain
+        version; without the product, also against the planted maxima.
+        bf16's bound for each step: 2·d·2**-24·max(|x| @ |tile|) over its
+        fat tiles."""
+        torch, hw = self.torch, self.hw
+        want = hw._stream_steps_reference(x, data, fat, gemm)
+        if not gemm and not torch.equal(want, tops):
+            raise AssertionError(f"K12 {name}: the plain version missed the planted maxima")
+        if gemm and data.dtype == torch.bfloat16:
+            nb, d, nblk = data.shape
+            prod = torch.matmul(x.double().abs(),
+                                data.double().abs().reshape(nb // fat, fat, d, nblk))
+            tol = 2.0 * d * 2.0**-24 * prod.amax(dim=(1, 2, 3))
+        else:
+            tol = torch.zeros_like(want, dtype=torch.float64)
+        for sem in sems:
+            self.check("K12", f"{name} gemm={gemm} {sem} steps",
+                       hw._stream_steps(x, data, blk, fat, gemm, sem), want, tol)
+            self.check("K12", f"{name} gemm={gemm} {sem}",
+                       hw._stream_probe(x, data, blk, fat, gemm, sem),
+                       hw._stream_probe_reference(x, data, blk, fat, gemm, sem), tol[-1:])
+
+    def k13(self, name, data, depth, plant, decoy, n):
+        """K13 against its plain version with one value planted at a time
+        above the bulk: ``plant`` at the first and the last walked element
+        and at ``n`` seeded random walked ones, so that a walk or a ring
+        that skips, drops or reuses a stage misses it; first, where blocks
+        lie past the walk, ``decoy`` there alone, which a walk that reads
+        past its end would return → the number of trials."""
+        torch, hw = self.torch, self.hw
+        flat = data.view(-1)
+        walked = hw._dma_blocks(data, depth) * data[0].numel()
+        trials = [(0, plant), (walked - 1, plant)] + [
+            (p, plant) for p in torch.randint(walked, (n,), generator=self.gen,
+                                              device=self.dev).tolist()]
+        if walked < flat.numel():
+            trials.insert(0, (walked + int(torch.randint(flat.numel() - walked, (1,),
+                                                         generator=self.gen,
+                                                         device=self.dev)), decoy))
+        for pos, val in trials:
+            old = flat[pos].clone()
+            flat[pos] = val
+            want = hw._dma_probe_reference(self.x1, data, depth)
+            if (float(want) == val) != (pos < walked):
+                raise AssertionError(f"K13 {name}: the bulk reaches the planted {val}")
+            self.check("K13", f"{name} depth={depth} {val} at {pos}",
+                       hw._dma_probe(self.x1, data, depth), want)
+            flat[pos] = old
+        return len(trials)
+
+    def k14_tol(self, q, v, g):
+        """K14's tolerance for each step: bf16's 2·d·2**-24·max(|twisted q|
+        @ |v|), int8's 0."""
+        torch = self.torch
+        if q.dtype != torch.bfloat16:
+            return torch.zeros(g, dtype=torch.float64, device=self.dev)
+        va, out = v.double().abs(), []
+        for s0 in range(0, g, 64):
+            ids = torch.arange(s0, min(g, s0 + 64), device=self.dev)
+            out.append(torch.matmul(self.hw._twisted_q(q, ids, torch.float64).abs(), va)
+                       .amax(dim=(1, 2)))
+        return 2.0 * q.shape[1] * 2.0**-24 * torch.cat(out)
+
+    def ragged(self) -> tuple[int, list[str]]:
+        """Every kernel at ragged shapes and at what the probes once refused
+        (F10), value and every step; among them every launch past 48 KB of
+        dynamic shared memory (K12's product, K13 at depth 3 and 8 over
+        [70,128,2048], K14 on ``wgmma`` at d 512 bytes, chunked past it, and
+        ``__dp4a`` at d 640 and 1025) → (K13's planted trials, F10's
+        cases)."""
+        torch, hw = self.torch, self.hw
+        rand = self.rand
+        xs = rand((8, 128), torch.float32)
+        for g in (3, 300):
+            for moving in (False, True):
+                for sem in hw.SEMANTICS:
+                    self.check("K11", f"g={g} moving={moving} {sem}",
+                               hw._step_probe(xs, g, moving, sem),
+                               hw._step_probe_reference(xs, g, moving, sem))
+        ntrials = 0
+        for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
+            # The product's edges beside the ragged walk: x of 1 and 65 rows
+            # (one past a warpgroup), blk 128 (16-byte cp.async pieces) and
+            # 2052 (a 4-byte row pitch: 4-byte pieces, the last slice 4
+            # columns wide).
+            for m, gemm, blk in ((100, False, 301), (100, True, 300), (1, True, 128),
+                                 (65, True, 2052)):
+                xr = rand((m, 36), dtype)
+                data, tops = hw._planted_walk(9, 36, blk, 3, dtype, self.gen)
+                self.k12(f"{dtype} [9,36,{blk}] x [{m},36] fat=3", xr, data, blk, 3, gemm,
+                         tops, hw.SEMANTICS)
+            data = rand((11, 24, 40), dtype)
+            for depth in (3, 8):
+                ntrials += self.k13(f"{dtype} [11,24,40]", data, depth, plant, decoy, 4)
+        # bf16 over 36 MB: ~17 stages a CTA, so the ring wraps at depth 3 and
+        # 8, and 70 blocks leave blocks past the walk at both.
+        data = rand((70, 128, 2048), torch.bfloat16)
+        for depth in (3, 8):
+            ntrials += self.k13("bf16 [70,128,2048]", data, depth, 64.0, 128.0, 16)
+        for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
+            for tb, tn, d, g in self.K14_SHAPES:
+                d = d or 512 // dtype.itemsize
+                q, v = rand((tb, d), dtype), rand((d, tn), dtype)
+                tol = self.k14_tol(q, v, g)
+                name = f"{dtype} {unit} [{tb},{d}]x[{d},{tn}] g={g}"
+                self.check("K14", f"{name} steps",
+                           hw._gemm_rate_steps(q, v, g, tb, tn, True, unit),
+                           hw._gemm_rate_steps_reference(q, v, g, tb, tn, True, unit), tol)
+                self.check("K14", name, hw._gemm_rate_probe(xs, q, v, g, tb, tn, True, unit),
+                           hw._gemm_rate_probe_reference(xs, q, v, g, tb, tn, True, unit),
+                           tol[-1:])
+        # F10: what the probes once refused.  K12's product at 256 and 300 x
+        # rows (row tiles in turn), odd d and blk (padded to 4-byte words),
+        # and d 1100 (K past 512 bytes: x rides the ring); K13 at JAX depths
+        # 9 and 16 (past the ring of 8) over 15-byte int8 / 30-byte bf16
+        # blocks; K14 at 640 bytes of K and an odd d past 512 bytes (int8
+        # 1025: dp4a's K in chunks; bf16 257) on both units.
+        f10 = []
+        for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
+            for m, d, blk in ((256, 37, 130), (300, 1100, 515)):
+                xr = rand((m, d), dtype)
+                data, tops = hw._planted_walk(6, d, blk, 2, dtype, self.gen)
+                self.k12(f"{dtype} [6,{d},{blk}] x [{m},{d}] fat=2", xr, data, blk, 2, True,
+                         tops, (None, "arbitrary"))
+                f10.append(f"K12 {dtype} x [{m},{d}] blk {blk}")
+            data = rand((40, 3, 5), dtype)
+            for depth in (9, 16):
+                ntrials += self.k13(f"{dtype} [40,3,5]", data, depth, plant, decoy, 4)
+                f10.append(f"K13 {dtype} [40,3,5] depth {depth}")
+        for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
+            for tb, tn, d, g in ((65, 130, 640 // dtype.itemsize, 37),
+                                 (20, 40, 1025 if dtype == torch.int8 else 257, 37)):
+                q, v = rand((tb, d), dtype), rand((d, tn), dtype)
+                self.check("K14", f"{dtype} {unit} [{tb},{d}]x[{d},{tn}] steps",
+                           hw._gemm_rate_steps(q, v, g, tb, tn, True, unit),
+                           hw._gemm_rate_steps_reference(q, v, g, tb, tn, True, unit),
+                           self.k14_tol(q, v, g))
+                f10.append(f"K14 {dtype} {unit} d {d}")
+        return ntrials, f10
+
+
+def probe_other_cards(torch, hw_probe, t0: float) -> None:
+    """K11-K14 on each card after the first, in turn: counters reset just
+    before and read just after, the probes' entry points at toy sizes
+    through every path past 48 KB of dynamic shared memory (K12's product,
+    K13 at depth 8, K14 at d 512: int8 on ``wgmma``, bf16 chunked, int8 on
+    ``__dp4a``); then :meth:`ProbeChecks.ragged` there.  Prints one line a
+    card, with its launches and max |err|; the main path's counts are not
+    touched.  Raises where a kernel is refused, not launched or differs."""
+    for i in range(1, torch.cuda.device_count()):
+        t = time.time()
+        c = torch.device("cuda", i)
+        for key in hw_probe.LAUNCHES:
+            hw_probe.LAUNCHES[key] = 0
+        hw_probe.probe_pallas_step(repeats=2, device=c, grids=(4, 64))
+        hw_probe.probe_pallas_stream(repeats=2, device=c, total=32 << 20, blks=(2048,))
+        hw_probe.probe_pallas_dma(repeats=2, device=c, total=64 << 20,
+                                  cases=((torch.int8, 2048),), depths=(8,))
+        hw_probe.probe_pallas_gemm(repeats=2, device=c, shapes=((256, 512),), gs=(4, 16), d=512)
+        torch.cuda.synchronize(c)
+        launches = dict(hw_probe.LAUNCHES)
+        if min(launches.values()) < 1:
+            raise AssertionError(f"the probes did not launch every kernel on {c}: {launches}")
+        checks = ProbeChecks(torch, hw_probe, c, 12 + i)
+        ntrials, _ = checks.ragged()
+        torch.cuda.synchronize(c)
+        phase("probe", t0, f"{c} ({torch.cuda.get_device_name(c)}): the probes' entry points "
+              f"launched {launches}; K11-K14 equal to their plain versions at the ragged and "
+              f"F10 shapes ({ntrials} K13 trials), max |err| {checks.errs} "
+              f"({time.time() - t:.1f}s)")
+
+
 def main() -> None:
     import torch
 
@@ -681,7 +900,7 @@ def main() -> None:
 
     from rag_on_edge_tpu_torch import BruteForceIndex, IVFIndex
     from rag_on_edge_tpu_torch.harness import bench_gemm, hw_probe, kernel_lab, timing
-    from rag_on_edge_tpu_torch.harness.timing import BF16_OPS_S, INT8_OPS_S, OPS32_S
+    from rag_on_edge_tpu_torch.harness.timing import BF16_OPS_S, DP4A_OPS_S, INT8_OPS_S, OPS32_S
     from rag_on_edge_tpu_torch.models import ivf as ivf_mod
     from rag_on_edge_tpu_torch.ops import (_build, bruteforce_accum, bruteforce_fused,
                                            fused_topk, ivf_accum, ivf_scan, quantize,
@@ -2498,178 +2717,18 @@ def main() -> None:
     # plain version at a ragged shape and at one JAX size, then the probes.
     del operands
     torch.cuda.empty_cache()
-    pgen = torch.Generator(device=dev).manual_seed(12)
-
-    def prand(shape, dtype):
-        if dtype == torch.int8:
-            return torch.randint(-127, 127, shape, generator=pgen, device=dev, dtype=dtype)
-        return torch.randn(shape, generator=pgen, device=dev, dtype=dtype)
-
-    def bf16_bound(a_, b_):
-        """2·K·2**-24·max(|A| @ |B|): two fp32 sums of K products, in any
-        order, differ by at most this at the maximum entry."""
-        return 2.0 * a_.shape[-1] * 2.0**-24 * float(
-            torch.matmul(a_.double().abs(), b_.double().abs()).max())
-
-    def k12_bf16_tol(x_, data_, fat_):
-        """Each step's bf16 bound: 2·d·2**-24·max(|x| @ |tile|) over its
-        fat tiles."""
-        nb, d_, blk_ = data_.shape
-        prod = torch.matmul(x_.double().abs(),
-                            data_.double().abs().reshape(nb // fat_, fat_, d_, blk_))
-        return 2.0 * d_ * 2.0**-24 * prod.amax(dim=(1, 2, 3))
-
-    def k14_bf16_tol(q_, v_, g_):
-        """Each step's bf16 bound: 2·d·2**-24·max(|twisted q| @ |v|)."""
-        va, out = v_.double().abs(), []
-        for s0 in range(0, g_, 64):
-            ids = torch.arange(s0, min(g_, s0 + 64), device=dev)
-            qx_ = hw_probe._twisted_q(q_, ids, torch.float64)
-            out.append(torch.matmul(qx_.abs(), va).amax(dim=(1, 2)))
-        return 2.0 * q_.shape[1] * 2.0**-24 * torch.cat(out)
-
-    probe_err = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
-
-    def probe_check(key, name, got, want, tol=0.0):
-        """``got`` against ``want`` within ``tol`` (a number, or one per
-        element); NaN, which the per-step views leave where no CTA wrote,
-        fails."""
-        torch.cuda.synchronize()
-        diff = (got.double() - want.double()).abs()
-        if got.shape != want.shape or not bool((diff <= tol).all()):
-            raise AssertionError(f"{key} {name} differs from its plain version: |err| "
-                                 f"{float(diff.max())}, tolerance "
-                                 f"{float(torch.as_tensor(tol).max())}")
-        probe_err[key] = max(probe_err[key], float(diff.max()))
-
-    def k12_checks(name, x_, data_, blk_, fat_, gemm, tops, sems):
-        """K12's value and its whole per-step buffer against the plain
-        version; without the product, also against the planted maxima."""
-        want = hw_probe._stream_steps_reference(x_, data_, fat_, gemm)
-        if not gemm and not torch.equal(want, tops):
-            raise AssertionError(f"K12 {name}: the plain version missed the planted maxima")
-        tol = (k12_bf16_tol(x_, data_, fat_) if gemm and data_.dtype == torch.bfloat16
-               else torch.zeros_like(want, dtype=torch.float64))
-        for sem in sems:
-            probe_check("K12", f"{name} gemm={gemm} {sem} steps",
-                        hw_probe._stream_steps(x_, data_, blk_, fat_, gemm, sem), want, tol)
-            probe_check("K12", f"{name} gemm={gemm} {sem}",
-                        hw_probe._stream_probe(x_, data_, blk_, fat_, gemm, sem),
-                        hw_probe._stream_probe_reference(x_, data_, blk_, fat_, gemm, sem),
-                        tol[-1:])
-
-    def k13_trials(name, data_, depth, plant, decoy, n):
-        """K13 against its plain version with one value planted at a time
-        above the bulk: ``plant`` at the first and the last walked element
-        and at ``n`` seeded random walked ones, so that a walk or a ring
-        that skips, drops or reuses a stage misses it; first, where blocks
-        lie past the walk, ``decoy`` there alone, which a walk that reads
-        past its end would return."""
-        flat = data_.view(-1)
-        walked = hw_probe._dma_blocks(data_, depth) * data_[0].numel()
-        trials = [(0, plant), (walked - 1, plant)] + [
-            (p_, plant) for p_ in torch.randint(walked, (n,), generator=pgen,
-                                                device=dev).tolist()]
-        if walked < flat.numel():
-            trials.insert(0, (walked + int(torch.randint(flat.numel() - walked, (1,),
-                                                         generator=pgen, device=dev)), decoy))
-        for pos, val in trials:
-            old = flat[pos].clone()
-            flat[pos] = val
-            want = hw_probe._dma_probe_reference(x1, data_, depth)
-            if (float(want) == val) != (pos < walked):
-                raise AssertionError(f"K13 {name}: the bulk reaches the planted {val}")
-            probe_check("K13", f"{name} depth={depth} {val} at {pos}",
-                        hw_probe._dma_probe(x1, data_, depth), want)
-            flat[pos] = old
-        return len(trials)
-
     t = time.time()
-    xs = prand((8, 128), torch.float32)
-    x1 = torch.ones((8, 128), dtype=torch.float32, device=dev)
-    for g_ in (3, 300):
-        for moving in (False, True):
-            for sem in hw_probe.SEMANTICS:
-                probe_check("K11", f"g={g_} moving={moving} {sem}",
-                            hw_probe._step_probe(xs, g_, moving, sem),
-                            hw_probe._step_probe_reference(xs, g_, moving, sem))
-    ntrials = 0
-    for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
-        # The product's edges beside the ragged walk: x of 1 and 65 rows (one
-        # past a warpgroup), blk 128 (16-byte cp.async pieces) and 2052 (a
-        # 4-byte row pitch: 4-byte pieces, the last slice 4 columns wide).
-        for m_, gemm, blk_ in ((100, False, 301), (100, True, 300), (1, True, 128),
-                               (65, True, 2052)):
-            xr = prand((m_, 36), dtype)
-            data_, tops = hw_probe._planted_walk(9, 36, blk_, 3, dtype, pgen)
-            k12_checks(f"{dtype} [9,36,{blk_}] x [{m_},36] fat=3", xr, data_, blk_, 3, gemm,
-                       tops, hw_probe.SEMANTICS)
-        data_ = prand((11, 24, 40), dtype)
-        for depth in (3, 8):
-            ntrials += k13_trials(f"{dtype} [11,24,40]", data_, depth, plant, decoy, 4)
-    # bf16 over 36 MB: ~17 stages a CTA, so the ring wraps at depth 3 and 8,
-    # and 70 blocks leave blocks past the walk at both.
-    data_ = prand((70, 128, 2048), torch.bfloat16)
-    for depth in (3, 8):
-        ntrials += k13_trials("bf16 [70,128,2048]", data_, depth, 64.0, 128.0, 16)
-    # K14's ragged shape, then the edges of its wgmma design: tb 64 (one
-    # warpgroup) and 65, tn 16 and 130, d 32 and 48 (int8: one and 1.5
-    # k-steps) and the 512-byte cap (0: int8 512, bf16 256); g 37 and 300,
-    # which no CTA count a unit divides.
-    k14_shapes = ((200, 300, 96, 37), (65, 130, 48, 300), (64, 16, 32, 37), (65, 16, 0, 37))
-    for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
-        for tb_, tn_, d_, g_ in k14_shapes:
-            d_ = d_ or 512 // dtype.itemsize
-            q_, v_ = prand((tb_, d_), dtype), prand((d_, tn_), dtype)
-            tol = (k14_bf16_tol(q_, v_, g_) if dtype == torch.bfloat16
-                   else torch.zeros(g_, dtype=torch.float64, device=dev))
-            name = f"{dtype} {unit} [{tb_},{d_}]x[{d_},{tn_}] g={g_}"
-            probe_check("K14", f"{name} steps",
-                        hw_probe._gemm_rate_steps(q_, v_, g_, tb_, tn_, True, unit),
-                        hw_probe._gemm_rate_steps_reference(q_, v_, g_, tb_, tn_, True, unit),
-                        tol)
-            probe_check("K14", name,
-                        hw_probe._gemm_rate_probe(xs, q_, v_, g_, tb_, tn_, True, unit),
-                        hw_probe._gemm_rate_probe_reference(xs, q_, v_, g_, tb_, tn_, True, unit),
-                        tol[-1:])
-    # F10: what the probes once refused.  K12's product at 256 and 300 x
-    # rows (row tiles in turn), odd d and blk (padded to 4-byte words), and
-    # d 1100 (K past 512 bytes: x rides the ring); K13 at JAX depths 9 and
-    # 16 (past the ring of 8) over 15-byte int8 / 30-byte bf16 blocks; K14
-    # at 640 bytes of K and an odd d past 512 bytes (int8 1025: dp4a's K in
-    # chunks; bf16 257) on both units.
-    f10 = []
-    for dtype, plant, decoy in ((torch.int8, 127, 127), (torch.bfloat16, 64.0, 128.0)):
-        for m_, d_, blk_ in ((256, 37, 130), (300, 1100, 515)):
-            xr = prand((m_, d_), dtype)
-            data_, tops = hw_probe._planted_walk(6, d_, blk_, 2, dtype, pgen)
-            k12_checks(f"{dtype} [6,{d_},{blk_}] x [{m_},{d_}] fat=2", xr, data_, blk_, 2, True,
-                       tops, (None, "arbitrary"))
-            f10.append(f"K12 {dtype} x [{m_},{d_}] blk {blk_}")
-        data_ = prand((40, 3, 5), dtype)
-        for depth in (9, 16):
-            ntrials += k13_trials(f"{dtype} [40,3,5]", data_, depth, plant, decoy, 4)
-            f10.append(f"K13 {dtype} [40,3,5] depth {depth}")
-    for dtype, unit in ((torch.int8, "mma"), (torch.int8, "dp4a"), (torch.bfloat16, "mma")):
-        for tb_, tn_, d_, g_ in ((65, 130, 640 // dtype.itemsize, 37),
-                                 (20, 40, 1025 if dtype == torch.int8 else 257, 37)):
-            q_, v_ = prand((tb_, d_), dtype), prand((d_, tn_), dtype)
-            tol = (k14_bf16_tol(q_, v_, g_) if dtype == torch.bfloat16
-                   else torch.zeros(g_, dtype=torch.float64, device=dev))
-            probe_check("K14", f"{dtype} {unit} [{tb_},{d_}]x[{d_},{tn_}] steps",
-                        hw_probe._gemm_rate_steps(q_, v_, g_, tb_, tn_, True, unit),
-                        hw_probe._gemm_rate_steps_reference(q_, v_, g_, tb_, tn_, True, unit),
-                        tol)
-            f10.append(f"K14 {dtype} {unit} d {d_}")
-    del data_, q_, v_, xr
+    pc = ProbeChecks(torch, hw_probe, dev, 12)
+    prand, pgen, x1 = pc.rand, pc.gen, pc.x1
+    ntrials, f10 = pc.ragged()
     phase("probe", t0, f"F10, equal to the plain versions (value and every step): {f10}")
     phase("probe", t0, f"K11-K14 equal to their plain versions at ragged shapes (K11 g 3 and "
           f"300; K12 [9,36,301] and, with the product, [9,36,300] x [100,36], [9,36,128] x "
           f"[1,36] and [9,36,2052] x [65,36], fat 3, planted step maxima, value and every "
           f"step; K13 [11,24,40] at depth 3 and 8 and bf16 [70,128,2048] (the ring wraps) at "
-          f"depth 3 and 8, {ntrials} planted trials; K14 (tb, tn, d, g) {k14_shapes} (d 0: "
+          f"depth 3 and 8, {ntrials} planted trials; K14 (tb, tn, d, g) {pc.K14_SHAPES} (d 0: "
           f"the 512-byte cap) on wgmma and dp4a, sel, value and every step), max |err| "
-          f"{probe_err} ({time.time() - t:.1f}s)")
+          f"{pc.errs} ({time.time() - t:.1f}s)")
 
     # One JAX size each, timed beside the plain version (and data.amax()):
     # device time of REPS calls captured in one CUDA graph, since the
@@ -2679,19 +2738,36 @@ def main() -> None:
     def gms(fn):
         return timing.graph_ms(fn, dev, calls=REPS)
 
-    probe_check("K11", "g=4096 moving", hw_probe._step_probe(x1, 4096, True, None),
-                hw_probe._step_probe_reference(x1, 4096, True, None))
+    pc.check("K11", "g=4096 moving", hw_probe._step_probe(x1, 4096, True, None),
+             hw_probe._step_probe_reference(x1, 4096, True, None))
+    # The timed call writes the moving input (16 MB, as the JAX broadcast
+    # does) and the kernel reads it: its bound counts both.  The kernel's own
+    # device time stands beside it; the HBM bound of its read alone does not
+    # hold it, since it reads the L2 the write just filled.
+    k11_by_kernel = device_ms_by_kernel(
+        torch, lambda: hw_probe._step_probe(x1, 4096, True, None), calls=REPS)
+    if isinstance(k11_by_kernel, str):
+        k11_kernel_ms = None
+    else:
+        k11_kernel_ms = sum(ms for name, ms in k11_by_kernel.items()
+                            if "step_grid_kernel" in name)
+        if not k11_kernel_ms:
+            raise AssertionError(f"torch.profiler saw no step_grid_kernel in K11's call: "
+                                 f"{k11_by_kernel}")
     k11 = dict(ms=gms(lambda: hw_probe._step_probe(x1, 4096, True, None)),
                plain_ms=gms(lambda: hw_probe._step_probe_reference(
                    x1, 4096, True, None)),
-               bound=bound(4096 * 4096 + 4096, 0, INT8_OPS_S))
+               bound=bound(2 * 4096 * 4096 + 2 * 4096, 0, INT8_OPS_S),
+               kernel_ms=k11_kernel_ms,
+               kernel_read_hbm_ms=bound(4096 * 4096 + 4096, 0, INT8_OPS_S)[0],
+               by_kernel=k11_by_kernel)
     D128, BLK2 = 128, 2048
     walk, tops = hw_probe._planted_walk((512 << 20) // (D128 * BLK2), D128, BLK2, 1, torch.int8,
                                         pgen)
     xw = prand((128, D128), torch.int8)
     k12 = {}
     for gemm in (False, True):
-        k12_checks(f"int8 512 MB blk={BLK2}", xw, walk, BLK2, 1, gemm, tops,
+        pc.k12(f"int8 512 MB blk={BLK2}", xw, walk, BLK2, 1, gemm, tops,
                    (None, "arbitrary"))
         k12[gemm] = dict(
             ms=gms(lambda: hw_probe._stream_probe(xw, walk, BLK2, 1, gemm, None)),
@@ -2706,7 +2782,7 @@ def main() -> None:
     walk, tops = hw_probe._planted_walk((512 << 20) // (D128 * BLK2 * 2), D128, BLK2, 1,
                                         torch.bfloat16, pgen)
     xw = prand((128, D128), torch.bfloat16)
-    k12_checks(f"bf16 512 MB blk={BLK2}", xw, walk, BLK2, 1, True, tops, (None, "arbitrary"))
+    pc.k12(f"bf16 512 MB blk={BLK2}", xw, walk, BLK2, 1, True, tops, (None, "arbitrary"))
     k12["bf16"] = dict(
         ms=gms(lambda: hw_probe._stream_probe(xw, walk, BLK2, 1, True, None)),
         plain_ms=gms(lambda: hw_probe._stream_probe_reference(xw, walk, BLK2, 1, True, None)),
@@ -2715,7 +2791,7 @@ def main() -> None:
     del walk, tops, xw
     torch.cuda.empty_cache()
     walk = prand(((2 << 30) // (D128 * BLK2), D128, BLK2), torch.int8)
-    k13_n = k13_trials("int8 2 GiB", walk, 8, 127, 127, 16)
+    k13_n = pc.k13("int8 2 GiB", walk, 8, 127, 127, 16)
     k13 = dict(ms=gms(lambda: hw_probe._dma_probe(x1, walk, 8)),
                plain_ms=gms(lambda: hw_probe._dma_probe_reference(x1, walk, 8)),
                lib_ms=gms(lambda: walk.amax()),
@@ -2724,18 +2800,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     TB, TN, G = 256, 2048, 2048
     k14 = {}
-    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
+    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", DP4A_OPS_S),
                               (torch.bfloat16, "mma", BF16_OPS_S)):
         q_, v_ = prand((TB, D128), dtype), prand((D128, TN), dtype)
-        tol = (k14_bf16_tol(q_, v_, G) if dtype == torch.bfloat16
-               else torch.zeros(G, dtype=torch.float64, device=dev))
-        probe_check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G} steps",
-                    hw_probe._gemm_rate_steps(q_, v_, G, TB, TN, False, unit),
-                    hw_probe._gemm_rate_steps_reference(q_, v_, G, TB, TN, False, unit), tol)
-        probe_check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G}",
-                    hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False, unit),
-                    hw_probe._gemm_rate_probe_reference(x1, q_, v_, G, TB, TN, False, unit),
-                    tol[-1:])
+        tol = pc.k14_tol(q_, v_, G)
+        pc.check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G} steps",
+                 hw_probe._gemm_rate_steps(q_, v_, G, TB, TN, False, unit),
+                 hw_probe._gemm_rate_steps_reference(q_, v_, G, TB, TN, False, unit), tol)
+        pc.check("K14", f"{dtype} {unit} ({TB}, {TN}) g={G}",
+                 hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False, unit),
+                 hw_probe._gemm_rate_probe_reference(x1, q_, v_, G, TB, TN, False, unit),
+                 tol[-1:])
         units = (TB // 128) * (TN // 128)
         k14[f"{str(dtype).split('.')[1]} {unit}"] = dict(
             ms=gms(lambda: hw_probe._gemm_rate_probe(x1, q_, v_, G, TB, TN, False,
@@ -2750,7 +2825,7 @@ def main() -> None:
           f"plain ms, library ms, bound: K11 g=4096 moving {k11}; K12 int8 512 MB blk={BLK2} "
           f"{k12[False]}, with the product {k12[True]}, bf16 with the product "
           f"{k12['bf16']}; K13 int8 2 GiB depth 8 {k13}; K14 "
-          f"({TB}, {TN}) g={G} {k14}")
+          f"({TB}, {TN}) g={G} {k14} (the dp4a bound at {DP4A_OPS_S / 1e12:.1f} T ops/s)")
 
     # The probes themselves, counted, at the JAX sizes.
     t = time.time()
@@ -2762,6 +2837,12 @@ def main() -> None:
           f"{probe_launches}")
     if min(probe_launches.values()) < 1:
         raise AssertionError(f"the probes did not launch every kernel: {probe_launches}")
+    # F12: every card after the first, a line each (the counts and errors
+    # above stay the main path's, on this card).
+    if torch.cuda.device_count() > 1:
+        probe_other_cards(torch, hw_probe, t0)
+    else:
+        phase("probe", t0, "other cards: not run (torch.cuda.device_count() is 1)")
     step, stream, dma, rate = (ceil[p] for p in ("pallas_step", "pallas_stream", "pallas_dma",
                                                  "pallas_gemm"))
     for name, value in (
@@ -3838,13 +3919,13 @@ def main() -> None:
         {"name": "_step_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:111",
-         "launches": probe_launches["K11"], "max_abs_err": probe_err["K11"], "ms": k11["ms"],
+         "launches": probe_launches["K11"], "max_abs_err": pc.errs["K11"], "ms": k11["ms"],
          "plain_ms": k11["plain_ms"], "bound_ms": k11["bound"][0], "bound_by": k11["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "kernel": "step_grid_kernel", "kernel_ms": k11["kernel_ms"]},
         {"name": "_stream_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:177",
-         "launches": probe_launches["K12"], "max_abs_err": probe_err["K12"],
+         "launches": probe_launches["K12"], "max_abs_err": pc.errs["K12"],
          "ms": k12[False]["ms"], "plain_ms": k12[False]["plain_ms"],
          "bound_ms": k12[False]["bound"][0], "bound_by": k12[False]["bound"][1],
          "library_ms": k12[False]["lib_ms"],
@@ -3855,13 +3936,13 @@ def main() -> None:
         {"name": "_dma_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:273",
-         "launches": probe_launches["K13"], "max_abs_err": probe_err["K13"], "ms": k13["ms"],
+         "launches": probe_launches["K13"], "max_abs_err": pc.errs["K13"], "ms": k13["ms"],
          "plain_ms": k13["plain_ms"], "bound_ms": k13["bound"][0], "bound_by": k13["bound"][1],
          "library_ms": k13["lib_ms"]},
         {"name": "_gemm_rate_probe", "route": "cuda",
          "source": "rag_on_edge_tpu_torch/csrc/hw_probe.cu",
          "replaces": "rag_on_edge_tpu/harness/hw_probe.py:351",
-         "launches": probe_launches["K14"], "max_abs_err": probe_err["K14"],
+         "launches": probe_launches["K14"], "max_abs_err": pc.errs["K14"],
          "ms": k14["int8 mma"]["ms"], "plain_ms": k14["int8 mma"]["plain_ms"],
          "bound_ms": k14["int8 mma"]["bound"][0], "bound_by": k14["int8 mma"]["bound"][1],
          "library_ms": None, "kernel": "gemm_rate_wgmma_kernel",

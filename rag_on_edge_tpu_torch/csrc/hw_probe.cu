@@ -1003,22 +1003,38 @@ int sm_count(int* sms) {
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// Let `kernel` take dynamic shared memory up to the card's opt-in limit:
-// past 48 KB of static plus dynamic, a launch is refused unless this
-// attribute allows it.  Each launcher sets it once (a function-local
-// static), on its first call, so that no later call, such as one under
-// CUDA graph capture, touches it.
-template <typename K>
-int allow_smem(K kernel) {
+// Let each of `kernels` take dynamic shared memory up to the card's opt-in
+// limit: past 48 KB of static plus dynamic, a launch is refused unless this
+// attribute allows it.  The attribute belongs to one device, so each
+// launcher keeps a flag per device ordinal (`done`, one set of flags per
+// kernel instance or group of instances it launches) and sets the attribute
+// on its first call on the current device; no later call there, such as one
+// under CUDA graph capture, touches it.  K2's smem_limit (fused_topk.cu)
+// does the same.
+constexpr int MAX_DEVICES = 64;
+using DeviceFlags = bool[MAX_DEVICES];
+
+template <typename... K>
+int allow_smem(DeviceFlags& done, K... kernels) {
   int dev, optin;
-  cudaFuncAttributes fa;
   if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
   if (const cudaError_t e =
           cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
     return (int)e;
-  if (const cudaError_t e = cudaFuncGetAttributes(&fa, kernel)) return (int)e;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   optin - (int)fa.sharedSizeBytes);
+  cudaError_t err = cudaSuccess;
+  auto one = [&](auto kernel) {
+    cudaFuncAttributes fa;
+    if (!err) err = cudaFuncGetAttributes(&fa, kernel);
+    if (!err)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - (int)fa.sharedSizeBytes);
+  };
+  (one(kernels), ...);
+  if (err) return (int)err;
+  done[dev] = true;
+  return 0;
 }
 
 template <Elem E>
@@ -1052,10 +1068,11 @@ int launch_stream(const void* x, const void* data, void* steps, int m, int ldx, 
     const int fixed = base + (xring ? 0 : xtiles * UNIT);
     int stages = persistent ? 0 : min(MAX_STAGES, (SMEM_TWO - fixed) / sst);
     if (stages < 2) stages = min(MAX_STAGES, (SMEM_ONE - fixed) / sst);
-    static const int smem_err = allow_smem(stream_wgmma_kernel<T, false, false>) |
-                                allow_smem(stream_wgmma_kernel<T, false, true>) |
-                                allow_smem(stream_wgmma_kernel<T, true, true>);
-    if (smem_err) return smem_err;
+    static DeviceFlags done;
+    if (const int e = allow_smem(done, stream_wgmma_kernel<T, false, false>,
+                                 stream_wgmma_kernel<T, false, true>,
+                                 stream_wgmma_kernel<T, true, true>))
+      return e;
     const int vec16 = (ldb * ES) % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
     auto* kernel = xring     ? stream_wgmma_kernel<T, true, true>
                    : m > BM ? stream_wgmma_kernel<T, false, true>
@@ -1077,8 +1094,8 @@ int launch_dma(const void* data, void* partial, void* out, long long nbytes, int
   const int grid = nbytes > 0 ? (int)max(1ll, min((long long)sms, nchunks)) : 0;
   if (grid > 0) {
     const int smem = depth * STAGE;
-    static const int smem_err = allow_smem(dma_ring_kernel<E>);
-    if (smem_err) return smem_err;
+    static DeviceFlags done;
+    if (const int e = allow_smem(done, dma_ring_kernel<E>)) return e;
     dma_ring_kernel<E><<<grid, THREADS, smem, st>>>(static_cast<const uint8_t*>(data),
                                                     static_cast<float*>(partial), nbytes, depth);
     if (const cudaError_t e = cudaGetLastError()) return (int)e;
@@ -1108,8 +1125,8 @@ template <typename T, int NKT>
 int launch_rate_wgmma(const void* q, const void* v, void* sink, void* out, int tb, int tn, int d,
                       int g, int reps, int sel, cudaStream_t st) {
   constexpr int smem = 1024 + (std::is_same_v<T, int8_t> ? (NKT + 3) / 4 * UNIT : NKT * 4096);
-  static const int smem_err = allow_smem(gemm_rate_wgmma_kernel<T, NKT>);
-  if (smem_err) return smem_err;
+  static DeviceFlags done;
+  if (const int e = allow_smem(done, gemm_rate_wgmma_kernel<T, NKT>)) return e;
   return launch_rate(gemm_rate_wgmma_kernel<T, NKT>, smem, q, v, sink, out, tb, tn, d, g, reps,
                      sel, st);
 }
@@ -1187,8 +1204,8 @@ extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* sink, void
   const auto st = static_cast<cudaStream_t>(stream);
   if (dp4a) {
     if (bf16) return (int)cudaErrorInvalidValue;
-    static const int smem_err = allow_smem(gemm_rate_dp4a_kernel);
-    if (smem_err) return smem_err;
+    static DeviceFlags done;
+    if (const int e = allow_smem(done, gemm_rate_dp4a_kernel)) return e;
     const int cw = min((((d + 3) / 4 + 3) & ~3), DP4A_CW_MAX);
     const int smem = 2 * BM * (cw + 4) * 4;
     return launch_rate(gemm_rate_dp4a_kernel, smem, q, v, sink, out, tb, tn, d, g, reps, sel,
@@ -1197,13 +1214,13 @@ extern "C" int hw_gemm_rate_probe(const void* q, const void* v, void* sink, void
   if (nkt > 16) {
     constexpr int smem = 1024 + 4 * UNIT;  // a chunk's B: int8 four units, bf16 two N-halves
     if (bf16) {
-      static const int err = allow_smem(gemm_rate_chunked_kernel<__nv_bfloat16>);
-      if (err) return err;
+      static DeviceFlags done;
+      if (const int e = allow_smem(done, gemm_rate_chunked_kernel<__nv_bfloat16>)) return e;
       return launch_rate(gemm_rate_chunked_kernel<__nv_bfloat16>, smem, q, v, sink, out, tb, tn,
                          d, g, reps, sel, st);
     }
-    static const int err = allow_smem(gemm_rate_chunked_kernel<int8_t>);
-    if (err) return err;
+    static DeviceFlags done;
+    if (const int e = allow_smem(done, gemm_rate_chunked_kernel<int8_t>)) return e;
     return launch_rate(gemm_rate_chunked_kernel<int8_t>, smem, q, v, sink, out, tb, tn, d, g,
                        reps, sel, st);
   }

@@ -113,8 +113,8 @@ import time
 import numpy as np
 import torch
 
-from rag_on_edge_tpu_torch.harness.timing import (BF16_OPS_S, INT8_OPS_S, OPS32_S, bmm_ms,
-                                                  bound_ms, median_ms, walked_blocks)
+from rag_on_edge_tpu_torch.harness.timing import (BF16_OPS_S, DP4A_OPS_S, INT8_OPS_S, OPS32_S,
+                                                  bmm_ms, bound_ms, median_ms, walked_blocks)
 
 K, NPROBE, BATCH, KK = 10, 4, 8192, 20
 
@@ -183,7 +183,7 @@ def _probes(dev, reps: int) -> dict:
     out = {}
     tb, tn, d, g = 256, 2048, 128, 2048
     x1 = torch.zeros((8, 128), device=dev)
-    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", INT8_OPS_S),
+    for dtype, unit, rate in ((torch.int8, "mma", INT8_OPS_S), (torch.int8, "dp4a", DP4A_OPS_S),
                               (torch.bfloat16, "mma", BF16_OPS_S)):
         q, v = rand((tb, d), dtype), rand((d, tn), dtype)
         units = (tb // 128) * (tn // 128)

@@ -52,11 +52,16 @@ from rag_on_edge_tpu_torch.utils.metrics import LatencyStats
 __all__ = ["unique_variants", "run_chain", "measure_latency", "measure_throughput",
            "per_call_ms", "sync_latency_ms", "graph_ms", "median_ms", "bound_ms",
            "walked_blocks", "live_rows", "live_products", "bmm_ms", "HBM_BYTES_S", "INT8_OPS_S",
-           "BF16_OPS_S", "OPS32_S"]
+           "BF16_OPS_S", "OPS32_S", "DP4A_OPS_S"]
 
 # H100 SXM5 peaks at a 700 W power limit (NVIDIA's data sheet): HBM3 bytes/s,
 # dense int8 and bf16 tensor-core ops/s, and 32-bit non-tensor ops/s (FFMA).
 HBM_BYTES_S, INT8_OPS_S, BF16_OPS_S, OPS32_S = 3.35e12, 1979e12, 989e12, 67e12
+# __dp4a (IDP.4A) ops/s at the same 1980 MHz boost clock: 132 SMs x 64 a
+# clock per SM (the CUDA C++ Programming Guide's throughput of 32-bit
+# integer multiply-add on compute capability 9.0, the pipe IDP issues on) x
+# 8 ops each (four int8 multiply-adds), ~133.8e12.
+DP4A_OPS_S = 132 * 64 * 8 * 1.98e9
 
 
 def _unique(devices) -> list[torch.device]:
@@ -199,22 +204,26 @@ def graph_ms(fn, device, calls: int, replays: int = 3) -> float:
     """Mean device time per call, in ms, of ``calls`` ``fn()`` calls
     captured in one CUDA graph, over ``replays`` replays after one.  Two
     warm-up calls run first on a side stream, outside the capture (builds,
-    kernel attributes, library workspaces).  CUDA devices only."""
+    kernel attributes, library workspaces).  CUDA devices only; ``device``
+    is made current, and the capture runs on a stream of its own there
+    (``torch.cuda.graph``'s default capture stream is made once, on
+    whichever device was current then)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"graph_ms times a CUDA device, not {dev}")
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        fn()
-        fn()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
             fn()
-    ms = per_call_ms(graph.replay, [dev], calls=replays, warmup=1) / calls
-    del graph
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+            for _ in range(calls):
+                fn()
+        ms = per_call_ms(graph.replay, [dev], calls=replays, warmup=1) / calls
+        del graph
     return ms
 
 

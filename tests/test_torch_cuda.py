@@ -2597,3 +2597,86 @@ def test_int8_l2_ivf_at_d3072_card_equals_cpu(dev):
     want = search("cpu")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Every kernel on every card (F12).  A kernel's launch attributes, such as
+# the opt-in past 48 KB of dynamic shared memory, belong to one device: a
+# wrapper that sets them once a process has every card after the first
+# refuse the launch.  Each case runs its kernel's card tests at shapes whose
+# launch takes more than 48 KB of dynamic shared memory, on cuda:0 and then
+# on each further card in turn, with cuda:0 left current; each test holds
+# the kernel against its plain version as it does on one card (bit-equal,
+# or within its stated bf16 bound).  K8 also keeps its own,
+# test_k8_kernel_on_every_card, at another shape.
+
+
+def _k12_k13_graphed(card):
+    """K13 at depth 8 and K12's product (int8, fat 4) captured in one CUDA
+    graph on ``card`` and replayed (``timing.graph_ms`` through
+    ``hw_probe._graph_ms``): every captured launch counted once a replay,
+    the replayed results equal to the plain versions."""
+    gen = _probe_gen(card, 59)
+    data = _rand_op((70, 128, 2048), torch.int8, gen, card)
+    walk, _ = hw_probe._planted_walk(64, 128, 2048, 4, torch.int8, gen)
+    xw, x1 = _rand_op((128, 128), torch.int8, gen, card), torch.zeros((8, 128), device=card)
+    out = torch.full((2,), float("nan"), device=card)
+
+    def both():
+        out[:1].copy_(hw_probe._dma_probe(x1, data, 8))
+        out[1:].copy_(hw_probe._stream_probe(xw, walk, 2048, 4, True, None))
+
+    before = dict(hw_probe.LAUNCHES)
+    assert hw_probe._graph_ms(both, card, 2) > 0
+    torch.cuda.synchronize(card)
+    # Two warm-up calls, then two captured calls run by 3 + 1 replays; K13
+    # launches two kernels a call, K12 one.
+    assert hw_probe.LAUNCHES["K13"] - before["K13"] == 2 * (2 + 2 * 4)
+    assert hw_probe.LAUNCHES["K12"] - before["K12"] == 2 + 2 * 4
+    assert torch.equal(out[:1], hw_probe._dma_probe_reference(x1, data, 8))
+    assert torch.equal(out[1:], hw_probe._stream_probe_reference(xw, walk, 2048, 4, True, None))
+
+
+def _k14_wide(card):
+    # wgmma with B resident at the 16 k-step cap (int8 d 512, bf16 d 256),
+    # the chunked kernel past it (640 bytes of K), dp4a's wide tiles.
+    for dtype, unit, d in ((torch.int8, "mma", "cap"), (torch.bfloat16, "mma", "cap"),
+                           (torch.int8, "mma", "640B"), (torch.bfloat16, "mma", "640B"),
+                           (torch.int8, "dp4a", "cap"), (torch.int8, "dp4a", "odd")):
+        test_k14_kernel_equal_to_plain(card, dtype, unit, 65, 130, d, 37, True)
+
+
+EVERY_CARD = {
+    "K1": lambda c: test_k1_kernel_bit_equal_to_plain(c, *K1_SHAPES[0], False, True),
+    "K2": lambda c: test_k2_kernel_wide_rows_equal_to_plain(c, 16512, "int32", 20),
+    "K3": lambda c: test_k3_kernel_equal_to_plain(c, "t2048-d512", 128, "i8_l2"),
+    "K4": lambda c: test_k4_kernel_equal_to_plain(c, *K4_SHAPES[0].values, 2, True, False),
+    "K5": lambda c: test_k5_kernel_equal_to_plain(c, "l2"),
+    "K6": lambda c: test_k6_kernel_equal_to_plain(c, *K6_SHAPES[0].values, 2, True, "dense"),
+    "K7": lambda c: test_k7_kernel_equal_to_plain_and_to_k4_k6(c, *K4_SHAPES[0].values, 2,
+                                                                True, False),
+    "K8": lambda c: [test_k8_kernel_equal_to_plain(c, "tiles", dt)
+                     for dt in ("int8", "bf16", "fp32")],
+    "K9": lambda c: test_k9_kernel_equal_to_plain(c, *K1_SHAPES[0][:4], (-127, 128), "l2bias",
+                                                  True, 20),
+    "K10": lambda c: test_k10_kernel_equal_to_plain_and_full_to_k6(
+        c, *K6_SHAPES[0].values[:6], "full"),
+    "K11": lambda c: [test_k11_kernel_equal_to_plain(c, 300, True, sem)
+                      for sem in hw_probe.SEMANTICS],
+    "K12": lambda c: [test_k12_kernel_equal_to_plain_at_jax_width(c, dt, True, sem)
+                      for dt in (torch.int8, torch.bfloat16) for sem in (None, "arbitrary")]
+    + [test_k12_product_past_the_old_caps_equal_to_plain(c, dt, 300, 1100, 515)
+       for dt in (torch.int8, torch.bfloat16)],
+    "K13": lambda c: [test_k13_kernel_equal_to_plain(c, dt, (70, 128, 2048), 8)
+                      for dt in (torch.int8, torch.bfloat16)],
+    "K14": _k14_wide,
+    "K12-K13-graph": _k12_k13_graphed,
+}
+
+
+@pytest.mark.parametrize("kernel", list(EVERY_CARD))
+def test_every_kernel_on_every_card(dev, kernel):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    for i in range(torch.cuda.device_count()):
+        EVERY_CARD[kernel](torch.device("cuda", i))

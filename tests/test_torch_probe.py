@@ -52,12 +52,17 @@ def _bf16_bound(a, b):
     return 2.0 * a.shape[-1] * 2.0**-24 * float(prod.max())
 
 
-@pytest.mark.parametrize("semantics", [None, "parallel"])
-@pytest.mark.parametrize("moving", [False, True], ids=["pinned", "moving"])
-def test_k11_step_probe_equals_jax(moving, semantics):
+# Every semantics, pinned and moving, at g 5 (ids without g) and 133.
+K11_CASES = [pytest.param(g, moving, sem, id=("" if g == 5 else f"g{g}-") + f"{mid}-{sem}")
+             for g in (5, 133) for moving, mid in ((False, "pinned"), (True, "moving"))
+             for sem in thp.SEMANTICS]
+
+
+@pytest.mark.parametrize("g,moving,semantics", K11_CASES)
+def test_k11_step_probe_equals_jax(g, moving, semantics):
     xj, xt = _operand(np.random.default_rng(11), (8, 128), "f32")
-    want = _jax(jhp._step_probe, xj, 5, moving, semantics)
-    got = thp._step_probe(xt, 5, moving, semantics)
+    want = _jax(jhp._step_probe, xj, g, moving, semantics)
+    got = thp._step_probe(xt, g, moving, semantics)
     assert got.shape == (1,) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
 
